@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+Each source `ops/csrc/<name>.cu` has a plain C interface and is compiled
+with nvcc for sm_90a into `build/honerf_kernels/lib<name>-<hash>.so` at the
+repository root (the hash covers the sources, so an edited kernel is
+rebuilt), then loaded with ctypes.  Nothing is built at import time: the
+first CUDA call of a kernel builds it, and `build_all()` builds every
+source with one nvcc process each, started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "honerf_kernels"
+SOURCES = ("fused_hand", "fused_fine_full")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class Kernel:
+    """A hand-written kernel's launch count.  The wrapper adds one per
+    call that launches it on the card (never on the CPU path)."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.iterdir()):
+        if f.name == f"{name}.cu" or f.suffix == ".cuh":
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    out = _target(name)
+    if out.exists():
+        return out, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, proc, tmp
+
+
+def _finish(name: str, out: Path, proc, tmp: Optional[str]) -> str:
+    log = ""
+    if proc is not None:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+    return log
+
+
+def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Build every named source in parallel (one nvcc each); returns the
+    compiler's output (register and shared-memory use) per source."""
+    with _lock:
+        started = {n: _start(n) for n in names}
+        return {n: _finish(n, *started[n]) for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, building it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _finish(name, *_start(name))
+            lib = ctypes.CDLL(str(_target(name)))
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
