@@ -22,10 +22,34 @@ Phases, each of which fails the run when it fails:
               each kernel must have launched;
   4. check    the served pixels are finite, weight_sum lies in
               [0, 1 + 1e-3], and a patch of rays rendered again on the CPU
-              (the kernels' plain versions) agrees with the card's.
+              (the kernels' plain versions) agrees with the card's;
+  5. profile  one request under torch.profiler: device busy against the
+              host clock, device time by kernel;
+  6. kernel K3  the fine pass's backward against its plain version on
+              what one flagship train step hands it (441 rays x 128
+              samples = 56,448 points, the loss's cotangents), every
+              output (dp, drotT, doff, each dW, db) in L2; then at the
+              same points on seeded unit cotangents, held against the
+              distance between the plain version on the card and on the
+              CPU;
+  7. train    the hand model's offline train step
+              (train.offline.make_hand_train_step) at the flagship
+              configuration: 441 rays, 64 + 64 samples, 4 up-sample steps,
+              perturb 1, bf16 trunks, refine_pose on, the auto grad clip,
+              vgg_weight 0; 3 warm-up steps, then 20 timed ones.  The
+              launch counts are zeroed just before and read just after;
+              K1, K2 and K3 must each have launched, every loss and grad
+              norm be finite, and se3_refine have moved;
+  8. train check  one step's metrics and gradient tree on the card
+              against the same step on the CPU (plain versions), 64 rays,
+              perturb 0;
+  9. train profile  one train step under torch.profiler.
 
 Weights are random (geometric init plus seeded noise, so every embedding
-column is live).  The last lines of stdout are the card's
+column is live).  check_k3_faults.py runs the K3 and train checks below
+on K3 with planted faults (what each limit catches).  The last lines of
+stdout are the bounds per million points of the TPU kernels not yet
+ported (from their shapes), the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
 numbers, and the result line.  Exits nonzero, printing no result, when
 no CUDA device is present or a phase fails.
@@ -39,14 +63,19 @@ import subprocess
 import sys
 import time
 import traceback
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONF = os.path.join(ROOT, "confs", "wmask_realhand_hand1.conf")
+OBJ_CONF = os.path.join(ROOT, "confs", "wmask_realobj_bean.conf")
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 REQUEST_RAYS = 4096
+TRAIN_RAYS = 441            # train.batch_size of the conf
 N_REQUESTS = 3
 CHECK_RAYS = 128
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+CHECK_TRAIN_RAYS = 64
 # Kernel vs plain version on the card.  Both round the same operands to
 # bf16 but sum in f32 in another order, so now and then an activation
 # rounds to the neighbouring bf16 value (about one point in ten at the
@@ -57,6 +86,27 @@ CHECK_RAYS = 128
 # (max |plain|).
 TOL_MEDIAN = 1e-4
 TOL_MAX = 1e-2
+# K3 vs its plain version on a train step's own inputs: each output
+# within TOL_K3_L2 of the plain version's norm, in L2.  K2's elementwise
+# rule does not hold there: dW, db, drotT and doff sum every point's
+# flips (their median reaches 3.0e-4 of the range on other seeds of the
+# step), and on one seed flips move dp by up to 2.2e-2 of its range.
+# The limit sits between the sound kernel's worst over six seeds (1.7e-2)
+# and the smallest planted fault it must catch (6.3e-2).
+TOL_K3_L2 = 3e-2
+# K3 on seeded unit cotangents at the same points, the card tests' rule:
+# each output, in L2, within K3_FACTOR times the distance between the
+# plain version on the card and on the CPU (the same bf16 operands, f32
+# sums in another order) plus K3_REL of its norm.  This one catches the
+# faults of one small output (1% on doff or a color bias) that the real
+# step's flips hide.  The card tests hold 4x at random points; at the
+# step's points the last color layer's dW sits 10.4x that distance from
+# the plain version (0.179 vs 0.0172 of a norm of 70.3), so the factor
+# here is 10: that output reads 0.74 of the limit, and the smallest
+# planted fault (doff 1% high) ~2.4.  check_k3_faults.py reads both rules
+# on the sound kernel and on planted faults (PERF.md, the findings on K3).
+K3_FACTOR = 10.0
+K3_REL = 1e-3
 # Served rays vs the CPU render of the same rays.  A flip in the ladder
 # moves a sample by a fraction of its interval, which moves a pixel (the
 # JAX package saw 4.7e-2 per pixel between its bf16 ladder kernel and its
@@ -64,6 +114,14 @@ TOL_MAX = 1e-2
 # Both outputs lie in [0, 1], so the tolerances are absolute.
 TOL_RENDER_MEDIAN = 1e-3
 TOL_RENDER_MAX = 1e-1
+# One train step on the card vs on the CPU (plain versions), 64 rays,
+# perturb 0: each loss term relative to its value, each gradient leaf
+# as |card - cpu| / |cpu| (L2).  Flips in the bf16 ladder move samples,
+# as in the check phase.  Sound kernels, seeds 1-4 of the batch: loss
+# terms up to 2.9e-3, leaves up to 9.0e-2; the smallest planted faults
+# this catches: 0.109 (loss), 0.48 (leaf).
+TOL_TRAIN_LOSS = 1e-2
+TOL_TRAIN_GRAD = 2e-1
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -79,15 +137,21 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
-def compare(torch, what: str, got, want, tol_median=TOL_MEDIAN, tol_max=TOL_MAX, scale=None):
-    """(ok, max abs error, text): median and max of |got - want| over
-    every element against tol_median / tol_max times the output's range
-    (max |want| unless given)."""
+def err_readings(torch, got, want, scale=None):
+    """(median, p99, max) of |got - want| over every element, and the
+    output's range (max |want| unless given)."""
     err = (got.float() - want.float()).abs().flatten()
     if scale is None:
         scale = max(float(want.abs().max()), 1e-6)
     med, p99 = (float(torch.quantile(err, q)) for q in (0.5, 0.99))
-    mx = float(err.max())
+    return med, p99, float(err.max()), scale
+
+
+def compare(torch, what: str, got, want, tol_median=TOL_MEDIAN, tol_max=TOL_MAX, scale=None):
+    """(ok, max abs error, text): median and max of |got - want| over
+    every element against tol_median / tol_max times the output's range
+    (max |want| unless given)."""
+    med, p99, mx, scale = err_readings(torch, got, want, scale)
     ok = (bool(torch.isfinite(got).all()) and med <= tol_median * scale
           and mx <= tol_max * scale)
     text = (f"{what}: |err| median {med:.2e} p99 {p99:.2e} max {mx:.2e} vs range {scale:.3e} "
@@ -138,15 +202,98 @@ def k1_flops(cfg, n: int) -> float:
     return 2.0 * n * sum(i * o for i, o in trunk_dims(cfg, 1))
 
 
-def k2_flops(cfg, ccfg, n: int) -> float:
-    """Trunk forward + u-chain (transposed matmuls, layers n-2..0) + color
-    net, on n points."""
+def k5_flops(cfg, n: float) -> float:
+    """Trunk forward + u-chain (transposed matmuls, layers n-2..0) on n
+    points: K5's operations, and the trunk's share of K2's."""
     trunk = trunk_dims(cfg, cfg.d_out)
     fwd = sum(i * o for i, o in trunk)
     uchain = sum(cfg.d_hidden * i for i, _ in trunk[:-1])
+    return 2.0 * n * (fwd + uchain)
+
+
+def k2_flops(cfg, ccfg, n: float) -> float:
+    """K5's products + the color net, on n points."""
     cd = ccfg.dims
     color = sum(cd[l] * cd[l + 1] for l in range(len(cd) - 1))
-    return 2.0 * n * (fwd + uchain + color)
+    return k5_flops(cfg, n) + 2.0 * n * color
+
+
+def k3_flops(cfg, ccfg, n: float) -> float:
+    """The forward recomputed (K2's products), then for each product its
+    transpose (the cotangent of its input) and its dW = X^T dY: three
+    times K2's operations.  K6 is the same for K5."""
+    return 3.0 * k2_flops(cfg, ccfg, n)
+
+
+def k4_flops(obj_cfg, n: float) -> float:
+    """The object SDF forward (shrink skip) on n points, the 128 columns
+    K4 writes of its last layer."""
+    d, E = obj_cfg.dims, obj_cfg.input_width
+    last = len(d) - 2
+    return 2.0 * n * sum(
+        d[l] * (128 if l == last else d[l + 1] - (E if l + 1 in obj_cfg.skip_in else 0))
+        for l in range(last + 1))
+
+
+def clone_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v, device) for v in tree]
+    return tree.detach().to(device).clone()
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def device_profile(torch, label: str, fn) -> None:
+    """fn() once under torch.profiler: host-clock time, device busy (the
+    union of the device's kernel intervals) and device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, groups = [], {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        tr = evt.time_range
+        spans.append((tr.start, tr.end))
+        name = evt.name.split("(")[0].replace("honerf::", "")
+        if not name.endswith("_kernel") or "honerf" not in evt.name:
+            name = "torch: " + name[:60]
+        g = groups.setdefault(name, [0.0, 0])
+        g[0] += tr.elapsed_us()
+        g[1] += 1
+    if not spans:
+        log(f"profile: {label}: the profiler recorded no device time (not measured)")
+        return
+    spans.sort()
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    kern = sum(g[0] for g in groups.values())
+    log(f"profile: {label}, {wall_us / 1e3:.1f} ms on the host clock; device busy "
+        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), kernel time {kern / 1e3:.1f} ms in "
+        f"{len(spans)} launches")
+    for name, (us, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:14]:
+        log(f"  {us / 1e3:8.2f} ms {100 * us / kern:5.1f}%  x{cnt:<5d} {name}")
 
 
 def nbytes(ts) -> int:
@@ -156,6 +303,192 @@ def nbytes(ts) -> int:
 def bound(flops: float, n_bytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+# -- the flagship and its train step (check_k3_faults.py runs these too) --
+
+def flagship(torch, dev) -> SimpleNamespace:
+    """The flagship conf with bf16 trunks and its random weights on dev:
+    conf, sdf, color (the nets' configs), rcfg, tcfg, params."""
+    from honerf_torch.config import load_config
+    from honerf_torch.models.fields import (
+        color_config_from_conf,
+        init_color_params,
+        init_sdf_params,
+        init_variance_params,
+        sdf_config_from_conf,
+    )
+    from honerf_torch.render.neus import RenderConfig
+    from honerf_torch.train.offline import TrainHyper
+
+    conf = load_config(CONF)
+    sdf_cfg = sdf_config_from_conf("hand", conf["model.sdf_network"])._replace(
+        trunk_dtype="bf16")
+    color_cfg = color_config_from_conf("hand", conf["model.rendering_network"])._replace(
+        trunk_dtype="bf16")
+    gen = torch.Generator().manual_seed(0)
+    params = {
+        "sdf": perturb(torch, init_sdf_params(gen, sdf_cfg, device=dev), gen),
+        "color": perturb(torch, init_color_params(gen, color_cfg, device=dev), gen),
+        "variance": init_variance_params(
+            float(conf.get("model.variance_network.init_val", 0.3)), device=dev),
+    }
+    return SimpleNamespace(conf=conf, sdf=sdf_cfg, color=color_cfg,
+                           rcfg=RenderConfig.from_conf(conf["model.neus_renderer"]),
+                           tcfg=TrainHyper.from_conf(conf), params=params)
+
+
+def train_hyper(fs):
+    """The train phases' hyperparameters: the conf's, with TRAIN_RAYS rays,
+    vgg_weight 0 and refine_pose on."""
+    return fs.tcfg._replace(batch_size=TRAIN_RAYS, vgg_weight=0.0, refine_pose=True)
+
+
+def train_batch(torch, n_rays: int, device, seed: int = 0):
+    """The batch bench.py builds: seeded rays, colors and mask, the posed
+    example's camera and joints, T-pose bone lengths."""
+    import numpy as np
+
+    from honerf_torch.data.datasets import get_bone_length
+    from honerf_torch.data.synthetic import canonical_hand_joints, posed_hand_example
+
+    joints, cam_R, cam_T = posed_hand_example()
+    t_pose = canonical_hand_joints(0.0)
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    return dict(rays_xy=f(rng.uniform(-0.5, 0.5, (n_rays, 2))),
+                true_rgb=f(rng.uniform(0, 1, (n_rays, 3))),
+                true_mask=f(rng.uniform(0, 1, (n_rays, 1)) > 0.4),
+                focal=f([3.0, 3.0]), principal=f(np.zeros(2)), index=0,
+                cam_R=f(cam_R), cam_T=f(cam_T), joints=f(joints), t_pose_21=f(t_pose),
+                bone_length=f(get_bone_length(t_pose)))
+
+
+def train_params(fs, device):
+    """A copy of the flagship's weights on device, with se3_refine."""
+    from honerf_torch.models.fields import init_se3_refine
+
+    return dict(clone_tree(fs.params, device),
+                se3_refine=init_se3_refine(8, "hand", device=device))
+
+
+def step_bwd_inputs(torch, fs, dev, seed: int = 0):
+    """What one flagship train step (batch and jitter from `seed`) hands
+    K3: its fine samples, the refined pose, the pack and the loss's
+    cotangents on (sdf, g, color)."""
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.train.offline import init_train_state, make_hand_train_step
+
+    ttcfg = train_hyper(fs)
+    seen = []
+    wrapped = FF.hand_fine_color_bwd
+    FF.hand_fine_color_bwd = lambda *a, **k: seen.append(a) or wrapped(*a, **k)
+    try:
+        state = init_train_state(train_params(fs, dev), ttcfg)
+        step = make_hand_train_step(fs.sdf, fs.color, fs.rcfg, ttcfg)
+        step(state, train_batch(torch, TRAIN_RAYS, dev, seed),
+             torch.Generator(device=dev).manual_seed(seed))
+    finally:
+        FF.hand_fine_color_bwd = wrapped
+    return tuple(a.detach() if torch.is_tensor(a) else a for a in seen[0][:8])
+
+
+def k3_outputs(grads):
+    """[(name, tensor)] of every output of K3."""
+    outs = [("dp", grads.dp), ("drotT", grads.drotT), ("doff", grads.doff)]
+    for field in ("dws", "dbs", "dcws", "dcbs"):
+        outs += [(f"{field}[{l}]", x) for l, x in enumerate(getattr(grads, field))]
+    return outs
+
+
+def k3_check(torch, args):
+    """K3 against its plain version on the card on the same inputs: the
+    kernel's outputs, and per output a namespace of what, l2 (|got -
+    want| / |want| in L2), med, mx (median and max of |got - want| over
+    the range), max_abs, ok (finite and l2 <= TOL_K3_L2) and text."""
+    from honerf_torch.ops import fused_fine_full as FF
+
+    got = FF.hand_fine_color_bwd(*args)
+    want = FF.hand_fine_color_plain_bwd(*args)
+    torch.cuda.synchronize()
+    rows = []
+    for (what, a), (_, b) in zip(k3_outputs(got), k3_outputs(want)):
+        med, _, mx, scale = err_readings(torch, a, b)
+        l2 = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        ok = bool(torch.isfinite(a).all()) and l2 <= TOL_K3_L2
+        rows.append(SimpleNamespace(
+            what=what, l2=l2, med=med / scale, mx=mx / scale, max_abs=mx, ok=ok,
+            text=(f"{what}: |err| L2 {l2:.2e} of |plain| (tol {TOL_K3_L2:g}); median "
+                  f"{med / scale:.2e}, max {mx / scale:.2e} of the range {scale:.3e}"
+                  f"{'' if ok else ' FAIL'}")))
+    return got, rows
+
+
+def k3_unit_check(torch, args, seed: int = 3):
+    """K3 on seeded unit cotangents at the points of args, against its
+    plain version on the card, with the plain version on the CPU as the
+    floor: per output a namespace of what, err (|kernel - plain|), floor
+    (|plain - plain on the CPU|), norm (|plain|), ratio (err / (K3_FACTOR
+    floor + K3_REL norm)), all in L2, ok (finite and ratio <= 1) and
+    text."""
+    from honerf_torch.ops import fused_fine_full as FF
+
+    pts, pack = args[0], args[4]
+    n, dev = pts.shape[0], pts.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    args = args[:5] + tuple(torch.randn(s, generator=gen, device=dev)
+                            for s in ((n,), (n, 3), (n, 3)))
+    cpu_pack = FF.FinePack(*(tuple(t.cpu() for t in ts)
+                             for ts in (pack.ws, pack.bs, pack.cws, pack.cbs)),
+                           None, None, pack.meta)
+    cpu_args = [a.cpu() for a in args[:4]] + [cpu_pack] + [a.cpu() for a in args[5:]]
+    res = [FF.hand_fine_color_bwd(*args), FF.hand_fine_color_plain_bwd(*args),
+           FF.hand_fine_color_plain_bwd(*cpu_args)]
+    rows = []
+    for (what, a), (_, b), (_, c) in zip(*(k3_outputs(r) for r in res)):
+        err, floor, norm = (float(x.norm()) for x in (a - b, c.to(dev) - b, b))
+        ratio = err / (K3_FACTOR * floor + K3_REL * norm + 1e-30)
+        ok = bool(torch.isfinite(a).all()) and ratio <= 1.0
+        rows.append(SimpleNamespace(
+            what=what, err=err, floor=floor, norm=norm, ratio=ratio, ok=ok,
+            text=(f"{what}: |kernel - plain| {err:.3e}, |plain - plain on the CPU| {floor:.3e}, "
+                  f"|plain| {norm:.3e}: {ratio:.3f} of the limit"
+                  f"{'' if ok else ' FAIL'}")))
+    return rows
+
+
+def train_check_readings(torch, fs, dev, seed: int = 1):
+    """One step of CHECK_TRAIN_RAYS rays, perturb 0, from the same state
+    on the card and on the CPU (plain versions): the metrics of each, each
+    gradient leaf's |card - cpu| / |cpu| (L2, before the clip), the worst
+    loss term's relative error, and each side's seconds."""
+    from honerf_torch.train.offline import (
+        init_train_state,
+        make_hand_train_step,
+        resolve_grad_clip,
+    )
+
+    cpu = torch.device("cpu")
+    ttcfg = train_hyper(fs)
+    rcfg_check = fs.rcfg._replace(perturb=0.0)
+    res, secs = {}, {}
+    for d in (dev, cpu):
+        p = train_params(fs, d)
+        state = init_train_state(p, ttcfg)
+        step = make_hand_train_step(fs.sdf, fs.color, rcfg_check, ttcfg)
+        t0 = time.perf_counter()
+        state, m = step(state, train_batch(torch, CHECK_TRAIN_RAYS, d, seed=seed))
+        gn = float(m["grad_norm"])
+        secs[d.type] = time.perf_counter() - t0
+        clip = resolve_grad_clip(ttcfg, fs.sdf)  # undo the clip
+        scale = min(1.0, clip / max(gn, 1e-12)) if clip > 0 else 1.0
+        res[d.type] = ({k: float(v) for k, v in m.items()},
+                       [x.grad.detach().cpu() / scale for x in tree_leaves(p)])
+    (mc, gc), (mp, gp) = res["cuda"], res["cpu"]
+    rel = [float((a - b).norm() / max(float(b.norm()), 1e-12)) for a, b in zip(gc, gp)]
+    worst_metric = max(abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-6)
+                       for k in ("loss", "color_loss", "mask_loss", "eikonal_loss"))
+    return SimpleNamespace(card=mc, cpu=mp, rel=rel, worst_metric=worst_metric, secs=secs)
 
 
 def main() -> int:
@@ -171,19 +504,16 @@ def main() -> int:
         from honerf_torch.config import load_config
         from honerf_torch.data.synthetic import canonical_hand_joints, posed_hand_example
         from honerf_torch.hand import bone_transforms_from_mano_joints
-        from honerf_torch.models.fields import (
-            color_config_from_conf,
-            init_color_params,
-            init_sdf_params,
-            init_variance_params,
-            pack_fine_color,
-            sdf_config_from_conf,
-        )
+        from honerf_torch.models.fields import pack_fine_color, sdf_config_from_conf
         from honerf_torch.ops import _build
         from honerf_torch.ops import fused_fine_full as FF
         from honerf_torch.ops import fused_hand as FH
-        from honerf_torch.render.neus import RenderConfig, pack_hand_field
-        from honerf_torch.train.offline import TrainHyper, make_hand_eval_render
+        from honerf_torch.render.neus import pack_hand_field
+        from honerf_torch.train.offline import (
+            init_train_state,
+            make_hand_eval_render,
+            make_hand_train_step,
+        )
         from honerf_torch.train.runner import render_full_image
     except ImportError as exc:
         print(f"chip_smoke: the honerf_torch package is not beside this script: {exc}",
@@ -224,21 +554,9 @@ def main() -> int:
         return 1
 
     # -- configuration and weights ---------------------------------------
-    conf = load_config(CONF)
-    sdf_cfg = sdf_config_from_conf("hand", conf["model.sdf_network"])._replace(
-        trunk_dtype="bf16")
-    color_cfg = color_config_from_conf("hand", conf["model.rendering_network"])._replace(
-        trunk_dtype="bf16")
-    rcfg = RenderConfig.from_conf(conf["model.neus_renderer"])
-    tcfg = TrainHyper.from_conf(conf)
-    H, W = conf.get_list("dataset.image_size")
-    gen = torch.Generator().manual_seed(0)
-    params = {
-        "sdf": perturb(torch, init_sdf_params(gen, sdf_cfg, device=dev), gen),
-        "color": perturb(torch, init_color_params(gen, color_cfg, device=dev), gen),
-        "variance": init_variance_params(
-            float(conf.get("model.variance_network.init_val", 0.3)), device=dev),
-    }
+    fs = flagship(torch, dev)
+    sdf_cfg, color_cfg, rcfg, tcfg, params = fs.sdf, fs.color, fs.rcfg, fs.tcfg, fs.params
+    H, W = fs.conf.get_list("dataset.image_size")
     log(f"conf {os.path.relpath(CONF, ROOT)}: sdf {sdf_cfg.n_layers}x{sdf_cfg.d_hidden} "
         f"skip {sdf_cfg.skip_in} embedding {sdf_cfg.input_width} d_out {sdf_cfg.d_out}; "
         f"color {color_cfg.n_layers}x{color_cfg.d_hidden} in {color_cfg.input_width}; "
@@ -294,18 +612,18 @@ def main() -> int:
         pack = pack_fine_color(params, sdf_cfg, color_cfg)
         pts = pts_all
         args = (pts, rotT, off, cut, pack)
-        got = FF.hand_fine_color(*args)
+        got = FF.hand_fine_color_fwd(*args)
         want = FF.hand_fine_color_plain(*args)
         torch.cuda.synchronize()
         checks = [compare(torch, what, a, b) for what, a, b in zip(("sdf", "g", "color"), got,
                                                                    want)]
         ok = all(c[0] for c in checks)
-        ms = cuda_ms(torch, lambda: FF.hand_fine_color(*args), 5)
+        ms = cuda_ms(torch, lambda: FF.hand_fine_color_fwd(*args), 5)
         plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain(*args), 2)
         n_bytes = (nbytes([pts, rotT, off, cut, *pack.ws, *pack.bs, *pack.cws, *pack.cbs])
                    + 28 * pts.shape[0])
         b_ms, b_by = bound(k2_flops(sdf_cfg, color_cfg, pts.shape[0]), n_bytes)
-        log(f"K2 hand_fine_color: {pts.shape[0]} pts ({-(-pts.shape[0] // FF.CHUNK)} passes); "
+        log(f"K2 hand_fine_color_fwd: {pts.shape[0]} pts ({-(-pts.shape[0] // FF.CHUNK)} passes); "
             f"{'; '.join(c[2] for c in checks)}; "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
         rows["K2"] = dict(name=FF.KERNEL.name, route="cuda", source=FF.KERNEL.source,
@@ -393,9 +711,7 @@ def main() -> int:
         # the rays that meet the most surface, rendered again on the CPU
         idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
         cpu = torch.device("cpu")
-        cpu_params = {k: {kk: ([{n: x.to(cpu) for n, x in l.items()} for l in vv]
-                               if kk == "layers" else vv.to(cpu)) for kk, vv in v.items()}
-                      for k, v in params.items()}
+        cpu_params = clone_tree(params, cpu)
         cpu_view = {k: v.to(cpu) for k, v in view.items()}
         c_ref, w_ref = render(cpu_params, dict(cpu_view, rays_xy=grid[idx].to(cpu)))
         ok = True
@@ -412,47 +728,9 @@ def main() -> int:
 
     # -- 5. where one request's time goes (torch.profiler) ----------------
     def profile():
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as torch_profile
-
         request = dict(view, rays_xy=served["grid"][:REQUEST_RAYS])
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            render(params, request)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        spans, groups = [], {}
-        for evt in prof.events():
-            if evt.device_type != DeviceType.CUDA:
-                continue
-            tr = evt.time_range
-            spans.append((tr.start, tr.end))
-            name = evt.name.split("(")[0].replace("honerf::", "")
-            if not name.endswith("_kernel") or "honerf" not in evt.name:
-                name = "torch: " + name[:60]
-            g = groups.setdefault(name, [0.0, 0])
-            g[0] += tr.elapsed_us()
-            g[1] += 1
-        if not spans:
-            log("profile: the profiler recorded no device time (not measured)")
-            return
-        spans.sort()
-        busy, end = 0.0, None
-        for a, b in spans:
-            if end is None or a > end:
-                busy += b - a
-                end = b
-            elif b > end:
-                busy += b - end
-                end = b
-        kern = sum(g[0] for g in groups.values())
-        log(f"profile: one request of {REQUEST_RAYS} rays, {wall_us / 1e3:.1f} ms on the host "
-            f"clock; device busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), kernel "
-            f"time {kern / 1e3:.1f} ms in {len(spans)} launches")
-        for name, (us, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:12]:
-            log(f"  {us / 1e3:8.2f} ms {100 * us / kern:5.1f}%  x{cnt:<5d} {name}")
+        device_profile(torch, f"one request of {REQUEST_RAYS} rays",
+                       lambda: render(params, request))
 
     if "serve" not in failures:
         phase("check", check)
@@ -460,8 +738,126 @@ def main() -> int:
     else:
         failures.append("check")
 
+    # -- 6-9. the hand model's offline train step ------------------------
+    ttcfg = train_hyper(fs)
+
+    def kernel_k3():
+        """On the inputs one flagship train step gives it (56,448 points,
+        the loss's cotangents); every output against its range."""
+        args = step_bwd_inputs(torch, fs, dev)
+        pts, pack = args[0], args[4]
+        n = pts.shape[0]
+        got, checks = k3_check(torch, args)
+        for c in checks:
+            log(f"K3 {c.text}")
+        units = k3_unit_check(torch, args)
+        for c in units:
+            log(f"K3 unit cotangents, {c.text}")
+        oks = [c.ok for c in checks + units]
+        again = FF.hand_fine_color_bwd(*args)
+        same = all(torch.equal(x, y) for x, y in zip(
+            [again.dp, again.drotT, *again.dws, *again.dcws], [got.dp, got.drotT, *got.dws,
+                                                               *got.dcws]))
+        ms = cuda_ms(torch, lambda: FF.hand_fine_color_bwd(*args), 5)
+        plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain_bwd(*args), 2)
+        weights = [*pack.ws, *pack.bs, *pack.cws, *pack.cbs]
+        n_bytes = (nbytes([*args[:4], *args[5:], *weights]) + 12 * n
+                   + 4 * sum(w.numel() for w in weights) + 4 * 9 * 128)
+        b_ms, b_by = bound(k3_flops(sdf_cfg, color_cfg, n), n_bytes)
+        log(f"K3 hand_fine_color_bwd: {n} pts ({-(-n // FF.BWD_CHUNK)} passes); "
+            f"{sum(oks)}/{len(oks)} comparisons within tolerance; a second run gives the same bits: "
+            f"{same}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {k3_flops(sdf_cfg, color_cfg, n) / 1e12:.3f} TFLOP)")
+        rows["K3"] = dict(name=FF.KERNEL_BWD.name, route="cuda", source=FF.KERNEL_BWD.source,
+                          replaces=FF.KERNEL_BWD.replaces, max_abs_err=max(c.max_abs for c in checks),
+                          points=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None)
+        if not all(oks) or not same:
+            raise AssertionError("K3 disagrees with its plain version")
+
+    def train():
+        tparams = train_params(fs, dev)
+        state = init_train_state(tparams, ttcfg)
+        step = make_hand_train_step(sdf_cfg, color_cfg, rcfg, ttcfg)
+        batch = train_batch(torch, TRAIN_RAYS, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        se3_before = tparams["se3_refine"].detach().clone()
+        kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD}
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        metrics = []
+        for _ in range(TRAIN_WARMUP):
+            state, m = step(state, batch, gen)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            state, m = step(state, batch, gen)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        rows.setdefault("K3", {})["launches"] = launches["K3"]
+        loss = torch.stack([m["loss"] for m in metrics])
+        gnorm = torch.stack([m["grad_norm"] for m in metrics])
+        finite = bool(torch.isfinite(loss).all()) and bool(torch.isfinite(gnorm).all())
+        moved = float((tparams["se3_refine"].detach() - se3_before).abs().max())
+        last = {k: round(float(v), 5) for k, v in metrics[-1].items()}
+        log(f"train: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays in {dt * 1e3:.1f} ms: "
+            f"{dt * 1e3 / TRAIN_STEPS:.2f} ms/step, {TRAIN_RAYS * TRAIN_STEPS / dt:.1f} rays/s "
+            f"(host clock, after {TRAIN_WARMUP} warm-up steps); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+        log(f"train: loss {', '.join(f'{x:.4f}' for x in loss.tolist())}")
+        log(f"train: grad_norm first {float(gnorm[0]):.4f} last {float(gnorm[-1]):.4f}; "
+            f"se3_refine moved by up to {moved:.3e}; last metrics {last}")
+        assert finite, "a loss or gradient norm is not finite"
+        assert moved > 0, "se3_refine did not move"
+        assert all(launches.values()), f"a kernel of the train path did not launch: {launches}"
+
+    def train_check():
+        """One step on the card and on the CPU from the same state: the
+        metrics, and each leaf's gradient before the clip."""
+        r = train_check_readings(torch, fs, dev)
+        for d, sec in r.secs.items():
+            log(f"train check: one step of {CHECK_TRAIN_RAYS} rays on {d} in {sec:.2f} s")
+        log("train check: metrics card / cpu: " + ", ".join(
+            f"{k} {r.card[k]:.6g}/{r.cpu[k]:.6g}" for k in r.cpu))
+        log("train check: gradient leaves, |card - cpu| / |cpu|: "
+            + " ".join(f"{x:.1e}" for x in r.rel))
+        log(f"train check: worst loss term {r.worst_metric:.2e} of its value (tol "
+            f"{TOL_TRAIN_LOSS:g}); worst leaf {max(r.rel):.2e} (tol {TOL_TRAIN_GRAD:g})")
+        assert r.worst_metric <= TOL_TRAIN_LOSS and max(r.rel) <= TOL_TRAIN_GRAD, \
+            "the card's train step disagrees with the CPU's"
+
+    def train_profile():
+        tparams = train_params(fs, dev)
+        state = init_train_state(tparams, ttcfg)
+        step = make_hand_train_step(sdf_cfg, color_cfg, rcfg, ttcfg)
+        batch = train_batch(torch, TRAIN_RAYS, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        step(state, batch, gen)
+        device_profile(torch, f"one train step of {TRAIN_RAYS} rays",
+                       lambda: step(state, batch, gen))
+
+    phase("kernel K3", kernel_k3)
+    phase("train", train)
+    phase("train check", train_check)
+    phase("train profile", train_profile)
+
+    # the TPU kernels still to port, from their shapes (weights read as
+    # bf16 once, K6's dW written as f32 once)
+    obj_cfg = sdf_config_from_conf("obj", load_config(OBJ_CONF)["model.sdf_network"])
+    E, m = sdf_cfg.input_width, 1e6
+    n_w = sum(i * o for i, o in trunk_dims(sdf_cfg, sdf_cfg.d_out))
+    to_port = {"K4": bound(k4_flops(obj_cfg, m), (12 + 4 * 128) * m + k4_flops(obj_cfg, 1.0)),
+               "K5": bound(k5_flops(sdf_cfg, m), (6 * E + 4 * sdf_cfg.d_out) * m + 2 * n_w),
+               "K6": bound(3 * k5_flops(sdf_cfg, m),
+                           (10 * E + 4 * sdf_cfg.d_out) * m + 6 * n_w)}
+    log("bounds per million points of the TPU kernels still to port: " + ", ".join(
+        f"{k} {ms:.3f} ms ({by})" for k, (ms, by) in to_port.items()))
     log(gpu_line())
-    order = ("K1", "K2")
+    order = ("K1", "K2", "K3")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: rows.get(n, {}).get(k) for k in keys} for n in order]}))

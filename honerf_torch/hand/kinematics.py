@@ -5,8 +5,9 @@ of honerf_tpu.hand.kinematics.
 transforms (posed space -> per-bone canonical space).  The detach points
 of the reference are kept: the canonical transform is computed from
 detached keypoints and the local coordinate systems are detached.  The
-inverse path (refine_joints, forward_joints_from_bones) comes with the
-training slice.
+inverse path (refine_joints, forward_joints_from_bones) re-synthesizes a
+skeleton from refinement angles and target bone lengths; training
+differentiates through it into the per-view se3_refine table.
 """
 
 from __future__ import annotations
@@ -33,6 +34,34 @@ _IDX_CHILD = np.arange(1, 21)
 _IDX_PARENT = np.concatenate([np.zeros(5, np.int64), np.arange(1, 16)])
 
 _LEV = [list(range(0, 5)), list(range(5, 10)), list(range(10, 15)), list(range(15, 20))]
+
+# Canonical T-pose bone directions (biomech bone order), the fixed targets
+# of the inverse path.
+INITIAL_BONE_VEC = np.asarray(
+    [
+        [4.4889e-01, -8.4880e-01, -2.7935e-01],
+        [1.9867e-01, -9.8007e-01, 0.0000e00],
+        [2.0004e-07, -1.0000e00, 0.0000e00],
+        [-1.9471e-01, -9.8007e-01, -3.9469e-02],
+        [-3.7001e-01, -9.2185e-01, -1.1528e-01],
+        [4.4889e-01, -8.4880e-01, -2.7935e-01],
+        [1.9867e-01, -9.8007e-01, 1.1921e-07],
+        [2.8685e-07, -1.0000e00, 0.0000e00],
+        [-1.9471e-01, -9.8007e-01, -3.9470e-02],
+        [-3.7001e-01, -9.2185e-01, -1.1528e-01],
+        [4.4889e-01, -8.4880e-01, -2.7935e-01],
+        [1.9867e-01, -9.8007e-01, 1.4901e-07],
+        [1.9870e-06, -1.0000e00, 2.3842e-07],
+        [-1.9471e-01, -9.8007e-01, -3.9470e-02],
+        [-3.7001e-01, -9.2185e-01, -1.1528e-01],
+        [4.4889e-01, -8.4880e-01, -2.7935e-01],
+        [1.9867e-01, -9.8007e-01, 8.9407e-08],
+        [-3.4117e-06, -1.0000e00, -2.1979e-07],
+        [-1.9471e-01, -9.8007e-01, -3.9469e-02],
+        [-3.7001e-01, -9.2185e-01, -1.1528e-01],
+    ],
+    dtype=np.float32,
+)
 
 
 def _vec(values, ref: torch.Tensor) -> torch.Tensor:
@@ -379,3 +408,54 @@ def pose_to_bone_transforms(
     trans = inv_scale_trans @ trans
     root = _eye(4, joints).expand(B, 1, 4, 4)
     return torch.cat([root, trans], dim=1)
+
+
+def refine_joints(
+    joints: torch.Tensor,
+    is_right: torch.Tensor,
+    mean_bone_length: torch.Tensor,
+    joint_refine_angle: Optional[torch.Tensor] = None,
+    palm_refine_angle: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Inverse path: re-synthesize a 21-joint skeleton (repo-mano order)
+    from canonicalized keypoints, refinement angles and target bone
+    lengths (B, 20)."""
+    B = joints.shape[0]
+    zeros = lambda n: torch.zeros((B, n), dtype=joints.dtype, device=joints.device)  # noqa: E731
+    if joint_refine_angle is None:
+        joint_refine_angle = zeros(20)
+    if palm_refine_angle is None:
+        palm_refine_angle = zeros(7)
+
+    joints = preprocess_joints(joints, is_right)
+    bones, _lengths, _ = kp3d_to_bones(joints)
+    plane_bones, plane_mat = normalize_root_planes(bones, palm_refine_angle)
+    norm_bones, angle_mat = normalize_root_bone_angles(plane_bones, palm_refine_angle)
+    root_norm_mat = angle_mat @ plane_mat
+
+    cs = compute_local_coordinate_system(norm_bones)
+    local_coords = compute_local_coordinates(norm_bones, cs)
+    rot_angles = compute_rot_angles(local_coords)
+    rot_mat = compute_rotation_matrix(rot_angles, joint_refine_angle)
+    cs_t = compute_adjusted_transpose(cs, rot_mat)
+    unpose3 = cs_t @ (rot_mat @ cs)
+
+    # products of rotations: the inverse is the transpose
+    rot_tpose_inv = (unpose3 @ root_norm_mat).transpose(-1, -2)
+    p_bone = torch.einsum("bnij,nj->bni", rot_tpose_inv, _vec(INITIAL_BONE_VEC, joints))
+    return forward_joints_from_bones(p_bone, mean_bone_length.reshape(B, 20, 1))
+
+
+def forward_joints_from_bones(local_coords: torch.Tensor,
+                              bone_lengths: torch.Tensor) -> torch.Tensor:
+    """Accumulate bone vectors into 21 joints, repo-mano contiguous-finger
+    order."""
+    B = local_coords.shape[0]
+    scaled = local_coords * bone_lengths  # (B, 20, 3)
+    joints = [scaled.new_zeros((B, 3))]
+    for finger in range(5):
+        start = scaled.new_zeros((B, 3))
+        for level in range(4):
+            start = start + scaled[:, level * 5 + finger]
+            joints.append(start)
+    return torch.stack(joints, dim=1)

@@ -191,6 +191,16 @@ def init_variance_params(init_val: float = 0.3, device=None) -> Params:
     return {"variance": torch.tensor(float(init_val), device=resolve_device(device))}
 
 
+def init_se3_refine(n_frames: int, kind: str, device=None) -> torch.Tensor:
+    """Per-training-image pose-refinement table: identity rot6d in the
+    first 6 slots (36 columns for the hand, 9 for the object)."""
+    width = 36 if kind == "hand" else 9
+    table = torch.zeros((n_frames, width), device=resolve_device(device))
+    table[:, 0] = 1.0
+    table[:, 3] = 1.0
+    return table
+
+
 # ---------------------------------------------------------------------------
 # Application
 # ---------------------------------------------------------------------------
@@ -322,10 +332,12 @@ def _fine_trunk_weights(params: Params, cfg: SDFConfig):
     return ws, bs
 
 
-def pack_fine_color(params: Params, sdf_cfg: SDFConfig, color_cfg: ColorConfig):
-    """Pack {'sdf', 'color'} params for ops.fused_fine_full.hand_fine_color
-    (once per parameter snapshot)."""
-    from honerf_torch.ops.fused_fine_full import FineMeta, pack_fine_weights
+def fine_color_weights(params: Params, sdf_cfg: SDFConfig, color_cfg: ColorConfig):
+    """(meta, ws, bs, cws, cbs): the fine pass's static architecture and
+    its (in, out) trunk and color weights with channel-major e columns,
+    differentiable functions of `params` (weight norm and column gather
+    included)."""
+    from honerf_torch.ops.fused_fine_full import FineMeta
 
     assert len(sdf_cfg.skip_in) == 1
     assert color_cfg.use_gradients and color_cfg.squeeze_out
@@ -343,6 +355,15 @@ def pack_fine_color(params: Params, sdf_cfg: SDFConfig, color_cfg: ColorConfig):
     clayers = _flat_color_layers(params["color"], color_cfg)
     cws = tuple(linear_weight(l).T for l in clayers)
     cbs = tuple(l["b"] for l in clayers)
+    return meta, ws, bs, cws, cbs
+
+
+def pack_fine_color(params: Params, sdf_cfg: SDFConfig, color_cfg: ColorConfig):
+    """Pack {'sdf', 'color'} params for ops.fused_fine_full.hand_fine_color_fwd
+    (once per parameter snapshot)."""
+    from honerf_torch.ops.fused_fine_full import pack_fine_weights
+
+    meta, ws, bs, cws, cbs = fine_color_weights(params, sdf_cfg, color_cfg)
     return pack_fine_weights(ws, bs, cws, cbs, meta)
 
 
@@ -351,11 +372,14 @@ def hand_fine_color_apply(params: Params, sdf_cfg: SDFConfig, color_cfg: ColorCo
                           t_pose_21: torch.Tensor, pack=None):
     """(sdf (N,), grad (N, 3), color (N, 3)) via the color-fused fine pass:
     embedding, trunk, spatial gradient and the color net in one op.
-    Forward only in this version (no backward kernel yet)."""
-    from honerf_torch.ops.fused_fine_full import hand_fine_color
+    Without `pack` the op is differentiable in the params, the points and
+    the pose (bt_inv, through pack_hand_pose); with a pack made once per
+    parameter snapshot (pack_fine_color) it runs the forward only."""
+    from honerf_torch.ops.fused_fine_full import hand_fine_color, hand_fine_color_fwd
     from honerf_torch.ops.fused_hand import pack_hand_pose
 
-    if pack is None:
-        pack = pack_fine_color(params, sdf_cfg, color_cfg)
     rotT, off, cut = pack_hand_pose(bt_inv, t_pose_21)
-    return hand_fine_color(pts, rotT, off, cut, pack)
+    if pack is not None:
+        return hand_fine_color_fwd(pts, rotT, off, cut, pack)
+    meta, ws, bs, cws, cbs = fine_color_weights(params, sdf_cfg, color_cfg)
+    return hand_fine_color(pts, rotT, off, cut, ws, bs, cws, cbs, meta)

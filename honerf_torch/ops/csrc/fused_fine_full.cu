@@ -63,59 +63,13 @@ __global__ void fine_rev_kernel(const float* __restrict__ pts, int M,
   if (j < 21) {
     float p[3] = {pts[3 * m], pts[3 * m + 1], pts[3 * m + 2]};
     Stages st = bone_stages(p, rotT, off, cut, j);
-    const float* ur = u + (size_t)m * ldu;
-    // R1/R2: v-piece adjoints
-    float u_vh = ur[j];
-    float s = sinf(st.v), c = cosf(st.v);
-    float phi = 0.f, bsum = 0.f;
-    for (int l = 0; l < vL; ++l) {
-      if (l) {
-        float s2 = 2.f * s * c, c2 = (c - s) * (c + s);
-        s = s2;
-        c = c2;
-      }
-      float usv = ur[21 + 21 * l + j], ucv = ur[21 + 21 * (vL + l) + j];
-      phi += (float)(1 << l) * (c * usv - s * ucv);
-      bsum += s * usv + c * ucv;
-    }
-    float phi_v = u_vh + phi;
-    float a_v = st.h * phi_v;
-    float b_h = st.v * u_vh + bsum;
-    // R3/R4: r-piece adjoints, per channel
-    const int rb = 21 * (1 + 2 * vL);
-    float c_rr[3], d_h3_sum = 0.f, n_v2p = 0.f;
-    float w3c = st.w3 * st.w3 * st.w3;
+    Chain c = rev_chain(st, u + (size_t)m * ldu, j, vL, rL);
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      int k = 3 * j + ch;
-      float x = st.rr[ch];
-      float urh = ur[rb + k];
-      float sr = sinf(x), cr = cosf(x);
-      float phr = 0.f, dsum = 0.f;
-      for (int l = 0; l < rL; ++l) {
-        if (l) {
-          float s2 = 2.f * sr * cr, c2 = (cr - sr) * (cr + sr);
-          sr = s2;
-          cr = c2;
-        }
-        float usr = ur[rb + 63 + 63 * l + k], ucr = ur[rb + 63 + 63 * (rL + l) + k];
-        phr += (float)(1 << l) * (cr * usr - sr * ucr);
-        dsum += sr * usr + cr * ucr;
-      }
-      c_rr[ch] = st.h * (urh + phr);
-      d_h3_sum += x * urh + dsum;
-      n_v2p += -0.5f * c_rr[ch] * st.q[ch] * w3c;  // R6-R8
-    }
-    b_h += d_h3_sum;                                        // R5
-    a_v = a_v - kTau * st.sc * (1.f - st.sc) * b_h;         // R9
-    n_v2p += 0.5f * a_v / st.v;                             // R10
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {                        // R11/R12
+    for (int ch = 0; ch < 3; ++ch) {                        // R12
       int col = 3 * j + ch;
-      float f_q = c_rr[ch] * st.w3 + 2.f * st.q[ch] * n_v2p;
-      g[0] += f_q * rotT[col];
-      g[1] += f_q * rotT[kLane + col];
-      g[2] += f_q * rotT[2 * kLane + col];
+      g[0] += c.f_q[ch] * rotT[col];
+      g[1] += c.f_q[ch] * rotT[kLane + col];
+      g[2] += c.f_q[ch] * rotT[2 * kLane + col];
     }
   }
 #pragma unroll

@@ -1,24 +1,40 @@
-"""Color-fused hand fine pass, forward; counterpart of the forward half of
-honerf_tpu.ops.fused_fine_full (`hand_fine_color`, whose Pallas kernel is
-`_fwd_call`/`_make_fwd_kernel` -> `_fine_fwd_block`).
+"""Color-fused hand fine pass, forward and backward; counterpart of
+honerf_tpu.ops.fused_fine_full (`hand_fine_color`, whose Pallas kernels
+are `_fwd_call` -> `_fine_fwd_block` and `_bwd_call` -> `_fine_bwd_block`).
 
-Per point:
+Forward, per point:
   embedding stages -> e (1386 channels, channel-major)
   trunk forward -> z (sdf + 256 features);  u-chain u = d sdf / d e
   embedding REVERSE chain with cotangent u -> g = d sdf / d p
   grad-PE (L=4) -> 5-layer relu color net + sigmoid on [e | feat | g | PE(g)]
 and returns (sdf (N,), g (N, 3), color (N, 3)).
 
+Backward at cotangents (dsdf, dg, dcolor), with the forward recomputed:
+  color net transposed -> the e, feature and grad-PE cotangents;
+  grad-PE transposed into dg;  the reverse chain transposed at dg -> du
+  (the cotangent of u) and the second-order stage adjoints;  the trunk
+  backward at (dout = [dsdf | dfeat], du) -> de and every dW/db;  the
+  embedding forward transposed -> dq, hence dp = dq rotT^T,
+  drotT = dg^T f_q + p^T dq, doff = sum dq.
+
 Kernel layout of the color input (kernel rows, zero weight rows on pads):
 [e (Ep) | feat (Fp) | grad-PE 8-wide blocks [g | sin_l | cos_l] (Gp)];
 `color_row_map` maps it onto the reference color-input rows.
 
-On CUDA, `hand_fine_color` launches csrc/fused_fine_full.cu (bf16 trunk
-only); on the CPU it runs `hand_fine_color_plain`.  Forward only: the
-backward kernel comes with the training slice.
+Entry points:
+  * `hand_fine_color(pts, rotT, off, cut, ws, bs, cws, cbs, meta)`: the
+    differentiable op (torch.autograd.Function) on the unpadded (in, out)
+    weights; it packs them in its forward and recomputes the forward in its
+    backward.  Weights that need no gradient launch no dW work.
+  * `hand_fine_color_fwd(pts, rotT, off, cut, pack)`: the forward on a
+    FinePack made once per parameter snapshot (the eval render).
+On CUDA tensors the forward launches csrc/fused_fine_full.cu (K2) and the
+backward csrc/fused_fine_bwd.cu (K3), bf16 trunk only; on CPU tensors
+both run their plain versions (`hand_fine_color_plain`,
+`hand_fine_color_plain_bwd`).
 
-What bounds the kernel on an H100 and how its design answers that: the
-note at the top of csrc/fused_fine_full.cu; its times: PERF.md.
+What bounds the kernels on an H100 and how their design answers that:
+the notes at the top of the two .cu files; their times: PERF.md.
 """
 
 from __future__ import annotations
@@ -33,15 +49,21 @@ from honerf_torch.models.embedding import CUTOFF_TAU
 from honerf_torch.ops import _build
 from honerf_torch.ops import fused_fine as FT
 from honerf_torch.ops import fused_hand as FH
-from honerf_torch.ops.fused_fine import PAD, _round_up
+from honerf_torch.ops.fused_fine import INV_SQRT2, PAD, _round_up
 
-# points per pass of the CUDA path: the per-point scratch is ~23 KB
+# points per pass of the CUDA forward: the per-point scratch is ~23 KB
 # (e, sigmoid rows, u, activations), so a chunk holds ~1.5 GB
 CHUNK = 65536
+# points per pass of the CUDA backward: it keeps every activation, t and
+# c row of the forward besides the cotangents, ~77 KB/pt (~5 GB a chunk)
+BWD_CHUNK = 65536
 
 KERNEL = _build.Kernel(
     "hand_fine_color_fwd", "honerf_torch/ops/csrc/fused_fine_full.cu",
     "honerf_tpu/ops/fused_fine_full.py:1556")
+KERNEL_BWD = _build.Kernel(
+    "hand_fine_color_bwd", "honerf_torch/ops/csrc/fused_fine_bwd.cu",
+    "honerf_tpu/ops/fused_fine_full.py:1650")
 
 
 class FineMeta(NamedTuple):
@@ -93,15 +115,31 @@ class FineMeta(NamedTuple):
 
 
 class FinePack(NamedTuple):
-    """Padded weights of one parameter snapshot.  wts are the transposed
-    trunk weights the CUDA u-chain reads (None on the CPU)."""
+    """Padded weights of one parameter snapshot.  wts / cwts are the
+    transposed trunk / color weights the CUDA u-chain and backward read
+    (None on the CPU)."""
 
     ws: Tuple[torch.Tensor, ...]
     bs: Tuple[torch.Tensor, ...]
     cws: Tuple[torch.Tensor, ...]
     cbs: Tuple[torch.Tensor, ...]
     wts: object
+    cwts: object
     meta: FineMeta
+
+
+class FineGrads(NamedTuple):
+    """The backward's outputs in kernel layout: dp (N, 3), drotT (8, 128),
+    doff (1, 128), and f32 dW/db of the padded trunk and color layers
+    (None when no weight gradient was asked)."""
+
+    dp: torch.Tensor
+    drotT: torch.Tensor
+    doff: torch.Tensor
+    dws: object
+    dbs: object
+    dcws: object
+    dcbs: object
 
 
 def color_row_map(meta: FineMeta) -> np.ndarray:
@@ -151,20 +189,31 @@ def _pad_color_weights(cws, cbs, meta: FineMeta):
 
 def pack_fine_weights(ws, bs, cws, cbs, meta: FineMeta) -> FinePack:
     """(in, out) f32 trunk and color weights (channel-major e columns) ->
-    FinePack for hand_fine_color."""
+    FinePack for hand_fine_color_fwd."""
     tm = meta.trunk_meta
     assert 0 < tm.skip < tm.n_layers - 1
     with torch.no_grad():
         wps, bps = FT._pad_weights(ws, bs, tm)
         cwps, cbps = _pad_color_weights(cws, cbs, meta)
-        wts = (tuple(w.T.contiguous() for w in wps)
-               if wps[0].device.type == "cuda" else None)
-    return FinePack(wps, bps, cwps, cbps, wts, meta)
+        on_card = wps[0].device.type == "cuda"
+        wts = tuple(w.T.contiguous() for w in wps) if on_card else None
+        cwts = tuple(w.T.contiguous() for w in cwps) if on_card else None
+    return FinePack(wps, bps, cwps, cbps, wts, cwts, meta)
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version (the kernel's statements)
+# Plain PyTorch version (the kernels' statements)
 # ---------------------------------------------------------------------------
+
+def _S(x: torch.Tensor) -> torch.Tensor:
+    """(B, 63) -> (B, 21): sum each bone's three channels."""
+    return x.reshape(x.shape[0], 21, 3).sum(-1)
+
+
+def _ST(x: torch.Tensor) -> torch.Tensor:
+    """(B, 21) -> (B, 63): repeat each bone's value on its channels."""
+    return torch.repeat_interleave(x, 3, dim=-1)
+
 
 def _emb_fwd_block(p, rotT, off, cut, meta: FineMeta):
     """Embedding stages; PE values stay f32 (only e is cast, by the
@@ -200,20 +249,23 @@ def _split_u(u, meta: FineMeta):
 
 
 def _rev_tail(st, rotT, phi_v, a_v, b_h, phi_r, c_rr, d_h3):
-    """R5-R12 of the reverse chain -> g (B, 3)."""
-    B = st["v"].shape[0]
-    b_h = b_h + d_h3.reshape(B, 21, 3).sum(-1)
-    f_q = c_rr * st["w3"]
-    m_vrep = -0.5 * c_rr * st["q"] * st["w3"] ** 3
-    n_v2p = m_vrep.reshape(B, 21, 3).sum(-1)
-    a_v = a_v - CUTOFF_TAU * st["sc"] * (1.0 - st["sc"]) * b_h
-    n_v2p = n_v2p + 0.5 * a_v / st["v"]
-    f_q = f_q + 2.0 * st["q"] * torch.repeat_interleave(n_v2p, 3, dim=-1)
-    return f_q @ rotT[:3, :63].T
+    """R5-R12 of the reverse chain -> (g (B, 3), the chain values its
+    transpose reads)."""
+    b_h = b_h + _S(d_h3)                                    # R5
+    f_q = c_rr * st["w3"]                                   # R6
+    m_vrep = -0.5 * c_rr * st["q"] * st["w3"] ** 3          # R7
+    n_v2p = _S(m_vrep)                                      # R8
+    a_v = a_v - CUTOFF_TAU * st["sc"] * (1.0 - st["sc"]) * b_h  # R9
+    n_v2p = n_v2p + 0.5 * a_v / st["v"]                     # R10
+    f_q = f_q + 2.0 * st["q"] * _ST(n_v2p)                  # R11
+    g = f_q @ rotT[:3, :63].T                               # R12
+    return g, dict(phi_v=phi_v, a_v=a_v, b_h=b_h, phi_r=phi_r, c_rr=c_rr, f_q=f_q,
+                   n_v2p=n_v2p)
 
 
 def _emb_rev_block(st, rotT, u, meta: FineMeta):
-    """Reverse chain: cotangent u on e -> g = (d e / d p)^T u  (B, 3)."""
+    """Reverse chain: cotangent u on e -> (g = (d e / d p)^T u (B, 3),
+    chain values)."""
     vL, rL = meta.v_multires, meta.r_multires
     u_vh, u_sv, u_cv, u_rh, u_sr, u_cr = _split_u(u, meta)
     sv, cv, sr, cr = st["sv"], st["cv"], st["sr"], st["cr"]
@@ -236,57 +288,399 @@ def _gpe_block(meta: FineMeta, g3):
     return torch.nn.functional.pad(x, (0, meta.Gp - x.shape[1]))
 
 
-def _color_fwd_block(meta: FineMeta, x, cws, cbs):
-    """Color MLP on the kernel-layout input -> color (B, 3)."""
+def _gpe_transpose(meta: FineMeta, g3, dgpe):
+    """Transpose of _gpe_block: cotangent on the (B, Gp) section -> on g."""
+    L = meta.grad_L
+    dg = dgpe[:, :3]
+    for l in range(L):
+        f = 2.0 ** l
+        ds = dgpe[:, (1 + l) * 8:(1 + l) * 8 + 3]
+        dc = dgpe[:, (1 + L + l) * 8:(1 + L + l) * 8 + 3]
+        dg = dg + f * (torch.cos(g3 * f) * ds - torch.sin(g3 * f) * dc)
+    return dg
+
+
+def _color_fwd_block(meta: FineMeta, x, cws, cbs, residuals: bool = False):
+    """Color MLP on the kernel-layout input -> color (B, 3) [, each
+    layer's pre-activation and (rounded) input]."""
     tm = meta.trunk_meta
     a = FT._rnd(tm, x)
+    zs, acts = [], [a]
     for l in range(meta.c_layers):
         z = FT._mm(tm, a, cws[l]) + cbs[l]
+        zs.append(z)
         if l < meta.c_layers - 1:
             a = FT._rnd(tm, torch.relu(z))
-    return torch.sigmoid(z[:, :3])
+            acts.append(a)
+    color = torch.sigmoid(z[:, :3])
+    return (color, zs, acts) if residuals else color
 
 
-def _fine_fwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack):
-    """One block of the fused forward -> (sdf (B,), g (B, 3), color (B, 3))."""
+def _color_bwd_block(meta: FineMeta, zs, acts, cws, dcolor, want_dw: bool):
+    """Transpose of the color MLP at cotangent dcolor (B, 3) -> (dx,
+    dcws, dcbs); want_dw=False skips the weight gradients."""
+    tm = meta.trunk_meta
+    n = meta.c_layers
+    sig = torch.sigmoid(zs[-1])
+    dz = sig * (1.0 - sig) * torch.nn.functional.pad(dcolor, (0, sig.shape[1] - 3))
+    dcws: List[torch.Tensor] = [None] * n
+    dcbs: List[torch.Tensor] = [None] * n
+    for l in range(n - 1, -1, -1):
+        if want_dw:
+            dcws[l] = FT._mm_tn(tm, acts[l], dz)
+            dcbs[l] = dz.sum(0)
+        da = FT._mm_t(tm, dz, cws[l])
+        if l > 0:
+            dz = torch.where(zs[l - 1] > 0.0, da, torch.zeros_like(da))
+    return da, dcws, dcbs
+
+
+def _transpose_head(st, ch, rotT, t3):
+    """T12-T5 of the reverse-chain transpose at cotangent t3 (B, 3) on g:
+    the family cotangents (ca on a_v, cb on b_h, cc on c_rr, cd on d_h3),
+    the direct stage adjoints (dq, dv, dsc, dw3) and drotT's
+    g = f_q rotT^T term (3, 63)."""
+    v, q, sc, w3 = st["v"], st["q"], st["sc"], st["w3"]
+    cf = t3 @ rotT[:3, :63]                              # T12
+    drotT = t3.T @ ch["f_q"]
+    cn = _S(2.0 * q * cf)                                # T11
+    dq = 2.0 * _ST(ch["n_v2p"]) * cf
+    ca = 0.5 * cn / v                                    # T10
+    dv = -0.5 * ch["a_v"] / (v * v) * cn
+    cb = -CUTOFF_TAU * sc * (1.0 - sc) * ca              # T9
+    dsc = -CUTOFF_TAU * (1.0 - 2.0 * sc) * ch["b_h"] * ca
+    cm = _ST(cn)                                         # T8
+    cc = -0.5 * q * w3 ** 3 * cm                         # T7
+    dq = dq - 0.5 * ch["c_rr"] * w3 ** 3 * cm
+    dw3 = -1.5 * ch["c_rr"] * q * w3 ** 2 * cm
+    cc = cc + w3 * cf                                    # T6
+    dw3 = dw3 + ch["c_rr"] * cf
+    cd = _ST(cb)                                         # T5
+    return dict(drotT=drotT, dq=dq, dv=dv, dsc=dsc, dw3=dw3, ca=ca, cb=cb, cc=cc, cd=cd)
+
+
+def _emb_rev_transpose_block(st, ch, rotT, u, t3, meta: FineMeta):
+    """Transpose of the reverse chain w.r.t. (u, stages, rotT) at
+    cotangent t3 on g -> (du (B, E), stage adjoints, drotT term)."""
+    vL, rL = meta.v_multires, meta.r_multires
+    sv, cv, sr, cr = st["sv"], st["cv"], st["sr"], st["cr"]
+    h, v, rr, h3 = st["h"], st["v"], st["rr"], st["h3"]
+    u_vh, u_sv, u_cv, u_rh, u_sr, u_cr = _split_u(u, meta)
+    hd = _transpose_head(st, ch, rotT, t3)
+    ca, cb, cc, cd = hd["ca"], hd["cb"], hd["cc"], hd["cd"]
+    # T4: d = rr u_rh + sum(sr u_sr + cr u_cr)
+    cu_rh = rr * cd
+    drr = u_rh * cd
+    dsr = [u_sr[l] * cd for l in range(rL)]
+    dcr = [u_cr[l] * cd for l in range(rL)]
+    cu_sr = [sr[l] * cd for l in range(rL)]
+    cu_cr = [cr[l] * cd for l in range(rL)]
+    # T3: c = h3 phi_r
+    dh3 = ch["phi_r"] * cc
+    hc = h3 * cc
+    cu_rh = cu_rh + hc
+    for l in range(rL):
+        f = 2.0 ** l
+        cu_sr[l] = cu_sr[l] + f * cr[l] * hc
+        cu_cr[l] = cu_cr[l] - f * sr[l] * hc
+        dcr[l] = dcr[l] + f * u_sr[l] * hc
+        dsr[l] = dsr[l] - f * u_cr[l] * hc
+    # T2: b = v u_vh + sum(sv u_sv + cv u_cv)
+    cu_vh = v * cb
+    dv = hd["dv"] + u_vh * cb
+    dsv = [u_sv[l] * cb for l in range(vL)]
+    dcv = [u_cv[l] * cb for l in range(vL)]
+    cu_sv = [sv[l] * cb for l in range(vL)]
+    cu_cv = [cv[l] * cb for l in range(vL)]
+    # T1: a = h phi_v
+    dh = ch["phi_v"] * ca
+    hca = h * ca
+    cu_vh = cu_vh + hca
+    for l in range(vL):
+        f = 2.0 ** l
+        cu_sv[l] = cu_sv[l] + f * cv[l] * hca
+        cu_cv[l] = cu_cv[l] - f * sv[l] * hca
+        dcv[l] = dcv[l] + f * u_sv[l] * hca
+        dsv[l] = dsv[l] - f * u_cv[l] * hca
+    du = torch.cat([cu_vh] + cu_sv + cu_cv + [cu_rh] + cu_sr + cu_cr, dim=-1)
+    adj = dict(dq=hd["dq"], dv=dv, dsc=hd["dsc"], dw3=hd["dw3"], drr=drr, dh=dh, dh3=dh3,
+               dsv=dsv, dcv=dcv, dsr=dsr, dcr=dcr)
+    return du, adj, hd["drotT"]
+
+
+def _emb_fwd_transpose_block(st, de, adj, meta: FineMeta):
+    """Transpose of the embedding forward at cotangent de (B, E), merged
+    with the reverse-chain transpose's stage adjoints -> dq (B, 63)."""
+    vL, rL = meta.v_multires, meta.r_multires
+    sv, cv, sr, cr = st["sv"], st["cv"], st["sr"], st["cr"]
+    h, v, rr, h3 = st["h"], st["v"], st["rr"], st["h3"]
+    e_vh, e_sv, e_cv, e_rh, e_sr, e_cr = _split_u(de, meta)
+    # e pieces: X * gate (gate h for the v family, h3 for the r family)
+    dv = adj["dv"] + h * e_vh
+    dh = adj["dh"] + v * e_vh
+    dsv = [adj["dsv"][l] + h * e_sv[l] for l in range(vL)]
+    dcv = [adj["dcv"][l] + h * e_cv[l] for l in range(vL)]
+    dh = dh + sum(sv[l] * e_sv[l] + cv[l] * e_cv[l] for l in range(vL))
+    drr = adj["drr"] + h3 * e_rh
+    dh3 = adj["dh3"] + rr * e_rh
+    dsr = [adj["dsr"][l] + h3 * e_sr[l] for l in range(rL)]
+    dcr = [adj["dcr"][l] + h3 * e_cr[l] for l in range(rL)]
+    dh3 = dh3 + sum(sr[l] * e_sr[l] + cr[l] * e_cr[l] for l in range(rL))
+    # PE transposes: d sin(2^l x)/dx = 2^l cos(2^l x), d cos/dx = -2^l sin
+    for l in range(vL):
+        dv = dv + (2.0 ** l) * (cv[l] * dsv[l] - sv[l] * dcv[l])
+    for l in range(rL):
+        drr = drr + (2.0 ** l) * (cr[l] * dsr[l] - sr[l] * dcr[l])
+    # stage tail
+    q, sc, w3 = st["q"], st["sc"], st["w3"]
+    dh = dh + _S(dh3)                                    # h3 = repeat(h)
+    dq = adj["dq"] + w3 * drr                            # rr = q w3
+    dw3 = adj["dw3"] + q * drr
+    dv2p = _S(-0.5 * w3 ** 3 * dw3)                      # w3 = rsqrt(v2p + eps)
+    dsc = adj["dsc"] - dh                                # h = 1 - sc
+    dv = dv + CUTOFF_TAU * sc * (1.0 - sc) * dsc         # sc = sigmoid(tau (v - cut))
+    dv2p = dv2p + 0.5 * dv / v                           # v = sqrt(v2p)
+    return dq + 2.0 * q * _ST(dv2p)                      # v2p = sum q^2 + eps
+
+
+def _fine_fwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, residuals: bool = False):
+    """One block of the fused forward -> (sdf (B,), g (B, 3), color (B, 3))
+    [, what the backward reads]."""
     tm = meta.trunk_meta
     E = meta.emb_width
     st = _emb_fwd_block(p, rotT, off, cut, meta)
     e_pad = FT._rnd(tm, torch.nn.functional.pad(st["e"], (0, tm.Ep - E)))
-    out, u_pad, _ = FT._kernel_fwd_body(tm, e_pad, pack.ws, pack.bs)
-    g = _emb_rev_block(st, rotT, u_pad[:, :E], meta)
+    out, u_pad, ss, ins, ts, cs = FT._kernel_fwd_body(tm, e_pad, pack.ws, pack.bs,
+                                                       residuals=True)
+    u = u_pad[:, :E]
+    g, chain = _emb_rev_block(st, rotT, u, meta)
     feat = torch.nn.functional.pad(out[:, 1:meta.d_out], (0, meta.Fp - (meta.d_out - 1)))
     x = torch.cat([e_pad, feat, _gpe_block(meta, g)], dim=-1)
-    color = _color_fwd_block(meta, x, pack.cws, pack.cbs)
+    color, zs, acts = _color_fwd_block(meta, x, pack.cws, pack.cbs, residuals=True)
+    if residuals:
+        return out[:, 0], g, color, (st, u, chain, (ss, ins, ts, cs), zs, acts)
     return out[:, 0], g, color
 
 
+def _fine_bwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, dsdf, dg, dcolor,
+                    want_dw: bool):
+    """One block of the backward (forward recomputed) -> (dp (B, 3),
+    drotT (3, 63), doff (63,), dws, dbs, dcws, dcbs)."""
+    tm = meta.trunk_meta
+    E, Ep, F = meta.emb_width, tm.Ep, meta.d_out - 1
+    _sdf, g, _color, (st, u, chain, trunk_fwd, zs, acts) = _fine_fwd_block(
+        meta, p, rotT, off, cut, pack, residuals=True)
+    # 0. color transpose -> cotangents on e, the features and the grad-PE
+    dx, dcws, dcbs = _color_bwd_block(meta, zs, acts, pack.cws, dcolor, want_dw)
+    de_ext = dx[:, :E]
+    dg = dg + _gpe_transpose(meta, g, dx[:, Ep + meta.Fp:])
+    dout = dx.new_zeros((p.shape[0], tm.Op))
+    dout[:, 0] = dsdf
+    dout[:, 1:1 + F] = dx[:, Ep:Ep + F]
+    # 1. transpose of the reverse chain at cotangent dg
+    du, adj, drotT = _emb_rev_transpose_block(st, chain, rotT, u, dg, meta)
+    # 2. trunk backward at (dout, du)
+    de_trunk, dws, dbs = FT._trunk_bwd_block(
+        tm, dout, torch.nn.functional.pad(du, (0, Ep - E)), pack.ws, trunk_fwd, want_dw)
+    # 3. embedding-forward transpose
+    dq = _emb_fwd_transpose_block(st, de_trunk[:, :E] + de_ext, adj, meta)
+    # 4. point and pose adjoints
+    dp = dq @ rotT[:3, :63].T
+    return dp, drotT + p.T @ dq, dq.sum(0), dws, dbs, dcws, dcbs
+
+
 def hand_fine_color_plain(pts, rotT, off, cut, pack: FinePack, block: int = 4096):
-    """The kernel's statements in plain PyTorch, in blocks of points."""
+    """The forward kernel's statements in plain PyTorch, in blocks of points."""
     outs = [_fine_fwd_block(pack.meta, pts[s:s + block], rotT, off, cut, pack)
             for s in range(0, pts.shape[0], block)]
     return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+
+
+def _zero_pose_grads(pts):
+    return (pts.new_zeros((8, FH._LANE)), pts.new_zeros((1, FH._LANE)))
+
+
+def hand_fine_color_plain_bwd(pts, rotT, off, cut, pack: FinePack, dsdf, dg, dcolor,
+                              want_dw: bool = True, block: int = 4096) -> FineGrads:
+    """The backward kernel's statements in plain PyTorch, in blocks of
+    points; dW/db in f32, summed over the blocks."""
+    meta = pack.meta
+    drotT, doff = _zero_pose_grads(pts)
+    dps = []
+    sums = None
+    for s in range(0, pts.shape[0], block):
+        sl = slice(s, s + block)
+        dp, dr, do, *dwb = _fine_bwd_block(meta, pts[sl], rotT, off, cut, pack, dsdf[sl],
+                                           dg[sl], dcolor[sl], want_dw)
+        dps.append(dp)
+        drotT[:3, :63] += dr
+        doff[0, :63] += do
+        if want_dw:
+            sums = dwb if sums is None else [[a + b for a, b in zip(x, y)]
+                                             for x, y in zip(sums, dwb)]
+    dp = torch.cat(dps, dim=0) if dps else pts.new_zeros((0, 3))
+    if not want_dw:
+        return FineGrads(dp, drotT, doff, None, None, None, None)
+    if sums is None:  # no points
+        z = lambda ts: [torch.zeros(t.shape, device=pts.device) for t in ts]  # noqa: E731
+        sums = (z(pack.ws), [torch.zeros(b.shape, device=pts.device) for b in pack.bs],
+                z(pack.cws), [torch.zeros(b.shape, device=pts.device) for b in pack.cbs])
+    return FineGrads(dp, drotT, doff, *[tuple(x) for x in sums])
 
 
 # ---------------------------------------------------------------------------
 # CUDA path
 # ---------------------------------------------------------------------------
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+EPI_UT, EPI_DZ, EPI_MASK = 5, 6, 7
+# dW = X^T dY and column sums run split over the points: enough (tile,
+# split) blocks for ~2 waves of 132 SMs, each partial in f32 scratch,
+# then summed in a fixed order (two runs give the same bits)
+_TN_BLOCKS = 264
+_TN_TILE = 128
+_COLSUM_ROWS = 512
+# the f32 scratch of those partials (floats): ~17 MB at the widest call
+_WS_FLOATS = 8 << 20
+
+
 def _lib():
     lib = FH._lib("fused_fine_full")
     if not getattr(lib, "_honerf_fine_typed", False):
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.honerf_uchain_seed.argtypes = [P, I, P, I, I, P, I, P]
-        lib.honerf_uchain_seed.restype = I
-        lib.honerf_fine_rev.argtypes = [P, I, P, P, P, I, I, P, I, P, I, I, P, I, I, I, P, P]
-        lib.honerf_fine_rev.restype = I
+        lib.honerf_uchain_seed.argtypes = [_P, _I, _P, _I, _I, _P, _I, _P]
+        lib.honerf_uchain_seed.restype = _I
+        lib.honerf_fine_rev.argtypes = [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I,
+                                        _I, _I, _P, _P]
+        lib.honerf_fine_rev.restype = _I
         lib._honerf_fine_typed = True
     return lib
 
 
-def _hand_fine_color_cuda(pts, rotT, off, cut, pack: FinePack):
+def _bwd_lib():
+    lib = FH._lib("fused_fine_bwd")
+    if not getattr(lib, "_honerf_bwd_typed", False):
+        lib.honerf_gemm_tn.argtypes = [_P, _I, _I, _F, _P, _I, _I, _I, _I, _P, _P, _I, _I,
+                                       _P]
+        lib.honerf_gemm_tn.restype = _I
+        lib.honerf_colsum.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P]
+        lib.honerf_colsum.restype = _I
+        lib.honerf_color_dz.argtypes = [_P, _P, _I, _P, _P, _I, _I, _P]
+        lib.honerf_color_dz.restype = _I
+        lib.honerf_fine_bwd_rev.argtypes = [
+            _P, _I, _P, _P, _P, _I, _I,      # pts, M, rotT, off, cut, vL, rL
+            _P, _P, _P, _P, _I,              # packed, dsdf, dg, dx, ldx
+            _I, _I, _I, _I,                  # Ep, F, Fp, L
+            _P, _P, _I, _P, _P, _P, _I, _I,  # du_b, du_s, lddu, dgt, dzf, dzb, lddz, Op
+            _P]
+        lib.honerf_fine_bwd_rev.restype = _I
+        lib.honerf_fine_bwd_emb.argtypes = [
+            _P, _I, _P, _P, _P, _I, _I,      # pts, M, rotT, off, cut, vL, rL
+            _P, _I, _P, _P, _I, _P, _I,      # u, ldu, dgt, de, ldde, dx, ldx
+            _P, _P, _P]                      # dp, pose rows, stream
+        lib.honerf_fine_bwd_emb.restype = _I
+        lib._honerf_bwd_typed = True
+    return lib
+
+
+def _fwd_chunk(lib, pts, m, rotT, off, cut, pack: FinePack, buf, packed, stream, keep=False):
+    """K2's launches on one chunk of m points: e, the trunk activations
+    and sigmoid rows, the u-chain, [sdf | g] into packed, the color net.
+    keep=True (the backward's recompute) keeps every activation, t row
+    and c row in its own buffer instead of two alternating ones."""
     meta, tm = pack.meta, pack.meta.trunk_meta
     n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
+    e, ss, z, u, cx2 = buf["e"], buf["ss"], buf["z"], buf["u"], buf["cx2"]
+    acts, ts, cacts = buf["acts"], buf["ts"], buf["cacts"]
+    cs = buf.get("cs")
+    gemm = FH.gemm
+    FH.embed(lib, pts, m, rotT, off, cut, meta.v_multires, meta.r_multires, e, stream)
+    # trunk forward: a_{l+1} = softplus(z_l), ss[l] = sigmoid(beta z_l)
+    a = None
+    for l in range(n):
+        if l == 0:
+            A1, K1, A2, K2, scale = e, Ep, None, 0, 0.0
+        elif l == tm.skip:
+            A1, K1, A2, K2, scale = a, Hp, e, Ep, FT.INV_SQRT2_BF16
+        else:
+            A1, K1, A2, K2, scale = a, Hp, None, 0, 0.0
+        w = pack.ws[l]
+        if l < n - 1:
+            nxt = acts[l] if keep else acts[l % 2]
+            gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.bs[l], m, FH.EPI_SOFTPLUS,
+                 nxt, nxt.stride(0), a_scale=scale, S=ss[l], stream=stream)
+            a = nxt
+        else:
+            gemm(lib, A1, K1, A2, K2, w, Op, pack.bs[l], m, FH.EPI_F32, z, Op,
+                 n_store=Op, a_scale=scale, stream=stream)
+    # u-chain: t_{n-2} = W_{n-1}[:, 0] * s_{n-2}, then m_l = t_l W_l^T
+    t = ts[n - 2] if keep else ts[0]
+    _build.check(lib.honerf_uchain_seed(
+        pack.ws[n - 1].data_ptr(), pack.ws[n - 1].stride(0), ss[n - 2].data_ptr(),
+        Hp, m, t.data_ptr(), t.stride(0), stream), "honerf_uchain_seed")
+    for l in range(n - 2, -1, -1):
+        wt = pack.wts[l]                       # (out_pad, in_pad) = (Hp, in_pad)
+        if l == 0:
+            gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, None, 0,
+                 U=u, split=0, u_acc=1, stream=stream)
+            break
+        nxt = ts[l - 1] if keep else (ts[1] if t is ts[0] else ts[0])
+        c_keep = cs[l] if keep else None
+        if l == tm.skip:
+            gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, nxt,
+                 nxt.stride(0), S=ss[l - 1], U=u, split=Hp, hscale=INV_SQRT2,
+                 escale=INV_SQRT2, Cf=c_keep, stream=stream)
+        else:
+            gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, nxt,
+                 nxt.stride(0), S=ss[l - 1], split=wt.shape[1], Cf=c_keep, stream=stream)
+        t = nxt
+    # reverse chain -> [sdf | g] into packed, [feat | grad-PE] into cx2
+    _build.check(lib.honerf_fine_rev(
+        pts.data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
+        meta.v_multires, meta.r_multires, u.data_ptr(), u.stride(0),
+        z.data_ptr(), z.stride(0), meta.d_out - 1, cx2.data_ptr(), cx2.stride(0),
+        meta.Fp, meta.grad_L, packed.data_ptr(), stream), "honerf_fine_rev")
+    # color net on [e | feat | grad-PE]
+    cHp = pack.cws[0].shape[1]
+    a = None
+    for l in range(meta.c_layers):
+        w = pack.cws[l]
+        A1, K1, A2, K2 = (e, Ep, cx2, cx2.shape[1]) if l == 0 else (a, cHp, None, 0)
+        if l < meta.c_layers - 1:
+            nxt = cacts[l] if keep else cacts[l % 2]
+            gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.cbs[l], m, FH.EPI_RELU,
+                 nxt, nxt.stride(0), stream=stream)
+            a = nxt
+        else:
+            gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.cbs[l], m, FH.EPI_SIGMOID,
+                 packed[:, 4:], 8, n_store=3, stream=stream)
+
+
+def _fwd_buffers(pack: FinePack, C: int, dev, keep: bool):
+    meta, tm = pack.meta, pack.meta.trunk_meta
+    n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
+    bf16, f32 = torch.bfloat16, torch.float32
+    cHp = pack.cws[0].shape[1]
+    n_act = n - 1 if keep else 2
+    buf = dict(
+        e=torch.empty((C, Ep), device=dev, dtype=bf16),
+        acts=[torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(n_act)],
+        ts=[torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(n_act)],
+        ss=torch.empty((n - 1, C, Hp), device=dev, dtype=f32),
+        z=torch.empty((C, Op), device=dev, dtype=f32),
+        u=torch.empty((C, Ep), device=dev, dtype=f32),
+        cx2=torch.empty((C, meta.Fp + meta.Gp), device=dev, dtype=bf16),
+        cacts=[torch.empty((C, cHp), device=dev, dtype=bf16)
+               for _ in range(meta.c_layers - 1 if keep else 2)],
+    )
+    if keep:
+        # cs[l] = c_l of the u-chain for l = 1..n-2; c_{n-1} = W_{n-1}[:, 0]
+        # is the same row for every point (a stride-0 operand)
+        buf["cs"] = [None] + [torch.empty((C, Hp), device=dev, dtype=f32)
+                              for _ in range(n - 2)]
+    return buf
+
+
+def _hand_fine_color_cuda(pts, rotT, off, cut, pack: FinePack):
     lib = _lib()
     dev = pts.device
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -295,95 +689,298 @@ def _hand_fine_color_cuda(pts, rotT, off, cut, pack: FinePack):
     if N == 0:
         return packed[:, 0], packed[:, 1:4], packed[:, 4:7]
     C = min(N, CHUNK)
-    bf16, f32 = torch.bfloat16, torch.float32
-    e = torch.empty((C, Ep), device=dev, dtype=bf16)
-    acts = [torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(2)]
-    ss = torch.empty((n - 1, C, Hp), device=dev, dtype=f32)
-    z = torch.empty((C, Op), device=dev, dtype=f32)
-    u = torch.empty((C, Ep), device=dev, dtype=f32)
-    cx2 = torch.empty((C, meta.Fp + meta.Gp), device=dev, dtype=bf16)
-    cHp = pack.cws[0].shape[1]
-    cacts = [torch.empty((C, cHp), device=dev, dtype=bf16) for _ in range(2)]
-    gemm = FH.gemm
+    buf = _fwd_buffers(pack, C, dev, keep=False)
     KERNEL.launches += 1
     for s in range(0, N, C):
-        m = min(C, N - s)
-        FH.embed(lib, pts[s:], m, rotT, off, cut, meta.v_multires, meta.r_multires, e, stream)
-        # trunk forward: a_{l+1} = softplus(z_l), ss[l] = sigmoid(beta z_l)
-        a = None
-        for l in range(n):
-            if l == 0:
-                A1, K1, A2, K2, scale = e, Ep, None, 0, 0.0
-            elif l == tm.skip:
-                A1, K1, A2, K2, scale = a, Hp, e, Ep, FT.INV_SQRT2_BF16
-            else:
-                A1, K1, A2, K2, scale = a, Hp, None, 0, 0.0
-            w = pack.ws[l]
-            if l < n - 1:
-                nxt = acts[l % 2]
-                gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.bs[l], m, FH.EPI_SOFTPLUS,
-                     nxt, nxt.stride(0), a_scale=scale, S=ss[l], stream=stream)
-                a = nxt
-            else:
-                gemm(lib, A1, K1, A2, K2, w, Op, pack.bs[l], m, FH.EPI_F32, z, Op,
-                     n_store=Op, a_scale=scale, stream=stream)
-        # u-chain: t_{n-2} = W_{n-1}[:, 0] * s_{n-2}, then m_l = t_l W_l^T
-        t = acts[0]
-        FH._build.check(lib.honerf_uchain_seed(
-            pack.ws[n - 1].data_ptr(), pack.ws[n - 1].stride(0), ss[n - 2].data_ptr(),
-            Hp, m, t.data_ptr(), t.stride(0), stream), "honerf_uchain_seed")
-        for l in range(n - 2, -1, -1):
-            wt = pack.wts[l]                       # (out_pad, in_pad) = (Hp, in_pad)
-            if l == 0:
-                gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, None, 0,
-                     U=u, split=0, u_acc=1, stream=stream)
-                break
-            nxt = acts[1] if t is acts[0] else acts[0]
-            if l == tm.skip:
-                gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, nxt,
-                     nxt.stride(0), S=ss[l - 1], U=u, split=Hp, hscale=FT.INV_SQRT2,
-                     escale=FT.INV_SQRT2, stream=stream)
-            else:
-                gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, nxt,
-                     nxt.stride(0), S=ss[l - 1], split=wt.shape[1], stream=stream)
-            t = nxt
-        # reverse chain -> [sdf | g] into packed, [feat | grad-PE] into cx2
-        FH._build.check(lib.honerf_fine_rev(
-            pts[s:].data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
-            meta.v_multires, meta.r_multires, u.data_ptr(), u.stride(0),
-            z.data_ptr(), z.stride(0), meta.d_out - 1, cx2.data_ptr(), cx2.stride(0),
-            meta.Fp, meta.grad_L, packed[s:].data_ptr(), stream), "honerf_fine_rev")
-        # color net on [e | feat | grad-PE]
-        a = None
-        for l in range(meta.c_layers):
-            w = pack.cws[l]
-            A1, K1, A2, K2 = (e, Ep, cx2, cx2.shape[1]) if l == 0 else (a, cHp, None, 0)
-            if l < meta.c_layers - 1:
-                nxt = cacts[l % 2]
-                gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.cbs[l], m, FH.EPI_RELU,
-                     nxt, nxt.stride(0), stream=stream)
-                a = nxt
-            else:
-                gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.cbs[l], m, FH.EPI_SIGMOID,
-                     packed[s:, 4:], 8, n_store=3, stream=stream)
+        _fwd_chunk(lib, pts[s:], min(C, N - s), rotT, off, cut, pack, buf, packed[s:], stream)
     return packed[:, 0], packed[:, 1:4], packed[:, 4:7]
 
 
-def hand_fine_color(pts, rotT, off, cut, pack: FinePack):
-    """(N, 3) points -> (sdf (N,), g (N, 3), color (N, 3)).  CUDA tensors
-    launch the kernel (bf16 trunk only); CPU tensors run the plain
-    version.  Forward only: raises if a gradient is asked of it."""
-    ws = pack.ws + pack.cws
+def _tn(blib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
+    """out[:K, :N] (+)= X[:m, :K]^T Y[:m, :N] in f32, split over points."""
+    tiles = -(-K // _TN_TILE) * -(-N // _TN_TILE)
+    splits = max(1, min(-(-_TN_BLOCKS // tiles), -(-m // 256)))
+    split = _round_up(-(-m // splits), 32)
+    splits = -(-m // split)
+    need = splits * _round_up(K, _TN_TILE) * _round_up(N, _TN_TILE)
+    if need > ws.numel():
+        raise ValueError(f"dW scratch too small: {need} > {ws.numel()} floats")
+    _build.check(blib.honerf_gemm_tn(
+        X.data_ptr(), ldx, K, x_scale, Y.data_ptr(), Y.stride(0), N, m, split,
+        ws.data_ptr(), out.data_ptr(), out.stride(0), acc, stream), "honerf_gemm_tn")
+
+
+def _colsum(blib, Z, N, m, out, acc, ws, stream):
+    """out[:N] (+)= sum over the m rows of Z[:, :N] (f32, fixed order)."""
+    _build.check(blib.honerf_colsum(Z.data_ptr(), Z.stride(0), N, m, _COLSUM_ROWS,
+                                    ws.data_ptr(), out.data_ptr(), acc, stream),
+                 "honerf_colsum")
+
+
+def _hand_fine_color_bwd_cuda(pts, rotT, off, cut, pack: FinePack, dsdf, dg, dcolor,
+                              want_dw: bool) -> FineGrads:
+    meta, tm = pack.meta, pack.meta.trunk_meta
+    n, Hp, Ep, Op, E = tm.n_layers, tm.Hp, tm.Ep, tm.Op, tm.emb_width
+    cn, F = meta.c_layers, meta.d_out - 1
+    lib, blib = _lib(), _bwd_lib()
+    dev = pts.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16, f32 = torch.bfloat16, torch.float32
+    N = pts.shape[0]
+    dp = torch.empty((N, 3), device=dev, dtype=f32)
+    pose = torch.zeros((256,), device=dev, dtype=f32)
+    dws = tuple(torch.zeros(w.shape, device=dev, dtype=f32) for w in pack.ws)
+    dbs = tuple(torch.zeros(b.shape, device=dev, dtype=f32) for b in pack.bs)
+    dcws = tuple(torch.zeros(w.shape, device=dev, dtype=f32) for w in pack.cws)
+    dcbs = tuple(torch.zeros(b.shape, device=dev, dtype=f32) for b in pack.cbs)
+    C = min(N, BWD_CHUNK)
+    if C:
+        buf = _fwd_buffers(pack, C, dev, keep=True)
+        packed = torch.empty((C, 8), device=dev, dtype=f32)
+        cHp = pack.cws[0].shape[1]
+        CX = pack.cws[0].shape[0]
+        W = max(cHp, Hp, Op)
+        dzf = [torch.empty((C, W), device=dev, dtype=f32) for _ in range(2)]
+        dzb = [torch.empty((C, W), device=dev, dtype=bf16) for _ in range(2)]
+        dx = torch.empty((C, CX), device=dev, dtype=f32)
+        du_b = torch.empty((C, Ep), device=dev, dtype=bf16)
+        du_s = torch.empty((C, Ep), device=dev, dtype=bf16)
+        dgt = torch.empty((C, 4), device=dev, dtype=f32)
+        dm = [torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(2)]
+        ds = torch.empty((n - 1, C, Hp), device=dev, dtype=f32)
+        de = torch.empty((C, Ep), device=dev, dtype=f32)
+        pose_rows = torch.empty((C, 256), device=dev, dtype=f32)
+        onehot = torch.zeros((C, Op), device=dev, dtype=bf16)
+        onehot[:, 0] = 1.0
+        c_last = pack.ws[n - 1][:, 0].float().contiguous()   # c_{n-1}, every point
+        ws = torch.empty((_WS_FLOATS,), device=dev, dtype=f32)
+        KERNEL_BWD.launches += 1
+    for s in range(0, N, C or 1):
+        m = min(C, N - s)
+        acc = int(s > 0)
+        _fwd_chunk(lib, pts[s:], m, rotT, off, cut, pack, buf, packed, stream, keep=True)
+        e, acts, ts, cs, ss, cx2 = (buf[k] for k in ("e", "acts", "ts", "cs", "ss", "cx2"))
+        # color backward: dz = s(1 - s) dcolor, then per layer, top down,
+        # dcW = a^T dz, dcb = sum dz, da = dz cW^T masked by the relu
+        _build.check(blib.honerf_color_dz(packed.data_ptr(), dcolor[s:].data_ptr(), m,
+                                          dzf[0].data_ptr(), dzb[0].data_ptr(),
+                                          dzf[0].stride(0), pack.cws[-1].shape[1], stream),
+                     "honerf_color_dz")
+        cur = 0
+        for l in range(cn - 1, -1, -1):
+            width = pack.cws[l].shape[1]
+            if want_dw:
+                if l == 0:
+                    _tn(blib, e, Ep, Ep, dzb[cur], width, m, dcws[0], acc, ws, stream)
+                    _tn(blib, cx2, cx2.stride(0), cx2.shape[1], dzb[cur], width, m,
+                        dcws[0][Ep:], acc, ws, stream)
+                else:
+                    a = buf["cacts"][l - 1]
+                    _tn(blib, a, a.stride(0), a.shape[1], dzb[cur], width, m, dcws[l], acc,
+                        ws, stream)
+                _colsum(blib, dzf[cur], width, m, dcbs[l], acc, ws, stream)
+            wt = pack.cwts[l]                   # (out_pad, in_pad)
+            if l > 0:
+                nxt = 1 - cur
+                FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_MASK,
+                        dzb[nxt], dzb[nxt].stride(0), Cf=dzf[nxt],
+                        Act=buf["cacts"][l - 1], stream=stream)
+                cur = nxt
+            else:
+                FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, FH.EPI_F32,
+                        dx, dx.stride(0), n_store=CX, stream=stream)
+        # reverse-chain transpose at dg (+ the grad-PE term) -> du, and the
+        # trunk's top cotangent [dsdf | dfeat]
+        _build.check(blib.honerf_fine_bwd_rev(
+            pts[s:].data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
+            meta.v_multires, meta.r_multires, packed.data_ptr(), dsdf[s:].data_ptr(),
+            dg[s:].data_ptr(), dx.data_ptr(), dx.stride(0), Ep, F, meta.Fp, meta.grad_L,
+            du_b.data_ptr(), du_s.data_ptr(), du_b.stride(0), dgt.data_ptr(),
+            dzf[0].data_ptr(), dzb[0].data_ptr(), dzf[0].stride(0), Op, stream),
+            "honerf_fine_bwd_rev")
+        # u-chain transposed, upward: dt = dm_l W_l, dc = dt s_l,
+        # ds_l = dt c_{l+1}, dW_l += dm_l^T t_l
+        for l in range(n):
+            if l == 0:
+                A1, K1, A2, K2 = du_b, Ep, None, 0
+            elif l == tm.skip:
+                A1, K1, A2, K2 = dm[l % 2], Hp, du_s, Ep
+            else:
+                A1, K1, A2, K2 = dm[l % 2], Hp, None, 0
+            if l < n - 1:
+                out = dm[(l + 1) % 2]
+                cs_next = c_last if l + 1 == n - 1 else cs[l + 1]
+                FH.gemm(blib, A1, K1, A2, K2, pack.ws[l], Hp, None, m, EPI_UT, out,
+                        out.stride(0), S=ss[l], DS=ds[l], CS=cs_next,
+                        cs_ld=0 if l + 1 == n - 1 else cs_next.stride(0),
+                        hscale=INV_SQRT2 if l + 1 == tm.skip else 1.0, stream=stream)
+            if want_dw:
+                Y = onehot if l == n - 1 else ts[l]
+                _tn(blib, A1, A1.stride(0), K1, Y, Y.shape[1], m, dws[l], acc, ws, stream)
+                if A2 is not None:
+                    _tn(blib, A2, A2.stride(0), K2, Y, Y.shape[1], m, dws[l][Hp:], acc, ws,
+                        stream)
+        # forward transposed, downward: dW_l += in_l^T dz_l, db_l = sum dz_l,
+        # din = dz_l W_l^T, dz_{l-1} = da s + ds beta s (1 - s), de at the
+        # skip and layer 0
+        cur = 0
+        for l in range(n - 1, -1, -1):
+            width = pack.ws[l].shape[1]
+            if want_dw:
+                if l == 0:
+                    _tn(blib, e, Ep, Ep, dzb[cur], width, m, dws[0], 1, ws, stream)
+                elif l == tm.skip:
+                    a = acts[l - 1]
+                    _tn(blib, a, Hp, Hp, dzb[cur], width, m, dws[l], 1, ws, stream,
+                        x_scale=FT.INV_SQRT2_BF16)
+                    _tn(blib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, ws, stream,
+                        x_scale=FT.INV_SQRT2_BF16)
+                else:
+                    a = acts[l - 1]
+                    _tn(blib, a, Hp, Hp, dzb[cur], width, m, dws[l], 1, ws, stream)
+                _colsum(blib, dzf[cur], width, m, dbs[l], acc, ws, stream)
+            wt = pack.wts[l]                    # (out_pad, in_pad)
+            if l > 0:
+                nxt = 1 - cur
+                skip = l == tm.skip
+                FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_DZ,
+                        dzb[nxt], dzb[nxt].stride(0), Cf=dzf[nxt], S=ss[l - 1], DS=ds[l - 1],
+                        U=de if skip else None, split=Hp,
+                        hscale=INV_SQRT2 if skip else 1.0, escale=INV_SQRT2, u_acc=0,
+                        stream=stream)
+                cur = nxt
+            else:
+                FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_DZ,
+                        None, 0, U=de, split=0, u_acc=1, stream=stream)
+        # embedding-forward transpose -> dp and the per-point pose rows
+        _build.check(blib.honerf_fine_bwd_emb(
+            pts[s:].data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
+            meta.v_multires, meta.r_multires, buf["u"].data_ptr(), buf["u"].stride(0),
+            dgt.data_ptr(), de.data_ptr(), de.stride(0), dx.data_ptr(), dx.stride(0),
+            dp[s:].data_ptr(), pose_rows.data_ptr(), stream), "honerf_fine_bwd_emb")
+        _colsum(blib, pose_rows, 256, m, pose, acc, ws, stream)
+    drotT, doff = _zero_pose_grads(pts)
+    drotT[:3, :63] = pose[:192].reshape(3, 64)[:, :63]
+    doff[0, :63] = pose[192:255]
+    if not want_dw:
+        return FineGrads(dp, drotT, doff, None, None, None, None)
+    return FineGrads(dp, drotT, doff, dws, dbs, dcws, dcbs)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def _check_cuda_pack(pack: FinePack):
+    if pack.meta.dtype != "bf16" or pack.wts is None:
+        raise ValueError("the CUDA fine pass takes a bf16 pack made on the card")
+
+
+def hand_fine_color_fwd(pts, rotT, off, cut, pack: FinePack):
+    """(N, 3) points -> (sdf (N,), g (N, 3), color (N, 3)) on a FinePack.
+    CUDA tensors launch the forward kernel (bf16 trunk only); CPU tensors
+    run the plain version.  No gradient flows through it."""
     FH.check_operands(pts, rotT, off, cut, (), pack.bs + pack.cbs)
-    if torch.is_grad_enabled() and (pts.requires_grad or any(w.requires_grad for w in ws)):
-        raise NotImplementedError(
-            "hand_fine_color is forward-only: its backward kernel is not ported yet")
     with torch.no_grad():
         if pts.device.type == "cuda":
-            if pack.meta.dtype != "bf16" or pack.wts is None:
-                raise ValueError("the CUDA fine pass takes a bf16 pack made on the card")
-            FH.check_operands(pts, rotT, off, cut, ws + pack.wts, pack.bs + pack.cbs)
+            _check_cuda_pack(pack)
+            FH.check_operands(pts, rotT, off, cut, pack.ws + pack.cws + pack.wts,
+                              pack.bs + pack.cbs)
             return _hand_fine_color_cuda(pts, rotT, off, cut, pack)
         if pts.device.type != "cpu":
             raise ValueError(f"unsupported device {pts.device}")
         return hand_fine_color_plain(pts, rotT, off, cut, pack)
+
+
+def hand_fine_color_bwd(pts, rotT, off, cut, pack: FinePack, dsdf, dg, dcolor,
+                        want_dw: bool = True) -> FineGrads:
+    """The backward at cotangents dsdf (N,), dg (N, 3), dcolor (N, 3), in
+    kernel layout.  CUDA tensors launch the backward kernel (bf16 trunk
+    only); CPU tensors run the plain version."""
+    FH.check_operands(pts, rotT, off, cut, (), pack.bs + pack.cbs)
+    N = pts.shape[0]
+    cts = [t.float().contiguous() for t in (dsdf.reshape(N), dg, dcolor)]
+    for t, shape in zip(cts, ((N,), (N, 3), (N, 3))):
+        if tuple(t.shape) != shape or t.device != pts.device:
+            raise ValueError(f"cotangent must be {shape} on {pts.device}")
+    with torch.no_grad():
+        if pts.device.type == "cuda":
+            _check_cuda_pack(pack)
+            FH.check_operands(pts, rotT, off, cut,
+                              pack.ws + pack.cws + pack.wts + pack.cwts, pack.bs + pack.cbs)
+            return _hand_fine_color_bwd_cuda(pts, rotT, off, cut, pack, *cts, want_dw)
+        if pts.device.type != "cpu":
+            raise ValueError(f"unsupported device {pts.device}")
+        return hand_fine_color_plain_bwd(pts, rotT, off, cut, pack, *cts, want_dw)
+
+
+def _unpad_grads(grads: FineGrads, meta: FineMeta, w_shapes, cw_shapes):
+    """Kernel-layout dW/db -> gradients of the unpadded (in, out) inputs:
+    the skip layer's [Hp | Ep] rows joined, color layer 0's rows scattered
+    back to the reference rows."""
+    tm = meta.trunk_meta
+    H, E, Hp = tm.d_hidden, tm.emb_width, tm.Hp
+    dws, dbs = [], []
+    for l, (dw, db, (d_in, d_out)) in enumerate(zip(grads.dws, grads.dbs, w_shapes)):
+        if l == tm.skip:
+            dw = torch.cat([dw[:H], dw[Hp:Hp + E]], dim=0)
+        dws.append(dw[:d_in, :d_out])
+        dbs.append(db[:d_out])
+    rows = torch.as_tensor(color_row_map(meta), device=grads.dp.device)
+    live = rows >= 0
+    dcws, dcbs = [], []
+    for l, (dw, db, (d_in, d_out)) in enumerate(zip(grads.dcws, grads.dcbs, cw_shapes)):
+        if l == 0:
+            full = dw.new_zeros((d_in, dw.shape[1]))
+            full[rows[live]] = dw[live]
+            dw = full
+        dcws.append(dw[:d_in, :d_out])
+        dcbs.append(db[:d_out])
+    return dws, dbs, dcws, dcbs
+
+
+class _HandFineColor(torch.autograd.Function):
+    """The fine pass as one differentiable op: JAX's hand_fine_color
+    custom VJP.  The forward packs the weights (no grad) and keeps no
+    activations; the backward recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, meta, pts, rotT, off, cut, *weights):
+        n, cn = meta.n_layers, meta.c_layers
+        ws, bs = weights[:n], weights[n:2 * n]
+        cws, cbs = weights[2 * n:2 * n + cn], weights[2 * n + cn:]
+        pack = pack_fine_weights([w.detach() for w in ws], [b.detach() for b in bs],
+                                 [w.detach() for w in cws], [b.detach() for b in cbs], meta)
+        sdf, g, color = hand_fine_color_fwd(pts.detach(), rotT.detach(), off.detach(), cut,
+                                            pack)
+        ctx.save_for_backward(pts, rotT, off, cut)
+        ctx.pack = pack
+        ctx.shapes = ([tuple(w.shape) for w in ws], [tuple(w.shape) for w in cws])
+        return sdf, g, color
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dsdf, dg, dcolor):
+        pts, rotT, off, cut = ctx.saved_tensors
+        pack = ctx.pack
+        meta = pack.meta
+        want_dw = any(ctx.needs_input_grad[5:])
+        grads = hand_fine_color_bwd(pts, rotT, off, cut, pack, dsdf, dg, dcolor, want_dw)
+        ctx.pack = None
+        need = ctx.needs_input_grad
+        head = (None, grads.dp if need[1] else None, grads.drotT if need[2] else None,
+                grads.doff if need[3] else None, None)
+        n_w = 2 * (meta.n_layers + meta.c_layers)
+        if not want_dw:
+            return head + (None,) * n_w
+        dws, dbs, dcws, dcbs = _unpad_grads(grads, meta, *ctx.shapes)
+        wgrads = tuple(dws) + tuple(dbs) + tuple(dcws) + tuple(dcbs)
+        return head + tuple(g if nd else None for g, nd in zip(wgrads, need[5:]))
+
+
+def hand_fine_color(pts, rotT, off, cut, ws, bs, cws, cbs, meta: FineMeta):
+    """(N, 3) points -> (sdf (N,), g (N, 3), color (N, 3)), differentiable
+    in pts, rotT, off and the (in, out) trunk and color weights and biases
+    (color layer 0 in the reference row order).  CUDA tensors launch the
+    kernels (bf16 trunk only), CPU tensors run the plain versions."""
+    return _HandFineColor.apply(meta, pts, rotT, off, cut, *ws, *bs, *cws, *cbs)

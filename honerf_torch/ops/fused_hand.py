@@ -155,6 +155,7 @@ def _lib(name: str):
             _P, _I, _I, _P, _I,              # B, ldb, N, bias, M
             _I, _P, _I, _I,                  # mode, C, ldc, n_store
             _P, _I, _P, _I, _I, _F, _F, _I,  # S, lds, U, ldu, split, hscale, escale, u_acc
+            _P, _I, _P, _I, _P, _I, _P, _I,  # Cf, ldcf, DS, ldds, CS, ldcs, Act, ldact
             _P]                              # stream
         lib.honerf_gemm.restype = _I
         lib._honerf_typed = True
@@ -165,17 +166,25 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def _ld(t) -> int:
+    return 0 if t is None else t.stride(0)
+
+
 def gemm(lib, A1, K1, A2, K2, B, N, bias, M, mode, C, ldc, n_store=0, a_scale=0.0,
-         S=None, U=None, split=0, hscale=1.0, escale=1.0, u_acc=0, stream=None):
+         S=None, U=None, split=0, hscale=1.0, escale=1.0, u_acc=0, Cf=None, DS=None,
+         CS=None, cs_ld=None, Act=None, stream=None):
     """One launch of the shared bf16 GEMM + epilogue (see csrc/common.cuh).
     A = concat(A1[:, :K1], A2[:, :K2]) optionally rounded through
-    bf16(x * a_scale); B (K1+K2, N) row-major."""
+    bf16(x * a_scale); B (K1+K2, N) row-major.  Cf/DS/CS/Act are the
+    backward epilogues' extra rows (CS may be one row for every point:
+    cs_ld=0)."""
     rc = lib.honerf_gemm(
-        _ptr(A1), A1.stride(0), K1, _ptr(A2), 0 if A2 is None else A2.stride(0), K2,
+        _ptr(A1), A1.stride(0), K1, _ptr(A2), _ld(A2), K2,
         a_scale, _ptr(B), B.stride(0), N, _ptr(bias), M,
         mode, _ptr(C), ldc, n_store,
-        _ptr(S), 0 if S is None else S.stride(0), _ptr(U), 0 if U is None else U.stride(0),
-        split, hscale, escale, u_acc, stream)
+        _ptr(S), _ld(S), _ptr(U), _ld(U), split, hscale, escale, u_acc,
+        _ptr(Cf), _ld(Cf), _ptr(DS), _ld(DS), _ptr(CS), _ld(CS) if cs_ld is None else cs_ld,
+        _ptr(Act), _ld(Act), stream)
     _build.check(rc, "honerf_gemm")
 
 

@@ -6,10 +6,11 @@ Quirks of the reference kept:
   * alpha = clip((p + 1e-5) / (c + 1e-5), 0, 1).
 
 Kernel dispatch (make_hand_field): the packs of pack_hand_field choose
-the path.  A ladder pack serves the up-sample ladder from ops.fused_hand,
-a fine pack serves the fine pass from ops.fused_fine_full; each launches
-its CUDA kernel on a CUDA tensor and runs its plain version on a CPU
-tensor.
+the path.  A ladder pack serves the up-sample ladder from ops.fused_hand;
+the fine pass comes from ops.fused_fine_full, forward-only on a fine pack
+made once per parameter snapshot (eval), or as the differentiable op
+(`fine_grad`, training).  Each launches its CUDA kernels on a CUDA tensor
+and runs its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -63,24 +64,28 @@ class Field(NamedTuple):
 class HandPacks(NamedTuple):
     """The kernels' weights of one parameter snapshot; None selects the
     exact path.  ladder: ops.fused_hand.FusedHandSDF; fine:
-    ops.fused_fine_full.FinePack."""
+    ops.fused_fine_full.FinePack (forward only); fine_grad: the fine pass
+    is the differentiable op, which packs the weights on each call."""
 
     ladder: Optional[Any] = None
     fine: Optional[Any] = None
+    fine_grad: bool = False
 
 
 def pack_hand_field(params: Dict[str, Any], sdf_cfg: SDFConfig, color_cfg: ColorConfig,
-                    fused_ladder: bool, fused_fine: bool) -> HandPacks:
+                    fused_ladder: bool, fused_fine: bool, grad: bool = False) -> HandPacks:
     """Pack the weights once per parameter snapshot.  fused_ladder: the
     ladder's sdf_fn is ops.fused_hand (bf16 weights, no gradient; the
-    ladder needs none).  fused_fine: full_fn is the color-fused fine pass
-    (forward only)."""
+    ladder needs none).  fused_fine: full_fn is the color-fused fine pass,
+    forward only on a pack, or the differentiable op when `grad`."""
     from honerf_torch.ops.fused_hand import FusedHandSDF
 
     with torch.no_grad():
         return HandPacks(
             ladder=FusedHandSDF(params["sdf"], sdf_cfg) if fused_ladder else None,
-            fine=pack_fine_color(params, sdf_cfg, color_cfg) if fused_fine else None)
+            fine=(pack_fine_color(params, sdf_cfg, color_cfg)
+                  if fused_fine and not grad else None),
+            fine_grad=fused_fine and grad)
 
 
 def make_hand_field(params: Dict[str, Any], sdf_cfg: SDFConfig, color_cfg: ColorConfig,
@@ -97,7 +102,7 @@ def make_hand_field(params: Dict[str, Any], sdf_cfg: SDFConfig, color_cfg: Color
         def sdf_fn(pts):
             return sdf_hand_apply(params["sdf"], fwd_cfg, pts, bt_inv, t_pose_21)[0][..., 0]
 
-    if packs.fine is not None:
+    if packs.fine is not None or packs.fine_grad:
         def full_fn(pts, dirs):
             return hand_fine_color_apply(params, sdf_cfg, color_cfg, pts, bt_inv, t_pose_21,
                                          pack=packs.fine)

@@ -54,11 +54,3 @@ def test_color_row_map_covers_reference_rows():
     assert len(rows) == meta.color_dims[0][0]
     np.testing.assert_array_equal(np.sort(live), np.arange(ref_width))
 
-
-def test_forward_only_refuses_gradients():
-    _, _, tcfg, tccfg = configs(SMALL, "bf16")
-    _, tp = net_params(SMALL)
-    bt, tpose, joints = hand_pose()
-    pts = t(points_near(joints, 4)).requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        TF.hand_fine_color_apply(tp, tcfg, tccfg, pts, t(bt), t(tpose))

@@ -87,3 +87,31 @@ def points_near(joints, n, seed=0, scale=0.05):
 
 def t(x):
     return torch.as_tensor(np.array(x, dtype=np.float32))
+
+
+def train_batch(n_side=6, seed=0, index=1):
+    """A hand train batch as numpy: a grid of rays through the hand from a
+    look-at camera, seeded colors and mask, T-pose bone lengths."""
+    from honerf_tpu.data.datasets import get_bone_length
+    from honerf_tpu.data.synthetic import look_at_camera
+
+    bt, tpose, joints = hand_pose()
+    R, T = look_at_camera(np.asarray([0.0, 0.2, -0.9]), joints.mean(0))
+    g = np.linspace(-0.12, 0.12, n_side, dtype=np.float32)
+    xy = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2)
+    rng = np.random.default_rng(seed)
+    n = xy.shape[0]
+    return dict(cam_R=R, cam_T=T, focal=np.asarray([3.0, 3.0], np.float32),
+                principal=np.zeros(2, np.float32), joints=joints, t_pose_21=tpose, rays_xy=xy,
+                true_rgb=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+                true_mask=(rng.uniform(0, 1, (n, 1)) > 0.4).astype(np.float32),
+                bone_length=get_bone_length(canonical_hand_joints(0.0)).astype(np.float32),
+                index=np.int32(index))
+
+
+def jax_batch(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def torch_batch(b):
+    return {k: (int(v) if k == "index" else t(v)) for k, v in b.items()}
