@@ -43,7 +43,32 @@ Phases, each of which fails the run when it fails:
   8. train check  one step's metrics and gradient tree on the card
               against the same step on the CPU (plain versions), 64 rays,
               perturb 0;
-  9. train profile  one train step under torch.profiler.
+  9. train profile  one train step under torch.profiler;
+ 10. kernel K4  the object SDF against its plain version on the card,
+              full-width object net of confs/wmask_realobj_bean.conf, at
+              a 65,536-point grid chunk, a ragged size and 1,048,576
+              points, with its time, the plain version's, its bound (the
+              sdf column's products) and ms per million points;
+ 11. obj train  the object model's offline train step
+              (train.offline.make_obj_train_step) at the conf as written:
+              441 rays, 64 + 64 samples, 4 up-sample steps, perturb 1, f32
+              trunks, refine_pose on, vgg_weight 0; 3 warm-up steps, then
+              20 timed ones; finite losses, se3_refine moved; one more
+              step under torch.profiler;
+ 12. runner   the object model through train.runner.OfflineRunner, as the
+              CLI builds it, on a synthetic 2-view dataset at the conf's
+              230x266 in a temporary directory: train(stop_at=10) and a
+              checkpoint; a second runner resumes from it, test() writes
+              one PNG per view, and validate_mesh(resolution=256) extracts
+              a mesh per view through K4 at a threshold between the
+              field's value at the box's centre and at its corner (random
+              weights have no zero level inside the mesh box).  K4's count
+              is zeroed just before the meshes and read just after;
+ 13. mesh check  the 256^3 grid from K4 against the grid from its plain
+              version on the card (the kernel rule), and both through
+              marching cubes: vertex and triangle counts within 1%, and
+              every K4 vertex within one voxel of the plain mesh
+              (chunked torch.cdist on the card).
 
 Weights are random (geometric init plus seeded noise, so every embedding
 column is live).  check_k3_faults.py runs the K3 and train checks below
@@ -75,6 +100,7 @@ TRAIN_RAYS = 441            # train.batch_size of the conf
 N_REQUESTS = 3
 CHECK_RAYS = 128
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+MESH_RES = 256              # the CLI's --mode mesh resolution
 CHECK_TRAIN_RAYS = 64
 # Kernel vs plain version on the card.  Both round the same operands to
 # bf16 but sum in f32 in another order, so now and then an activation
@@ -143,7 +169,11 @@ def err_readings(torch, got, want, scale=None):
     err = (got.float() - want.float()).abs().flatten()
     if scale is None:
         scale = max(float(want.abs().max()), 1e-6)
-    med, p99 = (float(torch.quantile(err, q)) for q in (0.5, 0.99))
+    if err.numel() < 1 << 24:
+        med, p99 = (float(torch.quantile(err, q)) for q in (0.5, 0.99))
+    else:  # past torch.quantile's size limit: the order statistics
+        srt = err.sort().values
+        med, p99 = (float(srt[int(q * (err.numel() - 1))]) for q in (0.5, 0.99))
     return med, p99, float(err.max()), scale
 
 
@@ -226,12 +256,13 @@ def k3_flops(cfg, ccfg, n: float) -> float:
 
 
 def k4_flops(obj_cfg, n: float) -> float:
-    """The object SDF forward (shrink skip) on n points, the 128 columns
-    K4 writes of its last layer."""
+    """The object SDF forward (shrink skip) on n points, counting the sdf
+    column of the last layer only: the function returns nothing else (the
+    TPU kernel wrote 128 columns and kept column 0)."""
     d, E = obj_cfg.dims, obj_cfg.input_width
     last = len(d) - 2
     return 2.0 * n * sum(
-        d[l] * (128 if l == last else d[l + 1] - (E if l + 1 in obj_cfg.skip_in else 0))
+        d[l] * (1 if l == last else d[l + 1] - (E if l + 1 in obj_cfg.skip_in else 0))
         for l in range(last + 1))
 
 
@@ -491,6 +522,79 @@ def train_check_readings(torch, fs, dev, seed: int = 1):
     return SimpleNamespace(card=mc, cpu=mp, rel=rel, worst_metric=worst_metric, secs=secs)
 
 
+# -- the object model (phases 10-13) --
+
+def obj_flagship(torch, dev) -> SimpleNamespace:
+    """The object conf as written (f32 trunks) and its random weights on
+    dev (geometric init plus the seeded 5% noise)."""
+    from honerf_torch.config import load_config
+    from honerf_torch.models.fields import (
+        color_config_from_conf,
+        init_color_params,
+        init_sdf_params,
+        init_variance_params,
+        sdf_config_from_conf,
+    )
+    from honerf_torch.render.neus import RenderConfig
+    from honerf_torch.train.offline import TrainHyper
+
+    conf = load_config(OBJ_CONF)
+    sdf_cfg = sdf_config_from_conf("obj", conf["model.sdf_network"])
+    color_cfg = color_config_from_conf("obj", conf["model.rendering_network"])
+    gen = torch.Generator().manual_seed(0)
+    params = {
+        "sdf": perturb(torch, init_sdf_params(gen, sdf_cfg, device=dev), gen),
+        "color": perturb(torch, init_color_params(gen, color_cfg, device=dev), gen),
+        "variance": init_variance_params(float(conf["model.variance_network"]["init_val"]),
+                                         device=dev),
+    }
+    return SimpleNamespace(conf=conf, sdf=sdf_cfg, color=color_cfg,
+                           rcfg=RenderConfig.from_conf(conf["model.neus_renderer"]),
+                           tcfg=TrainHyper.from_conf(conf), params=params)
+
+
+def obj_train_batch(torch, n_rays: int, device, seed: int = 0):
+    """The object batch bench.py builds: seeded rays, colors and mask, a
+    look-at camera at the object, the identity object pose."""
+    import numpy as np
+
+    from honerf_torch.data.synthetic import look_at_camera
+
+    rng = np.random.default_rng(seed)
+    R, T = look_at_camera(np.asarray([0.0, 0.2, -0.9]), np.zeros(3))
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    return dict(rays_xy=f(rng.uniform(-0.5, 0.5, (n_rays, 2))),
+                true_rgb=f(rng.uniform(0, 1, (n_rays, 3))),
+                true_mask=f(rng.uniform(0, 1, (n_rays, 1)) > 0.4),
+                focal=f([3.0, 3.0]), principal=f(np.zeros(2)), index=0,
+                cam_R=f(R), cam_T=f(T), Ro=f(np.eye(3)), To=f(np.zeros(3)))
+
+
+def read_png(path: str):
+    """(H, W, 3) uint8 of an 8-bit RGB PNG without filters (the runner's
+    own writer), with zlib and struct only."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
+    off, idat, (W, H) = 8, b"", (0, 0)
+    while off < len(data):
+        (n,) = struct.unpack(">I", data[off:off + 4])
+        kind, body = data[off + 4:off + 8], data[off + 8:off + 8 + n]
+        if kind == b"IHDR":
+            W, H = struct.unpack(">II", body[:8])
+        elif kind == b"IDAT":
+            idat += body
+        off += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, 1 + 3 * W)
+    assert not rows[:, 0].any(), "filtered rows"
+    return rows[:, 1:].reshape(H, W, 3)
+
+
 def main() -> int:
     import torch
 
@@ -501,13 +605,13 @@ def main() -> int:
     try:
         import numpy as np
 
-        from honerf_torch.config import load_config
         from honerf_torch.data.synthetic import canonical_hand_joints, posed_hand_example
         from honerf_torch.hand import bone_transforms_from_mano_joints
-        from honerf_torch.models.fields import pack_fine_color, sdf_config_from_conf
+        from honerf_torch.models.fields import pack_fine_color
         from honerf_torch.ops import _build
         from honerf_torch.ops import fused_fine_full as FF
         from honerf_torch.ops import fused_hand as FH
+        from honerf_torch.ops import fused_sdf as FS
         from honerf_torch.render.neus import pack_hand_field
         from honerf_torch.train.offline import (
             init_train_state,
@@ -845,19 +949,202 @@ def main() -> int:
     phase("train check", train_check)
     phase("train profile", train_profile)
 
+    # -- 10-13. the object model: K4, its train step, the runner, meshes --
+    obj = obj_flagship(torch, dev)
+    log(f"conf {os.path.relpath(OBJ_CONF, ROOT)}: sdf {obj.sdf.n_layers}x{obj.sdf.d_hidden} skip "
+        f"{obj.sdf.skip_in} embedding {obj.sdf.input_width} d_out {obj.sdf.d_out}; color "
+        f"{obj.color.n_layers}x{obj.color.d_hidden} in {obj.color.input_width}; render "
+        f"{obj.rcfg.n_samples}+{obj.rcfg.n_importance} up {obj.rcfg.up_sample_steps}; trunks f32")
+    grid_pts = MESH_RES ** 3
+    meshed = {}
+
+    def kernel_k4():
+        """A grid chunk of the mesh path, a ragged size, a million points,
+        all in the obj-real mesh box; the chunk's numbers go into the
+        kernels line."""
+        fused = FS.FusedObjSDF(obj.params["sdf"], obj.sdf)
+        rng = np.random.default_rng(1)
+        oks, errs = [], []
+        for label, n in (("grid chunk", 1 << 16), ("ragged", (1 << 16) + 4321),
+                         ("1M", 1 << 20)):
+            pts = torch.as_tensor(rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32), device=dev)
+            args = (pts, fused.ws, fused.bs, fused.meta)
+            got = FS.fused_obj_sdf(*args)
+            want = FS.fused_obj_sdf_plain(*args)
+            torch.cuda.synchronize()
+            ok, err, text = compare(torch, "sdf", got, want)
+            oks.append(ok)
+            errs.append(err)
+            ms = cuda_ms(torch, lambda: FS.fused_obj_sdf(*args), 10)
+            plain_ms = cuda_ms(torch, lambda: FS.fused_obj_sdf_plain(*args), 3)
+            n_bytes = nbytes([pts, *fused.ws, *fused.bs]) + 4 * n
+            b_ms, b_by = bound(k4_flops(obj.sdf, n), n_bytes)
+            log(f"K4 fused_obj_sdf, {label}: {n} pts ({-(-n // FS.CHUNK)} passes); {text}; "
+                f"kernel {ms:.3f} ms ({ms * 1e6 / n:.3f} ms per M points), plain {plain_ms:.3f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}, {k4_flops(obj.sdf, 1.0) / 1e6:.4f} MFLOP/pt)")
+            rows.setdefault("K4", dict(name=FS.KERNEL.name, route="cuda", source=FS.KERNEL.source,
+                                       replaces=FS.KERNEL.replaces, points=n, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=None))
+            if n == 1 << 20:
+                g_flops = k4_flops(obj.sdf, grid_pts)
+                log(f"K4 per {MESH_RES}^3 grid ({grid_pts} points): {g_flops / 1e12:.2f} TFLOP, "
+                    f"bound {g_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms, "
+                    f"{ms * grid_pts / n:.1f} ms at the 1M rate")
+        rows["K4"]["max_abs_err"] = max(errs)
+        if not all(oks):
+            raise AssertionError("K4 disagrees with its plain version")
+
+    def obj_train():
+        from honerf_torch.models.fields import init_se3_refine
+        from honerf_torch.train.offline import make_obj_train_step
+
+        ttcfg = obj.tcfg._replace(batch_size=TRAIN_RAYS, vgg_weight=0.0, refine_pose=True)
+        tparams = dict(clone_tree(obj.params, dev),
+                       se3_refine=init_se3_refine(8, "obj", device=dev))
+        state = init_train_state(tparams, ttcfg)
+        step = make_obj_train_step(obj.sdf, obj.color, obj.rcfg, ttcfg)
+        batch = obj_train_batch(torch, TRAIN_RAYS, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        se3_before = tparams["se3_refine"].detach().clone()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = []
+        for _ in range(TRAIN_WARMUP):
+            state, m = step(state, batch, gen)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            state, m = step(state, batch, gen)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss = torch.stack([m["loss"] for m in metrics])
+        gnorm = torch.stack([m["grad_norm"] for m in metrics])
+        moved = float((tparams["se3_refine"].detach() - se3_before).abs().max())
+        log(f"obj train: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays in {dt * 1e3:.1f} ms: "
+            f"{dt * 1e3 / TRAIN_STEPS:.2f} ms/step, {TRAIN_RAYS * TRAIN_STEPS / dt:.1f} rays/s "
+            f"(host clock, after {TRAIN_WARMUP} warm-up steps); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"obj train: loss {', '.join(f'{x:.4f}' for x in loss.tolist())}")
+        log(f"obj train: grad_norm first {float(gnorm[0]):.4f} last {float(gnorm[-1]):.4f}; "
+            f"se3_refine moved by up to {moved:.3e}")
+        assert bool(torch.isfinite(loss).all()) and bool(torch.isfinite(gnorm).all()), \
+            "a loss or gradient norm is not finite"
+        assert moved > 0, "se3_refine did not move"
+        device_profile(torch, f"one object train step of {TRAIN_RAYS} rays",
+                       lambda: step(state, batch, gen))
+
+    def runner():
+        """The object model through OfflineRunner: train, resume + test,
+        meshes through K4."""
+        import shutil
+        import tempfile
+
+        from honerf_torch.data.synthetic import generate_object_dataset
+        from honerf_torch.train.runner import OfflineRunner, mesh_bounds
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_obj_")
+        try:
+            oH, oW = obj.conf.get_list("dataset.image_size")
+            data = os.path.join(tmp, "data")
+            generate_object_dataset(data, n_frames=1, n_views=2, H=oH, W=oW)
+            conf = os.path.join(tmp, "bean.conf")
+            with open(OBJ_CONF) as f:
+                text = f.read().replace("./exp/CASE_NAME/wmask_realobj", os.path.join(tmp, "exp"))
+            with open(conf, "w") as f:
+                f.write(text.replace("./data/offline_stage_data/bean_cppose", data))
+            r = OfflineRunner(conf, "train", "bean", device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.train(stop_at=10)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            r.save_checkpoint_file()
+            r2 = OfflineRunner(conf, "test", "bean", is_continue=True, device=dev)
+            assert r2.iter_step == 10, r2.iter_step
+            assert torch.equal(r2.state["params"]["sdf"]["layers"][0]["v"],
+                               r.state["params"]["sdf"]["layers"][0]["v"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r2.test()
+            torch.cuda.synchronize()
+            test_s = time.perf_counter() - t0
+            out_dir = os.path.join(tmp, "exp", "test_render")
+            imgs = [read_png(os.path.join(out_dir, n)) for n in sorted(os.listdir(out_dir))]
+            assert len(imgs) == 2 and all(i.shape == (oH, oW, 3) for i in imgs)
+            fused = FS.FusedObjSDF(r2.state["params"]["sdf"], r2.sdf_cfg)
+            lo, hi = mesh_bounds("obj", r2.data_type, np.zeros((21, 3)))
+            probe = torch.as_tensor(np.stack([(lo + hi) / 2, hi]).astype(np.float32), device=dev)
+            centre, corner = fused(probe).tolist()
+            thr = 0.5 * (centre + corner)
+            FS.KERNEL.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs = r2.validate_mesh(resolution=MESH_RES, threshold=thr)
+            mesh_s = time.perf_counter() - t0
+            launches = FS.KERNEL.launches
+            rows["K4"] = dict(rows.get("K4", {}), launches=launches)
+            log(f"runner: train(stop_at=10) in {train_s * 1e3:.1f} ms "
+                f"({train_s * 1e3 / 10:.2f} ms/step); test: {len(imgs)} images of {oH}x{oW} in "
+                f"{test_s * 1e3:.1f} ms ({test_s * 1e3 / len(imgs):.1f} ms per image); pixel "
+                f"means {', '.join(f'{float(i.mean()):.2f}' for i in imgs)}")
+            log(f"runner: field at the mesh box's centre {centre:.4f}, corner {corner:.4f}: "
+                f"threshold {thr:.4f}; {len(recs)} meshes of {MESH_RES}^3 in {mesh_s * 1e3:.1f} ms, "
+                f"K4 launches {launches}")
+            for i, m in enumerate(recs):
+                log(f"runner: mesh {i}: grid {m['grid_s'] * 1e3:.1f} ms, marching cubes "
+                    f"{m['mc_s'] * 1e3:.1f} ms, PLY {m['ply_s'] * 1e3:.1f} ms; "
+                    f"{m['n_verts']} vertices, {m['n_tris']} triangles")
+            assert launches > 0, "K4 did not launch on the mesh path"
+            assert all(m["n_verts"] > 0 and m["n_tris"] > 0 for m in recs), "an empty mesh"
+            meshed.update(fused=fused, thr=thr, lo=lo, hi=hi, recs=recs)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def mesh_check():
+        from honerf_torch.extract import evaluate_sdf_grid, marching_cubes
+
+        fused, thr, lo, hi, R = meshed["fused"], meshed["thr"], meshed["lo"], meshed["hi"], MESH_RES
+        plain = lambda p: FS.fused_obj_sdf_plain(p, fused.ws, fused.bs, fused.meta)  # noqa: E731
+        g_k, g_p = (evaluate_sdf_grid(fn, lo, hi, R, device=dev) for fn in (fused, plain))
+        ok, _, text = compare(torch, "grid", torch.as_tensor(g_k, device=dev),
+                              torch.as_tensor(g_p, device=dev))
+        log(f"mesh check: the {R}^3 grid of K4 vs its plain version: {text}")
+        (vk, tk), (vp, tp) = marching_cubes(g_k, thr), marching_cubes(g_p, thr)
+        a = torch.as_tensor(vk, device=dev)
+        b = torch.as_tensor(vp, device=dev)
+        a, b = a.double(), b.double()  # f32 in cdist's matmul form loses ~0.1 voxel
+        dist = torch.cat([torch.cdist(a[s:s + 4096], b).min(dim=1).values
+                          for s in range(0, a.shape[0], 4096)])
+        rel_v = abs(len(vk) - len(vp)) / max(len(vp), 1)
+        rel_t = abs(len(tk) - len(tp)) / max(len(tp), 1)
+        far = float(dist.max())
+        log(f"mesh check: K4 mesh {len(vk)} vertices, {len(tk)} triangles; plain {len(vp)}, "
+            f"{len(tp)} (differ by {rel_v:.2e}, {rel_t:.2e}; tol 1e-2); K4 vertex to the plain "
+            f"mesh: median {float(dist.median()):.2e}, max {far:.2e} voxels (tol 1)")
+        assert ok and rel_v <= 1e-2 and rel_t <= 1e-2 and far <= 1.0, \
+            "the K4 mesh disagrees with the plain version's"
+
+    phase("kernel K4", kernel_k4)
+    phase("obj train", obj_train)
+    phase("runner", runner)
+    if "runner" not in failures:
+        phase("mesh check", mesh_check)
+    else:
+        failures.append("mesh check")
+
     # the TPU kernels still to port, from their shapes (weights read as
     # bf16 once, K6's dW written as f32 once)
-    obj_cfg = sdf_config_from_conf("obj", load_config(OBJ_CONF)["model.sdf_network"])
     E, m = sdf_cfg.input_width, 1e6
     n_w = sum(i * o for i, o in trunk_dims(sdf_cfg, sdf_cfg.d_out))
-    to_port = {"K4": bound(k4_flops(obj_cfg, m), (12 + 4 * 128) * m + k4_flops(obj_cfg, 1.0)),
-               "K5": bound(k5_flops(sdf_cfg, m), (6 * E + 4 * sdf_cfg.d_out) * m + 2 * n_w),
+    to_port = {"K5": bound(k5_flops(sdf_cfg, m), (6 * E + 4 * sdf_cfg.d_out) * m + 2 * n_w),
                "K6": bound(3 * k5_flops(sdf_cfg, m),
                            (10 * E + 4 * sdf_cfg.d_out) * m + 6 * n_w)}
     log("bounds per million points of the TPU kernels still to port: " + ", ".join(
         f"{k} {ms:.3f} ms ({by})" for k, (ms, by) in to_port.items()))
     log(gpu_line())
-    order = ("K1", "K2", "K3")
+    order = ("K1", "K2", "K3", "K4")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: rows.get(n, {}).get(k) for k in keys} for n in order]}))

@@ -1,10 +1,13 @@
-"""Hand SDF / color / deviation networks; counterpart of the hand and
-shared parts of honerf_tpu.models.fields (the object nets come later).
+"""Hand and object SDF / color networks and the deviation; counterpart of
+honerf_tpu.models.fields.
 
-  * SDF MLP: 8x256, skip at 4 (widened input: concat(x, embedding)/sqrt2),
-    d_out = 257 (sdf + 256 features), softplus beta=100, geometric init,
-    weight norm.  Input: the 21-bone embedding (models.embedding).
-  * Color MLP: 4x256 relu + sigmoid on (embedding | feature | grad-PE).
+  * SDF MLP: 8x256, skip at 4, d_out = 257 (sdf + 256 features), softplus
+    beta=100, geometric init, weight norm.  Hand: the 21-bone embedding
+    (models.embedding) in, widened skip input concat(x, embedding)/sqrt2.
+    Object: xyz PE (L=10, 63 channels) in, shrunk pre-skip output, so the
+    skip input concat(x, embedding)/sqrt2 keeps the width; sdf / scale.
+  * Color MLP: 4x256 relu + sigmoid; the hand's on (embedding | feature |
+    grad-PE), the object's on (point-PE | dir-PE | feature | grad-PE).
   * Deviation: inv_s = exp(10 variance), clipped to [1e-6, 1e6].
 
 Stored weights keep the reference's bone-major embedding columns; the
@@ -260,6 +263,14 @@ def _flat_sdf_layers(params: Params, cfg: SDFConfig):
     return layers
 
 
+def sdf_obj_apply(params: Params, cfg: SDFConfig, pts: torch.Tensor) -> torch.Tensor:
+    """Object SDF forward: (..., 3) -> (..., 257) [sdf / scale, features]."""
+    emb = torch.cat([pts, positional_encoding(pts, cfg.v_multires)], dim=-1)
+    out = _mlp_trunk(params["layers"], emb, cfg.skip_in, len(cfg.dims), softplus_beta,
+                     cfg.trunk_dtype)
+    return torch.cat([out[..., :1] / cfg.scale, out[..., 1:]], dim=-1)
+
+
 def sdf_hand_apply(params: Params, cfg: SDFConfig, pts: torch.Tensor,
                    bt_inv: torch.Tensor, t_pose_21: torch.Tensor):
     """Hand SDF forward -> (out257, xyz_feature, r, h).  With
@@ -298,9 +309,35 @@ def color_hand_apply(params: Params, cfg: ColorConfig, xyz_feature: torch.Tensor
     return torch.sigmoid(out) if cfg.squeeze_out else out
 
 
+def color_obj_apply(params: Params, cfg: ColorConfig, pts: torch.Tensor, dirs: torch.Tensor,
+                    feature_vector: torch.Tensor, gradients: torch.Tensor) -> torch.Tensor:
+    """Object color net on (point-PE | dir-PE | feature | gradient-PE)."""
+    point_emb = torch.cat([pts, positional_encoding(pts, cfg.v_multires)], dim=-1)
+    dir_emb = torch.cat([dirs, positional_encoding(dirs, cfg.r_multires)], dim=-1)
+    grad_emb = torch.cat([gradients, positional_encoding(gradients, cfg.grad_multires)], dim=-1)
+    x = torch.cat([point_emb, dir_emb, feature_vector, grad_emb], dim=-1)
+    out = _mlp_trunk(params["layers"], x, (), len(cfg.dims), torch.relu, cfg.trunk_dtype)
+    return torch.sigmoid(out) if cfg.squeeze_out else out
+
+
 def variance_apply(params: Params) -> torch.Tensor:
     """inv_s = exp(10 variance), clipped like the renderer."""
     return torch.clamp(torch.exp(params["variance"] * 10.0), 1e-6, 1e6)
+
+
+def sdf_obj_value_feat_grad(params: Params, cfg: SDFConfig, pts: torch.Tensor,
+                            create_graph: Optional[bool] = None):
+    """(sdf (...,1), features (...,256), grad (...,3)); grad is d sdf / d
+    pts by autograd, create_graph as in sdf_hand_value_feat_grad."""
+    if create_graph is None:
+        create_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        p = pts if pts.requires_grad else pts.detach().requires_grad_(True)
+        out = sdf_obj_apply(params, cfg, p)
+        (grad,) = torch.autograd.grad(out[..., 0].sum(), p, create_graph=create_graph)
+    if not create_graph:
+        out, grad = out.detach(), grad.detach()
+    return out[..., :1], out[..., 1:], grad
 
 
 def sdf_hand_value_feat_grad(params: Params, cfg: SDFConfig, pts: torch.Tensor,

@@ -22,7 +22,7 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "honerf_kernels"
-SOURCES = ("fused_hand", "fused_fine_full", "fused_fine_bwd")
+SOURCES = ("fused_hand", "fused_fine_full", "fused_fine_bwd", "fused_sdf")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 

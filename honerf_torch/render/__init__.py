@@ -4,7 +4,9 @@ from honerf_torch.render.neus import (
     RenderConfig,
     coarse_z_vals,
     make_hand_field,
+    make_obj_field,
     pack_hand_field,
+    rays_to_object_frame,
     render_single,
     safe_norm,
     sdf_to_alpha,
@@ -24,10 +26,12 @@ __all__ = [
     "coarse_z_vals",
     "hierarchical_z_vals",
     "make_hand_field",
+    "make_obj_field",
     "merge_sorted",
     "merge_z_vals",
     "neus_upsample_weights",
     "pack_hand_field",
+    "rays_to_object_frame",
     "render_single",
     "safe_norm",
     "sample_pdf_det",

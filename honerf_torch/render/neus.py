@@ -5,6 +5,10 @@ Quirks of the reference kept:
     (the reference's cumprod_seed='prev_cdf'; standard NeuS seeds ones);
   * alpha = clip((p + 1e-5) / (c + 1e-5), 0, 1).
 
+Fields: make_obj_field, the object in its local frame (rays moved there
+by rays_to_object_frame), plain PyTorch as in the JAX package;
+make_hand_field, the pose-conditioned hand.
+
 Kernel dispatch (make_hand_field): the packs of pack_hand_field choose
 the path.  A ladder pack serves the up-sample ladder from ops.fused_hand;
 the fine pass comes from ops.fused_fine_full, forward-only on a fine pack
@@ -23,10 +27,13 @@ from honerf_torch.models.fields import (
     ColorConfig,
     SDFConfig,
     color_hand_apply,
+    color_obj_apply,
     hand_fine_color_apply,
     pack_fine_color,
     sdf_hand_apply,
     sdf_hand_value_feat_grad,
+    sdf_obj_apply,
+    sdf_obj_value_feat_grad,
     variance_apply,
 )
 from honerf_torch.render.sampling import hierarchical_z_vals
@@ -59,6 +66,27 @@ class Field(NamedTuple):
     sdf_fn: Callable
     full_fn: Callable
     inv_s: torch.Tensor
+
+
+def make_obj_field(params: Dict[str, Any], sdf_cfg: SDFConfig, color_cfg: ColorConfig) -> Field:
+    """Object field in its local frame (rays must be moved there by
+    rays_to_object_frame); the spatial gradient by autograd."""
+
+    def sdf_fn(pts):
+        return sdf_obj_apply(params["sdf"], sdf_cfg, pts)[..., 0]
+
+    def full_fn(pts, dirs):
+        sdf, feat, grad = sdf_obj_value_feat_grad(params["sdf"], sdf_cfg, pts)
+        color = color_obj_apply(params["color"], color_cfg, pts, dirs, feat, grad)
+        return sdf[..., 0], grad, color
+
+    return Field(sdf_fn, full_fn, variance_apply(params["variance"]))
+
+
+def rays_to_object_frame(rays_o: torch.Tensor, rays_d: torch.Tensor, Ro: torch.Tensor,
+                         To: torch.Tensor):
+    """World rays -> object-local frame: o' = Ro^T (o - To), d' = Ro^T d."""
+    return (rays_o - To) @ Ro, rays_d @ Ro
 
 
 class HandPacks(NamedTuple):

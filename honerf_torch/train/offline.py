@@ -1,9 +1,11 @@
-"""The hand model's offline train step and eval render (counterpart of
-the hand parts of honerf_tpu.train.offline): camera -> rays -> HALO bone
-transforms (with the per-view se3_refine pose refinement) -> NeuS render
--> masked-L1 + mask-BCE + eikonal loss -> global-norm grad clip -> Adam.
+"""The offline train steps and eval renders of the hand and object models
+(counterpart of honerf_tpu.train.offline): camera -> rays -> the per-view
+se3_refine pose refinement (the object's rotation and translation, or the
+hand's HALO bone transforms) -> NeuS render -> masked-L1 + mask-BCE +
+eikonal loss -> global-norm grad clip -> Adam.  The object model runs no
+kernel, as in the JAX package: its field is plain PyTorch.
 
-Dispatch, as in the JAX package: the up-sample ladder uses the fused
+Hand dispatch, as in the JAX package: the up-sample ladder uses the fused
 ladder SDF (ops.fused_hand, no gradient) unless `train.fused_ladder =
 false`; the fine pass, in training and in the eval render alike, uses the
 color-fused op (ops.fused_fine_full: K2 forward, K3 backward) iff the SDF
@@ -32,10 +34,13 @@ from honerf_torch.render.neus import (
     HandPacks,
     RenderConfig,
     make_hand_field,
+    make_obj_field,
     pack_hand_field,
+    rays_to_object_frame,
     render_single,
 )
 from honerf_torch.train.schedule import make_lr_schedule
+from honerf_torch.utils.transforms import rot6d_to_matrix
 
 Params = Dict[str, Any]
 
@@ -159,6 +164,18 @@ def offline_losses(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
     return loss, metrics
 
 
+def refined_obj_pose(params: Params, tcfg: TrainHyper, Ro: torch.Tensor, To: torch.Tensor,
+                     index: int):
+    """The per-view object pose correction: Ro' = rot6d(refine[:6]) @ Ro,
+    To' = To + 0.1 refine[6:9].  An index past the table reads its last
+    row, as JAX's clamped gather does."""
+    if not tcfg.refine_pose:
+        return Ro, To
+    table = params["se3_refine"]
+    ref = table[min(int(index), table.shape[0] - 1)]
+    return rot6d_to_matrix(ref[:6]) @ Ro, To + ref[6:9] * 0.1
+
+
 def refined_hand_pose(params: Params, tcfg: TrainHyper, batch) -> torch.Tensor:
     """(21, 4, 4) inverse bone transforms of the batch's view: with
     refine_pose its se3_refine row gives the palm rot6d, a 0.1-scaled
@@ -193,6 +210,21 @@ def _render_rays_chunked(field, rcfg, tcfg, generator, o, d) -> Dict[str, torch.
     return merged
 
 
+def obj_render_from_batch(params: Params, sdf_cfg: SDFConfig, color_cfg: ColorConfig,
+                          rcfg: RenderConfig, tcfg: TrainHyper, batch: Dict[str, torch.Tensor],
+                          generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """Camera -> rays -> object frame (refined pose) -> NeuS render,
+    differentiable in the params (se3_refine included when
+    tcfg.refine_pose)."""
+    cam = Camera(R=batch["cam_R"], T=batch["cam_T"], focal=batch["focal"],
+                 principal=batch["principal"])
+    rb = xy_to_ray_bundle(cam, batch["rays_xy"])
+    Ro, To = refined_obj_pose(params, tcfg, batch["Ro"], batch["To"], batch["index"])
+    o, d = rays_to_object_frame(rb.origins, rb.directions, Ro, To)
+    field = make_obj_field(params, sdf_cfg, color_cfg)
+    return _render_rays_chunked(field, rcfg, tcfg, generator, o, d)
+
+
 def hand_render_from_batch(params: Params, sdf_cfg: SDFConfig, color_cfg: ColorConfig,
                            rcfg: RenderConfig, tcfg: TrainHyper, batch: Dict[str, torch.Tensor],
                            generator: Optional[torch.Generator] = None,
@@ -219,15 +251,9 @@ def _render_packed(params, packs: HandPacks, sdf_cfg, color_cfg, rcfg, tcfg, bat
     return _render_rays_chunked(field, rcfg, tcfg, generator, rb.origins, rb.directions)
 
 
-def make_hand_train_step(sdf_cfg: SDFConfig, color_cfg: ColorConfig, rcfg: RenderConfig,
-                         tcfg: TrainHyper):
-    """step(state, batch, generator) -> (state, metrics): one Adam update
-    of the hand model, in place.  The batch carries rays_xy, true_rgb,
-    true_mask, the camera (cam_R, cam_T, focal, principal), joints,
-    t_pose_21, bone_length and the view index; `generator` (on the
-    tensors' device) draws the coarse-sample jitter when rcfg.perturb > 0.
-    metrics holds the eight of offline_losses and grad_norm, the global
-    norm before the clip, as 0-d tensors (reading them syncs the card)."""
+def _make_train_step(render, sdf_cfg: SDFConfig, tcfg: TrainHyper):
+    """The update shared by both models around render(params, batch,
+    generator) -> the render's outputs."""
     clip = resolve_grad_clip(tcfg, sdf_cfg)
     schedule = make_lr_schedule(tcfg.learning_rate, tcfg.warm_up_end, tcfg.end_iter,
                                 tcfg.learning_rate_alpha)
@@ -235,7 +261,7 @@ def make_hand_train_step(sdf_cfg: SDFConfig, color_cfg: ColorConfig, rcfg: Rende
     def step(state, batch, generator=None):
         params, opt = state["params"], state["opt"]
         opt.zero_grad(set_to_none=True)
-        out = hand_render_from_batch(params, sdf_cfg, color_cfg, rcfg, tcfg, batch, generator)
+        out = render(params, batch, generator)
         loss, metrics = offline_losses(out, batch, tcfg)
         loss.backward()
         leaves = _tensors(params)
@@ -251,6 +277,45 @@ def make_hand_train_step(sdf_cfg: SDFConfig, color_cfg: ColorConfig, rcfg: Rende
         return state, dict(metrics, grad_norm=gnorm.detach())
 
     return step
+
+
+def make_hand_train_step(sdf_cfg: SDFConfig, color_cfg: ColorConfig, rcfg: RenderConfig,
+                         tcfg: TrainHyper):
+    """step(state, batch, generator) -> (state, metrics): one Adam update
+    of the hand model, in place.  The batch carries rays_xy, true_rgb,
+    true_mask, the camera (cam_R, cam_T, focal, principal), joints,
+    t_pose_21, bone_length and the view index; `generator` (on the
+    tensors' device) draws the coarse-sample jitter when rcfg.perturb > 0.
+    metrics holds the eight of offline_losses and grad_norm, the global
+    norm before the clip, as 0-d tensors (reading them syncs the card)."""
+    return _make_train_step(
+        lambda p, b, g: hand_render_from_batch(p, sdf_cfg, color_cfg, rcfg, tcfg, b, g),
+        sdf_cfg, tcfg)
+
+
+def make_obj_train_step(sdf_cfg: SDFConfig, color_cfg: ColorConfig, rcfg: RenderConfig,
+                        tcfg: TrainHyper):
+    """make_hand_train_step for the object model: the batch carries the
+    object pose (Ro, To) in place of the hand's joints."""
+    return _make_train_step(
+        lambda p, b, g: obj_render_from_batch(p, sdf_cfg, color_cfg, rcfg, tcfg, b, g),
+        sdf_cfg, tcfg)
+
+
+def make_obj_eval_render(sdf_cfg: SDFConfig, color_cfg: ColorConfig, rcfg: RenderConfig,
+                         tcfg: TrainHyper):
+    """Chunk render for inference, no gradient, perturb off; the pose
+    refinement stays as configured (the JAX package's eval render applies
+    the view index's se3_refine row too).  render_chunk(params, batch) ->
+    (color_fine (R, 3), weight_sum (R, 1))."""
+    rcfg_eval = rcfg._replace(perturb=0.0)
+
+    def render_chunk(params, batch):
+        with torch.no_grad():
+            out = obj_render_from_batch(params, sdf_cfg, color_cfg, rcfg_eval, tcfg, batch)
+        return out["color_fine"], out["weight_sum"]
+
+    return render_chunk
 
 
 def make_hand_eval_render(sdf_cfg: SDFConfig, color_cfg: ColorConfig, rcfg: RenderConfig,

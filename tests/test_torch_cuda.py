@@ -29,6 +29,7 @@ from honerf_torch.models.fields import (
 )
 from honerf_torch.ops import fused_fine_full as FF
 from honerf_torch.ops import fused_hand as FH
+from honerf_torch.ops import fused_sdf as FS
 
 SMALL = dict(n_layers=3, d_hidden=64, d_out=65, skip_in=(2,), v_multires=3, r_multires=2)
 FULL = dict(r_multires=7)  # the flagship: 8x256, 1386-channel embedding
@@ -277,3 +278,53 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         f32 = pack_fine_color(params, cfg._replace(trunk_dtype="f32"),
                               ccfg._replace(trunk_dtype="f32"))
         FF.hand_fine_color_fwd(pts, rotT, off, cut, f32)
+
+
+# K4: the object nets of confs/wmask_realobj_bean.conf and of the JAX
+# suite's small kernel tests (tests/test_pallas_ops.py, test_runner_cli.py)
+OBJ_NETS = {"full": {},
+            "small": dict(n_layers=3, d_hidden=64, d_out=65, skip_in=(2,), v_multires=6),
+            "small-128": dict(n_layers=4, d_hidden=128, d_out=129, skip_in=(2,), v_multires=6,
+                              scale=0.5)}
+
+
+def _obj_sdf(kw, dev):
+    cfg = SDFConfig(kind="obj", **kw)
+    gen = torch.Generator().manual_seed(0)
+    return FS.FusedObjSDF(_perturb(init_sdf_params(gen, cfg, device=dev), gen), cfg)
+
+
+def _grid_points(n, dev, seed=0):
+    """Points of a mesh box around the origin (|x| <= 0.4)."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("net", list(OBJ_NETS))
+@pytest.mark.parametrize("n", [1, 1001, FS.CHUNK + 77])  # the last: two passes
+def test_fused_obj_sdf_matches_plain(dev, net, n):
+    fused = _obj_sdf(OBJ_NETS[net], dev)
+    pts = _grid_points(n, dev)
+    before = FS.KERNEL.launches
+    got = fused(pts)
+    torch.cuda.synchronize()
+    assert FS.KERNEL.launches == before + 1
+    want = FS.fused_obj_sdf_plain(pts, fused.ws, fused.bs, fused.meta)
+    assert got.shape == (n,)
+    _assert_close(got, want)
+
+
+def test_fused_obj_sdf_rejects_what_the_kernel_does_not_take(dev):
+    fused = _obj_sdf(OBJ_NETS["small"], dev)
+    ws, bs, meta = fused.ws, fused.bs, fused.meta
+    pts = _grid_points(64, dev)
+    with pytest.raises(ValueError):  # not contiguous
+        FS.fused_obj_sdf(pts.t().contiguous().t(), ws, bs, meta)
+    with pytest.raises(ValueError):  # float64 points
+        FS.fused_obj_sdf(pts.double(), ws, bs, meta)
+    with pytest.raises(ValueError):  # operands on two devices
+        FS.fused_obj_sdf(pts, (ws[0].cpu(),) + ws[1:], bs, meta)
+    with pytest.raises(ValueError):  # f32 weights
+        FS.fused_obj_sdf(pts, tuple(w.float() for w in ws), bs, meta)
+    with pytest.raises(ValueError):  # a layer's rows do not match its input
+        FS.fused_obj_sdf(pts, (ws[2],) + ws[1:], (bs[2],) + bs[1:], meta)
