@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""What the card-side checks of K3 (the fine pass's backward) catch: each
-check is read on the sound kernel and on planted faults.
+"""What the card-side checks of K3 (the fine pass's backward) and K6 (the
+trunk + u-chain's backward) catch: each check is read on the sound
+kernels and on planted faults.
 
-    python3 check_k3_faults.py [--out readings.json]
+    python3 check_k3_faults.py [--out readings.json] [--only sound,k6_du_skip_unscaled]
 
-Needs a CUDA device.  Each fault in FAULTS is one small edit of K3's
-sources (honerf_torch/ops/csrc/*.cu[h], honerf_torch/ops/fused_fine_full.py),
+Needs a CUDA device.  Each fault in FAULTS is one small edit of the
+backward kernels' sources (honerf_torch/ops/csrc/*.cu[h],
+honerf_torch/ops/fused_fine.py and fused_fine_full.py; K3 and K6 share the
+trunk's backward launches and epilogues, so a fault there breaks both),
 made in a copy of honerf_torch under build/k3_faults/<name>/, whose kernels
 build there; a child process runs the checks on that copy.  "sound" is an
 unedited copy.  The checks, with the limits they hold:
@@ -26,7 +29,14 @@ unedited copy.  The checks, with the limits they hold:
   step    chip_smoke.py's train check: one 64-ray step on the card against
           the CPU's (seed 1, and 2-4 for the sound kernel): the worst loss
           term's relative error and the worst gradient leaf's, against
-          TOL_TRAIN_LOSS and TOL_TRAIN_GRAD.
+          TOL_TRAIN_LOSS and TOL_TRAIN_GRAD;
+  k6      chip_smoke.py's K6 phase: the kernel check above on what one
+          flagship 'pallas' train step hands K6 (seed 0, and 0-2 for the
+          sound kernel);
+  k6unit  chip_smoke.py's K6 phase on unit cotangents at that step's
+          embedding (seed 0, and 0-1 for the sound kernel), caught above 1;
+  k6step  chip_smoke.py's train check pallas: the step check above with
+          train.fused_fine = 'pallas' (seed 1, and 1-2 for the sound kernel).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -48,24 +58,26 @@ WORK = os.path.join(ROOT, "build", "k3_faults")
 
 _CU = "honerf_torch/ops/csrc/fused_fine_bwd.cu"
 _CUH = "honerf_torch/ops/csrc/common.cuh"
-_PY = "honerf_torch/ops/fused_fine_full.py"
+_K6_CU = "honerf_torch/ops/csrc/fused_trunk.cu"
+_TRUNK_PY = "honerf_torch/ops/fused_fine.py"
 
 # name -> (what it breaks, file, text, replacement); the text must occur
 # exactly once in the file
 FAULTS = {
     "dz_no_ds": (
-        "the trunk's dz drops its second-order term ds beta s (1 - s)", _CUH,
+        "the trunk's dz drops its second-order term ds beta s (1 - s) (K3 and K6)", _CUH,
         "z[i] = (z[i] * p.hscale) * sv[i] + dsv[i] * ((kBeta * sv[i]) * (1.f - sv[i]));",
         "z[i] = (z[i] * p.hscale) * sv[i] + 0.f * dsv[i];"),
     "db_from_bf16": (
-        "the trunk's db summed from the bf16 copy of dz", _PY,
-        "_colsum(blib, dzf[cur], width, m, dbs[l], acc, ws, stream)",
-        "_colsum(blib, dzb[cur].float(), width, m, dbs[l], acc, ws, stream)"),
+        "the trunk's db summed from the bf16 copy of dz (K3 and K6)", _TRUNK_PY,
+        "_colsum(lib, dzf[cur], width, m, dbs[l], acc, scratch, stream)",
+        "_colsum(lib, dzb[cur].float(), width, m, dbs[l], acc, scratch, stream)"),
     "dw_skip_unscaled": (
-        "the skip layer's dW rows of the embedding miss the concat's 1/sqrt2", _PY,
-        "_tn(blib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, ws, stream,\n"
-        "                        x_scale=FT.INV_SQRT2_BF16)",
-        "_tn(blib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, ws, stream)"),
+        "the skip layer's dW rows of the embedding miss the concat's 1/sqrt2 (K3 and K6)",
+        _TRUNK_PY,
+        "_tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, scratch, stream,\n"
+        "                    x_scale=INV_SQRT2_BF16)",
+        "_tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, scratch, stream)"),
     "doff_no_v2p": (
         "doff misses the v2p term of dq", _CU,
         "Pr[192 + col] = dq[k];",
@@ -79,13 +91,21 @@ FAULTS = {
         "dzf[(size_t)m * ld + c] = v;",
         "dzf[(size_t)m * ld + c] = v * 1.01f;"),
     "fwd_skip_unscaled": (
-        "the forward's u-chain misses 1/sqrt2 at the skip (K2, and K3's recompute)", _PY,
+        "the forward's u-chain misses 1/sqrt2 at the skip (K2, K5, and the recompute of K3 "
+        "and K6)", _TRUNK_PY,
         "U=u, split=Hp, hscale=INV_SQRT2,",
         "U=u, split=Hp, hscale=1.0,"),
+    "k6_du_skip_unscaled": (
+        "K6 takes du unscaled at the skip (bf16(du) for bf16(du / sqrt2))", _K6_CU,
+        "du_s[(size_t)m * lddu + c] = __float2bfloat16_rn(v * kInvSqrt2);",
+        "du_s[(size_t)m * lddu + c] = __float2bfloat16_rn(v);"),
 }
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
 STEP_SEEDS = {"sound": (1, 2, 3, 4)}
+K6_SEEDS = {"sound": (0, 1, 2)}
+K6UNIT_SEEDS = {"sound": (0, 1)}
+K6STEP_SEEDS = {"sound": (1, 2)}
 
 
 def prepare(name: str) -> str:
@@ -129,7 +149,8 @@ def child(name: str, root: str) -> None:
     dev = torch.device("cuda")
     _build.build_all()
     fs = CS.flagship(torch, dev)
-    out = {"fault": name, "kernel": {}, "kunit": {}, "unit": {}, "step": {}}
+    out = {"fault": name, "kernel": {}, "kunit": {}, "unit": {}, "step": {}, "k6": {},
+           "k6unit": {}, "k6step": {}}
     for seed in KERNEL_SEEDS.get(name, (0,)):
         args = CS.step_bwd_inputs(torch, fs, dev, seed)
         _, rows = CS.k3_check(torch, args)
@@ -142,23 +163,34 @@ def child(name: str, root: str) -> None:
     for seed in STEP_SEEDS.get(name, (1,)):
         r = CS.train_check_readings(torch, fs, dev, seed)
         out["step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
+    for seed in K6_SEEDS.get(name, (0,)):
+        args = CS.step_bwd_inputs(torch, fs, dev, seed, mode="pallas")
+        _, rows = CS.k3_check(torch, args, "pallas")
+        out["k6"][str(seed)] = [[r.what, r.l2, r.med, r.mx, r.ok] for r in rows]
+        if seed in K6UNIT_SEEDS.get(name, (0,)):
+            out["k6unit"][str(seed)] = [[r.what, r.ratio, r.err, r.floor, r.norm]
+                                        for r in CS.k3_unit_check(torch, args, mode="pallas")]
+    for seed in K6STEP_SEEDS.get(name, (1,)):
+        r = CS.train_check_readings(torch, fs, dev, seed, mode="pallas")
+        out["k6step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
     print(json.dumps(out))
 
 
 def judge(CS, res):
     """{check: (caught, text)} of one child's readings."""
     verdict = {}
-    worst, over = {}, []
-    for seed, rows in res["kernel"].items():
-        for what, l2, med, mx, ok in rows:
-            for key, val in (("L2", l2), ("median", med), ("max", mx)):
-                if val > worst.get(key, (-1.0, ""))[0]:
-                    worst[key] = (val, f"{what}@{seed}")
-            if not ok:
-                over.append(f"{what}@{seed}")
-    text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
-    verdict["kernel"] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
-    for check in ("kunit", "unit"):
+    for check in ("kernel", "k6"):
+        worst, over = {}, []
+        for seed, rows in res[check].items():
+            for what, l2, med, mx, ok in rows:
+                for key, val in (("L2", l2), ("median", med), ("max", mx)):
+                    if val > worst.get(key, (-1.0, ""))[0]:
+                        worst[key] = (val, f"{what}@{seed}")
+                if not ok:
+                    over.append(f"{what}@{seed}")
+        text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
+        verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
+    for check in ("kunit", "unit", "k6unit"):
         ratio, where = -1.0, ""
         for case, ratios in res[check].items():
             for what, r, *_ in ratios:
@@ -166,17 +198,19 @@ def judge(CS, res):
                 if r > ratio:
                     ratio, where = r, f"{case} {what}"
         verdict[check] = (ratio > 1.0, f"worst {ratio:.3g} ({where})")
-    loss = max(s["loss"] for s in res["step"].values())
-    leaf = max(max(s["leaves"]) for s in res["step"].values())
-    leaf = float("inf") if leaf != leaf else leaf
-    verdict["step"] = (loss > CS.TOL_TRAIN_LOSS or leaf > CS.TOL_TRAIN_GRAD,
-                       f"loss {loss:.3g}, leaf {leaf:.3g}")
+    for check in ("step", "k6step"):
+        loss = max(s["loss"] for s in res[check].values())
+        leaf = max(max(s["leaves"]) for s in res[check].values())
+        loss, leaf = (float("inf") if x != x else x for x in (loss, leaf))
+        verdict[check] = (loss > CS.TOL_TRAIN_LOSS or leaf > CS.TOL_TRAIN_GRAD,
+                          f"loss {loss:.3g}, leaf {leaf:.3g}")
     return verdict
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(WORK, "readings.json"))
+    ap.add_argument("--only", help="comma-separated names (sound and FAULTS) to run")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -187,6 +221,8 @@ def main() -> int:
     import chip_smoke as CS
 
     names = ["sound", *FAULTS]
+    if a.only:
+        names = [n for n in names if n in a.only.split(",")]
     results, bad = {}, []
     for name in names:
         t0 = time.time()

@@ -70,14 +70,39 @@ Phases, each of which fails the run when it fails:
               every K4 vertex within one voxel of the plain mesh
               (chunked torch.cdist on the card).
 
+The hand's other fine-pass modes (train.fused_fine), between 9 and 10:
+
+ 14. kernel K5  the trunk + u-chain on the embedding against its plain
+              version, at a flagship 'pallas' step's 56,448 points and a
+              request's 524,288 (the elementwise rule);
+ 15. kernel K6  its backward on what a 'pallas' step hands it, under K3's
+              two rules (the step's cotangents in L2; unit cotangents
+              against the card-vs-CPU plain distance); the frozen call
+              (no weight gradient) gives the same de and launches no dW
+              or db kernel (by torch.profiler's kernel names);
+ 16. kernel K2/K3 no-color  K2 without the color net at a 'full_nocolor'
+              step's points and a request's, K3 without it on that step's
+              inputs under K3's two rules, and its frozen call;
+ 17. train pallas  the flagship train step with train.fused_fine =
+              'pallas', 3 warm-up and 20 timed steps: K1, K5 and K6
+              launched, K2 and K3 not; finite losses, se3_refine moved; one
+              step under torch.profiler;
+ 18. train full_nocolor  the same with 'full_nocolor', 3 + 10 steps: K1, K2
+              and K3 launched, K5 and K6 not;
+ 19. train check pallas  one 64-ray, perturb-0 'pallas' step on the card
+              against the CPU (plain versions), the train check's limits;
+ 20. serve pallas  one 4096-ray request through make_hand_eval_render
+              with 'pallas': K1 and K5 launched, K2 and K6 not; the 128 rays
+              of it that meet the most surface against the CPU render.
+
 Weights are random (geometric init plus seeded noise, so every embedding
-column is live).  check_k3_faults.py runs the K3 and train checks below
-on K3 with planted faults (what each limit catches).  The last lines of
-stdout are the bounds per million points of the TPU kernels not yet
-ported (from their shapes), the card's
+column is live).  check_k3_faults.py runs the K3, K6 and train checks
+below on K3 and K6 with planted faults (what each limit catches).  The
+last lines of stdout are the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
-numbers, and the result line.  Exits nonzero, printing no result, when
-no CUDA device is present or a phase fails.
+numbers (K2's and K3's with their no-color times beside them), and the
+result line.  Exits nonzero, printing no result, when no CUDA device is
+present or a phase fails.
 """
 
 from __future__ import annotations
@@ -100,6 +125,7 @@ TRAIN_RAYS = 441            # train.batch_size of the conf
 N_REQUESTS = 3
 CHECK_RAYS = 128
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+NOCOLOR_STEPS = 10          # timed steps of the 'full_nocolor' train phase
 MESH_RES = 256              # the CLI's --mode mesh resolution
 CHECK_TRAIN_RAYS = 64
 # Kernel vs plain version on the card.  Both round the same operands to
@@ -251,8 +277,31 @@ def k2_flops(cfg, ccfg, n: float) -> float:
 def k3_flops(cfg, ccfg, n: float) -> float:
     """The forward recomputed (K2's products), then for each product its
     transpose (the cotangent of its input) and its dW = X^T dY: three
-    times K2's operations.  K6 is the same for K5."""
+    times K2's operations."""
     return 3.0 * k2_flops(cfg, ccfg, n)
+
+
+def _last_layer_flops(cfg, n: float) -> float:
+    i, o = trunk_dims(cfg, cfg.d_out)[-1]
+    return 2.0 * n * i * o
+
+
+def k3_nocolor_flops(cfg, n: float) -> float:
+    """K3 without the color net: three times K5's products, less the
+    recompute's last layer, whose output (out) the backward does not
+    read; the u-chain's embedding columns (u) it does read."""
+    return 3.0 * k5_flops(cfg, n) - _last_layer_flops(cfg, n)
+
+
+def k6_flops(cfg, n: float) -> float:
+    """K6: three times K5's products, less the recompute's products whose
+    outputs the VJP does not read, because it is given the cotangents on
+    them: the last layer (out) and the u-chain's embedding columns (u),
+    that is the chain's layer-0 product and the skip layer's E columns."""
+    trunk = trunk_dims(cfg, cfg.d_out)
+    n_emb = 1 + sum(1 for l in range(1, len(trunk)) if l in cfg.skip_in)
+    return (3.0 * k5_flops(cfg, n) - _last_layer_flops(cfg, n)
+            - 2.0 * n * n_emb * cfg.d_hidden * cfg.input_width)
 
 
 def k4_flops(obj_cfg, n: float) -> float:
@@ -325,6 +374,22 @@ def device_profile(torch, label: str, fn) -> None:
         f"{len(spans)} launches")
     for name, (us, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {us / 1e3:8.2f} ms {100 * us / kern:5.1f}%  x{cnt:<5d} {name}")
+
+
+def device_kernel_names(torch, fn):
+    """Counter of the device kernels fn() launches, by name (torch.profiler);
+    empty when the profiler records no device time."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter(evt.name.split("(")[0] for evt in prof.events()
+                   if evt.device_type == DeviceType.CUDA)
 
 
 def nbytes(ts) -> int:
@@ -403,47 +468,79 @@ def train_params(fs, device):
                 se3_refine=init_se3_refine(8, "hand", device=device))
 
 
-def step_bwd_inputs(torch, fs, dev, seed: int = 0):
-    """What one flagship train step (batch and jitter from `seed`) hands
-    K3: its fine samples, the refined pose, the pack and the loss's
-    cotangents on (sdf, g, color)."""
+def k3_outputs(grads):
+    """[(name, tensor)] of every output of K3 (with or without the color
+    net)."""
+    outs = [("dp", grads.dp), ("drotT", grads.drotT), ("doff", grads.doff)]
+    for field in ("dws", "dbs", "dcws", "dcbs"):
+        outs += [(f"{field}[{l}]", x) for l, x in enumerate(getattr(grads, field) or ())]
+    return outs
+
+
+def k6_outputs(res):
+    """[(name, tensor)] of every output of K6: (de, dws, dbs)."""
+    de, dws, dbs = res
+    return ([("de", de)] + [(f"dws[{l}]", x) for l, x in enumerate(dws)]
+            + [(f"dbs[{l}]", x) for l, x in enumerate(dbs)])
+
+
+def bwd_entry(mode: str):
+    """(module, kernel entry, plain version, outputs, number of leading
+    non-cotangent arguments) of the backward that a train step in the
+    fine-pass mode runs: K3 ('full'), K3 without the color net
+    ('full_nocolor'), K6 ('pallas')."""
+    from honerf_torch.ops import fused_fine as FT
     from honerf_torch.ops import fused_fine_full as FF
+
+    if mode == "pallas":
+        return FT, "hand_trunk_sdf_u_bwd", FT.hand_trunk_sdf_u_plain_bwd, k6_outputs, 2
+    return FF, "hand_fine_color_bwd", FF.hand_fine_color_plain_bwd, k3_outputs, 5
+
+
+def step_bwd_inputs(torch, fs, dev, seed: int = 0, mode: str = "full"):
+    """What one flagship train step in the fine-pass mode (batch and
+    jitter from `seed`) hands its backward kernel: for 'full' (K3) its fine
+    samples, the refined pose, the pack and the loss's cotangents on (sdf,
+    g, color); for 'full_nocolor' the same with cotangents on (out, g, e);
+    for 'pallas' (K6) the embedding, the pack and the cotangents on (out,
+    u)."""
     from honerf_torch.train.offline import init_train_state, make_hand_train_step
 
-    ttcfg = train_hyper(fs)
+    mod, name, _, _, _ = bwd_entry(mode)
+    ttcfg = train_hyper(fs)._replace(fused_fine=mode)
     seen = []
-    wrapped = FF.hand_fine_color_bwd
-    FF.hand_fine_color_bwd = lambda *a, **k: seen.append(a) or wrapped(*a, **k)
+    wrapped = getattr(mod, name)
+    setattr(mod, name, lambda *a, **k: seen.append(a) or wrapped(*a, **k))
     try:
         state = init_train_state(train_params(fs, dev), ttcfg)
         step = make_hand_train_step(fs.sdf, fs.color, fs.rcfg, ttcfg)
         step(state, train_batch(torch, TRAIN_RAYS, dev, seed),
              torch.Generator(device=dev).manual_seed(seed))
     finally:
-        FF.hand_fine_color_bwd = wrapped
-    return tuple(a.detach() if torch.is_tensor(a) else a for a in seen[0][:8])
+        setattr(mod, name, wrapped)
+    return tuple(a.detach() if torch.is_tensor(a) else a for a in seen[0][:-1])  # not want_dw
 
 
-def k3_outputs(grads):
-    """[(name, tensor)] of every output of K3."""
-    outs = [("dp", grads.dp), ("drotT", grads.drotT), ("doff", grads.doff)]
-    for field in ("dws", "dbs", "dcws", "dcbs"):
-        outs += [(f"{field}[{l}]", x) for l, x in enumerate(getattr(grads, field))]
-    return outs
+def cpu_pack(pack):
+    """A kernel pack's weights on the CPU (no transposed copies)."""
+    fields = {f: tuple(t.cpu() for t in getattr(pack, f))
+              for f in ("ws", "bs", "cws", "cbs") if f in pack._fields}
+    fields.update({f: None for f in ("wts", "cwts") if f in pack._fields})
+    return pack._replace(**fields)
 
 
-def k3_check(torch, args):
-    """K3 against its plain version on the card on the same inputs: the
-    kernel's outputs, and per output a namespace of what, l2 (|got -
-    want| / |want| in L2), med, mx (median and max of |got - want| over
-    the range), max_abs, ok (finite and l2 <= TOL_K3_L2) and text."""
-    from honerf_torch.ops import fused_fine_full as FF
-
-    got = FF.hand_fine_color_bwd(*args)
-    want = FF.hand_fine_color_plain_bwd(*args)
+def k3_check(torch, args, mode: str = "full"):
+    """The mode's backward kernel (K3 by default; K6, the no-color K3)
+    against its plain version on the card on the same inputs: the kernel's
+    outputs, and per output a namespace of what, l2 (|got - want| / |want|
+    in L2), med, mx (median and max of |got - want| over the range),
+    max_abs, ok (finite and l2 <= TOL_K3_L2) and text."""
+    mod, name, plain, outputs, _ = bwd_entry(mode)
+    got = getattr(mod, name)(*args)
+    want = plain(*args)
     torch.cuda.synchronize()
     rows = []
-    for (what, a), (_, b) in zip(k3_outputs(got), k3_outputs(want)):
+    for (what, a), (_, b) in zip(outputs(got), outputs(want)):
         med, _, mx, scale = err_readings(torch, a, b)
         l2 = float((a - b).norm()) / max(float(b.norm()), 1e-30)
         ok = bool(torch.isfinite(a).all()) and l2 <= TOL_K3_L2
@@ -455,28 +552,22 @@ def k3_check(torch, args):
     return got, rows
 
 
-def k3_unit_check(torch, args, seed: int = 3):
-    """K3 on seeded unit cotangents at the points of args, against its
-    plain version on the card, with the plain version on the CPU as the
-    floor: per output a namespace of what, err (|kernel - plain|), floor
-    (|plain - plain on the CPU|), norm (|plain|), ratio (err / (K3_FACTOR
-    floor + K3_REL norm)), all in L2, ok (finite and ratio <= 1) and
-    text."""
-    from honerf_torch.ops import fused_fine_full as FF
-
-    pts, pack = args[0], args[4]
-    n, dev = pts.shape[0], pts.device
+def k3_unit_check(torch, args, seed: int = 3, mode: str = "full"):
+    """The mode's backward kernel (K3 by default) on seeded unit
+    cotangents at the inputs of args, against its plain version on the
+    card, with the plain version on the CPU as the floor: per output a
+    namespace of what, err (|kernel - plain|), floor (|plain - plain on the
+    CPU|), norm (|plain|), ratio (err / (K3_FACTOR floor + K3_REL norm)),
+    all in L2, ok (finite and ratio <= 1) and text."""
+    mod, name, plain, outputs, lead = bwd_entry(mode)
+    dev = args[0].device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    args = args[:5] + tuple(torch.randn(s, generator=gen, device=dev)
-                            for s in ((n,), (n, 3), (n, 3)))
-    cpu_pack = FF.FinePack(*(tuple(t.cpu() for t in ts)
-                             for ts in (pack.ws, pack.bs, pack.cws, pack.cbs)),
-                           None, None, pack.meta)
-    cpu_args = [a.cpu() for a in args[:4]] + [cpu_pack] + [a.cpu() for a in args[5:]]
-    res = [FF.hand_fine_color_bwd(*args), FF.hand_fine_color_plain_bwd(*args),
-           FF.hand_fine_color_plain_bwd(*cpu_args)]
+    args = args[:lead] + tuple(torch.randn(c.shape, generator=gen, device=dev)
+                               for c in args[lead:])
+    cpu_args = [cpu_pack(a) if hasattr(a, "_fields") else a.cpu() for a in args]
+    res = [getattr(mod, name)(*args), plain(*args), plain(*cpu_args)]
     rows = []
-    for (what, a), (_, b), (_, c) in zip(*(k3_outputs(r) for r in res)):
+    for (what, a), (_, b), (_, c) in zip(*(outputs(r) for r in res)):
         err, floor, norm = (float(x.norm()) for x in (a - b, c.to(dev) - b, b))
         ratio = err / (K3_FACTOR * floor + K3_REL * norm + 1e-30)
         ok = bool(torch.isfinite(a).all()) and ratio <= 1.0
@@ -488,11 +579,12 @@ def k3_unit_check(torch, args, seed: int = 3):
     return rows
 
 
-def train_check_readings(torch, fs, dev, seed: int = 1):
-    """One step of CHECK_TRAIN_RAYS rays, perturb 0, from the same state
-    on the card and on the CPU (plain versions): the metrics of each, each
-    gradient leaf's |card - cpu| / |cpu| (L2, before the clip), the worst
-    loss term's relative error, and each side's seconds."""
+def train_check_readings(torch, fs, dev, seed: int = 1, mode: str = "full"):
+    """One step of CHECK_TRAIN_RAYS rays, perturb 0, in the fine-pass mode,
+    from the same state on the card and on the CPU (plain versions): the
+    metrics of each, each gradient leaf's |card - cpu| / |cpu| (L2, before
+    the clip), the worst loss term's relative error, and each side's
+    seconds."""
     from honerf_torch.train.offline import (
         init_train_state,
         make_hand_train_step,
@@ -500,7 +592,7 @@ def train_check_readings(torch, fs, dev, seed: int = 1):
     )
 
     cpu = torch.device("cpu")
-    ttcfg = train_hyper(fs)
+    ttcfg = train_hyper(fs)._replace(fused_fine=mode)
     rcfg_check = fs.rcfg._replace(perturb=0.0)
     res, secs = {}, {}
     for d in (dev, cpu):
@@ -607,8 +699,10 @@ def main() -> int:
 
         from honerf_torch.data.synthetic import canonical_hand_joints, posed_hand_example
         from honerf_torch.hand import bone_transforms_from_mano_joints
+        from honerf_torch.models.embedding import hand_embedding_flat
         from honerf_torch.models.fields import pack_fine_color
         from honerf_torch.ops import _build
+        from honerf_torch.ops import fused_fine as FT
         from honerf_torch.ops import fused_fine_full as FF
         from honerf_torch.ops import fused_hand as FH
         from honerf_torch.ops import fused_sdf as FS
@@ -774,7 +868,7 @@ def main() -> int:
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pack_hand_field(params, sdf_cfg, color_cfg, fused_ladder=True, fused_fine=True)
+            pack_hand_field(params, sdf_cfg, color_cfg, fused_ladder=True, fine="full")
             torch.cuda.synchronize()
             pack_ms.append((time.perf_counter() - t0) * 1e3)
         for name, count in launches.items():
@@ -844,6 +938,20 @@ def main() -> int:
 
     # -- 6-9. the hand model's offline train step ------------------------
     ttcfg = train_hyper(fs)
+    all_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
+                   "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD}
+
+    def bwd_rules(label, mode, args):
+        """K3's two rules on the mode's backward kernel: on the step's own
+        cotangents (L2 within TOL_K3_L2) and on unit cotangents (within
+        K3_FACTOR x the card-vs-CPU plain distance + K3_REL)."""
+        got, checks = k3_check(torch, args, mode)
+        for c in checks:
+            log(f"{label} {c.text}")
+        units = k3_unit_check(torch, args, mode=mode)
+        for c in units:
+            log(f"{label} unit cotangents, {c.text}")
+        return got, checks, [c.ok for c in checks + units]
 
     def kernel_k3():
         """On the inputs one flagship train step gives it (56,448 points,
@@ -851,13 +959,7 @@ def main() -> int:
         args = step_bwd_inputs(torch, fs, dev)
         pts, pack = args[0], args[4]
         n = pts.shape[0]
-        got, checks = k3_check(torch, args)
-        for c in checks:
-            log(f"K3 {c.text}")
-        units = k3_unit_check(torch, args)
-        for c in units:
-            log(f"K3 unit cotangents, {c.text}")
-        oks = [c.ok for c in checks + units]
+        got, checks, oks = bwd_rules("K3", "full", args)
         again = FF.hand_fine_color_bwd(*args)
         same = all(torch.equal(x, y) for x, y in zip(
             [again.dp, again.drotT, *again.dws, *again.dcws], [got.dp, got.drotT, *got.dws,
@@ -872,22 +974,27 @@ def main() -> int:
             f"{sum(oks)}/{len(oks)} comparisons within tolerance; a second run gives the same bits: "
             f"{same}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
             f"({b_by}, {k3_flops(sdf_cfg, color_cfg, n) / 1e12:.3f} TFLOP)")
-        rows["K3"] = dict(name=FF.KERNEL_BWD.name, route="cuda", source=FF.KERNEL_BWD.source,
-                          replaces=FF.KERNEL_BWD.replaces, max_abs_err=max(c.max_abs for c in checks),
-                          points=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          library_ms=None)
+        rows["K3"] = dict(rows.get("K3", {}), name=FF.KERNEL_BWD.name, route="cuda",
+                          source=FF.KERNEL_BWD.source, replaces=FF.KERNEL_BWD.replaces,
+                          max_abs_err=max(c.max_abs for c in checks), points=n, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         if not all(oks) or not same:
             raise AssertionError("K3 disagrees with its plain version")
 
-    def train():
+    def train_run(label, mode, n_steps, expect, profile=False):
+        """TRAIN_WARMUP + n_steps flagship train steps with train.fused_fine
+        = mode.  Every launch count is zeroed just before and read just
+        after: the kernels in `expect` must have launched and the other
+        fine-pass kernels not; the losses and grad norms finite,
+        se3_refine moved.  Returns the launch counts."""
+        tcfg_m = ttcfg._replace(fused_fine=mode)
         tparams = train_params(fs, dev)
-        state = init_train_state(tparams, ttcfg)
-        step = make_hand_train_step(sdf_cfg, color_cfg, rcfg, ttcfg)
+        state = init_train_state(tparams, tcfg_m)
+        step = make_hand_train_step(sdf_cfg, color_cfg, rcfg, tcfg_m)
         batch = train_batch(torch, TRAIN_RAYS, dev)
         gen = torch.Generator(device=dev).manual_seed(0)
         se3_before = tparams["se3_refine"].detach().clone()
-        kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD}
-        for k in kernels.values():
+        for k in all_kernels.values():
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
         metrics = []
@@ -896,40 +1003,51 @@ def main() -> int:
             metrics.append(m)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
+        for _ in range(n_steps):
             state, m = step(state, batch, gen)
             metrics.append(m)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in kernels.items()}
-        rows.setdefault("K3", {})["launches"] = launches["K3"]
+        launches = {name: k.launches for name, k in all_kernels.items()}
         loss = torch.stack([m["loss"] for m in metrics])
         gnorm = torch.stack([m["grad_norm"] for m in metrics])
         finite = bool(torch.isfinite(loss).all()) and bool(torch.isfinite(gnorm).all())
         moved = float((tparams["se3_refine"].detach() - se3_before).abs().max())
         last = {k: round(float(v), 5) for k, v in metrics[-1].items()}
-        log(f"train: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays in {dt * 1e3:.1f} ms: "
-            f"{dt * 1e3 / TRAIN_STEPS:.2f} ms/step, {TRAIN_RAYS * TRAIN_STEPS / dt:.1f} rays/s "
+        log(f"{label}: {n_steps} steps of {TRAIN_RAYS} rays in {dt * 1e3:.1f} ms: "
+            f"{dt * 1e3 / n_steps:.2f} ms/step, {TRAIN_RAYS * n_steps / dt:.1f} rays/s "
             f"(host clock, after {TRAIN_WARMUP} warm-up steps); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
-        log(f"train: loss {', '.join(f'{x:.4f}' for x in loss.tolist())}")
-        log(f"train: grad_norm first {float(gnorm[0]):.4f} last {float(gnorm[-1]):.4f}; "
+        log(f"{label}: loss {', '.join(f'{x:.4f}' for x in loss.tolist())}")
+        log(f"{label}: grad_norm first {float(gnorm[0]):.4f} last {float(gnorm[-1]):.4f}; "
             f"se3_refine moved by up to {moved:.3e}; last metrics {last}")
+        if profile:
+            device_profile(torch, f"one {label} step of {TRAIN_RAYS} rays",
+                           lambda: step(state, batch, gen))
         assert finite, "a loss or gradient norm is not finite"
         assert moved > 0, "se3_refine did not move"
-        assert all(launches.values()), f"a kernel of the train path did not launch: {launches}"
+        idle = [k for k in expect if not launches[k]]
+        stray = [k for k in ("K2", "K3", "K5", "K6") if k not in expect and launches[k]]
+        assert not idle and not stray, (
+            f"the {mode} train path launched {launches}: expected {expect} and no other fine "
+            "pass kernel")
+        return launches
 
-    def train_check():
+    def train():
+        launches = train_run("train", "full", TRAIN_STEPS, ("K1", "K2", "K3"))
+        rows.setdefault("K3", {})["launches"] = launches["K3"]
+
+    def train_check(mode="full", label="train check"):
         """One step on the card and on the CPU from the same state: the
         metrics, and each leaf's gradient before the clip."""
-        r = train_check_readings(torch, fs, dev)
+        r = train_check_readings(torch, fs, dev, mode=mode)
         for d, sec in r.secs.items():
-            log(f"train check: one step of {CHECK_TRAIN_RAYS} rays on {d} in {sec:.2f} s")
-        log("train check: metrics card / cpu: " + ", ".join(
+            log(f"{label}: one step of {CHECK_TRAIN_RAYS} rays on {d} in {sec:.2f} s")
+        log(f"{label}: metrics card / cpu: " + ", ".join(
             f"{k} {r.card[k]:.6g}/{r.cpu[k]:.6g}" for k in r.cpu))
-        log("train check: gradient leaves, |card - cpu| / |cpu|: "
+        log(f"{label}: gradient leaves, |card - cpu| / |cpu|: "
             + " ".join(f"{x:.1e}" for x in r.rel))
-        log(f"train check: worst loss term {r.worst_metric:.2e} of its value (tol "
+        log(f"{label}: worst loss term {r.worst_metric:.2e} of its value (tol "
             f"{TOL_TRAIN_LOSS:g}); worst leaf {max(r.rel):.2e} (tol {TOL_TRAIN_GRAD:g})")
         assert r.worst_metric <= TOL_TRAIN_LOSS and max(r.rel) <= TOL_TRAIN_GRAD, \
             "the card's train step disagrees with the CPU's"
@@ -948,6 +1066,223 @@ def main() -> int:
     phase("train", train)
     phase("train check", train_check)
     phase("train profile", train_profile)
+
+    # -- 14-20. the fine pass's other kernel modes: 'pallas' (K5 / K6 on the
+    # embedding) and 'full_nocolor' (K2 / K3 without the color net) --------
+    E, d_out = sdf_cfg.input_width, sdf_cfg.d_out
+    n_trunk_w = sum(i * o for i, o in trunk_dims(sdf_cfg, d_out))
+    k6_inputs = {}
+
+    def kernel_k5():
+        """On the embedding of a flagship 'pallas' step's fine points
+        (56,448) and of one request's (524,288); the step's numbers go into
+        the kernels line."""
+        args = step_bwd_inputs(torch, fs, dev, mode="pallas")
+        k6_inputs["args"] = args
+        e_step, tpack = args[0], args[1]
+        with torch.no_grad():
+            e_req = hand_embedding_flat(pts_all, bt_inv, t_pose, sdf_cfg.v_multires,
+                                        sdf_cfg.r_multires)[0].contiguous()
+        oks, errs = [], []
+        for label, e, iters in (("step", e_step, 5), ("request", e_req, 3)):
+            n = e.shape[0]
+            got = FT.hand_trunk_sdf_u_fwd(e, tpack)
+            want = FT.hand_trunk_sdf_u_plain(e, tpack)
+            torch.cuda.synchronize()
+            checks = [compare(torch, what, a, b) for what, a, b in zip(("out", "u"), got, want)]
+            oks += [c[0] for c in checks]
+            errs += [c[1] for c in checks]
+            ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_fwd(e, tpack), iters)
+            plain_ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_plain(e, tpack), 2)
+            n_bytes = (4 * (2 * E + d_out) * n + nbytes([*tpack.ws, *tpack.bs]))
+            b_ms, b_by = bound(k5_flops(sdf_cfg, n), n_bytes)
+            log(f"K5 hand_trunk_sdf_u_fwd, {label}: {n} pts ({-(-n // FT.CHUNK)} passes); "
+                f"{'; '.join(c[2] for c in checks)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}, {k5_flops(sdf_cfg, n) / 1e12:.3f} TFLOP, "
+                f"{k5_flops(sdf_cfg, n) / ms / 1e9:.1f} TFLOP/s)")
+            rows.setdefault("K5", dict(name=FT.KERNEL_FWD.name, route="cuda",
+                                       source=FT.KERNEL_FWD.source,
+                                       replaces=FT.KERNEL_FWD.replaces, points=n, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=None))
+        rows["K5"]["max_abs_err"] = max(errs)
+        del e_req
+        if not all(oks):
+            raise AssertionError("K5 disagrees with its plain version")
+
+    def kernel_k6():
+        """On the inputs one flagship 'pallas' train step gives it (the
+        embedding of 56,448 points, the loss's cotangents on (out, u)),
+        under K3's two rules; then the frozen call (no weight gradient)."""
+        args = k6_inputs.get("args") or step_bwd_inputs(torch, fs, dev, mode="pallas")
+        e, tpack = args[0], args[1]
+        n = e.shape[0]
+        got, checks, oks = bwd_rules("K6", "pallas", args)
+        again = FT.hand_trunk_sdf_u_bwd(*args)
+        same = torch.equal(again[0], got[0]) and all(
+            torch.equal(x, y) for x, y in zip(again[1], got[1]))
+        frozen = FT.hand_trunk_sdf_u_bwd(*args, want_dw=False)
+        frozen_ok = frozen[1] is None and torch.equal(frozen[0], got[0])
+        # the profiler's kernel names, with dW as the control: the frozen
+        # call must launch K6's GEMMs and none of the dW / db kernels
+        before = FT.KERNEL_BWD.launches
+        names = {want_dw: device_kernel_names(
+            torch, lambda: FT.hand_trunk_sdf_u_bwd(*args, want_dw=want_dw))
+            for want_dw in (True, False)}
+        launched = FT.KERNEL_BWD.launches - before == 2
+
+        def count(want_dw, *keys):
+            return sum(c for k, c in names[want_dw].items() if any(x in k for x in keys))
+
+        dw_keys = ("gemm_tn", "colsum", "reduce_partials")
+        dw_launches = count(False, *dw_keys)
+        dw_seen = (launched and count(True, *dw_keys) > 0
+                   and count(False, "gemm_kernel") == count(True, "gemm_kernel") > 0)
+        ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_bwd(*args), 5)
+        frozen_ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_bwd(*args, want_dw=False), 5)
+        plain_ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_plain_bwd(*args), 2)
+        weights = [*tpack.ws, *tpack.bs]
+        n_bytes = (4 * (3 * E + d_out) * n + nbytes(weights)
+                   + 4 * sum(w.numel() for w in weights))
+        b_ms, b_by = bound(k6_flops(sdf_cfg, n), n_bytes)
+        log(f"K6 hand_trunk_sdf_u_bwd: {n} pts ({-(-n // FT.BWD_CHUNK)} passes); "
+            f"{sum(oks)}/{len(oks)} comparisons within tolerance; a second run gives the same "
+            f"bits: {same}; frozen call: the same de {frozen_ok}, dW/db launches "
+            f"{dw_launches} of {sum(names[False].values())} (with dW "
+            f"{count(True, *dw_keys)} of {sum(names[True].values())}; GEMMs "
+            f"{count(False, 'gemm_kernel')} and {count(True, 'gemm_kernel')}; the profiler saw "
+            f"them: {dw_seen}), {frozen_ms:.3f} ms; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}, {k6_flops(sdf_cfg, n) / 1e12:.3f} TFLOP)")
+        rows["K6"] = dict(rows.get("K6", {}), name=FT.KERNEL_BWD.name, route="cuda",
+                          source=FT.KERNEL_BWD.source, replaces=FT.KERNEL_BWD.replaces,
+                          max_abs_err=max(c.max_abs for c in checks), points=n, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if not all(oks) or not same or not frozen_ok:
+            raise AssertionError("K6 disagrees with its plain version")
+        if not dw_seen or dw_launches:
+            raise AssertionError("K6's frozen call: dW / db launches not shown absent")
+
+    def kernel_nocolor():
+        """K2 and K3 without the color net: the forward at a flagship
+        'full_nocolor' step's points (56,448) and a request's (524,288)
+        under the elementwise rule, the backward on the step's inputs
+        under K3's two rules, and its frozen call."""
+        args = step_bwd_inputs(torch, fs, dev, mode="full_nocolor")
+        pack = args[4]
+        n_step = args[0].shape[0]
+        oks, fwd = [], {}
+        for label, fargs, iters in (("step", args[:5], 5),
+                                    ("request", (pts_all, rotT, off, cut, pack), 3)):
+            n = fargs[0].shape[0]
+            got = FF.hand_fine_color_fwd(*fargs)
+            want = FF.hand_fine_color_plain(*fargs)
+            torch.cuda.synchronize()
+            checks = [compare(torch, what, a, b) for what, a, b in zip(("out", "g", "e"), got,
+                                                                       want)]
+            oks += [c[0] for c in checks]
+            ms = cuda_ms(torch, lambda: FF.hand_fine_color_fwd(*fargs), iters)
+            plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain(*fargs), 2)
+            n_bytes = (12 * n + 4 * (d_out + 3 + E) * n
+                       + nbytes([*fargs[1:4], *pack.ws, *pack.bs]))
+            b_ms, b_by = bound(k5_flops(sdf_cfg, n), n_bytes)
+            fwd[label] = (ms, plain_ms, b_ms)
+            log(f"K2 no-color hand_fine_color_fwd, {label}: {n} pts; "
+                f"{'; '.join(c[2] for c in checks)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by})")
+        got, checks, b_oks = bwd_rules("K3 no-color", "full_nocolor", args)
+        frozen = FF.hand_fine_color_bwd(*args, want_dw=False)
+        frozen_ok = frozen.dws is None and all(
+            torch.equal(getattr(frozen, k), getattr(got, k)) for k in ("dp", "drotT", "doff"))
+        ms = cuda_ms(torch, lambda: FF.hand_fine_color_bwd(*args), 5)
+        plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain_bwd(*args), 2)
+        weights = [*pack.ws, *pack.bs]
+        n_bytes = (nbytes([*args[:4], *args[5:], *weights]) + 12 * n_step
+                   + 4 * sum(w.numel() for w in weights) + 4 * 9 * 128)
+        b_ms, b_by = bound(k3_nocolor_flops(sdf_cfg, n_step), n_bytes)
+        log(f"K3 no-color hand_fine_color_bwd: {n_step} pts; {sum(b_oks)}/{len(b_oks)} "
+            f"comparisons within tolerance; frozen call: the same dp, drotT, doff {frozen_ok}; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        req = fwd["request"]
+        rows["K2"] = dict(rows.get("K2", {}), nocolor_ms=req[0], nocolor_plain_ms=req[1],
+                          nocolor_bound_ms=req[2])
+        rows["K3"] = dict(rows.get("K3", {}), nocolor_ms=ms, nocolor_plain_ms=plain_ms,
+                          nocolor_bound_ms=b_ms)
+        if not all(oks + b_oks) or not frozen_ok:
+            raise AssertionError("K2/K3 without the color net disagree with their plain versions")
+
+    def train_pallas():
+        launches = train_run("train pallas", "pallas", TRAIN_STEPS, ("K1", "K5", "K6"),
+                             profile=True)
+        for name in ("K5", "K6"):
+            rows.setdefault(name, {})["launches"] = launches[name]
+
+    def train_nocolor():
+        launches = train_run("train full_nocolor", "full_nocolor", NOCOLOR_STEPS,
+                             ("K1", "K2", "K3"))
+        rows.setdefault("K2", {})["nocolor_launches"] = launches["K2"]
+        rows.setdefault("K3", {})["nocolor_launches"] = launches["K3"]
+
+    def serve_pallas():
+        """One 4096-ray request through the eval render with
+        train.fused_fine = 'pallas' (the served image's rays that meet the
+        most surface, or its middle rows), timed beside the default mode on
+        the same rays; the CHECK_RAYS rays of it that meet the most surface
+        against the CPU render."""
+        from honerf_torch.camera import full_image_ndc_grid
+
+        render_p = make_hand_eval_render(sdf_cfg, color_cfg, rcfg,
+                                         tcfg._replace(fused_fine="pallas"))
+        grid = full_image_ndc_grid(H, W, device=dev)
+        if "wsum" in served:
+            rays = grid[torch.argsort(served["wsum"].reshape(-1), descending=True)[:REQUEST_RAYS]]
+        else:
+            rays = grid[(H * W - REQUEST_RAYS) // 2:][:REQUEST_RAYS]
+        request = dict(view, rays_xy=rays)
+        full_ms = []
+        for fn in (render, render, render_p):   # the first calls pack the snapshot's weights
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(params, request)
+            torch.cuda.synchronize()
+            full_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in all_kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        color, wsum = render_p(params, request)
+        torch.cuda.synchronize()
+        req_ms = (time.perf_counter() - t0) * 1e3
+        launches = {name: k.launches for name, k in all_kernels.items()}
+        log(f"serve pallas: one request of {REQUEST_RAYS} rays in {req_ms:.1f} ms "
+            f"({REQUEST_RAYS / req_ms * 1e3:.1f} rays/s; the default 'full' mode on the same "
+            f"rays {full_ms[1]:.1f} ms); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+        assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
+        assert launches["K1"] and launches["K5"] and not (
+            launches["K2"] or launches["K6"]), f"the pallas render path launched {launches}"
+        idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
+        cpu = torch.device("cpu")
+        c_ref, w_ref = render_p(clone_tree(params, cpu),
+                                {k: v.to(cpu) for k, v in request.items()
+                                 if k != "rays_xy"} | {"rays_xy": request["rays_xy"][idx].cpu()})
+        ok = True
+        for what, got, want in (("color", color[idx].cpu(), c_ref),
+                                ("weight_sum", wsum[idx, 0].cpu(), w_ref[:, 0])):
+            good, _, text = compare(torch, what, got, want, TOL_RENDER_MEDIAN, TOL_RENDER_MAX,
+                                   scale=1.0)
+            log(f"serve pallas: {CHECK_RAYS} rays vs the CPU render (plain versions), {text}")
+            ok = ok and good
+        log(f"serve pallas: their weight_sum {float(w_ref.min()):.4f}..{float(w_ref.max()):.4f}")
+        assert ok, "the pallas render disagrees with the CPU render"
+
+    phase("kernel K5", kernel_k5)
+    phase("kernel K6", kernel_k6)
+    phase("kernel K2/K3 no-color", kernel_nocolor)
+    phase("train pallas", train_pallas)
+    phase("train full_nocolor", train_nocolor)
+    phase("train check pallas", lambda: train_check("pallas", "train check pallas"))
+    phase("serve pallas", serve_pallas)
 
     # -- 10-13. the object model: K4, its train step, the runner, meshes --
     obj = obj_flagship(torch, dev)
@@ -1134,20 +1469,14 @@ def main() -> int:
     else:
         failures.append("mesh check")
 
-    # the TPU kernels still to port, from their shapes (weights read as
-    # bf16 once, K6's dW written as f32 once)
-    E, m = sdf_cfg.input_width, 1e6
-    n_w = sum(i * o for i, o in trunk_dims(sdf_cfg, sdf_cfg.d_out))
-    to_port = {"K5": bound(k5_flops(sdf_cfg, m), (6 * E + 4 * sdf_cfg.d_out) * m + 2 * n_w),
-               "K6": bound(3 * k5_flops(sdf_cfg, m),
-                           (10 * E + 4 * sdf_cfg.d_out) * m + 6 * n_w)}
-    log("bounds per million points of the TPU kernels still to port: " + ", ".join(
-        f"{k} {ms:.3f} ms ({by})" for k, (ms, by) in to_port.items()))
     log(gpu_line())
-    order = ("K1", "K2", "K3", "K4")
+    order = ("K1", "K2", "K3", "K4", "K5", "K6")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: rows.get(n, {}).get(k) for k in keys} for n in order]}))
+    nocolor = ("nocolor_launches", "nocolor_ms", "nocolor_plain_ms", "nocolor_bound_ms")
+    log(json.dumps({"kernels": [
+        {k: rows.get(n, {}).get(k) for k in keys + (nocolor if n in ("K2", "K3") else ())}
+        for n in order]}))
     if failures:
         log(f"chip_smoke: failed phases: {', '.join(failures)}")
         return 1

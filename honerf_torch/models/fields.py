@@ -13,7 +13,10 @@ honerf_tpu.models.fields.
 Stored weights keep the reference's bone-major embedding columns; the
 channel-major (flat) path gathers them with _cm_index / _gather_cols.
 The spatial gradient comes from torch.autograd.grad, the reference's own
-double-backprop formulation.
+double-backprop formulation, or from the fine-pass kernels: the
+color-fused op (hand_fine_color_apply), the op without the color net
+(sdf_hand_value_feat_grad_full) and the trunk + u-chain op on the
+embedding (sdf_hand_value_feat_grad_fused).
 """
 
 from __future__ import annotations
@@ -420,3 +423,109 @@ def hand_fine_color_apply(params: Params, sdf_cfg: SDFConfig, color_cfg: ColorCo
         return hand_fine_color_fwd(pts, rotT, off, cut, pack)
     meta, ws, bs, cws, cbs = fine_color_weights(params, sdf_cfg, color_cfg)
     return hand_fine_color(pts, rotT, off, cut, ws, bs, cws, cbs, meta)
+
+
+# ---------------------------------------------------------------------------
+# The fine pass's other kernel modes (train.fused_fine = 'full_nocolor',
+# 'pallas'): value, features, embedding and spatial gradient, the color net
+# applied after them in plain torch
+# ---------------------------------------------------------------------------
+
+def _trunk_meta(cfg: SDFConfig):
+    from honerf_torch.ops.fused_fine import TrunkMeta
+
+    assert len(cfg.skip_in) == 1, "the fused fine pass supports one skip"
+    return TrunkMeta(emb_width=cfg.input_width, d_hidden=cfg.d_hidden,
+                     n_layers=len(cfg.dims) - 1, skip=cfg.skip_in[0], d_out=cfg.d_out,
+                     dtype="bf16" if cfg.trunk_dtype == "bf16" else "f32")
+
+
+def pack_trunk_sdf(params: Params, cfg: SDFConfig):
+    """Pack the SDF params for ops.fused_fine.hand_trunk_sdf_u_fwd (once
+    per parameter snapshot)."""
+    from honerf_torch.ops.fused_fine import pack_trunk_weights
+
+    with torch.no_grad():
+        ws, bs = _fine_trunk_weights(params, cfg)
+        return pack_trunk_weights(ws, bs, _trunk_meta(cfg))
+
+
+def sdf_hand_value_feat_grad_fused(params: Params, cfg: SDFConfig, pts: torch.Tensor,
+                                   bt_inv: torch.Tensor, t_pose_21: torch.Tensor, pack=None):
+    """The decomposed fine pass (ops.fused_fine, K5 / K6): the embedding
+    and its pose coupling in torch autograd, the trunk + u-chain (u = d
+    sdf / d e) as one op, and the spatial gradient reassembled as the
+    embedding's VJP at u.  Returns (sdf, features, xyz_feature (the f32
+    embedding), r, h, grad) like sdf_hand_value_feat_grad.
+
+    With grad mode on (training) everything is differentiable: the
+    eikonal and color terms differentiate grad again, and its
+    second-order terms through the embedding's Jacobian (into bt_inv and
+    se3_refine) come from torch autograd, the trunk's from K6.  Under
+    torch.no_grad(), or with a pack (pack_trunk_sdf, once per parameter
+    snapshot), it runs the forward only: the embedding's VJP is formed
+    under a local enable_grad on a detached copy of the points and
+    nothing is kept."""
+    from honerf_torch.ops.fused_fine import hand_trunk_sdf_u, hand_trunk_sdf_u_fwd
+
+    train = torch.is_grad_enabled() and pack is None
+    with torch.enable_grad():
+        p = pts if (train and pts.requires_grad) else pts.detach().requires_grad_(True)
+        e, r, h = hand_embedding_flat(p, bt_inv if train else bt_inv.detach(), t_pose_21,
+                                      cfg.v_multires, cfg.r_multires)
+    if train:
+        ws, bs = _fine_trunk_weights(params, cfg)
+        out, u = hand_trunk_sdf_u(e, ws, bs, _trunk_meta(cfg))
+    else:
+        if pack is None:
+            pack = pack_trunk_sdf(params, cfg)
+        out, u = hand_trunk_sdf_u_fwd(e.detach(), pack)
+    with torch.enable_grad():
+        (grad,) = torch.autograd.grad(e, p, grad_outputs=u, create_graph=train)
+    if not train:
+        e, r, h = e.detach(), r.detach(), h.detach()
+    return out[..., :1], out[..., 1:], e, r, h, grad
+
+
+def fine_nocolor_meta(cfg: SDFConfig):
+    """FineMeta of the fine pass without the color net."""
+    from honerf_torch.ops.fused_fine_full import FineMeta
+
+    tm = _trunk_meta(cfg)
+    return FineMeta(v_multires=cfg.v_multires, r_multires=cfg.r_multires,
+                    d_hidden=tm.d_hidden, n_layers=tm.n_layers, skip=tm.skip, d_out=tm.d_out,
+                    dtype=tm.dtype, with_color=False)
+
+
+def pack_fine_nocolor(params: Params, cfg: SDFConfig):
+    """Pack the SDF params for ops.fused_fine_full.hand_fine_color_fwd
+    without the color net (once per parameter snapshot)."""
+    from honerf_torch.ops.fused_fine_full import pack_fine_weights
+
+    with torch.no_grad():
+        ws, bs = _fine_trunk_weights(params, cfg)
+        return pack_fine_weights(ws, bs, (), (), fine_nocolor_meta(cfg))
+
+
+def sdf_hand_value_feat_grad_full(params: Params, cfg: SDFConfig, pts: torch.Tensor,
+                                  bt_inv: torch.Tensor, t_pose_21: torch.Tensor, pack=None):
+    """The fully fused fine pass without the color net
+    (ops.fused_fine_full.hand_fine_color without meta.with_color, JAX's
+    hand_fine_full; K2 / K3): embedding, trunk and
+    spatial gradient in one op, the pose gradients through the
+    differentiable (rotT, off) of pack_hand_pose.  Returns (sdf, features,
+    xyz_feature (the embedding rounded to the trunk dtype), None, None,
+    grad); r and h are None, as in the JAX package (the color net never
+    reads them).  With a pack (pack_fine_nocolor) it runs the forward
+    only."""
+    from honerf_torch.ops.fused_fine_full import hand_fine_color, hand_fine_color_fwd
+    from honerf_torch.ops.fused_hand import pack_hand_pose
+
+    rotT, off, cut = pack_hand_pose(bt_inv, t_pose_21)
+    if pack is not None:
+        out, grad, e = hand_fine_color_fwd(pts, rotT, off, cut, pack)
+    else:
+        ws, bs = _fine_trunk_weights(params, cfg)
+        out, grad, e = hand_fine_color(pts, rotT, off, cut, ws, bs, (), (),
+                                       fine_nocolor_meta(cfg))
+    return out[..., :1], out[..., 1:], e, None, None, grad

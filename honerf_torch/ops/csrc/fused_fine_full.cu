@@ -29,22 +29,15 @@
 //   The scratch traffic (~50 KB/pt) stays below the byte/FLOP balance of
 //   the card at these widths; the GEMMs bound it (PERF.md).  Right first:
 //   TMA/wgmma and fusing the launches are later work.
+//
+// No-color mode (`hand_fine_full`, the same pallas_call without the color
+//   net): the same launches up to fine_rev_kernel, which then writes only
+//   [sdf | g]; the last trunk layer stores z whole into the output and
+//   copy_cols_kernel (trunk.cuh) copies e out at E columns.
 
-#include "common.cuh"
+#include "trunk.cuh"
 
 namespace honerf {
-
-// t[m, j] = bf16(W_last[j, 0] * s[m, j]): the first u-chain step, whose
-// input is the one-hot sdf column.
-__global__ void uchain_seed_kernel(const __nv_bfloat16* __restrict__ w, int ldw,
-                                   const float* __restrict__ s, int width, int M,
-                                   __nv_bfloat16* __restrict__ t, int ldt) {
-  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * width) return;
-  int m = (int)(i / width), j = (int)(i % width);
-  float c = __bfloat162float(w[(size_t)j * ldw]);
-  t[(size_t)m * ldt + j] = __float2bfloat16_rn(c * s[(size_t)m * width + j]);
-}
 
 // Reverse chain: g = (d e / d p)^T u, one warp per point, lane = bone.
 // Writes packed[m] = [sdf | g | . . . | 0] (the color columns come from
@@ -85,6 +78,7 @@ __global__ void fine_rev_kernel(const float* __restrict__ pts, int M,
     out[3] = g[2];
     out[7] = 0.f;
   }
+  if (!x2) return;  // the no-color mode has no color net to feed
   __nv_bfloat16* xr = x2 + (size_t)m * ldx;
   for (int col = j; col < Fp; col += 32)
     xr[col] = __float2bfloat16_rn(col < F ? zr[1 + col] : 0.f);
@@ -103,16 +97,6 @@ __global__ void fine_rev_kernel(const float* __restrict__ pts, int M,
 }
 
 }  // namespace honerf
-
-extern "C" int honerf_uchain_seed(const __nv_bfloat16* w, int ldw, const float* s, int width,
-                                  int M, __nv_bfloat16* t, int ldt, cudaStream_t stream) {
-  size_t n = (size_t)M * width;
-  if (n) {
-    honerf::uchain_seed_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(w, ldw, s,
-                                                                              width, M, t, ldt);
-  }
-  return (int)cudaGetLastError();
-}
 
 extern "C" int honerf_fine_rev(const float* pts, int M, const float* rotT, const float* off,
                                const float* cut, int vL, int rL, const float* u, int ldu,

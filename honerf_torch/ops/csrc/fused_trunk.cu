@@ -1,0 +1,102 @@
+// Hand trunk + u-chain from a given embedding, forward (K5) and its
+// second-order VJP (K6) (ops/fused_fine.py: hand_trunk_sdf_u).
+//
+// Replaces: the two Pallas kernels of honerf_tpu/ops/fused_fine.py that
+//   `hand_trunk_sdf_u` runs (`_fwd_call` pallas_call, line 452, body
+//   `_kernel_fwd_body`; `_bwd_call` pallas_call, line 488, body
+//   `_trunk_bwd_block`), the fine pass of `train.fused_fine = 'pallas'`.
+//
+// Bound on an H100: operations, narrowly.  K5 does ~4.8 MFLOP of bf16
+//   matmul a point at the flagship width (the trunk and the transposed
+//   u-chain) against ~12.1 KB a point of f32 in and out (e and u, 1386
+//   columns each, and the 257 outputs): ~400 FLOP/B against the card's
+//   ~295, a floor of ~4.9 ms per million points.  K6 does ~12.9 MFLOP a
+//   point: each product's transpose and dW (twice K5's operations), and
+//   the forward recomputed without the products whose outputs it is given
+//   the cotangents of (the last layer; the u-chain's embedding columns, at
+//   layer 0 and the skip), against ~17.7 KB a point (e, dout, du in, de
+//   out): ~13.0 ms per million points.
+//
+// Design: the TPU kernels kept a block's activations, sigmoid rows and
+//   u-chain in VMEM.  Here, as for K2 and K3, the op is a sequence of
+//   launches over a bounded global scratch (the wrapper's CHUNK of points),
+//   and it is K2's and K3's trunk launches with other inputs and outputs:
+//     trunk_pack_e_kernel          f32 e -> the bf16 GEMM operand, rounded
+//                                  once and zero-padded to Ep columns
+//     gemm_kernel x 9 (K5)         trunk, softplus/sigmoid epilogue; the last
+//                                  layer stores z whole into `out`
+//     uchain_seed_kernel + gemm x 8  u-chain -> u (scratch), then
+//     copy_cols_kernel             u out at E columns
+//   K6 reruns the forward keeping every activation, sigmoid, t and c row
+//   (without the last layer and the u-chain's embedding columns, whose
+//   outputs it does not read), then
+//     trunk_bwd_seed_kernel        dout -> the top dz (f32 and bf16); du ->
+//                                  bf16(du) and bf16(du / sqrt2), rounded
+//                                  once from f32 as the JAX kernel does
+//     gemm (EPI_UT) x 8            u-chain transposed, upward
+//     gemm (EPI_DZ) x 9            forward transposed, downward, with the
+//                                  second-order term ds beta s (1 - s)
+//     gemm_tn_kernel, colsum       dW, db split over points, fixed-order sums
+//     copy_cols_kernel             de out at E columns
+//   The scratch traffic is that of K2/K3's trunk; the GEMMs bound both
+//   (PERF.md).  Right first: wgmma/TMA and fused launches are later work.
+
+#include "trunk.cuh"
+
+namespace honerf {
+
+// out[m, c] = bf16(e[m, c]) for c < E, 0 for E <= c < width.
+__global__ void trunk_pack_e_kernel(const float* __restrict__ e, int lde, int M, int E,
+                                    __nv_bfloat16* __restrict__ out, int ldo, int width) {
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)M * width) return;
+  int m = (int)(i / width), c = (int)(i % width);
+  float v = c < E ? e[(size_t)m * lde + c] : 0.f;
+  out[(size_t)m * ldo + c] = __float2bfloat16_rn(v);
+}
+
+// Columns c < Op of a row: dzf = dout (0 past d_out), dzb = bf16(dzf);
+// columns Op + c, c < Ep: du_b = bf16(du), du_s = bf16(du * (1/sqrt2))
+// (0 past E).
+__global__ void trunk_bwd_seed_kernel(const float* __restrict__ dout, int ld_dout, int d_out,
+                                      const float* __restrict__ du, int ld_du, int E, int M,
+                                      float* __restrict__ dzf, __nv_bfloat16* __restrict__ dzb,
+                                      int lddz, int Op, __nv_bfloat16* __restrict__ du_b,
+                                      __nv_bfloat16* __restrict__ du_s, int lddu, int Ep) {
+  const int width = Op + Ep;
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)M * width) return;
+  int m = (int)(i / width), c = (int)(i % width);
+  if (c < Op) {
+    float v = c < d_out ? dout[(size_t)m * ld_dout + c] : 0.f;
+    dzf[(size_t)m * lddz + c] = v;
+    dzb[(size_t)m * lddz + c] = __float2bfloat16_rn(v);
+  } else {
+    c -= Op;
+    float v = c < E ? du[(size_t)m * ld_du + c] : 0.f;
+    du_b[(size_t)m * lddu + c] = __float2bfloat16_rn(v);
+    du_s[(size_t)m * lddu + c] = __float2bfloat16_rn(v * kInvSqrt2);
+  }
+}
+
+}  // namespace honerf
+
+extern "C" int honerf_trunk_pack_e(const float* e, int lde, int M, int E, __nv_bfloat16* out,
+                                   int ldo, int width, cudaStream_t stream) {
+  size_t n = (size_t)M * width;
+  if (n)
+    honerf::trunk_pack_e_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        e, lde, M, E, out, ldo, width);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int honerf_trunk_bwd_seed(const float* dout, int ld_dout, int d_out, const float* du,
+                                     int ld_du, int E, int M, float* dzf, __nv_bfloat16* dzb,
+                                     int lddz, int Op, __nv_bfloat16* du_b, __nv_bfloat16* du_s,
+                                     int lddu, int Ep, cudaStream_t stream) {
+  size_t n = (size_t)M * (Op + Ep);
+  if (n)
+    honerf::trunk_bwd_seed_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        dout, ld_dout, d_out, du, ld_du, E, M, dzf, dzb, lddz, Op, du_b, du_s, lddu, Ep);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,255 @@
+// Device code of the 9-layer hand trunk shared by the fine-pass kernels
+// (fused_fine_full.cu K2, fused_fine_bwd.cu K3, fused_trunk.cu K5/K6):
+//
+//  * uchain_seed_kernel: the u-chain's first step, against the one-hot sdf
+//    column;
+//  * gemm_tn_kernel + reduce_partials_kernel: dW = X^T Y over the point
+//    axis, split over points into f32 partials summed in a fixed order;
+//  * colsum_partial_kernel: column sums (db, the pose sums), fixed order;
+//  * copy_cols_kernel: the first `width` columns of a padded scratch row
+//    into an unpadded f32 output row.
+//
+// No atomics: two runs give the same bits.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace honerf {
+
+constexpr float kInvSqrt2 = 0.70710678118654752f;
+
+// t[m, j] = bf16(W_last[j, 0] * s[m, j]): the first u-chain step, whose
+// input is the one-hot sdf column.
+__global__ void uchain_seed_kernel(const __nv_bfloat16* __restrict__ w, int ldw,
+                                   const float* __restrict__ s, int width, int M,
+                                   __nv_bfloat16* __restrict__ t, int ldt) {
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)M * width) return;
+  int m = (int)(i / width), j = (int)(i % width);
+  float c = __bfloat162float(w[(size_t)j * ldw]);
+  t[(size_t)m * ldt + j] = __float2bfloat16_rn(c * s[(size_t)m * width + j]);
+}
+
+// ---------------------------------------------------------------------------
+// dW = X^T Y over the point axis (TN GEMM), split over points
+// ---------------------------------------------------------------------------
+
+// Block (ti, to, s): the 128 x 128 tile of rows ti*128.. of X's columns and
+// columns to*128.. of Y's, summed over points [s*split, (s+1)*split), into
+// its own f32 partial ws[s] (Kpad x Npad, row stride ldws).  The point axis
+// is the K of the product: X tiles land in shared memory as [point][i] and
+// are read as column-major A fragments.
+constexpr int TN_LD = BM + 8;             // bf16 elements per staged row
+constexpr int TN_STAGE = BK * TN_LD;      // elements per operand per stage
+constexpr int TN_SMEM = STAGES * 2 * TN_STAGE * 2;
+
+struct TnArgs {
+  const __nv_bfloat16* X; int ldx; int K;   // X (M, K)
+  float x_scale;                            // != 0: X -> bf16(X * x_scale)
+  const __nv_bfloat16* Y; int ldy; int N;   // Y (M, N)
+  int M, split;
+  float* ws; int ldws; size_t ws_stride;
+};
+
+__device__ __forceinline__ void tn_load_stage(const TnArgs& p, __nv_bfloat16* Xs,
+                                              __nv_bfloat16* Ys, int i0, int o0, int mk,
+                                              int m_end, int tid) {
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    int c = tid + it * THREADS;
+    int row = c >> 4, seg = c & 15;
+    int gm = mk + row;
+    int gi = i0 + seg * 8, go = o0 + seg * 8;
+    bool vx = gm < m_end && gi < p.K;
+    bool vy = gm < m_end && go < p.N;
+    cp_async16(&Xs[row * TN_LD + seg * 8], vx ? p.X + (size_t)gm * p.ldx + gi : p.X, vx);
+    cp_async16(&Ys[row * TN_LD + seg * 8], vy ? p.Y + (size_t)gm * p.ldy + go : p.Y, vy);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) gemm_tn_kernel(TnArgs p) {
+  using namespace nvcuda;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ys = Xs + STAGES * TN_STAGE;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
+  const int i0 = blockIdx.x * BM, o0 = blockIdx.y * BN;
+  const int m0 = blockIdx.z * p.split;
+  const int m_end = min(p.M, m0 + p.split);
+  const int KT = m_end > m0 ? (m_end - m0 + BK - 1) / BK : 0;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) wmma::fill_fragment(acc[i][jj], 0.f);
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) tn_load_stage(p, Xs + s * TN_STAGE, Ys + s * TN_STAGE, i0, o0, m0 + s * BK,
+                              m_end, tid);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int nk = kt + STAGES - 1;
+    if (nk < KT)
+      tn_load_stage(p, Xs + (nk % STAGES) * TN_STAGE, Ys + (nk % STAGES) * TN_STAGE, i0, o0,
+                    m0 + nk * BK, m_end, tid);
+    cp_async_commit();
+    __nv_bfloat16* x = Xs + (kt % STAGES) * TN_STAGE;
+    const __nv_bfloat16* y = Ys + (kt % STAGES) * TN_STAGE;
+    if (p.x_scale != 0.f) {  // the skip concat: X -> bf16(X * x_scale)
+#pragma unroll
+      for (int it = 0; it < 2; ++it) {
+        int c = tid + it * THREADS;
+        uint4* v = reinterpret_cast<uint4*>(&x[(c >> 4) * TN_LD + (c & 15) * 8]);
+        *v = scale_bf16x8(*v, p.x_scale);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> af[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(af[i], &x[kk * TN_LD + wm * 64 + i * 16], TN_LD);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        wmma::load_matrix_sync(bf[jj], &y[kk * TN_LD + wn * 32 + jj * 16], TN_LD);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) wmma::mma_sync(acc[i][jj], af[i], bf[jj], acc[i][jj]);
+    }
+  }
+  cp_async_wait<0>();
+  float* out = p.ws + blockIdx.z * p.ws_stride;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+      wmma::store_matrix_sync(
+          out + (size_t)(i0 + wm * 64 + i * 16) * p.ldws + o0 + wn * 32 + jj * 16,
+          acc[i][jj], p.ldws, wmma::mem_row_major);
+}
+
+// out[i, o] = (acc ? out[i, o] : 0) + sum_s ws[s][i, o] in order s = 0, 1, ...
+__global__ void reduce_partials_kernel(const float* __restrict__ ws, int S, size_t ws_stride,
+                                       int ldws, int K, int N, float* __restrict__ out,
+                                       int ldo, int acc) {
+  size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)K * N) return;
+  int i = (int)(idx / N), o = (int)(idx % N);
+  const float* src = ws + (size_t)i * ldws + o;
+  float sum = 0.f;
+  for (int s = 0; s < S; ++s) sum += src[s * ws_stride];
+  float* dst = out + (size_t)i * ldo + o;
+  *dst = acc ? *dst + sum : sum;
+}
+
+// ws[s, col] = sum of Z[row, col] over rows [s*split, (s+1)*split), in order.
+__global__ void colsum_partial_kernel(const float* __restrict__ Z, int ldz, int N, int M,
+                                      int split, float* __restrict__ ws) {
+  int col = blockIdx.y * blockDim.x + threadIdx.x;
+  if (col >= N) return;
+  int r0 = blockIdx.x * split, r1 = min(M, r0 + split);
+  float sum = 0.f;
+  for (int r = r0; r < r1; ++r) sum += Z[(size_t)r * ldz + col];
+  ws[(size_t)blockIdx.x * N + col] = sum;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// dst[m, c] = f32(src[m, c]) for c < width: a padded scratch row out into
+// an unpadded output row.
+template <typename T>
+__global__ void copy_cols_kernel(const T* __restrict__ src, int lds, int M, int width,
+                                 float* __restrict__ dst, int ldd) {
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)M * width) return;
+  int m = (int)(i / width), c = (int)(i % width);
+  dst[(size_t)m * ldd + c] = to_f32(src[(size_t)m * lds + c]);
+}
+
+}  // namespace honerf
+
+// ---------------------------------------------------------------------------
+// Plain C entry points (loaded with ctypes); each returns cudaGetLastError().
+// ---------------------------------------------------------------------------
+
+extern "C" int honerf_uchain_seed(const __nv_bfloat16* w, int ldw, const float* s, int width,
+                                  int M, __nv_bfloat16* t, int ldt, cudaStream_t stream) {
+  size_t n = (size_t)M * width;
+  if (n) {
+    honerf::uchain_seed_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(w, ldw, s,
+                                                                              width, M, t, ldt);
+  }
+  return (int)cudaGetLastError();
+}
+
+static inline int honerf_round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// out[:K, :N] (+)= X[:M, :K]^T Y[:M, :N] in f32; ws holds the partials of
+// ceil(M / split) point ranges.  The wrapper checks ws's size.
+extern "C" int honerf_gemm_tn(const __nv_bfloat16* X, int ldx, int K, float x_scale,
+                              const __nv_bfloat16* Y, int ldy, int N, int M, int split,
+                              float* ws, float* out, int ldo, int acc, cudaStream_t stream) {
+  if (ldx % 8 || ldy % 8 || K % 8 || N % 8 || split % honerf::BK || split <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaGetLastError();
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(honerf::gemm_tn_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           honerf::TN_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const int S = (M + split - 1) / split;
+  const int Kp = honerf_round_up(K, honerf::BM), Np = honerf_round_up(N, honerf::BN);
+  honerf::TnArgs p{X, ldx, K, x_scale, Y, ldy, N, M, split, ws, Np, (size_t)Kp * Np};
+  dim3 grid(Kp / honerf::BM, Np / honerf::BN, S);
+  honerf::gemm_tn_kernel<<<grid, honerf::THREADS, honerf::TN_SMEM, stream>>>(p);
+  size_t n = (size_t)K * N;
+  honerf::reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      ws, S, (size_t)Kp * Np, Np, K, N, out, ldo, acc);
+  return (int)cudaGetLastError();
+}
+
+// out[:N] (+)= the column sums of Z[:M, :N] (f32), in a fixed order.
+extern "C" int honerf_colsum(const float* Z, int ldz, int N, int M, int split, float* ws,
+                             float* out, int acc, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  const int S = (M + split - 1) / split;
+  dim3 grid(S, (N + 127) / 128);
+  honerf::colsum_partial_kernel<<<grid, 128, 0, stream>>>(Z, ldz, N, M, split, ws);
+  honerf::reduce_partials_kernel<<<(N + 255) / 256, 256, 0, stream>>>(ws, S, (size_t)N, N, 1,
+                                                                      N, out, N, acc);
+  return (int)cudaGetLastError();
+}
+
+// dst[:M, :width] = src[:M, :width] (f32 or bf16 source, f32 destination).
+extern "C" int honerf_copy_cols(const float* src, int lds, int M, int width, float* dst,
+                                int ldd, cudaStream_t stream) {
+  size_t n = (size_t)M * width;
+  if (n)
+    honerf::copy_cols_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        src, lds, M, width, dst, ldd);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int honerf_copy_cols_bf16(const __nv_bfloat16* src, int lds, int M, int width,
+                                     float* dst, int ldd, cudaStream_t stream) {
+  size_t n = (size_t)M * width;
+  if (n)
+    honerf::copy_cols_kernel<__nv_bfloat16><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        src, lds, M, width, dst, ldd);
+  return (int)cudaGetLastError();
+}

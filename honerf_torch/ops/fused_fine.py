@@ -1,8 +1,8 @@
-"""Trunk statements shared by the fused hand kernels; counterpart of the
-block bodies of honerf_tpu.ops.fused_fine (`_kernel_fwd_body`,
-`_trunk_bwd_block`).  Its own Pallas kernels (K5/K6) are not ported yet;
-the fine pass (ops.fused_fine_full, K2 forward and K3 backward) runs
-these statements as its plain version.
+"""The hand trunk + u-chain from a given embedding, forward and its
+second-order VJP; counterpart of honerf_tpu.ops.fused_fine
+(`hand_trunk_sdf_u`, whose Pallas kernels are `_fwd_call` -> K5 and
+`_bwd_call` -> K6), and the trunk statements and launch sequences that
+the fine pass (ops.fused_fine_full, K2 and K3) shares with it.
 
 Trunk (9 weight-normed linear layers L0..L8, softplus beta=100 after
 L0..L7, widened-input skip at l=4 scaled 1/sqrt2):
@@ -21,18 +21,40 @@ L0..L7, widened-input skip at l=4 scaled 1/sqrt2):
             dz_l = da * s_l + ds_l * beta s_l (1 - s_l),
             dW_l += in_l^T dz_l, db_l = sum dz_l, din = dz_l @ W_l^T.
 
+`trunk_sdf_u_ref` / `trunk_sdf_u_bwd_ref` state these on the unpadded
+(in, out) weights: the spec the tests hold against the JAX package.
+
 Padded layout (shared by the plain versions and the CUDA kernels): every
 width is rounded up to PAD, a multiple of the CUDA GEMM's K step, with
 zero weight rows and columns; the skip layer's rows are [hidden (Hp) | embedding (Ep)].
 bf16 mode rounds every matmul operand to bf16 and accumulates in f32.
+
+Entry points:
+  * `hand_trunk_sdf_u(e, ws, bs, meta)`: e (N, E) -> (out (N, d_out),
+    u (N, E)), differentiable (torch.autograd.Function) in e and the
+    unpadded (in, out) weights; it packs them in its forward, and its
+    backward recomputes the forward.  Weights that need no gradient
+    launch no dW work.
+  * `hand_trunk_sdf_u_fwd(e, pack)`: the forward on a TrunkPack made once
+    per parameter snapshot (the eval render).
+On CUDA tensors the forward launches csrc/fused_trunk.cu (K5) and the
+backward K6 from the same source, bf16 trunk only; on CPU tensors both run
+their plain versions (`hand_trunk_sdf_u_plain`, `hand_trunk_sdf_u_plain_bwd`,
+on the block bodies `_kernel_fwd_body` / `_trunk_bwd_block`).
+
+What bounds the kernels on an H100 and how their design answers that: the
+note at the top of csrc/fused_trunk.cu; their times: PERF.md.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import List, NamedTuple, Tuple
 
 import torch
+
+from honerf_torch.ops import _build
 
 PAD = 64
 BETA = 100.0
@@ -226,3 +248,576 @@ def _trunk_bwd_block(meta: TrunkMeta, dout: torch.Tensor, du: torch.Tensor, ws, 
     if not want_dw:
         return de, None, None
     return de, dws, dbs
+
+
+# ---------------------------------------------------------------------------
+# The spec on unpadded (in, out) weights (honerf_tpu.ops.fused_fine's
+# trunk_sdf_u_ref / trunk_sdf_u_bwd_ref)
+# ---------------------------------------------------------------------------
+
+def _trunk_forward_ref(e, ws, bs, meta: TrunkMeta):
+    """(zs, ss, ins, out) of the trunk on (N, E) e; s_l = sigmoid(beta z_l)."""
+    zs, ss, ins = [], [], []
+    a = _rnd(meta, e)
+    e_in = a
+    for l in range(meta.n_layers):
+        x = _skip_concat(meta, a, e_in) if l == meta.skip else a
+        ins.append(x)
+        z = _mm(meta, x, ws[l]) + bs[l]
+        zs.append(z)
+        if l < meta.n_layers - 1:
+            ss.append(torch.sigmoid(BETA * z))
+            a = _rnd(meta, _softplus_beta(z))
+    return zs, ss, ins, zs[-1]
+
+
+def _u_chain_ref(ws, ss, meta: TrunkMeta):
+    """(u, ts, cs): d out[:, 0] / d e and the chain's t_l and c_l."""
+    H, n = meta.d_hidden, meta.n_layers
+    t = ss[0].new_zeros((ss[0].shape[0], meta.d_out))
+    t[:, 0] = 1.0
+    ts: List[torch.Tensor] = [None] * n
+    cs: List[torch.Tensor] = [None] * n
+    ts[n - 1] = t
+    u = None
+    for l in range(n - 1, -1, -1):
+        m = _mm_t(meta, ts[l], ws[l])
+        if l == meta.skip:
+            c = m[:, :H] * INV_SQRT2
+            u = m[:, H:] * INV_SQRT2
+        else:
+            c = m
+        cs[l] = c
+        if l > 0:
+            ts[l - 1] = c * ss[l - 1]
+        else:
+            u = u + c
+    return u, ts, cs
+
+
+def trunk_sdf_u_ref(e, ws, bs, meta: TrunkMeta):
+    """(N, E) -> (out (N, d_out), u (N, E) = d out[:, 0] / d e)."""
+    _, ss, _, out = _trunk_forward_ref(e, ws, bs, meta)
+    u, _, _ = _u_chain_ref(ws, ss, meta)
+    return out, u
+
+
+def trunk_sdf_u_bwd_ref(e, ws, bs, meta: TrunkMeta, dout, du):
+    """The hand-transposed VJP of trunk_sdf_u_ref at cotangents dout
+    (N, d_out) and du (N, E): (de, dws, dbs).  Its products are f32, as
+    in the JAX package's spec; the kernels round their operands to the
+    trunk dtype (`_trunk_bwd_block`)."""
+    H, n = meta.d_hidden, meta.n_layers
+    _, ss, ins, _ = _trunk_forward_ref(e, ws, bs, meta)
+    _, ts, cs = _u_chain_ref(ws, ss, meta)
+    dws = [torch.zeros_like(w, dtype=torch.float32) for w in ws]
+    dbs = [torch.zeros_like(b, dtype=torch.float32) for b in bs]
+    ds = [torch.zeros_like(s) for s in ss]
+    # transpose of the u-chain, upward
+    dt = None
+    for l in range(n):
+        if l > 0:
+            dc = dt * ss[l - 1]
+            ds[l - 1] = ds[l - 1] + dt * cs[l]
+        else:
+            dc = du
+        dm = torch.cat([dc * INV_SQRT2, du * INV_SQRT2], dim=-1) if l == meta.skip else dc
+        dt = dm @ ws[l].float()
+        dws[l] = dws[l] + dm.T @ ts[l]   # m = t W^T: dW += dm^T t
+    # transpose of the forward, downward
+    dz = dout
+    de = torch.zeros_like(e, dtype=torch.float32)
+    din = None
+    for l in range(n - 1, -1, -1):
+        if l < n - 1:
+            if l + 1 == meta.skip:
+                da = din[:, :H] * INV_SQRT2
+                de = de + din[:, H:] * INV_SQRT2
+            else:
+                da = din
+            dz = da * ss[l] + ds[l] * BETA * ss[l] * (1.0 - ss[l])
+        dws[l] = dws[l] + ins[l].T @ dz
+        dbs[l] = dbs[l] + dz.sum(0)
+        din = dz @ ws[l].float().T
+    return de + din, dws, dbs
+
+
+# ---------------------------------------------------------------------------
+# Packed weights and the plain versions of K5 / K6
+# ---------------------------------------------------------------------------
+
+class TrunkPack(NamedTuple):
+    """Padded weights of one parameter snapshot (`_pad_weights`); wts are
+    the transposed weights the CUDA u-chain and backward read (None on the
+    CPU)."""
+
+    ws: Tuple[torch.Tensor, ...]
+    bs: Tuple[torch.Tensor, ...]
+    wts: object
+    meta: TrunkMeta
+
+
+def pack_trunk_weights(ws, bs, meta: TrunkMeta) -> TrunkPack:
+    """(in, out) f32 trunk weights (channel-major e columns) -> TrunkPack."""
+    assert 0 < meta.skip < meta.n_layers - 1
+    with torch.no_grad():
+        wps, bps = _pad_weights(ws, bs, meta)
+        wts = tuple(w.T.contiguous() for w in wps) if wps[0].device.type == "cuda" else None
+    return TrunkPack(wps, bps, wts, meta)
+
+
+def unpad_trunk_grads(dws, dbs, meta: TrunkMeta, w_shapes):
+    """Padded dW/db -> gradients of the unpadded (in, out) weights: the
+    skip layer's [Hp | Ep] rows joined."""
+    H, E, Hp = meta.d_hidden, meta.emb_width, meta.Hp
+    out_w, out_b = [], []
+    for l, (dw, db, (d_in, d_out)) in enumerate(zip(dws, dbs, w_shapes)):
+        if l == meta.skip:
+            dw = torch.cat([dw[:H], dw[Hp:Hp + E]], dim=0)
+        out_w.append(dw[:d_in, :d_out])
+        out_b.append(db[:d_out])
+    return out_w, out_b
+
+
+def _e_block(meta: TrunkMeta, e: torch.Tensor) -> torch.Tensor:
+    """(B, E) f32 -> the padded (B, Ep) GEMM operand in the trunk dtype's values."""
+    return _rnd(meta, torch.nn.functional.pad(e, (0, meta.Ep - meta.emb_width)))
+
+
+def hand_trunk_sdf_u_plain(e, pack: TrunkPack, block: int = 4096):
+    """K5's statements in plain PyTorch, in blocks of points."""
+    tm = pack.meta
+    out = e.new_empty((e.shape[0], tm.d_out))
+    u = e.new_empty(e.shape)
+    for s in range(0, e.shape[0], block):
+        z, ub, _ = _kernel_fwd_body(tm, _e_block(tm, e[s:s + block]), pack.ws, pack.bs)
+        out[s:s + block] = z[:, :tm.d_out]
+        u[s:s + block] = ub[:, :tm.emb_width]
+    return out, u
+
+
+def hand_trunk_sdf_u_plain_bwd(e, pack: TrunkPack, dout, du, want_dw: bool = True,
+                               block: int = 4096):
+    """K6's statements in plain PyTorch, in blocks of points: (de (N, E),
+    padded f32 dws, dbs summed over the blocks; None, None without
+    want_dw)."""
+    tm = pack.meta
+    E = tm.emb_width
+    de = e.new_empty(e.shape)
+    dws = [torch.zeros(w.shape, device=e.device) for w in pack.ws] if want_dw else None
+    dbs = [torch.zeros(b.shape, device=e.device) for b in pack.bs] if want_dw else None
+    for s in range(0, e.shape[0], block):
+        sl = slice(s, s + block)
+        _, _, ss, ins, ts, cs = _kernel_fwd_body(tm, _e_block(tm, e[sl]), pack.ws, pack.bs,
+                                                 residuals=True)
+        dout_p = torch.nn.functional.pad(dout[sl], (0, tm.Op - tm.d_out))
+        du_p = torch.nn.functional.pad(du[sl], (0, tm.Ep - E))
+        d_e, dw, db = _trunk_bwd_block(tm, dout_p, du_p, pack.ws, (ss, ins, ts, cs), want_dw)
+        de[sl] = d_e[:, :E]
+        if want_dw:
+            for acc, x in zip(dws + dbs, dw + db):
+                acc += x
+    return de, (tuple(dws) if want_dw else None), (tuple(dbs) if want_dw else None)
+
+
+# ---------------------------------------------------------------------------
+# CUDA path: the trunk's launch sequences, shared with ops.fused_fine_full
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+EPI_UT, EPI_DZ = 5, 6
+# points per pass of K5 / K6: the per-point scratch is ~18 KB forward,
+# ~60 KB backward (every activation, sigmoid, t and c row kept)
+CHUNK = 65536
+BWD_CHUNK = 65536
+# dW = X^T dY and column sums run split over the points: enough (tile,
+# split) blocks for ~2 waves of 132 SMs, each partial in f32 scratch,
+# then summed in a fixed order (two runs give the same bits)
+_TN_BLOCKS = 264
+_TN_TILE = 128
+_COLSUM_ROWS = 512
+# the f32 scratch of those partials (floats): ~17 MB at the widest call
+_WS_FLOATS = 8 << 20
+
+KERNEL_FWD = _build.Kernel(
+    "hand_trunk_sdf_u_fwd", "honerf_torch/ops/csrc/fused_trunk.cu",
+    "honerf_tpu/ops/fused_fine.py:452")
+KERNEL_BWD = _build.Kernel(
+    "hand_trunk_sdf_u_bwd", "honerf_torch/ops/csrc/fused_trunk.cu",
+    "honerf_tpu/ops/fused_fine.py:488")
+
+
+def type_trunk_lib(lib) -> None:
+    """argtypes of the entry points of csrc/trunk.cuh, which every fine-pass
+    library carries."""
+    lib.honerf_uchain_seed.argtypes = [_P, _I, _P, _I, _I, _P, _I, _P]
+    lib.honerf_gemm_tn.argtypes = [_P, _I, _I, _F, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P]
+    lib.honerf_colsum.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P]
+    lib.honerf_copy_cols.argtypes = [_P, _I, _I, _I, _P, _I, _P]
+    lib.honerf_copy_cols_bf16.argtypes = [_P, _I, _I, _I, _P, _I, _P]
+    for fn in ("uchain_seed", "gemm_tn", "colsum", "copy_cols", "copy_cols_bf16"):
+        getattr(lib, "honerf_" + fn).restype = _I
+
+
+def _lib():
+    from honerf_torch.ops import fused_hand as FH
+
+    lib = FH._lib("fused_trunk")
+    if not getattr(lib, "_honerf_trunk_typed", False):
+        type_trunk_lib(lib)
+        lib.honerf_trunk_pack_e.argtypes = [_P, _I, _I, _I, _P, _I, _I, _P]
+        lib.honerf_trunk_pack_e.restype = _I
+        lib.honerf_trunk_bwd_seed.argtypes = [_P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _P,
+                                              _P, _I, _I, _P]
+        lib.honerf_trunk_bwd_seed.restype = _I
+        lib._honerf_trunk_typed = True
+    return lib
+
+
+def copy_cols(lib, src, m: int, width: int, dst, stream) -> None:
+    """dst[:m, :width] = src[:m, :width] (f32 or bf16 source, f32 dst)."""
+    fn = lib.honerf_copy_cols_bf16 if src.dtype == torch.bfloat16 else lib.honerf_copy_cols
+    _build.check(fn(src.data_ptr(), src.stride(0), m, width, dst.data_ptr(), dst.stride(0),
+                    stream), "honerf_copy_cols")
+
+
+def _tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
+    """out[:K, :N] (+)= X[:m, :K]^T Y[:m, :N] in f32, split over points."""
+    tiles = -(-K // _TN_TILE) * -(-N // _TN_TILE)
+    splits = max(1, min(-(-_TN_BLOCKS // tiles), -(-m // 256)))
+    split = _round_up(-(-m // splits), 32)
+    splits = -(-m // split)
+    need = splits * _round_up(K, _TN_TILE) * _round_up(N, _TN_TILE)
+    if need > ws.numel():
+        raise ValueError(f"dW scratch too small: {need} > {ws.numel()} floats")
+    _build.check(lib.honerf_gemm_tn(
+        X.data_ptr(), ldx, K, x_scale, Y.data_ptr(), Y.stride(0), N, m, split,
+        ws.data_ptr(), out.data_ptr(), out.stride(0), acc, stream), "honerf_gemm_tn")
+
+
+def _colsum(lib, Z, N, m, out, acc, ws, stream):
+    """out[:N] (+)= sum over the m rows of Z[:, :N] (f32, fixed order)."""
+    _build.check(lib.honerf_colsum(Z.data_ptr(), Z.stride(0), N, m, _COLSUM_ROWS,
+                                   ws.data_ptr(), out.data_ptr(), acc, stream),
+                 "honerf_colsum")
+
+
+def trunk_buffers(tm: TrunkMeta, C: int, dev, keep: bool):
+    """Scratch of cuda_trunk_forward for C points: bf16 activations and t
+    rows (two alternating ones, or with `keep` one per layer, and the f32
+    c rows), f32 sigmoid rows."""
+    n, Hp = tm.n_layers, tm.Hp
+    bf16, f32 = torch.bfloat16, torch.float32
+    n_act = n - 1 if keep else 2
+    buf = dict(
+        acts=[torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(n_act)],
+        ts=[torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(n_act)],
+        ss=torch.empty((n - 1, C, Hp), device=dev, dtype=f32),
+    )
+    if keep:
+        # cs[l] = c_l of the u-chain for l = 1..n-2; c_{n-1} = W_{n-1}[:, 0]
+        # is the same row for every point (a stride-0 operand)
+        buf["cs"] = [None] + [torch.empty((C, Hp), device=dev, dtype=f32)
+                              for _ in range(n - 2)]
+    return buf
+
+
+def cuda_trunk_forward(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream, keep=False,
+                       z=None, u=None) -> None:
+    """The trunk forward and u-chain launches (K2's and K5's, and the
+    recompute of K3 and K6) on the first m rows of e (bf16, Ep columns):
+    a_{l+1} = softplus(z_l) and s_l = sigmoid(beta z_l) into buf's acts
+    and ss; the last layer into the first z.shape[1] columns of z (f32;
+    None: not formed); the u-chain's t rows into buf's ts (with `keep`,
+    its c rows into cs) and u into u (f32, Ep columns; None: the chain's
+    embedding columns are not formed)."""
+    from honerf_torch.ops import fused_hand as FH
+
+    n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
+    ss, acts, ts, cs = buf["ss"], buf["acts"], buf["ts"], buf.get("cs")
+    gemm = FH.gemm
+    # trunk forward: a_{l+1} = softplus(z_l), ss[l] = sigmoid(beta z_l)
+    a = None
+    for l in range(n):
+        if l == 0:
+            A1, K1, A2, K2, scale = e, Ep, None, 0, 0.0
+        elif l == tm.skip:
+            A1, K1, A2, K2, scale = a, Hp, e, Ep, INV_SQRT2_BF16
+        else:
+            A1, K1, A2, K2, scale = a, Hp, None, 0, 0.0
+        w = ws[l]
+        if l < n - 1:
+            nxt = acts[l] if keep else acts[l % 2]
+            gemm(lib, A1, K1, A2, K2, w, w.shape[1], bs[l], m, FH.EPI_SOFTPLUS,
+                 nxt, nxt.stride(0), a_scale=scale, S=ss[l], stream=stream)
+            a = nxt
+        elif z is not None:
+            gemm(lib, A1, K1, A2, K2, w, w.shape[1], bs[l], m, FH.EPI_F32, z, z.stride(0),
+                 n_store=z.shape[1], a_scale=scale, stream=stream)
+    # u-chain: t_{n-2} = W_{n-1}[:, 0] * s_{n-2}, then m_l = t_l W_l^T
+    t = ts[n - 2] if keep else ts[0]
+    _build.check(lib.honerf_uchain_seed(
+        ws[n - 1].data_ptr(), ws[n - 1].stride(0), ss[n - 2].data_ptr(),
+        Hp, m, t.data_ptr(), t.stride(0), stream), "honerf_uchain_seed")
+    for l in range(n - 2, -1, -1):
+        wt = wts[l]                            # (out_pad, in_pad) = (Hp, in_pad)
+        if l == 0:
+            if u is not None:
+                gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, None, 0,
+                     U=u, split=0, u_acc=1, stream=stream)
+            break
+        nxt = ts[l - 1] if keep else (ts[1] if t is ts[0] else ts[0])
+        c_keep = cs[l] if keep else None
+        if l == tm.skip:
+            width = wt.shape[1] if u is not None else Hp
+            gemm(lib, t, Hp, None, 0, wt, width, None, m, FH.EPI_UCHAIN, nxt,
+                 nxt.stride(0), S=ss[l - 1], U=u, split=Hp, hscale=INV_SQRT2,
+                 escale=INV_SQRT2, Cf=c_keep, stream=stream)
+        else:
+            gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, nxt,
+                 nxt.stride(0), S=ss[l - 1], split=wt.shape[1], Cf=c_keep, stream=stream)
+        t = nxt
+
+
+def trunk_bwd_buffers(ws, tm: TrunkMeta, C: int, dev, width: int):
+    """Scratch of cuda_trunk_backward for C points; dzf / dzb (the f32
+    and bf16 cotangent rows) `width` columns wide."""
+    n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
+    bf16, f32 = torch.bfloat16, torch.float32
+    onehot = torch.zeros((C, Op), device=dev, dtype=bf16)
+    onehot[:, 0] = 1.0
+    return dict(
+        dzf=[torch.empty((C, width), device=dev, dtype=f32) for _ in range(2)],
+        dzb=[torch.empty((C, width), device=dev, dtype=bf16) for _ in range(2)],
+        du_b=torch.empty((C, Ep), device=dev, dtype=bf16),
+        du_s=torch.empty((C, Ep), device=dev, dtype=bf16),
+        dm=[torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(2)],
+        ds=torch.empty((n - 1, C, Hp), device=dev, dtype=f32),
+        de=torch.empty((C, Ep), device=dev, dtype=f32),
+        onehot=onehot,
+        c_last=ws[n - 1][:, 0].float().contiguous(),    # c_{n-1}, every point
+    )
+
+
+def cuda_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, dbs,
+                        want_dw: bool, acc: int, scratch, stream) -> None:
+    """The trunk's backward launches (K3's and K6's) on m points after the
+    seeds: the u-chain transposed upward from bw's du_b = bf16(du) and
+    du_s = bf16(du / sqrt2), then the forward transposed downward from
+    the top cotangent in bw's dzf[0] / dzb[0]; dW and db into dws / dbs
+    (acc: add to them), the cotangent of e into bw's de (f32, Ep
+    columns).  buf: the forward's rows (cuda_trunk_forward, keep=True)."""
+    from honerf_torch.ops import fused_hand as FH
+
+    n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
+    acts, ts, cs, ss = buf["acts"], buf["ts"], buf["cs"], buf["ss"]
+    dzf, dzb, dm, ds, de = bw["dzf"], bw["dzb"], bw["dm"], bw["ds"], bw["de"]
+    du_b, du_s, onehot, c_last = bw["du_b"], bw["du_s"], bw["onehot"], bw["c_last"]
+    # u-chain transposed, upward: dt = dm_l W_l, dc = dt s_l,
+    # ds_l = dt c_{l+1}, dW_l += dm_l^T t_l
+    for l in range(n):
+        if l == 0:
+            A1, K1, A2, K2 = du_b, Ep, None, 0
+        elif l == tm.skip:
+            A1, K1, A2, K2 = dm[l % 2], Hp, du_s, Ep
+        else:
+            A1, K1, A2, K2 = dm[l % 2], Hp, None, 0
+        if l < n - 1:
+            out = dm[(l + 1) % 2]
+            cs_next = c_last if l + 1 == n - 1 else cs[l + 1]
+            FH.gemm(lib, A1, K1, A2, K2, ws[l], Hp, None, m, EPI_UT, out,
+                    out.stride(0), S=ss[l], DS=ds[l], CS=cs_next,
+                    cs_ld=0 if l + 1 == n - 1 else cs_next.stride(0),
+                    hscale=INV_SQRT2 if l + 1 == tm.skip else 1.0, stream=stream)
+        if want_dw:
+            Y = onehot if l == n - 1 else ts[l]
+            _tn(lib, A1, A1.stride(0), K1, Y, Y.shape[1], m, dws[l], acc, scratch, stream)
+            if A2 is not None:
+                _tn(lib, A2, A2.stride(0), K2, Y, Y.shape[1], m, dws[l][Hp:], acc, scratch,
+                    stream)
+    # forward transposed, downward: dW_l += in_l^T dz_l, db_l = sum dz_l,
+    # din = dz_l W_l^T, dz_{l-1} = da s + ds beta s (1 - s), de at the
+    # skip and layer 0
+    cur = 0
+    for l in range(n - 1, -1, -1):
+        width = ws[l].shape[1]
+        if want_dw:
+            if l == 0:
+                _tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[0], 1, scratch, stream)
+            elif l == tm.skip:
+                a = acts[l - 1]
+                _tn(lib, a, Hp, Hp, dzb[cur], width, m, dws[l], 1, scratch, stream,
+                    x_scale=INV_SQRT2_BF16)
+                _tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, scratch, stream,
+                    x_scale=INV_SQRT2_BF16)
+            else:
+                a = acts[l - 1]
+                _tn(lib, a, Hp, Hp, dzb[cur], width, m, dws[l], 1, scratch, stream)
+            _colsum(lib, dzf[cur], width, m, dbs[l], acc, scratch, stream)
+        wt = wts[l]                            # (out_pad, in_pad)
+        if l > 0:
+            nxt = 1 - cur
+            skip = l == tm.skip
+            FH.gemm(lib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_DZ,
+                    dzb[nxt], dzb[nxt].stride(0), Cf=dzf[nxt], S=ss[l - 1], DS=ds[l - 1],
+                    U=de if skip else None, split=Hp,
+                    hscale=INV_SQRT2 if skip else 1.0, escale=INV_SQRT2, u_acc=0,
+                    stream=stream)
+            cur = nxt
+        else:
+            FH.gemm(lib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_DZ,
+                    None, 0, U=de, split=0, u_acc=1, stream=stream)
+
+
+def _hand_trunk_sdf_u_cuda(e, pack: TrunkPack):
+    lib = _lib()
+    tm = pack.meta
+    dev = e.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    N, E = e.shape
+    out = torch.empty((N, tm.d_out), device=dev, dtype=torch.float32)
+    u = torch.empty((N, E), device=dev, dtype=torch.float32)
+    if N == 0:
+        return out, u
+    C = min(N, CHUNK)
+    buf = trunk_buffers(tm, C, dev, keep=False)
+    eb = torch.empty((C, tm.Ep), device=dev, dtype=torch.bfloat16)
+    us = torch.empty((C, tm.Ep), device=dev, dtype=torch.float32)
+    KERNEL_FWD.launches += 1
+    for s in range(0, N, C):
+        m = min(C, N - s)
+        _build.check(lib.honerf_trunk_pack_e(e[s:].data_ptr(), e.stride(0), m, E, eb.data_ptr(),
+                                             eb.stride(0), tm.Ep, stream), "honerf_trunk_pack_e")
+        cuda_trunk_forward(lib, eb, m, pack.ws, pack.bs, pack.wts, tm, buf, stream, z=out[s:],
+                           u=us)
+        copy_cols(lib, us, m, E, u[s:], stream)
+    return out, u
+
+
+def _hand_trunk_sdf_u_bwd_cuda(e, pack: TrunkPack, dout, du, want_dw: bool):
+    lib = _lib()
+    tm = pack.meta
+    Hp, Ep, Op = tm.Hp, tm.Ep, tm.Op
+    dev = e.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    N, E = e.shape
+    de = torch.empty((N, E), device=dev, dtype=torch.float32)
+    dws = dbs = None
+    if want_dw:
+        dws = tuple(torch.zeros(w.shape, device=dev, dtype=torch.float32) for w in pack.ws)
+        dbs = tuple(torch.zeros(b.shape, device=dev, dtype=torch.float32) for b in pack.bs)
+    C = min(N, BWD_CHUNK)
+    if C:
+        buf = trunk_buffers(tm, C, dev, keep=True)
+        eb = torch.empty((C, Ep), device=dev, dtype=torch.bfloat16)
+        bw = trunk_bwd_buffers(pack.ws, tm, C, dev, max(Hp, Op))
+        scratch = torch.empty((_WS_FLOATS,), device=dev, dtype=torch.float32)
+        KERNEL_BWD.launches += 1
+    for s in range(0, N, C or 1):
+        m = min(C, N - s)
+        _build.check(lib.honerf_trunk_pack_e(e[s:].data_ptr(), e.stride(0), m, E, eb.data_ptr(),
+                                             eb.stride(0), Ep, stream), "honerf_trunk_pack_e")
+        # the forward again, keeping every row; the backward reads neither
+        # the last layer nor u
+        cuda_trunk_forward(lib, eb, m, pack.ws, pack.bs, pack.wts, tm, buf, stream, keep=True)
+        dzf, dzb = bw["dzf"][0], bw["dzb"][0]
+        _build.check(lib.honerf_trunk_bwd_seed(
+            dout[s:].data_ptr(), dout.stride(0), tm.d_out, du[s:].data_ptr(), du.stride(0), E, m,
+            dzf.data_ptr(), dzb.data_ptr(), dzf.stride(0), Op, bw["du_b"].data_ptr(),
+            bw["du_s"].data_ptr(), bw["du_b"].stride(0), Ep, stream), "honerf_trunk_bwd_seed")
+        cuda_trunk_backward(lib, m, eb, pack.ws, pack.wts, tm, buf, bw, dws, dbs, want_dw,
+                            int(s > 0), scratch, stream)
+        copy_cols(lib, bw["de"], m, E, de[s:], stream)
+    return de, dws, dbs
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def _check_trunk(e, pack: TrunkPack, *cts) -> None:
+    """Raise on anything the kernels (or their plain versions) do not take."""
+    tm = pack.meta
+    if e.dim() != 2 or e.shape[1] != tm.emb_width or e.dtype != torch.float32:
+        raise ValueError(f"e must be (N, {tm.emb_width}) float32, got {tuple(e.shape)} {e.dtype}")
+    for t in (e, *cts, *pack.ws, *pack.bs):
+        if t.device != e.device:
+            raise ValueError("all operands must be on one device")
+    if e.device.type == "cuda":
+        if tm.dtype != "bf16" or pack.wts is None:
+            raise ValueError("K5/K6 take a bf16 pack made on the card")
+        if not e.is_contiguous() or not all(t.is_contiguous() for t in cts):
+            raise ValueError("operands must be contiguous")
+    elif e.device.type != "cpu":
+        raise ValueError(f"unsupported device {e.device}")
+
+
+def hand_trunk_sdf_u_fwd(e, pack: TrunkPack):
+    """(N, E) f32 embedding -> (out (N, d_out), u (N, E)) on a TrunkPack.
+    CUDA tensors launch K5 (bf16 trunk only); CPU tensors run the plain
+    version.  No gradient flows through it."""
+    _check_trunk(e, pack)
+    with torch.no_grad():
+        if e.device.type == "cuda":
+            return _hand_trunk_sdf_u_cuda(e, pack)
+        return hand_trunk_sdf_u_plain(e, pack)
+
+
+def hand_trunk_sdf_u_bwd(e, pack: TrunkPack, dout, du, want_dw: bool = True):
+    """The VJP at cotangents dout (N, d_out) and du (N, E): (de (N, E),
+    padded f32 dws, dbs; None, None without want_dw).  CUDA tensors
+    launch K6 (bf16 trunk only); CPU tensors run the plain version."""
+    N, tm = e.shape[0], pack.meta
+    dout, du = dout.float().contiguous(), du.float().contiguous()
+    if tuple(dout.shape) != (N, tm.d_out) or tuple(du.shape) != (N, tm.emb_width):
+        raise ValueError(f"cotangents must be ({N}, {tm.d_out}) and ({N}, {tm.emb_width})")
+    _check_trunk(e, pack, dout, du)
+    with torch.no_grad():
+        if e.device.type == "cuda":
+            return _hand_trunk_sdf_u_bwd_cuda(e, pack, dout, du, want_dw)
+        return hand_trunk_sdf_u_plain_bwd(e, pack, dout, du, want_dw)
+
+
+class _HandTrunkSdfU(torch.autograd.Function):
+    """The trunk + u-chain as one differentiable op: JAX's
+    hand_trunk_sdf_u custom VJP.  The forward packs the weights (no grad)
+    and keeps only e; the backward recomputes the forward.  Nothing
+    differentiates the backward (nor the JAX custom_vjp's)."""
+
+    @staticmethod
+    def forward(ctx, meta, e, *weights):
+        n = meta.n_layers
+        ws, bs = weights[:n], weights[n:]
+        pack = pack_trunk_weights([w.detach() for w in ws], [b.detach() for b in bs], meta)
+        out, u = hand_trunk_sdf_u_fwd(e.detach().contiguous(), pack)
+        ctx.save_for_backward(e)
+        ctx.pack = pack
+        ctx.shapes = [tuple(w.shape) for w in ws]
+        return out, u
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout, du):
+        (e,) = ctx.saved_tensors
+        pack = ctx.pack
+        meta = pack.meta
+        e = e.detach().contiguous()
+        # an output the loss does not reach comes as zeros (autograd
+        # materializes its cotangent)
+        need = ctx.needs_input_grad
+        want_dw = any(need[2:])
+        de, dws, dbs = hand_trunk_sdf_u_bwd(e, pack, dout, du, want_dw)
+        ctx.pack = None
+        head = (None, de if need[1] else None)
+        if not want_dw:
+            return head + (None,) * (2 * meta.n_layers)
+        dws, dbs = unpad_trunk_grads(dws, dbs, meta, ctx.shapes)
+        return head + tuple(g if nd else None for g, nd in zip(dws + dbs, need[2:]))
+
+
+def hand_trunk_sdf_u(e, ws, bs, meta: TrunkMeta):
+    """(N, E) f32 embedding -> (out (N, d_out), u (N, E) = d out[:, 0] /
+    d e), differentiable in e and the unpadded (in, out) weights and
+    biases.  CUDA tensors launch K5 / K6 (bf16 trunk only), CPU tensors
+    run the plain versions."""
+    return _HandTrunkSdfU.apply(meta, e, *ws, *bs)

@@ -26,8 +26,15 @@ Entry points:
     differentiable op (torch.autograd.Function) on the unpadded (in, out)
     weights; it packs them in its forward and recomputes the forward in its
     backward.  Weights that need no gradient launch no dW work.
-  * `hand_fine_color_fwd(pts, rotT, off, cut, pack)`: the forward on a
-    FinePack made once per parameter snapshot (the eval render).
+  * `hand_fine_color_fwd(pts, rotT, off, cut, pack)` and
+    `hand_fine_color_bwd(...)`: the forward and the backward on a FinePack
+    made once per parameter snapshot (the eval render, the tests).
+One flag selects the mode: `FineMeta.with_color` of the meta (and so of
+the pack).  False is JAX's `hand_fine_full`: no color net (cws = cbs =
+()), outputs (out (N, d_out), g (N, 3), e (N, E)), e the embedding rounded
+to the trunk dtype, and cotangents on all three.  The same kernels run
+without their color launches; the cotangents on e and on the features
+enter where the color net's input cotangent entered.
 On CUDA tensors the forward launches csrc/fused_fine_full.cu (K2) and the
 backward csrc/fused_fine_bwd.cu (K3), bf16 trunk only; on CPU tensors
 both run their plain versions (`hand_fine_color_plain`,
@@ -49,7 +56,7 @@ from honerf_torch.models.embedding import CUTOFF_TAU
 from honerf_torch.ops import _build
 from honerf_torch.ops import fused_fine as FT
 from honerf_torch.ops import fused_hand as FH
-from honerf_torch.ops.fused_fine import INV_SQRT2, PAD, _round_up
+from honerf_torch.ops.fused_fine import _WS_FLOATS, PAD, _colsum, _round_up, _tn  # noqa: F401
 
 # points per pass of the CUDA forward: the per-point scratch is ~23 KB
 # (e, sigmoid rows, u, activations), so a chunk holds ~1.5 GB
@@ -67,7 +74,9 @@ KERNEL_BWD = _build.Kernel(
 
 
 class FineMeta(NamedTuple):
-    """Static architecture of the fused fine pass (with the color net)."""
+    """Static architecture of the fused fine pass.  with_color: the color
+    net is part of the op; False: JAX's hand_fine_full, whose c_* fields
+    are not read."""
 
     v_multires: int         # 10
     r_multires: int         # 7
@@ -79,6 +88,7 @@ class FineMeta(NamedTuple):
     c_hidden: int = 256
     c_layers: int = 5       # linear layers of the color net
     grad_L: int = 4         # grad-PE frequencies
+    with_color: bool = True
 
     @property
     def emb_width(self) -> int:
@@ -103,10 +113,15 @@ class FineMeta(NamedTuple):
         return _round_up(8 * self.gpe_blocks, PAD)
 
     @property
+    def color_in(self) -> int:
+        """Kernel width of the color input [e | feat | grad-PE]."""
+        return self.trunk_meta.Ep + self.Fp + self.Gp
+
+    @property
     def color_dims(self) -> Tuple[Tuple[int, int], ...]:
         """(in, out) per color layer, kernel layout, unpadded outputs."""
         dims = []
-        d_in = self.trunk_meta.Ep + self.Fp + self.Gp
+        d_in = self.color_in
         for l in range(self.c_layers):
             d_o = 3 if l == self.c_layers - 1 else self.c_hidden
             dims.append((d_in, d_o))
@@ -131,7 +146,8 @@ class FinePack(NamedTuple):
 class FineGrads(NamedTuple):
     """The backward's outputs in kernel layout: dp (N, 3), drotT (8, 128),
     doff (1, 128), and f32 dW/db of the padded trunk and color layers
-    (None when no weight gradient was asked)."""
+    (None when no weight gradient was asked; dcws / dcbs None without
+    the color net)."""
 
     dp: torch.Tensor
     drotT: torch.Tensor
@@ -189,12 +205,13 @@ def _pad_color_weights(cws, cbs, meta: FineMeta):
 
 def pack_fine_weights(ws, bs, cws, cbs, meta: FineMeta) -> FinePack:
     """(in, out) f32 trunk and color weights (channel-major e columns) ->
-    FinePack for hand_fine_color_fwd."""
+    FinePack for hand_fine_color_fwd / _bwd; without meta.with_color the
+    color weights are not read (pass ())."""
     tm = meta.trunk_meta
     assert 0 < tm.skip < tm.n_layers - 1
     with torch.no_grad():
         wps, bps = FT._pad_weights(ws, bs, tm)
-        cwps, cbps = _pad_color_weights(cws, cbs, meta)
+        cwps, cbps = _pad_color_weights(cws, cbs, meta) if meta.with_color else ((), ())
         on_card = wps[0].device.type == "cuda"
         wts = tuple(w.T.contiguous() for w in wps) if on_card else None
         cwts = tuple(w.T.contiguous() for w in cwps) if on_card else None
@@ -444,16 +461,21 @@ def _emb_fwd_transpose_block(st, de, adj, meta: FineMeta):
 
 
 def _fine_fwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, residuals: bool = False):
-    """One block of the fused forward -> (sdf (B,), g (B, 3), color (B, 3))
-    [, what the backward reads]."""
+    """One block of the fused forward -> (sdf (B,), g (B, 3), color (B, 3)),
+    or without meta.with_color (out (B, d_out), g (B, 3), e (B, E)) [,
+    what the backward reads]."""
     tm = meta.trunk_meta
     E = meta.emb_width
     st = _emb_fwd_block(p, rotT, off, cut, meta)
-    e_pad = FT._rnd(tm, torch.nn.functional.pad(st["e"], (0, tm.Ep - E)))
+    e_pad = FT._e_block(tm, st["e"])
     out, u_pad, ss, ins, ts, cs = FT._kernel_fwd_body(tm, e_pad, pack.ws, pack.bs,
                                                        residuals=True)
     u = u_pad[:, :E]
     g, chain = _emb_rev_block(st, rotT, u, meta)
+    if not meta.with_color:
+        res = (st, u, chain, (ss, ins, ts, cs), None, None)
+        outs = (out[:, :meta.d_out], g, e_pad[:, :E])
+        return outs + (res,) if residuals else outs
     feat = torch.nn.functional.pad(out[:, 1:meta.d_out], (0, meta.Fp - (meta.d_out - 1)))
     x = torch.cat([e_pad, feat, _gpe_block(meta, g)], dim=-1)
     color, zs, acts = _color_fwd_block(meta, x, pack.cws, pack.cbs, residuals=True)
@@ -462,21 +484,28 @@ def _fine_fwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, residuals
     return out[:, 0], g, color
 
 
-def _fine_bwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, dsdf, dg, dcolor,
-                    want_dw: bool):
-    """One block of the backward (forward recomputed) -> (dp (B, 3),
-    drotT (3, 63), doff (63,), dws, dbs, dcws, dcbs)."""
+def _fine_bwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, cts, want_dw: bool):
+    """One block of the backward (forward recomputed) at the cotangents
+    `cts` on the forward's outputs ((dsdf, dg, dcolor), or without
+    meta.with_color (dout, dg, de)) -> (dp (B, 3), drotT (3, 63), doff
+    (63,), dws, dbs, dcws, dcbs)."""
     tm = meta.trunk_meta
     E, Ep, F = meta.emb_width, tm.Ep, meta.d_out - 1
-    _sdf, g, _color, (st, u, chain, trunk_fwd, zs, acts) = _fine_fwd_block(
+    _o, g, _c, (st, u, chain, trunk_fwd, zs, acts) = _fine_fwd_block(
         meta, p, rotT, off, cut, pack, residuals=True)
-    # 0. color transpose -> cotangents on e, the features and the grad-PE
-    dx, dcws, dcbs = _color_bwd_block(meta, zs, acts, pack.cws, dcolor, want_dw)
-    de_ext = dx[:, :E]
-    dg = dg + _gpe_transpose(meta, g, dx[:, Ep + meta.Fp:])
-    dout = dx.new_zeros((p.shape[0], tm.Op))
-    dout[:, 0] = dsdf
-    dout[:, 1:1 + F] = dx[:, Ep:Ep + F]
+    if meta.with_color:
+        dsdf, dg, dcolor = cts
+        # 0. color transpose -> cotangents on e, the features and the grad-PE
+        dx, dcws, dcbs = _color_bwd_block(meta, zs, acts, pack.cws, dcolor, want_dw)
+        de_ext = dx[:, :E]
+        dg = dg + _gpe_transpose(meta, g, dx[:, Ep + meta.Fp:])
+        dout = dx.new_zeros((p.shape[0], tm.Op))
+        dout[:, 0] = dsdf
+        dout[:, 1:1 + F] = dx[:, Ep:Ep + F]
+    else:
+        dout, dg, de_ext = cts
+        dout = torch.nn.functional.pad(dout, (0, tm.Op - meta.d_out))
+        dcws = dcbs = None
     # 1. transpose of the reverse chain at cotangent dg
     du, adj, drotT = _emb_rev_transpose_block(st, chain, rotT, u, dg, meta)
     # 2. trunk backward at (dout, du)
@@ -490,7 +519,8 @@ def _fine_bwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, dsdf, dg,
 
 
 def hand_fine_color_plain(pts, rotT, off, cut, pack: FinePack, block: int = 4096):
-    """The forward kernel's statements in plain PyTorch, in blocks of points."""
+    """The forward kernel's statements in plain PyTorch, in blocks of
+    points (with or without the color net, as the pack's meta says)."""
     outs = [_fine_fwd_block(pack.meta, pts[s:s + block], rotT, off, cut, pack)
             for s in range(0, pts.shape[0], block)]
     return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
@@ -500,55 +530,52 @@ def _zero_pose_grads(pts):
     return (pts.new_zeros((8, FH._LANE)), pts.new_zeros((1, FH._LANE)))
 
 
-def hand_fine_color_plain_bwd(pts, rotT, off, cut, pack: FinePack, dsdf, dg, dcolor,
-                              want_dw: bool = True, block: int = 4096) -> FineGrads:
+def _plain_bwd(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool,
+               block: int) -> FineGrads:
     """The backward kernel's statements in plain PyTorch, in blocks of
-    points; dW/db in f32, summed over the blocks."""
+    points, at the per-point cotangents `cts` (_fine_bwd_block's); dW/db
+    in f32, summed over the blocks."""
     meta = pack.meta
     drotT, doff = _zero_pose_grads(pts)
-    dps = []
-    sums = None
+    dp = pts.new_zeros((pts.shape[0], 3))
+    z = lambda ts: [torch.zeros(t.shape, device=pts.device) for t in ts]  # noqa: E731
+    sums = [z(pack.ws), z(pack.bs), z(pack.cws), z(pack.cbs)] if want_dw else None
     for s in range(0, pts.shape[0], block):
         sl = slice(s, s + block)
-        dp, dr, do, *dwb = _fine_bwd_block(meta, pts[sl], rotT, off, cut, pack, dsdf[sl],
-                                           dg[sl], dcolor[sl], want_dw)
-        dps.append(dp)
+        dp[sl], dr, do, *dwb = _fine_bwd_block(meta, pts[sl], rotT, off, cut, pack,
+                                               [c[sl] for c in cts], want_dw)
         drotT[:3, :63] += dr
         doff[0, :63] += do
         if want_dw:
-            sums = dwb if sums is None else [[a + b for a, b in zip(x, y)]
-                                             for x, y in zip(sums, dwb)]
-    dp = torch.cat(dps, dim=0) if dps else pts.new_zeros((0, 3))
+            for acc, part in zip(sums, dwb):
+                for a, b in zip(acc, part or ()):
+                    a += b
     if not want_dw:
         return FineGrads(dp, drotT, doff, None, None, None, None)
-    if sums is None:  # no points
-        z = lambda ts: [torch.zeros(t.shape, device=pts.device) for t in ts]  # noqa: E731
-        sums = (z(pack.ws), [torch.zeros(b.shape, device=pts.device) for b in pack.bs],
-                z(pack.cws), [torch.zeros(b.shape, device=pts.device) for b in pack.cbs])
+    if not meta.with_color:
+        return FineGrads(dp, drotT, doff, tuple(sums[0]), tuple(sums[1]), None, None)
     return FineGrads(dp, drotT, doff, *[tuple(x) for x in sums])
+
+
+def hand_fine_color_plain_bwd(pts, rotT, off, cut, pack: FinePack, ct0, dg, ct2,
+                              want_dw: bool = True, block: int = 4096) -> FineGrads:
+    """K3's statements in plain PyTorch at the cotangents on the forward's
+    outputs (hand_fine_color_bwd's)."""
+    return _plain_bwd(pts, rotT, off, cut, pack, (ct0, dg, ct2), want_dw, block)
 
 
 # ---------------------------------------------------------------------------
 # CUDA path
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-EPI_UT, EPI_DZ, EPI_MASK = 5, 6, 7
-# dW = X^T dY and column sums run split over the points: enough (tile,
-# split) blocks for ~2 waves of 132 SMs, each partial in f32 scratch,
-# then summed in a fixed order (two runs give the same bits)
-_TN_BLOCKS = 264
-_TN_TILE = 128
-_COLSUM_ROWS = 512
-# the f32 scratch of those partials (floats): ~17 MB at the widest call
-_WS_FLOATS = 8 << 20
+_P, _I = ctypes.c_void_p, ctypes.c_int
+EPI_MASK = 7
 
 
 def _lib():
     lib = FH._lib("fused_fine_full")
     if not getattr(lib, "_honerf_fine_typed", False):
-        lib.honerf_uchain_seed.argtypes = [_P, _I, _P, _I, _I, _P, _I, _P]
-        lib.honerf_uchain_seed.restype = _I
+        FT.type_trunk_lib(lib)
         lib.honerf_fine_rev.argtypes = [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I,
                                         _I, _I, _P, _P]
         lib.honerf_fine_rev.restype = _I
@@ -559,11 +586,7 @@ def _lib():
 def _bwd_lib():
     lib = FH._lib("fused_fine_bwd")
     if not getattr(lib, "_honerf_bwd_typed", False):
-        lib.honerf_gemm_tn.argtypes = [_P, _I, _I, _F, _P, _I, _I, _I, _I, _P, _P, _I, _I,
-                                       _P]
-        lib.honerf_gemm_tn.restype = _I
-        lib.honerf_colsum.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P]
-        lib.honerf_colsum.restype = _I
+        FT.type_trunk_lib(lib)
         lib.honerf_color_dz.argtypes = [_P, _P, _I, _P, _P, _I, _I, _P]
         lib.honerf_color_dz.restype = _I
         lib.honerf_fine_bwd_rev.argtypes = [
@@ -582,150 +605,98 @@ def _bwd_lib():
     return lib
 
 
-def _fwd_chunk(lib, pts, m, rotT, off, cut, pack: FinePack, buf, packed, stream, keep=False):
+def _fwd_chunk(lib, pts, m, rotT, off, cut, pack: FinePack, buf, packed, stream, keep=False,
+               z=None):
     """K2's launches on one chunk of m points: e, the trunk activations
-    and sigmoid rows, the u-chain, [sdf | g] into packed, the color net.
-    keep=True (the backward's recompute) keeps every activation, t row
-    and c row in its own buffer instead of two alternating ones."""
+    and sigmoid rows, the u-chain, [sdf | g] into packed, the color net
+    (without meta.with_color: none, and the trunk's last layer goes to z
+    when given).  keep=True (the backward's recompute) keeps every
+    activation, t row and c row in its own buffer instead of two
+    alternating ones."""
     meta, tm = pack.meta, pack.meta.trunk_meta
-    n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
-    e, ss, z, u, cx2 = buf["e"], buf["ss"], buf["z"], buf["u"], buf["cx2"]
-    acts, ts, cacts = buf["acts"], buf["ts"], buf["cacts"]
-    cs = buf.get("cs")
-    gemm = FH.gemm
+    e, u, cx2 = buf["e"], buf["u"], buf.get("cx2")
+    z = buf["z"] if z is None else z
     FH.embed(lib, pts, m, rotT, off, cut, meta.v_multires, meta.r_multires, e, stream)
-    # trunk forward: a_{l+1} = softplus(z_l), ss[l] = sigmoid(beta z_l)
-    a = None
-    for l in range(n):
-        if l == 0:
-            A1, K1, A2, K2, scale = e, Ep, None, 0, 0.0
-        elif l == tm.skip:
-            A1, K1, A2, K2, scale = a, Hp, e, Ep, FT.INV_SQRT2_BF16
-        else:
-            A1, K1, A2, K2, scale = a, Hp, None, 0, 0.0
-        w = pack.ws[l]
-        if l < n - 1:
-            nxt = acts[l] if keep else acts[l % 2]
-            gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.bs[l], m, FH.EPI_SOFTPLUS,
-                 nxt, nxt.stride(0), a_scale=scale, S=ss[l], stream=stream)
-            a = nxt
-        else:
-            gemm(lib, A1, K1, A2, K2, w, Op, pack.bs[l], m, FH.EPI_F32, z, Op,
-                 n_store=Op, a_scale=scale, stream=stream)
-    # u-chain: t_{n-2} = W_{n-1}[:, 0] * s_{n-2}, then m_l = t_l W_l^T
-    t = ts[n - 2] if keep else ts[0]
-    _build.check(lib.honerf_uchain_seed(
-        pack.ws[n - 1].data_ptr(), pack.ws[n - 1].stride(0), ss[n - 2].data_ptr(),
-        Hp, m, t.data_ptr(), t.stride(0), stream), "honerf_uchain_seed")
-    for l in range(n - 2, -1, -1):
-        wt = pack.wts[l]                       # (out_pad, in_pad) = (Hp, in_pad)
-        if l == 0:
-            gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, None, 0,
-                 U=u, split=0, u_acc=1, stream=stream)
-            break
-        nxt = ts[l - 1] if keep else (ts[1] if t is ts[0] else ts[0])
-        c_keep = cs[l] if keep else None
-        if l == tm.skip:
-            gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, nxt,
-                 nxt.stride(0), S=ss[l - 1], U=u, split=Hp, hscale=INV_SQRT2,
-                 escale=INV_SQRT2, Cf=c_keep, stream=stream)
-        else:
-            gemm(lib, t, Hp, None, 0, wt, wt.shape[1], None, m, FH.EPI_UCHAIN, nxt,
-                 nxt.stride(0), S=ss[l - 1], split=wt.shape[1], Cf=c_keep, stream=stream)
-        t = nxt
+    FT.cuda_trunk_forward(lib, e, m, pack.ws, pack.bs, pack.wts, tm, buf, stream, keep=keep,
+                          z=z, u=u)
     # reverse chain -> [sdf | g] into packed, [feat | grad-PE] into cx2
     _build.check(lib.honerf_fine_rev(
         pts.data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
         meta.v_multires, meta.r_multires, u.data_ptr(), u.stride(0),
-        z.data_ptr(), z.stride(0), meta.d_out - 1, cx2.data_ptr(), cx2.stride(0),
+        z.data_ptr(), z.stride(0), meta.d_out - 1, FH._ptr(cx2), FH._ld(cx2),
         meta.Fp, meta.grad_L, packed.data_ptr(), stream), "honerf_fine_rev")
+    if not meta.with_color:
+        return
     # color net on [e | feat | grad-PE]
     cHp = pack.cws[0].shape[1]
     a = None
     for l in range(meta.c_layers):
         w = pack.cws[l]
-        A1, K1, A2, K2 = (e, Ep, cx2, cx2.shape[1]) if l == 0 else (a, cHp, None, 0)
+        A1, K1, A2, K2 = (e, tm.Ep, cx2, cx2.shape[1]) if l == 0 else (a, cHp, None, 0)
         if l < meta.c_layers - 1:
-            nxt = cacts[l] if keep else cacts[l % 2]
-            gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.cbs[l], m, FH.EPI_RELU,
-                 nxt, nxt.stride(0), stream=stream)
+            nxt = buf["cacts"][l] if keep else buf["cacts"][l % 2]
+            FH.gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.cbs[l], m, FH.EPI_RELU,
+                    nxt, nxt.stride(0), stream=stream)
             a = nxt
         else:
-            gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.cbs[l], m, FH.EPI_SIGMOID,
-                 packed[:, 4:], 8, n_store=3, stream=stream)
+            FH.gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.cbs[l], m, FH.EPI_SIGMOID,
+                    packed[:, 4:], 8, n_store=3, stream=stream)
 
 
 def _fwd_buffers(pack: FinePack, C: int, dev, keep: bool):
     meta, tm = pack.meta, pack.meta.trunk_meta
-    n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
     bf16, f32 = torch.bfloat16, torch.float32
-    cHp = pack.cws[0].shape[1]
-    n_act = n - 1 if keep else 2
-    buf = dict(
-        e=torch.empty((C, Ep), device=dev, dtype=bf16),
-        acts=[torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(n_act)],
-        ts=[torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(n_act)],
-        ss=torch.empty((n - 1, C, Hp), device=dev, dtype=f32),
-        z=torch.empty((C, Op), device=dev, dtype=f32),
-        u=torch.empty((C, Ep), device=dev, dtype=f32),
-        cx2=torch.empty((C, meta.Fp + meta.Gp), device=dev, dtype=bf16),
-        cacts=[torch.empty((C, cHp), device=dev, dtype=bf16)
-               for _ in range(meta.c_layers - 1 if keep else 2)],
-    )
-    if keep:
-        # cs[l] = c_l of the u-chain for l = 1..n-2; c_{n-1} = W_{n-1}[:, 0]
-        # is the same row for every point (a stride-0 operand)
-        buf["cs"] = [None] + [torch.empty((C, Hp), device=dev, dtype=f32)
-                              for _ in range(n - 2)]
+    buf = FT.trunk_buffers(tm, C, dev, keep)
+    buf.update(e=torch.empty((C, tm.Ep), device=dev, dtype=bf16),
+               z=torch.empty((C, tm.Op), device=dev, dtype=f32),
+               u=torch.empty((C, tm.Ep), device=dev, dtype=f32))
+    if meta.with_color:
+        cHp = pack.cws[0].shape[1]
+        buf.update(cx2=torch.empty((C, meta.Fp + meta.Gp), device=dev, dtype=bf16),
+                   cacts=[torch.empty((C, cHp), device=dev, dtype=bf16)
+                          for _ in range(meta.c_layers - 1 if keep else 2)])
     return buf
 
 
-def _hand_fine_color_cuda(pts, rotT, off, cut, pack: FinePack):
+def _hand_fine_cuda(pts, rotT, off, cut, pack: FinePack):
+    """K2: (sdf, g, color), or without meta.with_color (out, g, e)."""
+    meta = pack.meta
     lib = _lib()
     dev = pts.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     N = pts.shape[0]
     packed = torch.empty((N, 8), device=dev, dtype=torch.float32)
-    if N == 0:
-        return packed[:, 0], packed[:, 1:4], packed[:, 4:7]
-    C = min(N, CHUNK)
-    buf = _fwd_buffers(pack, C, dev, keep=False)
-    KERNEL.launches += 1
-    for s in range(0, N, C):
-        _fwd_chunk(lib, pts[s:], min(C, N - s), rotT, off, cut, pack, buf, packed[s:], stream)
+    if not meta.with_color:
+        out = torch.empty((N, meta.d_out), device=dev, dtype=torch.float32)
+        e_out = torch.empty((N, meta.emb_width), device=dev, dtype=torch.float32)
+    if N:
+        C = min(N, CHUNK)
+        buf = _fwd_buffers(pack, C, dev, keep=False)
+        KERNEL.launches += 1
+    for s in range(0, N, C if N else 1):
+        m = min(C, N - s)
+        if meta.with_color:
+            _fwd_chunk(lib, pts[s:], m, rotT, off, cut, pack, buf, packed[s:], stream)
+        else:
+            _fwd_chunk(lib, pts[s:], m, rotT, off, cut, pack, buf, packed[s:], stream,
+                       z=out[s:])
+            FT.copy_cols(lib, buf["e"], m, meta.emb_width, e_out[s:], stream)
+    if not meta.with_color:
+        return out, packed[:, 1:4], e_out
     return packed[:, 0], packed[:, 1:4], packed[:, 4:7]
 
 
-def _tn(blib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
-    """out[:K, :N] (+)= X[:m, :K]^T Y[:m, :N] in f32, split over points."""
-    tiles = -(-K // _TN_TILE) * -(-N // _TN_TILE)
-    splits = max(1, min(-(-_TN_BLOCKS // tiles), -(-m // 256)))
-    split = _round_up(-(-m // splits), 32)
-    splits = -(-m // split)
-    need = splits * _round_up(K, _TN_TILE) * _round_up(N, _TN_TILE)
-    if need > ws.numel():
-        raise ValueError(f"dW scratch too small: {need} > {ws.numel()} floats")
-    _build.check(blib.honerf_gemm_tn(
-        X.data_ptr(), ldx, K, x_scale, Y.data_ptr(), Y.stride(0), N, m, split,
-        ws.data_ptr(), out.data_ptr(), out.stride(0), acc, stream), "honerf_gemm_tn")
-
-
-def _colsum(blib, Z, N, m, out, acc, ws, stream):
-    """out[:N] (+)= sum over the m rows of Z[:, :N] (f32, fixed order)."""
-    _build.check(blib.honerf_colsum(Z.data_ptr(), Z.stride(0), N, m, _COLSUM_ROWS,
-                                    ws.data_ptr(), out.data_ptr(), acc, stream),
-                 "honerf_colsum")
-
-
-def _hand_fine_color_bwd_cuda(pts, rotT, off, cut, pack: FinePack, dsdf, dg, dcolor,
-                              want_dw: bool) -> FineGrads:
+def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool) -> FineGrads:
+    """K3 at the cotangents `cts`: (dsdf, dg, dcolor), or without
+    meta.with_color (dout, dg, de)."""
     meta, tm = pack.meta, pack.meta.trunk_meta
     n, Hp, Ep, Op, E = tm.n_layers, tm.Hp, tm.Ep, tm.Op, tm.emb_width
     cn, F = meta.c_layers, meta.d_out - 1
+    color = meta.with_color
     lib, blib = _lib(), _bwd_lib()
     dev = pts.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    bf16, f32 = torch.bfloat16, torch.float32
+    f32 = torch.float32
     N = pts.shape[0]
     dp = torch.empty((N, 3), device=dev, dtype=f32)
     pose = torch.zeros((256,), device=dev, dtype=f32)
@@ -733,138 +704,104 @@ def _hand_fine_color_bwd_cuda(pts, rotT, off, cut, pack: FinePack, dsdf, dg, dco
     dbs = tuple(torch.zeros(b.shape, device=dev, dtype=f32) for b in pack.bs)
     dcws = tuple(torch.zeros(w.shape, device=dev, dtype=f32) for w in pack.cws)
     dcbs = tuple(torch.zeros(b.shape, device=dev, dtype=f32) for b in pack.cbs)
+    dg = cts[1]
     C = min(N, BWD_CHUNK)
     if C:
         buf = _fwd_buffers(pack, C, dev, keep=True)
         packed = torch.empty((C, 8), device=dev, dtype=f32)
-        cHp = pack.cws[0].shape[1]
-        CX = pack.cws[0].shape[0]
-        W = max(cHp, Hp, Op)
-        dzf = [torch.empty((C, W), device=dev, dtype=f32) for _ in range(2)]
-        dzb = [torch.empty((C, W), device=dev, dtype=bf16) for _ in range(2)]
-        dx = torch.empty((C, CX), device=dev, dtype=f32)
-        du_b = torch.empty((C, Ep), device=dev, dtype=bf16)
-        du_s = torch.empty((C, Ep), device=dev, dtype=bf16)
+        width = max(pack.cws[0].shape[1], Hp, Op) if color else max(Hp, Op)
+        bw = FT.trunk_bwd_buffers(pack.ws, tm, C, dev, width)
+        dzf, dzb = bw["dzf"], bw["dzb"]
         dgt = torch.empty((C, 4), device=dev, dtype=f32)
-        dm = [torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(2)]
-        ds = torch.empty((n - 1, C, Hp), device=dev, dtype=f32)
-        de = torch.empty((C, Ep), device=dev, dtype=f32)
         pose_rows = torch.empty((C, 256), device=dev, dtype=f32)
-        onehot = torch.zeros((C, Op), device=dev, dtype=bf16)
-        onehot[:, 0] = 1.0
-        c_last = pack.ws[n - 1][:, 0].float().contiguous()   # c_{n-1}, every point
-        ws = torch.empty((_WS_FLOATS,), device=dev, dtype=f32)
+        ws = torch.empty((FT._WS_FLOATS,), device=dev, dtype=f32)
+        if color:
+            dx = torch.empty((C, meta.color_in), device=dev, dtype=f32)
+        else:
+            # the color input's cotangent rows, [de | 0 | dfeat | 0 | 0]: only
+            # the e and feature columns are written per chunk
+            dx = torch.zeros((C, meta.color_in), device=dev, dtype=f32)
+            dsdf_c = torch.empty((C, 1), device=dev, dtype=f32)
         KERNEL_BWD.launches += 1
     for s in range(0, N, C or 1):
         m = min(C, N - s)
         acc = int(s > 0)
         _fwd_chunk(lib, pts[s:], m, rotT, off, cut, pack, buf, packed, stream, keep=True)
-        e, acts, ts, cs, ss, cx2 = (buf[k] for k in ("e", "acts", "ts", "cs", "ss", "cx2"))
-        # color backward: dz = s(1 - s) dcolor, then per layer, top down,
-        # dcW = a^T dz, dcb = sum dz, da = dz cW^T masked by the relu
-        _build.check(blib.honerf_color_dz(packed.data_ptr(), dcolor[s:].data_ptr(), m,
-                                          dzf[0].data_ptr(), dzb[0].data_ptr(),
-                                          dzf[0].stride(0), pack.cws[-1].shape[1], stream),
-                     "honerf_color_dz")
-        cur = 0
-        for l in range(cn - 1, -1, -1):
-            width = pack.cws[l].shape[1]
-            if want_dw:
-                if l == 0:
-                    _tn(blib, e, Ep, Ep, dzb[cur], width, m, dcws[0], acc, ws, stream)
-                    _tn(blib, cx2, cx2.stride(0), cx2.shape[1], dzb[cur], width, m,
-                        dcws[0][Ep:], acc, ws, stream)
-                else:
-                    a = buf["cacts"][l - 1]
-                    _tn(blib, a, a.stride(0), a.shape[1], dzb[cur], width, m, dcws[l], acc,
-                        ws, stream)
-                _colsum(blib, dzf[cur], width, m, dcbs[l], acc, ws, stream)
-            wt = pack.cwts[l]                   # (out_pad, in_pad)
-            if l > 0:
-                nxt = 1 - cur
-                FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_MASK,
-                        dzb[nxt], dzb[nxt].stride(0), Cf=dzf[nxt],
-                        Act=buf["cacts"][l - 1], stream=stream)
-                cur = nxt
-            else:
-                FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, FH.EPI_F32,
-                        dx, dx.stride(0), n_store=CX, stream=stream)
+        e = buf["e"]
+        if color:
+            dsdf = cts[0][s:]
+            _color_bwd_cuda(blib, m, pack, buf, packed, cts[2][s:], dzf, dzb, dx, dcws, dcbs,
+                            want_dw, acc, ws, stream)
+        else:
+            # the cotangents on e and on the features where the color net's
+            # input cotangent goes, dsdf beside them
+            dout, de_ext = cts[0][s:], cts[2][s:]
+            FT.copy_cols(blib, de_ext, m, E, dx, stream)
+            FT.copy_cols(blib, dout[:, 1:], m, F, dx[:, Ep:], stream)
+            FT.copy_cols(blib, dout, m, 1, dsdf_c, stream)
+            dsdf = dsdf_c
         # reverse-chain transpose at dg (+ the grad-PE term) -> du, and the
         # trunk's top cotangent [dsdf | dfeat]
         _build.check(blib.honerf_fine_bwd_rev(
             pts[s:].data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
-            meta.v_multires, meta.r_multires, packed.data_ptr(), dsdf[s:].data_ptr(),
+            meta.v_multires, meta.r_multires, packed.data_ptr(), dsdf.data_ptr(),
             dg[s:].data_ptr(), dx.data_ptr(), dx.stride(0), Ep, F, meta.Fp, meta.grad_L,
-            du_b.data_ptr(), du_s.data_ptr(), du_b.stride(0), dgt.data_ptr(),
+            bw["du_b"].data_ptr(), bw["du_s"].data_ptr(), bw["du_b"].stride(0), dgt.data_ptr(),
             dzf[0].data_ptr(), dzb[0].data_ptr(), dzf[0].stride(0), Op, stream),
             "honerf_fine_bwd_rev")
-        # u-chain transposed, upward: dt = dm_l W_l, dc = dt s_l,
-        # ds_l = dt c_{l+1}, dW_l += dm_l^T t_l
-        for l in range(n):
-            if l == 0:
-                A1, K1, A2, K2 = du_b, Ep, None, 0
-            elif l == tm.skip:
-                A1, K1, A2, K2 = dm[l % 2], Hp, du_s, Ep
-            else:
-                A1, K1, A2, K2 = dm[l % 2], Hp, None, 0
-            if l < n - 1:
-                out = dm[(l + 1) % 2]
-                cs_next = c_last if l + 1 == n - 1 else cs[l + 1]
-                FH.gemm(blib, A1, K1, A2, K2, pack.ws[l], Hp, None, m, EPI_UT, out,
-                        out.stride(0), S=ss[l], DS=ds[l], CS=cs_next,
-                        cs_ld=0 if l + 1 == n - 1 else cs_next.stride(0),
-                        hscale=INV_SQRT2 if l + 1 == tm.skip else 1.0, stream=stream)
-            if want_dw:
-                Y = onehot if l == n - 1 else ts[l]
-                _tn(blib, A1, A1.stride(0), K1, Y, Y.shape[1], m, dws[l], acc, ws, stream)
-                if A2 is not None:
-                    _tn(blib, A2, A2.stride(0), K2, Y, Y.shape[1], m, dws[l][Hp:], acc, ws,
-                        stream)
-        # forward transposed, downward: dW_l += in_l^T dz_l, db_l = sum dz_l,
-        # din = dz_l W_l^T, dz_{l-1} = da s + ds beta s (1 - s), de at the
-        # skip and layer 0
-        cur = 0
-        for l in range(n - 1, -1, -1):
-            width = pack.ws[l].shape[1]
-            if want_dw:
-                if l == 0:
-                    _tn(blib, e, Ep, Ep, dzb[cur], width, m, dws[0], 1, ws, stream)
-                elif l == tm.skip:
-                    a = acts[l - 1]
-                    _tn(blib, a, Hp, Hp, dzb[cur], width, m, dws[l], 1, ws, stream,
-                        x_scale=FT.INV_SQRT2_BF16)
-                    _tn(blib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, ws, stream,
-                        x_scale=FT.INV_SQRT2_BF16)
-                else:
-                    a = acts[l - 1]
-                    _tn(blib, a, Hp, Hp, dzb[cur], width, m, dws[l], 1, ws, stream)
-                _colsum(blib, dzf[cur], width, m, dbs[l], acc, ws, stream)
-            wt = pack.wts[l]                    # (out_pad, in_pad)
-            if l > 0:
-                nxt = 1 - cur
-                skip = l == tm.skip
-                FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_DZ,
-                        dzb[nxt], dzb[nxt].stride(0), Cf=dzf[nxt], S=ss[l - 1], DS=ds[l - 1],
-                        U=de if skip else None, split=Hp,
-                        hscale=INV_SQRT2 if skip else 1.0, escale=INV_SQRT2, u_acc=0,
-                        stream=stream)
-                cur = nxt
-            else:
-                FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_DZ,
-                        None, 0, U=de, split=0, u_acc=1, stream=stream)
+        FT.cuda_trunk_backward(blib, m, e, pack.ws, pack.wts, tm, buf, bw, dws, dbs, want_dw,
+                               acc, ws, stream)
         # embedding-forward transpose -> dp and the per-point pose rows
         _build.check(blib.honerf_fine_bwd_emb(
             pts[s:].data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
             meta.v_multires, meta.r_multires, buf["u"].data_ptr(), buf["u"].stride(0),
-            dgt.data_ptr(), de.data_ptr(), de.stride(0), dx.data_ptr(), dx.stride(0),
+            dgt.data_ptr(), bw["de"].data_ptr(), bw["de"].stride(0), dx.data_ptr(), dx.stride(0),
             dp[s:].data_ptr(), pose_rows.data_ptr(), stream), "honerf_fine_bwd_emb")
-        _colsum(blib, pose_rows, 256, m, pose, acc, ws, stream)
+        FT._colsum(blib, pose_rows, 256, m, pose, acc, ws, stream)
     drotT, doff = _zero_pose_grads(pts)
     drotT[:3, :63] = pose[:192].reshape(3, 64)[:, :63]
     doff[0, :63] = pose[192:255]
     if not want_dw:
         return FineGrads(dp, drotT, doff, None, None, None, None)
+    if not color:
+        return FineGrads(dp, drotT, doff, dws, dbs, None, None)
     return FineGrads(dp, drotT, doff, dws, dbs, dcws, dcbs)
+
+
+def _color_bwd_cuda(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, dcws, dcbs,
+                    want_dw, acc, ws, stream):
+    """K3's color launches: dz = s (1 - s) dcolor, then per layer, top
+    down, dcW = a^T dz, dcb = sum dz, da = dz cW^T masked by the relu;
+    the color input's cotangent into dx."""
+    meta, Ep = pack.meta, pack.meta.trunk_meta.Ep
+    e, cx2 = buf["e"], buf["cx2"]
+    _build.check(blib.honerf_color_dz(packed.data_ptr(), dcolor.data_ptr(), m,
+                                      dzf[0].data_ptr(), dzb[0].data_ptr(),
+                                      dzf[0].stride(0), pack.cws[-1].shape[1], stream),
+                 "honerf_color_dz")
+    cur = 0
+    for l in range(meta.c_layers - 1, -1, -1):
+        width = pack.cws[l].shape[1]
+        if want_dw:
+            if l == 0:
+                _tn(blib, e, Ep, Ep, dzb[cur], width, m, dcws[0], acc, ws, stream)
+                _tn(blib, cx2, cx2.stride(0), cx2.shape[1], dzb[cur], width, m,
+                    dcws[0][Ep:], acc, ws, stream)
+            else:
+                a = buf["cacts"][l - 1]
+                _tn(blib, a, a.stride(0), a.shape[1], dzb[cur], width, m, dcws[l], acc,
+                    ws, stream)
+            _colsum(blib, dzf[cur], width, m, dcbs[l], acc, ws, stream)
+        wt = pack.cwts[l]                   # (out_pad, in_pad)
+        if l > 0:
+            nxt = 1 - cur
+            FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_MASK,
+                    dzb[nxt], dzb[nxt].stride(0), Cf=dzf[nxt],
+                    Act=buf["cacts"][l - 1], stream=stream)
+            cur = nxt
+        else:
+            FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, FH.EPI_F32,
+                    dx, dx.stride(0), n_store=dx.shape[1], stream=stream)
 
 
 # ---------------------------------------------------------------------------
@@ -877,30 +814,37 @@ def _check_cuda_pack(pack: FinePack):
 
 
 def hand_fine_color_fwd(pts, rotT, off, cut, pack: FinePack):
-    """(N, 3) points -> (sdf (N,), g (N, 3), color (N, 3)) on a FinePack.
-    CUDA tensors launch the forward kernel (bf16 trunk only); CPU tensors
-    run the plain version.  No gradient flows through it."""
+    """(N, 3) points -> (sdf (N,), g (N, 3), color (N, 3)), or without
+    pack.meta.with_color (out (N, d_out), g (N, 3), e (N, E)), on a
+    FinePack.  CUDA tensors launch the forward kernel (bf16 trunk only);
+    CPU tensors run the plain version.  No gradient flows through it."""
     FH.check_operands(pts, rotT, off, cut, (), pack.bs + pack.cbs)
     with torch.no_grad():
         if pts.device.type == "cuda":
             _check_cuda_pack(pack)
             FH.check_operands(pts, rotT, off, cut, pack.ws + pack.cws + pack.wts,
                               pack.bs + pack.cbs)
-            return _hand_fine_color_cuda(pts, rotT, off, cut, pack)
+            return _hand_fine_cuda(pts, rotT, off, cut, pack)
         if pts.device.type != "cpu":
             raise ValueError(f"unsupported device {pts.device}")
         return hand_fine_color_plain(pts, rotT, off, cut, pack)
 
 
-def hand_fine_color_bwd(pts, rotT, off, cut, pack: FinePack, dsdf, dg, dcolor,
+def hand_fine_color_bwd(pts, rotT, off, cut, pack: FinePack, ct0, dg, ct2,
                         want_dw: bool = True) -> FineGrads:
-    """The backward at cotangents dsdf (N,), dg (N, 3), dcolor (N, 3), in
-    kernel layout.  CUDA tensors launch the backward kernel (bf16 trunk
-    only); CPU tensors run the plain version."""
+    """The backward at the cotangents on the forward's outputs, in kernel
+    layout: (ct0, dg, ct2) = (dsdf (N,), dg (N, 3), dcolor (N, 3)), or
+    without pack.meta.with_color (dout (N, d_out), dg (N, 3), de (N, E)),
+    dcws / dcbs then None.  CUDA tensors launch the backward kernel (bf16
+    trunk only); CPU tensors run the plain version."""
+    N, meta = pts.shape[0], pack.meta
+    if meta.with_color:
+        cts, shapes = (ct0.reshape(N), dg, ct2), ((N,), (N, 3), (N, 3))
+    else:
+        cts, shapes = (ct0, dg, ct2), ((N, meta.d_out), (N, 3), (N, meta.emb_width))
     FH.check_operands(pts, rotT, off, cut, (), pack.bs + pack.cbs)
-    N = pts.shape[0]
-    cts = [t.float().contiguous() for t in (dsdf.reshape(N), dg, dcolor)]
-    for t, shape in zip(cts, ((N,), (N, 3), (N, 3))):
+    cts = [t.float().contiguous() for t in cts]
+    for t, shape in zip(cts, shapes):
         if tuple(t.shape) != shape or t.device != pts.device:
             raise ValueError(f"cotangent must be {shape} on {pts.device}")
     with torch.no_grad():
@@ -908,7 +852,7 @@ def hand_fine_color_bwd(pts, rotT, off, cut, pack: FinePack, dsdf, dg, dcolor,
             _check_cuda_pack(pack)
             FH.check_operands(pts, rotT, off, cut,
                               pack.ws + pack.cws + pack.wts + pack.cwts, pack.bs + pack.cbs)
-            return _hand_fine_color_bwd_cuda(pts, rotT, off, cut, pack, *cts, want_dw)
+            return _hand_fine_bwd_cuda(pts, rotT, off, cut, pack, cts, want_dw)
         if pts.device.type != "cpu":
             raise ValueError(f"unsupported device {pts.device}")
         return hand_fine_color_plain_bwd(pts, rotT, off, cut, pack, *cts, want_dw)
@@ -918,14 +862,9 @@ def _unpad_grads(grads: FineGrads, meta: FineMeta, w_shapes, cw_shapes):
     """Kernel-layout dW/db -> gradients of the unpadded (in, out) inputs:
     the skip layer's [Hp | Ep] rows joined, color layer 0's rows scattered
     back to the reference rows."""
-    tm = meta.trunk_meta
-    H, E, Hp = tm.d_hidden, tm.emb_width, tm.Hp
-    dws, dbs = [], []
-    for l, (dw, db, (d_in, d_out)) in enumerate(zip(grads.dws, grads.dbs, w_shapes)):
-        if l == tm.skip:
-            dw = torch.cat([dw[:H], dw[Hp:Hp + E]], dim=0)
-        dws.append(dw[:d_in, :d_out])
-        dbs.append(db[:d_out])
+    dws, dbs = FT.unpad_trunk_grads(grads.dws, grads.dbs, meta.trunk_meta, w_shapes)
+    if grads.dcws is None:
+        return dws, dbs, [], []
     rows = torch.as_tensor(color_row_map(meta), device=grads.dp.device)
     live = rows >= 0
     dcws, dcbs = [], []
@@ -939,38 +878,39 @@ def _unpad_grads(grads: FineGrads, meta: FineMeta, w_shapes, cw_shapes):
     return dws, dbs, dcws, dcbs
 
 
-class _HandFineColor(torch.autograd.Function):
+class _HandFine(torch.autograd.Function):
     """The fine pass as one differentiable op: JAX's hand_fine_color
-    custom VJP.  The forward packs the weights (no grad) and keeps no
-    activations; the backward recomputes the forward."""
+    (meta.with_color) or hand_fine_full (not) custom VJP.  The
+    forward packs the weights (no grad) and keeps no activations; the
+    backward recomputes the forward."""
 
     @staticmethod
     def forward(ctx, meta, pts, rotT, off, cut, *weights):
-        n, cn = meta.n_layers, meta.c_layers
+        n = meta.n_layers
+        cn = meta.c_layers if meta.with_color else 0
         ws, bs = weights[:n], weights[n:2 * n]
         cws, cbs = weights[2 * n:2 * n + cn], weights[2 * n + cn:]
         pack = pack_fine_weights([w.detach() for w in ws], [b.detach() for b in bs],
                                  [w.detach() for w in cws], [b.detach() for b in cbs], meta)
-        sdf, g, color = hand_fine_color_fwd(pts.detach(), rotT.detach(), off.detach(), cut,
-                                            pack)
+        outs = hand_fine_color_fwd(pts.detach(), rotT.detach(), off.detach(), cut, pack)
         ctx.save_for_backward(pts, rotT, off, cut)
         ctx.pack = pack
         ctx.shapes = ([tuple(w.shape) for w in ws], [tuple(w.shape) for w in cws])
-        return sdf, g, color
+        return outs
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, dsdf, dg, dcolor):
+    def backward(ctx, *cts):
         pts, rotT, off, cut = ctx.saved_tensors
         pack = ctx.pack
         meta = pack.meta
-        want_dw = any(ctx.needs_input_grad[5:])
-        grads = hand_fine_color_bwd(pts, rotT, off, cut, pack, dsdf, dg, dcolor, want_dw)
-        ctx.pack = None
         need = ctx.needs_input_grad
+        want_dw = any(need[5:])
+        grads = hand_fine_color_bwd(pts, rotT, off, cut, pack, *cts, want_dw)
+        ctx.pack = None
         head = (None, grads.dp if need[1] else None, grads.drotT if need[2] else None,
                 grads.doff if need[3] else None, None)
-        n_w = 2 * (meta.n_layers + meta.c_layers)
+        n_w = len(need) - 5
         if not want_dw:
             return head + (None,) * n_w
         dws, dbs, dcws, dcbs = _unpad_grads(grads, meta, *ctx.shapes)
@@ -981,6 +921,9 @@ class _HandFineColor(torch.autograd.Function):
 def hand_fine_color(pts, rotT, off, cut, ws, bs, cws, cbs, meta: FineMeta):
     """(N, 3) points -> (sdf (N,), g (N, 3), color (N, 3)), differentiable
     in pts, rotT, off and the (in, out) trunk and color weights and biases
-    (color layer 0 in the reference row order).  CUDA tensors launch the
-    kernels (bf16 trunk only), CPU tensors run the plain versions."""
-    return _HandFineColor.apply(meta, pts, rotT, off, cut, *ws, *bs, *cws, *cbs)
+    (color layer 0 in the reference row order).  Without meta.with_color
+    it is JAX's hand_fine_full: cws = cbs = (), and it returns (out (N,
+    d_out), g (N, 3), e (N, E)), e the embedding rounded to the trunk
+    dtype.  CUDA tensors launch the kernels (bf16 trunk only), CPU tensors
+    run the plain versions."""
+    return _HandFine.apply(meta, pts, rotT, off, cut, *ws, *bs, *cws, *cbs)

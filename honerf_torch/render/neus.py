@@ -11,10 +11,19 @@ make_hand_field, the pose-conditioned hand.
 
 Kernel dispatch (make_hand_field): the packs of pack_hand_field choose
 the path.  A ladder pack serves the up-sample ladder from ops.fused_hand;
-the fine pass comes from ops.fused_fine_full, forward-only on a fine pack
-made once per parameter snapshot (eval), or as the differentiable op
-(`fine_grad`, training).  Each launches its CUDA kernels on a CUDA tensor
-and runs its plain version on a CPU tensor.
+the fine pass runs in one of the modes of `train.fused_fine`:
+  'full'          ops.fused_fine_full.hand_fine_color (K2 / K3 with the
+                  color net);
+  'full_nocolor'  the same op with FineMeta.with_color False (JAX's
+                  hand_fine_full: K2 / K3 without the color net), then
+                  the color net in torch;
+  'pallas'        ops.fused_fine.hand_trunk_sdf_u (K5 / K6) on the
+                  embedding, then the color net in torch;
+  None            the autograd field.
+Each kernel mode runs forward-only on weights packed once per parameter
+snapshot (eval), or as a differentiable op that packs on each call
+(training).  Each launches its CUDA kernels on a CUDA tensor and runs its
+plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -30,8 +39,12 @@ from honerf_torch.models.fields import (
     color_obj_apply,
     hand_fine_color_apply,
     pack_fine_color,
+    pack_fine_nocolor,
+    pack_trunk_sdf,
     sdf_hand_apply,
     sdf_hand_value_feat_grad,
+    sdf_hand_value_feat_grad_full,
+    sdf_hand_value_feat_grad_fused,
     sdf_obj_apply,
     sdf_obj_value_feat_grad,
     variance_apply,
@@ -89,31 +102,40 @@ def rays_to_object_frame(rays_o: torch.Tensor, rays_d: torch.Tensor, Ro: torch.T
     return (rays_o - To) @ Ro, rays_d @ Ro
 
 
+#: the fine pass's kernel modes (module docstring)
+FINE_MODES = ("full", "full_nocolor", "pallas")
+
+
 class HandPacks(NamedTuple):
-    """The kernels' weights of one parameter snapshot; None selects the
-    exact path.  ladder: ops.fused_hand.FusedHandSDF; fine:
-    ops.fused_fine_full.FinePack (forward only); fine_grad: the fine pass
-    is the differentiable op, which packs the weights on each call."""
+    """The kernels' weights of one parameter snapshot.  ladder:
+    ops.fused_hand.FusedHandSDF, None for the exact ladder; fine: the fine
+    pass's mode (FINE_MODES), None for the autograd field; fine_pack: its
+    weights packed for the forward only, None for the differentiable op,
+    which packs them on each call."""
 
     ladder: Optional[Any] = None
-    fine: Optional[Any] = None
-    fine_grad: bool = False
+    fine: Optional[str] = None
+    fine_pack: Optional[Any] = None
 
 
 def pack_hand_field(params: Dict[str, Any], sdf_cfg: SDFConfig, color_cfg: ColorConfig,
-                    fused_ladder: bool, fused_fine: bool, grad: bool = False) -> HandPacks:
+                    fused_ladder: bool, fine: Optional[str], grad: bool = False) -> HandPacks:
     """Pack the weights once per parameter snapshot.  fused_ladder: the
     ladder's sdf_fn is ops.fused_hand (bf16 weights, no gradient; the
-    ladder needs none).  fused_fine: full_fn is the color-fused fine pass,
-    forward only on a pack, or the differentiable op when `grad`."""
+    ladder needs none).  fine: the fine pass's mode, forward only on a
+    pack, or the differentiable op when `grad`."""
     from honerf_torch.ops.fused_hand import FusedHandSDF
 
+    if fine is not None and fine not in FINE_MODES:
+        raise ValueError(f"unknown fine-pass mode {fine!r}")
+    packers = {"full": lambda: pack_fine_color(params, sdf_cfg, color_cfg),
+               "full_nocolor": lambda: pack_fine_nocolor(params["sdf"], sdf_cfg),
+               "pallas": lambda: pack_trunk_sdf(params["sdf"], sdf_cfg)}
     with torch.no_grad():
         return HandPacks(
             ladder=FusedHandSDF(params["sdf"], sdf_cfg) if fused_ladder else None,
-            fine=(pack_fine_color(params, sdf_cfg, color_cfg)
-                  if fused_fine and not grad else None),
-            fine_grad=fused_fine and grad)
+            fine=fine,
+            fine_pack=packers[fine]() if fine is not None and not grad else None)
 
 
 def make_hand_field(params: Dict[str, Any], sdf_cfg: SDFConfig, color_cfg: ColorConfig,
@@ -130,10 +152,19 @@ def make_hand_field(params: Dict[str, Any], sdf_cfg: SDFConfig, color_cfg: Color
         def sdf_fn(pts):
             return sdf_hand_apply(params["sdf"], fwd_cfg, pts, bt_inv, t_pose_21)[0][..., 0]
 
-    if packs.fine is not None or packs.fine_grad:
+    if packs.fine == "full":
         def full_fn(pts, dirs):
             return hand_fine_color_apply(params, sdf_cfg, color_cfg, pts, bt_inv, t_pose_21,
-                                         pack=packs.fine)
+                                         pack=packs.fine_pack)
+    elif packs.fine in ("full_nocolor", "pallas"):
+        value_grad = (sdf_hand_value_feat_grad_full if packs.fine == "full_nocolor"
+                      else sdf_hand_value_feat_grad_fused)
+
+        def full_fn(pts, dirs):
+            sdf, feat, xyz_feature, _r, _h, grad = value_grad(
+                params["sdf"], sdf_cfg, pts, bt_inv, t_pose_21, pack=packs.fine_pack)
+            color = color_hand_apply(params["color"], color_cfg, xyz_feature, feat, grad)
+            return sdf[..., 0], grad, color
     else:
         def full_fn(pts, dirs):
             sdf, feat, xyz_feature, _r, _h, grad = sdf_hand_value_feat_grad(

@@ -7,11 +7,14 @@ kernel, as in the JAX package: its field is plain PyTorch.
 
 Hand dispatch, as in the JAX package: the up-sample ladder uses the fused
 ladder SDF (ops.fused_hand, no gradient) unless `train.fused_ladder =
-false`; the fine pass, in training and in the eval render alike, uses the
-color-fused op (ops.fused_fine_full: K2 forward, K3 backward) iff the SDF
-trunk is bf16, and the autograd field path otherwise.  The eval render
-packs the kernels' weights once per parameter snapshot; the train step
-packs them inside the differentiable op on every call.
+false`; the fine pass, in training and in the eval render alike, runs the
+mode `select_fine_pass` picks from `train.fused_fine` and the SDF trunk's
+dtype (render.neus: 'full' = K2/K3 with the color net, 'full_nocolor' =
+K2/K3 without it, 'pallas' = K5/K6, None = the autograd field), JAX's
+choice on one chip; on the card a bf16 trunk never leaves its kernels and
+the kernels' f32 modes are not ported.  The eval render packs the
+kernels' weights once per parameter snapshot; the train step packs them
+inside the differentiable op on every call.
 
 The port updates the train state in place (params, Adam moments, step
 count); the JAX step returns a new one.  Not ported: the VGG patch term
@@ -22,6 +25,7 @@ ray_chunk miscompile workaround, both TPU artifacts.
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -31,6 +35,7 @@ from honerf_torch.hand import bone_transforms_from_mano_joints, refined_hand_joi
 from honerf_torch.models.fields import ColorConfig, SDFConfig
 from honerf_torch.render.losses import mask_bce, masked_l1_color, masked_psnr
 from honerf_torch.render.neus import (
+    FINE_MODES,
     HandPacks,
     RenderConfig,
     make_hand_field,
@@ -43,6 +48,10 @@ from honerf_torch.train.schedule import make_lr_schedule
 from honerf_torch.utils.transforms import rot6d_to_matrix
 
 Params = Dict[str, Any]
+
+_logger = logging.getLogger(__name__)
+# fine-pass selections already logged by this process
+_LOGGED_FINE_SELECTIONS: set = set()
 
 #: Auto grad-clip threshold for bf16 trunks (resolve_grad_clip): the JAX
 #: package's calibration on full-size runs (PARITY.md).
@@ -65,6 +74,9 @@ class TrainHyper(NamedTuple):
     batch_size: int = 441
     # fused ladder: None = on when the trunk is bf16, True/False = force
     fused_ladder: Optional[bool] = None
+    # the fine pass (`train.fused_fine`, select_fine_pass): None = auto,
+    # True/'full', 'full_nocolor', 'pallas', 'xla', False
+    fused_fine: Any = None
     # render the rays in chunks of this many (0 = one pass)
     ray_chunk: int = 0
     # global-norm gradient clip: None = auto (resolve_grad_clip), 0 = off
@@ -73,10 +85,6 @@ class TrainHyper(NamedTuple):
     @classmethod
     def from_conf(cls, conf) -> "TrainHyper":
         opt = lambda key, f: None if conf.get(key, None) is None else f(conf.get(key))  # noqa: E731
-        fine = conf.get("train.fused_fine", None)
-        if fine not in (None, "full"):
-            # the fine pass follows the SDF trunk's dtype (module docstring)
-            raise NotImplementedError(f"train.fused_fine = {fine!r} is not ported")
         return cls(
             near=float(conf["train.near"]),
             far=float(conf["train.far"]),
@@ -92,9 +100,58 @@ class TrainHyper(NamedTuple):
                          and str(conf.get("general.data_type", "real")) == "real"),
             batch_size=int(conf["train.batch_size"]),
             fused_ladder=opt("train.fused_ladder", bool),
+            fused_fine=opt("train.fused_fine", lambda v: v if isinstance(v, str) else bool(v)),
             ray_chunk=int(conf.get("train.ray_chunk", 0)),
             grad_clip=opt("train.grad_clip", float),
         )
+
+
+def select_fine_pass(tcfg: TrainHyper, sdf_cfg: SDFConfig, device) -> Optional[str]:
+    """The fine pass's mode (render.neus.FINE_MODES, None = the autograd
+    field) for `train.fused_fine` and the SDF trunk's dtype: the JAX
+    package's choice on one chip (honerf_tpu/train/offline.py:399-409).
+    On the card (a CUDA `device`) it raises NotImplementedError where that
+    choice has no kernel here: the kernels' f32 modes, 'xla' (the JAX
+    package's pure-XLA lowering of K5/K6's statements for meshes where
+    Pallas cannot run; here those statements are K5/K6's plain version:
+    use 'pallas'), and a bf16 trunk told to leave its kernels (False or an
+    unknown value).  On the CPU the kernel modes run their plain versions,
+    f32 included, and 'xla' is 'pallas' (the same statements)."""
+    want, bf16 = tcfg.fused_fine, sdf_cfg.trunk_dtype == "bf16"
+    on_card = torch.device(device).type == "cuda"
+    if want is None:        # auto: the color-fused kernels for a bf16 trunk
+        return "full" if bf16 else None
+    if want is True:
+        want = "full"
+    if want == "xla":
+        if on_card:
+            raise NotImplementedError(
+                "train.fused_fine = 'xla' (the JAX package's XLA lowering of K5/K6's "
+                "statements) has no kernel on the card: use 'pallas'")
+        return "pallas"
+    if want in FINE_MODES:
+        if on_card and not bf16:
+            kernels = "K5/K6" if want == "pallas" else "K2/K3"
+            raise NotImplementedError(
+                f"train.fused_fine = {want!r} with an f32 trunk: the f32 mode of {kernels} is "
+                "not ported (ROADMAP B); use trunk_dtype = bf16")
+        return want
+    if on_card and bf16:
+        raise NotImplementedError(
+            f"train.fused_fine = {want!r} would take a bf16 trunk off its kernels on the card")
+    return None
+
+
+def _fine_pass(tcfg: TrainHyper, sdf_cfg: SDFConfig, device, fused_ladder: bool):
+    """select_fine_pass, logged once per process per selection."""
+    fine = select_fine_pass(tcfg, sdf_cfg, device)
+    sel = (fine or "autograd", bool(fused_ladder))
+    if sel not in _LOGGED_FINE_SELECTIONS:
+        _LOGGED_FINE_SELECTIONS.add(sel)
+        _logger.info("hand fine pass: %s (fused_ladder=%s, trunk_dtype=%s, "
+                     "conf train.fused_fine=%r)", sel[0], sel[1], sdf_cfg.trunk_dtype,
+                     tcfg.fused_fine)
+    return fine
 
 
 def resolve_grad_clip(tcfg: TrainHyper, sdf_cfg: SDFConfig) -> float:
@@ -236,8 +293,9 @@ def hand_render_from_batch(params: Params, sdf_cfg: SDFConfig, color_cfg: ColorC
     bf16 trunk), True/False forces the fused ladder on/off."""
     want = fused_ladder if fused_ladder is not None else tcfg.fused_ladder
     use_fused = want if want is not None else sdf_cfg.trunk_dtype == "bf16"
-    packs = pack_hand_field(params, sdf_cfg, color_cfg, fused_ladder=use_fused,
-                            fused_fine=sdf_cfg.trunk_dtype == "bf16", grad=True)
+    fine = _fine_pass(tcfg, sdf_cfg, batch["rays_xy"].device, use_fused)
+    packs = pack_hand_field(params, sdf_cfg, color_cfg, fused_ladder=use_fused, fine=fine,
+                            grad=True)
     return _render_packed(params, packs, sdf_cfg, color_cfg, rcfg, tcfg, batch, generator)
 
 
@@ -322,8 +380,9 @@ def make_hand_eval_render(sdf_cfg: SDFConfig, color_cfg: ColorConfig, rcfg: Rend
                           tcfg: TrainHyper):
     """Chunk render for inference: pose from the batch joints with no
     refinement, no perturbation; the fused ladder is on unless
-    `train.fused_ladder = false`.  render_chunk(params, batch) ->
-    (color_fine (R, 3), weight_sum (R, 1)).
+    `train.fused_ladder = false`, and the fine pass is the train step's
+    (select_fine_pass).  render_chunk(params, batch) -> (color_fine (R,
+    3), weight_sum (R, 1)).
 
     The kernels' weights are packed once per parameter snapshot: the
     packs are kept while every tensor of `params` is the same object at
@@ -340,9 +399,9 @@ def make_hand_eval_render(sdf_cfg: SDFConfig, color_cfg: ColorConfig, rcfg: Rend
                 and all(a is b for a, b in zip(tensors, last["tensors"]))
                 and versions == last["versions"])
         if not same:
+            fine = _fine_pass(tcfg, sdf_cfg, tensors[0].device, eval_fused)
             last.update(tensors=tensors, versions=versions, packs=pack_hand_field(
-                params, sdf_cfg, color_cfg, fused_ladder=eval_fused,
-                fused_fine=sdf_cfg.trunk_dtype == "bf16"))
+                params, sdf_cfg, color_cfg, fused_ladder=eval_fused, fine=fine))
         return last["packs"]
 
     def render_chunk(params, batch):

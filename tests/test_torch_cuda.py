@@ -20,13 +20,17 @@ import torch
 
 from honerf_torch.data.synthetic import canonical_hand_joints
 from honerf_torch.hand import bone_transforms_from_mano_joints
+from honerf_torch.models.embedding import hand_embedding_flat
 from honerf_torch.models.fields import (
     ColorConfig,
     SDFConfig,
     init_color_params,
     init_sdf_params,
     pack_fine_color,
+    pack_fine_nocolor,
+    pack_trunk_sdf,
 )
+from honerf_torch.ops import fused_fine as FT
 from honerf_torch.ops import fused_fine_full as FF
 from honerf_torch.ops import fused_hand as FH
 from honerf_torch.ops import fused_sdf as FS
@@ -145,7 +149,7 @@ def _grad_items(grads):
     """[(name, tensor)] of every output of K3."""
     items = [("dp", grads.dp), ("drotT", grads.drotT), ("doff", grads.doff)]
     for field in ("dws", "dbs", "dcws", "dcbs"):
-        items += [(f"{field}[{l}]", x) for l, x in enumerate(getattr(grads, field))]
+        items += [(f"{field}[{l}]", x) for l, x in enumerate(getattr(grads, field) or ())]
     return items
 
 
@@ -278,6 +282,174 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         f32 = pack_fine_color(params, cfg._replace(trunk_dtype="f32"),
                               ccfg._replace(trunk_dtype="f32"))
         FF.hand_fine_color_fwd(pts, rotT, off, cut, f32)
+
+
+# K5 / K6 (the trunk + u-chain on the embedding, train.fused_fine =
+# 'pallas') and K2 / K3 without the color net ('full_nocolor'): the
+# forwards under the elementwise rule above, the backwards under K3's
+# unit-cotangent rule (BWD_FACTOR, BWD_REL).  The CPU plain version is the
+# floor, so the full-width backward cases stay at 1,001 points.
+TRUNK_FWD_CASES = {f"{net}-{n}": (kw, n) for net, kw in (("small", SMALL), ("full", FULL))
+                   for n in (1, 1001, FT.CHUNK + 1)}
+TRUNK_BWD_CASES = {"small-1": (SMALL, 1), "small-1001": (SMALL, 1001),
+                   "small-chunked": (SMALL, FT.BWD_CHUNK + 1), "full": (FULL, 1001)}
+
+
+def _embedding(cfg, n, dev, seed=6):
+    joints, bt_inv, t_pose = _pose(dev)
+    pts = _points(joints, n, seed=seed)
+    return hand_embedding_flat(pts, bt_inv, t_pose, cfg.v_multires, cfg.r_multires)[0]
+
+
+def _ratios(got, want, other, dev):
+    """[(name, |kernel - plain| / (BWD_FACTOR |plain - plain on the CPU| +
+    BWD_REL |plain|))], L2, over matching (name, tensor) lists."""
+    out = []
+    for (name, g), (_, w), (_, o) in zip(got, want, other):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        limit = BWD_FACTOR * float((o.to(dev) - w).norm()) + BWD_REL * float(w.norm())
+        out.append((name, float((g - w).norm()) / (limit + 1e-30)))
+    return out
+
+
+def _cpu_pack(pack):
+    cpu = lambda ts: tuple(x.cpu() for x in ts)  # noqa: E731
+    return pack._replace(**{k: cpu(getattr(pack, k)) for k in ("ws", "bs")}, wts=None)
+
+
+@pytest.mark.parametrize("case", list(TRUNK_FWD_CASES))
+def test_trunk_sdf_u_matches_plain(dev, case):
+    sdf_kw, n = TRUNK_FWD_CASES[case]
+    cfg, _, params = _nets(sdf_kw, dev)
+    pack = pack_trunk_sdf(params["sdf"], cfg)
+    e = _embedding(cfg, n, dev)
+    before = FT.KERNEL_FWD.launches
+    got = FT.hand_trunk_sdf_u_fwd(e, pack)
+    torch.cuda.synchronize()
+    assert FT.KERNEL_FWD.launches == before + 1
+    want = FT.hand_trunk_sdf_u_plain(e, pack)
+    for g, w, shape in zip(got, want, [(n, cfg.d_out), (n, cfg.input_width)]):
+        assert g.shape == shape
+        _assert_close(g, w)
+
+
+def _trunk_items(res):
+    """[(name, tensor)] of every output of K6: (de, dws, dbs)."""
+    de, dws, dbs = res
+    return ([("de", de)] + [(f"dws[{l}]", x) for l, x in enumerate(dws)]
+            + [(f"dbs[{l}]", x) for l, x in enumerate(dbs)])
+
+
+def trunk_bwd_rule_readings(sdf_kw, n, dev):
+    """K6 at n points on unit cotangents against its plain version on the
+    card: (kernel outputs, [(name, ratio)]) as bwd_rule_readings."""
+    cfg, _, params = _nets(sdf_kw, dev)
+    pack = pack_trunk_sdf(params["sdf"], cfg)
+    e = _embedding(cfg, n, dev, seed=2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dout = torch.randn((n, cfg.d_out), generator=gen, device=dev)
+    du = torch.randn((n, cfg.input_width), generator=gen, device=dev)
+    got = FT.hand_trunk_sdf_u_bwd(e, pack, dout, du)
+    want = FT.hand_trunk_sdf_u_plain_bwd(e, pack, dout, du)
+    other = FT.hand_trunk_sdf_u_plain_bwd(e.cpu(), _cpu_pack(pack), dout.cpu(), du.cpu())
+    return got, _ratios(*[_trunk_items(r) for r in (got, want, other)], dev)
+
+
+@pytest.mark.parametrize("case", list(TRUNK_BWD_CASES))
+def test_trunk_sdf_u_bwd_matches_plain(dev, case):
+    sdf_kw, n = TRUNK_BWD_CASES[case]
+    before = FT.KERNEL_BWD.launches
+    got, ratios = trunk_bwd_rule_readings(sdf_kw, n, dev)
+    torch.cuda.synchronize()
+    assert FT.KERNEL_BWD.launches == before + 1
+    assert got[0].shape == (n, SDFConfig(kind="hand", **sdf_kw).input_width)
+    bad = [(name, r) for name, r in ratios if not r <= 1.0]
+    assert not bad, bad
+
+
+def test_trunk_sdf_u_bwd_frozen_and_autograd(dev):
+    """Frozen weights: the same de bit for bit and no dW; the autograd op
+    launches K5 then K6, once each, with finite gradients."""
+    cfg, _, params = _nets(SMALL, dev)
+    pack = pack_trunk_sdf(params["sdf"], cfg)
+    e = _embedding(cfg, 5000, dev, seed=4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dout = torch.randn((5000, cfg.d_out), generator=gen, device=dev)
+    du = torch.randn((5000, cfg.input_width), generator=gen, device=dev)
+    full = FT.hand_trunk_sdf_u_bwd(e, pack, dout, du)
+    frozen = FT.hand_trunk_sdf_u_bwd(e, pack, dout, du, want_dw=False)
+    assert frozen[1] is None and frozen[2] is None and torch.equal(frozen[0], full[0])
+    again = FT.hand_trunk_sdf_u_bwd(e, pack, dout, du)
+    assert torch.equal(again[0], full[0]) and torch.equal(again[1][0], full[1][0])
+    from honerf_torch.models.fields import _fine_trunk_weights, _trunk_meta
+
+    ws, bs = _fine_trunk_weights(params["sdf"], cfg)
+    ws = [w.detach().requires_grad_(True) for w in ws]
+    x = e.detach().requires_grad_(True)
+    before = (FT.KERNEL_FWD.launches, FT.KERNEL_BWD.launches)
+    out, u = FT.hand_trunk_sdf_u(x, ws, bs, _trunk_meta(cfg))
+    (out[:, 0].square().sum() + u.square().sum()).backward()
+    torch.cuda.synchronize()
+    assert (FT.KERNEL_FWD.launches, FT.KERNEL_BWD.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(x.grad).all() and all(torch.isfinite(w.grad).all() for w in ws)
+
+
+NOCOLOR_CASES = {"small-1": (SMALL, 1), "small-chunked": (SMALL, FF.CHUNK + 1),
+                 "full": (FULL, 1001)}
+
+
+@pytest.mark.parametrize("case", list(NOCOLOR_CASES))
+def test_fine_nocolor_matches_plain(dev, case):
+    sdf_kw, n = NOCOLOR_CASES[case]
+    cfg, _, params = _nets(sdf_kw, dev)
+    joints, bt_inv, t_pose = _pose(dev)
+    pack = pack_fine_nocolor(params["sdf"], cfg)
+    rotT, off, cut = FH.pack_hand_pose(bt_inv, t_pose)
+    pts = _points(joints, n, seed=1)
+    before = FF.KERNEL.launches
+    got = FF.hand_fine_color_fwd(pts, rotT, off, cut, pack)
+    torch.cuda.synchronize()
+    assert FF.KERNEL.launches == before + 1
+    want = FF.hand_fine_color_plain(pts, rotT, off, cut, pack)
+    for g, w, shape in zip(got, want, [(n, cfg.d_out), (n, 3), (n, cfg.input_width)]):
+        assert g.shape == shape
+        _assert_close(g, w)
+
+
+def nocolor_bwd_rule_readings(sdf_kw, n, dev):
+    """K3 without the color net at n points on unit cotangents on (out, g,
+    e): (kernel outputs, the frozen call's, [(name, ratio)]) as
+    bwd_rule_readings."""
+    cfg, _, params = _nets(sdf_kw, dev)
+    joints, bt_inv, t_pose = _pose(dev)
+    pack = pack_fine_nocolor(params["sdf"], cfg)
+    rotT, off, cut = FH.pack_hand_pose(bt_inv, t_pose)
+    pts = _points(joints, n, seed=2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cts = [torch.randn(s, generator=gen, device=dev)
+           for s in ((n, cfg.d_out), (n, 3), (n, cfg.input_width))]
+    got = FF.hand_fine_color_bwd(pts, rotT, off, cut, pack, *cts)
+    frozen = FF.hand_fine_color_bwd(pts, rotT, off, cut, pack, *cts, want_dw=False)
+    want = FF.hand_fine_color_plain_bwd(pts, rotT, off, cut, pack, *cts)
+    cpu = lambda ts: tuple(x.cpu() for x in ts)  # noqa: E731
+    other = FF.hand_fine_color_plain_bwd(*cpu((pts, rotT, off, cut)), _cpu_pack(pack),
+                                        *cpu(cts))
+    items = [_grad_items(g) for g in (got, want, other)]
+    return got, frozen, _ratios(*items, dev)
+
+
+@pytest.mark.parametrize("case", list(NOCOLOR_CASES))
+def test_fine_nocolor_bwd_matches_plain(dev, case):
+    sdf_kw, n = NOCOLOR_CASES[case]
+    before = FF.KERNEL_BWD.launches
+    got, frozen, ratios = nocolor_bwd_rule_readings(sdf_kw, n, dev)
+    torch.cuda.synchronize()
+    assert FF.KERNEL_BWD.launches == before + 2
+    assert got.dp.shape == (n, 3) and got.dcws is None and frozen.dws is None
+    bad = [(name, r) for name, r in ratios if not r <= 1.0]
+    assert not bad, bad
+    for name in ("dp", "drotT", "doff"):
+        assert torch.equal(getattr(frozen, name), getattr(got, name))
 
 
 # K4: the object nets of confs/wmask_realobj_bean.conf and of the JAX

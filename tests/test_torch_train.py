@@ -110,21 +110,62 @@ def test_train_hyper_reads_the_conf_as_jax_does():
         assert getattr(got, field) == getattr(want, field), field
 
 
-@pytest.mark.parametrize("value", ["full", "xla", "pallas", "false"])
-def test_train_hyper_takes_no_fine_pass_switch(value):
-    """The port picks the fine pass from the SDF trunk's dtype: the JAX
-    conf key train.fused_fine may only name that choice ('full')."""
+FINE_VALUES = {"unset": None, "true": "true", "false": "false", "full": '"full"',
+               "full_nocolor": '"full_nocolor"', "pallas": '"pallas"', "xla": '"xla"'}
+
+
+@pytest.mark.parametrize("name", list(FINE_VALUES))
+def test_train_hyper_fused_fine_matches_jax(name):
+    """train.fused_fine parses to JAX's TrainHyper, field by field, for
+    every value."""
+    from honerf_tpu.config import load_config as jax_load
+    from honerf_tpu.config.hocon import parse_string as jax_parse
     from honerf_torch.config import load_config
     from honerf_torch.config.hocon import parse_string
 
-    conf = load_config("confs/wmask_realhand_hand1.conf")
-    conf["train"].update(parse_string(f"fused_fine = {value}"))
-    if value == "full":
-        assert TO.TrainHyper.from_conf(conf) == TO.TrainHyper.from_conf(
-            load_config("confs/wmask_realhand_hand1.conf"))
-    else:
-        with pytest.raises(NotImplementedError):
-            TO.TrainHyper.from_conf(conf)
+    path = "confs/wmask_realhand_hand1.conf"
+    conf, jconf = load_config(path), jax_load(path)
+    if FINE_VALUES[name] is not None:
+        conf["train"].update(parse_string(f"fused_fine = {FINE_VALUES[name]}"))
+        jconf["train"].update(jax_parse(f"fused_fine = {FINE_VALUES[name]}"))
+    got, want = TO.TrainHyper.from_conf(conf), JO.TrainHyper.from_conf(jconf)
+    for field in JO.TrainHyper._fields:
+        assert getattr(got, field) == getattr(want, field), field
+    assert type(got.fused_fine) is type(want.fused_fine)
+
+
+NIE = NotImplementedError
+# train.fused_fine -> (JAX's choice on one chip for a bf16 / f32 trunk
+# (honerf_tpu/train/offline.py:399-409), the port's on CPU tensors bf16 /
+# f32, on CUDA tensors bf16 / f32).  JAX's 'xla' runs K5/K6's statements in
+# XLA: the port's 'pallas' on the CPU (their plain version), refused on the
+# card; JAX's False is the autograd field.
+FINE_TABLE = {
+    None: (("full", False), ("full", None), ("full", None)),
+    True: (("full", "full"), ("full", "full"), ("full", NIE)),
+    "full": (("full", "full"), ("full", "full"), ("full", NIE)),
+    "full_nocolor": (("full_nocolor", "full_nocolor"), ("full_nocolor", "full_nocolor"),
+                     ("full_nocolor", NIE)),
+    "pallas": (("pallas", "pallas"), ("pallas", "pallas"), ("pallas", NIE)),
+    "xla": (("xla", "xla"), ("pallas", "pallas"), (NIE, NIE)),
+    False: ((False, False), (None, None), (NIE, None)),
+    "full_frozen": ((False, False), (None, None), (NIE, None)),
+}
+
+
+@pytest.mark.parametrize("value", list(FINE_TABLE), ids=str)
+def test_fine_pass_selection(value):
+    jax_choice, cpu, card = FINE_TABLE[value]
+    for i, dtype in enumerate(("bf16", "f32")):
+        cfg = configs(SMALL, dtype)[2]
+        tcfg = TO.TrainHyper(fused_fine=value)
+        same = {"xla": "pallas", False: None}.get(jax_choice[i], jax_choice[i])
+        assert TO.select_fine_pass(tcfg, cfg, "cpu") == cpu[i] == same, dtype
+        if card[i] is NIE:
+            with pytest.raises(NotImplementedError):
+                TO.select_fine_pass(tcfg, cfg, "cuda")
+        else:
+            assert TO.select_fine_pass(tcfg, cfg, "cuda") == card[i], dtype
 
 
 def test_refined_pose_vjp_matches_jax():
