@@ -95,13 +95,34 @@ The hand's other fine-pass modes (train.fused_fine), between 9 and 10:
               with 'pallas': K1 and K5 launched, K2 and K6 not; the 128 rays
               of it that meet the most surface against the CPU render.
 
+Pose fitting (the fit confs, f32 trunks), after 13:
+
+ 21. kernel K2 f32  K2 in f32 against its plain version (TF32 off) at one
+              fit step's 37,632 fine points, within TOL_F32 of the range
+              at the median and the max; the plain version with TF32 on
+              logged beside;
+ 22. kernel K3 f32 frozen  the frozen K3 in f32 on that step's inputs and
+              cotangents: dp, drotT, doff within TOL_F32 in L2; by
+              torch.profiler's names its f32 GEMMs and no dW/db kernel;
+ 23. fit      the CLI (honerf_torch.cli.fitting_single) '1' then '12' on a
+              synthetic catch sequence (1 frame, 8 views, 230x266) with
+              random full-width checkpoints, train.iter_num cut to 3: the
+              launch counts zeroed before and read after each (K1, K2, K3
+              must launch), the pose pickles; then ms per step of each fit
+              type (20 after 3 warm-up) and seconds a frame at the
+              reference budget;
+ 24. fit check  one 64-ray '12' step on the card against the CPU: in f32
+              at shared ladder samples against the CPU's f64 step, and
+              with K1 (its plain version on the CPU) on three batches;
+ 25. fit profile  one '12' step under torch.profiler.
+
 Weights are random (geometric init plus seeded noise, so every embedding
 column is live).  check_k3_faults.py runs the K3, K6 and train checks
 below on K3 and K6 with planted faults (what each limit catches).  The
 last lines of stdout are the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
-numbers (K2's and K3's with their no-color times beside them), and the
-result line.  Exits nonzero, printing no result, when no CUDA device is
+numbers (K2's and K3's with their no-color and f32 times beside them),
+and the result line.  Exits nonzero, printing no result, when no CUDA device is
 present or a phase fails.
 """
 
@@ -119,6 +140,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONF = os.path.join(ROOT, "confs", "wmask_realhand_hand1.conf")
 OBJ_CONF = os.path.join(ROOT, "confs", "wmask_realobj_bean.conf")
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12     # H100 SXM FP32 on the CUDA cores (no tensor cores)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 REQUEST_RAYS = 4096
 TRAIN_RAYS = 441            # train.batch_size of the conf
@@ -128,6 +150,11 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 NOCOLOR_STEPS = 10          # timed steps of the 'full_nocolor' train phase
 MESH_RES = 256              # the CLI's --mode mesh resolution
 CHECK_TRAIN_RAYS = 64
+FIT_CONFS = {ft: os.path.join(ROOT, "fit_confs", f"fit_{ft}_8views.conf") for ft in ("1", "12")}
+FIT_BUDGET = {"1": 30 * 8, "12": 25 * 8}   # the reference's steps a frame: iterations x views
+FIT_ITERS = 3               # train.iter_num of the fit phase's CLI runs (cut from 30 / 25)
+FIT_CHECK_RAYS = 64
+FIT_CHECK_SEEDS = (2, 3, 4)
 # Kernel vs plain version on the card.  Both round the same operands to
 # bf16 but sum in f32 in another order, so now and then an activation
 # rounds to the neighbouring bf16 value (about one point in ten at the
@@ -174,6 +201,32 @@ TOL_RENDER_MAX = 1e-1
 # this catches: 0.109 (loss), 0.48 (leaf).
 TOL_TRAIN_LOSS = 1e-2
 TOL_TRAIN_GRAD = 2e-1
+# K2 in f32 and K3 in f32 with frozen nets (pose fitting) vs their plain
+# versions on the card with TF32 off: the same f32 operands and f32 sums
+# in another order (~1e-6 of the range expected), so K2's outputs within
+# TOL_F32 of the range at the median and at the max, K3's dp, drotT and
+# doff within TOL_F32 of the plain version's norm in L2.  A TF32 product
+# (a 10-bit mantissa) would sit well above: the phase logs the plain
+# version's own distance with TF32 on.
+TOL_F32 = 1e-4
+# One '12' fit step on the card vs on the CPU, the same inputs, weights
+# and pose, perturb 0: the loss terms (relative) and the six pose
+# gradients (relative, L2).  With train.fused_ladder false the whole step
+# is f32, every side at the card's ladder samples, against the CPU's f64
+# step: f32 rounding alone moves the hand's pose gradient by 3-5% there
+# (the CPU's f32 step against its f64 one; the card's f32 step against
+# the CPU's reads the same), so the JAX suite's 1e-3 cannot hold against
+# anything f32; the card stays within FIT_FACTOR x the CPU's own f32
+# distance plus TOL_FIT_F32.  With the default K1 ladder (bf16) on the
+# card and its plain version on the CPU, each side's own ladder: the loss
+# terms within TOL_FIT_LADDER_LOSS (up to 5.9e-3 over seeds 2-4 on an
+# H100) and the pose gradients within TOL_FIT_LADDER_GRAD (up to 0.42
+# there: a K1 flip moves a sample by up to 0.1, and the hand's pose
+# gradient follows its samples), which only a gross fault exceeds.
+FIT_FACTOR = 4.0
+TOL_FIT_F32 = 1e-3
+TOL_FIT_LADDER_LOSS = TOL_TRAIN_LOSS
+TOL_FIT_LADDER_GRAD = 1.0
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -304,6 +357,21 @@ def k6_flops(cfg, n: float) -> float:
             - 2.0 * n * n_emb * cfg.d_hidden * cfg.input_width)
 
 
+def k3_frozen_flops(cfg, ccfg, n: float) -> float:
+    """The products the frozen K3 launches (no weight gradient): the
+    forward recomputed whole (K2's products: the trunk, the u-chain with
+    its embedding columns, the color net), then the color net transposed
+    (each color product once more), the u-chain transposed upward (each
+    u-chain product once more) and the trunk forward transposed downward
+    (each trunk product once more); no dW = X^T dY."""
+    trunk = trunk_dims(cfg, cfg.d_out)
+    cd = ccfg.dims
+    color_t = 2.0 * n * sum(cd[l] * cd[l + 1] for l in range(len(cd) - 1))
+    uchain_t = 2.0 * n * sum(cfg.d_hidden * i for i, _ in trunk[:-1])
+    trunk_t = 2.0 * n * sum(i * o for i, o in trunk)
+    return k2_flops(cfg, ccfg, n) + color_t + uchain_t + trunk_t
+
+
 def k4_flops(obj_cfg, n: float) -> float:
     """The object SDF forward (shrink skip) on n points, counting the sdf
     column of the last layer only: the function returns nothing else (the
@@ -396,8 +464,8 @@ def nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(flops: float, n_bytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES
+def bound(flops: float, n_bytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, n_bytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -685,6 +753,502 @@ def read_png(path: str):
     rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, 1 + 3 * W)
     assert not rows[:, 0].any(), "filtered rows"
     return rows[:, 1:].reshape(H, W, 3)
+
+
+# -- pose fitting (phases 21-25) --
+
+def fit_nets(torch, dev):
+    """The fit confs' nets (fit_confs/fit_1_8views.conf: f32 trunks) with
+    random weights on dev (geometric init plus the seeded 5% noise): conf,
+    hand_sdf, hand_color, obj_sdf, obj_color, rcfg, nets."""
+    from honerf_torch.config import load_config
+    from honerf_torch.models.fields import (
+        color_config_from_conf,
+        init_color_params,
+        init_sdf_params,
+        init_variance_params,
+        sdf_config_from_conf,
+    )
+    from honerf_torch.render.neus import RenderConfig
+
+    conf = load_config(FIT_CONFS["1"])
+    out = SimpleNamespace(conf=conf, rcfg=RenderConfig.from_conf(conf["model.neus_renderer"]),
+                          nets={})
+    gen = torch.Generator().manual_seed(0)
+    for kind in ("hand", "obj"):
+        sdf = sdf_config_from_conf(kind, conf[f"model.sdf_{kind}_network"])
+        color = color_config_from_conf(kind, conf[f"model.rendering_{kind}_network"])
+        setattr(out, f"{kind}_sdf", sdf)
+        setattr(out, f"{kind}_color", color)
+        out.nets[kind] = {
+            "sdf": perturb(torch, init_sdf_params(gen, sdf, device=dev), gen),
+            "color": perturb(torch, init_color_params(gen, color, device=dev), gen),
+            "variance": init_variance_params(float(conf["model.variance_network"]["init_val"]),
+                                             device=dev)}
+    hand_surface(torch, out.nets["hand"]["sdf"], out.hand_sdf, dev)
+    return out
+
+
+def hand_surface(torch, sdf_params, cfg, dev) -> None:
+    """Bring the random hand field near its zero level: the sdf row's
+    sign flipped and shifted so the field is +0.2 half a metre from the
+    hand (0.14-0.28 at a fit step's fine samples).  As initialised it
+    sits at 0.75-0.90 there, where the ladder's weights are on their
+    floor, so its samples, and K1's flips, move nothing.  (The parity
+    tests' -5 gain, tests/test_torch_parity.py::net_params, gives the
+    full-width field |g| ~ 350 and a fit step an ill-conditioned
+    gradient: 1 ulp on the points moves K3's dp by 3%.)"""
+    from honerf_torch.data.synthetic import canonical_hand_joints, posed_hand_example
+    from honerf_torch.hand import bone_transforms_from_mano_joints
+    from honerf_torch.models.fields import sdf_hand_apply
+
+    joints = torch.as_tensor(posed_hand_example()[0], device=dev)
+    bt = bone_transforms_from_mano_joints(joints[None])[0]
+    last = sdf_params["layers"][-1]
+    with torch.no_grad():
+        last["g"][0] *= -1.0
+        p = (joints.mean(0) + torch.tensor([0.0, 0.0, 0.5], device=dev))[None]
+        far = sdf_hand_apply(sdf_params, cfg, p, bt,
+                             torch.as_tensor(canonical_hand_joints(0.0), device=dev))[0][0, 0]
+        last["b"][0] -= far - 0.2
+
+
+def fit_workspace(torch, fn, dev, ws: str):
+    """A fitting workspace in ws: the port's synthetic catch sequence (1
+    frame, 8 views, the confs' 230x266), the nets of fit_nets written as
+    offline checkpoints in the JAX runner's npz layout, and the two fit
+    confs pointed at ws with train.iter_num = FIT_ITERS.  Returns the
+    confs' paths and the sequence's seconds."""
+    from honerf_torch.data.synthetic import generate_catch_sequence
+    from honerf_torch.train.checkpoints import save_checkpoint
+
+    H, W = fn.conf.get_list("dataset.image_size")
+    data = os.path.join(ws, "data", "catch_sequence", "test")
+    t0 = time.perf_counter()
+    generate_catch_sequence(data, n_frames=1, n_views=8, H=H, W=W)
+    gen_s = time.perf_counter() - t0
+    for kind, path in (("hand", "person1/wmask_realhand"), ("obj", "bean/wmask_realobj")):
+        save_checkpoint(os.path.join(ws, "exp", path, "checkpoints", "ckpt_000000.npz"),
+                        {"params": clone_tree(fn.nets[kind], torch.device("cpu"))})
+    confs = {}
+    for ft, src in FIT_CONFS.items():
+        with open(src) as f:
+            text = f.read()
+        text = text.replace('save_dir = "./fit_res/CASE_NAME/wmask"',
+                            f'save_dir = "{ws}/fit_res/CASE_NAME/wmask"\n'
+                            f'  fit_res_root = "{ws}/fit_res"\n  exp_root = "{ws}/exp"')
+        text = text.replace('fitdata_dir = "./data/catch_sequence/test"',
+                            f'fitdata_dir = "{data}"')
+        text = text.replace("batch_size = 196", f"batch_size = 196\n  iter_num = {FIT_ITERS}")
+        confs[ft] = os.path.join(ws, f"fit_{ft}.conf")
+        with open(confs[ft], "w") as f:
+            f.write(text)
+    return confs, gen_s
+
+
+def fit_step_inputs(torch, fn, dev, fit_type: str = "1", seed: int = 0):
+    """What one fit step on the card (fit_nets, the default kernels, a
+    seeded batch of the conf's 196 rays through the posed example hand)
+    hands the frozen K3: (pts, rotT, off, cut, pack, dsdf, dg, dcolor)."""
+    from honerf_torch.fit.single import (
+        FitHyper,
+        init_fit_state,
+        make_single_fit_step,
+        select_fit_kernels,
+    )
+    from honerf_torch.ops import fused_fine_full as FF
+
+    fcfg = FitHyper.from_conf(fn.conf)._replace(fit_type=fit_type)
+    fused, fine = select_fit_kernels(None, None, fn.hand_sdf, dev)
+    step = make_single_fit_step(fn.nets, fn.hand_sdf, fn.hand_color, fn.obj_sdf, fn.obj_color,
+                                fn.rcfg, fcfg, fused_ladder=fused, fused_fine=fine)
+    seen = []
+    wrapped = FF.hand_fine_color_bwd
+    FF.hand_fine_color_bwd = lambda *a, **k: seen.append(a) or wrapped(*a, **k)
+    try:
+        step(init_fit_state(dev), fit_batch(torch, fcfg.batch_size, dev, seed),
+             torch.Generator(device=dev).manual_seed(seed))
+    finally:
+        FF.hand_fine_color_bwd = wrapped
+    return tuple(a.detach() if torch.is_tensor(a) else a for a in seen[0][:8])  # not want_dw
+
+
+def fit_batch(torch, n_rays: int, device, seed: int = 0):
+    """A fit batch: seeded rays, colors and mask, the posed example's
+    camera, its joints with seeded noise as the initial estimate, the
+    object 6 cm in front of the hand with a noisy estimate, a sphere's
+    vertices, T-pose bone lengths."""
+    import numpy as np
+
+    from honerf_torch.data.datasets import get_bone_length
+    from honerf_torch.data.synthetic import canonical_hand_joints, icosphere, posed_hand_example
+
+    joints, cam_R, cam_T = posed_hand_example()
+    t_pose = canonical_hand_joints(0.0)
+    rng = np.random.default_rng(seed)
+    To = joints.mean(0) + np.asarray([0.0, -0.02, 0.06])
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    return dict(rays_xy=f(rng.uniform(-0.5, 0.5, (n_rays, 2))),
+                true_rgb=f(rng.uniform(0, 1, (n_rays, 3))),
+                true_mask=f(rng.uniform(0, 1, (n_rays, 1)) > 0.4),
+                focal=f([3.0, 3.0]), principal=f(np.zeros(2)), cam_R=f(cam_R), cam_T=f(cam_T),
+                joints_pred=f(joints + rng.normal(0, 0.003, joints.shape)),
+                bone_length=f(get_bone_length(t_pose)), t_pose_21=f(t_pose),
+                Ro_pred=f(np.eye(3)), To_pred=f(To + rng.normal(0, 0.004, 3)),
+                obj_verts=f(icosphere(0.1)[0]), gt_joint3d=f(joints), Ro_gt=f(np.eye(3)),
+                To_gt=f(To))
+
+
+def fit_check_readings(torch, fn, dev, fused_ladder: bool, seed: int = 2):
+    """One '12' step of FIT_CHECK_RAYS rays, perturb 0, 'full' fine pass
+    (K2 / the frozen K3 on the card, their plain versions on the CPU),
+    from the same seeded pose near the start on the card and on the CPU.
+
+    Without K1 a third side, the CPU's step in f64 (the autograd field:
+    the plain versions compute in f32), is the reference, and every side
+    renders at the card's ladder samples: f32 rounding alone moves the
+    hand's pose gradient by 3-5% at this step (the CPU's f32 step against
+    its f64 one; ROADMAP C), so the card is held to the CPU's own f32
+    distance from f64.  With K1 each side runs its own ladder: K1's bf16
+    flips move samples, which is what that comparison reads.  At the
+    start itself the refined root joint and the object's vertices equal
+    their estimates up to rounding (pose_l2's d / |d| is then rounding
+    noise), so the pose starts 0.02 (seeded) away.
+
+    Returns each side's metrics, per loss term and pose gradient (L2) the
+    card's and the CPU's distance from the reference (f64, or without it
+    the CPU's step), and the ladders' largest sample distance."""
+    import numpy as np
+
+    from honerf_torch.fit.single import (
+        POSE_KEYS,
+        FitHyper,
+        init_fit_state,
+        make_pose_optimizer,
+        make_single_fit_step,
+    )
+    from honerf_torch.render import dual as RD
+
+    cpu = torch.device("cpu")
+    fcfg = FitHyper.from_conf(fn.conf)._replace(fit_type="12", batch_size=FIT_CHECK_RAYS)
+    rcfg = fn.rcfg._replace(perturb=0.0)
+    ladder = RD.dual_hierarchical_z_vals
+    union = {}
+    sides = [("card", dev, torch.float32, "full"), ("cpu", cpu, torch.float32, "full")]
+    if not fused_ladder:
+        sides.append(("f64", cpu, torch.float64, None))
+
+    def keep(side, dtype):
+        def z_vals(*args):
+            union[side] = ladder(*args)
+            if side != "card" and not fused_ladder:
+                return union["card"].to(cpu, dtype)
+            return union[side]
+        return z_vals
+
+    def cast(tree, d, dtype):
+        if isinstance(tree, dict):
+            return {k: cast(v, d, dtype) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v, d, dtype) for v in tree]
+        return tree.detach().to(d, dtype).clone() if tree.is_floating_point() else tree.to(d)
+
+    res = {}
+    try:
+        for side, d, dtype, fine in sides:
+            RD.dual_hierarchical_z_vals = keep(side, dtype)
+            step = make_single_fit_step(cast(fn.nets, d, dtype), fn.hand_sdf, fn.hand_color,
+                                        fn.obj_sdf, fn.obj_color, rcfg, fcfg,
+                                        fused_ladder=fused_ladder, fused_fine=fine)
+            state = init_fit_state(d)
+            rng = np.random.default_rng(seed)
+            pose = {k: (p.detach() + torch.as_tensor(0.02 * rng.normal(size=tuple(p.shape)),
+                                                    device=d)).to(dtype).requires_grad_(True)
+                    for k, p in state["pose"].items()}
+            state = {"pose": pose, "opt": make_pose_optimizer(pose)}
+            state, m = step(state, cast(fit_batch(torch, FIT_CHECK_RAYS, d, seed), d, dtype))
+            res[side] = ({k: float(v) for k, v in m.items()},
+                         [pose[k].grad.detach().double().cpu() for k in POSE_KEYS])
+    finally:
+        RD.dual_hierarchical_z_vals = ladder
+    ref = res["f64" if not fused_ladder else "cpu"]
+
+    def dist(side):
+        m, g = res[side]
+        loss = {k: abs(m[k] - ref[0][k]) / max(abs(ref[0][k]), 1e-6) for k in ref[0]}
+        grad = [float((a - b).norm() / max(float(b.norm()), 1e-12)) for a, b in zip(g, ref[1])]
+        return loss, grad
+
+    dz = float((union["card"].cpu().double() - union["cpu"].double()).abs().max())
+    return SimpleNamespace(metrics={k: v[0] for k, v in res.items()}, card=dist("card"),
+                           cpu=dist("cpu") if not fused_ladder else None, keys=POSE_KEYS,
+                           ladder_dz=dz)
+
+
+def run_fit_phases(torch, dev, phase, rows, failures) -> None:
+    """Phases 21-25, pose fitting: K2 in f32 and the frozen K3 in f32
+    against their plain versions at a fit step's shapes, the fitting CLI
+    ('1' then '12') with its launch counts and ms per step, one step on
+    the card against the CPU, and a profile of one step.  `phase` runs
+    one phase and records its failure; `rows` collects the kernels
+    line's numbers."""
+    import numpy as np
+
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+
+    fn = fit_nets(torch, dev)
+    log(f"fit confs {', '.join(os.path.relpath(c, ROOT) for c in FIT_CONFS.values())}: hand "
+        f"sdf {fn.hand_sdf.n_layers}x{fn.hand_sdf.d_hidden} embedding "
+        f"{fn.hand_sdf.input_width} d_out {fn.hand_sdf.d_out}, color "
+        f"{fn.hand_color.n_layers}x{fn.hand_color.d_hidden}; obj sdf "
+        f"{fn.obj_sdf.n_layers}x{fn.obj_sdf.d_hidden} embedding {fn.obj_sdf.input_width}; "
+        f"trunks {fn.hand_sdf.trunk_dtype}; render {fn.rcfg.n_samples}+{fn.rcfg.n_importance} "
+        f"up {fn.rcfg.up_sample_steps}")
+    f32_inputs = {}
+
+    def fit_inputs():
+        if "args" not in f32_inputs:
+            f32_inputs["args"] = fit_step_inputs(torch, fn, dev)
+        return f32_inputs["args"]
+
+    def kernel_k2_f32():
+        """K2 in f32 at one fit step's fine points (196 rays x 192 samples),
+        TF32 off on both sides; the plain version again with TF32 on."""
+        args = fit_inputs()
+        pts, pack = args[0], args[4]
+        n = pts.shape[0]
+        fargs = args[:5]
+        got = FF.hand_fine_color_fwd(*fargs)
+        want = FF.hand_fine_color_plain(*fargs)
+        torch.cuda.synchronize()
+        checks = [compare(torch, what, a, b, TOL_F32, TOL_F32)
+                  for what, a, b in zip(("sdf", "g", "color"), got, want)]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = FF.hand_fine_color_plain(*fargs)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        tf32_rd = [err_readings(torch, a, b) for a, b in zip(tf32, want)]
+        ms = cuda_ms(torch, lambda: FF.hand_fine_color_fwd(*fargs), 5)
+        plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain(*fargs), 2)
+        n_bytes = (nbytes([pts, *args[1:4], *pack.ws, *pack.bs, *pack.cws, *pack.cbs]) + 28 * n)
+        flops = k2_flops(fn.hand_sdf, fn.hand_color, n)
+        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_FLOPS)
+        log(f"K2 f32 hand_fine_color_fwd: {n} pts "
+            f"({-(-n // FF.chunk_size(n, 'f32', FF.CHUNK))} passes); "
+            f"{'; '.join(c[2] for c in checks)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}, {flops / 1e12:.4f} TFLOP, {flops / n / 1e6:.3f} "
+            f"MFLOP/pt, {flops / ms / 1e9:.1f} TFLOP/s)")
+        log("K2 f32: the plain version with TF32 on, against TF32 off: " + "; ".join(
+            f"{w}: median {med / sc:.2e}, max {mx / sc:.2e} of the range"
+            for w, (med, _, mx, sc) in zip(("sdf", "g", "color"), tf32_rd))
+            + f" (a TF32 GEMM would {'fail' if any(mx > TOL_F32 * sc for _, _, mx, sc in tf32_rd) else 'pass'} "
+            f"the {TOL_F32:g} limit)")
+        rows["K2"] = dict(rows.get("K2", {}), f32_ms=ms, f32_plain_ms=plain_ms, f32_bound_ms=b_ms,
+                          f32_max_abs_err=max(c[1] for c in checks))
+        if not all(c[0] for c in checks):
+            raise AssertionError("K2 f32 disagrees with its plain version")
+
+    def kernel_k3_f32():
+        """The frozen K3 in f32 on one fit step's own inputs and
+        cotangents: dp, drotT, doff in L2; by torch.profiler's kernel
+        names, its f32 GEMMs and no dW / db kernel."""
+        args = fit_inputs()
+        pts, pack = args[0], args[4]
+        n = pts.shape[0]
+        before = FF.KERNEL_BWD.launches
+        got = FF.hand_fine_color_bwd(*args, want_dw=False)
+        want = FF.hand_fine_color_plain_bwd(*args, want_dw=False)
+        torch.cuda.synchronize()
+        oks, lines, errs = [], [], []
+        for what in ("dp", "drotT", "doff"):
+            a, b = getattr(got, what), getattr(want, what)
+            l2 = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+            oks.append(bool(torch.isfinite(a).all()) and l2 <= TOL_F32)
+            errs.append(float((a - b).abs().max()))
+            lines.append(f"{what}: |err| L2 {l2:.2e} of |plain| {float(b.norm()):.3e} "
+                         f"(tol {TOL_F32:g}){'' if oks[-1] else ' FAIL'}")
+        no_dw = got.dws is None and got.dcws is None
+        names = device_kernel_names(torch, lambda: FF.hand_fine_color_bwd(*args, want_dw=False))
+        launched = FF.KERNEL_BWD.launches - before == 2
+
+        def count(*keys):
+            return sum(c for k, c in names.items() if any(x in k for x in keys))
+
+        dw_launches = count("gemm_tn", "colsum_partial", "reduce_partials")
+        f32_gemms = count("gemm_f32_kernel")
+        bf16_gemms = count("gemm_kernel")   # the bf16 GEMM's name is not a part of the f32 one's
+        seen = launched and f32_gemms > 0 and sum(names.values()) > 0
+        ms = cuda_ms(torch, lambda: FF.hand_fine_color_bwd(*args, want_dw=False), 5)
+        plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain_bwd(*args, want_dw=False), 2)
+        weights = [*pack.ws, *pack.bs, *pack.cws, *pack.cbs]
+        n_bytes = nbytes([*args[:4], *args[5:], *weights]) + 12 * n + 4 * 9 * 128
+        flops = k3_frozen_flops(fn.hand_sdf, fn.hand_color, n)
+        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_FLOPS)
+        log(f"K3 f32 frozen hand_fine_color_bwd: {n} pts; {'; '.join(lines)}; no weight "
+            f"gradient {no_dw}; kernels by name: {sum(names.values())} launches, f32 GEMMs "
+            f"{f32_gemms}, bf16 GEMMs {bf16_gemms}, dW/db kernels {dw_launches} (the profiler "
+            f"saw them: {seen}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {flops / 1e12:.4f} TFLOP, {flops / n / 1e6:.3f} MFLOP/pt, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s)")
+        for name, cnt in sorted(names.items(), key=lambda kv: -kv[1]):
+            log(f"  x{cnt:<4d} {name.replace('honerf::', '')[:90]}")
+        rows["K3"] = dict(rows.get("K3", {}), f32_ms=ms, f32_plain_ms=plain_ms, f32_bound_ms=b_ms,
+                          f32_max_abs_err=max(errs))
+        if not all(oks) or not no_dw:
+            raise AssertionError("K3 f32 frozen disagrees with its plain version")
+        if not seen or dw_launches or bf16_gemms:
+            raise AssertionError("K3 f32 frozen: f32 GEMMs and no dW/db kernel not shown")
+
+    fit_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
+                   "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD}
+
+    def fit():
+        """The fitting CLI, '1' then '12', on a synthetic catch sequence;
+        then ms per step of each fit type through the runner's loop."""
+        import pickle
+        import shutil
+        import tempfile
+
+        from honerf_torch.cli import fitting_single
+        from honerf_torch.fit.runner import SingleFitRunner
+        from honerf_torch.fit.single import init_fit_state
+
+        ws = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+        try:
+            confs, gen_s = fit_workspace(torch, fn, dev, ws)
+            H, W = fn.conf.get_list("dataset.image_size")
+            log(f"fit: synthetic catch sequence (1 frame, 8 views, {H}x{W}) and checkpoints in "
+                f"{gen_s:.1f} s")
+            total = {}
+            for ft in ("1", "12"):
+                for k in fit_kernels.values():
+                    k.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fitting_single.main(["--conf", confs[ft], "--case", f"{ft}_8view"])
+                torch.cuda.synchronize()
+                cli_s = time.perf_counter() - t0
+                launches = {name: k.launches for name, k in fit_kernels.items()}
+                for name, c in launches.items():
+                    total[name] = total.get(name, 0) + c
+                path = os.path.join(ws, "fit_res", "view_8", ft, "person1_bean", "seq0",
+                                    f"pose_{ft}", "0.pickle")
+                with open(path, "rb") as f:
+                    pose = pickle.load(f)
+                shapes = {k: tuple(v.shape) for k, v in pose.items()}
+                want = {"pred_joint3d": (21, 3), "pred_Ro": (3, 3), "pred_To": (3,),
+                        "gt_joint3d": (21, 3), "gt_Ro": (3, 3), "gt_To": (3,)}
+                finite = all(np.isfinite(v).all() and v.dtype == np.float32
+                             for v in pose.values())
+                moved = float(np.abs(pose["pred_joint3d"] - pose["gt_joint3d"]).max())
+                log(f"fit {ft}: the CLI in {cli_s:.1f} s ({FIT_ITERS} iterations x 8 views, "
+                    f"loading and checkpoints included); launches {launches}; pickle {shapes}, "
+                    f"f32 and finite {finite}; |pred - gt| joints up to {moved:.4f} m")
+                assert shapes == want and finite, "the pose pickle is not the JAX runner's"
+                assert launches["K1"] and launches["K2"] and launches["K3"], \
+                    f"a kernel of the fitting path did not launch: {launches}"
+                assert not (launches["K5"] or launches["K6"]), f"stray launches {launches}"
+            rows["K2"] = dict(rows.get("K2", {}), f32_launches=total["K2"])
+            rows["K3"] = dict(rows.get("K3", {}), f32_launches=total["K3"])
+            # ms per step of each fit type through the runner's own loop
+            for ft in ("1", "12"):
+                r = SingleFitRunner(confs[ft], f"{ft}_8view", device=dev)
+                from honerf_torch.data.fit_datasets import load_fit_sequence
+
+                seq = load_fit_sequence(r.data_root, "person1_bean", "seq0", r.view_num,
+                                        r.fit_type, r.fit_res_root, r.exp_root,
+                                        image_hw=(r.H, r.W))
+                frame = seq.frames[0]
+                step = r.make_step(r.nets_for(seq))
+                consts = r.frame_consts(seq, frame)
+                state = init_fit_state(dev)
+                gen = torch.Generator(device=dev).manual_seed(0)
+                torch.cuda.reset_peak_memory_stats()
+                metrics = []
+                n_views = len(frame.views)
+
+                def one(i):
+                    batch = r.device_batch(r.view_batch(frame, i % n_views, r.fcfg.batch_size),
+                                           consts)
+                    return step(state, batch, gen)[1]
+
+                for i in range(TRAIN_WARMUP):
+                    metrics.append(one(i))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(TRAIN_STEPS):
+                    metrics.append(one(i))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+                loss = torch.stack([m["loss"] for m in metrics])
+                log(f"fit {ft}: {ms:.2f} ms/step ({TRAIN_STEPS} steps of {r.fcfg.batch_size} rays "
+                    f"after {TRAIN_WARMUP} warm-up, host clock, ray sampling and upload "
+                    f"included); {ms * FIT_BUDGET[ft] / 1e3:.2f} s a frame at the reference "
+                    f"budget of {FIT_BUDGET[ft]} steps; peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss first "
+                    f"{float(loss[0]):.4f} last {float(loss[-1]):.4f}")
+                assert bool(torch.isfinite(loss).all()), "a fit loss is not finite"
+                if ft == "12":
+                    f32_inputs["profile"] = lambda: one(0)
+        finally:
+            shutil.rmtree(ws, ignore_errors=True)
+
+    def fit_check():
+        """One '12' step on the card against the CPU: the whole step in f32
+        (no K1) at shared ladder samples against the CPU's f64 step, then
+        the default step (K1 on the card, its plain version on the CPU) on
+        FIT_CHECK_SEEDS batches."""
+        bad = []
+        for ladder, seeds in ((False, FIT_CHECK_SEEDS[:1]), (True, FIT_CHECK_SEEDS)):
+            for seed in seeds:
+                r = fit_check_readings(torch, fn, dev, fused_ladder=ladder, seed=seed)
+                label = f"fit check (fused_ladder={ladder}, seed {seed})"
+                log(f"{label}: one step of {FIT_CHECK_RAYS} rays; metrics " + "; ".join(
+                    f"{side}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
+                    for side, m in r.metrics.items()))
+                log(f"{label}: the two ladders' samples up to {r.ladder_dz:.2e} apart"
+                    + ("" if ladder else " (every side renders at the card's)"))
+                (c_loss, c_grad) = r.card
+                if ladder:
+                    ok = (max(c_loss.values()) <= TOL_FIT_LADDER_LOSS
+                          and max(c_grad) <= TOL_FIT_LADDER_GRAD)
+                    log(f"{label}: card vs CPU, worst loss term {max(c_loss.values()):.2e} (tol "
+                        f"{TOL_FIT_LADDER_LOSS:g}); pose gradients " + ", ".join(
+                            f"{k} {x:.2e}" for k, x in zip(r.keys, c_grad))
+                        + f" (tol {TOL_FIT_LADDER_GRAD:g}){'' if ok else ' FAIL'}")
+                else:
+                    p_loss, p_grad = r.cpu
+                    ratios = ([c_loss[k] / (FIT_FACTOR * p_loss[k] + TOL_FIT_F32) for k in c_loss]
+                              + [c / (FIT_FACTOR * p + TOL_FIT_F32) for c, p in zip(c_grad, p_grad)])
+                    ok = max(ratios) <= 1.0
+                    log(f"{label}: distance from the CPU's f64 step, card / CPU f32: loss terms "
+                        + ", ".join(f"{k} {c_loss[k]:.1e}/{p_loss[k]:.1e}" for k in c_loss)
+                        + "; pose gradients " + ", ".join(
+                            f"{k} {c:.2e}/{p:.2e}" for k, c, p in zip(r.keys, c_grad, p_grad))
+                        + f"; worst {max(ratios):.3f} of the limit (card <= {FIT_FACTOR:g} x "
+                        f"CPU + {TOL_FIT_F32:g}){'' if ok else ' FAIL'}")
+                if not ok:
+                    bad.append(label)
+        assert not bad, f"the card's fit step disagrees with the CPU's: {bad}"
+
+    def fit_profile():
+        fn_ = f32_inputs.get("profile")
+        assert fn_ is not None, "the fit phase did not run"
+        fn_()
+        device_profile(torch, "one '12' fit step of 196 rays", fn_)
+
+    phase("kernel K2 f32", kernel_k2_f32)
+    phase("kernel K3 f32 frozen", kernel_k3_f32)
+    phase("fit", fit)
+    phase("fit check", fit_check)
+    if "fit" not in failures:
+        phase("fit profile", fit_profile)
+    else:
+        failures.append("fit profile")
 
 
 def main() -> int:
@@ -1469,13 +2033,16 @@ def main() -> int:
     else:
         failures.append("mesh check")
 
+    run_fit_phases(torch, dev, phase, rows, failures)
+
     log(gpu_line())
     order = ("K1", "K2", "K3", "K4", "K5", "K6")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     nocolor = ("nocolor_launches", "nocolor_ms", "nocolor_plain_ms", "nocolor_bound_ms")
+    f32 = ("f32_launches", "f32_ms", "f32_plain_ms", "f32_bound_ms")
     log(json.dumps({"kernels": [
-        {k: rows.get(n, {}).get(k) for k in keys + (nocolor if n in ("K2", "K3") else ())}
+        {k: rows.get(n, {}).get(k) for k in keys + (nocolor + f32 if n in ("K2", "K3") else ())}
         for n in order]}))
     if failures:
         log(f"chip_smoke: failed phases: {', '.join(failures)}")

@@ -1,0 +1,40 @@
+"""The single-frame pose-fitting command line, the same arguments as
+honerf_tpu.cli.fitting_single:
+
+    python -m honerf_torch.cli.fitting_single --conf ./fit_confs/fit_1_8views.conf --case 1_8view
+    python -m honerf_torch.cli.fitting_single --conf ./fit_confs/fit_12_8views.conf --case 12_8view
+
+'12' starts from the pose pickles '1' wrote.  It runs on the CUDA device
+--gpu (default 0); the CPU is reachable only through the Python API
+(SingleFitRunner(..., device="cpu")).
+"""
+
+import argparse
+import logging
+import os
+from typing import List, Optional
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    logging.basicConfig(level=logging.INFO,
+                        format="[%(filename)s:%(lineno)s - %(funcName)s() ] %(message)s")
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--conf", type=str, default="./confs/base.conf")
+    parser.add_argument("--gpu", type=int, default=0)
+    parser.add_argument("--case", type=str, default="")
+    args = parser.parse_args(argv)
+    if not os.path.exists(args.conf):
+        raise SystemExit(f"config file not found: {args.conf}")
+
+    import torch
+
+    from honerf_torch.fit.runner import SingleFitRunner
+
+    device = torch.device("cuda", args.gpu)
+    if torch.cuda.is_available():
+        torch.cuda.set_device(device)  # the kernels launch on the current device
+    SingleFitRunner(args.conf, args.case, device=device).fitting()
+
+
+if __name__ == "__main__":
+    main()

@@ -3,8 +3,11 @@ part of honerf_tpu.data.synthetic that the port's runner, tests and
 chip_smoke.py need, copied because the port cannot import it without
 JAX: the posed hand and camera of the JAX package's benchmark, and the
 analytic sphere "object" and capsule-skeleton "hand" datasets read by
-`honerf_torch.data.datasets.load_offline_dataset`.  The fitting stage's
-catch sequence is not here yet.
+`honerf_torch.data.datasets.load_offline_dataset`, and the fitting
+stage's catch sequence (`generate_catch_sequence`, read by
+`honerf_torch.data.fit_datasets.load_fit_sequence`), whose JPEGs the
+port's own encoder writes (utils.jpeg), so a machine without cv2 or PIL
+makes it too.
 """
 
 from __future__ import annotations
@@ -239,10 +242,15 @@ def render_capsule_hand_view(
     o = p1 - d
 
     t = np.full((H, W), 0.4, dtype=np.float64)
+    # march the rays still short of the far limit: a ray at 1.6 stays there
+    # (the same t as marching every ray every step)
+    live = np.ones((H, W), dtype=bool)
     for _ in range(n_steps):
-        pts = o + t[..., None] * d
+        tl = t[live]
+        pts = o[live] + tl[..., None] * d[live]
         dist = _segment_distances(pts, a, b).min(axis=-1) - radius
-        t = np.minimum(t + np.maximum(dist, 1e-4), 1.6)
+        t[live] = np.minimum(tl + np.maximum(dist, 1e-4), 1.6)
+        live &= t < 1.6
     pts = o + t[..., None] * d
     sdf = _segment_distances(pts, a, b).min(axis=-1) - radius
     hit = (sdf < 2e-3) & (t < 1.55)
@@ -376,3 +384,103 @@ def canonical_hand_joints(curl: float = 0.0) -> np.ndarray:
                     )
                 p = p + seg_dir * Ls[k + 1]
     return j
+
+
+def generate_catch_sequence(
+    data_root: str,
+    obj_name: str = "person1_bean",
+    frame_name: str = "seq0",
+    n_frames: int = 2,
+    n_views: int = 8,
+    H: int = 48,
+    W: int = 56,
+    sphere_radius: float = 0.1,
+    seed: int = 0,
+) -> None:
+    """Write a synthetic fitting sequence in the catch-sequence layout
+    consumed by `load_fit_sequence` (utils/dataset.py:409-760): per-view
+    MASK jpegs + PARAM_266 pickles, t-pose pickle, object PLY, predicted
+    joints/pose initializations.  The JPEGs: 4:4:4 at quality 95 by
+    utils.jpeg."""
+    rng = np.random.default_rng(seed)
+    per, obj = obj_name.split("_")
+    frame_path = os.path.join(data_root, obj_name, frame_name)
+    os.makedirs(os.path.join(frame_path, "MASK"), exist_ok=True)
+    os.makedirs(os.path.join(frame_path, "PARAM_266"), exist_ok=True)
+    os.makedirs(os.path.join(frame_path, f"pred_joint3d_{n_views}view"), exist_ok=True)
+    os.makedirs(os.path.join(frame_path, f"pred_objpose_{n_views}view"), exist_ok=True)
+    t_pose = canonical_hand_joints(curl=0.0)
+    with open(os.path.join(frame_path, per + "_tmppose.pickle"), "wb") as f:
+        pickle.dump({"T_pose_21": t_pose}, f)
+    verts, faces = icosphere(sphere_radius)
+    save_ply(os.path.join(frame_path, obj + "_ours.ply"), verts * 1000.0, faces)
+    focal = np.asarray([3.0, 3.0], np.float32)
+    principal = np.asarray([0.0, 0.0], np.float32)
+
+    from honerf_torch.data.fit_datasets import VIEW_LISTS
+    from honerf_torch.utils.jpeg import write_jpeg
+
+    view_names = VIEW_LISTS[str(n_views)] if str(n_views) in VIEW_LISTS else VIEW_NAMES
+
+    for fid in range(n_frames):
+        joints = canonical_hand_joints(curl=0.3 + 0.05 * fid)
+        axis = np.asarray([0.3, 0.8, 0.52])
+        axis /= np.linalg.norm(axis)
+        th = 0.9
+        K = np.asarray(
+            [[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]]
+        )
+        Rh = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+        joints = ((joints - joints.mean(0)) @ Rh.T).astype(np.float32)
+        center = joints.mean(0)
+        obj_center = center + np.asarray([0.0, -0.02, 0.06], np.float32)
+        Ro_gt = np.eye(3, dtype=np.float32)
+        To_gt = obj_center
+        # noisy initial predictions
+        joints_pred = joints + rng.normal(0, 0.003, joints.shape).astype(np.float32)
+        pose_pred = np.eye(4, dtype=np.float32)
+        pose_pred[:3, 3] = To_gt + rng.normal(0, 0.004, 3).astype(np.float32)
+        with open(
+            os.path.join(frame_path, f"pred_joint3d_{n_views}view", f"{fid}.pickle"),
+            "wb",
+        ) as f:
+            pickle.dump({"pred_joint_3d": joints_pred}, f)
+        np.savetxt(
+            os.path.join(frame_path, f"pred_objpose_{n_views}view", f"{fid}.txt"),
+            pose_pred,
+        )
+        for vi, view_name in enumerate(view_names[:n_views]):
+            az = 2 * np.pi * vi / n_views
+            el = 0.35 + 0.1 * np.sin(1.7 * vi)
+            pos = center + 0.95 * np.asarray(
+                [np.cos(az) * np.cos(el), np.sin(el), np.sin(az) * np.cos(el)]
+            )
+            R, T = look_at_camera(pos, center)
+            hand_img, hand_hit = render_capsule_hand_view(
+                R, T, focal, principal, H, W, joints
+            )
+            obj_img, obj_hit = render_sphere_view(
+                R, T, focal, principal, H, W, obj_center, sphere_radius,
+                albedo=(0.4, 0.6, 0.9),
+            )
+            img = np.where(hand_hit[..., None], hand_img, obj_img)
+            write_jpeg(os.path.join(frame_path, "MASK", f"{fid}_{view_name}.jpeg"), img,
+                       quality=95)
+            param = {
+                "cam_R": R,
+                "cam_T": T,
+                "fx_ndc": float(focal[0]),
+                "fy_ndc": float(focal[1]),
+                "px_ndc": float(principal[0]),
+                "py_ndc": float(principal[1]),
+                "H": H,
+                "W": W,
+                "obj_R": Ro_gt,
+                "obj_T": To_gt,
+                "joint3d_21": joints,
+            }
+            with open(
+                os.path.join(frame_path, "PARAM_266", f"{fid}_{view_name}.pickle"),
+                "wb",
+            ) as f:
+                pickle.dump(param, f)

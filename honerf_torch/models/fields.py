@@ -413,8 +413,10 @@ def hand_fine_color_apply(params: Params, sdf_cfg: SDFConfig, color_cfg: ColorCo
     """(sdf (N,), grad (N, 3), color (N, 3)) via the color-fused fine pass:
     embedding, trunk, spatial gradient and the color net in one op.
     Without `pack` the op is differentiable in the params, the points and
-    the pose (bt_inv, through pack_hand_pose); with a pack made once per
-    parameter snapshot (pack_fine_color) it runs the forward only."""
+    the pose (bt_inv, through pack_hand_pose): params that need no
+    gradient (pose fitting's frozen nets) launch no weight work in its
+    backward; with a pack made once per parameter snapshot
+    (pack_fine_color) it runs the forward only."""
     from honerf_torch.ops.fused_fine_full import hand_fine_color, hand_fine_color_fwd
     from honerf_torch.ops.fused_hand import pack_hand_pose
 

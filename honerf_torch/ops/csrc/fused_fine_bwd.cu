@@ -35,10 +35,20 @@
 //     gemm_tn_kernel + reduce          dW = X^T dY over the point axis,
 //                                      split over points into f32 partials
 //                                      summed in a fixed order (trunk.cuh)
-//     colsum kernels                   db (from the f32 dz) and the pose
-//                                      sums drotT / doff, fixed order
+//     colsum kernels                   db (from the f32 dz), fixed order
+//     pose_partial/pose_reduce_kernel  the pose sums drotT / doff, the same
+//                                      fixed order
 //   So two runs give the same bits: no atomics anywhere.  Right first:
 //   wgmma/TMA and fusing the launches are later work.
+//
+// f32 frozen mode (FineMeta.dtype 'f32', want_dw false: pose fitting,
+//   whose nets are constants; JAX's FineMeta(dtype='f32', want_dw=False),
+//   honerf_tpu/ops/fused_fine_full.py:1819-1823): the same launches on f32
+//   operands (gemm_f32_kernel, the per-point kernels' f32 variants) and no
+//   dW/db work at all: no gemm_tn_kernel, colsum_partial_kernel or
+//   reduce_partials_kernel.  Bound: operations, ~2x K2's products (the
+//   forward recomputed; each product transposed) at 67 TFLOP/s FP32.
+//   The f32 mode with dW is not ported (the wrapper raises).
 //
 // No-color mode (`hand_fine_full`'s backward, the same pallas_call without
 //   the color net): no color launches; copy_cols_kernel (trunk.cuh) puts
@@ -55,10 +65,12 @@ namespace honerf {
 // ---------------------------------------------------------------------------
 
 // dz = s (1 - s) dcolor on the color columns (s: the forward's sigmoid in
-// packed[:, 4:7]), zero on the padding up to `width`.
+// packed[:, 4:7]), zero on the padding up to `width`; dzb in the operand
+// type T (bf16, or f32 in the f32 mode).
+template <typename T>
 __global__ void color_dz_kernel(const float* __restrict__ packed,
                                 const float* __restrict__ dcolor, int M,
-                                float* __restrict__ dzf, __nv_bfloat16* __restrict__ dzb,
+                                float* __restrict__ dzf, T* __restrict__ dzb,
                                 int ld, int width) {
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)M * width) return;
@@ -69,7 +81,7 @@ __global__ void color_dz_kernel(const float* __restrict__ packed,
     v = s * (1.f - s) * dcolor[(size_t)m * 3 + c];
   }
   dzf[(size_t)m * ld + c] = v;
-  dzb[(size_t)m * ld + c] = __float2bfloat16_rn(v);
+  dzb[(size_t)m * ld + c] = from_f32<T>(v);
 }
 
 // The transposed reverse chain's cotangents of bone j at cotangent t on g
@@ -110,10 +122,12 @@ __device__ __forceinline__ Head transpose_head(const Stages& st, const Chain* ch
 //  * dg_total = dg + the grad-PE transpose of the color input's cotangent
 //    (dx columns Ep + Fp ..) -> dgt[m, 0:3];
 //  * du = the reverse chain transposed at dg_total (T4-T1), stored as
-//    bf16(du) and bf16(du / sqrt2) (the u-chain transpose's operands at
-//    layer 0 and at the skip), zero on the padding up to Ep;
+//    T(du) and T(du / sqrt2) (the u-chain transpose's operands at layer 0
+//    and at the skip), zero on the padding up to Ep;
 //  * the trunk's top cotangent [dsdf | dfeat (dx columns Ep ..) | 0] into
-//    dzf (f32) and dzb (bf16), Op columns.
+//    dzf (f32) and dzb (T), Op columns.
+// T: bf16, or f32 in the f32 mode.
+template <typename T>
 __global__ void fine_bwd_rev_kernel(const float* __restrict__ pts, int M,
                                     const float* __restrict__ rotT, const float* __restrict__ off,
                                     const float* __restrict__ cut, int vL, int rL,
@@ -121,10 +135,9 @@ __global__ void fine_bwd_rev_kernel(const float* __restrict__ pts, int M,
                                     const float* __restrict__ dsdf,
                                     const float* __restrict__ dg,
                                     const float* __restrict__ dx, int ldx, int Ep, int F, int Fp,
-                                    int L, __nv_bfloat16* __restrict__ du_b,
-                                    __nv_bfloat16* __restrict__ du_s, int lddu,
-                                    float* __restrict__ dgt, float* __restrict__ dzf,
-                                    __nv_bfloat16* __restrict__ dzb, int lddz, int Op) {
+                                    int L, T* __restrict__ du_b, T* __restrict__ du_s,
+                                    int lddu, float* __restrict__ dgt, float* __restrict__ dzf,
+                                    T* __restrict__ dzb, int lddz, int Op) {
   int m = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   int j = threadIdx.x & 31;
   if (m >= M) return;  // whole warps leave together
@@ -148,14 +161,14 @@ __global__ void fine_bwd_rev_kernel(const float* __restrict__ pts, int M,
   for (int col = j; col < Op; col += 32) {
     float v = col == 0 ? dsdf[m] : (col <= F ? dxr[Ep + col - 1] : 0.f);
     dzf[(size_t)m * lddz + col] = v;
-    dzb[(size_t)m * lddz + col] = __float2bfloat16_rn(v);
+    dzb[(size_t)m * lddz + col] = from_f32<T>(v);
   }
-  __nv_bfloat16* rb_ = du_b + (size_t)m * lddu;
-  __nv_bfloat16* rs_ = du_s + (size_t)m * lddu;
+  T* rb_ = du_b + (size_t)m * lddu;
+  T* rs_ = du_s + (size_t)m * lddu;
   const int E = 21 * (1 + 2 * vL) + 63 * (1 + 2 * rL);
   for (int col = E + j; col < Ep; col += 32) {
-    rb_[col] = __float2bfloat16_rn(0.f);
-    rs_[col] = __float2bfloat16_rn(0.f);
+    rb_[col] = from_f32<T>(0.f);
+    rs_[col] = from_f32<T>(0.f);
   }
   if (j >= 21) return;
   float p[3] = {pts[3 * m], pts[3 * m + 1], pts[3 * m + 2]};
@@ -163,8 +176,8 @@ __global__ void fine_bwd_rev_kernel(const float* __restrict__ pts, int M,
   Head hd = transpose_head(st, nullptr, rotT, t, j);
   const float cb = hd.cb, hca = st.h * hd.ca;
   auto put = [&](int col, float v) {
-    rb_[col] = __float2bfloat16_rn(v);
-    rs_[col] = __float2bfloat16_rn(v * kInvSqrt2);
+    rb_[col] = from_f32<T>(v);
+    rs_[col] = from_f32<T>(v * kInvSqrt2);
   };
   // T2/T1: v family
   put(j, st.v * cb + hca);
@@ -308,18 +321,66 @@ __global__ void fine_bwd_emb_kernel(const float* __restrict__ pts, int M,
   }
 }
 
+// The pose sums drotT / doff: the column sums of the per-point pose rows
+// P (M, 256), in a fixed order (no atomics).  pose_partial_kernel: block s
+// sums rows [s*split, (s+1)*split) in order, one thread a column;
+// pose_reduce_kernel: out (+)= the partials in order s = 0, 1, ...  (The
+// arithmetic of trunk.cuh's colsum, under names of their own: the dW/db
+// kernels are the ones a frozen backward must not launch.)
+__global__ void pose_partial_kernel(const float* __restrict__ P, int M, int split,
+                                    float* __restrict__ ws) {
+  int col = threadIdx.x;
+  int r0 = blockIdx.x * split, r1 = min(M, r0 + split);
+  float sum = 0.f;
+  for (int r = r0; r < r1; ++r) sum += P[(size_t)r * 256 + col];
+  ws[(size_t)blockIdx.x * 256 + col] = sum;
+}
+
+__global__ void pose_reduce_kernel(const float* __restrict__ ws, int S, float* __restrict__ out,
+                                   int acc) {
+  int col = threadIdx.x;
+  float sum = 0.f;
+  for (int s = 0; s < S; ++s) sum += ws[(size_t)s * 256 + col];
+  out[col] = acc ? out[col] + sum : sum;
+}
+
 }  // namespace honerf
 
 // ---------------------------------------------------------------------------
 // Plain C entry points (loaded with ctypes); each returns cudaGetLastError().
 // ---------------------------------------------------------------------------
 
-extern "C" int honerf_color_dz(const float* packed, const float* dcolor, int M, float* dzf,
-                               __nv_bfloat16* dzb, int ld, int width, cudaStream_t stream) {
+template <typename T>
+static int honerf_color_dz_t(const float* packed, const float* dcolor, int M, float* dzf, T* dzb,
+                             int ld, int width, cudaStream_t stream) {
   size_t n = (size_t)M * width;
   if (n)
-    honerf::color_dz_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(packed, dcolor, M,
-                                                                           dzf, dzb, ld, width);
+    honerf::color_dz_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        packed, dcolor, M, dzf, dzb, ld, width);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int honerf_color_dz(const float* packed, const float* dcolor, int M, float* dzf,
+                               __nv_bfloat16* dzb, int ld, int width, cudaStream_t stream) {
+  return honerf_color_dz_t(packed, dcolor, M, dzf, dzb, ld, width, stream);
+}
+
+extern "C" int honerf_color_dz_f32(const float* packed, const float* dcolor, int M, float* dzf,
+                                   float* dzb, int ld, int width, cudaStream_t stream) {
+  return honerf_color_dz_t(packed, dcolor, M, dzf, dzb, ld, width, stream);
+}
+
+template <typename T>
+static int honerf_fine_bwd_rev_t(const float* pts, int M, const float* rotT, const float* off,
+                                 const float* cut, int vL, int rL, const float* packed,
+                                 const float* dsdf, const float* dg, const float* dx, int ldx,
+                                 int Ep, int F, int Fp, int L, T* du_b, T* du_s, int lddu,
+                                 float* dgt, float* dzf, T* dzb, int lddz, int Op,
+                                 cudaStream_t stream) {
+  if (M > 0)
+    honerf::fine_bwd_rev_kernel<T><<<(M + 7) / 8, 256, 0, stream>>>(
+        pts, M, rotT, off, cut, vL, rL, packed, dsdf, dg, dx, ldx, Ep, F, Fp, L, du_b, du_s, lddu,
+        dgt, dzf, dzb, lddz, Op);
   return (int)cudaGetLastError();
 }
 
@@ -329,10 +390,29 @@ extern "C" int honerf_fine_bwd_rev(const float* pts, int M, const float* rotT, c
                                    int Ep, int F, int Fp, int L, __nv_bfloat16* du_b,
                                    __nv_bfloat16* du_s, int lddu, float* dgt, float* dzf,
                                    __nv_bfloat16* dzb, int lddz, int Op, cudaStream_t stream) {
-  if (M > 0)
-    honerf::fine_bwd_rev_kernel<<<(M + 7) / 8, 256, 0, stream>>>(
-        pts, M, rotT, off, cut, vL, rL, packed, dsdf, dg, dx, ldx, Ep, F, Fp, L, du_b, du_s, lddu,
-        dgt, dzf, dzb, lddz, Op);
+  return honerf_fine_bwd_rev_t(pts, M, rotT, off, cut, vL, rL, packed, dsdf, dg, dx, ldx, Ep, F,
+                               Fp, L, du_b, du_s, lddu, dgt, dzf, dzb, lddz, Op, stream);
+}
+
+extern "C" int honerf_fine_bwd_rev_f32(const float* pts, int M, const float* rotT,
+                                       const float* off, const float* cut, int vL, int rL,
+                                       const float* packed, const float* dsdf, const float* dg,
+                                       const float* dx, int ldx, int Ep, int F, int Fp, int L,
+                                       float* du_b, float* du_s, int lddu, float* dgt,
+                                       float* dzf, float* dzb, int lddz, int Op,
+                                       cudaStream_t stream) {
+  return honerf_fine_bwd_rev_t(pts, M, rotT, off, cut, vL, rL, packed, dsdf, dg, dx, ldx, Ep, F,
+                               Fp, L, du_b, du_s, lddu, dgt, dzf, dzb, lddz, Op, stream);
+}
+
+// out[:256] (+)= the column sums of the pose rows P[:M, :256], fixed order;
+// ws holds ceil(M / split) partial rows.
+extern "C" int honerf_pose_sum(const float* P, int M, int split, float* ws, float* out, int acc,
+                               cudaStream_t stream) {
+  if (M <= 0 || split <= 0) return (int)cudaGetLastError();
+  const int S = (M + split - 1) / split;
+  honerf::pose_partial_kernel<<<S, 256, 0, stream>>>(P, M, split, ws);
+  honerf::pose_reduce_kernel<<<1, 256, 0, stream>>>(ws, S, out, acc);
   return (int)cudaGetLastError();
 }
 

@@ -30,6 +30,15 @@
 //   the card at these widths; the GEMMs bound it (PERF.md).  Right first:
 //   TMA/wgmma and fusing the launches are later work.
 //
+// f32 mode (FineMeta.dtype 'f32': the fitting stage's f32 trunks, JAX's
+//   e_dtype f32 at honerf_tpu/ops/fused_fine_full.py:1532): the same
+//   launches on f32 operands, e and every activation, t row and color
+//   input row in f32, each product by gemm_f32_kernel (common.cuh) on the
+//   CUDA cores.  Bound: operations, ~6.05 MFLOP a point at 67 TFLOP/s
+//   (FP32, outside the tensor cores), ~90 ms per million points; the
+//   scratch (~46 KB/pt) is twice bf16's, so the wrapper passes at most half
+//   as many points (balanced passes).
+//
 // No-color mode (`hand_fine_full`, the same pallas_call without the color
 //   net): the same launches up to fine_rev_kernel, which then writes only
 //   [sdf | g]; the last trunk layer stores z whole into the output and
@@ -41,13 +50,15 @@ namespace honerf {
 
 // Reverse chain: g = (d e / d p)^T u, one warp per point, lane = bone.
 // Writes packed[m] = [sdf | g | . . . | 0] (the color columns come from
-// the last color layer) and x2[m] = [bf16 feat (Fp) | grad-PE blocks].
+// the last color layer) and x2[m] = [feat (Fp) | grad-PE blocks] in the
+// operand type T (bf16, or f32 in the f32 mode).
+template <typename T>
 __global__ void fine_rev_kernel(const float* __restrict__ pts, int M,
                                 const float* __restrict__ rotT, const float* __restrict__ off,
                                 const float* __restrict__ cut, int vL, int rL,
                                 const float* __restrict__ u, int ldu,
                                 const float* __restrict__ z, int ldz, int F,
-                                __nv_bfloat16* __restrict__ x2, int ldx, int Fp, int L,
+                                T* __restrict__ x2, int ldx, int Fp, int L,
                                 float* __restrict__ packed) {
   int m = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   int j = threadIdx.x & 31;
@@ -79,9 +90,8 @@ __global__ void fine_rev_kernel(const float* __restrict__ pts, int M,
     out[7] = 0.f;
   }
   if (!x2) return;  // the no-color mode has no color net to feed
-  __nv_bfloat16* xr = x2 + (size_t)m * ldx;
-  for (int col = j; col < Fp; col += 32)
-    xr[col] = __float2bfloat16_rn(col < F ? zr[1 + col] : 0.f);
+  T* xr = x2 + (size_t)m * ldx;
+  for (int col = j; col < Fp; col += 32) xr[col] = from_f32<T>(col < F ? zr[1 + col] : 0.f);
   const int nblk = 1 + 2 * L;
   for (int i = j; i < ldx - Fp; i += 32) {
     int blk = i >> 3, ch = i & 7;
@@ -92,20 +102,36 @@ __global__ void fine_rev_kernel(const float* __restrict__ pts, int M,
       else if (blk <= L) val = sinf(gv * (float)(1 << (blk - 1)));
       else val = cosf(gv * (float)(1 << (blk - 1 - L)));
     }
-    xr[Fp + i] = __float2bfloat16_rn(val);
+    xr[Fp + i] = from_f32<T>(val);
   }
 }
 
 }  // namespace honerf
 
+template <typename T>
+static int honerf_fine_rev_t(const float* pts, int M, const float* rotT, const float* off,
+                             const float* cut, int vL, int rL, const float* u, int ldu,
+                             const float* z, int ldz, int F, T* x2, int ldx, int Fp, int L,
+                             float* packed, cudaStream_t stream) {
+  if (M > 0) {
+    honerf::fine_rev_kernel<T><<<(M + 7) / 8, 256, 0, stream>>>(
+        pts, M, rotT, off, cut, vL, rL, u, ldu, z, ldz, F, x2, ldx, Fp, L, packed);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int honerf_fine_rev(const float* pts, int M, const float* rotT, const float* off,
                                const float* cut, int vL, int rL, const float* u, int ldu,
                                const float* z, int ldz, int F, __nv_bfloat16* x2, int ldx,
                                int Fp, int L, float* packed, cudaStream_t stream) {
-  if (M > 0) {
-    honerf::fine_rev_kernel<<<(M + 7) / 8, 256, 0, stream>>>(pts, M, rotT, off, cut, vL, rL, u,
-                                                             ldu, z, ldz, F, x2, ldx, Fp, L,
-                                                             packed);
-  }
-  return (int)cudaGetLastError();
+  return honerf_fine_rev_t(pts, M, rotT, off, cut, vL, rL, u, ldu, z, ldz, F, x2, ldx, Fp, L,
+                           packed, stream);
+}
+
+extern "C" int honerf_fine_rev_f32(const float* pts, int M, const float* rotT, const float* off,
+                                   const float* cut, int vL, int rL, const float* u, int ldu,
+                                   const float* z, int ldz, int F, float* x2, int ldx, int Fp,
+                                   int L, float* packed, cudaStream_t stream) {
+  return honerf_fine_rev_t(pts, M, rotT, off, cut, vL, rL, u, ldu, z, ldz, F, x2, ldx, Fp, L,
+                           packed, stream);
 }

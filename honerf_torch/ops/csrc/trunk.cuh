@@ -19,16 +19,17 @@ namespace honerf {
 
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 
-// t[m, j] = bf16(W_last[j, 0] * s[m, j]): the first u-chain step, whose
-// input is the one-hot sdf column.
-__global__ void uchain_seed_kernel(const __nv_bfloat16* __restrict__ w, int ldw,
+// t[m, j] = T(W_last[j, 0] * s[m, j]): the first u-chain step, whose
+// input is the one-hot sdf column (T: bf16, or f32 in the f32 mode).
+template <typename T>
+__global__ void uchain_seed_kernel(const T* __restrict__ w, int ldw,
                                    const float* __restrict__ s, int width, int M,
-                                   __nv_bfloat16* __restrict__ t, int ldt) {
+                                   T* __restrict__ t, int ldt) {
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)M * width) return;
   int m = (int)(i / width), j = (int)(i % width);
-  float c = __bfloat162float(w[(size_t)j * ldw]);
-  t[(size_t)m * ldt + j] = __float2bfloat16_rn(c * s[(size_t)m * width + j]);
+  float c = to_f32(w[(size_t)j * ldw]);
+  t[(size_t)m * ldt + j] = from_f32<T>(c * s[(size_t)m * width + j]);
 }
 
 // ---------------------------------------------------------------------------
@@ -164,9 +165,6 @@ __global__ void colsum_partial_kernel(const float* __restrict__ Z, int ldz, int 
   ws[(size_t)blockIdx.x * N + col] = sum;
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // dst[m, c] = f32(src[m, c]) for c < width: a padded scratch row out into
 // an unpadded output row.
 template <typename T>
@@ -184,14 +182,25 @@ __global__ void copy_cols_kernel(const T* __restrict__ src, int lds, int M, int 
 // Plain C entry points (loaded with ctypes); each returns cudaGetLastError().
 // ---------------------------------------------------------------------------
 
-extern "C" int honerf_uchain_seed(const __nv_bfloat16* w, int ldw, const float* s, int width,
-                                  int M, __nv_bfloat16* t, int ldt, cudaStream_t stream) {
+template <typename T>
+static int honerf_uchain_seed_t(const T* w, int ldw, const float* s, int width, int M, T* t,
+                                int ldt, cudaStream_t stream) {
   size_t n = (size_t)M * width;
   if (n) {
-    honerf::uchain_seed_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(w, ldw, s,
-                                                                              width, M, t, ldt);
+    honerf::uchain_seed_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        w, ldw, s, width, M, t, ldt);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int honerf_uchain_seed(const __nv_bfloat16* w, int ldw, const float* s, int width,
+                                  int M, __nv_bfloat16* t, int ldt, cudaStream_t stream) {
+  return honerf_uchain_seed_t(w, ldw, s, width, M, t, ldt, stream);
+}
+
+extern "C" int honerf_uchain_seed_f32(const float* w, int ldw, const float* s, int width, int M,
+                                      float* t, int ldt, cudaStream_t stream) {
+  return honerf_uchain_seed_t(w, ldw, s, width, M, t, ldt, stream);
 }
 
 static inline int honerf_round_up(int x, int m) { return (x + m - 1) / m * m; }

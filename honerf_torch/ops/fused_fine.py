@@ -451,11 +451,13 @@ def type_trunk_lib(lib) -> None:
     """argtypes of the entry points of csrc/trunk.cuh, which every fine-pass
     library carries."""
     lib.honerf_uchain_seed.argtypes = [_P, _I, _P, _I, _I, _P, _I, _P]
+    lib.honerf_uchain_seed_f32.argtypes = [_P, _I, _P, _I, _I, _P, _I, _P]
     lib.honerf_gemm_tn.argtypes = [_P, _I, _I, _F, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P]
     lib.honerf_colsum.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P]
     lib.honerf_copy_cols.argtypes = [_P, _I, _I, _I, _P, _I, _P]
     lib.honerf_copy_cols_bf16.argtypes = [_P, _I, _I, _I, _P, _I, _P]
-    for fn in ("uchain_seed", "gemm_tn", "colsum", "copy_cols", "copy_cols_bf16"):
+    for fn in ("uchain_seed", "uchain_seed_f32", "gemm_tn", "colsum", "copy_cols",
+               "copy_cols_bf16"):
         getattr(lib, "honerf_" + fn).restype = _I
 
 
@@ -503,15 +505,15 @@ def _colsum(lib, Z, N, m, out, acc, ws, stream):
 
 
 def trunk_buffers(tm: TrunkMeta, C: int, dev, keep: bool):
-    """Scratch of cuda_trunk_forward for C points: bf16 activations and t
-    rows (two alternating ones, or with `keep` one per layer, and the f32
-    c rows), f32 sigmoid rows."""
+    """Scratch of cuda_trunk_forward for C points: activations and t rows
+    in the trunk dtype (two alternating ones, or with `keep` one per
+    layer, and the f32 c rows), f32 sigmoid rows."""
     n, Hp = tm.n_layers, tm.Hp
-    bf16, f32 = torch.bfloat16, torch.float32
+    op, f32 = _cast(tm), torch.float32
     n_act = n - 1 if keep else 2
     buf = dict(
-        acts=[torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(n_act)],
-        ts=[torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(n_act)],
+        acts=[torch.empty((C, Hp), device=dev, dtype=op) for _ in range(n_act)],
+        ts=[torch.empty((C, Hp), device=dev, dtype=op) for _ in range(n_act)],
         ss=torch.empty((n - 1, C, Hp), device=dev, dtype=f32),
     )
     if keep:
@@ -525,7 +527,8 @@ def trunk_buffers(tm: TrunkMeta, C: int, dev, keep: bool):
 def cuda_trunk_forward(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream, keep=False,
                        z=None, u=None) -> None:
     """The trunk forward and u-chain launches (K2's and K5's, and the
-    recompute of K3 and K6) on the first m rows of e (bf16, Ep columns):
+    recompute of K3 and K6) on the first m rows of e (the trunk dtype, Ep
+    columns; bf16, or f32 in the f32 mode, which K2 and K3 run):
     a_{l+1} = softplus(z_l) and s_l = sigmoid(beta z_l) into buf's acts
     and ss; the last layer into the first z.shape[1] columns of z (f32;
     None: not formed); the u-chain's t rows into buf's ts (with `keep`,
@@ -536,13 +539,15 @@ def cuda_trunk_forward(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream, 
     n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
     ss, acts, ts, cs = buf["ss"], buf["acts"], buf["ts"], buf.get("cs")
     gemm = FH.gemm
+    # the skip concat's scale: bf16(x * bf16(1/sqrt2)), or x * f32(1/sqrt2)
+    skip_scale = INV_SQRT2 if tm.dtype == "f32" else INV_SQRT2_BF16
     # trunk forward: a_{l+1} = softplus(z_l), ss[l] = sigmoid(beta z_l)
     a = None
     for l in range(n):
         if l == 0:
             A1, K1, A2, K2, scale = e, Ep, None, 0, 0.0
         elif l == tm.skip:
-            A1, K1, A2, K2, scale = a, Hp, e, Ep, INV_SQRT2_BF16
+            A1, K1, A2, K2, scale = a, Hp, e, Ep, skip_scale
         else:
             A1, K1, A2, K2, scale = a, Hp, None, 0, 0.0
         w = ws[l]
@@ -556,7 +561,8 @@ def cuda_trunk_forward(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream, 
                  n_store=z.shape[1], a_scale=scale, stream=stream)
     # u-chain: t_{n-2} = W_{n-1}[:, 0] * s_{n-2}, then m_l = t_l W_l^T
     t = ts[n - 2] if keep else ts[0]
-    _build.check(lib.honerf_uchain_seed(
+    seed = lib.honerf_uchain_seed_f32 if tm.dtype == "f32" else lib.honerf_uchain_seed
+    _build.check(seed(
         ws[n - 1].data_ptr(), ws[n - 1].stride(0), ss[n - 2].data_ptr(),
         Hp, m, t.data_ptr(), t.stride(0), stream), "honerf_uchain_seed")
     for l in range(n - 2, -1, -1):
@@ -581,17 +587,17 @@ def cuda_trunk_forward(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream, 
 
 def trunk_bwd_buffers(ws, tm: TrunkMeta, C: int, dev, width: int):
     """Scratch of cuda_trunk_backward for C points; dzf / dzb (the f32
-    and bf16 cotangent rows) `width` columns wide."""
+    and the trunk-dtype cotangent rows) `width` columns wide."""
     n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
-    bf16, f32 = torch.bfloat16, torch.float32
-    onehot = torch.zeros((C, Op), device=dev, dtype=bf16)
+    op, f32 = _cast(tm), torch.float32
+    onehot = torch.zeros((C, Op), device=dev, dtype=op)
     onehot[:, 0] = 1.0
     return dict(
         dzf=[torch.empty((C, width), device=dev, dtype=f32) for _ in range(2)],
-        dzb=[torch.empty((C, width), device=dev, dtype=bf16) for _ in range(2)],
-        du_b=torch.empty((C, Ep), device=dev, dtype=bf16),
-        du_s=torch.empty((C, Ep), device=dev, dtype=bf16),
-        dm=[torch.empty((C, Hp), device=dev, dtype=bf16) for _ in range(2)],
+        dzb=[torch.empty((C, width), device=dev, dtype=op) for _ in range(2)],
+        du_b=torch.empty((C, Ep), device=dev, dtype=op),
+        du_s=torch.empty((C, Ep), device=dev, dtype=op),
+        dm=[torch.empty((C, Hp), device=dev, dtype=op) for _ in range(2)],
         ds=torch.empty((n - 1, C, Hp), device=dev, dtype=f32),
         de=torch.empty((C, Ep), device=dev, dtype=f32),
         onehot=onehot,
@@ -602,13 +608,17 @@ def trunk_bwd_buffers(ws, tm: TrunkMeta, C: int, dev, width: int):
 def cuda_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, dbs,
                         want_dw: bool, acc: int, scratch, stream) -> None:
     """The trunk's backward launches (K3's and K6's) on m points after the
-    seeds: the u-chain transposed upward from bw's du_b = bf16(du) and
-    du_s = bf16(du / sqrt2), then the forward transposed downward from
-    the top cotangent in bw's dzf[0] / dzb[0]; dW and db into dws / dbs
-    (acc: add to them), the cotangent of e into bw's de (f32, Ep
-    columns).  buf: the forward's rows (cuda_trunk_forward, keep=True)."""
+    seeds: the u-chain transposed upward from bw's du_b = T(du) and
+    du_s = T(du / sqrt2) (T the trunk dtype), then the forward transposed
+    downward from the top cotangent in bw's dzf[0] / dzb[0]; dW and db
+    into dws / dbs (acc: add to them; bf16 only), the cotangent of e into
+    bw's de (f32, Ep columns).  buf: the forward's rows
+    (cuda_trunk_forward, keep=True)."""
     from honerf_torch.ops import fused_hand as FH
 
+    if want_dw and tm.dtype != "bf16":
+        raise NotImplementedError("the f32 backward with weight gradients is not ported "
+                                  "(ROADMAP B: K3 f32 with dW, K6 f32)")
     n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
     acts, ts, cs, ss = buf["acts"], buf["ts"], buf["cs"], buf["ss"]
     dzf, dzb, dm, ds, de = bw["dzf"], bw["dzb"], bw["dm"], bw["ds"], bw["de"]

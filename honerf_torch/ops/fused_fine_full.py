@@ -36,9 +36,11 @@ to the trunk dtype, and cotangents on all three.  The same kernels run
 without their color launches; the cotangents on e and on the features
 enter where the color net's input cotangent entered.
 On CUDA tensors the forward launches csrc/fused_fine_full.cu (K2) and the
-backward csrc/fused_fine_bwd.cu (K3), bf16 trunk only; on CPU tensors
-both run their plain versions (`hand_fine_color_plain`,
-`hand_fine_color_plain_bwd`).
+backward csrc/fused_fine_bwd.cu (K3): every mode with a bf16 trunk, and
+with an f32 trunk (`FineMeta.dtype = 'f32'`, the fitting stage's nets)
+the color mode's forward and its frozen backward (no weight gradient);
+on CPU tensors both run their plain versions (`hand_fine_color_plain`,
+`hand_fine_color_plain_bwd`) in either dtype.
 
 What bounds the kernels on an H100 and how their design answers that:
 the notes at the top of the two .cu files; their times: PERF.md.
@@ -64,6 +66,17 @@ CHUNK = 65536
 # points per pass of the CUDA backward: it keeps every activation, t and
 # c row of the forward besides the cotangents, ~77 KB/pt (~5 GB a chunk)
 BWD_CHUNK = 65536
+# the f32 mode's operand rows take twice the bytes: at most half as many
+# points a pass, so its scratch stays within the bf16 chunk's bytes
+
+
+def chunk_size(n: int, dtype: str, limit: int) -> int:
+    """Points per pass for n points: `limit` in bf16; in f32 at most
+    limit / 2, the passes balanced (rows a multiple of the GEMM tile)."""
+    if dtype == "bf16" or n <= limit // 2:
+        return min(n, limit)
+    passes = -(-n // (limit // 2))
+    return min(n, _round_up(-(-n // passes), 128))
 
 KERNEL = _build.Kernel(
     "hand_fine_color_fwd", "honerf_torch/ops/csrc/fused_fine_full.cu",
@@ -84,7 +97,7 @@ class FineMeta(NamedTuple):
     n_layers: int           # 9 linear layers
     skip: int               # 4
     d_out: int              # 257
-    dtype: str = "bf16"     # 'bf16' fast / 'f32' validation (CPU only)
+    dtype: str = "bf16"     # 'bf16' / 'f32' (the fitting stage's trunks)
     c_hidden: int = 256
     c_layers: int = 5       # linear layers of the color net
     grad_L: int = 4         # grad-PE frequencies
@@ -576,9 +589,10 @@ def _lib():
     lib = FH._lib("fused_fine_full")
     if not getattr(lib, "_honerf_fine_typed", False):
         FT.type_trunk_lib(lib)
-        lib.honerf_fine_rev.argtypes = [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I,
-                                        _I, _I, _P, _P]
-        lib.honerf_fine_rev.restype = _I
+        for fn in (lib.honerf_fine_rev, lib.honerf_fine_rev_f32):
+            fn.argtypes = [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P,
+                           _P]
+            fn.restype = _I
         lib._honerf_fine_typed = True
     return lib
 
@@ -587,15 +601,19 @@ def _bwd_lib():
     lib = FH._lib("fused_fine_bwd")
     if not getattr(lib, "_honerf_bwd_typed", False):
         FT.type_trunk_lib(lib)
-        lib.honerf_color_dz.argtypes = [_P, _P, _I, _P, _P, _I, _I, _P]
-        lib.honerf_color_dz.restype = _I
-        lib.honerf_fine_bwd_rev.argtypes = [
-            _P, _I, _P, _P, _P, _I, _I,      # pts, M, rotT, off, cut, vL, rL
-            _P, _P, _P, _P, _I,              # packed, dsdf, dg, dx, ldx
-            _I, _I, _I, _I,                  # Ep, F, Fp, L
-            _P, _P, _I, _P, _P, _P, _I, _I,  # du_b, du_s, lddu, dgt, dzf, dzb, lddz, Op
-            _P]
-        lib.honerf_fine_bwd_rev.restype = _I
+        for fn in (lib.honerf_color_dz, lib.honerf_color_dz_f32):
+            fn.argtypes = [_P, _P, _I, _P, _P, _I, _I, _P]
+            fn.restype = _I
+        for fn in (lib.honerf_fine_bwd_rev, lib.honerf_fine_bwd_rev_f32):
+            fn.argtypes = [
+                _P, _I, _P, _P, _P, _I, _I,      # pts, M, rotT, off, cut, vL, rL
+                _P, _P, _P, _P, _I,              # packed, dsdf, dg, dx, ldx
+                _I, _I, _I, _I,                  # Ep, F, Fp, L
+                _P, _P, _I, _P, _P, _P, _I, _I,  # du_b, du_s, lddu, dgt, dzf, dzb, lddz, Op
+                _P]
+            fn.restype = _I
+        lib.honerf_pose_sum.argtypes = [_P, _I, _I, _P, _P, _I, _P]
+        lib.honerf_pose_sum.restype = _I
         lib.honerf_fine_bwd_emb.argtypes = [
             _P, _I, _P, _P, _P, _I, _I,      # pts, M, rotT, off, cut, vL, rL
             _P, _I, _P, _P, _I, _P, _I,      # u, ldu, dgt, de, ldde, dx, ldx
@@ -620,7 +638,8 @@ def _fwd_chunk(lib, pts, m, rotT, off, cut, pack: FinePack, buf, packed, stream,
     FT.cuda_trunk_forward(lib, e, m, pack.ws, pack.bs, pack.wts, tm, buf, stream, keep=keep,
                           z=z, u=u)
     # reverse chain -> [sdf | g] into packed, [feat | grad-PE] into cx2
-    _build.check(lib.honerf_fine_rev(
+    rev = lib.honerf_fine_rev_f32 if meta.dtype == "f32" else lib.honerf_fine_rev
+    _build.check(rev(
         pts.data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
         meta.v_multires, meta.r_multires, u.data_ptr(), u.stride(0),
         z.data_ptr(), z.stride(0), meta.d_out - 1, FH._ptr(cx2), FH._ld(cx2),
@@ -644,16 +663,19 @@ def _fwd_chunk(lib, pts, m, rotT, off, cut, pack: FinePack, buf, packed, stream,
 
 
 def _fwd_buffers(pack: FinePack, C: int, dev, keep: bool):
+    """K2's scratch for C points: the GEMM operand rows (e, the color
+    input's second part, the color activations) in the trunk dtype, z and
+    u in f32."""
     meta, tm = pack.meta, pack.meta.trunk_meta
-    bf16, f32 = torch.bfloat16, torch.float32
+    op, f32 = FT._cast(tm), torch.float32
     buf = FT.trunk_buffers(tm, C, dev, keep)
-    buf.update(e=torch.empty((C, tm.Ep), device=dev, dtype=bf16),
+    buf.update(e=torch.empty((C, tm.Ep), device=dev, dtype=op),
                z=torch.empty((C, tm.Op), device=dev, dtype=f32),
                u=torch.empty((C, tm.Ep), device=dev, dtype=f32))
     if meta.with_color:
         cHp = pack.cws[0].shape[1]
-        buf.update(cx2=torch.empty((C, meta.Fp + meta.Gp), device=dev, dtype=bf16),
-                   cacts=[torch.empty((C, cHp), device=dev, dtype=bf16)
+        buf.update(cx2=torch.empty((C, meta.Fp + meta.Gp), device=dev, dtype=op),
+                   cacts=[torch.empty((C, cHp), device=dev, dtype=op)
                           for _ in range(meta.c_layers - 1 if keep else 2)])
     return buf
 
@@ -670,7 +692,7 @@ def _hand_fine_cuda(pts, rotT, off, cut, pack: FinePack):
         out = torch.empty((N, meta.d_out), device=dev, dtype=torch.float32)
         e_out = torch.empty((N, meta.emb_width), device=dev, dtype=torch.float32)
     if N:
-        C = min(N, CHUNK)
+        C = chunk_size(N, meta.dtype, CHUNK)
         buf = _fwd_buffers(pack, C, dev, keep=False)
         KERNEL.launches += 1
     for s in range(0, N, C if N else 1):
@@ -700,12 +722,12 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
     N = pts.shape[0]
     dp = torch.empty((N, 3), device=dev, dtype=f32)
     pose = torch.zeros((256,), device=dev, dtype=f32)
-    dws = tuple(torch.zeros(w.shape, device=dev, dtype=f32) for w in pack.ws)
-    dbs = tuple(torch.zeros(b.shape, device=dev, dtype=f32) for b in pack.bs)
-    dcws = tuple(torch.zeros(w.shape, device=dev, dtype=f32) for w in pack.cws)
-    dcbs = tuple(torch.zeros(b.shape, device=dev, dtype=f32) for b in pack.cbs)
+    # the weight gradients' sums, only where they are asked for
+    zeros = lambda ts: tuple(torch.zeros(t.shape, device=dev, dtype=f32)  # noqa: E731
+                             for t in ts) if want_dw else None
+    dws, dbs, dcws, dcbs = zeros(pack.ws), zeros(pack.bs), zeros(pack.cws), zeros(pack.cbs)
     dg = cts[1]
-    C = min(N, BWD_CHUNK)
+    C = chunk_size(N, meta.dtype, BWD_CHUNK)
     if C:
         buf = _fwd_buffers(pack, C, dev, keep=True)
         packed = torch.empty((C, 8), device=dev, dtype=f32)
@@ -723,6 +745,7 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
             dx = torch.zeros((C, meta.color_in), device=dev, dtype=f32)
             dsdf_c = torch.empty((C, 1), device=dev, dtype=f32)
         KERNEL_BWD.launches += 1
+    f32_mode = meta.dtype == "f32"
     for s in range(0, N, C or 1):
         m = min(C, N - s)
         acc = int(s > 0)
@@ -742,7 +765,8 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
             dsdf = dsdf_c
         # reverse-chain transpose at dg (+ the grad-PE term) -> du, and the
         # trunk's top cotangent [dsdf | dfeat]
-        _build.check(blib.honerf_fine_bwd_rev(
+        bwd_rev = blib.honerf_fine_bwd_rev_f32 if f32_mode else blib.honerf_fine_bwd_rev
+        _build.check(bwd_rev(
             pts[s:].data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
             meta.v_multires, meta.r_multires, packed.data_ptr(), dsdf.data_ptr(),
             dg[s:].data_ptr(), dx.data_ptr(), dx.stride(0), Ep, F, meta.Fp, meta.grad_L,
@@ -757,7 +781,9 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
             meta.v_multires, meta.r_multires, buf["u"].data_ptr(), buf["u"].stride(0),
             dgt.data_ptr(), bw["de"].data_ptr(), bw["de"].stride(0), dx.data_ptr(), dx.stride(0),
             dp[s:].data_ptr(), pose_rows.data_ptr(), stream), "honerf_fine_bwd_emb")
-        FT._colsum(blib, pose_rows, 256, m, pose, acc, ws, stream)
+        _build.check(blib.honerf_pose_sum(pose_rows.data_ptr(), m, FT._COLSUM_ROWS,
+                                          ws.data_ptr(), pose.data_ptr(), acc, stream),
+                     "honerf_pose_sum")
     drotT, doff = _zero_pose_grads(pts)
     drotT[:3, :63] = pose[:192].reshape(3, 64)[:, :63]
     doff[0, :63] = pose[192:255]
@@ -775,9 +801,9 @@ def _color_bwd_cuda(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, 
     the color input's cotangent into dx."""
     meta, Ep = pack.meta, pack.meta.trunk_meta.Ep
     e, cx2 = buf["e"], buf["cx2"]
-    _build.check(blib.honerf_color_dz(packed.data_ptr(), dcolor.data_ptr(), m,
-                                      dzf[0].data_ptr(), dzb[0].data_ptr(),
-                                      dzf[0].stride(0), pack.cws[-1].shape[1], stream),
+    color_dz = blib.honerf_color_dz_f32 if meta.dtype == "f32" else blib.honerf_color_dz
+    _build.check(color_dz(packed.data_ptr(), dcolor.data_ptr(), m, dzf[0].data_ptr(),
+                          dzb[0].data_ptr(), dzf[0].stride(0), pack.cws[-1].shape[1], stream),
                  "honerf_color_dz")
     cur = 0
     for l in range(meta.c_layers - 1, -1, -1):
@@ -808,22 +834,31 @@ def _color_bwd_cuda(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, 
 # Entry points
 # ---------------------------------------------------------------------------
 
-def _check_cuda_pack(pack: FinePack):
-    if pack.meta.dtype != "bf16" or pack.wts is None:
-        raise ValueError("the CUDA fine pass takes a bf16 pack made on the card")
+def _check_cuda_pack(pack: FinePack, want_dw: bool = False):
+    """Raise on a pack the kernels do not take: one made off the card, or
+    an f32 mode still to be ported (ROADMAP B: the f32 no-color mode and
+    the f32 backward with weight gradients)."""
+    meta = pack.meta
+    if meta.dtype not in ("bf16", "f32") or pack.wts is None:
+        raise ValueError("the CUDA fine pass takes a bf16 or f32 pack made on the card")
+    if meta.dtype == "f32" and not meta.with_color:
+        raise NotImplementedError("K2/K3 f32 without the color net are not ported (ROADMAP B)")
+    if meta.dtype == "f32" and want_dw:
+        raise NotImplementedError("K3 f32 with weight gradients is not ported (ROADMAP B); "
+                                  "the f32 backward runs frozen (want_dw=False)")
 
 
 def hand_fine_color_fwd(pts, rotT, off, cut, pack: FinePack):
     """(N, 3) points -> (sdf (N,), g (N, 3), color (N, 3)), or without
     pack.meta.with_color (out (N, d_out), g (N, 3), e (N, E)), on a
-    FinePack.  CUDA tensors launch the forward kernel (bf16 trunk only);
-    CPU tensors run the plain version.  No gradient flows through it."""
+    FinePack.  CUDA tensors launch the forward kernel (bf16, or f32 with
+    the color net); CPU tensors run the plain version.  No gradient flows through it."""
     FH.check_operands(pts, rotT, off, cut, (), pack.bs + pack.cbs)
     with torch.no_grad():
         if pts.device.type == "cuda":
             _check_cuda_pack(pack)
             FH.check_operands(pts, rotT, off, cut, pack.ws + pack.cws + pack.wts,
-                              pack.bs + pack.cbs)
+                              pack.bs + pack.cbs, FT._cast(pack.meta.trunk_meta))
             return _hand_fine_cuda(pts, rotT, off, cut, pack)
         if pts.device.type != "cpu":
             raise ValueError(f"unsupported device {pts.device}")
@@ -835,8 +870,9 @@ def hand_fine_color_bwd(pts, rotT, off, cut, pack: FinePack, ct0, dg, ct2,
     """The backward at the cotangents on the forward's outputs, in kernel
     layout: (ct0, dg, ct2) = (dsdf (N,), dg (N, 3), dcolor (N, 3)), or
     without pack.meta.with_color (dout (N, d_out), dg (N, 3), de (N, E)),
-    dcws / dcbs then None.  CUDA tensors launch the backward kernel (bf16
-    trunk only); CPU tensors run the plain version."""
+    dcws / dcbs then None.  CUDA tensors launch the backward kernel (bf16;
+    f32 with the color net and want_dw=False, the frozen nets of pose
+    fitting); CPU tensors run the plain version."""
     N, meta = pts.shape[0], pack.meta
     if meta.with_color:
         cts, shapes = (ct0.reshape(N), dg, ct2), ((N,), (N, 3), (N, 3))
@@ -849,9 +885,10 @@ def hand_fine_color_bwd(pts, rotT, off, cut, pack: FinePack, ct0, dg, ct2,
             raise ValueError(f"cotangent must be {shape} on {pts.device}")
     with torch.no_grad():
         if pts.device.type == "cuda":
-            _check_cuda_pack(pack)
+            _check_cuda_pack(pack, want_dw)
             FH.check_operands(pts, rotT, off, cut,
-                              pack.ws + pack.cws + pack.wts + pack.cwts, pack.bs + pack.cbs)
+                              pack.ws + pack.cws + pack.wts + pack.cwts, pack.bs + pack.cbs,
+                              FT._cast(pack.meta.trunk_meta))
             return _hand_fine_bwd_cuda(pts, rotT, off, cut, pack, cts, want_dw)
         if pts.device.type != "cpu":
             raise ValueError(f"unsupported device {pts.device}")
@@ -924,6 +961,8 @@ def hand_fine_color(pts, rotT, off, cut, ws, bs, cws, cbs, meta: FineMeta):
     (color layer 0 in the reference row order).  Without meta.with_color
     it is JAX's hand_fine_full: cws = cbs = (), and it returns (out (N,
     d_out), g (N, 3), e (N, E)), e the embedding rounded to the trunk
-    dtype.  CUDA tensors launch the kernels (bf16 trunk only), CPU tensors
-    run the plain versions."""
+    dtype.  CUDA tensors launch the kernels (bf16; f32 with the color net
+    and frozen weights, i.e. none needing a gradient), CPU tensors run the
+    plain versions."""
     return _HandFine.apply(meta, pts, rotT, off, cut, *ws, *bs, *cws, *cbs)
+

@@ -145,19 +145,24 @@ _F = ctypes.c_float
 EPI_F32, EPI_SOFTPLUS, EPI_RELU, EPI_SIGMOID, EPI_UCHAIN = range(5)
 
 
+_GEMM_ARGS = [
+    _P, _I, _I, _P, _I, _I, _F,      # A1, lda1, K1, A2, lda2, K2, a_scale
+    _P, _I, _I, _P, _I,              # B, ldb, N, bias, M
+    _I, _P, _I, _I,                  # mode, C, ldc, n_store
+    _P, _I, _P, _I, _I, _F, _F, _I,  # S, lds, U, ldu, split, hscale, escale, u_acc
+    _P, _I, _P, _I, _P, _I, _P, _I,  # Cf, ldcf, DS, ldds, CS, ldcs, Act, ldact
+    _P]                              # stream
+
+
 def _lib(name: str):
     lib = _build.load(name)
     if not getattr(lib, "_honerf_typed", False):
-        lib.honerf_hand_embed.argtypes = [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P]
-        lib.honerf_hand_embed.restype = _I
-        lib.honerf_gemm.argtypes = [
-            _P, _I, _I, _P, _I, _I, _F,      # A1, lda1, K1, A2, lda2, K2, a_scale
-            _P, _I, _I, _P, _I,              # B, ldb, N, bias, M
-            _I, _P, _I, _I,                  # mode, C, ldc, n_store
-            _P, _I, _P, _I, _I, _F, _F, _I,  # S, lds, U, ldu, split, hscale, escale, u_acc
-            _P, _I, _P, _I, _P, _I, _P, _I,  # Cf, ldcf, DS, ldds, CS, ldcs, Act, ldact
-            _P]                              # stream
-        lib.honerf_gemm.restype = _I
+        for fn in ("honerf_hand_embed", "honerf_hand_embed_f32"):
+            getattr(lib, fn).argtypes = [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P]
+            getattr(lib, fn).restype = _I
+        for fn in ("honerf_gemm", "honerf_gemm_f32"):
+            getattr(lib, fn).argtypes = _GEMM_ARGS
+            getattr(lib, fn).restype = _I
         lib._honerf_typed = True
     return lib
 
@@ -170,32 +175,48 @@ def _ld(t) -> int:
     return 0 if t is None else t.stride(0)
 
 
+def _f32(t) -> bool:
+    """True for an f32 operand (the f32 trunk mode's kernel variants),
+    False for bf16."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel operands are bf16 or f32, got {t.dtype}")
+    return t.dtype == torch.float32
+
+
 def gemm(lib, A1, K1, A2, K2, B, N, bias, M, mode, C, ldc, n_store=0, a_scale=0.0,
          S=None, U=None, split=0, hscale=1.0, escale=1.0, u_acc=0, Cf=None, DS=None,
          CS=None, cs_ld=None, Act=None, stream=None):
-    """One launch of the shared bf16 GEMM + epilogue (see csrc/common.cuh).
-    A = concat(A1[:, :K1], A2[:, :K2]) optionally rounded through
-    bf16(x * a_scale); B (K1+K2, N) row-major.  Cf/DS/CS/Act are the
-    backward epilogues' extra rows (CS may be one row for every point:
+    """One launch of the shared GEMM + epilogue (see csrc/common.cuh): the
+    bf16 tensor-core kernel, or on f32 operands the f32 one.
+    A = concat(A1[:, :K1], A2[:, :K2]) optionally scaled through
+    T(x * a_scale); B (K1+K2, N) row-major, of A's type.  Cf/DS/CS/Act are
+    the backward epilogues' extra rows (CS may be one row for every point:
     cs_ld=0)."""
-    rc = lib.honerf_gemm(
+    f32 = _f32(A1)
+    if _f32(B) != f32 or (A2 is not None and _f32(A2) != f32):
+        raise ValueError("the GEMM's operands must share one type")
+    fn = lib.honerf_gemm_f32 if f32 else lib.honerf_gemm
+    rc = fn(
         _ptr(A1), A1.stride(0), K1, _ptr(A2), _ld(A2), K2,
         a_scale, _ptr(B), B.stride(0), N, _ptr(bias), M,
         mode, _ptr(C), ldc, n_store,
         _ptr(S), _ld(S), _ptr(U), _ld(U), split, hscale, escale, u_acc,
         _ptr(Cf), _ld(Cf), _ptr(DS), _ld(DS), _ptr(CS), _ld(CS) if cs_ld is None else cs_ld,
         _ptr(Act), _ld(Act), stream)
-    _build.check(rc, "honerf_gemm")
+    _build.check(rc, "honerf_gemm_f32" if f32 else "honerf_gemm")
 
 
 def embed(lib, pts, m, rotT, off, cut, vL, rL, e, stream):
-    rc = lib.honerf_hand_embed(pts.data_ptr(), m, rotT.data_ptr(), off.data_ptr(),
-                               cut.data_ptr(), vL, rL, e.data_ptr(), e.stride(0), stream)
+    """The hand embedding of m points into e (bf16, or f32 for an f32 e)."""
+    fn = lib.honerf_hand_embed_f32 if _f32(e) else lib.honerf_hand_embed
+    rc = fn(pts.data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(), vL, rL,
+            e.data_ptr(), e.stride(0), stream)
     _build.check(rc, "honerf_hand_embed")
 
 
-def check_operands(pts, rotT, off, cut, ws, bs) -> None:
-    """Raise on anything the kernels do not take."""
+def check_operands(pts, rotT, off, cut, ws, bs, w_dtype=torch.bfloat16) -> None:
+    """Raise on anything the kernels do not take; weights of w_dtype (bf16,
+    or f32 for the f32 trunk mode)."""
     dev = pts.device
     if pts.dim() != 2 or pts.shape[1] != 3 or pts.dtype != torch.float32:
         raise ValueError(f"pts must be (N, 3) float32, got {tuple(pts.shape)} {pts.dtype}")
@@ -209,8 +230,8 @@ def check_operands(pts, rotT, off, cut, ws, bs) -> None:
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
     for w in ws:
-        if w.dtype != torch.bfloat16 or w.shape[0] % 32 or w.shape[1] % 64:
-            raise ValueError("weights must be bf16 with rows % 32 == 0, cols % 64 == 0")
+        if w.dtype != w_dtype or w.shape[0] % 32 or w.shape[1] % 64:
+            raise ValueError(f"weights must be {w_dtype} with rows % 32 == 0, cols % 64 == 0")
     for b in bs:
         if b.dtype != torch.float32:
             raise ValueError("biases must be float32")

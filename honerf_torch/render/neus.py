@@ -22,8 +22,10 @@ the fine pass runs in one of the modes of `train.fused_fine`:
   None            the autograd field.
 Each kernel mode runs forward-only on weights packed once per parameter
 snapshot (eval), or as a differentiable op that packs on each call
-(training).  Each launches its CUDA kernels on a CUDA tensor and runs its
-plain version on a CPU tensor.
+(training); on weights that need no gradient (pose fitting's frozen
+nets) that op's backward launches no weight work (K3 frozen, f32 for the
+fit confs' f32 trunks).  Each launches its CUDA kernels on a CUDA tensor
+and runs its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -121,8 +123,8 @@ class HandPacks(NamedTuple):
 def pack_hand_field(params: Dict[str, Any], sdf_cfg: SDFConfig, color_cfg: ColorConfig,
                     fused_ladder: bool, fine: Optional[str], grad: bool = False) -> HandPacks:
     """Pack the weights once per parameter snapshot.  fused_ladder: the
-    ladder's sdf_fn is ops.fused_hand (bf16 weights, no gradient; the
-    ladder needs none).  fine: the fine pass's mode, forward only on a
+    ladder's sdf_fn is ops.fused_hand (bf16 weights whatever the trunk's
+    dtype, no gradient; the ladder needs none).  fine: the fine pass's mode, forward only on a
     pack, or the differentiable op when `grad`."""
     from honerf_torch.ops.fused_hand import FusedHandSDF
 

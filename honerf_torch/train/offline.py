@@ -131,7 +131,8 @@ def select_fine_pass(tcfg: TrainHyper, sdf_cfg: SDFConfig, device) -> Optional[s
         return "pallas"
     if want in FINE_MODES:
         if on_card and not bf16:
-            kernels = "K5/K6" if want == "pallas" else "K2/K3"
+            kernels = {"pallas": "K5/K6", "full": "K3 with weight gradients"}.get(
+                want, "K2/K3 without the color net")
             raise NotImplementedError(
                 f"train.fused_fine = {want!r} with an f32 trunk: the f32 mode of {kernels} is "
                 "not ported (ROADMAP B); use trunk_dtype = bf16")
