@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""What the card-side checks of K3 (the fine pass's backward) and K6 (the
-trunk + u-chain's backward) catch: each check is read on the sound
-kernels and on planted faults.
+"""What the card-side checks of K3 (the fine pass's backward), K6 (the
+trunk + u-chain's backward), their f32 modes and the fit step catch: each
+check is read on the sound kernels and on planted faults.
 
     python3 check_k3_faults.py [--out readings.json] [--only sound,k6_du_skip_unscaled]
 
@@ -11,7 +11,9 @@ honerf_torch/ops/fused_fine.py and fused_fine_full.py; K3 and K6 share the
 trunk's backward launches and epilogues, so a fault there breaks both),
 made in a copy of honerf_torch under build/k3_faults/<name>/, whose kernels
 build there; a child process runs the checks on that copy.  "sound" is an
-unedited copy.  The checks, with the limits they hold:
+unedited copy and reads every check; a fault reads the checks of its
+groups (bf16: the first seven below, f32: the next five, fit: the last
+six).  The checks, with the limits they hold:
 
   kernel  chip_smoke.py's K3 phase on one flagship train step's own
           inputs (chip_smoke.k3_check; 56,448 points; the batch and
@@ -36,7 +38,41 @@ unedited copy.  The checks, with the limits they hold:
   k6unit  chip_smoke.py's K6 phase on unit cotangents at that step's
           embedding (seed 0, and 0-1 for the sound kernel), caught above 1;
   k6step  chip_smoke.py's train check pallas: the step check above with
-          train.fused_fine = 'pallas' (seed 1, and 1-2 for the sound kernel).
+          train.fused_fine = 'pallas' (seed 1, and 1-2 for the sound kernel);
+  f32k3   chip_smoke.py's kernel K3 f32 phase (chip_smoke.f32_bwd_check):
+          K3 f32 with dW on what one flagship f32 'full' step hands it
+          (56,448 points, two passes), every output against TOL_F32 in L2
+          (seed 0, and 0-1 for the sound kernel);
+  f32nc   chip_smoke.py's kernel K2/K3 f32 no-color phase: K2 f32 without
+          the color net (out, g, e against TOL_F32 of the range) and K3 f32
+          without it, with dW, under the rule above (seed 0);
+  f32k6   chip_smoke.py's kernel K5/K6 f32 phase: K5 f32 and K6 f32 with dW
+          (seed 0);
+  f32step chip_smoke.py's train check f32: one 64-ray f32 step per mode
+          ('full', 'full_nocolor', 'pallas') against the CPU's, against
+          TOL_TRAIN_F32_LOSS and TOL_TRAIN_F32_GRAD (seed 1);
+  f32unit tests/test_torch_cuda.py's f32 backward rule on unit cotangents
+          (f32_bwd_rule_readings: K3 with and without the color net, K6,
+          at F32_BWD_CASES): L2 over TOL_F32 of the norm (caught above 1);
+  fitf64  chip_smoke.py's fit check against the CPU's f64 step (seed 2):
+          the worst ratio to its limit, of the whole step and of the
+          render terms' hand-pose gradients (caught above 1);
+  fitgrid the fit check on rays that meet the hand head on, no K1: the
+          card's step against the CPU's f32 step in each fine-pass mode,
+          the whole pose gradient against TOL_FIT_HEAD_ON and the render
+          terms' hand-pose gradients against TOL_FIT_RENDER (seed 2);
+  fitk1   the same rays with K1 (seeds 2-4 for the sound kernel, 2 for a
+          fault): the f64 rule of fitf64 at the card's samples, and K1 at
+          the step's own ladder points against its plain version (median
+          and max of the range against TOL_MEDIAN, TOL_MAX);
+  fitk3   chip_smoke.py's kernel K3 f32 frozen phase: the frozen K3 f32 on
+          a fit step's own inputs and on unit cotangents at its points
+          (chip_smoke.f32_bwd_check), dp, drotT, doff against TOL_F32;
+  fitnc   chip_smoke.py's kernel fit modes f32 phase, 'full_nocolor': K2
+          f32 without the color net at a '12' fit step's points (out, g, e
+          against TOL_F32 of the range) and the frozen K3 f32 without it on
+          the step's cotangents and on unit cotangents, L2 against TOL_F32;
+  fitk6   the same phase, 'pallas': K5 f32 (out, u) and the frozen K6 f32.
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -61,44 +97,80 @@ _CUH = "honerf_torch/ops/csrc/common.cuh"
 _K6_CU = "honerf_torch/ops/csrc/fused_trunk.cu"
 _TRUNK_PY = "honerf_torch/ops/fused_fine.py"
 
-# name -> (what it breaks, file, text, replacement); the text must occur
-# exactly once in the file
+_TRUNK_CUH = "honerf_torch/ops/csrc/trunk.cuh"
+_FULL_PY = "honerf_torch/ops/fused_fine_full.py"
+_K1_PY = "honerf_torch/ops/fused_hand.py"
+
+# name -> (what it breaks, file, text, replacement, groups of checks it is
+# read by); the text must occur exactly once in the file
 FAULTS = {
     "dz_no_ds": (
         "the trunk's dz drops its second-order term ds beta s (1 - s) (K3 and K6)", _CUH,
         "z[i] = (z[i] * p.hscale) * sv[i] + dsv[i] * ((kBeta * sv[i]) * (1.f - sv[i]));",
-        "z[i] = (z[i] * p.hscale) * sv[i] + 0.f * dsv[i];"),
+        "z[i] = (z[i] * p.hscale) * sv[i] + 0.f * dsv[i];", ("bf16",)),
     "db_from_bf16": (
         "the trunk's db summed from the bf16 copy of dz (K3 and K6)", _TRUNK_PY,
         "_colsum(lib, dzf[cur], width, m, dbs[l], acc, scratch, stream)",
-        "_colsum(lib, dzb[cur].float(), width, m, dbs[l], acc, scratch, stream)"),
+        "_colsum(lib, dzb[cur].float(), width, m, dbs[l], acc, scratch, stream)", ("bf16",)),
     "dw_skip_unscaled": (
         "the skip layer's dW rows of the embedding miss the concat's 1/sqrt2 (K3 and K6)",
         _TRUNK_PY,
         "_tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, scratch, stream,\n"
-        "                    x_scale=INV_SQRT2_BF16)",
-        "_tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, scratch, stream)"),
+        "                    x_scale=skip_scale)",
+        "_tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, scratch, stream)", ("bf16",)),
     "doff_no_v2p": (
         "doff misses the v2p term of dq", _CU,
         "Pr[192 + col] = dq[k];",
-        "Pr[192 + col] = dq[k] - 2.f * st.q[k] * dv2p;"),
+        "Pr[192 + col] = dq[k] - 2.f * st.q[k] * dv2p;", ("bf16", "fit")),
     "doff_1pct": (
         "doff 1% high", _CU,
         "Pr[192 + col] = dq[k];",
-        "Pr[192 + col] = dq[k] * 1.01f;"),
+        "Pr[192 + col] = dq[k] * 1.01f;", ("bf16", "fit")),
     "color_db_1pct": (
         "the last color layer's db 1% high", _CU,
         "dzf[(size_t)m * ld + c] = v;",
-        "dzf[(size_t)m * ld + c] = v * 1.01f;"),
+        "dzf[(size_t)m * ld + c] = v * 1.01f;", ("bf16",)),
     "fwd_skip_unscaled": (
         "the forward's u-chain misses 1/sqrt2 at the skip (K2, K5, and the recompute of K3 "
         "and K6)", _TRUNK_PY,
         "U=u, split=Hp, hscale=INV_SQRT2,",
-        "U=u, split=Hp, hscale=1.0,"),
+        "U=u, split=Hp, hscale=1.0,", ("bf16",)),
     "k6_du_skip_unscaled": (
         "K6 takes du unscaled at the skip (bf16(du) for bf16(du / sqrt2))", _K6_CU,
-        "du_s[(size_t)m * lddu + c] = __float2bfloat16_rn(v * kInvSqrt2);",
-        "du_s[(size_t)m * lddu + c] = __float2bfloat16_rn(v);"),
+        "du_s[(size_t)m * lddu + c] = from_f32<T>(v * kInvSqrt2);",
+        "du_s[(size_t)m * lddu + c] = from_f32<T>(sizeof(T) == 2 ? v : v * kInvSqrt2);",
+        ("bf16",)),
+    "f32_tn_no_xscale": (
+        "the f32 TN GEMM drops x_scale (the skip rows' 1/sqrt2 in every f32 dW)", _TRUNK_CUH,
+        "x.x *= p.x_scale; x.y *= p.x_scale; x.z *= p.x_scale; x.w *= p.x_scale;",
+        "(void)0;", ("f32", "fit")),
+    "k6_f32_du_skip_unscaled": (
+        "K6 f32 takes du unscaled at the skip (du for du / sqrt2)", _K6_CU,
+        "du_s[(size_t)m * lddu + c] = from_f32<T>(v * kInvSqrt2);",
+        "du_s[(size_t)m * lddu + c] = from_f32<T>(sizeof(T) == 4 ? v : v * kInvSqrt2);",
+        ("f32", "fit")),
+    "f32_nocolor_de_block": (
+        "K3 f32 without the color net drops the cotangent on e's last 64 columns", _FULL_PY,
+        "FT.copy_cols(blib, de_ext, m, E, dx, stream)",
+        "FT.copy_cols(blib, de_ext, m, E - 64 if f32_mode else E, dx, stream)",
+        ("f32", "fit")),
+    "f32_dw_no_acc": (
+        "K3 f32's dW and db do not accumulate across point passes (each pass overwrites)",
+        _FULL_PY,
+        "FT.cuda_trunk_backward(blib, m, e, pack.ws, pack.wts, tm, buf, bw, dws, dbs, want_dw,\n"
+        "                               acc, ws, stream)",
+        "FT.cuda_trunk_backward(blib, m, e, pack.ws, pack.wts, tm, buf, bw, dws, dbs, want_dw,\n"
+        "                               0 if f32_mode else acc, ws, stream)", ("f32", "fit")),
+    "k1_ladder_bias": (
+        "K1 (the fit's hand ladder) returns sdf + 5e-3", _K1_PY,
+        "out[s:], 1, n_store=1, a_scale=scale, stream=stream)",
+        "out[s:], 1, n_store=1, a_scale=scale, stream=stream)\n"
+        "                out[s:s + m] += 5e-3", ("fit",)),
+    "drotT_no_dg_term": (
+        "K3's drotT misses its dg^T f_q term (every mode, the fit's frozen f32 one included)",
+        _CU,
+        "Pr[a * 64 + col] = t[a] * ch.f_q[k] + p[a] * dq[k];",
+        "Pr[a * 64 + col] = p[a] * dq[k];", ("fit",)),
 }
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
@@ -106,6 +178,8 @@ STEP_SEEDS = {"sound": (1, 2, 3, 4)}
 K6_SEEDS = {"sound": (0, 1, 2)}
 K6UNIT_SEEDS = {"sound": (0, 1)}
 K6STEP_SEEDS = {"sound": (1, 2)}
+F32_SEEDS = {"sound": (0, 1)}
+FITK1_SEEDS = {"sound": (2, 3, 4)}
 
 
 def prepare(name: str) -> str:
@@ -115,7 +189,7 @@ def prepare(name: str) -> str:
     shutil.copytree(os.path.join(ROOT, "honerf_torch"), os.path.join(root, "honerf_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     if name != "sound":
-        _, rel, text, repl = FAULTS[name]
+        _, rel, text, repl, _ = FAULTS[name]
         path = os.path.join(root, rel)
         with open(path) as f:
             src = f.read()
@@ -126,9 +200,21 @@ def prepare(name: str) -> str:
     return root
 
 
+def fwd_rows(CS, torch, names, got, want):
+    """[what, max |err| / range, within TOL_F32 at the median and max] of
+    an f32 forward against its plain version."""
+    rows = []
+    for w, a, b in zip(names, got, want):
+        ok = CS.compare(torch, w, a, b, CS.TOL_F32, CS.TOL_F32)[0]
+        _, _, mx, scale = CS.err_readings(torch, a, b)
+        rows.append([w, mx / scale, ok])
+    return rows
+
+
 def child(name: str, root: str) -> None:
-    """Run the three checks on the package under root; print the readings
-    as one JSON line."""
+    """Run the checks of the fault's group (every check for the sound
+    kernels) on the package under root; print the readings as one JSON
+    line."""
     sys.path.insert(0, root)
     import torch
 
@@ -148,38 +234,108 @@ def child(name: str, root: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     _build.build_all()
-    fs = CS.flagship(torch, dev)
-    out = {"fault": name, "kernel": {}, "kunit": {}, "unit": {}, "step": {}, "k6": {},
-           "k6unit": {}, "k6step": {}}
-    for seed in KERNEL_SEEDS.get(name, (0,)):
-        args = CS.step_bwd_inputs(torch, fs, dev, seed)
-        _, rows = CS.k3_check(torch, args)
-        out["kernel"][str(seed)] = [[r.what, r.l2, r.med, r.mx, r.ok] for r in rows]
-        if seed in KUNIT_SEEDS.get(name, (0,)):
-            out["kunit"][str(seed)] = [[r.what, r.ratio, r.err, r.floor, r.norm]
-                                       for r in CS.k3_unit_check(torch, args)]
-    for case, (sdf_kw, n) in TC.BWD_CASES.items():
-        out["unit"][case] = TC.bwd_rule_readings(sdf_kw, n, dev)[1]
-    for seed in STEP_SEEDS.get(name, (1,)):
-        r = CS.train_check_readings(torch, fs, dev, seed)
-        out["step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
-    for seed in K6_SEEDS.get(name, (0,)):
-        args = CS.step_bwd_inputs(torch, fs, dev, seed, mode="pallas")
-        _, rows = CS.k3_check(torch, args, "pallas")
-        out["k6"][str(seed)] = [[r.what, r.l2, r.med, r.mx, r.ok] for r in rows]
-        if seed in K6UNIT_SEEDS.get(name, (0,)):
-            out["k6unit"][str(seed)] = [[r.what, r.ratio, r.err, r.floor, r.norm]
-                                        for r in CS.k3_unit_check(torch, args, mode="pallas")]
-    for seed in K6STEP_SEEDS.get(name, (1,)):
-        r = CS.train_check_readings(torch, fs, dev, seed, mode="pallas")
-        out["k6step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
+    groups = ("bf16", "f32", "fit") if name == "sound" else FAULTS[name][4]
+    out = {"fault": name}
+    if "bf16" in groups:
+        out.update({k: {} for k in ("kernel", "kunit", "unit", "step", "k6", "k6unit",
+                                    "k6step")})
+        fs = CS.flagship(torch, dev)
+        for seed in KERNEL_SEEDS.get(name, (0,)):
+            args = CS.step_bwd_inputs(torch, fs, dev, seed)
+            _, rows = CS.k3_check(torch, args)
+            out["kernel"][str(seed)] = [[r.what, r.l2, r.med, r.mx, r.ok] for r in rows]
+            if seed in KUNIT_SEEDS.get(name, (0,)):
+                out["kunit"][str(seed)] = [[r.what, r.ratio, r.err, r.floor, r.norm]
+                                           for r in CS.k3_unit_check(torch, args)]
+        for case, (sdf_kw, n) in TC.BWD_CASES.items():
+            out["unit"][case] = TC.bwd_rule_readings(sdf_kw, n, dev)[1]
+        for seed in STEP_SEEDS.get(name, (1,)):
+            r = CS.train_check_readings(torch, fs, dev, seed)
+            out["step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
+        for seed in K6_SEEDS.get(name, (0,)):
+            args = CS.step_bwd_inputs(torch, fs, dev, seed, mode="pallas")
+            _, rows = CS.k3_check(torch, args, "pallas")
+            out["k6"][str(seed)] = [[r.what, r.l2, r.med, r.mx, r.ok] for r in rows]
+            if seed in K6UNIT_SEEDS.get(name, (0,)):
+                out["k6unit"][str(seed)] = [[r.what, r.ratio, r.err, r.floor, r.norm]
+                                            for r in CS.k3_unit_check(torch, args, mode="pallas")]
+        for seed in K6STEP_SEEDS.get(name, (1,)):
+            r = CS.train_check_readings(torch, fs, dev, seed, mode="pallas")
+            out["k6step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
+    if "f32" in groups:
+        from honerf_torch.ops import fused_fine as FT
+        from honerf_torch.ops import fused_fine_full as FF
+
+        out.update({k: {} for k in ("f32k3", "f32nc", "f32k6", "f32step")})
+        fs = CS.flagship(torch, dev, "f32")
+
+        for seed in F32_SEEDS.get(name, (0,)):
+            args = CS.step_bwd_inputs(torch, fs, dev, seed)
+            out["f32k3"][str(seed)] = [[r.what, r.l2, r.ok]
+                                       for r in CS.f32_bwd_check(torch, args)[1]]
+        args = CS.step_bwd_inputs(torch, fs, dev, mode="full_nocolor")
+        out["f32nc"]["0"] = (fwd_rows(CS, torch, ("out", "g", "e"),
+                                      FF.hand_fine_color_fwd(*args[:5]),
+                                      FF.hand_fine_color_plain(*args[:5]))
+                             + [[r.what, r.l2, r.ok]
+                                for r in CS.f32_bwd_check(torch, args, "full_nocolor")[1]])
+        args = CS.step_bwd_inputs(torch, fs, dev, mode="pallas")
+        out["f32k6"]["0"] = (fwd_rows(CS, torch, ("out", "u"),
+                                      FT.hand_trunk_sdf_u_fwd(*args[:2]),
+                                      FT.hand_trunk_sdf_u_plain(*args[:2]))
+                             + [[r.what, r.l2, r.ok]
+                                for r in CS.f32_bwd_check(torch, args, "pallas")[1]])
+        for mode in ("full", "full_nocolor", "pallas"):
+            r = CS.train_check_readings(torch, fs, dev, 1, mode=mode)
+            out["f32step"][mode] = {"loss": r.worst_metric, "leaves": r.rel}
+        out["f32unit"] = {f"{kind} {case}": TC.f32_bwd_rule_readings(kind, sdf_kw, n, dev)[2]
+                          for kind in ("color", "nocolor", "trunk")
+                          for case, (sdf_kw, n) in TC.F32_BWD_CASES.items()}
+    if "fit" in groups:
+        out.update({k: {} for k in ("fitf64", "fitgrid", "fitk1", "fitk3", "fitnc",
+                                    "fitk6")})
+        fn = CS.fit_nets(torch, dev)
+
+        r = CS.fit_check_readings(torch, fn, dev, fused_ladder=False, seed=2, terms=True)
+        out["fitf64"]["2"] = {"ratio": max(CS.fit_f64_ratios(r)),
+                              "render": CS.fit_render_ratios(r)}
+        for mode in ("full", "full_nocolor", "pallas"):
+            r = CS.fit_check_readings(torch, fn, dev, fused_ladder=False, seed=2, mode=mode,
+                                      batch_fn=CS.fit_grid_batch, terms=True)
+            out["fitgrid"][mode] = {"loss": max(r.card_cpu[0].values()),
+                                    "grad": max(r.card_cpu[1]), "render": r.render_card_cpu}
+        for seed in FITK1_SEEDS.get(name, (2,)):
+            r = CS.fit_check_readings(torch, fn, dev, fused_ladder=True, seed=seed,
+                                      batch_fn=CS.fit_grid_batch)
+            med, _, mx, scale = r.k1
+            out["fitk1"][str(seed)] = {"ratio": max(CS.fit_f64_ratios(r)),
+                                       "k1_median": med / scale, "k1_max": mx / scale}
+        args = CS.fit_step_inputs(torch, fn, dev)
+        for label, seed in (("own", None), ("unit", 3)):
+            out["fitk3"][label] = [[r.what, r.l2, r.ok] for r in CS.f32_bwd_check(
+                torch, args, want_dw=False, seed=seed, shared_g=False)[1]]
+        from honerf_torch.ops import fused_fine as FT
+        from honerf_torch.ops import fused_fine_full as FF
+
+        for check, mode, fwd, plain, names, lead in (
+                ("fitnc", "full_nocolor", FF.hand_fine_color_fwd, FF.hand_fine_color_plain,
+                 ("out", "g", "e"), 5),
+                ("fitk6", "pallas", FT.hand_trunk_sdf_u_fwd, FT.hand_trunk_sdf_u_plain,
+                 ("out", "u"), 2)):
+            args = CS.fit_step_inputs(torch, fn, dev, "12", mode=mode)
+            out[check]["fwd"] = fwd_rows(CS, torch, names, fwd(*args[:lead]), plain(*args[:lead]))
+            for label, seed in (("own", None), ("unit", 3)):
+                out[check][label] = [[r.what, r.l2, r.ok] for r in CS.f32_bwd_check(
+                    torch, args, mode, want_dw=False, seed=seed)[1]]
     print(json.dumps(out))
 
 
 def judge(CS, res):
-    """{check: (caught, text)} of one child's readings."""
+    """{check: (caught, text)} of one child's readings (the checks it ran)."""
     verdict = {}
     for check in ("kernel", "k6"):
+        if check not in res:
+            continue
         worst, over = {}, []
         for seed, rows in res[check].items():
             for what, l2, med, mx, ok in rows:
@@ -190,7 +346,22 @@ def judge(CS, res):
                     over.append(f"{what}@{seed}")
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
-    for check in ("kunit", "unit", "k6unit"):
+    for check in ("f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6"):
+        if check not in res:
+            continue
+        worst, over = (-1.0, ""), []
+        for seed, rows in res[check].items():
+            for what, val, ok in rows:   # forwards: max |err| / range; backwards: L2
+                val = float("inf") if val != val else val
+                if val > worst[0]:
+                    worst = (val, f"{what}@{seed}")
+                if not ok:
+                    over.append(f"{what}@{seed}")
+        verdict[check] = (bool(over), f"worst {worst[0]:.2e} ({worst[1]})"
+                          + (f"; over: {' '.join(over[:8])}" if over else ""))
+    for check in ("kunit", "unit", "k6unit", "f32unit"):
+        if check not in res:
+            continue
         ratio, where = -1.0, ""
         for case, ratios in res[check].items():
             for what, r, *_ in ratios:
@@ -198,12 +369,36 @@ def judge(CS, res):
                 if r > ratio:
                     ratio, where = r, f"{case} {what}"
         verdict[check] = (ratio > 1.0, f"worst {ratio:.3g} ({where})")
-    for check in ("step", "k6step"):
+    limits = {"step": (CS.TOL_TRAIN_LOSS, CS.TOL_TRAIN_GRAD),
+              "k6step": (CS.TOL_TRAIN_LOSS, CS.TOL_TRAIN_GRAD),
+              "f32step": (CS.TOL_TRAIN_F32_LOSS, CS.TOL_TRAIN_F32_GRAD)}
+    for check, (tol_loss, tol_leaf) in limits.items():
+        if check not in res:
+            continue
         loss = max(s["loss"] for s in res[check].values())
         leaf = max(max(s["leaves"]) for s in res[check].values())
         loss, leaf = (float("inf") if x != x else x for x in (loss, leaf))
-        verdict[check] = (loss > CS.TOL_TRAIN_LOSS or leaf > CS.TOL_TRAIN_GRAD,
-                          f"loss {loss:.3g}, leaf {leaf:.3g}")
+        verdict[check] = (loss > tol_loss or leaf > tol_leaf, f"loss {loss:.3g}, leaf {leaf:.3g}")
+    def nan_inf(x):
+        return float("inf") if x != x else x
+
+    if "fitf64" in res:
+        ratio = nan_inf(max(s["ratio"] for s in res["fitf64"].values()))
+        render = nan_inf(max(max(s["render"].values()) for s in res["fitf64"].values()))
+        verdict["fitf64"] = (ratio > 1.0 or render > 1.0, f"worst {ratio:.3g} of the limit, "
+                             f"render terms {render:.3g}")
+    if "fitgrid" in res:
+        worst = nan_inf(max(max(s["loss"], s["grad"]) for s in res["fitgrid"].values()))
+        render = nan_inf(max(max(s["render"].values()) for s in res["fitgrid"].values()))
+        verdict["fitgrid"] = (worst > CS.TOL_FIT_HEAD_ON or render > CS.TOL_FIT_RENDER,
+                              f"worst {worst:.3g}; render terms {render:.3g}")
+    if "fitk1" in res:
+        ratio, med, mx = (max(s[k] for s in res["fitk1"].values())
+                          for k in ("ratio", "k1_median", "k1_max"))
+        ratio, med, mx = (float("inf") if x != x else x for x in (ratio, med, mx))
+        verdict["fitk1"] = (ratio > 1.0 or med > CS.TOL_MEDIAN or mx > CS.TOL_MAX,
+                            f"worst {ratio:.3g} of the limit; K1 at the ladder points median "
+                            f"{med:.2e}, max {mx:.2e} of the range")
     return verdict
 
 
@@ -228,7 +423,7 @@ def main() -> int:
         t0 = time.time()
         root = prepare(name)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", name,
-                               "--root", root], capture_output=True, text=True, timeout=900)
+                               "--root", root], capture_output=True, text=True, timeout=1500)
         secs = time.time() - t0
         if proc.returncode != 0:
             print(f"{name}: the child failed after {secs:.0f} s:\n{proc.stdout[-2000:]}"

@@ -95,35 +95,72 @@ The hand's other fine-pass modes (train.fused_fine), between 9 and 10:
               with 'pallas': K1 and K5 launched, K2 and K6 not; the 128 rays
               of it that meet the most surface against the CPU render.
 
+The hand's offline stage with the conf's own f32 trunks (as written;
+no ladder kernel unless train.fused_ladder is set), after 20:
+
+ 21. kernel K3 f32  K3 f32 with weight gradients on what one f32 'full'
+              train step hands it (56,448 points, two passes, TF32 off):
+              every output within TOL_F32 of the plain version's norm in
+              L2 (at the kernel's g: the f32 rule's note), with and without
+              dW; by torch.profiler's names f32 GEMMs and f32 TN GEMMs, no
+              bf16 one; the last color layer's dW read as is (C4);
+ 22. kernel K2/K3 f32 no-color  K2 f32 without the color net at an f32
+              'full_nocolor' step's points (out, g, e within TOL_F32 of the
+              range, median and max), K3 f32 without it under the f32 rule;
+ 23. kernel K5/K6 f32  the same for K5 and K6 at an f32 'pallas' step;
+ 24. train f32  the flagship step under 'full', 'full_nocolor', 'pallas' and
+              the autograd field, 3 warm-up and 20 timed steps each: the
+              launch counts, one step's kernels by name (f32 GEMMs and TN
+              GEMMs, no bf16 one), finite losses, se3_refine moved; one
+              'full' step under torch.profiler;
+ 25. train check f32  one 64-ray step per kernel mode, card against CPU;
+ 26. serve f32  one 4096-ray 'full' request (the eval render's K1
+              ladder, whatever the trunk's dtype, as in the JAX package; K2
+              f32) against the CPU on the 128 rays that meet the most
+              surface.
+
 Pose fitting (the fit confs, f32 trunks), after 13:
 
- 21. kernel K2 f32  K2 in f32 against its plain version (TF32 off) at one
+ 27. kernel K2 f32  K2 in f32 against its plain version (TF32 off) at one
               fit step's 37,632 fine points, within TOL_F32 of the range
               at the median and the max; the plain version with TF32 on
               logged beside;
- 22. kernel K3 f32 frozen  the frozen K3 in f32 on that step's inputs and
+ 28. kernel K3 f32 frozen  the frozen K3 in f32 on that step's inputs and
               cotangents: dp, drotT, doff within TOL_F32 in L2; by
               torch.profiler's names its f32 GEMMs and no dW/db kernel;
- 23. fit      the CLI (honerf_torch.cli.fitting_single) '1' then '12' on a
+ 29. kernel fit modes f32  at what one '12' fit step in 'full_nocolor'
+              and in 'pallas' hands its kernels: K2 f32 without the color
+              net and K5 f32 under K2's f32 rule, the frozen K3 f32 without
+              it and the frozen K6 f32 on the step's cotangents and on
+              unit cotangents under the f32 rule;
+ 30. fit      the CLI (honerf_torch.cli.fitting_single) '1' then '12' on a
               synthetic catch sequence (1 frame, 8 views, 230x266) with
               random full-width checkpoints, train.iter_num cut to 3: the
               launch counts zeroed before and read after each (K1, K2, K3
               must launch), the pose pickles; then ms per step of each fit
               type (20 after 3 warm-up) and seconds a frame at the
               reference budget;
- 24. fit check  one 64-ray '12' step on the card against the CPU: in f32
-              at shared ladder samples against the CPU's f64 step, and
-              with K1 (its plain version on the CPU) on three batches;
- 25. fit profile  one '12' step under torch.profiler.
+ 31. fit modes  the CLI '12' with train.fused_fine = 'full_nocolor' and
+              'pallas' (launch counts, pickle), ms per step, one step's
+              kernels by name: f32 GEMMs, no dW / db kernel;
+ 32. fit check  one 64-ray '12' step on the card against the CPU at
+              shared ladder samples: in f32 against the CPU's f64 step,
+              the render terms' pose gradients logged on their own;
+              on rays that meet the hand head on, card against CPU f32 in
+              each fine-pass mode, the render terms' hand-pose gradients
+              on their own beside the whole step's; then with K1 (its
+              plain version on the CPU) on three batches against f64, with
+              K1 held to its plain version at the step's ladder points;
+ 33. fit profile  one '12' step under torch.profiler.
 
 Weights are random (geometric init plus seeded noise, so every embedding
-column is live).  check_k3_faults.py runs the K3, K6 and train checks
-below on K3 and K6 with planted faults (what each limit catches).  The
-last lines of stdout are the card's
+column is live).  check_k3_faults.py runs the kernel, train and fit
+checks below on the sound kernels and on planted faults (what each limit
+catches).  The last lines of stdout are the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
-numbers (K2's and K3's with their no-color and f32 times beside them),
-and the result line.  Exits nonzero, printing no result, when no CUDA device is
-present or a phase fails.
+numbers (each kernel's other modes beside it: no-color, f32, f32
+no-color, f32 with dW), and the result line.  Exits nonzero, printing
+no result, when no CUDA device is present or a phase fails.
 """
 
 from __future__ import annotations
@@ -210,23 +247,58 @@ TOL_TRAIN_GRAD = 2e-1
 # version's own distance with TF32 on.
 TOL_F32 = 1e-4
 # One '12' fit step on the card vs on the CPU, the same inputs, weights
-# and pose, perturb 0: the loss terms (relative) and the six pose
-# gradients (relative, L2).  With train.fused_ladder false the whole step
-# is f32, every side at the card's ladder samples, against the CPU's f64
-# step: f32 rounding alone moves the hand's pose gradient by 3-5% there
-# (the CPU's f32 step against its f64 one; the card's f32 step against
-# the CPU's reads the same), so the JAX suite's 1e-3 cannot hold against
-# anything f32; the card stays within FIT_FACTOR x the CPU's own f32
-# distance plus TOL_FIT_F32.  With the default K1 ladder (bf16) on the
-# card and its plain version on the CPU, each side's own ladder: the loss
-# terms within TOL_FIT_LADDER_LOSS (up to 5.9e-3 over seeds 2-4 on an
-# H100) and the pose gradients within TOL_FIT_LADDER_GRAD (up to 0.42
-# there: a K1 flip moves a sample by up to 0.1, and the hand's pose
-# gradient follows its samples), which only a gross fault exceeds.
+# and pose, perturb 0, every side at the card's ladder samples: the loss
+# terms (relative) and the six pose gradients (relative, L2), against the
+# CPU's f64 step.  f32 rounding alone moves the render terms' (color,
+# mask) hand-pose gradients by 2e-3-5e-2 on these random full-width
+# fields, on random rays (fit_batch) and on rays that meet the hand head on
+# (fit_grid_batch) alike (the CPU's f32 step against its f64 one; the
+# phase logs it per term), and the hand's whole pose gradient by 3-5% on
+# random rays, so the JAX suite's 1e-3 cannot hold against anything f32
+# there: the f64 rule holds the card within FIT_FACTOR x the CPU's own f32
+# distance from f64 plus TOL_FIT_F32, the whole step and the render terms'
+# hand-pose gradients.  On head-on rays the card's f32 step and the CPU's
+# agree far better than either agrees with f64, and the card is held to
+# the CPU's f32 step directly, in each fine-pass mode: the whole pose
+# gradient (mostly the joint term; f32 within 6e-6 of f64 there) within
+# TOL_FIT_HEAD_ON, and each render term's hand-pose gradient within
+# TOL_FIT_RENDER (the sound kernels read 3.4e-4; a drotT without one term
+# 4.7e-3, doff 1% high or K6's du unscaled at the skip ~9.7e-3).  Faults
+# whose cotangent is near zero at a fit step (e's, in the no-color mode)
+# show only in the kernel phases, at the step's own inputs and on unit
+# cotangents (check_k3_faults.py, PERF.md).
+# With K1 the card's first K1 call of the step is held to K1's plain
+# version at its own points under the kernel rule (TOL_MEDIAN, TOL_MAX of
+# the range): comparing the two ladders' samples cannot see a shifted sdf
+# (the coarse samples, the object's and most of the hand's are the same on
+# both sides, and a bf16 flip moves one by up to 0.1); every side then
+# renders at the card's samples and the card is held to the f64 rule: on
+# some seeded poses HALO's f32 chain alone moves the joint term's pose
+# gradient by ~1e-3 (seed 3: palm_angle, the CPU's f32 step against its
+# f64 one).
+# The f32 rule for K3 with the color net at a step's points: the color
+# net's input holds sin / cos(2^l g) of the spatial gradient g, and |g| reaches
+# hundreds on a random field, so the kernel's g and the plain version's
+# (each within ~3e-5 of g's range) move that input, and the color net's
+# dW with it, by up to ~1e-2 of its norm; where a color relu's
+# pre-activation sits within ~1e-6 of its row's scale of zero, two f32
+# sums in another order can flip its mask.  So the f32 rule holds K3
+# against its plain version at the kernel's own g (the plain version's
+# g_color), with dcolor zero at the points within FF.RELU_MARGIN of a kink
+# (FF.shared_g_cotangents; ~0.1% of them).  The phase logs the last color
+# layer's dW as is beside it (PERF.md, C4).
+# One f32 train step (the conf's own trunks, no ladder kernel) on the card
+# vs on the CPU, per fine-pass mode, 64 rays, perturb 0: the worst loss
+# term and the worst gradient leaf as in the bf16 train check; the limits
+# sit between the sound kernels' readings and the planted faults'
+# (check_k3_faults.py, PERF.md).
+TOL_TRAIN_F32_LOSS = 1e-3
+TOL_TRAIN_F32_GRAD = 1e-2
 FIT_FACTOR = 4.0
 TOL_FIT_F32 = 1e-3
-TOL_FIT_LADDER_LOSS = TOL_TRAIN_LOSS
-TOL_FIT_LADDER_GRAD = 1.0
+TOL_FIT_HEAD_ON = 1e-4
+TOL_FIT_RENDER = 1e-3
+FIT_RENDER_TERMS = ("color", "mask")
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -446,7 +518,10 @@ def device_profile(torch, label: str, fn) -> None:
 
 def device_kernel_names(torch, fn):
     """Counter of the device kernels fn() launches, by name (torch.profiler);
-    empty when the profiler records no device time."""
+    empty when the profiler records no device time.  The device's tracing
+    starts after the profiler does: kernels that run in its first
+    milliseconds can go unrecorded (on an H100 one capture lost K6's first 45 of 113),
+    so a ~5 ms spin kernel (not counted) runs first."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -454,10 +529,13 @@ def device_kernel_names(torch, fn):
     from torch.profiler import profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(10_000_000)   # ~5 ms of device time
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     return Counter(evt.name.split("(")[0] for evt in prof.events()
-                   if evt.device_type == DeviceType.CUDA)
+                   if evt.device_type == DeviceType.CUDA and "spin_kernel" not in evt.name)
 
 
 def nbytes(ts) -> int:
@@ -471,9 +549,10 @@ def bound(flops: float, n_bytes: float, peak: float = PEAK_BF16_FLOPS):
 
 # -- the flagship and its train step (check_k3_faults.py runs these too) --
 
-def flagship(torch, dev) -> SimpleNamespace:
-    """The flagship conf with bf16 trunks and its random weights on dev:
-    conf, sdf, color (the nets' configs), rcfg, tcfg, params."""
+def flagship(torch, dev, trunk_dtype: str = "bf16") -> SimpleNamespace:
+    """The flagship conf with bf16 trunks (as bench.py sets it; "f32": the
+    conf's own trunks, as written) and its random weights on dev: conf,
+    sdf, color (the nets' configs), rcfg, tcfg, params."""
     from honerf_torch.config import load_config
     from honerf_torch.models.fields import (
         color_config_from_conf,
@@ -487,9 +566,9 @@ def flagship(torch, dev) -> SimpleNamespace:
 
     conf = load_config(CONF)
     sdf_cfg = sdf_config_from_conf("hand", conf["model.sdf_network"])._replace(
-        trunk_dtype="bf16")
+        trunk_dtype=trunk_dtype)
     color_cfg = color_config_from_conf("hand", conf["model.rendering_network"])._replace(
-        trunk_dtype="bf16")
+        trunk_dtype=trunk_dtype)
     gen = torch.Generator().manual_seed(0)
     params = {
         "sdf": perturb(torch, init_sdf_params(gen, sdf_cfg, device=dev), gen),
@@ -548,8 +627,8 @@ def k3_outputs(grads):
 def k6_outputs(res):
     """[(name, tensor)] of every output of K6: (de, dws, dbs)."""
     de, dws, dbs = res
-    return ([("de", de)] + [(f"dws[{l}]", x) for l, x in enumerate(dws)]
-            + [(f"dbs[{l}]", x) for l, x in enumerate(dbs)])
+    return ([("de", de)] + [(f"dws[{l}]", x) for l, x in enumerate(dws or ())]
+            + [(f"dbs[{l}]", x) for l, x in enumerate(dbs or ())])
 
 
 def bwd_entry(mode: str):
@@ -645,6 +724,42 @@ def k3_unit_check(torch, args, seed: int = 3, mode: str = "full"):
                   f"|plain| {norm:.3e}: {ratio:.3f} of the limit"
                   f"{'' if ok else ' FAIL'}")))
     return rows
+
+
+def f32_bwd_check(torch, args, mode: str = "full", want_dw: bool = True, seed=None,
+                  shared_g: bool = True):
+    """The mode's backward kernel with an f32 trunk (K3, its no-color mode,
+    K6) against its plain version on the card on the same inputs, or with
+    `seed` on seeded unit cotangents at those inputs: per output a
+    namespace of what, l2 (|got - want| / |want| in L2), max_abs, ok
+    (finite and l2 <= TOL_F32) and text.  With the color net and shared_g
+    the plain version reads the kernel's g and dcolor is zero within
+    FF.RELU_MARGIN of a relu kink (FF.shared_g_cotangents; the f32 rule's
+    note above TOL_TRAIN_F32_LOSS).  Returns (the kernel's outputs, the rows, the points whose
+    dcolor was zeroed)."""
+    from honerf_torch.ops import fused_fine_full as FF
+
+    mod, name, plain, outputs, lead = bwd_entry(mode)
+    if seed is not None:
+        gen = torch.Generator(device=args[0].device).manual_seed(seed)
+        args = tuple(args[:lead]) + tuple(torch.randn(c.shape, generator=gen, device=c.device)
+                                          for c in args[lead:])
+    kw, dropped = {}, 0
+    if mode == "full" and shared_g:
+        g, cts, dropped = FF.shared_g_cotangents(*args)
+        args, kw = tuple(args[:5]) + cts, dict(g_color=g)
+    got = getattr(mod, name)(*args, want_dw=want_dw)
+    want = plain(*args, want_dw=want_dw, **kw)
+    torch.cuda.synchronize()
+    rows = []
+    for (what, a), (_, b) in zip(outputs(got), outputs(want)):
+        l2 = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        ok = bool(torch.isfinite(a).all()) and l2 <= TOL_F32
+        rows.append(SimpleNamespace(
+            what=what, l2=l2, max_abs=float((a - b).abs().max()), ok=ok,
+            text=(f"{what}: |err| L2 {l2:.2e} of |plain| {float(b.norm()):.3e} (tol "
+                  f"{TOL_F32:g}){'' if ok else ' FAIL'}")))
+    return got, rows, dropped
 
 
 def train_check_readings(torch, fs, dev, seed: int = 1, mode: str = "full"):
@@ -755,7 +870,7 @@ def read_png(path: str):
     return rows[:, 1:].reshape(H, W, 3)
 
 
-# -- pose fitting (phases 21-25) --
+# -- pose fitting (phases 27-33) --
 
 def fit_nets(torch, dev):
     """The fit confs' nets (fit_confs/fit_1_8views.conf: f32 trunks) with
@@ -846,31 +961,33 @@ def fit_workspace(torch, fn, dev, ws: str):
     return confs, gen_s
 
 
-def fit_step_inputs(torch, fn, dev, fit_type: str = "1", seed: int = 0):
-    """What one fit step on the card (fit_nets, the default kernels, a
-    seeded batch of the conf's 196 rays through the posed example hand)
-    hands the frozen K3: (pts, rotT, off, cut, pack, dsdf, dg, dcolor)."""
+def fit_step_inputs(torch, fn, dev, fit_type: str = "1", seed: int = 0, mode: str = "full"):
+    """What one fit step on the card in the fine-pass mode (fit_nets, K1,
+    a seeded batch of the conf's 196 rays through the posed example hand)
+    hands its frozen backward kernel: for 'full' (K3) (pts, rotT, off,
+    cut, pack, dsdf, dg, dcolor); for 'full_nocolor' the same with
+    cotangents on (out, g, e); for 'pallas' (K6) (e, pack, dout, du)."""
     from honerf_torch.fit.single import (
         FitHyper,
         init_fit_state,
         make_single_fit_step,
         select_fit_kernels,
     )
-    from honerf_torch.ops import fused_fine_full as FF
 
+    mod, name, _, _, _ = bwd_entry(mode)
     fcfg = FitHyper.from_conf(fn.conf)._replace(fit_type=fit_type)
-    fused, fine = select_fit_kernels(None, None, fn.hand_sdf, dev)
+    fused, fine = select_fit_kernels(None, mode, fn.hand_sdf, dev)
     step = make_single_fit_step(fn.nets, fn.hand_sdf, fn.hand_color, fn.obj_sdf, fn.obj_color,
                                 fn.rcfg, fcfg, fused_ladder=fused, fused_fine=fine)
     seen = []
-    wrapped = FF.hand_fine_color_bwd
-    FF.hand_fine_color_bwd = lambda *a, **k: seen.append(a) or wrapped(*a, **k)
+    wrapped = getattr(mod, name)
+    setattr(mod, name, lambda *a, **k: seen.append(a) or wrapped(*a, **k))
     try:
         step(init_fit_state(dev), fit_batch(torch, fcfg.batch_size, dev, seed),
              torch.Generator(device=dev).manual_seed(seed))
     finally:
-        FF.hand_fine_color_bwd = wrapped
-    return tuple(a.detach() if torch.is_tensor(a) else a for a in seen[0][:8])  # not want_dw
+        setattr(mod, name, wrapped)
+    return tuple(a.detach() if torch.is_tensor(a) else a for a in seen[0][:-1])  # not want_dw
 
 
 def fit_batch(torch, n_rays: int, device, seed: int = 0):
@@ -899,33 +1016,65 @@ def fit_batch(torch, n_rays: int, device, seed: int = 0):
                 To_gt=f(To))
 
 
-def fit_check_readings(torch, fn, dev, fused_ladder: bool, seed: int = 2):
-    """One '12' step of FIT_CHECK_RAYS rays, perturb 0, 'full' fine pass
-    (K2 / the frozen K3 on the card, their plain versions on the CPU),
-    from the same seeded pose near the start on the card and on the CPU.
+def fit_grid_batch(torch, n_rays: int, device, seed: int = 0):
+    """fit_batch with rays that meet the hand head on: a look-at camera
+    0.9 m in front of the posed example hand's centre (0.2 m above it),
+    a square grid of n_rays rays over +-0.1 of the image plane (the
+    parity tests' fixture, tests/torch_fit_common.py::frame, at the
+    examples' pose)."""
+    import numpy as np
 
-    Without K1 a third side, the CPU's step in f64 (the autograd field:
-    the plain versions compute in f32), is the reference, and every side
-    renders at the card's ladder samples: f32 rounding alone moves the
-    hand's pose gradient by 3-5% at this step (the CPU's f32 step against
-    its f64 one; ROADMAP C), so the card is held to the CPU's own f32
-    distance from f64.  With K1 each side runs its own ladder: K1's bf16
-    flips move samples, which is what that comparison reads.  At the
-    start itself the refined root joint and the object's vertices equal
-    their estimates up to rounding (pose_l2's d / |d| is then rounding
-    noise), so the pose starts 0.02 (seeded) away.
+    from honerf_torch.data.synthetic import look_at_camera, posed_hand_example
 
-    Returns each side's metrics, per loss term and pose gradient (L2) the
-    card's and the CPU's distance from the reference (f64, or without it
-    the CPU's step), and the ladders' largest sample distance."""
+    batch = fit_batch(torch, n_rays, device, seed)
+    joints = posed_hand_example()[0]
+    center = joints.mean(0)
+    R, T = look_at_camera(np.asarray(center + [0.0, 0.2, -0.9]), center)
+    side = int(round(n_rays ** 0.5))
+    g = np.linspace(-0.1, 0.1, side, dtype=np.float32)
+    xy = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2)[:n_rays]
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    return dict(batch, rays_xy=f(xy), cam_R=f(R), cam_T=f(T))
+
+
+def fit_check_readings(torch, fn, dev, fused_ladder: bool, seed: int = 2, mode: str = "full",
+                       batch_fn=None, terms: bool = False):
+    """One '12' step of FIT_CHECK_RAYS rays, perturb 0, in the fine-pass
+    mode ('full': K2 / the frozen K3 on the card, their plain versions on
+    the CPU; 'full_nocolor', 'pallas'), from the same seeded pose near the
+    start on the card and on the CPU: its loss (fit.single's
+    make_single_fit_loss) and the loss's gradient in the six pose tensors;
+    with `terms` each render term's (color, mask: FIT_RENDER_TERMS) on its
+    own too.
+
+    Each side places its own ladder samples (K1 on the card with
+    fused_ladder, its plain version on the CPU) and then renders at the
+    card's.  A third side, the CPU's step in f64 (the autograd field, its
+    ladder in torch: the plain versions compute in f32), is the
+    reference: f32 rounding alone moves the hand's pose gradient by
+    3-5% on fit_batch's rays (the CPU's f32 step against its f64 one), so
+    the card is held to the CPU's own f32 distance from f64.  At the start
+    itself the refined root joint and the object's vertices equal their
+    estimates up to rounding (pose_l2's d / |d| is then rounding noise),
+    so the pose starts 0.02 (seeded) away.  batch_fn: the batch
+    (fit_batch by default).
+
+    Returns each side's metrics; per loss term and pose gradient (L2) the
+    card's and the CPU's distance from the f64 step and the card's from
+    the CPU's f32 step, and with
+    `terms` per render term the same three for its gradient in the hand's
+    pose (the four hand tensors in one: render_card, render_cpu,
+    render_card_cpu, {term: distance}, else empty); the median and largest
+    distance between the two ladders' samples; and with K1 the
+    err_readings of the card's first K1 call against K1's plain version at
+    its points."""
     import numpy as np
 
     from honerf_torch.fit.single import (
         POSE_KEYS,
         FitHyper,
-        init_fit_state,
-        make_pose_optimizer,
-        make_single_fit_step,
+        init_pose_params,
+        make_single_fit_loss,
     )
     from honerf_torch.render import dual as RD
 
@@ -934,14 +1083,13 @@ def fit_check_readings(torch, fn, dev, fused_ladder: bool, seed: int = 2):
     rcfg = fn.rcfg._replace(perturb=0.0)
     ladder = RD.dual_hierarchical_z_vals
     union = {}
-    sides = [("card", dev, torch.float32, "full"), ("cpu", cpu, torch.float32, "full")]
-    if not fused_ladder:
-        sides.append(("f64", cpu, torch.float64, None))
+    sides = [("card", dev, torch.float32, mode), ("cpu", cpu, torch.float32, mode),
+             ("f64", cpu, torch.float64, None)]
 
     def keep(side, dtype):
         def z_vals(*args):
             union[side] = ladder(*args)
-            if side != "card" and not fused_ladder:
+            if side != "card":
                 return union["card"].to(cpu, dtype)
             return union[side]
         return z_vals
@@ -953,43 +1101,99 @@ def fit_check_readings(torch, fn, dev, fused_ladder: bool, seed: int = 2):
             return [cast(v, d, dtype) for v in tree]
         return tree.detach().to(d, dtype).clone() if tree.is_floating_point() else tree.to(d)
 
-    res = {}
+    def grads(y, leaves):
+        gs = torch.autograd.grad(y, leaves, allow_unused=True)
+        return [torch.zeros(x.shape, dtype=torch.float64) if g is None
+                else g.detach().double().cpu() for g, x in zip(gs, leaves)]
+
+    res, k1_calls = {}, []
+    from honerf_torch.ops import fused_hand as FH
+
+    k1 = FH.fused_hand_sdf
+    FH.fused_hand_sdf = lambda *a: k1_calls.append(a) or k1(*a)
     try:
         for side, d, dtype, fine in sides:
             RD.dual_hierarchical_z_vals = keep(side, dtype)
-            step = make_single_fit_step(cast(fn.nets, d, dtype), fn.hand_sdf, fn.hand_color,
-                                        fn.obj_sdf, fn.obj_color, rcfg, fcfg,
-                                        fused_ladder=fused_ladder, fused_fine=fine)
-            state = init_fit_state(d)
+            # the f64 side: the autograd field, and its own ladder in torch
+            loss_fn = make_single_fit_loss(cast(fn.nets, d, dtype), fn.hand_sdf, fn.hand_color,
+                                           fn.obj_sdf, fn.obj_color, rcfg, fcfg,
+                                           fused_ladder=fused_ladder and side != "f64",
+                                           fused_fine=fine)
             rng = np.random.default_rng(seed)
             pose = {k: (p.detach() + torch.as_tensor(0.02 * rng.normal(size=tuple(p.shape)),
                                                     device=d)).to(dtype).requires_grad_(True)
-                    for k, p in state["pose"].items()}
-            state = {"pose": pose, "opt": make_pose_optimizer(pose)}
-            state, m = step(state, cast(fit_batch(torch, FIT_CHECK_RAYS, d, seed), d, dtype))
-            res[side] = ({k: float(v) for k, v in m.items()},
-                         [pose[k].grad.detach().double().cpu() for k in POSE_KEYS])
+                    for k, p in init_pose_params(d).items()}
+            leaves = [pose[k] for k in POSE_KEYS]
+            batch = cast((batch_fn or fit_batch)(torch, FIT_CHECK_RAYS, d, seed), d, dtype)
+            _, m = loss_fn(pose, batch)
+            res[side] = ({k: float(v.detach()) for k, v in m.items()},
+                         grads(m["loss"], leaves), {})
+            # each render term's on its own: a forward each (the fine pass's
+            # backward frees what it kept)
+            for t in FIT_RENDER_TERMS if terms else ():
+                res[side][2][t] = grads(loss_fn(pose, batch)[0][t], leaves)
     finally:
         RD.dual_hierarchical_z_vals = ladder
-    ref = res["f64" if not fused_ladder else "cpu"]
+        FH.fused_hand_sdf = k1
+    ref = res["f64"]
+    # with K1: the card's first K1 call of the step (the coarse pass at its
+    # ladder's points) against K1's plain version there
+    k1_rd = None
+    if fused_ladder:
+        a = next(c for c in k1_calls if c[0].device.type == dev.type)
+        k1_rd = err_readings(torch, FH.fused_hand_sdf(*a), FH.fused_hand_sdf_plain(*a))
 
-    def dist(side):
-        m, g = res[side]
+    def rel(g, want):
+        return [float((a - b).norm() / max(float(b.norm()), 1e-12)) for a, b in zip(g, want)]
+
+    def dist(side, ref):
+        m, g, _ = res[side]
         loss = {k: abs(m[k] - ref[0][k]) / max(abs(ref[0][k]), 1e-6) for k in ref[0]}
-        grad = [float((a - b).norm() / max(float(b.norm()), 1e-12)) for a, b in zip(g, ref[1])]
-        return loss, grad
+        return loss, rel(g, ref[1])
 
-    dz = float((union["card"].cpu().double() - union["cpu"].double()).abs().max())
-    return SimpleNamespace(metrics={k: v[0] for k, v in res.items()}, card=dist("card"),
-                           cpu=dist("cpu") if not fused_ladder else None, keys=POSE_KEYS,
-                           ladder_dz=dz)
+    hand = [i for i, k in enumerate(POSE_KEYS) if not k.startswith("obj")]
+
+    def render_dist(side, ref):
+        def cat(gs):
+            return [torch.cat([gs[i].flatten() for i in hand])]
+        return {t: rel(cat(res[side][2][t]), cat(ref[2][t]))[0] for t in res[side][2]}
+
+    dz = (union["card"].cpu().double() - union["cpu"].double()).abs()
+    return SimpleNamespace(metrics={k: v[0] for k, v in res.items()}, card=dist("card", ref),
+                           cpu=dist("cpu", ref),
+                           card_cpu=dist("card", res["cpu"]), keys=POSE_KEYS,
+                           render_card=render_dist("card", ref),
+                           render_cpu=render_dist("cpu", ref),
+                           render_card_cpu=render_dist("card", res["cpu"]),
+                           ladder_dz=float(dz.max()), ladder_median=float(dz.median()),
+                           k1=k1_rd)
+
+
+def fit_f64_ratios(r):
+    """A fit check's readings (fit_check_readings, with its f64 side)
+    under the f64 rule: each loss term's and pose gradient's distance from
+    the f64 step over FIT_FACTOR x the CPU's own + TOL_FIT_F32 (held at
+    most 1)."""
+    (c_loss, c_grad), (p_loss, p_grad) = r.card, r.cpu
+    return ([c_loss[k] / (FIT_FACTOR * p_loss[k] + TOL_FIT_F32) for k in c_loss]
+            + [c / (FIT_FACTOR * p + TOL_FIT_F32) for c, p in zip(c_grad, p_grad)])
+
+
+def fit_render_ratios(r):
+    """{render term: its hand-pose gradient's distance from the f64 step
+    over FIT_FACTOR x the CPU's own + TOL_FIT_F32} of a fit check read
+    with terms."""
+    return {t: r.render_card[t] / (FIT_FACTOR * r.render_cpu[t] + TOL_FIT_F32)
+            for t in r.render_card}
 
 
 def run_fit_phases(torch, dev, phase, rows, failures) -> None:
-    """Phases 21-25, pose fitting: K2 in f32 and the frozen K3 in f32
-    against their plain versions at a fit step's shapes, the fitting CLI
-    ('1' then '12') with its launch counts and ms per step, one step on
-    the card against the CPU, and a profile of one step.  `phase` runs
+    """Phases 27-33, pose fitting: K2 in f32 and the frozen K3 in f32, then
+    the no-color K2 / K3 and K5 / K6 in f32, against their plain versions
+    at a fit step's inputs, the fitting CLI
+    ('1' then '12', then '12' in the other fine-pass modes) with its
+    launch counts and ms per step, one step on the card against the CPU,
+    and a profile of one step.  `phase` runs
     one phase and records its failure; `rows` collects the kernels
     line's numbers."""
     import numpy as np
@@ -1054,26 +1258,21 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
 
     def kernel_k3_f32():
         """The frozen K3 in f32 on one fit step's own inputs and
-        cotangents: dp, drotT, doff in L2; by torch.profiler's kernel
-        names, its f32 GEMMs and no dW / db kernel."""
+        cotangents, and on unit cotangents at its points: dp, drotT, doff
+        in L2; by torch.profiler's kernel names, its f32 GEMMs and no dW /
+        db kernel."""
         args = fit_inputs()
         pts, pack = args[0], args[4]
         n = pts.shape[0]
         before = FF.KERNEL_BWD.launches
-        got = FF.hand_fine_color_bwd(*args, want_dw=False)
-        want = FF.hand_fine_color_plain_bwd(*args, want_dw=False)
-        torch.cuda.synchronize()
-        oks, lines, errs = [], [], []
-        for what in ("dp", "drotT", "doff"):
-            a, b = getattr(got, what), getattr(want, what)
-            l2 = float((a - b).norm()) / max(float(b.norm()), 1e-30)
-            oks.append(bool(torch.isfinite(a).all()) and l2 <= TOL_F32)
-            errs.append(float((a - b).abs().max()))
-            lines.append(f"{what}: |err| L2 {l2:.2e} of |plain| {float(b.norm()):.3e} "
-                         f"(tol {TOL_F32:g}){'' if oks[-1] else ' FAIL'}")
+        got, checks, _ = f32_bwd_check(torch, args, want_dw=False, shared_g=False)
+        _, units, _ = f32_bwd_check(torch, args, want_dw=False, seed=3, shared_g=False)
+        oks = [c.ok for c in checks + units]
+        errs = [c.max_abs for c in checks]
+        lines = [c.text for c in checks] + [f"unit cotangents, {c.text}" for c in units]
         no_dw = got.dws is None and got.dcws is None
         names = device_kernel_names(torch, lambda: FF.hand_fine_color_bwd(*args, want_dw=False))
-        launched = FF.KERNEL_BWD.launches - before == 2
+        launched = FF.KERNEL_BWD.launches - before == 3
 
         def count(*keys):
             return sum(c for k, c in names.items() if any(x in k for x in keys))
@@ -1103,136 +1302,256 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         if not seen or dw_launches or bf16_gemms:
             raise AssertionError("K3 f32 frozen: f32 GEMMs and no dW/db kernel not shown")
 
+    def kernel_fit_modes_f32():
+        """At what one '12' fit step in 'full_nocolor' and in 'pallas' hands
+        its kernels (37,632 points): the forward (K2 f32 without the color
+        net: out, g, e; K5 f32: out, u) within TOL_F32 of the range at the
+        median and the max, and the frozen backward (K3 f32 without the
+        color net; K6 f32) on the step's own cotangents and on seeded unit
+        cotangents at its inputs under the f32 rule."""
+        bad = []
+        for mode, label, fwd, plain_fwd, names, lead in (
+                ("full_nocolor", "K2/K3 f32 no-color", FF.hand_fine_color_fwd,
+                 FF.hand_fine_color_plain, ("out", "g", "e"), 5),
+                ("pallas", "K5/K6 f32", FT.hand_trunk_sdf_u_fwd, FT.hand_trunk_sdf_u_plain,
+                 ("out", "u"), 2)):
+            args = fit_step_inputs(torch, fn, dev, "12", mode=mode)
+            fargs = args[:lead]
+            checks = [compare(torch, w, a, b, TOL_F32, TOL_F32)
+                      for w, a, b in zip(names, fwd(*fargs), plain_fwd(*fargs))]
+            got, own, _ = f32_bwd_check(torch, args, mode, want_dw=False)
+            _, units, _ = f32_bwd_check(torch, args, mode, want_dw=False, seed=3)
+            frozen = got.dws is None if mode != "pallas" else got[1] is None
+            log(f"{label} at a '12' fit step ({args[0].shape[0]} pts): forward "
+                + "; ".join(c[2] for c in checks) + "; frozen backward on the step's "
+                "cotangents: " + "; ".join(c.text for c in own) + "; on unit cotangents: "
+                + "; ".join(c.text for c in units) + f"; no weight gradient {frozen}")
+            if not (all(c[0] for c in checks) and all(c.ok for c in own + units) and frozen):
+                bad.append(label)
+        assert not bad, f"disagrees with its plain version at a fit step: {bad}"
+
     fit_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD}
 
     def fit():
-        """The fitting CLI, '1' then '12', on a synthetic catch sequence;
-        then ms per step of each fit type through the runner's loop."""
+        """The fitting CLI, '1' then '12', on a synthetic catch sequence in a
+        temporary workspace (kept for the fit modes phase); then ms per
+        step of each fit type through the runner's loop."""
         import pickle
-        import shutil
         import tempfile
 
         from honerf_torch.cli import fitting_single
+
+        ws = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+        f32_inputs["ws"] = ws
+        confs, gen_s = fit_workspace(torch, fn, dev, ws)
+        H, W = fn.conf.get_list("dataset.image_size")
+        log(f"fit: synthetic catch sequence (1 frame, 8 views, {H}x{W}) and checkpoints in "
+            f"{gen_s:.1f} s")
+        total = {}
+        for ft in ("1", "12"):
+            for k in fit_kernels.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fitting_single.main(["--conf", confs[ft], "--case", f"{ft}_8view"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = {name: k.launches for name, k in fit_kernels.items()}
+            for name, c in launches.items():
+                total[name] = total.get(name, 0) + c
+            path = os.path.join(ws, "fit_res", "view_8", ft, "person1_bean", "seq0",
+                                f"pose_{ft}", "0.pickle")
+            with open(path, "rb") as f:
+                pose = pickle.load(f)
+            shapes = {k: tuple(v.shape) for k, v in pose.items()}
+            want = {"pred_joint3d": (21, 3), "pred_Ro": (3, 3), "pred_To": (3,),
+                    "gt_joint3d": (21, 3), "gt_Ro": (3, 3), "gt_To": (3,)}
+            finite = all(np.isfinite(v).all() and v.dtype == np.float32
+                         for v in pose.values())
+            moved = float(np.abs(pose["pred_joint3d"] - pose["gt_joint3d"]).max())
+            log(f"fit {ft}: the CLI in {cli_s:.1f} s ({FIT_ITERS} iterations x 8 views, "
+                f"loading and checkpoints included); launches {launches}; pickle {shapes}, "
+                f"f32 and finite {finite}; |pred - gt| joints up to {moved:.4f} m")
+            assert shapes == want and finite, "the pose pickle is not the JAX runner's"
+            assert launches["K1"] and launches["K2"] and launches["K3"], \
+                f"a kernel of the fitting path did not launch: {launches}"
+            assert not (launches["K5"] or launches["K6"]), f"stray launches {launches}"
+        f32_inputs["confs"] = confs
+        rows["K2"] = dict(rows.get("K2", {}), f32_launches=total["K2"])
+        rows["K3"] = dict(rows.get("K3", {}), f32_launches=total["K3"])
+        # ms per step of each fit type through the runner's own loop
+        for ft in ("1", "12"):
+            one = runner_steps(confs[ft], ft, f"fit {ft}")
+            if ft == "12":
+                f32_inputs["profile"] = one
+
+    def runner_steps(conf_path, ft, label):
+        """TRAIN_WARMUP + TRAIN_STEPS fit steps of the conf through the
+        runner's own loop (host ray sampling and upload included): ms per
+        step and seconds a frame at the reference budget.  Returns a
+        closure that runs one more step."""
+        from honerf_torch.data.fit_datasets import load_fit_sequence
         from honerf_torch.fit.runner import SingleFitRunner
         from honerf_torch.fit.single import init_fit_state
 
-        ws = tempfile.mkdtemp(prefix="chip_smoke_fit_")
-        try:
-            confs, gen_s = fit_workspace(torch, fn, dev, ws)
-            H, W = fn.conf.get_list("dataset.image_size")
-            log(f"fit: synthetic catch sequence (1 frame, 8 views, {H}x{W}) and checkpoints in "
-                f"{gen_s:.1f} s")
-            total = {}
-            for ft in ("1", "12"):
-                for k in fit_kernels.values():
-                    k.launches = 0
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fitting_single.main(["--conf", confs[ft], "--case", f"{ft}_8view"])
-                torch.cuda.synchronize()
-                cli_s = time.perf_counter() - t0
-                launches = {name: k.launches for name, k in fit_kernels.items()}
-                for name, c in launches.items():
-                    total[name] = total.get(name, 0) + c
-                path = os.path.join(ws, "fit_res", "view_8", ft, "person1_bean", "seq0",
-                                    f"pose_{ft}", "0.pickle")
-                with open(path, "rb") as f:
-                    pose = pickle.load(f)
-                shapes = {k: tuple(v.shape) for k, v in pose.items()}
-                want = {"pred_joint3d": (21, 3), "pred_Ro": (3, 3), "pred_To": (3,),
-                        "gt_joint3d": (21, 3), "gt_Ro": (3, 3), "gt_To": (3,)}
-                finite = all(np.isfinite(v).all() and v.dtype == np.float32
-                             for v in pose.values())
-                moved = float(np.abs(pose["pred_joint3d"] - pose["gt_joint3d"]).max())
-                log(f"fit {ft}: the CLI in {cli_s:.1f} s ({FIT_ITERS} iterations x 8 views, "
-                    f"loading and checkpoints included); launches {launches}; pickle {shapes}, "
-                    f"f32 and finite {finite}; |pred - gt| joints up to {moved:.4f} m")
-                assert shapes == want and finite, "the pose pickle is not the JAX runner's"
-                assert launches["K1"] and launches["K2"] and launches["K3"], \
-                    f"a kernel of the fitting path did not launch: {launches}"
-                assert not (launches["K5"] or launches["K6"]), f"stray launches {launches}"
-            rows["K2"] = dict(rows.get("K2", {}), f32_launches=total["K2"])
-            rows["K3"] = dict(rows.get("K3", {}), f32_launches=total["K3"])
-            # ms per step of each fit type through the runner's own loop
-            for ft in ("1", "12"):
-                r = SingleFitRunner(confs[ft], f"{ft}_8view", device=dev)
-                from honerf_torch.data.fit_datasets import load_fit_sequence
+        r = SingleFitRunner(conf_path, f"{ft}_8view", device=dev)
+        seq = load_fit_sequence(r.data_root, "person1_bean", "seq0", r.view_num, r.fit_type,
+                                r.fit_res_root, r.exp_root, image_hw=(r.H, r.W))
+        frame = seq.frames[0]
+        step = r.make_step(r.nets_for(seq))
+        consts = r.frame_consts(seq, frame)
+        state = init_fit_state(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        metrics = []
+        n_views = len(frame.views)
 
-                seq = load_fit_sequence(r.data_root, "person1_bean", "seq0", r.view_num,
-                                        r.fit_type, r.fit_res_root, r.exp_root,
-                                        image_hw=(r.H, r.W))
-                frame = seq.frames[0]
-                step = r.make_step(r.nets_for(seq))
-                consts = r.frame_consts(seq, frame)
-                state = init_fit_state(dev)
-                gen = torch.Generator(device=dev).manual_seed(0)
-                torch.cuda.reset_peak_memory_stats()
-                metrics = []
-                n_views = len(frame.views)
+        def one(i=0):
+            batch = r.device_batch(r.view_batch(frame, i % n_views, r.fcfg.batch_size), consts)
+            return step(state, batch, gen)[1]
 
-                def one(i):
-                    batch = r.device_batch(r.view_batch(frame, i % n_views, r.fcfg.batch_size),
-                                           consts)
-                    return step(state, batch, gen)[1]
+        for i in range(TRAIN_WARMUP):
+            metrics.append(one(i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            metrics.append(one(i))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        loss = torch.stack([m["loss"] for m in metrics])
+        log(f"{label}: {ms:.2f} ms/step ({TRAIN_STEPS} steps of {r.fcfg.batch_size} rays "
+            f"after {TRAIN_WARMUP} warm-up, host clock, ray sampling and upload "
+            f"included); {ms * FIT_BUDGET[ft] / 1e3:.2f} s a frame at the reference "
+            f"budget of {FIT_BUDGET[ft]} steps; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss first "
+            f"{float(loss[0]):.4f} last {float(loss[-1]):.4f}")
+        assert bool(torch.isfinite(loss).all()), "a fit loss is not finite"
+        return one
 
-                for i in range(TRAIN_WARMUP):
-                    metrics.append(one(i))
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for i in range(TRAIN_STEPS):
-                    metrics.append(one(i))
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-                loss = torch.stack([m["loss"] for m in metrics])
-                log(f"fit {ft}: {ms:.2f} ms/step ({TRAIN_STEPS} steps of {r.fcfg.batch_size} rays "
-                    f"after {TRAIN_WARMUP} warm-up, host clock, ray sampling and upload "
-                    f"included); {ms * FIT_BUDGET[ft] / 1e3:.2f} s a frame at the reference "
-                    f"budget of {FIT_BUDGET[ft]} steps; peak device memory "
-                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss first "
-                    f"{float(loss[0]):.4f} last {float(loss[-1]):.4f}")
-                assert bool(torch.isfinite(loss).all()), "a fit loss is not finite"
-                if ft == "12":
-                    f32_inputs["profile"] = lambda: one(0)
-        finally:
-            shutil.rmtree(ws, ignore_errors=True)
+    def fit_modes():
+        """fitting_single '12' with train.fused_fine = 'full_nocolor' and
+        'pallas' (the confs' f32 trunks; '1''s poses from the fit phase):
+        the CLI with its launch counts and pose pickle, then ms per step
+        through the runner's loop; one step's kernels by name: f32 GEMMs
+        and no dW / db kernel (the nets are frozen)."""
+        import pickle
+        import shutil
+
+        from honerf_torch.cli import fitting_single
+
+        ws, confs = f32_inputs.get("ws"), f32_inputs.get("confs")
+        assert confs, "the fit phase did not run"
+        with open(confs["12"]) as f:
+            text = f.read()
+        bad = []
+        for mode, want in (("full_nocolor", ("K1", "K2", "K3")), ("pallas", ("K1", "K5", "K6"))):
+            label = f"fit 12 {mode}"
+            root = os.path.join(ws, f"fit_res_{mode}")
+            shutil.copytree(os.path.join(ws, "fit_res", "view_8", "1"),
+                            os.path.join(root, "view_8", "1"))
+            conf = os.path.join(ws, f"fit_12_{mode}.conf")
+            with open(conf, "w") as f:
+                f.write(text.replace(f'fit_res_root = "{ws}/fit_res"', f'fit_res_root = "{root}"')
+                        .replace("batch_size = 196", f'batch_size = 196\n  fused_fine = "{mode}"'))
+            for k in fit_kernels.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fitting_single.main(["--conf", conf, "--case", "12_8view"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = {name: k.launches for name, k in fit_kernels.items()}
+            with open(os.path.join(root, "view_8", "12", "person1_bean", "seq0", "pose_12",
+                                   "0.pickle"), "rb") as f:
+                pose = pickle.load(f)
+            finite = all(np.isfinite(v).all() for v in pose.values())
+            log(f"{label}: the CLI in {cli_s:.1f} s; launches {launches}; pickle finite {finite}")
+            one = runner_steps(conf, "12", label)
+            names = device_kernel_names(torch, one)
+
+            def count(*keys):
+                return sum(c for k, c in names.items()
+                           if "honerf" in k and any(x in k for x in keys))
+
+            dw = count("gemm_tn", "colsum_partial", "reduce_partials")
+            f32_g = count("gemm_f32_kernel")
+            log(f"{label}: one step's kernels by name: {sum(names.values())} launches, f32 "
+                f"GEMMs {f32_g}, dW/db kernels {dw}")
+            idle = [k for k in want if not launches[k]]
+            stray = [k for k in ("K2", "K3", "K5", "K6") if k not in want and launches[k]]
+            if idle or stray or not finite or dw or not f32_g:
+                bad.append(label)
+        assert not bad, f"a fit mode's path is not as expected: {bad}"
 
     def fit_check():
-        """One '12' step on the card against the CPU: the whole step in f32
-        (no K1) at shared ladder samples against the CPU's f64 step, then
-        the default step (K1 on the card, its plain version on the CPU) on
-        FIT_CHECK_SEEDS batches."""
+        """One '12' step on the card against the CPU at the card's ladder
+        samples: the whole step in f32 (no K1) on fit_batch's rays against
+        the CPU's f64 step; on fit_grid_batch's rays the card's f32 step
+        against the CPU's in each fine-pass mode; the render terms' hand-pose
+        gradients on their own, against the CPU's f32 step on fit_grid_batch's
+        rays and under the f64 rule on fit_batch's; then with
+        K1 (its plain version on the CPU) on FIT_CHECK_SEEDS batches against
+        the f64 step, with K1 at the step's own ladder points against its
+        plain version."""
         bad = []
-        for ladder, seeds in ((False, FIT_CHECK_SEEDS[:1]), (True, FIT_CHECK_SEEDS)):
-            for seed in seeds:
-                r = fit_check_readings(torch, fn, dev, fused_ladder=ladder, seed=seed)
-                label = f"fit check (fused_ladder={ladder}, seed {seed})"
-                log(f"{label}: one step of {FIT_CHECK_RAYS} rays; metrics " + "; ".join(
-                    f"{side}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
-                    for side, m in r.metrics.items()))
-                log(f"{label}: the two ladders' samples up to {r.ladder_dz:.2e} apart"
-                    + ("" if ladder else " (every side renders at the card's)"))
-                (c_loss, c_grad) = r.card
+        cases = ([(fit_batch, False, FIT_CHECK_SEEDS[0], "full")]
+                 + [(fit_grid_batch, False, FIT_CHECK_SEEDS[0], mode)
+                    for mode in ("full", "full_nocolor", "pallas")]
+                 + [(fit_grid_batch, True, seed, "full") for seed in FIT_CHECK_SEEDS])
+        for batch_fn, ladder, seed, mode in cases:
+            grid = batch_fn is fit_grid_batch
+            direct = grid and not ladder     # the whole step: card vs CPU f32
+            r = fit_check_readings(torch, fn, dev, fused_ladder=ladder, seed=seed, mode=mode,
+                                   batch_fn=batch_fn, terms=not ladder)
+            label = (f"fit check {mode} ({'head-on grid' if grid else 'random rays'}, "
+                     f"fused_ladder={ladder}, seed {seed})")
+            log(f"{label}: one step of {FIT_CHECK_RAYS} rays; metrics " + "; ".join(
+                f"{side}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
+                for side, m in r.metrics.items()))
+            log(f"{label}: the two ladders' samples {r.ladder_median:.2e} apart at the median, "
+                f"{r.ladder_dz:.2e} at most; every side renders at the card's")
+            if direct:
+                c_loss, c_grad = r.card_cpu
+                worst = max(max(c_loss.values()), max(c_grad))
+                ok = worst <= TOL_FIT_HEAD_ON
+                log(f"{label}: card vs CPU f32, loss terms " + ", ".join(
+                    f"{k} {v:.1e}" for k, v in c_loss.items()) + "; pose gradients " + ", ".join(
+                    f"{k} {x:.2e}" for k, x in zip(r.keys, c_grad))
+                    + f"; worst {worst:.2e} (tol {TOL_FIT_HEAD_ON:g}){'' if ok else ' FAIL'}")
+            else:
+                ratios = fit_f64_ratios(r)
+                ok = max(ratios) <= 1.0
+                (c_loss, c_grad), (p_loss, p_grad) = r.card, r.cpu
                 if ladder:
-                    ok = (max(c_loss.values()) <= TOL_FIT_LADDER_LOSS
-                          and max(c_grad) <= TOL_FIT_LADDER_GRAD)
-                    log(f"{label}: card vs CPU, worst loss term {max(c_loss.values()):.2e} (tol "
-                        f"{TOL_FIT_LADDER_LOSS:g}); pose gradients " + ", ".join(
-                            f"{k} {x:.2e}" for k, x in zip(r.keys, c_grad))
-                        + f" (tol {TOL_FIT_LADDER_GRAD:g}){'' if ok else ' FAIL'}")
+                    med, _, mx, scale = r.k1
+                    k1_ok = med <= TOL_MEDIAN * scale and mx <= TOL_MAX * scale
+                    ok = ok and k1_ok
+                    log(f"{label}: K1 at the step's coarse ladder points against its plain "
+                        f"version: |err| median {med / scale:.2e}, max {mx / scale:.2e} of the "
+                        f"range {scale:.3e} (tol {TOL_MEDIAN:g}, {TOL_MAX:g})"
+                        f"{'' if k1_ok else ' FAIL'}")
+                log(f"{label}: distance from the CPU's f64 step, card / CPU f32: loss terms "
+                    + ", ".join(f"{k} {c_loss[k]:.1e}/{p_loss[k]:.1e}" for k in c_loss)
+                    + "; pose gradients " + ", ".join(
+                        f"{k} {c:.2e}/{p:.2e}" for k, c, p in zip(r.keys, c_grad, p_grad))
+                    + f"; worst {max(ratios):.3f} of the limit (card <= {FIT_FACTOR:g} x "
+                    f"CPU + {TOL_FIT_F32:g}){'' if ok else ' FAIL'}")
+            if r.render_card:
+                if direct:
+                    worst_r = max(r.render_card_cpu.values())
+                    r_ok, limit = worst_r <= TOL_FIT_RENDER, f"tol {TOL_FIT_RENDER:g}"
                 else:
-                    p_loss, p_grad = r.cpu
-                    ratios = ([c_loss[k] / (FIT_FACTOR * p_loss[k] + TOL_FIT_F32) for k in c_loss]
-                              + [c / (FIT_FACTOR * p + TOL_FIT_F32) for c, p in zip(c_grad, p_grad)])
-                    ok = max(ratios) <= 1.0
-                    log(f"{label}: distance from the CPU's f64 step, card / CPU f32: loss terms "
-                        + ", ".join(f"{k} {c_loss[k]:.1e}/{p_loss[k]:.1e}" for k in c_loss)
-                        + "; pose gradients " + ", ".join(
-                            f"{k} {c:.2e}/{p:.2e}" for k, c, p in zip(r.keys, c_grad, p_grad))
-                        + f"; worst {max(ratios):.3f} of the limit (card <= {FIT_FACTOR:g} x "
-                        f"CPU + {TOL_FIT_F32:g}){'' if ok else ' FAIL'}")
-                if not ok:
-                    bad.append(label)
+                    worst_r = max(fit_render_ratios(r).values())
+                    r_ok, limit = worst_r <= 1.0, "of the f64 rule"
+                ok = ok and r_ok
+                log(f"{label}: the render terms' hand-pose gradients, card vs CPU f32 (distance "
+                    "from the CPU's f64 step, card / CPU f32): " + ", ".join(
+                        f"{t} {r.render_card_cpu[t]:.2e} ({r.render_card[t]:.2e}/"
+                        f"{r.render_cpu[t]:.2e})" for t in FIT_RENDER_TERMS)
+                    + f"; worst {worst_r:.3g} ({limit}){'' if r_ok else ' FAIL'}")
+            if not ok:
+                bad.append(label)
         assert not bad, f"the card's fit step disagrees with the CPU's: {bad}"
 
     def fit_profile():
@@ -1243,12 +1562,322 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
 
     phase("kernel K2 f32", kernel_k2_f32)
     phase("kernel K3 f32 frozen", kernel_k3_f32)
-    phase("fit", fit)
-    phase("fit check", fit_check)
-    if "fit" not in failures:
-        phase("fit profile", fit_profile)
-    else:
-        failures.append("fit profile")
+    phase("kernel fit modes f32", kernel_fit_modes_f32)
+    try:
+        phase("fit", fit)
+        phase("fit modes", fit_modes)
+        phase("fit check", fit_check)
+        if "fit" not in failures:
+            phase("fit profile", fit_profile)
+        else:
+            failures.append("fit profile")
+    finally:
+        import shutil
+
+        if f32_inputs.get("ws"):
+            shutil.rmtree(f32_inputs["ws"], ignore_errors=True)
+
+
+def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
+    """Phases 21-26, the hand's offline stage with the flagship conf's own
+    f32 trunks (as written): K3 f32 with weight gradients, K2/K3 f32
+    without the color net and K5/K6 f32 against their plain versions at a
+    step's shapes, the train step under each kernel mode and the autograd
+    field, one step per mode on the card against the CPU, and a 'full'
+    request.  `view` is the serve phase's camera and pose, `rays` the NDC
+    rays of one request."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+    from honerf_torch.train.offline import (
+        init_train_state,
+        make_hand_eval_render,
+        make_hand_train_step,
+        select_fine_pass,
+    )
+
+    fs = flagship(torch, dev, "f32")
+    sdf_cfg, color_cfg = fs.sdf, fs.color
+    E, d_out = sdf_cfg.input_width, sdf_cfg.d_out
+    ttcfg = train_hyper(fs)
+    kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD, "K5": FT.KERNEL_FWD,
+               "K6": FT.KERNEL_BWD}
+    log(f"f32 phases: {os.path.relpath(CONF, ROOT)} as written, trunks {sdf_cfg.trunk_dtype}; "
+        "select_fine_pass on the card: " + ", ".join(
+            f"{m} -> {select_fine_pass(ttcfg._replace(fused_fine=m), sdf_cfg, dev)}"
+            for m in (None, "full", "full_nocolor", "pallas")))
+    inputs = {}
+
+    def step_inputs(mode):
+        if mode not in inputs:
+            inputs[mode] = step_bwd_inputs(torch, fs, dev, mode=mode)
+        return inputs[mode]
+
+    def l2(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    def f32_names(fn):
+        """fn's device kernels by name: (f32 GEMMs, f32 TN GEMMs, bf16 GEMMs,
+        bf16 TN GEMMs, all launches)."""
+        names = device_kernel_names(torch, fn)
+
+        def count(key):
+            return sum(c for k, c in names.items() if "honerf" in k and key in k)
+
+        return (count("gemm_f32_kernel"), count("gemm_tn_f32_kernel"), count("gemm_kernel"),
+                count("gemm_tn_kernel"), sum(names.values()))
+
+    def bwd_report(label, mode, args, flops, n_bytes, key, names_fn):
+        """The f32 rule with and without dW, a second run's bits, the
+        kernel names, times; rows[key]'s f32 numbers; returns the
+        outputs."""
+        n = args[0].shape[0]
+        mod, name, plain, _, _ = bwd_entry(mode)
+        got, checks, dropped = f32_bwd_check(torch, args, mode)
+        _, frozen_checks, _ = f32_bwd_check(torch, args, mode, want_dw=False)
+        for c in checks:
+            log(f"{label} {c.text}")
+        log(f"{label} frozen (no weight gradient): " + "; ".join(c.text for c in frozen_checks))
+        again = getattr(mod, name)(*args)
+        first = getattr(mod, name)(*args)
+        same = all(torch.equal(x, y) for (_, x), (_, y) in zip(bwd_entry(mode)[3](again),
+                                                               bwd_entry(mode)[3](first)))
+        f32_g, tn_f32, bf16_g, bf16_tn, total = names_fn(lambda: getattr(mod, name)(*args))
+        ms = cuda_ms(torch, lambda: getattr(mod, name)(*args), 5)
+        frozen_ms = cuda_ms(torch, lambda: getattr(mod, name)(*args, want_dw=False), 5)
+        plain_ms = cuda_ms(torch, lambda: plain(*args), 2)
+        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_FLOPS)
+        log(f"{label}: {n} pts ({-(-n // FT.chunk_size(n, 'f32', FF.BWD_CHUNK))} passes"
+            + (f"; dcolor zero at {dropped} points within {FF.RELU_MARGIN:g} of a relu kink"
+               if mode == "full" else "") + f"); a second run gives the same bits: {same}; "
+            f"kernels by name: {total} launches, f32 GEMMs {f32_g}, f32 TN GEMMs {tn_f32}, bf16 "
+            f"GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}; kernel {ms:.3f} ms, frozen "
+            f"{frozen_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{flops / 1e12:.4f} TFLOP, {flops / n / 1e6:.3f} MFLOP/pt, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s)")
+        rows[key[0]] = dict(rows.get(key[0], {}), **{f"{key[1]}ms": ms,
+                                                     f"{key[1]}plain_ms": plain_ms,
+                                                     f"{key[1]}bound_ms": b_ms})
+        if not all(c.ok for c in checks + frozen_checks) or not same:
+            raise AssertionError(f"{label} disagrees with its plain version")
+        if not (f32_g and tn_f32) or bf16_g or bf16_tn:
+            raise AssertionError(f"{label}: f32 GEMMs and TN GEMMs, and no bf16 one, not shown")
+        return got
+
+    def kernel_k3_f32_dw():
+        """K3 f32 with dW on what one flagship f32 'full' step hands it
+        (56,448 points, the loss's cotangents), TF32 off; the last color
+        layer's dW read three ways (C4)."""
+        args = step_inputs("full")
+        pack = args[4]
+        n = args[0].shape[0]
+        weights = [*pack.ws, *pack.bs, *pack.cws, *pack.cbs]
+        n_bytes = (nbytes([*args[:4], *args[5:], *weights]) + 12 * n
+                   + 4 * sum(w.numel() for w in weights) + 4 * 9 * 128)
+        bwd_report("K3 f32", "full", args, k3_flops(sdf_cfg, color_cfg, n), n_bytes,
+                         ("K3", "f32_dw_"), f32_names)
+        g = FF.hand_fine_color_fwd(*args[:5])[1]
+        own = FF.hand_fine_color_plain_bwd(*args)
+        shared = FF.hand_fine_color_plain_bwd(*args, g_color=g)
+        full = FF.hand_fine_color_bwd(*args)
+        last = len(full.dcws) - 1
+        worst = max((l2(a, b), w) for (w, a), (_, b) in zip(k3_outputs(full), k3_outputs(own)))
+        log(f"K3 f32 (C4): the last color layer's dW, |kernel - plain| / |plain| in L2, on the "
+            f"step's cotangents: {l2(full.dcws[last], own.dcws[last]):.2e} against the plain "
+            f"version with its own g, {l2(full.dcws[last], shared.dcws[last]):.2e} at the "
+            f"kernel's g (the rule's reading, with dcolor zero near the kinks: dcws[{last}] "
+            f"above); every output against its own g: worst {worst[0]:.2e} ({worst[1]})")
+
+    def kernel_nocolor_f32():
+        """K2 f32 without the color net at a flagship f32 'full_nocolor'
+        step's points (out, g, e within TOL_F32 of the range, median and
+        max), K3 f32 without it on that step's inputs, with and without
+        dW."""
+        args = step_inputs("full_nocolor")
+        pack = args[4]
+        n = args[0].shape[0]
+        fargs = args[:5]
+        got = FF.hand_fine_color_fwd(*fargs)
+        want = FF.hand_fine_color_plain(*fargs)
+        torch.cuda.synchronize()
+        checks = [compare(torch, what, a, b, TOL_F32, TOL_F32)
+                  for what, a, b in zip(("out", "g", "e"), got, want)]
+        ms = cuda_ms(torch, lambda: FF.hand_fine_color_fwd(*fargs), 5)
+        plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain(*fargs), 2)
+        n_bytes = 12 * n + 4 * (d_out + 3 + E) * n + nbytes([*fargs[1:4], *pack.ws, *pack.bs])
+        flops = k5_flops(sdf_cfg, n)
+        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_FLOPS)
+        log(f"K2 f32 no-color hand_fine_color_fwd: {n} pts "
+            f"({-(-n // FT.chunk_size(n, 'f32', FF.CHUNK))} passes); "
+            f"{'; '.join(c[2] for c in checks)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}, {flops / n / 1e6:.3f} MFLOP/pt, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s)")
+        rows["K2"] = dict(rows.get("K2", {}), f32_nocolor_ms=ms, f32_nocolor_plain_ms=plain_ms,
+                          f32_nocolor_bound_ms=b_ms)
+        weights = [*pack.ws, *pack.bs]
+        n_bytes = (nbytes([*args[:4], *args[5:], *weights]) + 12 * n
+                   + 4 * sum(w.numel() for w in weights) + 4 * 9 * 128)
+        bwd_report("K3 f32 no-color", "full_nocolor", args, k3_nocolor_flops(sdf_cfg, n),
+                   n_bytes, ("K3", "f32_nocolor_"), f32_names)
+        if not all(c[0] for c in checks):
+            raise AssertionError("K2 f32 without the color net disagrees with its plain version")
+
+    def kernel_k5k6_f32():
+        """K5 f32 (out, u within TOL_F32 of the range) and K6 f32, with and
+        without dW, on what one flagship f32 'pallas' step hands them."""
+        args = step_inputs("pallas")
+        e, tpack = args[0], args[1]
+        n = e.shape[0]
+        got = FT.hand_trunk_sdf_u_fwd(e, tpack)
+        want = FT.hand_trunk_sdf_u_plain(e, tpack)
+        torch.cuda.synchronize()
+        checks = [compare(torch, what, a, b, TOL_F32, TOL_F32)
+                  for what, a, b in zip(("out", "u"), got, want)]
+        ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_fwd(e, tpack), 5)
+        plain_ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_plain(e, tpack), 2)
+        weights = [*tpack.ws, *tpack.bs]
+        flops = k5_flops(sdf_cfg, n)
+        b_ms, b_by = bound(flops, 4 * (2 * E + d_out) * n + nbytes(weights), PEAK_F32_FLOPS)
+        names = f32_names(lambda: FT.hand_trunk_sdf_u_fwd(e, tpack))
+        log(f"K5 f32 hand_trunk_sdf_u_fwd: {n} pts "
+            f"({-(-n // FT.chunk_size(n, 'f32', FT.CHUNK))} passes); "
+            f"{'; '.join(c[2] for c in checks)}; f32 GEMMs {names[0]}, bf16 GEMMs {names[2]}; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{flops / n / 1e6:.3f} MFLOP/pt, {flops / ms / 1e9:.1f} TFLOP/s)")
+        rows["K5"] = dict(rows.get("K5", {}), f32_ms=ms, f32_plain_ms=plain_ms, f32_bound_ms=b_ms)
+        n_bytes = (4 * (3 * E + d_out) * n + nbytes(weights)
+                   + 4 * sum(w.numel() for w in weights))
+        bwd_report("K6 f32", "pallas", args, k6_flops(sdf_cfg, n), n_bytes, ("K6", "f32_"),
+                   f32_names)
+        if not all(c[0] for c in checks) or not names[0] or names[2]:
+            raise AssertionError("K5 f32 disagrees with its plain version or ran a bf16 GEMM")
+
+    expect = {"full": ("K2", "K3"), "full_nocolor": ("K2", "K3"), "pallas": ("K5", "K6"),
+              None: ()}
+
+    def train_f32():
+        """The flagship train step with the conf's f32 trunks under each
+        kernel mode and the autograd field (None): TRAIN_WARMUP +
+        TRAIN_STEPS steps, the launch counts zeroed just before and read
+        just after; one more step's kernels by name."""
+        batch = train_batch(torch, TRAIN_RAYS, dev)
+        bad = []
+        for mode, want in expect.items():
+            label = f"train f32 {mode or 'autograd'}"
+            tcfg_m = ttcfg._replace(fused_fine=mode)
+            tparams = train_params(fs, dev)
+            state = init_train_state(tparams, tcfg_m)
+            step = make_hand_train_step(sdf_cfg, color_cfg, fs.rcfg, tcfg_m)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            se3_before = tparams["se3_refine"].detach().clone()
+            for k in kernels.values():
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            metrics = []
+            for _ in range(TRAIN_WARMUP):
+                state, m = step(state, batch, gen)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                state, m = step(state, batch, gen)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {name: k.launches for name, k in kernels.items()}
+            loss = torch.stack([m["loss"] for m in metrics])
+            gnorm = torch.stack([m["grad_norm"] for m in metrics])
+            finite = bool(torch.isfinite(loss).all()) and bool(torch.isfinite(gnorm).all())
+            moved = float((tparams["se3_refine"].detach() - se3_before).abs().max())
+            f32_g, tn_f32, bf16_g, bf16_tn, total = f32_names(lambda: step(state, batch, gen))
+            log(f"{label}: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays: "
+                f"{dt * 1e3 / TRAIN_STEPS:.2f} ms/step, {TRAIN_RAYS * TRAIN_STEPS / dt:.1f} "
+                f"rays/s (host clock, after {TRAIN_WARMUP} warm-up steps); peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; "
+                f"one step's kernels by name: {total} launches, f32 GEMMs {f32_g}, f32 TN GEMMs "
+                f"{tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}")
+            log(f"{label}: loss first {float(loss[0]):.4f} last {float(loss[-1]):.4f}; grad_norm "
+                f"first {float(gnorm[0]):.4f} last {float(gnorm[-1]):.4f}; se3_refine moved by "
+                f"up to {moved:.3e}")
+            if mode == "full":
+                device_profile(torch, f"one {label} step of {TRAIN_RAYS} rays",
+                               lambda: step(state, batch, gen))
+            idle = [k for k in want if not launches[k]]
+            stray = [k for k in ("K1", "K2", "K3", "K5", "K6") if k not in want and launches[k]]
+            shown = (f32_g > 0 and tn_f32 > 0) if want else total >= 0
+            if not finite or moved <= 0 or idle or stray or not shown or bf16_g or bf16_tn:
+                bad.append(f"{label} (launches {launches}, finite {finite}, moved {moved:.2e})")
+            if mode == "full":
+                rows["K3"] = dict(rows.get("K3", {}), f32_dw_launches=launches["K3"])
+            elif mode == "full_nocolor":
+                for name in ("K2", "K3"):
+                    rows[name] = dict(rows.get(name, {}), f32_nocolor_launches=launches[name])
+            elif mode == "pallas":
+                for name in ("K5", "K6"):
+                    rows[name] = dict(rows.get(name, {}), f32_launches=launches[name])
+        assert not bad, f"an f32 train path is not as expected: {bad}"
+
+    def train_check_f32():
+        """One 64-ray step per kernel mode, card against CPU."""
+        bad = []
+        for mode in ("full", "full_nocolor", "pallas"):
+            r = train_check_readings(torch, fs, dev, mode=mode)
+            label = f"train check f32 {mode}"
+            log(f"{label}: metrics card / cpu: " + ", ".join(
+                f"{k} {r.card[k]:.7g}/{r.cpu[k]:.7g}" for k in r.cpu))
+            log(f"{label}: gradient leaves, |card - cpu| / |cpu|: "
+                + " ".join(f"{x:.1e}" for x in r.rel))
+            ok = r.worst_metric <= TOL_TRAIN_F32_LOSS and max(r.rel) <= TOL_TRAIN_F32_GRAD
+            log(f"{label}: worst loss term {r.worst_metric:.2e} of its value (tol "
+                f"{TOL_TRAIN_F32_LOSS:g}); worst leaf {max(r.rel):.2e} (tol "
+                f"{TOL_TRAIN_F32_GRAD:g}); card {r.secs['cuda']:.2f} s, CPU {r.secs['cpu']:.2f} s"
+                f"{'' if ok else ' FAIL'}")
+            if not ok:
+                bad.append(mode)
+        assert not bad, f"the card's f32 train step disagrees with the CPU's: {bad}"
+
+    def serve_f32():
+        """One 4096-ray request through the eval render with the f32 trunk
+        and 'full' (K1, K2 f32); the CHECK_RAYS rays of it that meet the
+        most surface against the CPU render."""
+        render = make_hand_eval_render(sdf_cfg, color_cfg, fs.rcfg,
+                                       fs.tcfg._replace(fused_fine="full"))
+        request = dict(view, rays_xy=rays)
+        render(fs.params, request)   # packs the snapshot's weights
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        color, wsum = render(fs.params, request)
+        torch.cuda.synchronize()
+        req_ms = (time.perf_counter() - t0) * 1e3
+        launches = {name: k.launches for name, k in kernels.items()}
+        log(f"serve f32: one request of {len(rays)} rays in {req_ms:.1f} ms "
+            f"({len(rays) / req_ms * 1e3:.1f} rays/s); launches {launches}")
+        assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
+        assert launches["K1"] and launches["K2"] and not (
+            launches["K3"] or launches["K5"] or launches["K6"]), \
+            f"the f32 'full' render path launched {launches}"
+        idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
+        cpu = torch.device("cpu")
+        c_ref, w_ref = render(clone_tree(fs.params, cpu),
+                              {k: v.to(cpu) for k, v in request.items() if k != "rays_xy"}
+                              | {"rays_xy": request["rays_xy"][idx].cpu()})
+        ok = True
+        for what, got, want in (("color", color[idx].cpu(), c_ref),
+                                ("weight_sum", wsum[idx, 0].cpu(), w_ref[:, 0])):
+            good, _, text = compare(torch, what, got, want, TOL_RENDER_MEDIAN, TOL_RENDER_MAX,
+                                   scale=1.0)
+            log(f"serve f32: {CHECK_RAYS} rays vs the CPU render (plain versions), {text}")
+            ok = ok and good
+        assert ok, "the f32 render disagrees with the CPU render"
+
+    phase("kernel K3 f32", kernel_k3_f32_dw)
+    phase("kernel K2/K3 f32 no-color", kernel_nocolor_f32)
+    phase("kernel K5/K6 f32", kernel_k5k6_f32)
+    phase("train f32", train_f32)
+    phase("train check f32", train_check_f32)
+    phase("serve f32", serve_f32)
 
 
 def main() -> int:
@@ -1848,6 +2477,16 @@ def main() -> int:
     phase("train check pallas", lambda: train_check("pallas", "train check pallas"))
     phase("serve pallas", serve_pallas)
 
+    # -- 26-31. the hand's offline stage with the conf's own f32 trunks ----
+    from honerf_torch.camera import full_image_ndc_grid
+
+    grid = full_image_ndc_grid(H, W, device=dev)
+    if "wsum" in served:
+        f32_rays = grid[torch.argsort(served["wsum"].reshape(-1), descending=True)[:REQUEST_RAYS]]
+    else:
+        f32_rays = grid[(H * W - REQUEST_RAYS) // 2:][:REQUEST_RAYS]
+    run_f32_train_phases(torch, dev, phase, rows, failures, view, f32_rays)
+
     # -- 10-13. the object model: K4, its train step, the runner, meshes --
     obj = obj_flagship(torch, dev)
     log(f"conf {os.path.relpath(OBJ_CONF, ROOT)}: sdf {obj.sdf.n_layers}x{obj.sdf.d_hidden} skip "
@@ -2039,11 +2678,17 @@ def main() -> int:
     order = ("K1", "K2", "K3", "K4", "K5", "K6")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    nocolor = ("nocolor_launches", "nocolor_ms", "nocolor_plain_ms", "nocolor_bound_ms")
-    f32 = ("f32_launches", "f32_ms", "f32_plain_ms", "f32_bound_ms")
-    log(json.dumps({"kernels": [
-        {k: rows.get(n, {}).get(k) for k in keys + (nocolor + f32 if n in ("K2", "K3") else ())}
-        for n in order]}))
+    def mode_keys(prefix):
+        return tuple(f"{prefix}{k}" for k in ("launches", "ms", "plain_ms", "bound_ms"))
+
+    # each kernel's other modes: bf16 no-color, f32 with the color
+    # net (K2; K3 frozen), f32 no-color, K3 f32 with dW, K5 / K6 in f32
+    extra = {"K2": mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_"),
+             "K3": (mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_")
+                    + mode_keys("f32_dw_")),
+             "K5": mode_keys("f32_"), "K6": mode_keys("f32_")}
+    log(json.dumps({"kernels": [{k: rows.get(n, {}).get(k) for k in keys + extra.get(n, ())}
+                                for n in order]}))
     if failures:
         log(f"chip_smoke: failed phases: {', '.join(failures)}")
         return 1

@@ -171,7 +171,11 @@ class SingleFitRunner(_FitBase):
     def make_step(self, nets: Dict[str, Any]):
         """The fit step on `nets`, with the kernels select_fit_kernels
         picks from the conf for this runner's device."""
-        fused, fine = select_fit_kernels(self.conf.get("train.fused_ladder", None),
+        # read as the JAX runner does (conf.get_bool: unquoted `off` and
+        # "false" are strings to the parser), None when unset
+        ladder = (None if self.conf.get("train.fused_ladder", None) is None
+                  else self.conf.get_bool("train.fused_ladder"))
+        fused, fine = select_fit_kernels(ladder,
                                          self.conf.get("train.fused_fine", None),
                                          self.hand_sdf_cfg, self.device)
         return make_single_fit_step(nets, self.hand_sdf_cfg, self.hand_color_cfg,

@@ -9,10 +9,11 @@ bone transforms -> dual NeuS render is differentiated end to end by
 autograd, with the offline nets as constants.
 
 Kernels (select_fit_kernels): on the card the hand ladder runs K1
-(ops.fused_hand) and the hand fine pass K2 / K3 ('full'; the nets need no
-gradient, so K3 runs frozen, without weight work; f32 for the fit confs'
-f32 trunks).  The object side is plain torch with autograd, as in the JAX
-package.
+(ops.fused_hand) and the hand fine pass K2 / K3 ('full' by default;
+'full_nocolor' runs them without the color net, 'pallas' K5 / K6 on the
+embedding).  The nets need no gradient, so K3 and K6 run frozen, without
+weight work; f32 for the fit confs' f32 trunks.  The object side is plain
+torch with autograd, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -103,15 +104,13 @@ def select_fit_kernels(fused_ladder: Optional[bool], fused_fine: Any, sdf_cfg: S
     (the hand ladder through K1, the fine pass's mode or None for the
     autograd field).  On a CUDA `device` the defaults are K1 on and
     'full' (K2 and the frozen K3); on the CPU both are off.  True is
-    'full', False the autograd field; 'full' is always frozen here (the
-    nets are constants).  An explicit mode runs its plain version on the
-    CPU ('xla' as 'pallas': the same statements).  On the card, 'xla' has
-    no kernel, and with an f32 trunk 'pallas' (f32 K5/K6) and
-    'full_nocolor' (f32 K2/K3 without the color net) are still to port
-    (ROADMAP B): each raises NotImplementedError.  The selection is logged
-    once per process."""
+    'full', False the autograd field; every kernel mode is frozen here
+    (the nets are constants), with a bf16 or an f32 trunk.  An explicit
+    mode runs its plain version on the CPU ('xla' as 'pallas': the same
+    statements); on the card 'xla' has no kernel and raises
+    NotImplementedError (use 'pallas').  The selection is logged once per
+    process."""
     on_card = torch.device(device).type == "cuda"
-    f32 = sdf_cfg.trunk_dtype != "bf16"
     ladder = on_card if fused_ladder is None else bool(fused_ladder)
     fine = fused_fine
     if fine is None:
@@ -124,16 +123,10 @@ def select_fit_kernels(fused_ladder: Optional[bool], fused_fine: Any, sdf_cfg: S
         if on_card:
             raise NotImplementedError(
                 "train.fused_fine = 'xla' (the JAX package's XLA lowering of K5/K6's "
-                "statements) has no kernel on the card"
-                + (": f32 K5/K6 are not ported (ROADMAP B)" if f32 else ": use 'pallas'"))
+                "statements) has no kernel on the card: use 'pallas'")
         fine = "pallas"
     if fine is not None and fine not in FINE_MODES:
         raise ValueError(f"unknown train.fused_fine {fused_fine!r}")
-    if on_card and f32 and fine in ("pallas", "full_nocolor"):
-        kernels = "K5/K6" if fine == "pallas" else "K2/K3 without the color net"
-        raise NotImplementedError(
-            f"train.fused_fine = {fine!r} with an f32 trunk: f32 {kernels} are not ported "
-            "(ROADMAP B); use 'full' (the default on the card)")
     sel = (ladder, fine or "autograd", sdf_cfg.trunk_dtype, torch.device(device).type)
     if sel not in _LOGGED_SELECTIONS:
         _LOGGED_SELECTIONS.add(sel)
@@ -156,19 +149,15 @@ def current_pose(pose: Params, frame: Dict[str, torch.Tensor]):
     return joint_3d, obj_r, obj_t
 
 
-def make_single_fit_step(net_params: Params, hand_sdf_cfg: SDFConfig,
+def make_single_fit_loss(net_params: Params, hand_sdf_cfg: SDFConfig,
                          hand_color_cfg: ColorConfig, obj_sdf_cfg: SDFConfig,
                          obj_color_cfg: ColorConfig, rcfg: RenderConfig, fcfg: FitHyper,
                          fused_ladder: bool = False, fused_fine: Optional[str] = None):
-    """step(state, batch, generator) -> (state, metrics): the loss, its
-    gradient in the six pose tensors (left on their .grad) and one Adam
-    update; state = {'pose', 'opt'} (init_fit_state), metrics detached
-    0-d tensors (no host sync).  `net_params` holds the frozen offline
-    models {'hand': {sdf, color, variance}, 'obj': {...}}, tensors that
-    need no gradient; the ladder's kernel pack is made here, once.
-    fused_ladder: the hand ladder through K1; fused_fine: the fine pass's
-    mode (render.neus.FINE_MODES), None the autograd field
-    (select_fit_kernels chooses both)."""
+    """loss_fn(pose, batch, generator) -> (terms, metrics): the fit step's
+    loss as its weighted terms ('color', 'mask', 'joint', 'verts', and for
+    '12' 'contact', 'penet'; their sum in this order is metrics['loss'])
+    and the step's metrics (0-d tensors, not detached).  Arguments as
+    make_single_fit_step's."""
     hand = net_params["hand"]
     # the nets need no gradient: the fine pass's differentiable op runs its
     # backward without weight work (K3 frozen)
@@ -193,7 +182,6 @@ def make_single_fit_step(net_params: Params, hand_sdf_cfg: SDFConfig,
         color_loss = (torch.sum(torch.abs((out["color_fine"] - batch["true_rgb"]) * true_mask))
                       / true_mask.shape[0])
         m_loss = mask_bce(out["weight_sum"], true_mask)
-        render_loss = color_loss + 0.5 * m_loss
 
         joint_loss = pose_l2(batch["joints_pred"], joint_3d[0])
         verts = batch["obj_verts"]
@@ -207,21 +195,42 @@ def make_single_fit_step(net_params: Params, hand_sdf_cfg: SDFConfig,
             metrics["gt_joint_loss"] = pose_l2(batch["gt_joint3d"], joint_3d[0])
             gt_v = verts @ batch["Ro_gt"].T + batch["To_gt"]
             metrics["gt_obj_verts_loss"] = pose_l2(pred_v, gt_v)
+        terms = {"color": color_loss, "mask": 0.5 * m_loss}
         if fcfg.fit_type == "1":
-            loss = render_loss + 100.0 * joint_loss + 5.0 * verts_loss
+            terms.update(joint=100.0 * joint_loss, verts=5.0 * verts_loss)
         else:  # '12'
             sdf_h, sdf_o = out["sdf_hand"][:, 0], out["sdf_obj"][:, 0]
             c_loss = contact_loss(sdf_h, sdf_o)
             p_loss = penetration_loss(sdf_h, sdf_o)
-            loss = (render_loss + 30.0 * joint_loss + 20.0 * verts_loss + 30.0 * c_loss
-                    + 20.0 * p_loss)
+            terms.update(joint=30.0 * joint_loss, verts=20.0 * verts_loss, contact=30.0 * c_loss,
+                         penet=20.0 * p_loss)
             metrics.update(contact_loss=c_loss, penet_loss=p_loss)
-        metrics["loss"] = loss
-        return loss, metrics
+        metrics["loss"] = sum(terms.values())
+        return terms, metrics
+
+    return loss_fn
+
+
+def make_single_fit_step(net_params: Params, hand_sdf_cfg: SDFConfig,
+                         hand_color_cfg: ColorConfig, obj_sdf_cfg: SDFConfig,
+                         obj_color_cfg: ColorConfig, rcfg: RenderConfig, fcfg: FitHyper,
+                         fused_ladder: bool = False, fused_fine: Optional[str] = None):
+    """step(state, batch, generator) -> (state, metrics): the loss, its
+    gradient in the six pose tensors (left on their .grad) and one Adam
+    update; state = {'pose', 'opt'} (init_fit_state), metrics detached
+    0-d tensors (no host sync).  `net_params` holds the frozen offline
+    models {'hand': {sdf, color, variance}, 'obj': {...}}, tensors that
+    need no gradient; the ladder's kernel pack is made here, once.
+    fused_ladder: the hand ladder through K1; fused_fine: the fine pass's
+    mode (render.neus.FINE_MODES), None the autograd field
+    (select_fit_kernels chooses both)."""
+    loss_fn = make_single_fit_loss(net_params, hand_sdf_cfg, hand_color_cfg, obj_sdf_cfg,
+                                   obj_color_cfg, rcfg, fcfg, fused_ladder, fused_fine)
 
     def step_fn(state: Dict[str, Any], batch: Dict[str, torch.Tensor], generator=None):
         pose = state["pose"]
-        loss, metrics = loss_fn(pose, batch, generator)
+        _, metrics = loss_fn(pose, batch, generator)
+        loss = metrics["loss"]
         leaves = [pose[k] for k in POSE_KEYS]
         for leaf, g in zip(leaves, torch.autograd.grad(loss, leaves)):
             leaf.grad = g

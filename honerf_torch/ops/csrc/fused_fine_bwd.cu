@@ -41,14 +41,20 @@
 //   So two runs give the same bits: no atomics anywhere.  Right first:
 //   wgmma/TMA and fusing the launches are later work.
 //
-// f32 frozen mode (FineMeta.dtype 'f32', want_dw false: pose fitting,
-//   whose nets are constants; JAX's FineMeta(dtype='f32', want_dw=False),
-//   honerf_tpu/ops/fused_fine_full.py:1819-1823): the same launches on f32
-//   operands (gemm_f32_kernel, the per-point kernels' f32 variants) and no
-//   dW/db work at all: no gemm_tn_kernel, colsum_partial_kernel or
-//   reduce_partials_kernel.  Bound: operations, ~2x K2's products (the
-//   forward recomputed; each product transposed) at 67 TFLOP/s FP32.
-//   The f32 mode with dW is not ported (the wrapper raises).
+// f32 mode (FineMeta.dtype 'f32': the confs' trunks as written; JAX's
+//   FineMeta(dtype='f32')): the same launches on f32 operands
+//   (gemm_f32_kernel, the per-point kernels' f32 variants; the cotangent
+//   rows dzb, du_b, du_s in f32) and every dW by gemm_tn_f32_kernel
+//   (trunk.cuh: SIMT FMA, the same split partials and fixed-order sum),
+//   db by the same colsum.  fine_bwd_emb_kernel reads only f32 rows (u,
+//   de, dx) in either mode, so one version serves both.  Bound:
+//   operations at 67 TFLOP/s FP32, ~18.2 MFLOP a point with the color
+//   net (~14.3 without), 272 ms per million points.  Frozen (want_dw
+//   false: pose fitting, whose nets are constants; JAX's
+//   FineMeta(dtype='f32', want_dw=False),
+//   honerf_tpu/ops/fused_fine_full.py:1819-1823): no dW/db work at all,
+//   no gemm_tn*_kernel, colsum_partial_kernel or reduce_partials_kernel;
+//   ~2x K2's products.
 //
 // No-color mode (`hand_fine_full`'s backward, the same pallas_call without
 //   the color net): no color launches; copy_cols_kernel (trunk.cuh) puts

@@ -37,7 +37,7 @@
 //   CUDA cores.  Bound: operations, ~6.05 MFLOP a point at 67 TFLOP/s
 //   (FP32, outside the tensor cores), ~90 ms per million points; the
 //   scratch (~46 KB/pt) is twice bf16's, so the wrapper passes at most half
-//   as many points (balanced passes).
+//   as many points (balanced passes).  With and without the color net.
 //
 // No-color mode (`hand_fine_full`, the same pallas_call without the color
 //   net): the same launches up to fine_rev_kernel, which then writes only

@@ -40,29 +40,41 @@
 //     copy_cols_kernel             de out at E columns
 //   The scratch traffic is that of K2/K3's trunk; the GEMMs bound both
 //   (PERF.md).  Right first: wgmma/TMA and fused launches are later work.
+//
+// f32 mode (TrunkMeta.dtype 'f32', the confs' trunks as written; JAX's
+//   e_dtype f32): the same launches on f32 operands: the pack and seed
+//   kernels' f32 variants (a zero-padded copy of e; dzb, du_b, du_s in
+//   f32), every product by gemm_f32_kernel (common.cuh) and every dW by
+//   gemm_tn_f32_kernel (trunk.cuh), SIMT FMA at FP32's 67 TFLOP/s: K5
+//   ~72 ms and K6 ~192 ms per million points at that peak.  A pass takes
+//   at most half the bf16 chunk's points, so the scratch's bytes stay
+//   the same; dW accumulates across passes in f32 as in bf16.
 
 #include "trunk.cuh"
 
 namespace honerf {
 
-// out[m, c] = bf16(e[m, c]) for c < E, 0 for E <= c < width.
+// out[m, c] = T(e[m, c]) for c < E, 0 for E <= c < width (T: bf16, or
+// f32 in the f32 mode: a zero-padded copy).
+template <typename T>
 __global__ void trunk_pack_e_kernel(const float* __restrict__ e, int lde, int M, int E,
-                                    __nv_bfloat16* __restrict__ out, int ldo, int width) {
+                                    T* __restrict__ out, int ldo, int width) {
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)M * width) return;
   int m = (int)(i / width), c = (int)(i % width);
   float v = c < E ? e[(size_t)m * lde + c] : 0.f;
-  out[(size_t)m * ldo + c] = __float2bfloat16_rn(v);
+  out[(size_t)m * ldo + c] = from_f32<T>(v);
 }
 
-// Columns c < Op of a row: dzf = dout (0 past d_out), dzb = bf16(dzf);
-// columns Op + c, c < Ep: du_b = bf16(du), du_s = bf16(du * (1/sqrt2))
-// (0 past E).
+// Columns c < Op of a row: dzf = dout (0 past d_out), dzb = T(dzf);
+// columns Op + c, c < Ep: du_b = T(du), du_s = T(du * (1/sqrt2)) (0 past
+// E), each rounded once from f32 as the JAX kernel does.
+template <typename T>
 __global__ void trunk_bwd_seed_kernel(const float* __restrict__ dout, int ld_dout, int d_out,
                                       const float* __restrict__ du, int ld_du, int E, int M,
-                                      float* __restrict__ dzf, __nv_bfloat16* __restrict__ dzb,
-                                      int lddz, int Op, __nv_bfloat16* __restrict__ du_b,
-                                      __nv_bfloat16* __restrict__ du_s, int lddu, int Ep) {
+                                      float* __restrict__ dzf, T* __restrict__ dzb,
+                                      int lddz, int Op, T* __restrict__ du_b,
+                                      T* __restrict__ du_s, int lddu, int Ep) {
   const int width = Op + Ep;
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)M * width) return;
@@ -70,23 +82,45 @@ __global__ void trunk_bwd_seed_kernel(const float* __restrict__ dout, int ld_dou
   if (c < Op) {
     float v = c < d_out ? dout[(size_t)m * ld_dout + c] : 0.f;
     dzf[(size_t)m * lddz + c] = v;
-    dzb[(size_t)m * lddz + c] = __float2bfloat16_rn(v);
+    dzb[(size_t)m * lddz + c] = from_f32<T>(v);
   } else {
     c -= Op;
     float v = c < E ? du[(size_t)m * ld_du + c] : 0.f;
-    du_b[(size_t)m * lddu + c] = __float2bfloat16_rn(v);
-    du_s[(size_t)m * lddu + c] = __float2bfloat16_rn(v * kInvSqrt2);
+    du_b[(size_t)m * lddu + c] = from_f32<T>(v);
+    du_s[(size_t)m * lddu + c] = from_f32<T>(v * kInvSqrt2);
   }
 }
 
 }  // namespace honerf
 
-extern "C" int honerf_trunk_pack_e(const float* e, int lde, int M, int E, __nv_bfloat16* out,
-                                   int ldo, int width, cudaStream_t stream) {
+template <typename T>
+static int honerf_trunk_pack_e_t(const float* e, int lde, int M, int E, T* out, int ldo,
+                                 int width, cudaStream_t stream) {
   size_t n = (size_t)M * width;
   if (n)
-    honerf::trunk_pack_e_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+    honerf::trunk_pack_e_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
         e, lde, M, E, out, ldo, width);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int honerf_trunk_pack_e(const float* e, int lde, int M, int E, __nv_bfloat16* out,
+                                   int ldo, int width, cudaStream_t stream) {
+  return honerf_trunk_pack_e_t(e, lde, M, E, out, ldo, width, stream);
+}
+
+extern "C" int honerf_trunk_pack_e_f32(const float* e, int lde, int M, int E, float* out,
+                                       int ldo, int width, cudaStream_t stream) {
+  return honerf_trunk_pack_e_t(e, lde, M, E, out, ldo, width, stream);
+}
+
+template <typename T>
+static int honerf_trunk_bwd_seed_t(const float* dout, int ld_dout, int d_out, const float* du,
+                                   int ld_du, int E, int M, float* dzf, T* dzb, int lddz, int Op,
+                                   T* du_b, T* du_s, int lddu, int Ep, cudaStream_t stream) {
+  size_t n = (size_t)M * (Op + Ep);
+  if (n)
+    honerf::trunk_bwd_seed_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        dout, ld_dout, d_out, du, ld_du, E, M, dzf, dzb, lddz, Op, du_b, du_s, lddu, Ep);
   return (int)cudaGetLastError();
 }
 
@@ -94,9 +128,14 @@ extern "C" int honerf_trunk_bwd_seed(const float* dout, int ld_dout, int d_out, 
                                      int ld_du, int E, int M, float* dzf, __nv_bfloat16* dzb,
                                      int lddz, int Op, __nv_bfloat16* du_b, __nv_bfloat16* du_s,
                                      int lddu, int Ep, cudaStream_t stream) {
-  size_t n = (size_t)M * (Op + Ep);
-  if (n)
-    honerf::trunk_bwd_seed_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        dout, ld_dout, d_out, du, ld_du, E, M, dzf, dzb, lddz, Op, du_b, du_s, lddu, Ep);
-  return (int)cudaGetLastError();
+  return honerf_trunk_bwd_seed_t(dout, ld_dout, d_out, du, ld_du, E, M, dzf, dzb, lddz, Op, du_b,
+                                 du_s, lddu, Ep, stream);
+}
+
+extern "C" int honerf_trunk_bwd_seed_f32(const float* dout, int ld_dout, int d_out,
+                                         const float* du, int ld_du, int E, int M, float* dzf,
+                                         float* dzb, int lddz, int Op, float* du_b, float* du_s,
+                                         int lddu, int Ep, cudaStream_t stream) {
+  return honerf_trunk_bwd_seed_t(dout, ld_dout, d_out, du, ld_du, E, M, dzf, dzb, lddz, Op, du_b,
+                                 du_s, lddu, Ep, stream);
 }

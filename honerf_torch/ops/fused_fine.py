@@ -38,8 +38,8 @@ Entry points:
   * `hand_trunk_sdf_u_fwd(e, pack)`: the forward on a TrunkPack made once
     per parameter snapshot (the eval render).
 On CUDA tensors the forward launches csrc/fused_trunk.cu (K5) and the
-backward K6 from the same source, bf16 trunk only; on CPU tensors both run
-their plain versions (`hand_trunk_sdf_u_plain`, `hand_trunk_sdf_u_plain_bwd`,
+backward K6 from the same source, with a bf16 or an f32 trunk
+(`TrunkMeta.dtype`); on CPU tensors both run their plain versions (`hand_trunk_sdf_u_plain`, `hand_trunk_sdf_u_plain_bwd`,
 on the block bodies `_kernel_fwd_body` / `_trunk_bwd_block`).
 
 What bounds the kernels on an H100 and how their design answers that: the
@@ -430,6 +430,18 @@ EPI_UT, EPI_DZ = 5, 6
 # ~60 KB backward (every activation, sigmoid, t and c row kept)
 CHUNK = 65536
 BWD_CHUNK = 65536
+
+
+def chunk_size(n: int, dtype: str, limit: int) -> int:
+    """Points per pass for n points: `limit` in bf16; in f32, whose operand
+    rows take twice the bytes, at most limit / 2 (so the scratch stays
+    within the bf16 chunk's bytes), the passes balanced (rows a multiple
+    of the GEMM tile)."""
+    if dtype == "bf16" or n <= limit // 2:
+        return min(n, limit)
+    passes = -(-n // (limit // 2))
+    return min(n, _round_up(-(-n // passes), 128))
+
 # dW = X^T dY and column sums run split over the points: enough (tile,
 # split) blocks for ~2 waves of 132 SMs, each partial in f32 scratch,
 # then summed in a fixed order (two runs give the same bits)
@@ -453,11 +465,12 @@ def type_trunk_lib(lib) -> None:
     lib.honerf_uchain_seed.argtypes = [_P, _I, _P, _I, _I, _P, _I, _P]
     lib.honerf_uchain_seed_f32.argtypes = [_P, _I, _P, _I, _I, _P, _I, _P]
     lib.honerf_gemm_tn.argtypes = [_P, _I, _I, _F, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P]
+    lib.honerf_gemm_tn_f32.argtypes = lib.honerf_gemm_tn.argtypes
     lib.honerf_colsum.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P]
     lib.honerf_copy_cols.argtypes = [_P, _I, _I, _I, _P, _I, _P]
     lib.honerf_copy_cols_bf16.argtypes = [_P, _I, _I, _I, _P, _I, _P]
-    for fn in ("uchain_seed", "uchain_seed_f32", "gemm_tn", "colsum", "copy_cols",
-               "copy_cols_bf16"):
+    for fn in ("uchain_seed", "uchain_seed_f32", "gemm_tn", "gemm_tn_f32", "colsum",
+               "copy_cols", "copy_cols_bf16"):
         getattr(lib, "honerf_" + fn).restype = _I
 
 
@@ -467,11 +480,12 @@ def _lib():
     lib = FH._lib("fused_trunk")
     if not getattr(lib, "_honerf_trunk_typed", False):
         type_trunk_lib(lib)
-        lib.honerf_trunk_pack_e.argtypes = [_P, _I, _I, _I, _P, _I, _I, _P]
-        lib.honerf_trunk_pack_e.restype = _I
-        lib.honerf_trunk_bwd_seed.argtypes = [_P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _P,
-                                              _P, _I, _I, _P]
-        lib.honerf_trunk_bwd_seed.restype = _I
+        for fn in (lib.honerf_trunk_pack_e, lib.honerf_trunk_pack_e_f32):
+            fn.argtypes = [_P, _I, _I, _I, _P, _I, _I, _P]
+            fn.restype = _I
+        for fn in (lib.honerf_trunk_bwd_seed, lib.honerf_trunk_bwd_seed_f32):
+            fn.argtypes = [_P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
+            fn.restype = _I
         lib._honerf_trunk_typed = True
     return lib
 
@@ -484,7 +498,11 @@ def copy_cols(lib, src, m: int, width: int, dst, stream) -> None:
 
 
 def _tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
-    """out[:K, :N] (+)= X[:m, :K]^T Y[:m, :N] in f32, split over points."""
+    """out[:K, :N] (+)= X[:m, :K]^T Y[:m, :N] in f32, split over points:
+    the bf16 tensor-core TN GEMM, or on f32 operands the f32 one."""
+    f32 = X.dtype == torch.float32
+    if (Y.dtype == torch.float32) != f32:
+        raise ValueError("the TN GEMM's operands must share one type")
     tiles = -(-K // _TN_TILE) * -(-N // _TN_TILE)
     splits = max(1, min(-(-_TN_BLOCKS // tiles), -(-m // 256)))
     split = _round_up(-(-m // splits), 32)
@@ -492,9 +510,11 @@ def _tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
     need = splits * _round_up(K, _TN_TILE) * _round_up(N, _TN_TILE)
     if need > ws.numel():
         raise ValueError(f"dW scratch too small: {need} > {ws.numel()} floats")
-    _build.check(lib.honerf_gemm_tn(
+    fn = lib.honerf_gemm_tn_f32 if f32 else lib.honerf_gemm_tn
+    _build.check(fn(
         X.data_ptr(), ldx, K, x_scale, Y.data_ptr(), Y.stride(0), N, m, split,
-        ws.data_ptr(), out.data_ptr(), out.stride(0), acc, stream), "honerf_gemm_tn")
+        ws.data_ptr(), out.data_ptr(), out.stride(0), acc, stream),
+        "honerf_gemm_tn_f32" if f32 else "honerf_gemm_tn")
 
 
 def _colsum(lib, Z, N, m, out, acc, ws, stream):
@@ -528,7 +548,7 @@ def cuda_trunk_forward(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream, 
                        z=None, u=None) -> None:
     """The trunk forward and u-chain launches (K2's and K5's, and the
     recompute of K3 and K6) on the first m rows of e (the trunk dtype, Ep
-    columns; bf16, or f32 in the f32 mode, which K2 and K3 run):
+    columns; bf16, or f32 in the f32 mode):
     a_{l+1} = softplus(z_l) and s_l = sigmoid(beta z_l) into buf's acts
     and ss; the last layer into the first z.shape[1] columns of z (f32;
     None: not formed); the u-chain's t rows into buf's ts (with `keep`,
@@ -611,15 +631,15 @@ def cuda_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, db
     seeds: the u-chain transposed upward from bw's du_b = T(du) and
     du_s = T(du / sqrt2) (T the trunk dtype), then the forward transposed
     downward from the top cotangent in bw's dzf[0] / dzb[0]; dW and db
-    into dws / dbs (acc: add to them; bf16 only), the cotangent of e into
-    bw's de (f32, Ep columns).  buf: the forward's rows
-    (cuda_trunk_forward, keep=True)."""
+    into dws / dbs (f32; acc: add to them, the passes after the first),
+    the cotangent of e into bw's de (f32, Ep columns).  buf: the forward's
+    rows (cuda_trunk_forward, keep=True).  Every product's operands are in
+    the trunk dtype, so an f32 trunk runs the f32 GEMMs throughout."""
     from honerf_torch.ops import fused_hand as FH
 
-    if want_dw and tm.dtype != "bf16":
-        raise NotImplementedError("the f32 backward with weight gradients is not ported "
-                                  "(ROADMAP B: K3 f32 with dW, K6 f32)")
     n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
+    # the skip concat's scale on dW's X, as the forward formed it
+    skip_scale = INV_SQRT2 if tm.dtype == "f32" else INV_SQRT2_BF16
     acts, ts, cs, ss = buf["acts"], buf["ts"], buf["cs"], buf["ss"]
     dzf, dzb, dm, ds, de = bw["dzf"], bw["dzb"], bw["dm"], bw["ds"], bw["de"]
     du_b, du_s, onehot, c_last = bw["du_b"], bw["du_s"], bw["onehot"], bw["c_last"]
@@ -657,9 +677,9 @@ def cuda_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, db
             elif l == tm.skip:
                 a = acts[l - 1]
                 _tn(lib, a, Hp, Hp, dzb[cur], width, m, dws[l], 1, scratch, stream,
-                    x_scale=INV_SQRT2_BF16)
+                    x_scale=skip_scale)
                 _tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, scratch, stream,
-                    x_scale=INV_SQRT2_BF16)
+                    x_scale=skip_scale)
             else:
                 a = acts[l - 1]
                 _tn(lib, a, Hp, Hp, dzb[cur], width, m, dws[l], 1, scratch, stream)
@@ -689,15 +709,16 @@ def _hand_trunk_sdf_u_cuda(e, pack: TrunkPack):
     u = torch.empty((N, E), device=dev, dtype=torch.float32)
     if N == 0:
         return out, u
-    C = min(N, CHUNK)
+    C = chunk_size(N, tm.dtype, CHUNK)
     buf = trunk_buffers(tm, C, dev, keep=False)
-    eb = torch.empty((C, tm.Ep), device=dev, dtype=torch.bfloat16)
+    eb = torch.empty((C, tm.Ep), device=dev, dtype=_cast(tm))
     us = torch.empty((C, tm.Ep), device=dev, dtype=torch.float32)
+    pack_e = lib.honerf_trunk_pack_e_f32 if tm.dtype == "f32" else lib.honerf_trunk_pack_e
     KERNEL_FWD.launches += 1
     for s in range(0, N, C):
         m = min(C, N - s)
-        _build.check(lib.honerf_trunk_pack_e(e[s:].data_ptr(), e.stride(0), m, E, eb.data_ptr(),
-                                             eb.stride(0), tm.Ep, stream), "honerf_trunk_pack_e")
+        _build.check(pack_e(e[s:].data_ptr(), e.stride(0), m, E, eb.data_ptr(), eb.stride(0),
+                            tm.Ep, stream), "honerf_trunk_pack_e")
         cuda_trunk_forward(lib, eb, m, pack.ws, pack.bs, pack.wts, tm, buf, stream, z=out[s:],
                            u=us)
         copy_cols(lib, us, m, E, u[s:], stream)
@@ -716,22 +737,25 @@ def _hand_trunk_sdf_u_bwd_cuda(e, pack: TrunkPack, dout, du, want_dw: bool):
     if want_dw:
         dws = tuple(torch.zeros(w.shape, device=dev, dtype=torch.float32) for w in pack.ws)
         dbs = tuple(torch.zeros(b.shape, device=dev, dtype=torch.float32) for b in pack.bs)
-    C = min(N, BWD_CHUNK)
+    C = chunk_size(N, tm.dtype, BWD_CHUNK)
+    f32 = tm.dtype == "f32"
+    pack_e = lib.honerf_trunk_pack_e_f32 if f32 else lib.honerf_trunk_pack_e
+    seed = lib.honerf_trunk_bwd_seed_f32 if f32 else lib.honerf_trunk_bwd_seed
     if C:
         buf = trunk_buffers(tm, C, dev, keep=True)
-        eb = torch.empty((C, Ep), device=dev, dtype=torch.bfloat16)
+        eb = torch.empty((C, Ep), device=dev, dtype=_cast(tm))
         bw = trunk_bwd_buffers(pack.ws, tm, C, dev, max(Hp, Op))
         scratch = torch.empty((_WS_FLOATS,), device=dev, dtype=torch.float32)
         KERNEL_BWD.launches += 1
     for s in range(0, N, C or 1):
         m = min(C, N - s)
-        _build.check(lib.honerf_trunk_pack_e(e[s:].data_ptr(), e.stride(0), m, E, eb.data_ptr(),
-                                             eb.stride(0), Ep, stream), "honerf_trunk_pack_e")
+        _build.check(pack_e(e[s:].data_ptr(), e.stride(0), m, E, eb.data_ptr(), eb.stride(0), Ep,
+                            stream), "honerf_trunk_pack_e")
         # the forward again, keeping every row; the backward reads neither
         # the last layer nor u
         cuda_trunk_forward(lib, eb, m, pack.ws, pack.bs, pack.wts, tm, buf, stream, keep=True)
         dzf, dzb = bw["dzf"][0], bw["dzb"][0]
-        _build.check(lib.honerf_trunk_bwd_seed(
+        _build.check(seed(
             dout[s:].data_ptr(), dout.stride(0), tm.d_out, du[s:].data_ptr(), du.stride(0), E, m,
             dzf.data_ptr(), dzb.data_ptr(), dzf.stride(0), Op, bw["du_b"].data_ptr(),
             bw["du_s"].data_ptr(), bw["du_b"].stride(0), Ep, stream), "honerf_trunk_bwd_seed")
@@ -754,8 +778,8 @@ def _check_trunk(e, pack: TrunkPack, *cts) -> None:
         if t.device != e.device:
             raise ValueError("all operands must be on one device")
     if e.device.type == "cuda":
-        if tm.dtype != "bf16" or pack.wts is None:
-            raise ValueError("K5/K6 take a bf16 pack made on the card")
+        if tm.dtype not in ("bf16", "f32") or pack.wts is None:
+            raise ValueError("K5/K6 take a bf16 or f32 pack made on the card")
         if not e.is_contiguous() or not all(t.is_contiguous() for t in cts):
             raise ValueError("operands must be contiguous")
     elif e.device.type != "cpu":
@@ -764,7 +788,7 @@ def _check_trunk(e, pack: TrunkPack, *cts) -> None:
 
 def hand_trunk_sdf_u_fwd(e, pack: TrunkPack):
     """(N, E) f32 embedding -> (out (N, d_out), u (N, E)) on a TrunkPack.
-    CUDA tensors launch K5 (bf16 trunk only); CPU tensors run the plain
+    CUDA tensors launch K5 (bf16 or f32 trunk); CPU tensors run the plain
     version.  No gradient flows through it."""
     _check_trunk(e, pack)
     with torch.no_grad():
@@ -776,7 +800,7 @@ def hand_trunk_sdf_u_fwd(e, pack: TrunkPack):
 def hand_trunk_sdf_u_bwd(e, pack: TrunkPack, dout, du, want_dw: bool = True):
     """The VJP at cotangents dout (N, d_out) and du (N, E): (de (N, E),
     padded f32 dws, dbs; None, None without want_dw).  CUDA tensors
-    launch K6 (bf16 trunk only); CPU tensors run the plain version."""
+    launch K6 (bf16 or f32 trunk); CPU tensors run the plain version."""
     N, tm = e.shape[0], pack.meta
     dout, du = dout.float().contiguous(), du.float().contiguous()
     if tuple(dout.shape) != (N, tm.d_out) or tuple(du.shape) != (N, tm.emb_width):
@@ -828,6 +852,6 @@ class _HandTrunkSdfU(torch.autograd.Function):
 def hand_trunk_sdf_u(e, ws, bs, meta: TrunkMeta):
     """(N, E) f32 embedding -> (out (N, d_out), u (N, E) = d out[:, 0] /
     d e), differentiable in e and the unpadded (in, out) weights and
-    biases.  CUDA tensors launch K5 / K6 (bf16 trunk only), CPU tensors
+    biases.  CUDA tensors launch K5 / K6 (bf16 or f32 trunk), CPU tensors
     run the plain versions."""
     return _HandTrunkSdfU.apply(meta, e, *ws, *bs)

@@ -36,10 +36,10 @@ to the trunk dtype, and cotangents on all three.  The same kernels run
 without their color launches; the cotangents on e and on the features
 enter where the color net's input cotangent entered.
 On CUDA tensors the forward launches csrc/fused_fine_full.cu (K2) and the
-backward csrc/fused_fine_bwd.cu (K3): every mode with a bf16 trunk, and
-with an f32 trunk (`FineMeta.dtype = 'f32'`, the fitting stage's nets)
-the color mode's forward and its frozen backward (no weight gradient);
-on CPU tensors both run their plain versions (`hand_fine_color_plain`,
+backward csrc/fused_fine_bwd.cu (K3): every mode, with or without the
+color net and weight gradients, on a bf16 or an f32 trunk
+(`FineMeta.dtype`; the confs' trunks are f32 as written); on CPU tensors
+both run their plain versions (`hand_fine_color_plain`,
 `hand_fine_color_plain_bwd`) in either dtype.
 
 What bounds the kernels on an H100 and how their design answers that:
@@ -58,7 +58,8 @@ from honerf_torch.models.embedding import CUTOFF_TAU
 from honerf_torch.ops import _build
 from honerf_torch.ops import fused_fine as FT
 from honerf_torch.ops import fused_hand as FH
-from honerf_torch.ops.fused_fine import _WS_FLOATS, PAD, _colsum, _round_up, _tn  # noqa: F401
+from honerf_torch.ops.fused_fine import (_WS_FLOATS, PAD, _colsum, _round_up, _tn,  # noqa: F401
+                                         chunk_size)
 
 # points per pass of the CUDA forward: the per-point scratch is ~23 KB
 # (e, sigmoid rows, u, activations), so a chunk holds ~1.5 GB
@@ -66,17 +67,7 @@ CHUNK = 65536
 # points per pass of the CUDA backward: it keeps every activation, t and
 # c row of the forward besides the cotangents, ~77 KB/pt (~5 GB a chunk)
 BWD_CHUNK = 65536
-# the f32 mode's operand rows take twice the bytes: at most half as many
-# points a pass, so its scratch stays within the bf16 chunk's bytes
-
-
-def chunk_size(n: int, dtype: str, limit: int) -> int:
-    """Points per pass for n points: `limit` in bf16; in f32 at most
-    limit / 2, the passes balanced (rows a multiple of the GEMM tile)."""
-    if dtype == "bf16" or n <= limit // 2:
-        return min(n, limit)
-    passes = -(-n // (limit // 2))
-    return min(n, _round_up(-(-n // passes), 128))
+# the f32 mode's passes take at most half as many points (chunk_size)
 
 KERNEL = _build.Kernel(
     "hand_fine_color_fwd", "honerf_torch/ops/csrc/fused_fine_full.cu",
@@ -473,10 +464,12 @@ def _emb_fwd_transpose_block(st, de, adj, meta: FineMeta):
     return dq + 2.0 * q * _ST(dv2p)                      # v2p = sum q^2 + eps
 
 
-def _fine_fwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, residuals: bool = False):
+def _fine_fwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, residuals: bool = False,
+                    g_color=None):
     """One block of the fused forward -> (sdf (B,), g (B, 3), color (B, 3)),
     or without meta.with_color (out (B, d_out), g (B, 3), e (B, E)) [,
-    what the backward reads]."""
+    what the backward reads].  g_color (B, 3): the g the color net's
+    grad-PE input is formed from, in place of the block's own (None)."""
     tm = meta.trunk_meta
     E = meta.emb_width
     st = _emb_fwd_block(p, rotT, off, cut, meta)
@@ -490,28 +483,29 @@ def _fine_fwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, residuals
         outs = (out[:, :meta.d_out], g, e_pad[:, :E])
         return outs + (res,) if residuals else outs
     feat = torch.nn.functional.pad(out[:, 1:meta.d_out], (0, meta.Fp - (meta.d_out - 1)))
-    x = torch.cat([e_pad, feat, _gpe_block(meta, g)], dim=-1)
+    x = torch.cat([e_pad, feat, _gpe_block(meta, g if g_color is None else g_color)], dim=-1)
     color, zs, acts = _color_fwd_block(meta, x, pack.cws, pack.cbs, residuals=True)
     if residuals:
         return out[:, 0], g, color, (st, u, chain, (ss, ins, ts, cs), zs, acts)
     return out[:, 0], g, color
 
 
-def _fine_bwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, cts, want_dw: bool):
+def _fine_bwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, cts, want_dw: bool,
+                    g_color=None):
     """One block of the backward (forward recomputed) at the cotangents
     `cts` on the forward's outputs ((dsdf, dg, dcolor), or without
     meta.with_color (dout, dg, de)) -> (dp (B, 3), drotT (3, 63), doff
-    (63,), dws, dbs, dcws, dcbs)."""
+    (63,), dws, dbs, dcws, dcbs); g_color as _fine_fwd_block's."""
     tm = meta.trunk_meta
     E, Ep, F = meta.emb_width, tm.Ep, meta.d_out - 1
     _o, g, _c, (st, u, chain, trunk_fwd, zs, acts) = _fine_fwd_block(
-        meta, p, rotT, off, cut, pack, residuals=True)
+        meta, p, rotT, off, cut, pack, residuals=True, g_color=g_color)
     if meta.with_color:
         dsdf, dg, dcolor = cts
         # 0. color transpose -> cotangents on e, the features and the grad-PE
         dx, dcws, dcbs = _color_bwd_block(meta, zs, acts, pack.cws, dcolor, want_dw)
         de_ext = dx[:, :E]
-        dg = dg + _gpe_transpose(meta, g, dx[:, Ep + meta.Fp:])
+        dg = dg + _gpe_transpose(meta, g if g_color is None else g_color, dx[:, Ep + meta.Fp:])
         dout = dx.new_zeros((p.shape[0], tm.Op))
         dout[:, 0] = dsdf
         dout[:, 1:1 + F] = dx[:, Ep:Ep + F]
@@ -544,7 +538,7 @@ def _zero_pose_grads(pts):
 
 
 def _plain_bwd(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool,
-               block: int) -> FineGrads:
+               block: int, g_color=None) -> FineGrads:
     """The backward kernel's statements in plain PyTorch, in blocks of
     points, at the per-point cotangents `cts` (_fine_bwd_block's); dW/db
     in f32, summed over the blocks."""
@@ -555,8 +549,9 @@ def _plain_bwd(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool,
     sums = [z(pack.ws), z(pack.bs), z(pack.cws), z(pack.cbs)] if want_dw else None
     for s in range(0, pts.shape[0], block):
         sl = slice(s, s + block)
-        dp[sl], dr, do, *dwb = _fine_bwd_block(meta, pts[sl], rotT, off, cut, pack,
-                                               [c[sl] for c in cts], want_dw)
+        dp[sl], dr, do, *dwb = _fine_bwd_block(
+            meta, pts[sl], rotT, off, cut, pack, [c[sl] for c in cts], want_dw,
+            None if g_color is None else g_color[sl])
         drotT[:3, :63] += dr
         doff[0, :63] += do
         if want_dw:
@@ -571,10 +566,51 @@ def _plain_bwd(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool,
 
 
 def hand_fine_color_plain_bwd(pts, rotT, off, cut, pack: FinePack, ct0, dg, ct2,
-                              want_dw: bool = True, block: int = 4096) -> FineGrads:
+                              want_dw: bool = True, block: int = 4096,
+                              g_color=None) -> FineGrads:
     """K3's statements in plain PyTorch at the cotangents on the forward's
-    outputs (hand_fine_color_bwd's)."""
-    return _plain_bwd(pts, rotT, off, cut, pack, (ct0, dg, ct2), want_dw, block)
+    outputs (hand_fine_color_bwd's).  g_color (N, 3), with the color net:
+    the g its grad-PE input is formed from, in place of the plain
+    forward's own.  The input holds sin / cos(2^l g), so it carries a
+    rounding of g at 2^l |g| (|g| reaches hundreds on a random field):
+    holding the kernel against this version at the kernel's own g
+    compares the backward's arithmetic, not that conditioning."""
+    return _plain_bwd(pts, rotT, off, cut, pack, (ct0, dg, ct2), want_dw, block, g_color)
+
+
+def color_relu_margin(pts, rotT, off, cut, pack: FinePack, g_color=None,
+                      block: int = 4096) -> torch.Tensor:
+    """(N,) per point: the least |z| / max |z| over the units of each relu
+    layer of the color net (the plain forward's pre-activations; g_color
+    as hand_fine_color_plain_bwd's).  Where it is ~1e-6, two f32 sums in
+    another order can put z on either side of the kink, and the
+    backward's mask with it."""
+    meta = pack.meta
+    out = []
+    for s in range(0, pts.shape[0], block):
+        *_, res = _fine_fwd_block(meta, pts[s:s + block], rotT, off, cut, pack, residuals=True,
+                                  g_color=None if g_color is None else g_color[s:s + block])
+        zs = [z[:, :meta.c_hidden].abs() for z in res[4][:-1]]
+        rel = [z.min(1).values / z.max(1).values.clamp_min(1e-30) for z in zs]
+        out.append(torch.stack(rel, 1).min(1).values)
+    return torch.cat(out)
+
+
+# Where a color relu's pre-activation lies within RELU_MARGIN of its
+# layer's scale of zero, two f32 sums in another order can flip its mask
+# (~0.1% of a step's points on a random field).
+RELU_MARGIN = 1e-6
+
+
+def shared_g_cotangents(pts, rotT, off, cut, pack: FinePack, ct0, dg, dcolor):
+    """How K3 with the color net is held against its plain version: (g,
+    (ct0, dg, dcolor with zero at the points within RELU_MARGIN of a color
+    relu's kink), how many points those are), g the forward's own
+    (hand_fine_color_fwd on the card: the kernel's), for the plain
+    backward's g_color."""
+    g = hand_fine_color_fwd(pts, rotT, off, cut, pack)[1]
+    keep = color_relu_margin(pts, rotT, off, cut, pack, g_color=g) >= RELU_MARGIN
+    return g, (ct0, dg, dcolor * keep[:, None]), int((~keep).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -834,25 +870,18 @@ def _color_bwd_cuda(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, 
 # Entry points
 # ---------------------------------------------------------------------------
 
-def _check_cuda_pack(pack: FinePack, want_dw: bool = False):
+def _check_cuda_pack(pack: FinePack):
     """Raise on a pack the kernels do not take: one made off the card, or
-    an f32 mode still to be ported (ROADMAP B: the f32 no-color mode and
-    the f32 backward with weight gradients)."""
-    meta = pack.meta
-    if meta.dtype not in ("bf16", "f32") or pack.wts is None:
+    of another dtype than bf16 and f32."""
+    if pack.meta.dtype not in ("bf16", "f32") or pack.wts is None:
         raise ValueError("the CUDA fine pass takes a bf16 or f32 pack made on the card")
-    if meta.dtype == "f32" and not meta.with_color:
-        raise NotImplementedError("K2/K3 f32 without the color net are not ported (ROADMAP B)")
-    if meta.dtype == "f32" and want_dw:
-        raise NotImplementedError("K3 f32 with weight gradients is not ported (ROADMAP B); "
-                                  "the f32 backward runs frozen (want_dw=False)")
 
 
 def hand_fine_color_fwd(pts, rotT, off, cut, pack: FinePack):
     """(N, 3) points -> (sdf (N,), g (N, 3), color (N, 3)), or without
     pack.meta.with_color (out (N, d_out), g (N, 3), e (N, E)), on a
-    FinePack.  CUDA tensors launch the forward kernel (bf16, or f32 with
-    the color net); CPU tensors run the plain version.  No gradient flows through it."""
+    FinePack.  CUDA tensors launch the forward kernel (bf16 or f32); CPU
+    tensors run the plain version.  No gradient flows through it."""
     FH.check_operands(pts, rotT, off, cut, (), pack.bs + pack.cbs)
     with torch.no_grad():
         if pts.device.type == "cuda":
@@ -870,9 +899,8 @@ def hand_fine_color_bwd(pts, rotT, off, cut, pack: FinePack, ct0, dg, ct2,
     """The backward at the cotangents on the forward's outputs, in kernel
     layout: (ct0, dg, ct2) = (dsdf (N,), dg (N, 3), dcolor (N, 3)), or
     without pack.meta.with_color (dout (N, d_out), dg (N, 3), de (N, E)),
-    dcws / dcbs then None.  CUDA tensors launch the backward kernel (bf16;
-    f32 with the color net and want_dw=False, the frozen nets of pose
-    fitting); CPU tensors run the plain version."""
+    dcws / dcbs then None.  CUDA tensors launch the backward kernel (bf16
+    or f32, with or without want_dw); CPU tensors run the plain version."""
     N, meta = pts.shape[0], pack.meta
     if meta.with_color:
         cts, shapes = (ct0.reshape(N), dg, ct2), ((N,), (N, 3), (N, 3))
@@ -885,7 +913,7 @@ def hand_fine_color_bwd(pts, rotT, off, cut, pack: FinePack, ct0, dg, ct2,
             raise ValueError(f"cotangent must be {shape} on {pts.device}")
     with torch.no_grad():
         if pts.device.type == "cuda":
-            _check_cuda_pack(pack, want_dw)
+            _check_cuda_pack(pack)
             FH.check_operands(pts, rotT, off, cut,
                               pack.ws + pack.cws + pack.wts + pack.cwts, pack.bs + pack.cbs,
                               FT._cast(pack.meta.trunk_meta))
@@ -961,8 +989,7 @@ def hand_fine_color(pts, rotT, off, cut, ws, bs, cws, cbs, meta: FineMeta):
     (color layer 0 in the reference row order).  Without meta.with_color
     it is JAX's hand_fine_full: cws = cbs = (), and it returns (out (N,
     d_out), g (N, 3), e (N, E)), e the embedding rounded to the trunk
-    dtype.  CUDA tensors launch the kernels (bf16; f32 with the color net
-    and frozen weights, i.e. none needing a gradient), CPU tensors run the
-    plain versions."""
+    dtype.  CUDA tensors launch the kernels (bf16 or f32 trunk), CPU
+    tensors run the plain versions."""
     return _HandFine.apply(meta, pts, rotT, off, cut, *ws, *bs, *cws, *cbs)
 

@@ -110,13 +110,13 @@ def select_fine_pass(tcfg: TrainHyper, sdf_cfg: SDFConfig, device) -> Optional[s
     """The fine pass's mode (render.neus.FINE_MODES, None = the autograd
     field) for `train.fused_fine` and the SDF trunk's dtype: the JAX
     package's choice on one chip (honerf_tpu/train/offline.py:399-409).
-    On the card (a CUDA `device`) it raises NotImplementedError where that
-    choice has no kernel here: the kernels' f32 modes, 'xla' (the JAX
-    package's pure-XLA lowering of K5/K6's statements for meshes where
-    Pallas cannot run; here those statements are K5/K6's plain version:
-    use 'pallas'), and a bf16 trunk told to leave its kernels (False or an
-    unknown value).  On the CPU the kernel modes run their plain versions,
-    f32 included, and 'xla' is 'pallas' (the same statements)."""
+    Every kernel mode runs on the card with a bf16 or an f32 trunk.  On
+    the card (a CUDA `device`) it raises NotImplementedError for 'xla'
+    (the JAX package's pure-XLA lowering of K5/K6's statements for meshes
+    where Pallas cannot run; here those statements are K5/K6's plain
+    version: use 'pallas') and for a bf16 trunk told to leave its kernels
+    (False or an unknown value).  On the CPU the kernel modes run their
+    plain versions and 'xla' is 'pallas' (the same statements)."""
     want, bf16 = tcfg.fused_fine, sdf_cfg.trunk_dtype == "bf16"
     on_card = torch.device(device).type == "cuda"
     if want is None:        # auto: the color-fused kernels for a bf16 trunk
@@ -130,12 +130,6 @@ def select_fine_pass(tcfg: TrainHyper, sdf_cfg: SDFConfig, device) -> Optional[s
                 "statements) has no kernel on the card: use 'pallas'")
         return "pallas"
     if want in FINE_MODES:
-        if on_card and not bf16:
-            kernels = {"pallas": "K5/K6", "full": "K3 with weight gradients"}.get(
-                want, "K2/K3 without the color net")
-            raise NotImplementedError(
-                f"train.fused_fine = {want!r} with an f32 trunk: the f32 mode of {kernels} is "
-                "not ported (ROADMAP B); use trunk_dtype = bf16")
         return want
     if on_card and bf16:
         raise NotImplementedError(

@@ -279,12 +279,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # operands on two devices
         FH.fused_hand_sdf(pts, rotT.cpu(), off, cut, fused.ws, fused.bs, fused.meta)
     f32_cfg = cfg._replace(trunk_dtype="f32")
-    with pytest.raises(NotImplementedError):  # f32 without the color net: still to port
-        FF.hand_fine_color_fwd(pts, rotT, off, cut, pack_fine_nocolor(params["sdf"], f32_cfg))
-    f32 = pack_fine_color(params, f32_cfg, ccfg._replace(trunk_dtype="f32"))
-    cts = _cotangents(64, dev)
-    with pytest.raises(NotImplementedError):  # f32 with weight gradients: still to port
-        FF.hand_fine_color_bwd(pts, rotT, off, cut, f32, *cts, want_dw=True)
+    cpu_made = _cpu_pack(pack_fine_nocolor(params["sdf"], f32_cfg))
+    cpu_made = cpu_made._replace(ws=tuple(w.to(dev) for w in cpu_made.ws),
+                                 bs=tuple(b.to(dev) for b in cpu_made.bs))
+    with pytest.raises(ValueError):  # a pack made off the card (no transposed weights)
+        FF.hand_fine_color_fwd(pts, rotT, off, cut, cpu_made)
 
 
 # K5 / K6 (the trunk + u-chain on the embedding, train.fused_fine =
@@ -558,3 +557,166 @@ def test_fine_color_bwd_f32_frozen_matches_plain(dev, case):
         g, w = getattr(got, name), getattr(want, name)
         assert torch.isfinite(g).all(), name
         assert float((g - w).norm()) <= F32_TOL * float(w.norm()), name
+
+
+# The remaining f32 modes: K3 f32 with weight gradients, K2/K3 f32 without
+# the color net, K5/K6 f32 (offline hand training and fitting with the
+# confs' f32 trunks).  Every output within F32_TOL of the plain version:
+# the forwards of the range, median and max; the backwards of the norm in
+# L2, each dW/db included.  The chunked cases pass the 32,768-point f32
+# chunk, so dW accumulates across passes.
+F32_BWD_CASES = {"small-1": (SMALL, 1), "small-1001": (SMALL, 1001),
+                 "small-chunked": (SMALL, FF.CHUNK // 2 + 77), "full": (FULL, 3001)}
+
+
+def _f32_close(got, want, name=""):
+    assert got.shape == want.shape and torch.isfinite(got).all(), name
+    err = (got - want).abs().flatten()
+    scale = max(float(want.abs().max()), 1e-6)
+    assert float(err.median()) <= F32_TOL * scale, name
+    assert float(err.max()) <= F32_TOL * scale, name
+
+
+def _f32_ratios(got_items, want_items):
+    """[(name, |kernel - plain| / (F32_TOL |plain|))], L2."""
+    out = []
+    for (name, g), (_, w) in zip(got_items, want_items):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        out.append((name, float((g - w).norm()) / (F32_TOL * float(w.norm()) + 1e-30)))
+    return out
+
+
+def _f32_setup(sdf_kw, n, dev, with_color):
+    cfg, ccfg, params = _nets(sdf_kw, dev)
+    cfg = cfg._replace(trunk_dtype="f32")
+    pack = (pack_fine_color(params, cfg, ccfg._replace(trunk_dtype="f32")) if with_color
+            else pack_fine_nocolor(params["sdf"], cfg))
+    joints, bt_inv, t_pose = _pose(dev)
+    rotT, off, cut = FH.pack_hand_pose(bt_inv, t_pose)
+    return cfg, pack, (_points(joints, n, seed=2), rotT, off, cut)
+
+
+# The color net's input holds sin / cos(2^l g), and |g| reaches hundreds
+# on these random fields: the kernel's g and the plain version's (each
+# within ~3e-5 of g's range) move that input, hence the color net's
+# weight gradients, by up to ~1e-2.  So K3 with the color net is held
+# against its plain version at the kernel's own g (g_color), with dcolor
+# zero at the points whose color relu pre-activations lie within
+# FF.RELU_MARGIN of the kink, where the mask may flip
+# (FF.shared_g_cotangents).
+
+
+def f32_bwd_rule_readings(kind, sdf_kw, n, dev):
+    """The f32 backward on unit cotangents against its plain version, kind
+    'color' (K3, at the kernel's g: FF.shared_g_cotangents), 'nocolor' (K3
+    without the color net) or 'trunk' (K6): (the outputs with dW, the
+    frozen call's, [(name, |kernel - plain| / (F32_TOL |plain|))] in L2
+    over the outputs with dW); the rule holds where every ratio is at
+    most 1."""
+    if kind == "trunk":
+        cfg, _, params = _nets(sdf_kw, dev)
+        cfg = cfg._replace(trunk_dtype="f32")
+        pack = pack_trunk_sdf(params["sdf"], cfg)
+        e = _embedding(cfg, n, dev, seed=2)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        dout = torch.randn((n, cfg.d_out), generator=gen, device=dev)
+        du = torch.randn((n, cfg.input_width), generator=gen, device=dev)
+        got = FT.hand_trunk_sdf_u_bwd(e, pack, dout, du)
+        frozen = FT.hand_trunk_sdf_u_bwd(e, pack, dout, du, want_dw=False)
+        want = FT.hand_trunk_sdf_u_plain_bwd(e, pack, dout, du)
+        return got, frozen, _f32_ratios(_trunk_items(got), _trunk_items(want))
+    cfg, pack, args = _f32_setup(sdf_kw, n, dev, kind == "color")
+    if kind == "color":
+        g, cts, dropped = FF.shared_g_cotangents(*args, pack, *_cotangents(n, dev))
+        assert dropped <= max(1, n // 100)
+        want = FF.hand_fine_color_plain_bwd(*args, pack, *cts, g_color=g)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        cts = [torch.randn(s, generator=gen, device=dev)
+               for s in ((n, cfg.d_out), (n, 3), (n, cfg.input_width))]
+        want = FF.hand_fine_color_plain_bwd(*args, pack, *cts)
+    got = FF.hand_fine_color_bwd(*args, pack, *cts)
+    frozen = FF.hand_fine_color_bwd(*args, pack, *cts, want_dw=False)
+    return got, frozen, _f32_ratios(_grad_items(got), _grad_items(want))
+
+
+def _f32_bwd_rule(kind, sdf_kw, n, dev):
+    """f32_bwd_rule_readings held: every ratio at most 1, the frozen call
+    without weight gradients and with the same other outputs, bit for
+    bit; two launches of the kernel."""
+    counter = FT.KERNEL_BWD if kind == "trunk" else FF.KERNEL_BWD
+    before = counter.launches
+    got, frozen, ratios = f32_bwd_rule_readings(kind, sdf_kw, n, dev)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    bad = [(name, r) for name, r in ratios if not r <= 1.0]
+    assert not bad, bad
+    if kind == "trunk":
+        assert frozen[1] is None and torch.equal(frozen[0], got[0])
+        return
+    assert frozen.dws is None and (got.dcws is not None) == (kind == "color")
+    for name in ("dp", "drotT", "doff"):
+        assert torch.equal(getattr(frozen, name), getattr(got, name)), name
+
+
+@pytest.mark.parametrize("case", list(F32_BWD_CASES))
+def test_fine_color_bwd_f32_dw_matches_plain(dev, case):
+    """K3 f32 with dW against its plain version at the kernel's g."""
+    _f32_bwd_rule("color", *F32_BWD_CASES[case], dev)
+
+
+@pytest.mark.parametrize("case", list(F32_BWD_CASES))
+def test_fine_nocolor_f32_matches_plain(dev, case):
+    """K2 f32 without the color net (out, g, e), then K3 f32 without it,
+    with and without dW, on unit cotangents."""
+    sdf_kw, n = F32_BWD_CASES[case]
+    cfg, pack, args = _f32_setup(sdf_kw, n, dev, False)
+    before = FF.KERNEL.launches
+    got = FF.hand_fine_color_fwd(*args, pack)
+    assert FF.KERNEL.launches == before + 1
+    want = FF.hand_fine_color_plain(*args, pack)
+    for name, g, w, shape in zip(("out", "g", "e"), got, want,
+                                 [(n, cfg.d_out), (n, 3), (n, cfg.input_width)]):
+        assert g.shape == shape
+        _f32_close(g, w, name)
+    _f32_bwd_rule("nocolor", sdf_kw, n, dev)
+
+
+@pytest.mark.parametrize("case", list(F32_BWD_CASES))
+def test_trunk_sdf_u_f32_matches_plain(dev, case):
+    """K5 f32 (out, u), then K6 f32 with and without dW, on unit
+    cotangents."""
+    sdf_kw, n = F32_BWD_CASES[case]
+    cfg, _, params = _nets(sdf_kw, dev)
+    pack = pack_trunk_sdf(params["sdf"], cfg._replace(trunk_dtype="f32"))
+    assert pack.meta.dtype == "f32"
+    e = _embedding(cfg, n, dev, seed=2)
+    before = FT.KERNEL_FWD.launches
+    got = FT.hand_trunk_sdf_u_fwd(e, pack)
+    assert FT.KERNEL_FWD.launches == before + 1
+    for name, g, w in zip(("out", "u"), got, FT.hand_trunk_sdf_u_plain(e, pack)):
+        _f32_close(g, w, name)
+    _f32_bwd_rule("trunk", sdf_kw, n, dev)
+
+
+@pytest.mark.parametrize("x_scale", [0.0, 0.70710678])
+def test_dw_gemm_f32_matches_f64(dev, x_scale):
+    """The f32 mode's split-over-points dW = (x_scale X)^T Y, alone, at a
+    ragged size: against f64 sums of the same f32 values, and += on a
+    second call; two runs give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    M, K, N = 33001, 1408, 256
+    X = torch.randn((M, K), generator=gen, device=dev)
+    Y = torch.randn((M, N), generator=gen, device=dev)
+    blib, stream = FF._bwd_lib(), torch.cuda.current_stream().cuda_stream
+    ws = torch.empty((FF._WS_FLOATS,), device=dev)
+    want = ((X.double() * x_scale) if x_scale else X.double()).T @ Y.double()
+    outs = []
+    for _ in range(2):
+        out = torch.zeros((K, N), device=dev)
+        FF._tn(blib, X, K, K, Y, N, M, out, 0, ws, stream, x_scale=x_scale)
+        outs.append(out.clone())
+        FF._tn(blib, X, K, K, Y, N, M, out, 1, ws, stream, x_scale=x_scale)
+        assert float((out.double() - 2 * want).abs().max()) <= 2e-5 * float(want.abs().max())
+    assert torch.equal(outs[0], outs[1])
+    assert float((outs[0].double() - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -137,8 +137,10 @@ def test_fit_kernel_selection():
     assert sel(None, None, tcfg, "cuda") == (True, "full")
     assert sel(False, "full", bf16, "cuda") == (False, "full")
     assert sel(None, "pallas", bf16, "cuda") == (True, "pallas")
-    for fine in ("xla", "pallas", "full_nocolor"):
+    for fine in ("pallas", "full_nocolor"):
+        assert sel(None, fine, tcfg, "cuda") == (True, fine)
+    for cfg in (tcfg, bf16):
         with pytest.raises(NotImplementedError):
-            sel(None, fine, tcfg, "cuda")
+            sel(None, "xla", cfg, "cuda")
     with pytest.raises(ValueError):
         sel(None, "nope", tcfg, "cpu")

@@ -95,7 +95,7 @@ def train_batch(n_side=6, seed=0, index=1):
     from honerf_tpu.data.datasets import get_bone_length
     from honerf_tpu.data.synthetic import look_at_camera
 
-    bt, tpose, joints = hand_pose()
+    tpose, joints = canonical_hand_joints(0.0), canonical_hand_joints(0.3)  # hand_pose()'s
     R, T = look_at_camera(np.asarray([0.0, 0.2, -0.9]), joints.mean(0))
     g = np.linspace(-0.12, 0.12, n_side, dtype=np.float32)
     xy = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2)

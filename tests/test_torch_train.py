@@ -137,16 +137,17 @@ def test_train_hyper_fused_fine_matches_jax(name):
 NIE = NotImplementedError
 # train.fused_fine -> (JAX's choice on one chip for a bf16 / f32 trunk
 # (honerf_tpu/train/offline.py:399-409), the port's on CPU tensors bf16 /
-# f32, on CUDA tensors bf16 / f32).  JAX's 'xla' runs K5/K6's statements in
-# XLA: the port's 'pallas' on the CPU (their plain version), refused on the
-# card; JAX's False is the autograd field.
+# f32, on CUDA tensors bf16 / f32).  Every kernel mode runs on the card in
+# both dtypes.  JAX's 'xla' runs K5/K6's statements in XLA: the port's
+# 'pallas' on the CPU (their plain version), refused on the card; JAX's
+# False is the autograd field.
 FINE_TABLE = {
     None: (("full", False), ("full", None), ("full", None)),
-    True: (("full", "full"), ("full", "full"), ("full", NIE)),
-    "full": (("full", "full"), ("full", "full"), ("full", NIE)),
+    True: (("full", "full"), ("full", "full"), ("full", "full")),
+    "full": (("full", "full"), ("full", "full"), ("full", "full")),
     "full_nocolor": (("full_nocolor", "full_nocolor"), ("full_nocolor", "full_nocolor"),
-                     ("full_nocolor", NIE)),
-    "pallas": (("pallas", "pallas"), ("pallas", "pallas"), ("pallas", NIE)),
+                     ("full_nocolor", "full_nocolor")),
+    "pallas": (("pallas", "pallas"), ("pallas", "pallas"), ("pallas", "pallas")),
     "xla": (("xla", "xla"), ("pallas", "pallas"), (NIE, NIE)),
     False: ((False, False), (None, None), (NIE, None)),
     "full_frozen": ((False, False), (None, None), (NIE, None)),
