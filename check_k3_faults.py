@@ -4,6 +4,7 @@ trunk + u-chain's backward), their f32 modes and the fit step catch: each
 check is read on the sound kernels and on planted faults.
 
     python3 check_k3_faults.py [--out readings.json] [--only sound,k6_du_skip_unscaled]
+                               [--groups f32,fit]
 
 Needs a CUDA device.  Each fault in FAULTS is one small edit of the
 backward kernels' sources (honerf_torch/ops/csrc/*.cu[h],
@@ -12,8 +13,9 @@ trunk's backward launches and epilogues, so a fault there breaks both),
 made in a copy of honerf_torch under build/k3_faults/<name>/, whose kernels
 build there; a child process runs the checks on that copy.  "sound" is an
 unedited copy and reads every check; a fault reads the checks of its
-groups (bf16: the first seven below, f32: the next five, fit: the last
-six).  The checks, with the limits they hold:
+groups (bf16: the first seven below, f32: the next six, fit: the last
+six; --groups reads only the named groups, and skips the faults with none
+of them).  The checks, with the limits they hold:
 
   kernel  chip_smoke.py's K3 phase on one flagship train step's own
           inputs (chip_smoke.k3_check; 56,448 points; the batch and
@@ -39,6 +41,10 @@ six).  The checks, with the limits they hold:
           embedding (seed 0, and 0-1 for the sound kernel), caught above 1;
   k6step  chip_smoke.py's train check pallas: the step check above with
           train.fused_fine = 'pallas' (seed 1, and 1-2 for the sound kernel);
+  gemm    chip_smoke.py's f32 GEMMs phase (chip_smoke.f32_gemm_readings):
+          gemm_f32_kernel and gemm_tn_f32_kernel alone at an f32 pass's
+          shapes, |kernel - f64| / |f64| in L2 against TOL_GEMM_F32_L2 and
+          the same bits on a rerun;
   f32k3   chip_smoke.py's kernel K3 f32 phase (chip_smoke.f32_bwd_check):
           K3 f32 with dW on what one flagship f32 'full' step hands it
           (56,448 points, two passes), every output against TOL_F32 in L2
@@ -142,8 +148,14 @@ FAULTS = {
         ("bf16",)),
     "f32_tn_no_xscale": (
         "the f32 TN GEMM drops x_scale (the skip rows' 1/sqrt2 in every f32 dW)", _TRUNK_CUH,
-        "x.x *= p.x_scale; x.y *= p.x_scale; x.z *= p.x_scale; x.w *= p.x_scale;",
-        "(void)0;", ("f32", "fit")),
+        "if (p.x_scale != 0.f)\n    f32_ring(",
+        "if (false)\n    f32_ring(", ("f32", "fit")),
+    "f32_gemm_1xtf32": (
+        "both f32 GEMMs drop the two correction products of 3xTF32 (one TF32 product)", _CUH,
+        "  for (int j = 0; j < 4; ++j) mma_tf32(c[j], a_small, b_big[j]);   // small . big\n"
+        "#pragma unroll\n"
+        "  for (int j = 0; j < 4; ++j) mma_tf32(c[j], a_big, b_small[j]);   // big . small\n",
+        "", ("f32", "fit")),
     "k6_f32_du_skip_unscaled": (
         "K6 f32 takes du unscaled at the skip (du for du / sqrt2)", _K6_CU,
         "du_s[(size_t)m * lddu + c] = from_f32<T>(v * kInvSqrt2);",
@@ -172,6 +184,7 @@ FAULTS = {
         "Pr[a * 64 + col] = t[a] * ch.f_q[k] + p[a] * dq[k];",
         "Pr[a * 64 + col] = p[a] * dq[k];", ("fit",)),
 }
+GROUPS = ("bf16", "f32", "fit")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
 STEP_SEEDS = {"sound": (1, 2, 3, 4)}
@@ -211,10 +224,10 @@ def fwd_rows(CS, torch, names, got, want):
     return rows
 
 
-def child(name: str, root: str) -> None:
-    """Run the checks of the fault's group (every check for the sound
-    kernels) on the package under root; print the readings as one JSON
-    line."""
+def child(name: str, root: str, groups) -> None:
+    """Run the checks of the fault's groups among `groups` (every group's
+    for the sound kernels) on the package under root; print the readings
+    as one JSON line."""
     sys.path.insert(0, root)
     import torch
 
@@ -234,7 +247,7 @@ def child(name: str, root: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     _build.build_all()
-    groups = ("bf16", "f32", "fit") if name == "sound" else FAULTS[name][4]
+    groups = [g for g in (GROUPS if name == "sound" else FAULTS[name][4]) if g in groups]
     out = {"fault": name}
     if "bf16" in groups:
         out.update({k: {} for k in ("kernel", "kunit", "unit", "step", "k6", "k6unit",
@@ -267,6 +280,8 @@ def child(name: str, root: str) -> None:
         from honerf_torch.ops import fused_fine_full as FF
 
         out.update({k: {} for k in ("f32k3", "f32nc", "f32k6", "f32step")})
+        out["gemm"] = {"0": [[r.what, r.l2, r.ok]
+                             for r in CS.f32_gemm_readings(torch, dev, timed=False)]}
         fs = CS.flagship(torch, dev, "f32")
 
         for seed in F32_SEEDS.get(name, (0,)):
@@ -346,12 +361,12 @@ def judge(CS, res):
                     over.append(f"{what}@{seed}")
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
-    for check in ("f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6"):
+    for check in ("gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []
         for seed, rows in res[check].items():
-            for what, val, ok in rows:   # forwards: max |err| / range; backwards: L2
+            for what, val, ok in rows:   # forwards: max |err| / range; the rest: L2
                 val = float("inf") if val != val else val
                 if val > worst[0]:
                     worst = (val, f"{what}@{seed}")
@@ -406,16 +421,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(WORK, "readings.json"))
     ap.add_argument("--only", help="comma-separated names (sound and FAULTS) to run")
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help="comma-separated groups of checks to read (bf16, f32, fit)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     a = ap.parse_args()
+    groups = a.groups.split(",")
     if a.child:
-        child(a.child, a.root)
+        child(a.child, a.root, groups)
         return 0
     sys.path.insert(0, ROOT)
     import chip_smoke as CS
 
-    names = ["sound", *FAULTS]
+    names = ["sound", *(n for n, f in FAULTS.items() if set(f[4]) & set(groups))]
     if a.only:
         names = [n for n in names if n in a.only.split(",")]
     results, bad = {}, []
@@ -423,7 +441,8 @@ def main() -> int:
         t0 = time.time()
         root = prepare(name)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", name,
-                               "--root", root], capture_output=True, text=True, timeout=1500)
+                               "--root", root, "--groups", a.groups], capture_output=True,
+                              text=True, timeout=1500)
         secs = time.time() - t0
         if proc.returncode != 0:
             print(f"{name}: the child failed after {secs:.0f} s:\n{proc.stdout[-2000:]}"

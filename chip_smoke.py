@@ -98,52 +98,62 @@ The hand's other fine-pass modes (train.fused_fine), between 9 and 10:
 The hand's offline stage with the conf's own f32 trunks (as written;
 no ladder kernel unless train.fused_ladder is set), after 20:
 
- 21. kernel K3 f32  K3 f32 with weight gradients on what one f32 'full'
+ 21. f32 GEMMs  gemm_f32_kernel and gemm_tn_f32_kernel alone at the shapes
+              of one f32 pass of a flagship step (28,224 points: the
+              trunk's layer 0, hidden, skip-concat, last and u-chain
+              products, and their dW), against the f64 product of the same
+              f32 values (TOL_GEMM_F32_L2 in L2, a single TF32 product's
+              reading logged beside), the same bits on a rerun, the time
+              and TFLOP/s against the 3xTF32 bound and one torch.matmul in
+              f32 (TF32 off) as the library yardstick;
+ 22. kernel K2 f32 request  K2 f32 at one 4096-ray request's 524,288
+              points against its plain version (TOL_F32 of the range);
+ 23. kernel K3 f32  K3 f32 with weight gradients on what one f32 'full'
               train step hands it (56,448 points, two passes, TF32 off):
               every output within TOL_F32 of the plain version's norm in
               L2 (at the kernel's g: the f32 rule's note), with and without
               dW; by torch.profiler's names f32 GEMMs and f32 TN GEMMs, no
               bf16 one; the last color layer's dW read as is (C4);
- 22. kernel K2/K3 f32 no-color  K2 f32 without the color net at an f32
+ 24. kernel K2/K3 f32 no-color  K2 f32 without the color net at an f32
               'full_nocolor' step's points (out, g, e within TOL_F32 of the
               range, median and max), K3 f32 without it under the f32 rule;
- 23. kernel K5/K6 f32  the same for K5 and K6 at an f32 'pallas' step;
- 24. train f32  the flagship step under 'full', 'full_nocolor', 'pallas' and
+ 25. kernel K5/K6 f32  the same for K5 and K6 at an f32 'pallas' step;
+ 26. train f32  the flagship step under 'full', 'full_nocolor', 'pallas' and
               the autograd field, 3 warm-up and 20 timed steps each: the
               launch counts, one step's kernels by name (f32 GEMMs and TN
               GEMMs, no bf16 one), finite losses, se3_refine moved; one
               'full' step under torch.profiler;
- 25. train check f32  one 64-ray step per kernel mode, card against CPU;
- 26. serve f32  one 4096-ray 'full' request (the eval render's K1
+ 27. train check f32  one 64-ray step per kernel mode, card against CPU;
+ 28. serve f32  one 4096-ray 'full' request (the eval render's K1
               ladder, whatever the trunk's dtype, as in the JAX package; K2
               f32) against the CPU on the 128 rays that meet the most
               surface.
 
 Pose fitting (the fit confs, f32 trunks), after 13:
 
- 27. kernel K2 f32  K2 in f32 against its plain version (TF32 off) at one
+ 29. kernel K2 f32  K2 in f32 against its plain version (TF32 off) at one
               fit step's 37,632 fine points, within TOL_F32 of the range
               at the median and the max; the plain version with TF32 on
               logged beside;
- 28. kernel K3 f32 frozen  the frozen K3 in f32 on that step's inputs and
+ 30. kernel K3 f32 frozen  the frozen K3 in f32 on that step's inputs and
               cotangents: dp, drotT, doff within TOL_F32 in L2; by
               torch.profiler's names its f32 GEMMs and no dW/db kernel;
- 29. kernel fit modes f32  at what one '12' fit step in 'full_nocolor'
+ 31. kernel fit modes f32  at what one '12' fit step in 'full_nocolor'
               and in 'pallas' hands its kernels: K2 f32 without the color
               net and K5 f32 under K2's f32 rule, the frozen K3 f32 without
               it and the frozen K6 f32 on the step's cotangents and on
               unit cotangents under the f32 rule;
- 30. fit      the CLI (honerf_torch.cli.fitting_single) '1' then '12' on a
+ 32. fit      the CLI (honerf_torch.cli.fitting_single) '1' then '12' on a
               synthetic catch sequence (1 frame, 8 views, 230x266) with
               random full-width checkpoints, train.iter_num cut to 3: the
               launch counts zeroed before and read after each (K1, K2, K3
               must launch), the pose pickles; then ms per step of each fit
               type (20 after 3 warm-up) and seconds a frame at the
               reference budget;
- 31. fit modes  the CLI '12' with train.fused_fine = 'full_nocolor' and
+ 33. fit modes  the CLI '12' with train.fused_fine = 'full_nocolor' and
               'pallas' (launch counts, pickle), ms per step, one step's
               kernels by name: f32 GEMMs, no dW / db kernel;
- 32. fit check  one 64-ray '12' step on the card against the CPU at
+ 34. fit check  one 64-ray '12' step on the card against the CPU at
               shared ladder samples: in f32 against the CPU's f64 step,
               the render terms' pose gradients logged on their own;
               on rays that meet the hand head on, card against CPU f32 in
@@ -151,15 +161,16 @@ Pose fitting (the fit confs, f32 trunks), after 13:
               on their own beside the whole step's; then with K1 (its
               plain version on the CPU) on three batches against f64, with
               K1 held to its plain version at the step's ladder points;
- 33. fit profile  one '12' step under torch.profiler.
+ 35. fit profile  one '12' step under torch.profiler.
 
 Weights are random (geometric init plus seeded noise, so every embedding
 column is live).  check_k3_faults.py runs the kernel, train and fit
 checks below on the sound kernels and on planted faults (what each limit
 catches).  The last lines of stdout are the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
-numbers (each kernel's other modes beside it: no-color, f32, f32
-no-color, f32 with dW), and the result line.  Exits nonzero, printing
+numbers (each kernel's other modes beside it: no-color, f32, f32 at a
+request, f32 no-color, f32 with dW; the two f32 GEMMs alone in rows of
+their own), and the result line.  Exits nonzero, printing
 no result, when no CUDA device is present or a phase fails.
 """
 
@@ -178,6 +189,9 @@ CONF = os.path.join(ROOT, "confs", "wmask_realhand_hand1.conf")
 OBJ_CONF = os.path.join(ROOT, "confs", "wmask_realobj_bean.conf")
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12     # H100 SXM FP32 on the CUDA cores (no tensor cores)
+# f32 work on the tensor cores as split-precision 3xTF32 (the f32 GEMMs):
+# three TF32 products at 495 TFLOP/s per f32 product
+PEAK_F32_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 REQUEST_RAYS = 4096
 TRAIN_RAYS = 441            # train.batch_size of the conf
@@ -294,6 +308,21 @@ TOL_F32 = 1e-4
 # (check_k3_faults.py, PERF.md).
 TOL_TRAIN_F32_LOSS = 1e-3
 TOL_TRAIN_F32_GRAD = 1e-2
+# The f32 GEMMs alone (gemm_f32_kernel, gemm_tn_f32_kernel), at one f32
+# pass of a flagship step (28,224 points: 56,448 in two), against the f64
+# product of the same f32 values: |kernel - f64| / |f64| in L2.  3xTF32
+# with a fresh accumulator per K step reads 2.5-3.0e-7 (cuBLAS's f32
+# 2.9-8.7e-7 at these shapes); a single TF32 product 2.9e-4 (logged
+# beside: torch.matmul with TF32 on).  The limit sits between the two.
+F32_GEMM_M = 28224
+# (K1, K2, N, a_scale): layer 0, a hidden layer, the skip concat, the last
+# layer, a u-chain step into the embedding columns
+F32_GEMM_SHAPES = ((1408, 0, 256, 0.0), (256, 0, 256, 0.0), (256, 1408, 256, 0.70710678),
+                   (256, 0, 320, 0.0), (256, 0, 1408, 0.0))
+# (K, N, x_scale) of dW = (x_scale X)^T Y over the points: layer 0, a
+# hidden layer, the skip's embedding rows, the last layer
+F32_TN_SHAPES = ((1408, 256, 0.0), (256, 256, 0.0), (1408, 256, 0.70710678), (256, 320, 0.0))
+TOL_GEMM_F32_L2 = 1e-5
 FIT_FACTOR = 4.0
 TOL_FIT_F32 = 1e-3
 TOL_FIT_HEAD_ON = 1e-4
@@ -545,6 +574,77 @@ def nbytes(ts) -> int:
 def bound(flops: float, n_bytes: float, peak: float = PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak, n_bytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def f32_gemm_readings(torch, dev, timed: bool = True):
+    """Both f32 GEMMs alone at F32_GEMM_SHAPES / F32_TN_SHAPES (M =
+    F32_GEMM_M points, seeded normal operands, B scaled by 1/sqrt(K)):
+    per shape |kernel - f64| / |f64| in L2 and max |kernel - f64|, the
+    same bits on a rerun, a single TF32 product's L2 (torch.matmul with
+    TF32 on); timed: the kernel's ms, one torch.matmul's (TF32 off, the
+    library yardstick; the port never calls it) and the 3xTF32 bound."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+
+    lib = FF._bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(11)
+    M = F32_GEMM_M
+    ws = torch.empty((FT._WS_FLOATS,), device=dev)
+    out = []
+
+    def reading(what, run, res, exact, lib_fn, flops, n_bytes):
+        run()
+        got = res.clone()
+        run()
+        again = res.clone()
+        torch.cuda.synchronize()
+        err = got.double() - exact
+        l2 = float(err.norm() / exact.norm())
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32_l2 = float((lib_fn().double() - exact).norm() / exact.norm())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        r = SimpleNamespace(what=what, l2=l2, max_abs=float(err.abs().max()),
+                            same=bool(torch.equal(got, again)), tf32_l2=tf32_l2, flops=flops,
+                            ms=None, lib_ms=None, bound_ms=None, bound_by=None)
+        r.ok = r.same and l2 <= TOL_GEMM_F32_L2
+        if timed:
+            r.ms = cuda_ms(torch, run, 10)
+            r.lib_ms = cuda_ms(torch, lib_fn, 10)
+            r.bound_ms, r.bound_by = bound(flops, n_bytes, PEAK_F32_3XTF32_FLOPS)
+        out.append(r)
+
+    for K1, K2, N, a_scale in F32_GEMM_SHAPES:
+        K = K1 + K2
+        A1 = torch.randn((M, K1), generator=gen, device=dev)
+        A2 = torch.randn((M, K2), generator=gen, device=dev) if K2 else None
+        B = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+        C = torch.empty((M, N), device=dev)
+        A = A1 if A2 is None else torch.cat([A1, A2], dim=1)
+        if a_scale:
+            A = A * a_scale
+
+        def run(A1=A1, K1=K1, A2=A2, K2=K2, B=B, N=N, C=C, a_scale=a_scale):
+            FH.gemm(lib, A1, K1, A2, K2, B, N, None, M, FH.EPI_F32, C, N, n_store=N,
+                    a_scale=a_scale, stream=stream)
+
+        reading(f"gemm_f32 K {K1}{f' + {K2}' if K2 else ''}{' scaled' if a_scale else ''} "
+                f"N {N}", run, C, A.double() @ B.double(), lambda A=A, B=B: A @ B,
+                2.0 * M * K * N, 4 * (M * K + K * N + M * N))
+    for K, N, x_scale in F32_TN_SHAPES:
+        X = torch.randn((M, K), generator=gen, device=dev)
+        Y = torch.randn((M, N), generator=gen, device=dev) / M ** 0.5
+        dW = torch.empty((K, N), device=dev)
+        Xs = X * x_scale if x_scale else X
+
+        def run(X=X, K=K, Y=Y, N=N, dW=dW, x_scale=x_scale):
+            FT._tn(lib, X, K, K, Y, N, M, dW, 0, ws, stream, x_scale=x_scale)
+
+        reading(f"gemm_tn_f32 K {K} N {N}{' scaled' if x_scale else ''}", run, dW,
+                Xs.double().T @ Y.double(), lambda Xs=Xs, Y=Y: Xs.T @ Y, 2.0 * M * K * N,
+                4 * (M * K + M * N + K * N))
+    return out
 
 
 # -- the flagship and its train step (check_k3_faults.py runs these too) --
@@ -870,7 +970,7 @@ def read_png(path: str):
     return rows[:, 1:].reshape(H, W, 3)
 
 
-# -- pose fitting (phases 27-33) --
+# -- pose fitting (phases 29-35) --
 
 def fit_nets(torch, dev):
     """The fit confs' nets (fit_confs/fit_1_8views.conf: f32 trunks) with
@@ -1188,7 +1288,7 @@ def fit_render_ratios(r):
 
 
 def run_fit_phases(torch, dev, phase, rows, failures) -> None:
-    """Phases 27-33, pose fitting: K2 in f32 and the frozen K3 in f32, then
+    """Phases 29-35, pose fitting: K2 in f32 and the frozen K3 in f32, then
     the no-color K2 / K3 and K5 / K6 in f32, against their plain versions
     at a fit step's inputs, the fitting CLI
     ('1' then '12', then '12' in the other fine-pass modes) with its
@@ -1240,7 +1340,7 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain(*fargs), 2)
         n_bytes = (nbytes([pts, *args[1:4], *pack.ws, *pack.bs, *pack.cws, *pack.cbs]) + 28 * n)
         flops = k2_flops(fn.hand_sdf, fn.hand_color, n)
-        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_FLOPS)
+        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_3XTF32_FLOPS)
         log(f"K2 f32 hand_fine_color_fwd: {n} pts "
             f"({-(-n // FF.chunk_size(n, 'f32', FF.CHUNK))} passes); "
             f"{'; '.join(c[2] for c in checks)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -1286,7 +1386,7 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         weights = [*pack.ws, *pack.bs, *pack.cws, *pack.cbs]
         n_bytes = nbytes([*args[:4], *args[5:], *weights]) + 12 * n + 4 * 9 * 128
         flops = k3_frozen_flops(fn.hand_sdf, fn.hand_color, n)
-        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_FLOPS)
+        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_3XTF32_FLOPS)
         log(f"K3 f32 frozen hand_fine_color_bwd: {n} pts; {'; '.join(lines)}; no weight "
             f"gradient {no_dw}; kernels by name: {sum(names.values())} launches, f32 GEMMs "
             f"{f32_gemms}, bf16 GEMMs {bf16_gemms}, dW/db kernels {dw_launches} (the profiler "
@@ -1578,14 +1678,16 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             shutil.rmtree(f32_inputs["ws"], ignore_errors=True)
 
 
-def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
-    """Phases 21-26, the hand's offline stage with the flagship conf's own
-    f32 trunks (as written): K3 f32 with weight gradients, K2/K3 f32
-    without the color net and K5/K6 f32 against their plain versions at a
-    step's shapes, the train step under each kernel mode and the autograd
-    field, one step per mode on the card against the CPU, and a 'full'
-    request.  `view` is the serve phase's camera and pose, `rays` the NDC
-    rays of one request."""
+def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_pts) -> None:
+    """Phases 21-28, the hand's offline stage with the flagship conf's own
+    f32 trunks (as written): the f32 GEMMs alone, K2 f32 at a request's
+    points, K3 f32 with weight gradients, K2/K3 f32 without the color net
+    and K5/K6 f32 against their plain versions at a step's shapes, the
+    train step under each kernel mode and the autograd field, one step per
+    mode on the card against the CPU, and a 'full' request.  `view` is the
+    serve phase's camera and pose, `rays` the NDC rays of one request,
+    `request_pts` (pts, rotT, off, cut) K2's points of one request."""
+    from honerf_torch.models.fields import pack_fine_color
     from honerf_torch.ops import fused_fine as FT
     from honerf_torch.ops import fused_fine_full as FF
     from honerf_torch.ops import fused_hand as FH
@@ -1601,7 +1703,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
     E, d_out = sdf_cfg.input_width, sdf_cfg.d_out
     ttcfg = train_hyper(fs)
     kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD, "K5": FT.KERNEL_FWD,
-               "K6": FT.KERNEL_BWD}
+               "K6": FT.KERNEL_BWD, "GEMM_F32": FH.GEMM_F32, "GEMM_TN_F32": FH.GEMM_TN_F32}
     log(f"f32 phases: {os.path.relpath(CONF, ROOT)} as written, trunks {sdf_cfg.trunk_dtype}; "
         "select_fine_pass on the card: " + ", ".join(
             f"{m} -> {select_fine_pass(ttcfg._replace(fused_fine=m), sdf_cfg, dev)}"
@@ -1646,7 +1748,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
         ms = cuda_ms(torch, lambda: getattr(mod, name)(*args), 5)
         frozen_ms = cuda_ms(torch, lambda: getattr(mod, name)(*args, want_dw=False), 5)
         plain_ms = cuda_ms(torch, lambda: plain(*args), 2)
-        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_FLOPS)
+        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_3XTF32_FLOPS)
         log(f"{label}: {n} pts ({-(-n // FT.chunk_size(n, 'f32', FF.BWD_CHUNK))} passes"
             + (f"; dcolor zero at {dropped} points within {FF.RELU_MARGIN:g} of a relu kink"
                if mode == "full" else "") + f"); a second run gives the same bits: {same}; "
@@ -1663,6 +1765,60 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
         if not (f32_g and tn_f32) or bf16_g or bf16_tn:
             raise AssertionError(f"{label}: f32 GEMMs and TN GEMMs, and no bf16 one, not shown")
         return got
+
+    def f32_gemms():
+        """Both f32 GEMMs alone at an f32 pass's shapes against f64
+        (f32_gemm_readings), timed beside torch.matmul in f32."""
+        readings = f32_gemm_readings(torch, dev)
+        for r in readings:
+            log(f"{r.what}, M {F32_GEMM_M}: |kernel - f64| / |f64| in L2 {r.l2:.2e} (tol "
+                f"{TOL_GEMM_F32_L2:g}; one TF32 product {r.tf32_l2:.2e}), max |err| "
+                f"{r.max_abs:.2e}; a rerun gives the same bits: {r.same}; kernel {r.ms:.4f} ms "
+                f"({r.flops / r.ms / 1e9:.1f} TFLOP/s), torch.matmul f32 {r.lib_ms:.4f} ms, "
+                f"bound {r.bound_ms:.4f} ms ({r.bound_by}, 3xTF32; FP32 on the CUDA cores "
+                f"{r.flops / PEAK_F32_FLOPS * 1e3:.4f} ms){'' if r.ok else ' FAIL'}")
+        for key, gemm in (("GEMM_F32", FH.GEMM_F32), ("GEMM_TN_F32", FH.GEMM_TN_F32)):
+            mine = [r for r in readings if r.what.split()[0] + "_kernel" == gemm.name]
+            ms, lib_ms = sum(r.ms for r in mine), sum(r.lib_ms for r in mine)
+            b_ms = sum(r.bound_ms for r in mine)
+            log(f"{gemm.name}, the {len(mine)} shapes: kernel {ms:.4f} ms, torch.matmul f32 "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms, "
+                f"{sum(r.flops for r in mine) / ms / 1e9:.1f} TFLOP/s")
+            # the plain versions' products are the f32 matmul itself
+            rows[key] = dict(rows.get(key, {}), name=gemm.name, route="cuda", source=gemm.source,
+                             replaces=gemm.replaces, max_abs_err=max(r.max_abs for r in mine),
+                             ms=ms, plain_ms=lib_ms, bound_ms=b_ms,
+                             bound_by=mine[0].bound_by, library_ms=lib_ms)
+        if not all(r.ok for r in readings):
+            raise AssertionError("an f32 GEMM disagrees with the f64 product or its rerun")
+
+    def kernel_k2_f32_request():
+        """K2 f32 at the points of one 4096-ray request (128 samples a ray,
+        several passes of its chunk loop) against its plain version, under
+        the f32 rule (TOL_F32 of the range, median and max)."""
+        pts, rotT, off, cut = request_pts
+        pack = pack_fine_color(fs.params, sdf_cfg, color_cfg)
+        args = (pts, rotT, off, cut, pack)
+        n = pts.shape[0]
+        got = FF.hand_fine_color_fwd(*args)
+        want = FF.hand_fine_color_plain(*args)
+        torch.cuda.synchronize()
+        checks = [compare(torch, what, a, b, TOL_F32, TOL_F32)
+                  for what, a, b in zip(("sdf", "g", "color"), got, want)]
+        ms = cuda_ms(torch, lambda: FF.hand_fine_color_fwd(*args), 3)
+        plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain(*args), 1)
+        flops = k2_flops(sdf_cfg, color_cfg, n)
+        n_bytes = (nbytes([pts, rotT, off, cut, *pack.ws, *pack.bs, *pack.cws, *pack.cbs])
+                   + 28 * n)
+        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_3XTF32_FLOPS)
+        log(f"K2 f32 hand_fine_color_fwd, one request: {n} pts "
+            f"({-(-n // FT.chunk_size(n, 'f32', FF.CHUNK))} passes); "
+            f"{'; '.join(c[2] for c in checks)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}, {flops / ms / 1e9:.1f} TFLOP/s)")
+        rows["K2"] = dict(rows.get("K2", {}), f32_request_ms=ms, f32_request_plain_ms=plain_ms,
+                          f32_request_bound_ms=b_ms)
+        if not all(c[0] for c in checks):
+            raise AssertionError("K2 f32 disagrees with its plain version at a request")
 
     def kernel_k3_f32_dw():
         """K3 f32 with dW on what one flagship f32 'full' step hands it
@@ -1706,7 +1862,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
         plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain(*fargs), 2)
         n_bytes = 12 * n + 4 * (d_out + 3 + E) * n + nbytes([*fargs[1:4], *pack.ws, *pack.bs])
         flops = k5_flops(sdf_cfg, n)
-        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_FLOPS)
+        b_ms, b_by = bound(flops, n_bytes, PEAK_F32_3XTF32_FLOPS)
         log(f"K2 f32 no-color hand_fine_color_fwd: {n} pts "
             f"({-(-n // FT.chunk_size(n, 'f32', FF.CHUNK))} passes); "
             f"{'; '.join(c[2] for c in checks)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -1737,7 +1893,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
         plain_ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_plain(e, tpack), 2)
         weights = [*tpack.ws, *tpack.bs]
         flops = k5_flops(sdf_cfg, n)
-        b_ms, b_by = bound(flops, 4 * (2 * E + d_out) * n + nbytes(weights), PEAK_F32_FLOPS)
+        b_ms, b_by = bound(flops, 4 * (2 * E + d_out) * n + nbytes(weights),
+                           PEAK_F32_3XTF32_FLOPS)
         names = f32_names(lambda: FT.hand_trunk_sdf_u_fwd(e, tpack))
         log(f"K5 f32 hand_trunk_sdf_u_fwd: {n} pts "
             f"({-(-n // FT.chunk_size(n, 'f32', FT.CHUNK))} passes); "
@@ -1752,8 +1909,9 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
         if not all(c[0] for c in checks) or not names[0] or names[2]:
             raise AssertionError("K5 f32 disagrees with its plain version or ran a bf16 GEMM")
 
-    expect = {"full": ("K2", "K3"), "full_nocolor": ("K2", "K3"), "pallas": ("K5", "K6"),
-              None: ()}
+    gemms = ("GEMM_F32", "GEMM_TN_F32")
+    expect = {"full": ("K2", "K3") + gemms, "full_nocolor": ("K2", "K3") + gemms,
+              "pallas": ("K5", "K6") + gemms, None: ()}
 
     def train_f32():
         """The flagship train step with the conf's f32 trunks under each
@@ -1803,12 +1961,14 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
                 device_profile(torch, f"one {label} step of {TRAIN_RAYS} rays",
                                lambda: step(state, batch, gen))
             idle = [k for k in want if not launches[k]]
-            stray = [k for k in ("K1", "K2", "K3", "K5", "K6") if k not in want and launches[k]]
+            stray = [k for k in kernels if k not in want and launches[k]]
             shown = (f32_g > 0 and tn_f32 > 0) if want else total >= 0
             if not finite or moved <= 0 or idle or stray or not shown or bf16_g or bf16_tn:
                 bad.append(f"{label} (launches {launches}, finite {finite}, moved {moved:.2e})")
             if mode == "full":
                 rows["K3"] = dict(rows.get("K3", {}), f32_dw_launches=launches["K3"])
+                for name in gemms:
+                    rows[name] = dict(rows.get(name, {}), launches=launches[name])
             elif mode == "full_nocolor":
                 for name in ("K2", "K3"):
                     rows[name] = dict(rows.get(name, {}), f32_nocolor_launches=launches[name])
@@ -1854,9 +2014,10 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
         launches = {name: k.launches for name, k in kernels.items()}
         log(f"serve f32: one request of {len(rays)} rays in {req_ms:.1f} ms "
             f"({len(rays) / req_ms * 1e3:.1f} rays/s); launches {launches}")
+        rows["K2"] = dict(rows.get("K2", {}), f32_request_launches=launches["K2"])
         assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
-        assert launches["K1"] and launches["K2"] and not (
-            launches["K3"] or launches["K5"] or launches["K6"]), \
+        assert launches["K1"] and launches["K2"] and launches["GEMM_F32"] and not (
+            launches["K3"] or launches["K5"] or launches["K6"] or launches["GEMM_TN_F32"]), \
             f"the f32 'full' render path launched {launches}"
         idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
         cpu = torch.device("cpu")
@@ -1872,6 +2033,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays) -> None:
             ok = ok and good
         assert ok, "the f32 render disagrees with the CPU render"
 
+    phase("f32 GEMMs", f32_gemms)
+    phase("kernel K2 f32 request", kernel_k2_f32_request)
     phase("kernel K3 f32", kernel_k3_f32_dw)
     phase("kernel K2/K3 f32 no-color", kernel_nocolor_f32)
     phase("kernel K5/K6 f32", kernel_k5k6_f32)
@@ -2485,7 +2648,8 @@ def main() -> int:
         f32_rays = grid[torch.argsort(served["wsum"].reshape(-1), descending=True)[:REQUEST_RAYS]]
     else:
         f32_rays = grid[(H * W - REQUEST_RAYS) // 2:][:REQUEST_RAYS]
-    run_f32_train_phases(torch, dev, phase, rows, failures, view, f32_rays)
+    run_f32_train_phases(torch, dev, phase, rows, failures, view, f32_rays,
+                         (pts_all, rotT, off, cut))
 
     # -- 10-13. the object model: K4, its train step, the runner, meshes --
     obj = obj_flagship(torch, dev)
@@ -2675,15 +2839,17 @@ def main() -> int:
     run_fit_phases(torch, dev, phase, rows, failures)
 
     log(gpu_line())
-    order = ("K1", "K2", "K3", "K4", "K5", "K6")
+    order = ("K1", "K2", "K3", "K4", "K5", "K6", "GEMM_F32", "GEMM_TN_F32")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     def mode_keys(prefix):
         return tuple(f"{prefix}{k}" for k in ("launches", "ms", "plain_ms", "bound_ms"))
 
     # each kernel's other modes: bf16 no-color, f32 with the color
-    # net (K2; K3 frozen), f32 no-color, K3 f32 with dW, K5 / K6 in f32
-    extra = {"K2": mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_"),
+    # net (K2 at a fit step and at a request; K3 frozen), f32 no-color, K3
+    # f32 with dW, K5 / K6 in f32; the f32 GEMMs alone (rows of their own)
+    extra = {"K2": (mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_")
+                    + mode_keys("f32_request_")),
              "K3": (mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_")
                     + mode_keys("f32_dw_")),
              "K5": mode_keys("f32_"), "K6": mode_keys("f32_")}

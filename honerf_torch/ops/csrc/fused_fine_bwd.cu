@@ -45,11 +45,12 @@
 //   FineMeta(dtype='f32')): the same launches on f32 operands
 //   (gemm_f32_kernel, the per-point kernels' f32 variants; the cotangent
 //   rows dzb, du_b, du_s in f32) and every dW by gemm_tn_f32_kernel
-//   (trunk.cuh: SIMT FMA, the same split partials and fixed-order sum),
-//   db by the same colsum.  fine_bwd_emb_kernel reads only f32 rows (u,
-//   de, dx) in either mode, so one version serves both.  Bound:
-//   operations at 67 TFLOP/s FP32, ~18.2 MFLOP a point with the color
-//   net (~14.3 without), 272 ms per million points.  Frozen (want_dw
+//   (trunk.cuh: the same split partials and fixed-order sum), both 3xTF32
+//   on the tensor cores (common.cuh), db by the same colsum.
+//   fine_bwd_emb_kernel reads only f32 rows (u, de, dx) in either mode, so
+//   one version serves both.  Bound: operations at 165 TFLOP/s of f32 work
+//   (3xTF32), ~18.2 MFLOP a point with the color net (~14.3 without), 110
+//   ms per million points.  Frozen (want_dw
 //   false: pose fitting, whose nets are constants; JAX's
 //   FineMeta(dtype='f32', want_dw=False),
 //   honerf_tpu/ops/fused_fine_full.py:1819-1823): no dW/db work at all,

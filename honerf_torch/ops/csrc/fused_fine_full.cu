@@ -33,11 +33,12 @@
 // f32 mode (FineMeta.dtype 'f32': the fitting stage's f32 trunks, JAX's
 //   e_dtype f32 at honerf_tpu/ops/fused_fine_full.py:1532): the same
 //   launches on f32 operands, e and every activation, t row and color
-//   input row in f32, each product by gemm_f32_kernel (common.cuh) on the
-//   CUDA cores.  Bound: operations, ~6.05 MFLOP a point at 67 TFLOP/s
-//   (FP32, outside the tensor cores), ~90 ms per million points; the
-//   scratch (~46 KB/pt) is twice bf16's, so the wrapper passes at most half
-//   as many points (balanced passes).  With and without the color net.
+//   input row in f32, each product by gemm_f32_kernel (common.cuh): 3xTF32
+//   on the tensor cores, the f32 product within ~1e-6.  Bound: operations,
+//   ~6.05 MFLOP a point at 165 TFLOP/s of f32 work (three TF32 products at
+//   495 TFLOP/s), ~37 ms per million points; the scratch (~46 KB/pt) is
+//   twice bf16's, so the wrapper passes at most half as many points
+//   (balanced passes).  With and without the color net.
 //
 // No-color mode (`hand_fine_full`, the same pallas_call without the color
 //   net): the same launches up to fine_rev_kernel, which then writes only

@@ -45,10 +45,11 @@
 //   e_dtype f32): the same launches on f32 operands: the pack and seed
 //   kernels' f32 variants (a zero-padded copy of e; dzb, du_b, du_s in
 //   f32), every product by gemm_f32_kernel (common.cuh) and every dW by
-//   gemm_tn_f32_kernel (trunk.cuh), SIMT FMA at FP32's 67 TFLOP/s: K5
-//   ~72 ms and K6 ~192 ms per million points at that peak.  A pass takes
-//   at most half the bf16 chunk's points, so the scratch's bytes stay
-//   the same; dW accumulates across passes in f32 as in bf16.
+//   gemm_tn_f32_kernel (trunk.cuh), 3xTF32 on the tensor cores at 165
+//   TFLOP/s of f32 work: K5 ~29 ms and K6 ~78 ms per million points at
+//   that peak.  A pass takes at most half the bf16 chunk's points, so the
+//   scratch's bytes stay the same; dW accumulates across passes in f32 as
+//   in bf16.
 
 #include "trunk.cuh"
 

@@ -5,8 +5,10 @@
 //    column;
 //  * gemm_tn_kernel + reduce_partials_kernel: dW = X^T Y over the point
 //    axis, split over points into f32 partials summed in a fixed order;
-//  * gemm_tn_f32_kernel: the same split product on f32 operands with f32
-//    FMA on the CUDA cores (the f32 trunk mode; tf32 is not f32);
+//  * gemm_tn_f32_kernel: the same split product on f32 operands (the f32
+//    trunk mode), 3xTF32 on the tensor cores with gemm_f32_kernel's
+//    mainloop and cp.async ring (common.cuh: why three TF32 products are
+//    the f32 function within ~1e-6 and one is not);
 //  * colsum_partial_kernel: column sums (db, the pose sums), fixed order;
 //  * copy_cols_kernel: the first `width` columns of a padded scratch row
 //    into an unpadded f32 output row.
@@ -143,13 +145,11 @@ __global__ void __launch_bounds__(THREADS) gemm_tn_kernel(TnArgs p) {
 }
 
 // The f32 mode's dW: gemm_tn_kernel's blocks and partials on f32 operands,
-// summed with FMA in point order on the CUDA cores, as gemm_f32_kernel
-// (common.cuh) sums its products.  Point steps of F_BK: X's 16 x 128 and
-// Y's 16 x 128 slices land in shared memory as [point][i] and [point][o]
-// (both already the layout the 8 x 8 register tile reads as float4), the
-// next step's loaded into registers while the current one is multiplied.
-// x_scale != 0 multiplies X by it (the skip concat's f32 1/sqrt2, no
-// rounding).
+// 3xTF32 on the tensor cores (common.cuh: mma_step_3xtf32).  Point steps
+// of F_BK through the same cp.async ring (f32_ring): X's 32 x 128 and Y's
+// 32 x 128 slices land as [point][i] and [point][o], read as a [k][m] A
+// tile and a [k][n] B tile.  x_scale != 0 multiplies X's fragment elements by it
+// before the split (the skip concat's f32 1/sqrt2, no other rounding).
 struct TnF32Args {
   const float* X; int ldx; int K;   // X (M, K)
   float x_scale;
@@ -158,92 +158,66 @@ struct TnF32Args {
   float* ws; int ldws; size_t ws_stride;
 };
 
-__device__ __forceinline__ F32Tile tn_f32_load(const TnF32Args& p, int i0, int o0, int mk,
-                                               int m_end, int tid) {
-  F32Tile t;
+__device__ __forceinline__ void tn_f32_load_stage(const TnF32Args& p, float* Xs, float* Ys,
+                                                  int i0, int o0, int mk, int m_end, int tid) {
 #pragma unroll
-  for (int it = 0; it < 2; ++it) {
+  for (int it = 0; it < 4; ++it) {
     int c = tid + it * THREADS;
     int row = c >> 5, col = (c & 31) * 4;
     int gm = mk + row;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
-    if (gm < m_end && i0 + col < p.K) {
-      x = *reinterpret_cast<const float4*>(p.X + (size_t)gm * p.ldx + i0 + col);
-      if (p.x_scale != 0.f) {
-        x.x *= p.x_scale; x.y *= p.x_scale; x.z *= p.x_scale; x.w *= p.x_scale;
-      }
-    }
-    if (gm < m_end && o0 + col < p.N)
-      y = *reinterpret_cast<const float4*>(p.Y + (size_t)gm * p.ldy + o0 + col);
-    t.a[it] = x;
-    t.b[it] = y;
-  }
-  return t;
-}
-
-__device__ __forceinline__ void tn_f32_store(const F32Tile& t, float* Xs, float* Ys, int tid) {
-#pragma unroll
-  for (int it = 0; it < 2; ++it) {
-    int c = tid + it * THREADS;
-    int off = (c >> 5) * F_LD + (c & 31) * 4;
-    *reinterpret_cast<float4*>(&Xs[off]) = t.a[it];
-    *reinterpret_cast<float4*>(&Ys[off]) = t.b[it];
+    bool vx = gm < m_end && i0 + col < p.K;
+    bool vy = gm < m_end && o0 + col < p.N;
+    cp_async16(&Xs[row * FK_LD + col], vx ? p.X + (size_t)gm * p.ldx + i0 + col : p.X, vx);
+    cp_async16(&Ys[row * FK_LD + col], vy ? p.Y + (size_t)gm * p.ldy + o0 + col : p.Y, vy);
   }
 }
 
-__global__ void __launch_bounds__(THREADS) gemm_tn_f32_kernel(TnF32Args p) {
-  __shared__ __align__(16) float Xs[2 * F_STAGE];
-  __shared__ __align__(16) float Ys[2 * F_STAGE];
+__global__ void __launch_bounds__(THREADS, 1) gemm_tn_f32_kernel(TnF32Args p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Xs = reinterpret_cast<float*>(smem_raw);   // [F_STAGES][F_BK][FK_LD]
+  float* Ys = Xs + F_STAGES * FK_STAGE;
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
   const int i0 = blockIdx.x * BM, o0 = blockIdx.y * BN;
   const int m0 = blockIdx.z * p.split;
   const int m_end = min(p.M, m0 + p.split);
   const int KT = m_end > m0 ? (m_end - m0 + F_BK - 1) / F_BK : 0;
 
-  float acc[8][8];
+  float acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
 
-  if (KT > 0) tn_f32_store(tn_f32_load(p, i0, o0, m0, m_end, tid), Xs, Ys, tid);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    F32Tile next;
-    if (kt + 1 < KT) next = tn_f32_load(p, i0, o0, m0 + (kt + 1) * F_BK, m_end, tid);
-    const float* x = Xs + cur * F_STAGE;
-    const float* y = Ys + cur * F_STAGE;
-#pragma unroll
-    for (int k = 0; k < F_BK; ++k) {
-      float av[8], bv[8];
-      float4 a0 = *reinterpret_cast<const float4*>(&x[k * F_LD + ty * 4]);
-      float4 a1 = *reinterpret_cast<const float4*>(&x[k * F_LD + 64 + ty * 4]);
-      float4 b0 = *reinterpret_cast<const float4*>(&y[k * F_LD + tx * 4]);
-      float4 b1 = *reinterpret_cast<const float4*>(&y[k * F_LD + 64 + tx * 4]);
-      av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
-      av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
-      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (kt + 1 < KT) tn_f32_store(next, Xs + (1 - cur) * F_STAGE, Ys + (1 - cur) * F_STAGE, tid);
-    __syncthreads();
-  }
+  auto load = [&](int kt, int slot) {
+    tn_f32_load_stage(p, Xs + slot * FK_STAGE, Ys + slot * FK_STAGE, i0, o0, m0 + kt * F_BK,
+                      m_end, tid);
+  };
+  const float* x = Xs + t * FK_LD + wm * 64 + g;
+  const float* y = Ys + t * FK_LD + wn * 32 + g;
+  if (p.x_scale != 0.f)
+    f32_ring(KT, load, [&](int slot) {
+      mma_step_3xtf32<1, FK_LD, true>(acc, x + slot * FK_STAGE, y + slot * FK_STAGE, p.x_scale);
+    });
+  else
+    f32_ring(KT, load, [&](int slot) {
+      mma_step_3xtf32<1, FK_LD, false>(acc, x + slot * FK_STAGE, y + slot * FK_STAGE, 1.f);
+    });
   // the whole 128 x 128 tile into this split's partial (Kpad x Npad)
   float* out = p.ws + blockIdx.z * p.ws_stride;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* row = out + (size_t)(i0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3)) * p.ldws + o0;
-    *reinterpret_cast<float4*>(&row[tx * 4]) = make_float4(acc[i][0], acc[i][1], acc[i][2],
-                                                           acc[i][3]);
-    *reinterpret_cast<float4*>(&row[64 + tx * 4]) = make_float4(acc[i][4], acc[i][5],
-                                                                acc[i][6], acc[i][7]);
-  }
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(out + (size_t)(i0 + wm * 64 + i * 16 + g + h * 8) * p.ldws +
+                                   o0 + wn * 32 + j * 8 + 2 * t) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
 }
 
 // out[i, o] = (acc ? out[i, o] : 0) + sum_s ws[s][i, o] in order s = 0, 1, ...
@@ -339,18 +313,28 @@ extern "C" int honerf_gemm_tn(const __nv_bfloat16* X, int ldx, int K, float x_sc
 }
 
 // The f32 mode's honerf_gemm_tn: out[:K, :N] (+)= (x_scale X)[:M, :K]^T
-// Y[:M, :N], f32 operands and FMA, the same partials and fixed-order sum.
+// Y[:M, :N], 3xTF32 products summed in f32, the same partials and
+// fixed-order sum (16-byte aligned X and Y, split a multiple of F_BK).
 extern "C" int honerf_gemm_tn_f32(const float* X, int ldx, int K, float x_scale, const float* Y,
                                   int ldy, int N, int M, int split, float* ws, float* out,
                                   int ldo, int acc, cudaStream_t stream) {
-  if (ldx % 4 || ldy % 4 || K % 4 || N % 4 || split % honerf::F_BK || split <= 0)
+  if (ldx % 4 || ldy % 4 || K % 4 || N % 4 || split % honerf::F_BK || split <= 0 ||
+      honerf_misaligned16(X) || honerf_misaligned16(Y))
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || K <= 0 || N <= 0) return (int)cudaGetLastError();
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(honerf::gemm_tn_f32_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           honerf::TN_F_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
   const int S = (M + split - 1) / split;
   const int Kp = honerf_round_up(K, honerf::BM), Np = honerf_round_up(N, honerf::BN);
   honerf::TnF32Args p{X, ldx, K, x_scale, Y, ldy, N, M, split, ws, Np, (size_t)Kp * Np};
   dim3 grid(Kp / honerf::BM, Np / honerf::BN, S);
-  honerf::gemm_tn_f32_kernel<<<grid, honerf::THREADS, 0, stream>>>(p);
+  honerf::gemm_tn_f32_kernel<<<grid, honerf::THREADS, honerf::TN_F_SMEM_BYTES, stream>>>(p);
   size_t n = (size_t)K * N;
   honerf::reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       ws, S, (size_t)Kp * Np, Np, K, N, out, ldo, acc);

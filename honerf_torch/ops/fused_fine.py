@@ -500,6 +500,8 @@ def copy_cols(lib, src, m: int, width: int, dst, stream) -> None:
 def _tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
     """out[:K, :N] (+)= X[:m, :K]^T Y[:m, :N] in f32, split over points:
     the bf16 tensor-core TN GEMM, or on f32 operands the f32 one."""
+    from honerf_torch.ops import fused_hand as FH
+
     f32 = X.dtype == torch.float32
     if (Y.dtype == torch.float32) != f32:
         raise ValueError("the TN GEMM's operands must share one type")
@@ -511,6 +513,8 @@ def _tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
     if need > ws.numel():
         raise ValueError(f"dW scratch too small: {need} > {ws.numel()} floats")
     fn = lib.honerf_gemm_tn_f32 if f32 else lib.honerf_gemm_tn
+    if f32:
+        FH.GEMM_TN_F32.launches += 1
     _build.check(fn(
         X.data_ptr(), ldx, K, x_scale, Y.data_ptr(), Y.stride(0), N, m, split,
         ws.data_ptr(), out.data_ptr(), out.stride(0), acc, stream),

@@ -45,6 +45,14 @@ CHUNK = 131072
 KERNEL = _build.Kernel(
     "fused_hand_sdf", "honerf_torch/ops/csrc/fused_hand.cu",
     "honerf_tpu/ops/fused_hand.py:400")
+# The f32 trunk mode's GEMMs, launched by K2, K3, K5 and K6 in f32: the
+# f32 matmuls of K2's pallas_call (the NN product; also K3's, K5's at
+# honerf_tpu/ops/fused_fine.py:452 and K6's at :488) and of K3's (dW; also
+# K6's).
+GEMM_F32 = _build.Kernel("gemm_f32_kernel", "honerf_torch/ops/csrc/common.cuh",
+                         "honerf_tpu/ops/fused_fine_full.py:1556")
+GEMM_TN_F32 = _build.Kernel("gemm_tn_f32_kernel", "honerf_torch/ops/csrc/trunk.cuh",
+                            "honerf_tpu/ops/fused_fine_full.py:1650")
 
 
 class HandKernelMeta(NamedTuple):
@@ -136,6 +144,40 @@ def fused_hand_sdf_plain(pts, rotT, off, cut, ws, bs, meta: HandKernelMeta) -> t
 
 
 # ---------------------------------------------------------------------------
+# The f32 GEMMs' arithmetic (csrc/common.cuh: split-precision 3xTF32)
+# ---------------------------------------------------------------------------
+# A model for the tests (tests/test_torch_tf32_split.py); nothing on the
+# main path calls it: on the CPU the plain versions multiply in f32.
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero; the kernels' cvt.rna), as f32 with the low 13 bits clear."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (f32) = big + small + ~2^-22 |x|: big = tf32(x), small =
+    tf32(x - big)."""
+    big = tf32_round(x)
+    return big, tf32_round(x.float() - big)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the f32 GEMMs form it: the three TF32 products small.big,
+    big.small and big.big, summed in f64 (each TF32 product is exact in
+    f64; the kernels sum in f32)."""
+    ab, as_ = (t.double() for t in split_tf32(a))
+    bb, bs = (t.double() for t in split_tf32(b))
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def matmul_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One TF32 product, summed in f64: what a TF32 GEMM would form."""
+    return tf32_round(a).double() @ tf32_round(b).double()
+
+
+# ---------------------------------------------------------------------------
 # CUDA path
 # ---------------------------------------------------------------------------
 
@@ -196,6 +238,8 @@ def gemm(lib, A1, K1, A2, K2, B, N, bias, M, mode, C, ldc, n_store=0, a_scale=0.
     if _f32(B) != f32 or (A2 is not None and _f32(A2) != f32):
         raise ValueError("the GEMM's operands must share one type")
     fn = lib.honerf_gemm_f32 if f32 else lib.honerf_gemm
+    if f32:
+        GEMM_F32.launches += 1
     rc = fn(
         _ptr(A1), A1.stride(0), K1, _ptr(A2), _ld(A2), K2,
         a_scale, _ptr(B), B.stride(0), N, _ptr(bias), M,

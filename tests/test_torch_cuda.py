@@ -720,3 +720,112 @@ def test_dw_gemm_f32_matches_f64(dev, x_scale):
         assert float((out.double() - 2 * want).abs().max()) <= 2e-5 * float(want.abs().max())
     assert torch.equal(outs[0], outs[1])
     assert float((outs[0].double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# gemm_f32_kernel alone, every epilogue, against the f64 product of the
+# same f32 values with the epilogue in f64.  3xTF32 with a fresh
+# accumulator per K step keeps the product within ~3e-7 of its norm (a
+# single TF32 product: ~3e-4), so every output is held within GEMM_F32_TOL
+# of its range at the max; S = sigmoid(beta z), whose slope reaches
+# beta / 4, within that times beta / 4 (the card reads 1.7e-5 of S's
+# range: z's error, 6.8e-7, times the slope).  Ragged M (33,001 rows: a partial last tile),
+# the skip concat K1 + K2 = 256 + 1408 with its f32 1/sqrt2, N = 320 (a
+# half-empty column tile) and 1408 (the u-chain into the embedding).
+GEMM_F32_TOL = 1e-5
+GEMM_M, GEMM_BETA = 33001, 100.0
+# name -> (epilogue, K2 of the concat (0: none), N, split)
+GEMM_F32_CASES = {
+    "f32": (FH.EPI_F32, 1408, 320, 0), "f32_scale": (FS.EPI_F32_SCALE, 0, 320, 0),
+    "sigmoid": (FH.EPI_SIGMOID, 0, 320, 0), "softplus": (FH.EPI_SOFTPLUS, 1408, 320, 0),
+    "sp_scale": (FS.EPI_SP_SCALE, 0, 320, 0), "relu": (FH.EPI_RELU, 0, 1408, 0),
+    "uchain": (FH.EPI_UCHAIN, 0, 320, 256), "uchain_e": (FH.EPI_UCHAIN, 0, 1408, 0),
+    "dz": (FT.EPI_DZ, 0, 320, 256), "ut": (FT.EPI_UT, 0, 320, 0),
+    "mask": (FF.EPI_MASK, 0, 320, 0),
+}
+
+
+def _gemm_f32_run(case, dev):
+    """One launch of the case on seeded inputs: (inputs, outputs)."""
+    mode, K2, N, split = GEMM_F32_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    M, K1 = GEMM_M, 256
+    x = dict(A1=rnd(M, K1), A2=rnd(M, K2) if K2 else None, B=rnd(K1 + K2, N, scale=0.03),
+             bias=rnd(N, scale=0.1), a_scale=0.70710678 if K2 else 0.0, hscale=0.7,
+             escale=0.6, S=torch.sigmoid(rnd(M, N)), DS=rnd(M, N), CS=rnd(N),
+             Act=rnd(M, N), U0=rnd(M, N - split))
+    out = dict(C=torch.full((M, N), 7.0, device=dev), Cf=torch.empty((M, N), device=dev),
+               DS=torch.empty((M, N), device=dev), S=torch.empty((M, N), device=dev),
+               U=x["U0"].clone())
+    kw = dict(n_store=N - 3, a_scale=x["a_scale"], hscale=x["hscale"], escale=x["escale"],
+              split=split)
+    if mode in (FH.EPI_SOFTPLUS, FS.EPI_SP_SCALE):
+        kw["S"] = out["S"]
+    elif mode == FH.EPI_UCHAIN:
+        kw.update(S=x["S"], U=out["U"], u_acc=1, Cf=out["Cf"] if split else None)
+    elif mode == FT.EPI_DZ:
+        kw.update(S=x["S"], DS=x["DS"], U=out["U"], Cf=out["Cf"])
+    elif mode == FT.EPI_UT:
+        kw.update(S=x["S"], DS=out["DS"], CS=x["CS"], cs_ld=0)
+    elif mode == FF.EPI_MASK:
+        kw.update(Act=x["Act"], Cf=out["Cf"])
+    FH.gemm(FF._bwd_lib(), x["A1"], K1, x["A2"], K2, x["B"], N, x["bias"], M, mode,
+            out["C"], N, stream=torch.cuda.current_stream().cuda_stream, **kw)
+    torch.cuda.synchronize()
+    return x, out
+
+
+def _gemm_f32_want(case, x):
+    """{output: (f64 reference, the region the kernel writes)}."""
+    mode, K2, N, split = GEMM_F32_CASES[case]
+    A = x["A1"].double() if not K2 else torch.cat([x["A1"], x["A2"]], 1).double()
+    if x["a_scale"]:
+        A = (A.float() * x["a_scale"]).double()   # the kernel scales in f32
+    z = A @ x["B"].double() + x["bias"].double()
+    h, e = x["hscale"], x["escale"]
+    S = x["S"].double()
+    if mode in (FH.EPI_F32, FS.EPI_F32_SCALE, FH.EPI_SIGMOID):
+        c = {FH.EPI_F32: z, FS.EPI_F32_SCALE: z * h, FH.EPI_SIGMOID: torch.sigmoid(z)}[mode]
+        return {"C": (c[:, :N - 3], (slice(None), slice(0, N - 3)))}
+    if mode in (FH.EPI_SOFTPLUS, FS.EPI_SP_SCALE):
+        sp = torch.nn.functional.softplus(GEMM_BETA * z) / GEMM_BETA
+        return {"C": (sp * (h if mode == FS.EPI_SP_SCALE else 1.0), ...),
+                "S": (torch.sigmoid(GEMM_BETA * z), ...)}
+    if mode == FH.EPI_RELU:
+        return {"C": (z.clamp_min(0.0), ...)}
+    if mode in (FH.EPI_UCHAIN, FT.EPI_DZ):
+        lo, hi = (slice(None), slice(0, split)), (slice(None), slice(0, N - split))
+        zl = z[:, :split] * h
+        if mode == FT.EPI_DZ:
+            s = S[:, :split]
+            zl = zl * s + x["DS"].double()[:, :split] * (GEMM_BETA * s * (1 - s))
+            u = z[:, split:] * e
+        else:
+            u = x["U0"].double() + z[:, split:] * e
+        want = {"U": (u, hi)}
+        if split:
+            want.update(Cf=(zl, lo), C=(zl * S[:, :split] if mode == FH.EPI_UCHAIN else zl, lo))
+        return want
+    if mode == FT.EPI_UT:
+        return {"DS": (z * x["CS"].double(), ...), "C": (z * S * h, ...)}
+    zm = torch.where(x["Act"] > 0, z, torch.zeros_like(z))
+    return {"Cf": (zm, ...), "C": (zm, ...)}
+
+
+@pytest.mark.parametrize("case", list(GEMM_F32_CASES))
+def test_gemm_f32_matches_f64(dev, case):
+    """gemm_f32_kernel alone with each epilogue: every output within
+    GEMM_F32_TOL of its f64 reference's range; a second launch gives the
+    same bits."""
+    x, got = _gemm_f32_run(case, dev)
+    _, again = _gemm_f32_run(case, dev)
+    for name, (want, region) in _gemm_f32_want(case, x).items():
+        g = got[name][region]
+        assert g.shape == want.shape and torch.isfinite(g).all(), name
+        err = float((g.double() - want).abs().max())
+        slope = GEMM_BETA / 4 if name == "S" else 1.0
+        assert err <= GEMM_F32_TOL * slope * float(want.abs().max()), (name, err)
+        assert torch.equal(g, again[name][region]), name
