@@ -13,7 +13,7 @@ trunk's backward launches and epilogues, so a fault there breaks both),
 made in a copy of honerf_torch under build/k3_faults/<name>/, whose kernels
 build there; a child process runs the checks on that copy.  "sound" is an
 unedited copy and reads every check; a fault reads the checks of its
-groups (bf16: the first seven below, f32: the next six, fit: the last
+groups (bf16: the first eight below, f32: the next six, fit: the last
 six; --groups reads only the named groups, and skips the faults with none
 of them).  The checks, with the limits they hold:
 
@@ -41,6 +41,10 @@ of them).  The checks, with the limits they hold:
           embedding (seed 0, and 0-1 for the sound kernel), caught above 1;
   k6step  chip_smoke.py's train check pallas: the step check above with
           train.fused_fine = 'pallas' (seed 1, and 1-2 for the sound kernel);
+  bgemm   chip_smoke.py's bf16 GEMMs phase (chip_smoke.bf16_gemm_readings):
+          gemm_kernel and gemm_tn_kernel alone at a bf16 pass's shapes,
+          |kernel - f64| / |f64| in L2 against TOL_GEMM_BF16_L2 and the
+          same bits on a rerun;
   gemm    chip_smoke.py's f32 GEMMs phase (chip_smoke.f32_gemm_readings):
           gemm_f32_kernel and gemm_tn_f32_kernel alone at an f32 pass's
           shapes, |kernel - f64| / |f64| in L2 against TOL_GEMM_F32_L2 and
@@ -104,6 +108,7 @@ _K6_CU = "honerf_torch/ops/csrc/fused_trunk.cu"
 _TRUNK_PY = "honerf_torch/ops/fused_fine.py"
 
 _TRUNK_CUH = "honerf_torch/ops/csrc/trunk.cuh"
+_WGMMA_CUH = "honerf_torch/ops/csrc/wgmma.cuh"
 _FULL_PY = "honerf_torch/ops/fused_fine_full.py"
 _K1_PY = "honerf_torch/ops/fused_hand.py"
 
@@ -145,6 +150,17 @@ FAULTS = {
         "K6 takes du unscaled at the skip (bf16(du) for bf16(du / sqrt2))", _K6_CU,
         "du_s[(size_t)m * lddu + c] = from_f32<T>(v * kInvSqrt2);",
         "du_s[(size_t)m * lddu + c] = from_f32<T>(sizeof(T) == 2 ? v : v * kInvSqrt2);",
+        ("bf16",)),
+    "wgmma_no_scale": (
+        "the bf16 GEMMs' mainloop drops the skip concat's scale (a_scale in every skip layer's "
+        "product, x_scale in its dW)", _WGMMA_CUH,
+        "if (scale != 0.f) {  // the skip concat",
+        "if (false) {  // the skip concat", ("bf16",)),
+    "wgmma_skip_last_k": (
+        "gemm_kernel's consumers skip the products of each tile's last K stage (they wait for "
+        "it and free it: the ring still turns)", _WGMMA_CUH,
+        "        launch<kTN>(acc, ring, c, stage, false);",
+        "        if (k + 1 < w.steps) launch<kTN>(acc, ring, c, stage, false);",
         ("bf16",)),
     "f32_tn_no_xscale": (
         "the f32 TN GEMM drops x_scale (the skip rows' 1/sqrt2 in every f32 dW)", _TRUNK_CUH,
@@ -275,6 +291,8 @@ def child(name: str, root: str, groups) -> None:
         for seed in K6STEP_SEEDS.get(name, (1,)):
             r = CS.train_check_readings(torch, fs, dev, seed, mode="pallas")
             out["k6step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
+        out["bgemm"] = {"0": [[r.what, r.l2, r.ok]
+                              for r in CS.bf16_gemm_readings(torch, dev, timed=False)]}
     if "f32" in groups:
         from honerf_torch.ops import fused_fine as FT
         from honerf_torch.ops import fused_fine_full as FF
@@ -361,7 +379,7 @@ def judge(CS, res):
                     over.append(f"{what}@{seed}")
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
-    for check in ("gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6"):
+    for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []

@@ -14,12 +14,22 @@ Phases, each of which fails the run when it fails:
               its chunk loop), full-width hand nets of
               confs/wmask_realhand_hand1.conf with a bf16 trunk, with its
               time, the plain version's time and its bound;
+  2b. bf16 GEMMs  gemm_kernel and gemm_tn_kernel (wgmma on a TMA ring,
+              ops/csrc/wgmma.cuh) alone at a bf16 pass's 65,536 points and
+              the trunk's shapes (bf16_gemm_readings: the five NN shapes
+              of the f32 GEMMs' phase with the skip's bf16(1/sqrt2), the
+              color net's input K 1664, four dW shapes, with and without
+              x_scale), against the f64 sum of the same bf16 operands
+              (TOL_GEMM_BF16_L2 in L2; max and mean shrink logged), the
+              same bits on a rerun, ms beside the plain version (the f32
+              product) and one bf16 torch.matmul;
   3. serve    the hand model's novel-view render: one full 230x266 image
               through train.runner.render_full_image and
               train.offline.make_hand_eval_render (64 + 64 samples, 4
               up-sample steps), then a few single-chunk requests.  The
               launch counts are zeroed just before and read just after;
-              each kernel must have launched;
+              each kernel must have launched, gemm_kernel among them,
+              gemm_tn_kernel not;
   4. check    the served pixels are finite, weight_sum lies in
               [0, 1 + 1e-3], and a patch of rays rendered again on the CPU
               (the kernels' plain versions) agrees with the card's;
@@ -38,7 +48,8 @@ Phases, each of which fails the run when it fails:
               perturb 1, bf16 trunks, refine_pose on, the auto grad clip,
               vgg_weight 0; 3 warm-up steps, then 20 timed ones.  The
               launch counts are zeroed just before and read just after;
-              K1, K2 and K3 must each have launched, every loss and grad
+              K1, K2 and K3 must each have launched (and through them
+              gemm_kernel and gemm_tn_kernel), every loss and grad
               norm be finite, and se3_refine have moved;
   8. train check  one step's metrics and gradient tree on the card
               against the same step on the CPU (plain versions), 64 rays,
@@ -169,8 +180,8 @@ checks below on the sound kernels and on planted faults (what each limit
 catches).  The last lines of stdout are the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
 numbers (each kernel's other modes beside it: no-color, f32, f32 at a
-request, f32 no-color, f32 with dW; the two f32 GEMMs alone in rows of
-their own), and the result line.  Exits nonzero, printing
+request, f32 no-color, f32 with dW; the bf16 and the f32 GEMMs alone in
+rows of their own), and the result line.  Exits nonzero, printing
 no result, when no CUDA device is present or a phase fails.
 """
 
@@ -323,6 +334,22 @@ F32_GEMM_SHAPES = ((1408, 0, 256, 0.0), (256, 0, 256, 0.0), (256, 1408, 256, 0.7
 # hidden layer, the skip's embedding rows, the last layer
 F32_TN_SHAPES = ((1408, 256, 0.0), (256, 256, 0.0), (1408, 256, 0.70710678), (256, 320, 0.0))
 TOL_GEMM_F32_L2 = 1e-5
+# The bf16 GEMMs alone (gemm_kernel, gemm_tn_kernel: wgmma on a TMA ring),
+# at a bf16 pass's M (65,536 points), against the f64 sum of the same bf16
+# operands: |kernel - f64| / |f64| in L2.  The tensor core adds each k16
+# product into its f32 accumulator rounding toward zero, so the sums drift
+# with K: PR 2's WMMA mainloop read 1.40e-6 at K 1408 (bench_gemm.py;
+# cuBLAS f32 3.05e-7), and the limit is 1.5x that.  The dW products sum
+# each K stage (64 points) into fresh accumulators, added into the running
+# sums with round to nearest (summed straight into one accumulator, a
+# ~5,500-point split read 6e-6).
+BF16_GEMM_M = 65536
+# (K1, K2, N, a_scale): F32_GEMM_SHAPES with the skip's bf16(1/sqrt2),
+# and the color net's input, the embedding + 256 features / grad-PE
+BF16_GEMM_SHAPES = tuple((k1, k2, n, 0.70703125 if s else 0.0)
+                         for k1, k2, n, s in F32_GEMM_SHAPES) + ((1408, 256, 256, 0.0),)
+BF16_TN_SHAPES = tuple((k, n, 0.70703125 if s else 0.0) for k, n, s in F32_TN_SHAPES)
+TOL_GEMM_BF16_L2 = 1.5 * 1.40e-6
 FIT_FACTOR = 4.0
 TOL_FIT_F32 = 1e-3
 TOL_FIT_HEAD_ON = 1e-4
@@ -644,6 +671,79 @@ def f32_gemm_readings(torch, dev, timed: bool = True):
         reading(f"gemm_tn_f32 K {K} N {N}{' scaled' if x_scale else ''}", run, dW,
                 Xs.double().T @ Y.double(), lambda Xs=Xs, Y=Y: Xs.T @ Y, 2.0 * M * K * N,
                 4 * (M * K + M * N + K * N))
+    return out
+
+
+def bf16_gemm_readings(torch, dev, timed: bool = True):
+    """Both bf16 GEMMs alone at BF16_GEMM_SHAPES / BF16_TN_SHAPES (M =
+    BF16_GEMM_M points, seeded normal bf16 operands, B scaled by
+    1/sqrt(K)), the NN product read through the EPI_F32 epilogue: per
+    shape |kernel - f64| / |f64| in L2, max |kernel - f64|, the mean
+    shrink (|kernel| - |f64|) / rms |f64|, the same bits on a rerun;
+    timed: the kernel's ms, its plain version's (the f32 product of the
+    bf16 values), one bf16 torch.matmul's (the library yardstick; the port
+    never calls it) and the bound."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+
+    lib = FF._bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(13)
+    M = BF16_GEMM_M
+    ws = torch.empty((FT._WS_FLOATS,), device=dev)
+    bf = torch.bfloat16
+    out = []
+
+    def reading(what, run, res, exact, plain_fn, lib_fn, flops, n_bytes):
+        run()
+        got = res.clone()
+        run()
+        again = res.clone()
+        torch.cuda.synchronize()
+        err = got.double() - exact
+        l2 = float(err.norm() / exact.norm())
+        shrink = float((got.double().abs() - exact.abs()).mean() / exact.pow(2).mean().sqrt())
+        r = SimpleNamespace(what=what, l2=l2, max_abs=float(err.abs().max()), shrink=shrink,
+                            same=bool(torch.equal(got, again)), flops=flops, ms=None,
+                            plain_ms=None, lib_ms=None, bound_ms=None, bound_by=None)
+        r.ok = r.same and l2 <= TOL_GEMM_BF16_L2 and bool(torch.isfinite(got).all())
+        if timed:
+            r.ms = cuda_ms(torch, run, 10)
+            r.plain_ms = cuda_ms(torch, plain_fn, 10)
+            r.lib_ms = cuda_ms(torch, lib_fn, 10)
+            r.bound_ms, r.bound_by = bound(flops, n_bytes)
+        out.append(r)
+
+    for K1, K2, N, a_scale in BF16_GEMM_SHAPES:
+        K = K1 + K2
+        A1 = torch.randn((M, K1), generator=gen, device=dev).to(bf)
+        A2 = torch.randn((M, K2), generator=gen, device=dev).to(bf) if K2 else None
+        B = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5).to(bf)
+        C = torch.empty((M, N), device=dev)
+        A = A1 if A2 is None else torch.cat([A1, A2], dim=1)
+        if a_scale:
+            A = (A.float() * a_scale).to(bf)   # the skip concat's rounding
+
+        def run(A1=A1, K1=K1, A2=A2, K2=K2, B=B, N=N, C=C, a_scale=a_scale):
+            FH.gemm(lib, A1, K1, A2, K2, B, N, None, M, FH.EPI_F32, C, N, n_store=N,
+                    a_scale=a_scale, stream=stream)
+
+        reading(f"gemm K {K1}{f' + {K2}' if K2 else ''}{' scaled' if a_scale else ''} N {N}",
+                run, C, A.double() @ B.double(), lambda A=A, B=B: A.float() @ B.float(),
+                lambda A=A, B=B: A @ B, 2.0 * M * K * N, 2 * (M * K + K * N) + 4 * M * N)
+    for K, N, x_scale in BF16_TN_SHAPES:
+        X = torch.randn((M, K), generator=gen, device=dev).to(bf)
+        Y = (torch.randn((M, N), generator=gen, device=dev) / M ** 0.5).to(bf)
+        dW = torch.empty((K, N), device=dev)
+        Xs = (X.float() * x_scale).to(bf) if x_scale else X
+
+        def run(X=X, K=K, Y=Y, N=N, dW=dW, x_scale=x_scale):
+            FT._tn(lib, X, K, K, Y, N, M, dW, 0, ws, stream, x_scale=x_scale)
+
+        reading(f"gemm_tn K {K} N {N}{' scaled' if x_scale else ''}", run, dW,
+                Xs.double().T @ Y.double(), lambda Xs=Xs, Y=Y: Xs.float().T @ Y.float(),
+                lambda Xs=Xs, Y=Y: Xs.T @ Y, 2.0 * M * K * N, 2 * (M * K + M * N) + 4 * K * N)
     return out
 
 
@@ -1703,7 +1803,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
     E, d_out = sdf_cfg.input_width, sdf_cfg.d_out
     ttcfg = train_hyper(fs)
     kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD, "K5": FT.KERNEL_FWD,
-               "K6": FT.KERNEL_BWD, "GEMM_F32": FH.GEMM_F32, "GEMM_TN_F32": FH.GEMM_TN_F32}
+               "K6": FT.KERNEL_BWD, "GEMM_F32": FH.GEMM_F32, "GEMM_TN_F32": FH.GEMM_TN_F32,
+               "GEMM": FH.GEMM, "GEMM_TN": FH.GEMM_TN}
     log(f"f32 phases: {os.path.relpath(CONF, ROOT)} as written, trunks {sdf_cfg.trunk_dtype}; "
         "select_fine_pass on the card: " + ", ".join(
             f"{m} -> {select_fine_pass(ttcfg._replace(fused_fine=m), sdf_cfg, dev)}"
@@ -2017,7 +2118,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         rows["K2"] = dict(rows.get("K2", {}), f32_request_launches=launches["K2"])
         assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
         assert launches["K1"] and launches["K2"] and launches["GEMM_F32"] and not (
-            launches["K3"] or launches["K5"] or launches["K6"] or launches["GEMM_TN_F32"]), \
+            launches["K3"] or launches["K5"] or launches["K6"] or launches["GEMM_TN_F32"]
+            or launches["GEMM_TN"]), \
             f"the f32 'full' render path launched {launches}"
         idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
         cpu = torch.device("cpu")
@@ -2187,8 +2289,35 @@ def main() -> int:
         if not ok:
             raise AssertionError("K2 disagrees with its plain version")
 
+    def bf16_gemms():
+        """Both bf16 GEMMs alone at a bf16 pass's shapes against f64
+        (bf16_gemm_readings), timed beside one bf16 torch.matmul."""
+        readings = bf16_gemm_readings(torch, dev)
+        for r in readings:
+            log(f"{r.what}, M {BF16_GEMM_M}: |kernel - f64| / |f64| in L2 {r.l2:.2e} (tol "
+                f"{TOL_GEMM_BF16_L2:.2e}), max |err| {r.max_abs:.2e}, mean shrink "
+                f"{r.shrink:.2e}; a rerun gives the same bits: {r.same}; kernel {r.ms:.4f} ms "
+                f"({r.flops / r.ms / 1e9:.1f} TFLOP/s), plain (f32 product) {r.plain_ms:.4f} ms, "
+                f"torch.matmul bf16 {r.lib_ms:.4f} ms, bound {r.bound_ms:.4f} ms "
+                f"({r.bound_by}){'' if r.ok else ' FAIL'}")
+        for key, gemm in (("GEMM", FH.GEMM), ("GEMM_TN", FH.GEMM_TN)):
+            mine = [r for r in readings if r.what.split()[0] + "_kernel" == gemm.name]
+            ms, lib_ms = sum(r.ms for r in mine), sum(r.lib_ms for r in mine)
+            b_ms, plain_ms = sum(r.bound_ms for r in mine), sum(r.plain_ms for r in mine)
+            log(f"{gemm.name}, the {len(mine)} shapes: kernel {ms:.4f} ms, torch.matmul bf16 "
+                f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms, "
+                f"{sum(r.flops for r in mine) / ms / 1e9:.1f} TFLOP/s")
+            rows[key] = dict(rows.get(key, {}), name=gemm.name, route="cuda", source=gemm.source,
+                             replaces=gemm.replaces, max_abs_err=max(r.max_abs for r in mine),
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=max(mine, key=lambda r: r.bound_ms).bound_by,
+                             library_ms=lib_ms)
+        if not all(r.ok for r in readings):
+            raise AssertionError("a bf16 GEMM disagrees with the f64 sum or its rerun")
+
     phase("kernel K1", kernel_k1)
     phase("kernel K2", kernel_k2)
+    phase("bf16 GEMMs", bf16_gemms)
 
     # -- 3. serve: full image + requests through the port's entry points --
     render = make_hand_eval_render(sdf_cfg, color_cfg, rcfg, tcfg)
@@ -2199,13 +2328,14 @@ def main() -> int:
     served = {}
 
     def serve():
-        for k in (FH.KERNEL, FF.KERNEL):
+        for k in (FH.KERNEL, FF.KERNEL, FH.GEMM, FH.GEMM_TN):
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         color, wsum = render_full_image(render, params, view, H, W, chunk=REQUEST_RAYS)
         torch.cuda.synchronize()
         img_s = time.perf_counter() - t0
+        image_gemms = FH.GEMM.launches
         from honerf_torch.camera import full_image_ndc_grid
 
         grid = full_image_ndc_grid(H, W, device=dev)
@@ -2217,7 +2347,9 @@ def main() -> int:
             render(params, dict(view, rays_xy=rays))
             torch.cuda.synchronize()
             req_ms.append((time.perf_counter() - t0) * 1e3)
-        launches = {"K1": FH.KERNEL.launches, "K2": FF.KERNEL.launches}
+        launches = {"K1": FH.KERNEL.launches, "K2": FF.KERNEL.launches,
+                    "GEMM": FH.GEMM.launches}
+        stray_tn = FH.GEMM_TN.launches
         # what the render pays once per parameter snapshot (and each request
         # paid before the packs were kept)
         pack_ms = []
@@ -2229,14 +2361,15 @@ def main() -> int:
             pack_ms.append((time.perf_counter() - t0) * 1e3)
         for name, count in launches.items():
             rows.setdefault(name, {})["launches"] = count
+        rows["GEMM"]["image_launches"] = image_gemms
         n_rays = H * W
         log(f"serve: image {H}x{W} = {n_rays} rays in {img_s * 1e3:.1f} ms "
             f"({n_rays / img_s:.1f} rays/s, {-(-n_rays // REQUEST_RAYS)} requests of "
             f"<= {REQUEST_RAYS} rays); requests of {REQUEST_RAYS} rays: "
             f"{', '.join(f'{m:.1f}' for m in req_ms)} ms "
             f"({REQUEST_RAYS / (sum(req_ms) / len(req_ms) / 1e3):.1f} rays/s); "
-            f"launches {launches}; packing the weights of one snapshot "
-            f"{', '.join(f'{m:.2f}' for m in pack_ms)} ms")
+            f"launches {launches} ({image_gemms} bf16 GEMMs in the image); packing the weights "
+            f"of one snapshot {', '.join(f'{m:.2f}' for m in pack_ms)} ms")
         ladder_pts = n_rays * (rcfg.n_samples + rcfg.n_importance
                                - rcfg.n_importance // rcfg.up_sample_steps)
         fine_pts = n_rays * (rcfg.n_samples + rcfg.n_importance)
@@ -2248,8 +2381,9 @@ def main() -> int:
             log(f"serve: per image {name} sees {pts} points: {flops / 1e12:.2f} TFLOP, bound "
                 f"{flops / PEAK_BF16_FLOPS * 1e3:.2f} ms, {at_rate}")
         served.update(color=color, wsum=wsum, grid=grid)
-        if not all(launches.values()):
-            raise AssertionError(f"a kernel of the render path did not launch: {launches}")
+        if not all(launches.values()) or stray_tn:
+            raise AssertionError(f"a kernel of the render path did not launch: {launches} "
+                                 f"(dW GEMMs {stray_tn})")
 
     phase("serve", serve)
 
@@ -2295,7 +2429,8 @@ def main() -> int:
     # -- 6-9. the hand model's offline train step ------------------------
     ttcfg = train_hyper(fs)
     all_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
-                   "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD}
+                   "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "GEMM": FH.GEMM,
+                   "GEMM_TN": FH.GEMM_TN}
 
     def bwd_rules(label, mode, args):
         """K3's two rules on the mode's backward kernel: on the step's own
@@ -2390,8 +2525,10 @@ def main() -> int:
         return launches
 
     def train():
-        launches = train_run("train", "full", TRAIN_STEPS, ("K1", "K2", "K3"))
+        launches = train_run("train", "full", TRAIN_STEPS, ("K1", "K2", "K3", "GEMM", "GEMM_TN"))
         rows.setdefault("K3", {})["launches"] = launches["K3"]
+        rows.setdefault("GEMM", {})["train_launches"] = launches["GEMM"]
+        rows.setdefault("GEMM_TN", {})["launches"] = launches["GEMM_TN"]
 
     def train_check(mode="full", label="train check"):
         """One step on the card and on the CPU from the same state: the
@@ -2567,7 +2704,8 @@ def main() -> int:
             raise AssertionError("K2/K3 without the color net disagree with their plain versions")
 
     def train_pallas():
-        launches = train_run("train pallas", "pallas", TRAIN_STEPS, ("K1", "K5", "K6"),
+        launches = train_run("train pallas", "pallas", TRAIN_STEPS,
+                             ("K1", "K5", "K6", "GEMM", "GEMM_TN"),
                              profile=True)
         for name in ("K5", "K6"):
             rows.setdefault(name, {})["launches"] = launches[name]
@@ -2839,7 +2977,7 @@ def main() -> int:
     run_fit_phases(torch, dev, phase, rows, failures)
 
     log(gpu_line())
-    order = ("K1", "K2", "K3", "K4", "K5", "K6", "GEMM_F32", "GEMM_TN_F32")
+    order = ("K1", "K2", "K3", "K4", "K5", "K6", "GEMM", "GEMM_TN", "GEMM_F32", "GEMM_TN_F32")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     def mode_keys(prefix):
@@ -2852,7 +2990,8 @@ def main() -> int:
                     + mode_keys("f32_request_")),
              "K3": (mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_")
                     + mode_keys("f32_dw_")),
-             "K5": mode_keys("f32_"), "K6": mode_keys("f32_")}
+             "K5": mode_keys("f32_"), "K6": mode_keys("f32_"),
+             "GEMM": ("image_launches", "train_launches")}
     log(json.dumps({"kernels": [{k: rows.get(n, {}).get(k) for k in keys + extra.get(n, ())}
                                 for n in order]}))
     if failures:

@@ -19,9 +19,9 @@
 //   shared memory and applies softplus in its epilogue, writing the bf16
 //   activation the next layer reads.  The scratch traffic is ~7 KB/pt
 //   against ~2.3 MFLOP/pt, well under the card's byte/FLOP balance.
-//   What bounds this version is the GEMM itself (WMMA tiles fed by a
-//   cp.async ring; the epilogue's transcendentals weigh as much as a
-//   256-deep product): PERF.md has its times.  wgmma, TMA and fusing the
-//   launches are later work.
+//   What bounds this version is the GEMM itself (wgmma on tiles fed by a
+//   TMA ring, wgmma.cuh; the epilogue's transcendentals take longer than
+//   a 256-deep product): PERF.md has its times.  Fusing the launches is
+//   later work.
 
 #include "common.cuh"

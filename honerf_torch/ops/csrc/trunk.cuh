@@ -4,7 +4,8 @@
 //  * uchain_seed_kernel: the u-chain's first step, against the one-hot sdf
 //    column;
 //  * gemm_tn_kernel + reduce_partials_kernel: dW = X^T Y over the point
-//    axis, split over points into f32 partials summed in a fixed order;
+//    axis, split over points into f32 partials summed in a fixed order
+//    (the mainloop: wgmma.cuh, both operands MN-major);
 //  * gemm_tn_f32_kernel: the same split product on f32 operands (the f32
 //    trunk mode), 3xTF32 on the tensor cores with gemm_f32_kernel's
 //    mainloop and cp.async ring (common.cuh: why three TF32 products are
@@ -40,15 +41,11 @@ __global__ void uchain_seed_kernel(const T* __restrict__ w, int ldw,
 // dW = X^T Y over the point axis (TN GEMM), split over points
 // ---------------------------------------------------------------------------
 
-// Block (ti, to, s): the 128 x 128 tile of rows ti*128.. of X's columns and
-// columns to*128.. of Y's, summed over points [s*split, (s+1)*split), into
+// Work unit (tile, s): the BM x BN_TN tile of rows ti*BM.. of X's columns
+// and columns to*BN_TN.. of Y's, summed over points [s*split, (s+1)*split), into
 // its own f32 partial ws[s] (Kpad x Npad, row stride ldws).  The point axis
-// is the K of the product: X tiles land in shared memory as [point][i] and
-// are read as column-major A fragments.
-constexpr int TN_LD = BM + 8;             // bf16 elements per staged row
-constexpr int TN_STAGE = BK * TN_LD;      // elements per operand per stage
-constexpr int TN_SMEM = STAGES * 2 * TN_STAGE * 2;
-
+// is the K of the product: X and Y land as [point][column] boxes and are
+// read as MN-major wgmma operands (wgmma.cuh), so neither is transposed.
 struct TnArgs {
   const __nv_bfloat16* X; int ldx; int K;   // X (M, K)
   float x_scale;                            // != 0: X -> bf16(X * x_scale)
@@ -57,96 +54,34 @@ struct TnArgs {
   float* ws; int ldws; size_t ws_stride;
 };
 
-__device__ __forceinline__ void tn_load_stage(const TnArgs& p, __nv_bfloat16* Xs,
-                                              __nv_bfloat16* Ys, int i0, int o0, int mk,
-                                              int m_end, int tid) {
+// The whole 128 x 128 tile into the split's partial, straight from the
+// accumulators (acc[4j + q]: row g + 8 (q >> 1), column 8j + 2t + (q & 1)).
+struct TnEpilogue {
+  const TnArgs& p;
+  __device__ __forceinline__ void operator()(float (&acc)[wg::BN_TN / 2], const wg::Unit& w,
+                                             int c, float*) const {
+    const int lane = threadIdx.x & 31;
+    const int row = w.r0 + 64 * c + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+    float* out = p.ws + (size_t)w.s * p.ws_stride + (size_t)row * p.ldws + w.c0 + 2 * (lane & 3);
 #pragma unroll
-  for (int it = 0; it < 2; ++it) {
-    int c = tid + it * THREADS;
-    int row = c >> 4, seg = c & 15;
-    int gm = mk + row;
-    int gi = i0 + seg * 8, go = o0 + seg * 8;
-    bool vx = gm < m_end && gi < p.K;
-    bool vy = gm < m_end && go < p.N;
-    cp_async16(&Xs[row * TN_LD + seg * 8], vx ? p.X + (size_t)gm * p.ldx + gi : p.X, vx);
-    cp_async16(&Ys[row * TN_LD + seg * 8], vy ? p.Y + (size_t)gm * p.ldy + go : p.Y, vy);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) gemm_tn_kernel(TnArgs p) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ys = Xs + STAGES * TN_STAGE;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
-  const int i0 = blockIdx.x * BM, o0 = blockIdx.y * BN;
-  const int m0 = blockIdx.z * p.split;
-  const int m_end = min(p.M, m0 + p.split);
-  const int KT = m_end > m0 ? (m_end - m0 + BK - 1) / BK : 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) wmma::fill_fragment(acc[i][jj], 0.f);
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) tn_load_stage(p, Xs + s * TN_STAGE, Ys + s * TN_STAGE, i0, o0, m0 + s * BK,
-                              m_end, tid);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nk = kt + STAGES - 1;
-    if (nk < KT)
-      tn_load_stage(p, Xs + (nk % STAGES) * TN_STAGE, Ys + (nk % STAGES) * TN_STAGE, i0, o0,
-                    m0 + nk * BK, m_end, tid);
-    cp_async_commit();
-    __nv_bfloat16* x = Xs + (kt % STAGES) * TN_STAGE;
-    const __nv_bfloat16* y = Ys + (kt % STAGES) * TN_STAGE;
-    if (p.x_scale != 0.f) {  // the skip concat: X -> bf16(X * x_scale)
-#pragma unroll
-      for (int it = 0; it < 2; ++it) {
-        int c = tid + it * THREADS;
-        uint4* v = reinterpret_cast<uint4*>(&x[(c >> 4) * TN_LD + (c & 15) * 8]);
-        *v = scale_bf16x8(*v, p.x_scale);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], &x[kk * TN_LD + wm * 64 + i * 16], TN_LD);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-        wmma::load_matrix_sync(bf[jj], &y[kk * TN_LD + wn * 32 + jj * 16], TN_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) wmma::mma_sync(acc[i][jj], af[i], bf[jj], acc[i][jj]);
+    for (int j = 0; j < wg::BN_TN / 8; ++j) {
+      *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(out + 8 * (size_t)p.ldws + 8 * j) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
-  cp_async_wait<0>();
-  float* out = p.ws + blockIdx.z * p.ws_stride;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj)
-      wmma::store_matrix_sync(
-          out + (size_t)(i0 + wm * 64 + i * 16) * p.ldws + o0 + wn * 32 + jj * 16,
-          acc[i][jj], p.ldws, wmma::mem_row_major);
+};
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    gemm_tn_kernel(const __grid_constant__ wg::GemmMaps maps, const TnArgs p) {
+  wg::mainloop<true>(maps, p.x_scale, TnEpilogue{p});
 }
 
-// The f32 mode's dW: gemm_tn_kernel's blocks and partials on f32 operands,
-// 3xTF32 on the tensor cores (common.cuh: mma_step_3xtf32).  Point steps
-// of F_BK through the same cp.async ring (f32_ring): X's 32 x 128 and Y's
+// The f32 mode's dW: gemm_tn_kernel's split over points and partials on f32
+// operands, in 128 x 128 blocks (block (ti, to, s) is the tile at rows
+// ti*128.., columns to*128.., points [s*split, (s+1)*split)), 3xTF32 on
+// the tensor cores (common.cuh: mma_step_3xtf32).  Point steps of F_BK
+// through gemm_f32_kernel's cp.async ring (f32_ring): X's 32 x 128 and Y's
 // 32 x 128 slices land as [point][i] and [point][o], read as a [k][m] A
 // tile and a [k][n] B tile.  x_scale != 0 multiplies X's fragment elements by it
 // before the split (the skip concat's f32 1/sqrt2, no other rounding).
@@ -286,26 +221,38 @@ extern "C" int honerf_uchain_seed_f32(const float* w, int ldw, const float* s, i
 static inline int honerf_round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // out[:K, :N] (+)= X[:M, :K]^T Y[:M, :N] in f32; ws holds the partials of
-// ceil(M / split) point ranges.  The wrapper checks ws's size.
+// ceil(M / split) point ranges (Kpad x Npad each, Kpad = K rounded up to
+// wg::BM, Npad = N to wg::BN_TN).  The wrapper checks ws's size.
 extern "C" int honerf_gemm_tn(const __nv_bfloat16* X, int ldx, int K, float x_scale,
                               const __nv_bfloat16* Y, int ldy, int N, int M, int split,
                               float* ws, float* out, int ldo, int acc, cudaStream_t stream) {
-  if (ldx % 8 || ldy % 8 || K % 8 || N % 8 || split % honerf::BK || split <= 0)
+  namespace wg = honerf::wg;
+  if (ldx % 8 || ldy % 8 || K % 8 || N % 8 || split % wg::BK || split <= 0 ||
+      honerf_misaligned16(X) || honerf_misaligned16(Y))
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || K <= 0 || N <= 0) return (int)cudaGetLastError();
+  wg::GemmMaps g{};
+  if (!wg::tma_map(&g.a1, X, K, M, ldx, wg::MN_CHUNK, wg::BK) ||
+      !wg::tma_map(&g.b1, Y, N, M, ldy, wg::MN_CHUNK, wg::BK))
+    return (int)cudaErrorInvalidValue;
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(honerf::gemm_tn_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           honerf::TN_SMEM);
+                                           wg::SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
   const int S = (M + split - 1) / split;
-  const int Kp = honerf_round_up(K, honerf::BM), Np = honerf_round_up(N, honerf::BN);
+  const int Kp = honerf_round_up(K, wg::BM), Np = honerf_round_up(N, wg::BN_TN);
+  g.tiles_n = Np / wg::BN_TN;
+  g.tiles = Kp / wg::BM * g.tiles_n;
+  g.units = g.tiles * S;
+  g.M = M;
+  g.split = split;
   honerf::TnArgs p{X, ldx, K, x_scale, Y, ldy, N, M, split, ws, Np, (size_t)Kp * Np};
-  dim3 grid(Kp / honerf::BM, Np / honerf::BN, S);
-  honerf::gemm_tn_kernel<<<grid, honerf::THREADS, honerf::TN_SMEM, stream>>>(p);
+  const int grid = g.units < wg::sm_count() ? g.units : wg::sm_count();
+  honerf::gemm_tn_kernel<<<grid, wg::THREADS, wg::SMEM_BYTES, stream>>>(g, p);
   size_t n = (size_t)K * N;
   honerf::reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       ws, S, (size_t)Kp * Np, Np, K, N, out, ldo, acc);

@@ -55,6 +55,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from honerf_torch.ops import _build
+from honerf_torch.ops import wgmma_layout as WL
 
 PAD = 64
 BETA = 100.0
@@ -442,10 +443,13 @@ def chunk_size(n: int, dtype: str, limit: int) -> int:
     passes = -(-n // (limit // 2))
     return min(n, _round_up(-(-n // passes), 128))
 
-# dW = X^T dY and column sums run split over the points: enough (tile,
-# split) blocks for ~2 waves of 132 SMs, each partial in f32 scratch,
-# then summed in a fixed order (two runs give the same bits)
+# dW = X^T dY and column sums run split over the points, each partial in
+# f32 scratch, then summed in a fixed order (two runs give the same bits):
+# in f32 enough (tile, split) blocks for ~2 waves of 132 SMs; in bf16 about
+# one work unit per SM of gemm_tn_kernel's persistent blocks
+# (wgmma_layout.tn_split)
 _TN_BLOCKS = 264
+_TN_BLOCKS_BF16 = 132
 _TN_TILE = 128
 _COLSUM_ROWS = 512
 # the f32 scratch of those partials (floats): ~17 MB at the widest call
@@ -505,16 +509,23 @@ def _tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
     f32 = X.dtype == torch.float32
     if (Y.dtype == torch.float32) != f32:
         raise ValueError("the TN GEMM's operands must share one type")
-    tiles = -(-K // _TN_TILE) * -(-N // _TN_TILE)
-    splits = max(1, min(-(-_TN_BLOCKS // tiles), -(-m // 256)))
-    split = _round_up(-(-m // splits), 32)
-    splits = -(-m // split)
-    need = splits * _round_up(K, _TN_TILE) * _round_up(N, _TN_TILE)
+    if f32:
+        tiles = -(-K // _TN_TILE) * -(-N // _TN_TILE)
+        splits = max(1, min(-(-_TN_BLOCKS // tiles), -(-m // 256)))
+        split = _round_up(-(-m // splits), 32)
+        need = -(-m // split) * _round_up(K, _TN_TILE) * _round_up(N, _TN_TILE)
+    else:
+        FH.check_tma_operand(X.data_ptr(), ldx, "X")
+        FH.check_tma_operand(Y.data_ptr(), Y.stride(0), "Y")
+        split = WL.tn_split(K, N, m, _TN_BLOCKS_BF16)
+        need = WL.tn_workspace(K, N, m, split)
     if need > ws.numel():
         raise ValueError(f"dW scratch too small: {need} > {ws.numel()} floats")
     fn = lib.honerf_gemm_tn_f32 if f32 else lib.honerf_gemm_tn
     if f32:
         FH.GEMM_TN_F32.launches += 1
+    else:
+        FH.GEMM_TN.launches += 1
     _build.check(fn(
         X.data_ptr(), ldx, K, x_scale, Y.data_ptr(), Y.stride(0), N, m, split,
         ws.data_ptr(), out.data_ptr(), out.stride(0), acc, stream),

@@ -45,6 +45,14 @@ CHUNK = 131072
 KERNEL = _build.Kernel(
     "fused_hand_sdf", "honerf_torch/ops/csrc/fused_hand.cu",
     "honerf_tpu/ops/fused_hand.py:400")
+# The bf16 GEMMs (wgmma on a TMA ring, csrc/wgmma.cuh), launched by every
+# bf16 kernel: each layer's product of K1, K2, K3, K4, K5 and K6 (the bf16
+# matmuls of K1's pallas_call; also K2's, K3's, K4's at
+# honerf_tpu/ops/fused_sdf.py:205, K5's and K6's), and dW of K3 and K6.
+GEMM = _build.Kernel("gemm_kernel", "honerf_torch/ops/csrc/common.cuh",
+                     "honerf_tpu/ops/fused_hand.py:400")
+GEMM_TN = _build.Kernel("gemm_tn_kernel", "honerf_torch/ops/csrc/trunk.cuh",
+                        "honerf_tpu/ops/fused_fine_full.py:1650")
 # The f32 trunk mode's GEMMs, launched by K2, K3, K5 and K6 in f32: the
 # f32 matmuls of K2's pallas_call (the NN product; also K3's, K5's at
 # honerf_tpu/ops/fused_fine.py:452 and K6's at :488) and of K3's (dW; also
@@ -225,6 +233,15 @@ def _f32(t) -> bool:
     return t.dtype == torch.float32
 
 
+def check_tma_operand(ptr: int, ld: int, what: str) -> None:
+    """Raise on a bf16 GEMM operand that TMA cannot read (csrc/wgmma.cuh;
+    the C entry points refuse it too): a base `ptr` not 16-byte aligned or
+    rows `ld` elements apart that are not a multiple of 16 bytes apart."""
+    if ptr % 16 or ld % 8:
+        raise ValueError(f"{what}: the bf16 GEMMs take a 16-byte-aligned base and a row "
+                         f"stride of a multiple of 16 bytes (base {ptr:#x}, stride {ld})")
+
+
 def gemm(lib, A1, K1, A2, K2, B, N, bias, M, mode, C, ldc, n_store=0, a_scale=0.0,
          S=None, U=None, split=0, hscale=1.0, escale=1.0, u_acc=0, Cf=None, DS=None,
          CS=None, cs_ld=None, Act=None, stream=None):
@@ -238,11 +255,18 @@ def gemm(lib, A1, K1, A2, K2, B, N, bias, M, mode, C, ldc, n_store=0, a_scale=0.
     if _f32(B) != f32 or (A2 is not None and _f32(A2) != f32):
         raise ValueError("the GEMM's operands must share one type")
     fn = lib.honerf_gemm_f32 if f32 else lib.honerf_gemm
+    pa1, pa2, pb = _ptr(A1), _ptr(A2), _ptr(B)
+    lda1, lda2, ldb = A1.stride(0), _ld(A2), B.stride(0)
     if f32:
         GEMM_F32.launches += 1
+    else:
+        check_tma_operand(pa1, lda1, "A1")
+        check_tma_operand(pa2, lda2, "A2")
+        check_tma_operand(pb, ldb, "B")
+        GEMM.launches += 1
     rc = fn(
-        _ptr(A1), A1.stride(0), K1, _ptr(A2), _ld(A2), K2,
-        a_scale, _ptr(B), B.stride(0), N, _ptr(bias), M,
+        pa1, lda1, K1, pa2, lda2, K2,
+        a_scale, pb, ldb, N, _ptr(bias), M,
         mode, _ptr(C), ldc, n_store,
         _ptr(S), _ld(S), _ptr(U), _ld(U), split, hscale, escale, u_acc,
         _ptr(Cf), _ld(Cf), _ptr(DS), _ld(DS), _ptr(CS), _ld(CS) if cs_ld is None else cs_ld,

@@ -284,6 +284,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                                  bs=tuple(b.to(dev) for b in cpu_made.bs))
     with pytest.raises(ValueError):  # a pack made off the card (no transposed weights)
         FF.hand_fine_color_fwd(pts, rotT, off, cut, cpu_made)
+    # the bf16 GEMMs read their operands by TMA: a 16-byte-aligned base and
+    # a row stride of a multiple of 16 bytes, or the wrapper raises (and the
+    # C entry point refuses it: no other path)
+    lib, stream = FF._bwd_lib(), torch.cuda.current_stream().cuda_stream
+    M, K, N = 256, 256, 256
+    A = torch.randn((M, K + 8), device=dev).bfloat16()
+    B = torch.randn((2 * K, N), device=dev).bfloat16()
+    C = torch.empty((M, N), device=dev)
+    ws = torch.empty((FF._WS_FLOATS,), device=dev)
+    misaligned = A[:, 1:K + 1]                   # base 2 bytes past a 16-byte boundary
+    narrow = torch.empty((M, K + 4), device=dev, dtype=torch.bfloat16)[:, :K]  # rows 520 bytes
+    for A1, A2 in ((A, misaligned), (misaligned, None), (narrow, None), (A, narrow)):
+        with pytest.raises(ValueError):
+            FH.gemm(lib, A1, K, A2, K if A2 is not None else 0, B, N, None, M, FH.EPI_F32, C, N,
+                    n_store=N, stream=stream)
+    with pytest.raises(ValueError):
+        FH.gemm(lib, A, K, None, 0, B[:, 1:], N - 8, None, M, FH.EPI_F32, C, N, n_store=N - 8,
+                stream=stream)
+    for X, Y in ((misaligned, B[:M]), (A, narrow)):
+        with pytest.raises(ValueError):
+            FF._tn(lib, X, X.stride(0), K, Y, N, M, C, 0, ws, stream)
+    rc = lib.honerf_gemm(misaligned.data_ptr(), misaligned.stride(0), K, None, 0, 0, 0.0,
+                         B.data_ptr(), N, N, None, M, FH.EPI_F32, C.data_ptr(), N, N,
+                         None, 0, None, 0, 0, 1.0, 1.0, 0, None, 0, None, 0, None, 0, None, 0,
+                         stream)
+    assert rc == 1  # cudaErrorInvalidValue
 
 
 # K5 / K6 (the trunk + u-chain on the embedding, train.fused_fine =
@@ -781,6 +807,12 @@ def _gemm_f32_run(case, dev):
 def _gemm_f32_want(case, x):
     """{output: (f64 reference, the region the kernel writes)}."""
     mode, K2, N, split = GEMM_F32_CASES[case]
+    return _epilogue_want(mode, K2, N, split, N - 3, x)
+
+
+def _epilogue_want(mode, K2, N, split, n_store, x):
+    """The f64 references of one epilogue on A = [A1 | A2] (K2 = 0: A1
+    alone) scaled by x["a_scale"] in f32."""
     A = x["A1"].double() if not K2 else torch.cat([x["A1"], x["A2"]], 1).double()
     if x["a_scale"]:
         A = (A.float() * x["a_scale"]).double()   # the kernel scales in f32
@@ -789,7 +821,7 @@ def _gemm_f32_want(case, x):
     S = x["S"].double()
     if mode in (FH.EPI_F32, FS.EPI_F32_SCALE, FH.EPI_SIGMOID):
         c = {FH.EPI_F32: z, FS.EPI_F32_SCALE: z * h, FH.EPI_SIGMOID: torch.sigmoid(z)}[mode]
-        return {"C": (c[:, :N - 3], (slice(None), slice(0, N - 3)))}
+        return {"C": (c[:, :n_store], (slice(None), slice(0, n_store)))}
     if mode in (FH.EPI_SOFTPLUS, FS.EPI_SP_SCALE):
         sp = torch.nn.functional.softplus(GEMM_BETA * z) / GEMM_BETA
         return {"C": (sp * (h if mode == FS.EPI_SP_SCALE else 1.0), ...),
@@ -829,3 +861,135 @@ def test_gemm_f32_matches_f64(dev, case):
         slope = GEMM_BETA / 4 if name == "S" else 1.0
         assert err <= GEMM_F32_TOL * slope * float(want.abs().max()), (name, err)
         assert torch.equal(g, again[name][region]), name
+
+
+# gemm_kernel alone (the bf16 GEMM: wgmma on a TMA ring), every epilogue,
+# against the f64 sum of the same bf16 operands with the epilogue in f64.
+# The tensor core's f32 sums sit ~1.4e-6 from f64 in L2 at K 1408
+# (bench_gemm.py), so the f32 outputs are held within GEMM_BF16_TOL of
+# their range at the max, S = sigmoid(beta z) within that times beta / 4
+# (its slope), and the bf16 outputs within one bf16 ulp (2^-8 of the
+# value) more.  Ragged M (33,001 rows), the skip concat 256 + 1408 with
+# bf16(1/sqrt2), a concat whose K2 (1400) and K1 (200) end inside a K step
+# with NaN in the columns past them (TMA's zero fill must cover the step,
+# never those bytes), N = 264 stored up to 257, N = 320 (a part-empty
+# column tile) and 1408.
+GEMM_BF16_TOL = 2e-5
+# name -> (epilogue, K1, K2 (0: no concat), N, split, a_scale)
+GEMM_BF16_CASES = {
+    "f32_ragged_k2": (FH.EPI_F32, 256, 1400, 264, 0, 0.0),
+    "f32_ragged_k1": (FH.EPI_F32, 200, 1408, 256, 0, 0.70703125),
+    "f32_scale": (FS.EPI_F32_SCALE, 1408, 0, 320, 0, 0.0),
+    "sigmoid": (FH.EPI_SIGMOID, 256, 0, 320, 0, 0.0),
+    "softplus": (FH.EPI_SOFTPLUS, 256, 1408, 256, 0, 0.70703125),
+    "sp_scale": (FS.EPI_SP_SCALE, 256, 0, 320, 0, 0.0),
+    "relu": (FH.EPI_RELU, 256, 0, 1408, 0, 0.0),
+    "uchain": (FH.EPI_UCHAIN, 256, 0, 320, 256, 0.0),
+    "uchain_e": (FH.EPI_UCHAIN, 256, 0, 1408, 0, 0.0),
+    "dz": (FT.EPI_DZ, 256, 0, 320, 256, 0.0),
+    "ut": (FT.EPI_UT, 256, 0, 320, 0, 0.0),
+    "mask": (FF.EPI_MASK, 256, 0, 320, 0, 0.0),
+}
+_BF16_C = (FH.EPI_SOFTPLUS, FS.EPI_SP_SCALE, FH.EPI_RELU, FH.EPI_UCHAIN, FT.EPI_DZ, FT.EPI_UT,
+           FF.EPI_MASK)
+
+
+def _gemm_bf16_run(case, dev):
+    """One launch of the case on seeded inputs: (inputs, outputs)."""
+    mode, K1, K2, N, split, a_scale = GEMM_BF16_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    def ragged(K):  # rows padded to a multiple of 64 columns, NaN past K
+        t = rnd(GEMM_M, -(-K // 64) * 64).bfloat16()
+        t[:, K:] = float("nan")
+        return t
+
+    M = GEMM_M
+    bf = torch.bfloat16
+    x = dict(A1=ragged(K1), A2=ragged(K2) if K2 else None,
+             B=rnd(K1 + K2, N, scale=0.03).bfloat16(), bias=rnd(N, scale=0.1), hscale=0.7,
+             escale=0.6, S=torch.sigmoid(rnd(M, N)), DS=rnd(M, N), CS=rnd(N),
+             Act=rnd(M, N).bfloat16(), U0=rnd(M, N - split))
+    c_type = bf if mode in _BF16_C else torch.float32
+    out = dict(C=torch.full((M, N), 7.0, device=dev, dtype=c_type),
+               Cf=torch.empty((M, N), device=dev), DS=torch.empty((M, N), device=dev),
+               S=torch.empty((M, N), device=dev), U=x["U0"].clone())
+    kw = dict(n_store=N - 7, a_scale=a_scale, hscale=x["hscale"], escale=x["escale"],
+              split=split)
+    if mode in (FH.EPI_SOFTPLUS, FS.EPI_SP_SCALE):
+        kw["S"] = out["S"]
+    elif mode == FH.EPI_UCHAIN:
+        kw.update(S=x["S"], U=out["U"], u_acc=1, Cf=out["Cf"] if split else None)
+    elif mode == FT.EPI_DZ:
+        kw.update(S=x["S"], DS=x["DS"], U=out["U"], Cf=out["Cf"])
+    elif mode == FT.EPI_UT:
+        kw.update(S=x["S"], DS=out["DS"], CS=x["CS"], cs_ld=0)
+    elif mode == FF.EPI_MASK:
+        kw.update(Act=x["Act"], Cf=out["Cf"])
+    FH.gemm(FF._bwd_lib(), x["A1"], K1, x["A2"], K2, x["B"], N, x["bias"], M, mode,
+            out["C"], N, stream=torch.cuda.current_stream().cuda_stream, **kw)
+    torch.cuda.synchronize()
+    return x, out
+
+
+def _gemm_bf16_want(case, x):
+    """{output: (f64 reference, the region the kernel writes)}: the f32
+    case's references on A = [A1 | A2] rounded as the kernel rounds it."""
+    mode, K1, K2, N, split, a_scale = GEMM_BF16_CASES[case]
+    A = x["A1"][:, :K1] if not K2 else torch.cat([x["A1"][:, :K1], x["A2"][:, :K2]], 1)
+    if a_scale:
+        A = (A.float() * a_scale).bfloat16()   # the skip concat: bf16(x * bf16(1/sqrt2))
+    y = dict(x, A1=A, A2=None, a_scale=0.0, Act=x["Act"].float())
+    return _epilogue_want(mode, 0, N, split, N - 7, y)
+
+
+@pytest.mark.parametrize("case", list(GEMM_BF16_CASES))
+def test_gemm_bf16_matches_f64(dev, case):
+    """gemm_kernel alone with each epilogue: every f32 output within
+    GEMM_BF16_TOL of its f64 reference's range, every bf16 output within
+    one bf16 ulp more; nothing past K1 or K2 read; a second launch gives
+    the same bits."""
+    x, got = _gemm_bf16_run(case, dev)
+    _, again = _gemm_bf16_run(case, dev)
+    for name, (want, region) in _gemm_bf16_want(case, x).items():
+        g = got[name][region]
+        assert g.shape == want.shape and torch.isfinite(g).all(), name
+        err = (g.double() - want).abs()
+        slope = GEMM_BETA / 4 if name == "S" else 1.0
+        limit = GEMM_BF16_TOL * slope * float(want.abs().max())
+        if g.dtype == torch.bfloat16:
+            err = err - 2.0 ** -8 * want.abs()
+        assert float(err.max()) <= limit, (name, float(err.max()), limit)
+        assert torch.equal(g, again[name][region]), name
+
+
+@pytest.mark.parametrize("x_scale", [0.0, 0.70703125])
+def test_dw_gemm_bf16_tails_match_f64(dev, x_scale):
+    """gemm_tn_kernel alone at N = 320 (a part-empty column tile) on
+    33,001 points, whose split leaves a short last range, with X's rows
+    wider than K (NaN past K, never read): against the f64 sum of the same
+    bf16 values; two runs give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    M, K, N = GEMM_M, 256, 320
+    X = torch.randn((M, K + 64), generator=gen, device=dev).bfloat16()
+    X[:, K:] = float("nan")
+    Y = torch.randn((M, N), generator=gen, device=dev).bfloat16()
+    split = FT.WL.tn_split(K, N, M, FT._TN_BLOCKS_BF16)
+    assert M % split and M % split % 64, "the last range should be short and ragged"
+    blib, stream = FF._bwd_lib(), torch.cuda.current_stream().cuda_stream
+    ws = torch.empty((FF._WS_FLOATS,), device=dev)
+    Xr = X[:, :K]
+    Xr = (Xr.float() * x_scale).bfloat16() if x_scale else Xr
+    want = Xr.double().T @ Y.double()
+    outs = []
+    for _ in range(2):
+        out = torch.zeros((K, N), device=dev)
+        FF._tn(blib, X, X.stride(0), K, Y, N, M, out, 0, ws, stream, x_scale=x_scale)
+        torch.cuda.synchronize()
+        outs.append(out)
+    assert torch.isfinite(outs[0]).all()
+    assert torch.equal(outs[0], outs[1])
+    assert float((outs[0].double() - want).abs().max()) <= 1e-4 * float(want.abs().max())
