@@ -13,9 +13,9 @@ trunk's backward launches and epilogues, so a fault there breaks both),
 made in a copy of honerf_torch under build/k3_faults/<name>/, whose kernels
 build there; a child process runs the checks on that copy.  "sound" is an
 unedited copy and reads every check; a fault reads the checks of its
-groups (bf16: the first eight below, f32: the next six, fit: the last
-six; --groups reads only the named groups, and skips the faults with none
-of them).  The checks, with the limits they hold:
+groups (bf16: the first eight below, f32: the next six, fit: the next
+six, perpoint: the last; --groups reads only the named groups, and skips
+the faults with none of them).  The checks, with the limits they hold:
 
   kernel  chip_smoke.py's K3 phase on one flagship train step's own
           inputs (chip_smoke.k3_check; 56,448 points; the batch and
@@ -82,7 +82,12 @@ of them).  The checks, with the limits they hold:
           f32 without the color net at a '12' fit step's points (out, g, e
           against TOL_F32 of the range) and the frozen K3 f32 without it on
           the step's cotangents and on unit cotangents, L2 against TOL_F32;
-  fitk6   the same phase, 'pallas': K5 f32 (out, u) and the frozen K6 f32.
+  fitk6   the same phase, 'pallas': K5 f32 (out, u) and the frozen K6 f32;
+  ppt     chip_smoke.py's per-point kernels phase (chip_smoke.perpoint_readings)
+          at perpoint_calls: hand_embed_kernel against embed_plain (the kernel
+          rule, the padding exactly 0) and colsum_partial_kernel bit for bit
+          against colsum_ordered_plain, within TOL_COLSUM_F64 of f64 and the
+          same bits on a rerun (the perpoint group).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -199,8 +204,26 @@ FAULTS = {
         _CU,
         "Pr[a * 64 + col] = t[a] * ch.f_q[k] + p[a] * dq[k];",
         "Pr[a * 64 + col] = p[a] * dq[k];", ("fit",)),
+    "emb_tail_row": (
+        "the embedding's ragged last tile leaves its last row unstored", _CUH,
+        "bulk_store(e + (size_t)p0 * lde, buf, (unsigned)(rows * lde * sizeof(T)));",
+        "bulk_store(e + (size_t)p0 * lde, buf, (unsigned)((rows - (rows < P)) * lde * "
+        "sizeof(T)));", ("bf16", "perpoint")),
+    "emb_no_pad": (
+        "the embedding's zero padding is never written (the tiles' padding columns keep what "
+        "shared memory held)", _CUH,
+        "for (int i = tid; i < 2 * P * pad; i += EMB_THREADS)",
+        "for (int i = tid; i < 0; i += EMB_THREADS)", ("bf16", "perpoint")),
+    "colsum_drop_acc": (
+        "the column sum drops a thread's fourth row accumulator (db of K3 and K6)", _TRUNK_CUH,
+        "red[warp][lane] = add4(add4(a[0], a[1]), add4(a[2], a[3]));",
+        "red[warp][lane] = add4(add4(a[0], a[1]), a[2]);", ("bf16", "perpoint")),
+    "colsum_skip_last_partial": (
+        "the column sum's last block leaves the last row range's partial out", _TRUNK_CUH,
+        "for (int t = warp; t < S; t += CS_WARPS)",
+        "for (int t = warp; t < S - 1; t += CS_WARPS)", ("bf16", "perpoint")),
 }
-GROUPS = ("bf16", "f32", "fit")
+GROUPS = ("bf16", "f32", "fit", "perpoint")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
 STEP_SEEDS = {"sound": (1, 2, 3, 4)}
@@ -277,7 +300,10 @@ def child(name: str, root: str, groups) -> None:
                 out["kunit"][str(seed)] = [[r.what, r.ratio, r.err, r.floor, r.norm]
                                            for r in CS.k3_unit_check(torch, args)]
         for case, (sdf_kw, n) in TC.BWD_CASES.items():
-            out["unit"][case] = TC.bwd_rule_readings(sdf_kw, n, dev)[1]
+            try:
+                out["unit"][case] = TC.bwd_rule_readings(sdf_kw, n, dev)[1]
+            except AssertionError as exc:   # a non-finite output fails the card test itself
+                out["unit"][case] = [[f"assertion {exc}", float("inf")]]
         for seed in STEP_SEEDS.get(name, (1,)):
             r = CS.train_check_readings(torch, fs, dev, seed)
             out["step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
@@ -360,6 +386,13 @@ def child(name: str, root: str, groups) -> None:
             for label, seed in (("own", None), ("unit", 3)):
                 out[check][label] = [[r.what, r.l2, r.ok] for r in CS.f32_bwd_check(
                     torch, args, mode, want_dw=False, seed=seed)[1]]
+    if "perpoint" in groups:
+        pose, pts = CS.perpoint_pose(torch, dev)
+        emb, cols = CS.perpoint_readings(torch, dev, pose, pts, *CS.perpoint_calls(torch),
+                                         timed=False)
+        out["ppt"] = {"0": [[f"embed {r.m} {r.dtype}", r.max_abs, r.ok] for r in emb]
+                      + [[f"colsum N {r.N} m {r.m}", r.f64 if r.same else float("inf"), r.ok]
+                         for r in cols]}
     print(json.dumps(out))
 
 
@@ -379,7 +412,7 @@ def judge(CS, res):
                     over.append(f"{what}@{seed}")
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
-    for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6"):
+    for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []
@@ -440,7 +473,8 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(WORK, "readings.json"))
     ap.add_argument("--only", help="comma-separated names (sound and FAULTS) to run")
     ap.add_argument("--groups", default=",".join(GROUPS),
-                    help="comma-separated groups of checks to read (bf16, f32, fit)")
+                    help="comma-separated groups of checks to read (bf16, f32, fit, "
+                         "perpoint)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     a = ap.parse_args()

@@ -28,8 +28,8 @@ Phases, each of which fails the run when it fails:
               train.offline.make_hand_eval_render (64 + 64 samples, 4
               up-sample steps), then a few single-chunk requests.  The
               launch counts are zeroed just before and read just after;
-              each kernel must have launched, gemm_kernel among them,
-              gemm_tn_kernel not;
+              each kernel must have launched, gemm_kernel and
+              hand_embed_kernel among them, gemm_tn_kernel not;
   4. check    the served pixels are finite, weight_sum lies in
               [0, 1 + 1e-3], and a patch of rays rendered again on the CPU
               (the kernels' plain versions) agrees with the card's;
@@ -49,12 +49,23 @@ Phases, each of which fails the run when it fails:
               vgg_weight 0; 3 warm-up steps, then 20 timed ones.  The
               launch counts are zeroed just before and read just after;
               K1, K2 and K3 must each have launched (and through them
-              gemm_kernel and gemm_tn_kernel), every loss and grad
-              norm be finite, and se3_refine have moved;
+              gemm_kernel, gemm_tn_kernel, hand_embed_kernel and
+              colsum_partial_kernel), every loss and grad norm be finite,
+              and se3_refine have moved;
   8. train check  one step's metrics and gradient tree on the card
               against the same step on the CPU (plain versions), 64 rays,
               perturb 0;
   9. train profile  one train step under torch.profiler;
+  9b. per-point kernels  hand_embed_kernel and colsum_partial_kernel
+              alone at the calls one 4096-ray request and one bf16 train
+              step make (recorded by running each once through the
+              wrappers, record_perpoint_calls): the embedding (bf16; f32 at
+              the request's calls; a ragged 70,001 points in both) against
+              embed_plain under the kernel rule with its padding exactly
+              0, the column sum bit for bit against colsum_ordered_plain,
+              within TOL_COLSUM_F64 of f64 and the same bits on a rerun;
+              ms beside the plain versions, the bounds and (the column
+              sum) one Z[:m, :N].sum(0) as the library yardstick;
  10. kernel K4  the object SDF against its plain version on the card,
               full-width object net of confs/wmask_realobj_bean.conf, at
               a 65,536-point grid chunk, a ragged size and 1,048,576
@@ -180,8 +191,9 @@ checks below on the sound kernels and on planted faults (what each limit
 catches).  The last lines of stdout are the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
 numbers (each kernel's other modes beside it: no-color, f32, f32 at a
-request, f32 no-color, f32 with dW; the bf16 and the f32 GEMMs alone in
-rows of their own), and the result line.  Exits nonzero, printing
+request, f32 no-color, f32 with dW; the bf16 and the f32 GEMMs alone and
+the per-point kernels EMBED and COLSUM in rows of their own), and the
+result line.  Exits nonzero, printing
 no result, when no CUDA device is present or a phase fails.
 """
 
@@ -350,6 +362,11 @@ BF16_GEMM_SHAPES = tuple((k1, k2, n, 0.70703125 if s else 0.0)
                          for k1, k2, n, s in F32_GEMM_SHAPES) + ((1408, 256, 256, 0.0),)
 BF16_TN_SHAPES = tuple((k, n, 0.70703125 if s else 0.0) for k, n, s in F32_TN_SHAPES)
 TOL_GEMM_BF16_L2 = 1.5 * 1.40e-6
+# The column sum (db) alone, against the f64 sum of the same f32 values
+# (seeded normal rows, ~5.6e4 of them: sums of size ~240, whose f32
+# rounding noise is ~1e-4); the card tests' limit.  Its bits are held to
+# colsum_ordered_plain exactly.
+TOL_COLSUM_F64 = 1e-3
 FIT_FACTOR = 4.0
 TOL_FIT_F32 = 1e-3
 TOL_FIT_HEAD_ON = 1e-4
@@ -527,9 +544,10 @@ def tree_leaves(tree):
     return [tree]
 
 
-def device_profile(torch, label: str, fn) -> None:
+def device_profile(torch, label: str, fn):
     """fn() once under torch.profiler: host-clock time, device busy (the
-    union of the device's kernel intervals) and device time by kernel."""
+    union of the device's kernel intervals) and device time by kernel;
+    returns the host-clock and busy ms (None without device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -554,7 +572,7 @@ def device_profile(torch, label: str, fn) -> None:
         g[1] += 1
     if not spans:
         log(f"profile: {label}: the profiler recorded no device time (not measured)")
-        return
+        return None
     spans.sort()
     busy, end = 0.0, None
     for a, b in spans:
@@ -570,6 +588,7 @@ def device_profile(torch, label: str, fn) -> None:
         f"{len(spans)} launches")
     for name, (us, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {us / 1e3:8.2f} ms {100 * us / kern:5.1f}%  x{cnt:<5d} {name}")
+    return wall_us / 1e3, busy / 1e3
 
 
 def device_kernel_names(torch, fn):
@@ -745,6 +764,151 @@ def bf16_gemm_readings(torch, dev, timed: bool = True):
                 Xs.double().T @ Y.double(), lambda Xs=Xs, Y=Y: Xs.float().T @ Y.float(),
                 lambda Xs=Xs, Y=Y: Xs.T @ Y, 2.0 * M * K * N, 2 * (M * K + M * N) + 4 * K * N)
     return out
+
+
+def embed_flops(vL: int, rL: int) -> float:
+    """FLOP of one point's embedding row as hand_embed_kernel forms it (each
+    sqrt, exp, rsqrt, division, sin and cos counted as one): 21 bone stages
+    (~35), 21 v-parts (3 + 5 (vL - 1) + 2 vL) and 63 r-parts (4 + 5 (rL -
+    1) + 2 rL); ~5.2 kFLOP at vL 10, rL 7."""
+    return 21 * 35 + 21 * (3 + 5 * (vL - 1) + 2 * vL) + 63 * (4 + 5 * (rL - 1) + 2 * rL)
+
+
+def record_perpoint_calls(fn):
+    """Run fn() once with the per-point kernels' wrappers recording their
+    calls: ([(m, vL, rL, lde, dtype) of each hand embedding],
+    [(N, m, ldz) of each column sum]), in launch order."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+
+    embeds, colsums = [], []
+    embed, colsum = FH.embed, FT._colsum
+
+    def rec_embed(lib, pts, m, rotT, off, cut, vL, rL, e, stream):
+        embeds.append((m, vL, rL, e.shape[1], e.dtype))
+        return embed(lib, pts, m, rotT, off, cut, vL, rL, e, stream)
+
+    def rec_colsum(lib, Z, N, m, out, acc, ws, stream):
+        colsums.append((N, m, Z.stride(0)))
+        return colsum(lib, Z, N, m, out, acc, ws, stream)
+
+    FH.embed, FT._colsum, FF._colsum = rec_embed, rec_colsum, rec_colsum
+    try:
+        fn()
+    finally:
+        FH.embed, FT._colsum, FF._colsum = embed, colsum, colsum
+    return embeds, colsums
+
+
+def _tally(calls):
+    """{call: how many times} in first-seen order."""
+    out = {}
+    for c in calls:
+        out[c] = out.get(c, 0) + 1
+    return out
+
+
+def perpoint_pose(torch, dev, n: int = 131072):
+    """The flagship's pose operands (rotT, off, cut) at posed_hand_example's
+    joints and n seeded points near them, as main() makes them."""
+    import numpy as np
+
+    from honerf_torch.data.synthetic import canonical_hand_joints, posed_hand_example
+    from honerf_torch.hand import bone_transforms_from_mano_joints
+    from honerf_torch.ops import fused_hand as FH
+
+    joints = posed_hand_example()[0]
+    bt_inv = bone_transforms_from_mano_joints(torch.as_tensor(joints, device=dev)[None])[0]
+    pose = FH.pack_hand_pose(bt_inv, torch.as_tensor(canonical_hand_joints(0.0), device=dev))
+    rng = np.random.default_rng(0)
+    pts = joints[rng.integers(0, 21, n)] + rng.normal(size=(n, 3)) * 0.05
+    return pose, torch.as_tensor(pts.astype(np.float32), device=dev)
+
+
+def perpoint_calls(torch):
+    """Calls of the per-point kernels that the main path's shapes (all
+    multiples of a tile's points) leave out or that stand for them: the
+    embedding at a ragged 70,001 points in bf16 and f32 and at a K1 pass's
+    131,072 (the flagship's vL 10, rL 7, lde 1408); the column sum at a
+    bf16 step's 56,448 rows of a 320-wide dz, N 64, 256 and 320."""
+    return ([(70001, 10, 7, 1408, torch.bfloat16), (70001, 10, 7, 1408, torch.float32),
+             (131072, 10, 7, 1408, torch.bfloat16)],
+            [(N, 56448, 320) for N in (64, 256, 320)])
+
+
+def perpoint_readings(torch, dev, pose, pts, embed_calls, colsum_calls, timed: bool = True):
+    """hand_embed_kernel and colsum_partial_kernel alone at the recorded
+    calls (record_perpoint_calls), each distinct shape once, weighted by
+    its count.  EMBED: into a NaN-filled e of the call's rows, against
+    embed_plain on the same card inputs (the kernel rule: TOL_MEDIAN,
+    TOL_MAX of the range; the padding columns exactly 0).  COLSUM: on a
+    seeded normal Z of the call's shape, the same bits as
+    colsum_ordered_plain on the card, within TOL_COLSUM_F64 of the f64 sum,
+    the same bits on a rerun.  timed: ms of the kernel, its plain version,
+    its bound and (COLSUM) one `Z[:m, :N].sum(0)`, the library yardstick
+    (the port never calls it).  Returns (embed readings, colsum readings)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+
+    rotT, off, cut = pose
+    lib, blib = FH._lib("fused_hand"), FF._bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = torch.empty((FT._WS_FLOATS,), device=dev)
+    emb, cols = [], []
+    for (m, vL, rL, lde, dtype), count in _tally(embed_calls).items():
+        e = torch.full((m, lde), float("nan"), device=dev, dtype=dtype)
+
+        def run(m=m, vL=vL, rL=rL, e=e):
+            FH.embed(lib, pts, m, rotT, off, cut, vL, rL, e, stream)
+
+        def plain(m=m, vL=vL, rL=rL, lde=lde, dtype=dtype):
+            return FH.embed_plain(pts[:m], rotT, off, cut, vL, rL, lde, dtype)
+
+        run()
+        want = plain()
+        torch.cuda.synchronize()
+        E = 21 * (1 + 2 * vL) + 63 * (1 + 2 * rL)
+        ok, mx, text = compare(torch, "e", e, want)
+        pad_ok = bool((e[:, E:] == 0).all())
+        r = SimpleNamespace(m=m, dtype=str(dtype).split(".")[-1], count=count, max_abs=mx,
+                            ok=ok and pad_ok, text=text + ("" if pad_ok else "; padding FAIL"),
+                            ms=None, plain_ms=None, bound_ms=None, bound_by=None)
+        if timed:
+            r.ms = cuda_ms(torch, run, 10)
+            r.plain_ms = cuda_ms(torch, plain, 2)
+            n_bytes = m * lde * e.element_size() + 12 * m + nbytes([rotT, off, cut])
+            r.bound_ms, r.bound_by = bound(m * embed_flops(vL, rL), n_bytes, PEAK_F32_FLOPS)
+        del e, want
+        emb.append(r)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for (N, m, ldz), count in _tally(colsum_calls).items():
+        Z = torch.randn((m, ldz), generator=gen, device=dev)
+        res = torch.full((N,), float("nan"), device=dev)
+
+        def run(Z=Z, N=N, m=m, res=res):
+            FT._colsum(blib, Z, N, m, res, 0, ws, stream)
+
+        run()
+        got = res.clone()
+        run()
+        again = res.clone()
+        want = FT.colsum_ordered_plain(Z, N, m)
+        f64 = float((got.double() - Z[:m, :N].double().sum(0)).abs().max())
+        torch.cuda.synchronize()
+        same, rerun = bool(torch.equal(got, want)), bool(torch.equal(got, again))
+        r = SimpleNamespace(N=N, m=m, ldz=ldz, count=count, same=same, rerun=rerun, f64=f64,
+                            max_abs=float((got - want).abs().max()),
+                            ok=same and rerun and f64 <= TOL_COLSUM_F64, ms=None, plain_ms=None,
+                            lib_ms=None, bound_ms=None, bound_by=None)
+        if timed:
+            r.ms = cuda_ms(torch, run, 20)
+            r.plain_ms = cuda_ms(torch, lambda Z=Z, N=N, m=m: FT.colsum_ordered_plain(Z, N, m), 3)
+            r.lib_ms = cuda_ms(torch, lambda Z=Z, N=N, m=m: Z[:m, :N].sum(0), 20)
+            r.bound_ms, r.bound_by = bound(float(m * N), 4 * (m * N + N), PEAK_F32_FLOPS)
+        cols.append(r)
+    return emb, cols
 
 
 # -- the flagship and its train step (check_k3_faults.py runs these too) --
@@ -1531,7 +1695,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         assert not bad, f"disagrees with its plain version at a fit step: {bad}"
 
     fit_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
-                   "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD}
+                   "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "EMBED": FH.EMBED,
+                   "COLSUM": FT.COLSUM}
 
     def fit():
         """The fitting CLI, '1' then '12', on a synthetic catch sequence in a
@@ -1574,9 +1739,10 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                 f"loading and checkpoints included); launches {launches}; pickle {shapes}, "
                 f"f32 and finite {finite}; |pred - gt| joints up to {moved:.4f} m")
             assert shapes == want and finite, "the pose pickle is not the JAX runner's"
-            assert launches["K1"] and launches["K2"] and launches["K3"], \
+            assert launches["K1"] and launches["K2"] and launches["K3"] and launches["EMBED"], \
                 f"a kernel of the fitting path did not launch: {launches}"
-            assert not (launches["K5"] or launches["K6"]), f"stray launches {launches}"
+            assert not (launches["K5"] or launches["K6"] or launches["COLSUM"]), \
+                f"stray launches {launches}"
         f32_inputs["confs"] = confs
         rows["K2"] = dict(rows.get("K2", {}), f32_launches=total["K2"])
         rows["K3"] = dict(rows.get("K3", {}), f32_launches=total["K3"])
@@ -1645,7 +1811,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         with open(confs["12"]) as f:
             text = f.read()
         bad = []
-        for mode, want in (("full_nocolor", ("K1", "K2", "K3")), ("pallas", ("K1", "K5", "K6"))):
+        for mode, want in (("full_nocolor", ("K1", "K2", "K3", "EMBED")),
+                           ("pallas", ("K1", "K5", "K6", "EMBED"))):
             label = f"fit 12 {mode}"
             root = os.path.join(ws, f"fit_res_{mode}")
             shutil.copytree(os.path.join(ws, "fit_res", "view_8", "1"),
@@ -1679,7 +1846,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             log(f"{label}: one step's kernels by name: {sum(names.values())} launches, f32 "
                 f"GEMMs {f32_g}, dW/db kernels {dw}")
             idle = [k for k in want if not launches[k]]
-            stray = [k for k in ("K2", "K3", "K5", "K6") if k not in want and launches[k]]
+            stray = [k for k in ("K2", "K3", "K5", "K6", "COLSUM")
+                     if k not in want and launches[k]]
             if idle or stray or not finite or dw or not f32_g:
                 bad.append(label)
         assert not bad, f"a fit mode's path is not as expected: {bad}"
@@ -1804,7 +1972,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
     ttcfg = train_hyper(fs)
     kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD, "K5": FT.KERNEL_FWD,
                "K6": FT.KERNEL_BWD, "GEMM_F32": FH.GEMM_F32, "GEMM_TN_F32": FH.GEMM_TN_F32,
-               "GEMM": FH.GEMM, "GEMM_TN": FH.GEMM_TN}
+               "GEMM": FH.GEMM, "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM}
     log(f"f32 phases: {os.path.relpath(CONF, ROOT)} as written, trunks {sdf_cfg.trunk_dtype}; "
         "select_fine_pass on the card: " + ", ".join(
             f"{m} -> {select_fine_pass(ttcfg._replace(fused_fine=m), sdf_cfg, dev)}"
@@ -2011,8 +2179,11 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             raise AssertionError("K5 f32 disagrees with its plain version or ran a bf16 GEMM")
 
     gemms = ("GEMM_F32", "GEMM_TN_F32")
-    expect = {"full": ("K2", "K3") + gemms, "full_nocolor": ("K2", "K3") + gemms,
-              "pallas": ("K5", "K6") + gemms, None: ()}
+    # the embedding kernel with K2 / K3 (K5 / K6 take e from torch), the
+    # column sum with every dW
+    expect = {"full": ("K2", "K3", "EMBED", "COLSUM") + gemms,
+              "full_nocolor": ("K2", "K3", "EMBED", "COLSUM") + gemms,
+              "pallas": ("K5", "K6", "COLSUM") + gemms, None: ()}
 
     def train_f32():
         """The flagship train step with the conf's f32 trunks under each
@@ -2117,9 +2288,10 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             f"({len(rays) / req_ms * 1e3:.1f} rays/s); launches {launches}")
         rows["K2"] = dict(rows.get("K2", {}), f32_request_launches=launches["K2"])
         assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
-        assert launches["K1"] and launches["K2"] and launches["GEMM_F32"] and not (
+        assert launches["K1"] and launches["K2"] and launches["GEMM_F32"] and launches[
+            "EMBED"] and not (
             launches["K3"] or launches["K5"] or launches["K6"] or launches["GEMM_TN_F32"]
-            or launches["GEMM_TN"]), \
+            or launches["GEMM_TN"] or launches["COLSUM"]), \
             f"the f32 'full' render path launched {launches}"
         idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
         cpu = torch.device("cpu")
@@ -2328,7 +2500,7 @@ def main() -> int:
     served = {}
 
     def serve():
-        for k in (FH.KERNEL, FF.KERNEL, FH.GEMM, FH.GEMM_TN):
+        for k in (FH.KERNEL, FF.KERNEL, FH.GEMM, FH.GEMM_TN, FH.EMBED):
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2348,7 +2520,7 @@ def main() -> int:
             torch.cuda.synchronize()
             req_ms.append((time.perf_counter() - t0) * 1e3)
         launches = {"K1": FH.KERNEL.launches, "K2": FF.KERNEL.launches,
-                    "GEMM": FH.GEMM.launches}
+                    "GEMM": FH.GEMM.launches, "EMBED": FH.EMBED.launches}
         stray_tn = FH.GEMM_TN.launches
         # what the render pays once per parameter snapshot (and each request
         # paid before the packs were kept)
@@ -2430,7 +2602,7 @@ def main() -> int:
     ttcfg = train_hyper(fs)
     all_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "GEMM": FH.GEMM,
-                   "GEMM_TN": FH.GEMM_TN}
+                   "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM}
 
     def bwd_rules(label, mode, args):
         """K3's two rules on the mode's backward kernel: on the step's own
@@ -2525,10 +2697,13 @@ def main() -> int:
         return launches
 
     def train():
-        launches = train_run("train", "full", TRAIN_STEPS, ("K1", "K2", "K3", "GEMM", "GEMM_TN"))
+        launches = train_run("train", "full", TRAIN_STEPS,
+                             ("K1", "K2", "K3", "GEMM", "GEMM_TN", "EMBED", "COLSUM"))
         rows.setdefault("K3", {})["launches"] = launches["K3"]
         rows.setdefault("GEMM", {})["train_launches"] = launches["GEMM"]
         rows.setdefault("GEMM_TN", {})["launches"] = launches["GEMM_TN"]
+        rows.setdefault("EMBED", {})["train_launches"] = launches["EMBED"]
+        rows.setdefault("COLSUM", {})["launches"] = launches["COLSUM"]
 
     def train_check(mode="full", label="train check"):
         """One step on the card and on the CPU from the same state: the
@@ -2559,6 +2734,85 @@ def main() -> int:
     phase("train", train)
     phase("train check", train_check)
     phase("train profile", train_profile)
+
+    # -- 9b. the per-point kernels alone (hand_embed_kernel, colsum) -------
+    def perpoint():
+        """hand_embed_kernel and colsum_partial_kernel alone at the calls one
+        4096-ray request and one bf16 train step make (recorded by running
+        each once), each against its plain version (perpoint_readings); the
+        embedding also in f32 at the request's calls.  Times against the
+        bound, the plain version and (the column sum) one torch sum."""
+        from honerf_torch.camera import full_image_ndc_grid
+
+        grid = served.get("grid")
+        if grid is None:
+            grid = full_image_ndc_grid(H, W, device=dev)
+        request = dict(view, rays_xy=grid[:REQUEST_RAYS])
+        req_embeds, _ = record_perpoint_calls(lambda: render(params, request))
+        state = init_train_state(train_params(fs, dev), ttcfg)
+        step = make_hand_train_step(sdf_cfg, color_cfg, rcfg, ttcfg)
+        batch = train_batch(torch, TRAIN_RAYS, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        step_embeds, step_colsums = record_perpoint_calls(lambda: step(state, batch, gen))
+        torch.cuda.synchronize()
+        assert req_embeds and step_embeds and step_colsums, "no per-point call was recorded"
+        pose = (rotT, off, cut)
+        f32_embeds = [(m, vL, rL, lde, torch.float32) for m, vL, rL, lde, _ in req_embeds]
+        groups = {}
+        groups["request"], cols = perpoint_readings(torch, dev, pose, pts_all, req_embeds,
+                                                    step_colsums)
+        groups["step"] = perpoint_readings(torch, dev, pose, pts_all, step_embeds, [])[0]
+        groups["f32 request"] = perpoint_readings(torch, dev, pose, pts_all, f32_embeds, [])[0]
+        ragged = perpoint_readings(torch, dev, pose, pts_all, perpoint_calls(torch)[0][:2], [],
+                                   timed=False)[0]
+        for r in ragged:
+            log(f"EMBED ragged: {r.m} pts {r.dtype}; {r.text}")
+        totals = {}
+        for label, rs in groups.items():
+            for r in rs:
+                log(f"EMBED {label}: {r.count} x {r.m} pts {r.dtype}; {r.text}; kernel "
+                    f"{r.ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms "
+                    f"({r.bound_by})")
+            t = {k: sum(getattr(r, k) * r.count for r in rs)
+                 for k in ("ms", "plain_ms", "bound_ms")}
+            pts = sum(r.m * r.count for r in rs)
+            log(f"hand_embed_kernel, a {label}'s {sum(r.count for r in rs)} launches ({pts} "
+                f"pts): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.4f} ms: {t['bound_ms'] / t['ms']:.2f} of the bound")
+            totals[label] = t
+        for r in cols:
+            log(f"COLSUM {r.count} x N {r.N}, {r.m} rows (ldz {r.ldz}): same bits as "
+                f"colsum_ordered_plain {r.same}, on a rerun {r.rerun}, |err| vs f64 {r.f64:.2e} "
+                f"(tol {TOL_COLSUM_F64:g}); kernel {r.ms:.4f} ms, Z[:m, :N].sum(0) "
+                f"{r.lib_ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms "
+                f"({r.bound_by}){'' if r.ok else ' FAIL'}")
+        c = {k: sum(getattr(r, k) * r.count for r in cols)
+             for k in ("ms", "lib_ms", "plain_ms", "bound_ms")}
+        log(f"colsum_partial_kernel, a bf16 step's {sum(r.count for r in cols)} launches: "
+            f"kernel {c['ms']:.4f} ms, Z[:m, :N].sum(0) {c['lib_ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms: "
+            f"{c['bound_ms'] / c['ms']:.2f} of the bound, {c['lib_ms'] / c['ms']:.2f}x the torch "
+            f"sum's speed")
+        all_emb = [r for rs in groups.values() for r in rs] + ragged
+        req, stp, f32 = totals["request"], totals["step"], totals["f32 request"]
+        rows["EMBED"] = dict(rows.get("EMBED", {}), name=FH.EMBED.name, route="cuda",
+                             source=FH.EMBED.source, replaces=FH.EMBED.replaces,
+                             max_abs_err=max(r.max_abs for r in all_emb), ms=req["ms"],
+                             plain_ms=req["plain_ms"], bound_ms=req["bound_ms"],
+                             bound_by=max(groups["request"], key=lambda r: r.bound_ms).bound_by,
+                             library_ms=None, step_ms=stp["ms"], step_bound_ms=stp["bound_ms"],
+                             f32_ms=f32["ms"], f32_plain_ms=f32["plain_ms"],
+                             f32_bound_ms=f32["bound_ms"])
+        rows["COLSUM"] = dict(rows.get("COLSUM", {}), name=FT.COLSUM.name, route="cuda",
+                              source=FT.COLSUM.source, replaces=FT.COLSUM.replaces,
+                              max_abs_err=max(r.max_abs for r in cols), ms=c["ms"],
+                              plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                              bound_by=max(cols, key=lambda r: r.bound_ms).bound_by,
+                              library_ms=c["lib_ms"])
+        if not all(r.ok for r in all_emb + cols):
+            raise AssertionError("a per-point kernel disagrees with its plain version")
+
+    phase("per-point kernels", perpoint)
 
     # -- 14-20. the fine pass's other kernel modes: 'pallas' (K5 / K6 on the
     # embedding) and 'full_nocolor' (K2 / K3 without the color net) --------
@@ -2705,14 +2959,14 @@ def main() -> int:
 
     def train_pallas():
         launches = train_run("train pallas", "pallas", TRAIN_STEPS,
-                             ("K1", "K5", "K6", "GEMM", "GEMM_TN"),
+                             ("K1", "K5", "K6", "GEMM", "GEMM_TN", "EMBED", "COLSUM"),
                              profile=True)
         for name in ("K5", "K6"):
             rows.setdefault(name, {})["launches"] = launches[name]
 
     def train_nocolor():
         launches = train_run("train full_nocolor", "full_nocolor", NOCOLOR_STEPS,
-                             ("K1", "K2", "K3"))
+                             ("K1", "K2", "K3", "EMBED", "COLSUM"))
         rows.setdefault("K2", {})["nocolor_launches"] = launches["K2"]
         rows.setdefault("K3", {})["nocolor_launches"] = launches["K3"]
 
@@ -2977,7 +3231,8 @@ def main() -> int:
     run_fit_phases(torch, dev, phase, rows, failures)
 
     log(gpu_line())
-    order = ("K1", "K2", "K3", "K4", "K5", "K6", "GEMM", "GEMM_TN", "GEMM_F32", "GEMM_TN_F32")
+    order = ("K1", "K2", "K3", "K4", "K5", "K6", "GEMM", "GEMM_TN", "GEMM_F32", "GEMM_TN_F32",
+             "EMBED", "COLSUM")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     def mode_keys(prefix):
@@ -2991,7 +3246,9 @@ def main() -> int:
              "K3": (mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_")
                     + mode_keys("f32_dw_")),
              "K5": mode_keys("f32_"), "K6": mode_keys("f32_"),
-             "GEMM": ("image_launches", "train_launches")}
+             "GEMM": ("image_launches", "train_launches"),
+             "EMBED": ("train_launches", "step_ms", "step_bound_ms", "f32_ms", "f32_plain_ms",
+                       "f32_bound_ms")}
     log(json.dumps({"kernels": [{k: rows.get(n, {}).get(k) for k in keys + extra.get(n, ())}
                                 for n in order]}))
     if failures:

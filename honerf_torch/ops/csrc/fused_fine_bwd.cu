@@ -35,9 +35,9 @@
 //     gemm_tn_kernel + reduce          dW = X^T dY over the point axis,
 //                                      split over points into f32 partials
 //                                      summed in a fixed order (trunk.cuh)
-//     colsum kernels                   db (from the f32 dz), fixed order
-//     pose_partial/pose_reduce_kernel  the pose sums drotT / doff, the same
-//                                      fixed order
+//     colsum_partial_kernel            db (from the f32 dz), fixed order
+//     pose_partial/pose_reduce_kernel  the pose sums drotT / doff, in a
+//                                      fixed order of their own
 //   So two runs give the same bits: no atomics anywhere.  Right first:
 //   wgmma/TMA and fusing the launches are later work.
 //
@@ -331,9 +331,9 @@ __global__ void fine_bwd_emb_kernel(const float* __restrict__ pts, int M,
 // The pose sums drotT / doff: the column sums of the per-point pose rows
 // P (M, 256), in a fixed order (no atomics).  pose_partial_kernel: block s
 // sums rows [s*split, (s+1)*split) in order, one thread a column;
-// pose_reduce_kernel: out (+)= the partials in order s = 0, 1, ...  (The
-// arithmetic of trunk.cuh's colsum, under names of their own: the dW/db
-// kernels are the ones a frozen backward must not launch.)
+// pose_reduce_kernel: out (+)= the partials in order s = 0, 1, ...  (Kernels
+// of their own, apart from trunk.cuh's column sum, whose order differs: the
+// dW/db kernels are the ones a frozen backward must not launch.)
 __global__ void pose_partial_kernel(const float* __restrict__ P, int M, int split,
                                     float* __restrict__ ws) {
   int col = threadIdx.x;

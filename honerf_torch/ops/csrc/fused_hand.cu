@@ -13,8 +13,8 @@
 //   in VMEM.  A block's shared memory on Hopper (227 KB) holds the bf16
 //   embedding (2.8 KB/pt) of only ~64 points next to the weight tiles, so
 //   this version splits the op into launches over a bounded global
-//   scratch (the wrapper's CHUNK): hand_embed_kernel writes e once (one
-//   warp per point, lane = bone, channel-major columns), then one
+//   scratch (the wrapper's CHUNK): hand_embed_kernel writes e once
+//   (channel-major columns, tiles of points stored by bulk copies), then one
 //   gemm_kernel per layer streams the layer's weights from L2 through
 //   shared memory and applies softplus in its epilogue, writing the bf16
 //   activation the next layer reads.  The scratch traffic is ~7 KB/pt

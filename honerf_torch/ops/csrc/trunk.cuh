@@ -10,11 +10,16 @@
 //    trunk mode), 3xTF32 on the tensor cores with gemm_f32_kernel's
 //    mainloop and cp.async ring (common.cuh: why three TF32 products are
 //    the f32 function within ~1e-6 and one is not);
-//  * colsum_partial_kernel: column sums (db, the pose sums), fixed order;
+//  * colsum_partial_kernel: column sums (db), in one launch: each block
+//    sums a row range of a 128-column tile into an f32 partial, and the
+//    tile's last block to finish sums the partials, each step in a fixed
+//    order (ops/fused_fine.py: colsum_ordered_plain states it);
 //  * copy_cols_kernel: the first `width` columns of a padded scratch row
 //    into an unpadded f32 output row.
 //
-// No atomics: two runs give the same bits.
+// No atomics in any sum: two runs give the same bits.  (The column sum's
+// last-block counter is an atomic increment that picks which block sums
+// the partials; it orders no addition.)
 
 #pragma once
 
@@ -169,15 +174,113 @@ __global__ void reduce_partials_kernel(const float* __restrict__ ws, int S, size
   *dst = acc ? *dst + sum : sum;
 }
 
-// ws[s, col] = sum of Z[row, col] over rows [s*split, (s+1)*split), in order.
-__global__ void colsum_partial_kernel(const float* __restrict__ Z, int ldz, int N, int M,
-                                      int split, float* __restrict__ ws) {
-  int col = blockIdx.y * blockDim.x + threadIdx.x;
-  if (col >= N) return;
-  int r0 = blockIdx.x * split, r1 = min(M, r0 + split);
-  float sum = 0.f;
-  for (int r = r0; r < r1; ++r) sum += Z[(size_t)r * ldz + col];
-  ws[(size_t)blockIdx.x * N + col] = sum;
+// ---------------------------------------------------------------------------
+// Column sums: db = sum over the points of dz (K3's and K6's db,
+// honerf_tpu/ops/fused_fine_full.py:1650 and honerf_tpu/ops/fused_fine.py:488)
+// ---------------------------------------------------------------------------
+//
+// out[:N] (+)= sum over rows of Z[:M, :N], f32, in a fixed order.
+//
+// Bound on an H100: bytes, M x N x 4 read once (a bf16 step's 56,448 x 256
+// launch: 57.8 MB, ~17 us at 3.35 TB/s).
+//
+// Design: a block of CS_THREADS (8 warps) owns CS_COLS = 128 columns (a
+// warp reads a row's 512 bytes as 32 float4) and `split` rows, a multiple
+// of CS_ROW_STEP.  Each thread owns 4 adjacent columns and CS_ACC row
+// accumulators, so four loads a thread are in flight: in the rows
+// [s*split, min(M, (s+1)*split)) of block s, step i, accumulator k of warp
+// w adds row s*split + CS_ROW_STEP i + CS_WARPS k + w.  Then, in order: a
+// thread's sum (a0 + a1) + (a2 + a3); the block's partial t0 + t1 + ... +
+// t7 over the warps (through shared memory) into ws[s]; the tile's last
+// block (an atomic ticket, colsum_done, which wraps to 0 for the next
+// launch) sums the S partials, warp w those with s = w mod 8 in order,
+// then the eight warp sums in order, and out = (acc ? out : 0) + that.
+// The host picks split for ~CS_BLOCKS blocks (two a SM).  Preconditions:
+// N and ldz multiples of 4, a 16-byte-aligned Z, N <= CS_COLS x
+// CS_MAX_TILES; launches of one process run on one stream at a time (the
+// tickets are the library's).
+constexpr int CS_THREADS = 256;
+constexpr int CS_WARPS = CS_THREADS / 32;
+constexpr int CS_COLS = 128;
+constexpr int CS_ACC = 4;
+constexpr int CS_ROW_STEP = CS_WARPS * CS_ACC;
+constexpr int CS_BLOCKS = 264;
+constexpr int CS_MAX_TILES = 64;
+
+__device__ unsigned int colsum_done[CS_MAX_TILES];
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__global__ void __launch_bounds__(CS_THREADS)
+    colsum_partial_kernel(const float* __restrict__ Z, int ldz, int N, int M, int split,
+                          float* __restrict__ ws, float* __restrict__ out, int acc) {
+  __shared__ float4 red[CS_WARPS][32];
+  __shared__ bool last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int S = gridDim.x, s = blockIdx.x, tile = blockIdx.y;
+  const int col = tile * CS_COLS + 4 * lane;
+  const bool live = col < N;
+  const int r0 = s * split, r1 = min(M, r0 + split);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 a[CS_ACC];
+#pragma unroll
+  for (int k = 0; k < CS_ACC; ++k) a[k] = zero;
+  if (live) {
+    const float* zc = Z + col;
+#pragma unroll 2
+    for (int base = r0; base < r1; base += CS_ROW_STEP) {
+      float4 v[CS_ACC];
+#pragma unroll
+      for (int k = 0; k < CS_ACC; ++k) {
+        const int r = base + CS_WARPS * k + warp;
+        v[k] = r < r1 ? __ldg(reinterpret_cast<const float4*>(zc + (size_t)r * ldz)) : zero;
+      }
+#pragma unroll
+      for (int k = 0; k < CS_ACC; ++k) a[k] = add4(a[k], v[k]);
+    }
+  }
+  red[warp][lane] = add4(add4(a[0], a[1]), add4(a[2], a[3]));
+  __syncthreads();
+  if (warp == 0 && live) {
+    float4 t = red[0][lane];
+#pragma unroll
+    for (int w = 1; w < CS_WARPS; ++w) t = add4(t, red[w][lane]);
+    *reinterpret_cast<float4*>(ws + (size_t)s * N + col) = t;
+    __threadfence();  // the partial is visible before the ticket is taken
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicInc(&colsum_done[tile], (unsigned)(S - 1)) == (unsigned)(S - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float4 q = zero;
+  if (live) {
+#pragma unroll 4
+    for (int t = warp; t < S; t += CS_WARPS)
+      q = add4(q, __ldcg(reinterpret_cast<const float4*>(ws + (size_t)t * N + col)));
+  }
+  red[warp][lane] = q;
+  __syncthreads();
+  if (warp == 0 && live) {
+    float4 tot = red[0][lane];
+#pragma unroll
+    for (int w = 1; w < CS_WARPS; ++w) tot = add4(tot, red[w][lane]);
+    float* o = out + col;
+    if (acc) {
+      o[0] += tot.x;
+      o[1] += tot.y;
+      o[2] += tot.z;
+      o[3] += tot.w;
+    } else {
+      o[0] = tot.x;
+      o[1] = tot.y;
+      o[2] = tot.z;
+      o[3] = tot.w;
+    }
+  }
 }
 
 // dst[m, c] = f32(src[m, c]) for c < width: a padded scratch row out into
@@ -288,15 +391,19 @@ extern "C" int honerf_gemm_tn_f32(const float* X, int ldx, int K, float x_scale,
   return (int)cudaGetLastError();
 }
 
-// out[:N] (+)= the column sums of Z[:M, :N] (f32), in a fixed order.
+// out[:N] (+)= the column sums of Z[:M, :N] (f32), in colsum_partial_kernel's
+// order; ws holds the ceil(M / split) partials (N floats each; the wrapper
+// checks its size), split a positive multiple of CS_ROW_STEP.
 extern "C" int honerf_colsum(const float* Z, int ldz, int N, int M, int split, float* ws,
                              float* out, int acc, cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  const int S = (M + split - 1) / split;
-  dim3 grid(S, (N + 127) / 128);
-  honerf::colsum_partial_kernel<<<grid, 128, 0, stream>>>(Z, ldz, N, M, split, ws);
-  honerf::reduce_partials_kernel<<<(N + 255) / 256, 256, 0, stream>>>(ws, S, (size_t)N, N, 1,
-                                                                      N, out, N, acc);
+  if (N < 0 || N % 4 || ldz % 4 || ldz < N || N > honerf::CS_COLS * honerf::CS_MAX_TILES ||
+      split <= 0 || split % honerf::CS_ROW_STEP || honerf_misaligned16(Z) ||
+      honerf_misaligned16(ws))
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N == 0) return (int)cudaGetLastError();
+  dim3 grid((M + split - 1) / split, (N + honerf::CS_COLS - 1) / honerf::CS_COLS);
+  honerf::colsum_partial_kernel<<<grid, honerf::CS_THREADS, 0, stream>>>(Z, ldz, N, M, split, ws,
+                                                                         out, acc);
   return (int)cudaGetLastError();
 }
 

@@ -55,6 +55,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from honerf_torch.ops import _build
+from honerf_torch.ops import perpoint_layout as PL
 from honerf_torch.ops import wgmma_layout as WL
 
 PAD = 64
@@ -451,7 +452,8 @@ def chunk_size(n: int, dtype: str, limit: int) -> int:
 _TN_BLOCKS = 264
 _TN_BLOCKS_BF16 = 132
 _TN_TILE = 128
-_COLSUM_ROWS = 512
+# rows per partial of K3's pose sums (csrc/fused_fine_bwd.cu)
+_POSE_ROWS = 512
 # the f32 scratch of those partials (floats): ~17 MB at the widest call
 _WS_FLOATS = 8 << 20
 
@@ -461,6 +463,10 @@ KERNEL_FWD = _build.Kernel(
 KERNEL_BWD = _build.Kernel(
     "hand_trunk_sdf_u_bwd", "honerf_torch/ops/csrc/fused_trunk.cu",
     "honerf_tpu/ops/fused_fine.py:488")
+# db of K3 and K6 (bf16 and f32): the column sums inside their
+# pallas_calls' bodies (also K6's at honerf_tpu/ops/fused_fine.py:488).
+COLSUM = _build.Kernel("colsum_partial_kernel", "honerf_torch/ops/csrc/trunk.cuh",
+                       "honerf_tpu/ops/fused_fine_full.py:1650")
 
 
 def type_trunk_lib(lib) -> None:
@@ -532,9 +538,63 @@ def _tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
         "honerf_gemm_tn_f32" if f32 else "honerf_gemm_tn")
 
 
+def colsum_ordered_plain(Z, N: int, m: int, out=None, acc: int = 0) -> torch.Tensor:
+    """out[:N] (+)= sum over the m rows of Z[:m, :N] in f32, in
+    colsum_partial_kernel's order (csrc/trunk.cuh; the split is
+    perpoint_layout.colsum_split's), as elementwise f32 adds on Z's device:
+    block s's accumulator k of warp w adds rows s split + 32 i + 8 k + w
+    for i = 0, 1, ...; a thread's sum (a0 + a1) + (a2 + a3); a block's
+    partial t0 + t1 + ... + t7; warp w of the last block adds the partials
+    s = w, w + 8, ...; the total q0 + q1 + ... + q7.  The padding rows and
+    partials it adds are +0, which leaves an f32 sum's bits as they are
+    (no sum here is -0).  Returns out (new when None)."""
+    f32 = torch.float32
+    if out is None:
+        out = torch.zeros((N,), device=Z.device, dtype=f32)
+    if m <= 0 or N == 0:   # the kernel launches nothing
+        return out
+    lay = PL.colsum_split(m, N)
+    split, S = lay["split"], lay["S"]
+    zp = torch.zeros((S * split, N), device=Z.device, dtype=f32)
+    zp[:m] = Z[:m, :N]
+    zp = zp.reshape(S, split // PL.CS_ROW_STEP, PL.CS_ACC, PL.CS_WARPS, N)
+    a = torch.zeros((S, PL.CS_ACC, PL.CS_WARPS, N), device=Z.device, dtype=f32)
+    for i in range(zp.shape[1]):
+        a = a + zp[:, i]
+    t = (a[:, 0] + a[:, 1]) + (a[:, 2] + a[:, 3])            # (S, warps, N)
+    part = t[:, 0]
+    for w in range(1, PL.CS_WARPS):
+        part = part + t[:, w]                                 # (S, N)
+    S8 = -(-S // PL.CS_WARPS) * PL.CS_WARPS
+    pp = torch.zeros((S8, N), device=Z.device, dtype=f32)
+    pp[:S] = part
+    pp = pp.reshape(S8 // PL.CS_WARPS, PL.CS_WARPS, N)
+    q = torch.zeros((PL.CS_WARPS, N), device=Z.device, dtype=f32)
+    for i in range(pp.shape[0]):
+        q = q + pp[i]
+    tot = q[0]
+    for w in range(1, PL.CS_WARPS):
+        tot = tot + q[w]
+    out[:N] = out[:N] + tot if acc else tot
+    return out
+
+
 def _colsum(lib, Z, N, m, out, acc, ws, stream):
-    """out[:N] (+)= sum over the m rows of Z[:, :N] (f32, fixed order)."""
-    _build.check(lib.honerf_colsum(Z.data_ptr(), Z.stride(0), N, m, _COLSUM_ROWS,
+    """out[:N] (+)= sum over the m rows of Z[:, :N] (f32, a fixed order:
+    csrc/trunk.cuh's colsum_partial_kernel).  On a CPU Z it runs
+    colsum_ordered_plain and launches nothing."""
+    if Z.device.type == "cpu":
+        colsum_ordered_plain(Z, N, m, out, acc)
+        return
+    if Z.dtype != torch.float32 or Z.data_ptr() % 16 or Z.stride(0) % 4 or Z.stride(1) != 1:
+        raise ValueError("the column sum reads f32 rows as float4: a 16-byte-aligned base "
+                         f"and a row stride of a multiple of 4 (base {Z.data_ptr():#x}, "
+                         f"strides {Z.stride()})")
+    lay = PL.colsum_split(m, N)
+    if lay["S"] * N > ws.numel():
+        raise ValueError(f"column-sum scratch too small: {lay['S'] * N} > {ws.numel()} floats")
+    COLSUM.launches += 1
+    _build.check(lib.honerf_colsum(Z.data_ptr(), Z.stride(0), N, m, lay["split"],
                                    ws.data_ptr(), out.data_ptr(), acc, stream),
                  "honerf_colsum")
 

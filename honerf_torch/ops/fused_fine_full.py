@@ -817,7 +817,7 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
             meta.v_multires, meta.r_multires, buf["u"].data_ptr(), buf["u"].stride(0),
             dgt.data_ptr(), bw["de"].data_ptr(), bw["de"].stride(0), dx.data_ptr(), dx.stride(0),
             dp[s:].data_ptr(), pose_rows.data_ptr(), stream), "honerf_fine_bwd_emb")
-        _build.check(blib.honerf_pose_sum(pose_rows.data_ptr(), m, FT._COLSUM_ROWS,
+        _build.check(blib.honerf_pose_sum(pose_rows.data_ptr(), m, FT._POSE_ROWS,
                                           ws.data_ptr(), pose.data_ptr(), acc, stream),
                      "honerf_pose_sum")
     drotT, doff = _zero_pose_grads(pts)

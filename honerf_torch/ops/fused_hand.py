@@ -27,6 +27,7 @@ from honerf_torch.models.embedding import BONE_CUTOFFS, CUTOFF_TAU
 from honerf_torch.models.fields import SDFConfig, _flat_sdf_layers
 from honerf_torch.models.mlp import linear_weight
 from honerf_torch.ops import _build
+from honerf_torch.ops import perpoint_layout as PL
 from honerf_torch.ops.fused_fine import (
     INV_SQRT2_BF16,
     TrunkMeta,
@@ -61,6 +62,11 @@ GEMM_F32 = _build.Kernel("gemm_f32_kernel", "honerf_torch/ops/csrc/common.cuh",
                          "honerf_tpu/ops/fused_fine_full.py:1556")
 GEMM_TN_F32 = _build.Kernel("gemm_tn_f32_kernel", "honerf_torch/ops/csrc/trunk.cuh",
                             "honerf_tpu/ops/fused_fine_full.py:1650")
+# The hand embedding e (bf16 or f32), launched by K1's chunk loop and by
+# K2/K3's forward: K1's `embed` inside its pallas_call (also the embedding
+# of K2's and K3's).
+EMBED = _build.Kernel("hand_embed_kernel", "honerf_torch/ops/csrc/common.cuh",
+                      "honerf_tpu/ops/fused_hand.py:273")
 
 
 class HandKernelMeta(NamedTuple):
@@ -117,28 +123,33 @@ def _emb_stages(pts: torch.Tensor, rotT, off, cut) -> Dict[str, torch.Tensor]:
 
 
 def _pe_pieces(x: torch.Tensor, gate: torch.Tensor, L: int):
-    """Gated bf16 [sin(2^l x) g]_l, [cos(2^l x) g]_l by the double-angle
+    """Gated f32 [sin(2^l x) g]_l, [cos(2^l x) g]_l by the double-angle
     recurrence: sin/cos(2^l x) = (2 s c, (c - s)(c + s))."""
     s, c = torch.sin(x), torch.cos(x)
     sins, coss = [], []
     for l in range(L):
         if l:
             s, c = 2.0 * s * c, (c - s) * (c + s)
-        sins.append((s * gate).to(torch.bfloat16).float())
-        coss.append((c * gate).to(torch.bfloat16).float())
+        sins.append(s * gate)
+        coss.append(c * gate)
     return sins, coss
+
+
+def embed_plain(pts, rotT, off, cut, vL: int, rL: int, lde: int, dtype=torch.bfloat16):
+    """hand_embed_kernel's function in plain PyTorch: e (N, lde) of dtype,
+    the channel-major embedding with the kernel's recurrence, each value
+    rounded once to dtype, zero-padded to lde columns."""
+    st = _emb_stages(pts, rotT, off, cut)
+    sv, cv = _pe_pieces(st["v"], st["h"], vL)
+    sr, cr = _pe_pieces(st["rr"], st["h3"], rL)
+    e = torch.cat([st["v"] * st["h"]] + sv + cv + [st["rr"] * st["h3"]] + sr + cr, dim=-1)
+    return torch.nn.functional.pad(e, (0, lde - e.shape[1])).to(dtype)
 
 
 def fused_hand_sdf_plain(pts, rotT, off, cut, ws, bs, meta: HandKernelMeta) -> torch.Tensor:
     """The kernel's statements in plain PyTorch: (N, 3) -> (N,) sdf."""
     tm = meta.trunk
-    st = _emb_stages(pts, rotT, off, cut)
-    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
-    sv, cv = _pe_pieces(st["v"], st["h"], meta.v_multires)
-    sr, cr = _pe_pieces(st["rr"], st["h3"], meta.r_multires)
-    e = torch.cat([bf(st["v"] * st["h"])] + sv + cv + [bf(st["rr"] * st["h3"])] + sr + cr,
-                  dim=-1)
-    e = torch.nn.functional.pad(e, (0, tm.Ep - tm.emb_width))
+    e = embed_plain(pts, rotT, off, cut, meta.v_multires, meta.r_multires, tm.Ep).float()
     x = e
     for l in range(tm.n_layers):
         if l == tm.skip:
@@ -275,8 +286,17 @@ def gemm(lib, A1, K1, A2, K2, B, N, bias, M, mode, C, ldc, n_store=0, a_scale=0.
 
 
 def embed(lib, pts, m, rotT, off, cut, vL, rL, e, stream):
-    """The hand embedding of m points into e (bf16, or f32 for an f32 e)."""
+    """The hand embedding of the first m points of pts into e[:m] (bf16, or
+    f32 for an f32 e; csrc/common.cuh: hand_embed_kernel).  On a CPU e it
+    writes embed_plain's rows and launches nothing."""
+    if e.device.type == "cpu":
+        e[:m] = embed_plain(pts[:m], rotT, off, cut, vL, rL, e.shape[1], e.dtype)
+        return
+    if e.stride(1) != 1 or m > min(e.shape[0], pts.shape[0]):
+        raise ValueError(f"e must hold m = {m} rows of contiguous columns, pts m points")
+    PL.check_emb_operand(e.data_ptr(), e.stride(0), e.element_size(), vL, rL)
     fn = lib.honerf_hand_embed_f32 if _f32(e) else lib.honerf_hand_embed
+    EMBED.launches += 1
     rc = fn(pts.data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(), vL, rL,
             e.data_ptr(), e.stride(0), stream)
     _build.check(rc, "honerf_hand_embed")

@@ -34,6 +34,7 @@ from honerf_torch.ops import fused_fine as FT
 from honerf_torch.ops import fused_fine_full as FF
 from honerf_torch.ops import fused_hand as FH
 from honerf_torch.ops import fused_sdf as FS
+from honerf_torch.ops import perpoint_layout as PL
 
 SMALL = dict(n_layers=3, d_hidden=64, d_out=65, skip_in=(2,), v_multires=3, r_multires=2)
 FULL = dict(r_multires=7)  # the flagship: 8x256, 1386-channel embedding
@@ -993,3 +994,82 @@ def test_dw_gemm_bf16_tails_match_f64(dev, x_scale):
     assert torch.isfinite(outs[0]).all()
     assert torch.equal(outs[0], outs[1])
     assert float((outs[0].double() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# The per-point kernels redesigned for the card: hand_embed_kernel (tiles
+# of points staged in shared memory, stored by bulk copies) and
+# colsum_partial_kernel (db in a fixed order, csrc/trunk.cuh).
+EMBED_POINTS = {"bf16": (torch.bfloat16, PL.emb_points(2)),
+                "f32": (torch.float32, PL.emb_points(4))}
+
+
+@pytest.mark.parametrize("kind", list(EMBED_POINTS))
+@pytest.mark.parametrize("which", ["1", "P-1", "70001"])
+def test_embed_matches_plain(dev, kind, which):
+    """The embedding alone, at the flagship's widths (vL 10, rL 7, lde
+    1408), into a NaN-filled buffer of more rows than it writes: every row
+    it writes within the kernel rule of embed_plain on the same card
+    inputs (one rounding to the type; sin / cos in another library), the
+    padding columns exactly 0 (an unwritten one stays NaN), the rows past
+    m untouched; one launch."""
+    dtype, P = EMBED_POINTS[kind]
+    m = {"1": 1, "P-1": P - 1, "70001": 70001}[which]
+    joints, bt_inv, t_pose = _pose(dev)
+    rotT, off, cut = FH.pack_hand_pose(bt_inv, t_pose)
+    pts = _points(joints, m + 5, seed=8)
+    e = torch.full((m + 5, 1408), float("nan"), device=dev, dtype=dtype)
+    lib, stream = FH._lib("fused_hand"), torch.cuda.current_stream().cuda_stream
+    before = FH.EMBED.launches
+    FH.embed(lib, pts, m, rotT, off, cut, 10, 7, e, stream)
+    torch.cuda.synchronize()
+    assert FH.EMBED.launches == before + 1
+    want = FH.embed_plain(pts[:m], rotT, off, cut, 10, 7, 1408, dtype)
+    _assert_close(e[:m].float(), want.float())
+    assert bool((e[:m, 1386:] == 0).all())
+    assert bool(torch.isnan(e[m:].float()).all())
+
+
+def test_embed_rejects_what_the_kernel_does_not_take(dev):
+    """A base off a 16-byte boundary, rows not a multiple of 16 bytes apart
+    or narrower than the embedding: the wrapper raises and the C entry
+    point refuses (cudaErrorInvalidValue), with no other path."""
+    joints, bt_inv, t_pose = _pose(dev)
+    rotT, off, cut = FH.pack_hand_pose(bt_inv, t_pose)
+    pts = _points(joints, 64)
+    lib, stream = FH._lib("fused_hand"), torch.cuda.current_stream().cuda_stream
+    buf = torch.zeros((64, 1416), device=dev, dtype=torch.bfloat16)
+    for e in (buf[:, 1:1409], buf[:, :1404].contiguous(), buf[:, :1380].contiguous()):
+        with pytest.raises(ValueError):
+            FH.embed(lib, pts, 64, rotT, off, cut, 10, 7, e, stream)
+    e = buf[:, 1:1409]
+    rc = lib.honerf_hand_embed(pts.data_ptr(), 64, rotT.data_ptr(), off.data_ptr(),
+                               cut.data_ptr(), 10, 7, e.data_ptr(), e.stride(0), stream)
+    assert rc == 1  # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("N", [64, 256, 320])
+def test_colsum_matches_its_order_bit_for_bit(dev, N):
+    """db's column sum alone on a ragged 56,449 rows of a 320-wide f32
+    buffer: the same bits as colsum_ordered_plain (its order in elementwise
+    f32 adds) on the card, within 1e-3 of the f64 sum (the f32 noise of a
+    sum of ~5.6e4 normal values of size ~240: ~1e-4), the same bits on a
+    rerun, and += with acc."""
+    gen = torch.Generator(device=dev).manual_seed(N)
+    M = 56449
+    Z = torch.randn((M, 320), generator=gen, device=dev)
+    blib, stream = FF._bwd_lib(), torch.cuda.current_stream().cuda_stream
+    ws = torch.empty((FF._WS_FLOATS,), device=dev)
+    outs = []
+    before = FT.COLSUM.launches
+    for _ in range(2):
+        out = torch.full((N,), float("nan"), device=dev)
+        FF._colsum(blib, Z, N, M, out, 0, ws, stream)
+        torch.cuda.synchronize()
+        outs.append(out)
+    assert FT.COLSUM.launches == before + 2
+    want = FT.colsum_ordered_plain(Z, N, M)
+    assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
+    assert float((outs[0].double() - Z[:, :N].double().sum(0)).abs().max()) <= 1e-3
+    acc = torch.ones((N,), device=dev)
+    FF._colsum(blib, Z, N, M, acc, 1, ws, stream)
+    assert torch.equal(acc, FT.colsum_ordered_plain(Z, N, M, torch.ones((N,), device=dev), 1))
