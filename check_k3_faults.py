@@ -83,11 +83,15 @@ the faults with none of them).  The checks, with the limits they hold:
           against TOL_F32 of the range) and the frozen K3 f32 without it on
           the step's cotangents and on unit cotangents, L2 against TOL_F32;
   fitk6   the same phase, 'pallas': K5 f32 (out, u) and the frozen K6 f32;
-  ppt     chip_smoke.py's per-point kernels phase (chip_smoke.perpoint_readings)
-          at perpoint_calls: hand_embed_kernel against embed_plain (the kernel
-          rule, the padding exactly 0) and colsum_partial_kernel bit for bit
+  ppt     chip_smoke.py's per-point kernels phase (chip_smoke.perpoint_readings,
+          seed_readings, bwdrev_readings) at perpoint_calls, seed_calls and
+          bwdrev_calls: hand_embed_kernel against embed_plain (the kernel
+          rule, the padding exactly 0), colsum_partial_kernel bit for bit
           against colsum_ordered_plain, within TOL_COLSUM_F64 of f64 and the
-          same bits on a rerun (the perpoint group).
+          same bits on a rerun, uchain_seed_kernel bit for bit against
+          uchain_seed_plain and torch.mul, fine_bwd_rev_kernel against
+          fine_bwd_rev_plain (the kernel rule; f32 TOL_F32; padding 0, dz
+          exact) (the perpoint group).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -222,6 +226,27 @@ FAULTS = {
         "the column sum's last block leaves the last row range's partial out", _TRUNK_CUH,
         "for (int t = warp; t < S; t += CS_WARPS)",
         "for (int t = warp; t < S - 1; t += CS_WARPS)", ("bf16", "perpoint")),
+    "bwdrev_tail_row": (
+        "K3's reverse-chain transpose leaves the ragged last tile's last du_b row unstored",
+        _CU,
+        "bulk_store_rows(du_b + m0 * lddu, (size_t)lddu * sizeof(T), tb, du_row, rows);",
+        "bulk_store_rows(du_b + m0 * lddu, (size_t)lddu * sizeof(T), tb, du_row, rows - (rows < P));",
+        ("bf16", "perpoint")),
+    "bwdrev_no_pad": (
+        "K3's reverse-chain transpose never writes du's zero padding (the tiles' padding "
+        "columns keep what shared memory held)", _CU,
+        "for (int i = tid; i < 4 * P * pad; i += BWR_THREADS)",
+        "for (int i = tid; i < 0; i += BWR_THREADS)", ("bf16", "perpoint")),
+    "bwdrev_dus_unscaled": (
+        "K3's reverse-chain transpose stores du_s without the skip's 1/sqrt2", _CU,
+        "row_s[col] = from_f32<T>(v * kInvSqrt2);",
+        "row_s[col] = from_f32<T>(v);", ("bf16", "perpoint")),
+    "uchain_last_vec": (
+        "the u-chain's seed leaves the last 8 columns of every row unwritten (K2, K3, K5, K6)",
+        _TRUNK_CUH,
+        "  if (r >= rows) return;\n  float c[US_VEC];",
+        "  if (r >= rows || j0 + US_VEC == width) return;\n  float c[US_VEC];",
+        ("bf16", "perpoint")),
 }
 GROUPS = ("bf16", "f32", "fit", "perpoint")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
@@ -390,9 +415,15 @@ def child(name: str, root: str, groups) -> None:
         pose, pts = CS.perpoint_pose(torch, dev)
         emb, cols = CS.perpoint_readings(torch, dev, pose, pts, *CS.perpoint_calls(torch),
                                          timed=False)
+        seeds = CS.seed_readings(torch, dev, CS.seed_calls(torch), timed=False)
+        revs = CS.bwdrev_readings(torch, dev, pose, pts, CS.bwdrev_calls(torch), timed=False)
         out["ppt"] = {"0": [[f"embed {r.m} {r.dtype}", r.max_abs, r.ok] for r in emb]
                       + [[f"colsum N {r.N} m {r.m}", r.f64 if r.same else float("inf"), r.ok]
-                         for r in cols]}
+                         for r in cols]
+                      + [[f"seed {r.m} {r.dtype}", r.max_abs if r.ok else float("inf"), r.ok]
+                         for r in seeds]
+                      + [[f"bwdrev {r.m} {r.dtype}", r.max_abs if r.ok else float("inf"), r.ok]
+                         for r in revs]}
     print(json.dumps(out))
 
 

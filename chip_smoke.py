@@ -56,16 +56,27 @@ Phases, each of which fails the run when it fails:
               against the same step on the CPU (plain versions), 64 rays,
               perturb 0;
   9. train profile  one train step under torch.profiler;
-  9b. per-point kernels  hand_embed_kernel and colsum_partial_kernel
-              alone at the calls one 4096-ray request and one bf16 train
-              step make (recorded by running each once through the
-              wrappers, record_perpoint_calls): the embedding (bf16; f32 at
-              the request's calls; a ragged 70,001 points in both) against
+  9b. per-point kernels  hand_embed_kernel, colsum_partial_kernel,
+              uchain_seed_kernel and fine_bwd_rev_kernel alone at the
+              calls one 4096-ray request and one bf16 train step make
+              (recorded by running each once through the wrappers,
+              record_perpoint_calls): the embedding (bf16; f32 at the
+              request's calls; a ragged 70,001 points in both) against
               embed_plain under the kernel rule with its padding exactly
               0, the column sum bit for bit against colsum_ordered_plain,
               within TOL_COLSUM_F64 of f64 and the same bits on a rerun;
-              ms beside the plain versions, the bounds and (the column
-              sum) one Z[:m, :N].sum(0) as the library yardstick;
+              the seed (bf16, f32; 1, 7 and 70,001 rows) bit for bit
+              against uchain_seed_plain and torch.mul(..., out=); the
+              reverse-chain transpose (the step's call; 1, a tile less one
+              and 70,001 points, bf16 and f32) against fine_bwd_rev_plain
+              under the embedding's rule (f32: TOL_F32), NaN-filled
+              outputs, padding exactly 0, dz exactly; ms beside the plain
+              versions, the bounds and the library yardsticks (the column
+              sum: Z[:m, :N].sum(0); the seed: torch.mul); then the
+              yardsticks of copy_cols_kernel (a 'full_nocolor' step's
+              copies, dst[:, :w].copy_(src[:, :w])), the pose sum
+              (P[:m].sum(0)) and reduce_partials_kernel (ws.sum(0)), whose
+              own times come from the profiles;
  10. kernel K4  the object SDF against its plain version on the card,
               full-width object net of confs/wmask_realobj_bean.conf, at
               a 65,536-point grid chunk, a ragged size and 1,048,576
@@ -90,7 +101,8 @@ Phases, each of which fails the run when it fails:
               version on the card (the kernel rule), and both through
               marching cubes: vertex and triangle counts within 1%, and
               every K4 vertex within one voxel of the plain mesh
-              (chunked torch.cdist on the card).
+              (chunked torch.cdist on the card).  K4's phase profiles one
+              grid chunk (a mesh is 256 of them).
 
 The hand's other fine-pass modes (train.fused_fine), between 9 and 10:
 
@@ -110,7 +122,7 @@ The hand's other fine-pass modes (train.fused_fine), between 9 and 10:
               launched, K2 and K3 not; finite losses, se3_refine moved; one
               step under torch.profiler;
  18. train full_nocolor  the same with 'full_nocolor', 3 + 10 steps: K1, K2
-              and K3 launched, K5 and K6 not;
+              and K3 launched, K5 and K6 not; one step under torch.profiler;
  19. train check pallas  one 64-ray, perturb-0 'pallas' step on the card
               against the CPU (plain versions), the train check's limits;
  20. serve pallas  one 4096-ray request through make_hand_eval_render
@@ -165,6 +177,9 @@ Pose fitting (the fit confs, f32 trunks), after 13:
               net and K5 f32 under K2's f32 rule, the frozen K3 f32 without
               it and the frozen K6 f32 on the step's cotangents and on
               unit cotangents under the f32 rule;
+ 31b. per-point kernels fit  uchain_seed_kernel and fine_bwd_rev_kernel
+              in f32 at the calls of phases 29-30 (one fit step's K2 and
+              frozen K3), on the step's points, as in 9b;
  32. fit      the CLI (honerf_torch.cli.fitting_single) '1' then '12' on a
               synthetic catch sequence (1 frame, 8 views, 230x266) with
               random full-width checkpoints, train.iter_num cut to 3: the
@@ -192,8 +207,11 @@ catches).  The last lines of stdout are the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
 numbers (each kernel's other modes beside it: no-color, f32, f32 at a
 request, f32 no-color, f32 with dW; the bf16 and the f32 GEMMs alone and
-the per-point kernels EMBED and COLSUM in rows of their own), and the
-result line.  Exits nonzero, printing
+the per-point kernels EMBED, COLSUM, UCHAIN and BWDREV in rows of their
+own; UCHAIN and BWDREV count launches on every path that runs them:
+served images and requests, each train mode, the fit CLI), and the
+result line.  Before them, every per-point kernel's launches and device
+time in each profiled path (log_perpoint_profiles).  Exits nonzero, printing
 no result, when no CUDA device is present or a phase fails.
 """
 
@@ -218,6 +236,7 @@ PEAK_F32_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 REQUEST_RAYS = 4096
 TRAIN_RAYS = 441            # train.batch_size of the conf
+TRAIN_FINE_PTS = TRAIN_RAYS * 128   # its fine points (64 + 64 samples a ray): one K3 pass
 N_REQUESTS = 3
 CHECK_RAYS = 128
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
@@ -544,10 +563,13 @@ def tree_leaves(tree):
     return [tree]
 
 
-def device_profile(torch, label: str, fn):
+def device_profile(torch, label: str, fn, points=None):
     """fn() once under torch.profiler: host-clock time, device busy (the
     union of the device's kernel intervals) and device time by kernel;
-    returns the host-clock and busy ms (None without device time)."""
+    returns the host-clock and busy ms (None without device time).  The
+    kernels by name go into PROFILES[label], with `points`, the points a
+    launch of the path's per-point kernels takes (log_perpoint_profiles'
+    bounds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -564,8 +586,9 @@ def device_profile(torch, label: str, fn):
             continue
         tr = evt.time_range
         spans.append((tr.start, tr.end))
-        name = evt.name.split("(")[0].replace("honerf::", "")
-        if not name.endswith("_kernel") or "honerf" not in evt.name:
+        name = evt.name.split("(")[0].replace("void ", "").replace("honerf::", "")
+        name = name.replace("__nv_bfloat16", "bf16")
+        if "honerf" not in evt.name:
             name = "torch: " + name[:60]
         g = groups.setdefault(name, [0.0, 0])
         g[0] += tr.elapsed_us()
@@ -573,6 +596,7 @@ def device_profile(torch, label: str, fn):
     if not spans:
         log(f"profile: {label}: the profiler recorded no device time (not measured)")
         return None
+    PROFILES[label] = (groups, points)
     spans.sort()
     busy, end = 0.0, None
     for a, b in spans:
@@ -776,29 +800,60 @@ def embed_flops(vL: int, rL: int) -> float:
 
 def record_perpoint_calls(fn):
     """Run fn() once with the per-point kernels' wrappers recording their
-    calls: ([(m, vL, rL, lde, dtype) of each hand embedding],
-    [(N, m, ldz) of each column sum]), in launch order."""
+    calls, in launch order: .embed [(m, vL, rL, lde, dtype)], .colsum
+    [(N, m, ldz)], .seed [(m, width, ldt, dtype)] (the u-chain's seed),
+    .bwdrev [(m, meta, ldx, lddu, lddz)] (K3's reverse-chain transpose),
+    .copy [(m, width, src dtype, lds, ldd)] (copy_cols) and .tn [(K, N, m,
+    dtype)] (the dW products, whose partials reduce_partials_kernel
+    sums)."""
     from honerf_torch.ops import fused_fine as FT
     from honerf_torch.ops import fused_fine_full as FF
     from honerf_torch.ops import fused_hand as FH
 
-    embeds, colsums = [], []
-    embed, colsum = FH.embed, FT._colsum
+    rec = SimpleNamespace(embed=[], colsum=[], seed=[], bwdrev=[], copy=[], tn=[])
+    # (a package from before the seed's and the transpose's wrappers lacks them)
+    embed, colsum, copy, tn = FH.embed, FT._colsum, FT.copy_cols, FT._tn
+    seed, bwdrev = getattr(FT, "uchain_seed", None), getattr(FF, "fine_bwd_rev", None)
 
     def rec_embed(lib, pts, m, rotT, off, cut, vL, rL, e, stream):
-        embeds.append((m, vL, rL, e.shape[1], e.dtype))
+        rec.embed.append((m, vL, rL, e.shape[1], e.dtype))
         return embed(lib, pts, m, rotT, off, cut, vL, rL, e, stream)
 
     def rec_colsum(lib, Z, N, m, out, acc, ws, stream):
-        colsums.append((N, m, Z.stride(0)))
+        rec.colsum.append((N, m, Z.stride(0)))
         return colsum(lib, Z, N, m, out, acc, ws, stream)
 
-    FH.embed, FT._colsum, FF._colsum = rec_embed, rec_colsum, rec_colsum
+    def rec_seed(lib, w, s_, m, t, stream):
+        rec.seed.append((m, s_.shape[1], t.stride(0), t.dtype))
+        return seed(lib, w, s_, m, t, stream)
+
+    def rec_bwdrev(blib, pts, m, rotT, off, cut, meta, packed, dsdf, dg, dx, du_b, du_s, dgt,
+                   dzf, dzb, stream):
+        rec.bwdrev.append((m, meta, dx.stride(0), du_b.stride(0), dzf.stride(0)))
+        return bwdrev(blib, pts, m, rotT, off, cut, meta, packed, dsdf, dg, dx, du_b, du_s, dgt,
+                      dzf, dzb, stream)
+
+    def rec_copy(lib, src, m, width, dst, stream):
+        rec.copy.append((m, width, src.dtype, src.stride(0), dst.stride(0)))
+        return copy(lib, src, m, width, dst, stream)
+
+    def rec_tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
+        rec.tn.append((K, N, m, X.dtype))
+        return tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale)
+
+    patched = ((FH, "embed", rec_embed), (FT, "_colsum", rec_colsum), (FF, "_colsum", rec_colsum),
+               (FT, "uchain_seed", rec_seed), (FF, "fine_bwd_rev", rec_bwdrev),
+               (FT, "copy_cols", rec_copy), (FT, "_tn", rec_tn), (FF, "_tn", rec_tn))
+    patched = [(mod, name, f) for mod, name, f in patched if hasattr(mod, name)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    for mod, name, f in patched:
+        setattr(mod, name, f)
     try:
         fn()
     finally:
-        FH.embed, FT._colsum, FF._colsum = embed, colsum, colsum
-    return embeds, colsums
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    return rec
 
 
 def _tally(calls):
@@ -909,6 +964,220 @@ def perpoint_readings(torch, dev, pose, pts, embed_calls, colsum_calls, timed: b
             r.bound_ms, r.bound_by = bound(float(m * N), 4 * (m * N + N), PEAK_F32_FLOPS)
         cols.append(r)
     return emb, cols
+
+
+def seed_calls(torch):
+    """The seed at sizes the main path's (multiples of a block step) leave
+    out: one row, a block step less one (7 at width 256) and a ragged
+    70,001, bf16 and f32."""
+    return [(m, 256, 256, d) for m in (1, 7, 70001) for d in (torch.bfloat16, torch.float32)]
+
+
+def bwdrev_calls(torch):
+    """The reverse-chain transpose at sizes the main path's leave out: one
+    point, a tile less one (3 in bf16, 1 in f32) and a ragged 70,001, at
+    the flagship's widths (Ep 1408, Op 320, the color input's 1792
+    columns)."""
+    from honerf_torch.ops import fused_fine_full as FF
+
+    out = []
+    for dtype in ("bf16", "f32"):
+        meta = FF.FineMeta(v_multires=10, r_multires=7, d_hidden=256, n_layers=9, skip=4,
+                           d_out=257, dtype=dtype)
+        for m in (1, 3 if dtype == "bf16" else 1, 70001):
+            out.append((m, meta, meta.color_in, meta.trunk_meta.Ep, meta.trunk_meta.Op))
+    return list(dict.fromkeys(out))
+
+
+def seed_readings(torch, dev, calls, timed: bool = True):
+    """uchain_seed_kernel alone at the recorded calls (record_perpoint_calls),
+    each distinct shape once, weighted by its count: on seeded inputs (W_last
+    256 x 320 normal x 0.1 in the call's type, s uniform as a sigmoid row),
+    into a NaN-filled t, bit for bit against uchain_seed_plain and against
+    torch.mul(s[:m], c, out=t) with c = W_last[:, 0] in f32 (one product
+    rounded once), the columns past the width untouched.  timed: ms of the
+    kernel, its plain version, that torch.mul (the library yardstick; the
+    port never calls it) and its bound (s read once, t written once)."""
+    from honerf_torch.ops import fused_fine as FT
+
+    lib = FT._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = []
+    for (m, width, ldt, dtype), count in _tally(calls).items():
+        w = (0.1 * torch.randn((width, 320), generator=gen, device=dev)).to(dtype)
+        s_ = torch.rand((m, width), generator=gen, device=dev)
+        t = torch.full((m, ldt), float("nan"), device=dev, dtype=dtype)
+        c = w[:, 0].float()
+        lt = torch.empty((m, width), device=dev, dtype=dtype)
+
+        def run(w=w, s_=s_, m=m, t=t):
+            FT.uchain_seed(lib, w, s_, m, t, stream)
+
+        def library(s_=s_, c=c, lt=lt):
+            torch.mul(s_, c, out=lt)
+
+        run()
+        library()
+        want = FT.uchain_seed_plain(w, s_, m, dtype)
+        torch.cuda.synchronize()
+        same, same_lib = bool(torch.equal(t[:, :width], want)), bool(torch.equal(t[:, :width], lt))
+        rest = bool(torch.isnan(t[:, width:].float()).all())
+        r = SimpleNamespace(m=m, width=width, dtype=str(dtype).split(".")[-1], count=count,
+                            same=same, same_lib=same_lib, max_abs=float(
+                                (t[:, :width].float() - want.float()).abs().max()),
+                            ok=same and same_lib and rest, ms=None, plain_ms=None, lib_ms=None,
+                            bound_ms=None, bound_by=None)
+        if timed:
+            r.ms = cuda_ms(torch, run, 20)
+            r.plain_ms = cuda_ms(torch, lambda w=w, s_=s_, m=m: FT.uchain_seed_plain(
+                w, s_, m, dtype), 5)
+            r.lib_ms = cuda_ms(torch, library, 20)
+            r.bound_ms, r.bound_by = bound(float(m * width), m * width * (4 + t.element_size())
+                                           + width * t.element_size(), PEAK_F32_FLOPS)
+        del w, s_, t, lt, want
+        out.append(r)
+    return out
+
+
+def bwdrev_bytes(meta, m: int) -> int:
+    """The bytes fine_bwd_rev_kernel must move for m points: it writes
+    du_b, du_s (Ep of the type each), dzf (Op f32), dzb (Op of the type)
+    and dgt's 3 f32, and reads the point (3 f32), g (3), dg (3), dsdf (1),
+    dx's F feature columns and 3 (1 + 2 L) grad-PE columns (f32)."""
+    tm = meta.trunk_meta
+    es = 4 if meta.dtype == "f32" else 2
+    writes = 2 * tm.Ep * es + tm.Op * (4 + es) + 12
+    reads = 4 * (3 + 3 + 3 + 1 + (meta.d_out - 1) + 3 * (1 + 2 * meta.grad_L))
+    return m * (writes + reads)
+
+
+def bwdrev_readings(torch, dev, pose, pts, calls, timed: bool = True):
+    """fine_bwd_rev_kernel alone at the recorded calls, each distinct shape
+    once, weighted by its count, on the given points and pose and seeded
+    normal packed (g), dsdf, dg and dx, into NaN-filled outputs (an
+    unwritten column shows): du_b, du_s and dgt against
+    fine_bwd_rev_plain on the same card inputs under the embedding's rule
+    in bf16 (TOL_MEDIAN, TOL_MAX of the range), TOL_F32 at the median and
+    the max in f32; du's padding exactly 0; dzf and dzb (a copy) exactly.
+    timed: ms of the kernel and of its plain version, its bound (bytes,
+    bwdrev_bytes; no single PyTorch call computes it)."""
+    from honerf_torch.ops import fused_fine_full as FF
+
+    rotT, off, cut = pose
+    blib = FF._bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out = []
+    for (m, meta, ldx, lddu, lddz), count in _tally(calls).items():
+        dtype = torch.float32 if meta.dtype == "f32" else torch.bfloat16
+        tm = meta.trunk_meta
+        packed = torch.randn((m, 8), generator=gen, device=dev)
+        dsdf = torch.randn((m,), generator=gen, device=dev)
+        dg = torch.randn((m, 3), generator=gen, device=dev)
+        dx = torch.randn((m, ldx), generator=gen, device=dev)
+        nan = float("nan")
+        outs = (torch.full((m, lddu), nan, device=dev, dtype=dtype),
+                torch.full((m, lddu), nan, device=dev, dtype=dtype),
+                torch.full((m, 4), nan, device=dev),
+                torch.full((m, lddz), nan, device=dev),
+                torch.full((m, lddz), nan, device=dev, dtype=dtype))
+
+        def run(m=m, meta=meta, packed=packed, dsdf=dsdf, dg=dg, dx=dx, outs=outs):
+            FF.fine_bwd_rev(blib, pts, m, rotT, off, cut, meta, packed, dsdf, dg, dx, *outs,
+                            stream)
+
+        def plain(m=m, meta=meta, packed=packed, dsdf=dsdf, dg=dg, dx=dx, dtype=dtype):
+            return FF.fine_bwd_rev_plain(pts[:m], rotT, off, cut, meta, packed, dsdf, dg, dx,
+                                         dtype)
+
+        run()
+        want = plain()
+        torch.cuda.synchronize()
+        tol_med, tol_max = (TOL_F32, TOL_F32) if meta.dtype == "f32" else (TOL_MEDIAN, TOL_MAX)
+        res = [compare(torch, name, g, w, tol_med, tol_max)
+               for name, g, w in (("du_b", outs[0][:, :tm.Ep], want[0]),
+                                  ("du_s", outs[1][:, :tm.Ep], want[1]),
+                                  ("dgt", outs[2][:, :3], want[2]))]
+        E = meta.emb_width
+        pad_ok = bool((outs[0][:, E:tm.Ep] == 0).all()) and bool((outs[1][:, E:tm.Ep] == 0).all())
+        dz_ok = (bool(torch.equal(outs[3][:, :tm.Op], want[3]))
+                 and bool(torch.equal(outs[4][:, :tm.Op], want[4])))
+        text = "; ".join(x[2] for x in res) + f"; padding 0 {pad_ok}; dz exact {dz_ok}"
+        r = SimpleNamespace(m=m, dtype=meta.dtype, count=count, max_abs=max(x[1] for x in res),
+                            ok=all(x[0] for x in res) and pad_ok and dz_ok, text=text, ms=None,
+                            plain_ms=None, bound_ms=None, bound_by=None)
+        if timed:
+            r.ms = cuda_ms(torch, run, 10)
+            r.plain_ms = cuda_ms(torch, plain, 2)
+            r.bound_ms, r.bound_by = bound(0.0, bwdrev_bytes(meta, m), PEAK_F32_FLOPS)
+        del packed, dsdf, dg, dx, outs, want
+        out.append(r)
+    return out
+
+
+def weighted(rs, keys=("ms", "plain_ms", "lib_ms", "bound_ms")):
+    """{key: sum of r.key x r.count} over readings (keys a reading has)."""
+    return {k: sum(getattr(r, k) * r.count for r in rs) for k in keys
+            if all(getattr(r, k, None) is not None for r in rs)}
+
+
+# Device time by kernel name of every profiled path (device_profile's
+# label -> {name: [us, launches]}), for the per-point kernels' table
+PROFILES = {}
+PERPOINT_KERNELS = ("uchain_seed_kernel", "fine_bwd_rev_kernel", "fine_rev_kernel",
+                    "fine_bwd_emb_kernel", "color_dz_kernel", "pose_partial_kernel",
+                    "pose_reduce_kernel", "reduce_partials_kernel", "copy_cols_kernel",
+                    "trunk_pack_e_kernel", "trunk_bwd_seed_kernel", "obj_embed_kernel",
+                    "hand_embed_kernel", "colsum_partial_kernel")
+
+
+def perpoint_bytes(kern: str, f32: bool):
+    """Bytes a point of the flagship (E 1386, Ep 1408, d_out 257, F = Fp
+    256, Gp 128, Op 320, the last color layer's 64 columns; the object's
+    lde 64) costs the kernel, each input read once and each output written
+    once, from its code (es: the operand type's size); None where the work
+    is not per point (copy_cols_kernel, reduce_partials_kernel: the
+    per-point phase bounds them call by call)."""
+    es = 4 if f32 else 2
+    return {
+        # u (E f32), z's sdf and F features, the point; packed's 5 f32 and
+        # x2 = [feat | grad-PE] (Fp + Gp of the type)
+        "fine_rev_kernel": 4 * (1386 + 257 + 3) + 4 * 5 + (256 + 128) * es,
+        # u, de, dx (E f32 each), dg_total, the point; dp, the pose row
+        "fine_bwd_emb_kernel": 4 * (3 * 1386 + 3 + 3) + 4 * (3 + 256),
+        # the sigmoid and dcolor (3 f32 each); dzf (64 f32), dzb (64)
+        "color_dz_kernel": 4 * 6 + 64 * (4 + es),
+        # the pose row (256 f32) read once
+        "pose_partial_kernel": 4 * 256,
+        # e (E f32) -> e of the type, Ep columns
+        "trunk_pack_e_kernel": 4 * 1386 + 1408 * es,
+        # dout (257 f32), du (E f32); dzf (Op f32), dzb (Op), du_b, du_s (Ep)
+        "trunk_bwd_seed_kernel": 4 * (257 + 1386) + 320 * (4 + es) + 2 * 1408 * es,
+        # the point; e and es (64 bf16 each)
+        "obj_embed_kernel": 12 + 2 * 64 * 2,
+    }.get(kern)
+
+
+def log_perpoint_profiles() -> None:
+    """Each per-point kernel's launches and device ms in each profiled path
+    (PROFILES), summed over its template instances, and, where its work is
+    per point, its bound there: launches x the path's points a launch x
+    perpoint_bytes at PEAK_BYTES."""
+    for kern in PERPOINT_KERNELS:
+        parts = []
+        for label, (groups, points) in PROFILES.items():
+            hits = [(name, v) for name, v in groups.items() if kern in name]
+            if not hits:
+                continue
+            n, us = sum(v[1] for _, v in hits), sum(v[0] for _, v in hits)
+            text = f"{label}: {n} x, {us / 1e3:.4f} ms"
+            per = perpoint_bytes(kern, any("<float>" in name for name, _ in hits))
+            if per and points:
+                b_ms = n * points * per / PEAK_BYTES * 1e3
+                text += f", bound {b_ms:.4f} ms ({per} B/pt x {points} pts a launch)"
+            parts.append(text)
+        log(f"profiled {kern}: " + ("; ".join(parts) if parts else "in no profiled path"))
 
 
 # -- the flagship and its train step (check_k3_faults.py runs these too) --
@@ -1589,6 +1858,7 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         n = pts.shape[0]
         fargs = args[:5]
         got = FF.hand_fine_color_fwd(*fargs)
+        f32_inputs["fwd_calls"] = record_perpoint_calls(lambda: FF.hand_fine_color_fwd(*fargs))
         want = FF.hand_fine_color_plain(*fargs)
         torch.cuda.synchronize()
         checks = [compare(torch, what, a, b, TOL_F32, TOL_F32)
@@ -1637,6 +1907,9 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         no_dw = got.dws is None and got.dcws is None
         names = device_kernel_names(torch, lambda: FF.hand_fine_color_bwd(*args, want_dw=False))
         launched = FF.KERNEL_BWD.launches - before == 3
+        f32_inputs["bwd_calls"] = record_perpoint_calls(
+            lambda: FF.hand_fine_color_bwd(*args, want_dw=False))
+        f32_inputs["bwd_pose"] = (pts, tuple(args[1:4]))
 
         def count(*keys):
             return sum(c for k, c in names.items() if any(x in k for x in keys))
@@ -1696,7 +1969,7 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
 
     fit_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "EMBED": FH.EMBED,
-                   "COLSUM": FT.COLSUM}
+                   "COLSUM": FT.COLSUM, "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV}
 
     def fit():
         """The fitting CLI, '1' then '12', on a synthetic catch sequence in a
@@ -1739,13 +2012,16 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                 f"loading and checkpoints included); launches {launches}; pickle {shapes}, "
                 f"f32 and finite {finite}; |pred - gt| joints up to {moved:.4f} m")
             assert shapes == want and finite, "the pose pickle is not the JAX runner's"
-            assert launches["K1"] and launches["K2"] and launches["K3"] and launches["EMBED"], \
+            assert (launches["K1"] and launches["K2"] and launches["K3"] and launches["EMBED"]
+                    and launches["UCHAIN"] and launches["BWDREV"]), \
                 f"a kernel of the fitting path did not launch: {launches}"
             assert not (launches["K5"] or launches["K6"] or launches["COLSUM"]), \
                 f"stray launches {launches}"
         f32_inputs["confs"] = confs
         rows["K2"] = dict(rows.get("K2", {}), f32_launches=total["K2"])
         rows["K3"] = dict(rows.get("K3", {}), f32_launches=total["K3"])
+        for name in ("UCHAIN", "BWDREV"):
+            rows[name] = dict(rows.get(name, {}), fit_launches=total[name])
         # ms per step of each fit type through the runner's own loop
         for ft in ("1", "12"):
             one = runner_steps(confs[ft], ft, f"fit {ft}")
@@ -1811,8 +2087,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         with open(confs["12"]) as f:
             text = f.read()
         bad = []
-        for mode, want in (("full_nocolor", ("K1", "K2", "K3", "EMBED")),
-                           ("pallas", ("K1", "K5", "K6", "EMBED"))):
+        for mode, want in (("full_nocolor", ("K1", "K2", "K3", "EMBED", "UCHAIN", "BWDREV")),
+                           ("pallas", ("K1", "K5", "K6", "EMBED", "UCHAIN"))):
             label = f"fit 12 {mode}"
             root = os.path.join(ws, f"fit_res_{mode}")
             shutil.copytree(os.path.join(ws, "fit_res", "view_8", "1"),
@@ -1846,7 +2122,7 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             log(f"{label}: one step's kernels by name: {sum(names.values())} launches, f32 "
                 f"GEMMs {f32_g}, dW/db kernels {dw}")
             idle = [k for k in want if not launches[k]]
-            stray = [k for k in ("K2", "K3", "K5", "K6", "COLSUM")
+            stray = [k for k in ("K2", "K3", "K5", "K6", "COLSUM", "BWDREV")
                      if k not in want and launches[k]]
             if idle or stray or not finite or dw or not f32_g:
                 bad.append(label)
@@ -1922,15 +2198,49 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                 bad.append(label)
         assert not bad, f"the card's fit step disagrees with the CPU's: {bad}"
 
+    def perpoint_fit():
+        """The seed and the reverse-chain transpose alone, f32, at the calls
+        one fit step's K2 f32 and frozen K3 f32 make (recorded in the two
+        phases above), on the step's points and pose, against their plain
+        versions (seed_readings, bwdrev_readings: TOL_F32)."""
+        fwd, bwd = f32_inputs.get("fwd_calls"), f32_inputs.get("bwd_calls")
+        assert fwd and bwd and fwd.seed and bwd.seed and bwd.bwdrev, \
+            "the K2 / K3 f32 phases recorded no per-point call"
+        pts, pose = f32_inputs["bwd_pose"]
+        seeds = seed_readings(torch, dev, fwd.seed + bwd.seed)
+        revs = bwdrev_readings(torch, dev, pose, pts, bwd.bwdrev)
+        for r in seeds:
+            log(f"UCHAIN fit step: {r.count} x {r.m} rows x {r.width} {r.dtype}: the same bits as "
+                f"uchain_seed_plain {r.same}, as torch.mul {r.same_lib}; kernel {r.ms:.4f} ms, "
+                f"torch.mul {r.lib_ms:.4f} ms, bound {r.bound_ms:.4f} ms{'' if r.ok else ' FAIL'}")
+        for r in revs:
+            log(f"BWDREV fit step: {r.count} x {r.m} pts {r.dtype}; {r.text}; kernel "
+                f"{r.ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms "
+                f"({r.bound_by}): {r.bound_ms / r.ms:.2f} of the bound")
+        u, b = weighted(seeds), weighted(revs, ("ms", "plain_ms", "bound_ms"))
+        log(f"a fit step's {sum(r.count for r in seeds)} seeds: kernel {u['ms']:.4f} ms, torch.mul "
+            f"{u['lib_ms']:.4f} ms, bound {u['bound_ms']:.4f} ms ({u['bound_ms'] / u['ms']:.2f}); "
+            f"its {sum(r.count for r in revs)} reverse-chain transposes: kernel {b['ms']:.4f} ms, "
+            f"plain {b['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_ms'] / b['ms']:.2f})")
+        rows["UCHAIN"] = dict(rows.get("UCHAIN", {}), fit_ms=u["ms"], fit_bound_ms=u["bound_ms"],
+                              fit_library_ms=u["lib_ms"])
+        rows["BWDREV"] = dict(rows.get("BWDREV", {}), fit_ms=b["ms"], fit_plain_ms=b["plain_ms"],
+                              fit_bound_ms=b["bound_ms"])
+        if not all(r.ok for r in seeds + revs):
+            raise AssertionError("a per-point kernel disagrees with its plain version at a fit "
+                                 "step")
+
     def fit_profile():
         fn_ = f32_inputs.get("profile")
         assert fn_ is not None, "the fit phase did not run"
         fn_()
-        device_profile(torch, "one '12' fit step of 196 rays", fn_)
+        device_profile(torch, "one '12' fit step of 196 rays", fn_, points=37632 // 2)
 
     phase("kernel K2 f32", kernel_k2_f32)
     phase("kernel K3 f32 frozen", kernel_k3_f32)
     phase("kernel fit modes f32", kernel_fit_modes_f32)
+    phase("per-point kernels fit", perpoint_fit)
     try:
         phase("fit", fit)
         phase("fit modes", fit_modes)
@@ -1972,7 +2282,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
     ttcfg = train_hyper(fs)
     kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD, "K5": FT.KERNEL_FWD,
                "K6": FT.KERNEL_BWD, "GEMM_F32": FH.GEMM_F32, "GEMM_TN_F32": FH.GEMM_TN_F32,
-               "GEMM": FH.GEMM, "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM}
+               "GEMM": FH.GEMM, "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
+               "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV}
     log(f"f32 phases: {os.path.relpath(CONF, ROOT)} as written, trunks {sdf_cfg.trunk_dtype}; "
         "select_fine_pass on the card: " + ", ".join(
             f"{m} -> {select_fine_pass(ttcfg._replace(fused_fine=m), sdf_cfg, dev)}"
@@ -2181,9 +2492,9 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
     gemms = ("GEMM_F32", "GEMM_TN_F32")
     # the embedding kernel with K2 / K3 (K5 / K6 take e from torch), the
     # column sum with every dW
-    expect = {"full": ("K2", "K3", "EMBED", "COLSUM") + gemms,
-              "full_nocolor": ("K2", "K3", "EMBED", "COLSUM") + gemms,
-              "pallas": ("K5", "K6", "COLSUM") + gemms, None: ()}
+    expect = {"full": ("K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV") + gemms,
+              "full_nocolor": ("K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV") + gemms,
+              "pallas": ("K5", "K6", "COLSUM", "UCHAIN") + gemms, None: ()}
 
     def train_f32():
         """The flagship train step with the conf's f32 trunks under each
@@ -2231,7 +2542,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 f"up to {moved:.3e}")
             if mode == "full":
                 device_profile(torch, f"one {label} step of {TRAIN_RAYS} rays",
-                               lambda: step(state, batch, gen))
+                               lambda: step(state, batch, gen), points=TRAIN_FINE_PTS // 2)
             idle = [k for k in want if not launches[k]]
             stray = [k for k in kernels if k not in want and launches[k]]
             shown = (f32_g > 0 and tn_f32 > 0) if want else total >= 0
@@ -2239,6 +2550,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 bad.append(f"{label} (launches {launches}, finite {finite}, moved {moved:.2e})")
             if mode == "full":
                 rows["K3"] = dict(rows.get("K3", {}), f32_dw_launches=launches["K3"])
+                for name in ("UCHAIN", "BWDREV"):
+                    rows[name] = dict(rows.get(name, {}), f32_train_launches=launches[name])
                 for name in gemms:
                     rows[name] = dict(rows.get(name, {}), launches=launches[name])
             elif mode == "full_nocolor":
@@ -2289,9 +2602,9 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         rows["K2"] = dict(rows.get("K2", {}), f32_request_launches=launches["K2"])
         assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
         assert launches["K1"] and launches["K2"] and launches["GEMM_F32"] and launches[
-            "EMBED"] and not (
+            "EMBED"] and launches["UCHAIN"] and not (
             launches["K3"] or launches["K5"] or launches["K6"] or launches["GEMM_TN_F32"]
-            or launches["GEMM_TN"] or launches["COLSUM"]), \
+            or launches["GEMM_TN"] or launches["COLSUM"] or launches["BWDREV"]), \
             f"the f32 'full' render path launched {launches}"
         idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
         cpu = torch.device("cpu")
@@ -2500,7 +2813,7 @@ def main() -> int:
     served = {}
 
     def serve():
-        for k in (FH.KERNEL, FF.KERNEL, FH.GEMM, FH.GEMM_TN, FH.EMBED):
+        for k in (FH.KERNEL, FF.KERNEL, FH.GEMM, FH.GEMM_TN, FH.EMBED, FT.UCHAIN, FF.BWDREV):
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2520,8 +2833,9 @@ def main() -> int:
             torch.cuda.synchronize()
             req_ms.append((time.perf_counter() - t0) * 1e3)
         launches = {"K1": FH.KERNEL.launches, "K2": FF.KERNEL.launches,
-                    "GEMM": FH.GEMM.launches, "EMBED": FH.EMBED.launches}
-        stray_tn = FH.GEMM_TN.launches
+                    "GEMM": FH.GEMM.launches, "EMBED": FH.EMBED.launches,
+                    "UCHAIN": FT.UCHAIN.launches}
+        stray_tn = FH.GEMM_TN.launches + FF.BWDREV.launches
         # what the render pays once per parameter snapshot (and each request
         # paid before the packs were kept)
         pack_ms = []
@@ -2555,7 +2869,7 @@ def main() -> int:
         served.update(color=color, wsum=wsum, grid=grid)
         if not all(launches.values()) or stray_tn:
             raise AssertionError(f"a kernel of the render path did not launch: {launches} "
-                                 f"(dW GEMMs {stray_tn})")
+                                 f"(dW GEMMs and reverse-chain transposes {stray_tn})")
 
     phase("serve", serve)
 
@@ -2590,7 +2904,7 @@ def main() -> int:
     def profile():
         request = dict(view, rays_xy=served["grid"][:REQUEST_RAYS])
         device_profile(torch, f"one request of {REQUEST_RAYS} rays",
-                       lambda: render(params, request))
+                       lambda: render(params, request), points=FF.CHUNK)
 
     if "serve" not in failures:
         phase("check", check)
@@ -2602,7 +2916,8 @@ def main() -> int:
     ttcfg = train_hyper(fs)
     all_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "GEMM": FH.GEMM,
-                   "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM}
+                   "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
+                   "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV}
 
     def bwd_rules(label, mode, args):
         """K3's two rules on the mode's backward kernel: on the step's own
@@ -2686,11 +3001,11 @@ def main() -> int:
             f"se3_refine moved by up to {moved:.3e}; last metrics {last}")
         if profile:
             device_profile(torch, f"one {label} step of {TRAIN_RAYS} rays",
-                           lambda: step(state, batch, gen))
+                           lambda: step(state, batch, gen), points=TRAIN_FINE_PTS)
         assert finite, "a loss or gradient norm is not finite"
         assert moved > 0, "se3_refine did not move"
         idle = [k for k in expect if not launches[k]]
-        stray = [k for k in ("K2", "K3", "K5", "K6") if k not in expect and launches[k]]
+        stray = [k for k in ("K2", "K3", "K5", "K6", "BWDREV") if k not in expect and launches[k]]
         assert not idle and not stray, (
             f"the {mode} train path launched {launches}: expected {expect} and no other fine "
             "pass kernel")
@@ -2698,12 +3013,15 @@ def main() -> int:
 
     def train():
         launches = train_run("train", "full", TRAIN_STEPS,
-                             ("K1", "K2", "K3", "GEMM", "GEMM_TN", "EMBED", "COLSUM"))
+                             ("K1", "K2", "K3", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "UCHAIN",
+                              "BWDREV"))
         rows.setdefault("K3", {})["launches"] = launches["K3"]
         rows.setdefault("GEMM", {})["train_launches"] = launches["GEMM"]
         rows.setdefault("GEMM_TN", {})["launches"] = launches["GEMM_TN"]
         rows.setdefault("EMBED", {})["train_launches"] = launches["EMBED"]
         rows.setdefault("COLSUM", {})["launches"] = launches["COLSUM"]
+        rows.setdefault("UCHAIN", {})["train_launches"] = launches["UCHAIN"]
+        rows.setdefault("BWDREV", {})["launches"] = launches["BWDREV"]
 
     def train_check(mode="full", label="train check"):
         """One step on the card and on the CPU from the same state: the
@@ -2728,40 +3046,54 @@ def main() -> int:
         gen = torch.Generator(device=dev).manual_seed(0)
         step(state, batch, gen)
         device_profile(torch, f"one train step of {TRAIN_RAYS} rays",
-                       lambda: step(state, batch, gen))
+                       lambda: step(state, batch, gen), points=TRAIN_FINE_PTS)
 
     phase("kernel K3", kernel_k3)
     phase("train", train)
     phase("train check", train_check)
     phase("train profile", train_profile)
 
-    # -- 9b. the per-point kernels alone (hand_embed_kernel, colsum) -------
+    # -- 9b. the per-point kernels alone -----------------------------------
     def perpoint():
-        """hand_embed_kernel and colsum_partial_kernel alone at the calls one
-        4096-ray request and one bf16 train step make (recorded by running
-        each once), each against its plain version (perpoint_readings); the
-        embedding also in f32 at the request's calls.  Times against the
-        bound, the plain version and (the column sum) one torch sum."""
+        """hand_embed_kernel, colsum_partial_kernel, uchain_seed_kernel and
+        fine_bwd_rev_kernel alone at the calls one 4096-ray request and one
+        bf16 train step make (recorded by running each once), each against
+        its plain version (perpoint_readings, seed_readings,
+        bwdrev_readings); the embedding and the seed also in f32 at the
+        request's calls, both and the transpose at ragged sizes.  Times
+        against the bound, the plain version and the library yardstick
+        where one PyTorch call computes the function (the column sum: a torch
+        sum; the seed: torch.mul); then the yardsticks of the kernels timed
+        in the profiles: copy_cols_kernel (a 'full_nocolor' step's copies)
+        against dst[:, :w].copy_(src[:, :w]), the pose sum against
+        P[:m].sum(0), reduce_partials_kernel's sum against ws.sum(0)."""
         from honerf_torch.camera import full_image_ndc_grid
+        from honerf_torch.ops import wgmma_layout as WL
 
         grid = served.get("grid")
         if grid is None:
             grid = full_image_ndc_grid(H, W, device=dev)
         request = dict(view, rays_xy=grid[:REQUEST_RAYS])
-        req_embeds, _ = record_perpoint_calls(lambda: render(params, request))
+        req = record_perpoint_calls(lambda: render(params, request))
         state = init_train_state(train_params(fs, dev), ttcfg)
         step = make_hand_train_step(sdf_cfg, color_cfg, rcfg, ttcfg)
         batch = train_batch(torch, TRAIN_RAYS, dev)
         gen = torch.Generator(device=dev).manual_seed(0)
-        step_embeds, step_colsums = record_perpoint_calls(lambda: step(state, batch, gen))
+        stp = record_perpoint_calls(lambda: step(state, batch, gen))
+        nc_cfg = ttcfg._replace(fused_fine="full_nocolor")
+        nc_state = init_train_state(train_params(fs, dev), nc_cfg)
+        nc_step = make_hand_train_step(sdf_cfg, color_cfg, rcfg, nc_cfg)
+        nc = record_perpoint_calls(lambda: nc_step(nc_state, batch, gen))
         torch.cuda.synchronize()
-        assert req_embeds and step_embeds and step_colsums, "no per-point call was recorded"
+        assert (req.embed and stp.embed and stp.colsum and req.seed and stp.seed and stp.bwdrev
+                and nc.copy and stp.tn), "no per-point call was recorded"
+        del state, nc_state
         pose = (rotT, off, cut)
-        f32_embeds = [(m, vL, rL, lde, torch.float32) for m, vL, rL, lde, _ in req_embeds]
+        f32_embeds = [(m, vL, rL, lde, torch.float32) for m, vL, rL, lde, _ in req.embed]
         groups = {}
-        groups["request"], cols = perpoint_readings(torch, dev, pose, pts_all, req_embeds,
-                                                    step_colsums)
-        groups["step"] = perpoint_readings(torch, dev, pose, pts_all, step_embeds, [])[0]
+        groups["request"], cols = perpoint_readings(torch, dev, pose, pts_all, req.embed,
+                                                    stp.colsum)
+        groups["step"] = perpoint_readings(torch, dev, pose, pts_all, stp.embed, [])[0]
         groups["f32 request"] = perpoint_readings(torch, dev, pose, pts_all, f32_embeds, [])[0]
         ragged = perpoint_readings(torch, dev, pose, pts_all, perpoint_calls(torch)[0][:2], [],
                                    timed=False)[0]
@@ -2773,8 +3105,7 @@ def main() -> int:
                 log(f"EMBED {label}: {r.count} x {r.m} pts {r.dtype}; {r.text}; kernel "
                     f"{r.ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms "
                     f"({r.bound_by})")
-            t = {k: sum(getattr(r, k) * r.count for r in rs)
-                 for k in ("ms", "plain_ms", "bound_ms")}
+            t = weighted(rs)
             pts = sum(r.m * r.count for r in rs)
             log(f"hand_embed_kernel, a {label}'s {sum(r.count for r in rs)} launches ({pts} "
                 f"pts): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
@@ -2786,31 +3117,123 @@ def main() -> int:
                 f"(tol {TOL_COLSUM_F64:g}); kernel {r.ms:.4f} ms, Z[:m, :N].sum(0) "
                 f"{r.lib_ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms "
                 f"({r.bound_by}){'' if r.ok else ' FAIL'}")
-        c = {k: sum(getattr(r, k) * r.count for r in cols)
-             for k in ("ms", "lib_ms", "plain_ms", "bound_ms")}
+        c = weighted(cols)
         log(f"colsum_partial_kernel, a bf16 step's {sum(r.count for r in cols)} launches: "
             f"kernel {c['ms']:.4f} ms, Z[:m, :N].sum(0) {c['lib_ms']:.4f} ms, plain "
             f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms: "
             f"{c['bound_ms'] / c['ms']:.2f} of the bound, {c['lib_ms'] / c['ms']:.2f}x the torch "
             f"sum's speed")
         all_emb = [r for rs in groups.values() for r in rs] + ragged
-        req, stp, f32 = totals["request"], totals["step"], totals["f32 request"]
+        req_t, stp_t, f32 = totals["request"], totals["step"], totals["f32 request"]
         rows["EMBED"] = dict(rows.get("EMBED", {}), name=FH.EMBED.name, route="cuda",
                              source=FH.EMBED.source, replaces=FH.EMBED.replaces,
-                             max_abs_err=max(r.max_abs for r in all_emb), ms=req["ms"],
-                             plain_ms=req["plain_ms"], bound_ms=req["bound_ms"],
+                             max_abs_err=max(r.max_abs for r in all_emb), ms=req_t["ms"],
+                             plain_ms=req_t["plain_ms"], bound_ms=req_t["bound_ms"],
                              bound_by=max(groups["request"], key=lambda r: r.bound_ms).bound_by,
-                             library_ms=None, step_ms=stp["ms"], step_bound_ms=stp["bound_ms"],
-                             f32_ms=f32["ms"], f32_plain_ms=f32["plain_ms"],
-                             f32_bound_ms=f32["bound_ms"])
+                             library_ms=None, step_ms=stp_t["ms"],
+                             step_bound_ms=stp_t["bound_ms"], f32_ms=f32["ms"],
+                             f32_plain_ms=f32["plain_ms"], f32_bound_ms=f32["bound_ms"])
         rows["COLSUM"] = dict(rows.get("COLSUM", {}), name=FT.COLSUM.name, route="cuda",
                               source=FT.COLSUM.source, replaces=FT.COLSUM.replaces,
                               max_abs_err=max(r.max_abs for r in cols), ms=c["ms"],
                               plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                               bound_by=max(cols, key=lambda r: r.bound_ms).bound_by,
                               library_ms=c["lib_ms"])
-        if not all(r.ok for r in all_emb + cols):
-            raise AssertionError("a per-point kernel disagrees with its plain version")
+        # the u-chain's seed: a request's calls (bf16 and f32), a step's, ragged
+        f32_seeds = [(m, w, ld, torch.float32) for m, w, ld, _ in req.seed]
+        seeds = {"request": seed_readings(torch, dev, req.seed),
+                 "step": seed_readings(torch, dev, stp.seed),
+                 "f32 request": seed_readings(torch, dev, f32_seeds)}
+        ragged_seed = seed_readings(torch, dev, seed_calls(torch), timed=False)
+        st = {}
+        for label, rs in seeds.items():
+            for r in rs:
+                log(f"UCHAIN {label}: {r.count} x {r.m} rows x {r.width} {r.dtype}: the same bits "
+                    f"as uchain_seed_plain {r.same}, as torch.mul(..., out=) {r.same_lib}; kernel "
+                    f"{r.ms:.4f} ms, torch.mul {r.lib_ms:.4f} ms, plain {r.plain_ms:.3f} ms, "
+                    f"bound {r.bound_ms:.4f} ms ({r.bound_by}){'' if r.ok else ' FAIL'}")
+            t = st[label] = weighted(rs)
+            log(f"uchain_seed_kernel, a {label}'s {sum(r.count for r in rs)} launches "
+                f"({sum(r.m * r.count for r in rs)} rows): kernel {t['ms']:.4f} ms, torch.mul "
+                f"{t['lib_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms: "
+                f"{t['bound_ms'] / t['ms']:.2f} of the bound, {t['lib_ms'] / t['ms']:.2f}x "
+                f"torch.mul's speed")
+        for r in ragged_seed:
+            log(f"UCHAIN ragged: {r.m} rows {r.dtype}: the same bits as uchain_seed_plain "
+                f"{r.same}, as torch.mul {r.same_lib}{'' if r.ok else ' FAIL'}")
+        all_seed = [r for rs in seeds.values() for r in rs] + ragged_seed
+        rows["UCHAIN"] = dict(rows.get("UCHAIN", {}), name=FT.UCHAIN.name, route="cuda",
+                              source=FT.UCHAIN.source, replaces=FT.UCHAIN.replaces,
+                              max_abs_err=max(r.max_abs for r in all_seed),
+                              ms=st["request"]["ms"], plain_ms=st["request"]["plain_ms"],
+                              bound_ms=st["request"]["bound_ms"], bound_by="bytes",
+                              library_ms=st["request"]["lib_ms"], step_ms=st["step"]["ms"],
+                              step_bound_ms=st["step"]["bound_ms"],
+                              f32_ms=st["f32 request"]["ms"],
+                              f32_plain_ms=st["f32 request"]["plain_ms"],
+                              f32_bound_ms=st["f32 request"]["bound_ms"],
+                              f32_library_ms=st["f32 request"]["lib_ms"])
+        # K3's reverse-chain transpose: a bf16 step's call, ragged sizes
+        revs = bwdrev_readings(torch, dev, pose, pts_all, stp.bwdrev)
+        ragged_rev = bwdrev_readings(torch, dev, pose, pts_all, bwdrev_calls(torch), timed=False)
+        for r in revs:
+            log(f"BWDREV step: {r.count} x {r.m} pts {r.dtype}; {r.text}; kernel {r.ms:.4f} ms, "
+                f"plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms ({r.bound_by}): "
+                f"{r.bound_ms / r.ms:.2f} of the bound")
+        for r in ragged_rev:
+            log(f"BWDREV ragged: {r.m} pts {r.dtype}; {r.text}")
+        b = weighted(revs, ("ms", "plain_ms", "bound_ms"))
+        rows["BWDREV"] = dict(rows.get("BWDREV", {}), name=FF.BWDREV.name, route="cuda",
+                              source=FF.BWDREV.source, replaces=FF.BWDREV.replaces,
+                              max_abs_err=max(r.max_abs for r in revs + ragged_rev),
+                              ms=b["ms"], plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
+                              bound_by="bytes", library_ms=None)
+        # the yardsticks of the per-point kernels timed in the profiles
+        blib = FF._bwd_lib()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ygen = torch.Generator(device=dev).manual_seed(31)
+        for (m, width, sdt, lds, ldd), count in _tally(nc.copy).items():
+            src = torch.randn((m, lds), generator=ygen, device=dev).to(sdt)
+            dst = torch.full((m, ldd), float("nan"), device=dev)
+            FT.copy_cols(blib, src, m, width, dst, stream)
+            same = bool(torch.equal(dst[:, :width], src[:, :width].float()))
+            k_ms = cuda_ms(torch, lambda: FT.copy_cols(blib, src, m, width, dst, stream), 20)
+            l_ms = cuda_ms(torch, lambda: dst[:, :width].copy_(src[:, :width]), 20)
+            b_ms, _ = bound(0.0, m * width * (src.element_size() + 4))
+            log(f"copy_cols_kernel, {count} x {m} rows x {width} ({sdt}, lds {lds}, ldd {ldd}) "
+                f"of a 'full_nocolor' step: kernel {k_ms:.4f} ms, dst[:, :w].copy_(src[:, :w]) "
+                f"{l_ms:.4f} ms, bound {b_ms:.4f} ms (bytes); the same values {same}")
+            assert same, "copy_cols_kernel disagrees with the copy"
+            del src, dst
+        m = max(mm for mm, *_ in stp.bwdrev)
+        P = torch.randn((m, 256), generator=ygen, device=dev)
+        ws = torch.empty((FT._WS_FLOATS,), device=dev)
+        out = torch.empty((256,), device=dev)
+        k_ms = cuda_ms(torch, lambda: blib.honerf_pose_sum(P.data_ptr(), m, FT._POSE_ROWS,
+                                                           ws.data_ptr(), out.data_ptr(), 0,
+                                                           stream), 20)
+        l_ms = cuda_ms(torch, lambda: P[:m].sum(0), 20)
+        f64 = float((out.double() - P.double().sum(0)).abs().max())
+        log(f"pose_partial_kernel + pose_reduce_kernel (honerf_pose_sum), {m} pose rows of a bf16 "
+            f"step: kernel {k_ms:.4f} ms, P[:m].sum(0) {l_ms:.4f} ms, bound "
+            f"{bound(0.0, 4 * (m * 256 + 256))[0]:.4f} ms (bytes); |err| vs f64 {f64:.2e}")
+        assert f64 <= TOL_COLSUM_F64, "the pose sum disagrees with the f64 sum"
+        del P
+        lib_tot = bnd_tot = 0.0
+        for (K, N, mm, dt), count in _tally(stp.tn).items():
+            split = WL.tn_split(K, N, mm, 132)
+            S = -(-mm // split)
+            Kp, Np = -(-K // WL.BM) * WL.BM, -(-N // WL.BN_TN) * WL.BN_TN
+            part = torch.randn((S, Kp, Np), generator=ygen, device=dev)
+            lib_tot += count * cuda_ms(torch, lambda: part.sum(0), 20)
+            bnd_tot += count * bound(0.0, 4 * (S * Kp * Np + K * N))[0]
+            del part
+        log(f"reduce_partials_kernel's sums, a bf16 step's {len(stp.tn)} dW products: "
+            f"ws.sum(0) {lib_tot:.4f} ms, bound {bnd_tot:.4f} ms (bytes: the partials read once, "
+            f"dW written once; the kernel's time: the profiles)")
+        bad = [r for r in all_emb + cols + all_seed + revs + ragged_rev if not r.ok]
+        if bad:
+            raise AssertionError(f"a per-point kernel disagrees with its plain version: {bad}")
 
     phase("per-point kernels", perpoint)
 
@@ -2959,16 +3382,18 @@ def main() -> int:
 
     def train_pallas():
         launches = train_run("train pallas", "pallas", TRAIN_STEPS,
-                             ("K1", "K5", "K6", "GEMM", "GEMM_TN", "EMBED", "COLSUM"),
+                             ("K1", "K5", "K6", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "UCHAIN"),
                              profile=True)
         for name in ("K5", "K6"):
             rows.setdefault(name, {})["launches"] = launches[name]
 
     def train_nocolor():
         launches = train_run("train full_nocolor", "full_nocolor", NOCOLOR_STEPS,
-                             ("K1", "K2", "K3", "EMBED", "COLSUM"))
+                             ("K1", "K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV"),
+                             profile=True)
         rows.setdefault("K2", {})["nocolor_launches"] = launches["K2"]
         rows.setdefault("K3", {})["nocolor_launches"] = launches["K3"]
+        rows.setdefault("BWDREV", {})["nocolor_launches"] = launches["BWDREV"]
 
     def serve_pallas():
         """One 4096-ray request through the eval render with
@@ -3007,8 +3432,9 @@ def main() -> int:
             f"rays {full_ms[1]:.1f} ms); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
         assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
-        assert launches["K1"] and launches["K5"] and not (
-            launches["K2"] or launches["K6"]), f"the pallas render path launched {launches}"
+        assert launches["K1"] and launches["K5"] and launches["UCHAIN"] and not (
+            launches["K2"] or launches["K6"] or launches["BWDREV"]), \
+            f"the pallas render path launched {launches}"
         idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
         cpu = torch.device("cpu")
         c_ref, w_ref = render_p(clone_tree(params, cpu),
@@ -3080,6 +3506,9 @@ def main() -> int:
                                        replaces=FS.KERNEL.replaces, points=n, ms=ms,
                                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                        library_ms=None))
+            if n == 1 << 16:   # a mesh's grid is 256 such chunks
+                device_profile(torch, "one K4 grid chunk of 65,536 points",
+                               lambda: FS.fused_obj_sdf(*args), points=n)
             if n == 1 << 20:
                 g_flops = k4_flops(obj.sdf, grid_pts)
                 log(f"K4 per {MESH_RES}^3 grid ({grid_pts} points): {g_flops / 1e12:.2f} TFLOP, "
@@ -3230,9 +3659,10 @@ def main() -> int:
 
     run_fit_phases(torch, dev, phase, rows, failures)
 
+    log_perpoint_profiles()
     log(gpu_line())
     order = ("K1", "K2", "K3", "K4", "K5", "K6", "GEMM", "GEMM_TN", "GEMM_F32", "GEMM_TN_F32",
-             "EMBED", "COLSUM")
+             "EMBED", "COLSUM", "UCHAIN", "BWDREV")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     def mode_keys(prefix):
@@ -3248,7 +3678,12 @@ def main() -> int:
              "K5": mode_keys("f32_"), "K6": mode_keys("f32_"),
              "GEMM": ("image_launches", "train_launches"),
              "EMBED": ("train_launches", "step_ms", "step_bound_ms", "f32_ms", "f32_plain_ms",
-                       "f32_bound_ms")}
+                       "f32_bound_ms"),
+             "UCHAIN": ("train_launches", "f32_train_launches", "fit_launches", "step_ms",
+                        "step_bound_ms", "f32_ms", "f32_plain_ms", "f32_bound_ms",
+                        "f32_library_ms", "fit_ms", "fit_bound_ms", "fit_library_ms"),
+             "BWDREV": ("nocolor_launches", "f32_train_launches", "fit_launches", "fit_ms",
+                        "fit_plain_ms", "fit_bound_ms")}
     log(json.dumps({"kernels": [{k: rows.get(n, {}).get(k) for k in keys + extra.get(n, ())}
                                 for n in order]}))
     if failures:

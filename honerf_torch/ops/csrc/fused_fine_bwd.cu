@@ -26,6 +26,8 @@
 //     fine_bwd_rev_kernel              grad-PE transposed into dg; the
 //                                      reverse chain transposed at dg -> du;
 //                                      the trunk's top cotangent [dsdf|dfeat]
+//                                      (tiles of points staged in shared
+//                                      memory, stored by cp.async.bulk)
 //     gemm (EPI_UT) x 8                u-chain transposed, upward: dc, ds
 //     gemm (EPI_DZ) x 9                forward transposed, downward, with the
 //                                      second-order term dz = da s +
@@ -38,8 +40,9 @@
 //     colsum_partial_kernel            db (from the f32 dz), fixed order
 //     pose_partial/pose_reduce_kernel  the pose sums drotT / doff, in a
 //                                      fixed order of their own
-//   So two runs give the same bits: no atomics anywhere.  Right first:
-//   wgmma/TMA and fusing the launches are later work.
+//   So two runs give the same bits: no atomics anywhere.  The GEMMs run
+//   on wgmma with a TMA ring (wgmma.cuh); fine_bwd_rev_kernel is staged
+//   like the embedding (its note below); fusing the launches is later work.
 //
 // f32 mode (FineMeta.dtype 'f32': the confs' trunks as written; JAX's
 //   FineMeta(dtype='f32')): the same launches on f32 operands
@@ -125,7 +128,13 @@ __device__ __forceinline__ Head transpose_head(const Stages& st, const Chain* ch
   return hd;
 }
 
-// One warp per point, lane j < 21 = bone j:
+// ---------------------------------------------------------------------------
+// The reverse chain transposed at dg (K3's du; in JAX's _fine_bwd_block,
+// _gpe_transpose, _transpose_head and _emb_rev_transpose_block at
+// honerf_tpu/ops/fused_fine_full.py:792, :396, :432, inside :1650)
+// ---------------------------------------------------------------------------
+//
+// Per point m:
 //  * dg_total = dg + the grad-PE transpose of the color input's cotangent
 //    (dx columns Ep + Fp ..) -> dgt[m, 0:3];
 //  * du = the reverse chain transposed at dg_total (T4-T1), stored as
@@ -134,90 +143,239 @@ __device__ __forceinline__ Head transpose_head(const Stages& st, const Chain* ch
 //  * the trunk's top cotangent [dsdf | dfeat (dx columns Ep ..) | 0] into
 //    dzf (f32) and dzb (T), Op columns.
 // T: bf16, or f32 in the f32 mode.
+//
+// Bound on an H100: bytes.  A point writes 2 Ep sizeof(T) + Op (4 +
+// sizeof(T)) bytes (7,552 in bf16 at the flagship's Ep 1408, Op 320;
+// 13,824 in f32) and reads ~1.2 KB (dx's feature and grad-PE columns,
+// dsdf, dg, g, the point): ~0.147 ms for a bf16 step's 56,448 points at
+// 3.35 TB/s.
+//
+// Design (hand_embed_kernel's, common.cuh): persistent blocks
+// (BWR_BLOCKS_PER_SM a SM, BWR_THREADS threads) walk tiles of P
+// consecutive points (BWR_POINTS_BF16 in bf16, half as many in f32),
+// each staged in shared memory as four dense sub-tiles (du_b and du_s: P
+// x Ep; dzf and dzb: P x Op), double-buffered.  Three passes a tile,
+// every thread on units in turn, neighbouring threads on neighbouring
+// columns:
+//  1. (point, channel): dg_total by the grad-PE transpose's loop as it
+//     was, its 2 L cotangents loaded into registers first (one memory
+//     latency, not L); (point, bone): the bone stages; both into shared
+//     rows;
+//  2. (point, bone): transpose_head (bone 0 stores dgt), the v-part
+//     columns, and the values the r-part reads (cb, h cc); (point, 8
+//     columns): the top cotangent, a one-column shift of dx's feature
+//     columns;
+//  3. (point, bone, channel): the r-part columns.
+// The zero padding [E, Ep) is written into both buffers once; passes 2-3
+// write every other column of a tile's rows.  A finished tile leaves by
+// cp.async.bulk, one copy a sub-tile (one a row where the rows are not
+// dense in global memory); the block computes the next tile in the other
+// buffer while they drain, and waits for a buffer's copies to have read
+// it before writing it again.  The ragged last tile stores only its rows.
+//
+// The arithmetic per element is the warp-per-point kernel's it replaced:
+// bone_stages, transpose_head, one precise sinf / cosf per argument (no
+// fast intrinsics), the double-angle recurrence and the grad-PE sum in
+// the same order and the same expressions, stages through shared memory
+// as exact f32; bench_gemm.py --perpoint-parent holds the outputs' bits
+// to another checkout's.  (The grad-PE sum stays one expression in one
+// thread, sinf / cosf inside it: its terms formed by other threads and
+// added from shared memory round differently and change dgt's bits.)
+constexpr int BWR_THREADS = 256;
+constexpr int BWR_BLOCKS_PER_SM = 3;
+constexpr int BWR_POINTS_BF16 = 4;            // P in bf16; f32 tiles take half as many
+constexpr int BWR_EP_MAX = 1536;              // the widest du row a tile holds (elements)
+constexpr int BWR_OP_MAX = 384;               // the widest dz row
+constexpr int BWR_L_MAX = 8;                  // grad-PE frequencies (their cotangents in registers)
+constexpr int BWR_STAGE_FLOATS = 21 * 10 + 21 + 63 + 3;   // a point's bone stages, cb, h cc, dg_total
+constexpr int BWR_TILE_BYTES_MAX = BWR_POINTS_BF16 * (2 * BWR_EP_MAX * 2 + BWR_OP_MAX * (4 + 2));
+constexpr int BWR_SMEM_MAX = 2 * BWR_TILE_BYTES_MAX + BWR_POINTS_BF16 * BWR_STAGE_FLOATS * 4;
+
 template <typename T>
-__global__ void fine_bwd_rev_kernel(const float* __restrict__ pts, int M,
-                                    const float* __restrict__ rotT, const float* __restrict__ off,
-                                    const float* __restrict__ cut, int vL, int rL,
-                                    const float* __restrict__ packed,
-                                    const float* __restrict__ dsdf,
-                                    const float* __restrict__ dg,
-                                    const float* __restrict__ dx, int ldx, int Ep, int F, int Fp,
-                                    int L, T* __restrict__ du_b, T* __restrict__ du_s,
-                                    int lddu, float* __restrict__ dgt, float* __restrict__ dzf,
-                                    T* __restrict__ dzb, int lddz, int Op) {
-  int m = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int j = threadIdx.x & 31;
-  if (m >= M) return;  // whole warps leave together
-  const float* dxr = dx + (size_t)m * ldx;
-  // grad-PE transpose, channel j < 3 on lane j
-  float tj = 0.f;
-  if (j < 3) {
-    const float* dgpe = dxr + Ep + Fp;
-    float gv = packed[(size_t)m * 8 + 1 + j];
-    tj = dg[(size_t)m * 3 + j] + dgpe[j];
-    for (int l = 0; l < L; ++l) {
-      float f = (float)(1 << l);
-      tj += f * (cosf(gv * f) * dgpe[(1 + l) * 8 + j] - sinf(gv * f) * dgpe[(1 + L + l) * 8 + j]);
-    }
-    dgt[(size_t)m * 4 + j] = tj;
+__host__ __device__ constexpr int bwr_points() {
+  return BWR_POINTS_BF16 * 2 / (int)sizeof(T);
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t bwr_tile_bytes(int Ep, int Op) {
+  return (size_t)bwr_points<T>() * (2 * (size_t)Ep * sizeof(T) + (size_t)Op * (4 + sizeof(T)));
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t bwr_smem_bytes(int Ep, int Op) {
+  return 2 * bwr_tile_bytes<T>(Ep, Op) + (size_t)bwr_points<T>() * BWR_STAGE_FLOATS * 4;
+}
+
+// du's column col of a staged row pair: T(v) and T(v / sqrt2).
+template <typename T>
+__device__ __forceinline__ void put_du(T* row_b, T* row_s, int col, float v) {
+  row_b[col] = from_f32<T>(v);
+  row_s[col] = from_f32<T>(v * kInvSqrt2);
+}
+
+// rows x row_bytes of shared memory into rows ld_bytes apart: one bulk
+// copy where they are dense, else one a row.
+__device__ __forceinline__ void bulk_store_rows(void* gmem, size_t ld_bytes, const void* smem,
+                                                unsigned row_bytes, int rows) {
+  if (ld_bytes == row_bytes) {
+    bulk_store(gmem, smem, row_bytes * (unsigned)rows);
+    return;
   }
-  float t[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) t[a] = __shfl_sync(0xffffffffu, tj, a);
-  // trunk top cotangent
-  for (int col = j; col < Op; col += 32) {
-    float v = col == 0 ? dsdf[m] : (col <= F ? dxr[Ep + col - 1] : 0.f);
-    dzf[(size_t)m * lddz + col] = v;
-    dzb[(size_t)m * lddz + col] = from_f32<T>(v);
-  }
-  T* rb_ = du_b + (size_t)m * lddu;
-  T* rs_ = du_s + (size_t)m * lddu;
-  const int E = 21 * (1 + 2 * vL) + 63 * (1 + 2 * rL);
-  for (int col = E + j; col < Ep; col += 32) {
-    rb_[col] = from_f32<T>(0.f);
-    rs_[col] = from_f32<T>(0.f);
-  }
-  if (j >= 21) return;
-  float p[3] = {pts[3 * m], pts[3 * m + 1], pts[3 * m + 2]};
-  Stages st = bone_stages(p, rotT, off, cut, j);
-  Head hd = transpose_head(st, nullptr, rotT, t, j);
-  const float cb = hd.cb, hca = st.h * hd.ca;
-  auto put = [&](int col, float v) {
-    rb_[col] = from_f32<T>(v);
-    rs_[col] = from_f32<T>(v * kInvSqrt2);
-  };
-  // T2/T1: v family
-  put(j, st.v * cb + hca);
-  float s = sinf(st.v), c = cosf(st.v);
-  for (int l = 0; l < vL; ++l) {
-    if (l) {
-      float s2 = 2.f * s * c, c2 = (c - s) * (c + s);
-      s = s2;
-      c = c2;
-    }
-    float f = (float)(1 << l);
-    put(21 + 21 * l + j, s * cb + f * c * hca);
-    put(21 + 21 * (vL + l) + j, c * cb - f * s * hca);
-  }
-  // T4/T3: r family, cd = cb on every channel of the bone
+  for (int r = 0; r < rows; ++r)
+    bulk_store(static_cast<char*>(gmem) + r * ld_bytes,
+               static_cast<const char*>(smem) + (size_t)r * row_bytes, row_bytes);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWR_THREADS, BWR_BLOCKS_PER_SM)
+    fine_bwd_rev_kernel(const float* __restrict__ pts, int M, const float* __restrict__ rotT,
+                        const float* __restrict__ off, const float* __restrict__ cut, int vL,
+                        int rL, const float* __restrict__ packed, const float* __restrict__ dsdf,
+                        const float* __restrict__ dg, const float* __restrict__ dx, int ldx,
+                        int Ep, int F, int Fp, int L, T* __restrict__ du_b, T* __restrict__ du_s,
+                        int lddu, float* __restrict__ dgt, float* __restrict__ dzf,
+                        T* __restrict__ dzb, int lddz, int Op) {
+  constexpr int P = bwr_points<T>();
+  extern __shared__ __align__(128) unsigned char bwr_smem[];
+  const size_t tile_bytes = bwr_tile_bytes<T>(Ep, Op);
+  Stages* sst = reinterpret_cast<Stages*>(bwr_smem + 2 * tile_bytes);   // [P][21]
+  float* scb = reinterpret_cast<float*>(sst + P * 21);                   // [P][21]: cb
+  float* shc = scb + P * 21;                                             // [P][63]: h cc
+  float* sgb = shc + P * 63;                                             // [P][3]: dg_total
+  const int tid = threadIdx.x;
   const int rb = 21 * (1 + 2 * vL);
+  const int E = rb + 63 * (1 + 2 * rL);
+  // the zero padding of the du rows (2 P a buffer: du_b's, then du_s's)
+  const int pad = Ep - E;
+  for (int i = tid; i < 4 * P * pad; i += BWR_THREADS) {
+    const int k = i / pad, b = k / (2 * P);
+    T* row = reinterpret_cast<T*>(bwr_smem + b * tile_bytes) + (size_t)(k - b * 2 * P) * Ep;
+    row[E + i - k * pad] = from_f32<T>(0.f);
+  }
+  const int n_tiles = (M + P - 1) / P;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int p0 = tile * P, rows = min(P, M - p0);
+    T* tb = reinterpret_cast<T*>(bwr_smem + (size_t)(it & 1) * tile_bytes);   // du_b
+    T* ts = tb + (size_t)P * Ep;                                               // du_s
+    float* tf = reinterpret_cast<float*>(ts + (size_t)P * Ep);                 // dzf
+    T* tz = reinterpret_cast<T*>(tf + (size_t)P * Op);                         // dzb
+    // pass 1: dg_total, the bone stages
+    const int ng = rows * 3, nst = rows * 21;
+    for (int u = tid; u < ng + nst; u += BWR_THREADS) {
+      if (u < ng) {
+        const int pt = u / 3, j = u - pt * 3;
+        const size_t m = (size_t)(p0 + pt);
+        const float* dgpe = dx + m * ldx + Ep + Fp;
+        float ds[BWR_L_MAX], dc[BWR_L_MAX];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    int col = 3 * j + k;
-    float x = st.rr[k], hc = st.h * hd.cc[k];
-    put(rb + col, x * cb + hc);
-    float sr = sinf(x), cr = cosf(x);
-    for (int l = 0; l < rL; ++l) {
-      if (l) {
-        float s2 = 2.f * sr * cr, c2 = (cr - sr) * (cr + sr);
-        sr = s2;
-        cr = c2;
+        for (int l = 0; l < BWR_L_MAX; ++l) {
+          ds[l] = l < L ? dgpe[(1 + l) * 8 + j] : 0.f;
+          dc[l] = l < L ? dgpe[(1 + L + l) * 8 + j] : 0.f;
+        }
+        float gv = packed[m * 8 + 1 + j];
+        float tj = dg[m * 3 + j] + dgpe[j];
+#pragma unroll
+        for (int l = 0; l < BWR_L_MAX; ++l) {
+          if (l < L) {
+            float f = (float)(1 << l);
+            tj += f * (cosf(gv * f) * ds[l] - sinf(gv * f) * dc[l]);
+          }
+        }
+        sgb[pt * 3 + j] = tj;
+      } else {
+        const int w = u - ng, pt = w / 21, j = w - pt * 21;
+        const float* pp = pts + 3 * (size_t)(p0 + pt);
+        const float p[3] = {pp[0], pp[1], pp[2]};
+        sst[w] = bone_stages(p, rotT, off, cut, j);
       }
-      float f = (float)(1 << l);
-      put(rb + 63 + 63 * l + col, sr * cb + f * cr * hc);
-      put(rb + 63 + 63 * (rL + l) + col, cr * cb - f * sr * hc);
+    }
+    if (tid == 0) bulk_wait_read<1>();  // this buffer's copies, two tiles back, have read it
+    __syncthreads();
+    // pass 2: (point, bone) the head and the v-part; (point, 8 columns) the
+    // top cotangent
+    const int nh = rows * 21, oc = Op / 8;
+    for (int u = tid; u < nh + rows * oc; u += BWR_THREADS) {
+      if (u < nh) {
+        const int pt = u / 21, j = u - pt * 21;
+        float t[3] = {sgb[pt * 3], sgb[pt * 3 + 1], sgb[pt * 3 + 2]};
+        if (j == 0) {
+          float* d = dgt + (size_t)(p0 + pt) * 4;
+          d[0] = t[0];
+          d[1] = t[1];
+          d[2] = t[2];
+        }
+        const Stages st = sst[u];
+        const Head hd = transpose_head(st, nullptr, rotT, t, j);
+        const float cb = hd.cb, hca = st.h * hd.ca;
+        T* rowb = tb + (size_t)pt * Ep;
+        T* rows_ = ts + (size_t)pt * Ep;
+        auto put = [&](int col, float v) { put_du(rowb, rows_, col, v); };
+        // T2/T1: v family
+        put(j, st.v * cb + hca);
+        float s = sinf(st.v), c = cosf(st.v);
+        for (int l = 0; l < vL; ++l) {
+          if (l) {
+            float s2 = 2.f * s * c, c2 = (c - s) * (c + s);
+            s = s2;
+            c = c2;
+          }
+          float f = (float)(1 << l);
+          put(21 + 21 * l + j, s * cb + f * c * hca);
+          put(21 + 21 * (vL + l) + j, c * cb - f * s * hca);
+        }
+        // what the r family reads: cd = cb on every channel of the bone
+        scb[u] = cb;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) shc[pt * 63 + 3 * j + k] = st.h * hd.cc[k];
+      } else {
+        const int w = u - nh, pt = w / oc, c0 = (w - pt * oc) * 8;
+        const size_t m = (size_t)(p0 + pt);
+        const float* dxr = dx + m * ldx;
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = c0 + i;
+          v[i] = col == 0 ? dsdf[m] : (col <= F ? dxr[Ep + col - 1] : 0.f);
+        }
+        store_f32x8(tf + (size_t)pt * Op + c0, v);
+        store8(tz + (size_t)pt * Op + c0, v);
+      }
+    }
+    __syncthreads();
+    // pass 3: (point, bone, channel) T4/T3, the r family
+    for (int u = tid; u < rows * 63; u += BWR_THREADS) {
+      const int pt = u / 63, k = u - pt * 63, bone = pt * 21 + k / 3;
+      const float x = sst[bone].rr[k % 3], hc = shc[u], cb = scb[bone];
+      T* rowb = tb + (size_t)pt * Ep;
+      T* rows_ = ts + (size_t)pt * Ep;
+      auto put = [&](int col, float v) { put_du(rowb, rows_, col, v); };
+      put(rb + k, x * cb + hc);
+      float sr = sinf(x), cr = cosf(x);
+      for (int l = 0; l < rL; ++l) {
+        if (l) {
+          float s2 = 2.f * sr * cr, c2 = (cr - sr) * (cr + sr);
+          sr = s2;
+          cr = c2;
+        }
+        float f = (float)(1 << l);
+        put(rb + 63 + 63 * l + k, sr * cb + f * cr * hc);
+        put(rb + 63 + 63 * (rL + l) + k, cr * cb - f * sr * hc);
+      }
+    }
+    fence_proxy_async_shared();  // the generic writes, before the bulk copies read them
+    __syncthreads();
+    if (tid == 0) {
+      const size_t m0 = (size_t)p0;
+      const unsigned du_row = (unsigned)(Ep * sizeof(T)), dz_row = (unsigned)(Op * sizeof(T));
+      bulk_store_rows(du_b + m0 * lddu, (size_t)lddu * sizeof(T), tb, du_row, rows);
+      bulk_store_rows(du_s + m0 * lddu, (size_t)lddu * sizeof(T), ts, du_row, rows);
+      bulk_store_rows(dzf + m0 * lddz, (size_t)lddz * 4, tf, (unsigned)(Op * 4), rows);
+      bulk_store_rows(dzb + m0 * lddz, (size_t)lddz * sizeof(T), tz, dz_row, rows);
+      bulk_commit();
     }
   }
+  if (tid == 0) bulk_wait<0>();
 }
 
 // One warp per point, lane j < 21 = bone j: the embedding forward
@@ -377,6 +535,10 @@ extern "C" int honerf_color_dz_f32(const float* packed, const float* dcolor, int
   return honerf_color_dz_t(packed, dcolor, M, dzf, dzb, ld, width, stream);
 }
 
+// Refused (cudaErrorInvalidValue) where the tiles' bulk copies or shared
+// memory do not fit: du_b, du_s, dzf, dzb 16-byte aligned, their rows
+// and row strides multiples of 16 bytes (Op and lddz multiples of 8), E
+// <= Ep <= BWR_EP_MAX <= lddu, Op <= BWR_OP_MAX <= lddz, L <= BWR_L_MAX.
 template <typename T>
 static int honerf_fine_bwd_rev_t(const float* pts, int M, const float* rotT, const float* off,
                                  const float* cut, int vL, int rL, const float* packed,
@@ -384,10 +546,28 @@ static int honerf_fine_bwd_rev_t(const float* pts, int M, const float* rotT, con
                                  int Ep, int F, int Fp, int L, T* du_b, T* du_s, int lddu,
                                  float* dgt, float* dzf, T* dzb, int lddz, int Op,
                                  cudaStream_t stream) {
-  if (M > 0)
-    honerf::fine_bwd_rev_kernel<T><<<(M + 7) / 8, 256, 0, stream>>>(
-        pts, M, rotT, off, cut, vL, rL, packed, dsdf, dg, dx, ldx, Ep, F, Fp, L, du_b, du_s, lddu,
-        dgt, dzf, dzb, lddz, Op);
+  const int E = 21 * (1 + 2 * vL) + 63 * (1 + 2 * rL);
+  if (vL < 0 || rL < 0 || L < 0 || L > honerf::BWR_L_MAX || Ep < E ||
+      Ep > honerf::BWR_EP_MAX || lddu < Ep || (Ep * (int)sizeof(T)) % 16 ||
+      (lddu * (int)sizeof(T)) % 16 || Op <= 0 || Op % 8 || Op > honerf::BWR_OP_MAX ||
+      lddz < Op || lddz % 8 || honerf_misaligned16(du_b) || honerf_misaligned16(du_s) ||
+      honerf_misaligned16(dzf) || honerf_misaligned16(dzb))
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0) return (int)cudaGetLastError();
+  static bool smem_set = false;  // raise the dynamic shared-memory cap once per process
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(honerf::fine_bwd_rev_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           honerf::BWR_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const int tiles = (M + honerf::bwr_points<T>() - 1) / honerf::bwr_points<T>();
+  const int slots = honerf::BWR_BLOCKS_PER_SM * honerf::wg::sm_count();
+  honerf::fine_bwd_rev_kernel<T><<<tiles < slots ? tiles : slots, honerf::BWR_THREADS,
+                                   honerf::bwr_smem_bytes<T>(Ep, Op), stream>>>(
+      pts, M, rotT, off, cut, vL, rL, packed, dsdf, dg, dx, ldx, Ep, F, Fp, L, du_b, du_s, lddu,
+      dgt, dzf, dzb, lddz, Op);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 // (fused_fine_full.cu K2, fused_fine_bwd.cu K3, fused_trunk.cu K5/K6):
 //
 //  * uchain_seed_kernel: the u-chain's first step, against the one-hot sdf
-//    column;
+//    column: persistent blocks, each thread on 8 consecutive columns of a
+//    row (16-byte loads and stores), the column's coefficients read once;
 //  * gemm_tn_kernel + reduce_partials_kernel: dW = X^T Y over the point
 //    axis, split over points into f32 partials summed in a fixed order
 //    (the mainloop: wgmma.cuh, both operands MN-major);
@@ -29,17 +30,51 @@ namespace honerf {
 
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 
-// t[m, j] = T(W_last[j, 0] * s[m, j]): the first u-chain step, whose
-// input is the one-hot sdf column (T: bf16, or f32 in the f32 mode).
+// ---------------------------------------------------------------------------
+// The u-chain's seed (the first step of the u-chain in the bodies of K5,
+// honerf_tpu/ops/fused_fine.py:452, and of K2 / K3 / K6)
+// ---------------------------------------------------------------------------
+//
+// t[m, j] = T(W_last[j, 0] * s[m, j]) for j < width: the first u-chain step,
+// whose input is the one-hot sdf column (T: bf16, or f32 in the f32 mode).
+//
+// Bound on an H100: bytes, s read once (4 B) and t written once
+// (sizeof(T)) an element: a bf16 request's 8 launches of 65,536 x 256 are
+// 0.240 ms at 3.35 TB/s.
+//
+// Design: each thread owns US_VEC = 8 consecutive columns of a row (two
+// float4 loads of s; one 16-byte store of 8 bf16, or two float4 stores in
+// f32) and holds their 8 coefficients W_last[j, 0] in registers, read
+// once; a block covers US_THREADS / (width / 8) rows a step and walks the
+// rows in a grid-stride loop over a persistent grid (US_BLOCKS_PER_SM
+// blocks a SM).  No integer division in the loop.  One f32 product
+// rounded once to T, as before the redesign: t keeps its bits.
+// Preconditions (the C entry point and the wrapper refuse the rest):
+// 16-byte-aligned s and t, width and ldt multiples of 8, width <=
+// US_WIDTH_MAX; s's rows are `width` apart.
+constexpr int US_THREADS = 256;
+constexpr int US_BLOCKS_PER_SM = 8;
+constexpr int US_VEC = 8;
+constexpr int US_WIDTH_MAX = US_VEC * US_THREADS;
+
 template <typename T>
-__global__ void uchain_seed_kernel(const T* __restrict__ w, int ldw,
-                                   const float* __restrict__ s, int width, int M,
-                                   T* __restrict__ t, int ldt) {
-  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * width) return;
-  int m = (int)(i / width), j = (int)(i % width);
-  float c = to_f32(w[(size_t)j * ldw]);
-  t[(size_t)m * ldt + j] = from_f32<T>(c * s[(size_t)m * width + j]);
+__global__ void __launch_bounds__(US_THREADS)
+    uchain_seed_kernel(const T* __restrict__ w, int ldw, const float* __restrict__ s, int width,
+                       int M, T* __restrict__ t, int ldt) {
+  const int vecs = width / US_VEC;           // threads a row
+  const int rows = US_THREADS / vecs;        // rows a block step
+  const int r = threadIdx.x / vecs, j0 = (threadIdx.x - r * vecs) * US_VEC;
+  if (r >= rows) return;
+  float c[US_VEC];
+#pragma unroll
+  for (int i = 0; i < US_VEC; ++i) c[i] = to_f32(w[(size_t)(j0 + i) * ldw]);
+  for (int m = blockIdx.x * rows + r; m < M; m += gridDim.x * rows) {
+    float v[US_VEC];
+    load_f32x8(s + (size_t)m * width + j0, v);
+#pragma unroll
+    for (int i = 0; i < US_VEC; ++i) v[i] = c[i] * v[i];
+    store8(t + (size_t)m * ldt + j0, v);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -300,14 +335,20 @@ __global__ void copy_cols_kernel(const T* __restrict__ src, int lds, int M, int 
 // Plain C entry points (loaded with ctypes); each returns cudaGetLastError().
 // ---------------------------------------------------------------------------
 
+// t[:M, :width] = T(w[:width, 0] * s[:M, :width]); refused
+// (cudaErrorInvalidValue) where the vector loads and stores do not fit.
 template <typename T>
 static int honerf_uchain_seed_t(const T* w, int ldw, const float* s, int width, int M, T* t,
                                 int ldt, cudaStream_t stream) {
-  size_t n = (size_t)M * width;
-  if (n) {
-    honerf::uchain_seed_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        w, ldw, s, width, M, t, ldt);
-  }
+  if (width <= 0 || width % honerf::US_VEC || width > honerf::US_WIDTH_MAX ||
+      ldt % honerf::US_VEC || ldt < width || honerf_misaligned16(s) || honerf_misaligned16(t))
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0) return (int)cudaGetLastError();
+  const int rows = honerf::US_THREADS / (width / honerf::US_VEC);
+  const int steps = (M + rows - 1) / rows;
+  const int slots = honerf::US_BLOCKS_PER_SM * honerf::wg::sm_count();
+  honerf::uchain_seed_kernel<T><<<steps < slots ? steps : slots, honerf::US_THREADS, 0, stream>>>(
+      w, ldw, s, width, M, t, ldt);
   return (int)cudaGetLastError();
 }
 

@@ -467,6 +467,10 @@ KERNEL_BWD = _build.Kernel(
 # pallas_calls' bodies (also K6's at honerf_tpu/ops/fused_fine.py:488).
 COLSUM = _build.Kernel("colsum_partial_kernel", "honerf_torch/ops/csrc/trunk.cuh",
                        "honerf_tpu/ops/fused_fine_full.py:1650")
+# the u-chain's first step, inside the bodies of K5 (honerf_tpu/ops/fused_fine.py:452)
+# and of K2, K3, K6
+UCHAIN = _build.Kernel("uchain_seed_kernel", "honerf_torch/ops/csrc/trunk.cuh",
+                       "honerf_tpu/ops/fused_fine.py:452")
 
 
 def type_trunk_lib(lib) -> None:
@@ -498,6 +502,32 @@ def _lib():
             fn.restype = _I
         lib._honerf_trunk_typed = True
     return lib
+
+
+def uchain_seed_plain(w, s, m: int, dtype) -> torch.Tensor:
+    """uchain_seed_kernel's function in plain PyTorch: t (m, width) =
+    dtype(w[:width, 0] * s[:m, :width]), one f32 product rounded once."""
+    width = s.shape[1]
+    return (s[:m].float() * w[:width, 0].float()).to(dtype)
+
+
+def uchain_seed(lib, w, s, m: int, t, stream) -> None:
+    """t[:m, :width] = T(w[:width, 0] * s[:m, :width]), width = s's columns
+    (T: t's type, bf16 or f32; csrc/trunk.cuh: uchain_seed_kernel).  On a
+    CPU t it writes uchain_seed_plain's rows and launches nothing."""
+    width = s.shape[1]
+    if t.device.type == "cpu":
+        t[:m, :width] = uchain_seed_plain(w, s, m, t.dtype)
+        return
+    if (s.dtype != torch.float32 or s.stride(1) != 1 or s.stride(0) != width
+            or t.stride(1) != 1 or w.dtype != t.dtype or m > min(s.shape[0], t.shape[0])):
+        raise ValueError("the u-chain seed takes dense f32 s rows, contiguous t columns of "
+                         "w's type and m rows of each")
+    PL.check_us_operands(s.data_ptr(), t.data_ptr(), width, t.stride(0))
+    fn = lib.honerf_uchain_seed_f32 if t.dtype == torch.float32 else lib.honerf_uchain_seed
+    UCHAIN.launches += 1
+    _build.check(fn(w.data_ptr(), w.stride(0), s.data_ptr(), width, m, t.data_ptr(),
+                    t.stride(0), stream), "honerf_uchain_seed")
 
 
 def copy_cols(lib, src, m: int, width: int, dst, stream) -> None:
@@ -656,10 +686,7 @@ def cuda_trunk_forward(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream, 
                  n_store=z.shape[1], a_scale=scale, stream=stream)
     # u-chain: t_{n-2} = W_{n-1}[:, 0] * s_{n-2}, then m_l = t_l W_l^T
     t = ts[n - 2] if keep else ts[0]
-    seed = lib.honerf_uchain_seed_f32 if tm.dtype == "f32" else lib.honerf_uchain_seed
-    _build.check(seed(
-        ws[n - 1].data_ptr(), ws[n - 1].stride(0), ss[n - 2].data_ptr(),
-        Hp, m, t.data_ptr(), t.stride(0), stream), "honerf_uchain_seed")
+    uchain_seed(lib, ws[n - 1], ss[n - 2], m, t, stream)
     for l in range(n - 2, -1, -1):
         wt = wts[l]                            # (out_pad, in_pad) = (Hp, in_pad)
         if l == 0:

@@ -58,6 +58,7 @@ from honerf_torch.models.embedding import CUTOFF_TAU
 from honerf_torch.ops import _build
 from honerf_torch.ops import fused_fine as FT
 from honerf_torch.ops import fused_hand as FH
+from honerf_torch.ops import perpoint_layout as PL
 from honerf_torch.ops.fused_fine import (_WS_FLOATS, PAD, _colsum, _round_up, _tn,  # noqa: F401
                                          chunk_size)
 
@@ -74,6 +75,11 @@ KERNEL = _build.Kernel(
     "honerf_tpu/ops/fused_fine_full.py:1556")
 KERNEL_BWD = _build.Kernel(
     "hand_fine_color_bwd", "honerf_torch/ops/csrc/fused_fine_bwd.cu",
+    "honerf_tpu/ops/fused_fine_full.py:1650")
+# K3's reverse-chain transpose (du, dg_total and the top cotangent), inside
+# its pallas_call's body (_fine_bwd_block)
+BWDREV = _build.Kernel(
+    "fine_bwd_rev_kernel", "honerf_torch/ops/csrc/fused_fine_bwd.cu",
     "honerf_tpu/ops/fused_fine_full.py:1650")
 
 
@@ -525,6 +531,67 @@ def _fine_bwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, cts, want
     return dp, drotT + p.T @ dq, dq.sum(0), dws, dbs, dcws, dcbs
 
 
+def fine_bwd_rev_plain(pts, rotT, off, cut, meta: FineMeta, packed, dsdf, dg, dx, dtype):
+    """fine_bwd_rev_kernel's function in plain PyTorch on the B rows given:
+    dgt = dg + the grad-PE transpose of dx's grad-PE columns at g =
+    packed[:, 1:4] (B, 3); du = the reverse chain transposed at dgt (the
+    du of _emb_rev_transpose_block, which reads neither u nor the chain),
+    zero-padded to Ep; the top cotangent dz = [dsdf | dx[:, Ep:Ep + F] |
+    0] (B, Op).  Returns (dtype(du), dtype(du / sqrt2), dgt, dz,
+    dtype(dz))."""
+    tm = meta.trunk_meta
+    E, Ep, Op, F = meta.emb_width, tm.Ep, tm.Op, meta.d_out - 1
+    B = pts.shape[0]
+    f32 = torch.float32
+    st = _emb_fwd_block(pts, rotT, off, cut, meta)
+    dgt = dg[:, :3] + _gpe_transpose(meta, packed[:, 1:4], dx[:, Ep + meta.Fp:])
+    u0 = torch.zeros((B, E), device=pts.device, dtype=f32)
+    _g, chain = _emb_rev_block(st, rotT, u0, meta)
+    du, _adj, _drotT = _emb_rev_transpose_block(st, chain, rotT, u0, dgt, meta)
+    du = torch.nn.functional.pad(du, (0, Ep - E))
+    dz = torch.zeros((B, Op), device=pts.device, dtype=f32)
+    dz[:, 0] = dsdf.reshape(-1)[:B]
+    dz[:, 1:1 + F] = dx[:, Ep:Ep + F]
+    return du.to(dtype), (du * FT.INV_SQRT2).to(dtype), dgt, dz, dz.to(dtype)
+
+
+def fine_bwd_rev(blib, pts, m: int, rotT, off, cut, meta: FineMeta, packed, dsdf, dg, dx, du_b,
+                 du_s, dgt, dzf, dzb, stream) -> None:
+    """K3's reverse-chain transpose on the first m points (csrc/fused_fine_bwd.cu:
+    fine_bwd_rev_kernel): du_b[:m, :Ep] = T(du), du_s[:m, :Ep] = T(du /
+    sqrt2), dgt[:m, :3] = dg_total, dzf[:m, :Op] / dzb[:m, :Op] = the top
+    cotangent in f32 / T (T: du_b's type, bf16 or f32).  On CPU outputs it
+    writes fine_bwd_rev_plain's rows and launches nothing."""
+    tm = meta.trunk_meta
+    Ep, Op = tm.Ep, tm.Op
+    if du_b.device.type == "cpu":
+        outs = fine_bwd_rev_plain(pts[:m], rotT, off, cut, meta, packed[:m], dsdf.reshape(-1)[:m],
+                                  dg[:m], dx[:m], du_b.dtype)
+        du_b[:m, :Ep], du_s[:m, :Ep], dgt[:m, :3] = outs[0], outs[1], outs[2]
+        dzf[:m, :Op], dzb[:m, :Op] = outs[3], outs[4]
+        return
+    T = du_b.dtype
+    if (du_s.dtype != T or dzb.dtype != T or dzf.dtype != torch.float32
+            or any(x.stride(1) != 1 for x in (du_b, du_s, dzf, dzb, dx))
+            or du_s.stride(0) != du_b.stride(0) or dzb.stride(0) != dzf.stride(0)
+            or dgt.stride(0) != 4 or m > min(x.shape[0] for x in (du_b, du_s, dzf, dzb, dx))):
+        raise ValueError("the reverse-chain transpose takes du_b, du_s (one type, one stride), "
+                         "f32 dzf beside dzb of that type, contiguous columns, a (C, 4) dgt "
+                         "and m rows of each")
+    PL.check_bwr_operands(
+        {"du_b": du_b.data_ptr(), "du_s": du_s.data_ptr(), "dzf": dzf.data_ptr(),
+         "dzb": dzb.data_ptr()}, du_b.stride(0), dzf.stride(0), du_b.element_size(),
+        meta.v_multires, meta.r_multires, Ep, Op, meta.grad_L)
+    fn = blib.honerf_fine_bwd_rev_f32 if T == torch.float32 else blib.honerf_fine_bwd_rev
+    BWDREV.launches += 1
+    _build.check(fn(
+        pts.data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
+        meta.v_multires, meta.r_multires, packed.data_ptr(), dsdf.data_ptr(),
+        dg.data_ptr(), dx.data_ptr(), dx.stride(0), Ep, meta.d_out - 1, meta.Fp, meta.grad_L,
+        du_b.data_ptr(), du_s.data_ptr(), du_b.stride(0), dgt.data_ptr(),
+        dzf.data_ptr(), dzb.data_ptr(), dzf.stride(0), Op, stream), "honerf_fine_bwd_rev")
+
+
 def hand_fine_color_plain(pts, rotT, off, cut, pack: FinePack, block: int = 4096):
     """The forward kernel's statements in plain PyTorch, in blocks of
     points (with or without the color net, as the pack's meta says)."""
@@ -781,7 +848,6 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
             dx = torch.zeros((C, meta.color_in), device=dev, dtype=f32)
             dsdf_c = torch.empty((C, 1), device=dev, dtype=f32)
         KERNEL_BWD.launches += 1
-    f32_mode = meta.dtype == "f32"
     for s in range(0, N, C or 1):
         m = min(C, N - s)
         acc = int(s > 0)
@@ -801,14 +867,8 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
             dsdf = dsdf_c
         # reverse-chain transpose at dg (+ the grad-PE term) -> du, and the
         # trunk's top cotangent [dsdf | dfeat]
-        bwd_rev = blib.honerf_fine_bwd_rev_f32 if f32_mode else blib.honerf_fine_bwd_rev
-        _build.check(bwd_rev(
-            pts[s:].data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
-            meta.v_multires, meta.r_multires, packed.data_ptr(), dsdf.data_ptr(),
-            dg[s:].data_ptr(), dx.data_ptr(), dx.stride(0), Ep, F, meta.Fp, meta.grad_L,
-            bw["du_b"].data_ptr(), bw["du_s"].data_ptr(), bw["du_b"].stride(0), dgt.data_ptr(),
-            dzf[0].data_ptr(), dzb[0].data_ptr(), dzf[0].stride(0), Op, stream),
-            "honerf_fine_bwd_rev")
+        fine_bwd_rev(blib, pts[s:], m, rotT, off, cut, meta, packed, dsdf, dg[s:], dx,
+                     bw["du_b"], bw["du_s"], dgt, dzf[0], dzb[0], stream)
         FT.cuda_trunk_backward(blib, m, e, pack.ws, pack.wts, tm, buf, bw, dws, dbs, want_dw,
                                acc, ws, stream)
         # embedding-forward transpose -> dp and the per-point pose rows

@@ -1,7 +1,10 @@
-"""The layout arithmetic of two per-point kernels, on the host:
+"""The layout arithmetic of the redesigned per-point kernels, on the host:
 `hand_embed_kernel` (csrc/common.cuh: the hand embedding e in tiles of
-points staged in shared memory, each stored by one bulk copy) and
-`colsum_partial_kernel` (csrc/trunk.cuh: db as a fixed-order column sum).
+points staged in shared memory, each stored by one bulk copy),
+`colsum_partial_kernel` (csrc/trunk.cuh: db as a fixed-order column sum),
+`uchain_seed_kernel` (csrc/trunk.cuh: the u-chain's seed, 8 columns a
+thread) and `fine_bwd_rev_kernel` (csrc/fused_fine_bwd.cu: K3's reverse
+chain transposed, tiles staged in shared memory like the embedding's).
 
 The constants here are the headers' `EMB_*` and `CS_*`, under the same
 names; tests/test_torch_perpoint_layout.py reads them from the headers and
@@ -20,11 +23,22 @@ contracts:
     torch f32;
   * `colsum_split` / `colsum_row_owner`: the column sum's rows per block,
     its grid, and which block, step, accumulator and warp add a row; the
-    order itself is `fused_fine.colsum_ordered_plain`.
+    order itself is `fused_fine.colsum_ordered_plain`;
+  * `US_*`, `us_rows` / `us_grid` / `us_columns`: the seed's rows a block
+    step, its persistent grid and which thread writes which columns;
+    `check_us_operands`: what the seed refuses;
+  * `BWR_*` (tests/test_torch_bwdrev_layout.py holds them to
+    csrc/fused_fine_bwd.cu), `bwr_points` / `bwr_smem_bytes` /
+    `bwr_tiles` / `bwr_grid`, `bwr_units` (which unit of which pass writes
+    which columns of which sub-tile), `bwr_bulk_copies` and
+    `bwr_tile_model` (the map with the kernel's arithmetic in torch f32);
+    `check_bwr_operands`: what the kernel refuses.
 
-Nothing on the main path calls these but `colsum_split` and
-`colsum_workspace` (the wrapper's split and its scratch check); the CUDA
-side computes the same numbers (`honerf_hand_embed_t`, `honerf_colsum`).
+Nothing on the main path calls these but `colsum_split`,
+`colsum_workspace`, `check_us_operands` and `check_bwr_operands` (the
+wrappers' checks); the CUDA side computes the same numbers
+(`honerf_hand_embed_t`, `honerf_colsum`, `honerf_uchain_seed_t`,
+`honerf_fine_bwd_rev_t`).
 """
 
 from __future__ import annotations
@@ -50,9 +64,29 @@ CS_ROW_STEP = CS_WARPS * CS_ACC
 CS_BLOCKS = 264
 CS_MAX_TILES = 64
 
+# csrc/trunk.cuh: uchain_seed_kernel
+US_THREADS = 256
+US_BLOCKS_PER_SM = 8
+US_VEC = 8
+US_WIDTH_MAX = US_VEC * US_THREADS
+# csrc/fused_fine_bwd.cu: fine_bwd_rev_kernel
+BWR_THREADS = 256
+BWR_BLOCKS_PER_SM = 3
+BWR_POINTS_BF16 = 4
+BWR_EP_MAX = 1536
+BWR_OP_MAX = 384
+BWR_L_MAX = 8
+BWR_STAGE_FLOATS = 21 * 10 + 21 + 63 + 3
+BWR_TILE_BYTES_MAX = BWR_POINTS_BF16 * (2 * BWR_EP_MAX * 2 + BWR_OP_MAX * (4 + 2))
+BWR_SMEM_MAX = 2 * BWR_TILE_BYTES_MAX + BWR_POINTS_BF16 * BWR_STAGE_FLOATS * 4
+
 CONSTANTS = ("EMB_THREADS", "EMB_BLOCKS_PER_SM", "EMB_POINTS_BF16", "EMB_LDE_MAX",
              "EMB_STAGE_FLOATS", "EMB_TILE_BYTES_MAX", "EMB_SMEM_MAX", "CS_THREADS", "CS_WARPS",
              "CS_COLS", "CS_ACC", "CS_ROW_STEP", "CS_BLOCKS", "CS_MAX_TILES")
+US_CONSTANTS = ("US_THREADS", "US_BLOCKS_PER_SM", "US_VEC", "US_WIDTH_MAX")
+BWR_CONSTANTS = ("BWR_THREADS", "BWR_BLOCKS_PER_SM", "BWR_POINTS_BF16", "BWR_EP_MAX",
+                 "BWR_OP_MAX", "BWR_L_MAX", "BWR_STAGE_FLOATS", "BWR_TILE_BYTES_MAX",
+                 "BWR_SMEM_MAX")
 SMEM_PER_SM = 233472     # an H100 SM's shared memory (228 KB)
 SMEM_RESERVED = 1024     # what the card reserves of it for each resident block
 
@@ -195,3 +229,205 @@ def colsum_row_owner(r: int, split: int) -> Tuple[int, int, int, int]:
     i, rest = divmod(rest, CS_ROW_STEP)
     k, w = divmod(rest, CS_WARPS)
     return s, i, k, w
+
+
+# ---------------------------------------------------------------------------
+# The u-chain's seed
+# ---------------------------------------------------------------------------
+
+def check_us_operands(s_base: int, t_base: int, width: int, ldt: int) -> None:
+    """Raise where honerf_uchain_seed refuses: s or t off a 16-byte
+    boundary, width or ldt not a multiple of US_VEC, width past
+    US_WIDTH_MAX or ldt below it."""
+    if (s_base % 16 or t_base % 16 or width <= 0 or width % US_VEC or width > US_WIDTH_MAX
+            or ldt % US_VEC or ldt < width):
+        raise ValueError(f"the u-chain seed moves 8 columns a thread in 16-byte loads and "
+                         f"stores: 16-byte-aligned s and t, width and ldt multiples of {US_VEC}, "
+                         f"width <= {US_WIDTH_MAX} <= ... (s {s_base:#x}, t {t_base:#x}, width "
+                         f"{width}, ldt {ldt})")
+
+
+def us_rows(width: int) -> int:
+    """Rows a block covers a step: US_THREADS / (width / US_VEC)."""
+    return US_THREADS // (width // US_VEC)
+
+
+def us_grid(M: int, width: int, sms: int = 132) -> int:
+    """Persistent blocks of one launch: US_BLOCKS_PER_SM a SM, at most one
+    a block step of rows."""
+    return min(_cdiv(M, us_rows(width)), US_BLOCKS_PER_SM * sms)
+
+
+def us_columns(M: int, width: int, block: int, thread: int, grid: int) -> List[Tuple[int, int]]:
+    """(row, first column) of each 8-column vector thread `thread` of block
+    `block` writes: its row offset r and column vector c, rows block rows +
+    r, (block + grid) rows + r, ... below M."""
+    vecs = width // US_VEC
+    rows = US_THREADS // vecs
+    r, c = divmod(thread, vecs)
+    if r >= rows:
+        return []
+    return [(m, c * US_VEC) for m in range(block * rows + r, M, grid * rows)]
+
+
+# ---------------------------------------------------------------------------
+# The reverse-chain transpose's tiles
+# ---------------------------------------------------------------------------
+
+def bwr_points(esize: int) -> int:
+    """P, the points of a tile, for an element of esize bytes (bf16 2, f32 4)."""
+    return BWR_POINTS_BF16 * 2 // esize
+
+
+def bwr_tile_bytes(Ep: int, Op: int, esize: int) -> int:
+    """One buffer: the du_b and du_s sub-tiles (P x Ep) and dzf, dzb (P x Op)."""
+    return bwr_points(esize) * (2 * Ep * esize + Op * (4 + esize))
+
+
+def bwr_smem_bytes(Ep: int, Op: int, esize: int) -> int:
+    """The block's dynamic shared memory: two buffers and the stage rows
+    (bone stages, cb, h cc, dg_total)."""
+    return 2 * bwr_tile_bytes(Ep, Op, esize) + bwr_points(esize) * BWR_STAGE_FLOATS * 4
+
+
+def bwr_subtile_offsets(Ep: int, Op: int, esize: int) -> Dict[str, Tuple[int, int]]:
+    """(byte offset in a buffer, bytes of a row) of each sub-tile."""
+    P = bwr_points(esize)
+    return {"du_b": (0, Ep * esize), "du_s": (P * Ep * esize, Ep * esize),
+            "dzf": (2 * P * Ep * esize, Op * 4), "dzb": (2 * P * Ep * esize + P * Op * 4, Op * esize)}
+
+
+def check_bwr_operands(bases: Dict[str, int], lddu: int, lddz: int, esize: int, vL: int,
+                       rL: int, Ep: int, Op: int, L: int) -> None:
+    """Raise where honerf_fine_bwd_rev refuses: an output (du_b, du_s, dzf,
+    dzb) off a 16-byte boundary, du rows or their stride not a multiple of
+    16 bytes, Op or lddz not a multiple of 8, widths outside [E, BWR_EP_MAX]
+    and (0, BWR_OP_MAX], strides below the widths, L past BWR_L_MAX."""
+    E = emb_width(vL, rL)
+    bad = [k for k, b in bases.items() if b % 16]
+    if (bad or not E <= Ep <= BWR_EP_MAX or lddu < Ep or Ep * esize % 16 or lddu * esize % 16
+            or not 0 < Op <= BWR_OP_MAX or Op % 8 or lddz < Op or lddz % 8
+            or not 0 <= L <= BWR_L_MAX):
+        raise ValueError(f"the reverse-chain transpose stores tiles by bulk copies: 16-byte-"
+                         f"aligned outputs (misaligned: {bad}), rows and strides of multiples "
+                         f"of 16 bytes, {E} <= Ep <= {BWR_EP_MAX} <= lddu, Op a multiple of 8 "
+                         f"<= {BWR_OP_MAX} <= lddz, L <= {BWR_L_MAX} (Ep {Ep}, lddu {lddu}, Op "
+                         f"{Op}, lddz {lddz}, L {L}, {esize}-byte elements)")
+
+
+def bwr_tiles(M: int, esize: int) -> int:
+    return _cdiv(M, bwr_points(esize))
+
+
+def bwr_grid(M: int, esize: int, sms: int = 132) -> int:
+    """Persistent blocks of one launch: BWR_BLOCKS_PER_SM a SM, at most one
+    a tile."""
+    return min(bwr_tiles(M, esize), BWR_BLOCKS_PER_SM * sms)
+
+
+def bwr_units(rows: int, vL: int, rL: int, Op: int) -> List[Tuple[int, int, str, List[Tuple[str, int]]]]:
+    """Each unit that writes a tile of `rows` points as (pass, point, kind,
+    [(sub-tile, column) written]): pass 2's (point, bone) units (the
+    v-part into du_b and du_s) and (point, 8 columns) units (dzf and dzb),
+    then pass 3's (point, bone, channel) units (the r-part).  Thread t of a
+    pass takes its units t, t + BWR_THREADS, ..."""
+    rb = 21 * (1 + 2 * vL)
+    out = []
+    for u in range(rows * 21):
+        pt, j = divmod(u, 21)
+        cols = [j] + [c for l in range(vL) for c in (21 + 21 * l + j, 21 + 21 * (vL + l) + j)]
+        out.append((2, pt, "v", [(a, c) for c in cols for a in ("du_b", "du_s")]))
+    oc = Op // 8
+    for w in range(rows * oc):
+        pt, c8 = divmod(w, oc)
+        out.append((2, pt, "dz", [(a, 8 * c8 + i) for i in range(8) for a in ("dzf", "dzb")]))
+    for u in range(rows * 63):
+        pt, k = divmod(u, 63)
+        cols = [rb + k] + [c for l in range(rL)
+                           for c in (rb + 63 + 63 * l + k, rb + 63 + 63 * (rL + l) + k)]
+        out.append((3, pt, "r", [(a, c) for c in cols for a in ("du_b", "du_s")]))
+    return out
+
+
+def bwr_pad_columns(P: int, Ep: int, vL: int, rL: int) -> List[Tuple[int, int, str, int]]:
+    """(buffer, point, sub-tile, column) of the zero padding written once:
+    columns [E, Ep) of the du_b and du_s rows of both buffers."""
+    E = emb_width(vL, rL)
+    pad = Ep - E
+    out = []
+    for i in range(4 * P * pad):
+        k, c = divmod(i, pad)
+        b, kr = divmod(k, 2 * P)
+        out.append((b, kr % P, "du_b" if kr < P else "du_s", E + c))
+    return out
+
+
+def bwr_bulk_copies(M: int, esize: int, Ep: int, lddu: int, Op: int, lddz: int,
+                    tile: int) -> List[Tuple[str, int, int]]:
+    """(output, byte offset, bytes) of tile `tile`'s bulk copies: one a
+    sub-tile whose rows are dense in the output, else one a row."""
+    P = bwr_points(esize)
+    p0 = tile * P
+    rows = min(P, M - p0)
+    out = []
+    for name, row, ld in (("du_b", Ep * esize, lddu * esize), ("du_s", Ep * esize, lddu * esize),
+                          ("dzf", Op * 4, lddz * 4), ("dzb", Op * esize, lddz * esize)):
+        if ld == row:
+            out.append((name, p0 * ld, rows * row))
+        else:
+            out += [(name, (p0 + r) * ld, row) for r in range(rows)]
+    return out
+
+
+def bwr_tile_model(pts, rotT, off, cut, vL: int, rL: int, packed, dsdf, dg, dx, Ep: int, F: int,
+                   Fp: int, L: int, Op: int):
+    """(du (M, Ep), dgt (M, 3), dz (M, Op)) in f32, filled unit by unit as
+    the kernel's map says, with its arithmetic: the grad-PE sum from
+    dg + dgpe[j] in level order, the bone stages, the head of the
+    transpose (cf = t rotT, cn, ca, cb, cc), one sin / cos per argument and
+    the double-angle recurrence, v cb + h ca, s cb + f c h ca, ..."""
+    from honerf_torch.ops.fused_hand import _emb_stages
+
+    M = pts.shape[0]
+    dgpe = dx[:, Ep + Fp:]
+    g = packed[:, 1:4]
+    t = dg[:, :3] + dgpe[:, :3]
+    for l in range(L):
+        f = float(2 ** l)
+        t = t + f * (torch.cos(g * f) * dgpe[:, (1 + l) * 8:(1 + l) * 8 + 3]
+                     - torch.sin(g * f) * dgpe[:, (1 + L + l) * 8:(1 + L + l) * 8 + 3])
+    st = _emb_stages(pts, rotT, off, cut)
+    q, v, sc, h, w3, rr = st["q"], st["v"], st["sc"], st["h"], st["w3"], st["rr"]
+    cf = t[:, 0:1] * rotT[0, :63] + t[:, 1:2] * rotT[1, :63] + t[:, 2:3] * rotT[2, :63]
+    cn = (2.0 * q * cf).reshape(M, 21, 3).sum(-1)
+    ca = 0.5 * cn / v
+    cb = -200.0 * sc * (1.0 - sc) * ca
+    w3c = (w3 * w3 * w3)
+    cc = -0.5 * q * w3c * torch.repeat_interleave(cn, 3, dim=-1) + w3 * cf
+    hca, hc = h * ca, torch.repeat_interleave(h, 3, dim=-1) * cc
+    cb3 = torch.repeat_interleave(cb, 3, dim=-1)
+    du = torch.full((M, Ep), float("nan"))
+    du[:, emb_width(vL, rL):] = 0.0
+    dz = torch.full((M, Op), float("nan"))
+    for _, _, kind, cols in bwr_units(1, vL, rL, Op):
+        cols = [c for a, c in cols if a in ("du_b", "dzf")]
+        if kind == "dz":
+            for c in cols:
+                dz[:, c] = dsdf.reshape(-1) if c == 0 else (dx[:, Ep + c - 1] if c <= F else 0.0)
+            continue
+        if kind == "v":
+            j = cols[0]
+            x, b, a, n = v[:, j], cb[:, j], hca[:, j], vL
+        else:
+            k = cols[0] - 21 * (1 + 2 * vL)
+            x, b, a, n = rr[:, k], cb3[:, k], hc[:, k], rL
+        vals = [x * b + a]
+        s, c = torch.sin(x), torch.cos(x)
+        for l in range(n):
+            if l:
+                s, c = 2.0 * s * c, (c - s) * (c + s)
+            f = float(2 ** l)
+            vals += [s * b + f * c * a, c * b - f * s * a]
+        for col, val in zip(cols, vals):
+            du[:, col] = val
+    return du, t, dz

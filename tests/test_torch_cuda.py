@@ -1073,3 +1073,140 @@ def test_colsum_matches_its_order_bit_for_bit(dev, N):
     acc = torch.ones((N,), device=dev)
     FF._colsum(blib, Z, N, M, acc, 1, ws, stream)
     assert torch.equal(acc, FT.colsum_ordered_plain(Z, N, M, torch.ones((N,), device=dev), 1))
+
+
+# uchain_seed_kernel (the u-chain's seed, 8 columns a thread, csrc/trunk.cuh)
+# and fine_bwd_rev_kernel (K3's reverse-chain transpose in tiles of points
+# staged in shared memory, csrc/fused_fine_bwd.cu).
+SEED_TYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+@pytest.mark.parametrize("kind", list(SEED_TYPES))
+@pytest.mark.parametrize("m", [1, 7, 70001])
+def test_uchain_seed_matches_plain_bit_for_bit(dev, kind, m):
+    """The seed alone at the flagship's widths (W_last 256 x 320, s 256
+    columns) into a NaN-filled t of more rows than it writes: the same
+    bits as uchain_seed_plain and as torch.mul(s, c, out=t) (one f32
+    product rounded once to the type), the rows past m untouched; one
+    launch."""
+    dtype = SEED_TYPES[kind]
+    gen = torch.Generator(device=dev).manual_seed(m)
+    w = (0.1 * torch.randn((256, 320), generator=gen, device=dev)).to(dtype)
+    s = torch.rand((m + 5, 256), generator=gen, device=dev)
+    t = torch.full((m + 5, 256), float("nan"), device=dev, dtype=dtype)
+    lib, stream = FT._lib(), torch.cuda.current_stream().cuda_stream
+    before = FT.UCHAIN.launches
+    FT.uchain_seed(lib, w, s, m, t, stream)
+    torch.cuda.synchronize()
+    assert FT.UCHAIN.launches == before + 1
+    assert torch.equal(t[:m], FT.uchain_seed_plain(w, s, m, dtype))
+    lib_t = torch.empty((m, 256), device=dev, dtype=dtype)
+    torch.mul(s[:m], w[:, 0].float(), out=lib_t)
+    assert torch.equal(t[:m], lib_t)
+    assert bool(torch.isnan(t[m:].float()).all())
+
+
+def test_uchain_seed_rejects_what_the_kernel_does_not_take(dev):
+    """s or t off a 16-byte boundary, a width or row stride not a multiple
+    of 8: the wrapper raises and the C entry point refuses
+    (cudaErrorInvalidValue), with no other path."""
+    w = torch.randn((256, 320), device=dev).to(torch.bfloat16)
+    buf = torch.rand((64, 272), device=dev)
+    tbuf = torch.zeros((64, 272), device=dev, dtype=torch.bfloat16)
+    lib, stream = FT._lib(), torch.cuda.current_stream().cuda_stream
+    for s, t in ((buf.view(-1)[1:64 * 256 + 1].view(64, 256), tbuf[:, :256]),
+                 (buf[:, :256].contiguous(), tbuf[:, 1:257]),
+                 (buf[:, :252].contiguous(), tbuf[:, :252])):
+        with pytest.raises(ValueError):
+            FT.uchain_seed(lib, w, s, 64, t, stream)
+    s = buf.view(-1)[1:64 * 256 + 1]
+    rc = lib.honerf_uchain_seed(w.data_ptr(), w.stride(0), s.data_ptr(), 256, 64,
+                                tbuf.data_ptr(), 272, stream)
+    assert rc == 1  # cudaErrorInvalidValue
+
+
+def _bwdrev_case(dev, m, dtype, seed=9):
+    """The flagship meta, pose, and seeded inputs of m points (+5 rows),
+    with NaN-filled outputs of m + 5 rows."""
+    meta = FF.FineMeta(v_multires=10, r_multires=7, d_hidden=256, n_layers=9, skip=4,
+                       d_out=257, dtype="f32" if dtype == torch.float32 else "bf16")
+    tm = meta.trunk_meta
+    joints, bt_inv, t_pose = _pose(dev)
+    pose = FH.pack_hand_pose(bt_inv, t_pose)
+    n = m + 5
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    packed = torch.randn((n, 8), generator=gen, device=dev)
+    ins = (_points(joints, n, seed=seed), pose, packed, torch.randn((n,), generator=gen, device=dev),
+           torch.randn((n, 3), generator=gen, device=dev),
+           torch.randn((n, meta.color_in), generator=gen, device=dev))
+    nan = float("nan")
+    outs = (torch.full((n, tm.Ep), nan, device=dev, dtype=dtype),
+            torch.full((n, tm.Ep), nan, device=dev, dtype=dtype),
+            torch.full((n, 4), nan, device=dev),
+            torch.full((n, tm.Op), nan, device=dev),
+            torch.full((n, tm.Op), nan, device=dev, dtype=dtype))
+    return meta, ins, outs
+
+
+@pytest.mark.parametrize("kind", list(SEED_TYPES))
+@pytest.mark.parametrize("which", ["1", "P-1", "70001"])
+def test_fine_bwd_rev_matches_plain(dev, kind, which):
+    """The reverse-chain transpose alone at the flagship's widths into
+    NaN-filled outputs of more rows than it writes: du_b, du_s, dgt, dzf
+    and dzb against fine_bwd_rev_plain on the same card inputs, bf16
+    under the kernel rule (median 1e-4, max 1e-2 of the range: one
+    rounding to bf16 after sin / cos of another library), f32 within 1e-4
+    of the range at the median and the max; du's padding exactly 0 (an
+    unwritten column stays NaN), dz exactly the plain version's, the rows
+    past m untouched; one launch."""
+    dtype = SEED_TYPES[kind]
+    m = {"1": 1, "P-1": PL.bwr_points(torch.empty((), dtype=dtype).element_size()) - 1,
+         "70001": 70001}[which]
+    meta, (pts, (rotT, off, cut), packed, dsdf, dg, dx), outs = _bwdrev_case(dev, max(m, 1), dtype)
+    blib, stream = FF._bwd_lib(), torch.cuda.current_stream().cuda_stream
+    before = FF.BWDREV.launches
+    FF.fine_bwd_rev(blib, pts, m, rotT, off, cut, meta, packed, dsdf, dg, dx, *outs, stream)
+    torch.cuda.synchronize()
+    assert FF.BWDREV.launches == before + 1
+    want = FF.fine_bwd_rev_plain(pts[:m], rotT, off, cut, meta, packed[:m], dsdf[:m], dg[:m],
+                                 dx[:m], dtype)
+    got = (outs[0], outs[1], outs[2][:, :3], outs[3], outs[4])
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, w in zip(got[:3], want[:3]):
+        err = (g[:m].float() - w.float()).abs().flatten()
+        scale = max(float(w.float().abs().max()), 1e-6)
+        assert bool(torch.isfinite(g[:m].float()).all())
+        assert float(err.median()) <= 1e-4 * scale and float(err.max()) <= tol * scale
+    E = meta.emb_width
+    assert bool((outs[0][:m, E:] == 0).all()) and bool((outs[1][:m, E:] == 0).all())
+    assert torch.equal(got[3][:m], want[3]) and torch.equal(got[4][:m], want[4])
+    for g in got:
+        assert bool(torch.isnan(g[m:].float()).all())
+
+
+def test_fine_bwd_rev_rejects_what_the_kernel_does_not_take(dev):
+    """An output off a 16-byte boundary, or dz rows not a multiple of 8
+    columns apart: the wrapper raises and the C entry point refuses
+    (cudaErrorInvalidValue), with no other path."""
+    meta, (pts, (rotT, off, cut), packed, dsdf, dg, dx), outs = _bwdrev_case(dev, 64,
+                                                                            torch.bfloat16)
+    blib, stream = FF._bwd_lib(), torch.cuda.current_stream().cuda_stream
+    du_b, du_s, dgt, dzf, dzb = outs
+    n = du_b.shape[0]
+    off_du = torch.zeros((n * 1408 + 8,), device=dev, dtype=torch.bfloat16)[1:1 + n * 1408]
+    wide_f, wide_b = (torch.zeros((n, 336), device=dev, dtype=d)
+                      for d in (torch.float32, torch.bfloat16))
+    narrow_f, narrow_b = (torch.zeros((n, 324), device=dev, dtype=d)
+                          for d in (torch.float32, torch.bfloat16))
+    for bad in ((off_du.view(n, 1408), du_s, dgt, dzf, dzb),
+                (du_b, du_s, dgt, wide_f[:, 1:321], wide_b[:, :320]),
+                (du_b, du_s, dgt, narrow_f[:, :320], narrow_b[:, :320])):
+        with pytest.raises(ValueError):
+            FF.fine_bwd_rev(blib, pts, 64, rotT, off, cut, meta, packed, dsdf, dg, dx, *bad,
+                            stream)
+    rc = blib.honerf_fine_bwd_rev(
+        pts.data_ptr(), 64, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(), 10, 7,
+        packed.data_ptr(), dsdf.data_ptr(), dg.data_ptr(), dx.data_ptr(), dx.stride(0), 1408, 256,
+        256, 4, du_b.data_ptr() + 8, du_s.data_ptr(), 1408, dgt.data_ptr(), dzf.data_ptr(),
+        dzb.data_ptr(), 320, 320, stream)
+    assert rc == 1  # cudaErrorInvalidValue
