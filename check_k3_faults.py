@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
 """What the card-side checks of K3 (the fine pass's backward), K6 (the
-trunk + u-chain's backward), their f32 modes and the fit step catch: each
-check is read on the sound kernels and on planted faults.
+trunk + u-chain's backward), their f32 modes, the fit step, the per-point
+kernels, K4 and the padded-row copy catch: each check is read on the
+sound kernels and on planted faults.
 
     python3 check_k3_faults.py [--out readings.json] [--only sound,k6_du_skip_unscaled]
                                [--groups f32,fit]
 
 Needs a CUDA device.  Each fault in FAULTS is one small edit of the
-backward kernels' sources (honerf_torch/ops/csrc/*.cu[h],
+kernels' sources (honerf_torch/ops/csrc/*.cu[h],
 honerf_torch/ops/fused_fine.py and fused_fine_full.py; K3 and K6 share the
 trunk's backward launches and epilogues, so a fault there breaks both),
 made in a copy of honerf_torch under build/k3_faults/<name>/, whose kernels
 build there; a child process runs the checks on that copy.  "sound" is an
 unedited copy and reads every check; a fault reads the checks of its
 groups (bf16: the first eight below, f32: the next six, fit: the next
-six, perpoint: the last; --groups reads only the named groups, and skips
+six, perpoint: the last three; --groups reads only the named groups, and skips
 the faults with none of them).  The checks, with the limits they hold:
 
   kernel  chip_smoke.py's K3 phase on one flagship train step's own
@@ -91,7 +92,14 @@ the faults with none of them).  The checks, with the limits they hold:
           same bits on a rerun, uchain_seed_kernel bit for bit against
           uchain_seed_plain and torch.mul, fine_bwd_rev_kernel against
           fine_bwd_rev_plain (the kernel rule; f32 TOL_F32; padding 0, dz
-          exact) (the perpoint group).
+          exact) (the perpoint group);
+  k4      K4 (obj_sdf_fused_kernel) against fused_obj_sdf_plain on the
+          object conf's net at 1, 63, 64, 65, 1,001 and 65,613 points, the
+          kernel rule (max |err| / range; the perpoint group);
+  copy    copy_cols_kernel at chip_smoke.copy_calls (a 'full_nocolor'
+          step's four calls and a 'pallas' step's), bit for bit against
+          copy_cols_plain and copy_, the rest of the destination untouched
+          (the perpoint group).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -120,6 +128,7 @@ _TRUNK_CUH = "honerf_torch/ops/csrc/trunk.cuh"
 _WGMMA_CUH = "honerf_torch/ops/csrc/wgmma.cuh"
 _FULL_PY = "honerf_torch/ops/fused_fine_full.py"
 _K1_PY = "honerf_torch/ops/fused_hand.py"
+_SDF_CU = "honerf_torch/ops/csrc/fused_sdf.cu"
 
 # name -> (what it breaks, file, text, replacement, groups of checks it is
 # read by); the text must occur exactly once in the file
@@ -247,6 +256,24 @@ FAULTS = {
         "  if (r >= rows) return;\n  float c[US_VEC];",
         "  if (r >= rows || j0 + US_VEC == width) return;\n  float c[US_VEC];",
         ("bf16", "perpoint")),
+    "k4_skip_unscaled": (
+        "K4's es tile keeps e without the skip's 1/sqrt2", _SDF_CU,
+        "__float2bfloat16_rn(v * p.skip_scale);", "__float2bfloat16_rn(v);", ("perpoint",)),
+    "k4_pe_tail": (
+        "K4's prologue leaves the tile's last row's PE unwritten (what shared memory held)",
+        _SDF_CU, "    const uint32_t off = k4_offset(64 * c + r, col);",
+        "    if (64 * c + r == K4_TILE - 1) return;\n"
+        "    const uint32_t off = k4_offset(64 * c + r, col);", ("perpoint",)),
+    "copy_tail_col": (
+        "the padded-row copy leaves each row's last column unwritten where it falls past the "
+        "body's vectors", _TRUNK_CUH,
+        "if (lane < width - t0) d[t0 + lane] = to_f32(s[t0 + lane]);",
+        "if (lane < width - t0 - 1) d[t0 + lane] = to_f32(s[t0 + lane]);", ("perpoint",)),
+    "copy_head_misaligned": (
+        "the padded-row copy skips the scalar head of a row whose destination is off a 16-byte "
+        "boundary", _TRUNK_CUH,
+        "if (lane < h) d[lane] = to_f32(s[lane]);", "if (lane < 0) d[lane] = to_f32(s[lane]);",
+        ("perpoint",)),
 }
 GROUPS = ("bf16", "f32", "fit", "perpoint")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
@@ -424,7 +451,33 @@ def child(name: str, root: str, groups) -> None:
                          for r in seeds]
                       + [[f"bwdrev {r.m} {r.dtype}", r.max_abs if r.ok else float("inf"), r.ok]
                          for r in revs]}
+        out["k4"] = {"0": k4_rows(CS, torch, dev)}
+        out["copy"] = {label: [[f"copy {r.width} {r.dtype} +{r.so}",
+                                r.max_abs if r.ok else float("inf"), r.ok]
+                               for r in CS.copy_readings(torch, dev, calls, timed=False)]
+                       for label, calls in CS.copy_calls(torch).items()}
     print(json.dumps(out))
+
+
+def k4_rows(CS, torch, dev):
+    """[what, max |err| / range, within the kernel rule] of K4 against its
+    plain version on the object conf's net, at the card test's sizes (a
+    point, the consumer halves' edges, a ragged size, more tiles than SMs)."""
+    import numpy as np
+
+    from honerf_torch.ops import fused_sdf as FS
+
+    obj = CS.obj_flagship(torch, dev)
+    fused = FS.FusedObjSDF(obj.params["sdf"], obj.sdf)
+    rng = np.random.default_rng(1)
+    rows = []
+    for n in (1, 63, 64, 65, 1001, 65536 + 77):
+        pts = torch.as_tensor(rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32), device=dev)
+        got, want = fused(pts), FS.fused_obj_sdf_plain(pts, fused.ws, fused.bs, fused.meta)
+        ok = CS.compare(torch, "sdf", got, want)[0] and bool(torch.isfinite(got).all())
+        _, _, mx, scale = CS.err_readings(torch, got, want)
+        rows.append([f"k4 {n}", mx / scale, ok])
+    return rows
 
 
 def judge(CS, res):
@@ -443,7 +496,8 @@ def judge(CS, res):
                     over.append(f"{what}@{seed}")
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
-    for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt"):
+    for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt",
+                  "k4", "copy"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []

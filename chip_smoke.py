@@ -72,16 +72,24 @@ Phases, each of which fails the run when it fails:
               under the embedding's rule (f32: TOL_F32), NaN-filled
               outputs, padding exactly 0, dz exactly; ms beside the plain
               versions, the bounds and the library yardsticks (the column
-              sum: Z[:m, :N].sum(0); the seed: torch.mul); then the
-              yardsticks of copy_cols_kernel (a 'full_nocolor' step's
-              copies, dst[:, :w].copy_(src[:, :w])), the pose sum
-              (P[:m].sum(0)) and reduce_partials_kernel (ws.sum(0)), whose
-              own times come from the profiles;
- 10. kernel K4  the object SDF against its plain version on the card,
-              full-width object net of confs/wmask_realobj_bean.conf, at
-              a 65,536-point grid chunk, a ragged size and 1,048,576
-              points, with its time, the plain version's, its bound (the
-              sdf column's products) and ms per million points;
+              sum: Z[:m, :N].sum(0); the seed: torch.mul); copy_cols_kernel
+              at the calls a 'full_nocolor' and a 'pallas' step make
+              (recorded, with their operands' offsets mod 16 bytes: the
+              dfeat copy reads dout[:, 1:]) bit for bit against
+              copy_cols_plain and torch's copy_, the rest of each
+              NaN-filled destination untouched, ms beside
+              dst[:, :w].copy_(src[:, :w]) and its bound; then the
+              yardsticks of the pose sum (P[:m].sum(0)) and
+              reduce_partials_kernel (ws.sum(0)), whose own times come
+              from the profiles;
+ 10. kernel K4  the object SDF (obj_sdf_fused_kernel, one launch a call)
+              against its plain version on the card, full-width object
+              net of confs/wmask_realobj_bean.conf, at a 65,536-point grid
+              chunk, a ragged size and 1,048,576 points, with its time, the
+              plain version's, both bounds (the tensor cores' for the sdf
+              column's products, the special-function units' for
+              softplus's ex2 and lg2) and ms per million points; then the
+              256 calls of a 256^3 grid;
  11. obj train  the object model's offline train step
               (train.offline.make_obj_train_step) at the conf as written:
               441 rays, 64 + 64 samples, 4 up-sample steps, perturb 1, f32
@@ -101,8 +109,10 @@ Phases, each of which fails the run when it fails:
               version on the card (the kernel rule), and both through
               marching cubes: vertex and triangle counts within 1%, and
               every K4 vertex within one voxel of the plain mesh
-              (chunked torch.cdist on the card).  K4's phase profiles one
-              grid chunk (a mesh is 256 of them).
+              (chunked torch.cdist on the card); then one 256^3 grid
+              under torch.profiler: K4 is one obj_sdf_fused_kernel launch
+              a chunk, no GEMM and no embedding kernel.  K4's phase
+              profiles 16 grid chunks (a mesh is 256 of them).
 
 The hand's other fine-pass modes (train.fused_fine), between 9 and 10:
 
@@ -122,7 +132,9 @@ The hand's other fine-pass modes (train.fused_fine), between 9 and 10:
               launched, K2 and K3 not; finite losses, se3_refine moved; one
               step under torch.profiler;
  18. train full_nocolor  the same with 'full_nocolor', 3 + 10 steps: K1, K2
-              and K3 launched, K5 and K6 not; one step under torch.profiler;
+              and K3 launched, K5 and K6 not; one step under torch.profiler
+              (in both, copy_cols_kernel launched: its count, COPY, goes
+              into the kernels line);
  19. train check pallas  one 64-ray, perturb-0 'pallas' step on the card
               against the CPU (plain versions), the train check's limits;
  20. serve pallas  one 4096-ray request through make_hand_eval_render
@@ -156,7 +168,9 @@ no ladder kernel unless train.fused_ladder is set), after 20:
               the autograd field, 3 warm-up and 20 timed steps each: the
               launch counts, one step's kernels by name (f32 GEMMs and TN
               GEMMs, no bf16 one), finite losses, se3_refine moved; one
-              'full' step under torch.profiler;
+              'full' and one 'pallas' step under torch.profiler, and the
+              bound of reduce_partials_kernel over a 'full' step's
+              recorded dW products;
  27. train check f32  one 64-ray step per kernel mode, card against CPU;
  28. serve f32  one 4096-ray 'full' request (the eval render's K1
               ladder, whatever the trunk's dtype, as in the JAX package; K2
@@ -207,12 +221,14 @@ catches).  The last lines of stdout are the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
 numbers (each kernel's other modes beside it: no-color, f32, f32 at a
 request, f32 no-color, f32 with dW; the bf16 and the f32 GEMMs alone and
-the per-point kernels EMBED, COLSUM, UCHAIN and BWDREV in rows of their
-own; UCHAIN and BWDREV count launches on every path that runs them:
-served images and requests, each train mode, the fit CLI), and the
-result line.  Before them, every per-point kernel's launches and device
-time in each profiled path (log_perpoint_profiles).  Exits nonzero, printing
-no result, when no CUDA device is present or a phase fails.
+the per-point kernels EMBED, COLSUM, UCHAIN, BWDREV and COPY in rows of
+their own; UCHAIN and BWDREV count launches on every path that runs them:
+served images and requests, each train mode, the fit CLI; COPY on the
+'full_nocolor' and 'pallas' train paths; K4 on the mesh path, with both
+bounds and a 256^3 grid's time), and the result line.  Before them, every
+per-point kernel's launches and device time in each profiled path
+(log_perpoint_profiles).  Exits nonzero, printing no result, when no CUDA
+device is present or a phase fails.
 """
 
 from __future__ import annotations
@@ -229,6 +245,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONF = os.path.join(ROOT, "confs", "wmask_realhand_hand1.conf")
 OBJ_CONF = os.path.join(ROOT, "confs", "wmask_realobj_bean.conf")
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
+# the special-function units (ex2, lg2, ...): 16 a clock an SM, at the
+# card's maximum SM clock (mufu_peak)
+MUFU_PER_CLOCK = 16
 PEAK_F32_FLOPS = 67e12     # H100 SXM FP32 on the CUDA cores (no tensor cores)
 # f32 work on the tensor cores as split-precision 3xTF32 (the f32 GEMMs):
 # three TF32 products at 495 TFLOP/s per f32 product
@@ -406,6 +425,18 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
+def mufu_peak(torch):
+    """The special-function units' peak, operations a second: MUFU_PER_CLOCK
+    x the card's SMs x its maximum SM clock as nvidia-smi reads it
+    (clocks.max.sm); and that clock in MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return MUFU_PER_CLOCK * sms * mhz * 1e6, mhz
+
+
 def err_readings(torch, got, want, scale=None):
     """(median, p99, max) of |got - want| over every element, and the
     output's range (max |want| unless given)."""
@@ -547,6 +578,15 @@ def k4_flops(obj_cfg, n: float) -> float:
         for l in range(last + 1))
 
 
+def k4_mufu_ops(obj_cfg, n: float) -> float:
+    """The special-function operations of the object SDF forward on n
+    points: softplus's two (ex2 and lg2) on each hidden layer's outputs."""
+    d = obj_cfg.dims
+    last = len(d) - 2
+    return 2.0 * n * sum(d[l + 1] - (obj_cfg.input_width if l + 1 in obj_cfg.skip_in else 0)
+                         for l in range(last))
+
+
 def clone_tree(tree, device):
     if isinstance(tree, dict):
         return {k: clone_tree(v, device) for k, v in tree.items()}
@@ -635,6 +675,31 @@ def device_kernel_names(torch, fn):
         torch.cuda.synchronize()
     return Counter(evt.name.split("(")[0] for evt in prof.events()
                    if evt.device_type == DeviceType.CUDA and "spin_kernel" not in evt.name)
+
+
+def graph_kernel_nodes(torch, fn):
+    """The nodes of a CUDA graph captured from fn(), each as its label in
+    CUDA's dump of it (torch's CUDAGraph.debug_dump, cudaGraphDebugDotPrint):
+    every launch and copy the call issues on its stream, counted by CUDA
+    and not by a wrapper's counter, with no trace to lose.  fn must have
+    run once before (a first call's one-time set-up)."""
+    import re
+    import warnings
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)   # the graph kept for its dump
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
+        fn()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "graph_kernel_nodes.dot")
+    with warnings.catch_warnings():   # torch warns that it dumps
+        warnings.simplefilter("ignore")
+        g.debug_dump(path)
+    with open(path) as f:
+        dot = f.read()
+    os.remove(path)
+    g.reset()
+    return re.findall(r'"graph_\d+_node_\d+"\s*\[[^\]]*?label="(.*?)"\]', dot, re.S)
 
 
 def nbytes(ts) -> int:
@@ -803,7 +868,8 @@ def record_perpoint_calls(fn):
     calls, in launch order: .embed [(m, vL, rL, lde, dtype)], .colsum
     [(N, m, ldz)], .seed [(m, width, ldt, dtype)] (the u-chain's seed),
     .bwdrev [(m, meta, ldx, lddu, lddz)] (K3's reverse-chain transpose),
-    .copy [(m, width, src dtype, lds, ldd)] (copy_cols) and .tn [(K, N, m,
+    .copy [(m, width, src dtype, lds, ldd, src and dst offsets mod 16 bytes
+    in elements)] (copy_cols) and .tn [(K, N, m,
     dtype)] (the dW products, whose partials reduce_partials_kernel
     sums)."""
     from honerf_torch.ops import fused_fine as FT
@@ -834,7 +900,8 @@ def record_perpoint_calls(fn):
                       dzf, dzb, stream)
 
     def rec_copy(lib, src, m, width, dst, stream):
-        rec.copy.append((m, width, src.dtype, src.stride(0), dst.stride(0)))
+        rec.copy.append((m, width, src.dtype, src.stride(0), dst.stride(0),
+                         src.data_ptr() % 16 // src.element_size(), dst.data_ptr() % 16 // 4))
         return copy(lib, src, m, width, dst, stream)
 
     def rec_tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
@@ -1116,6 +1183,81 @@ def bwdrev_readings(torch, dev, pose, pts, calls, timed: bool = True):
     return out
 
 
+def reduce_bound_ms(calls) -> float:
+    """The bytes bound of reduce_partials_kernel over a step's dW products
+    {(K, N, m, dtype): count}: each product's f32 partials read once and
+    its dW written once, the split as ops/fused_fine.py's _tn picks it
+    (bf16: wgmma_layout.tn_split over _TN_BLOCKS_BF16 blocks, BM x BN_TN
+    tiles; f32: _TN_BLOCKS blocks of 128 x 128 tiles, splits a multiple of
+    32 points)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import wgmma_layout as WL
+
+    up = lambda x, k: -(-x // k) * k  # noqa: E731
+    total = 0.0
+    for (K, N, m, dt), count in calls.items():
+        if str(dt) == "torch.float32":
+            tiles = -(-K // FT._TN_TILE) * -(-N // FT._TN_TILE)
+            splits = max(1, min(-(-FT._TN_BLOCKS // tiles), -(-m // 256)))
+            split = up(-(-m // splits), 32)
+            Kp, Np = up(K, FT._TN_TILE), up(N, FT._TN_TILE)
+        else:
+            split = WL.tn_split(K, N, m, FT._TN_BLOCKS_BF16)
+            Kp, Np = up(K, WL.BM), up(N, WL.BN_TN)
+        total += count * bound(0.0, 4 * (-(-m // split) * Kp * Np + K * N))[0]
+    return total
+
+
+def copy_calls(torch):
+    """The copy_cols calls of a flagship bf16 step (56,448 rows), as the
+    recording gives them, (m, width, src dtype, lds, ldd, src offset, dst
+    offset) -> count: a 'full_nocolor' step's four (K2's e, K3's de, dfeat
+    from dout[:, 1:] 4 bytes into its row, dsdf) and a 'pallas' step's two
+    (K5's u, K6's de)."""
+    m, f32 = TRAIN_FINE_PTS, torch.float32
+    return {"full_nocolor": {(m, 1386, torch.bfloat16, 1408, 1386, 0, 0): 1,
+                             (m, 1386, f32, 1386, 1792, 0, 0): 1,
+                             (m, 256, f32, 257, 1792, 1, 0): 1, (m, 1, f32, 257, 1, 0, 0): 1},
+            "pallas": {(m, 1386, f32, 1408, 1386, 0, 0): 2}}
+
+
+def copy_readings(torch, dev, calls, timed: bool = True):
+    """copy_cols_kernel at each call {(m, width, src dtype, lds, ldd, src
+    offset, dst offset): count} on seeded sources laid out as the call's
+    (the offsets: elements past a 16-byte boundary), into NaN-filled
+    destinations: the same bits as copy_cols_plain and as torch's copy_,
+    every other destination element untouched; ms beside
+    dst[:, :w].copy_(src[:, :w]), the plain version and the bound (each
+    source element read once, each f32 written once)."""
+    from honerf_torch.ops import fused_fine as FT
+
+    lib, stream = FT._lib(), torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = []
+    for (m, width, sdt, lds, ldd, so, do), count in calls.items():
+        sbuf = torch.randn((m * lds + so,), generator=gen, device=dev).to(sdt)
+        dbuf = torch.full((m * ldd + do,), float("nan"), device=dev)
+        src, dst = sbuf[so:].view(m, lds), dbuf[do:].view(m, ldd)
+        FT.copy_cols(lib, src, m, width, dst, stream)
+        want = FT.copy_cols_plain(src, m, width)
+        lib_dst = torch.empty((m, width), device=dev)
+        lib_dst.copy_(src[:, :width])
+        same = bool(torch.equal(dst[:, :width], want)) and bool(torch.equal(lib_dst, want))
+        rest = bool(torch.isnan(dst[:, width:]).all()) and bool(torch.isnan(dbuf[:do]).all())
+        r = SimpleNamespace(m=m, width=width, dtype=sdt, lds=lds, ldd=ldd, so=so, do=do,
+                            count=count, same=same, ok=same and rest,
+                            max_abs=float((dst[:, :width] - want).abs().max()) if m else 0.0)
+        if timed:
+            r.ms = cuda_ms(torch, lambda: FT.copy_cols(lib, src, m, width, dst, stream), 20)
+            r.lib_ms = cuda_ms(torch, lambda: dst[:, :width].copy_(src[:, :width]), 20)
+            r.plain_ms = cuda_ms(torch, lambda: dst[:, :width].copy_(
+                FT.copy_cols_plain(src, m, width)), 20)
+            r.bound_ms, r.bound_by = bound(0.0, m * width * (src.element_size() + 4))
+        out.append(r)
+        del sbuf, dbuf, lib_dst
+    return out
+
+
 def weighted(rs, keys=("ms", "plain_ms", "lib_ms", "bound_ms")):
     """{key: sum of r.key x r.count} over readings (keys a reading has)."""
     return {k: sum(getattr(r, k) * r.count for r in rs) for k in keys
@@ -1128,15 +1270,15 @@ PROFILES = {}
 PERPOINT_KERNELS = ("uchain_seed_kernel", "fine_bwd_rev_kernel", "fine_rev_kernel",
                     "fine_bwd_emb_kernel", "color_dz_kernel", "pose_partial_kernel",
                     "pose_reduce_kernel", "reduce_partials_kernel", "copy_cols_kernel",
-                    "trunk_pack_e_kernel", "trunk_bwd_seed_kernel", "obj_embed_kernel",
-                    "hand_embed_kernel", "colsum_partial_kernel")
+                    "trunk_pack_e_kernel", "trunk_bwd_seed_kernel", "hand_embed_kernel",
+                    "colsum_partial_kernel")
 
 
 def perpoint_bytes(kern: str, f32: bool):
     """Bytes a point of the flagship (E 1386, Ep 1408, d_out 257, F = Fp
-    256, Gp 128, Op 320, the last color layer's 64 columns; the object's
-    lde 64) costs the kernel, each input read once and each output written
-    once, from its code (es: the operand type's size); None where the work
+    256, Gp 128, Op 320, the last color layer's 64 columns) costs the
+    kernel, each input read once and each output written once, from its
+    code (es: the operand type's size); None where the work
     is not per point (copy_cols_kernel, reduce_partials_kernel: the
     per-point phase bounds them call by call)."""
     es = 4 if f32 else 2
@@ -1154,8 +1296,6 @@ def perpoint_bytes(kern: str, f32: bool):
         "trunk_pack_e_kernel": 4 * 1386 + 1408 * es,
         # dout (257 f32), du (E f32); dzf (Op f32), dzb (Op), du_b, du_s (Ep)
         "trunk_bwd_seed_kernel": 4 * (257 + 1386) + 320 * (4 + es) + 2 * 1408 * es,
-        # the point; e and es (64 bf16 each)
-        "obj_embed_kernel": 12 + 2 * 64 * 2,
     }.get(kern)
 
 
@@ -2540,9 +2680,14 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             log(f"{label}: loss first {float(loss[0]):.4f} last {float(loss[-1]):.4f}; grad_norm "
                 f"first {float(gnorm[0]):.4f} last {float(gnorm[-1]):.4f}; se3_refine moved by "
                 f"up to {moved:.3e}")
-            if mode == "full":
+            if mode in ("full", "pallas"):
                 device_profile(torch, f"one {label} step of {TRAIN_RAYS} rays",
                                lambda: step(state, batch, gen), points=TRAIN_FINE_PTS // 2)
+            if mode == "full":
+                tn = _tally(record_perpoint_calls(lambda: step(state, batch, gen)).tn)
+                log(f"{label}: reduce_partials_kernel over the step's {sum(tn.values())} dW "
+                    f"products: bound {reduce_bound_ms(tn):.4f} ms (bytes: the partials read "
+                    f"once, dW written once; the kernel's time: the profile)")
             idle = [k for k in want if not launches[k]]
             stray = [k for k in kernels if k not in want and launches[k]]
             shown = (f32_g > 0 and tn_f32 > 0) if want else total >= 0
@@ -2917,7 +3062,7 @@ def main() -> int:
     all_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "GEMM": FH.GEMM,
                    "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
-                   "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV}
+                   "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "COPY": FT.COPY}
 
     def bwd_rules(label, mode, args):
         """K3's two rules on the mode's backward kernel: on the step's own
@@ -3084,10 +3229,14 @@ def main() -> int:
         nc_state = init_train_state(train_params(fs, dev), nc_cfg)
         nc_step = make_hand_train_step(sdf_cfg, color_cfg, rcfg, nc_cfg)
         nc = record_perpoint_calls(lambda: nc_step(nc_state, batch, gen))
+        pl_cfg = ttcfg._replace(fused_fine="pallas")
+        pl_state = init_train_state(train_params(fs, dev), pl_cfg)
+        pl_step = make_hand_train_step(sdf_cfg, color_cfg, rcfg, pl_cfg)
+        pal = record_perpoint_calls(lambda: pl_step(pl_state, batch, gen))
         torch.cuda.synchronize()
         assert (req.embed and stp.embed and stp.colsum and req.seed and stp.seed and stp.bwdrev
-                and nc.copy and stp.tn), "no per-point call was recorded"
-        del state, nc_state
+                and nc.copy and pal.copy and stp.tn), "no per-point call was recorded"
+        del state, nc_state, pl_state
         pose = (rotT, off, cut)
         f32_embeds = [(m, vL, rL, lde, torch.float32) for m, vL, rL, lde, _ in req.embed]
         groups = {}
@@ -3192,19 +3341,36 @@ def main() -> int:
         blib = FF._bwd_lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
         ygen = torch.Generator(device=dev).manual_seed(31)
-        for (m, width, sdt, lds, ldd), count in _tally(nc.copy).items():
-            src = torch.randn((m, lds), generator=ygen, device=dev).to(sdt)
-            dst = torch.full((m, ldd), float("nan"), device=dev)
-            FT.copy_cols(blib, src, m, width, dst, stream)
-            same = bool(torch.equal(dst[:, :width], src[:, :width].float()))
-            k_ms = cuda_ms(torch, lambda: FT.copy_cols(blib, src, m, width, dst, stream), 20)
-            l_ms = cuda_ms(torch, lambda: dst[:, :width].copy_(src[:, :width]), 20)
-            b_ms, _ = bound(0.0, m * width * (src.element_size() + 4))
-            log(f"copy_cols_kernel, {count} x {m} rows x {width} ({sdt}, lds {lds}, ldd {ldd}) "
-                f"of a 'full_nocolor' step: kernel {k_ms:.4f} ms, dst[:, :w].copy_(src[:, :w]) "
-                f"{l_ms:.4f} ms, bound {b_ms:.4f} ms (bytes); the same values {same}")
-            assert same, "copy_cols_kernel disagrees with the copy"
-            del src, dst
+        copies = {}
+        for label, rec in (("full_nocolor", nc), ("pallas", pal)):
+            # copy_calls (check_k3_faults' copy check and bench_gemm read it)
+            # is these steps' recorded calls
+            assert _tally(rec.copy) == copy_calls(torch)[label], \
+                f"a {label} step's copy_cols calls {_tally(rec.copy)} are not copy_calls'"
+            rs = copies[label] = copy_readings(torch, dev, _tally(rec.copy))
+            for r in rs:
+                log(f"COPY {label}: {r.count} x {r.m} rows x {r.width} ({r.dtype}, lds {r.lds} "
+                    f"+{r.so}, ldd {r.ldd} +{r.do}): the same bits as copy_cols_plain and "
+                    f"copy_ {r.same}, the rest untouched {r.ok}; kernel {r.ms:.4f} ms, "
+                    f"dst[:, :w].copy_(src[:, :w]) {r.lib_ms:.4f} ms, plain {r.plain_ms:.4f} ms, "
+                    f"bound {r.bound_ms:.4f} ms ({r.bound_by}): {r.bound_ms / r.ms:.2f} of the "
+                    f"bound, {r.lib_ms / r.ms:.2f}x copy_'s speed{'' if r.ok else ' FAIL'}")
+            t = weighted(rs)
+            log(f"copy_cols_kernel, a {label} step's {sum(r.count for r in rs)} launches: kernel "
+                f"{t['ms']:.4f} ms, copy_ {t['lib_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.4f} ms: {t['bound_ms'] / t['ms']:.2f} of the bound, "
+                f"{t['lib_ms'] / t['ms']:.2f}x copy_'s speed")
+            copies[label] = (rs, t)
+        (nc_rs, nc_t), (pl_rs, pl_t) = copies["full_nocolor"], copies["pallas"]
+        rows["COPY"] = dict(rows.get("COPY", {}), name=FT.COPY.name, route="cuda",
+                            source=FT.COPY.source, replaces=FT.COPY.replaces,
+                            max_abs_err=max(r.max_abs for r in nc_rs + pl_rs), ms=nc_t["ms"],
+                            plain_ms=nc_t["plain_ms"], bound_ms=nc_t["bound_ms"],
+                            bound_by="bytes", library_ms=nc_t["lib_ms"], pallas_ms=pl_t["ms"],
+                            pallas_plain_ms=pl_t["plain_ms"], pallas_bound_ms=pl_t["bound_ms"],
+                            pallas_library_ms=pl_t["lib_ms"])
+        bad_copy = [r for r in nc_rs + pl_rs if not r.ok]
+        assert not bad_copy, f"copy_cols_kernel disagrees with the copy: {bad_copy}"
         m = max(mm for mm, *_ in stp.bwdrev)
         P = torch.randn((m, 256), generator=ygen, device=dev)
         ws = torch.empty((FT._WS_FLOATS,), device=dev)
@@ -3219,18 +3385,18 @@ def main() -> int:
             f"{bound(0.0, 4 * (m * 256 + 256))[0]:.4f} ms (bytes); |err| vs f64 {f64:.2e}")
         assert f64 <= TOL_COLSUM_F64, "the pose sum disagrees with the f64 sum"
         del P
-        lib_tot = bnd_tot = 0.0
+        lib_tot = 0.0
         for (K, N, mm, dt), count in _tally(stp.tn).items():
             split = WL.tn_split(K, N, mm, 132)
             S = -(-mm // split)
             Kp, Np = -(-K // WL.BM) * WL.BM, -(-N // WL.BN_TN) * WL.BN_TN
             part = torch.randn((S, Kp, Np), generator=ygen, device=dev)
             lib_tot += count * cuda_ms(torch, lambda: part.sum(0), 20)
-            bnd_tot += count * bound(0.0, 4 * (S * Kp * Np + K * N))[0]
             del part
         log(f"reduce_partials_kernel's sums, a bf16 step's {len(stp.tn)} dW products: "
-            f"ws.sum(0) {lib_tot:.4f} ms, bound {bnd_tot:.4f} ms (bytes: the partials read once, "
-            f"dW written once; the kernel's time: the profiles)")
+            f"ws.sum(0) {lib_tot:.4f} ms, bound {reduce_bound_ms(_tally(stp.tn)):.4f} ms (bytes: "
+            f"the partials read once, dW written once; the kernel's time: the profiles); a "
+            f"'pallas' step's {len(pal.tn)}: bound {reduce_bound_ms(_tally(pal.tn)):.4f} ms")
         bad = [r for r in all_emb + cols + all_seed + revs + ragged_rev if not r.ok]
         if bad:
             raise AssertionError(f"a per-point kernel disagrees with its plain version: {bad}")
@@ -3382,15 +3548,17 @@ def main() -> int:
 
     def train_pallas():
         launches = train_run("train pallas", "pallas", TRAIN_STEPS,
-                             ("K1", "K5", "K6", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "UCHAIN"),
-                             profile=True)
+                             ("K1", "K5", "K6", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "UCHAIN",
+                              "COPY"), profile=True)
         for name in ("K5", "K6"):
             rows.setdefault(name, {})["launches"] = launches[name]
+        rows.setdefault("COPY", {})["pallas_launches"] = launches["COPY"]
 
     def train_nocolor():
         launches = train_run("train full_nocolor", "full_nocolor", NOCOLOR_STEPS,
-                             ("K1", "K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV"),
+                             ("K1", "K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV", "COPY"),
                              profile=True)
+        rows.setdefault("COPY", {})["launches"] = launches["COPY"]
         rows.setdefault("K2", {})["nocolor_launches"] = launches["K2"]
         rows.setdefault("K3", {})["nocolor_launches"] = launches["K3"]
         rows.setdefault("BWDREV", {})["nocolor_launches"] = launches["BWDREV"]
@@ -3480,11 +3648,21 @@ def main() -> int:
 
     def kernel_k4():
         """A grid chunk of the mesh path, a ragged size, a million points,
-        all in the obj-real mesh box; the chunk's numbers go into the
-        kernels line."""
+        all in the obj-real mesh box, and the 256 calls of a 256^3 grid;
+        each call one launch of obj_sdf_fused_kernel (the one node of the
+        call's CUDA graph).  The bound: the
+        larger of the tensor cores' (the sdf column's products) and the
+        special-function units' (softplus's ex2 and lg2); the chunk's
+        numbers go into the kernels line."""
         fused = FS.FusedObjSDF(obj.params["sdf"], obj.sdf)
         rng = np.random.default_rng(1)
         oks, errs = [], []
+        peak_mufu, mhz = mufu_peak(torch)
+        log(f"K4: {k4_flops(obj.sdf, 1.0) / 1e6:.4f} MFLOP and {k4_mufu_ops(obj.sdf, 1.0):.0f} "
+            f"special-function operations a point; the special-function units' peak "
+            f"{peak_mufu:.4e} a second ({MUFU_PER_CLOCK} a clock x "
+            f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x {mhz:.0f} MHz, "
+            f"nvidia-smi clocks.max.sm)")
         for label, n in (("grid chunk", 1 << 16), ("ragged", (1 << 16) + 4321),
                          ("1M", 1 << 20)):
             pts = torch.as_tensor(rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32), device=dev)
@@ -3493,30 +3671,46 @@ def main() -> int:
             want = FS.fused_obj_sdf_plain(*args)
             torch.cuda.synchronize()
             ok, err, text = compare(torch, "sdf", got, want)
-            oks.append(ok)
+            # the call captured into a CUDA graph: one node, obj_sdf_fused_kernel
+            nodes = graph_kernel_nodes(torch, lambda: FS.fused_obj_sdf(*args))
+            launched = sum("obj_sdf_fused_kernel" in n for n in nodes)
+            if launched != 1 or len(nodes) != 1:
+                log(f"K4, {label}: the call's graph nodes {nodes or 'none'}")
+            oks.append(ok and launched == 1 and len(nodes) == 1)
             errs.append(err)
             ms = cuda_ms(torch, lambda: FS.fused_obj_sdf(*args), 10)
             plain_ms = cuda_ms(torch, lambda: FS.fused_obj_sdf_plain(*args), 3)
             n_bytes = nbytes([pts, *fused.ws, *fused.bs]) + 4 * n
-            b_ms, b_by = bound(k4_flops(obj.sdf, n), n_bytes)
-            log(f"K4 fused_obj_sdf, {label}: {n} pts ({-(-n // FS.CHUNK)} passes); {text}; "
-                f"kernel {ms:.3f} ms ({ms * 1e6 / n:.3f} ms per M points), plain {plain_ms:.3f} "
-                f"ms, bound {b_ms:.4f} ms ({b_by}, {k4_flops(obj.sdf, 1.0) / 1e6:.4f} MFLOP/pt)")
+            tc_ms, _ = bound(k4_flops(obj.sdf, n), n_bytes)
+            mufu_ms = k4_mufu_ops(obj.sdf, n) / peak_mufu * 1e3
+            b_ms = max(tc_ms, mufu_ms)
+            log(f"K4 obj_sdf_fused_kernel, {label}: {n} pts, {launched} launch (its CUDA graph); "
+                f"{text}; kernel "
+                f"{ms:.4f} ms ({ms * 1e6 / n:.3f} ms per M points), plain {plain_ms:.3f} ms; "
+                f"bound {b_ms:.4f} ms (operations: tensor cores {tc_ms:.4f}, special-function "
+                f"units {mufu_ms:.4f}): {b_ms / ms:.2f} of it")
             rows.setdefault("K4", dict(name=FS.KERNEL.name, route="cuda", source=FS.KERNEL.source,
                                        replaces=FS.KERNEL.replaces, points=n, ms=ms,
-                                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                       library_ms=None))
-            if n == 1 << 16:   # a mesh's grid is 256 such chunks
-                device_profile(torch, "one K4 grid chunk of 65,536 points",
-                               lambda: FS.fused_obj_sdf(*args), points=n)
-            if n == 1 << 20:
-                g_flops = k4_flops(obj.sdf, grid_pts)
-                log(f"K4 per {MESH_RES}^3 grid ({grid_pts} points): {g_flops / 1e12:.2f} TFLOP, "
-                    f"bound {g_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms, "
-                    f"{ms * grid_pts / n:.1f} ms at the 1M rate")
-        rows["K4"]["max_abs_err"] = max(errs)
+                                       plain_ms=plain_ms, bound_ms=b_ms, bound_by="operations",
+                                       library_ms=None, tc_bound_ms=tc_ms, mufu_bound_ms=mufu_ms,
+                                       sm_clock_mhz=mhz))
+            if n == 1 << 16:   # a mesh's grid is 256 such chunks (the profiler can
+                # miss a trace's first kernel: sixteen of them)
+                device_profile(torch, "16 K4 grid chunks of 65,536 points",
+                               lambda: [FS.fused_obj_sdf(*args) for _ in range(16)], points=n)
+        # a 256^3 grid's K4 calls, as extract.evaluate_sdf_grid makes them
+        chunk = 1 << 16
+        pts = torch.as_tensor(rng.uniform(-0.2, 0.2, (chunk, 3)).astype(np.float32), device=dev)
+        n_calls = grid_pts // chunk
+        g_ms = cuda_ms(torch, lambda: [fused(pts) for _ in range(n_calls)], 3)
+        g_tc = k4_flops(obj.sdf, grid_pts) / PEAK_BF16_FLOPS * 1e3
+        g_mufu = k4_mufu_ops(obj.sdf, grid_pts) / peak_mufu * 1e3
+        log(f"K4 per {MESH_RES}^3 grid ({n_calls} calls of {chunk} points): {g_ms:.2f} ms; "
+            f"bound {max(g_tc, g_mufu):.2f} ms (tensor cores {g_tc:.2f}, special-function "
+            f"units {g_mufu:.2f})")
+        rows["K4"].update(max_abs_err=max(errs), grid_ms=g_ms, grid_bound_ms=max(g_tc, g_mufu))
         if not all(oks):
-            raise AssertionError("K4 disagrees with its plain version")
+            raise AssertionError("K4 disagrees with its plain version or is not one launch")
 
     def obj_train():
         from honerf_torch.models.fields import init_se3_refine
@@ -3648,6 +3842,22 @@ def main() -> int:
             f"mesh: median {float(dist.median()):.2e}, max {far:.2e} voxels (tol 1)")
         assert ok and rel_v <= 1e-2 and rel_t <= 1e-2 and far <= 1.0, \
             "the K4 mesh disagrees with the plain version's"
+        # the mesh path's grid under the profiler: K4 is obj_sdf_fused_kernel
+        # alone, one launch a chunk, no GEMM and no embedding kernel
+        label = f"one {R}^3 K4 grid (extract.evaluate_sdf_grid)"
+        assert device_profile(torch, label,
+                              lambda: evaluate_sdf_grid(fused, lo, hi, R, device=dev),
+                              points=1 << 16) is not None, \
+            "the mesh path's grid: the profiler recorded no device time"
+        groups = PROFILES[label][0]
+        k4 = [v for name, v in groups.items() if "obj_sdf_fused_kernel" in name]
+        stray = sorted(name for name in groups if "gemm" in name or "embed" in name)
+        calls = -(-R ** 3 // (1 << 16))
+        log(f"mesh check: the grid's K4 launches {sum(v[1] for v in k4)} ({calls} chunks), "
+            f"{sum(v[0] for v in k4) / 1e3:.2f} ms of device time; GEMM or embedding kernels: "
+            f"{stray or 'none'}")
+        assert sum(v[1] for v in k4) == calls and not stray, \
+            "the mesh path's K4 is not one obj_sdf_fused_kernel launch a chunk"
 
     phase("kernel K4", kernel_k4)
     phase("obj train", obj_train)
@@ -3662,7 +3872,7 @@ def main() -> int:
     log_perpoint_profiles()
     log(gpu_line())
     order = ("K1", "K2", "K3", "K4", "K5", "K6", "GEMM", "GEMM_TN", "GEMM_F32", "GEMM_TN_F32",
-             "EMBED", "COLSUM", "UCHAIN", "BWDREV")
+             "EMBED", "COLSUM", "UCHAIN", "BWDREV", "COPY")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     def mode_keys(prefix):
@@ -3675,6 +3885,7 @@ def main() -> int:
                     + mode_keys("f32_request_")),
              "K3": (mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_")
                     + mode_keys("f32_dw_")),
+             "K4": ("tc_bound_ms", "mufu_bound_ms", "grid_ms", "grid_bound_ms"),
              "K5": mode_keys("f32_"), "K6": mode_keys("f32_"),
              "GEMM": ("image_launches", "train_launches"),
              "EMBED": ("train_launches", "step_ms", "step_bound_ms", "f32_ms", "f32_plain_ms",
@@ -3683,7 +3894,9 @@ def main() -> int:
                         "step_bound_ms", "f32_ms", "f32_plain_ms", "f32_bound_ms",
                         "f32_library_ms", "fit_ms", "fit_bound_ms", "fit_library_ms"),
              "BWDREV": ("nocolor_launches", "f32_train_launches", "fit_launches", "fit_ms",
-                        "fit_plain_ms", "fit_bound_ms")}
+                        "fit_plain_ms", "fit_bound_ms"),
+             "COPY": ("pallas_launches", "pallas_ms", "pallas_plain_ms", "pallas_bound_ms",
+                      "pallas_library_ms")}
     log(json.dumps({"kernels": [{k: rows.get(n, {}).get(k) for k in keys + extra.get(n, ())}
                                 for n in order]}))
     if failures:

@@ -16,7 +16,9 @@
 //    tile's last block to finish sums the partials, each step in a fixed
 //    order (ops/fused_fine.py: colsum_ordered_plain states it);
 //  * copy_cols_kernel: the first `width` columns of a padded scratch row
-//    into an unpadded f32 output row.
+//    into an unpadded f32 output row, a warp a row: a scalar head up to
+//    the destination's first 16-byte boundary, a body of 16-byte stores
+//    with loads as wide as the source's alignment allows, a scalar tail.
 //
 // No atomics in any sum: two runs give the same bits.  (The column sum's
 // last-block counter is an atomic increment that picks which block sums
@@ -318,15 +320,131 @@ __global__ void __launch_bounds__(CS_THREADS)
   }
 }
 
-// dst[m, c] = f32(src[m, c]) for c < width: a padded scratch row out into
-// an unpadded output row.
+// ---------------------------------------------------------------------------
+// The padded-row copy (no TPU kernel: the port's glue where the Pallas
+// bodies of K2 / K3 no-color, honerf_tpu/ops/fused_fine_full.py:1556 and
+// :1650, and of K5 / K6, honerf_tpu/ops/fused_fine.py:452 and :488, write
+// these columns themselves)
+// ---------------------------------------------------------------------------
+//
+// dst[m, c] = f32(src[m, c]) for c < width (src f32 or bf16, dst f32).
+//
+// Bound on an H100: bytes, each source element read once and each f32
+// written once: a 'full_nocolor' step's four calls (e 1386 bf16 -> f32,
+// de 1386 f32, dfeat 256 f32, dsdf 1, 56,448 rows each) move 1.21 GB,
+// 0.36 ms at 3.35 TB/s.
+//
+// Design: rows are handed whole to warps in a grid-stride loop over a
+// persistent grid (as many blocks as are resident), with no integer
+// division per element.  The row strides are odd (lds 1386, 257; ldd
+// 1386), so each row has its own alignment: copy_plan takes, per row, a
+// scalar head of h < 4 columns up to the destination's first 16-byte
+// boundary, then a body of 4-column vectors, lane i on vector i % 32:
+// each stored as one 16-byte f32 store (a warp's stores are 512
+// contiguous bytes) and loaded in pieces as wide as the source's
+// alignment at column h allows (f32: 16, 8 or 4 bytes; bf16: 8, 4 or 2;
+// the pieces of a warp's load are contiguous too), CP_UNROLL vectors in
+// flight a lane before their stores; then a scalar tail of fewer than 4.
+// Rows of at most CP_NARROW columns (dsdf, width 1) take a thread a row.
+// A copy, so the output keeps every bit.  ops/perpoint_layout.py
+// (copy_plan, copy_columns) mirrors the plan; the C entry point refuses
+// elements off their own alignment and strides below the width.
+constexpr int CP_THREADS = 256;
+constexpr int CP_WARPS = CP_THREADS / 32;
+constexpr int CP_NARROW = 8;
+constexpr int CP_UNROLL = 8;
+
+// The row's plan: h, the head's columns up to the destination's first
+// 16-byte boundary (-1 where no whole vector follows it), and lb, the
+// bytes of each piece the source's alignment at column h allows.
 template <typename T>
-__global__ void copy_cols_kernel(const T* __restrict__ src, int lds, int M, int width,
-                                 float* __restrict__ dst, int ldd) {
-  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * width) return;
-  int m = (int)(i / width), c = (int)(i % width);
-  dst[(size_t)m * ldd + c] = to_f32(src[(size_t)m * lds + c]);
+__device__ __forceinline__ void copy_plan(uintptr_t s, uintptr_t d, int width, int& h, int& lb) {
+  h = (int)((16 - d % 16) % 16 / 4);
+  if (h + 4 > width) {
+    h = -1;
+    lb = (int)sizeof(T);
+    return;
+  }
+  const uintptr_t sh = s + sizeof(T) * (uintptr_t)h;
+  lb = 4 * (int)sizeof(T);
+  while (lb > (int)sizeof(T) && sh % lb) lb /= 2;
+}
+
+// 4 columns from s in pieces of LB bytes, as f32.
+template <typename T, int LB>
+__device__ __forceinline__ float4 copy_load4(const T* __restrict__ s) {
+  if constexpr (sizeof(T) == 4 && LB == 16) {
+    return *reinterpret_cast<const float4*>(s);
+  } else if constexpr (sizeof(T) == 4 && LB == 8) {
+    const float2 a = reinterpret_cast<const float2*>(s)[0], b = reinterpret_cast<const float2*>(s)[1];
+    return make_float4(a.x, a.y, b.x, b.y);
+  } else if constexpr (sizeof(T) == 2 && LB == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(s);
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+    return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
+  } else if constexpr (sizeof(T) == 2 && LB == 4) {
+    const __nv_bfloat162 a = reinterpret_cast<const __nv_bfloat162*>(s)[0];
+    const __nv_bfloat162 b = reinterpret_cast<const __nv_bfloat162*>(s)[1];
+    return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
+  } else {
+    return make_float4(to_f32(s[0]), to_f32(s[1]), to_f32(s[2]), to_f32(s[3]));
+  }
+}
+
+// The body: nb vectors of 4 columns, s in LB-byte pieces, d 16-byte
+// aligned, vector i on lane i % 32, in batches of CP_UNROLL vectors a
+// lane whose loads are all issued before the first store (the row's last
+// batch predicated, so that it too keeps its loads in flight together).
+template <typename T, int LB>
+__device__ __forceinline__ void copy_body(const T* __restrict__ s, float* __restrict__ d, int nb,
+                                          int lane) {
+  float4* dv = reinterpret_cast<float4*>(d);
+  for (int i0 = lane; i0 < nb; i0 += 32 * CP_UNROLL) {
+    float4 x[CP_UNROLL];
+#pragma unroll
+    for (int u = 0; u < CP_UNROLL; ++u)
+      if (i0 + 32 * u < nb) x[u] = copy_load4<T, LB>(s + 4 * (size_t)(i0 + 32 * u));
+#pragma unroll
+    for (int u = 0; u < CP_UNROLL; ++u) {
+      if (i0 + 32 * u >= nb) break;
+      dv[i0 + 32 * u] = x[u];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CP_THREADS) copy_cols_kernel(const T* __restrict__ src, int lds,
+                                                               int M, int width,
+                                                               float* __restrict__ dst, int ldd) {
+  if (width <= CP_NARROW) {  // a thread a row
+    for (int m = blockIdx.x * CP_THREADS + threadIdx.x; m < M; m += gridDim.x * CP_THREADS) {
+      const T* s = src + (size_t)m * lds;
+      float* d = dst + (size_t)m * ldd;
+      for (int c = 0; c < width; ++c) d[c] = to_f32(s[c]);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  for (int m = blockIdx.x * CP_WARPS + (threadIdx.x >> 5); m < M; m += gridDim.x * CP_WARPS) {
+    const T* s = src + (size_t)m * lds;
+    float* d = dst + (size_t)m * ldd;
+    int h, lb;
+    copy_plan<T>(reinterpret_cast<uintptr_t>(s), reinterpret_cast<uintptr_t>(d), width, h, lb);
+    if (h < 0) {  // no whole vector: all scalar
+      for (int c = lane; c < width; c += 32) d[c] = to_f32(s[c]);
+      continue;
+    }
+    if (lane < h) d[lane] = to_f32(s[lane]);
+    const int nb = (width - h) / 4, t0 = h + 4 * nb;
+    if (lb == 4 * (int)sizeof(T))
+      copy_body<T, 4 * sizeof(T)>(s + h, d + h, nb, lane);
+    else if (lb == 2 * (int)sizeof(T))
+      copy_body<T, 2 * sizeof(T)>(s + h, d + h, nb, lane);
+    else
+      copy_body<T, sizeof(T)>(s + h, d + h, nb, lane);
+    if (lane < width - t0) d[t0 + lane] = to_f32(s[t0 + lane]);
+  }
 }
 
 }  // namespace honerf
@@ -448,21 +566,36 @@ extern "C" int honerf_colsum(const float* Z, int ldz, int N, int M, int split, f
   return (int)cudaGetLastError();
 }
 
-// dst[:M, :width] = src[:M, :width] (f32 or bf16 source, f32 destination).
+// dst[:M, :width] = src[:M, :width] (f32 or bf16 source, f32 destination);
+// refused (cudaErrorInvalidValue) where an element is off its own
+// alignment or a row stride is below the width.
+template <typename T>
+static int honerf_copy_cols_t(const T* src, int lds, int M, int width, float* dst, int ldd,
+                              cudaStream_t stream) {
+  if (M < 0 || width < 0 || lds < width || ldd < width ||
+      reinterpret_cast<uintptr_t>(src) % sizeof(T) || reinterpret_cast<uintptr_t>(dst) % 4)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || width == 0) return (int)cudaGetLastError();
+  static int resident = 0;  // blocks of the kernel an SM holds, asked once
+  if (!resident) {
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, honerf::copy_cols_kernel<T>, honerf::CP_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (resident < 1) resident = 1;
+  }
+  const int per = width <= honerf::CP_NARROW ? honerf::CP_THREADS : honerf::CP_WARPS;
+  const int need = (M + per - 1) / per, slots = resident * honerf::wg::sm_count();
+  honerf::copy_cols_kernel<T><<<need < slots ? need : slots, honerf::CP_THREADS, 0, stream>>>(
+      src, lds, M, width, dst, ldd);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int honerf_copy_cols(const float* src, int lds, int M, int width, float* dst,
                                 int ldd, cudaStream_t stream) {
-  size_t n = (size_t)M * width;
-  if (n)
-    honerf::copy_cols_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        src, lds, M, width, dst, ldd);
-  return (int)cudaGetLastError();
+  return honerf_copy_cols_t(src, lds, M, width, dst, ldd, stream);
 }
 
 extern "C" int honerf_copy_cols_bf16(const __nv_bfloat16* src, int lds, int M, int width,
                                      float* dst, int ldd, cudaStream_t stream) {
-  size_t n = (size_t)M * width;
-  if (n)
-    honerf::copy_cols_kernel<__nv_bfloat16><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        src, lds, M, width, dst, ldd);
-  return (int)cudaGetLastError();
+  return honerf_copy_cols_t(src, lds, M, width, dst, ldd, stream);
 }

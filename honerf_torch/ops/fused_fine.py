@@ -471,6 +471,11 @@ COLSUM = _build.Kernel("colsum_partial_kernel", "honerf_torch/ops/csrc/trunk.cuh
 # and of K2, K3, K6
 UCHAIN = _build.Kernel("uchain_seed_kernel", "honerf_torch/ops/csrc/trunk.cuh",
                        "honerf_tpu/ops/fused_fine.py:452")
+# the padded-row copy: the columns the bodies of K2 / K3 no-color
+# (honerf_tpu/ops/fused_fine_full.py:1556, :1650) and K5 / K6 write
+# themselves
+COPY = _build.Kernel("copy_cols_kernel", "honerf_torch/ops/csrc/trunk.cuh",
+                     "honerf_tpu/ops/fused_fine_full.py:1556")
 
 
 def type_trunk_lib(lib) -> None:
@@ -530,9 +535,29 @@ def uchain_seed(lib, w, s, m: int, t, stream) -> None:
                     t.stride(0), stream), "honerf_uchain_seed")
 
 
+def copy_cols_plain(src, m: int, width: int) -> torch.Tensor:
+    """copy_cols_kernel's function in plain PyTorch: f32(src[:m, :width])."""
+    return src[:m, :width].float()
+
+
 def copy_cols(lib, src, m: int, width: int, dst, stream) -> None:
-    """dst[:m, :width] = src[:m, :width] (f32 or bf16 source, f32 dst)."""
+    """dst[:m, :width] = f32(src[:m, :width]) (f32 or bf16 source, f32
+    dst; csrc/trunk.cuh: copy_cols_kernel, the same bits).  On CPU
+    tensors it writes copy_cols_plain's rows and launches nothing."""
+    if (src.device != dst.device or src.device.type not in ("cpu", "cuda")
+            or src.dtype not in (torch.float32, torch.bfloat16) or dst.dtype != torch.float32
+            or src.dim() != 2 or dst.dim() != 2 or src.stride(1) != 1 or dst.stride(1) != 1
+            or not 0 <= m <= min(src.shape[0], dst.shape[0])
+            or not 0 <= width <= min(src.shape[1], dst.shape[1])):
+        raise ValueError(f"copy_cols takes 2-D f32 or bf16 src and f32 dst on one device, "
+                         f"contiguous columns and m rows, width columns of each (src "
+                         f"{tuple(src.shape)} {src.dtype} {src.device}, dst {tuple(dst.shape)} "
+                         f"{dst.dtype} {dst.device}, m {m}, width {width})")
+    if src.device.type == "cpu":
+        dst[:m, :width] = copy_cols_plain(src, m, width)
+        return
     fn = lib.honerf_copy_cols_bf16 if src.dtype == torch.bfloat16 else lib.honerf_copy_cols
+    COPY.launches += 1
     _build.check(fn(src.data_ptr(), src.stride(0), m, width, dst.data_ptr(), dst.stride(0),
                     stream), "honerf_copy_cols")
 

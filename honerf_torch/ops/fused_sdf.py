@@ -9,11 +9,13 @@ the sdf column times 1/scale.  Every matmul operand is bf16 of an f32
 value with f32 sums, the biases f32; at the skip both halves are rounded
 once, bf16(f32 value * f32(1/sqrt2)), as in the JAX kernel.
 
-On a CUDA tensor `fused_obj_sdf` launches the hand-written kernels of
-csrc/fused_sdf.cu; on a CPU tensor it runs `fused_obj_sdf_plain`, which
-states the same rounding points.  What bounds the kernel on an H100 and
-how its design answers that: the note at the top of csrc/fused_sdf.cu;
-its times: PERF.md.
+On a CUDA tensor `fused_obj_sdf` launches the hand-written kernel of
+csrc/fused_sdf.cu (obj_sdf_fused_kernel: the PE and all the layers in one
+launch, the activations in shared memory); on a CPU tensor it runs
+`fused_obj_sdf_plain`, which states the same rounding points.  What
+bounds the kernel on an H100 and how its design answers that: the note at
+the top of csrc/fused_sdf.cu (its layout arithmetic: ops/wgmma_layout.py,
+the K4_* names); its times: PERF.md.
 """
 
 from __future__ import annotations
@@ -28,15 +30,11 @@ from honerf_torch.models.fields import SDFConfig
 from honerf_torch.models.mlp import linear_weight
 from honerf_torch.ops import _build
 from honerf_torch.ops import fused_hand as FH
+from honerf_torch.ops import wgmma_layout as WL
 from honerf_torch.ops.fused_fine import INV_SQRT2, PAD, _round_up, _softplus_beta
 
-# points per pass of the CUDA path: the two (CHUNK, 256) bf16 activation
-# buffers (33.5 MB) stay inside the H100's 50 MB L2
-CHUNK = 32768
-EPI_SP_SCALE, EPI_F32_SCALE = 8, 9
-
 KERNEL = _build.Kernel(
-    "fused_obj_sdf", "honerf_torch/ops/csrc/fused_sdf.cu",
+    "obj_sdf_fused_kernel", "honerf_torch/ops/csrc/fused_sdf.cu",
     "honerf_tpu/ops/fused_sdf.py:205")
 
 
@@ -123,15 +121,15 @@ def fused_obj_sdf_plain(pts, ws, bs, meta: ObjKernelMeta) -> torch.Tensor:
 def _lib():
     lib = FH._lib("fused_sdf")
     if not getattr(lib, "_honerf_obj_typed", False):
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.honerf_obj_embed.argtypes = [P, I, I, ctypes.c_float, P, P, I, P]
-        lib.honerf_obj_embed.restype = I
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.honerf_obj_sdf.argtypes = [P, I, I, F, F, I, P, P, P, P, P, P, P, P]
+        lib.honerf_obj_sdf.restype = I
         lib._honerf_obj_typed = True
     return lib
 
 
 def check_operands(pts, ws, bs, meta: ObjKernelMeta) -> None:
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernel does not take."""
     if pts.dim() != 2 or pts.shape[1] != 3 or pts.dtype != torch.float32:
         raise ValueError(f"pts must be (N, 3) float32, got {tuple(pts.shape)} {pts.dtype}")
     if len(ws) != meta.n_layers or len(bs) != meta.n_layers:
@@ -153,38 +151,39 @@ def check_operands(pts, ws, bs, meta: ObjKernelMeta) -> None:
         rows = w.shape[1]
 
 
+def check_fused_shape(ws, meta: ObjKernelMeta) -> None:
+    """Raise where the one-launch kernel's tiles do not hold the net: a PE
+    wider than WL.K4_EP columns (or none), a layer wider than WL.K4_WIDTH,
+    a last layer of other than 64 columns (the sdf column padded; it runs
+    on m64n64k16), more than WL.K4_MAX_LAYERS layers, a skip at layer 0."""
+    if (meta.Ep != WL.K4_EP or not 1 <= meta.multires <= (WL.K4_EP - 3) // 6
+            or meta.n_layers > WL.K4_MAX_LAYERS
+            or any(w.shape[1] > WL.K4_WIDTH for w in ws) or ws[-1].shape[1] != 64
+            or 0 in meta.skips):
+        raise ValueError(f"the fused object SDF kernel takes a PE of at most {WL.K4_EP} "
+                         f"columns, layers of at most {WL.K4_WIDTH} columns, at most "
+                         f"{WL.K4_MAX_LAYERS} layers and no skip at layer 0 (Ep {meta.Ep}, "
+                         f"L {meta.multires}, widths {[w.shape[1] for w in ws]}, skips "
+                         f"{meta.skips})")
+
+
 def _fused_obj_sdf_cuda(pts, ws, bs, meta: ObjKernelMeta) -> torch.Tensor:
+    check_fused_shape(ws, meta)
     lib = _lib()
     dev = pts.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    N, Ep, n = pts.shape[0], meta.Ep, meta.n_layers
+    N, n = pts.shape[0], meta.n_layers
     out = torch.empty((N,), device=dev, dtype=torch.float32)
     if N == 0:
         return out
-    C = min(N, CHUNK)
-    e = torch.empty((C, Ep), device=dev, dtype=torch.bfloat16)
-    es = torch.empty((C, Ep), device=dev, dtype=torch.bfloat16)
-    width = max(w.shape[1] for w in ws[:-1])
-    acts = [torch.empty((C, width), device=dev, dtype=torch.bfloat16) for _ in range(2)]
+    ptrs = lambda ts: (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])  # noqa: E731
+    ints = lambda xs: (ctypes.c_int * n)(*xs)  # noqa: E731
     KERNEL.launches += 1
-    for s in range(0, N, C):
-        m = min(C, N - s)
-        _build.check(lib.honerf_obj_embed(pts[s:].data_ptr(), m, meta.multires, INV_SQRT2,
-                                          e.data_ptr(), es.data_ptr(), Ep, stream),
-                     "honerf_obj_embed")
-        a = e
-        for l in range(n):
-            K1 = ws[l].shape[0] - (Ep if l in meta.skips else 0)
-            A2, K2 = (es, Ep) if l in meta.skips else (None, 0)
-            if l < n - 1:
-                nxt = acts[l % 2]
-                mode = EPI_SP_SCALE if l + 1 in meta.skips else FH.EPI_SOFTPLUS
-                FH.gemm(lib, a, K1, A2, K2, ws[l], ws[l].shape[1], bs[l], m, mode, nxt,
-                        nxt.stride(0), hscale=INV_SQRT2, stream=stream)
-                a = nxt
-            else:
-                FH.gemm(lib, a, K1, A2, K2, ws[l], ws[l].shape[1], bs[l], m, EPI_F32_SCALE,
-                        out[s:], 1, n_store=1, hscale=1.0 / meta.scale, stream=stream)
+    _build.check(lib.honerf_obj_sdf(
+        pts.data_ptr(), N, meta.multires, INV_SQRT2, 1.0 / meta.scale, n, ptrs(ws),
+        ints([w.shape[0] for w in ws]), ints([w.shape[1] for w in ws]), ints(meta.out_widths),
+        ints([int(l in meta.skips) for l in range(n)]), ptrs(bs), out.data_ptr(), stream),
+        "honerf_obj_sdf")
     return out
 
 

@@ -32,7 +32,11 @@ contracts:
     `bwr_tiles` / `bwr_grid`, `bwr_units` (which unit of which pass writes
     which columns of which sub-tile), `bwr_bulk_copies` and
     `bwr_tile_model` (the map with the kernel's arithmetic in torch f32);
-    `check_bwr_operands`: what the kernel refuses.
+    `check_bwr_operands`: what the kernel refuses;
+  * `CP_*` (csrc/trunk.cuh: copy_cols_kernel), `copy_plan` (a row's
+    scalar head, vector and load width from its two addresses) and
+    `copy_columns` (which lane writes which columns of a row, as head,
+    body vectors and tail).
 
 Nothing on the main path calls these but `colsum_split`,
 `colsum_workspace`, `check_us_operands` and `check_bwr_operands` (the
@@ -87,6 +91,12 @@ US_CONSTANTS = ("US_THREADS", "US_BLOCKS_PER_SM", "US_VEC", "US_WIDTH_MAX")
 BWR_CONSTANTS = ("BWR_THREADS", "BWR_BLOCKS_PER_SM", "BWR_POINTS_BF16", "BWR_EP_MAX",
                  "BWR_OP_MAX", "BWR_L_MAX", "BWR_STAGE_FLOATS", "BWR_TILE_BYTES_MAX",
                  "BWR_SMEM_MAX")
+# csrc/trunk.cuh: copy_cols_kernel
+CP_THREADS = 256
+CP_WARPS = CP_THREADS // 32
+CP_NARROW = 8
+CP_UNROLL = 8
+CP_CONSTANTS = ("CP_THREADS", "CP_WARPS", "CP_NARROW", "CP_UNROLL")
 SMEM_PER_SM = 233472     # an H100 SM's shared memory (228 KB)
 SMEM_RESERVED = 1024     # what the card reserves of it for each resident block
 
@@ -431,3 +441,42 @@ def bwr_tile_model(pts, rotT, off, cut, vL: int, rL: int, packed, dsdf, dg, dx, 
         for col, val in zip(cols, vals):
             du[:, col] = val
     return du, t, dz
+
+
+# ---------------------------------------------------------------------------
+# The padded-row copy
+# ---------------------------------------------------------------------------
+
+def copy_plan(s_addr: int, d_addr: int, width: int, esize: int) -> Tuple[int, int, int]:
+    """(V, h, load bytes) of a row (copy_cols_kernel's copy_plan): h < 4
+    head columns up to the f32 destination's first 16-byte boundary, then
+    vectors of V = 4 columns, each one 16-byte store, loaded from the
+    source (esize-byte elements at s_addr) in pieces as wide as its
+    alignment at column h allows (4 esize bytes down to esize); (1, 0,
+    esize), all scalar, where no whole vector follows the head."""
+    h = (16 - d_addr % 16) % 16 // 4
+    if h + 4 > width:
+        return 1, 0, esize
+    sh = s_addr + esize * h
+    lb = 4 * esize
+    while lb > esize and sh % lb:
+        lb //= 2
+    return 4, h, lb
+
+
+def copy_columns(s_addr: int, d_addr: int, width: int, esize: int) -> List[Tuple[str, int, List[int]]]:
+    """(part, lane, columns) of every access of one row of `width` columns
+    (a warp a row; rows of at most CP_NARROW columns: one thread, 'narrow'):
+    the head's scalar columns, the body's vectors (vector i on lane i %
+    32; 'scalar' where no vector fits) and the tail's scalar columns."""
+    if width <= CP_NARROW:
+        return [("narrow", 0, list(range(width)))]
+    V, h, _ = copy_plan(s_addr, d_addr, width, esize)
+    if V == 1:
+        return [("scalar", c % 32, [c]) for c in range(width)]
+    nb = (width - h) // V
+    t0 = h + nb * V
+    out = [("head", c, [c]) for c in range(h)]
+    out += [("body", i % 32, list(range(h + i * V, h + (i + 1) * V))) for i in range(nb)]
+    out += [("tail", c - t0, [c]) for c in range(t0, width)]
+    return out

@@ -16,8 +16,17 @@ two equal, and holds the functions below against hand-worked cases:
     (the concat's two K ranges with their exact extents, the M and N
     tails), and the preconditions TMA sets.
 
+The `K4_*` constants are csrc/fused_sdf.cu's (obj_sdf_fused_kernel, the
+object SDF in one launch; tests/test_torch_k4_layout.py holds them to the
+source): `k4_offset` is where a tile element lives (the PE's writes),
+`k4_acc_cell` which (row, column) an accumulator register holds,
+`k4_store_offset` the address the epilogue writes a register pair to, and
+`k4_a_desc` the A descriptor wgmma reads the tile through; `k4_smem_bytes`
+the block's shared memory, `k4_layers` the producer's K steps a layer.
+
 Nothing on the main path calls the functions but `tn_workspace`; the CUDA
-side computes the same numbers (`honerf_gemm`, `honerf_gemm_tn`).
+side computes the same numbers (`honerf_gemm`, `honerf_gemm_tn`,
+`honerf_obj_sdf`).
 """
 
 from __future__ import annotations
@@ -55,6 +64,22 @@ CONSTANTS = ("BM", "BN", "BK", "STAGES", "MN_CHUNK", "A_BYTES", "A_HALF_BYTES",
              "B_CHUNK_BYTES", "B_BYTES", "STAGE_BYTES", "RING_BYTES", "SBO", "K_MAJOR_LBO",
              "MN_MAJOR_LBO", "K_MAJOR_K16", "MN_MAJOR_K16", "BN_TN", "TN_STAGE_BYTES", "EPI_LD",
              "EPI_WARP_FLOATS", "CONSUMER_WARPS", "EPI_BYTES", "THREADS", "SMEM_BYTES")
+
+
+# csrc/fused_sdf.cu: obj_sdf_fused_kernel
+K4_TILE = 128          # points a tile: two consumer warpgroups x 64
+K4_EP = 64             # PE columns: one 128-byte swizzle row of bf16
+K4_WIDTH = 256         # the widest layer: one m64n256k16
+K4_CHUNK_BYTES = K4_TILE * 128                    # 64 columns of the tile's rows
+K4_ACT_BYTES = K4_WIDTH // 64 * K4_CHUNK_BYTES    # the activation tile
+K4_ES_BYTES = K4_CHUNK_BYTES                      # es, kept to the skip
+K4_STAGES = 4
+K4_STAGE_BYTES = 64 * K4_WIDTH * 2                # 64 k-rows of one layer's weights
+K4_RING_BYTES = K4_STAGES * K4_STAGE_BYTES
+K4_SMEM_BYTES = 1024 + K4_ACT_BYTES + K4_ES_BYTES + K4_RING_BYTES + 2 * K4_STAGES * 8
+K4_MAX_LAYERS = 12
+K4_CONSTANTS = ("K4_TILE", "K4_EP", "K4_WIDTH", "K4_CHUNK_BYTES", "K4_ACT_BYTES", "K4_ES_BYTES",
+                "K4_STAGES", "K4_STAGE_BYTES", "K4_RING_BYTES", "K4_SMEM_BYTES", "K4_MAX_LAYERS")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -205,3 +230,66 @@ def tn_split(K: int, N: int, m: int, blocks: int) -> int:
 def tn_workspace(K: int, N: int, m: int, split: int) -> int:
     """Floats of the f32 partials of one gemm_tn_kernel launch."""
     return _cdiv(m, split) * _cdiv(K, BM) * BM * _cdiv(N, BN_TN) * BN_TN
+
+
+# ---------------------------------------------------------------------------
+# The object SDF in one launch (csrc/fused_sdf.cu: obj_sdf_fused_kernel)
+# ---------------------------------------------------------------------------
+
+def k4_offset(row: int, col: int) -> int:
+    """Byte of the activation tile (from its 1024-byte-aligned base) that
+    holds element (row, col): chunks of 64 columns, each a TMA box's
+    layout (k4_offset in the source; the PE writes here)."""
+    assert 0 <= row < K4_TILE and 0 <= col < K4_WIDTH
+    return (col // 64) * K4_CHUNK_BYTES + tma_box_offset(row, col % 64)
+
+
+def k4_acc_cell(thread: int, i: int):
+    """(row, column) of the tile that accumulator i of consumer thread
+    `thread` (0-255 over both consumer warpgroups) holds after a layer:
+    acc[4j + q] is row 64 c + 16 w + g + 8 (q >> 1), column 8 j + 2 t +
+    (q & 1), with c the warpgroup, w its warp, g = lane / 4, t = lane % 4."""
+    c, w, lane = thread // 128, (thread % 128) // 32, thread % 32
+    g, t = lane // 4, lane % 4
+    j, q = divmod(i, 4)
+    return 64 * c + 16 * w + g + 8 * (q >> 1), 8 * j + 2 * t + (q & 1)
+
+
+def k4_store_offset(thread: int, j: int, h: int) -> int:
+    """The byte the epilogue writes thread `thread`'s bf16 pair (acc[4j +
+    2h], acc[4j + 2h + 1]) to: chunk j // 8, row ra + 8 h, the 16-byte
+    column chunk j % 8 swizzled by the row, 4 t bytes in."""
+    c, w, lane = thread // 128, (thread % 128) // 32, thread % 32
+    g, t = lane // 4, lane % 4
+    row = 64 * c + 16 * w + g + 8 * h
+    return (j >> 3) * K4_CHUNK_BYTES + row * 128 + (((j & 7) ^ (row & 7)) << 4) + 4 * t
+
+
+def k4_a_desc(base: int, chunk: int, consumer: int, kk: int, es: bool = False) -> int:
+    """The A descriptor of consumer `consumer`'s k16 step kk over the
+    activation tile's chunk `chunk` (or over es, K4_ACT_BYTES past the
+    tile), the tile at shared byte address `base`."""
+    a = base + (K4_ACT_BYTES if es else chunk * K4_CHUNK_BYTES) + consumer * K4_CHUNK_BYTES // 2
+    return smem_desc(a + kk * K_MAJOR_K16, K_MAJOR_LBO, SBO)
+
+
+def k4_smem_bytes() -> Dict[str, int]:
+    """The block's shared memory by part (bytes), the total K4_SMEM_BYTES."""
+    return dict(align=1024, act=K4_ACT_BYTES, es=K4_ES_BYTES, ring=K4_RING_BYTES,
+                barriers=2 * K4_STAGES * 8)
+
+
+def k4_layers(rows, cols, skips) -> List[Dict[str, int]]:
+    """Per layer (honerf_obj_sdf's check and table): kt (K steps of 64 over
+    the activation), skip (one more over es), n (columns), the k-rows of
+    the weights each K step's stage holds."""
+    out, d_in = [], K4_EP
+    for l, (r, n, sk) in enumerate(zip(rows, cols, skips)):
+        kt_rows = r - (K4_EP if sk else 0)
+        if n % 64 or n > K4_WIDTH or kt_rows != d_in or (sk and l == 0):
+            raise ValueError(f"layer {l}: {r} rows, {n} columns, skip {sk}: not a K4 layer")
+        steps = kt_rows // 64 + (1 if sk else 0)
+        out.append(dict(kt=kt_rows // 64, skip=int(bool(sk)), n=n,
+                        k_rows=[64 * k for k in range(steps)]))
+        d_in = n
+    return out

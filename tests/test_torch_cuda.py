@@ -14,6 +14,8 @@ range.  So the median point agrees within 1e-4 of the output's range
 (max |plain|) and every point within 1e-2 of it.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -502,7 +504,9 @@ def _grid_points(n, dev, seed=0):
 
 
 @pytest.mark.parametrize("net", list(OBJ_NETS))
-@pytest.mark.parametrize("n", [1, 1001, FS.CHUNK + 77])  # the last: two passes
+# a tile is 128 points, each consumer warpgroup's half 64: one point, the
+# halves' edges, a ragged size, and more tiles than the card has SMs
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1001, 65536 + 77])
 def test_fused_obj_sdf_matches_plain(dev, net, n):
     fused = _obj_sdf(OBJ_NETS[net], dev)
     pts = _grid_points(n, dev)
@@ -529,6 +533,113 @@ def test_fused_obj_sdf_rejects_what_the_kernel_does_not_take(dev):
         FS.fused_obj_sdf(pts, tuple(w.float() for w in ws), bs, meta)
     with pytest.raises(ValueError):  # a layer's rows do not match its input
         FS.fused_obj_sdf(pts, (ws[2],) + ws[1:], (bs[2],) + bs[1:], meta)
+    with pytest.raises(ValueError):  # a PE wider than the kernel's 64 columns
+        FS.fused_obj_sdf(pts, ws, bs, meta._replace(multires=11))
+    lib = FS._lib()
+    n = len(ws)
+    ptrs = lambda ts: (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])  # noqa: E731
+    ints = lambda xs: (ctypes.c_int * n)(*xs)  # noqa: E731
+    out = torch.empty((64,), device=dev)
+    rows = [w.shape[0] for w in ws]
+    for bad_rows in (rows[:1] + [rows[1] + 64] + rows[2:], ):  # rows that do not chain
+        rc = lib.honerf_obj_sdf(pts.data_ptr(), 64, meta.multires, 0.7071, 1.0, n, ptrs(ws),
+                                ints(bad_rows), ints([w.shape[1] for w in ws]),
+                                ints(meta.out_widths), ints([int(l in meta.skips) for l in range(n)]),
+                                ptrs(bs), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert rc == 1  # cudaErrorInvalidValue
+
+
+def test_fused_obj_sdf_is_one_launch_of_one_kernel(dev):
+    """A K4 call is one launch of obj_sdf_fused_kernel: no gemm_kernel, no
+    embedding kernel (torch.profiler's kernel names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fused = _obj_sdf(OBJ_NETS["full"], dev)
+    pts = _grid_points(70001, dev)
+    fused(pts)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(10_000_000)
+        torch.cuda.synchronize()
+        fused(pts)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+    assert [n.split("(")[0] for n in names if "honerf" in n] == ["honerf::obj_sdf_fused_kernel"], names
+    assert not any("gemm" in n or "embed" in n for n in names), names
+
+
+# copy_cols at the calls the main path makes: (src dtype, src columns,
+# src's first column, dst columns, dst's first column, width)
+COPY_CALLS = {
+    "K2 e": (torch.bfloat16, 1408, 0, 1386, 0, 1386),       # fused_fine_full.py: no-color K2
+    "K3 de": (torch.float32, 1386, 0, 1792, 0, 1386),       # no-color K3: de_ext -> dx
+    "K3 dfeat": (torch.float32, 257, 1, 1792, 1408, 256),   # dout[:, 1:] -> dx[:, Ep:]
+    "K3 dsdf": (torch.float32, 257, 0, 1, 0, 1),            # dout -> dsdf_c
+    "K5 u": (torch.float32, 1408, 0, 1386, 0, 1386),        # fused_fine.py: K5's u, K6's de
+}
+
+
+@pytest.mark.parametrize("call", list(COPY_CALLS))
+@pytest.mark.parametrize("m", [1, 7, 56448])
+def test_copy_cols_matches_the_copy_bit_for_bit(dev, call, m):
+    """copy_cols_kernel at each call shape of the main path into a
+    NaN-filled destination: dst[:m, :w] equals copy_cols_plain (and
+    torch's copy_) bit for bit, every other element untouched; one launch."""
+    sdt, lds, c0, ldd, d0, width = COPY_CALLS[call]
+    gen = torch.Generator(device=dev).manual_seed(m)
+    base = torch.randn((m + 3, lds), generator=gen, device=dev).to(sdt)
+    src = base[:, c0:]
+    dbuf = torch.full((m + 3, ldd), float("nan"), device=dev)
+    dst = dbuf[:, d0:]
+    lib, stream = FT._lib(), torch.cuda.current_stream().cuda_stream
+    before = FT.COPY.launches
+    FT.copy_cols(lib, src, m, width, dst, stream)
+    torch.cuda.synchronize()
+    assert FT.COPY.launches == before + 1
+    assert torch.equal(dst[:m, :width], FT.copy_cols_plain(src, m, width))
+    lib_dst = torch.empty((m, width), device=dev)
+    lib_dst.copy_(src[:m, :width])
+    assert torch.equal(dst[:m, :width], lib_dst)
+    untouched = torch.ones_like(dbuf, dtype=torch.bool)
+    untouched[:m, d0:d0 + width] = False
+    assert bool(torch.isnan(dbuf[untouched]).all())
+
+
+@pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_copy_cols_every_alignment(dev, sdt):
+    """Every source and destination offset mod 16 bytes (rows of odd
+    strides, so each row has its own alignment), widths 1, 9 and 300."""
+    lib, stream = FT._lib(), torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(4)
+    es = torch.tensor([], dtype=sdt).element_size()
+    for width in (1, 9, 300):
+        for so in range(16 // es):
+            for do in range(4):
+                sbuf = torch.randn((40, 331), generator=gen, device=dev).to(sdt)
+                dbuf = torch.full((40, 333), float("nan"), device=dev)
+                src, dst = sbuf[:, so:], dbuf[:, do:]
+                FT.copy_cols(lib, src, 37, width, dst, stream)
+                assert torch.equal(dst[:37, :width], src[:37, :width].float()), (width, so, do)
+                assert bool(torch.isnan(dbuf[37:]).all())
+                assert bool(torch.isnan(dst[:37, width:]).all())
+
+
+def test_copy_cols_rejects_what_the_kernel_does_not_take(dev):
+    """An f64 source, an f32-less destination, operands on two devices,
+    strided columns, more rows or columns than the operands hold: the
+    wrapper raises; the C entry point refuses a stride below the width."""
+    lib, stream = FT._lib(), torch.cuda.current_stream().cuda_stream
+    src = torch.randn((8, 64), device=dev)
+    dst = torch.empty((8, 64), device=dev)
+    for args in ((src.double(), 8, 64, dst), (src, 8, 64, dst.to(torch.bfloat16)),
+                 (src.cpu(), 8, 64, dst), (src[:, ::2], 8, 32, dst), (src, 9, 64, dst),
+                 (src, 8, 65, dst)):
+        with pytest.raises(ValueError):
+            FT.copy_cols(lib, *args, stream)
+    rc = lib.honerf_copy_cols(src.data_ptr(), 32, 8, 64, dst.data_ptr(), 64, stream)
+    assert rc == 1  # cudaErrorInvalidValue
 
 
 # K2 in f32 and K3 in f32 with frozen nets (the fitting stage's fine
@@ -762,9 +873,9 @@ GEMM_F32_TOL = 1e-5
 GEMM_M, GEMM_BETA = 33001, 100.0
 # name -> (epilogue, K2 of the concat (0: none), N, split)
 GEMM_F32_CASES = {
-    "f32": (FH.EPI_F32, 1408, 320, 0), "f32_scale": (FS.EPI_F32_SCALE, 0, 320, 0),
+    "f32": (FH.EPI_F32, 1408, 320, 0),
     "sigmoid": (FH.EPI_SIGMOID, 0, 320, 0), "softplus": (FH.EPI_SOFTPLUS, 1408, 320, 0),
-    "sp_scale": (FS.EPI_SP_SCALE, 0, 320, 0), "relu": (FH.EPI_RELU, 0, 1408, 0),
+    "relu": (FH.EPI_RELU, 0, 1408, 0),
     "uchain": (FH.EPI_UCHAIN, 0, 320, 256), "uchain_e": (FH.EPI_UCHAIN, 0, 1408, 0),
     "dz": (FT.EPI_DZ, 0, 320, 256), "ut": (FT.EPI_UT, 0, 320, 0),
     "mask": (FF.EPI_MASK, 0, 320, 0),
@@ -789,7 +900,7 @@ def _gemm_f32_run(case, dev):
                U=x["U0"].clone())
     kw = dict(n_store=N - 3, a_scale=x["a_scale"], hscale=x["hscale"], escale=x["escale"],
               split=split)
-    if mode in (FH.EPI_SOFTPLUS, FS.EPI_SP_SCALE):
+    if mode == FH.EPI_SOFTPLUS:
         kw["S"] = out["S"]
     elif mode == FH.EPI_UCHAIN:
         kw.update(S=x["S"], U=out["U"], u_acc=1, Cf=out["Cf"] if split else None)
@@ -820,12 +931,12 @@ def _epilogue_want(mode, K2, N, split, n_store, x):
     z = A @ x["B"].double() + x["bias"].double()
     h, e = x["hscale"], x["escale"]
     S = x["S"].double()
-    if mode in (FH.EPI_F32, FS.EPI_F32_SCALE, FH.EPI_SIGMOID):
-        c = {FH.EPI_F32: z, FS.EPI_F32_SCALE: z * h, FH.EPI_SIGMOID: torch.sigmoid(z)}[mode]
+    if mode in (FH.EPI_F32, FH.EPI_SIGMOID):
+        c = {FH.EPI_F32: z, FH.EPI_SIGMOID: torch.sigmoid(z)}[mode]
         return {"C": (c[:, :n_store], (slice(None), slice(0, n_store)))}
-    if mode in (FH.EPI_SOFTPLUS, FS.EPI_SP_SCALE):
+    if mode == FH.EPI_SOFTPLUS:
         sp = torch.nn.functional.softplus(GEMM_BETA * z) / GEMM_BETA
-        return {"C": (sp * (h if mode == FS.EPI_SP_SCALE else 1.0), ...),
+        return {"C": (sp, ...),
                 "S": (torch.sigmoid(GEMM_BETA * z), ...)}
     if mode == FH.EPI_RELU:
         return {"C": (z.clamp_min(0.0), ...)}
@@ -880,10 +991,9 @@ GEMM_BF16_TOL = 2e-5
 GEMM_BF16_CASES = {
     "f32_ragged_k2": (FH.EPI_F32, 256, 1400, 264, 0, 0.0),
     "f32_ragged_k1": (FH.EPI_F32, 200, 1408, 256, 0, 0.70703125),
-    "f32_scale": (FS.EPI_F32_SCALE, 1408, 0, 320, 0, 0.0),
+    "f32_k1408": (FH.EPI_F32, 1408, 0, 320, 0, 0.0),
     "sigmoid": (FH.EPI_SIGMOID, 256, 0, 320, 0, 0.0),
     "softplus": (FH.EPI_SOFTPLUS, 256, 1408, 256, 0, 0.70703125),
-    "sp_scale": (FS.EPI_SP_SCALE, 256, 0, 320, 0, 0.0),
     "relu": (FH.EPI_RELU, 256, 0, 1408, 0, 0.0),
     "uchain": (FH.EPI_UCHAIN, 256, 0, 320, 256, 0.0),
     "uchain_e": (FH.EPI_UCHAIN, 256, 0, 1408, 0, 0.0),
@@ -891,7 +1001,7 @@ GEMM_BF16_CASES = {
     "ut": (FT.EPI_UT, 256, 0, 320, 0, 0.0),
     "mask": (FF.EPI_MASK, 256, 0, 320, 0, 0.0),
 }
-_BF16_C = (FH.EPI_SOFTPLUS, FS.EPI_SP_SCALE, FH.EPI_RELU, FH.EPI_UCHAIN, FT.EPI_DZ, FT.EPI_UT,
+_BF16_C = (FH.EPI_SOFTPLUS, FH.EPI_RELU, FH.EPI_UCHAIN, FT.EPI_DZ, FT.EPI_UT,
            FF.EPI_MASK)
 
 
@@ -920,7 +1030,7 @@ def _gemm_bf16_run(case, dev):
                S=torch.empty((M, N), device=dev), U=x["U0"].clone())
     kw = dict(n_store=N - 7, a_scale=a_scale, hscale=x["hscale"], escale=x["escale"],
               split=split)
-    if mode in (FH.EPI_SOFTPLUS, FS.EPI_SP_SCALE):
+    if mode == FH.EPI_SOFTPLUS:
         kw["S"] = out["S"]
     elif mode == FH.EPI_UCHAIN:
         kw.update(S=x["S"], U=out["U"], u_acc=1, Cf=out["Cf"] if split else None)
