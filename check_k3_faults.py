@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """What the card-side checks of K3 (the fine pass's backward), K6 (the
 trunk + u-chain's backward), their f32 modes, the fit step, the per-point
-kernels, K4 and the padded-row copy catch: each check is read on the
-sound kernels and on planted faults.
+kernels, K4, the padded-row copy, the pack of e and the pose sums catch:
+each check is read on the sound kernels and on planted faults.
 
     python3 check_k3_faults.py [--out readings.json] [--only sound,k6_du_skip_unscaled]
                                [--groups f32,fit]
@@ -15,7 +15,7 @@ made in a copy of honerf_torch under build/k3_faults/<name>/, whose kernels
 build there; a child process runs the checks on that copy.  "sound" is an
 unedited copy and reads every check; a fault reads the checks of its
 groups (bf16: the first eight below, f32: the next six, fit: the next
-six, perpoint: the last three; --groups reads only the named groups, and skips
+six, perpoint: the last five; --groups reads only the named groups, and skips
 the faults with none of them).  The checks, with the limits they hold:
 
   kernel  chip_smoke.py's K3 phase on one flagship train step's own
@@ -99,7 +99,16 @@ the faults with none of them).  The checks, with the limits they hold:
   copy    copy_cols_kernel at chip_smoke.copy_calls (a 'full_nocolor'
           step's four calls and a 'pallas' step's), bit for bit against
           copy_cols_plain and copy_, the rest of the destination untouched
-          (the perpoint group).
+          (the perpoint group);
+  pack    trunk_pack_e_kernel at chip_smoke.pack_calls (a 'pallas' step's,
+          an f32 step's, a request's and a fit step's calls) and
+          ragged_pack_pose_calls' (1, 7, 70,001 rows at e offsets of 4,
+          12, 8 bytes), bit for bit against trunk_pack_e_plain and copy_
+          into a NaN-filled eb (the perpoint group);
+  pose    pose_sum_kernel at chip_smoke.pose_calls (a bf16 'full' step's,
+          an f32 step's, a fit step's) and the ragged 1, 511, 70,001 rows,
+          bit for bit against pose_sum_ordered_plain, on a rerun, within
+          TOL_COLSUM_F64 of f64 (the perpoint group).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -129,6 +138,7 @@ _WGMMA_CUH = "honerf_torch/ops/csrc/wgmma.cuh"
 _FULL_PY = "honerf_torch/ops/fused_fine_full.py"
 _K1_PY = "honerf_torch/ops/fused_hand.py"
 _SDF_CU = "honerf_torch/ops/csrc/fused_sdf.cu"
+_FT_CU = "honerf_torch/ops/csrc/fused_trunk.cu"
 
 # name -> (what it breaks, file, text, replacement, groups of checks it is
 # read by); the text must occur exactly once in the file
@@ -274,6 +284,23 @@ FAULTS = {
         "boundary", _TRUNK_CUH,
         "if (lane < h) d[lane] = to_f32(s[lane]);", "if (lane < 0) d[lane] = to_f32(s[lane]);",
         ("perpoint",)),
+    "pack_straddle_no_zeros": (
+        "the pack of e loads the columns past E of the vector that straddles E instead of "
+        "zeroing them (K5 / K6's operand)", _FT_CU,
+        "x[u][j] = c < E ? s[c] : 0.f;", "x[u][j] = c < E || v == nfull ? s[c] : 0.f;",
+        ("perpoint",)),
+    "pack_last_row": (
+        "the pack of e leaves the last row of a call unwritten", _FT_CU,
+        "m < M; m += gridDim.x * PK_WARPS) {", "m < M - 1; m += gridDim.x * PK_WARPS) {",
+        ("perpoint",)),
+    "pose_skip_last_partial": (
+        "the pose sums' last block leaves the last block's partial out (K3's drotT / doff)",
+        _CU, "red[r][c] = pose_thread_sum<true>(ws, 0, S, r, c);",
+        "red[r][c] = pose_thread_sum<true>(ws, 0, S - 1, r, c);", ("perpoint",)),
+    "pose_drop_tail": (
+        "the pose sums drop the rows past the last full split (a ragged last block sums "
+        "nothing)", _CU, "const int r0 = s * split, r1 = min(M, r0 + split);",
+        "const int r0 = s * split, r1 = r0 + split <= M ? r0 + split : r0;", ("perpoint",)),
 }
 GROUPS = ("bf16", "f32", "fit", "perpoint")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
@@ -456,6 +483,15 @@ def child(name: str, root: str, groups) -> None:
                                 r.max_abs if r.ok else float("inf"), r.ok]
                                for r in CS.copy_readings(torch, dev, calls, timed=False)]
                        for label, calls in CS.copy_calls(torch).items()}
+        rg_pack, rg_pose = CS.ragged_pack_pose_calls(torch)
+        out["pack"] = {label: [[f"pack {r.m} {r.dtype} +{r.so}",
+                                r.max_abs if r.ok else float("inf"), r.ok]
+                               for r in CS.pack_readings(torch, dev, calls, timed=False)]
+                       for label, calls in dict(CS.pack_calls(torch), ragged=rg_pack).items()}
+        out["pose"] = {label: [[f"pose {r.m} acc {r.acc}", r.f64 if r.ok else float("inf"),
+                                r.ok]
+                               for r in CS.pose_readings(torch, dev, calls, timed=False)]
+                       for label, calls in dict(CS.pose_calls(torch), ragged=rg_pose).items()}
     print(json.dumps(out))
 
 
@@ -497,7 +533,7 @@ def judge(CS, res):
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
     for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt",
-                  "k4", "copy"):
+                  "k4", "copy", "pack", "pose"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []

@@ -78,9 +78,15 @@ Phases, each of which fails the run when it fails:
               dfeat copy reads dout[:, 1:]) bit for bit against
               copy_cols_plain and torch's copy_, the rest of each
               NaN-filled destination untouched, ms beside
-              dst[:, :w].copy_(src[:, :w]) and its bound; then the
-              yardsticks of the pose sum (P[:m].sum(0)) and
-              reduce_partials_kernel (ws.sum(0)), whose own times come
+              dst[:, :w].copy_(src[:, :w]) and its bound;
+              trunk_pack_e_kernel at a 'pallas' step's and a 'pallas'
+              request's recorded calls (pack_calls) bit for bit against
+              trunk_pack_e_plain and eb[:, :E].copy_(e), and
+              pose_sum_kernel at a step's (pose_calls) bit for bit against
+              pose_sum_ordered_plain, on a rerun, within TOL_COLSUM_F64 of
+              f64, each timed beside that copy_ / P[:m].sum(0) in CUDA
+              graphs (graph_ms) and its bound; then the yardstick of
+              reduce_partials_kernel (ws.sum(0)), whose own time comes
               from the profiles;
  10. kernel K4  the object SDF (obj_sdf_fused_kernel, one launch a call)
               against its plain version on the card, full-width object
@@ -129,8 +135,10 @@ The hand's other fine-pass modes (train.fused_fine), between 9 and 10:
               inputs under K3's two rules, and its frozen call;
  17. train pallas  the flagship train step with train.fused_fine =
               'pallas', 3 warm-up and 20 timed steps: K1, K5 and K6
-              launched, K2 and K3 not; finite losses, se3_refine moved; one
-              step under torch.profiler;
+              launched, K2 and K3 not, two packs a step (trunk_pack_e_kernel)
+              and no pose sum (a step of 'full' or 'full_nocolor': one, and
+              no pack); finite losses, se3_refine moved; one step under
+              torch.profiler;
  18. train full_nocolor  the same with 'full_nocolor', 3 + 10 steps: K1, K2
               and K3 launched, K5 and K6 not; one step under torch.profiler
               (in both, copy_cols_kernel launched: its count, COPY, goes
@@ -139,7 +147,8 @@ The hand's other fine-pass modes (train.fused_fine), between 9 and 10:
               against the CPU (plain versions), the train check's limits;
  20. serve pallas  one 4096-ray request through make_hand_eval_render
               with 'pallas': K1 and K5 launched, K2 and K6 not; the 128 rays
-              of it that meet the most surface against the CPU render.
+              of it that meet the most surface against the CPU render;
+              eight packs (one a K5 pass).
 
 The hand's offline stage with the conf's own f32 trunks (as written;
 no ladder kernel unless train.fused_ladder is set), after 20:
@@ -170,7 +179,10 @@ no ladder kernel unless train.fused_ladder is set), after 20:
               GEMMs, no bf16 one), finite losses, se3_refine moved; one
               'full' and one 'pallas' step under torch.profiler, and the
               bound of reduce_partials_kernel over a 'full' step's
-              recorded dW products;
+              recorded dW products; two pose sums a 'full' and a
+              'full_nocolor' step, four packs a 'pallas' one;
+ 26b. per-point kernels f32  the pack at a 'pallas' step's recorded
+              calls and the pose sum at a 'full' step's, as in 9b;
  27. train check f32  one 64-ray step per kernel mode, card against CPU;
  28. serve f32  one 4096-ray 'full' request (the eval render's K1
               ladder, whatever the trunk's dtype, as in the JAX package; K2
@@ -191,9 +203,10 @@ Pose fitting (the fit confs, f32 trunks), after 13:
               net and K5 f32 under K2's f32 rule, the frozen K3 f32 without
               it and the frozen K6 f32 on the step's cotangents and on
               unit cotangents under the f32 rule;
- 31b. per-point kernels fit  uchain_seed_kernel and fine_bwd_rev_kernel
-              in f32 at the calls of phases 29-30 (one fit step's K2 and
-              frozen K3), on the step's points, as in 9b;
+ 31b. per-point kernels fit  uchain_seed_kernel, fine_bwd_rev_kernel
+              and the pose sum in f32 at the calls of phases 29-30 (one
+              fit step's K2 and frozen K3), on the step's points, and the
+              pack at a '12' 'pallas' fit step's calls, as in 9b;
  32. fit      the CLI (honerf_torch.cli.fitting_single) '1' then '12' on a
               synthetic catch sequence (1 frame, 8 views, 230x266) with
               random full-width checkpoints, train.iter_num cut to 3: the
@@ -221,13 +234,16 @@ catches).  The last lines of stdout are the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
 numbers (each kernel's other modes beside it: no-color, f32, f32 at a
 request, f32 no-color, f32 with dW; the bf16 and the f32 GEMMs alone and
-the per-point kernels EMBED, COLSUM, UCHAIN, BWDREV and COPY in rows of
-their own; UCHAIN and BWDREV count launches on every path that runs them:
-served images and requests, each train mode, the fit CLI; COPY on the
-'full_nocolor' and 'pallas' train paths; K4 on the mesh path, with both
-bounds and a 256^3 grid's time), and the result line.  Before them, every
-per-point kernel's launches and device time in each profiled path
-(log_perpoint_profiles).  Exits nonzero, printing no result, when no CUDA
+the per-point kernels EMBED, COLSUM, UCHAIN, BWDREV, COPY, PACK and POSE
+in rows of their own; UCHAIN and BWDREV count launches on every path that
+runs them: served images and requests, each train mode, the fit CLI; COPY
+on the 'full_nocolor' and 'pallas' train paths; PACK on the 'pallas'
+step, request and fit; POSE on the 'full' steps and the fit CLI; K4 on the
+mesh path, with both bounds and a 256^3 grid's time), and the result line.
+Before them, every per-point kernel's launches and device time in each
+profiled path (log_perpoint_profiles; a profile that shows
+pose_partial_kernel or pose_reduce_kernel, or none that shows
+pose_sum_kernel, fails).  Exits nonzero, printing no result, when no CUDA
 device is present or a phase fails.
 """
 
@@ -869,17 +885,22 @@ def record_perpoint_calls(fn):
     [(N, m, ldz)], .seed [(m, width, ldt, dtype)] (the u-chain's seed),
     .bwdrev [(m, meta, ldx, lddu, lddz)] (K3's reverse-chain transpose),
     .copy [(m, width, src dtype, lds, ldd, src and dst offsets mod 16 bytes
-    in elements)] (copy_cols) and .tn [(K, N, m,
+    in elements)] (copy_cols), .tn [(K, N, m,
     dtype)] (the dW products, whose partials reduce_partials_kernel
-    sums)."""
+    sums), .pack [(m, E, lde, ldo, eb dtype, e's offset mod 16 bytes in
+    elements)] (trunk_pack_e, K5 / K6's operand) and .pose [(m, acc)]
+    (K3's pose sums)."""
     from honerf_torch.ops import fused_fine as FT
     from honerf_torch.ops import fused_fine_full as FF
     from honerf_torch.ops import fused_hand as FH
 
-    rec = SimpleNamespace(embed=[], colsum=[], seed=[], bwdrev=[], copy=[], tn=[])
-    # (a package from before the seed's and the transpose's wrappers lacks them)
+    rec = SimpleNamespace(embed=[], colsum=[], seed=[], bwdrev=[], copy=[], tn=[], pack=[],
+                          pose=[])
+    # (a package from before the seed's, the transpose's, the pack's and the
+    # pose sum's wrappers lacks them)
     embed, colsum, copy, tn = FH.embed, FT._colsum, FT.copy_cols, FT._tn
     seed, bwdrev = getattr(FT, "uchain_seed", None), getattr(FF, "fine_bwd_rev", None)
+    pack, pose = getattr(FT, "trunk_pack_e", None), getattr(FF, "pose_sum", None)
 
     def rec_embed(lib, pts, m, rotT, off, cut, vL, rL, e, stream):
         rec.embed.append((m, vL, rL, e.shape[1], e.dtype))
@@ -908,9 +929,19 @@ def record_perpoint_calls(fn):
         rec.tn.append((K, N, m, X.dtype))
         return tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale)
 
+    def rec_pack(lib, e, m, eb, stream):
+        rec.pack.append((m, e.shape[1], e.stride(0), eb.stride(0), eb.dtype,
+                         e.data_ptr() % 16 // 4))
+        return pack(lib, e, m, eb, stream)
+
+    def rec_pose(blib, P, m, out, acc, ws, stream):
+        rec.pose.append((m, acc))
+        return pose(blib, P, m, out, acc, ws, stream)
+
     patched = ((FH, "embed", rec_embed), (FT, "_colsum", rec_colsum), (FF, "_colsum", rec_colsum),
                (FT, "uchain_seed", rec_seed), (FF, "fine_bwd_rev", rec_bwdrev),
-               (FT, "copy_cols", rec_copy), (FT, "_tn", rec_tn), (FF, "_tn", rec_tn))
+               (FT, "copy_cols", rec_copy), (FT, "_tn", rec_tn), (FF, "_tn", rec_tn),
+               (FT, "trunk_pack_e", rec_pack), (FF, "pose_sum", rec_pose))
     patched = [(mod, name, f) for mod, name, f in patched if hasattr(mod, name)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
     for mod, name, f in patched:
@@ -1258,6 +1289,206 @@ def copy_readings(torch, dev, calls, timed: bool = True):
     return out
 
 
+def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
+    """Device ms a call of fn: `iters` calls captured into one CUDA graph,
+    replayed `reps` times between two events, so that the host's time to
+    launch a call (longer than a kernel of a few microseconds) is not what
+    is read.  fn reads the current stream when called (the capture's)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    g.reset()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def pack_calls(torch):
+    """The trunk_pack_e calls of the main path's 'pallas' runs, as the
+    recording gives them, (m, E, lde, ldo, eb dtype, e's offset mod 16
+    bytes in elements) -> count: a flagship bf16 step's two (K5 and K6 on
+    its 56,448 fine points), an f32 step's four (each in two passes of
+    28,288 and 28,160 points), a 4096-ray request's eight (K5 on 524,288
+    points in passes of 65,536) and a '12' fit step's four (f32, 37,632
+    points: K5 and the frozen K6 in two passes of 18,816 each).  Every
+    pass starts e on a 16-byte boundary; its odd rows (5,544 bytes apart)
+    start 8 bytes past one."""
+    bf, f32, m = torch.bfloat16, torch.float32, TRAIN_FINE_PTS
+    return {"step": {(m, 1386, 1386, 1408, bf, 0): 2},
+            "f32 step": {(28288, 1386, 1386, 1408, f32, 0): 2,
+                         (28160, 1386, 1386, 1408, f32, 0): 2},
+            "request": {(65536, 1386, 1386, 1408, bf, 0): 8},
+            "fit step": {(18816, 1386, 1386, 1408, f32, 0): 4}}
+
+
+def pose_calls(torch):
+    """K3's pose-sum calls, (m, acc) -> count: a flagship bf16 'full' step's
+    one (56,448 rows), an f32 step's two passes (28,288 rows, then 28,160
+    added) and a fit step's two (18,816 rows each)."""
+    return {"step": {(TRAIN_FINE_PTS, 0): 1}, "f32 step": {(28288, 0): 1, (28160, 1): 1},
+            "fit step": {(18816, 0): 1, (18816, 1): 1}}
+
+
+def ragged_pack_pose_calls(torch):
+    """The pack and the pose sum at sizes the main path's leave out: 1, 7
+    and 70,001 rows, e starting 4, 12 and 8 bytes past a 16-byte boundary
+    (bf16, f32, bf16); the pose sum at 1, 511 (acc 1) and 70,001 rows."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return ({(1, 1386, 1386, 1408, bf, 1): 1, (7, 1386, 1386, 1408, f32, 3): 1,
+             (70001, 1386, 1386, 1408, bf, 2): 1},
+            {(1, 0): 1, (511, 1): 1, (70001, 0): 1})
+
+
+def pack_readings(torch, dev, calls, timed: bool = True):
+    """trunk_pack_e_kernel at each call {(m, E, lde, ldo, dtype, offset):
+    count} on seeded normal e laid out as the call's (rows lde floats
+    apart, `offset` floats past a 16-byte boundary), into a NaN-filled eb:
+    the same bits as trunk_pack_e_plain and as eb[:, :E].copy_(e) into a
+    zeroed eb (one PyTorch call of the same function).  timed: ms of the
+    kernel and of that copy_ (CUDA graphs: graph_ms), of the plain version
+    and the bound (e read once, eb written once)."""
+    from honerf_torch.ops import fused_fine as FT
+
+    lib = FT._lib()
+    gen = torch.Generator(device=dev).manual_seed(37)
+    out = []
+    for (m, E, lde, ldo, dtype, so), count in calls.items():
+        buf = torch.randn((m * lde + so,), generator=gen, device=dev)
+        e = buf[so:].view(m, lde)[:, :E]
+        eb = torch.full((m, ldo), float("nan"), device=dev, dtype=dtype)
+
+        def run(e=e, m=m, eb=eb):
+            FT.trunk_pack_e(lib, e, m, eb, torch.cuda.current_stream().cuda_stream)
+
+        run()
+        want = FT.trunk_pack_e_plain(e, m, ldo, dtype)
+        lib_eb = torch.zeros((m, ldo), device=dev, dtype=dtype)
+        lib_eb[:, :E].copy_(e)
+        torch.cuda.synchronize()
+        same, same_lib = bool(torch.equal(eb, want)), bool(torch.equal(lib_eb, want))
+        r = SimpleNamespace(m=m, E=E, lde=lde, ldo=ldo, dtype=str(dtype).split(".")[-1], so=so,
+                            count=count, same=same, same_lib=same_lib, ok=same and same_lib,
+                            max_abs=float((eb.float() - want.float()).abs().max()), ms=None,
+                            plain_ms=None, lib_ms=None, bound_ms=None, bound_by=None)
+        if timed:
+            r.ms = graph_ms(torch, run)
+            r.lib_ms = graph_ms(torch, lambda lib_eb=lib_eb, e=e, E=E: lib_eb[:, :E].copy_(e))
+            r.plain_ms = cuda_ms(torch, lambda e=e, m=m, ldo=ldo, dtype=dtype:
+                                 FT.trunk_pack_e_plain(e, m, ldo, dtype), 5)
+            r.bound_ms, r.bound_by = bound(0.0, m * (4 * E + ldo * eb.element_size()))
+        del buf, e, eb, want, lib_eb
+        out.append(r)
+    return out
+
+
+def pose_readings(torch, dev, calls, timed: bool = True):
+    """pose_sum_kernel at each call {(m, acc): count} on seeded normal pose
+    rows P (m, 256), onto an out of zeros (acc 0) or of seeded values (acc
+    1): the same bits as pose_sum_ordered_plain on the card (the card's SM
+    count), the same bits on a rerun, within TOL_COLSUM_F64 of the f64 sum.
+    timed: device ms of the kernel and of P[:m].sum(0), the library
+    yardstick (CUDA graphs: graph_ms; P, 58 MB at most, stays in the 50 MB
+    L2 in part between the calls, as after fine_bwd_emb_kernel writes it),
+    the plain version's ms and the bound (P read once, out written once)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+
+    blib = FF._bwd_lib()
+    ws = torch.empty((FT._WS_FLOATS,), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    out = []
+    for (m, acc), count in calls.items():
+        P = torch.randn((m, 256), generator=gen, device=dev)
+        base = (torch.randn((256,), generator=gen, device=dev) if acc
+                else torch.zeros((256,), device=dev))
+        res = torch.empty((256,), device=dev)
+
+        def run(P=P, m=m, acc=acc, res=res, base=base):
+            res.copy_(base)
+            FF.pose_sum(blib, P, m, res, acc, ws, torch.cuda.current_stream().cuda_stream)
+
+        run()
+        got = res.clone()
+        run()
+        again = res.clone()
+        want = FF.pose_sum_ordered_plain(P, m, base.clone(), acc)
+        torch.cuda.synchronize()
+        f64 = float((got.double() - (base.double() * acc + P.double().sum(0))).abs().max())
+        same, rerun = bool(torch.equal(got, want)), bool(torch.equal(got, again))
+        r = SimpleNamespace(m=m, acc=acc, count=count, same=same, rerun=rerun, f64=f64,
+                            max_abs=float((got - want).abs().max()),
+                            ok=same and rerun and f64 <= TOL_COLSUM_F64, ms=None, plain_ms=None,
+                            lib_ms=None, bound_ms=None, bound_by=None)
+        if timed:
+            r.ms = graph_ms(torch, lambda P=P, m=m, acc=acc, res=res: FF.pose_sum(
+                blib, P, m, res, acc, ws, torch.cuda.current_stream().cuda_stream))
+            r.lib_ms = graph_ms(torch, lambda P=P, m=m: P[:m].sum(0))
+            r.plain_ms = cuda_ms(torch, lambda P=P, m=m: FF.pose_sum_ordered_plain(P, m), 3)
+            r.bound_ms, r.bound_by = bound(float(m * 256), 4 * (m * 256 + 256), PEAK_F32_FLOPS)
+        del P
+        out.append(r)
+    return out
+
+
+def log_pack_pose(label, packs, poses) -> None:
+    """Log pack_readings and pose_readings of one path, each call and the
+    path's weighted total."""
+    for r in packs:
+        log(f"PACK {label}: {r.count} x {r.m} rows ({r.dtype}, E {r.E}, lde {r.lde} +{r.so}, ldo "
+            f"{r.ldo}): the same bits as trunk_pack_e_plain {r.same}, as copy_ {r.same_lib}; "
+            f"kernel {r.ms:.4f} ms, eb[:, :E].copy_(e) {r.lib_ms:.4f} ms, plain "
+            f"{r.plain_ms:.4f} ms, bound {r.bound_ms:.4f} ms ({r.bound_by}): "
+            f"{r.bound_ms / r.ms:.2f} of the bound, {r.lib_ms / r.ms:.2f}x copy_'s speed"
+            f"{'' if r.ok else ' FAIL'}")
+    if packs:
+        t = weighted(packs)
+        log(f"trunk_pack_e_kernel, a {label}'s {sum(r.count for r in packs)} launches: kernel "
+            f"{t['ms']:.4f} ms, copy_ {t['lib_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms: {t['bound_ms'] / t['ms']:.2f} of the bound, "
+            f"{t['lib_ms'] / t['ms']:.2f}x copy_'s speed")
+    for r in poses:
+        log(f"POSE {label}: {r.count} x {r.m} rows, acc {r.acc}: the same bits as "
+            f"pose_sum_ordered_plain {r.same}, on a rerun {r.rerun}, |err| vs f64 {r.f64:.2e} "
+            f"(tol {TOL_COLSUM_F64:g}); kernel {r.ms:.4f} ms, P[:m].sum(0) {r.lib_ms:.4f} ms, "
+            f"plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms ({r.bound_by}; L2 can beat "
+            f"it): {r.bound_ms / r.ms:.2f} of the bound, {r.lib_ms / r.ms:.2f}x the torch sum's "
+            f"speed{'' if r.ok else ' FAIL'}")
+    if poses:
+        t = weighted(poses)
+        log(f"pose_sum_kernel, a {label}'s {sum(r.count for r in poses)} launches: kernel "
+            f"{t['ms']:.4f} ms, P[:m].sum(0) {t['lib_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+            f"bound {t['bound_ms']:.4f} ms: {t['bound_ms'] / t['ms']:.2f} of the bound, "
+            f"{t['lib_ms'] / t['ms']:.2f}x the torch sum's speed")
+
+
+def pack_pose_row(prefix, packs, poses, rows) -> None:
+    """Put a path's pack and pose-sum readings into the kernels line's
+    PACK and POSE rows under `prefix` (the bf16 step's: no prefix)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+
+    for key, kern, rs in (("PACK", FT.PACK, packs), ("POSE", FF.POSE, poses)):
+        if not rs:
+            continue
+        t = weighted(rs)
+        row = dict(rows.get(key, {}), name=kern.name, route="cuda", source=kern.source,
+                   replaces=kern.replaces, bound_by="bytes")
+        row.update({f"{prefix}ms": t["ms"], f"{prefix}plain_ms": t["plain_ms"],
+                    f"{prefix}bound_ms": t["bound_ms"], f"{prefix}library_ms": t["lib_ms"]})
+        err = max(r.max_abs for r in rs)
+        row["max_abs_err"] = max(err, row.get("max_abs_err") or 0.0)
+        rows[key] = row
+
+
 def weighted(rs, keys=("ms", "plain_ms", "lib_ms", "bound_ms")):
     """{key: sum of r.key x r.count} over readings (keys a reading has)."""
     return {k: sum(getattr(r, k) * r.count for r in rs) for k in keys
@@ -1268,10 +1499,12 @@ def weighted(rs, keys=("ms", "plain_ms", "lib_ms", "bound_ms")):
 # label -> {name: [us, launches]}), for the per-point kernels' table
 PROFILES = {}
 PERPOINT_KERNELS = ("uchain_seed_kernel", "fine_bwd_rev_kernel", "fine_rev_kernel",
-                    "fine_bwd_emb_kernel", "color_dz_kernel", "pose_partial_kernel",
-                    "pose_reduce_kernel", "reduce_partials_kernel", "copy_cols_kernel",
-                    "trunk_pack_e_kernel", "trunk_bwd_seed_kernel", "hand_embed_kernel",
-                    "colsum_partial_kernel")
+                    "fine_bwd_emb_kernel", "color_dz_kernel", "pose_sum_kernel",
+                    "reduce_partials_kernel", "copy_cols_kernel", "trunk_pack_e_kernel",
+                    "trunk_bwd_seed_kernel", "hand_embed_kernel", "colsum_partial_kernel")
+# the pose sums' kernels before their one launch (pose_sum_kernel): no
+# profiled path may show them
+RETIRED_KERNELS = ("pose_partial_kernel", "pose_reduce_kernel")
 
 
 def perpoint_bytes(kern: str, f32: bool):
@@ -1291,7 +1524,7 @@ def perpoint_bytes(kern: str, f32: bool):
         # the sigmoid and dcolor (3 f32 each); dzf (64 f32), dzb (64)
         "color_dz_kernel": 4 * 6 + 64 * (4 + es),
         # the pose row (256 f32) read once
-        "pose_partial_kernel": 4 * 256,
+        "pose_sum_kernel": 4 * 256,
         # e (E f32) -> e of the type, Ep columns
         "trunk_pack_e_kernel": 4 * 1386 + 1408 * es,
         # dout (257 f32), du (E f32); dzf (Op f32), dzb (Op), du_b, du_s (Ep)
@@ -1299,11 +1532,12 @@ def perpoint_bytes(kern: str, f32: bool):
     }.get(kern)
 
 
-def log_perpoint_profiles() -> None:
+def log_perpoint_profiles() -> list:
     """Each per-point kernel's launches and device ms in each profiled path
     (PROFILES), summed over its template instances, and, where its work is
     per point, its bound there: launches x the path's points a launch x
-    perpoint_bytes at PEAK_BYTES."""
+    perpoint_bytes at PEAK_BYTES.  Returns what is wrong: a retired kernel
+    (RETIRED_KERNELS) in a profile, or pose_sum_kernel in none."""
     for kern in PERPOINT_KERNELS:
         parts = []
         for label, (groups, points) in PROFILES.items():
@@ -1318,6 +1552,11 @@ def log_perpoint_profiles() -> None:
                 text += f", bound {b_ms:.4f} ms ({per} B/pt x {points} pts a launch)"
             parts.append(text)
         log(f"profiled {kern}: " + ("; ".join(parts) if parts else "in no profiled path"))
+    wrong = [f"{kern} in {label}" for label, (groups, _) in PROFILES.items()
+             for kern in RETIRED_KERNELS if any(kern in name for name in groups)]
+    if not any("pose_sum_kernel" in name for groups, _ in PROFILES.values() for name in groups):
+        wrong.append("pose_sum_kernel in no profile")
+    return wrong
 
 
 # -- the flagship and its train step (check_k3_faults.py runs these too) --
@@ -2092,7 +2331,12 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                  FF.hand_fine_color_plain, ("out", "g", "e"), 5),
                 ("pallas", "K5/K6 f32", FT.hand_trunk_sdf_u_fwd, FT.hand_trunk_sdf_u_plain,
                  ("out", "u"), 2)):
-            args = fit_step_inputs(torch, fn, dev, "12", mode=mode)
+            held = {}
+            rec = record_perpoint_calls(lambda: held.setdefault(
+                "args", fit_step_inputs(torch, fn, dev, "12", mode=mode)))
+            args = held["args"]
+            if mode == "pallas":
+                f32_inputs["pallas_calls"] = rec   # one '12' 'pallas' fit step's packs
             fargs = args[:lead]
             checks = [compare(torch, w, a, b, TOL_F32, TOL_F32)
                       for w, a, b in zip(names, fwd(*fargs), plain_fwd(*fargs))]
@@ -2109,7 +2353,13 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
 
     fit_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "EMBED": FH.EMBED,
-                   "COLSUM": FT.COLSUM, "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV}
+                   "COLSUM": FT.COLSUM, "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV,
+                   "PACK": FT.PACK, "POSE": FF.POSE}
+    # a fit step's K3, K5 and K6 take its 37,632 fine points in two f32
+    # passes: two pose sums a K3 call, two packs a K5 or K6 call (one pass
+    # where a call takes at most half a chunk)
+    def passes_ok(n, calls):
+        return calls <= n <= 2 * calls
 
     def fit():
         """The fitting CLI, '1' then '12', on a synthetic catch sequence in a
@@ -2155,12 +2405,14 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             assert (launches["K1"] and launches["K2"] and launches["K3"] and launches["EMBED"]
                     and launches["UCHAIN"] and launches["BWDREV"]), \
                 f"a kernel of the fitting path did not launch: {launches}"
-            assert not (launches["K5"] or launches["K6"] or launches["COLSUM"]), \
-                f"stray launches {launches}"
+            assert not (launches["K5"] or launches["K6"] or launches["COLSUM"]
+                        or launches["PACK"]), f"stray launches {launches}"
+            assert passes_ok(launches["POSE"], launches["K3"]), \
+                f"{launches['POSE']} pose sums for {launches['K3']} K3 calls: {launches}"
         f32_inputs["confs"] = confs
         rows["K2"] = dict(rows.get("K2", {}), f32_launches=total["K2"])
         rows["K3"] = dict(rows.get("K3", {}), f32_launches=total["K3"])
-        for name in ("UCHAIN", "BWDREV"):
+        for name in ("UCHAIN", "BWDREV", "POSE"):
             rows[name] = dict(rows.get(name, {}), fit_launches=total[name])
         # ms per step of each fit type through the runner's own loop
         for ft in ("1", "12"):
@@ -2227,8 +2479,9 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         with open(confs["12"]) as f:
             text = f.read()
         bad = []
-        for mode, want in (("full_nocolor", ("K1", "K2", "K3", "EMBED", "UCHAIN", "BWDREV")),
-                           ("pallas", ("K1", "K5", "K6", "EMBED", "UCHAIN"))):
+        for mode, want in (("full_nocolor", ("K1", "K2", "K3", "EMBED", "UCHAIN", "BWDREV",
+                                              "POSE")),
+                           ("pallas", ("K1", "K5", "K6", "EMBED", "UCHAIN", "PACK"))):
             label = f"fit 12 {mode}"
             root = os.path.join(ws, f"fit_res_{mode}")
             shutil.copytree(os.path.join(ws, "fit_res", "view_8", "1"),
@@ -2262,10 +2515,14 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             log(f"{label}: one step's kernels by name: {sum(names.values())} launches, f32 "
                 f"GEMMs {f32_g}, dW/db kernels {dw}")
             idle = [k for k in want if not launches[k]]
-            stray = [k for k in ("K2", "K3", "K5", "K6", "COLSUM", "BWDREV")
+            stray = [k for k in ("K2", "K3", "K5", "K6", "COLSUM", "BWDREV", "PACK", "POSE")
                      if k not in want and launches[k]]
-            if idle or stray or not finite or dw or not f32_g:
+            passes = (passes_ok(launches["POSE"], launches["K3"])
+                      and passes_ok(launches["PACK"], launches["K5"] + launches["K6"]))
+            if idle or stray or not finite or dw or not f32_g or not passes:
                 bad.append(label)
+            if mode == "pallas":
+                rows["PACK"] = dict(rows.get("PACK", {}), fit_launches=launches["PACK"])
         assert not bad, f"a fit mode's path is not as expected: {bad}"
 
     def fit_check():
@@ -2342,13 +2599,25 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         """The seed and the reverse-chain transpose alone, f32, at the calls
         one fit step's K2 f32 and frozen K3 f32 make (recorded in the two
         phases above), on the step's points and pose, against their plain
-        versions (seed_readings, bwdrev_readings: TOL_F32)."""
+        versions (seed_readings, bwdrev_readings: TOL_F32); the pose sums
+        at that K3's calls and the pack at a '12' 'pallas' fit step's
+        (pose_readings, pack_readings: bit for bit)."""
         fwd, bwd = f32_inputs.get("fwd_calls"), f32_inputs.get("bwd_calls")
-        assert fwd and bwd and fwd.seed and bwd.seed and bwd.bwdrev, \
+        pal = f32_inputs.get("pallas_calls")
+        assert fwd and bwd and fwd.seed and bwd.seed and bwd.bwdrev and bwd.pose, \
             "the K2 / K3 f32 phases recorded no per-point call"
+        assert pal and pal.pack, "the fit modes phase recorded no pack"
+        assert _tally(pal.pack) == pack_calls(torch)["fit step"], \
+            f"a '12' 'pallas' fit step's packs {_tally(pal.pack)} are not pack_calls'"
+        assert _tally(bwd.pose) == pose_calls(torch)["fit step"], \
+            f"a fit step's pose sums {_tally(bwd.pose)} are not pose_calls'"
         pts, pose = f32_inputs["bwd_pose"]
         seeds = seed_readings(torch, dev, fwd.seed + bwd.seed)
         revs = bwdrev_readings(torch, dev, pose, pts, bwd.bwdrev)
+        packs = pack_readings(torch, dev, _tally(pal.pack))
+        poses = pose_readings(torch, dev, _tally(bwd.pose))
+        log_pack_pose("fit step", packs, poses)
+        pack_pose_row("fit_", packs, poses, rows)
         for r in seeds:
             log(f"UCHAIN fit step: {r.count} x {r.m} rows x {r.width} {r.dtype}: the same bits as "
                 f"uchain_seed_plain {r.same}, as torch.mul {r.same_lib}; kernel {r.ms:.4f} ms, "
@@ -2367,7 +2636,7 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                               fit_library_ms=u["lib_ms"])
         rows["BWDREV"] = dict(rows.get("BWDREV", {}), fit_ms=b["ms"], fit_plain_ms=b["plain_ms"],
                               fit_bound_ms=b["bound_ms"])
-        if not all(r.ok for r in seeds + revs):
+        if not all(r.ok for r in seeds + revs + packs + poses):
             raise AssertionError("a per-point kernel disagrees with its plain version at a fit "
                                  "step")
 
@@ -2423,7 +2692,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
     kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD, "K5": FT.KERNEL_FWD,
                "K6": FT.KERNEL_BWD, "GEMM_F32": FH.GEMM_F32, "GEMM_TN_F32": FH.GEMM_TN_F32,
                "GEMM": FH.GEMM, "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
-               "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV}
+               "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "PACK": FT.PACK, "POSE": FF.POSE}
     log(f"f32 phases: {os.path.relpath(CONF, ROOT)} as written, trunks {sdf_cfg.trunk_dtype}; "
         "select_fine_pass on the card: " + ", ".join(
             f"{m} -> {select_fine_pass(ttcfg._replace(fused_fine=m), sdf_cfg, dev)}"
@@ -2632,9 +2901,16 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
     gemms = ("GEMM_F32", "GEMM_TN_F32")
     # the embedding kernel with K2 / K3 (K5 / K6 take e from torch), the
     # column sum with every dW
-    expect = {"full": ("K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV") + gemms,
-              "full_nocolor": ("K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV") + gemms,
-              "pallas": ("K5", "K6", "COLSUM", "UCHAIN") + gemms, None: ()}
+    expect = {"full": ("K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV", "POSE") + gemms,
+              "full_nocolor": ("K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV", "POSE")
+              + gemms,
+              "pallas": ("K5", "K6", "COLSUM", "UCHAIN", "PACK") + gemms, None: ()}
+    # an f32 step's K3 / K5 / K6 take its 56,448 fine points in two passes:
+    # two pose sums a K3, two packs a K5 and a K6
+    per_step = {"full": {"POSE": 2}, "full_nocolor": {"POSE": 2}, "pallas": {"PACK": 4},
+                None: {}}
+
+    f32_calls = {}   # the per-point calls of an f32 'full' and 'pallas' step
 
     def train_f32():
         """The flagship train step with the conf's f32 trunks under each
@@ -2683,18 +2959,26 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             if mode in ("full", "pallas"):
                 device_profile(torch, f"one {label} step of {TRAIN_RAYS} rays",
                                lambda: step(state, batch, gen), points=TRAIN_FINE_PTS // 2)
+            if mode in ("full", "pallas"):
+                rec = record_perpoint_calls(lambda: step(state, batch, gen))
+                f32_calls[mode] = rec
             if mode == "full":
-                tn = _tally(record_perpoint_calls(lambda: step(state, batch, gen)).tn)
+                tn = _tally(rec.tn)
                 log(f"{label}: reduce_partials_kernel over the step's {sum(tn.values())} dW "
                     f"products: bound {reduce_bound_ms(tn):.4f} ms (bytes: the partials read "
                     f"once, dW written once; the kernel's time: the profile)")
             idle = [k for k in want if not launches[k]]
             stray = [k for k in kernels if k not in want and launches[k]]
             shown = (f32_g > 0 and tn_f32 > 0) if want else total >= 0
-            if not finite or moved <= 0 or idle or stray or not shown or bf16_g or bf16_tn:
-                bad.append(f"{label} (launches {launches}, finite {finite}, moved {moved:.2e})")
+            steps = TRAIN_WARMUP + TRAIN_STEPS
+            off = {k: launches[k] for k, n in per_step[mode].items() if launches[k] != n * steps}
+            if (not finite or moved <= 0 or idle or stray or not shown or bf16_g or bf16_tn
+                    or off):
+                bad.append(f"{label} (launches {launches}, finite {finite}, moved {moved:.2e}, "
+                           f"per step {per_step[mode]})")
             if mode == "full":
                 rows["K3"] = dict(rows.get("K3", {}), f32_dw_launches=launches["K3"])
+                rows["POSE"] = dict(rows.get("POSE", {}), f32_launches=launches["POSE"])
                 for name in ("UCHAIN", "BWDREV"):
                     rows[name] = dict(rows.get(name, {}), f32_train_launches=launches[name])
                 for name in gemms:
@@ -2703,9 +2987,26 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 for name in ("K2", "K3"):
                     rows[name] = dict(rows.get(name, {}), f32_nocolor_launches=launches[name])
             elif mode == "pallas":
-                for name in ("K5", "K6"):
+                for name in ("K5", "K6", "PACK"):
                     rows[name] = dict(rows.get(name, {}), f32_launches=launches[name])
         assert not bad, f"an f32 train path is not as expected: {bad}"
+
+    def perpoint_f32():
+        """The pack at an f32 'pallas' step's calls and the pose sum at an
+        f32 'full' step's (recorded in the train phase above), against
+        their plain versions bit for bit (pack_readings, pose_readings)."""
+        pal, full = f32_calls.get("pallas"), f32_calls.get("full")
+        assert pal and full and pal.pack and full.pose, "the f32 train phase recorded no call"
+        assert _tally(pal.pack) == pack_calls(torch)["f32 step"], \
+            f"an f32 'pallas' step's packs {_tally(pal.pack)} are not pack_calls'"
+        assert _tally(full.pose) == pose_calls(torch)["f32 step"], \
+            f"an f32 step's pose sums {_tally(full.pose)} are not pose_calls'"
+        packs = pack_readings(torch, dev, _tally(pal.pack))
+        poses = pose_readings(torch, dev, _tally(full.pose))
+        log_pack_pose("f32 step", packs, poses)
+        pack_pose_row("f32_", packs, poses, rows)
+        bad = [r for r in packs + poses if not r.ok]
+        assert not bad, f"the pack or the pose sum disagrees at an f32 step: {bad}"
 
     def train_check_f32():
         """One 64-ray step per kernel mode, card against CPU."""
@@ -2771,6 +3072,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
     phase("kernel K2/K3 f32 no-color", kernel_nocolor_f32)
     phase("kernel K5/K6 f32", kernel_k5k6_f32)
     phase("train f32", train_f32)
+    phase("per-point kernels f32", perpoint_f32)
     phase("train check f32", train_check_f32)
     phase("serve f32", serve_f32)
 
@@ -3062,7 +3364,8 @@ def main() -> int:
     all_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "GEMM": FH.GEMM,
                    "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
-                   "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "COPY": FT.COPY}
+                   "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "COPY": FT.COPY, "PACK": FT.PACK,
+                   "POSE": FF.POSE}
 
     def bwd_rules(label, mode, args):
         """K3's two rules on the mode's backward kernel: on the step's own
@@ -3150,16 +3453,23 @@ def main() -> int:
         assert finite, "a loss or gradient norm is not finite"
         assert moved > 0, "se3_refine did not move"
         idle = [k for k in expect if not launches[k]]
-        stray = [k for k in ("K2", "K3", "K5", "K6", "BWDREV") if k not in expect and launches[k]]
+        stray = [k for k in ("K2", "K3", "K5", "K6", "BWDREV", "PACK", "POSE")
+                 if k not in expect and launches[k]]
         assert not idle and not stray, (
             f"the {mode} train path launched {launches}: expected {expect} and no other fine "
             "pass kernel")
+        # the pack: two a 'pallas' step (K5, K6); the pose sum: one a step
+        # of K3 (one pass of the step's 56,448 points)
+        steps = TRAIN_WARMUP + n_steps
+        per_step = {"PACK": 2 if mode == "pallas" else 0, "POSE": 1 if mode != "pallas" else 0}
+        off = {k: launches[k] for k, n in per_step.items() if launches[k] != n * steps}
+        assert not off, f"the {mode} train path's {steps} steps launched {off}: per step {per_step}"
         return launches
 
     def train():
         launches = train_run("train", "full", TRAIN_STEPS,
                              ("K1", "K2", "K3", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "UCHAIN",
-                              "BWDREV"))
+                              "BWDREV", "POSE"))
         rows.setdefault("K3", {})["launches"] = launches["K3"]
         rows.setdefault("GEMM", {})["train_launches"] = launches["GEMM"]
         rows.setdefault("GEMM_TN", {})["launches"] = launches["GEMM_TN"]
@@ -3167,6 +3477,7 @@ def main() -> int:
         rows.setdefault("COLSUM", {})["launches"] = launches["COLSUM"]
         rows.setdefault("UCHAIN", {})["train_launches"] = launches["UCHAIN"]
         rows.setdefault("BWDREV", {})["launches"] = launches["BWDREV"]
+        rows.setdefault("POSE", {})["launches"] = launches["POSE"]
 
     def train_check(mode="full", label="train check"):
         """One step on the card and on the CPU from the same state: the
@@ -3208,10 +3519,14 @@ def main() -> int:
         request's calls, both and the transpose at ragged sizes.  Times
         against the bound, the plain version and the library yardstick
         where one PyTorch call computes the function (the column sum: a torch
-        sum; the seed: torch.mul); then the yardsticks of the kernels timed
-        in the profiles: copy_cols_kernel (a 'full_nocolor' step's copies)
-        against dst[:, :w].copy_(src[:, :w]), the pose sum against
-        P[:m].sum(0), reduce_partials_kernel's sum against ws.sum(0)."""
+        sum; the seed: torch.mul); copy_cols_kernel (a 'full_nocolor' and a
+        'pallas' step's copies) against dst[:, :w].copy_(src[:, :w]);
+        trunk_pack_e_kernel (a 'pallas' step's and request's packs) against
+        eb[:, :E].copy_(e) and pose_sum_kernel (a step's pose sum) against
+        P[:m].sum(0), both bit for bit against their plain versions and at
+        ragged sizes (pack_readings, pose_readings); then the yardstick of
+        reduce_partials_kernel's sum, ws.sum(0), whose time the profiles
+        give."""
         from honerf_torch.camera import full_image_ndc_grid
         from honerf_torch.ops import wgmma_layout as WL
 
@@ -3233,9 +3548,13 @@ def main() -> int:
         pl_state = init_train_state(train_params(fs, dev), pl_cfg)
         pl_step = make_hand_train_step(sdf_cfg, color_cfg, rcfg, pl_cfg)
         pal = record_perpoint_calls(lambda: pl_step(pl_state, batch, gen))
+        render_p = make_hand_eval_render(sdf_cfg, color_cfg, rcfg,
+                                         tcfg._replace(fused_fine="pallas"))
+        preq = record_perpoint_calls(lambda: render_p(params, request))
         torch.cuda.synchronize()
         assert (req.embed and stp.embed and stp.colsum and req.seed and stp.seed and stp.bwdrev
-                and nc.copy and pal.copy and stp.tn), "no per-point call was recorded"
+                and nc.copy and pal.copy and stp.tn and pal.pack and preq.pack and stp.pose), \
+            "no per-point call was recorded"
         del state, nc_state, pl_state
         pose = (rotT, off, cut)
         f32_embeds = [(m, vL, rL, lde, torch.float32) for m, vL, rL, lde, _ in req.embed]
@@ -3338,8 +3657,6 @@ def main() -> int:
                               ms=b["ms"], plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
                               bound_by="bytes", library_ms=None)
         # the yardsticks of the per-point kernels timed in the profiles
-        blib = FF._bwd_lib()
-        stream = torch.cuda.current_stream(dev).cuda_stream
         ygen = torch.Generator(device=dev).manual_seed(31)
         copies = {}
         for label, rec in (("full_nocolor", nc), ("pallas", pal)):
@@ -3371,20 +3688,31 @@ def main() -> int:
                             pallas_library_ms=pl_t["lib_ms"])
         bad_copy = [r for r in nc_rs + pl_rs if not r.ok]
         assert not bad_copy, f"copy_cols_kernel disagrees with the copy: {bad_copy}"
-        m = max(mm for mm, *_ in stp.bwdrev)
-        P = torch.randn((m, 256), generator=ygen, device=dev)
-        ws = torch.empty((FT._WS_FLOATS,), device=dev)
-        out = torch.empty((256,), device=dev)
-        k_ms = cuda_ms(torch, lambda: blib.honerf_pose_sum(P.data_ptr(), m, FT._POSE_ROWS,
-                                                           ws.data_ptr(), out.data_ptr(), 0,
-                                                           stream), 20)
-        l_ms = cuda_ms(torch, lambda: P[:m].sum(0), 20)
-        f64 = float((out.double() - P.double().sum(0)).abs().max())
-        log(f"pose_partial_kernel + pose_reduce_kernel (honerf_pose_sum), {m} pose rows of a bf16 "
-            f"step: kernel {k_ms:.4f} ms, P[:m].sum(0) {l_ms:.4f} ms, bound "
-            f"{bound(0.0, 4 * (m * 256 + 256))[0]:.4f} ms (bytes); |err| vs f64 {f64:.2e}")
-        assert f64 <= TOL_COLSUM_F64, "the pose sum disagrees with the f64 sum"
-        del P
+        # K5 / K6's operand (a 'pallas' step's and a 'pallas' request's
+        # packs) and K3's pose sums (a bf16 'full' step's call), at the
+        # recorded calls (pack_calls / pose_calls, which check_k3_faults and
+        # bench_gemm read)
+        for label, rec in (("step", pal), ("request", preq)):
+            assert _tally(rec.pack) == pack_calls(torch)[label], \
+                f"a 'pallas' {label}'s pack calls {_tally(rec.pack)} are not pack_calls'"
+        assert _tally(stp.pose) == pose_calls(torch)["step"], \
+            f"a step's pose sums {_tally(stp.pose)} are not pose_calls'"
+        packs = {label: pack_readings(torch, dev, _tally(rec.pack))
+                 for label, rec in (("step", pal), ("request", preq))}
+        poses = pose_readings(torch, dev, _tally(stp.pose))
+        log_pack_pose("bf16 'pallas' step", packs["step"], [])
+        log_pack_pose("'pallas' request", packs["request"], [])
+        log_pack_pose("bf16 'full' step", [], poses)
+        pack_pose_row("", packs["step"], poses, rows)
+        pack_pose_row("request_", packs["request"], [], rows)
+        rg_pack, rg_pose = ragged_pack_pose_calls(torch)
+        ragged_pp = (pack_readings(torch, dev, rg_pack, timed=False)
+                     + pose_readings(torch, dev, rg_pose, timed=False))
+        for r in ragged_pp:
+            log(f"{'POSE' if hasattr(r, 'acc') else 'PACK'} ragged: {r.m} rows: the same bits as "
+                f"its plain version {r.same}{'' if r.ok else ' FAIL'}")
+        bad_pp = [r for r in packs["step"] + packs["request"] + poses + ragged_pp if not r.ok]
+        assert not bad_pp, f"the pack or the pose sum disagrees with its plain version: {bad_pp}"
         lib_tot = 0.0
         for (K, N, mm, dt), count in _tally(stp.tn).items():
             split = WL.tn_split(K, N, mm, 132)
@@ -3549,15 +3877,15 @@ def main() -> int:
     def train_pallas():
         launches = train_run("train pallas", "pallas", TRAIN_STEPS,
                              ("K1", "K5", "K6", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "UCHAIN",
-                              "COPY"), profile=True)
-        for name in ("K5", "K6"):
+                              "COPY", "PACK"), profile=True)
+        for name in ("K5", "K6", "PACK"):
             rows.setdefault(name, {})["launches"] = launches[name]
         rows.setdefault("COPY", {})["pallas_launches"] = launches["COPY"]
 
     def train_nocolor():
         launches = train_run("train full_nocolor", "full_nocolor", NOCOLOR_STEPS,
-                             ("K1", "K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV", "COPY"),
-                             profile=True)
+                             ("K1", "K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV", "COPY",
+                              "POSE"), profile=True)
         rows.setdefault("COPY", {})["launches"] = launches["COPY"]
         rows.setdefault("K2", {})["nocolor_launches"] = launches["K2"]
         rows.setdefault("K3", {})["nocolor_launches"] = launches["K3"]
@@ -3601,8 +3929,12 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
         assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
         assert launches["K1"] and launches["K5"] and launches["UCHAIN"] and not (
-            launches["K2"] or launches["K6"] or launches["BWDREV"]), \
+            launches["K2"] or launches["K6"] or launches["BWDREV"] or launches["POSE"]), \
             f"the pallas render path launched {launches}"
+        # one pack a K5 pass: a request's 524,288 fine points in 8 passes
+        assert launches["PACK"] == 8 * launches["K5"] == 8, \
+            f"the pallas request's packs: {launches['PACK']} for {launches['K5']} K5 calls"
+        rows.setdefault("PACK", {})["request_launches"] = launches["PACK"]
         idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
         cpu = torch.device("cpu")
         c_ref, w_ref = render_p(clone_tree(params, cpu),
@@ -3869,10 +4201,13 @@ def main() -> int:
 
     run_fit_phases(torch, dev, phase, rows, failures)
 
-    log_perpoint_profiles()
+    wrong = log_perpoint_profiles()
+    if wrong:
+        log(f"per-point profiles: {wrong}")
+        failures.append("per-point profiles")
     log(gpu_line())
     order = ("K1", "K2", "K3", "K4", "K5", "K6", "GEMM", "GEMM_TN", "GEMM_F32", "GEMM_TN_F32",
-             "EMBED", "COLSUM", "UCHAIN", "BWDREV", "COPY")
+             "EMBED", "COLSUM", "UCHAIN", "BWDREV", "COPY", "PACK", "POSE")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     def mode_keys(prefix):
@@ -3896,7 +4231,11 @@ def main() -> int:
              "BWDREV": ("nocolor_launches", "f32_train_launches", "fit_launches", "fit_ms",
                         "fit_plain_ms", "fit_bound_ms"),
              "COPY": ("pallas_launches", "pallas_ms", "pallas_plain_ms", "pallas_bound_ms",
-                      "pallas_library_ms")}
+                      "pallas_library_ms"),
+             "PACK": tuple(f"{p}{k}" for p in ("request_", "f32_", "fit_")
+                           for k in ("launches", "ms", "plain_ms", "bound_ms", "library_ms")),
+             "POSE": tuple(f"{p}{k}" for p in ("f32_", "fit_")
+                           for k in ("launches", "ms", "plain_ms", "bound_ms", "library_ms"))}
     log(json.dumps({"kernels": [{k: rows.get(n, {}).get(k) for k in keys + extra.get(n, ())}
                                 for n in order]}))
     if failures:

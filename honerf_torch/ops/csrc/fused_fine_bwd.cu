@@ -38,8 +38,8 @@
 //                                      split over points into f32 partials
 //                                      summed in a fixed order (trunk.cuh)
 //     colsum_partial_kernel            db (from the f32 dz), fixed order
-//     pose_partial/pose_reduce_kernel  the pose sums drotT / doff, in a
-//                                      fixed order of their own
+//     pose_sum_kernel                  the pose sums drotT / doff in one
+//                                      launch, a fixed order of their own
 //   So two runs give the same bits: no atomics anywhere.  The GEMMs run
 //   on wgmma with a TMA ring (wgmma.cuh); fine_bwd_rev_kernel is staged
 //   like the embedding (its note below); fusing the launches is later work.
@@ -486,27 +486,119 @@ __global__ void fine_bwd_emb_kernel(const float* __restrict__ pts, int M,
   }
 }
 
-// The pose sums drotT / doff: the column sums of the per-point pose rows
-// P (M, 256), in a fixed order (no atomics).  pose_partial_kernel: block s
-// sums rows [s*split, (s+1)*split) in order, one thread a column;
-// pose_reduce_kernel: out (+)= the partials in order s = 0, 1, ...  (Kernels
-// of their own, apart from trunk.cuh's column sum, whose order differs: the
-// dW/db kernels are the ones a frozen backward must not launch.)
-__global__ void pose_partial_kernel(const float* __restrict__ P, int M, int split,
-                                    float* __restrict__ ws) {
-  int col = threadIdx.x;
-  int r0 = blockIdx.x * split, r1 = min(M, r0 + split);
-  float sum = 0.f;
-  for (int r = r0; r < r1; ++r) sum += P[(size_t)r * 256 + col];
-  ws[(size_t)blockIdx.x * 256 + col] = sum;
+// ---------------------------------------------------------------------------
+// The pose sums drotT / doff (drotT_blk / doff_blk inside K3's pallas_call,
+// honerf_tpu/ops/fused_fine_full.py:1129-1131, summed over its grid at
+// :1384-1392): the column sums of the per-point pose rows P (M, 256) that
+// fine_bwd_emb_kernel writes
+// ---------------------------------------------------------------------------
+//
+// out[:256] (+)= sum over rows of P[:M, :256], f32, in a fixed order.
+//
+// Bound on an H100: bytes, P read once (1 KB a row): a bf16 step's 56,448
+// rows are 57.8 MB, 17.3 us at 3.35 TB/s.  P has just been written by
+// fine_bwd_emb_kernel and may still sit in the 50 MB L2, so a share of the
+// bound near or above 1 is L2, not an error.
+//
+// Design: one launch of ceil(M / split) blocks, split chosen by the host
+// from M and the SM count (ops/perpoint_layout.py: pose_split) for about
+// PS_BLOCKS_PER_SM blocks a SM whatever M is (and at least PS_ROW_STEP
+// rows a block, so a small M takes few blocks).  Thread t owns the float4
+// column group c = t % PS_GROUPS and the row lane r = t / PS_GROUPS, and
+// PS_ACC accumulators; with the step loop unrolled four ways, up to 4 x
+// PS_ACC independent 16-byte loads a thread are in flight: in the rows [s split, min(M, (s+1) split)) of block s,
+// accumulator k adds the rows s split + PS_ROW_STEP i + PS_LANES k + r, i =
+// 0, 1, ...  Then, in order: a thread's sum ((a0 + a1) + (a2 + a3)) + ((a4
+// + a5) + (a6 + a7)); the block's partial t0 + t1 + t2 + t3 over the row
+// lanes (through shared memory) into ws[s]; the last block to finish (an
+// atomic ticket of its own, pose_done, which wraps to 0 for the next
+// launch) sums the S partials with the same map, partial s in the place
+// of row s (every warp of the block), and out = (acc ? out : 0) + that.
+// No atomic orders an addition: two runs give the same bits.  A kernel of
+// its own name, apart from trunk.cuh's column sum: a frozen backward (pose
+// fitting) launches no dW / db kernel.  ops/fused_fine_full.py:
+// pose_sum_ordered_plain states the order.  Preconditions: 16-byte-aligned
+// P and ws, P's rows 256 floats apart; launches of one process run on one
+// stream at a time (the ticket is the library's).
+constexpr int PS_THREADS = 256;
+constexpr int PS_COLS = 256;
+constexpr int PS_GROUPS = PS_COLS / 4;
+constexpr int PS_LANES = PS_THREADS / PS_GROUPS;
+constexpr int PS_ACC = 8;
+constexpr int PS_ROW_STEP = PS_LANES * PS_ACC;
+constexpr int PS_BLOCKS_PER_SM = 2;
+
+__device__ unsigned int pose_done;
+
+// A thread's sum, in the order above, over the rows [r0, r1) of X (PS_COLS
+// floats a row): rows of P through the read-only path, or (PARTIALS) the
+// partials in ws through L2, where the other blocks' stores are seen.
+template <bool PARTIALS>
+__device__ __forceinline__ float4 pose_thread_sum(const float* __restrict__ X, int r0, int r1,
+                                                  int r, int c) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* xc = X + 4 * c;
+  float4 a[PS_ACC];
+#pragma unroll
+  for (int k = 0; k < PS_ACC; ++k) a[k] = zero;
+  // the loads of four steps in flight before their adds, which keep their
+  // order: a fit step's call is three steps a thread, its last block's nine
+#pragma unroll 4
+  for (int base = r0; base < r1; base += PS_ROW_STEP) {
+    float4 v[PS_ACC];
+#pragma unroll
+    for (int k = 0; k < PS_ACC; ++k) {
+      const int row = base + PS_LANES * k + r;
+      const float4* p = reinterpret_cast<const float4*>(xc + (size_t)row * PS_COLS);
+      v[k] = row < r1 ? (PARTIALS ? __ldcg(p) : __ldg(p)) : zero;
+    }
+#pragma unroll
+    for (int k = 0; k < PS_ACC; ++k) a[k] = add4(a[k], v[k]);
+  }
+  return add4(add4(add4(a[0], a[1]), add4(a[2], a[3])), add4(add4(a[4], a[5]), add4(a[6], a[7])));
 }
 
-__global__ void pose_reduce_kernel(const float* __restrict__ ws, int S, float* __restrict__ out,
-                                   int acc) {
-  int col = threadIdx.x;
-  float sum = 0.f;
-  for (int s = 0; s < S; ++s) sum += ws[(size_t)s * 256 + col];
-  out[col] = acc ? out[col] + sum : sum;
+__global__ void __launch_bounds__(PS_THREADS, PS_BLOCKS_PER_SM)
+    pose_sum_kernel(const float* __restrict__ P, int M, int split, float* __restrict__ ws,
+                    float* __restrict__ out, int acc) {
+  __shared__ float4 red[PS_LANES][PS_GROUPS];
+  __shared__ bool last;
+  const int c = threadIdx.x % PS_GROUPS, r = threadIdx.x / PS_GROUPS;
+  const int S = gridDim.x, s = blockIdx.x;
+  const int r0 = s * split, r1 = min(M, r0 + split);
+  red[r][c] = pose_thread_sum<false>(P, r0, r1, r, c);
+  __syncthreads();
+  if (r == 0) {
+    float4 t = red[0][c];
+#pragma unroll
+    for (int w = 1; w < PS_LANES; ++w) t = add4(t, red[w][c]);
+    *reinterpret_cast<float4*>(ws + (size_t)s * PS_COLS + 4 * c) = t;
+    __threadfence();  // the partial is visible before the ticket is taken
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicInc(&pose_done, (unsigned)(S - 1)) == (unsigned)(S - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  red[r][c] = pose_thread_sum<true>(ws, 0, S, r, c);
+  __syncthreads();
+  if (r == 0) {
+    float4 tot = red[0][c];
+#pragma unroll
+    for (int w = 1; w < PS_LANES; ++w) tot = add4(tot, red[w][c]);
+    float* o = out + 4 * c;
+    if (acc) {
+      o[0] += tot.x;
+      o[1] += tot.y;
+      o[2] += tot.z;
+      o[3] += tot.w;
+    } else {
+      o[0] = tot.x;
+      o[1] = tot.y;
+      o[2] = tot.z;
+      o[3] = tot.w;
+    }
+  }
 }
 
 }  // namespace honerf
@@ -592,14 +684,17 @@ extern "C" int honerf_fine_bwd_rev_f32(const float* pts, int M, const float* rot
                                Fp, L, du_b, du_s, lddu, dgt, dzf, dzb, lddz, Op, stream);
 }
 
-// out[:256] (+)= the column sums of the pose rows P[:M, :256], fixed order;
-// ws holds ceil(M / split) partial rows.
+// out[:256] (+)= the column sums of the pose rows P[:M, :256] in
+// pose_sum_kernel's order, one launch of ceil(M / split) blocks; ws holds
+// their partial rows (the wrapper checks its size).  Refused
+// (cudaErrorInvalidValue): split <= 0, P or ws off a 16-byte boundary.
 extern "C" int honerf_pose_sum(const float* P, int M, int split, float* ws, float* out, int acc,
                                cudaStream_t stream) {
-  if (M <= 0 || split <= 0) return (int)cudaGetLastError();
-  const int S = (M + split - 1) / split;
-  honerf::pose_partial_kernel<<<S, 256, 0, stream>>>(P, M, split, ws);
-  honerf::pose_reduce_kernel<<<1, 256, 0, stream>>>(ws, S, out, acc);
+  if (split <= 0 || honerf_misaligned16(P) || honerf_misaligned16(ws))
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0) return (int)cudaGetLastError();
+  honerf::pose_sum_kernel<<<(M + split - 1) / split, honerf::PS_THREADS, 0, stream>>>(
+      P, M, split, ws, out, acc);
   return (int)cudaGetLastError();
 }
 

@@ -452,8 +452,6 @@ def chunk_size(n: int, dtype: str, limit: int) -> int:
 _TN_BLOCKS = 264
 _TN_BLOCKS_BF16 = 132
 _TN_TILE = 128
-# rows per partial of K3's pose sums (csrc/fused_fine_bwd.cu)
-_POSE_ROWS = 512
 # the f32 scratch of those partials (floats): ~17 MB at the widest call
 _WS_FLOATS = 8 << 20
 
@@ -476,6 +474,10 @@ UCHAIN = _build.Kernel("uchain_seed_kernel", "honerf_torch/ops/csrc/trunk.cuh",
 # themselves
 COPY = _build.Kernel("copy_cols_kernel", "honerf_torch/ops/csrc/trunk.cuh",
                      "honerf_tpu/ops/fused_fine_full.py:1556")
+# K5 / K6's operand, the pack of e (jnp.pad(e, ...).astype(_cast(meta)),
+# honerf_tpu/ops/fused_fine.py:527 and :550, before the pallas_calls)
+PACK = _build.Kernel("trunk_pack_e_kernel", "honerf_torch/ops/csrc/fused_trunk.cu",
+                     "honerf_tpu/ops/fused_fine.py:452")
 
 
 def type_trunk_lib(lib) -> None:
@@ -560,6 +562,38 @@ def copy_cols(lib, src, m: int, width: int, dst, stream) -> None:
     COPY.launches += 1
     _build.check(fn(src.data_ptr(), src.stride(0), m, width, dst.data_ptr(), dst.stride(0),
                     stream), "honerf_copy_cols")
+
+
+def trunk_pack_e_plain(e, m: int, Ep: int, dtype) -> torch.Tensor:
+    """trunk_pack_e_kernel's function in plain PyTorch: e[:m] (f32) zero-
+    padded to Ep columns and rounded once to dtype."""
+    return torch.nn.functional.pad(e[:m].float(), (0, Ep - e.shape[1])).to(dtype)
+
+
+def trunk_pack_e(lib, e, m: int, eb, stream) -> None:
+    """eb[:m, :Ep] = T(e[:m]) zero-padded from E = e's to Ep = eb's columns
+    (T: eb's type, bf16 or f32; csrc/fused_trunk.cu: trunk_pack_e_kernel,
+    one rounding an element).  On CPU tensors it writes
+    trunk_pack_e_plain's rows and launches nothing."""
+    if (e.device != eb.device or e.device.type not in ("cpu", "cuda") or e.dim() != 2
+            or eb.dim() != 2 or e.dtype != torch.float32
+            or eb.dtype not in (torch.float32, torch.bfloat16) or e.stride(1) != 1
+            or eb.stride(1) != 1 or not 0 <= m <= min(e.shape[0], eb.shape[0])
+            or eb.shape[1] < e.shape[1]):
+        raise ValueError(f"the pack of e takes 2-D f32 e and bf16 or f32 eb on one device, "
+                         f"contiguous columns, m rows of each and eb at least as wide as e (e "
+                         f"{tuple(e.shape)} {e.dtype} {e.device}, eb {tuple(eb.shape)} "
+                         f"{eb.dtype} {eb.device}, m {m})")
+    E, Ep = e.shape[1], eb.shape[1]
+    if e.device.type == "cpu":
+        eb[:m] = trunk_pack_e_plain(e, m, Ep, eb.dtype)
+        return
+    PL.check_pack_operands(eb.data_ptr(), eb.stride(0), eb.element_size(), e.stride(0), E, Ep,
+                           e.data_ptr())
+    fn = lib.honerf_trunk_pack_e_f32 if eb.dtype == torch.float32 else lib.honerf_trunk_pack_e
+    PACK.launches += 1
+    _build.check(fn(e.data_ptr(), e.stride(0), m, E, eb.data_ptr(), eb.stride(0), Ep, stream),
+                 "honerf_trunk_pack_e")
 
 
 def _tn(lib, X, ldx, K, Y, N, m, out, acc, ws, stream, x_scale=0.0):
@@ -840,12 +874,10 @@ def _hand_trunk_sdf_u_cuda(e, pack: TrunkPack):
     buf = trunk_buffers(tm, C, dev, keep=False)
     eb = torch.empty((C, tm.Ep), device=dev, dtype=_cast(tm))
     us = torch.empty((C, tm.Ep), device=dev, dtype=torch.float32)
-    pack_e = lib.honerf_trunk_pack_e_f32 if tm.dtype == "f32" else lib.honerf_trunk_pack_e
     KERNEL_FWD.launches += 1
     for s in range(0, N, C):
         m = min(C, N - s)
-        _build.check(pack_e(e[s:].data_ptr(), e.stride(0), m, E, eb.data_ptr(), eb.stride(0),
-                            tm.Ep, stream), "honerf_trunk_pack_e")
+        trunk_pack_e(lib, e[s:], m, eb, stream)
         cuda_trunk_forward(lib, eb, m, pack.ws, pack.bs, pack.wts, tm, buf, stream, z=out[s:],
                            u=us)
         copy_cols(lib, us, m, E, u[s:], stream)
@@ -865,9 +897,7 @@ def _hand_trunk_sdf_u_bwd_cuda(e, pack: TrunkPack, dout, du, want_dw: bool):
         dws = tuple(torch.zeros(w.shape, device=dev, dtype=torch.float32) for w in pack.ws)
         dbs = tuple(torch.zeros(b.shape, device=dev, dtype=torch.float32) for b in pack.bs)
     C = chunk_size(N, tm.dtype, BWD_CHUNK)
-    f32 = tm.dtype == "f32"
-    pack_e = lib.honerf_trunk_pack_e_f32 if f32 else lib.honerf_trunk_pack_e
-    seed = lib.honerf_trunk_bwd_seed_f32 if f32 else lib.honerf_trunk_bwd_seed
+    seed = lib.honerf_trunk_bwd_seed_f32 if tm.dtype == "f32" else lib.honerf_trunk_bwd_seed
     if C:
         buf = trunk_buffers(tm, C, dev, keep=True)
         eb = torch.empty((C, Ep), device=dev, dtype=_cast(tm))
@@ -876,8 +906,7 @@ def _hand_trunk_sdf_u_bwd_cuda(e, pack: TrunkPack, dout, du, want_dw: bool):
         KERNEL_BWD.launches += 1
     for s in range(0, N, C or 1):
         m = min(C, N - s)
-        _build.check(pack_e(e[s:].data_ptr(), e.stride(0), m, E, eb.data_ptr(), eb.stride(0), Ep,
-                            stream), "honerf_trunk_pack_e")
+        trunk_pack_e(lib, e[s:], m, eb, stream)
         # the forward again, keeping every row; the backward reads neither
         # the last layer nor u
         cuda_trunk_forward(lib, eb, m, pack.ws, pack.bs, pack.wts, tm, buf, stream, keep=True)

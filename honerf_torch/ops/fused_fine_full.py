@@ -81,6 +81,11 @@ KERNEL_BWD = _build.Kernel(
 BWDREV = _build.Kernel(
     "fine_bwd_rev_kernel", "honerf_torch/ops/csrc/fused_fine_bwd.cu",
     "honerf_tpu/ops/fused_fine_full.py:1650")
+# K3's pose sums drotT / doff (drotT_blk / doff_blk inside its pallas_call's
+# body, summed over its grid)
+POSE = _build.Kernel(
+    "pose_sum_kernel", "honerf_torch/ops/csrc/fused_fine_bwd.cu",
+    "honerf_tpu/ops/fused_fine_full.py:1650")
 
 
 class FineMeta(NamedTuple):
@@ -592,6 +597,79 @@ def fine_bwd_rev(blib, pts, m: int, rotT, off, cut, meta: FineMeta, packed, dsdf
         dzf.data_ptr(), dzb.data_ptr(), dzf.stride(0), Op, stream), "honerf_fine_bwd_rev")
 
 
+def _pose_block_sums(X, n: int, split: int) -> torch.Tensor:
+    """(ceil(n / split), PS_COLS): block s's sum over the rows [s split,
+    min(n, (s + 1) split)) of X in pose_sum_kernel's order, as elementwise
+    f32 adds: accumulator k of row lane l adds the rows s split +
+    PS_ROW_STEP i + PS_LANES k + l for i = 0, 1, ...; a lane's sum ((a0 +
+    a1) + (a2 + a3)) + ((a4 + a5) + (a6 + a7)); the block's t0 + t1 + t2 +
+    t3 over the lanes.  The padding rows it adds are +0, which leaves an
+    f32 sum's bits as they are (no sum here is -0)."""
+    f32, dev = torch.float32, X.device
+    S, steps = -(-n // split), -(-split // PL.PS_ROW_STEP)
+    j = torch.arange(steps * PL.PS_ROW_STEP, device=dev)
+    rows = torch.arange(S, device=dev)[:, None] * split + j
+    live = (j < split) & (rows < n)
+    xp = torch.where(live[..., None], X[rows.clamp(max=n - 1), :PL.PS_COLS].to(f32),
+                     torch.zeros((), device=dev, dtype=f32))
+    xp = xp.reshape(S, steps, PL.PS_ACC, PL.PS_LANES, PL.PS_COLS)
+    a = torch.zeros((S, PL.PS_ACC, PL.PS_LANES, PL.PS_COLS), device=dev, dtype=f32)
+    for i in range(steps):
+        a = a + xp[:, i]
+    t = ((a[:, 0] + a[:, 1]) + (a[:, 2] + a[:, 3])) + ((a[:, 4] + a[:, 5]) + (a[:, 6] + a[:, 7]))
+    part = t[:, 0]
+    for lane in range(1, PL.PS_LANES):
+        part = part + t[:, lane]
+    return part
+
+
+def pose_sum_ordered_plain(P, m: int, out=None, acc: int = 0, sms=None) -> torch.Tensor:
+    """out[:256] (+)= the column sums of the pose rows P[:m, :256] in
+    pose_sum_kernel's order (csrc/fused_fine_bwd.cu; the split is
+    perpoint_layout.pose_split's at `sms` SMs, P's device's by default):
+    each block's partial over its rows (_pose_block_sums), then the S
+    partials in the same order as one block's rows, partial s in the place
+    of row s.  Returns out (new when None)."""
+    f32 = torch.float32
+    if out is None:
+        out = torch.zeros((PL.PS_COLS,), device=P.device, dtype=f32)
+    if m <= 0:   # the kernel launches nothing
+        return out
+    lay = PL.pose_split(m, PL.sm_count(P.device) if sms is None else sms)
+    part = _pose_block_sums(P, m, lay["split"])
+    tot = _pose_block_sums(part, lay["S"], lay["S"])[0]
+    out[:PL.PS_COLS] = out[:PL.PS_COLS] + tot if acc else tot
+    return out
+
+
+def pose_sum(blib, P, m: int, out, acc: int, ws, stream) -> None:
+    """out[:256] (+)= the column sums of the pose rows P[:m] (f32, (C, 256)
+    rows; csrc/fused_fine_bwd.cu: pose_sum_kernel, one launch, a fixed
+    order; ws: the f32 scratch of its partial rows).  On a CPU P it runs
+    pose_sum_ordered_plain and launches nothing."""
+    if (P.dtype != torch.float32 or P.dim() != 2 or P.shape[1] != PL.PS_COLS
+            or P.stride() != (PL.PS_COLS, 1) or not 0 <= m <= P.shape[0]
+            or out.device != P.device or out.dtype != torch.float32 or out.dim() != 1
+            or out.shape[0] < PL.PS_COLS or out.stride(0) != 1):
+        raise ValueError(f"the pose sum takes dense f32 rows of {PL.PS_COLS} columns, m of "
+                         f"them, and an f32 out of {PL.PS_COLS} on P's device (P "
+                         f"{tuple(P.shape)} {P.dtype} strides {P.stride()}, m {m}, out "
+                         f"{tuple(out.shape)} {out.dtype} {out.device})")
+    if P.device.type == "cpu":
+        pose_sum_ordered_plain(P, m, out, acc)
+        return
+    if P.data_ptr() % 16 or ws.data_ptr() % 16 or ws.dtype != torch.float32:
+        raise ValueError(f"the pose sum reads P and its f32 partials as float4: 16-byte-aligned "
+                         f"P and ws (P {P.data_ptr():#x}, ws {ws.data_ptr():#x} {ws.dtype})")
+    lay = PL.pose_split(m, PL.sm_count(P.device))
+    if lay["S"] * PL.PS_COLS > ws.numel():
+        raise ValueError(f"pose-sum scratch too small: {lay['S'] * PL.PS_COLS} > "
+                         f"{ws.numel()} floats")
+    POSE.launches += 1
+    _build.check(blib.honerf_pose_sum(P.data_ptr(), m, lay["split"], ws.data_ptr(),
+                                      out.data_ptr(), acc, stream), "honerf_pose_sum")
+
+
 def hand_fine_color_plain(pts, rotT, off, cut, pack: FinePack, block: int = 4096):
     """The forward kernel's statements in plain PyTorch, in blocks of
     points (with or without the color net, as the pack's meta says)."""
@@ -877,9 +955,7 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
             meta.v_multires, meta.r_multires, buf["u"].data_ptr(), buf["u"].stride(0),
             dgt.data_ptr(), bw["de"].data_ptr(), bw["de"].stride(0), dx.data_ptr(), dx.stride(0),
             dp[s:].data_ptr(), pose_rows.data_ptr(), stream), "honerf_fine_bwd_emb")
-        _build.check(blib.honerf_pose_sum(pose_rows.data_ptr(), m, FT._POSE_ROWS,
-                                          ws.data_ptr(), pose.data_ptr(), acc, stream),
-                     "honerf_pose_sum")
+        pose_sum(blib, pose_rows, m, pose, acc, ws, stream)
     drotT, doff = _zero_pose_grads(pts)
     drotT[:3, :63] = pose[:192].reshape(3, 64)[:, :63]
     doff[0, :63] = pose[192:255]

@@ -36,13 +36,24 @@ contracts:
   * `CP_*` (csrc/trunk.cuh: copy_cols_kernel), `copy_plan` (a row's
     scalar head, vector and load width from its two addresses) and
     `copy_columns` (which lane writes which columns of a row, as head,
-    body vectors and tail).
+    body vectors and tail);
+  * `PK_*` (csrc/fused_trunk.cu: trunk_pack_e_kernel, the pack of K5 /
+    K6's operand), `pack_vec` (a vector's columns: one 16-byte store),
+    `pack_plan` (a row's load width and vectors), `pack_columns` (which
+    lane writes which vector of a row, with its load pieces), `pack_grid` / `pack_rows` (the persistent grid and the
+    rows each warp takes); `check_pack_operands`: what the kernel refuses;
+  * `PS_*` (csrc/fused_fine_bwd.cu: pose_sum_kernel, K3's pose sums),
+    `sm_count`, `pose_split` (the rows a block sums and the grid, from M
+    and the SM count) and `pose_row_owner` (which block, step,
+    accumulator and row lane add a row); the order itself is
+    `fused_fine_full.pose_sum_ordered_plain`.
 
 Nothing on the main path calls these but `colsum_split`,
-`colsum_workspace`, `check_us_operands` and `check_bwr_operands` (the
-wrappers' checks); the CUDA side computes the same numbers
+`colsum_workspace`, `check_us_operands`, `check_bwr_operands`,
+`check_pack_operands`, `sm_count` and `pose_split` (the wrappers' checks
+and the pose sum's split); the CUDA side computes the same numbers
 (`honerf_hand_embed_t`, `honerf_colsum`, `honerf_uchain_seed_t`,
-`honerf_fine_bwd_rev_t`).
+`honerf_fine_bwd_rev_t`, `honerf_trunk_pack_e_t`).
 """
 
 from __future__ import annotations
@@ -97,6 +108,22 @@ CP_WARPS = CP_THREADS // 32
 CP_NARROW = 8
 CP_UNROLL = 8
 CP_CONSTANTS = ("CP_THREADS", "CP_WARPS", "CP_NARROW", "CP_UNROLL")
+# csrc/fused_trunk.cu: trunk_pack_e_kernel
+PK_THREADS = 256
+PK_WARPS = PK_THREADS // 32
+PK_VEC = 8
+PK_BATCH = 1536
+PK_CONSTANTS = ("PK_THREADS", "PK_WARPS", "PK_VEC", "PK_BATCH")
+# csrc/fused_fine_bwd.cu: pose_sum_kernel
+PS_THREADS = 256
+PS_COLS = 256
+PS_GROUPS = PS_COLS // 4
+PS_LANES = PS_THREADS // PS_GROUPS
+PS_ACC = 8
+PS_ROW_STEP = PS_LANES * PS_ACC
+PS_BLOCKS_PER_SM = 2
+PS_CONSTANTS = ("PS_THREADS", "PS_COLS", "PS_GROUPS", "PS_LANES", "PS_ACC", "PS_ROW_STEP",
+                "PS_BLOCKS_PER_SM")
 SMEM_PER_SM = 233472     # an H100 SM's shared memory (228 KB)
 SMEM_RESERVED = 1024     # what the card reserves of it for each resident block
 
@@ -480,3 +507,113 @@ def copy_columns(s_addr: int, d_addr: int, width: int, esize: int) -> List[Tuple
     out += [("body", i % 32, list(range(h + i * V, h + (i + 1) * V))) for i in range(nb)]
     out += [("tail", c - t0, [c]) for c in range(t0, width)]
     return out
+
+
+# ---------------------------------------------------------------------------
+# The pack of e (K5 / K6's operand)
+# ---------------------------------------------------------------------------
+
+def pack_load_bytes(s_addr: int) -> int:
+    """The widest load piece (bytes) a row of f32 starting at s_addr allows:
+    16, 8 or 4 (trunk_pack_e_kernel's pack_load_bytes)."""
+    return 16 if s_addr % 16 == 0 else (8 if s_addr % 8 == 0 else 4)
+
+
+def pack_vec(esize: int) -> int:
+    """The columns of a lane's vector, one 16-byte store: 8 bf16, 4 f32."""
+    return 16 // esize
+
+
+def pack_plan(s_addr: int, E: int, width: int, esize: int) -> Tuple[int, int, int]:
+    """(load bytes, nfull, nv) of a row: its pieces' width, the vectors
+    wholly below E (loaded in pieces) and the row's vectors, the one at
+    nfull straddling E where E is not a multiple of the vector."""
+    V = pack_vec(esize)
+    return pack_load_bytes(s_addr), E // V, width // V
+
+
+def pack_columns(s_addr: int, E: int, width: int, esize: int,
+                 d_addr: int = 0) -> List[Tuple[str, int, List[int], List[Tuple[int, int]], int]]:
+    """(kind, lane, columns, load pieces [(address, bytes)], store address)
+    of every vector of one row (a warp a row, vector i on lane i % 32, a
+    batch of PK_BATCH columns a warp in flight): 'full' vectors load their
+    columns in pieces of the plan's width, 'straddle' (columns across E)
+    loads its columns below E one by one and zeros the rest, 'pad' loads
+    nothing; each stores its 16 bytes at d_addr + 16 i."""
+    V = pack_vec(esize)
+    lb, nfull, nv = pack_plan(s_addr, E, width, esize)
+    out = []
+    for v in range(nv):
+        cols = list(range(V * v, V * (v + 1)))
+        if v < nfull:
+            a0 = s_addr + 4 * V * v
+            kind, pieces = "full", [(a0 + b, lb) for b in range(0, 4 * V, lb)]
+        elif V * v < E:
+            kind, pieces = "straddle", [(s_addr + 4 * c, 4) for c in cols if c < E]
+        else:
+            kind, pieces = "pad", []
+        out.append((kind, v % 32, cols, pieces, d_addr + 16 * v))
+    return out
+
+
+def check_pack_operands(out_base: int, ldo: int, esize: int, lde: int, E: int, width: int,
+                        e_base: int = 0) -> None:
+    """Raise where honerf_trunk_pack_e refuses: out off a 16-byte boundary,
+    its rows not a multiple of 16 bytes apart, a width not a multiple of
+    PK_VEC, ldo below the width, lde or the width below E, e off a 4-byte
+    boundary."""
+    if (out_base % 16 or ldo * esize % 16 or width % PK_VEC or ldo < width or lde < E
+            or width < E or E < 0 or e_base % 4):
+        raise ValueError(f"the pack of e stores 8 columns a lane in 16-byte stores: a "
+                         f"16-byte-aligned out whose rows are a multiple of 16 bytes apart, a "
+                         f"width a multiple of {PK_VEC} with E <= width <= ldo and lde >= E (out "
+                         f"{out_base:#x}, ldo {ldo}, {esize}-byte elements, lde {lde}, E {E}, "
+                         f"width {width}, e {e_base:#x})")
+
+
+def pack_grid(M: int, resident: int, sms: int = 132) -> int:
+    """Persistent blocks of one launch: as many as are resident (`resident`
+    a SM, the occupancy the C entry point asks for), at most one a
+    PK_WARPS rows."""
+    return min(_cdiv(M, PK_WARPS), resident * sms)
+
+
+def pack_rows(M: int, block: int, warp: int, grid: int) -> List[int]:
+    """The rows warp `warp` of block `block` packs, in order."""
+    return list(range(block * PK_WARPS + warp, M, grid * PK_WARPS))
+
+
+# ---------------------------------------------------------------------------
+# The pose sums (K3's drotT / doff)
+# ---------------------------------------------------------------------------
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (torch's properties); 132, an H100's, for
+    any other device (the plain version's default split on the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 132
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pose_split(M: int, sms: int = 132) -> Dict[str, int]:
+    """Rows per block (`split`) and blocks (S) of one pose_sum_kernel launch
+    on M rows: about PS_BLOCKS_PER_SM blocks a SM whatever M is, and at
+    least PS_ROW_STEP rows a block (one step of every accumulator), so a
+    small M takes few blocks."""
+    split = max(PS_ROW_STEP, _cdiv(max(M, 1), PS_BLOCKS_PER_SM * sms))
+    return dict(split=split, S=_cdiv(M, split))
+
+
+def pose_workspace(M: int, sms: int = 132) -> int:
+    """Floats of the f32 partial rows of one launch."""
+    return pose_split(M, sms)["S"] * PS_COLS
+
+
+def pose_row_owner(r: int, split: int) -> Tuple[int, int, int, int]:
+    """(block s, step i, accumulator k, row lane l) that adds row r:
+    r = s split + PS_ROW_STEP i + PS_LANES k + l."""
+    s, rest = divmod(r, split)
+    i, rest = divmod(rest, PS_ROW_STEP)
+    k, lane = divmod(rest, PS_LANES)
+    return s, i, k, lane

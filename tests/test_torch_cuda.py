@@ -642,6 +642,120 @@ def test_copy_cols_rejects_what_the_kernel_does_not_take(dev):
     assert rc == 1  # cudaErrorInvalidValue
 
 
+# trunk_pack_e_kernel (K5 / K6's operand: f32 e -> the type, zero-padded,
+# csrc/fused_trunk.cu) and pose_sum_kernel (K3's pose sums in one launch,
+# csrc/fused_fine_bwd.cu)
+PACK_TYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+@pytest.mark.parametrize("kind", list(PACK_TYPES))
+@pytest.mark.parametrize("m", [1, 7, FT.CHUNK + 77])
+def test_trunk_pack_e_matches_plain_bit_for_bit(dev, kind, m):
+    """The pack at the flagship's widths (E 1386 -> Ep 1408) from e rows
+    1386 or 1408 floats apart starting 0, 4, 8 or 12 bytes past a 16-byte
+    boundary, into a NaN-filled eb of more rows: eb[:m] equals
+    trunk_pack_e_plain bit for bit, the rows past m untouched; one launch
+    a call."""
+    dtype = PACK_TYPES[kind]
+    gen = torch.Generator(device=dev).manual_seed(m)
+    lib, stream = FT._lib(), torch.cuda.current_stream().cuda_stream
+    for lde in (1386, 1408):
+        for off in range(4):
+            buf = torch.randn(((m + 2) * lde + off,), generator=gen, device=dev)
+            e = buf[off:].view(m + 2, lde)[:, :1386]
+            eb = torch.full((m + 3, 1408), float("nan"), device=dev, dtype=dtype)
+            before = FT.PACK.launches
+            FT.trunk_pack_e(lib, e, m, eb, stream)
+            torch.cuda.synchronize()
+            assert FT.PACK.launches == before + 1
+            assert torch.equal(eb[:m], FT.trunk_pack_e_plain(e, m, 1408, dtype)), (lde, off)
+            assert bool(torch.isnan(eb[m:].float()).all())
+            del buf, eb
+
+
+def test_trunk_pack_e_rejects_what_the_kernel_does_not_take(dev):
+    """An eb off a 16-byte boundary, rows of eb not a multiple of 16 bytes
+    apart, a width off 8 columns: the wrapper raises; the C entry point
+    refuses those and an lde below E (cudaErrorInvalidValue)."""
+    lib, stream = FT._lib(), torch.cuda.current_stream().cuda_stream
+    e = torch.randn((8, 1386), device=dev)
+    ebuf = torch.zeros((8, 1424), device=dev, dtype=torch.bfloat16)
+    for eb in (ebuf[:, 1:1409], torch.zeros((8, 1412), device=dev,
+                                            dtype=torch.bfloat16)[:, :1408], ebuf[:, :1404]):
+        with pytest.raises(ValueError):
+            FT.trunk_pack_e(lib, e, 8, eb, stream)
+    for eb_ptr, ldo, width, lde in ((ebuf[:, 1:].data_ptr(), 1424, 1408, 1386),
+                                    (ebuf.data_ptr(), 1420, 1408, 1386),
+                                    (ebuf.data_ptr(), 1424, 1404, 1386),
+                                    (ebuf.data_ptr(), 1424, 1408, 1380)):
+        assert lib.honerf_trunk_pack_e(e.data_ptr(), lde, 8, 1386, eb_ptr, ldo, width,
+                                       stream) == 1   # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("m", [1, 7, 56448, FF.BWD_CHUNK + 77])
+def test_pose_sum_matches_its_order_bit_for_bit(dev, m):
+    """The pose sum on m seeded pose rows of a buffer of more: the same
+    bits as pose_sum_ordered_plain (the card's SM count), with acc 0 and
+    1, the same bits on a rerun, within 1e-3 of the f64 sum; one launch a
+    call."""
+    gen = torch.Generator(device=dev).manual_seed(m)
+    P = torch.randn((m + 5, 256), generator=gen, device=dev)
+    blib, stream = FF._bwd_lib(), torch.cuda.current_stream().cuda_stream
+    ws = torch.empty((FT._WS_FLOATS,), device=dev)
+    outs = []
+    before = FF.POSE.launches
+    for _ in range(2):
+        out = torch.full((256,), float("nan"), device=dev)
+        FF.pose_sum(blib, P, m, out, 0, ws, stream)
+        torch.cuda.synchronize()
+        outs.append(out)
+    assert FF.POSE.launches == before + 2
+    want = FF.pose_sum_ordered_plain(P, m)
+    assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
+    assert float((outs[0].double() - P[:m].double().sum(0)).abs().max()) <= 1e-3
+    acc = torch.ones((256,), device=dev)
+    FF.pose_sum(blib, P, m, acc, 1, ws, stream)
+    assert torch.equal(acc, FF.pose_sum_ordered_plain(P, m, torch.ones((256,), device=dev), 1))
+
+
+def test_pose_sum_rejects_what_the_kernel_does_not_take(dev):
+    """P off a 16-byte boundary, not 256 dense columns, more rows than it
+    has, scratch too small: the wrapper raises; the C entry point refuses a
+    misaligned P and a split of 0."""
+    blib, stream = FF._bwd_lib(), torch.cuda.current_stream().cuda_stream
+    buf = torch.randn((64 * 256 + 4,), device=dev)
+    ws, out = torch.empty((FT._WS_FLOATS,), device=dev), torch.empty((256,), device=dev)
+    P = buf[:64 * 256].view(64, 256)
+    for args in ((buf[1:64 * 256 + 1].view(64, 256), 64, ws), (P[:, :128], 64, ws),
+                 (P, 65, ws), (P, 64, ws[:256 * 1 + 1][1:])):
+        with pytest.raises(ValueError):
+            FF.pose_sum(blib, args[0], args[1], out, 0, args[2], stream)
+    assert blib.honerf_pose_sum(buf[1:].data_ptr(), 64, 32, ws.data_ptr(), out.data_ptr(), 0,
+                                stream) == 1   # cudaErrorInvalidValue
+    assert blib.honerf_pose_sum(P.data_ptr(), 64, 0, ws.data_ptr(), out.data_ptr(), 0,
+                                stream) == 1
+
+
+def test_pack_and_pose_sum_are_one_launch_each(dev):
+    """A pack call and a pose-sum call captured into CUDA graphs: one node
+    each, trunk_pack_e_kernel and pose_sum_kernel (chip_smoke's
+    graph_kernel_nodes: CUDA's own count, not the wrappers')."""
+    import chip_smoke as CS
+
+    lib, blib = FT._lib(), FF._bwd_lib()
+    e = torch.randn((56448, 1386), device=dev)
+    eb = torch.empty((56448, 1408), device=dev, dtype=torch.bfloat16)
+    P = torch.randn((56448, 256), device=dev)
+    ws, out = torch.empty((FT._WS_FLOATS,), device=dev), torch.zeros((256,), device=dev)
+    for fn, name in ((lambda s: FT.trunk_pack_e(lib, e, 56448, eb, s), "trunk_pack_e_kernel"),
+                     (lambda s: FF.pose_sum(blib, P, 56448, out, 1, ws, s), "pose_sum_kernel")):
+        fn(torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        nodes = CS.graph_kernel_nodes(
+            torch, lambda: fn(torch.cuda.current_stream().cuda_stream))
+        assert len(nodes) == 1 and name in nodes[0], nodes
+
+
 # K2 in f32 and K3 in f32 with frozen nets (the fitting stage's fine
 # pass): f32 operands and f32 sums on both sides, so only the order of
 # the sums differs.  K2 within F32_TOL of each output's range, median and
