@@ -15,8 +15,9 @@ made in a copy of honerf_torch under build/k3_faults/<name>/, whose kernels
 build there; a child process runs the checks on that copy.  "sound" is an
 unedited copy and reads every check; a fault reads the checks of its
 groups (bf16: the first eight below, f32: the next six, fit: the next
-six, perpoint: the last five; --groups reads only the named groups, and skips
-the faults with none of them).  The checks, with the limits they hold:
+six, perpoint: the next five, trunk: the last; --groups reads only the named
+groups, and skips the faults with none of them).  The checks, with the
+limits they hold:
 
   kernel  chip_smoke.py's K3 phase on one flagship train step's own
           inputs (chip_smoke.k3_check; 56,448 points; the batch and
@@ -108,7 +109,16 @@ the faults with none of them).  The checks, with the limits they hold:
   pose    pose_sum_kernel at chip_smoke.pose_calls (a bf16 'full' step's,
           an f32 step's, a fit step's) and the ragged 1, 511, 70,001 rows,
           bit for bit against pose_sum_ordered_plain, on a rerun, within
-          TOL_COLSUM_F64 of f64 (the perpoint group).
+          TOL_COLSUM_F64 of f64 (the perpoint group);
+  trunk   the bf16 trunk's two fused kernels (hand_trunk_fwd_kernel,
+          hand_uchain_kernel) at chip_smoke.ragged_trunk_calls (1 to
+          65,613 points, every output mode: K1's sdf column, z with and
+          without keep, the recompute's rows; u with and without keep, the
+          recompute's t and c rows) against trunk_fwd_plain /
+          trunk_uchain_plain (the kernel rule on every output, a rerun's
+          bits), K1 through fused_hand_sdf at 1 to 65,613 points against
+          fused_hand_sdf_plain, and the forward's reciprocal against
+          __frcp_rn at every f32 in [1, 2] (the trunk group).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -139,6 +149,7 @@ _FULL_PY = "honerf_torch/ops/fused_fine_full.py"
 _K1_PY = "honerf_torch/ops/fused_hand.py"
 _SDF_CU = "honerf_torch/ops/csrc/fused_sdf.cu"
 _FT_CU = "honerf_torch/ops/csrc/fused_trunk.cu"
+_TF_CU = "honerf_torch/ops/csrc/trunk_fused.cu"
 
 # name -> (what it breaks, file, text, replacement, groups of checks it is
 # read by); the text must occur exactly once in the file
@@ -170,10 +181,10 @@ FAULTS = {
         "dzf[(size_t)m * ld + c] = v;",
         "dzf[(size_t)m * ld + c] = v * 1.01f;", ("bf16",)),
     "fwd_skip_unscaled": (
-        "the forward's u-chain misses 1/sqrt2 at the skip (K2, K5, and the recompute of K3 "
-        "and K6)", _TRUNK_PY,
-        "U=u, split=Hp, hscale=INV_SQRT2,",
-        "U=u, split=Hp, hscale=1.0,", ("bf16",)),
+        "the bf16 u-chain (hand_uchain_kernel) misses 1/sqrt2 on c at the skip (K2, K5, and "
+        "the recompute of K3 and K6)", _TF_CU,
+        "const float hscale = l == p.skip ? p.hscale : 1.f;",
+        "const float hscale = 1.f;", ("bf16", "trunk")),
     "k6_du_skip_unscaled": (
         "K6 takes du unscaled at the skip (bf16(du) for bf16(du / sqrt2))", _K6_CU,
         "du_s[(size_t)m * lddu + c] = from_f32<T>(v * kInvSqrt2);",
@@ -219,9 +230,9 @@ FAULTS = {
         "                               0 if f32_mode else acc, ws, stream)", ("f32", "fit")),
     "k1_ladder_bias": (
         "K1 (the fit's hand ladder) returns sdf + 5e-3", _K1_PY,
-        "out[s:], 1, n_store=1, a_scale=scale, stream=stream)",
-        "out[s:], 1, n_store=1, a_scale=scale, stream=stream)\n"
-        "                out[s:s + m] += 5e-3", ("fit",)),
+        "FT.trunk_fwd(e, m, ws, bs, tm, sdf=out[s:], stream=stream)",
+        "FT.trunk_fwd(e, m, ws, bs, tm, sdf=out[s:], stream=stream)\n"
+        "        out[s:s + m] += 5e-3", ("fit", "trunk")),
     "drotT_no_dg_term": (
         "K3's drotT misses its dg^T f_q term (every mode, the fit's frozen f32 one included)",
         _CU,
@@ -261,11 +272,11 @@ FAULTS = {
         "row_s[col] = from_f32<T>(v * kInvSqrt2);",
         "row_s[col] = from_f32<T>(v);", ("bf16", "perpoint")),
     "uchain_last_vec": (
-        "the u-chain's seed leaves the last 8 columns of every row unwritten (K2, K3, K5, K6)",
-        _TRUNK_CUH,
+        "the f32 u-chain's seed leaves the last 8 columns of every row unwritten (K2, K3, K5, "
+        "K6 in f32)", _TRUNK_CUH,
         "  if (r >= rows) return;\n  float c[US_VEC];",
         "  if (r >= rows || j0 + US_VEC == width) return;\n  float c[US_VEC];",
-        ("bf16", "perpoint")),
+        ("f32", "perpoint")),
     "k4_skip_unscaled": (
         "K4's es tile keeps e without the skip's 1/sqrt2", _SDF_CU,
         "__float2bfloat16_rn(v * p.skip_scale);", "__float2bfloat16_rn(v);", ("perpoint",)),
@@ -297,12 +308,31 @@ FAULTS = {
         "the pose sums' last block leaves the last block's partial out (K3's drotT / doff)",
         _CU, "red[r][c] = pose_thread_sum<true>(ws, 0, S, r, c);",
         "red[r][c] = pose_thread_sum<true>(ws, 0, S - 1, r, c);", ("perpoint",)),
+    "trunk_skip_no_e": (
+        "the fused forward's skip layer misses its e range (the 22 K steps over e's boxes)",
+        _TF_CU, "(l == 0 || l == skip) ? Ep / 64 : 0,", "l == 0 ? Ep / 64 : 0,", ("trunk",)),
+    "trunk_ragged_tail": (
+        "the fused forward stores no sdf row of K1's last ragged tile", _TF_CU,
+        "if (grow < p.M) p.sdf[grow] = acc[2 * h] + b0;",
+        "if (grow < (p.M & ~(TF_TILE - 1))) p.sdf[grow] = acc[2 * h] + b0;", ("trunk",)),
+    "uchain_u_no_skip": (
+        "the fused u-chain's u misses the skip layer's part (its even columns)", _TF_CU,
+        "const float u0 = __fadd_rn(__fmul_rn(acc[4 * j + 2 * h], p.escale), acc2[4 * j + 2 * h]);",
+        "const float u0 = acc2[4 * j + 2 * h];", ("trunk",)),
+    "trunk_ss_row_missing": (
+        "the fused forward never stores layer 2's sigmoid row", _TF_CU,
+        "      if (kSS && grow < p.M)\n",
+        "      if (kSS && grow < p.M && ph.layer != 2)\n", ("trunk",)),
+    "uchain_seed_column": (
+        "the fused u-chain seeds from W_last's column 1, not the sdf column", _TF_CU,
+        "w[i] = __bfloat162float(p.w_last[(size_t)(col + i) * p.ldw]);",
+        "w[i] = __bfloat162float(p.w_last[(size_t)(col + i) * p.ldw + 1]);", ("trunk",)),
     "pose_drop_tail": (
         "the pose sums drop the rows past the last full split (a ragged last block sums "
         "nothing)", _CU, "const int r0 = s * split, r1 = min(M, r0 + split);",
         "const int r0 = s * split, r1 = r0 + split <= M ? r0 + split : r0;", ("perpoint",)),
 }
-GROUPS = ("bf16", "f32", "fit", "perpoint")
+GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
 STEP_SEEDS = {"sound": (1, 2, 3, 4)}
@@ -492,7 +522,32 @@ def child(name: str, root: str, groups) -> None:
                                 r.ok]
                                for r in CS.pose_readings(torch, dev, calls, timed=False)]
                        for label, calls in dict(CS.pose_calls(torch), ragged=rg_pose).items()}
+    if "trunk" in groups:
+        out["trunk"] = {"0": trunk_rows(CS, torch, dev)}
     print(json.dumps(out))
+
+
+def trunk_rows(CS, torch, dev):
+    """[what, max |err| / range, within the kernel rule and a rerun's bits]
+    of the fused trunk (chip_smoke.trunk_readings at ragged_trunk_calls),
+    K1 through fused_hand_sdf against fused_hand_sdf_plain at ragged sizes
+    (the kernel rule), and the forward's reciprocal's mismatches against
+    __frcp_rn on [1, 2] (none)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_hand as FH
+
+    nets = CS.trunk_nets(torch, dev)
+    rows = [[f"{r.kind} {r.m} {r.a} keep {r.keep}", r.worst if r.ok else float("inf"), r.ok]
+            for r in CS.trunk_readings(torch, dev, nets, CS.ragged_trunk_calls(), timed=False)]
+    for n in (1, 63, 65, 1001, 65613):
+        args = (nets.pts[:n], *nets.pose, nets.k1.ws, nets.k1.bs, nets.k1.meta)
+        got, want = FH.fused_hand_sdf(*args), FH.fused_hand_sdf_plain(*args)
+        ok = CS.compare(torch, "sdf", got, want)[0]
+        _, _, mx, scale = CS.err_readings(torch, got, want)
+        rows.append([f"k1 {n}", mx / scale if ok else float("inf"), ok])
+    bad = FT.rcp12_mismatches(dev)
+    rows.append(["rcp12 mismatches", float(bad), bad == 0])
+    return rows
 
 
 def k4_rows(CS, torch, dev):
@@ -533,7 +588,7 @@ def judge(CS, res):
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
     for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt",
-                  "k4", "copy", "pack", "pose"):
+                  "k4", "copy", "pack", "pose", "trunk"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []
@@ -595,7 +650,7 @@ def main() -> int:
     ap.add_argument("--only", help="comma-separated names (sound and FAULTS) to run")
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma-separated groups of checks to read (bf16, f32, fit, "
-                         "perpoint)")
+                         "perpoint, trunk)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     a = ap.parse_args()

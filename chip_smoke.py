@@ -28,8 +28,11 @@ Phases, each of which fails the run when it fails:
               train.offline.make_hand_eval_render (64 + 64 samples, 4
               up-sample steps), then a few single-chunk requests.  The
               launch counts are zeroed just before and read just after;
-              each kernel must have launched, gemm_kernel and
-              hand_embed_kernel among them, gemm_tn_kernel not;
+              each kernel must have launched, hand_embed_kernel and the
+              fused trunk's two (hand_trunk_fwd_kernel,
+              hand_uchain_kernel) among them, gemm_tn_kernel and
+              uchain_seed_kernel not, and gemm_kernel exactly 5 times a
+              K2 pass (the color net; 40 a request, 600 an image);
   4. check    the served pixels are finite, weight_sum lies in
               [0, 1 + 1e-3], and a patch of rays rendered again on the CPU
               (the kernels' plain versions) agrees with the card's;
@@ -65,7 +68,7 @@ Phases, each of which fails the run when it fails:
               embed_plain under the kernel rule with its padding exactly
               0, the column sum bit for bit against colsum_ordered_plain,
               within TOL_COLSUM_F64 of f64 and the same bits on a rerun;
-              the seed (bf16, f32; 1, 7 and 70,001 rows) bit for bit
+              the seed (f32; 1, 7 and 70,001 rows) bit for bit
               against uchain_seed_plain and torch.mul(..., out=); the
               reverse-chain transpose (the step's call; 1, a tile less one
               and 70,001 points, bf16 and f32) against fine_bwd_rev_plain
@@ -87,7 +90,23 @@ Phases, each of which fails the run when it fails:
               f64, each timed beside that copy_ / P[:m].sum(0) in CUDA
               graphs (graph_ms) and its bound; then the yardstick of
               reduce_partials_kernel (ws.sum(0)), whose own time comes
-              from the profiles;
+              from the profiles; no bf16 path calls the u-chain's seed,
+              timed at an f32 request's and step's calls;
+  9c. fused trunk  hand_trunk_fwd_kernel and hand_uchain_kernel alone at
+              the calls one request and one bf16 'full', 'full_nocolor'
+              and 'pallas' step make (record_trunk_calls: K1's sdf
+              column, z with and without keep, the recompute's rows;
+              the u-chain with u, with keep, and the recompute's without
+              u) and at ragged sizes (1 to 65,613 points), every output
+              against trunk_fwd_plain / trunk_uchain_plain on the card
+              (the kernel rule) and a rerun's bits, timed beside the plain
+              version and the bound; the forward's reciprocal against
+              __frcp_rn at every f32 in [1, 2]; K1 through fused_hand_sdf
+              at 1 to 262,144 points against fused_hand_sdf_plain, each
+              call's CUDA graph one hand_embed_kernel and one
+              hand_trunk_fwd_kernel a chunk, no GEMM; a request's K2 call's
+              graph 5 gemm_kernel a pass, the fused pair once a pass, no
+              seed;
  10. kernel K4  the object SDF (obj_sdf_fused_kernel, one launch a call)
               against its plain version on the card, full-width object
               net of confs/wmask_realobj_bean.conf, at a 65,536-point grid
@@ -233,10 +252,13 @@ checks below on the sound kernels and on planted faults (what each limit
 catches).  The last lines of stdout are the card's
 `nvidia-smi --query-gpu=name,power.limit` line, a JSON line of per-kernel
 numbers (each kernel's other modes beside it: no-color, f32, f32 at a
-request, f32 no-color, f32 with dW; the bf16 and the f32 GEMMs alone and
+request, f32 no-color, f32 with dW; the fused trunk's two kernels TFWD
+and TUCH at a request's calls, K1's and K2's shares and a bf16 step's;
+the bf16 and the f32 GEMMs alone and
 the per-point kernels EMBED, COLSUM, UCHAIN, BWDREV, COPY, PACK and POSE
-in rows of their own; UCHAIN and BWDREV count launches on every path that
-runs them: served images and requests, each train mode, the fit CLI; COPY
+in rows of their own; UCHAIN (the f32 trunk's only) and BWDREV count
+launches on every path that runs them: served images and requests, each
+train mode, the fit CLI; COPY
 on the 'full_nocolor' and 'pallas' train paths; PACK on the 'pallas'
 step, request and fit; POSE on the 'full' steps and the fit CLI; K4 on the
 mesh path, with both bounds and a 256^3 grid's time), and the result line.
@@ -1064,11 +1086,194 @@ def perpoint_readings(torch, dev, pose, pts, embed_calls, colsum_calls, timed: b
     return emb, cols
 
 
+def record_trunk_calls(fn):
+    """Run fn() once with the fused trunk's wrappers recording their calls
+    in launch order: ("fwd", m, last, keep) (fused_fine.trunk_fwd: last
+    "sdf" for K1's column, z's n_store, or None; keep: the activation rows
+    stored) and ("uc", m, with_u, keep) (fused_fine.trunk_uchain)."""
+    from honerf_torch.ops import fused_fine as FT
+
+    calls = []
+    fwd, uc = FT.trunk_fwd, FT.trunk_uchain
+
+    def rec_fwd(e, m, ws, bs, tm, ss=None, acts=None, z=None, sdf=None, stream=None):
+        last = "sdf" if sdf is not None else (None if z is None else z.shape[1])
+        calls.append(("fwd", m, last, acts is not None))
+        return fwd(e, m, ws, bs, tm, ss=ss, acts=acts, z=z, sdf=sdf, stream=stream)
+
+    def rec_uc(m, ws, wts, tm, ss, u=None, ts=None, cs=None, stream=None):
+        calls.append(("uc", m, u is not None, ts is not None))
+        return uc(m, ws, wts, tm, ss, u=u, ts=ts, cs=cs, stream=stream)
+
+    FT.trunk_fwd, FT.trunk_uchain = rec_fwd, rec_uc
+    try:
+        fn()
+    finally:
+        FT.trunk_fwd, FT.trunk_uchain = fwd, uc
+    return calls
+
+
+def ragged_trunk_calls():
+    """The fused trunk at sizes the main path's (multiples of a tile, or the
+    step's 56,448) leave out: one point, a consumer's half less one, a
+    half, a half and one, 1,001 and 65,613 points, each output mode."""
+    return [c for m in (1, 63, 64, 65, 1001, 65613)
+            for c in (("fwd", m, 320, False), ("fwd", m, 257, True), ("fwd", m, None, True),
+                      ("fwd", m, "sdf", False), ("uc", m, True, False), ("uc", m, True, True),
+                      ("uc", m, False, True))]
+
+
+def trunk_nets(torch, dev, fs=None):
+    """The flagship's trunk as the fused kernels' callers pack it (the fine
+    pass's pack_fine_color, d_out 257, Op 320; K1's FusedHandSDF, the sdf
+    column), its config, and perpoint_pose's pose and 262,144 points."""
+    from honerf_torch.models.fields import pack_fine_color
+    from honerf_torch.ops import fused_hand as FH
+
+    fs = fs or flagship(torch, dev)
+    pose, pts = perpoint_pose(torch, dev, 1 << 18)
+    return SimpleNamespace(fine=pack_fine_color(fs.params, fs.sdf, fs.color),
+                           k1=FH.FusedHandSDF(fs.params["sdf"], fs.sdf), cfg=fs.sdf, pose=pose,
+                           pts=pts)
+
+
+def trunk_readings(torch, dev, nets, calls, timed: bool = True):
+    """hand_trunk_fwd_kernel ("fwd") and hand_uchain_kernel ("uc") alone at
+    `calls` (record_trunk_calls' tuples), each distinct call once, weighted
+    by its count, on the flagship's weights (trunk_nets; K1's for the sdf
+    column) and the embedding of the call's first m points
+    (hand_embed_kernel, bf16).  The u-chain's sigmoid rows come from the
+    plain forward.  Every output the call asks for, into NaN-filled
+    buffers, against the plain version on the card (trunk_fwd_plain,
+    trunk_uchain_plain; the t rows rounded to bf16 as the kernel stores
+    them) under the kernel rule (TOL_MEDIAN, TOL_MAX of each output's
+    range), and a second run's bits.  The sigmoid rows s = sigmoid(100 z)
+    are held at the median alone: their slope, up to 25, turns the bf16
+    flip of an input activation that the rule's max allows into ~25x that
+    in s.  Their max is held through what reads them: the u-chain kernel
+    run on the kernel's rows against the plain u-chain on the plain rows
+    (u under the kernel rule).  timed: ms of the kernel and of its
+    plain version, and its bound (each input read once, each output
+    written once; the products of the unpadded layers)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_hand as FH
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nan, bf16, f32 = float("nan"), torch.bfloat16, torch.float32
+    cfg, out = nets.cfg, []
+    for (kind, m, a, keep), count in _tally(calls).items():
+        k1 = a == "sdf"
+        ws, bs, tm = ((nets.k1.ws, nets.k1.bs, nets.k1.meta.trunk) if k1 else
+                      (nets.fine.ws, nets.fine.bs, nets.fine.meta.trunk_meta))
+        n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
+        e = torch.empty((m, Ep), device=dev, dtype=bf16)
+        FH.embed(FH._lib("fused_hand"), nets.pts, m, *nets.pose, cfg.v_multires,
+                 cfg.r_multires, e, stream)
+        rows = lambda dt: [torch.full((m, Hp), nan, device=dev, dtype=dt)  # noqa: E731
+                           for _ in range(n - 1)]
+        if kind == "fwd":
+            def outs():
+                return dict(ss=None if k1 else torch.full((n - 1, m, Hp), nan, device=dev),
+                            acts=rows(bf16) if keep else None,
+                            z=torch.full((m, a), nan, device=dev) if type(a) is int else None,
+                            sdf=torch.full((m,), nan, device=dev) if k1 else None)
+
+            def run(o):
+                FT.trunk_fwd(e, m, ws, bs, tm, stream=stream, **o)
+
+            def plain():
+                return FT.trunk_fwd_plain(e, m, ws, bs, tm, last=a is not None)
+
+            o1, o2 = outs(), outs()
+            run(o1)
+            run(o2)
+            p_acts, p_ss, p_z = plain()
+            pairs = [("sdf", o1["sdf"], p_z[:, 0])] if k1 else []
+            if type(a) is int:
+                pairs.append(("z", o1["z"], p_z[:, :a]))
+            if not k1:
+                pairs += [(f"ss[{l}] (median)", o1["ss"][l], p_ss[l]) for l in range(n - 1)]
+                u_k = torch.full((m, Ep), nan, device=dev)
+                FT.trunk_uchain(m, ws, nets.fine.wts, tm, o1["ss"], u=u_k, stream=stream)
+                pairs.append(("u from the kernel's s", u_k,
+                              FT.trunk_uchain_plain(p_ss, ws, tm)[0]))
+            if keep:
+                pairs += [(f"acts[{l}]", o1["acts"][l], p_acts[l]) for l in range(n - 1)]
+            d = 1 if k1 else (min(a, cfg.d_out) if a is not None else 0)
+            dims = trunk_dims(cfg, max(d, 1))[:None if d else -1]
+            flops = 2.0 * m * sum(i * o for i, o in dims)
+            n_bytes = (nbytes([e, *ws, *bs]) + (0 if k1 else (n - 1) * m * Hp * 4)
+                       + (keep and (n - 1) * m * Hp * 2) + (4 * m * d if d else 0))
+        else:
+            _, p_ss0, _ = FT.trunk_fwd_plain(e, m, ws, bs, tm, last=False)
+            ss = torch.stack(p_ss0)
+            del p_ss0
+
+            def outs():
+                return dict(u=torch.full((m, Ep), nan, device=dev) if a else None,
+                            ts=rows(bf16) if keep else None,
+                            cs=[None] + rows(f32)[1:] if keep else None)
+
+            def run(o):
+                FT.trunk_uchain(m, ws, nets.fine.wts, tm, ss, stream=stream, **o)
+
+            def plain():
+                return FT.trunk_uchain_plain(list(ss), ws, tm, with_u=a)
+
+            o1, o2 = outs(), outs()
+            run(o1)
+            run(o2)
+            p_u, p_ts, p_cs = plain()
+            pairs = [("u", o1["u"], p_u)] if a else []
+            if keep:
+                pairs += [(f"ts[{l}]", o1["ts"][l], p_ts[l].to(bf16)) for l in range(n - 1)]
+                pairs += [(f"cs[{l}]", o1["cs"][l], p_cs[l]) for l in range(1, n - 1)]
+            H, E = cfg.d_hidden, cfg.input_width
+            flops = 2.0 * m * (H * H * (n - 2) + (2 * H * E if a else 0)) + m * H
+            n_bytes = (nbytes([ss, *ws[:n - 1]]) + 2 * Hp + (4 * m * Ep if a else 0)
+                       + (keep and (n - 1) * m * Hp * 2 + (n - 2) * m * Hp * 4))
+        torch.cuda.synchronize()
+        checks = [compare(torch, what, got, want, TOL_MEDIAN,
+                          float("inf") if what.endswith("(median)") else TOL_MAX)
+                  for what, got, want in pairs]
+        worst = max(float((got.float() - want.float()).abs().max())
+                    / max(float(want.abs().max()), 1e-6) for what, got, want in pairs
+                    if not what.endswith("(median)"))
+        same = all(torch.equal(x, y) for k in o1 if o1[k] is not None
+                   for x, y in zip(o1[k] if isinstance(o1[k], list) else [o1[k]],
+                                   o2[k] if isinstance(o2[k], list) else [o2[k]])
+                   if x is not None)
+        r = SimpleNamespace(kind=kind, m=m, a=a, keep=keep, count=count, checks=checks,
+                            ok=all(c[0] for c in checks) and same, same=same, worst=worst,
+                            max_abs=max(c[1] for c in checks), ms=None, plain_ms=None,
+                            bound_ms=None, bound_by=None)
+        if timed:
+            r.ms = cuda_ms(torch, lambda: run(o1), 10)
+            r.plain_ms = cuda_ms(torch, plain, 2)
+            r.bound_ms, r.bound_by = bound(flops, n_bytes)
+        del o1, o2, pairs, e
+        out.append(r)
+    return out
+
+
+def trunk_text(r) -> str:
+    """One reading of trunk_readings as a log line."""
+    what = (f"{r.kind} m {r.m} " + (f"last {r.a}" if r.kind == "fwd" else f"u {r.a}")
+            + f" keep {r.keep}" + (f" x{r.count}" if r.count > 1 else ""))
+    worst = max(r.checks, key=lambda c: c[1])[2]
+    text = (f"{what}: {len(r.checks)} outputs within the kernel rule: "
+            f"{all(c[0] for c in r.checks)} (the worst: {worst}); a rerun's bits {r.same}")
+    if r.ms is not None:
+        text += (f"; kernel {r.ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms "
+                 f"({r.bound_by}): {r.bound_ms / r.ms:.2f} of it")
+    return text + ("" if r.ok else " FAIL")
+
+
 def seed_calls(torch):
-    """The seed at sizes the main path's (multiples of a block step) leave
-    out: one row, a block step less one (7 at width 256) and a ragged
-    70,001, bf16 and f32."""
-    return [(m, 256, 256, d) for m in (1, 7, 70001) for d in (torch.bfloat16, torch.float32)]
+    """The seed (the f32 trunk's) at sizes the main path's (multiples of a
+    block step) leave out: one row, a block step less one (7 at width 256)
+    and a ragged 70,001."""
+    return [(m, 256, 256, torch.float32) for m in (1, 7, 70001)]
 
 
 def bwdrev_calls(torch):
@@ -1498,7 +1703,8 @@ def weighted(rs, keys=("ms", "plain_ms", "lib_ms", "bound_ms")):
 # Device time by kernel name of every profiled path (device_profile's
 # label -> {name: [us, launches]}), for the per-point kernels' table
 PROFILES = {}
-PERPOINT_KERNELS = ("uchain_seed_kernel", "fine_bwd_rev_kernel", "fine_rev_kernel",
+PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "gemm_kernel",
+                    "uchain_seed_kernel", "fine_bwd_rev_kernel", "fine_rev_kernel",
                     "fine_bwd_emb_kernel", "color_dz_kernel", "pose_sum_kernel",
                     "reduce_partials_kernel", "copy_cols_kernel", "trunk_pack_e_kernel",
                     "trunk_bwd_seed_kernel", "hand_embed_kernel", "colsum_partial_kernel")
@@ -2981,6 +3187,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 rows["POSE"] = dict(rows.get("POSE", {}), f32_launches=launches["POSE"])
                 for name in ("UCHAIN", "BWDREV"):
                     rows[name] = dict(rows.get(name, {}), f32_train_launches=launches[name])
+                # the seed's launches: the f32 trunk's main path (no bf16 path runs it)
+                rows["UCHAIN"]["launches"] = launches["UCHAIN"]
                 for name in gemms:
                     rows[name] = dict(rows.get(name, {}), launches=launches[name])
             elif mode == "full_nocolor":
@@ -3260,7 +3468,8 @@ def main() -> int:
     served = {}
 
     def serve():
-        for k in (FH.KERNEL, FF.KERNEL, FH.GEMM, FH.GEMM_TN, FH.EMBED, FT.UCHAIN, FF.BWDREV):
+        for k in (FH.KERNEL, FF.KERNEL, FH.GEMM, FH.GEMM_TN, FH.EMBED, FT.UCHAIN, FF.BWDREV,
+                  FT.TRUNK_FWD, FT.TRUNK_UCHAIN):
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3271,18 +3480,26 @@ def main() -> int:
         from honerf_torch.camera import full_image_ndc_grid
 
         grid = full_image_ndc_grid(H, W, device=dev)
-        req_ms = []
+        req_ms, req_gemms = [], []
         for i in range(N_REQUESTS):
             rays = grid[i * REQUEST_RAYS:(i + 1) * REQUEST_RAYS]
+            before = FH.GEMM.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             render(params, dict(view, rays_xy=rays))
             torch.cuda.synchronize()
             req_ms.append((time.perf_counter() - t0) * 1e3)
+            req_gemms.append(FH.GEMM.launches - before)
         launches = {"K1": FH.KERNEL.launches, "K2": FF.KERNEL.launches,
                     "GEMM": FH.GEMM.launches, "EMBED": FH.EMBED.launches,
-                    "UCHAIN": FT.UCHAIN.launches}
-        stray_tn = FH.GEMM_TN.launches + FF.BWDREV.launches
+                    "TFWD": FT.TRUNK_FWD.launches, "TUCH": FT.TRUNK_UCHAIN.launches}
+        # the bf16 trunk runs as two fused launches a pass: no u-chain seed,
+        # and gemm_kernel only in the color net, 5 launches a K2 pass
+        stray_tn = FH.GEMM_TN.launches + FF.BWDREV.launches + FT.UCHAIN.launches
+        n_rays = H * W
+        passes = lambda rays: -(-rays * (rcfg.n_samples + rcfg.n_importance) // FF.CHUNK)  # noqa
+        want_image = 5 * sum(passes(min(REQUEST_RAYS, n_rays - r0))
+                             for r0 in range(0, n_rays, REQUEST_RAYS))
         # what the render pays once per parameter snapshot (and each request
         # paid before the packs were kept)
         pack_ms = []
@@ -3295,14 +3512,16 @@ def main() -> int:
         for name, count in launches.items():
             rows.setdefault(name, {})["launches"] = count
         rows["GEMM"]["image_launches"] = image_gemms
-        n_rays = H * W
+        rows["GEMM"]["request_launches"] = req_gemms[0]
         log(f"serve: image {H}x{W} = {n_rays} rays in {img_s * 1e3:.1f} ms "
             f"({n_rays / img_s:.1f} rays/s, {-(-n_rays // REQUEST_RAYS)} requests of "
             f"<= {REQUEST_RAYS} rays); requests of {REQUEST_RAYS} rays: "
             f"{', '.join(f'{m:.1f}' for m in req_ms)} ms "
             f"({REQUEST_RAYS / (sum(req_ms) / len(req_ms) / 1e3):.1f} rays/s); "
-            f"launches {launches} ({image_gemms} bf16 GEMMs in the image); packing the weights "
-            f"of one snapshot {', '.join(f'{m:.2f}' for m in pack_ms)} ms")
+            f"launches {launches} ({image_gemms} bf16 GEMMs in the image, {want_image} expected: "
+            f"the color net's 5 a K2 pass; a request's {req_gemms}, the uchain_seed_kernel's "
+            f"{FT.UCHAIN.launches}); packing the weights of one snapshot "
+            f"{', '.join(f'{m:.2f}' for m in pack_ms)} ms")
         ladder_pts = n_rays * (rcfg.n_samples + rcfg.n_importance
                                - rcfg.n_importance // rcfg.up_sample_steps)
         fine_pts = n_rays * (rcfg.n_samples + rcfg.n_importance)
@@ -3316,7 +3535,10 @@ def main() -> int:
         served.update(color=color, wsum=wsum, grid=grid)
         if not all(launches.values()) or stray_tn:
             raise AssertionError(f"a kernel of the render path did not launch: {launches} "
-                                 f"(dW GEMMs and reverse-chain transposes {stray_tn})")
+                                 f"(dW GEMMs, reverse-chain transposes and seeds {stray_tn})")
+        if image_gemms != want_image or req_gemms != [5 * passes(REQUEST_RAYS)] * N_REQUESTS:
+            raise AssertionError(f"gemm_kernel launched {image_gemms} times in the image "
+                                 f"({want_image} expected) and {req_gemms} in the requests")
 
     phase("serve", serve)
 
@@ -3365,7 +3587,7 @@ def main() -> int:
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "GEMM": FH.GEMM,
                    "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
                    "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "COPY": FT.COPY, "PACK": FT.PACK,
-                   "POSE": FF.POSE}
+                   "POSE": FF.POSE, "TFWD": FT.TRUNK_FWD, "TUCH": FT.TRUNK_UCHAIN}
 
     def bwd_rules(label, mode, args):
         """K3's two rules on the mode's backward kernel: on the step's own
@@ -3453,7 +3675,7 @@ def main() -> int:
         assert finite, "a loss or gradient norm is not finite"
         assert moved > 0, "se3_refine did not move"
         idle = [k for k in expect if not launches[k]]
-        stray = [k for k in ("K2", "K3", "K5", "K6", "BWDREV", "PACK", "POSE")
+        stray = [k for k in ("K2", "K3", "K5", "K6", "BWDREV", "PACK", "POSE", "UCHAIN")
                  if k not in expect and launches[k]]
         assert not idle and not stray, (
             f"the {mode} train path launched {launches}: expected {expect} and no other fine "
@@ -3468,14 +3690,16 @@ def main() -> int:
 
     def train():
         launches = train_run("train", "full", TRAIN_STEPS,
-                             ("K1", "K2", "K3", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "UCHAIN",
-                              "BWDREV", "POSE"))
+                             ("K1", "K2", "K3", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "TFWD",
+                              "TUCH", "BWDREV", "POSE"))
         rows.setdefault("K3", {})["launches"] = launches["K3"]
         rows.setdefault("GEMM", {})["train_launches"] = launches["GEMM"]
         rows.setdefault("GEMM_TN", {})["launches"] = launches["GEMM_TN"]
         rows.setdefault("EMBED", {})["train_launches"] = launches["EMBED"]
         rows.setdefault("COLSUM", {})["launches"] = launches["COLSUM"]
         rows.setdefault("UCHAIN", {})["train_launches"] = launches["UCHAIN"]
+        for name in ("TFWD", "TUCH"):
+            rows.setdefault(name, {})["train_launches"] = launches[name]
         rows.setdefault("BWDREV", {})["launches"] = launches["BWDREV"]
         rows.setdefault("POSE", {})["launches"] = launches["POSE"]
 
@@ -3552,9 +3776,12 @@ def main() -> int:
                                          tcfg._replace(fused_fine="pallas"))
         preq = record_perpoint_calls(lambda: render_p(params, request))
         torch.cuda.synchronize()
-        assert (req.embed and stp.embed and stp.colsum and req.seed and stp.seed and stp.bwdrev
+        assert (req.embed and stp.embed and stp.colsum and stp.bwdrev
                 and nc.copy and pal.copy and stp.tn and pal.pack and preq.pack and stp.pose), \
             "no per-point call was recorded"
+        # the bf16 trunk's u-chain seeds itself (hand_uchain_kernel)
+        assert not (req.seed or stp.seed or nc.seed or pal.seed or preq.seed), \
+            "a bf16 path called the u-chain's seed"
         del state, nc_state, pl_state
         pose = (rotT, off, cut)
         f32_embeds = [(m, vL, rL, lde, torch.float32) for m, vL, rL, lde, _ in req.embed]
@@ -3607,11 +3834,15 @@ def main() -> int:
                               plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                               bound_by=max(cols, key=lambda r: r.bound_ms).bound_by,
                               library_ms=c["lib_ms"])
-        # the u-chain's seed: a request's calls (bf16 and f32), a step's, ragged
-        f32_seeds = [(m, w, ld, torch.float32) for m, w, ld, _ in req.seed]
-        seeds = {"request": seed_readings(torch, dev, req.seed),
-                 "step": seed_readings(torch, dev, stp.seed),
-                 "f32 request": seed_readings(torch, dev, f32_seeds)}
+        # the u-chain's seed, the f32 trunk's only: an f32 request's calls
+        # (K2 f32's passes of a request), an f32 step's (K2 f32's and K3
+        # f32's recompute), ragged
+        def f32_seeds(n, passes_a_call):
+            C = FT.chunk_size(n, "f32", FF.CHUNK)
+            return [(min(C, n - s0), 256, 256, torch.float32)
+                    for s0 in range(0, n, C)] * passes_a_call
+        seeds = {"f32 request": seed_readings(torch, dev, f32_seeds(k2_points, 1)),
+                 "f32 step": seed_readings(torch, dev, f32_seeds(TRAIN_FINE_PTS, 2))}
         ragged_seed = seed_readings(torch, dev, seed_calls(torch), timed=False)
         st = {}
         for label, rs in seeds.items():
@@ -3633,10 +3864,11 @@ def main() -> int:
         rows["UCHAIN"] = dict(rows.get("UCHAIN", {}), name=FT.UCHAIN.name, route="cuda",
                               source=FT.UCHAIN.source, replaces=FT.UCHAIN.replaces,
                               max_abs_err=max(r.max_abs for r in all_seed),
-                              ms=st["request"]["ms"], plain_ms=st["request"]["plain_ms"],
-                              bound_ms=st["request"]["bound_ms"], bound_by="bytes",
-                              library_ms=st["request"]["lib_ms"], step_ms=st["step"]["ms"],
-                              step_bound_ms=st["step"]["bound_ms"],
+                              ms=st["f32 request"]["ms"], plain_ms=st["f32 request"]["plain_ms"],
+                              bound_ms=st["f32 request"]["bound_ms"], bound_by="bytes",
+                              library_ms=st["f32 request"]["lib_ms"],
+                              step_ms=st["f32 step"]["ms"],
+                              step_bound_ms=st["f32 step"]["bound_ms"],
                               f32_ms=st["f32 request"]["ms"],
                               f32_plain_ms=st["f32 request"]["plain_ms"],
                               f32_bound_ms=st["f32 request"]["bound_ms"],
@@ -3730,6 +3962,121 @@ def main() -> int:
             raise AssertionError(f"a per-point kernel disagrees with its plain version: {bad}")
 
     phase("per-point kernels", perpoint)
+
+    # -- 9c. the bf16 trunk's two fused kernels alone ----------------------
+    def fused_trunk():
+        """hand_trunk_fwd_kernel and hand_uchain_kernel alone at the calls
+        one 4096-ray request and one bf16 'full', 'full_nocolor' and
+        'pallas' step make (recorded through the wrappers,
+        record_trunk_calls), and at ragged sizes (ragged_trunk_calls),
+        against their plain versions on the card (trunk_readings: the
+        kernel rule on every output the call asks for, a rerun's bits),
+        timed beside the plain versions and their bounds; the reciprocal of
+        the forward's sigmoid against __frcp_rn at every f32 in [1, 2];
+        K1 through its entry point (fused_hand_sdf: hand_embed_kernel then
+        hand_trunk_fwd_kernel a chunk) at 1 to 262,144 points against
+        fused_hand_sdf_plain, each call's CUDA graph nodes one embedding
+        and one fused launch a chunk and no GEMM; a request's K2 call's
+        graph nodes: gemm_kernel 5 a pass (the color net), the fused pair
+        once a pass, no u-chain seed."""
+        from honerf_torch.camera import full_image_ndc_grid
+
+        nets = trunk_nets(torch, dev, fs)
+        grid = served.get("grid")
+        if grid is None:
+            grid = full_image_ndc_grid(H, W, device=dev)
+        request = dict(view, rays_xy=grid[:REQUEST_RAYS])
+        recs = {"request": record_trunk_calls(lambda: render(params, request))}
+        for mode in ("full", "full_nocolor", "pallas"):
+            cfg_m = ttcfg._replace(fused_fine=mode)
+            st = init_train_state(train_params(fs, dev), cfg_m)
+            stp = make_hand_train_step(sdf_cfg, color_cfg, rcfg, cfg_m)
+            batch = train_batch(torch, TRAIN_RAYS, dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            recs[f"'{mode}' step"] = record_trunk_calls(lambda: stp(st, batch, gen))
+            del st
+        torch.cuda.synchronize()
+        mismatches = FT.rcp12_mismatches(dev)
+        log(f"fused trunk: tf_rcp12 against __frcp_rn at every f32 in [1, 2]: {mismatches} "
+            f"mismatches")
+        groups, bad = {}, []
+        for label, calls in recs.items():
+            rs = groups[label] = trunk_readings(torch, dev, nets, calls)
+            for r in rs:
+                log(f"fused trunk, {label}: {trunk_text(r)}")
+            bad += [r for r in rs if not r.ok]
+        for r in trunk_readings(torch, dev, nets, ragged_trunk_calls(), timed=False):
+            log(f"fused trunk, ragged: {trunk_text(r)}")
+            bad += [r] if not r.ok else []
+        # K1 through its entry point, and the launches of its CUDA graph
+        rotT_, off_, cut_ = nets.pose
+        k1 = nets.k1
+        k1_ok, k1_err = [], []
+        for n in (1, 63, 64, 65, 1001, 65613, 262144):
+            args = (nets.pts[:n], rotT_, off_, cut_, k1.ws, k1.bs, k1.meta)
+            ok, err, text = compare(torch, "sdf", FH.fused_hand_sdf(*args),
+                                    FH.fused_hand_sdf_plain(*args))
+            nodes = graph_kernel_nodes(torch, lambda: FH.fused_hand_sdf(*args))
+            chunks = -(-n // FH.CHUNK)
+            count = {k: sum(k in x for x in nodes) for k in ("hand_embed_kernel",
+                                                             "hand_trunk_fwd_kernel",
+                                                             "gemm_kernel")}
+            good = (ok and count["hand_embed_kernel"] == count["hand_trunk_fwd_kernel"] == chunks
+                    and count["gemm_kernel"] == 0 and len(nodes) == 2 * chunks)
+            log(f"fused trunk, K1 at {n} points: {text}; its CUDA graph: {len(nodes)} nodes, "
+                f"{count} ({chunks} chunks){'' if good else ' FAIL'}")
+            k1_ok.append(good)
+            k1_err.append(err)
+        fine_args = (pts_all, rotT, off, cut, nets.fine)
+        FF.hand_fine_color_fwd(*fine_args)
+        nodes = graph_kernel_nodes(torch, lambda: FF.hand_fine_color_fwd(*fine_args))
+        k2_passes = -(-pts_all.shape[0] // FF.CHUNK)
+        count = {k: sum(k in x for x in nodes) for k in (
+            "gemm_kernel", "hand_trunk_fwd_kernel", "hand_uchain_kernel", "uchain_seed_kernel",
+            "hand_embed_kernel")}
+        k2_good = count == {"gemm_kernel": 5 * k2_passes, "hand_trunk_fwd_kernel": k2_passes,
+                            "hand_uchain_kernel": k2_passes, "uchain_seed_kernel": 0,
+                            "hand_embed_kernel": k2_passes}
+        log(f"fused trunk, K2 at a request's {pts_all.shape[0]} points: its CUDA graph: "
+            f"{len(nodes)} nodes, {count} ({k2_passes} passes){'' if k2_good else ' FAIL'}")
+        # the kernels line: a request's calls (K1's five and K2's eight) and
+        # a bf16 'full' step's, each weighted by its count
+        req, step = groups["request"], groups["'full' step"]
+
+        def tot(rs, kind, pred=lambda r: True):
+            return weighted([r for r in rs if r.kind == kind and pred(r)],
+                            ("ms", "plain_ms", "bound_ms"))
+
+        fw, uc = tot(req, "fwd"), tot(req, "uc")
+        k1_t, k2_t = tot(req, "fwd", lambda r: r.a == "sdf"), tot(req, "fwd", lambda r: r.a != "sdf")
+        sfw, suc = tot(step, "fwd"), tot(step, "uc")
+        every = [r for rs in groups.values() for r in rs]
+        for key, kern, t, st_t, kind in (("TFWD", FT.TRUNK_FWD, fw, sfw, "fwd"),
+                                         ("TUCH", FT.TRUNK_UCHAIN, uc, suc, "uc")):
+            mine = [r for r in every if r.kind == kind]
+            rows[key] = dict(rows.get(key, {}), name=kern.name, route="cuda", source=kern.source,
+                             replaces=kern.replaces, max_abs_err=max(r.max_abs for r in mine),
+                             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                             bound_by=max([r for r in req if r.kind == kind],
+                                          key=lambda r: r.bound_ms).bound_by,
+                             library_ms=None, step_ms=st_t["ms"], step_plain_ms=st_t["plain_ms"],
+                             step_bound_ms=st_t["bound_ms"])
+        rows["TFWD"].update(k1_ms=k1_t["ms"], k1_bound_ms=k1_t["bound_ms"], k2_ms=k2_t["ms"],
+                            k2_bound_ms=k2_t["bound_ms"])
+        log(f"hand_trunk_fwd_kernel, a request's {sum(r.count for r in req if r.kind == 'fwd')} "
+            f"launches: {fw['ms']:.4f} ms (K1's {k1_t['ms']:.4f}, bound {k1_t['bound_ms']:.4f}; "
+            f"K2's {k2_t['ms']:.4f}, bound {k2_t['bound_ms']:.4f}), plain {fw['plain_ms']:.3f} ms; "
+            f"a bf16 'full' step's: {sfw['ms']:.4f} ms, bound {sfw['bound_ms']:.4f} ms")
+        log(f"hand_uchain_kernel, a request's {sum(r.count for r in req if r.kind == 'uc')} "
+            f"launches: {uc['ms']:.4f} ms, bound {uc['bound_ms']:.4f} ms, plain "
+            f"{uc['plain_ms']:.3f} ms; a bf16 'full' step's: {suc['ms']:.4f} ms, bound "
+            f"{suc['bound_ms']:.4f} ms")
+        rows["K1"] = dict(rows.get("K1", {}), ragged_max_abs_err=max(k1_err))
+        if bad or mismatches or not all(k1_ok) or not k2_good:
+            raise AssertionError(f"the fused trunk disagrees with its plain version, its bits "
+                                 f"or its launch counts: {[trunk_text(r) for r in bad]}")
+
+    phase("fused trunk", fused_trunk)
 
     # -- 14-20. the fine pass's other kernel modes: 'pallas' (K5 / K6 on the
     # embedding) and 'full_nocolor' (K2 / K3 without the color net) --------
@@ -3876,16 +4223,16 @@ def main() -> int:
 
     def train_pallas():
         launches = train_run("train pallas", "pallas", TRAIN_STEPS,
-                             ("K1", "K5", "K6", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "UCHAIN",
-                              "COPY", "PACK"), profile=True)
+                             ("K1", "K5", "K6", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "TFWD",
+                              "TUCH", "COPY", "PACK"), profile=True)
         for name in ("K5", "K6", "PACK"):
             rows.setdefault(name, {})["launches"] = launches[name]
         rows.setdefault("COPY", {})["pallas_launches"] = launches["COPY"]
 
     def train_nocolor():
         launches = train_run("train full_nocolor", "full_nocolor", NOCOLOR_STEPS,
-                             ("K1", "K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV", "COPY",
-                              "POSE"), profile=True)
+                             ("K1", "K2", "K3", "EMBED", "COLSUM", "TFWD", "TUCH", "BWDREV",
+                              "COPY", "POSE"), profile=True)
         rows.setdefault("COPY", {})["launches"] = launches["COPY"]
         rows.setdefault("K2", {})["nocolor_launches"] = launches["K2"]
         rows.setdefault("K3", {})["nocolor_launches"] = launches["K3"]
@@ -3928,8 +4275,10 @@ def main() -> int:
             f"rays {full_ms[1]:.1f} ms); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
         assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
-        assert launches["K1"] and launches["K5"] and launches["UCHAIN"] and not (
-            launches["K2"] or launches["K6"] or launches["BWDREV"] or launches["POSE"]), \
+        # K1 and K5 in bf16: the fused trunk, no GEMM and no seed
+        assert launches["K1"] and launches["K5"] and launches["TFWD"] and launches["TUCH"] and not (
+            launches["K2"] or launches["K6"] or launches["BWDREV"] or launches["POSE"]
+            or launches["GEMM"] or launches["UCHAIN"]), \
             f"the pallas render path launched {launches}"
         # one pack a K5 pass: a request's 524,288 fine points in 8 passes
         assert launches["PACK"] == 8 * launches["K5"] == 8, \
@@ -4206,8 +4555,8 @@ def main() -> int:
         log(f"per-point profiles: {wrong}")
         failures.append("per-point profiles")
     log(gpu_line())
-    order = ("K1", "K2", "K3", "K4", "K5", "K6", "GEMM", "GEMM_TN", "GEMM_F32", "GEMM_TN_F32",
-             "EMBED", "COLSUM", "UCHAIN", "BWDREV", "COPY", "PACK", "POSE")
+    order = ("K1", "K2", "K3", "K4", "K5", "K6", "TFWD", "TUCH", "GEMM", "GEMM_TN", "GEMM_F32",
+             "GEMM_TN_F32", "EMBED", "COLSUM", "UCHAIN", "BWDREV", "COPY", "PACK", "POSE")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     def mode_keys(prefix):
@@ -4222,7 +4571,10 @@ def main() -> int:
                     + mode_keys("f32_dw_")),
              "K4": ("tc_bound_ms", "mufu_bound_ms", "grid_ms", "grid_bound_ms"),
              "K5": mode_keys("f32_"), "K6": mode_keys("f32_"),
-             "GEMM": ("image_launches", "train_launches"),
+             "TFWD": ("train_launches", "step_ms", "step_plain_ms", "step_bound_ms", "k1_ms",
+                      "k1_bound_ms", "k2_ms", "k2_bound_ms"),
+             "TUCH": ("train_launches", "step_ms", "step_plain_ms", "step_bound_ms"),
+             "GEMM": ("image_launches", "request_launches", "train_launches"),
              "EMBED": ("train_launches", "step_ms", "step_bound_ms", "f32_ms", "f32_plain_ms",
                        "f32_bound_ms"),
              "UCHAIN": ("train_launches", "f32_train_launches", "fit_launches", "step_ms",

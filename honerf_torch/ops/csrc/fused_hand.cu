@@ -11,17 +11,17 @@
 //
 // Design: the TPU kernel kept e and all activations of a 512-point block
 //   in VMEM.  A block's shared memory on Hopper (227 KB) holds the bf16
-//   embedding (2.8 KB/pt) of only ~64 points next to the weight tiles, so
-//   this version splits the op into launches over a bounded global
-//   scratch (the wrapper's CHUNK): hand_embed_kernel writes e once
-//   (channel-major columns, tiles of points stored by bulk copies), then one
-//   gemm_kernel per layer streams the layer's weights from L2 through
-//   shared memory and applies softplus in its epilogue, writing the bf16
-//   activation the next layer reads.  The scratch traffic is ~7 KB/pt
-//   against ~2.3 MFLOP/pt, well under the card's byte/FLOP balance.
-//   What bounds this version is the GEMM itself (wgmma on tiles fed by a
-//   TMA ring, wgmma.cuh; the epilogue's transcendentals take longer than
-//   a 256-deep product): PERF.md has its times.  Fusing the launches is
-//   later work.
+//   embedding (2.8 KB/pt) of only ~64 points beside the weight tiles, so e
+//   stays in a bounded global scratch (the wrapper's CHUNK of points):
+//   each chunk is two launches, hand_embed_kernel (this library: e once,
+//   channel-major columns, tiles of points stored by bulk copies) and
+//   hand_trunk_fwd_kernel (csrc/trunk_fused.cu), which runs all nine
+//   layers of a tile of 128 points in one launch: e's 64-column boxes
+//   streamed by TMA beside the weights for layer 0 and the skip, the
+//   activations in shared memory from layer to layer, only the sdf column
+//   stored.  The scratch traffic is e written once and read twice, ~8.4
+//   KB a point.  One gemm_kernel launch a layer, each epilogue writing the
+//   activation the next one read, took 1.03 ms at 65,536 points; the two
+//   launches 0.46 (PERF.md).
 
 #include "common.cuh"

@@ -24,13 +24,15 @@
 //     trunk_pack_e_kernel          f32 e -> the bf16 GEMM operand, rounded
 //                                  once and zero-padded to Ep columns (a
 //                                  warp a row, 16-byte stores; its note)
-//     gemm_kernel x 9 (K5)         trunk, softplus/sigmoid epilogue; the last
-//                                  layer stores z whole into `out`
-//     uchain_seed_kernel + gemm x 8  u-chain -> u (scratch), then
+//     hand_trunk_fwd_kernel (K5)   the whole trunk, the sigmoid rows out; the
+//                                  last layer stores z whole into `out`
+//     hand_uchain_kernel           the whole u-chain -> u (scratch), then
+//                                  (both in csrc/trunk_fused.cu: a tile's
+//                                  activations and t rows in shared memory)
 //     copy_cols_kernel             u out at E columns
 //   K6 reruns the forward keeping every activation, sigmoid, t and c row
 //   (without the last layer and the u-chain's embedding columns, whose
-//   outputs it does not read), then
+//   outputs it does not read: the same two launches), then
 //     trunk_bwd_seed_kernel        dout -> the top dz (f32 and bf16); du ->
 //                                  bf16(du) and bf16(du / sqrt2), rounded
 //                                  once from f32 as the JAX kernel does
@@ -39,13 +41,15 @@
 //                                  second-order term ds beta s (1 - s)
 //     gemm_tn_kernel, colsum       dW, db split over points, fixed-order sums
 //     copy_cols_kernel             de out at E columns
-//   The scratch traffic is that of K2/K3's trunk; the GEMMs bound both
-//   (PERF.md).  Right first: wgmma/TMA and fused launches are later work.
+//   The scratch traffic is that of K2/K3's trunk; K6's backward GEMMs bound
+//   it (PERF.md).
 //
 // f32 mode (TrunkMeta.dtype 'f32', the confs' trunks as written; JAX's
-//   e_dtype f32): the same launches on f32 operands: the pack and seed
-//   kernels' f32 variants (a zero-padded copy of e; dzb, du_b, du_s in
-//   f32), every product by gemm_f32_kernel (common.cuh) and every dW by
+//   e_dtype f32): the same launches on f32 operands, the forward and the
+//   u-chain split as one gemm_f32_kernel a layer after uchain_seed_kernel
+//   (trunk.cuh): the pack and seed kernels' f32 variants (a zero-padded
+//   copy of e; dzb, du_b, du_s in f32), every product by gemm_f32_kernel
+//   (common.cuh) and every dW by
 //   gemm_tn_f32_kernel (trunk.cuh), 3xTF32 on the tensor cores at 165
 //   TFLOP/s of f32 work: K5 ~29 ms and K6 ~78 ms per million points at
 //   that peak.  A pass takes at most half the bf16 chunk's points, so the

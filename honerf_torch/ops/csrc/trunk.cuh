@@ -38,15 +38,17 @@ constexpr float kInvSqrt2 = 0.70710678118654752f;
 // ---------------------------------------------------------------------------
 //
 // t[m, j] = T(W_last[j, 0] * s[m, j]) for j < width: the first u-chain step,
-// whose input is the one-hot sdf column (T: bf16, or f32 in the f32 mode).
+// whose input is the one-hot sdf column; the f32 trunk's (T = f32: the
+// bf16 trunk seeds its chain in hand_uchain_kernel's prologue,
+// csrc/trunk_fused.cu).
 //
 // Bound on an H100: bytes, s read once (4 B) and t written once
-// (sizeof(T)) an element: a bf16 request's 8 launches of 65,536 x 256 are
-// 0.240 ms at 3.35 TB/s.
+// (sizeof(T)) an element: an f32 request's 16 launches of 32,768 x 256
+// are 0.320 ms at 3.35 TB/s.
 //
 // Design: each thread owns US_VEC = 8 consecutive columns of a row (two
-// float4 loads of s; one 16-byte store of 8 bf16, or two float4 stores in
-// f32) and holds their 8 coefficients W_last[j, 0] in registers, read
+// float4 loads of s, two float4 stores of t) and holds their 8
+// coefficients W_last[j, 0] in registers, read
 // once; a block covers US_THREADS / (width / 8) rows a step and walks the
 // rows in a grid-stride loop over a persistent grid (US_BLOCKS_PER_SM
 // blocks a SM).  No integer division in the loop.  One f32 product
@@ -468,11 +470,6 @@ static int honerf_uchain_seed_t(const T* w, int ldw, const float* s, int width, 
   honerf::uchain_seed_kernel<T><<<steps < slots ? steps : slots, honerf::US_THREADS, 0, stream>>>(
       w, ldw, s, width, M, t, ldt);
   return (int)cudaGetLastError();
-}
-
-extern "C" int honerf_uchain_seed(const __nv_bfloat16* w, int ldw, const float* s, int width,
-                                  int M, __nv_bfloat16* t, int ldt, cudaStream_t stream) {
-  return honerf_uchain_seed_t(w, ldw, s, width, M, t, ldt, stream);
 }
 
 extern "C" int honerf_uchain_seed_f32(const float* w, int ldw, const float* s, int width, int M,

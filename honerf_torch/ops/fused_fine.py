@@ -39,8 +39,12 @@ Entry points:
     per parameter snapshot (the eval render).
 On CUDA tensors the forward launches csrc/fused_trunk.cu (K5) and the
 backward K6 from the same source, with a bf16 or an f32 trunk
-(`TrunkMeta.dtype`); on CPU tensors both run their plain versions (`hand_trunk_sdf_u_plain`, `hand_trunk_sdf_u_plain_bwd`,
-on the block bodies `_kernel_fwd_body` / `_trunk_bwd_block`).
+(`TrunkMeta.dtype`); a bf16 trunk's forward and u-chain are two launches
+of csrc/trunk_fused.cu (`trunk_fwd`, `trunk_uchain`: every layer of a
+tile of points on chip), an f32 trunk's one GEMM a layer.  On CPU tensors
+both run their plain versions (`hand_trunk_sdf_u_plain`,
+`hand_trunk_sdf_u_plain_bwd`, on the block bodies `_kernel_fwd_body`, that
+is `trunk_fwd_plain` then `trunk_uchain_plain`, and `_trunk_bwd_block`).
 
 What bounds the kernels on an H100 and how their design answers that: the
 note at the top of csrc/fused_trunk.cu; their times: PERF.md.
@@ -161,32 +165,46 @@ def _skip_concat(meta: TrunkMeta, a: torch.Tensor, e: torch.Tensor) -> torch.Ten
     return torch.cat([a, e], dim=-1) * INV_SQRT2
 
 
-def _kernel_fwd_body(meta: TrunkMeta, e: torch.Tensor, ws, bs, residuals: bool = False):
-    """Forward + u-chain on one block: e (B, Ep) already in the trunk
-    dtype's values.  Returns (z_last (B, Op), u (B, Ep), ss), and with
-    `residuals` also the backward's (ins, ts, cs): each layer's input,
-    the u-chain's t_l and c_l."""
-    n, Hp = meta.n_layers, meta.Hp
-    a = e
+def trunk_fwd_plain(e, m: int, ws, bs, meta: TrunkMeta, last: bool = True):
+    """hand_trunk_fwd_kernel's function in plain PyTorch on e[:m] (Ep
+    columns, already in the trunk dtype's values): (acts, ss, z) with
+    acts[l] = T(softplus(z_l)) and ss[l] = sigmoid(beta z_l) (f32, l < n - 1)
+    and z the last layer's (m, Op) f32 sums with bias (None without
+    `last`).  T rounds to the trunk dtype; the skip's input is
+    T(concat(a, e) * skip scale), as the kernel forms it."""
+    n = meta.n_layers
+    x0 = e[:m].float()
+    a = x0
+    acts: List[torch.Tensor] = []
     ss: List[torch.Tensor] = []
-    ins: List[torch.Tensor] = []
-    z_last = None
-    for l in range(n):
-        x = _skip_concat(meta, a, e) if l == meta.skip else a
-        ins.append(x)
-        z = _mm(meta, x, ws[l]) + bs[l]
+    z = None
+    for l in range(n if last else n - 1):
+        x = _skip_concat(meta, a, x0) if l == meta.skip else a
+        y = _mm(meta, x, ws[l]) + bs[l]
         if l < n - 1:
-            ss.append(torch.sigmoid(BETA * z))
-            a = _rnd(meta, _softplus_beta(z))
+            ss.append(torch.sigmoid(BETA * y))
+            a = _rnd(meta, _softplus_beta(y))
+            acts.append(a)
         else:
-            z_last = z
-    t = torch.zeros_like(z_last)
+            z = y
+    return acts, ss, z
+
+
+def trunk_uchain_plain(ss, ws, meta: TrunkMeta, with_u: bool = True):
+    """hand_uchain_kernel's function in plain PyTorch from the forward's
+    sigmoid rows: (u (B, Ep), ts, cs), u = d z[:, 0] / d e (None without
+    `with_u`), t_l (l < n; t_{n-1} the one-hot sdf column) and c_l (l >= 1
+    without u, else every l) of m_l = t_l W_l^T, c_l = m_l (the skip:
+    m[:, :Hp] / sqrt2, its m[:, Hp:] / sqrt2 into u), t_{l-1} = c_l s_{l-1},
+    u += c_0.  Each product rounds its operand to the trunk dtype."""
+    n, Hp = meta.n_layers, meta.Hp
+    t = ss[0].new_zeros((ss[0].shape[0], meta.Op))
     t[:, 0] = 1.0
     ts: List[torch.Tensor] = [None] * n
     cs: List[torch.Tensor] = [None] * n
     ts[n - 1] = t
     u = None
-    for l in range(n - 1, -1, -1):
+    for l in range(n - 1, -1 if with_u else 0, -1):
         m = _mm_t(meta, ts[l], ws[l])
         if l == meta.skip:
             c = m[:, :Hp] * INV_SQRT2
@@ -198,7 +216,21 @@ def _kernel_fwd_body(meta: TrunkMeta, e: torch.Tensor, ws, bs, residuals: bool =
             ts[l - 1] = c * ss[l - 1]
         else:
             u = u + c
+    return (u if with_u else None), ts, cs
+
+
+def _kernel_fwd_body(meta: TrunkMeta, e: torch.Tensor, ws, bs, residuals: bool = False):
+    """Forward + u-chain on one block: e (B, Ep) already in the trunk
+    dtype's values (trunk_fwd_plain, then trunk_uchain_plain).  Returns
+    (z_last (B, Op), u (B, Ep), ss), and with `residuals` also the
+    backward's (ins, ts, cs): each layer's input, the u-chain's t_l and
+    c_l."""
+    acts, ss, z_last = trunk_fwd_plain(e, e.shape[0], ws, bs, meta)
+    u, ts, cs = trunk_uchain_plain(ss, ws, meta)
     if residuals:
+        ins = [e.float() if l == 0 else (_skip_concat(meta, acts[l - 1], e.float())
+                                         if l == meta.skip else acts[l - 1])
+               for l in range(meta.n_layers)]
         return z_last, u, ss, ins, ts, cs
     return z_last, u, ss
 
@@ -478,19 +510,27 @@ COPY = _build.Kernel("copy_cols_kernel", "honerf_torch/ops/csrc/trunk.cuh",
 # honerf_tpu/ops/fused_fine.py:527 and :550, before the pallas_calls)
 PACK = _build.Kernel("trunk_pack_e_kernel", "honerf_torch/ops/csrc/fused_trunk.cu",
                      "honerf_tpu/ops/fused_fine.py:452")
+# The bf16 trunk in two launches (csrc/trunk_fused.cu): its forward, K1's
+# whole body (the pallas_call at honerf_tpu/ops/fused_hand.py:400) and the
+# forward half of `_kernel_fwd_body` inside K5's (honerf_tpu/ops/fused_fine.py:452)
+# and K2's (honerf_tpu/ops/fused_fine_full.py:1556); its u-chain, the
+# other half, inside K5's and K2's, and the recompute of K3 and K6.
+TRUNK_FWD = _build.Kernel("hand_trunk_fwd_kernel", "honerf_torch/ops/csrc/trunk_fused.cu",
+                          "honerf_tpu/ops/fused_hand.py:400")
+TRUNK_UCHAIN = _build.Kernel("hand_uchain_kernel", "honerf_torch/ops/csrc/trunk_fused.cu",
+                             "honerf_tpu/ops/fused_fine.py:452")
 
 
 def type_trunk_lib(lib) -> None:
     """argtypes of the entry points of csrc/trunk.cuh, which every fine-pass
     library carries."""
-    lib.honerf_uchain_seed.argtypes = [_P, _I, _P, _I, _I, _P, _I, _P]
     lib.honerf_uchain_seed_f32.argtypes = [_P, _I, _P, _I, _I, _P, _I, _P]
     lib.honerf_gemm_tn.argtypes = [_P, _I, _I, _F, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P]
     lib.honerf_gemm_tn_f32.argtypes = lib.honerf_gemm_tn.argtypes
     lib.honerf_colsum.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P]
     lib.honerf_copy_cols.argtypes = [_P, _I, _I, _I, _P, _I, _P]
     lib.honerf_copy_cols_bf16.argtypes = [_P, _I, _I, _I, _P, _I, _P]
-    for fn in ("uchain_seed", "uchain_seed_f32", "gemm_tn", "gemm_tn_f32", "colsum",
+    for fn in ("uchain_seed_f32", "gemm_tn", "gemm_tn_f32", "colsum",
                "copy_cols", "copy_cols_bf16"):
         getattr(lib, "honerf_" + fn).restype = _I
 
@@ -520,21 +560,23 @@ def uchain_seed_plain(w, s, m: int, dtype) -> torch.Tensor:
 
 def uchain_seed(lib, w, s, m: int, t, stream) -> None:
     """t[:m, :width] = T(w[:width, 0] * s[:m, :width]), width = s's columns
-    (T: t's type, bf16 or f32; csrc/trunk.cuh: uchain_seed_kernel).  On a
-    CPU t it writes uchain_seed_plain's rows and launches nothing."""
+    (T: t's type; csrc/trunk.cuh: uchain_seed_kernel, the f32 trunk's seed:
+    the bf16 trunk seeds in hand_uchain_kernel).  On a CPU t it writes
+    uchain_seed_plain's rows and launches nothing."""
     width = s.shape[1]
     if t.device.type == "cpu":
         t[:m, :width] = uchain_seed_plain(w, s, m, t.dtype)
         return
     if (s.dtype != torch.float32 or s.stride(1) != 1 or s.stride(0) != width
-            or t.stride(1) != 1 or w.dtype != t.dtype or m > min(s.shape[0], t.shape[0])):
-        raise ValueError("the u-chain seed takes dense f32 s rows, contiguous t columns of "
-                         "w's type and m rows of each")
+            or t.stride(1) != 1 or t.dtype != torch.float32 or w.dtype != t.dtype
+            or m > min(s.shape[0], t.shape[0])):
+        raise ValueError("the u-chain seed (the f32 trunk's) takes dense f32 s rows, "
+                         "contiguous f32 t columns of w's type and m rows of each")
     PL.check_us_operands(s.data_ptr(), t.data_ptr(), width, t.stride(0))
-    fn = lib.honerf_uchain_seed_f32 if t.dtype == torch.float32 else lib.honerf_uchain_seed
     UCHAIN.launches += 1
-    _build.check(fn(w.data_ptr(), w.stride(0), s.data_ptr(), width, m, t.data_ptr(),
-                    t.stride(0), stream), "honerf_uchain_seed")
+    _build.check(lib.honerf_uchain_seed_f32(w.data_ptr(), w.stride(0), s.data_ptr(), width, m,
+                                            t.data_ptr(), t.stride(0), stream),
+                 "honerf_uchain_seed_f32")
 
 
 def copy_cols_plain(src, m: int, width: int) -> torch.Tensor:
@@ -688,13 +730,155 @@ def _colsum(lib, Z, N, m, out, acc, ws, stream):
                  "honerf_colsum")
 
 
+def _tlib():
+    """The library of csrc/trunk_fused.cu (the two fused trunk kernels)."""
+    lib = _build.load("trunk_fused")
+    if not getattr(lib, "_honerf_tf_typed", False):
+        L = ctypes.c_longlong
+        lib.honerf_trunk_fwd.argtypes = [
+            _P, _I, _I, _I, _I, _I, _I,      # e, lde, M, Ep, Hp, n_layers, skip
+            _P, _P, _P, _P, _F,              # ws, rows, cols, bs, skip_scale
+            _P, L, _I, _P, _I,               # ss, ss_layer, lds, acts, ldact
+            _P, _I, _I, _P, _P]              # z, ldz, n_store, sdf, stream
+        lib.honerf_trunk_uchain.argtypes = [
+            _I, _I, _I, _I, _I, _P, _P,      # M, Ep, Hp, n_layers, skip, wts, in_cols
+            _P, _I, _P, L, _I, _F, _F,       # w_last, ldw, ss, ss_layer, lds, hscale, escale
+            _P, _I, _P, _I, _P, _I, _P]      # u, ldu, ts, ldt, cs, ldc, stream
+        lib.honerf_rcp12_check.argtypes = [_P, _P]
+        lib.honerf_trunk_fwd.restype = lib.honerf_trunk_uchain.restype = _I
+        lib.honerf_rcp12_check.restype = _I
+        lib._honerf_tf_typed = True
+    return lib
+
+
+def rcp12_mismatches(dev) -> int:
+    """The count of f32 x in [1, 2] at which the fused forward's reciprocal
+    (csrc/trunk_fused.cu: tf_rcp12) differs from __frcp_rn: 0 keeps the
+    sigmoid rows' bits.  Card only."""
+    bad = torch.zeros((1,), device=dev, dtype=torch.int64)
+    _build.check(_tlib().honerf_rcp12_check(bad.data_ptr(),
+                                            torch.cuda.current_stream(dev).cuda_stream),
+                 "honerf_rcp12_check")
+    return int(bad.item())
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[0 if t is None else t.data_ptr() for t in ts])
+
+
+def _ints(xs):
+    return (ctypes.c_int * len(xs))(*xs)
+
+
+def _check_rows(what: str, ts, dtype, m: int, width: int, align: int = 16) -> int:
+    """Raise unless every tensor of ts (None skipped) is a 2-D `dtype` view
+    of at least m rows and `width` contiguous columns, all with one row
+    stride, each base and that stride a multiple of `align` bytes (the
+    kernels' vector loads and stores, TMA); returns the stride."""
+    lds = {t.stride(0) for t in ts if t is not None}
+    if len(lds) != 1 or any(t is not None and (
+            t.dtype != dtype or t.dim() != 2 or t.stride(1) != 1 or t.shape[0] < m
+            or t.shape[1] < width or t.data_ptr() % align
+            or t.stride(0) * t.element_size() % align) for t in ts):
+        raise ValueError(f"{what}: {dtype} rows of one stride, at least {m} rows of {width} "
+                         f"contiguous columns, bases and rows {align}-byte aligned")
+    return lds.pop()
+
+
+def trunk_fwd(e, m: int, ws, bs, tm: TrunkMeta, ss=None, acts=None, z=None, sdf=None,
+              stream=None) -> None:
+    """The trunk forward on e[:m] (bf16, Ep contiguous columns): ss[l][:m] =
+    sigmoid(beta z_l) (ss (n - 1, >= m, Hp) f32), acts[l][:m] =
+    bf16(softplus(z_l)) (with keep: n - 1 bf16 (>= m, Hp) rows), and the
+    last layer into z[:m, :z.shape[1]] (f32) or its sdf column into
+    sdf[:m]; each output optional, the last layer formed only for z or sdf
+    (csrc/trunk_fused.cu: hand_trunk_fwd_kernel, one launch).  On a CPU e
+    it writes trunk_fwd_plain's rows and launches nothing."""
+    n = tm.n_layers
+    if tm.dtype != "bf16" or (z is not None and sdf is not None):
+        raise ValueError("the fused trunk forward takes a bf16 trunk and one of z and sdf")
+    if e.device.type == "cpu":
+        a, s_, zz = trunk_fwd_plain(e, m, ws, bs, tm, last=z is not None or sdf is not None)
+        for dst, rows in ((ss, s_), (acts, a)):
+            if dst is not None:
+                for l in range(n - 1):
+                    dst[l][:m] = rows[l]
+        if z is not None:
+            z[:m] = zz[:, :z.shape[1]]
+        if sdf is not None:
+            sdf[:m] = zz[:, 0]
+        return
+    lde = _check_rows("e", [e], torch.bfloat16, m, tm.Ep)
+    if ss is not None:
+        _check_rows("ss", list(ss), torch.float32, m, tm.Hp)
+    ldact = _check_rows("acts", list(acts), torch.bfloat16, m, tm.Hp) if acts is not None else 0
+    if acts is not None and ss is None:
+        raise ValueError("the kept activations come with the sigmoid rows")
+    if z is not None:
+        _check_rows("z", [z], torch.float32, m, z.shape[1], align=4)
+    if sdf is not None and (sdf.dtype != torch.float32 or sdf.dim() != 1 or sdf.shape[0] < m
+                            or sdf.stride(0) != 1):
+        raise ValueError("sdf: f32, at least m contiguous rows")
+    TRUNK_FWD.launches += 1
+    _build.check(_tlib().honerf_trunk_fwd(
+        e.data_ptr(), lde, m, tm.Ep, tm.Hp, n, tm.skip, _ptrs(ws),
+        _ints([w.shape[0] for w in ws]), _ints([w.shape[1] for w in ws]), _ptrs(bs),
+        INV_SQRT2_BF16, 0 if ss is None else ss.data_ptr(), 0 if ss is None else ss.stride(0),
+        0 if ss is None else ss.stride(1), None if acts is None else _ptrs(acts), ldact,
+        0 if z is None else z.data_ptr(), 0 if z is None else z.stride(0),
+        0 if z is None else z.shape[1], 0 if sdf is None else sdf.data_ptr(), stream),
+        "honerf_trunk_fwd")
+
+
+def trunk_uchain(m: int, ws, wts, tm: TrunkMeta, ss, u=None, ts=None, cs=None,
+                 stream=None) -> None:
+    """The u-chain of m points from the forward's sigmoid rows ss (n - 1,
+    >= m, Hp) f32: u[:m, :Ep] (f32; None: layer 0 and the skip's embedding
+    columns not formed) and, with keep, ts[l][:m] (bf16, l < n - 1) and
+    cs[l][:m] (f32, 1 <= l < n - 1; cs[0] None) (csrc/trunk_fused.cu:
+    hand_uchain_kernel, one launch; wts = the weights transposed).  On a
+    CPU ss it writes trunk_uchain_plain's rows (from ws) and launches
+    nothing."""
+    n = tm.n_layers
+    if tm.dtype != "bf16":
+        raise ValueError("the fused u-chain takes a bf16 trunk")
+    if ss.device.type == "cpu":
+        uu, t_, c_ = trunk_uchain_plain([ss[l][:m] for l in range(n - 1)], ws, tm,
+                                        with_u=u is not None)
+        if u is not None:
+            u[:m, :tm.Ep] = uu
+        for l in range(n - 1):
+            if ts is not None:
+                ts[l][:m] = t_[l]
+            if cs is not None and l > 0:
+                cs[l][:m] = c_[l]
+        return
+    _check_rows("ss", list(ss), torch.float32, m, tm.Hp)
+    ldu = _check_rows("u", [u], torch.float32, m, tm.Ep, align=8) if u is not None else 0
+    if (ts is None) != (cs is None):
+        raise ValueError("the kept t rows come with the kept c rows")
+    ldt = _check_rows("ts", list(ts[:n - 1]), torch.bfloat16, m, tm.Hp) if ts is not None else 0
+    ldc = (_check_rows("cs", list(cs[1:n - 1]), torch.float32, m, tm.Hp, align=8)
+           if cs is not None else 0)
+    wl = ws[n - 1]
+    TRUNK_UCHAIN.launches += 1
+    _build.check(_tlib().honerf_trunk_uchain(
+        m, tm.Ep, tm.Hp, n, tm.skip, _ptrs(wts[:n - 1]), _ints([w.shape[1] for w in wts[:n - 1]]),
+        wl.data_ptr(), wl.stride(0), ss.data_ptr(), ss.stride(0), ss.stride(1), INV_SQRT2,
+        INV_SQRT2, 0 if u is None else u.data_ptr(), ldu,
+        None if ts is None else _ptrs(ts[:n - 1]), ldt,
+        None if cs is None else _ptrs(cs[:n - 1]), ldc, stream), "honerf_trunk_uchain")
+
+
 def trunk_buffers(tm: TrunkMeta, C: int, dev, keep: bool):
-    """Scratch of cuda_trunk_forward for C points: activations and t rows
-    in the trunk dtype (two alternating ones, or with `keep` one per
-    layer, and the f32 c rows), f32 sigmoid rows."""
+    """Scratch of cuda_trunk_forward for C points: f32 sigmoid rows, and
+    activations and t rows in the trunk dtype: with `keep` one per layer
+    and the f32 c rows (K3's and K6's recompute), else two alternating
+    ones for the f32 trunk's split launches (the bf16 trunk's two fused
+    launches keep theirs on chip)."""
     n, Hp = tm.n_layers, tm.Hp
     op, f32 = _cast(tm), torch.float32
-    n_act = n - 1 if keep else 2
+    n_act = n - 1 if keep else (2 if tm.dtype == "f32" else 0)
     buf = dict(
         acts=[torch.empty((C, Hp), device=dev, dtype=op) for _ in range(n_act)],
         ts=[torch.empty((C, Hp), device=dev, dtype=op) for _ in range(n_act)],
@@ -712,7 +896,8 @@ def cuda_trunk_forward(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream, 
                        z=None, u=None) -> None:
     """The trunk forward and u-chain launches (K2's and K5's, and the
     recompute of K3 and K6) on the first m rows of e (the trunk dtype, Ep
-    columns; bf16, or f32 in the f32 mode):
+    columns): a bf16 trunk in two launches (trunk_fwd, trunk_uchain), an
+    f32 one as one gemm_f32_kernel a layer and uchain_seed_kernel:
     a_{l+1} = softplus(z_l) and s_l = sigmoid(beta z_l) into buf's acts
     and ss; the last layer into the first z.shape[1] columns of z (f32;
     None: not formed); the u-chain's t rows into buf's ts (with `keep`,
@@ -722,6 +907,13 @@ def cuda_trunk_forward(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream, 
 
     n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
     ss, acts, ts, cs = buf["ss"], buf["acts"], buf["ts"], buf.get("cs")
+    if tm.dtype == "bf16":
+        # two launches: the forward, then the u-chain from its sigmoid rows
+        trunk_fwd(e, m, ws, bs, tm, ss=ss, acts=acts if keep else None, z=z, stream=stream)
+        trunk_uchain(m, ws, wts, tm, ss, u=u, ts=ts if keep else None,
+                     cs=cs if keep else None, stream=stream)
+        return
+    # the f32 trunk: one gemm_f32_kernel a layer and the seed
     gemm = FH.gemm
     # the skip concat's scale: bf16(x * bf16(1/sqrt2)), or x * f32(1/sqrt2)
     skip_scale = INV_SQRT2 if tm.dtype == "f32" else INV_SQRT2_BF16

@@ -8,12 +8,15 @@ cutoff gate h = 1 - sigmoid(200 (v - cut)), gated PE of v (L=10) and r
 embedding e, the 9-layer softplus trunk with the widened skip at 4, and
 the sdf column only.  bf16 matmul operands, f32 accumulation.
 
-On a CUDA tensor `fused_hand_sdf` launches the hand-written kernels of
-csrc/fused_hand.cu; on a CPU tensor it runs `fused_hand_sdf_plain`, which
-repeats the same statements with the same bf16 rounding points.
+On a CUDA tensor `fused_hand_sdf` launches two hand-written kernels a
+chunk of points: hand_embed_kernel (csrc/common.cuh) and the whole trunk,
+hand_trunk_fwd_kernel (csrc/trunk_fused.cu, fused_fine.trunk_fwd); on a
+CPU tensor it runs `fused_hand_sdf_plain`, which repeats the same
+statements with the same bf16 rounding points.
 
-What bounds the kernel on an H100 and how its design answers that: the
-note at the top of csrc/fused_hand.cu; its times: PERF.md.
+What bounds the kernels on an H100 and how their design answers that: the
+notes at the top of csrc/fused_hand.cu and csrc/trunk_fused.cu; their
+times: PERF.md.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ from honerf_torch.models.fields import SDFConfig, _flat_sdf_layers
 from honerf_torch.models.mlp import linear_weight
 from honerf_torch.ops import _build
 from honerf_torch.ops import perpoint_layout as PL
+from honerf_torch.ops import fused_fine as FT
 from honerf_torch.ops.fused_fine import (
-    INV_SQRT2_BF16,
     TrunkMeta,
     _mm,
     _pad_weights,
@@ -335,27 +338,12 @@ def _fused_hand_sdf_cuda(pts, rotT, off, cut, ws, bs, meta: HandKernelMeta) -> t
         return out
     C = min(N, CHUNK)
     e = torch.empty((C, tm.Ep), device=pts.device, dtype=torch.bfloat16)
-    acts = [torch.empty((C, tm.Hp), device=pts.device, dtype=torch.bfloat16) for _ in range(2)]
     KERNEL.launches += 1
     for s in range(0, N, C):
+        # two launches a chunk: the embedding, then the whole trunk on chip
         m = min(C, N - s)
         embed(lib, pts[s:], m, rotT, off, cut, meta.v_multires, meta.r_multires, e, stream)
-        a = None
-        for l in range(tm.n_layers):
-            if l == 0:
-                A1, K1, A2, K2, scale = e, tm.Ep, None, 0, 0.0
-            elif l == tm.skip:
-                A1, K1, A2, K2, scale = a, tm.Hp, e, tm.Ep, INV_SQRT2_BF16
-            else:
-                A1, K1, A2, K2, scale = a, tm.Hp, None, 0, 0.0
-            if l < tm.n_layers - 1:
-                nxt = acts[l % 2]
-                gemm(lib, A1, K1, A2, K2, ws[l], ws[l].shape[1], bs[l], m, EPI_SOFTPLUS,
-                     nxt, nxt.stride(0), a_scale=scale, stream=stream)
-                a = nxt
-            else:
-                gemm(lib, A1, K1, A2, K2, ws[l], ws[l].shape[1], bs[l], m, EPI_F32,
-                     out[s:], 1, n_store=1, a_scale=scale, stream=stream)
+        FT.trunk_fwd(e, m, ws, bs, tm, sdf=out[s:], stream=stream)
     return out
 
 

@@ -273,7 +273,7 @@ def colsum_row_owner(r: int, split: int) -> Tuple[int, int, int, int]:
 # ---------------------------------------------------------------------------
 
 def check_us_operands(s_base: int, t_base: int, width: int, ldt: int) -> None:
-    """Raise where honerf_uchain_seed refuses: s or t off a 16-byte
+    """Raise where honerf_uchain_seed_f32 refuses: s or t off a 16-byte
     boundary, width or ldt not a multiple of US_VEC, width past
     US_WIDTH_MAX or ldt below it."""
     if (s_base % 16 or t_base % 16 or width <= 0 or width % US_VEC or width > US_WIDTH_MAX

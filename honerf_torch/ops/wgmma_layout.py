@@ -24,14 +24,26 @@ source): `k4_offset` is where a tile element lives (the PE's writes),
 `k4_a_desc` the A descriptor wgmma reads the tile through; `k4_smem_bytes`
 the block's shared memory, `k4_layers` the producer's K steps a layer.
 
+The `TF_*` / `UC_*` constants are csrc/trunk_fused.cu's (the bf16 hand
+trunk in two launches, hand_trunk_fwd_kernel and hand_uchain_kernel;
+tests/test_torch_trunk_fused_layout.py holds them to the source):
+`tf_phases` / `uc_phases` are the phases of a tile (honerf_trunk_fwd's
+table, hand_uchain_kernel's order), `tf_loads` / `uc_loads` the
+producer's TMA boxes a K step, `tf_smem_bytes` / `uc_smem_bytes` the
+blocks' shared memory, `tf_tile_rows` the rows a consumer thread stores,
+and `ring_schedule` a model of the producer, the two consumers, the
+ring's barriers and the consumers' turns that finds a deadlock if there
+is one.
+
 Nothing on the main path calls the functions but `tn_workspace`; the CUDA
 side computes the same numbers (`honerf_gemm`, `honerf_gemm_tn`,
-`honerf_obj_sdf`).
+`honerf_obj_sdf`, `honerf_trunk_fwd`, `honerf_trunk_uchain`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+import random
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 BM = 128               # output rows of a tile: two consumer warpgroups x 64
 BN = 256               # output columns of a tile: one m64n256k16
@@ -80,6 +92,31 @@ K4_SMEM_BYTES = 1024 + K4_ACT_BYTES + K4_ES_BYTES + K4_RING_BYTES + 2 * K4_STAGE
 K4_MAX_LAYERS = 12
 K4_CONSTANTS = ("K4_TILE", "K4_EP", "K4_WIDTH", "K4_CHUNK_BYTES", "K4_ACT_BYTES", "K4_ES_BYTES",
                 "K4_STAGES", "K4_STAGE_BYTES", "K4_RING_BYTES", "K4_SMEM_BYTES", "K4_MAX_LAYERS")
+
+
+# csrc/trunk_fused.cu: hand_trunk_fwd_kernel, hand_uchain_kernel
+TF_TILE = 128          # points a tile: two consumer warpgroups x 64
+TF_WIDTH = 256         # the widest hidden layer: one m64n256k16
+TF_CHUNK_BYTES = TF_TILE * 128                    # 64 columns of the tile's rows
+TF_ACT_BYTES = TF_WIDTH // 64 * TF_CHUNK_BYTES    # the activation (or a t) tile
+TF_A_BYTES = TF_CHUNK_BYTES                       # e's box of a stage: 64 columns x 128 rows
+TF_B_BYTES = 64 * TF_WIDTH * 2                    # 64 k-rows of 256 weight columns
+TF_STAGE_BYTES = TF_A_BYTES + TF_B_BYTES
+TF_STAGES = 3
+TF_RING_BYTES = TF_STAGES * TF_STAGE_BYTES
+TF_SMEM_BYTES = 1024 + TF_ACT_BYTES + TF_RING_BYTES + 2 * TF_STAGES * 8
+TF_MAX_LAYERS = 12
+TF_MAX_PHASES = 16
+UC_STAGES = 3
+UC_STAGE_BYTES = TF_B_BYTES
+UC_RING_BYTES = UC_STAGES * UC_STAGE_BYTES
+UC_SMEM_BYTES = 1024 + 2 * TF_ACT_BYTES + UC_RING_BYTES + 2 * UC_STAGES * 8
+UC_PIECE = 128         # u columns a layer-0 piece: two m64n128k16 accumulators
+TF_CONSTANTS = ("TF_TILE", "TF_WIDTH", "TF_CHUNK_BYTES", "TF_ACT_BYTES", "TF_A_BYTES",
+                "TF_B_BYTES", "TF_STAGE_BYTES", "TF_STAGES", "TF_RING_BYTES", "TF_SMEM_BYTES",
+                "TF_MAX_LAYERS", "TF_MAX_PHASES", "UC_STAGES", "UC_STAGE_BYTES", "UC_RING_BYTES",
+                "UC_SMEM_BYTES", "UC_PIECE")
+TF_HIDDEN, TF_Z, TF_SDF = 0, 1, 2
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -293,3 +330,222 @@ def k4_layers(rows, cols, skips) -> List[Dict[str, int]]:
                         k_rows=[64 * k for k in range(steps)]))
         d_in = n
     return out
+
+
+# ---------------------------------------------------------------------------
+# The bf16 hand trunk in two launches (csrc/trunk_fused.cu)
+# ---------------------------------------------------------------------------
+
+def tf_offset(row: int, col: int) -> int:
+    """Byte of a trunk tile (activation or t; from its 1024-byte-aligned
+    base) that holds element (row, col): k4_offset's layout (tf_offset in
+    the source)."""
+    assert 0 <= row < TF_TILE and 0 <= col < TF_WIDTH
+    return (col // 64) * TF_CHUNK_BYTES + tma_box_offset(row, col % 64)
+
+
+def tf_smem_bytes() -> Dict[str, int]:
+    """hand_trunk_fwd_kernel's shared memory by part (bytes): the
+    activation tile, the ring of e's box + the weights' 64 k-rows."""
+    return dict(align=1024, act=TF_ACT_BYTES, ring=TF_RING_BYTES, barriers=2 * TF_STAGES * 8)
+
+
+def uc_smem_bytes() -> Dict[str, int]:
+    """hand_uchain_kernel's: two t tiles (the chain's, the skip's kept to
+    layer 0) and a ring of 64 k-rows of W^T."""
+    return dict(align=1024, t=2 * TF_ACT_BYTES, ring=UC_RING_BYTES, barriers=2 * UC_STAGES * 8)
+
+
+def tf_phases(Ep: int, Hp: int, rows: Sequence[int], cols: Sequence[int], skip: int,
+              n_store: Optional[int] = None, sdf: bool = False) -> List[Dict[str, int]]:
+    """honerf_trunk_fwd's phase table: per hidden layer one phase (K steps
+    over the tile, then over e's boxes: layer 0 and the skip), then the
+    last layer's pieces: K1's sdf column (sdf), z's first n_store columns
+    in pieces of up to 256 (m64n64k16 for a 64-column one), or none.
+    Raises ValueError where the entry point refuses the shapes."""
+    n = len(rows)
+    if (not 3 <= n <= TF_MAX_LAYERS or not 0 < skip < n - 1 or Hp <= 0 or Hp % 64
+            or Hp > TF_WIDTH or Ep <= 0 or Ep % 64 or (sdf and n_store)):
+        raise ValueError("not a fused trunk")
+    out = []
+    for l in range(n):
+        last = l + 1 == n
+        want = Ep if l == 0 else (Hp + Ep if l == skip else Hp)
+        if rows[l] != want or (not last and cols[l] != Hp) or cols[l] % 64:
+            raise ValueError(f"layer {l}: {rows[l]} x {cols[l]} is not a fused trunk layer")
+        base = dict(layer=l, n0=0, boxes=Hp // 64, kind=TF_HIDDEN, narrow=0, prescale=0,
+                    act_steps=Hp // 64, e_steps=0, e_row0=0, scale_e=0)
+        if not last:
+            out.append(dict(base, act_steps=0 if l == 0 else Hp // 64,
+                            e_steps=Ep // 64 if l in (0, skip) else 0,
+                            e_row0=0 if l == 0 else Hp, scale_e=int(l == skip),
+                            prescale=int(l + 1 == skip)))
+        elif sdf:
+            out.append(dict(base, boxes=1, kind=TF_SDF, narrow=1))
+        elif n_store:
+            if n_store > cols[l]:
+                raise ValueError("n_store past the last layer's columns")
+            for n0 in range(0, n_store, TF_WIDTH):
+                width = min(TF_WIDTH, cols[l] - n0)
+                out.append(dict(base, n0=n0, boxes=width // 64, kind=TF_Z,
+                                narrow=int(width == 64)))
+    if len(out) > TF_MAX_PHASES:
+        raise ValueError("too many phases")
+    return out
+
+
+def tf_loads(phases, tile: int) -> List[List[tuple]]:
+    """The producer's TMA loads, per phase and K step: (A, [B ...]) with A
+    e's box at (column, row) or None, each B (layer, column, k-row)."""
+    out = []
+    for ph in phases:
+        steps = []
+        for k in range(ph["act_steps"] + ph["e_steps"]):
+            ke = k - ph["act_steps"]
+            a = (64 * ke, TF_TILE * tile) if ke >= 0 else None
+            row = ph["e_row0"] + 64 * ke if ke >= 0 else 64 * k
+            steps.append((a, [(ph["layer"], ph["n0"] + 64 * j, row)
+                              for j in range(ph["boxes"])]))
+        out.append(steps)
+    return out
+
+
+def uc_phases(n_layers: int, skip: int, Hp: int, Ep: int, with_u: bool) -> List[Dict[str, int]]:
+    """hand_uchain_kernel's phases of a tile: the chain layers n-2 .. 1 (A
+    = t tile src, the new t into tile dst: with u the skip writes tile 1
+    and tile 0 keeps the skip's t), then with u layer 0's pieces of
+    UC_PIECE columns (the skip's t tile 0 and layer 0's t tile 1)."""
+    out = []
+    for l in range(n_layers - 2, 0, -1):
+        out.append(dict(kind="chain", layer=l, n0=0, boxes=Hp // 64,
+                        src=int(with_u and l < skip), dst=int(with_u and l <= skip)))
+    if with_u:
+        for n0 in range(0, Ep, UC_PIECE):
+            out.append(dict(kind="piece", layer=0, n0=n0, boxes=min(UC_PIECE, Ep - n0) // 64,
+                            src=0, dst=-1))
+    return out
+
+
+def uc_loads(phases, Hp: int, skip: int) -> List[List[list]]:
+    """The u-chain producer's loads, per phase and K step: [(stage byte,
+    map layer, column, k-row) ...]: a chain layer's boxes of W_l^T at 0,
+    8 KB, ...; a piece's skip boxes (W_skip^T's columns from Hp) at 0 and
+    8 KB, layer 0's at 16 KB and 24 KB."""
+    out = []
+    for ph in phases:
+        steps = []
+        for k in range(Hp // 64):
+            if ph["kind"] == "chain":
+                steps.append([(j * B_CHUNK_BYTES, ph["layer"], 64 * j, 64 * k)
+                              for j in range(ph["boxes"])])
+            else:
+                steps.append([(j * B_CHUNK_BYTES, skip, Hp + ph["n0"] + 64 * j, 64 * k)
+                              for j in range(ph["boxes"])]
+                             + [(UC_STAGE_BYTES // 2 + j * B_CHUNK_BYTES, 0, ph["n0"] + 64 * j,
+                                 64 * k) for j in range(ph["boxes"])])
+        out.append(steps)
+    return out
+
+
+def tf_tile_rows(M: int, sms: int = 132) -> Dict[int, List[int]]:
+    """Block -> the tiles it walks (one persistent block an SM, at most one
+    a tile): blockIdx.x, + gridDim.x, ... below ceil(M / TF_TILE)."""
+    tiles = _cdiv(M, TF_TILE)
+    grid = min(tiles, sms)
+    return {b: list(range(b, tiles, grid)) for b in range(grid)}
+
+
+def tf_thread_rows(tile: int, thread: int) -> List[int]:
+    """The two points consumer thread `thread` (0-255 over both consumer
+    warpgroups) stores of a tile: grow0 = tile * 128 + ra and grow0 + 8,
+    ra = 64 c + 16 w + lane / 4 (k4_acc_cell's rows)."""
+    c, w, lane = thread // 128, (thread % 128) // 32, thread % 32
+    ra = 64 * c + 16 * w + lane // 4
+    return [tile * TF_TILE + ra, tile * TF_TILE + ra + 8]
+
+
+def ring_schedule(phase_steps: Sequence[int], tiles: int, stages: int, turns: bool = False,
+                  early_hand_off: bool = True, seed: Optional[int] = None) -> int:
+    """Run one block's producer and two consumers as the kernels do,
+    interleaved at random (seed) or in turn: the producer fills K step i
+    once both consumers freed step i - stages; a consumer waits for its
+    step, frees the previous one once the next is issued and the last at
+    the phase's end.  Lockstep (the fused trunk's schedule) stops there;
+    with `turns` (obj_sdf_fused_kernel's) consumer c also syncs
+    named barrier 3 + c before each phase and arrives at the other's once
+    a phase (consumer 1 first, once, and not in its very last phase):
+    before the wait for step `stages` when early_hand_off and the phase is
+    deeper than the ring, else after its last step.  Every wait is
+    monotone, so one run that ends shows that every interleaving ends.
+    Returns the events run; raises RuntimeError on a deadlock, on a
+    barrier arrived at twice before its sync (the hardware would complete
+    it without its syncer), or on arrivals left over at the end."""
+    rng = random.Random(seed) if seed is not None else None
+    phases = [(t, q, n) for t in range(tiles) for q, n in enumerate(phase_steps)]
+    total = sum(n for _, _, n in phases)
+    released = [0] * total
+    filled = [0]
+    arrivals, syncs = [0, 0], [0, 0]
+
+    def consumer(c):
+        it = 0
+        if turns and c == 1:
+            yield ("arrive", 0)
+        for i, (_, _, n) in enumerate(phases):
+            final = i + 1 == len(phases)
+            if turns:
+                yield ("sync", c)
+            handed = not turns
+            prev = None
+            for k in range(n):
+                if not handed and early_hand_off and k == stages:
+                    handed = True
+                    if not (c == 1 and final):
+                        yield ("arrive", 1 - c)
+                yield ("full", it)
+                if prev is not None:
+                    yield ("release", prev)
+                prev, it = it, it + 1
+            yield ("release", prev)
+            if not handed and not (c == 1 and final):
+                yield ("arrive", 1 - c)
+
+    def producer():
+        for it in range(total):
+            yield ("empty", it)
+
+    agents = [producer(), consumer(0), consumer(1)]
+    nxt = [next(a, None) for a in agents]
+    events = 0
+
+    def ready(ev):
+        kind, x = ev
+        if kind == "empty":
+            return x < stages or released[x - stages] == 2
+        if kind == "full":
+            return x < filled[0]
+        if kind == "sync":
+            return arrivals[x] > syncs[x]
+        return True
+
+    while any(ev is not None for ev in nxt):
+        live = [i for i, ev in enumerate(nxt) if ev is not None and ready(ev)]
+        if not live:
+            raise RuntimeError(f"deadlock after {events} events: waiting on {nxt}")
+        i = rng.choice(live) if rng else live[0]
+        kind, x = nxt[i]
+        if kind == "empty":
+            filled[0] += 1
+        elif kind == "release":
+            released[x] += 1
+        elif kind == "sync":
+            syncs[x] += 1
+        elif kind == "arrive":
+            arrivals[x] += 1
+            if arrivals[x] - syncs[x] > 1:
+                raise RuntimeError(f"barrier {3 + x} arrived at twice before its sync")
+        events += 1
+        nxt[i] = next(agents[i], None)
+    if arrivals != syncs:
+        raise RuntimeError(f"arrivals {arrivals} left against syncs {syncs}")
+    return events

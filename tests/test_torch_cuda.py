@@ -15,6 +15,7 @@ range.  So the median point agrees within 1e-4 of the output's range
 """
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -87,11 +88,11 @@ def _points(joints, n, seed=0):
     return torch.as_tensor(p.astype(np.float32), device=joints.device)
 
 
-def _assert_close(got, want):
+def _assert_close(got, want, median=True):
     err = (got - want).abs().flatten()
     scale = max(float(want.abs().max()), 1e-6)
     assert torch.isfinite(got).all()
-    assert float(err.median()) <= 1e-4 * scale
+    assert not median or float(err.median()) <= 1e-4 * scale
     assert float(err.max()) <= 1e-2 * scale
 
 
@@ -1305,14 +1306,14 @@ def test_colsum_matches_its_order_bit_for_bit(dev, N):
 SEED_TYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-@pytest.mark.parametrize("kind", list(SEED_TYPES))
+@pytest.mark.parametrize("kind", ["f32"])
 @pytest.mark.parametrize("m", [1, 7, 70001])
 def test_uchain_seed_matches_plain_bit_for_bit(dev, kind, m):
-    """The seed alone at the flagship's widths (W_last 256 x 320, s 256
+    """The seed alone (the f32 trunk's; the bf16 trunk seeds inside
+    hand_uchain_kernel) at the flagship's widths (W_last 256 x 320, s 256
     columns) into a NaN-filled t of more rows than it writes: the same
     bits as uchain_seed_plain and as torch.mul(s, c, out=t) (one f32
-    product rounded once to the type), the rows past m untouched; one
-    launch."""
+    product), the rows past m untouched; one launch."""
     dtype = SEED_TYPES[kind]
     gen = torch.Generator(device=dev).manual_seed(m)
     w = (0.1 * torch.randn((256, 320), generator=gen, device=dev)).to(dtype)
@@ -1332,20 +1333,24 @@ def test_uchain_seed_matches_plain_bit_for_bit(dev, kind, m):
 
 def test_uchain_seed_rejects_what_the_kernel_does_not_take(dev):
     """s or t off a 16-byte boundary, a width or row stride not a multiple
-    of 8: the wrapper raises and the C entry point refuses
-    (cudaErrorInvalidValue), with no other path."""
-    w = torch.randn((256, 320), device=dev).to(torch.bfloat16)
+    of 8, a bf16 t (the bf16 trunk's seed is hand_uchain_kernel's): the
+    wrapper raises and the C entry point refuses (cudaErrorInvalidValue),
+    with no other path."""
+    w = torch.randn((256, 320), device=dev)
     buf = torch.rand((64, 272), device=dev)
-    tbuf = torch.zeros((64, 272), device=dev, dtype=torch.bfloat16)
+    tbuf = torch.zeros((64, 272), device=dev)
     lib, stream = FT._lib(), torch.cuda.current_stream().cuda_stream
     for s, t in ((buf.view(-1)[1:64 * 256 + 1].view(64, 256), tbuf[:, :256]),
                  (buf[:, :256].contiguous(), tbuf[:, 1:257]),
                  (buf[:, :252].contiguous(), tbuf[:, :252])):
         with pytest.raises(ValueError):
             FT.uchain_seed(lib, w, s, 64, t, stream)
+    with pytest.raises(ValueError):
+        FT.uchain_seed(lib, w.to(torch.bfloat16), buf[:, :256].contiguous(), 64,
+                       tbuf[:, :256].to(torch.bfloat16), stream)
     s = buf.view(-1)[1:64 * 256 + 1]
-    rc = lib.honerf_uchain_seed(w.data_ptr(), w.stride(0), s.data_ptr(), 256, 64,
-                                tbuf.data_ptr(), 272, stream)
+    rc = lib.honerf_uchain_seed_f32(w.data_ptr(), w.stride(0), s.data_ptr(), 256, 64,
+                                    tbuf.data_ptr(), 272, stream)
     assert rc == 1  # cudaErrorInvalidValue
 
 
@@ -1434,3 +1439,128 @@ def test_fine_bwd_rev_rejects_what_the_kernel_does_not_take(dev):
         256, 4, du_b.data_ptr() + 8, du_s.data_ptr(), 1408, dgt.data_ptr(), dzf.data_ptr(),
         dzb.data_ptr(), 320, 320, stream)
     assert rc == 1  # cudaErrorInvalidValue
+
+
+# hand_trunk_fwd_kernel and hand_uchain_kernel: the bf16 trunk in two
+# launches (csrc/trunk_fused.cu), which K1, K2, K5 and the recompute of K3
+# and K6 run.
+FUSED_TRUNK_M = (1, 63, 64, 65, 1001, 65613)
+
+
+def _fused_trunk(dev, d_out=257):
+    """The flagship trunk (the nets of the card tests above, FULL) as its
+    callers pack it: K2's pack (d_out 257) or K1's (the sdf column)."""
+    cfg, ccfg, params = _nets(FULL, dev)
+    if d_out == 1:
+        fused = FH.FusedHandSDF(params["sdf"], cfg)
+        return fused.meta.trunk, SimpleNamespace(ws=fused.ws, bs=fused.bs, wts=None)
+    pack = pack_fine_color(params, cfg, ccfg)
+    return pack.meta.trunk_meta, pack
+
+
+def _fused_e(dev, tm, m):
+    """The bf16 embedding (hand_embed_kernel) of m points near the joints."""
+    joints, bt_inv, t_pose = _pose(dev)
+    rotT, off, cut = FH.pack_hand_pose(bt_inv, t_pose)
+    e = torch.empty((m, tm.Ep), device=dev, dtype=torch.bfloat16)
+    FH.embed(FH._lib("fused_hand"), _points(joints, m), m, rotT, off, cut, 10, 7, e,
+             torch.cuda.current_stream().cuda_stream)
+    return e
+
+
+@pytest.mark.parametrize("keep", [False, True], ids=["render", "keep"])
+@pytest.mark.parametrize("m", FUSED_TRUNK_M)
+def test_fused_trunk_matches_plain(dev, m, keep):
+    """Each kernel against its plain version on the same inputs, into
+    NaN-filled buffers (the rule above): the forward's z, sigmoid rows and
+    kept activations against trunk_fwd_plain; the u-chain's u, t and c
+    rows run on the plain forward's sigmoid rows against
+    trunk_uchain_plain (t rounded to bf16 as stored).  The sigmoid rows
+    s = sigmoid(100 z) at the median alone: their slope of up to 25 turns
+    an input's bf16 flip into ~25x that; their max through u, the u-chain
+    kernel on the kernel's rows against the plain chain on the plain rows.
+    At one point the kept rows are held to the rule's max alone: the
+    median of one point's row is that point's own error, which one bf16
+    flip upstream in the chain moves as a whole.  One launch a kernel a
+    call; a second run's bits."""
+    tm, pack = _fused_trunk(dev)
+    e, n, nan = _fused_e(dev, tm, m), tm.n_layers, float("nan")
+    acts, ss, z = FT.trunk_fwd_plain(e, m, pack.ws, pack.bs, tm)
+    u, ts, cs = FT.trunk_uchain_plain(ss, pack.ws, tm)
+    plain_ss = torch.stack(ss)
+
+    def run():
+        rows = lambda dt: [torch.full((m, tm.Hp), nan, device=dev, dtype=dt)  # noqa: E731
+                           for _ in range(n - 1)]
+        o = dict(ss=torch.full((n - 1, m, tm.Hp), nan, device=dev),
+                 acts=rows(torch.bfloat16) if keep else None,
+                 z=torch.full((m, 257), nan, device=dev),
+                 u=torch.full((m, tm.Ep), nan, device=dev),
+                 u_k=torch.full((m, tm.Ep), nan, device=dev),
+                 ts=rows(torch.bfloat16) if keep else None,
+                 cs=[None] + rows(torch.float32)[1:] if keep else None)
+        before = (FT.TRUNK_FWD.launches, FT.TRUNK_UCHAIN.launches)
+        FT.trunk_fwd(e, m, pack.ws, pack.bs, tm, ss=o["ss"], acts=o["acts"], z=o["z"])
+        FT.trunk_uchain(m, pack.ws, pack.wts, tm, plain_ss, u=o["u"], ts=o["ts"], cs=o["cs"])
+        FT.trunk_uchain(m, pack.ws, pack.wts, tm, o["ss"], u=o["u_k"])
+        torch.cuda.synchronize()
+        assert (FT.TRUNK_FWD.launches, FT.TRUNK_UCHAIN.launches) == (before[0] + 1,
+                                                                     before[1] + 2)
+        return o
+
+    o, again = run(), run()
+    _assert_close(o["z"], z[:, :257])
+    _assert_close(o["u"], u)
+    _assert_close(o["u_k"], u)
+    for l in range(n - 1):
+        err = (o["ss"][l] - ss[l]).abs().flatten()
+        assert torch.isfinite(o["ss"][l]).all() and float(err.median()) <= 1e-4
+        if keep:
+            _assert_close(o["acts"][l].float(), acts[l], median=m > 1)
+            _assert_close(o["ts"][l].float(), ts[l].to(torch.bfloat16).float(), median=m > 1)
+            if l:
+                _assert_close(o["cs"][l], cs[l], median=m > 1)
+    for k, v in o.items():
+        for x, y in zip(v if isinstance(v, list) else [v], again[k] if isinstance(v, list)
+                        else [again[k]]):
+            assert x is None or torch.equal(x, y), k
+
+
+@pytest.mark.parametrize("m", FUSED_TRUNK_M + (262144,))
+def test_fused_trunk_sdf_column_matches_plain(dev, m):
+    """K1's mode: the sdf column only, no sigmoid rows; a second run's bits."""
+    tm, pack = _fused_trunk(dev, d_out=1)
+    e = _fused_e(dev, tm, m)
+    got = [torch.full((m,), float("nan"), device=dev) for _ in range(2)]
+    for sdf in got:
+        FT.trunk_fwd(e, m, pack.ws, pack.bs, tm, sdf=sdf)
+    _, _, z = FT.trunk_fwd_plain(e, m, pack.ws, pack.bs, tm)
+    torch.cuda.synchronize()
+    _assert_close(got[0], z[:, 0])
+    assert torch.equal(got[0], got[1])
+
+
+def test_fused_trunk_reciprocal_is_frcp_rn(dev):
+    """The forward's sigmoid reciprocal (tf_rcp12) has __frcp_rn's bits at
+    every f32 in [1, 2]."""
+    assert FT.rcp12_mismatches(dev) == 0
+
+
+def test_fused_trunk_rejects_what_the_kernels_do_not_take(dev):
+    """An f32 trunk, z beside sdf, misaligned or narrow rows, keep without
+    the sigmoid rows: ValueError before a launch."""
+    tm, pack = _fused_trunk(dev)
+    e, n = _fused_e(dev, tm, 70), tm.n_layers
+    ss = torch.empty((n - 1, 70, tm.Hp), device=dev)
+    bad_e = torch.empty((70, tm.Ep + 1), device=dev, dtype=torch.bfloat16)[:, :tm.Ep]
+    acts = [torch.empty((70, tm.Hp), device=dev, dtype=torch.bfloat16) for _ in range(n - 1)]
+    before = FT.TRUNK_FWD.launches, FT.TRUNK_UCHAIN.launches
+    for kw in (dict(tm=tm._replace(dtype="f32"), ss=ss),
+               dict(z=torch.empty((70, 257), device=dev), sdf=torch.empty(70, device=dev)),
+               dict(e=bad_e, ss=ss), dict(ss=ss[:, :, :128]), dict(acts=acts)):
+        args = dict(e=e, tm=tm) | kw
+        with pytest.raises(ValueError):
+            FT.trunk_fwd(args.pop("e"), 70, pack.ws, pack.bs, args.pop("tm"), **args)
+    with pytest.raises(ValueError):
+        FT.trunk_uchain(70, pack.ws, pack.wts, tm, ss, ts=acts)
+    assert (FT.TRUNK_FWD.launches, FT.TRUNK_UCHAIN.launches) == before
