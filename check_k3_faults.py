@@ -118,7 +118,15 @@ limits they hold:
           trunk_uchain_plain (the kernel rule on every output, a rerun's
           bits), K1 through fused_hand_sdf at 1 to 65,613 points against
           fused_hand_sdf_plain, and the forward's reciprocal against
-          __frcp_rn at every f32 in [1, 2] (the trunk group).
+          __frcp_rn at every f32 in [1, 2] (the trunk group);
+  trunk32 the f32 trunk's pair (hand_trunk_fwd_f32_kernel,
+          hand_uchain_f32_kernel) at chip_smoke.ragged_trunk32_pairs (1 to
+          65,613 points; K2's and K5's outputs, K3's and K6's recompute)
+          (chip_smoke.trunk32_readings): the worst of two ratios, each
+          caught above 1: the f32 rule's (median and max of every output
+          over TOL_F32 of its range, against the plain versions) and the
+          L2 to f64 over TOL_TRUNK32_VS_SPLIT x the split launches' (the
+          trunk group).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -150,6 +158,7 @@ _K1_PY = "honerf_torch/ops/fused_hand.py"
 _SDF_CU = "honerf_torch/ops/csrc/fused_sdf.cu"
 _FT_CU = "honerf_torch/ops/csrc/fused_trunk.cu"
 _TF_CU = "honerf_torch/ops/csrc/trunk_fused.cu"
+_T32_CU = "honerf_torch/ops/csrc/trunk_fused_f32.cu"
 
 # name -> (what it breaks, file, text, replacement, groups of checks it is
 # read by); the text must occur exactly once in the file
@@ -272,11 +281,11 @@ FAULTS = {
         "row_s[col] = from_f32<T>(v * kInvSqrt2);",
         "row_s[col] = from_f32<T>(v);", ("bf16", "perpoint")),
     "uchain_last_vec": (
-        "the f32 u-chain's seed leaves the last 8 columns of every row unwritten (K2, K3, K5, "
-        "K6 in f32)", _TRUNK_CUH,
+        "the u-chain's seed (uchain_seed_kernel, which only the split f32 launches call) leaves "
+        "the last 8 columns of every row unwritten", _TRUNK_CUH,
         "  if (r >= rows) return;\n  float c[US_VEC];",
         "  if (r >= rows || j0 + US_VEC == width) return;\n  float c[US_VEC];",
-        ("f32", "perpoint")),
+        ("perpoint",)),
     "k4_skip_unscaled": (
         "K4's es tile keeps e without the skip's 1/sqrt2", _SDF_CU,
         "__float2bfloat16_rn(v * p.skip_scale);", "__float2bfloat16_rn(v);", ("perpoint",)),
@@ -327,6 +336,48 @@ FAULTS = {
         "the fused u-chain seeds from W_last's column 1, not the sdf column", _TF_CU,
         "w[i] = __bfloat162float(p.w_last[(size_t)(col + i) * p.ldw]);",
         "w[i] = __bfloat162float(p.w_last[(size_t)(col + i) * p.ldw + 1]);", ("trunk",)),
+    "t32_small_dropped": (
+        "the f32 trunk's pair drops the small terms of 3xTF32: big.big alone (1xTF32)",
+        _T32_CU,
+        "      t32_mma<NW>(fresh, ab[kk], wg::smem_desc(b1 + 32 * kk, wg::K_MAJOR_LBO, wg::SBO),\n"
+        "                  kk ? 1 : open);\n"
+        "    wg::wgmma_commit();\n"
+        "    const int s2 = (it + 1) % stages;\n"
+        "    wg::mbar_wait(full + 8 * s2, ((it + 1) / stages) & 1);\n"
+        "    const uint32_t b2 = ring + s2 * stage_bytes + boff;\n"
+        "#pragma unroll\n"
+        "    for (int kk = 0; kk < 4; ++kk)\n"
+        "      t32_mma<NW>(fresh, as[kk], wg::smem_desc(b2 + 32 * kk, wg::K_MAJOR_LBO, wg::SBO), 1);\n"
+        "#pragma unroll\n"
+        "    for (int kk = 0; kk < 4; ++kk)\n"
+        "      t32_mma<NW>(fresh, ab[kk], wg::smem_desc(b2 + 32 * kk, wg::K_MAJOR_LBO, wg::SBO), 1);\n",
+        "      (void)b1;\n"
+        "    wg::wgmma_commit();\n"
+        "    const int s2 = (it + 1) % stages;\n"
+        "    wg::mbar_wait(full + 8 * s2, ((it + 1) / stages) & 1);\n"
+        "    const uint32_t b2 = ring + s2 * stage_bytes + boff;\n"
+        "#pragma unroll\n"
+        "    for (int kk = 0; kk < 4; ++kk)\n"
+        "      t32_mma<NW>(fresh, ab[kk], wg::smem_desc(b2 + 32 * kk, wg::K_MAJOR_LBO, wg::SBO),\n"
+        "                  kk ? 1 : open);\n", ("trunk",)),
+    "t32_one_accumulator": (
+        "the f32 trunk's pair sums every K step into one accumulator (no fresh sum a step)",
+        _T32_CU,
+        "  for (int i = 0; i < R; ++i) run[i] = __fadd_rn(run[i], fresh[i]);\n  return 0;",
+        "  for (int i = 0; i < R; ++i) run[i] = fresh[i];\n  return 1;", ("trunk",)),
+    "t32_ragged_tail": (
+        "the f32 forward stores no z row of the ragged last tile", _T32_CU,
+        "      if (grow >= p.M) continue;\n      float* zr",
+        "      if (grow >= (p.M & ~(TF32_TILE - 1))) continue;\n      float* zr", ("trunk",)),
+    "t32_seed_column": (
+        "the f32 u-chain seeds from W_last's column 1, not the sdf column", _T32_CU,
+        "w[i] = p.w_last[(size_t)(col + i) * p.ldw];",
+        "w[i] = p.w_last[(size_t)(col + i) * p.ldw + 1];", ("trunk",)),
+    "t32_skip_bf16_scale": (
+        "the f32 forward scales the skip concat by bf16(1/sqrt2), not f32(1/sqrt2)", _TRUNK_PY,
+        "_ints([w.shape[1] for w in ws]), _ptrs(bs), INV_SQRT2, ss.data_ptr(),",
+        "_ints([w.shape[1] for w in ws]), _ptrs(bs), INV_SQRT2_BF16, ss.data_ptr(),",
+        ("trunk",)),
     "pose_drop_tail": (
         "the pose sums drop the rows past the last full split (a ragged last block sums "
         "nothing)", _CU, "const int r0 = s * split, r1 = min(M, r0 + split);",
@@ -524,6 +575,12 @@ def child(name: str, root: str, groups) -> None:
                        for label, calls in dict(CS.pose_calls(torch), ragged=rg_pose).items()}
     if "trunk" in groups:
         out["trunk"] = {"0": trunk_rows(CS, torch, dev)}
+        nets = CS.trunk32_nets(torch, dev)
+        out["trunk32"] = {"0": [
+            [f"f32 pair {r.m} last {r.a} keep {r.keep} u {r.with_u}",
+             max(r.rule, r.l2_ratio) if r.same else float("inf"), r.ok]
+            for r in CS.trunk32_readings(torch, dev, nets, CS.ragged_trunk32_pairs(),
+                                         timed=False)]}
     print(json.dumps(out))
 
 
@@ -588,7 +645,7 @@ def judge(CS, res):
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
     for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt",
-                  "k4", "copy", "pack", "pose", "trunk"):
+                  "k4", "copy", "pack", "pose", "trunk", "trunk32"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []

@@ -90,8 +90,9 @@ Phases, each of which fails the run when it fails:
               f64, each timed beside that copy_ / P[:m].sum(0) in CUDA
               graphs (graph_ms) and its bound; then the yardstick of
               reduce_partials_kernel (ws.sum(0)), whose own time comes
-              from the profiles; no bf16 path calls the u-chain's seed,
-              timed at an f32 request's and step's calls;
+              from the profiles; no path calls the u-chain's seed: it is
+              timed at the calls the split f32 launches made (an f32
+              request's and step's);
   9c. fused trunk  hand_trunk_fwd_kernel and hand_uchain_kernel alone at
               the calls one request and one bf16 'full', 'full_nocolor'
               and 'pallas' step make (record_trunk_calls: K1's sdf
@@ -191,7 +192,8 @@ no ladder kernel unless train.fused_ladder is set), after 20:
  24. kernel K2/K3 f32 no-color  K2 f32 without the color net at an f32
               'full_nocolor' step's points (out, g, e within TOL_F32 of the
               range, median and max), K3 f32 without it under the f32 rule;
- 25. kernel K5/K6 f32  the same for K5 and K6 at an f32 'pallas' step;
+ 25. kernel K5/K6 f32  the same for K5 and K6 at an f32 'pallas' step (K5
+              f32 by name: the fused f32 pair, no GEMM);
  26. train f32  the flagship step under 'full', 'full_nocolor', 'pallas' and
               the autograd field, 3 warm-up and 20 timed steps each: the
               launch counts, one step's kernels by name (f32 GEMMs and TN
@@ -199,14 +201,19 @@ no ladder kernel unless train.fused_ladder is set), after 20:
               'full' and one 'pallas' step under torch.profiler, and the
               bound of reduce_partials_kernel over a 'full' step's
               recorded dW products; two pose sums a 'full' and a
-              'full_nocolor' step, four packs a 'pallas' one;
+              'full_nocolor' step, four packs a 'pallas' one; a step of
+              each mode 4 launches of each f32 fused kernel, no seed, and
+              gemm_f32_kernel 64 ('full') or 34 (the color net's and the
+              trunk backward's); the trunk's calls of a 'full' and a
+              'pallas' step recorded for phase 36;
  26b. per-point kernels f32  the pack at a 'pallas' step's recorded
               calls and the pose sum at a 'full' step's, as in 9b;
  27. train check f32  one 64-ray step per kernel mode, card against CPU;
  28. serve f32  one 4096-ray 'full' request (the eval render's K1
               ladder, whatever the trunk's dtype, as in the JAX package; K2
-              f32) against the CPU on the 128 rays that meet the most
-              surface.
+              f32: 16 passes, the fused f32 pair 16 times, gemm_f32_kernel
+              80, no seed) against the CPU on the 128 rays that meet the
+              most surface; its trunk calls recorded for phase 36.
 
 Pose fitting (the fit confs, f32 trunks), after 13:
 
@@ -222,10 +229,12 @@ Pose fitting (the fit confs, f32 trunks), after 13:
               net and K5 f32 under K2's f32 rule, the frozen K3 f32 without
               it and the frozen K6 f32 on the step's cotangents and on
               unit cotangents under the f32 rule;
- 31b. per-point kernels fit  uchain_seed_kernel, fine_bwd_rev_kernel
-              and the pose sum in f32 at the calls of phases 29-30 (one
-              fit step's K2 and frozen K3), on the step's points, and the
-              pack at a '12' 'pallas' fit step's calls, as in 9b;
+ 31b. per-point kernels fit  fine_bwd_rev_kernel and the pose sum in
+              f32 at the calls of phase 30 (one fit step's frozen K3), on
+              the step's points, uchain_seed_kernel at the calls the split
+              f32 launches made there (none recorded: the fused u-chain
+              seeds itself), and the pack at a '12' 'pallas' fit step's
+              calls, as in 9b;
  32. fit      the CLI (honerf_torch.cli.fitting_single) '1' then '12' on a
               synthetic catch sequence (1 frame, 8 views, 230x266) with
               random full-width checkpoints, train.iter_num cut to 3: the
@@ -245,6 +254,21 @@ Pose fitting (the fit confs, f32 trunks), after 13:
               plain version on the CPU) on three batches against f64, with
               K1 held to its plain version at the step's ladder points;
  35. fit profile  one '12' step under torch.profiler.
+ 36. fused trunk f32  the f32 trunk's two fused kernels
+              (hand_trunk_fwd_f32_kernel, then hand_uchain_f32_kernel, 3xTF32
+              on wgmma) as pairs at the calls one '12' fit step (recorded
+              here), one f32 'full' and 'pallas' step and one f32 request
+              (recorded by phases 26 and 28) make, and at ragged sizes (1 to
+              65,613 points, every output mode): every output against the
+              plain versions on the card under the f32 rule (TOL_F32 of the
+              range, median and max), a rerun's bits, the relative L2 to the
+              f64 chain beside the split launches' (one gemm_f32_kernel a
+              layer and uchain_seed_kernel, fused_fine.cuda_trunk_forward_split)
+              at the same call, the pair's worst within TOL_TRUNK32_VS_SPLIT
+              of the split's; ms of each kernel, of the split launches and of
+              the plain versions beside the bounds; each path's launches of
+              gemm_f32_kernel, uchain_seed_kernel and the pair against
+              TRUNK32_LAUNCHES (phases 26, 28 and this one count them).
 
 Weights are random (geometric init plus seeded noise, so every embedding
 column is live).  check_k3_faults.py runs the kernel, train and fit
@@ -254,11 +278,14 @@ catches).  The last lines of stdout are the card's
 numbers (each kernel's other modes beside it: no-color, f32, f32 at a
 request, f32 no-color, f32 with dW; the fused trunk's two kernels TFWD
 and TUCH at a request's calls, K1's and K2's shares and a bf16 step's;
+the f32 pair TFWD32 and TUCH32 at an f32 request's calls, an f32 'full'
+and 'pallas' step's and a fit step's, beside the split launches';
 the bf16 and the f32 GEMMs alone and
 the per-point kernels EMBED, COLSUM, UCHAIN, BWDREV, COPY, PACK and POSE
-in rows of their own; UCHAIN (the f32 trunk's only) and BWDREV count
-launches on every path that runs them: served images and requests, each
-train mode, the fit CLI; COPY
+in rows of their own; BWDREV counts launches on every path that runs it:
+served images and requests, each train mode, the fit CLI; UCHAIN counts
+0 on every path (the fused u-chains seed themselves; its times are taken
+at the calls the split f32 launches made); COPY
 on the 'full_nocolor' and 'pallas' train paths; PACK on the 'pallas'
 step, request and fit; POSE on the 'full' steps and the fit CLI; K4 on the
 mesh path, with both bounds and a 256^3 grid's time), and the result line.
@@ -1088,9 +1115,10 @@ def perpoint_readings(torch, dev, pose, pts, embed_calls, colsum_calls, timed: b
 
 def record_trunk_calls(fn):
     """Run fn() once with the fused trunk's wrappers recording their calls
-    in launch order: ("fwd", m, last, keep) (fused_fine.trunk_fwd: last
-    "sdf" for K1's column, z's n_store, or None; keep: the activation rows
-    stored) and ("uc", m, with_u, keep) (fused_fine.trunk_uchain)."""
+    in launch order: ("fwd", m, last, keep, dtype) (fused_fine.trunk_fwd:
+    last "sdf" for K1's column, z's n_store, or None; keep: the activation
+    rows stored; dtype the trunk's, "bf16" or "f32") and ("uc", m, with_u,
+    keep, dtype) (fused_fine.trunk_uchain)."""
     from honerf_torch.ops import fused_fine as FT
 
     calls = []
@@ -1098,11 +1126,11 @@ def record_trunk_calls(fn):
 
     def rec_fwd(e, m, ws, bs, tm, ss=None, acts=None, z=None, sdf=None, stream=None):
         last = "sdf" if sdf is not None else (None if z is None else z.shape[1])
-        calls.append(("fwd", m, last, acts is not None))
+        calls.append(("fwd", m, last, acts is not None, tm.dtype))
         return fwd(e, m, ws, bs, tm, ss=ss, acts=acts, z=z, sdf=sdf, stream=stream)
 
     def rec_uc(m, ws, wts, tm, ss, u=None, ts=None, cs=None, stream=None):
-        calls.append(("uc", m, u is not None, ts is not None))
+        calls.append(("uc", m, u is not None, ts is not None, tm.dtype))
         return uc(m, ws, wts, tm, ss, u=u, ts=ts, cs=cs, stream=stream)
 
     FT.trunk_fwd, FT.trunk_uchain = rec_fwd, rec_uc
@@ -1117,7 +1145,7 @@ def ragged_trunk_calls():
     """The fused trunk at sizes the main path's (multiples of a tile, or the
     step's 56,448) leave out: one point, a consumer's half less one, a
     half, a half and one, 1,001 and 65,613 points, each output mode."""
-    return [c for m in (1, 63, 64, 65, 1001, 65613)
+    return [c + ("bf16",) for m in (1, 63, 64, 65, 1001, 65613)
             for c in (("fwd", m, 320, False), ("fwd", m, 257, True), ("fwd", m, None, True),
                       ("fwd", m, "sdf", False), ("uc", m, True, False), ("uc", m, True, True),
                       ("uc", m, False, True))]
@@ -1161,7 +1189,8 @@ def trunk_readings(torch, dev, nets, calls, timed: bool = True):
     stream = torch.cuda.current_stream(dev).cuda_stream
     nan, bf16, f32 = float("nan"), torch.bfloat16, torch.float32
     cfg, out = nets.cfg, []
-    for (kind, m, a, keep), count in _tally(calls).items():
+    for (kind, m, a, keep, dtype), count in _tally(calls).items():
+        assert dtype == "bf16", "trunk_readings takes the bf16 trunk's calls"
         k1 = a == "sdf"
         ws, bs, tm = ((nets.k1.ws, nets.k1.bs, nets.k1.meta.trunk) if k1 else
                       (nets.fine.ws, nets.fine.bs, nets.fine.meta.trunk_meta))
@@ -1266,6 +1295,255 @@ def trunk_text(r) -> str:
     if r.ms is not None:
         text += (f"; kernel {r.ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms "
                  f"({r.bound_by}): {r.bound_ms / r.ms:.2f} of it")
+    return text + ("" if r.ok else " FAIL")
+
+
+# The f32 trunk's pairs of launches at the calls the f32 paths make: one
+# '12' fit step, one f32 'full' and 'pallas' step and one f32 request
+# (record_trunk_calls, filled by the f32 and fit phases)
+TRUNK32_CALLS = {}
+# their launches a step or request (gemm_f32_kernel, uchain_seed_kernel,
+# hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel), filled beside them
+TRUNK32_COUNTS = {}
+# The fused f32 pair against the split launches, both against f64 in L2:
+# no worse than the split's worst output, by this factor (the same split,
+# the same 32-deep fresh sums; wgmma's internal order is not mma.sync's)
+TOL_TRUNK32_VS_SPLIT = 1.25
+# The f32 paths' launches a step or request (gemm_f32_kernel,
+# uchain_seed_kernel, hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel):
+# the color net's GEMMs and the trunk backward's, no seed, the fused pair
+# once a pass of K2, K3, K5 and K6
+TRUNK32_LAUNCHES = {"f32 'full' step": (64, 0, 4, 4), "'12' fit step": (64, 0, 4, 4),
+                    "f32 'pallas' step": (34, 0, 4, 4), "f32 request": (80, 0, 16, 16)}
+
+
+def trunk32_pairs(calls):
+    """The recorded f32 calls (record_trunk_calls) as (forward, u-chain)
+    pairs: (m, last, keep, with_u), each forward followed by its u-chain."""
+    f32 = [c for c in calls if c[-1] == "f32"]
+    pairs = []
+    for fwd, uc in zip(f32[::2], f32[1::2]):
+        assert fwd[0] == "fwd" and uc[0] == "uc" and fwd[1] == uc[1] and fwd[3] == uc[3], \
+            f"an f32 forward not followed by its u-chain: {fwd}, {uc}"
+        pairs.append((fwd[1], fwd[2], fwd[3], uc[2]))
+    return pairs
+
+
+def ragged_trunk32_pairs():
+    """The f32 pair at sizes the main path's leave out, each output mode:
+    K2's / K5's (z, u), K3's recompute (z 320, u, keep), K6's (keep only)."""
+    return [(m, a, keep, u) for m in (1, 63, 64, 65, 1001, 65613)
+            for a, keep, u in ((257, False, True), (320, True, True), (None, True, False))]
+
+
+def trunk_f64(torch, e, m, ws, bs, tm, last: bool, with_u: bool):
+    """The f32 trunk's forward and u-chain in f64 on the same f32 values
+    (trunk_fwd_plain's and trunk_uchain_plain's statements): (acts, ss, z,
+    u, ts, cs)."""
+    import math
+
+    n, Hp, skip = tm.n_layers, tm.Hp, tm.skip
+    inv = 1.0 / math.sqrt(2.0)
+    x0 = e[:m].double()
+    W, B = [w.double() for w in ws], [b.double() for b in bs]
+    a, acts, ss, z = x0, [], [], None
+    for l in range(n if last else n - 1):
+        x = torch.cat([a, x0], dim=1) * inv if l == skip else a
+        y = x @ W[l] + B[l]
+        if l < n - 1:
+            ss.append(torch.sigmoid(100.0 * y))
+            a = torch.logaddexp(100.0 * y, torch.zeros_like(y)) / 100.0
+            acts.append(a)
+        else:
+            z = y
+    ts, cs = [None] * n, [None] * n
+    t = ts[n - 2] = W[n - 1][:Hp, 0] * ss[n - 2]
+    u = None
+    for l in range(n - 2, -1 if with_u else 0, -1):
+        mm = t @ W[l].T
+        if l == skip:
+            c, u = mm[:, :Hp] * inv, mm[:, Hp:] * inv
+        else:
+            c = mm
+        cs[l] = c
+        if l > 0:
+            t = ts[l - 1] = c * ss[l - 1]
+        else:
+            u = u + c
+    return acts, ss, z, u, ts, cs
+
+
+def trunk32_readings(torch, dev, nets, pairs, timed: bool = True):
+    """hand_trunk_fwd_f32_kernel then hand_uchain_f32_kernel at each
+    distinct (m, last, keep, with_u) of `pairs` (trunk32_pairs), weighted
+    by its count, on the flagship's f32 trunk (nets: pack_fine_color in
+    f32) and the f32 embedding of the call's first m points: every output
+    the call asks for (z, each sigmoid row, u; with keep each activation,
+    t and c row), into NaN-filled buffers, against the plain versions on
+    the card under the f32 kernel rule (TOL_F32 of each output's range at
+    the median and the max), a second run's bits, and the relative L2 of
+    each output to its f64 value (trunk_f64) beside the split launches'
+    (fused_fine.cuda_trunk_forward_split: one gemm_f32_kernel a layer and
+    uchain_seed_kernel) at the same call, the pair's worst within
+    TOL_TRUNK32_VS_SPLIT of the split's worst.  timed: ms of each kernel,
+    of the split launches and of the plain versions, and the pair's bound
+    (3xTF32 operations of the unpadded layers; each input read once, each
+    output written once)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nan, f32 = float("nan"), torch.float32
+    tm, cfg = nets.fine32.meta.trunk_meta, nets.cfg
+    ws, bs, wts = nets.fine32.ws, nets.fine32.bs, nets.fine32.wts
+    n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
+    lib = FF._lib()
+    out = []
+    for (m, a, keep, with_u), count in _tally(pairs).items():
+        e = torch.empty((m, Ep), device=dev, dtype=f32)
+        FH.embed(FH._lib("fused_hand"), nets.pts, m, *nets.pose, cfg.v_multires,
+                 cfg.r_multires, e, stream)
+        rows = lambda: [torch.full((m, Hp), nan, device=dev) for _ in range(n - 1)]  # noqa
+
+        def outs():
+            return dict(ss=torch.full((n - 1, m, Hp), nan, device=dev),
+                        acts=rows() if keep else None,
+                        z=torch.full((m, a), nan, device=dev) if a else None,
+                        u=torch.full((m, Ep), nan, device=dev) if with_u else None,
+                        ts=rows() if keep else None,
+                        cs=[None] + rows()[1:] if keep else None)
+
+        def fwd(o):
+            FT.trunk_fwd(e, m, ws, bs, tm, ss=o["ss"], acts=o["acts"], z=o["z"], stream=stream)
+
+        def uc(o):
+            FT.trunk_uchain(m, ws, wts, tm, o["ss"], u=o["u"], ts=o["ts"], cs=o["cs"],
+                            stream=stream)
+
+        def split(o):
+            buf = dict(ss=o["ss"], acts=o["acts"] or [], ts=o["ts"] or [], cs=o["cs"])
+            FT.cuda_trunk_forward_split(lib, e, m, ws, bs, wts, tm, buf, stream, keep=keep,
+                                        z=o["z"], u=o["u"])
+
+        def plain_fwd():
+            return FT.trunk_fwd_plain(e, m, ws, bs, tm, last=a is not None)
+
+        def plain_uc(p_ss):
+            return FT.trunk_uchain_plain(p_ss, ws, tm, with_u=with_u)
+
+        def plain():
+            p_acts, p_ss, p_z = plain_fwd()
+            return (p_acts, p_ss, p_z) + plain_uc(p_ss)
+
+        o1, o2, sp = outs(), outs(), outs()
+        for o in (o1, o2):
+            fwd(o)
+            uc(o)
+        split(sp)
+        want = plain()
+        ref = trunk_f64(torch, e, m, ws, bs, tm, a is not None, with_u)
+        torch.cuda.synchronize()
+
+        def named(o):
+            """(name, tensor) of every output the call asks for; o a
+            kernel's buffers (dict) or (acts, ss, z, u, ts, cs)."""
+            if isinstance(o, dict):
+                acts_, ss_, z_, u_, ts_, cs_ = (o["acts"], list(o["ss"]), o["z"], o["u"],
+                                                o["ts"], o["cs"])
+            else:
+                acts_, ss_, z_, u_, ts_, cs_ = o
+                z_ = z_[:, :a] if a else None
+            items = [("z", z_)] if a else []
+            items += [(f"ss[{l}]", ss_[l]) for l in range(n - 1)]
+            items += [("u", u_[:, :Ep])] if with_u else []
+            if keep:
+                items += [(f"acts[{l}]", acts_[l]) for l in range(n - 1)]
+                items += [(f"ts[{l}]", ts_[l]) for l in range(n - 1)]
+                items += [(f"cs[{l}]", cs_[l]) for l in range(1, n - 1)]
+            return items
+
+        k_items, p_items = named(o1), named(want)
+        s_items, r_items = named(sp), named(ref)
+        checks = [compare(torch, what, got, w, TOL_F32, TOL_F32)
+                  for (what, got), (_, w) in zip(k_items, p_items)]
+        # the rule's reading: the worst median or max over TOL_F32 of the range
+        rule = max(max(rd[0], rd[2]) / (TOL_F32 * rd[3]) if rd[3] > 0 else 0.0
+                   for rd in (err_readings(torch, got, w)
+                              for (_, got), (_, w) in zip(k_items, p_items)))
+
+        def l2(got, r):
+            return float((got.double() - r).norm()) / max(float(r.norm()), 1e-300)
+
+        k_l2 = [l2(g, r) for (_, g), (_, r) in zip(k_items, r_items)]
+        s_l2 = [l2(g, r) for (_, g), (_, r) in zip(s_items, r_items)]
+        same = all(torch.equal(x, y) for (_, x), (_, y) in zip(k_items, named(o2)))
+        worst_k, worst_s = max(k_l2), max(s_l2)
+        r = SimpleNamespace(m=m, a=a, keep=keep, with_u=with_u, count=count, checks=checks,
+                            same=same, worst_k=worst_k, worst_s=worst_s, rule=rule,
+                            l2_ratio=worst_k / (TOL_TRUNK32_VS_SPLIT * max(worst_s, 1e-30)),
+                            worst_what=k_items[k_l2.index(worst_k)][0],
+                            max_abs=max(c[1] for c in checks),
+                            ok=all(c[0] for c in checks) and same
+                            and worst_k <= TOL_TRUNK32_VS_SPLIT * worst_s,
+                            fwd_ms=None, uc_ms=None, ms=None, split_ms=None, plain_ms=None,
+                            fwd_plain_ms=None, uc_plain_ms=None, bound_ms=None, bound_by=None,
+                            fwd_bound_ms=None, uc_bound_ms=None)
+        if timed:
+            d = min(a, cfg.d_out) if a else 0
+            dims = trunk_dims(cfg, max(d, 1))[:None if d else -1]
+            H, E = cfg.d_hidden, cfg.input_width
+            f_flops = 2.0 * m * sum(i * o for i, o in dims)
+            u_flops = 2.0 * m * (H * H * (n - 2) + (2 * H * E if with_u else 0)) + m * H
+            w_bytes = nbytes([*ws, *bs])
+            f_bytes = (4 * m * Ep + w_bytes + (n - 1) * m * Hp * 4 * (2 if keep else 1)
+                       + 4 * m * d)
+            u_bytes = ((n - 1) * m * Hp * 4 + nbytes(ws[:n - 1]) + 4 * Hp
+                       + (4 * m * Ep if with_u else 0) + (keep and (2 * n - 3) * m * Hp * 4))
+            r.fwd_ms = cuda_ms(torch, lambda: fwd(o1), 10)
+            r.uc_ms = cuda_ms(torch, lambda: uc(o1), 10)
+            r.ms = r.fwd_ms + r.uc_ms
+            r.split_ms = cuda_ms(torch, lambda: split(sp), 5)
+            r.fwd_plain_ms = cuda_ms(torch, plain_fwd, 2)
+            p_ss = list(o1["ss"])
+            r.uc_plain_ms = cuda_ms(torch, lambda: plain_uc(p_ss), 2)
+            r.plain_ms = r.fwd_plain_ms + r.uc_plain_ms
+            peak = PEAK_F32_3XTF32_FLOPS
+            r.fwd_bound_ms, _ = bound(f_flops, f_bytes, peak)
+            r.uc_bound_ms, _ = bound(u_flops, u_bytes, peak)
+            r.bound_ms, r.bound_by = bound(f_flops + u_flops, f_bytes + u_bytes, peak)
+        del o1, o2, sp, want, ref, e
+        torch.cuda.empty_cache()
+        out.append(r)
+    return out
+
+
+def trunk32_nets(torch, dev):
+    """The flagship's trunk with the conf's own f32 trunks, as the fine
+    pass packs it (pack_fine_color: d_out 257, Op 320), its config, and
+    perpoint_pose's pose and 262,144 points."""
+    from honerf_torch.models.fields import pack_fine_color
+
+    fs = flagship(torch, dev, "f32")
+    pose, pts = perpoint_pose(torch, dev, 1 << 18)
+    return SimpleNamespace(fine32=pack_fine_color(fs.params, fs.sdf, fs.color), cfg=fs.sdf,
+                           pose=pose, pts=pts)
+
+
+def trunk32_text(r) -> str:
+    """One reading of trunk32_readings as a log line."""
+    what = (f"m {r.m} last {r.a} keep {r.keep} u {r.with_u}"
+            + (f" x{r.count}" if r.count > 1 else ""))
+    worst = max(r.checks, key=lambda c: c[1])[2]
+    text = (f"{what}: {len(r.checks)} outputs within the f32 rule: "
+            f"{all(c[0] for c in r.checks)} (the worst: {worst}); a rerun's bits {r.same}; "
+            f"L2 vs f64 worst {r.worst_k:.2e} ({r.worst_what}), the split launches' "
+            f"{r.worst_s:.2e} (tol {TOL_TRUNK32_VS_SPLIT:g}x)")
+    if r.ms is not None:
+        text += (f"; fwd {r.fwd_ms:.4f} ms (bound {r.fwd_bound_ms:.4f}), u-chain "
+                 f"{r.uc_ms:.4f} ms (bound {r.uc_bound_ms:.4f}), the pair {r.ms:.4f} ms against "
+                 f"the split launches' {r.split_ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound "
+                 f"{r.bound_ms:.4f} ms ({r.bound_by}): {r.bound_ms / r.ms:.2f} of it")
     return text + ("" if r.ok else " FAIL")
 
 
@@ -1703,7 +1981,8 @@ def weighted(rs, keys=("ms", "plain_ms", "lib_ms", "bound_ms")):
 # Device time by kernel name of every profiled path (device_profile's
 # label -> {name: [us, launches]}), for the per-point kernels' table
 PROFILES = {}
-PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "gemm_kernel",
+PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "hand_trunk_fwd_f32_kernel",
+                    "hand_uchain_f32_kernel", "gemm_f32_kernel", "gemm_kernel",
                     "uchain_seed_kernel", "fine_bwd_rev_kernel", "fine_rev_kernel",
                     "fine_bwd_emb_kernel", "color_dz_kernel", "pose_sum_kernel",
                     "reduce_partials_kernel", "copy_cols_kernel", "trunk_pack_e_kernel",
@@ -2560,7 +2839,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
     fit_kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD,
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "EMBED": FH.EMBED,
                    "COLSUM": FT.COLSUM, "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV,
-                   "PACK": FT.PACK, "POSE": FF.POSE}
+                   "PACK": FT.PACK, "POSE": FF.POSE, "GEMM_F32": FH.GEMM_F32,
+                   "TFWD32": FT.TRUNK_FWD_F32, "TUCH32": FT.TRUNK_UCHAIN_F32}
     # a fit step's K3, K5 and K6 take its 37,632 fine points in two f32
     # passes: two pose sums a K3 call, two packs a K5 or K6 call (one pass
     # where a call takes at most half a chunk)
@@ -2609,16 +2889,16 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                 f"f32 and finite {finite}; |pred - gt| joints up to {moved:.4f} m")
             assert shapes == want and finite, "the pose pickle is not the JAX runner's"
             assert (launches["K1"] and launches["K2"] and launches["K3"] and launches["EMBED"]
-                    and launches["UCHAIN"] and launches["BWDREV"]), \
+                    and launches["TFWD32"] and launches["TUCH32"] and launches["BWDREV"]), \
                 f"a kernel of the fitting path did not launch: {launches}"
             assert not (launches["K5"] or launches["K6"] or launches["COLSUM"]
-                        or launches["PACK"]), f"stray launches {launches}"
+                        or launches["PACK"] or launches["UCHAIN"]), f"stray launches {launches}"
             assert passes_ok(launches["POSE"], launches["K3"]), \
                 f"{launches['POSE']} pose sums for {launches['K3']} K3 calls: {launches}"
         f32_inputs["confs"] = confs
         rows["K2"] = dict(rows.get("K2", {}), f32_launches=total["K2"])
         rows["K3"] = dict(rows.get("K3", {}), f32_launches=total["K3"])
-        for name in ("UCHAIN", "BWDREV", "POSE"):
+        for name in ("UCHAIN", "BWDREV", "POSE", "TFWD32", "TUCH32"):
             rows[name] = dict(rows.get(name, {}), fit_launches=total[name])
         # ms per step of each fit type through the runner's own loop
         for ft in ("1", "12"):
@@ -2685,9 +2965,9 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         with open(confs["12"]) as f:
             text = f.read()
         bad = []
-        for mode, want in (("full_nocolor", ("K1", "K2", "K3", "EMBED", "UCHAIN", "BWDREV",
-                                              "POSE")),
-                           ("pallas", ("K1", "K5", "K6", "EMBED", "UCHAIN", "PACK"))):
+        for mode, want in (("full_nocolor", ("K1", "K2", "K3", "EMBED", "TFWD32", "TUCH32",
+                                              "BWDREV", "POSE")),
+                           ("pallas", ("K1", "K5", "K6", "EMBED", "TFWD32", "TUCH32", "PACK"))):
             label = f"fit 12 {mode}"
             root = os.path.join(ws, f"fit_res_{mode}")
             shutil.copytree(os.path.join(ws, "fit_res", "view_8", "1"),
@@ -2721,8 +3001,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             log(f"{label}: one step's kernels by name: {sum(names.values())} launches, f32 "
                 f"GEMMs {f32_g}, dW/db kernels {dw}")
             idle = [k for k in want if not launches[k]]
-            stray = [k for k in ("K2", "K3", "K5", "K6", "COLSUM", "BWDREV", "PACK", "POSE")
-                     if k not in want and launches[k]]
+            stray = [k for k in ("K2", "K3", "K5", "K6", "COLSUM", "BWDREV", "PACK", "POSE",
+                                 "UCHAIN") if k not in want and launches[k]]
             passes = (passes_ok(launches["POSE"], launches["K3"])
                       and passes_ok(launches["PACK"], launches["K5"] + launches["K6"]))
             if idle or stray or not finite or dw or not f32_g or not passes:
@@ -2802,23 +3082,30 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         assert not bad, f"the card's fit step disagrees with the CPU's: {bad}"
 
     def perpoint_fit():
-        """The seed and the reverse-chain transpose alone, f32, at the calls
-        one fit step's K2 f32 and frozen K3 f32 make (recorded in the two
-        phases above), on the step's points and pose, against their plain
-        versions (seed_readings, bwdrev_readings: TOL_F32); the pose sums
-        at that K3's calls and the pack at a '12' 'pallas' fit step's
-        (pose_readings, pack_readings: bit for bit)."""
+        """The reverse-chain transpose alone, f32, at the calls one fit
+        step's frozen K3 f32 makes (recorded in the phase above), on the
+        step's points and pose, against its plain version (bwdrev_readings:
+        TOL_F32); the seed at the calls the split launches made there (K2's
+        and K3's recompute passes: the fused u-chain seeds itself, and the
+        phases above recorded none) against its plain version
+        (seed_readings, bit for bit); the pose sums at that K3's calls and
+        the pack at a '12' 'pallas' fit step's (pose_readings,
+        pack_readings: bit for bit)."""
         fwd, bwd = f32_inputs.get("fwd_calls"), f32_inputs.get("bwd_calls")
         pal = f32_inputs.get("pallas_calls")
-        assert fwd and bwd and fwd.seed and bwd.seed and bwd.bwdrev and bwd.pose, \
+        assert fwd and bwd and bwd.bwdrev and bwd.pose, \
             "the K2 / K3 f32 phases recorded no per-point call"
+        assert not (fwd.seed or bwd.seed), "a fit step's f32 trunk called the u-chain's seed"
         assert pal and pal.pack, "the fit modes phase recorded no pack"
         assert _tally(pal.pack) == pack_calls(torch)["fit step"], \
             f"a '12' 'pallas' fit step's packs {_tally(pal.pack)} are not pack_calls'"
         assert _tally(bwd.pose) == pose_calls(torch)["fit step"], \
             f"a fit step's pose sums {_tally(bwd.pose)} are not pose_calls'"
         pts, pose = f32_inputs["bwd_pose"]
-        seeds = seed_readings(torch, dev, fwd.seed + bwd.seed)
+        n_fit = pts.shape[0]
+        C = FT.chunk_size(n_fit, "f32", FF.CHUNK)
+        seeds = seed_readings(torch, dev, [(min(C, n_fit - s0), 256, 256, torch.float32)
+                                           for s0 in range(0, n_fit, C)] * 2)
         revs = bwdrev_readings(torch, dev, pose, pts, bwd.bwdrev)
         packs = pack_readings(torch, dev, _tally(pal.pack))
         poses = pose_readings(torch, dev, _tally(bwd.pose))
@@ -2852,6 +3139,78 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         fn_()
         device_profile(torch, "one '12' fit step of 196 rays", fn_, points=37632 // 2)
 
+    def fused_trunk_f32():
+        """The f32 trunk's pair (hand_trunk_fwd_f32_kernel, then
+        hand_uchain_f32_kernel) alone at the calls one '12' fit step makes
+        (recorded here through the runner's loop) and one f32 'full' and
+        'pallas' step and one f32 request make (recorded by the f32
+        phases), and at ragged sizes: every output against the plain
+        versions, f64 and the split launches (trunk32_readings), timed
+        beside the split launches, the plain versions and the bounds; each
+        path's launches of gemm_f32_kernel, uchain_seed_kernel and the pair
+        against TRUNK32_LAUNCHES."""
+        fn_ = f32_inputs.get("profile")
+        assert fn_ is not None, "the fit phase did not run"
+        counted = (FH.GEMM_F32, FT.UCHAIN, FT.TRUNK_FWD_F32, FT.TRUNK_UCHAIN_F32)
+        for k in counted:
+            k.launches = 0
+        TRUNK32_CALLS["'12' fit step"] = record_trunk_calls(fn_)
+        torch.cuda.synchronize()
+        TRUNK32_COUNTS["'12' fit step"] = tuple(k.launches for k in counted)
+        bad = []
+        for label, want in TRUNK32_LAUNCHES.items():
+            got = TRUNK32_COUNTS.get(label)
+            good = got is not None and tuple(got) == want
+            log(f"fused trunk f32, {label}: launches of gemm_f32_kernel, uchain_seed_kernel, "
+                f"hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel: {got} (expected {want})"
+                f"{'' if good else ' FAIL'}")
+            bad += [] if good else [label]
+        nets = trunk32_nets(torch, dev)
+        groups = {}
+        for label, calls in TRUNK32_CALLS.items():
+            rs = groups[label] = trunk32_readings(torch, dev, nets, trunk32_pairs(calls))
+            for r in rs:
+                log(f"fused trunk f32, {label}: {trunk32_text(r)}")
+            t = weighted(rs, ("ms", "split_ms", "plain_ms", "bound_ms", "fwd_ms", "uc_ms",
+                              "fwd_bound_ms", "uc_bound_ms"))
+            log(f"fused trunk f32, {label}'s {sum(r.count for r in rs)} pairs: "
+                f"hand_trunk_fwd_f32_kernel {t['fwd_ms']:.4f} ms (bound "
+                f"{t['fwd_bound_ms']:.4f}), hand_uchain_f32_kernel {t['uc_ms']:.4f} ms (bound "
+                f"{t['uc_bound_ms']:.4f}); the pair {t['ms']:.4f} ms against the split "
+                f"launches' {t['split_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms: "
+                f"{t['bound_ms'] / t['ms']:.2f} of it (the split's "
+                f"{t['bound_ms'] / t['split_ms']:.2f})")
+            bad += [trunk32_text(r) for r in rs if not r.ok]
+        for r in trunk32_readings(torch, dev, nets, ragged_trunk32_pairs(), timed=False):
+            log(f"fused trunk f32, ragged: {trunk32_text(r)}")
+            bad += [] if r.ok else [trunk32_text(r)]
+        every = [r for rs in groups.values() for r in rs]
+        keys = ("ms", "split_ms", "plain_ms", "bound_ms", "fwd_ms", "uc_ms", "fwd_plain_ms",
+                "uc_plain_ms", "fwd_bound_ms", "uc_bound_ms")
+        tot = {label: weighted(rs, keys) for label, rs in groups.items()}
+        req = tot["f32 request"]
+        for key, kern, part in (("TFWD32", FT.TRUNK_FWD_F32, "fwd"),
+                                ("TUCH32", FT.TRUNK_UCHAIN_F32, "uc")):
+            rows[key] = dict(rows.get(key, {}), name=kern.name, route="cuda", source=kern.source,
+                             replaces=kern.replaces, max_abs_err=max(r.max_abs for r in every),
+                             ms=req[f"{part}_ms"], plain_ms=req[f"{part}_plain_ms"],
+                             bound_ms=req[f"{part}_bound_ms"], bound_by="operations",
+                             library_ms=None)
+            for label, prefix in (("f32 'full' step", "step_"), ("f32 'pallas' step", "pallas_"),
+                                  ("'12' fit step", "fit_")):
+                rows[key].update({f"{prefix}ms": tot[label][f"{part}_ms"],
+                                  f"{prefix}bound_ms": tot[label][f"{part}_bound_ms"]})
+        for label, prefix in (("f32 request", "request_"), ("f32 'full' step", "step_"),
+                              ("f32 'pallas' step", "pallas_"), ("'12' fit step", "fit_")):
+            rows["TFWD32"].update({f"{prefix}pair_ms": tot[label]["ms"],
+                                   f"{prefix}pair_split_ms": tot[label]["split_ms"],
+                                   f"{prefix}pair_bound_ms": tot[label]["bound_ms"]})
+        rows["TFWD32"]["worst_l2_f64"] = max(r.worst_k for r in every)
+        rows["TFWD32"]["split_worst_l2_f64"] = max(r.worst_s for r in every)
+        if bad:
+            raise AssertionError(f"the f32 trunk's pair disagrees with its plain version, f64, "
+                                 f"the split launches, its bits or its launch counts: {bad}")
+
     phase("kernel K2 f32", kernel_k2_f32)
     phase("kernel K3 f32 frozen", kernel_k3_f32)
     phase("kernel fit modes f32", kernel_fit_modes_f32)
@@ -2862,8 +3221,9 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         phase("fit check", fit_check)
         if "fit" not in failures:
             phase("fit profile", fit_profile)
+            phase("fused trunk f32", fused_trunk_f32)
         else:
-            failures.append("fit profile")
+            failures += ["fit profile", "fused trunk f32"]
     finally:
         import shutil
 
@@ -2898,7 +3258,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
     kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD, "K5": FT.KERNEL_FWD,
                "K6": FT.KERNEL_BWD, "GEMM_F32": FH.GEMM_F32, "GEMM_TN_F32": FH.GEMM_TN_F32,
                "GEMM": FH.GEMM, "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
-               "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "PACK": FT.PACK, "POSE": FF.POSE}
+               "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "PACK": FT.PACK, "POSE": FF.POSE,
+               "TFWD32": FT.TRUNK_FWD_F32, "TUCH32": FT.TRUNK_UCHAIN_F32}
     log(f"f32 phases: {os.path.relpath(CONF, ROOT)} as written, trunks {sdf_cfg.trunk_dtype}; "
         "select_fine_pass on the card: " + ", ".join(
             f"{m} -> {select_fine_pass(ttcfg._replace(fused_fine=m), sdf_cfg, dev)}"
@@ -3090,10 +3451,14 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         flops = k5_flops(sdf_cfg, n)
         b_ms, b_by = bound(flops, 4 * (2 * E + d_out) * n + nbytes(weights),
                            PEAK_F32_3XTF32_FLOPS)
-        names = f32_names(lambda: FT.hand_trunk_sdf_u_fwd(e, tpack))
+        # K5 f32's trunk is the fused f32 pair: no GEMM of either type
+        names = device_kernel_names(torch, lambda: FT.hand_trunk_sdf_u_fwd(e, tpack))
+        pair, gemms_k5 = (sum(c for k, c in names.items() if any(x in k for x in keys))
+                          for keys in (("hand_trunk_fwd_f32_kernel", "hand_uchain_f32_kernel"),
+                                       ("gemm_f32_kernel", "gemm_kernel")))
         log(f"K5 f32 hand_trunk_sdf_u_fwd: {n} pts "
             f"({-(-n // FT.chunk_size(n, 'f32', FT.CHUNK))} passes); "
-            f"{'; '.join(c[2] for c in checks)}; f32 GEMMs {names[0]}, bf16 GEMMs {names[2]}; "
+            f"{'; '.join(c[2] for c in checks)}; the fused f32 pair {pair}, GEMMs {gemms_k5}; "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
             f"{flops / n / 1e6:.3f} MFLOP/pt, {flops / ms / 1e9:.1f} TFLOP/s)")
         rows["K5"] = dict(rows.get("K5", {}), f32_ms=ms, f32_plain_ms=plain_ms, f32_bound_ms=b_ms)
@@ -3101,20 +3466,25 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                    + 4 * sum(w.numel() for w in weights))
         bwd_report("K6 f32", "pallas", args, k6_flops(sdf_cfg, n), n_bytes, ("K6", "f32_"),
                    f32_names)
-        if not all(c[0] for c in checks) or not names[0] or names[2]:
-            raise AssertionError("K5 f32 disagrees with its plain version or ran a bf16 GEMM")
+        if not all(c[0] for c in checks) or not pair or gemms_k5:
+            raise AssertionError("K5 f32 disagrees with its plain version or ran a GEMM")
 
-    gemms = ("GEMM_F32", "GEMM_TN_F32")
+    gemms = ("GEMM_F32", "GEMM_TN_F32", "TFWD32", "TUCH32")
     # the embedding kernel with K2 / K3 (K5 / K6 take e from torch), the
-    # column sum with every dW
-    expect = {"full": ("K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV", "POSE") + gemms,
-              "full_nocolor": ("K2", "K3", "EMBED", "COLSUM", "UCHAIN", "BWDREV", "POSE")
-              + gemms,
-              "pallas": ("K5", "K6", "COLSUM", "UCHAIN", "PACK") + gemms, None: ()}
+    # column sum with every dW; the f32 trunk's forward and u-chain as the
+    # fused pair, no u-chain seed
+    expect = {"full": ("K2", "K3", "EMBED", "COLSUM", "BWDREV", "POSE") + gemms,
+              "full_nocolor": ("K2", "K3", "EMBED", "COLSUM", "BWDREV", "POSE") + gemms,
+              "pallas": ("K5", "K6", "COLSUM", "PACK") + gemms, None: ()}
     # an f32 step's K3 / K5 / K6 take its 56,448 fine points in two passes:
-    # two pose sums a K3, two packs a K5 and a K6
-    per_step = {"full": {"POSE": 2}, "full_nocolor": {"POSE": 2}, "pallas": {"PACK": 4},
-                None: {}}
+    # two pose sums a K3, two packs a K5 and a K6, the fused pair once a
+    # pass of K2 / K3 / K5 / K6; gemm_f32_kernel in the color net (5 a pass
+    # of K2, of K3's recompute and of its backward) and the trunk
+    # backward's 17 a pass of K3 / K6 (TRUNK32_LAUNCHES)
+    pair = {"TFWD32": 4, "TUCH32": 4, "UCHAIN": 0}
+    per_step = {"full": {"POSE": 2, "GEMM_F32": 64, **pair},
+                "full_nocolor": {"POSE": 2, "GEMM_F32": 34, **pair},
+                "pallas": {"PACK": 4, "GEMM_F32": 34, **pair}, None: {}}
 
     f32_calls = {}   # the per-point calls of an f32 'full' and 'pallas' step
 
@@ -3168,6 +3538,11 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             if mode in ("full", "pallas"):
                 rec = record_perpoint_calls(lambda: step(state, batch, gen))
                 f32_calls[mode] = rec
+                label_m = f"f32 '{mode}' step"
+                TRUNK32_CALLS[label_m] = record_trunk_calls(lambda: step(state, batch, gen))
+                TRUNK32_COUNTS[label_m] = tuple(
+                    launches[k] / (TRAIN_WARMUP + TRAIN_STEPS)
+                    for k in ("GEMM_F32", "UCHAIN", "TFWD32", "TUCH32"))
             if mode == "full":
                 tn = _tally(rec.tn)
                 log(f"{label}: reduce_partials_kernel over the step's {sum(tn.values())} dW "
@@ -3187,7 +3562,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 rows["POSE"] = dict(rows.get("POSE", {}), f32_launches=launches["POSE"])
                 for name in ("UCHAIN", "BWDREV"):
                     rows[name] = dict(rows.get(name, {}), f32_train_launches=launches[name])
-                # the seed's launches: the f32 trunk's main path (no bf16 path runs it)
+                # the seed's launches on the f32 trunk's main path, which the
+                # fused u-chain took over: 0
                 rows["UCHAIN"]["launches"] = launches["UCHAIN"]
                 for name in gemms:
                     rows[name] = dict(rows.get(name, {}), launches=launches[name])
@@ -3195,8 +3571,10 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 for name in ("K2", "K3"):
                     rows[name] = dict(rows.get(name, {}), f32_nocolor_launches=launches[name])
             elif mode == "pallas":
-                for name in ("K5", "K6", "PACK"):
+                for name in ("K5", "K6", "PACK", "TFWD32", "TUCH32"):
                     rows[name] = dict(rows.get(name, {}), f32_launches=launches[name])
+                rows["GEMM_F32"] = dict(rows.get("GEMM_F32", {}),
+                                        pallas_launches=launches["GEMM_F32"])
         assert not bad, f"an f32 train path is not as expected: {bad}"
 
     def perpoint_f32():
@@ -3254,12 +3632,17 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         log(f"serve f32: one request of {len(rays)} rays in {req_ms:.1f} ms "
             f"({len(rays) / req_ms * 1e3:.1f} rays/s); launches {launches}")
         rows["K2"] = dict(rows.get("K2", {}), f32_request_launches=launches["K2"])
+        for name in ("TFWD32", "TUCH32", "GEMM_F32"):
+            rows[name] = dict(rows.get(name, {}), request_launches=launches[name])
+        TRUNK32_COUNTS["f32 request"] = tuple(launches[k] for k in ("GEMM_F32", "UCHAIN",
+                                                                    "TFWD32", "TUCH32"))
+        TRUNK32_CALLS["f32 request"] = record_trunk_calls(lambda: render(fs.params, request))
         assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
         assert launches["K1"] and launches["K2"] and launches["GEMM_F32"] and launches[
-            "EMBED"] and launches["UCHAIN"] and not (
+            "EMBED"] and launches["TFWD32"] and launches["TUCH32"] and not (
             launches["K3"] or launches["K5"] or launches["K6"] or launches["GEMM_TN_F32"]
-            or launches["GEMM_TN"] or launches["COLSUM"] or launches["BWDREV"]), \
-            f"the f32 'full' render path launched {launches}"
+            or launches["GEMM_TN"] or launches["COLSUM"] or launches["BWDREV"]
+            or launches["UCHAIN"]), f"the f32 'full' render path launched {launches}"
         idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
         cpu = torch.device("cpu")
         c_ref, w_ref = render(clone_tree(fs.params, cpu),
@@ -4555,8 +4938,9 @@ def main() -> int:
         log(f"per-point profiles: {wrong}")
         failures.append("per-point profiles")
     log(gpu_line())
-    order = ("K1", "K2", "K3", "K4", "K5", "K6", "TFWD", "TUCH", "GEMM", "GEMM_TN", "GEMM_F32",
-             "GEMM_TN_F32", "EMBED", "COLSUM", "UCHAIN", "BWDREV", "COPY", "PACK", "POSE")
+    order = ("K1", "K2", "K3", "K4", "K5", "K6", "TFWD", "TUCH", "TFWD32", "TUCH32", "GEMM",
+             "GEMM_TN", "GEMM_F32", "GEMM_TN_F32", "EMBED", "COLSUM", "UCHAIN", "BWDREV",
+             "COPY", "PACK", "POSE")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     def mode_keys(prefix):
@@ -4574,6 +4958,16 @@ def main() -> int:
              "TFWD": ("train_launches", "step_ms", "step_plain_ms", "step_bound_ms", "k1_ms",
                       "k1_bound_ms", "k2_ms", "k2_bound_ms"),
              "TUCH": ("train_launches", "step_ms", "step_plain_ms", "step_bound_ms"),
+             "TFWD32": (("f32_launches", "request_launches", "fit_launches", "worst_l2_f64",
+                         "split_worst_l2_f64")
+                        + tuple(f"{p}{k}" for p in ("step_", "pallas_", "fit_")
+                                for k in ("ms", "bound_ms"))
+                        + tuple(f"{p}pair_{k}" for p in ("request_", "step_", "pallas_", "fit_")
+                                for k in ("ms", "split_ms", "bound_ms"))),
+             "TUCH32": (("f32_launches", "request_launches", "fit_launches")
+                        + tuple(f"{p}{k}" for p in ("step_", "pallas_", "fit_")
+                                for k in ("ms", "bound_ms"))),
+             "GEMM_F32": ("pallas_launches", "request_launches"),
              "GEMM": ("image_launches", "request_launches", "train_launches"),
              "EMBED": ("train_launches", "step_ms", "step_bound_ms", "f32_ms", "f32_plain_ms",
                        "f32_bound_ms"),

@@ -519,33 +519,34 @@ static EncodeTiled encoder() {
 struct MapKey {
   const void* ptr;
   uint64_t inner, outer, row_bytes;
-  uint32_t box_inner, box_outer;
+  uint32_t box_inner, box_outer, elem_bytes;
   bool operator==(const MapKey& o) const {
     return ptr == o.ptr && inner == o.inner && outer == o.outer && row_bytes == o.row_bytes &&
-           box_inner == o.box_inner && box_outer == o.box_outer;
+           box_inner == o.box_inner && box_outer == o.box_outer && elem_bytes == o.elem_bytes;
   }
 };
 
-// A bf16 row-major matrix of `outer` rows of `inner` elements, `ld`
-// elements apart, in boxes of box_inner x box_outer with 128-byte swizzle
-// and zero fill out of bounds.  Encoded maps are kept by (pointer,
-// extents, stride, box): a map holds nothing else, so a hit is exact.
-// False on an operand TMA cannot take (a base not 16-byte aligned, a row
-// stride not a multiple of 16 bytes).
+// A bf16 (elem_bytes 2) or f32 (4) row-major matrix of `outer` rows of
+// `inner` elements, `ld` elements apart, in boxes of box_inner x box_outer
+// with 128-byte swizzle and zero fill out of bounds.  Encoded maps are kept
+// by (pointer, extents, stride, box, type): a map holds nothing else, so a
+// hit is exact.  False on an operand TMA cannot take (a base not 16-byte
+// aligned, a row stride not a multiple of 16 bytes).
 static bool tma_map(CUtensorMap* out, const void* ptr, int inner, int outer, int ld,
-                    int box_inner, int box_outer) {
+                    int box_inner, int box_outer, int elem_bytes = 2) {
   constexpr int kSlots = 256;
   static MapKey keys[kSlots];
   static CUtensorMap maps[kSlots];
   static bool used[kSlots];
   static std::mutex lock;
-  const MapKey key{ptr, (uint64_t)inner, (uint64_t)outer, (uint64_t)ld * 2, (uint32_t)box_inner,
-                   (uint32_t)box_outer};
-  if (inner <= 0 || outer <= 0 || (reinterpret_cast<uintptr_t>(ptr) & 15) || key.row_bytes % 16)
+  const MapKey key{ptr, (uint64_t)inner, (uint64_t)outer, (uint64_t)ld * elem_bytes,
+                   (uint32_t)box_inner, (uint32_t)box_outer, (uint32_t)elem_bytes};
+  if (inner <= 0 || outer <= 0 || (elem_bytes != 2 && elem_bytes != 4) ||
+      (reinterpret_cast<uintptr_t>(ptr) & 15) || key.row_bytes % 16)
     return false;
   uint64_t h = reinterpret_cast<uintptr_t>(ptr) * 0x9E3779B97F4A7C15ull;
   h ^= (key.inner * 31 + key.outer) * 0xC2B2AE3D27D4EB4Full ^ key.row_bytes ^
-       ((uint64_t)box_outer << 8);
+       ((uint64_t)box_outer << 8) ^ ((uint64_t)elem_bytes << 40);
   const int slot = (int)((h >> 32) % kSlots);
   std::lock_guard<std::mutex> guard(lock);
   if (used[slot] && keys[slot] == key) {
@@ -558,7 +559,9 @@ static bool tma_map(CUtensorMap* out, const void* ptr, int inner, int outer, int
   const cuuint64_t strides[1] = {key.row_bytes};
   const cuuint32_t box[2] = {key.box_inner, key.box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  CUresult r = enc(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+  const CUtensorMapDataType type =
+      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUresult r = enc(out, type, 2, const_cast<void*>(ptr), dims, strides,
                    box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return false;

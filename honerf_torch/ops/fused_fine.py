@@ -39,9 +39,10 @@ Entry points:
     per parameter snapshot (the eval render).
 On CUDA tensors the forward launches csrc/fused_trunk.cu (K5) and the
 backward K6 from the same source, with a bf16 or an f32 trunk
-(`TrunkMeta.dtype`); a bf16 trunk's forward and u-chain are two launches
-of csrc/trunk_fused.cu (`trunk_fwd`, `trunk_uchain`: every layer of a
-tile of points on chip), an f32 trunk's one GEMM a layer.  On CPU tensors
+(`TrunkMeta.dtype`); the trunk's forward and u-chain are two launches
+(`trunk_fwd`, `trunk_uchain`: every layer of a tile of points on chip) of
+csrc/trunk_fused.cu for a bf16 trunk and of csrc/trunk_fused_f32.cu (3xTF32
+on wgmma) for an f32 one.  On CPU tensors
 both run their plain versions (`hand_trunk_sdf_u_plain`,
 `hand_trunk_sdf_u_plain_bwd`, on the block bodies `_kernel_fwd_body`, that
 is `trunk_fwd_plain` then `trunk_uchain_plain`, and `_trunk_bwd_block`).
@@ -519,6 +520,18 @@ TRUNK_FWD = _build.Kernel("hand_trunk_fwd_kernel", "honerf_torch/ops/csrc/trunk_
                           "honerf_tpu/ops/fused_hand.py:400")
 TRUNK_UCHAIN = _build.Kernel("hand_uchain_kernel", "honerf_torch/ops/csrc/trunk_fused.cu",
                              "honerf_tpu/ops/fused_fine.py:452")
+# The f32 trunk in two launches (csrc/trunk_fused_f32.cu): the f32 mode of
+# `_kernel_fwd_body` (honerf_tpu/ops/fused_fine.py:275-323), the forward
+# inside K2's pallas_call with FineMeta(dtype='f32')
+# (honerf_tpu/ops/fused_fine_full.py:1556) and K5's, the u-chain inside
+# K5's (honerf_tpu/ops/fused_fine.py:452) and K2's; both in the recompute of
+# K3 and K6.
+TRUNK_FWD_F32 = _build.Kernel("hand_trunk_fwd_f32_kernel",
+                              "honerf_torch/ops/csrc/trunk_fused_f32.cu",
+                              "honerf_tpu/ops/fused_fine_full.py:1556")
+TRUNK_UCHAIN_F32 = _build.Kernel("hand_uchain_f32_kernel",
+                                 "honerf_torch/ops/csrc/trunk_fused_f32.cu",
+                                 "honerf_tpu/ops/fused_fine.py:452")
 
 
 def type_trunk_lib(lib) -> None:
@@ -751,9 +764,49 @@ def _tlib():
     return lib
 
 
+def _t32lib():
+    """The library of csrc/trunk_fused_f32.cu (the f32 trunk's two kernels)."""
+    lib = _build.load("trunk_fused_f32")
+    if not getattr(lib, "_honerf_t32_typed", False):
+        L = ctypes.c_longlong
+        lib.honerf_trunk_fwd_f32.argtypes = [
+            _P, _I, _I, _I, _I, _I, _I,      # e, lde, M, Ep, Hp, n_layers, skip
+            _P, _P, _P, _P, _F,              # wsplit, rows, cols, bs, skip_scale
+            _P, L, _I, _P, _I,               # ss, ss_layer, lds, acts, ldact
+            _P, _I, _I, _P]                  # z, ldz, n_store, stream
+        lib.honerf_trunk_uchain_f32.argtypes = [
+            _I, _I, _I, _I, _I, _P, _P,      # M, Ep, Hp, n_layers, skip, wsplit, in_cols
+            _P, _I, _P, L, _I, _F, _F,       # w_last, ldw, ss, ss_layer, lds, hscale, escale
+            _P, _I, _P, _I, _P, _I, _P]      # u, ldu, ts, ldt, cs, ldc, stream
+        lib.honerf_trunk_fwd_f32.restype = lib.honerf_trunk_uchain_f32.restype = _I
+        lib._honerf_t32_typed = True
+    return lib
+
+
+def tf32_operands(w, transpose: bool):
+    """The f32 trunk kernels' B operand of the padded f32 weight w: [big;
+    small] of w (transpose False: the u-chain's, (2 in_pad, out_pad)) or of
+    w^T (True: the forward's, (2 out_pad, in_pad)), big = tf32(x) and small
+    = tf32(x - big) (fused_hand.split_tf32: the rounding the kernels give A,
+    and gemm_f32_kernel both operands).  Made once per weight tensor and
+    kept on it, made anew if the tensor was written since."""
+    from honerf_torch.ops import fused_hand as FH
+
+    key = "_honerf_tf32_t" if transpose else "_honerf_tf32"
+    kept = getattr(w, key, None)
+    if kept is not None and kept[0] == w._version:
+        return kept[1]
+    with torch.no_grad():
+        x = w.T if transpose else w
+        big, small = FH.split_tf32(x)
+        rows = torch.cat([big, small], dim=0).contiguous()
+    setattr(w, key, (w._version, rows))
+    return rows
+
+
 def rcp12_mismatches(dev) -> int:
     """The count of f32 x in [1, 2] at which the fused forward's reciprocal
-    (csrc/trunk_fused.cu: tf_rcp12) differs from __frcp_rn: 0 keeps the
+    (csrc/common.cuh: tf_rcp12) differs from __frcp_rn: 0 keeps the
     sigmoid rows' bits.  Card only."""
     bad = torch.zeros((1,), device=dev, dtype=torch.int64)
     _build.check(_tlib().honerf_rcp12_check(bad.data_ptr(),
@@ -787,16 +840,21 @@ def _check_rows(what: str, ts, dtype, m: int, width: int, align: int = 16) -> in
 
 def trunk_fwd(e, m: int, ws, bs, tm: TrunkMeta, ss=None, acts=None, z=None, sdf=None,
               stream=None) -> None:
-    """The trunk forward on e[:m] (bf16, Ep contiguous columns): ss[l][:m] =
-    sigmoid(beta z_l) (ss (n - 1, >= m, Hp) f32), acts[l][:m] =
-    bf16(softplus(z_l)) (with keep: n - 1 bf16 (>= m, Hp) rows), and the
-    last layer into z[:m, :z.shape[1]] (f32) or its sdf column into
-    sdf[:m]; each output optional, the last layer formed only for z or sdf
-    (csrc/trunk_fused.cu: hand_trunk_fwd_kernel, one launch).  On a CPU e
-    it writes trunk_fwd_plain's rows and launches nothing."""
+    """The trunk forward on e[:m] (the trunk dtype T, Ep contiguous
+    columns): ss[l][:m] = sigmoid(beta z_l) (ss (n - 1, >= m, Hp) f32),
+    acts[l][:m] = T(softplus(z_l)) (with keep: n - 1 T (>= m, Hp) rows),
+    and the last layer into z[:m, :z.shape[1]] (f32) or (bf16 only) its sdf
+    column into sdf[:m]; each output optional, the last layer formed only
+    for z or sdf (one launch: csrc/trunk_fused.cu's hand_trunk_fwd_kernel,
+    or for an f32 trunk csrc/trunk_fused_f32.cu's hand_trunk_fwd_f32_kernel,
+    which takes the sigmoid rows always).  On a CPU e it writes
+    trunk_fwd_plain's rows and launches nothing."""
     n = tm.n_layers
-    if tm.dtype != "bf16" or (z is not None and sdf is not None):
-        raise ValueError("the fused trunk forward takes a bf16 trunk and one of z and sdf")
+    op = _cast(tm)
+    if (tm.dtype not in ("bf16", "f32") or e.dtype != op or (z is not None and sdf is not None)
+            or (tm.dtype == "f32" and sdf is not None)):
+        raise ValueError("the fused trunk forward takes e in the trunk's dtype (bf16 or f32) "
+                         "and one of z and sdf (bf16 only)")
     if e.device.type == "cpu":
         a, s_, zz = trunk_fwd_plain(e, m, ws, bs, tm, last=z is not None or sdf is not None)
         for dst, rows in ((ss, s_), (acts, a)):
@@ -808,10 +866,10 @@ def trunk_fwd(e, m: int, ws, bs, tm: TrunkMeta, ss=None, acts=None, z=None, sdf=
         if sdf is not None:
             sdf[:m] = zz[:, 0]
         return
-    lde = _check_rows("e", [e], torch.bfloat16, m, tm.Ep)
+    lde = _check_rows("e", [e], op, m, tm.Ep)
     if ss is not None:
         _check_rows("ss", list(ss), torch.float32, m, tm.Hp)
-    ldact = _check_rows("acts", list(acts), torch.bfloat16, m, tm.Hp) if acts is not None else 0
+    ldact = _check_rows("acts", list(acts), op, m, tm.Hp) if acts is not None else 0
     if acts is not None and ss is None:
         raise ValueError("the kept activations come with the sigmoid rows")
     if z is not None:
@@ -819,6 +877,18 @@ def trunk_fwd(e, m: int, ws, bs, tm: TrunkMeta, ss=None, acts=None, z=None, sdf=
     if sdf is not None and (sdf.dtype != torch.float32 or sdf.dim() != 1 or sdf.shape[0] < m
                             or sdf.stride(0) != 1):
         raise ValueError("sdf: f32, at least m contiguous rows")
+    if tm.dtype == "f32":
+        if ss is None or tm.Hp not in (64, 128, 256):
+            raise ValueError("the f32 trunk forward writes the sigmoid rows, Hp 64, 128 or 256")
+        TRUNK_FWD_F32.launches += 1
+        _build.check(_t32lib().honerf_trunk_fwd_f32(
+            e.data_ptr(), lde, m, tm.Ep, tm.Hp, n, tm.skip,
+            _ptrs([tf32_operands(w, True) for w in ws]), _ints([w.shape[0] for w in ws]),
+            _ints([w.shape[1] for w in ws]), _ptrs(bs), INV_SQRT2, ss.data_ptr(),
+            ss.stride(0), ss.stride(1), None if acts is None else _ptrs(acts), ldact,
+            0 if z is None else z.data_ptr(), 0 if z is None else z.stride(0),
+            0 if z is None else z.shape[1], stream), "honerf_trunk_fwd_f32")
+        return
     TRUNK_FWD.launches += 1
     _build.check(_tlib().honerf_trunk_fwd(
         e.data_ptr(), lde, m, tm.Ep, tm.Hp, n, tm.skip, _ptrs(ws),
@@ -834,14 +904,15 @@ def trunk_uchain(m: int, ws, wts, tm: TrunkMeta, ss, u=None, ts=None, cs=None,
                  stream=None) -> None:
     """The u-chain of m points from the forward's sigmoid rows ss (n - 1,
     >= m, Hp) f32: u[:m, :Ep] (f32; None: layer 0 and the skip's embedding
-    columns not formed) and, with keep, ts[l][:m] (bf16, l < n - 1) and
-    cs[l][:m] (f32, 1 <= l < n - 1; cs[0] None) (csrc/trunk_fused.cu:
-    hand_uchain_kernel, one launch; wts = the weights transposed).  On a
-    CPU ss it writes trunk_uchain_plain's rows (from ws) and launches
-    nothing."""
+    columns not formed) and, with keep, ts[l][:m] (the trunk dtype, l <
+    n - 1) and cs[l][:m] (f32, 1 <= l < n - 1; cs[0] None) (one launch:
+    csrc/trunk_fused.cu's hand_uchain_kernel, wts = the weights transposed,
+    or for an f32 trunk csrc/trunk_fused_f32.cu's hand_uchain_f32_kernel,
+    which reads ws).  On a CPU ss it writes trunk_uchain_plain's rows (from
+    ws) and launches nothing."""
     n = tm.n_layers
-    if tm.dtype != "bf16":
-        raise ValueError("the fused u-chain takes a bf16 trunk")
+    if tm.dtype not in ("bf16", "f32"):
+        raise ValueError("the fused u-chain takes a bf16 or f32 trunk")
     if ss.device.type == "cpu":
         uu, t_, c_ = trunk_uchain_plain([ss[l][:m] for l in range(n - 1)], ws, tm,
                                         with_u=u is not None)
@@ -857,10 +928,22 @@ def trunk_uchain(m: int, ws, wts, tm: TrunkMeta, ss, u=None, ts=None, cs=None,
     ldu = _check_rows("u", [u], torch.float32, m, tm.Ep, align=8) if u is not None else 0
     if (ts is None) != (cs is None):
         raise ValueError("the kept t rows come with the kept c rows")
-    ldt = _check_rows("ts", list(ts[:n - 1]), torch.bfloat16, m, tm.Hp) if ts is not None else 0
+    ldt = _check_rows("ts", list(ts[:n - 1]), _cast(tm), m, tm.Hp) if ts is not None else 0
     ldc = (_check_rows("cs", list(cs[1:n - 1]), torch.float32, m, tm.Hp, align=8)
            if cs is not None else 0)
     wl = ws[n - 1]
+    if tm.dtype == "f32":
+        if tm.Hp not in (64, 128, 256) or wl.dtype != torch.float32:
+            raise ValueError("the f32 u-chain takes f32 weights, Hp 64, 128 or 256")
+        TRUNK_UCHAIN_F32.launches += 1
+        _build.check(_t32lib().honerf_trunk_uchain_f32(
+            m, tm.Ep, tm.Hp, n, tm.skip, _ptrs([tf32_operands(w, False) for w in ws[:n - 1]]),
+            _ints([w.shape[0] for w in ws[:n - 1]]), wl.data_ptr(), wl.stride(0),
+            ss.data_ptr(), ss.stride(0), ss.stride(1), INV_SQRT2, INV_SQRT2,
+            0 if u is None else u.data_ptr(), ldu, None if ts is None else _ptrs(ts[:n - 1]),
+            ldt, None if cs is None else _ptrs(cs[:n - 1]), ldc, stream),
+            "honerf_trunk_uchain_f32")
+        return
     TRUNK_UCHAIN.launches += 1
     _build.check(_tlib().honerf_trunk_uchain(
         m, tm.Ep, tm.Hp, n, tm.skip, _ptrs(wts[:n - 1]), _ints([w.shape[1] for w in wts[:n - 1]]),
@@ -872,13 +955,12 @@ def trunk_uchain(m: int, ws, wts, tm: TrunkMeta, ss, u=None, ts=None, cs=None,
 
 def trunk_buffers(tm: TrunkMeta, C: int, dev, keep: bool):
     """Scratch of cuda_trunk_forward for C points: f32 sigmoid rows, and
-    activations and t rows in the trunk dtype: with `keep` one per layer
-    and the f32 c rows (K3's and K6's recompute), else two alternating
-    ones for the f32 trunk's split launches (the bf16 trunk's two fused
-    launches keep theirs on chip)."""
+    with `keep` (K3's and K6's recompute) activations and t rows in the
+    trunk dtype, one per layer, and the f32 c rows (the two fused launches
+    keep them on chip otherwise)."""
     n, Hp = tm.n_layers, tm.Hp
     op, f32 = _cast(tm), torch.float32
-    n_act = n - 1 if keep else (2 if tm.dtype == "f32" else 0)
+    n_act = n - 1 if keep else 0
     buf = dict(
         acts=[torch.empty((C, Hp), device=dev, dtype=op) for _ in range(n_act)],
         ts=[torch.empty((C, Hp), device=dev, dtype=op) for _ in range(n_act)],
@@ -896,34 +978,42 @@ def cuda_trunk_forward(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream, 
                        z=None, u=None) -> None:
     """The trunk forward and u-chain launches (K2's and K5's, and the
     recompute of K3 and K6) on the first m rows of e (the trunk dtype, Ep
-    columns): a bf16 trunk in two launches (trunk_fwd, trunk_uchain), an
-    f32 one as one gemm_f32_kernel a layer and uchain_seed_kernel:
-    a_{l+1} = softplus(z_l) and s_l = sigmoid(beta z_l) into buf's acts
-    and ss; the last layer into the first z.shape[1] columns of z (f32;
-    None: not formed); the u-chain's t rows into buf's ts (with `keep`,
-    its c rows into cs) and u into u (f32, Ep columns; None: the chain's
-    embedding columns are not formed)."""
+    columns), bf16 or f32, in two launches (trunk_fwd, trunk_uchain):
+    s_l = sigmoid(beta z_l) into buf's ss, with `keep` a_{l+1} =
+    softplus(z_l) into buf's acts; the last layer into the first z.shape[1]
+    columns of z (f32; None: not formed); u into u (f32, Ep columns; None:
+    the chain's embedding columns are not formed) and, with `keep`, the
+    u-chain's t rows into buf's ts and its c rows into cs."""
+    ss, acts, ts, cs = buf["ss"], buf["acts"], buf["ts"], buf.get("cs")
+    # two launches: the forward, then the u-chain from its sigmoid rows
+    trunk_fwd(e, m, ws, bs, tm, ss=ss, acts=acts if keep else None, z=z, stream=stream)
+    trunk_uchain(m, ws, wts, tm, ss, u=u, ts=ts if keep else None,
+                 cs=cs if keep else None, stream=stream)
+
+
+def cuda_trunk_forward_split(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, stream,
+                             keep=False, z=None, u=None) -> None:
+    """cuda_trunk_forward's outputs for an f32 trunk as the split launches
+    the fused pair replaced: one gemm_f32_kernel a layer, then
+    uchain_seed_kernel.  No main path calls it: chip_smoke.py and
+    bench_gemm.py time and hold the pair against it at the same calls."""
     from honerf_torch.ops import fused_hand as FH
 
-    n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
+    n, Hp = tm.n_layers, tm.Hp
+    if tm.dtype != "f32":
+        raise ValueError("the split launches are the f32 trunk's")
     ss, acts, ts, cs = buf["ss"], buf["acts"], buf["ts"], buf.get("cs")
-    if tm.dtype == "bf16":
-        # two launches: the forward, then the u-chain from its sigmoid rows
-        trunk_fwd(e, m, ws, bs, tm, ss=ss, acts=acts if keep else None, z=z, stream=stream)
-        trunk_uchain(m, ws, wts, tm, ss, u=u, ts=ts if keep else None,
-                     cs=cs if keep else None, stream=stream)
-        return
-    # the f32 trunk: one gemm_f32_kernel a layer and the seed
+    if not keep:    # two alternating activation and t rows
+        acts = [torch.empty((e.shape[0], Hp), device=e.device) for _ in range(2)]
+        ts = [torch.empty((e.shape[0], Hp), device=e.device) for _ in range(2)]
     gemm = FH.gemm
-    # the skip concat's scale: bf16(x * bf16(1/sqrt2)), or x * f32(1/sqrt2)
-    skip_scale = INV_SQRT2 if tm.dtype == "f32" else INV_SQRT2_BF16
     # trunk forward: a_{l+1} = softplus(z_l), ss[l] = sigmoid(beta z_l)
     a = None
     for l in range(n):
         if l == 0:
-            A1, K1, A2, K2, scale = e, Ep, None, 0, 0.0
+            A1, K1, A2, K2, scale = e, tm.Ep, None, 0, 0.0
         elif l == tm.skip:
-            A1, K1, A2, K2, scale = a, Hp, e, Ep, skip_scale
+            A1, K1, A2, K2, scale = a, Hp, e, tm.Ep, INV_SQRT2
         else:
             A1, K1, A2, K2, scale = a, Hp, None, 0, 0.0
         w = ws[l]

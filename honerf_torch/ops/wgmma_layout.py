@@ -35,9 +35,23 @@ and `ring_schedule` a model of the producer, the two consumers, the
 ring's barriers and the consumers' turns that finds a deadlock if there
 is one.
 
+The `TF32_*` constants are csrc/trunk_fused_f32.cu's (the f32 hand trunk
+in two launches, hand_trunk_fwd_f32_kernel and hand_uchain_f32_kernel, on
+3xTF32 wgmma; tests/test_torch_trunk_f32_layout.py holds them to the
+source): `tf32_offset` is where an f32 tile element lives (TMA's box of e,
+the epilogues' writes, the A fragments' reads), `tf32_box_offset` where a
+TMA box of f32 puts an element and `tf32_b_read` where a K-major TF32
+wgmma reads B; `tf32_phases` / `tf32_uc_phases` the phases of a tile,
+`tf32_loads` / `tf32_uc_loads` the producer's two slots a K step,
+`tf32_smem_bytes` / `tf32_uc_smem_bytes` the blocks' shared memory,
+`tf32_acc_cell` / `tf32_frag_cell` the accumulator's and the A
+fragment's cells, `tf32_tile_rows` the tiles a block walks; `ring_schedule`
+with `pairs` runs their barriers.
+
 Nothing on the main path calls the functions but `tn_workspace`; the CUDA
 side computes the same numbers (`honerf_gemm`, `honerf_gemm_tn`,
-`honerf_obj_sdf`, `honerf_trunk_fwd`, `honerf_trunk_uchain`).
+`honerf_obj_sdf`, `honerf_trunk_fwd`, `honerf_trunk_uchain`,
+`honerf_trunk_fwd_f32`, `honerf_trunk_uchain_f32`).
 """
 
 from __future__ import annotations
@@ -117,6 +131,36 @@ TF_CONSTANTS = ("TF_TILE", "TF_WIDTH", "TF_CHUNK_BYTES", "TF_ACT_BYTES", "TF_A_B
                 "TF_MAX_LAYERS", "TF_MAX_PHASES", "UC_STAGES", "UC_STAGE_BYTES", "UC_RING_BYTES",
                 "UC_SMEM_BYTES", "UC_PIECE")
 TF_HIDDEN, TF_Z, TF_SDF = 0, 1, 2
+
+# csrc/trunk_fused_f32.cu: hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel
+TF32_TILE = 64         # points a tile: both consumers read its 64 rows, each half the columns
+TF32_WIDTH = 256
+TF32_BK = 32           # k of a K step: one 128-byte swizzle row of f32
+TF32_CHUNK_BYTES = TF32_TILE * 128                    # 32 columns of the tile's rows
+TF32_ACT_BYTES = TF32_WIDTH // TF32_BK * TF32_CHUNK_BYTES
+TF32_A_BYTES = TF32_CHUNK_BYTES                       # e's box: 32 columns x 64 rows
+TF32_BOX_ROWS = 64                                    # B rows of one TMA box
+TF32_BOX_BYTES = TF32_BOX_ROWS * 128
+TF32_B_BYTES = TF32_WIDTH * 128                       # 256 B rows x 32 k
+TF32_STAGE_BYTES = TF32_A_BYTES + TF32_B_BYTES
+TF32_STAGES = 4
+TF32_RING_BYTES = TF32_STAGES * TF32_STAGE_BYTES
+TF32_SMEM_BYTES = 1024 + TF32_ACT_BYTES + TF32_RING_BYTES + 2 * TF32_STAGES * 8
+TF32_MAX_LAYERS = 10
+TF32_MAX_PHASES = 14
+TF32_UC_STAGES = 3
+TF32_UC_STAGE_BYTES = TF32_B_BYTES
+TF32_UC_RING_BYTES = TF32_UC_STAGES * TF32_UC_STAGE_BYTES
+TF32_UC_SMEM_BYTES = 1024 + 2 * TF32_ACT_BYTES + TF32_UC_RING_BYTES + 2 * TF32_UC_STAGES * 8
+TF32_PIECE = 256       # u columns a piece: two phases (the skip's part, layer 0's)
+TF32_UC_MAX_PHASES = 40
+TF32_CONSTANTS = ("TF32_TILE", "TF32_WIDTH", "TF32_BK", "TF32_CHUNK_BYTES", "TF32_ACT_BYTES",
+                  "TF32_A_BYTES", "TF32_BOX_ROWS", "TF32_BOX_BYTES", "TF32_B_BYTES",
+                  "TF32_STAGE_BYTES", "TF32_STAGES", "TF32_RING_BYTES", "TF32_SMEM_BYTES",
+                  "TF32_MAX_LAYERS", "TF32_MAX_PHASES", "TF32_UC_STAGES", "TF32_UC_STAGE_BYTES",
+                  "TF32_UC_RING_BYTES", "TF32_UC_SMEM_BYTES", "TF32_PIECE",
+                  "TF32_UC_MAX_PHASES")
+T32_HIDDEN, T32_Z = 0, 1
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -464,8 +508,175 @@ def tf_thread_rows(tile: int, thread: int) -> List[int]:
     return [tile * TF_TILE + ra, tile * TF_TILE + ra + 8]
 
 
+# ---------------------------------------------------------------------------
+# The f32 hand trunk in two launches (csrc/trunk_fused_f32.cu)
+# ---------------------------------------------------------------------------
+
+def tf32_box_offset(row: int, col: int) -> int:
+    """Byte of a 128-byte-swizzled TMA box of f32 (32 a row) at which the
+    element in box row `row`, column `col` lands."""
+    assert 0 <= col < TF32_BK
+    return swizzle128(row * SWIZZLE_BYTES + 4 * col)
+
+
+def tf32_offset(row: int, col: int) -> int:
+    """Byte of an f32 trunk tile (from its 1024-byte-aligned base) that
+    holds element (row, col): chunks of 32 columns, each 64 rows of 128
+    bytes with the 128-byte swizzle (t32_offset in the source)."""
+    assert 0 <= row < TF32_TILE and 0 <= col < TF32_WIDTH
+    return (col // TF32_BK) * TF32_CHUNK_BYTES + tf32_box_offset(row, col % TF32_BK)
+
+
+def tf32_b_read(desc: int, n: int, k: int) -> int:
+    """The byte a K-major TF32 wgmma reads B element (n, k) from (k within
+    its 8) through descriptor desc: rows of 128 bytes, 8 to an SBO group
+    (TF32 wgmma has no MN-major operand)."""
+    f = desc_fields(desc)
+    return swizzle128(f["start"] + (n // 8) * f["sbo"] + (n % 8) * SWIZZLE_BYTES + 4 * k)
+
+
+def tf32_smem_bytes() -> Dict[str, int]:
+    """hand_trunk_fwd_f32_kernel's shared memory by part (bytes): the f32
+    activation tile, the ring of slots (e's box + up to 256 B rows)."""
+    return dict(align=1024, act=TF32_ACT_BYTES, ring=TF32_RING_BYTES,
+                barriers=2 * TF32_STAGES * 8)
+
+
+def tf32_uc_smem_bytes() -> Dict[str, int]:
+    """hand_uchain_f32_kernel's: two f32 t tiles and a ring of B rows."""
+    return dict(align=1024, t=2 * TF32_ACT_BYTES, ring=TF32_UC_RING_BYTES,
+                barriers=2 * TF32_UC_STAGES * 8)
+
+
+def tf32_phases(Ep: int, Hp: int, rows: Sequence[int], cols: Sequence[int], skip: int,
+                n_store: Optional[int] = None) -> List[Dict[str, int]]:
+    """honerf_trunk_fwd_f32's phase table: per hidden layer one phase (K
+    steps of 32 over the tile, then over e's boxes: layer 0 and the skip,
+    the skip's scaled), then z's first n_store columns in pieces of 256,
+    128 or 64 (the widest that fits), or none.  Raises ValueError where the
+    entry point refuses the shapes."""
+    n = len(rows)
+    if (not 3 <= n <= TF32_MAX_LAYERS or not 0 < skip < n - 1 or Hp not in (64, 128, 256)
+            or Ep <= 0 or Ep % 64):
+        raise ValueError("not an f32 fused trunk")
+    out = []
+    for l in range(n):
+        last = l + 1 == n
+        want = Ep if l == 0 else (Hp + Ep if l == skip else Hp)
+        if rows[l] != want or (not last and cols[l] != Hp) or cols[l] % 64:
+            raise ValueError(f"layer {l}: {rows[l]} x {cols[l]} is not a fused trunk layer")
+        if not last:
+            out.append(dict(act_steps=0 if l == 0 else Hp // TF32_BK,
+                            e_steps=Ep // TF32_BK if l in (0, skip) else 0,
+                            e_row0=0 if l == 0 else Hp, scale=int(l == skip), layer=l, n0=0,
+                            width=Hp, kind=T32_HIDDEN))
+        elif n_store:
+            if n_store > cols[l]:
+                raise ValueError("n_store past the last layer's columns")
+            n0 = 0
+            while n0 < n_store:
+                rem = cols[l] - n0
+                width = 256 if rem >= 256 else (128 if rem >= 128 else 64)
+                out.append(dict(act_steps=Hp // TF32_BK, e_steps=0, e_row0=0, scale=0, layer=l,
+                                n0=n0, width=width, kind=T32_Z))
+                n0 += width
+    if len(out) > TF32_MAX_PHASES:
+        raise ValueError("too many phases")
+    return out
+
+
+def tf32_loads(phases, tile: int, out_rows: Sequence[int]) -> List[List[tuple]]:
+    """The forward producer's TMA loads, per phase and slot (two a K step:
+    B's small rows, then its big rows): (A, [B ...]) with A e's box at
+    (column, row) or None (e's box rides in the small slot of an e step),
+    each B (layer, k, row) of the layer's [big; small] W^T map, out_rows[l]
+    its first small row."""
+    out = []
+    for ph in phases:
+        slots = []
+        for k in range(ph["act_steps"] + ph["e_steps"]):
+            ke = k - ph["act_steps"]
+            kc = ph["e_row0"] + TF32_BK * ke if ke >= 0 else TF32_BK * k
+            for half in (0, 1):
+                a = (TF32_BK * ke, TF32_TILE * tile) if ke >= 0 and half == 0 else None
+                row0 = (out_rows[ph["layer"]] if half == 0 else 0) + ph["n0"]
+                slots.append((a, [(ph["layer"], kc, row0 + TF32_BOX_ROWS * j)
+                                  for j in range(ph["width"] // TF32_BOX_ROWS)]))
+        out.append(slots)
+    return out
+
+
+def tf32_uc_phases(n_layers: int, skip: int, Hp: int, Ep: int,
+                   with_u: bool) -> List[Dict[str, int]]:
+    """honerf_trunk_uchain_f32's phase table: the chain layers n-2 .. 1
+    (A = t tile src, the new t into tile dst: with u the skip writes tile 1
+    and tile 0 keeps the skip's t), then with u two phases a piece of u's
+    columns (256, 128 or 64, the widest that fits): the skip's part
+    (W_skip's rows from Hp + n0, A = tile 0; u = its sum / sqrt2) and layer
+    0's (W_0's rows from n0, A = tile 1; u += its sum)."""
+    out = []
+    for l in range(n_layers - 2, 0, -1):
+        out.append(dict(kind="chain", layer=l, row0=0, width=Hp,
+                        src=int(with_u and l < skip), dst=int(with_u and l <= skip)))
+    n0 = 0
+    while with_u and n0 < Ep:
+        rem = Ep - n0
+        width = TF32_PIECE if rem >= TF32_PIECE else (128 if rem >= 128 else 64)
+        out.append(dict(kind="skip", layer=skip, row0=Hp + n0, width=width, src=0, dst=-1))
+        out.append(dict(kind="zero", layer=0, row0=n0, width=width, src=1, dst=-1))
+        n0 += width
+    if len(out) > TF32_UC_MAX_PHASES:
+        raise ValueError("too many phases")
+    return out
+
+
+def tf32_uc_loads(phases, Hp: int, in_rows: Sequence[int]) -> List[List[list]]:
+    """The u-chain producer's loads, per phase and slot (two a K step of 32
+    over Hp: small rows, then big): [(slot byte, layer, k, row) ...], the
+    boxes of 64 B rows from byte 0 of the slot."""
+    out = []
+    for ph in phases:
+        slots = []
+        for k in range(Hp // TF32_BK):
+            for half in (0, 1):
+                row0 = (in_rows[ph["layer"]] if half == 0 else 0) + ph["row0"]
+                slots.append([(j * TF32_BOX_BYTES, ph["layer"], TF32_BK * k,
+                               row0 + TF32_BOX_ROWS * j)
+                              for j in range(ph["width"] // TF32_BOX_ROWS)])
+        out.append(slots)
+    return out
+
+
+def tf32_acc_cell(thread: int, i: int, nw: int):
+    """(tile row, column) that accumulator register i of consumer thread
+    `thread` (0-255 over both consumers) holds in a phase of nw columns a
+    consumer: row 16 w + lane / 4 + 8 ((i % 4) >> 1), column c nw + 8 (i /
+    4) + 2 (lane % 4) + (i % 2)."""
+    c, w, lane = thread // 128, (thread % 128) // 32, thread % 32
+    j, q = divmod(i, 4)
+    return 16 * w + lane // 4 + 8 * (q >> 1), c * nw + 8 * j + 2 * (lane % 4) + (q & 1)
+
+
+def tf32_frag_cell(thread: int, kk: int, q: int):
+    """(tile row, column within a 32-column chunk) of A fragment value q of
+    k8 step kk that a consumer thread loads: a0 (r, t), a1 (r + 8, t), a2
+    (r, t + 4), a3 (r + 8, t + 4), r = 16 w + lane / 4, t = lane % 4 (the
+    same for both consumers: each reads all 64 rows)."""
+    w, lane = (thread % 128) // 32, thread % 32
+    return 16 * w + lane // 4 + 8 * (q & 1), 8 * kk + lane % 4 + 4 * (q >> 1)
+
+
+def tf32_tile_rows(M: int, sms: int = 132) -> Dict[int, List[int]]:
+    """Block -> the f32 tiles it walks: blockIdx.x, + gridDim.x, ... below
+    ceil(M / TF32_TILE)."""
+    tiles = _cdiv(M, TF32_TILE)
+    grid = min(tiles, sms)
+    return {b: list(range(b, tiles, grid)) for b in range(grid)}
+
+
 def ring_schedule(phase_steps: Sequence[int], tiles: int, stages: int, turns: bool = False,
-                  early_hand_off: bool = True, seed: Optional[int] = None) -> int:
+                  early_hand_off: bool = True, seed: Optional[int] = None,
+                  pairs: bool = False) -> int:
     """Run one block's producer and two consumers as the kernels do,
     interleaved at random (seed) or in turn: the producer fills K step i
     once both consumers freed step i - stages; a consumer waits for its
@@ -475,7 +686,9 @@ def ring_schedule(phase_steps: Sequence[int], tiles: int, stages: int, turns: bo
     named barrier 3 + c before each phase and arrives at the other's once
     a phase (consumer 1 first, once, and not in its very last phase):
     before the wait for step `stages` when early_hand_off and the phase is
-    deeper than the ring, else after its last step.  Every wait is
+    deeper than the ring, else after its last step.  With `pairs`
+    (the f32 kernels: phase_steps counts slots, two a K step) a consumer
+    waits for both slots of a K step, then frees both.  Every wait is
     monotone, so one run that ends shows that every interleaving ends.
     Returns the events run; raises RuntimeError on a deadlock, on a
     barrier arrived at twice before its sync (the hardware would complete
@@ -497,6 +710,14 @@ def ring_schedule(phase_steps: Sequence[int], tiles: int, stages: int, turns: bo
                 yield ("sync", c)
             handed = not turns
             prev = None
+            if pairs:
+                for k in range(0, n, 2):
+                    yield ("full", it)
+                    yield ("full", it + 1)
+                    yield ("release", it)
+                    yield ("release", it + 1)
+                    it += 2
+                continue
             for k in range(n):
                 if not handed and early_hand_off and k == stages:
                     handed = True

@@ -1564,3 +1564,166 @@ def test_fused_trunk_rejects_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         FT.trunk_uchain(70, pack.ws, pack.wts, tm, ss, ts=acts)
     assert (FT.TRUNK_FWD.launches, FT.TRUNK_UCHAIN.launches) == before
+
+
+# The f32 trunk's pair (hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel,
+# 3xTF32 on wgmma): f32 values on both sides, only the order of the sums
+# differs, so every output within F32_TOL of its range at the median and
+# the max; against f64 in L2 no worse than the split launches (one
+# gemm_f32_kernel a layer and uchain_seed_kernel) by TRUNK32_VS_SPLIT.
+TRUNK32_VS_SPLIT = 1.25
+
+
+def _fused_trunk32(dev, sdf_kw=FULL):
+    cfg, ccfg, params = _nets(sdf_kw, dev)
+    pack = pack_fine_color(params, cfg._replace(trunk_dtype="f32"),
+                           ccfg._replace(trunk_dtype="f32"))
+    return pack.meta.trunk_meta, pack
+
+
+def _fused_e32(dev, pack, m):
+    """The f32 embedding (hand_embed_kernel) of m points near the joints."""
+    joints, bt_inv, t_pose = _pose(dev)
+    rotT, off, cut = FH.pack_hand_pose(bt_inv, t_pose)
+    meta = pack.meta
+    e = torch.empty((m, meta.trunk_meta.Ep), device=dev, dtype=torch.float32)
+    FH.embed(FH._lib("fused_hand"), _points(joints, m), m, rotT, off, cut, meta.v_multires,
+             meta.r_multires, e, torch.cuda.current_stream().cuda_stream)
+    return e
+
+
+def _trunk32_outputs(dev, tm, m, keep, with_z=True, with_u=True):
+    nan, n = float("nan"), tm.n_layers
+    rows = lambda: [torch.full((m, tm.Hp), nan, device=dev) for _ in range(n - 1)]  # noqa
+    return dict(ss=torch.full((n - 1, m, tm.Hp), nan, device=dev),
+                acts=rows() if keep else None,
+                z=torch.full((m, tm.d_out), nan, device=dev) if with_z else None,
+                u=torch.full((m, tm.Ep), nan, device=dev) if with_u else None,
+                ts=rows() if keep else None, cs=[None] + rows()[1:] if keep else None)
+
+
+def _trunk32_run(e, m, pack, tm, o):
+    FT.trunk_fwd(e, m, pack.ws, pack.bs, tm, ss=o["ss"], acts=o["acts"], z=o["z"])
+    FT.trunk_uchain(m, pack.ws, pack.wts, tm, o["ss"], u=o["u"], ts=o["ts"], cs=o["cs"])
+
+
+def _f32_rule(got, want):
+    err = (got - want).abs().flatten()
+    scale = max(float(want.abs().max()), 1e-6)
+    assert torch.isfinite(got).all()
+    assert float(err.median()) <= F32_TOL * scale and float(err.max()) <= F32_TOL * scale
+
+
+@pytest.mark.parametrize("keep", [False, True], ids=["render", "keep"])
+@pytest.mark.parametrize("m", FUSED_TRUNK_M)
+def test_fused_trunk_f32_matches_plain(dev, m, keep):
+    """Every output of the pair (z, the sigmoid rows, u; with keep the
+    activation, t and c rows) into NaN-filled buffers against
+    trunk_fwd_plain / trunk_uchain_plain under the f32 rule; one launch of
+    each kernel a call, none of the split launches; a second run's bits."""
+    tm, pack = _fused_trunk32(dev)
+    e, n = _fused_e32(dev, pack, m), tm.n_layers
+    acts, ss, z = FT.trunk_fwd_plain(e, m, pack.ws, pack.bs, tm)
+    u, ts, cs = FT.trunk_uchain_plain(ss, pack.ws, tm)
+
+    def run():
+        o = _trunk32_outputs(dev, tm, m, keep)
+        kerns = (FT.TRUNK_FWD_F32, FT.TRUNK_UCHAIN_F32, FH.GEMM_F32, FT.UCHAIN)
+        before = [k.launches for k in kerns]
+        _trunk32_run(e, m, pack, tm, o)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kerns, before)] == [1, 1, 0, 0]
+        return o
+
+    o, again = run(), run()
+    _f32_rule(o["z"], z[:, :tm.d_out])
+    _f32_rule(o["u"], u)
+    for l in range(n - 1):
+        _f32_rule(o["ss"][l], ss[l])
+        if keep:
+            _f32_rule(o["acts"][l], acts[l])
+            _f32_rule(o["ts"][l], ts[l])
+            if l:
+                _f32_rule(o["cs"][l], cs[l])
+    for k, v in o.items():
+        for x, y in zip(v if isinstance(v, list) else [v], again[k] if isinstance(v, list)
+                        else [again[k]]):
+            assert x is None or torch.equal(x, y), k
+
+
+@pytest.mark.parametrize("m", [1, 65, 4097])
+def test_fused_trunk_f32_narrow_widths(dev, m):
+    """SMALL's trunk (Hp 64, Op 128: 32 and 64 columns a consumer) and the
+    recompute's outputs without z and u, under the f32 rule."""
+    tm, pack = _fused_trunk32(dev, SMALL)
+    e = _fused_e32(dev, pack, m)
+    acts, ss, z = FT.trunk_fwd_plain(e, m, pack.ws, pack.bs, tm)
+    u, ts, cs = FT.trunk_uchain_plain(ss, pack.ws, tm)
+    o = _trunk32_outputs(dev, tm, m, keep=False)
+    _trunk32_run(e, m, pack, tm, o)
+    k = _trunk32_outputs(dev, tm, m, keep=True, with_z=False, with_u=False)
+    _trunk32_run(e, m, pack, tm, k)
+    torch.cuda.synchronize()
+    _f32_rule(o["z"], z[:, :tm.d_out])
+    _f32_rule(o["u"], u)
+    for l in range(tm.n_layers - 1):
+        _f32_rule(k["ss"][l], ss[l])
+        _f32_rule(k["acts"][l], acts[l])
+        _f32_rule(k["ts"][l], ts[l])
+
+
+def test_fused_trunk_f32_no_worse_than_the_split_launches(dev):
+    """At 56,448 points (an f32 step's fine points), z, u and the last
+    sigmoid row of the pair and of the split launches against the f64
+    chain: the pair's relative L2 within TRUNK32_VS_SPLIT of the split's."""
+    tm, pack = _fused_trunk32(dev)
+    m = 56448
+    e = _fused_e32(dev, pack, m)
+    o = _trunk32_outputs(dev, tm, m, keep=False)
+    _trunk32_run(e, m, pack, tm, o)
+    sp = _trunk32_outputs(dev, tm, m, keep=False)
+    FT.cuda_trunk_forward_split(FF._lib(), e, m, pack.ws, pack.bs, pack.wts, tm,
+                                dict(ss=sp["ss"], acts=[], ts=[]),
+                                torch.cuda.current_stream().cuda_stream, z=sp["z"], u=sp["u"])
+    W = [w.double() for w in pack.ws]
+    x0 = e.double()
+    a, s64 = x0, []
+    for l in range(tm.n_layers):
+        x = torch.cat([a, x0], 1) / np.sqrt(2.0) if l == tm.skip else a
+        y = x @ W[l] + pack.bs[l].double()
+        if l < tm.n_layers - 1:
+            s64.append(torch.sigmoid(100.0 * y))
+            a = torch.logaddexp(100.0 * y, torch.zeros_like(y)) / 100.0
+    z64 = y[:, :tm.d_out]
+    t = W[-1][:tm.Hp, 0] * s64[-1]
+    for l in range(tm.n_layers - 2, -1, -1):
+        mm = t @ W[l].T
+        if l == tm.skip:
+            c, u64 = mm[:, :tm.Hp] / np.sqrt(2.0), mm[:, tm.Hp:] / np.sqrt(2.0)
+        else:
+            c = mm
+        if l:
+            t = c * s64[l - 1]
+        else:
+            u64 = u64 + c
+    torch.cuda.synchronize()
+    rel = lambda g, r: float((g.double() - r).norm() / r.norm())  # noqa: E731
+    for got, split, ref in ((o["z"], sp["z"], z64), (o["u"], sp["u"], u64),
+                            (o["ss"][-1], sp["ss"][-1], s64[-1])):
+        assert rel(got, ref) <= TRUNK32_VS_SPLIT * rel(split, ref) + 1e-9
+
+
+def test_fused_trunk_f32_rejects_what_the_kernels_do_not_take(dev):
+    """A bf16 e for an f32 trunk, an sdf column, no sigmoid rows, a width
+    the tiles do not split (Hp 192): ValueError before a launch."""
+    tm, pack = _fused_trunk32(dev)
+    e, n = _fused_e32(dev, pack, 70), tm.n_layers
+    ss = torch.empty((n - 1, 70, tm.Hp), device=dev)
+    before = FT.TRUNK_FWD_F32.launches, FT.TRUNK_UCHAIN_F32.launches
+    for kw in (dict(e=e.to(torch.bfloat16), ss=ss), dict(ss=ss, sdf=torch.empty(70, device=dev)),
+               dict(z=torch.empty((70, 257), device=dev)),
+               dict(tm=tm._replace(d_hidden=192), ss=torch.empty((n - 1, 70, 192), device=dev))):
+        args = dict(e=e, tm=tm) | kw
+        with pytest.raises(ValueError):
+            FT.trunk_fwd(args.pop("e"), 70, pack.ws, pack.bs, args.pop("tm"), **args)
+    assert (FT.TRUNK_FWD_F32.launches, FT.TRUNK_UCHAIN_F32.launches) == before
