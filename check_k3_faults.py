@@ -15,7 +15,8 @@ made in a copy of honerf_torch under build/k3_faults/<name>/, whose kernels
 build there; a child process runs the checks on that copy.  "sound" is an
 unedited copy and reads every check; a fault reads the checks of its
 groups (bf16: the first eight below, f32: the next six, fit: the next
-six, perpoint: the next five, trunk: the last; --groups reads only the named
+six, perpoint: the next five, trunk: the next two, trunkbwd32: the last
+with f32k3, f32k6, fitk3 and fitk6; --groups reads only the named
 groups, and skips the faults with none of them).  The checks, with the
 limits they hold:
 
@@ -126,7 +127,15 @@ limits they hold:
           caught above 1: the f32 rule's (median and max of every output
           over TOL_F32 of its range, against the plain versions) and the
           L2 to f64 over TOL_TRUNK32_VS_SPLIT x the split launches' (the
-          trunk group).
+          trunk group);
+  tbwd32  the f32 trunk's backward pair (hand_trunk_ut_f32_kernel,
+          hand_trunk_dz_f32_kernel) through fused_fine.cuda_trunk_backward
+          at chip_smoke.ragged_trunk_bwd32_calls (1 to 65,613 points, with
+          and without dW) (chip_smoke.trunk_bwd32_readings): the worst of
+          the f32 rule's ratio (every output against the plain versions)
+          and the L2 to f64 over TOL_TRUNK32_VS_SPLIT x the split launches',
+          each caught above 1 (the trunkbwd32 group, with f32k3, f32k6,
+          fitk3 and fitk6).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -159,6 +168,8 @@ _SDF_CU = "honerf_torch/ops/csrc/fused_sdf.cu"
 _FT_CU = "honerf_torch/ops/csrc/fused_trunk.cu"
 _TF_CU = "honerf_torch/ops/csrc/trunk_fused.cu"
 _T32_CU = "honerf_torch/ops/csrc/trunk_fused_f32.cu"
+_TF32_CUH = "honerf_torch/ops/csrc/tf32.cuh"
+_TB32_CU = "honerf_torch/ops/csrc/trunk_bwd_f32.cu"
 
 # name -> (what it breaks, file, text, replacement, groups of checks it is
 # read by); the text must occur exactly once in the file
@@ -169,14 +180,14 @@ FAULTS = {
         "z[i] = (z[i] * p.hscale) * sv[i] + 0.f * dsv[i];", ("bf16",)),
     "db_from_bf16": (
         "the trunk's db summed from the bf16 copy of dz (K3 and K6)", _TRUNK_PY,
-        "_colsum(lib, dzf[cur], width, m, dbs[l], acc, scratch, stream)",
-        "_colsum(lib, dzb[cur].float(), width, m, dbs[l], acc, scratch, stream)", ("bf16",)),
+        "_colsum(lib, Zf, width, m, dbs[l], acc, scratch, stream)",
+        "_colsum(lib, Zb.float(), width, m, dbs[l], acc, scratch, stream)", ("bf16",)),
     "dw_skip_unscaled": (
         "the skip layer's dW rows of the embedding miss the concat's 1/sqrt2 (K3 and K6)",
         _TRUNK_PY,
-        "_tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, scratch, stream,\n"
-        "                    x_scale=skip_scale)",
-        "_tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, scratch, stream)", ("bf16",)),
+        "_tn(lib, e, Ep, Ep, Zb, width, m, dws[l][Hp:], 1, scratch, stream,\n"
+        "            x_scale=skip_scale)",
+        "_tn(lib, e, Ep, Ep, Zb, width, m, dws[l][Hp:], 1, scratch, stream)", ("bf16",)),
     "doff_no_v2p": (
         "doff misses the v2p term of dq", _CU,
         "Pr[192 + col] = dq[k];",
@@ -338,7 +349,7 @@ FAULTS = {
         "w[i] = __bfloat162float(p.w_last[(size_t)(col + i) * p.ldw + 1]);", ("trunk",)),
     "t32_small_dropped": (
         "the f32 trunk's pair drops the small terms of 3xTF32: big.big alone (1xTF32)",
-        _T32_CU,
+        _TF32_CUH,
         "      t32_mma<NW>(fresh, ab[kk], wg::smem_desc(b1 + 32 * kk, wg::K_MAJOR_LBO, wg::SBO),\n"
         "                  kk ? 1 : open);\n"
         "    wg::wgmma_commit();\n"
@@ -361,10 +372,11 @@ FAULTS = {
         "      t32_mma<NW>(fresh, ab[kk], wg::smem_desc(b2 + 32 * kk, wg::K_MAJOR_LBO, wg::SBO),\n"
         "                  kk ? 1 : open);\n", ("trunk",)),
     "t32_one_accumulator": (
-        "the f32 trunk's pair sums every K step into one accumulator (no fresh sum a step)",
-        _T32_CU,
+        "the f32 trunk's four fused kernels (the forward pair and the backward pair: their "
+        "shared K step, tf32.cuh) sum every K step into one accumulator (no fresh sum a step)",
+        _TF32_CUH,
         "  for (int i = 0; i < R; ++i) run[i] = __fadd_rn(run[i], fresh[i]);\n  return 0;",
-        "  for (int i = 0; i < R; ++i) run[i] = fresh[i];\n  return 1;", ("trunk",)),
+        "  for (int i = 0; i < R; ++i) run[i] = fresh[i];\n  return 1;", ("trunk", "trunkbwd32")),
     "t32_ragged_tail": (
         "the f32 forward stores no z row of the ragged last tile", _T32_CU,
         "      if (grow >= p.M) continue;\n      float* zr",
@@ -378,12 +390,35 @@ FAULTS = {
         "_ints([w.shape[1] for w in ws]), _ptrs(bs), INV_SQRT2, ss.data_ptr(),",
         "_ints([w.shape[1] for w in ws]), _ptrs(bs), INV_SQRT2_BF16, ss.data_ptr(),",
         ("trunk",)),
+    "tb32_ds_no_c": (
+        "the f32 upward chain's ds misses its c term (ds = dt, not dt c)", _TB32_CU,
+        "const float2 dv = make_float2(z0 * cv[j][h].x, z1 * cv[j][h].y);",
+        "const float2 dv = make_float2(z0, z1);", ("trunkbwd32",)),
+    "tb32_skip_du_s_dropped": (
+        "the f32 upward chain's skip product skips du_s's boxes (the embedding's part of dm)",
+        _TB32_CU, "(l == 0 || l == skip) ? Ep / TF32_BK : 0,", "l == 0 ? Ep / TF32_BK : 0,",
+        ("trunkbwd32",)),
+    "tb32_dz_no_ds": (
+        "the f32 downward chain's dz misses its second-order term ds beta s (1 - s)", _TB32_CU,
+        "          (acc[4 * j + 2 * h] * hscale) * s.x + d.x * ((kBeta * s.x) * (1.f - s.x)),\n"
+        "          (acc[4 * j + 2 * h + 1] * hscale) * s.y + d.y * ((kBeta * s.y) * (1.f - s.y)));",
+        "          (acc[4 * j + 2 * h] * hscale) * s.x + 0.f * d.x,\n"
+        "          (acc[4 * j + 2 * h + 1] * hscale) * s.y + 0.f * d.y);", ("trunkbwd32",)),
+    "tb32_skip_de_dropped": (
+        "the f32 downward chain drops the skip's part of de (layer 0's alone)", _TB32_CU,
+        "*de = make_float2(__fmul_rn(a0, p.escale), __fmul_rn(a1, p.escale));",
+        "*de = make_float2(0.f, 0.f);", ("trunkbwd32",)),
+    "tb32_ragged_tail": (
+        "the f32 upward chain stores no ds (nor dm) row of the ragged last tile", _TB32_CU,
+        "      if (grow < p.M) {\n        *reinterpret_cast<float2*>(ds",
+        "      if (grow < (p.M & ~(TF32_TILE - 1))) {\n        *reinterpret_cast<float2*>(ds",
+        ("trunkbwd32",)),
     "pose_drop_tail": (
         "the pose sums drop the rows past the last full split (a ragged last block sums "
         "nothing)", _CU, "const int r0 = s * split, r1 = min(M, r0 + split);",
         "const int r0 = s * split, r1 = r0 + split <= M ? r0 + split : r0;", ("perpoint",)),
 }
-GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk")
+GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk", "trunkbwd32")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
 STEP_SEEDS = {"sound": (1, 2, 3, 4)}
@@ -479,41 +514,60 @@ def child(name: str, root: str, groups) -> None:
             out["k6step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
         out["bgemm"] = {"0": [[r.what, r.l2, r.ok]
                               for r in CS.bf16_gemm_readings(torch, dev, timed=False)]}
-    if "f32" in groups:
+    if "f32" in groups or "trunkbwd32" in groups:
+        # K3 f32 with dW and K5 / K6 f32 on an f32 step's inputs: the f32
+        # group's, and the f32 trunk backward's (trunkbwd32)
         from honerf_torch.ops import fused_fine as FT
-        from honerf_torch.ops import fused_fine_full as FF
 
-        out.update({k: {} for k in ("f32k3", "f32nc", "f32k6", "f32step")})
-        out["gemm"] = {"0": [[r.what, r.l2, r.ok]
-                             for r in CS.f32_gemm_readings(torch, dev, timed=False)]}
         fs = CS.flagship(torch, dev, "f32")
-
+        out["f32k3"] = {}
         for seed in F32_SEEDS.get(name, (0,)):
             args = CS.step_bwd_inputs(torch, fs, dev, seed)
             out["f32k3"][str(seed)] = [[r.what, r.l2, r.ok]
                                        for r in CS.f32_bwd_check(torch, args)[1]]
+        args = CS.step_bwd_inputs(torch, fs, dev, mode="pallas")
+        out["f32k6"] = {"0": (fwd_rows(CS, torch, ("out", "u"),
+                                       FT.hand_trunk_sdf_u_fwd(*args[:2]),
+                                       FT.hand_trunk_sdf_u_plain(*args[:2]))
+                              + [[r.what, r.l2, r.ok]
+                                 for r in CS.f32_bwd_check(torch, args, "pallas")[1]])}
+    if "f32" in groups:
+        from honerf_torch.ops import fused_fine_full as FF
+
+        out.update({k: {} for k in ("f32nc", "f32step")})
+        out["gemm"] = {"0": [[r.what, r.l2, r.ok]
+                             for r in CS.f32_gemm_readings(torch, dev, timed=False)]}
         args = CS.step_bwd_inputs(torch, fs, dev, mode="full_nocolor")
         out["f32nc"]["0"] = (fwd_rows(CS, torch, ("out", "g", "e"),
                                       FF.hand_fine_color_fwd(*args[:5]),
                                       FF.hand_fine_color_plain(*args[:5]))
                              + [[r.what, r.l2, r.ok]
                                 for r in CS.f32_bwd_check(torch, args, "full_nocolor")[1]])
-        args = CS.step_bwd_inputs(torch, fs, dev, mode="pallas")
-        out["f32k6"]["0"] = (fwd_rows(CS, torch, ("out", "u"),
-                                      FT.hand_trunk_sdf_u_fwd(*args[:2]),
-                                      FT.hand_trunk_sdf_u_plain(*args[:2]))
-                             + [[r.what, r.l2, r.ok]
-                                for r in CS.f32_bwd_check(torch, args, "pallas")[1]])
         for mode in ("full", "full_nocolor", "pallas"):
             r = CS.train_check_readings(torch, fs, dev, 1, mode=mode)
             out["f32step"][mode] = {"loss": r.worst_metric, "leaves": r.rel}
         out["f32unit"] = {f"{kind} {case}": TC.f32_bwd_rule_readings(kind, sdf_kw, n, dev)[2]
                           for kind in ("color", "nocolor", "trunk")
                           for case, (sdf_kw, n) in TC.F32_BWD_CASES.items()}
-    if "fit" in groups:
-        out.update({k: {} for k in ("fitf64", "fitgrid", "fitk1", "fitk3", "fitnc",
-                                    "fitk6")})
+    if "fit" in groups or "trunkbwd32" in groups:
+        # the frozen K3 f32 and K5 / K6 f32 at a fit step: the fit group's,
+        # and the f32 trunk backward's (trunkbwd32)
+        from honerf_torch.ops import fused_fine as FT
+
         fn = CS.fit_nets(torch, dev)
+        out.update({k: {} for k in ("fitk3", "fitk6")})
+        args = CS.fit_step_inputs(torch, fn, dev)
+        for label, seed in (("own", None), ("unit", 3)):
+            out["fitk3"][label] = [[r.what, r.l2, r.ok] for r in CS.f32_bwd_check(
+                torch, args, want_dw=False, seed=seed, shared_g=False)[1]]
+        args = CS.fit_step_inputs(torch, fn, dev, "12", mode="pallas")
+        out["fitk6"]["fwd"] = fwd_rows(CS, torch, ("out", "u"), FT.hand_trunk_sdf_u_fwd(*args[:2]),
+                                       FT.hand_trunk_sdf_u_plain(*args[:2]))
+        for label, seed in (("own", None), ("unit", 3)):
+            out["fitk6"][label] = [[r.what, r.l2, r.ok] for r in CS.f32_bwd_check(
+                torch, args, "pallas", want_dw=False, seed=seed)[1]]
+    if "fit" in groups:
+        out.update({k: {} for k in ("fitf64", "fitgrid", "fitk1", "fitnc")})
 
         r = CS.fit_check_readings(torch, fn, dev, fused_ladder=False, seed=2, terms=True)
         out["fitf64"]["2"] = {"ratio": max(CS.fit_f64_ratios(r)),
@@ -529,18 +583,11 @@ def child(name: str, root: str, groups) -> None:
             med, _, mx, scale = r.k1
             out["fitk1"][str(seed)] = {"ratio": max(CS.fit_f64_ratios(r)),
                                        "k1_median": med / scale, "k1_max": mx / scale}
-        args = CS.fit_step_inputs(torch, fn, dev)
-        for label, seed in (("own", None), ("unit", 3)):
-            out["fitk3"][label] = [[r.what, r.l2, r.ok] for r in CS.f32_bwd_check(
-                torch, args, want_dw=False, seed=seed, shared_g=False)[1]]
-        from honerf_torch.ops import fused_fine as FT
         from honerf_torch.ops import fused_fine_full as FF
 
         for check, mode, fwd, plain, names, lead in (
                 ("fitnc", "full_nocolor", FF.hand_fine_color_fwd, FF.hand_fine_color_plain,
-                 ("out", "g", "e"), 5),
-                ("fitk6", "pallas", FT.hand_trunk_sdf_u_fwd, FT.hand_trunk_sdf_u_plain,
-                 ("out", "u"), 2)):
+                 ("out", "g", "e"), 5),):
             args = CS.fit_step_inputs(torch, fn, dev, "12", mode=mode)
             out[check]["fwd"] = fwd_rows(CS, torch, names, fwd(*args[:lead]), plain(*args[:lead]))
             for label, seed in (("own", None), ("unit", 3)):
@@ -581,6 +628,13 @@ def child(name: str, root: str, groups) -> None:
              max(r.rule, r.l2_ratio) if r.same else float("inf"), r.ok]
             for r in CS.trunk32_readings(torch, dev, nets, CS.ragged_trunk32_pairs(),
                                          timed=False)]}
+    if "trunkbwd32" in groups:
+        nets = CS.trunk32_nets(torch, dev)
+        out["tbwd32"] = {"0": [
+            [f"f32 backward pair {r.m} keep {r.keep}",
+             max(r.rule, r.l2_ratio) if r.same else float("inf"), r.ok]
+            for r in CS.trunk_bwd32_readings(torch, dev, nets, CS.ragged_trunk_bwd32_calls(),
+                                             timed=False)]}
     print(json.dumps(out))
 
 
@@ -645,7 +699,7 @@ def judge(CS, res):
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
     for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt",
-                  "k4", "copy", "pack", "pose", "trunk", "trunk32"):
+                  "k4", "copy", "pack", "pose", "trunk", "trunk32", "tbwd32"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []
@@ -707,7 +761,7 @@ def main() -> int:
     ap.add_argument("--only", help="comma-separated names (sound and FAULTS) to run")
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma-separated groups of checks to read (bf16, f32, fit, "
-                         "perpoint, trunk)")
+                         "perpoint, trunk, trunkbwd32)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     a = ap.parse_args()

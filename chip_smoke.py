@@ -202,18 +202,21 @@ no ladder kernel unless train.fused_ladder is set), after 20:
               bound of reduce_partials_kernel over a 'full' step's
               recorded dW products; two pose sums a 'full' and a
               'full_nocolor' step, four packs a 'pallas' one; a step of
-              each mode 4 launches of each f32 fused kernel, no seed, and
-              gemm_f32_kernel 64 ('full') or 34 (the color net's and the
-              trunk backward's); the trunk's calls of a 'full' and a
-              'pallas' step recorded for phase 36;
+              each mode 4 launches of each f32 fused forward kernel and 2 of
+              each fused backward one (hand_trunk_ut_f32_kernel,
+              hand_trunk_dz_f32_kernel), no seed, and gemm_f32_kernel 30
+              ('full': the color net's) or none; the trunk's calls of a
+              'full' and a 'pallas' step recorded for phases 36 and 37, a
+              'full_nocolor' step's for 37;
  26b. per-point kernels f32  the pack at a 'pallas' step's recorded
               calls and the pose sum at a 'full' step's, as in 9b;
  27. train check f32  one 64-ray step per kernel mode, card against CPU;
  28. serve f32  one 4096-ray 'full' request (the eval render's K1
               ladder, whatever the trunk's dtype, as in the JAX package; K2
               f32: 16 passes, the fused f32 pair 16 times, gemm_f32_kernel
-              80, no seed) against the CPU on the 128 rays that meet the
-              most surface; its trunk calls recorded for phase 36.
+              80, no seed, no backward kernel) against the CPU on the 128
+              rays that meet the most surface; its trunk calls recorded for
+              phase 36.
 
 Pose fitting (the fit confs, f32 trunks), after 13:
 
@@ -267,8 +270,25 @@ Pose fitting (the fit confs, f32 trunks), after 13:
               at the same call, the pair's worst within TOL_TRUNK32_VS_SPLIT
               of the split's; ms of each kernel, of the split launches and of
               the plain versions beside the bounds; each path's launches of
-              gemm_f32_kernel, uchain_seed_kernel and the pair against
-              TRUNK32_LAUNCHES (phases 26, 28 and this one count them).
+              gemm_f32_kernel, uchain_seed_kernel, the pair and the backward
+              pair against TRUNK32_LAUNCHES (phases 26, 28 and this one count
+              them);
+ 37. fused trunk backward f32  the f32 trunk's backward as two fused
+              kernels (hand_trunk_ut_f32_kernel, the u-chain transposed
+              upward, then hand_trunk_dz_f32_kernel, the forward transposed
+              downward, 3xTF32 on wgmma) at the calls one f32 'full',
+              'full_nocolor' and 'pallas' step and one '12' fit step make
+              (recorded by phases 26 and 36), and at ragged sizes (1 to
+              65,613 points, with and without dW), through
+              fused_fine.cuda_trunk_backward: every output (ds, de; with dW
+              every kept dm and dz row, each dW and db) into NaN-filled
+              buffers against the plain versions on the card under the f32
+              rule, a rerun's bits, the relative L2 to the f64 chains
+              (trunk_bwd_f64) within TOL_TRUNK32_VS_SPLIT of the split
+              launches' (one gemm_f32_kernel a layer,
+              fused_fine.cuda_trunk_backward_split); ms of each kernel, of
+              the chain against the split chain and the plain chains beside
+              the bounds; two calls of the pair a step, one a pass.
 
 Weights are random (geometric init plus seeded noise, so every embedding
 column is live).  check_k3_faults.py runs the kernel, train and fit
@@ -279,7 +299,9 @@ numbers (each kernel's other modes beside it: no-color, f32, f32 at a
 request, f32 no-color, f32 with dW; the fused trunk's two kernels TFWD
 and TUCH at a request's calls, K1's and K2's shares and a bf16 step's;
 the f32 pair TFWD32 and TUCH32 at an f32 request's calls, an f32 'full'
-and 'pallas' step's and a fit step's, beside the split launches';
+and 'pallas' step's and a fit step's, beside the split launches'; the
+f32 backward pair TUT32 and TDZ32 at an f32 'full' step's calls, a
+'full_nocolor', 'pallas' and fit step's, the chain beside the split one;
 the bf16 and the f32 GEMMs alone and
 the per-point kernels EMBED, COLSUM, UCHAIN, BWDREV, COPY, PACK and POSE
 in rows of their own; BWDREV counts launches on every path that runs it:
@@ -1117,12 +1139,14 @@ def record_trunk_calls(fn):
     """Run fn() once with the fused trunk's wrappers recording their calls
     in launch order: ("fwd", m, last, keep, dtype) (fused_fine.trunk_fwd:
     last "sdf" for K1's column, z's n_store, or None; keep: the activation
-    rows stored; dtype the trunk's, "bf16" or "f32") and ("uc", m, with_u,
-    keep, dtype) (fused_fine.trunk_uchain)."""
+    rows stored; dtype the trunk's, "bf16" or "f32"), ("uc", m, with_u,
+    keep, dtype) (fused_fine.trunk_uchain), and the f32 backward's ("ut",
+    m, keep, None, "f32") and ("dz", m, keep, None, "f32")
+    (fused_fine.trunk_ut, trunk_dz; keep: the dm or dz rows stored)."""
     from honerf_torch.ops import fused_fine as FT
 
     calls = []
-    fwd, uc = FT.trunk_fwd, FT.trunk_uchain
+    fwd, uc, ut, dz = FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz
 
     def rec_fwd(e, m, ws, bs, tm, ss=None, acts=None, z=None, sdf=None, stream=None):
         last = "sdf" if sdf is not None else (None if z is None else z.shape[1])
@@ -1133,11 +1157,19 @@ def record_trunk_calls(fn):
         calls.append(("uc", m, u is not None, ts is not None, tm.dtype))
         return uc(m, ws, wts, tm, ss, u=u, ts=ts, cs=cs, stream=stream)
 
-    FT.trunk_fwd, FT.trunk_uchain = rec_fwd, rec_uc
+    def rec_ut(m, ws, tm, du_b, du_s, ss, cs, c_last, ds, dms=None, stream=None):
+        calls.append(("ut", m, dms is not None, None, tm.dtype))
+        return ut(m, ws, tm, du_b, du_s, ss, cs, c_last, ds, dms, stream)
+
+    def rec_dz(m, ws, tm, top, ss, ds, de, dzs=None, stream=None):
+        calls.append(("dz", m, dzs is not None, None, tm.dtype))
+        return dz(m, ws, tm, top, ss, ds, de, dzs, stream)
+
+    FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz = rec_fwd, rec_uc, rec_ut, rec_dz
     try:
         fn()
     finally:
-        FT.trunk_fwd, FT.trunk_uchain = fwd, uc
+        FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz = fwd, uc, ut, dz
     return calls
 
 
@@ -1302,25 +1334,33 @@ def trunk_text(r) -> str:
 # '12' fit step, one f32 'full' and 'pallas' step and one f32 request
 # (record_trunk_calls, filled by the f32 and fit phases)
 TRUNK32_CALLS = {}
+# The f32 backward's calls (trunk_ut, trunk_dz) of one f32 'full',
+# 'full_nocolor' and 'pallas' step and one '12' fit step (the same
+# recordings; the 'full_nocolor' step's only here)
+TRUNK_BWD32_CALLS = {}
 # their launches a step or request (gemm_f32_kernel, uchain_seed_kernel,
-# hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel), filled beside them
+# hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel, hand_trunk_ut_f32_kernel,
+# hand_trunk_dz_f32_kernel), filled beside them
 TRUNK32_COUNTS = {}
+TRUNK32_KERNELS = ("GEMM_F32", "UCHAIN", "TFWD32", "TUCH32", "TUT32", "TDZ32")
 # The fused f32 pair against the split launches, both against f64 in L2:
 # no worse than the split's worst output, by this factor (the same split,
 # the same 32-deep fresh sums; wgmma's internal order is not mma.sync's)
 TOL_TRUNK32_VS_SPLIT = 1.25
-# The f32 paths' launches a step or request (gemm_f32_kernel,
-# uchain_seed_kernel, hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel):
-# the color net's GEMMs and the trunk backward's, no seed, the fused pair
-# once a pass of K2, K3, K5 and K6
-TRUNK32_LAUNCHES = {"f32 'full' step": (64, 0, 4, 4), "'12' fit step": (64, 0, 4, 4),
-                    "f32 'pallas' step": (34, 0, 4, 4), "f32 request": (80, 0, 16, 16)}
+# The f32 paths' launches a step or request (TRUNK32_KERNELS): the color
+# net's GEMMs (5 a pass of K2, of K3's recompute and of its backward), no
+# seed, the fused forward pair once a pass of K2, K3, K5 and K6, the fused
+# backward pair once a pass of K3 and K6 (the trunk backward's 17
+# gemm_f32_kernel a pass before it)
+TRUNK32_LAUNCHES = {"f32 'full' step": (30, 0, 4, 4, 2, 2), "'12' fit step": (30, 0, 4, 4, 2, 2),
+                    "f32 'pallas' step": (0, 0, 4, 4, 2, 2),
+                    "f32 request": (80, 0, 16, 16, 0, 0)}
 
 
 def trunk32_pairs(calls):
     """The recorded f32 calls (record_trunk_calls) as (forward, u-chain)
     pairs: (m, last, keep, with_u), each forward followed by its u-chain."""
-    f32 = [c for c in calls if c[-1] == "f32"]
+    f32 = [c for c in calls if c[-1] == "f32" and c[0] in ("fwd", "uc")]
     pairs = []
     for fwd, uc in zip(f32[::2], f32[1::2]):
         assert fwd[0] == "fwd" and uc[0] == "uc" and fwd[1] == uc[1] and fwd[3] == uc[3], \
@@ -1543,6 +1583,261 @@ def trunk32_text(r) -> str:
         text += (f"; fwd {r.fwd_ms:.4f} ms (bound {r.fwd_bound_ms:.4f}), u-chain "
                  f"{r.uc_ms:.4f} ms (bound {r.uc_bound_ms:.4f}), the pair {r.ms:.4f} ms against "
                  f"the split launches' {r.split_ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound "
+                 f"{r.bound_ms:.4f} ms ({r.bound_by}): {r.bound_ms / r.ms:.2f} of it")
+    return text + ("" if r.ok else " FAIL")
+
+
+def trunk_bwd32_calls(calls):
+    """The recorded f32 backward calls (record_trunk_calls) as (m, keep),
+    each upward chain followed by its downward one."""
+    bwd = [c for c in calls if c[0] in ("ut", "dz")]
+    out = []
+    for ut, dz in zip(bwd[::2], bwd[1::2]):
+        assert ut[0] == "ut" and dz[0] == "dz" and ut[1:3] == dz[1:3], \
+            f"an upward chain not followed by its downward one: {ut}, {dz}"
+        out.append((ut[1], ut[2]))
+    return out
+
+
+def ragged_trunk_bwd32_calls():
+    """The f32 backward at sizes the main path's leave out, with and
+    without the kept rows (dW)."""
+    return [(m, keep) for m in (1, 63, 64, 65, 1001, 65613) for keep in (False, True)]
+
+
+def trunk_bwd_f64(torch, x, ws, tm, want_dw: bool):
+    """The f32 trunk's backward in f64 on the same f32 values
+    (_trunk_bwd_block's statements): ds, de and with want_dw every dW and
+    db; x: trunk_bwd32_inputs' namespace."""
+    import math
+
+    n, Hp, skip = tm.n_layers, tm.Hp, tm.skip
+    inv = 1.0 / math.sqrt(2.0)
+    W = [w.double() for w in ws]
+    S = [s.double() for s in x.ss]
+    C = [None] + [c.double() for c in x.cs[1:n - 1]] + [x.c_last.double()]
+    du = x.du.double()
+    dm, dms, ds = du, [du], []
+    for l in range(n - 1):
+        xx = torch.cat([dm, du * inv], 1) if l == skip else dm
+        dt = xx @ W[l]
+        ds.append(dt * C[l + 1])
+        dm = dt * S[l] * (inv if l + 1 == skip else 1.0)
+        dms.append(torch.cat([dm, du * inv], 1) if l + 1 == skip else dm)
+    dz = x.top.double()
+    dzs, de = [None] * (n - 1) + [dz], None
+    for l in range(n - 1, 0, -1):
+        din = dz @ W[l].T
+        if l == skip:
+            da, de = din[:, :Hp] * inv, din[:, Hp:] * inv
+        else:
+            da = din
+        dz = dzs[l - 1] = da * S[l - 1] + ds[l - 1] * (100.0 * S[l - 1] * (1.0 - S[l - 1]))
+    out = dict(ds=ds, de=de + dz @ W[0].T)
+    if want_dw:
+        e = x.e.double()
+        T = [t.double() for t in x.ts[:n - 1]] + [x.onehot.double()]
+        ins = [e] + [torch.cat([a.double(), e], 1) * inv if l == skip else a.double()
+                     for l, a in zip(range(1, n), x.acts)]
+        out["dws"] = [dms[l].T @ T[l] + ins[l].T @ dzs[l] for l in range(n)]
+        out["dbs"] = [dzs[l].sum(0) for l in range(n)]
+    return out
+
+
+def trunk_bwd32_inputs(torch, dev, nets, m):
+    """The f32 backward's inputs at m points on the flagship's f32 trunk: the
+    f32 embedding of the first m points, the forward's rows (the plain
+    versions on the card: sigmoid, activation, t and c rows), seeded
+    cotangents du (du_b; du_s = du / sqrt2) and the top one (d_out live
+    columns of Op, the rest 0, as the seeds write it)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_hand as FH
+
+    tm, cfg, ws = nets.fine32.meta.trunk_meta, nets.cfg, nets.fine32.ws
+    n, f32 = tm.n_layers, torch.float32
+    e = torch.empty((m, tm.Ep), device=dev, dtype=f32)
+    FH.embed(FH._lib("fused_hand"), nets.pts, m, *nets.pose, cfg.v_multires, cfg.r_multires, e,
+             torch.cuda.current_stream(dev).cuda_stream)
+    acts, ss, _ = FT.trunk_fwd_plain(e, m, ws, nets.fine32.bs, tm, last=False)
+    _, ts, cs = FT.trunk_uchain_plain(ss, ws, tm)
+    gen = torch.Generator(device=dev).manual_seed(m)
+    du = torch.zeros((m, tm.Ep), device=dev)
+    du[:, :tm.emb_width] = torch.randn((m, tm.emb_width), device=dev, generator=gen)
+    top = torch.zeros((m, tm.Op), device=dev)
+    top[:, :tm.d_out] = torch.randn((m, tm.d_out), device=dev, generator=gen)
+    onehot = torch.zeros((m, tm.Op), device=dev)
+    onehot[:, 0] = 1.0
+    return SimpleNamespace(e=e, acts=acts, ss=torch.stack(ss), ts=ts, cs=[None] + cs[1:n - 1],
+                           c_last=ws[n - 1][:, 0].contiguous(), du=du,
+                           du_s=du * FT.INV_SQRT2, top=top, onehot=onehot)
+
+
+def trunk_bwd32_readings(torch, dev, nets, calls, timed: bool = True):
+    """hand_trunk_ut_f32_kernel then hand_trunk_dz_f32_kernel at each
+    distinct (m, keep) of `calls` (trunk_bwd32_calls), weighted by its
+    count, on the flagship's f32 trunk (trunk32_nets) at
+    trunk_bwd32_inputs: through cuda_trunk_backward (the two chains, then
+    with keep the f32 TN GEMMs and column sums on their kept rows) every
+    output (ds, de; with keep every kept dm and dz row, each dW and db),
+    into NaN-filled buffers, against the plain versions on the card
+    (trunk_ut_plain, trunk_dz_plain on the plain rows, dW_l = dm_l^T t_l +
+    in_l^T dz_l and db_l in f32) under the f32 rule (TOL_F32 of each
+    output's range at the median and the max), a second run's bits, and
+    the relative L2 of ds, de (and each dW, db) to f64 (trunk_bwd_f64)
+    beside the split launches' (cuda_trunk_backward_split: one
+    gemm_f32_kernel a layer) at the same call, the fused worst within
+    TOL_TRUNK32_VS_SPLIT of the split's worst.  timed: ms of each kernel
+    (the call's keep), of the fused chain, of the split chain (want_dw
+    off: its 17 launches) and of the plain chains, and the bounds (3xTF32
+    operations of the unpadded layers; each input read once, each output
+    written once)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nan = float("nan")
+    tm, cfg = nets.fine32.meta.trunk_meta, nets.cfg
+    ws, wts = nets.fine32.ws, nets.fine32.wts
+    n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
+    lib = FF._bwd_lib()
+    scratch = torch.empty((FT._WS_FLOATS,), device=dev)
+    out = []
+    for (m, keep), count in _tally(calls).items():
+        x = trunk_bwd32_inputs(torch, dev, nets, m)
+        buf = dict(ss=x.ss, acts=x.acts, ts=x.ts, cs=x.cs)
+
+        def fresh(m=m, keep=keep, x=x):
+            bw = FT.trunk_bwd_buffers(ws, tm, m, dev, Op, keep)
+            for k in ("ds", "de"):
+                bw[k].fill_(nan)
+            for t in (bw.get("dms") or [])[1:] + (bw.get("dzs") or []):
+                t.fill_(nan)
+            bw["du_b"].copy_(x.du)
+            bw["du_s"].copy_(x.du_s)
+            bw["dzf"][0].copy_(x.top)
+            bw["dzb"][0].copy_(x.top)
+            dws = [torch.zeros(w.shape, device=dev) for w in ws] if keep else None
+            dbs = [torch.zeros(b.shape, device=dev) for b in nets.fine32.bs] if keep else None
+            return bw, dws, dbs
+
+        def fused(o, m=m, keep=keep, x=x, buf=buf):
+            FT.cuda_trunk_backward(lib, m, x.e, ws, wts, tm, buf, o[0], o[1], o[2], keep, 0,
+                                   scratch, stream)
+
+        def split(o, m=m, keep=keep, x=x, buf=buf):
+            FT.cuda_trunk_backward_split(lib, m, x.e, ws, wts, tm, buf, o[0], o[1], o[2], keep,
+                                         0, scratch, stream)
+
+        def plain_chains(x=x, m=m):
+            rows = x.cs + [x.c_last]
+            ds, dms = FT.trunk_ut_plain(x.du, x.du_s, m, ws, x.ss, rows, tm, keep=True)
+            return ds, dms, FT.trunk_dz_plain(x.top, m, ws, x.ss, ds, tm, keep=True)
+
+        o1, o2, sp = fresh(), fresh(), fresh()
+        fused(o1)
+        fused(o2)
+        split(sp)
+        ds_p, dms_p, (de_p, dzs_p) = plain_chains()
+        ref = trunk_bwd_f64(torch, x, ws, tm, keep)
+        torch.cuda.synchronize()
+        k_items = [("de", o1[0]["de"])] + [(f"ds[{l}]", o1[0]["ds"][l]) for l in range(n - 1)]
+        p_items = [("de", de_p)] + [(f"ds[{l}]", ds_p[l]) for l in range(n - 1)]
+        s_items = [("de", sp[0]["de"])] + [(f"ds[{l}]", sp[0]["ds"][l]) for l in range(n - 1)]
+        r_items = [("de", ref["de"])] + [(f"ds[{l}]", ref["ds"][l]) for l in range(n - 1)]
+        kept = []
+        if keep:
+            e64 = x.e
+            ins = [e64] + [torch.cat([a, e64], 1) * FT.INV_SQRT2 if l == tm.skip else a
+                           for l, a in zip(range(1, n), x.acts)]
+            T = x.ts[:n - 1] + [x.onehot]
+            dm0 = [x.du] + [torch.cat([dms_p[l], x.du_s], 1) if l == tm.skip else dms_p[l]
+                            for l in range(1, n)]
+            dws_p = [dm0[l].T @ T[l] + ins[l].T @ dzs_p[l] for l in range(n)]
+            dbs_p = [dzs_p[l].sum(0) for l in range(n)]
+            for name, got, want, split_, f64 in (("dW", o1[1], dws_p, sp[1], ref["dws"]),
+                                                 ("db", o1[2], dbs_p, sp[2], ref["dbs"])):
+                for l in range(n):
+                    k_items.append((f"{name}[{l}]", got[l]))
+                    p_items.append((f"{name}[{l}]", want[l]))
+                    s_items.append((f"{name}[{l}]", split_[l]))
+                    r_items.append((f"{name}[{l}]", f64[l]))
+            kept = ([(f"dm[{l}]", o1[0]["dms"][l], dms_p[l]) for l in range(1, n)]
+                    + [(f"dz[{l}]", o1[0]["dzs"][l], dzs_p[l]) for l in range(n - 1)])
+        pairs = [(w, g, p) for (w, g), (_, p) in zip(k_items, p_items)] + kept
+        checks = [compare(torch, what, got, want, TOL_F32, TOL_F32) for what, got, want in pairs]
+        rule = max(max(rd[0], rd[2]) / (TOL_F32 * rd[3]) if rd[3] > 0 else 0.0
+                   for rd in (err_readings(torch, got, want) for _, got, want in pairs))
+
+        def l2(got, r):
+            return float((got.double() - r).norm()) / max(float(r.norm()), 1e-300)
+
+        k_l2 = [l2(g, r) for (_, g), (_, r) in zip(k_items, r_items)]
+        s_l2 = [l2(g, r) for (_, g), (_, r) in zip(s_items, r_items)]
+        mine = [o1[0]["de"], o1[0]["ds"]] + ([*o1[0]["dms"][1:], *o1[0]["dzs"], *o1[1], *o1[2]]
+                                             if keep else [])
+        again = [o2[0]["de"], o2[0]["ds"]] + ([*o2[0]["dms"][1:], *o2[0]["dzs"], *o2[1], *o2[2]]
+                                              if keep else [])
+        same = all(torch.equal(a, b) for a, b in zip(mine, again))
+        worst_k, worst_s = max(k_l2), max(s_l2)
+        r = SimpleNamespace(m=m, keep=keep, count=count, checks=checks, same=same, rule=rule,
+                            worst_k=worst_k, worst_s=worst_s,
+                            l2_ratio=worst_k / (TOL_TRUNK32_VS_SPLIT * max(worst_s, 1e-30)),
+                            worst_what=k_items[k_l2.index(worst_k)][0],
+                            max_abs=max(c[1] for c in checks),
+                            ok=all(c[0] for c in checks) and same
+                            and worst_k <= TOL_TRUNK32_VS_SPLIT * worst_s,
+                            ut_ms=None, dz_ms=None, ms=None, split_ms=None, plain_ms=None,
+                            ut_plain_ms=None, dz_plain_ms=None, bound_ms=None, bound_by=None,
+                            ut_bound_ms=None, dz_bound_ms=None)
+        if timed:
+            H, E = cfg.d_hidden, cfg.input_width
+            dims = trunk_dims(cfg, cfg.d_out)
+            ut_flops = 2.0 * m * sum(i * o for i, o in dims[:-1])
+            dz_flops = 2.0 * m * sum(i * o for i, o in dims)
+            w_bytes = nbytes(ws)
+            row = 4 * m * Hp
+            ut_bytes = (2 * 4 * m * Ep + nbytes(ws[:n - 1]) + 4 * Hp + (n - 1) * row
+                        + (n - 2) * row + (n - 1) * row + (keep and (n - 1) * row))
+            dz_bytes = (4 * m * Op + w_bytes + 2 * (n - 1) * row + 4 * m * Ep
+                        + (keep and (n - 1) * row))
+            bw, _, _ = o1
+            dms, dzs = (bw["dms"], bw["dzs"]) if keep else (None, None)
+            r.ut_ms = cuda_ms(torch, lambda: FT.trunk_ut(
+                m, ws, tm, bw["du_b"], bw["du_s"], x.ss, x.cs, bw["c_last"], bw["ds"], dms,
+                stream), 10)
+            r.dz_ms = cuda_ms(torch, lambda: FT.trunk_dz(
+                m, ws, tm, bw["dzf"][0], x.ss, bw["ds"], bw["de"], dzs, stream), 10)
+            r.ms = r.ut_ms + r.dz_ms
+            chain = fresh(keep=False)
+            r.split_ms = cuda_ms(torch, lambda: split(chain, keep=False), 5)
+            r.ut_plain_ms = cuda_ms(torch, lambda: FT.trunk_ut_plain(
+                x.du, x.du_s, m, ws, x.ss, x.cs + [x.c_last], tm, keep=keep), 2)
+            r.dz_plain_ms = cuda_ms(torch, lambda: FT.trunk_dz_plain(
+                x.top, m, ws, x.ss, ds_p, tm, keep=keep), 2)
+            r.plain_ms = r.ut_plain_ms + r.dz_plain_ms
+            peak = PEAK_F32_3XTF32_FLOPS
+            r.ut_bound_ms, _ = bound(ut_flops, ut_bytes, peak)
+            r.dz_bound_ms, _ = bound(dz_flops, dz_bytes, peak)
+            r.bound_ms, r.bound_by = bound(ut_flops + dz_flops, ut_bytes + dz_bytes, peak)
+            del chain
+        del o1, o2, sp, ref, x, buf, pairs, k_items, p_items, s_items, r_items, kept
+        torch.cuda.empty_cache()
+        out.append(r)
+    return out
+
+
+def trunk_bwd32_text(r) -> str:
+    """One reading of trunk_bwd32_readings as a log line."""
+    what = f"m {r.m} keep {r.keep}" + (f" x{r.count}" if r.count > 1 else "")
+    worst = max(r.checks, key=lambda c: c[1])[2]
+    text = (f"{what}: {len(r.checks)} outputs within the f32 rule: "
+            f"{all(c[0] for c in r.checks)} (the worst: {worst}); a rerun's bits {r.same}; "
+            f"L2 vs f64 worst {r.worst_k:.2e} ({r.worst_what}), the split launches' "
+            f"{r.worst_s:.2e} (tol {TOL_TRUNK32_VS_SPLIT:g}x)")
+    if r.ms is not None:
+        text += (f"; up {r.ut_ms:.4f} ms (bound {r.ut_bound_ms:.4f}), down {r.dz_ms:.4f} ms "
+                 f"(bound {r.dz_bound_ms:.4f}), the chain {r.ms:.4f} ms against the split "
+                 f"launches' {r.split_ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound "
                  f"{r.bound_ms:.4f} ms ({r.bound_by}): {r.bound_ms / r.ms:.2f} of it")
     return text + ("" if r.ok else " FAIL")
 
@@ -1982,7 +2277,9 @@ def weighted(rs, keys=("ms", "plain_ms", "lib_ms", "bound_ms")):
 # label -> {name: [us, launches]}), for the per-point kernels' table
 PROFILES = {}
 PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "hand_trunk_fwd_f32_kernel",
-                    "hand_uchain_f32_kernel", "gemm_f32_kernel", "gemm_kernel",
+                    "hand_uchain_f32_kernel", "hand_trunk_ut_f32_kernel",
+                    "hand_trunk_dz_f32_kernel", "gemm_f32_kernel", "gemm_tn_f32_kernel",
+                    "gemm_kernel",
                     "uchain_seed_kernel", "fine_bwd_rev_kernel", "fine_rev_kernel",
                     "fine_bwd_emb_kernel", "color_dz_kernel", "pose_sum_kernel",
                     "reduce_partials_kernel", "copy_cols_kernel", "trunk_pack_e_kernel",
@@ -2840,7 +3137,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "EMBED": FH.EMBED,
                    "COLSUM": FT.COLSUM, "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV,
                    "PACK": FT.PACK, "POSE": FF.POSE, "GEMM_F32": FH.GEMM_F32,
-                   "TFWD32": FT.TRUNK_FWD_F32, "TUCH32": FT.TRUNK_UCHAIN_F32}
+                   "TFWD32": FT.TRUNK_FWD_F32, "TUCH32": FT.TRUNK_UCHAIN_F32,
+                   "TUT32": FT.TRUNK_UT_F32, "TDZ32": FT.TRUNK_DZ_F32}
     # a fit step's K3, K5 and K6 take its 37,632 fine points in two f32
     # passes: two pose sums a K3 call, two packs a K5 or K6 call (one pass
     # where a call takes at most half a chunk)
@@ -2889,7 +3187,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                 f"f32 and finite {finite}; |pred - gt| joints up to {moved:.4f} m")
             assert shapes == want and finite, "the pose pickle is not the JAX runner's"
             assert (launches["K1"] and launches["K2"] and launches["K3"] and launches["EMBED"]
-                    and launches["TFWD32"] and launches["TUCH32"] and launches["BWDREV"]), \
+                    and launches["TFWD32"] and launches["TUCH32"] and launches["TUT32"]
+                    and launches["TDZ32"] and launches["BWDREV"]), \
                 f"a kernel of the fitting path did not launch: {launches}"
             assert not (launches["K5"] or launches["K6"] or launches["COLSUM"]
                         or launches["PACK"] or launches["UCHAIN"]), f"stray launches {launches}"
@@ -2898,7 +3197,7 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         f32_inputs["confs"] = confs
         rows["K2"] = dict(rows.get("K2", {}), f32_launches=total["K2"])
         rows["K3"] = dict(rows.get("K3", {}), f32_launches=total["K3"])
-        for name in ("UCHAIN", "BWDREV", "POSE", "TFWD32", "TUCH32"):
+        for name in ("UCHAIN", "BWDREV", "POSE", "TFWD32", "TUCH32", "TUT32", "TDZ32"):
             rows[name] = dict(rows.get(name, {}), fit_launches=total[name])
         # ms per step of each fit type through the runner's own loop
         for ft in ("1", "12"):
@@ -2953,8 +3252,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         """fitting_single '12' with train.fused_fine = 'full_nocolor' and
         'pallas' (the confs' f32 trunks; '1''s poses from the fit phase):
         the CLI with its launch counts and pose pickle, then ms per step
-        through the runner's loop; one step's kernels by name: f32 GEMMs
-        and no dW / db kernel (the nets are frozen)."""
+        through the runner's loop; one step's kernels by name: the fused
+        f32 backward pair and no dW / db kernel (the nets are frozen)."""
         import pickle
         import shutil
 
@@ -2966,8 +3265,9 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             text = f.read()
         bad = []
         for mode, want in (("full_nocolor", ("K1", "K2", "K3", "EMBED", "TFWD32", "TUCH32",
-                                              "BWDREV", "POSE")),
-                           ("pallas", ("K1", "K5", "K6", "EMBED", "TFWD32", "TUCH32", "PACK"))):
+                                              "TUT32", "TDZ32", "BWDREV", "POSE")),
+                           ("pallas", ("K1", "K5", "K6", "EMBED", "TFWD32", "TUCH32", "TUT32",
+                                       "TDZ32", "PACK"))):
             label = f"fit 12 {mode}"
             root = os.path.join(ws, f"fit_res_{mode}")
             shutil.copytree(os.path.join(ws, "fit_res", "view_8", "1"),
@@ -2998,14 +3298,15 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
 
             dw = count("gemm_tn", "colsum_partial", "reduce_partials")
             f32_g = count("gemm_f32_kernel")
+            bwd32 = count("hand_trunk_ut_f32_kernel", "hand_trunk_dz_f32_kernel")
             log(f"{label}: one step's kernels by name: {sum(names.values())} launches, f32 "
-                f"GEMMs {f32_g}, dW/db kernels {dw}")
+                f"GEMMs {f32_g}, the fused f32 backward pair {bwd32}, dW/db kernels {dw}")
             idle = [k for k in want if not launches[k]]
             stray = [k for k in ("K2", "K3", "K5", "K6", "COLSUM", "BWDREV", "PACK", "POSE",
                                  "UCHAIN") if k not in want and launches[k]]
             passes = (passes_ok(launches["POSE"], launches["K3"])
                       and passes_ok(launches["PACK"], launches["K5"] + launches["K6"]))
-            if idle or stray or not finite or dw or not f32_g or not passes:
+            if idle or stray or not finite or dw or f32_g or not bwd32 or not passes:
                 bad.append(label)
             if mode == "pallas":
                 rows["PACK"] = dict(rows.get("PACK", {}), fit_launches=launches["PACK"])
@@ -3151,10 +3452,12 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         against TRUNK32_LAUNCHES."""
         fn_ = f32_inputs.get("profile")
         assert fn_ is not None, "the fit phase did not run"
-        counted = (FH.GEMM_F32, FT.UCHAIN, FT.TRUNK_FWD_F32, FT.TRUNK_UCHAIN_F32)
+        counted = (FH.GEMM_F32, FT.UCHAIN, FT.TRUNK_FWD_F32, FT.TRUNK_UCHAIN_F32,
+                   FT.TRUNK_UT_F32, FT.TRUNK_DZ_F32)
         for k in counted:
             k.launches = 0
         TRUNK32_CALLS["'12' fit step"] = record_trunk_calls(fn_)
+        TRUNK_BWD32_CALLS["'12' fit step"] = TRUNK32_CALLS["'12' fit step"]
         torch.cuda.synchronize()
         TRUNK32_COUNTS["'12' fit step"] = tuple(k.launches for k in counted)
         bad = []
@@ -3162,7 +3465,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             got = TRUNK32_COUNTS.get(label)
             good = got is not None and tuple(got) == want
             log(f"fused trunk f32, {label}: launches of gemm_f32_kernel, uchain_seed_kernel, "
-                f"hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel: {got} (expected {want})"
+                f"hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel, hand_trunk_ut_f32_kernel, "
+                f"hand_trunk_dz_f32_kernel: {got} (expected {want})"
                 f"{'' if good else ' FAIL'}")
             bad += [] if good else [label]
         nets = trunk32_nets(torch, dev)
@@ -3211,6 +3515,83 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             raise AssertionError(f"the f32 trunk's pair disagrees with its plain version, f64, "
                                  f"the split launches, its bits or its launch counts: {bad}")
 
+    def fused_trunk_bwd_f32():
+        """The f32 trunk's backward pair (hand_trunk_ut_f32_kernel, then
+        hand_trunk_dz_f32_kernel) alone at the calls one f32 'full',
+        'full_nocolor' and 'pallas' step and one '12' fit step make
+        (recorded by the f32 phases and the phase above), and at ragged
+        sizes with and without dW: every output against the plain
+        versions, f64 and the split launches (trunk_bwd32_readings), timed
+        beside the split chain, the plain chains and the bounds; each path's
+        launches of the pair (TRUNK32_LAUNCHES, read in the phase above)
+        and its recorded calls, one of each kernel a pass."""
+        bad = []
+        for label, calls in TRUNK_BWD32_CALLS.items():
+            bwd = [c for c in calls if c[0] in ("ut", "dz")]
+            passes = len([c for c in calls if c[0] == "fwd" and c[3]])  # the keep recomputes
+            good = len(bwd) == 2 * passes > 0
+            log(f"fused trunk backward f32, {label}: {len(bwd)} calls of the pair for {passes} "
+                f"backward passes{'' if good else ' FAIL'}")
+            bad += [] if good else [f"{label}'s calls"]
+        nets = trunk32_nets(torch, dev)
+        groups = {}
+        for label in ("f32 'full' step", "f32 'full_nocolor' step", "f32 'pallas' step",
+                      "'12' fit step"):
+            calls = TRUNK_BWD32_CALLS.get(label)
+            if not calls:
+                bad.append(f"{label} not recorded")
+                continue
+            rs = groups[label] = trunk_bwd32_readings(torch, dev, nets, trunk_bwd32_calls(calls))
+            for r in rs:
+                log(f"fused trunk backward f32, {label}: {trunk_bwd32_text(r)}")
+            t = weighted(rs, ("ms", "split_ms", "plain_ms", "bound_ms", "ut_ms", "dz_ms",
+                              "ut_bound_ms", "dz_bound_ms"))
+            log(f"fused trunk backward f32, {label}'s {sum(r.count for r in rs)} chains: "
+                f"hand_trunk_ut_f32_kernel {t['ut_ms']:.4f} ms (bound {t['ut_bound_ms']:.4f}: "
+                f"{t['ut_bound_ms'] / t['ut_ms']:.2f} of it), hand_trunk_dz_f32_kernel "
+                f"{t['dz_ms']:.4f} ms (bound {t['dz_bound_ms']:.4f}: "
+                f"{t['dz_bound_ms'] / t['dz_ms']:.2f}); the chain {t['ms']:.4f} ms against the "
+                f"split launches' {t['split_ms']:.4f} ms ({t['ms'] / t['split_ms']:.2f} of it), "
+                f"bound {t['bound_ms']:.4f} ms: {t['bound_ms'] / t['ms']:.2f} of it (the "
+                f"split's {t['bound_ms'] / t['split_ms']:.2f})")
+            bad += [trunk_bwd32_text(r) for r in rs if not r.ok]
+        for r in trunk_bwd32_readings(torch, dev, nets, ragged_trunk_bwd32_calls(),
+                                      timed=False):
+            log(f"fused trunk backward f32, ragged: {trunk_bwd32_text(r)}")
+            bad += [] if r.ok else [trunk_bwd32_text(r)]
+        every = [r for rs in groups.values() for r in rs]
+        keys = ("ms", "split_ms", "plain_ms", "bound_ms", "ut_ms", "dz_ms", "ut_plain_ms",
+                "dz_plain_ms", "ut_bound_ms", "dz_bound_ms")
+        tot = {label: weighted(rs, keys) for label, rs in groups.items()}
+        step = tot.get("f32 'full' step")
+        for key, kern, part in (("TUT32", FT.TRUNK_UT_F32, "ut"),
+                                ("TDZ32", FT.TRUNK_DZ_F32, "dz")):
+            rows[key] = dict(rows.get(key, {}), name=kern.name, route="cuda", source=kern.source,
+                             replaces=kern.replaces,
+                             max_abs_err=max((r.max_abs for r in every), default=None),
+                             ms=step and step[f"{part}_ms"],
+                             plain_ms=step and step[f"{part}_plain_ms"],
+                             bound_ms=step and step[f"{part}_bound_ms"], bound_by="operations",
+                             library_ms=None)
+            for label, prefix in (("f32 'full_nocolor' step", "nocolor_"),
+                                  ("f32 'pallas' step", "pallas_"), ("'12' fit step", "fit_")):
+                if label in tot:
+                    rows[key].update({f"{prefix}ms": tot[label][f"{part}_ms"],
+                                      f"{prefix}bound_ms": tot[label][f"{part}_bound_ms"]})
+        for label, prefix in (("f32 'full' step", "step_"),
+                              ("f32 'full_nocolor' step", "nocolor_"),
+                              ("f32 'pallas' step", "pallas_"), ("'12' fit step", "fit_")):
+            if label in tot:
+                rows["TUT32"].update({f"{prefix}chain_ms": tot[label]["ms"],
+                                      f"{prefix}chain_split_ms": tot[label]["split_ms"],
+                                      f"{prefix}chain_bound_ms": tot[label]["bound_ms"]})
+        rows["TUT32"]["worst_l2_f64"] = max((r.worst_k for r in every), default=None)
+        rows["TUT32"]["split_worst_l2_f64"] = max((r.worst_s for r in every), default=None)
+        if bad:
+            raise AssertionError("the f32 trunk's backward pair disagrees with its plain "
+                                 "versions, f64, the split launches, its bits or its calls: "
+                                 f"{bad}")
+
     phase("kernel K2 f32", kernel_k2_f32)
     phase("kernel K3 f32 frozen", kernel_k3_f32)
     phase("kernel fit modes f32", kernel_fit_modes_f32)
@@ -3222,8 +3603,9 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         if "fit" not in failures:
             phase("fit profile", fit_profile)
             phase("fused trunk f32", fused_trunk_f32)
+            phase("fused trunk backward f32", fused_trunk_bwd_f32)
         else:
-            failures += ["fit profile", "fused trunk f32"]
+            failures += ["fit profile", "fused trunk f32", "fused trunk backward f32"]
     finally:
         import shutil
 
@@ -3259,7 +3641,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                "K6": FT.KERNEL_BWD, "GEMM_F32": FH.GEMM_F32, "GEMM_TN_F32": FH.GEMM_TN_F32,
                "GEMM": FH.GEMM, "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
                "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "PACK": FT.PACK, "POSE": FF.POSE,
-               "TFWD32": FT.TRUNK_FWD_F32, "TUCH32": FT.TRUNK_UCHAIN_F32}
+               "TFWD32": FT.TRUNK_FWD_F32, "TUCH32": FT.TRUNK_UCHAIN_F32,
+               "TUT32": FT.TRUNK_UT_F32, "TDZ32": FT.TRUNK_DZ_F32}
     log(f"f32 phases: {os.path.relpath(CONF, ROOT)} as written, trunks {sdf_cfg.trunk_dtype}; "
         "select_fine_pass on the card: " + ", ".join(
             f"{m} -> {select_fine_pass(ttcfg._replace(fused_fine=m), sdf_cfg, dev)}"
@@ -3275,15 +3658,17 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         return float((a - b).norm()) / max(float(b.norm()), 1e-30)
 
     def f32_names(fn):
-        """fn's device kernels by name: (f32 GEMMs, f32 TN GEMMs, bf16 GEMMs,
-        bf16 TN GEMMs, all launches)."""
+        """fn's device kernels by name: (f32 GEMMs, the fused f32 backward
+        pair, f32 TN GEMMs, bf16 GEMMs, bf16 TN GEMMs, all launches)."""
         names = device_kernel_names(torch, fn)
 
-        def count(key):
-            return sum(c for k, c in names.items() if "honerf" in k and key in k)
+        def count(*keys):
+            return sum(c for k, c in names.items() if "honerf" in k and any(x in k for x in keys))
 
-        return (count("gemm_f32_kernel"), count("gemm_tn_f32_kernel"), count("gemm_kernel"),
-                count("gemm_tn_kernel"), sum(names.values()))
+        return (count("gemm_f32_kernel"),
+                count("hand_trunk_ut_f32_kernel", "hand_trunk_dz_f32_kernel"),
+                count("gemm_tn_f32_kernel"), count("gemm_kernel"), count("gemm_tn_kernel"),
+                sum(names.values()))
 
     def bwd_report(label, mode, args, flops, n_bytes, key, names_fn):
         """The f32 rule with and without dW, a second run's bits, the
@@ -3300,7 +3685,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         first = getattr(mod, name)(*args)
         same = all(torch.equal(x, y) for (_, x), (_, y) in zip(bwd_entry(mode)[3](again),
                                                                bwd_entry(mode)[3](first)))
-        f32_g, tn_f32, bf16_g, bf16_tn, total = names_fn(lambda: getattr(mod, name)(*args))
+        f32_g, bwd32, tn_f32, bf16_g, bf16_tn, total = names_fn(
+            lambda: getattr(mod, name)(*args))
         ms = cuda_ms(torch, lambda: getattr(mod, name)(*args), 5)
         frozen_ms = cuda_ms(torch, lambda: getattr(mod, name)(*args, want_dw=False), 5)
         plain_ms = cuda_ms(torch, lambda: plain(*args), 2)
@@ -3308,8 +3694,9 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         log(f"{label}: {n} pts ({-(-n // FT.chunk_size(n, 'f32', FF.BWD_CHUNK))} passes"
             + (f"; dcolor zero at {dropped} points within {FF.RELU_MARGIN:g} of a relu kink"
                if mode == "full" else "") + f"); a second run gives the same bits: {same}; "
-            f"kernels by name: {total} launches, f32 GEMMs {f32_g}, f32 TN GEMMs {tn_f32}, bf16 "
-            f"GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}; kernel {ms:.3f} ms, frozen "
+            f"kernels by name: {total} launches, f32 GEMMs {f32_g}, the fused f32 backward pair "
+            f"{bwd32}, f32 TN GEMMs {tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}; "
+            f"kernel {ms:.3f} ms, frozen "
             f"{frozen_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
             f"{flops / 1e12:.4f} TFLOP, {flops / n / 1e6:.3f} MFLOP/pt, "
             f"{flops / ms / 1e9:.1f} TFLOP/s)")
@@ -3318,8 +3705,9 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                                                      f"{key[1]}bound_ms": b_ms})
         if not all(c.ok for c in checks + frozen_checks) or not same:
             raise AssertionError(f"{label} disagrees with its plain version")
-        if not (f32_g and tn_f32) or bf16_g or bf16_tn:
-            raise AssertionError(f"{label}: f32 GEMMs and TN GEMMs, and no bf16 one, not shown")
+        if not (bwd32 and tn_f32) or bf16_g or bf16_tn:
+            raise AssertionError(f"{label}: the fused f32 backward pair and f32 TN GEMMs, and no "
+                                 "bf16 GEMM, not shown")
         return got
 
     def f32_gemms():
@@ -3469,22 +3857,23 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         if not all(c[0] for c in checks) or not pair or gemms_k5:
             raise AssertionError("K5 f32 disagrees with its plain version or ran a GEMM")
 
-    gemms = ("GEMM_F32", "GEMM_TN_F32", "TFWD32", "TUCH32")
+    gemms = ("GEMM_TN_F32", "TFWD32", "TUCH32", "TUT32", "TDZ32")
     # the embedding kernel with K2 / K3 (K5 / K6 take e from torch), the
     # column sum with every dW; the f32 trunk's forward and u-chain as the
-    # fused pair, no u-chain seed
-    expect = {"full": ("K2", "K3", "EMBED", "COLSUM", "BWDREV", "POSE") + gemms,
+    # fused pair, its backward as the fused backward pair, no u-chain seed;
+    # gemm_f32_kernel only in the color net
+    expect = {"full": ("K2", "K3", "EMBED", "COLSUM", "BWDREV", "POSE", "GEMM_F32") + gemms,
               "full_nocolor": ("K2", "K3", "EMBED", "COLSUM", "BWDREV", "POSE") + gemms,
               "pallas": ("K5", "K6", "COLSUM", "PACK") + gemms, None: ()}
     # an f32 step's K3 / K5 / K6 take its 56,448 fine points in two passes:
     # two pose sums a K3, two packs a K5 and a K6, the fused pair once a
-    # pass of K2 / K3 / K5 / K6; gemm_f32_kernel in the color net (5 a pass
-    # of K2, of K3's recompute and of its backward) and the trunk
-    # backward's 17 a pass of K3 / K6 (TRUNK32_LAUNCHES)
-    pair = {"TFWD32": 4, "TUCH32": 4, "UCHAIN": 0}
-    per_step = {"full": {"POSE": 2, "GEMM_F32": 64, **pair},
-                "full_nocolor": {"POSE": 2, "GEMM_F32": 34, **pair},
-                "pallas": {"PACK": 4, "GEMM_F32": 34, **pair}, None: {}}
+    # pass of K2 / K3 / K5 / K6, the backward pair once a pass of K3 / K6;
+    # gemm_f32_kernel in the color net (5 a pass of K2, of K3's recompute
+    # and of its backward) (TRUNK32_LAUNCHES)
+    pair = {"TFWD32": 4, "TUCH32": 4, "TUT32": 2, "TDZ32": 2, "UCHAIN": 0}
+    per_step = {"full": {"POSE": 2, "GEMM_F32": 30, **pair},
+                "full_nocolor": {"POSE": 2, "GEMM_F32": 0, **pair},
+                "pallas": {"PACK": 4, "GEMM_F32": 0, **pair}, None: {}}
 
     f32_calls = {}   # the per-point calls of an f32 'full' and 'pallas' step
 
@@ -3522,12 +3911,14 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             gnorm = torch.stack([m["grad_norm"] for m in metrics])
             finite = bool(torch.isfinite(loss).all()) and bool(torch.isfinite(gnorm).all())
             moved = float((tparams["se3_refine"].detach() - se3_before).abs().max())
-            f32_g, tn_f32, bf16_g, bf16_tn, total = f32_names(lambda: step(state, batch, gen))
+            f32_g, bwd32, tn_f32, bf16_g, bf16_tn, total = f32_names(
+                lambda: step(state, batch, gen))
             log(f"{label}: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays: "
                 f"{dt * 1e3 / TRAIN_STEPS:.2f} ms/step, {TRAIN_RAYS * TRAIN_STEPS / dt:.1f} "
                 f"rays/s (host clock, after {TRAIN_WARMUP} warm-up steps); peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; "
-                f"one step's kernels by name: {total} launches, f32 GEMMs {f32_g}, f32 TN GEMMs "
+                f"one step's kernels by name: {total} launches, f32 GEMMs {f32_g}, the fused f32 "
+                f"backward pair {bwd32}, f32 TN GEMMs "
                 f"{tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}")
             log(f"{label}: loss first {float(loss[0]):.4f} last {float(loss[-1]):.4f}; grad_norm "
                 f"first {float(gnorm[0]):.4f} last {float(gnorm[-1]):.4f}; se3_refine moved by "
@@ -3540,9 +3931,12 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 f32_calls[mode] = rec
                 label_m = f"f32 '{mode}' step"
                 TRUNK32_CALLS[label_m] = record_trunk_calls(lambda: step(state, batch, gen))
+                TRUNK_BWD32_CALLS[label_m] = TRUNK32_CALLS[label_m]
                 TRUNK32_COUNTS[label_m] = tuple(
-                    launches[k] / (TRAIN_WARMUP + TRAIN_STEPS)
-                    for k in ("GEMM_F32", "UCHAIN", "TFWD32", "TUCH32"))
+                    launches[k] / (TRAIN_WARMUP + TRAIN_STEPS) for k in TRUNK32_KERNELS)
+            elif mode == "full_nocolor":
+                TRUNK_BWD32_CALLS["f32 'full_nocolor' step"] = record_trunk_calls(
+                    lambda: step(state, batch, gen))
             if mode == "full":
                 tn = _tally(rec.tn)
                 log(f"{label}: reduce_partials_kernel over the step's {sum(tn.values())} dW "
@@ -3550,7 +3944,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                     f"once, dW written once; the kernel's time: the profile)")
             idle = [k for k in want if not launches[k]]
             stray = [k for k in kernels if k not in want and launches[k]]
-            shown = (f32_g > 0 and tn_f32 > 0) if want else total >= 0
+            shown = (bwd32 > 0 and tn_f32 > 0) if want else total >= 0
             steps = TRAIN_WARMUP + TRAIN_STEPS
             off = {k: launches[k] for k, n in per_step[mode].items() if launches[k] != n * steps}
             if (not finite or moved <= 0 or idle or stray or not shown or bf16_g or bf16_tn
@@ -3565,13 +3959,13 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 # the seed's launches on the f32 trunk's main path, which the
                 # fused u-chain took over: 0
                 rows["UCHAIN"]["launches"] = launches["UCHAIN"]
-                for name in gemms:
+                for name in gemms + ("GEMM_F32",):
                     rows[name] = dict(rows.get(name, {}), launches=launches[name])
             elif mode == "full_nocolor":
                 for name in ("K2", "K3"):
                     rows[name] = dict(rows.get(name, {}), f32_nocolor_launches=launches[name])
             elif mode == "pallas":
-                for name in ("K5", "K6", "PACK", "TFWD32", "TUCH32"):
+                for name in ("K5", "K6", "PACK", "TFWD32", "TUCH32", "TUT32", "TDZ32"):
                     rows[name] = dict(rows.get(name, {}), f32_launches=launches[name])
                 rows["GEMM_F32"] = dict(rows.get("GEMM_F32", {}),
                                         pallas_launches=launches["GEMM_F32"])
@@ -3634,15 +4028,15 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         rows["K2"] = dict(rows.get("K2", {}), f32_request_launches=launches["K2"])
         for name in ("TFWD32", "TUCH32", "GEMM_F32"):
             rows[name] = dict(rows.get(name, {}), request_launches=launches[name])
-        TRUNK32_COUNTS["f32 request"] = tuple(launches[k] for k in ("GEMM_F32", "UCHAIN",
-                                                                    "TFWD32", "TUCH32"))
+        TRUNK32_COUNTS["f32 request"] = tuple(launches[k] for k in TRUNK32_KERNELS)
         TRUNK32_CALLS["f32 request"] = record_trunk_calls(lambda: render(fs.params, request))
         assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
         assert launches["K1"] and launches["K2"] and launches["GEMM_F32"] and launches[
             "EMBED"] and launches["TFWD32"] and launches["TUCH32"] and not (
             launches["K3"] or launches["K5"] or launches["K6"] or launches["GEMM_TN_F32"]
             or launches["GEMM_TN"] or launches["COLSUM"] or launches["BWDREV"]
-            or launches["UCHAIN"]), f"the f32 'full' render path launched {launches}"
+            or launches["UCHAIN"] or launches["TUT32"] or launches["TDZ32"]), \
+            f"the f32 'full' render path launched {launches}"
         idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
         cpu = torch.device("cpu")
         c_ref, w_ref = render(clone_tree(fs.params, cpu),
@@ -4907,20 +5301,27 @@ def main() -> int:
         assert ok and rel_v <= 1e-2 and rel_t <= 1e-2 and far <= 1.0, \
             "the K4 mesh disagrees with the plain version's"
         # the mesh path's grid under the profiler: K4 is obj_sdf_fused_kernel
-        # alone, one launch a chunk, no GEMM and no embedding kernel
+        # alone, one launch a chunk (the wrapper's count over the profiled
+        # call; by name the profile must show it, at most once a chunk: late
+        # in the process a trace can drop launches, PERF.md section 7), no
+        # GEMM and no embedding kernel
         label = f"one {R}^3 K4 grid (extract.evaluate_sdf_grid)"
+        before = FS.KERNEL.launches
         assert device_profile(torch, label,
                               lambda: evaluate_sdf_grid(fused, lo, hi, R, device=dev),
                               points=1 << 16) is not None, \
             "the mesh path's grid: the profiler recorded no device time"
+        counted = FS.KERNEL.launches - before
         groups = PROFILES[label][0]
         k4 = [v for name, v in groups.items() if "obj_sdf_fused_kernel" in name]
+        profiled = sum(v[1] for v in k4)
         stray = sorted(name for name in groups if "gemm" in name or "embed" in name)
         calls = -(-R ** 3 // (1 << 16))
-        log(f"mesh check: the grid's K4 launches {sum(v[1] for v in k4)} ({calls} chunks), "
+        log(f"mesh check: the grid's K4 launches {counted} ({calls} chunks), "
+            f"obj_sdf_fused_kernel {profiled} times in the profile, "
             f"{sum(v[0] for v in k4) / 1e3:.2f} ms of device time; GEMM or embedding kernels: "
             f"{stray or 'none'}")
-        assert sum(v[1] for v in k4) == calls and not stray, \
+        assert counted == calls and 0 < profiled <= calls and not stray, \
             "the mesh path's K4 is not one obj_sdf_fused_kernel launch a chunk"
 
     phase("kernel K4", kernel_k4)
@@ -4938,7 +5339,8 @@ def main() -> int:
         log(f"per-point profiles: {wrong}")
         failures.append("per-point profiles")
     log(gpu_line())
-    order = ("K1", "K2", "K3", "K4", "K5", "K6", "TFWD", "TUCH", "TFWD32", "TUCH32", "GEMM",
+    order = ("K1", "K2", "K3", "K4", "K5", "K6", "TFWD", "TUCH", "TFWD32", "TUCH32", "TUT32",
+             "TDZ32", "GEMM",
              "GEMM_TN", "GEMM_F32", "GEMM_TN_F32", "EMBED", "COLSUM", "UCHAIN", "BWDREV",
              "COPY", "PACK", "POSE")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -4967,6 +5369,14 @@ def main() -> int:
              "TUCH32": (("f32_launches", "request_launches", "fit_launches")
                         + tuple(f"{p}{k}" for p in ("step_", "pallas_", "fit_")
                                 for k in ("ms", "bound_ms"))),
+             "TUT32": (("f32_launches", "fit_launches", "worst_l2_f64", "split_worst_l2_f64")
+                       + tuple(f"{p}{k}" for p in ("nocolor_", "pallas_", "fit_")
+                               for k in ("ms", "bound_ms"))
+                       + tuple(f"{p}chain_{k}" for p in ("step_", "nocolor_", "pallas_", "fit_")
+                               for k in ("ms", "split_ms", "bound_ms"))),
+             "TDZ32": (("f32_launches", "fit_launches")
+                       + tuple(f"{p}{k}" for p in ("nocolor_", "pallas_", "fit_")
+                               for k in ("ms", "bound_ms"))),
              "GEMM_F32": ("pallas_launches", "request_launches"),
              "GEMM": ("image_launches", "request_launches", "train_launches"),
              "EMBED": ("train_launches", "step_ms", "step_bound_ms", "f32_ms", "f32_plain_ms",

@@ -42,10 +42,12 @@ backward K6 from the same source, with a bf16 or an f32 trunk
 (`TrunkMeta.dtype`); the trunk's forward and u-chain are two launches
 (`trunk_fwd`, `trunk_uchain`: every layer of a tile of points on chip) of
 csrc/trunk_fused.cu for a bf16 trunk and of csrc/trunk_fused_f32.cu (3xTF32
-on wgmma) for an f32 one.  On CPU tensors
-both run their plain versions (`hand_trunk_sdf_u_plain`,
+on wgmma) for an f32 one; for an f32 trunk the backward's two chains are
+two launches too (`trunk_ut`, `trunk_dz`: csrc/trunk_bwd_f32.cu).  On CPU
+tensors both run their plain versions (`hand_trunk_sdf_u_plain`,
 `hand_trunk_sdf_u_plain_bwd`, on the block bodies `_kernel_fwd_body`, that
-is `trunk_fwd_plain` then `trunk_uchain_plain`, and `_trunk_bwd_block`).
+is `trunk_fwd_plain` then `trunk_uchain_plain`, and `_trunk_bwd_block`, on
+`trunk_ut_plain` and `trunk_dz_plain`).
 
 What bounds the kernels on an H100 and how their design answers that: the
 note at the top of csrc/fused_trunk.cu; their times: PERF.md.
@@ -236,52 +238,80 @@ def _kernel_fwd_body(meta: TrunkMeta, e: torch.Tensor, ws, bs, residuals: bool =
     return z_last, u, ss
 
 
+def trunk_ut_plain(du_b, du_s, m: int, ws, ss, cs, meta: TrunkMeta, keep: bool = False):
+    """hand_trunk_ut_f32_kernel's function in plain PyTorch, the u-chain
+    transposed upward on m points from du_b = du and du_s = du / sqrt2
+    (Ep columns): (ds, dms) with dt_l = dm_l W_l, ds[l] = dt_l c_{l+1} and
+    dm_{l+1} = (dt_l s_l) (/ sqrt2 into the skip) for l < n - 1, where
+    dm_0 = du_b and the skip's product reads [dm_skip | du_s].  cs[l]: the
+    u-chain's c rows of the m points (1 <= l < n; cs[n - 1] may be the one
+    row every point shares).  dms (with `keep`, else None): [None, dm_1, ..., dm_{n-1}], the
+    rows the weight gradients read.  Each product rounds its operand to
+    the trunk dtype."""
+    n, skip = meta.n_layers, meta.skip
+    ds: List[torch.Tensor] = [None] * (n - 1)
+    dms: List[torch.Tensor] = [None] * n
+    dm = du_b[:m].float()
+    for l in range(n - 1):
+        x = torch.cat([dm, du_s[:m].float()], dim=-1) if l == skip else dm
+        dt = _mm(meta, x, ws[l])
+        ds[l] = dt * cs[l + 1]
+        dm = dt * ss[l][:m]
+        if l + 1 == skip:
+            dm = dm * INV_SQRT2
+        dms[l + 1] = dm
+    return ds, (dms if keep else None)
+
+
+def trunk_dz_plain(top, m: int, ws, ss, ds, meta: TrunkMeta, keep: bool = False):
+    """hand_trunk_dz_f32_kernel's function in plain PyTorch, the forward
+    transposed downward on m points from the top cotangent dz_{n-1} =
+    top[:m] (Op columns): (de (m, Ep), dzs) with din_l = dz_l W_l^T and
+    dz_{l-1} = da s_{l-1} + ds_{l-1} (beta s (1 - s)), da = din_l (the skip:
+    din[:, :Hp] / sqrt2, and de = din[:, Hp:] / sqrt2), then de += din_0.
+    dzs (with `keep`, else None): [dz_0, ..., dz_{n-1}], the rows the
+    weight gradients read (dz_{n-1} the top's).  Each product rounds its
+    operand to the trunk dtype."""
+    n, Hp = meta.n_layers, meta.Hp
+    dzs: List[torch.Tensor] = [None] * n
+    dz = dzs[n - 1] = top[:m].float()
+    de = None
+    for l in range(n - 1, 0, -1):
+        din = _mm_t(meta, dz, ws[l])
+        if l == meta.skip:
+            da = din[:, :Hp] * INV_SQRT2
+            de = din[:, Hp:] * INV_SQRT2
+        else:
+            da = din
+        sig = ss[l - 1][:m]
+        dz = dzs[l - 1] = da * sig + ds[l - 1][:m] * (BETA * sig * (1.0 - sig))
+    de = de + _mm_t(meta, dz, ws[0])
+    return de, (dzs if keep else None)
+
+
 def _trunk_bwd_block(meta: TrunkMeta, dout: torch.Tensor, du: torch.Tensor, ws, fwd,
                      want_dw: bool = True):
     """Transposed trunk statements for one block at cotangents dout
     (B, Op) on z_last and du (B, Ep) on u, given the forward's
-    (ss, ins, ts, cs).  Returns (de (B, Ep), dws, dbs); want_dw=False
-    (frozen nets) skips every dW = X^T dY product and the db sums and
-    returns (de, None, None)."""
-    n, Hp = meta.n_layers, meta.Hp
+    (ss, ins, ts, cs): the two chains (trunk_ut_plain, trunk_dz_plain),
+    then dW_l = dm_l^T t_l + in_l^T dz_l and db_l = sum dz_l.  Returns
+    (de (B, Ep), dws, dbs); want_dw=False (frozen nets) skips every
+    dW = X^T dY product and the db sums and returns (de, None, None)."""
+    n, B = meta.n_layers, du.shape[0]
     ss, ins, ts, cs = fwd
-    dws: List[torch.Tensor] = [None] * n
-    dbs: List[torch.Tensor] = [None] * n
-    ds: List[torch.Tensor] = [None] * (n - 1)
-    # transpose of the u-chain, upward; the last dt would land on the
-    # constant one-hot t_{n-1} and is not formed
-    dt = None
-    for l in range(n):
-        if l > 0:
-            dc = dt * ss[l - 1]
-            ds[l - 1] = dt * cs[l]
-        else:
-            dc = du
-        dm = torch.cat([dc * INV_SQRT2, du * INV_SQRT2], dim=-1) if l == meta.skip else dc
-        if l < n - 1:
-            dt = _mm(meta, dm, ws[l])
-        if want_dw:
-            dws[l] = _mm_tn(meta, dm, ts[l])    # m = t W^T: dW += dm^T t
-    # transpose of the forward, downward
-    dz = dout
-    de = None
-    din = None
-    for l in range(n - 1, -1, -1):
-        if l < n - 1:
-            if l + 1 == meta.skip:
-                da = din[:, :Hp] * INV_SQRT2
-                de = din[:, Hp:] * INV_SQRT2
-            else:
-                da = din
-            sig = ss[l]
-            dz = da * sig + ds[l] * (BETA * sig * (1.0 - sig))
-        if want_dw:
-            dws[l] = dws[l] + _mm_tn(meta, ins[l], dz)
-            dbs[l] = dz.sum(0)
-        din = _mm_t(meta, dz, ws[l])
-    de = din if de is None else de + din
+    du_s = du * INV_SQRT2
+    ds, dms = trunk_ut_plain(du, du_s, B, ws, ss, cs, meta, keep=want_dw)
+    de, dzs = trunk_dz_plain(dout, B, ws, ss, ds, meta, keep=want_dw)
     if not want_dw:
         return de, None, None
+    dws: List[torch.Tensor] = [None] * n
+    dbs: List[torch.Tensor] = [None] * n
+    for l in range(n):
+        # m = t W^T: dW += dm^T t (the skip's dm is [dm_skip | du_s])
+        dm = du if l == 0 else (torch.cat([dms[l], du_s], dim=-1) if l == meta.skip
+                                else dms[l])
+        dws[l] = _mm_tn(meta, dm, ts[l]) + _mm_tn(meta, ins[l], dzs[l])
+        dbs[l] = dzs[l].sum(0)
     return de, dws, dbs
 
 
@@ -532,6 +562,17 @@ TRUNK_FWD_F32 = _build.Kernel("hand_trunk_fwd_f32_kernel",
 TRUNK_UCHAIN_F32 = _build.Kernel("hand_uchain_f32_kernel",
                                  "honerf_torch/ops/csrc/trunk_fused_f32.cu",
                                  "honerf_tpu/ops/fused_fine.py:452")
+# The f32 trunk's backward in two launches (csrc/trunk_bwd_f32.cu): the f32
+# mode of `_trunk_bwd_block`'s two chains (honerf_tpu/ops/fused_fine.py:
+# 342-401), inside K6's pallas_call (:488) and K3's with
+# FineMeta(dtype='f32') (honerf_tpu/ops/fused_fine_full.py:1650); each
+# kernel runs in both.
+TRUNK_UT_F32 = _build.Kernel("hand_trunk_ut_f32_kernel",
+                             "honerf_torch/ops/csrc/trunk_bwd_f32.cu",
+                             "honerf_tpu/ops/fused_fine.py:488")
+TRUNK_DZ_F32 = _build.Kernel("hand_trunk_dz_f32_kernel",
+                             "honerf_torch/ops/csrc/trunk_bwd_f32.cu",
+                             "honerf_tpu/ops/fused_fine_full.py:1650")
 
 
 def type_trunk_lib(lib) -> None:
@@ -783,6 +824,27 @@ def _t32lib():
     return lib
 
 
+def _tb32lib():
+    """The library of csrc/trunk_bwd_f32.cu (the f32 trunk backward's two
+    kernels)."""
+    lib = _build.load("trunk_bwd_f32")
+    if not getattr(lib, "_honerf_tb32_typed", False):
+        L = ctypes.c_longlong
+        lib.honerf_trunk_ut_f32.argtypes = [
+            _I, _I, _I, _I, _I, _P, _P,      # M, Ep, Hp, n_layers, skip, wsplit, in_cols
+            _P, _P, _I, _P, L, _I,           # du_b, du_s, lddu, ss, ss_layer, lds
+            _P, _I, _P,                      # cs, ldc, c_last
+            _P, L, _I, _P, _I, _F, _P]       # ds, ds_layer, ldds, dm, lddm, hscale, stream
+        lib.honerf_trunk_dz_f32.argtypes = [
+            _I, _I, _I, _I, _I, _I,          # M, Ep, Hp, Op, n_layers, skip
+            _P, _P, _P, _P, _I,              # wsplit, in_cols, out_cols, top, ldtop
+            _P, L, _I, _P, L, _I,            # ss, ss_layer, lds, ds, ds_layer, ldds
+            _P, _I, _P, _I, _F, _F, _P]      # de, ldde, dz, lddz, hscale, escale, stream
+        lib.honerf_trunk_ut_f32.restype = lib.honerf_trunk_dz_f32.restype = _I
+        lib._honerf_tb32_typed = True
+    return lib
+
+
 def tf32_operands(w, transpose: bool):
     """The f32 trunk kernels' B operand of the padded f32 weight w: [big;
     small] of w (transpose False: the u-chain's, (2 in_pad, out_pad)) or of
@@ -953,6 +1015,82 @@ def trunk_uchain(m: int, ws, wts, tm: TrunkMeta, ss, u=None, ts=None, cs=None,
         None if cs is None else _ptrs(cs[:n - 1]), ldc, stream), "honerf_trunk_uchain")
 
 
+def _check_f32_backward(tm: TrunkMeta, ws) -> None:
+    if tm.dtype != "f32" or tm.Hp not in (64, 128, 256) or any(
+            w.dtype != torch.float32 for w in ws):
+        raise ValueError("the fused backward chains take an f32 trunk, f32 weights, Hp 64, "
+                         "128 or 256")
+
+
+def trunk_ut(m: int, ws, tm: TrunkMeta, du_b, du_s, ss, cs, c_last, ds, dms=None,
+             stream=None) -> None:
+    """The u-chain transposed, upward, on m points of an f32 trunk (one
+    launch: csrc/trunk_bwd_f32.cu's hand_trunk_ut_f32_kernel): ds[l][:m] =
+    dt_l c_{l+1} (ds (n - 1, >= m, Hp) f32) and, with dms, dms[l][:m] = dm_l
+    (1 <= l <= n - 1; dms[0] None) from du_b = du and du_s = du / sqrt2
+    ((>= m, Ep) f32, one stride), the forward's sigmoid rows ss (n - 1,
+    >= m, Hp), the u-chain's c rows cs[l] (1 <= l < n - 1) and c_last =
+    c_{n-1} (Hp,).  On a CPU du_b it writes trunk_ut_plain's rows and
+    launches nothing."""
+    n = tm.n_layers
+    _check_f32_backward(tm, ws)
+    if du_b.device.type == "cpu":
+        rows = [None] + [c[:m] for c in cs[1:n - 1]] + [c_last]
+        d, kept = trunk_ut_plain(du_b, du_s, m, ws, ss, rows, tm, keep=dms is not None)
+        for l in range(n - 1):
+            ds[l][:m] = d[l]
+            if dms is not None:
+                dms[l + 1][:m] = kept[l + 1]
+        return
+    lddu = _check_rows("du", [du_b, du_s], torch.float32, m, tm.Ep)
+    _check_rows("ss", list(ss), torch.float32, m, tm.Hp)
+    _check_rows("ds", list(ds), torch.float32, m, tm.Hp)
+    ldc = _check_rows("cs", list(cs[1:n - 1]), torch.float32, m, tm.Hp)
+    lddm = _check_rows("dms", list(dms[1:]), torch.float32, m, tm.Hp) if dms is not None else 0
+    if (c_last.dtype != torch.float32 or c_last.dim() != 1 or c_last.shape[0] < tm.Hp
+            or c_last.stride(0) != 1 or c_last.data_ptr() % 16):
+        raise ValueError("c_last: Hp contiguous f32 values, 16-byte aligned")
+    TRUNK_UT_F32.launches += 1
+    _build.check(_tb32lib().honerf_trunk_ut_f32(
+        m, tm.Ep, tm.Hp, n, tm.skip, _ptrs([tf32_operands(w, True) for w in ws[:n - 1]]),
+        _ints([w.shape[0] for w in ws[:n - 1]]), du_b.data_ptr(), du_s.data_ptr(), lddu,
+        ss.data_ptr(), ss.stride(0), ss.stride(1), _ptrs([None] + list(cs[1:n - 1])), ldc,
+        c_last.data_ptr(), ds.data_ptr(), ds.stride(0), ds.stride(1),
+        None if dms is None else _ptrs([None] + list(dms[1:])), lddm, INV_SQRT2, stream),
+        "honerf_trunk_ut_f32")
+
+
+def trunk_dz(m: int, ws, tm: TrunkMeta, top, ss, ds, de, dzs=None, stream=None) -> None:
+    """The forward transposed, downward, on m points of an f32 trunk (one
+    launch: csrc/trunk_bwd_f32.cu's hand_trunk_dz_f32_kernel): de[:m, :Ep]
+    (f32) and, with dzs, dzs[l][:m] = dz_l (l < n - 1, f32) from the top
+    cotangent top[:m, :Op] = dz_{n-1} (f32), the sigmoid rows ss and the
+    upward chain's ds (n - 1, >= m, Hp).  On a CPU top it writes
+    trunk_dz_plain's rows and launches nothing."""
+    n = tm.n_layers
+    _check_f32_backward(tm, ws)
+    if top.device.type == "cpu":
+        d, kept = trunk_dz_plain(top, m, ws, ss, ds, tm, keep=dzs is not None)
+        de[:m, :tm.Ep] = d
+        if dzs is not None:
+            for l in range(n - 1):
+                dzs[l][:m] = kept[l]
+        return
+    ldtop = _check_rows("top", [top], torch.float32, m, tm.Op)
+    _check_rows("ss", list(ss), torch.float32, m, tm.Hp)
+    _check_rows("ds", list(ds), torch.float32, m, tm.Hp)
+    ldde = _check_rows("de", [de], torch.float32, m, tm.Ep)
+    lddz = _check_rows("dzs", list(dzs[:n - 1]), torch.float32, m, tm.Hp) if dzs is not None else 0
+    TRUNK_DZ_F32.launches += 1
+    _build.check(_tb32lib().honerf_trunk_dz_f32(
+        m, tm.Ep, tm.Hp, tm.Op, n, tm.skip, _ptrs([tf32_operands(w, False) for w in ws]),
+        _ints([w.shape[0] for w in ws]), _ints([w.shape[1] for w in ws]), top.data_ptr(),
+        ldtop, ss.data_ptr(), ss.stride(0), ss.stride(1), ds.data_ptr(), ds.stride(0),
+        ds.stride(1), de.data_ptr(), ldde,
+        None if dzs is None else _ptrs(list(dzs[:n - 1])), lddz, INV_SQRT2, INV_SQRT2, stream),
+        "honerf_trunk_dz_f32")
+
+
 def trunk_buffers(tm: TrunkMeta, C: int, dev, keep: bool):
     """Scratch of cuda_trunk_forward for C points: f32 sigmoid rows, and
     with `keep` (K3's and K6's recompute) activations and t rows in the
@@ -1048,14 +1186,16 @@ def cuda_trunk_forward_split(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, st
         t = nxt
 
 
-def trunk_bwd_buffers(ws, tm: TrunkMeta, C: int, dev, width: int):
+def trunk_bwd_buffers(ws, tm: TrunkMeta, C: int, dev, width: int, want_dw: bool = True):
     """Scratch of cuda_trunk_backward for C points; dzf / dzb (the f32
-    and the trunk-dtype cotangent rows) `width` columns wide."""
+    and the trunk-dtype cotangent rows) `width` columns wide; for an f32
+    trunk with want_dw the fused chains' kept rows dms (dm_l, 1 <= l < n)
+    and dzs (dz_l, l < n - 1), which the weight gradients read after them."""
     n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
     op, f32 = _cast(tm), torch.float32
     onehot = torch.zeros((C, Op), device=dev, dtype=op)
     onehot[:, 0] = 1.0
-    return dict(
+    bw = dict(
         dzf=[torch.empty((C, width), device=dev, dtype=f32) for _ in range(2)],
         dzb=[torch.empty((C, width), device=dev, dtype=op) for _ in range(2)],
         du_b=torch.empty((C, Ep), device=dev, dtype=op),
@@ -1066,6 +1206,10 @@ def trunk_bwd_buffers(ws, tm: TrunkMeta, C: int, dev, width: int):
         onehot=onehot,
         c_last=ws[n - 1][:, 0].float().contiguous(),    # c_{n-1}, every point
     )
+    if tm.dtype == "f32" and want_dw:
+        bw["dms"] = [None] + [torch.empty((C, Hp), device=dev, dtype=f32) for _ in range(n - 1)]
+        bw["dzs"] = [torch.empty((C, Hp), device=dev, dtype=f32) for _ in range(n - 1)]
+    return bw
 
 
 def cuda_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, dbs,
@@ -1076,13 +1220,77 @@ def cuda_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, db
     downward from the top cotangent in bw's dzf[0] / dzb[0]; dW and db
     into dws / dbs (f32; acc: add to them, the passes after the first),
     the cotangent of e into bw's de (f32, Ep columns).  buf: the forward's
-    rows (cuda_trunk_forward, keep=True).  Every product's operands are in
-    the trunk dtype, so an f32 trunk runs the f32 GEMMs throughout."""
+    rows (cuda_trunk_forward, keep=True).  An f32 trunk runs the two chains
+    as two launches (trunk_ut, trunk_dz), then with want_dw the f32 TN
+    GEMMs and column sums on the rows they keep; a bf16 trunk one GEMM a
+    layer (_split_trunk_backward)."""
+    if tm.dtype != "f32":
+        _split_trunk_backward(lib, m, e, ws, wts, tm, buf, bw, dws, dbs, want_dw, acc, scratch,
+                              stream)
+        return
+    n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
+    ts, cs, ss = buf["ts"], buf["cs"], buf["ss"]
+    top, du_b, du_s, onehot = bw["dzf"][0], bw["du_b"], bw["du_s"], bw["onehot"]
+    dms, dzs = (bw["dms"], bw["dzs"]) if want_dw else (None, None)
+    trunk_ut(m, ws, tm, du_b, du_s, ss, cs, bw["c_last"], bw["ds"], dms, stream)
+    trunk_dz(m, ws, tm, top, ss, bw["ds"], bw["de"], dzs, stream)
+    if not want_dw:
+        return
+    # the u-chain transposed: dW_l (+)= dm_l^T t_l (the skip's dm [dm | du_s])
+    for l in range(n):
+        Y = onehot if l == n - 1 else ts[l]
+        A, K = (du_b, Ep) if l == 0 else (dms[l], Hp)
+        _tn(lib, A, A.stride(0), K, Y, Y.shape[1], m, dws[l], acc, scratch, stream)
+        if l == tm.skip:
+            _tn(lib, du_s, du_s.stride(0), Ep, Y, Y.shape[1], m, dws[l][Hp:], acc, scratch,
+                stream)
+    # the forward transposed: dW_l += in_l^T dz_l, db_l (+)= sum dz_l, one
+    # f32 row of dz a layer for both
+    for l in range(n - 1, -1, -1):
+        Z = top if l == n - 1 else dzs[l]
+        _layer_dw(lib, m, e, ws, tm, buf["acts"], l, Z, Z, dws, dbs, acc, scratch, stream)
+
+
+def _layer_dw(lib, m: int, e, ws, tm: TrunkMeta, acts, l: int, Zb, Zf, dws, dbs, acc: int,
+              scratch, stream) -> None:
+    """The forward transposed's weight gradients of layer l from dz_l (Zb
+    in the trunk dtype, Zf in f32): dW_l += in_l^T dz_l (the skip's concat
+    scaled as the forward formed it), db_l (+)= sum dz_l."""
+    Hp, Ep = tm.Hp, tm.Ep
+    skip_scale = INV_SQRT2 if tm.dtype == "f32" else INV_SQRT2_BF16
+    width = ws[l].shape[1]
+    if l == 0:
+        _tn(lib, e, Ep, Ep, Zb, width, m, dws[0], 1, scratch, stream)
+    elif l == tm.skip:
+        _tn(lib, acts[l - 1], Hp, Hp, Zb, width, m, dws[l], 1, scratch, stream,
+            x_scale=skip_scale)
+        _tn(lib, e, Ep, Ep, Zb, width, m, dws[l][Hp:], 1, scratch, stream,
+            x_scale=skip_scale)
+    else:
+        _tn(lib, acts[l - 1], Hp, Hp, Zb, width, m, dws[l], 1, scratch, stream)
+    _colsum(lib, Zf, width, m, dbs[l], acc, scratch, stream)
+
+
+def cuda_trunk_backward_split(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, dbs,
+                              want_dw: bool, acc: int, scratch, stream) -> None:
+    """cuda_trunk_backward's outputs for an f32 trunk as the split launches
+    the fused chains replaced: one gemm_f32_kernel a layer (EPI_UT, then
+    EPI_DZ), each layer's weight gradients beside it.  No main path calls
+    it: chip_smoke.py and bench_gemm.py time and hold the chains against
+    it at the same calls."""
+    if tm.dtype != "f32":
+        raise ValueError("the split launches are the f32 trunk's")
+    _split_trunk_backward(lib, m, e, ws, wts, tm, buf, bw, dws, dbs, want_dw, acc, scratch,
+                          stream)
+
+
+def _split_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, dbs,
+                          want_dw: bool, acc: int, scratch, stream) -> None:
+    """The trunk backward as one GEMM a layer (the bf16 trunk's launches;
+    an f32 trunk's only in cuda_trunk_backward_split)."""
     from honerf_torch.ops import fused_hand as FH
 
     n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
-    # the skip concat's scale on dW's X, as the forward formed it
-    skip_scale = INV_SQRT2 if tm.dtype == "f32" else INV_SQRT2_BF16
     acts, ts, cs, ss = buf["acts"], buf["ts"], buf["cs"], buf["ss"]
     dzf, dzb, dm, ds, de = bw["dzf"], bw["dzb"], bw["dm"], bw["ds"], bw["de"]
     du_b, du_s, onehot, c_last = bw["du_b"], bw["du_s"], bw["onehot"], bw["c_last"]
@@ -1113,21 +1321,11 @@ def cuda_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, db
     # skip and layer 0
     cur = 0
     for l in range(n - 1, -1, -1):
-        width = ws[l].shape[1]
         if want_dw:
-            if l == 0:
-                _tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[0], 1, scratch, stream)
-            elif l == tm.skip:
-                a = acts[l - 1]
-                _tn(lib, a, Hp, Hp, dzb[cur], width, m, dws[l], 1, scratch, stream,
-                    x_scale=skip_scale)
-                _tn(lib, e, Ep, Ep, dzb[cur], width, m, dws[l][Hp:], 1, scratch, stream,
-                    x_scale=skip_scale)
-            else:
-                a = acts[l - 1]
-                _tn(lib, a, Hp, Hp, dzb[cur], width, m, dws[l], 1, scratch, stream)
-            _colsum(lib, dzf[cur], width, m, dbs[l], acc, scratch, stream)
+            _layer_dw(lib, m, e, ws, tm, acts, l, dzb[cur], dzf[cur], dws, dbs, acc, scratch,
+                      stream)
         wt = wts[l]                            # (out_pad, in_pad)
+        width = ws[l].shape[1]
         if l > 0:
             nxt = 1 - cur
             skip = l == tm.skip
@@ -1183,7 +1381,7 @@ def _hand_trunk_sdf_u_bwd_cuda(e, pack: TrunkPack, dout, du, want_dw: bool):
     if C:
         buf = trunk_buffers(tm, C, dev, keep=True)
         eb = torch.empty((C, Ep), device=dev, dtype=_cast(tm))
-        bw = trunk_bwd_buffers(pack.ws, tm, C, dev, max(Hp, Op))
+        bw = trunk_bwd_buffers(pack.ws, tm, C, dev, max(Hp, Op), want_dw)
         scratch = torch.empty((_WS_FLOATS,), device=dev, dtype=torch.float32)
         KERNEL_BWD.launches += 1
     for s in range(0, N, C or 1):

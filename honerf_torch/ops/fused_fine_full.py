@@ -913,7 +913,7 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
         buf = _fwd_buffers(pack, C, dev, keep=True)
         packed = torch.empty((C, 8), device=dev, dtype=f32)
         width = max(pack.cws[0].shape[1], Hp, Op) if color else max(Hp, Op)
-        bw = FT.trunk_bwd_buffers(pack.ws, tm, C, dev, width)
+        bw = FT.trunk_bwd_buffers(pack.ws, tm, C, dev, width, want_dw)
         dzf, dzb = bw["dzf"], bw["dzb"]
         dgt = torch.empty((C, 4), device=dev, dtype=f32)
         pose_rows = torch.empty((C, 256), device=dev, dtype=f32)

@@ -46,12 +46,18 @@ wgmma reads B; `tf32_phases` / `tf32_uc_phases` the phases of a tile,
 `tf32_smem_bytes` / `tf32_uc_smem_bytes` the blocks' shared memory,
 `tf32_acc_cell` / `tf32_frag_cell` the accumulator's and the A
 fragment's cells, `tf32_tile_rows` the tiles a block walks; `ring_schedule`
-with `pairs` runs their barriers.
+with `pairs` runs their barriers.  The f32 trunk's backward in two
+launches (csrc/trunk_bwd_f32.cu: hand_trunk_ut_f32_kernel,
+hand_trunk_dz_f32_kernel, the forward's layout and ring;
+tests/test_torch_trunk_bwd_f32_layout.py): `tb32_ut_phases` /
+`tb32_dz_phases` their phase tables (`tb32_pieces` de's pieces),
+`tb32_loads` both producers' slots.
 
 Nothing on the main path calls the functions but `tn_workspace`; the CUDA
 side computes the same numbers (`honerf_gemm`, `honerf_gemm_tn`,
 `honerf_obj_sdf`, `honerf_trunk_fwd`, `honerf_trunk_uchain`,
-`honerf_trunk_fwd_f32`, `honerf_trunk_uchain_f32`).
+`honerf_trunk_fwd_f32`, `honerf_trunk_uchain_f32`, `honerf_trunk_ut_f32`,
+`honerf_trunk_dz_f32`).
 """
 
 from __future__ import annotations
@@ -161,6 +167,13 @@ TF32_CONSTANTS = ("TF32_TILE", "TF32_WIDTH", "TF32_BK", "TF32_CHUNK_BYTES", "TF3
                   "TF32_UC_RING_BYTES", "TF32_UC_SMEM_BYTES", "TF32_PIECE",
                   "TF32_UC_MAX_PHASES")
 T32_HIDDEN, T32_Z = 0, 1
+
+# csrc/trunk_bwd_f32.cu: hand_trunk_ut_f32_kernel, hand_trunk_dz_f32_kernel
+# (both with the forward's shared memory, TF32_SMEM_BYTES: the tile and a
+# 4-slot ring of A's box and B's rows)
+TB32_MAX_PHASES = 40
+TB32_CONSTANTS = ("TB32_MAX_PHASES",)
+TB32_UT, TB32_CHAIN, TB32_SKIP, TB32_ZERO = 0, 1, 2, 3
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -672,6 +685,93 @@ def tf32_tile_rows(M: int, sms: int = 132) -> Dict[int, List[int]]:
     tiles = _cdiv(M, TF32_TILE)
     grid = min(tiles, sms)
     return {b: list(range(b, tiles, grid)) for b in range(grid)}
+
+
+def _tb32_check(n_layers: int, skip: int, Hp: int, Ep: int) -> None:
+    if (not 3 <= n_layers <= TF32_MAX_LAYERS or not 0 < skip < n_layers - 1
+            or Hp not in (64, 128, 256) or Ep <= 0 or Ep % 64):
+        raise ValueError("not an f32 fused backward")
+
+
+def _phase(act_steps, box_steps, box, box_k0, layer, row0, width, kind) -> Dict[str, int]:
+    return dict(act_steps=act_steps, box_steps=box_steps, box=box, box_k0=box_k0, layer=layer,
+                row0=row0, width=width, kind=kind)
+
+
+def tb32_ut_phases(Ep: int, Hp: int, in_cols: Sequence[int], skip: int) -> List[Dict[str, int]]:
+    """honerf_trunk_ut_f32's phase table: one phase a layer l < n - 1 (in_cols
+    has n - 1 entries), K steps of 32 over the dm tile, then over A's boxes
+    (layer 0: du_b's, box 0, from B's k 0; the skip: du_s's, box 1, from k
+    Hp), Hp columns of the layer's [big; small] W^T rows.  Raises
+    ValueError where the entry point refuses the shapes."""
+    n = len(in_cols) + 1
+    _tb32_check(n, skip, Hp, Ep)
+    out = []
+    for l in range(n - 1):
+        want = Ep if l == 0 else (Hp + Ep if l == skip else Hp)
+        if in_cols[l] != want:
+            raise ValueError(f"layer {l}: {in_cols[l]} rows are not a trunk layer's")
+        out.append(_phase(0 if l == 0 else Hp // TF32_BK,
+                          Ep // TF32_BK if l in (0, skip) else 0, int(l > 0),
+                          0 if l == 0 else Hp, l, 0, Hp, TB32_UT))
+    return out
+
+
+def tb32_pieces(Ep: int) -> List[tuple]:
+    """de's pieces: (n0, width), the widest of 256, 128, 64 that fits."""
+    out, n0 = [], 0
+    while n0 < Ep:
+        rem = Ep - n0
+        width = TF32_PIECE if rem >= TF32_PIECE else (128 if rem >= 128 else 64)
+        out.append((n0, width))
+        n0 += width
+    return out
+
+
+def tb32_dz_phases(n_layers: int, skip: int, Hp: int, Ep: int, Op: int) -> List[Dict[str, int]]:
+    """honerf_trunk_dz_f32's phase table: the top layer over the top
+    cotangent's Op / 32 boxes (box 0), then the chain layers n-2 .. 1 over
+    the tile (Hp columns, each writing dz_{l-1} in place), de's skip parts
+    just before the skip's chain layer (a piece of 256, 128 or 64 columns:
+    W_skip's rows from Hp + n0 over dz_skip; de = its sum / sqrt2), and
+    after layer 1 de's layer-0 parts (W_0's rows from n0 over dz_0; de +=
+    its sum)."""
+    _tb32_check(n_layers, skip, Hp, Ep)
+    if Op <= 0 or Op % 64:
+        raise ValueError("not an f32 fused backward")
+    kt = Hp // TF32_BK
+    pieces = tb32_pieces(Ep)
+    out = [_phase(0, Op // TF32_BK, 0, 0, n_layers - 1, 0, Hp, TB32_CHAIN)]
+    for l in range(n_layers - 2, 0, -1):
+        if l == skip:
+            out += [_phase(kt, 0, 0, 0, skip, Hp + n0, w, TB32_SKIP) for n0, w in pieces]
+        out.append(_phase(kt, 0, 0, 0, l, 0, Hp, TB32_CHAIN))
+    out += [_phase(kt, 0, 0, 0, 0, n0, w, TB32_ZERO) for n0, w in pieces]
+    if len(out) > TB32_MAX_PHASES:
+        raise ValueError("too many phases")
+    return out
+
+
+def tb32_loads(phases, tile: int, small_rows: Sequence[int]) -> List[List[tuple]]:
+    """Both backward producers' TMA loads, per phase and slot (two a K step:
+    B's small rows, then its big rows): (A, [B ...]) with A (box, column,
+    row) of the phase's box map or None (the box rides in the small slot of
+    a box step), each B (layer, k, row) of the layer's [big; small] map,
+    small_rows[l] its first small row."""
+    out = []
+    for ph in phases:
+        slots = []
+        for k in range(ph["act_steps"] + ph["box_steps"]):
+            kb = k - ph["act_steps"]
+            kc = ph["box_k0"] + TF32_BK * kb if kb >= 0 else TF32_BK * k
+            for half in (0, 1):
+                a = ((ph["box"], TF32_BK * kb, TF32_TILE * tile)
+                     if kb >= 0 and half == 0 else None)
+                row0 = (small_rows[ph["layer"]] if half == 0 else 0) + ph["row0"]
+                slots.append((a, [(ph["layer"], kc, row0 + TF32_BOX_ROWS * j)
+                                  for j in range(ph["width"] // TF32_BOX_ROWS)]))
+        out.append(slots)
+    return out
 
 
 def ring_schedule(phase_steps: Sequence[int], tiles: int, stages: int, turns: bool = False,

@@ -1727,3 +1727,181 @@ def test_fused_trunk_f32_rejects_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):
             FT.trunk_fwd(args.pop("e"), 70, pack.ws, pack.bs, args.pop("tm"), **args)
     assert (FT.TRUNK_FWD_F32.launches, FT.TRUNK_UCHAIN_F32.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# hand_trunk_ut_f32_kernel and hand_trunk_dz_f32_kernel: the f32 trunk's
+# backward in two launches (csrc/trunk_bwd_f32.cu), under the f32 rule
+# ---------------------------------------------------------------------------
+
+def _bwd32_inputs(dev, tm, pack, m, seed=11):
+    """The backward chains' inputs at m points: the forward's sigmoid rows
+    and the u-chain's c rows (the plain versions on the card, at the f32
+    embedding of m points), seeded cotangents du (du_b, du_s = du / sqrt2)
+    and the top one (Op columns)."""
+    e = _fused_e32(dev, pack, m)
+    _, ss, _ = FT.trunk_fwd_plain(e, m, pack.ws, pack.bs, tm, last=False)
+    _, ts, cs = FT.trunk_uchain_plain(ss, pack.ws, tm)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    du = torch.randn((m, tm.Ep), device=dev, generator=g)
+    n = tm.n_layers
+    return dict(e=e, du_b=du, du_s=du * FT.INV_SQRT2, ss=torch.stack(ss), ts=ts,
+                cs=[None] + cs[1:n - 1], c_last=pack.ws[n - 1][:, 0].contiguous(),
+                top=torch.randn((m, tm.Op), device=dev, generator=g))
+
+
+def _bwd32_outputs(dev, tm, m, keep):
+    nan, n, Hp = float("nan"), tm.n_layers, tm.Hp
+    rows = lambda k: [torch.full((m, Hp), nan, device=dev) for _ in range(k)]  # noqa: E731
+    return dict(ds=torch.full((n - 1, m, Hp), nan, device=dev),
+                de=torch.full((m, tm.Ep), nan, device=dev),
+                dms=[None] + rows(n - 1) if keep else None, dzs=rows(n - 1) if keep else None)
+
+
+def _bwd32_plain(x, m, pack, tm):
+    n = tm.n_layers
+    ds, dms = FT.trunk_ut_plain(x["du_b"], x["du_s"], m, pack.ws, x["ss"],
+                                x["cs"] + [x["c_last"]], tm, keep=True)
+    de, dzs = FT.trunk_dz_plain(x["top"], m, pack.ws, x["ss"], torch.stack(ds), tm, keep=True)
+    return dict(ds=ds, de=de, dms=dms, dzs=dzs[:n - 1])
+
+
+def _bwd32_run(x, m, pack, tm, o, ds=None):
+    """trunk_ut, then trunk_dz on ds (the plain version's, so each kernel is
+    held alone) or on the upward kernel's rows."""
+    FT.trunk_ut(m, pack.ws, tm, x["du_b"], x["du_s"], x["ss"], x["cs"], x["c_last"], o["ds"],
+                o["dms"])
+    FT.trunk_dz(m, pack.ws, tm, x["top"], x["ss"], o["ds"] if ds is None else ds, o["de"],
+                o["dzs"])
+
+
+@pytest.mark.parametrize("keep", [False, True], ids=["frozen", "dw"])
+@pytest.mark.parametrize("m", FUSED_TRUNK_M)
+def test_trunk_bwd_f32_matches_plain(dev, m, keep):
+    """Every output of the two chains (ds, de; with dW every kept dm and dz
+    row) into NaN-filled buffers against trunk_ut_plain / trunk_dz_plain
+    under the f32 rule; one launch of each kernel a call, no f32 GEMM; a
+    second run's bits."""
+    tm, pack = _fused_trunk32(dev)
+    x = _bwd32_inputs(dev, tm, pack, m)
+    want = _bwd32_plain(x, m, pack, tm)
+    ds_plain = torch.stack(want["ds"])
+
+    def run():
+        o = _bwd32_outputs(dev, tm, m, keep)
+        kerns = (FT.TRUNK_UT_F32, FT.TRUNK_DZ_F32, FH.GEMM_F32)
+        before = [k.launches for k in kerns]
+        _bwd32_run(x, m, pack, tm, o, ds=ds_plain)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kerns, before)] == [1, 1, 0]
+        return o
+
+    o, again = run(), run()
+    _f32_rule(o["de"], want["de"])
+    for l in range(tm.n_layers - 1):
+        _f32_rule(o["ds"][l], want["ds"][l])
+        if keep:
+            _f32_rule(o["dms"][l + 1], want["dms"][l + 1])
+            _f32_rule(o["dzs"][l], want["dzs"][l])
+    for k, v in o.items():
+        for a, b in zip(v if isinstance(v, list) else [v], again[k] if isinstance(v, list)
+                        else [again[k]]):
+            assert a is None or torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("m", [1, 65, 4097])
+def test_trunk_bwd_f32_narrow_widths(dev, m):
+    """SMALL's trunk (Hp 64, Op 128: 32 columns a consumer, de in pieces of
+    64), both chains chained as the main path runs them, under the f32
+    rule."""
+    tm, pack = _fused_trunk32(dev, SMALL)
+    x = _bwd32_inputs(dev, tm, pack, m)
+    want = _bwd32_plain(x, m, pack, tm)
+    o = _bwd32_outputs(dev, tm, m, keep=True)
+    _bwd32_run(x, m, pack, tm, o)
+    torch.cuda.synchronize()
+    _f32_rule(o["de"], want["de"])
+    for l in range(tm.n_layers - 1):
+        _f32_rule(o["ds"][l], want["ds"][l])
+        _f32_rule(o["dms"][l + 1], want["dms"][l + 1])
+        _f32_rule(o["dzs"][l], want["dzs"][l])
+
+
+def test_trunk_bwd_f32_no_worse_than_the_split_launches(dev):
+    """At 56,448 points (an f32 step's fine points), de, every dW and db of
+    cuda_trunk_backward (the two chains, then the dW launches on their
+    rows) and of cuda_trunk_backward_split against the f64 chains: the
+    fused chains' relative L2 within TRUNK32_VS_SPLIT of the split's; the
+    fused call launches no gemm_f32_kernel."""
+    tm, pack = _fused_trunk32(dev)
+    m, n, Hp, Ep = 56448, tm.n_layers, tm.Hp, tm.Ep
+    x = _bwd32_inputs(dev, tm, pack, m)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = FF._lib()
+    acts, _, _ = FT.trunk_fwd_plain(x["e"], m, pack.ws, pack.bs, tm, last=False)
+    buf = dict(ss=x["ss"], acts=acts, ts=x["ts"], cs=x["cs"])
+    got = {}
+    for name, fn in (("fused", FT.cuda_trunk_backward), ("split", FT.cuda_trunk_backward_split)):
+        bw = FT.trunk_bwd_buffers(pack.ws, tm, m, dev, tm.Op)
+        bw["du_b"].copy_(x["du_b"])
+        bw["du_s"].copy_(x["du_s"])
+        bw["dzf"][0].copy_(x["top"])
+        bw["dzb"][0].copy_(x["top"])
+        dws = [torch.zeros(w.shape, device=dev) for w in pack.ws]
+        dbs = [torch.zeros(b.shape, device=dev) for b in pack.bs]
+        before = FH.GEMM_F32.launches
+        fn(lib, m, x["e"], pack.ws, pack.wts, tm, buf, bw, dws, dbs, True, 0,
+           torch.empty((FT._WS_FLOATS,), device=dev), stream)
+        torch.cuda.synchronize()
+        assert (FH.GEMM_F32.launches - before == 0) == (name == "fused")
+        got[name] = [bw["de"].clone()] + dws + dbs
+    # the f64 chains on the same f32 values
+    W = [w.double() for w in pack.ws]
+    S = [s.double() for s in x["ss"]]
+    C = [None] + [c.double() for c in x["cs"][1:]] + [x["c_last"].double()]
+    du, inv = x["du_b"].double(), 1.0 / np.sqrt(2.0)
+    dm, dms, ds = du, [du], []
+    for l in range(n - 1):
+        xx = torch.cat([dm, du * inv], 1) if l == tm.skip else dm
+        dt = xx @ W[l]
+        ds.append(dt * C[l + 1])
+        dm = dt * S[l] * (inv if l + 1 == tm.skip else 1.0)
+        dms.append(torch.cat([dm, du * inv], 1) if l + 1 == tm.skip else dm)
+    dz, dzs, de = x["top"].double(), [None] * n, None
+    dzs[n - 1] = dz
+    for l in range(n - 1, 0, -1):
+        din = dz @ W[l].T
+        if l == tm.skip:
+            da, de = din[:, :Hp] * inv, din[:, Hp:] * inv
+        else:
+            da = din
+        dz = dzs[l - 1] = da * S[l - 1] + ds[l - 1] * (100.0 * S[l - 1] * (1.0 - S[l - 1]))
+    de = de + dz @ W[0].T
+    e64, onehot = x["e"].double(), torch.zeros((m, tm.Op), device=dev, dtype=torch.float64)
+    onehot[:, 0] = 1.0
+    T = [t.double() for t in x["ts"][:n - 1]] + [onehot]
+    ins = [e64] + [torch.cat([a.double(), e64], 1) * inv if l == tm.skip else a.double()
+                   for l, a in zip(range(1, n), acts)]
+    ref = [de] + [dms[l].T @ T[l] + ins[l].T @ dzs[l] for l in range(n)] + [
+        dzs[l].sum(0) for l in range(n)]
+    rel = lambda g, r: float((g.double() - r).norm() / max(float(r.norm()), 1e-300))  # noqa
+    for k, (f, s_, r) in enumerate(zip(got["fused"], got["split"], ref)):
+        assert rel(f, r) <= TRUNK32_VS_SPLIT * rel(s_, r) + 1e-9, k
+
+
+def test_trunk_bwd_f32_rejects_what_the_kernels_do_not_take(dev):
+    """A bf16 trunk, a width the tiles do not split (Hp 192), a bf16 du:
+    ValueError before a launch."""
+    tm, pack = _fused_trunk32(dev)
+    x = _bwd32_inputs(dev, tm, pack, 70)
+    o = _bwd32_outputs(dev, tm, 70, keep=False)
+    before = FT.TRUNK_UT_F32.launches, FT.TRUNK_DZ_F32.launches
+    for kw in (dict(tm=tm._replace(dtype="bf16")), dict(tm=tm._replace(d_hidden=192)),
+               dict(du_b=x["du_b"].to(torch.bfloat16))):
+        a = dict(x, tm=tm) | kw
+        with pytest.raises(ValueError):
+            FT.trunk_ut(70, pack.ws, a["tm"], a["du_b"], a["du_s"], a["ss"], a["cs"],
+                        a["c_last"], o["ds"])
+    with pytest.raises(ValueError):
+        FT.trunk_dz(70, pack.ws, tm._replace(dtype="bf16"), x["top"], x["ss"], o["ds"], o["de"])
+    assert (FT.TRUNK_UT_F32.launches, FT.TRUNK_DZ_F32.launches) == before

@@ -48,7 +48,8 @@ from honerf_torch.ops import fused_hand as FH
 from honerf_torch.ops import wgmma_layout as WL
 from test_torch_parity import t
 
-SOURCE = Path(WL.__file__).resolve().parent / "csrc" / "trunk_fused_f32.cu"
+# the TF32_* constants live in the header both f32 trunk sources include
+SOURCE = Path(WL.__file__).resolve().parent / "csrc" / "tf32.cuh"
 FLAG = FT.TrunkMeta(emb_width=1386, d_hidden=256, n_layers=9, skip=4, d_out=257, dtype="f32")
 ROWS = [1408, 256, 256, 256, 1664, 256, 256, 256, 256]
 COLS = [256] * 8 + [320]
