@@ -15,9 +15,10 @@ made in a copy of honerf_torch under build/k3_faults/<name>/, whose kernels
 build there; a child process runs the checks on that copy.  "sound" is an
 unedited copy and reads every check; a fault reads the checks of its
 groups (bf16: the first eight below, f32: the next six, fit: the next
-six, perpoint: the next five, trunk: the next two, trunkbwd32: the last
-with f32k3, f32k6, fitk3 and fitk6; --groups reads only the named
-groups, and skips the faults with none of them).  The checks, with the
+six, perpoint: the next five, trunk: the next two, trunkbwd32: tbwd32
+with f32k3, f32k6, fitk3 and fitk6, trunkdw32: the last with f32k3 and
+f32k6; --groups reads only the named groups, and skips the faults with
+none of them).  The checks, with the
 limits they hold:
 
   kernel  chip_smoke.py's K3 phase on one flagship train step's own
@@ -135,7 +136,14 @@ limits they hold:
           the f32 rule's ratio (every output against the plain versions)
           and the L2 to f64 over TOL_TRUNK32_VS_SPLIT x the split launches',
           each caught above 1 (the trunkbwd32 group, with f32k3, f32k6,
-          fitk3 and fitk6).
+          fitk3 and fitk6);
+  tdw32   the f32 weight gradients' launch (trunk_dw_f32_kernel) through
+          fused_fine.trunk_dw at chip_smoke.ragged_trunk_dw32_calls (1 to
+          65,613 points, with and without K3's color rows) and at an f32
+          pass's 28,288 (chip_smoke.trunk_dw32_readings): the worst of the
+          f32 rule's ratio (every dW and db against trunk_dw_plain) and the
+          L2 to f64 over TOL_TRUNK32_VS_SPLIT x the split sequence's, each
+          caught above 1 (the trunkdw32 group, with f32k3 and f32k6).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -170,6 +178,7 @@ _TF_CU = "honerf_torch/ops/csrc/trunk_fused.cu"
 _T32_CU = "honerf_torch/ops/csrc/trunk_fused_f32.cu"
 _TF32_CUH = "honerf_torch/ops/csrc/tf32.cuh"
 _TB32_CU = "honerf_torch/ops/csrc/trunk_bwd_f32.cu"
+_TDW32_CU = "honerf_torch/ops/csrc/trunk_dw_f32.cu"
 
 # name -> (what it breaks, file, text, replacement, groups of checks it is
 # read by); the text must occur exactly once in the file
@@ -222,9 +231,10 @@ FAULTS = {
         "        if (k + 1 < w.steps) launch<kTN>(acc, ring, c, stage, false);",
         ("bf16",)),
     "f32_tn_no_xscale": (
-        "the f32 TN GEMM drops x_scale (the skip rows' 1/sqrt2 in every f32 dW)", _TRUNK_CUH,
-        "if (p.x_scale != 0.f)\n    f32_ring(",
-        "if (false)\n    f32_ring(", ("f32", "fit")),
+        "the f32 weight gradients' launch drops x's scale (the skip rows' 1/sqrt2 in the skip "
+        "layer's dW)", _TDW32_CU,
+        "const float scale = (x >> 11) & 1 ? p.xscale : 1.f;", "const float scale = 1.f;",
+        ("f32", "trunkdw32")),
     "f32_gemm_1xtf32": (
         "both f32 GEMMs drop the two correction products of 3xTF32 (one TF32 product)", _CUH,
         "  for (int j = 0; j < 4; ++j) mma_tf32(c[j], a_small, b_big[j]);   // small . big\n"
@@ -242,12 +252,9 @@ FAULTS = {
         "FT.copy_cols(blib, de_ext, m, E - 64 if f32_mode else E, dx, stream)",
         ("f32", "fit")),
     "f32_dw_no_acc": (
-        "K3 f32's dW and db do not accumulate across point passes (each pass overwrites)",
-        _FULL_PY,
-        "FT.cuda_trunk_backward(blib, m, e, pack.ws, pack.wts, tm, buf, bw, dws, dbs, want_dw,\n"
-        "                               acc, ws, stream)",
-        "FT.cuda_trunk_backward(blib, m, e, pack.ws, pack.wts, tm, buf, bw, dws, dbs, want_dw,\n"
-        "                               0 if f32_mode else acc, ws, stream)", ("f32", "fit")),
+        "the f32 weight gradients' launch does not accumulate across point passes (each pass "
+        "overwrites dW and db)", _TDW32_CU, "    if (p.acc) {", "    if (false) {",
+        ("f32", "trunkdw32")),
     "k1_ladder_bias": (
         "K1 (the fit's hand ladder) returns sdf + 5e-3", _K1_PY,
         "FT.trunk_fwd(e, m, ws, bs, tm, sdf=out[s:], stream=stream)",
@@ -413,12 +420,38 @@ FAULTS = {
         "      if (grow < p.M) {\n        *reinterpret_cast<float2*>(ds",
         "      if (grow < (p.M & ~(TF32_TILE - 1))) {\n        *reinterpret_cast<float2*>(ds",
         ("trunkbwd32",)),
+    "tdw32_drop_partial": (
+        "the f32 weight gradients' tile sum leaves out the last split's partial", _TDW32_CU,
+        "for (int sp = 1; sp < w.splits; ++sp) {", "for (int sp = 1; sp < w.splits - 1; ++sp) {",
+        ("trunkdw32",)),
+    "tdw32_small_b_dropped": (
+        "the f32 weight gradients' transposed split stores B's small rows as zeros (the "
+        "big.small product of 3xTF32 adds nothing)", _TDW32_CU,
+        "*reinterpret_cast<uint4*>(buf + off) = make_uint4(small[0], small[1], small[2], small[3]);",
+        "*reinterpret_cast<uint4*>(buf + off) = make_uint4(0u, 0u, 0u, 0u);", ("trunkdw32",)),
+    "tdw32_skip_e_unscaled": (
+        "the f32 weight gradients' work list loses the skip's 1/sqrt2 on its embedding rows (the "
+        "forward product's [a | e] / sqrt2, e's part)", _TRUNK_PY,
+        "f = T(MMA, (S(0, Hp, ACT, l - 1, 0, 1), S(Hp, Ep, E, 0, 0, 1)), (DZ, l))",
+        "f = T(MMA, (S(0, Hp, ACT, l - 1, 0, 1), S(Hp, Ep, E, 0, 0, 0)), (DZ, l))",
+        ("trunkdw32",)),
+    "tdw32_db_last_row": (
+        "the f32 weight gradients' db leaves out the last row of every 32-point K step (the "
+        "ragged last step's last row among them)", _TDW32_CU,
+        "__fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], v[3])));",
+        "__fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], q == 7 ? 0.f : v[3])));",
+        ("trunkdw32",)),
+    "tdw32_no_colsum": (
+        "the f32 weight gradients' launch does not add dm_{n-1}'s column sum into the last "
+        "layer's dW column 0 (its u-chain part)", _TDW32_CU,
+        "      run[0] = __fadd_rn(run[0], rs0);\n      run[2] = __fadd_rn(run[2], rs1);\n",
+        "", ("trunkdw32",)),
     "pose_drop_tail": (
         "the pose sums drop the rows past the last full split (a ragged last block sums "
         "nothing)", _CU, "const int r0 = s * split, r1 = min(M, r0 + split);",
         "const int r0 = s * split, r1 = r0 + split <= M ? r0 + split : r0;", ("perpoint",)),
 }
-GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk", "trunkbwd32")
+GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk", "trunkbwd32", "trunkdw32")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
 STEP_SEEDS = {"sound": (1, 2, 3, 4)}
@@ -514,9 +547,10 @@ def child(name: str, root: str, groups) -> None:
             out["k6step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
         out["bgemm"] = {"0": [[r.what, r.l2, r.ok]
                               for r in CS.bf16_gemm_readings(torch, dev, timed=False)]}
-    if "f32" in groups or "trunkbwd32" in groups:
+    if "f32" in groups or "trunkbwd32" in groups or "trunkdw32" in groups:
         # K3 f32 with dW and K5 / K6 f32 on an f32 step's inputs: the f32
-        # group's, and the f32 trunk backward's (trunkbwd32)
+        # group's, and the f32 trunk backward's and weight gradients'
+        # (trunkbwd32, trunkdw32)
         from honerf_torch.ops import fused_fine as FT
 
         fs = CS.flagship(torch, dev, "f32")
@@ -635,6 +669,13 @@ def child(name: str, root: str, groups) -> None:
              max(r.rule, r.l2_ratio) if r.same else float("inf"), r.ok]
             for r in CS.trunk_bwd32_readings(torch, dev, nets, CS.ragged_trunk_bwd32_calls(),
                                              timed=False)]}
+    if "trunkdw32" in groups:
+        nets = CS.trunk32_nets(torch, dev)
+        calls = CS.ragged_trunk_dw32_calls() + [(28288, True), (28288, False)]
+        out["tdw32"] = {"0": [
+            [f"f32 dW {r.m} color {r.color}",
+             max(r.rule, r.l2_ratio) if r.same else float("inf"), r.ok]
+            for r in CS.trunk_dw32_readings(torch, dev, nets, calls, timed=False)]}
     print(json.dumps(out))
 
 
@@ -699,7 +740,7 @@ def judge(CS, res):
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
     for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt",
-                  "k4", "copy", "pack", "pose", "trunk", "trunk32", "tbwd32"):
+                  "k4", "copy", "pack", "pose", "trunk", "trunk32", "tbwd32", "tdw32"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []
@@ -761,7 +802,7 @@ def main() -> int:
     ap.add_argument("--only", help="comma-separated names (sound and FAULTS) to run")
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma-separated groups of checks to read (bf16, f32, fit, "
-                         "perpoint, trunk, trunkbwd32)")
+                         "perpoint, trunk, trunkbwd32, trunkdw32)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     a = ap.parse_args()

@@ -176,19 +176,22 @@ no ladder kernel unless train.fused_ladder is set), after 20:
  21. f32 GEMMs  gemm_f32_kernel and gemm_tn_f32_kernel alone at the shapes
               of one f32 pass of a flagship step (28,224 points: the
               trunk's layer 0, hidden, skip-concat, last and u-chain
-              products, and their dW), against the f64 product of the same
-              f32 values (TOL_GEMM_F32_L2 in L2, a single TF32 product's
-              reading logged beside), the same bits on a rerun, the time
-              and TFLOP/s against the 3xTF32 bound and one torch.matmul in
-              f32 (TF32 off) as the library yardstick;
+              products, and their dW: gemm_tn_f32_kernel is kept for
+              comparison only, no f32 step runs it), against the f64 product
+              of the same f32 values (TOL_GEMM_F32_L2 in L2, a single TF32
+              product's reading logged beside), the same bits on a rerun,
+              the time and TFLOP/s against the 3xTF32 bound and one
+              torch.matmul in f32 (TF32 off) as the library yardstick;
  22. kernel K2 f32 request  K2 f32 at one 4096-ray request's 524,288
               points against its plain version (TOL_F32 of the range);
  23. kernel K3 f32  K3 f32 with weight gradients on what one f32 'full'
               train step hands it (56,448 points, two passes, TF32 off):
               every output within TOL_F32 of the plain version's norm in
               L2 (at the kernel's g: the f32 rule's note), with and without
-              dW; by torch.profiler's names f32 GEMMs and f32 TN GEMMs, no
-              bf16 one; the last color layer's dW read as is (C4);
+              dW; by torch.profiler's names f32 GEMMs, the fused backward
+              pair and the fused dW launch (trunk_dw_f32_kernel), no f32 TN
+              GEMM, reduce_partials_kernel or colsum_partial_kernel and no
+              bf16 GEMM; the last color layer's dW read as is (C4);
  24. kernel K2/K3 f32 no-color  K2 f32 without the color net at an f32
               'full_nocolor' step's points (out, g, e within TOL_F32 of the
               range, median and max), K3 f32 without it under the f32 rule;
@@ -196,18 +199,20 @@ no ladder kernel unless train.fused_ladder is set), after 20:
               f32 by name: the fused f32 pair, no GEMM);
  26. train f32  the flagship step under 'full', 'full_nocolor', 'pallas' and
               the autograd field, 3 warm-up and 20 timed steps each: the
-              launch counts, one step's kernels by name (f32 GEMMs and TN
-              GEMMs, no bf16 one), finite losses, se3_refine moved; one
-              'full' and one 'pallas' step under torch.profiler, and the
-              bound of reduce_partials_kernel over a 'full' step's
-              recorded dW products; two pose sums a 'full' and a
-              'full_nocolor' step, four packs a 'pallas' one; a step of
-              each mode 4 launches of each f32 fused forward kernel and 2 of
-              each fused backward one (hand_trunk_ut_f32_kernel,
-              hand_trunk_dz_f32_kernel), no seed, and gemm_f32_kernel 30
-              ('full': the color net's) or none; the trunk's calls of a
-              'full' and a 'pallas' step recorded for phases 36 and 37, a
-              'full_nocolor' step's for 37;
+              launch counts, one step's kernels by name (f32 GEMMs, the
+              fused backward pair and dW launch; no f32 TN GEMM, reduce or
+              column sum, no bf16 GEMM), finite losses, se3_refine moved;
+              one 'full' and one 'pallas' step under torch.profiler; two
+              pose sums a 'full' and a 'full_nocolor' step, four packs a
+              'pallas' one; a step of each mode 4 launches of each f32
+              fused forward kernel, 2 of each fused backward one
+              (hand_trunk_ut_f32_kernel, hand_trunk_dz_f32_kernel) and 2 of
+              trunk_dw_f32_kernel (one a pass; 'full': the color net's
+              gradients in it), no seed, no gemm_tn_f32_kernel or
+              colsum_partial_kernel, and gemm_f32_kernel 30 ('full': the
+              color net's) or none; the trunk's calls of a 'full' and a
+              'pallas' step recorded for phases 36-38, a 'full_nocolor'
+              step's for 37 and 38;
  26b. per-point kernels f32  the pack at a 'pallas' step's recorded
               calls and the pose sum at a 'full' step's, as in 9b;
  27. train check f32  one 64-ray step per kernel mode, card against CPU;
@@ -288,7 +293,21 @@ Pose fitting (the fit confs, f32 trunks), after 13:
               launches' (one gemm_f32_kernel a layer,
               fused_fine.cuda_trunk_backward_split); ms of each kernel, of
               the chain against the split chain and the plain chains beside
-              the bounds; two calls of the pair a step, one a pass.
+              the bounds; two calls of the pair a step, one a pass;
+ 38. fused dW f32  an f32 pass's weight gradients in one launch
+              (trunk_dw_f32_kernel, 3xTF32 on wgmma: every trunk dW and db,
+              with K3's color net's) at the calls one f32 'full' (with the
+              color rows), 'full_nocolor' and 'pallas' step make (recorded
+              by phase 26; a fit step, frozen, makes none) and at ragged
+              sizes (1 to 65,613 points, with and without the color rows):
+              every gradient into NaN-filled buffers against trunk_dw_plain
+              on the card under the f32 rule, a rerun's bits, the relative
+              L2 to the f64 sums within TOL_TRUNK32_VS_SPLIT of the split
+              sequence's (a gemm_tn_f32_kernel and its reduce a product, a
+              colsum_partial_kernel a layer: fused_fine.cuda_trunk_dw_split)
+              at the same call; ms of the launch and of the split sequence in
+              turns, of the plain version, beside the bound; one launch a
+              backward pass with dW.
 
 Weights are random (geometric init plus seeded noise, so every embedding
 column is live).  check_k3_faults.py runs the kernel, train and fit
@@ -302,6 +321,8 @@ the f32 pair TFWD32 and TUCH32 at an f32 request's calls, an f32 'full'
 and 'pallas' step's and a fit step's, beside the split launches'; the
 f32 backward pair TUT32 and TDZ32 at an f32 'full' step's calls, a
 'full_nocolor', 'pallas' and fit step's, the chain beside the split one;
+the f32 weight gradients' launch TDW32 at an f32 'full' step's calls, a
+'full_nocolor' and 'pallas' step's, beside the split sequence's;
 the bf16 and the f32 GEMMs alone and
 the per-point kernels EMBED, COLSUM, UCHAIN, BWDREV, COPY, PACK and POSE
 in rows of their own; BWDREV counts launches on every path that runs it:
@@ -1140,13 +1161,15 @@ def record_trunk_calls(fn):
     in launch order: ("fwd", m, last, keep, dtype) (fused_fine.trunk_fwd:
     last "sdf" for K1's column, z's n_store, or None; keep: the activation
     rows stored; dtype the trunk's, "bf16" or "f32"), ("uc", m, with_u,
-    keep, dtype) (fused_fine.trunk_uchain), and the f32 backward's ("ut",
+    keep, dtype) (fused_fine.trunk_uchain), the f32 backward's ("ut",
     m, keep, None, "f32") and ("dz", m, keep, None, "f32")
-    (fused_fine.trunk_ut, trunk_dz; keep: the dm or dz rows stored)."""
+    (fused_fine.trunk_ut, trunk_dz; keep: the dm or dz rows stored) and
+    its weight gradients' ("dw", m, color, None, "f32") (fused_fine.trunk_dw;
+    color: K3's color rows join the launch)."""
     from honerf_torch.ops import fused_fine as FT
 
     calls = []
-    fwd, uc, ut, dz = FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz
+    fwd, uc, ut, dz, dw = FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz, FT.trunk_dw
 
     def rec_fwd(e, m, ws, bs, tm, ss=None, acts=None, z=None, sdf=None, stream=None):
         last = "sdf" if sdf is not None else (None if z is None else z.shape[1])
@@ -1165,11 +1188,16 @@ def record_trunk_calls(fn):
         calls.append(("dz", m, dzs is not None, None, tm.dtype))
         return dz(m, ws, tm, top, ss, ds, de, dzs, stream)
 
-    FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz = rec_fwd, rec_uc, rec_ut, rec_dz
+    def rec_dw(m, tm, rows, dws, dbs, acc, stream=None, color=None):
+        calls.append(("dw", m, color is not None, None, tm.dtype))
+        return dw(m, tm, rows, dws, dbs, acc, stream, color)
+
+    FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz, FT.trunk_dw = (
+        rec_fwd, rec_uc, rec_ut, rec_dz, rec_dw)
     try:
         fn()
     finally:
-        FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz = fwd, uc, ut, dz
+        FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz, FT.trunk_dw = fwd, uc, ut, dz, dw
     return calls
 
 
@@ -1340,9 +1368,11 @@ TRUNK32_CALLS = {}
 TRUNK_BWD32_CALLS = {}
 # their launches a step or request (gemm_f32_kernel, uchain_seed_kernel,
 # hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel, hand_trunk_ut_f32_kernel,
-# hand_trunk_dz_f32_kernel), filled beside them
+# hand_trunk_dz_f32_kernel, trunk_dw_f32_kernel, gemm_tn_f32_kernel,
+# colsum_partial_kernel), filled beside them
 TRUNK32_COUNTS = {}
-TRUNK32_KERNELS = ("GEMM_F32", "UCHAIN", "TFWD32", "TUCH32", "TUT32", "TDZ32")
+TRUNK32_KERNELS = ("GEMM_F32", "UCHAIN", "TFWD32", "TUCH32", "TUT32", "TDZ32", "TDW32",
+                   "GEMM_TN_F32", "COLSUM")
 # The fused f32 pair against the split launches, both against f64 in L2:
 # no worse than the split's worst output, by this factor (the same split,
 # the same 32-deep fresh sums; wgmma's internal order is not mma.sync's)
@@ -1351,10 +1381,13 @@ TOL_TRUNK32_VS_SPLIT = 1.25
 # net's GEMMs (5 a pass of K2, of K3's recompute and of its backward), no
 # seed, the fused forward pair once a pass of K2, K3, K5 and K6, the fused
 # backward pair once a pass of K3 and K6 (the trunk backward's 17
-# gemm_f32_kernel a pass before it)
-TRUNK32_LAUNCHES = {"f32 'full' step": (30, 0, 4, 4, 2, 2), "'12' fit step": (30, 0, 4, 4, 2, 2),
-                    "f32 'pallas' step": (0, 0, 4, 4, 2, 2),
-                    "f32 request": (80, 0, 16, 16, 0, 0)}
+# gemm_f32_kernel a pass before it), the weight gradients' one launch a pass
+# of K3 and K6 with dW (the color net's joining K3's) and no TN GEMM or
+# column sum (20-26 and 9-14 a pass before it); a fit step's nets are frozen
+TRUNK32_LAUNCHES = {"f32 'full' step": (30, 0, 4, 4, 2, 2, 2, 0, 0),
+                    "'12' fit step": (30, 0, 4, 4, 2, 2, 0, 0, 0),
+                    "f32 'pallas' step": (0, 0, 4, 4, 2, 2, 2, 0, 0),
+                    "f32 request": (80, 0, 16, 16, 0, 0, 0, 0, 0)}
 
 
 def trunk32_pairs(calls):
@@ -1667,6 +1700,10 @@ def trunk_bwd32_inputs(torch, dev, nets, m):
     top[:, :tm.d_out] = torch.randn((m, tm.d_out), device=dev, generator=gen)
     onehot = torch.zeros((m, tm.Op), device=dev)
     onehot[:, 0] = 1.0
+    # the kept activation and t rows as the planes of one tensor each, as
+    # trunk_buffers keeps them (the dW launch reads each as one map)
+    acts = list(torch.stack(acts[:n - 1]).unbind(0))
+    ts = list(torch.stack(ts[:n - 1]).unbind(0))
     return SimpleNamespace(e=e, acts=acts, ss=torch.stack(ss), ts=ts, cs=[None] + cs[1:n - 1],
                            c_last=ws[n - 1][:, 0].contiguous(), du=du,
                            du_s=du * FT.INV_SQRT2, top=top, onehot=onehot)
@@ -1677,7 +1714,7 @@ def trunk_bwd32_readings(torch, dev, nets, calls, timed: bool = True):
     distinct (m, keep) of `calls` (trunk_bwd32_calls), weighted by its
     count, on the flagship's f32 trunk (trunk32_nets) at
     trunk_bwd32_inputs: through cuda_trunk_backward (the two chains, then
-    with keep the f32 TN GEMMs and column sums on their kept rows) every
+    with keep the weight gradients' launch on their kept rows) every
     output (ds, de; with keep every kept dm and dz row, each dW and db),
     into NaN-filled buffers, against the plain versions on the card
     (trunk_ut_plain, trunk_dz_plain on the plain rows, dW_l = dm_l^T t_l +
@@ -1839,6 +1876,203 @@ def trunk_bwd32_text(r) -> str:
                  f"(bound {r.dz_bound_ms:.4f}), the chain {r.ms:.4f} ms against the split "
                  f"launches' {r.split_ms:.4f} ms, plain {r.plain_ms:.3f} ms, bound "
                  f"{r.bound_ms:.4f} ms ({r.bound_by}): {r.bound_ms / r.ms:.2f} of it")
+    return text + ("" if r.ok else " FAIL")
+
+
+def trunk_dw32_calls(calls):
+    """The recorded weight-gradient launches (record_trunk_calls) as (m,
+    color)."""
+    return [(c[1], c[2]) for c in calls if c[0] == "dw"]
+
+
+def ragged_trunk_dw32_calls():
+    """The weight gradients' launch at sizes the main path's leave out,
+    with and without K3's color rows."""
+    return [(m, color) for m in (1, 63, 64, 65, 1001, 65613) for color in (False, True)]
+
+
+def trunk_dw32_inputs(torch, dev, nets, m, color: bool):
+    """The rows one f32 pass's weight gradients read at m points: the
+    trunk's (trunk_bwd32_inputs, and the chains' kept dm and dz rows from
+    their plain versions, each list the planes of one tensor) and, with
+    color, K3's color rows (seeded: [feat | grad-PE], the kept relu
+    activations, one dz row a color layer)."""
+    from honerf_torch.ops import fused_fine as FT
+
+    tm, ws = nets.fine32.meta.trunk_meta, nets.fine32.ws
+    n = tm.n_layers
+    x = trunk_bwd32_inputs(torch, dev, nets, m)
+    ds, dms = FT.trunk_ut_plain(x.du, x.du_s, m, ws, x.ss, x.cs + [x.c_last], tm, keep=True)
+    _, dzs = FT.trunk_dz_plain(x.top, m, ws, x.ss, ds, tm, keep=True)
+    rows = dict(du_b=x.du, du_s=x.du_s, e=x.e, dms=[None] + list(torch.stack(dms[1:n]).unbind(0)),
+                dzs=list(torch.stack(dzs[:n - 1]).unbind(0)), acts=x.acts, ts=x.ts, top=x.top,
+                onehot=x.onehot)
+    crow = None
+    if color:
+        pack = nets.fine32
+        meta, cw, c = pack.meta, pack.cws[0].shape[1], len(pack.cws)
+        gen = torch.Generator(device=dev).manual_seed(m + 1)
+        crow = dict(cx2=torch.randn((m, meta.Fp + meta.Gp), device=dev, generator=gen),
+                    cacts=list(torch.relu(torch.randn((c - 1, m, cw), device=dev,
+                                                      generator=gen)).unbind(0)),
+                    cdz=list((torch.randn((c, m, cw), device=dev, generator=gen)
+                              * 1e-2).unbind(0)))
+    return rows, crow
+
+
+def trunk_dw64(torch, m, tm, rows, crow, cws):
+    """trunk_dw_plain's gradients in f64 on the same f32 rows (dW, db of
+    each trunk layer, then of each color layer; cws: the color gradients'
+    shapes)."""
+    n, skip, inv = tm.n_layers, tm.skip, 1.0 / 2 ** 0.5
+
+    def d(x):
+        return x[:m].double()
+
+    du_b, du_s, e = d(rows["du_b"]), d(rows["du_s"]), d(rows["e"])
+    dw, db = [], []
+    for l in range(n):
+        dz = d(rows["top"]) if l == n - 1 else d(rows["dzs"][l])
+        x = e if l == 0 else (torch.cat([d(rows["acts"][l - 1]), e], 1) * inv if l == skip
+                              else d(rows["acts"][l - 1]))
+        w = x.T @ dz
+        if l == n - 1:
+            w[:, 0] += d(rows["dms"][l]).sum(0)
+        else:
+            dm = du_b if l == 0 else (torch.cat([d(rows["dms"][l]), du_s], 1) if l == skip
+                                      else d(rows["dms"][l]))
+            w = dm.T @ d(rows["ts"][l]) + w
+        dw.append(w)
+        db.append(dz.sum(0))
+    cw, cb = [], []
+    for l, shape in enumerate(cws if crow is not None else []):
+        a = torch.cat([e, d(crow["cx2"])], 1) if l == 0 else d(crow["cacts"][l - 1])
+        dz = d(crow["cdz"][l])[:, :shape[1]]
+        cw.append(a.T @ dz)
+        cb.append(dz.sum(0))
+    return dw, db, cw, cb
+
+
+def trunk_dw32_readings(torch, dev, nets, calls, timed: bool = True):
+    """trunk_dw_f32_kernel at each distinct (m, color) of `calls`
+    (trunk_dw32_calls), weighted by its count, on the flagship's f32 trunk
+    and color net (trunk32_nets) at trunk_dw32_inputs: every dW and db
+    (with color every dcW and dcb) into NaN-filled gradients against
+    trunk_dw_plain on the card under the f32 rule (TOL_F32 of each output's
+    range at the median and the max), a second run's bits, and the
+    relative L2 of each to f64 (trunk_dw64) beside the split sequence's
+    (fused_fine.cuda_trunk_dw_split: a gemm_tn_f32_kernel and its
+    reduce_partials_kernel a product, a colsum_partial_kernel a layer) at
+    the same call, the launch's worst within TOL_TRUNK32_VS_SPLIT of the
+    split's worst.  timed: ms of the launch and of the split sequence in
+    turns (launch, split, split, launch), of the plain version, and the
+    bound (3xTF32 operations of the unpadded products, the u-chain's and the
+    forward's, the last layer's one-hot product left out; each row read
+    once, each gradient written once)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nan = float("nan")
+    pack, cfg = nets.fine32, nets.cfg
+    tm, meta = pack.meta.trunk_meta, pack.meta
+    lib = FF._bwd_lib()
+    scratch = torch.empty((FT._WS_FLOATS,), device=dev)
+    cws = [tuple(w.shape) for w in pack.cws]
+    out = []
+    for (m, color), count in _tally(calls).items():
+        rows, crow = trunk_dw32_inputs(torch, dev, nets, m, color)
+
+        def fresh(color=color, crow=crow):
+            full = lambda ts: [torch.full(t.shape, nan, device=dev) for t in ts]  # noqa: E731
+            c = None if not color else dict(crow, dcws=full(pack.cws), dcbs=full(pack.cbs))
+            return full(pack.ws), full(pack.bs), c
+
+        def grads(o):
+            return list(o[0]) + list(o[1]) + ([] if o[2] is None else o[2]["dcws"]
+                                              + o[2]["dcbs"])
+
+        def fused(o, m=m, rows=rows):
+            FT.trunk_dw(m, tm, rows, o[0], o[1], 0, stream, o[2])
+
+        def split(o, m=m, rows=rows):
+            FT.cuda_trunk_dw_split(lib, m, tm, rows, o[0], o[1], 0, scratch, stream, o[2])
+
+        def plain(o, m=m, rows=rows):
+            FT.trunk_dw_plain(m, tm, rows, o[0], o[1], 0, o[2])
+
+        o1, o2, sp, pl = fresh(), fresh(), fresh(), fresh()
+        fused(o1)
+        fused(o2)
+        split(sp)
+        plain(pl)
+        dw64, db64, cw64, cb64 = trunk_dw64(torch, m, tm, rows, crow, cws)
+        ref = dw64 + db64 + cw64 + cb64
+        torch.cuda.synchronize()
+        n = tm.n_layers
+        names = ([f"dW[{l}]" for l in range(n)] + [f"db[{l}]" for l in range(n)]
+                 + ([f"dcW[{l}]" for l in range(len(cws))] + [f"dcb[{l}]" for l in range(len(cws))]
+                    if color else []))
+        got, want, spl = grads(o1), grads(pl), grads(sp)
+        checks = [compare(torch, w, g, p, TOL_F32, TOL_F32) for w, g, p in zip(names, got, want)]
+        rule = max(max(rd[0], rd[2]) / (TOL_F32 * rd[3]) if rd[3] > 0 else 0.0
+                   for rd in (err_readings(torch, g, p) for g, p in zip(got, want)))
+
+        def l2(g, r):
+            return float((g.double() - r).norm()) / max(float(r.norm()), 1e-300)
+
+        k_l2 = [l2(g, r) for g, r in zip(got, ref)]
+        s_l2 = [l2(g, r) for g, r in zip(spl, ref)]
+        same = all(torch.equal(a, b) for a, b in zip(got, grads(o2)))
+        worst_k, worst_s = max(k_l2), max(s_l2)
+        r = SimpleNamespace(m=m, color=color, count=count, checks=checks, same=same, rule=rule,
+                            worst_k=worst_k, worst_s=worst_s,
+                            l2_ratio=worst_k / (TOL_TRUNK32_VS_SPLIT * max(worst_s, 1e-30)),
+                            worst_what=names[k_l2.index(worst_k)],
+                            max_abs=max(c[1] for c in checks),
+                            ok=all(c[0] for c in checks) and same
+                            and worst_k <= TOL_TRUNK32_VS_SPLIT * worst_s,
+                            ms=None, split_ms=None, turns=None, plain_ms=None, bound_ms=None,
+                            bound_by=None)
+        if timed:
+            dims = trunk_dims(cfg, cfg.d_out)
+            flops = 2.0 * m * (2 * sum(i * o for i, o in dims[:-1]) + dims[-1][0] * dims[-1][1])
+            n_bytes = 4 * m * (3 * tm.Ep + 4 * (n - 1) * tm.Hp + tm.Op) + nbytes(got[:2 * n])
+            if color:
+                c_in = ([meta.emb_width + meta.d_out - 1 + 3 + 6 * meta.grad_L]
+                        + [meta.c_hidden] * (meta.c_layers - 1))
+                c_out = [meta.c_hidden] * (meta.c_layers - 1) + [3]
+                flops += 2.0 * m * sum(i * o for i, o in zip(c_in, c_out))
+                n_bytes += (4 * m * (crow["cx2"].shape[1] + sum(t.shape[1] for t in crow["cacts"])
+                                     + sum(w[1] for w in cws)) + nbytes(got[2 * n:]))
+            o = fresh()
+            turns = (cuda_ms(torch, lambda: fused(o), 5), cuda_ms(torch, lambda: split(sp), 5),
+                     cuda_ms(torch, lambda: split(sp), 5), cuda_ms(torch, lambda: fused(o), 5))
+            r.turns = turns
+            r.ms, r.split_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            r.plain_ms = cuda_ms(torch, lambda: plain(pl), 2)
+            r.bound_ms, r.bound_by = bound(flops, n_bytes, PEAK_F32_3XTF32_FLOPS)
+            del o
+        del o1, o2, sp, pl, ref, rows, crow, got, want, spl
+        torch.cuda.empty_cache()
+        out.append(r)
+    return out
+
+
+def trunk_dw32_text(r) -> str:
+    """One reading of trunk_dw32_readings as a log line."""
+    what = f"m {r.m} color {r.color}" + (f" x{r.count}" if r.count > 1 else "")
+    worst = max(r.checks, key=lambda c: c[1])[2]
+    text = (f"{what}: {len(r.checks)} gradients within the f32 rule: "
+            f"{all(c[0] for c in r.checks)} (the worst: {worst}); a rerun's bits {r.same}; "
+            f"L2 vs f64 worst {r.worst_k:.2e} ({r.worst_what}), the split sequence's "
+            f"{r.worst_s:.2e} (tol {TOL_TRUNK32_VS_SPLIT:g}x)")
+    if r.ms is not None:
+        text += (f"; the launch {r.ms:.4f} ms against the split sequence's {r.split_ms:.4f} ms "
+                 f"({r.ms / r.split_ms:.2f} of it; in turns "
+                 + ", ".join(f"{t:.4f}" for t in r.turns)
+                 + f"), plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms ({r.bound_by}): "
+                 f"{r.bound_ms / r.ms:.2f} of it")
     return text + ("" if r.ok else " FAIL")
 
 
@@ -2278,7 +2512,8 @@ def weighted(rs, keys=("ms", "plain_ms", "lib_ms", "bound_ms")):
 PROFILES = {}
 PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "hand_trunk_fwd_f32_kernel",
                     "hand_uchain_f32_kernel", "hand_trunk_ut_f32_kernel",
-                    "hand_trunk_dz_f32_kernel", "gemm_f32_kernel", "gemm_tn_f32_kernel",
+                    "hand_trunk_dz_f32_kernel", "trunk_dw_f32_kernel", "gemm_f32_kernel",
+                    "gemm_tn_f32_kernel",
                     "gemm_kernel",
                     "uchain_seed_kernel", "fine_bwd_rev_kernel", "fine_rev_kernel",
                     "fine_bwd_emb_kernel", "color_dz_kernel", "pose_sum_kernel",
@@ -2287,6 +2522,9 @@ PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "hand_trunk_f
 # the pose sums' kernels before their one launch (pose_sum_kernel): no
 # profiled path may show them
 RETIRED_KERNELS = ("pose_partial_kernel", "pose_reduce_kernel")
+# the f32 weight gradients' sequence before its one launch
+# (trunk_dw_f32_kernel): no profiled f32 step may show them
+RETIRED_F32_KERNELS = ("gemm_tn_f32_kernel", "reduce_partials_kernel", "colsum_partial_kernel")
 
 
 def perpoint_bytes(kern: str, f32: bool):
@@ -2319,7 +2557,8 @@ def log_perpoint_profiles() -> list:
     (PROFILES), summed over its template instances, and, where its work is
     per point, its bound there: launches x the path's points a launch x
     perpoint_bytes at PEAK_BYTES.  Returns what is wrong: a retired kernel
-    (RETIRED_KERNELS) in a profile, or pose_sum_kernel in none."""
+    (RETIRED_KERNELS) in a profile, the f32 dW sequence (RETIRED_F32_KERNELS)
+    in an f32 step's or a fit step's, or pose_sum_kernel in none."""
     for kern in PERPOINT_KERNELS:
         parts = []
         for label, (groups, points) in PROFILES.items():
@@ -2336,6 +2575,9 @@ def log_perpoint_profiles() -> list:
         log(f"profiled {kern}: " + ("; ".join(parts) if parts else "in no profiled path"))
     wrong = [f"{kern} in {label}" for label, (groups, _) in PROFILES.items()
              for kern in RETIRED_KERNELS if any(kern in name for name in groups)]
+    wrong += [f"{kern} in {label}" for label, (groups, _) in PROFILES.items()
+              if "f32" in label or "fit step" in label
+              for kern in RETIRED_F32_KERNELS if any(kern in name for name in groups)]
     if not any("pose_sum_kernel" in name for groups, _ in PROFILES.values() for name in groups):
         wrong.append("pose_sum_kernel in no profile")
     return wrong
@@ -3075,7 +3317,7 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         def count(*keys):
             return sum(c for k, c in names.items() if any(x in k for x in keys))
 
-        dw_launches = count("gemm_tn", "colsum_partial", "reduce_partials")
+        dw_launches = count("gemm_tn", "colsum_partial", "reduce_partials", "trunk_dw_f32")
         f32_gemms = count("gemm_f32_kernel")
         bf16_gemms = count("gemm_kernel")   # the bf16 GEMM's name is not a part of the f32 one's
         seen = launched and f32_gemms > 0 and sum(names.values()) > 0
@@ -3296,7 +3538,7 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                 return sum(c for k, c in names.items()
                            if "honerf" in k and any(x in k for x in keys))
 
-            dw = count("gemm_tn", "colsum_partial", "reduce_partials")
+            dw = count("gemm_tn", "colsum_partial", "reduce_partials", "trunk_dw_f32")
             f32_g = count("gemm_f32_kernel")
             bwd32 = count("hand_trunk_ut_f32_kernel", "hand_trunk_dz_f32_kernel")
             log(f"{label}: one step's kernels by name: {sum(names.values())} launches, f32 "
@@ -3453,7 +3695,7 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         fn_ = f32_inputs.get("profile")
         assert fn_ is not None, "the fit phase did not run"
         counted = (FH.GEMM_F32, FT.UCHAIN, FT.TRUNK_FWD_F32, FT.TRUNK_UCHAIN_F32,
-                   FT.TRUNK_UT_F32, FT.TRUNK_DZ_F32)
+                   FT.TRUNK_UT_F32, FT.TRUNK_DZ_F32, FT.TRUNK_DW_F32, FH.GEMM_TN_F32, FT.COLSUM)
         for k in counted:
             k.launches = 0
         TRUNK32_CALLS["'12' fit step"] = record_trunk_calls(fn_)
@@ -3466,7 +3708,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             good = got is not None and tuple(got) == want
             log(f"fused trunk f32, {label}: launches of gemm_f32_kernel, uchain_seed_kernel, "
                 f"hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel, hand_trunk_ut_f32_kernel, "
-                f"hand_trunk_dz_f32_kernel: {got} (expected {want})"
+                f"hand_trunk_dz_f32_kernel, trunk_dw_f32_kernel, gemm_tn_f32_kernel, "
+                f"colsum_partial_kernel: {got} (expected {want})"
                 f"{'' if good else ' FAIL'}")
             bad += [] if good else [label]
         nets = trunk32_nets(torch, dev)
@@ -3592,6 +3835,68 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                                  "versions, f64, the split launches, its bits or its calls: "
                                  f"{bad}")
 
+    def fused_dw_f32():
+        """An f32 pass's weight gradients in one launch (trunk_dw_f32_kernel)
+        alone at the calls one f32 'full', 'full_nocolor' and 'pallas' step
+        make (recorded by the f32 train phase; a '12' fit step, whose nets
+        are frozen, makes none), and at ragged sizes with and without the
+        color rows: every dW and db against trunk_dw_plain, f64 and the split
+        sequence (trunk_dw32_readings), timed in turns beside the split
+        sequence, the plain version and the bound; one launch a backward
+        pass."""
+        bad = []
+        for label, calls in TRUNK_BWD32_CALLS.items():
+            dws = trunk_dw32_calls(calls)
+            passes = len([c for c in calls if c[0] == "ut" and c[2]])   # backward passes with dW
+            color = [c for _, c in dws]
+            good = len(dws) == passes and (all(color) if label == "f32 'full' step"
+                                           else not any(color))
+            log(f"fused dW f32, {label}: {len(dws)} launches for {passes} backward passes with "
+                f"dW, color rows {color}{'' if good else ' FAIL'}")
+            bad += [] if good else [f"{label}'s calls"]
+        nets = trunk32_nets(torch, dev)
+        groups = {}
+        for label in ("f32 'full' step", "f32 'full_nocolor' step", "f32 'pallas' step"):
+            calls = trunk_dw32_calls(TRUNK_BWD32_CALLS.get(label, []))
+            if not calls:
+                bad.append(f"{label} not recorded")
+                continue
+            rs = groups[label] = trunk_dw32_readings(torch, dev, nets, calls)
+            for r in rs:
+                log(f"fused dW f32, {label}: {trunk_dw32_text(r)}")
+            t = weighted(rs, ("ms", "split_ms", "plain_ms", "bound_ms"))
+            log(f"fused dW f32, {label}'s {sum(r.count for r in rs)} launches: "
+                f"{t['ms']:.4f} ms against the split sequence's {t['split_ms']:.4f} ms "
+                f"({t['ms'] / t['split_ms']:.2f} of it), plain {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.4f} ms: {t['bound_ms'] / t['ms']:.2f} of it (the split's "
+                f"{t['bound_ms'] / t['split_ms']:.2f})")
+            bad += [trunk_dw32_text(r) for r in rs if not r.ok]
+        for r in trunk_dw32_readings(torch, dev, nets, ragged_trunk_dw32_calls(), timed=False):
+            log(f"fused dW f32, ragged: {trunk_dw32_text(r)}")
+            bad += [] if r.ok else [trunk_dw32_text(r)]
+        every = [r for rs in groups.values() for r in rs]
+        tot = {label: weighted(rs, ("ms", "split_ms", "plain_ms", "bound_ms"))
+               for label, rs in groups.items()}
+        step = tot.get("f32 'full' step")
+        kern = FT.TRUNK_DW_F32
+        rows["TDW32"] = dict(rows.get("TDW32", {}), name=kern.name, route="cuda",
+                             source=kern.source, replaces=kern.replaces,
+                             max_abs_err=max((r.max_abs for r in every), default=None),
+                             ms=step and step["ms"], plain_ms=step and step["plain_ms"],
+                             bound_ms=step and step["bound_ms"], bound_by="operations",
+                             library_ms=None, step_split_ms=step and step["split_ms"],
+                             worst_l2_f64=max((r.worst_k for r in every), default=None),
+                             split_worst_l2_f64=max((r.worst_s for r in every), default=None))
+        for label, prefix in (("f32 'full_nocolor' step", "nocolor_"),
+                              ("f32 'pallas' step", "pallas_")):
+            if label in tot:
+                rows["TDW32"].update({f"{prefix}{k}": tot[label][k]
+                                      for k in ("ms", "split_ms", "bound_ms")})
+        if bad:
+            raise AssertionError("the f32 weight gradients' launch disagrees with its plain "
+                                 "version, f64, the split sequence, its bits or its calls: "
+                                 f"{bad}")
+
     phase("kernel K2 f32", kernel_k2_f32)
     phase("kernel K3 f32 frozen", kernel_k3_f32)
     phase("kernel fit modes f32", kernel_fit_modes_f32)
@@ -3604,8 +3909,10 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             phase("fit profile", fit_profile)
             phase("fused trunk f32", fused_trunk_f32)
             phase("fused trunk backward f32", fused_trunk_bwd_f32)
+            phase("fused dW f32", fused_dw_f32)
         else:
-            failures += ["fit profile", "fused trunk f32", "fused trunk backward f32"]
+            failures += ["fit profile", "fused trunk f32", "fused trunk backward f32",
+                         "fused dW f32"]
     finally:
         import shutil
 
@@ -3642,7 +3949,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                "GEMM": FH.GEMM, "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
                "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "PACK": FT.PACK, "POSE": FF.POSE,
                "TFWD32": FT.TRUNK_FWD_F32, "TUCH32": FT.TRUNK_UCHAIN_F32,
-               "TUT32": FT.TRUNK_UT_F32, "TDZ32": FT.TRUNK_DZ_F32}
+               "TUT32": FT.TRUNK_UT_F32, "TDZ32": FT.TRUNK_DZ_F32, "TDW32": FT.TRUNK_DW_F32}
     log(f"f32 phases: {os.path.relpath(CONF, ROOT)} as written, trunks {sdf_cfg.trunk_dtype}; "
         "select_fine_pass on the card: " + ", ".join(
             f"{m} -> {select_fine_pass(ttcfg._replace(fused_fine=m), sdf_cfg, dev)}"
@@ -3659,7 +3966,9 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
 
     def f32_names(fn):
         """fn's device kernels by name: (f32 GEMMs, the fused f32 backward
-        pair, f32 TN GEMMs, bf16 GEMMs, bf16 TN GEMMs, all launches)."""
+        pair, the weight gradients' launch, the sequence it replaced (f32 TN
+        GEMMs, reduce_partials_kernel, colsum_partial_kernel), bf16 GEMMs,
+        bf16 TN GEMMs, all launches)."""
         names = device_kernel_names(torch, fn)
 
         def count(*keys):
@@ -3667,8 +3976,9 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
 
         return (count("gemm_f32_kernel"),
                 count("hand_trunk_ut_f32_kernel", "hand_trunk_dz_f32_kernel"),
-                count("gemm_tn_f32_kernel"), count("gemm_kernel"), count("gemm_tn_kernel"),
-                sum(names.values()))
+                count("trunk_dw_f32_kernel"),
+                count("gemm_tn_f32_kernel", "reduce_partials_kernel", "colsum_partial_kernel"),
+                count("gemm_kernel"), count("gemm_tn_kernel"), sum(names.values()))
 
     def bwd_report(label, mode, args, flops, n_bytes, key, names_fn):
         """The f32 rule with and without dW, a second run's bits, the
@@ -3685,7 +3995,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         first = getattr(mod, name)(*args)
         same = all(torch.equal(x, y) for (_, x), (_, y) in zip(bwd_entry(mode)[3](again),
                                                                bwd_entry(mode)[3](first)))
-        f32_g, bwd32, tn_f32, bf16_g, bf16_tn, total = names_fn(
+        f32_g, bwd32, dw32, tn_f32, bf16_g, bf16_tn, total = names_fn(
             lambda: getattr(mod, name)(*args))
         ms = cuda_ms(torch, lambda: getattr(mod, name)(*args), 5)
         frozen_ms = cuda_ms(torch, lambda: getattr(mod, name)(*args, want_dw=False), 5)
@@ -3695,7 +4005,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             + (f"; dcolor zero at {dropped} points within {FF.RELU_MARGIN:g} of a relu kink"
                if mode == "full" else "") + f"); a second run gives the same bits: {same}; "
             f"kernels by name: {total} launches, f32 GEMMs {f32_g}, the fused f32 backward pair "
-            f"{bwd32}, f32 TN GEMMs {tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}; "
+            f"{bwd32}, the fused dW launch {dw32}, f32 TN GEMMs, reduces and column sums "
+            f"{tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}; "
             f"kernel {ms:.3f} ms, frozen "
             f"{frozen_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
             f"{flops / 1e12:.4f} TFLOP, {flops / n / 1e6:.3f} MFLOP/pt, "
@@ -3705,9 +4016,9 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                                                      f"{key[1]}bound_ms": b_ms})
         if not all(c.ok for c in checks + frozen_checks) or not same:
             raise AssertionError(f"{label} disagrees with its plain version")
-        if not (bwd32 and tn_f32) or bf16_g or bf16_tn:
-            raise AssertionError(f"{label}: the fused f32 backward pair and f32 TN GEMMs, and no "
-                                 "bf16 GEMM, not shown")
+        if not (bwd32 and dw32) or tn_f32 or bf16_g or bf16_tn:
+            raise AssertionError(f"{label}: the fused f32 backward pair and dW launch, and no f32 "
+                                 "TN GEMM, reduce, column sum or bf16 GEMM, not shown")
         return got
 
     def f32_gemms():
@@ -3857,20 +4168,22 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         if not all(c[0] for c in checks) or not pair or gemms_k5:
             raise AssertionError("K5 f32 disagrees with its plain version or ran a GEMM")
 
-    gemms = ("GEMM_TN_F32", "TFWD32", "TUCH32", "TUT32", "TDZ32")
-    # the embedding kernel with K2 / K3 (K5 / K6 take e from torch), the
-    # column sum with every dW; the f32 trunk's forward and u-chain as the
-    # fused pair, its backward as the fused backward pair, no u-chain seed;
+    gemms = ("TDW32", "TFWD32", "TUCH32", "TUT32", "TDZ32")
+    # the embedding kernel with K2 / K3 (K5 / K6 take e from torch); the f32
+    # trunk's forward and u-chain as the fused pair, its backward as the
+    # fused backward pair, every dW and db (the color net's too) in one
+    # launch a pass, no TN GEMM or column sum, no u-chain seed;
     # gemm_f32_kernel only in the color net
-    expect = {"full": ("K2", "K3", "EMBED", "COLSUM", "BWDREV", "POSE", "GEMM_F32") + gemms,
-              "full_nocolor": ("K2", "K3", "EMBED", "COLSUM", "BWDREV", "POSE") + gemms,
-              "pallas": ("K5", "K6", "COLSUM", "PACK") + gemms, None: ()}
+    expect = {"full": ("K2", "K3", "EMBED", "BWDREV", "POSE", "GEMM_F32") + gemms,
+              "full_nocolor": ("K2", "K3", "EMBED", "BWDREV", "POSE") + gemms,
+              "pallas": ("K5", "K6", "PACK") + gemms, None: ()}
     # an f32 step's K3 / K5 / K6 take its 56,448 fine points in two passes:
     # two pose sums a K3, two packs a K5 and a K6, the fused pair once a
     # pass of K2 / K3 / K5 / K6, the backward pair once a pass of K3 / K6;
     # gemm_f32_kernel in the color net (5 a pass of K2, of K3's recompute
     # and of its backward) (TRUNK32_LAUNCHES)
-    pair = {"TFWD32": 4, "TUCH32": 4, "TUT32": 2, "TDZ32": 2, "UCHAIN": 0}
+    pair = {"TFWD32": 4, "TUCH32": 4, "TUT32": 2, "TDZ32": 2, "UCHAIN": 0, "TDW32": 2,
+            "GEMM_TN_F32": 0, "COLSUM": 0}
     per_step = {"full": {"POSE": 2, "GEMM_F32": 30, **pair},
                 "full_nocolor": {"POSE": 2, "GEMM_F32": 0, **pair},
                 "pallas": {"PACK": 4, "GEMM_F32": 0, **pair}, None: {}}
@@ -3911,15 +4224,15 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             gnorm = torch.stack([m["grad_norm"] for m in metrics])
             finite = bool(torch.isfinite(loss).all()) and bool(torch.isfinite(gnorm).all())
             moved = float((tparams["se3_refine"].detach() - se3_before).abs().max())
-            f32_g, bwd32, tn_f32, bf16_g, bf16_tn, total = f32_names(
+            f32_g, bwd32, dw32, tn_f32, bf16_g, bf16_tn, total = f32_names(
                 lambda: step(state, batch, gen))
             log(f"{label}: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays: "
                 f"{dt * 1e3 / TRAIN_STEPS:.2f} ms/step, {TRAIN_RAYS * TRAIN_STEPS / dt:.1f} "
                 f"rays/s (host clock, after {TRAIN_WARMUP} warm-up steps); peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; "
                 f"one step's kernels by name: {total} launches, f32 GEMMs {f32_g}, the fused f32 "
-                f"backward pair {bwd32}, f32 TN GEMMs "
-                f"{tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}")
+                f"backward pair {bwd32}, the fused dW launch {dw32}, f32 TN GEMMs, reduces and "
+                f"column sums {tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}")
             log(f"{label}: loss first {float(loss[0]):.4f} last {float(loss[-1]):.4f}; grad_norm "
                 f"first {float(gnorm[0]):.4f} last {float(gnorm[-1]):.4f}; se3_refine moved by "
                 f"up to {moved:.3e}")
@@ -3937,14 +4250,9 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             elif mode == "full_nocolor":
                 TRUNK_BWD32_CALLS["f32 'full_nocolor' step"] = record_trunk_calls(
                     lambda: step(state, batch, gen))
-            if mode == "full":
-                tn = _tally(rec.tn)
-                log(f"{label}: reduce_partials_kernel over the step's {sum(tn.values())} dW "
-                    f"products: bound {reduce_bound_ms(tn):.4f} ms (bytes: the partials read "
-                    f"once, dW written once; the kernel's time: the profile)")
             idle = [k for k in want if not launches[k]]
             stray = [k for k in kernels if k not in want and launches[k]]
-            shown = (bwd32 > 0 and tn_f32 > 0) if want else total >= 0
+            shown = (bwd32 > 0 and dw32 > 0 and not tn_f32) if want else total >= 0
             steps = TRAIN_WARMUP + TRAIN_STEPS
             off = {k: launches[k] for k, n in per_step[mode].items() if launches[k] != n * steps}
             if (not finite or moved <= 0 or idle or stray or not shown or bf16_g or bf16_tn
@@ -3959,13 +4267,15 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 # the seed's launches on the f32 trunk's main path, which the
                 # fused u-chain took over: 0
                 rows["UCHAIN"]["launches"] = launches["UCHAIN"]
-                for name in gemms + ("GEMM_F32",):
+                # gemm_tn_f32_kernel: kept for comparison, 0 on the step
+                for name in gemms + ("GEMM_F32", "GEMM_TN_F32"):
                     rows[name] = dict(rows.get(name, {}), launches=launches[name])
+                rows["COLSUM"] = dict(rows.get("COLSUM", {}), f32_launches=launches["COLSUM"])
             elif mode == "full_nocolor":
                 for name in ("K2", "K3"):
                     rows[name] = dict(rows.get(name, {}), f32_nocolor_launches=launches[name])
             elif mode == "pallas":
-                for name in ("K5", "K6", "PACK", "TFWD32", "TUCH32", "TUT32", "TDZ32"):
+                for name in ("K5", "K6", "PACK", "TFWD32", "TUCH32", "TUT32", "TDZ32", "TDW32"):
                     rows[name] = dict(rows.get(name, {}), f32_launches=launches[name])
                 rows["GEMM_F32"] = dict(rows.get("GEMM_F32", {}),
                                         pallas_launches=launches["GEMM_F32"])
@@ -4035,7 +4345,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             "EMBED"] and launches["TFWD32"] and launches["TUCH32"] and not (
             launches["K3"] or launches["K5"] or launches["K6"] or launches["GEMM_TN_F32"]
             or launches["GEMM_TN"] or launches["COLSUM"] or launches["BWDREV"]
-            or launches["UCHAIN"] or launches["TUT32"] or launches["TDZ32"]), \
+            or launches["UCHAIN"] or launches["TUT32"] or launches["TDZ32"]
+            or launches["TDW32"]), \
             f"the f32 'full' render path launched {launches}"
         idx = torch.argsort(wsum.reshape(-1), descending=True)[:CHECK_RAYS]
         cpu = torch.device("cpu")
@@ -5340,7 +5651,7 @@ def main() -> int:
         failures.append("per-point profiles")
     log(gpu_line())
     order = ("K1", "K2", "K3", "K4", "K5", "K6", "TFWD", "TUCH", "TFWD32", "TUCH32", "TUT32",
-             "TDZ32", "GEMM",
+             "TDZ32", "TDW32", "GEMM",
              "GEMM_TN", "GEMM_F32", "GEMM_TN_F32", "EMBED", "COLSUM", "UCHAIN", "BWDREV",
              "COPY", "PACK", "POSE")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -5377,6 +5688,10 @@ def main() -> int:
              "TDZ32": (("f32_launches", "fit_launches")
                        + tuple(f"{p}{k}" for p in ("nocolor_", "pallas_", "fit_")
                                for k in ("ms", "bound_ms"))),
+             "TDW32": (("f32_launches", "step_split_ms", "worst_l2_f64", "split_worst_l2_f64")
+                       + tuple(f"{p}{k}" for p in ("nocolor_", "pallas_")
+                               for k in ("ms", "split_ms", "bound_ms"))),
+             "COLSUM": ("f32_launches",),
              "GEMM_F32": ("pallas_launches", "request_launches"),
              "GEMM": ("image_launches", "request_launches", "train_launches"),
              "EMBED": ("train_launches", "step_ms", "step_bound_ms", "f32_ms", "f32_plain_ms",

@@ -56,6 +56,7 @@ note at the top of csrc/fused_trunk.cu; their times: PERF.md.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, NamedTuple, Tuple
 
@@ -573,6 +574,12 @@ TRUNK_UT_F32 = _build.Kernel("hand_trunk_ut_f32_kernel",
 TRUNK_DZ_F32 = _build.Kernel("hand_trunk_dz_f32_kernel",
                              "honerf_torch/ops/csrc/trunk_bwd_f32.cu",
                              "honerf_tpu/ops/fused_fine_full.py:1650")
+# An f32 pass's weight gradients in one launch (csrc/trunk_dw_f32.cu): the
+# f32 mode of `_trunk_bwd_block`'s dW / db (honerf_tpu/ops/fused_fine.py:
+# 379-381, 397-399) inside K6's pallas_call (:488) and K3's, with K3's
+# color dW (`_color_bwd_block`, honerf_tpu/ops/fused_fine_full.py:902-904).
+TRUNK_DW_F32 = _build.Kernel("trunk_dw_f32_kernel", "honerf_torch/ops/csrc/trunk_dw_f32.cu",
+                             "honerf_tpu/ops/fused_fine.py:488")
 
 
 def type_trunk_lib(lib) -> None:
@@ -845,6 +852,20 @@ def _tb32lib():
     return lib
 
 
+def _tdw32lib():
+    """The library of csrc/trunk_dw_f32.cu (an f32 pass's weight gradients)."""
+    lib = _build.load("trunk_dw_f32")
+    if not getattr(lib, "_honerf_tdw32_typed", False):
+        L = ctypes.c_longlong
+        lib.honerf_trunk_dw_f32.argtypes = [
+            _I, _I, _P, _P, _P, _P, _P,      # M, n_maps, bases, cols, lds, layers, planes
+            _P, _I, _I, _P, _P, _P,          # items, n_items, n_out, dw, ldw, db
+            _P, L, _I, _F, _P]               # part, part_floats, acc, xscale, stream
+        lib.honerf_trunk_dw_f32.restype = _I
+        lib._honerf_tdw32_typed = True
+    return lib
+
+
 def tf32_operands(w, transpose: bool):
     """The f32 trunk kernels' B operand of the padded f32 weight w: [big;
     small] of w (transpose False: the u-chain's, (2 in_pad, out_pad)) or of
@@ -879,6 +900,10 @@ def rcp12_mismatches(dev) -> int:
 
 def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[0 if t is None else t.data_ptr() for t in ts])
+
+
+def _ptrs_raw(xs):
+    return (ctypes.c_void_p * len(xs))(*xs)
 
 
 def _ints(xs):
@@ -1091,17 +1116,23 @@ def trunk_dz(m: int, ws, tm: TrunkMeta, top, ss, ds, de, dzs=None, stream=None) 
         "honerf_trunk_dz_f32")
 
 
+def planes(n: int, C: int, width: int, dev, dtype) -> List[torch.Tensor]:
+    """n (C, width) row blocks, the planes of one (n, C, width) tensor."""
+    return list(torch.empty((n, C, width), device=dev, dtype=dtype).unbind(0)) if n else []
+
+
 def trunk_buffers(tm: TrunkMeta, C: int, dev, keep: bool):
     """Scratch of cuda_trunk_forward for C points: f32 sigmoid rows, and
     with `keep` (K3's and K6's recompute) activations and t rows in the
-    trunk dtype, one per layer, and the f32 c rows (the two fused launches
+    trunk dtype, one per layer (the planes of one tensor, which the dW
+    launch reads as one map), and the f32 c rows (the two fused launches
     keep them on chip otherwise)."""
     n, Hp = tm.n_layers, tm.Hp
     op, f32 = _cast(tm), torch.float32
     n_act = n - 1 if keep else 0
     buf = dict(
-        acts=[torch.empty((C, Hp), device=dev, dtype=op) for _ in range(n_act)],
-        ts=[torch.empty((C, Hp), device=dev, dtype=op) for _ in range(n_act)],
+        acts=planes(n_act, C, Hp, dev, op),
+        ts=planes(n_act, C, Hp, dev, op),
         ss=torch.empty((n - 1, C, Hp), device=dev, dtype=f32),
     )
     if keep:
@@ -1190,7 +1221,8 @@ def trunk_bwd_buffers(ws, tm: TrunkMeta, C: int, dev, width: int, want_dw: bool 
     """Scratch of cuda_trunk_backward for C points; dzf / dzb (the f32
     and the trunk-dtype cotangent rows) `width` columns wide; for an f32
     trunk with want_dw the fused chains' kept rows dms (dm_l, 1 <= l < n)
-    and dzs (dz_l, l < n - 1), which the weight gradients read after them."""
+    and dzs (dz_l, l < n - 1), each the planes of one tensor, which the
+    weight gradients' launch (trunk_dw) reads after them."""
     n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
     op, f32 = _cast(tm), torch.float32
     onehot = torch.zeros((C, Op), device=dev, dtype=op)
@@ -1207,13 +1239,13 @@ def trunk_bwd_buffers(ws, tm: TrunkMeta, C: int, dev, width: int, want_dw: bool 
         c_last=ws[n - 1][:, 0].float().contiguous(),    # c_{n-1}, every point
     )
     if tm.dtype == "f32" and want_dw:
-        bw["dms"] = [None] + [torch.empty((C, Hp), device=dev, dtype=f32) for _ in range(n - 1)]
-        bw["dzs"] = [torch.empty((C, Hp), device=dev, dtype=f32) for _ in range(n - 1)]
+        bw["dms"] = [None] + planes(n - 1, C, Hp, dev, f32)
+        bw["dzs"] = planes(n - 1, C, Hp, dev, f32)
     return bw
 
 
 def cuda_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, dbs,
-                        want_dw: bool, acc: int, scratch, stream) -> None:
+                        want_dw: bool, acc: int, scratch, stream, color=None) -> None:
     """The trunk's backward launches (K3's and K6's) on m points after the
     seeds: the u-chain transposed upward from bw's du_b = T(du) and
     du_s = T(du / sqrt2) (T the trunk dtype), then the forward transposed
@@ -1221,34 +1253,223 @@ def cuda_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, db
     into dws / dbs (f32; acc: add to them, the passes after the first),
     the cotangent of e into bw's de (f32, Ep columns).  buf: the forward's
     rows (cuda_trunk_forward, keep=True).  An f32 trunk runs the two chains
-    as two launches (trunk_ut, trunk_dz), then with want_dw the f32 TN
-    GEMMs and column sums on the rows they keep; a bf16 trunk one GEMM a
+    as two launches (trunk_ut, trunk_dz), then with want_dw every dW and db
+    in one launch on the rows they keep (trunk_dw; `color`: K3's color
+    rows and gradients, dw_color_rows, join it); a bf16 trunk one GEMM a
     layer (_split_trunk_backward)."""
     if tm.dtype != "f32":
         _split_trunk_backward(lib, m, e, ws, wts, tm, buf, bw, dws, dbs, want_dw, acc, scratch,
                               stream)
         return
-    n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
-    ts, cs, ss = buf["ts"], buf["cs"], buf["ss"]
-    top, du_b, du_s, onehot = bw["dzf"][0], bw["du_b"], bw["du_s"], bw["onehot"]
+    cs, ss = buf["cs"], buf["ss"]
+    top, du_b, du_s = bw["dzf"][0], bw["du_b"], bw["du_s"]
     dms, dzs = (bw["dms"], bw["dzs"]) if want_dw else (None, None)
     trunk_ut(m, ws, tm, du_b, du_s, ss, cs, bw["c_last"], bw["ds"], dms, stream)
     trunk_dz(m, ws, tm, top, ss, bw["ds"], bw["de"], dzs, stream)
-    if not want_dw:
-        return
-    # the u-chain transposed: dW_l (+)= dm_l^T t_l (the skip's dm [dm | du_s])
+    if want_dw:
+        trunk_dw(m, tm, dw_rows(e, buf, bw), dws, dbs, acc, stream, color)
+
+
+def dw_rows(e, buf, bw) -> dict:
+    """The rows an f32 pass's weight gradients read: du_b, du_s and e
+    (Ep columns), the backward chains' kept dm_l (dms[l], 1 <= l < n) and
+    dz_l (dzs[l], l < n - 1), the forward's activations (acts[l - 1] =
+    in_l, 0 < l) and u-chain t rows (ts[l], l < n - 1), the top cotangent
+    (dz_{n-1}, Op columns) and the one-hot sdf column (t_{n-1}; only the
+    split launches read it)."""
+    return dict(du_b=bw["du_b"], du_s=bw["du_s"], e=e, dms=bw["dms"], dzs=bw["dzs"],
+                acts=buf["acts"], ts=buf["ts"], top=bw["dzf"][0], onehot=bw["onehot"])
+
+
+def dw_color_rows(cx2, cacts, cdz, dcws, dcbs) -> dict:
+    """K3's color rows for trunk_dw: the color input's second part cx2
+    ([feat | grad-PE]; its first part is e), the kept activations
+    (cacts[l - 1] = the input of color layer l > 0), one dz row a color
+    layer (cdz[l]), and the gradients dcws / dcbs."""
+    return dict(cx2=cx2, cacts=cacts, cdz=cdz, dcws=dcws, dcbs=dcbs)
+
+
+def trunk_dw_plain(m: int, tm: TrunkMeta, rows: dict, dws, dbs, acc: int, color=None) -> None:
+    """trunk_dw_f32_kernel's function in plain PyTorch: on the first m
+    points of `rows` (dw_rows), dW_l (+)= dm_l^T t_l + in_l^T dz_l and db_l
+    (+)= sum dz_l for each trunk layer (dm_0 = du_b; the skip's [dm | du_s]
+    and [a | e] / sqrt2; layer n - 1's t the one-hot sdf column, so its
+    u-chain part is dm_{n-1}'s column sum in column 0); with `color`
+    (dw_color_rows) dcW_l (+)= a_l^T dz_l and dcb_l (+)= sum dz_l (a_0 =
+    [e | cx2]).  f32 products (_mm_tn) and sums (.sum(0)); acc: add to the
+    outputs (the passes after the first), else overwrite them."""
+    if tm.dtype != "f32":
+        raise ValueError("the fused dW launch is the f32 trunk's")
+    n, skip = tm.n_layers, tm.skip
+    r = {k: (v[:m] if torch.is_tensor(v) else [None if x is None else x[:m] for x in v])
+         for k, v in rows.items() if k != "onehot"}
+    du_b, du_s, e = r["du_b"][:, :tm.Ep], r["du_s"][:, :tm.Ep], r["e"][:, :tm.Ep]
+
+    def put(out, val):
+        if acc:
+            out += val
+        else:
+            out.copy_(val)
+
     for l in range(n):
-        Y = onehot if l == n - 1 else ts[l]
+        N = dws[l].shape[1]
+        dz = r["top"][:, :N] if l == n - 1 else r["dzs"][l][:, :N]
+        x = e if l == 0 else (torch.cat([r["acts"][l - 1], e], 1) * INV_SQRT2 if l == skip
+                              else r["acts"][l - 1])
+        dw = _mm_tn(tm, x, dz)
+        if l == n - 1:
+            dw[:, 0] += r["dms"][l].sum(0)
+        else:
+            dm = du_b if l == 0 else (torch.cat([r["dms"][l], du_s], 1) if l == skip
+                                      else r["dms"][l])
+            dw = _mm_tn(tm, dm, r["ts"][l][:, :N]) + dw
+        put(dws[l], dw)
+        put(dbs[l], dz.sum(0))
+    if color is None:
+        return
+    c = {k: (v[:m] if torch.is_tensor(v) else [x[:m] for x in v])
+         for k, v in color.items() if k in ("cx2", "cacts", "cdz")}
+    for l, (dcw, dcb) in enumerate(zip(color["dcws"], color["dcbs"])):
+        N = dcw.shape[1]
+        a = torch.cat([e, c["cx2"]], 1) if l == 0 else c["cacts"][l - 1]
+        dz = c["cdz"][l][:, :N]
+        put(dcw, _mm_tn(tm, a, dz))
+        put(dcb, dz.sum(0))
+
+
+def _dw_sources(m: int, tm: TrunkMeta, rows: dict, color) -> Tuple[list, list]:
+    """The launch's maps (each a stack of planes: (base, cols, ld, planes,
+    plane stride)) and its outputs (Tdw32Out), in the kernel's order."""
+    n, Hp, Ep, skip = tm.n_layers, tm.Hp, tm.Ep, tm.skip
+    f32 = torch.float32
+
+    def stack(name, ts, cols):
+        ts = list(ts)
+        base = ts[0]
+        ld = _check_rows(name, ts, f32, m, cols)
+        plane = ts[1].data_ptr() - base.data_ptr() if len(ts) > 1 else 0
+        if plane % 16 or any(t.data_ptr() != base.data_ptr() + i * plane
+                             for i, t in enumerate(ts)):
+            raise ValueError(f"{name}: the rows must be the planes of one tensor")
+        return (base.data_ptr(), cols, ld, len(ts), plane // 4)
+
+    S, T, O = WL.Tdw32Seg, WL.Tdw32Prod, WL.Tdw32Out
+    MMA, SUM = WL.TDW32_MMA, WL.TDW32_SUM
+    DUB, DUS, E, DM, ACT, TS, DZ, TOP, CX, CA, CDZ = range(11)
+    maps = [stack("du_b", [rows["du_b"]], Ep), stack("du_s", [rows["du_s"]], Ep),
+            stack("e", [rows["e"]], Ep), stack("dms", rows["dms"][1:n], Hp),
+            stack("acts", rows["acts"][:n - 1], Hp), stack("ts", rows["ts"][:n - 1], Hp),
+            stack("dzs", rows["dzs"][:n - 1], Hp), stack("top", [rows["top"]], tm.Op)]
+    outs = []
+    for l in range(n):
+        if l == 0:
+            u = T(MMA, (S(0, Ep, DUB, 0, 0),), (TS, 0))
+            f = T(MMA, (S(0, Ep, E, 0, 0),), (DZ, 0))
+        elif l == skip:
+            u = T(MMA, (S(0, Hp, DM, l - 1, 0), S(Hp, Ep, DUS, 0, 0)), (TS, l))
+            f = T(MMA, (S(0, Hp, ACT, l - 1, 0, 1), S(Hp, Ep, E, 0, 0, 1)), (DZ, l))
+        elif l == n - 1:
+            u = T(SUM, (S(0, Hp, DM, l - 1, 0),))
+            f = T(MMA, (S(0, Hp, ACT, l - 1, 0),), (TOP, 0))
+        else:
+            u = T(MMA, (S(0, Hp, DM, l - 1, 0),), (TS, l))
+            f = T(MMA, (S(0, Hp, ACT, l - 1, 0),), (DZ, l))
+        outs.append(O(Hp + Ep if l == skip else (Ep if l == 0 else Hp), tm.Op if l == n - 1
+                      else Hp, (u, f)))
+    if color is not None:
+        cdz, cacts, cx2 = color["cdz"], color["cacts"], color["cx2"]
+        cw = cdz[0].shape[1]
+        maps += [stack("cx2", [cx2], cx2.shape[1]), stack("cacts", cacts, cacts[0].shape[1]),
+                 stack("cdz", cdz, cw)]
+        none = T(WL.TDW32_NONE, ())
+        for l, dcw in enumerate(color["dcws"]):
+            if l == 0:
+                segs = (S(0, Ep, E, 0, 0), S(Ep, cx2.shape[1], CX, 0, 0))
+            else:
+                segs = (S(0, dcw.shape[0], CA, l - 1, 0),)
+            outs.append(O(dcw.shape[0], dcw.shape[1], (none, T(MMA, segs, (CDZ, l)))))
+    return maps, outs
+
+
+@functools.lru_cache(maxsize=64)
+def _dw_plan(outs, m: int, dev: str):
+    """The work list of (outs, m) on dev's SM count, made once: (items,
+    the int32 tensor the kernel reads)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    items = WL.tdw32_plan(outs, m, sms)
+    return items, torch.tensor(WL.tdw32_item_ints(items), dtype=torch.int32, device=dev)
+
+
+def trunk_dw(m: int, tm: TrunkMeta, rows: dict, dws, dbs, acc: int, stream=None,
+             color=None) -> None:
+    """Every dW / db of an f32 trunk pass on m points (and with `color`,
+    K3's color net's) in one launch: csrc/trunk_dw_f32.cu's
+    trunk_dw_f32_kernel, trunk_dw_plain's function.  rows: dw_rows (each
+    list the planes of one f32 tensor); dws / dbs (and color's dcws /
+    dcbs): the padded f32 gradients; acc: add to them.  On a CPU e it runs
+    trunk_dw_plain and launches nothing."""
+    if tm.dtype != "f32" or any(w.dtype != torch.float32 for w in dws):
+        raise ValueError("the fused dW launch takes an f32 trunk and f32 gradients")
+    if rows["e"].device.type == "cpu":
+        trunk_dw_plain(m, tm, rows, dws, dbs, acc, color)
+        return
+    if m <= 0:
+        return
+    maps, outs = _dw_sources(m, tm, rows, color)
+    items, ints = _dw_plan(tuple(outs), m, str(rows["e"].device))
+    dw = list(dws) + (list(color["dcws"]) if color is not None else [])
+    db = list(dbs) + (list(color["dcbs"]) if color is not None else [])
+    for w, b, o in zip(dw, db, outs):
+        if (tuple(w.shape) != (o.K, o.N) or w.stride(1) != 1 or b.shape[0] < o.N
+                or w.dtype != torch.float32 or b.dtype != torch.float32):
+            raise ValueError("dW / db must be f32 of the layers' padded shapes")
+    part = torch.empty((max(len(items), 1), WL.TDW32_PART), device=rows["e"].device,
+                       dtype=torch.float32)
+    L = ctypes.c_longlong
+    TRUNK_DW_F32.launches += 1
+    _build.check(_tdw32lib().honerf_trunk_dw_f32(
+        m, len(maps), _ptrs_raw([x[0] for x in maps]), _ints([x[1] for x in maps]),
+        _ints([x[2] for x in maps]), _ints([x[3] for x in maps]),
+        (L * len(maps))(*[x[4] for x in maps]), ints.data_ptr(), len(items), len(dw),
+        _ptrs(dw), _ints([w.stride(0) for w in dw]), _ptrs(db), part.data_ptr(), part.numel(),
+        acc, INV_SQRT2, stream), "honerf_trunk_dw_f32")
+
+
+def cuda_trunk_dw_split(lib, m: int, tm: TrunkMeta, rows: dict, dws, dbs, acc: int, scratch,
+                        stream, color=None) -> None:
+    """trunk_dw's outputs as the launch sequence it replaced: a
+    gemm_tn_f32_kernel (and its reduce_partials_kernel) a product, the
+    one-hot one included, and a colsum_partial_kernel a layer, for the
+    trunk and K3's color net.  No main path calls it: chip_smoke.py and
+    bench_gemm.py time and hold trunk_dw against it at the same calls."""
+    n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
+    if tm.dtype != "f32":
+        raise ValueError("the split dW launches are the f32 trunk's")
+    du_b, du_s, dms, ts = rows["du_b"], rows["du_s"], rows["dms"], rows["ts"]
+    for l in range(n):
+        Y = rows["onehot"] if l == n - 1 else ts[l]
         A, K = (du_b, Ep) if l == 0 else (dms[l], Hp)
         _tn(lib, A, A.stride(0), K, Y, Y.shape[1], m, dws[l], acc, scratch, stream)
         if l == tm.skip:
             _tn(lib, du_s, du_s.stride(0), Ep, Y, Y.shape[1], m, dws[l][Hp:], acc, scratch,
                 stream)
-    # the forward transposed: dW_l += in_l^T dz_l, db_l (+)= sum dz_l, one
-    # f32 row of dz a layer for both
     for l in range(n - 1, -1, -1):
-        Z = top if l == n - 1 else dzs[l]
-        _layer_dw(lib, m, e, ws, tm, buf["acts"], l, Z, Z, dws, dbs, acc, scratch, stream)
+        Z = rows["top"] if l == n - 1 else rows["dzs"][l]
+        _layer_dw(lib, m, rows["e"], dws, tm, rows["acts"], l, Z, Z, dws, dbs, acc, scratch,
+                  stream)
+    if color is None:
+        return
+    e, cx2 = rows["e"], color["cx2"]
+    for l, (dcw, dcb) in enumerate(zip(color["dcws"], color["dcbs"])):
+        Z, width = color["cdz"][l], dcw.shape[1]
+        if l == 0:
+            _tn(lib, e, Ep, Ep, Z, width, m, dcw, acc, scratch, stream)
+            _tn(lib, cx2, cx2.stride(0), cx2.shape[1], Z, width, m, dcw[Ep:], acc, scratch,
+                stream)
+        else:
+            a = color["cacts"][l - 1]
+            _tn(lib, a, a.stride(0), a.shape[1], Z, width, m, dcw, acc, scratch, stream)
+        _colsum(lib, Z, width, m, dcb, acc, scratch, stream)
 
 
 def _layer_dw(lib, m: int, e, ws, tm: TrunkMeta, acts, l: int, Zb, Zf, dws, dbs, acc: int,

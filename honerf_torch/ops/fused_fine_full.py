@@ -856,8 +856,7 @@ def _fwd_buffers(pack: FinePack, C: int, dev, keep: bool):
     if meta.with_color:
         cHp = pack.cws[0].shape[1]
         buf.update(cx2=torch.empty((C, meta.Fp + meta.Gp), device=dev, dtype=op),
-                   cacts=[torch.empty((C, cHp), device=dev, dtype=op)
-                          for _ in range(meta.c_layers - 1 if keep else 2)])
+                   cacts=FT.planes(meta.c_layers - 1 if keep else 2, C, cHp, dev, op))
     return buf
 
 
@@ -915,6 +914,9 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
         width = max(pack.cws[0].shape[1], Hp, Op) if color else max(Hp, Op)
         bw = FT.trunk_bwd_buffers(pack.ws, tm, C, dev, width, want_dw)
         dzf, dzb = bw["dzf"], bw["dzb"]
+        # f32: one dz row a color layer, which the pass's dW launch reads
+        cdz = (FT.planes(cn, C, pack.cws[0].shape[1], dev, f32)
+               if color and meta.dtype == "f32" else None)
         dgt = torch.empty((C, 4), device=dev, dtype=f32)
         pose_rows = torch.empty((C, 256), device=dev, dtype=f32)
         ws = torch.empty((FT._WS_FLOATS,), device=dev, dtype=f32)
@@ -934,7 +936,7 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
         if color:
             dsdf = cts[0][s:]
             _color_bwd_cuda(blib, m, pack, buf, packed, cts[2][s:], dzf, dzb, dx, dcws, dcbs,
-                            want_dw, acc, ws, stream)
+                            want_dw, acc, ws, stream, cdz)
         else:
             # the cotangents on e and on the features where the color net's
             # input cotangent goes, dsdf beside them
@@ -947,8 +949,10 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
         # trunk's top cotangent [dsdf | dfeat]
         fine_bwd_rev(blib, pts[s:], m, rotT, off, cut, meta, packed, dsdf, dg[s:], dx,
                      bw["du_b"], bw["du_s"], dgt, dzf[0], dzb[0], stream)
+        crows = (FT.dw_color_rows(buf["cx2"], buf["cacts"], cdz, dcws, dcbs)
+                 if cdz is not None and want_dw else None)
         FT.cuda_trunk_backward(blib, m, e, pack.ws, pack.wts, tm, buf, bw, dws, dbs, want_dw,
-                               acc, ws, stream)
+                               acc, ws, stream, crows)
         # embedding-forward transpose -> dp and the per-point pose rows
         _build.check(blib.honerf_fine_bwd_emb(
             pts[s:].data_ptr(), m, rotT.data_ptr(), off.data_ptr(), cut.data_ptr(),
@@ -967,12 +971,17 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
 
 
 def _color_bwd_cuda(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, dcws, dcbs,
-                    want_dw, acc, ws, stream):
+                    want_dw, acc, ws, stream, cdz=None):
     """K3's color launches: dz = s (1 - s) dcolor, then per layer, top
-    down, dcW = a^T dz, dcb = sum dz, da = dz cW^T masked by the relu;
-    the color input's cotangent into dx."""
+    down, da = dz cW^T masked by the relu; the color input's cotangent
+    into dx.  bf16: dz alternates between dzf / dzb[0] and [1], and with
+    want_dw each layer's dcW = a^T dz and dcb = sum dz follow it.  f32
+    (cdz given): layer l's dz into cdz[l], for the pass's one dW launch
+    (fused_fine.trunk_dw)."""
     meta, Ep = pack.meta, pack.meta.trunk_meta.Ep
     e, cx2 = buf["e"], buf["cx2"]
+    if cdz is not None:
+        dzf = dzb = [cdz[l] for l in range(meta.c_layers - 1, -1, -1)]
     color_dz = blib.honerf_color_dz_f32 if meta.dtype == "f32" else blib.honerf_color_dz
     _build.check(color_dz(packed.data_ptr(), dcolor.data_ptr(), m, dzf[0].data_ptr(),
                           dzb[0].data_ptr(), dzf[0].stride(0), pack.cws[-1].shape[1], stream),
@@ -980,7 +989,7 @@ def _color_bwd_cuda(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, 
     cur = 0
     for l in range(meta.c_layers - 1, -1, -1):
         width = pack.cws[l].shape[1]
-        if want_dw:
+        if want_dw and cdz is None:
             if l == 0:
                 _tn(blib, e, Ep, Ep, dzb[cur], width, m, dcws[0], acc, ws, stream)
                 _tn(blib, cx2, cx2.stride(0), cx2.shape[1], dzb[cur], width, m,
@@ -992,7 +1001,7 @@ def _color_bwd_cuda(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, 
             _colsum(blib, dzf[cur], width, m, dcbs[l], acc, ws, stream)
         wt = pack.cwts[l]                   # (out_pad, in_pad)
         if l > 0:
-            nxt = 1 - cur
+            nxt = cur + 1 if cdz is not None else 1 - cur
             FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_MASK,
                     dzb[nxt], dzb[nxt].stride(0), Cf=dzf[nxt],
                     Act=buf["cacts"][l - 1], stream=stream)

@@ -870,3 +870,221 @@ def ring_schedule(phase_steps: Sequence[int], tiles: int, stages: int, turns: bo
     if arrivals != syncs:
         raise RuntimeError(f"arrivals {arrivals} left against syncs {syncs}")
     return events
+
+
+# ---------------------------------------------------------------------------
+# An f32 pass's weight gradients in one launch (csrc/trunk_dw_f32.cu)
+# ---------------------------------------------------------------------------
+
+TDW32_ROWS = 128       # dW rows an item: two consumers x 64
+TDW32_NB = 128         # dW columns an item, at most
+TDW32_BK = 32          # points a K step
+TDW32_BOX_BYTES = TDW32_BK * 128                    # 32 points x 32 f32 columns
+TDW32_X_BYTES = 4 * TDW32_BOX_BYTES                 # two consumers x 64 columns
+TDW32_Y_BYTES = TDW32_NB // 32 * TDW32_BOX_BYTES
+TDW32_STAGE_BYTES = TDW32_X_BYTES + TDW32_Y_BYTES
+TDW32_STAGES = 3
+TDW32_RING_BYTES = TDW32_STAGES * TDW32_STAGE_BYTES
+TDW32_B_BYTES = TDW32_NB * 128                      # B's big (or small) rows of a K step
+TDW32_SPLIT_BYTES = 2 * TDW32_B_BYTES
+TDW32_BUF_BYTES = 2 * TDW32_SPLIT_BYTES             # two K steps' [small; big]
+TDW32_ACC_BYTES = 256 * TDW32_NB // 2 * 4          # the flushed running sums
+TDW32_RED_BYTES = 256 * 4                          # db's thread sums
+TDW32_SMEM_BYTES = (1024 + TDW32_RING_BYTES + TDW32_BUF_BYTES + TDW32_ACC_BYTES
+                    + TDW32_RED_BYTES + 2 * TDW32_STAGES * 8 + 16)
+TDW32_MAX_MAPS = 12
+TDW32_MAX_OUT = 16
+TDW32_PART = (TDW32_ROWS + 1) * TDW32_NB            # floats of an item's partial
+TDW32_MAX_TILES = 1024
+TDW32_ITEM_INTS = 24
+TDW32_FLUSH = 32       # K steps a running sum holds before it joins the shared-memory sum
+TDW32_CONSTANTS = ("TDW32_ROWS", "TDW32_NB", "TDW32_BK", "TDW32_BOX_BYTES", "TDW32_X_BYTES",
+                   "TDW32_Y_BYTES", "TDW32_STAGE_BYTES", "TDW32_STAGES", "TDW32_RING_BYTES",
+                   "TDW32_B_BYTES", "TDW32_SPLIT_BYTES", "TDW32_BUF_BYTES", "TDW32_ACC_BYTES",
+                   "TDW32_RED_BYTES",
+                   "TDW32_SMEM_BYTES", "TDW32_MAX_MAPS", "TDW32_MAX_OUT", "TDW32_PART",
+                   "TDW32_MAX_TILES", "TDW32_ITEM_INTS", "TDW32_FLUSH")
+TDW32_NONE, TDW32_MMA, TDW32_SUM = 0, 1, 2
+# a K step's cost in the planner's units (one 128 x 128 product), by kind
+# and width; an item's fixed cost (its partial, the tile's sum) in K steps
+_TDW32_COST = {(TDW32_MMA, 128): 1.0, (TDW32_MMA, 64): 0.6, (TDW32_SUM, 128): 0.25,
+               (TDW32_SUM, 64): 0.25}
+_TDW32_ITEM_COST = 3.0
+
+
+class Tdw32Seg(NamedTuple):
+    """Rows [row0, row0 + rows) of a product's X: map `map`'s plane
+    `layer`, columns col0.., times the skip's 1/sqrt2 when `scale`."""
+
+    row0: int
+    rows: int
+    map: int
+    layer: int
+    col0: int
+    scale: int = 0
+
+
+class Tdw32Prod(NamedTuple):
+    """One of an output's two products: kind (TDW32_MMA: X^T Y; TDW32_SUM:
+    X's column sums into dW's column 0), X's row segments, Y's (map, layer)."""
+
+    kind: int
+    segs: tuple
+    y: tuple = (0, 0)
+
+
+class Tdw32Out(NamedTuple):
+    """An output slot: dW (K, N) and db (N,), the sum of its products
+    (u-chain's first, the forward's second; db from the second's Y)."""
+
+    K: int
+    N: int
+    prods: tuple
+
+
+def tdw32_box(p: int, col: int) -> int:
+    """Byte of an f32 box (32 points x 32 columns, the 128-byte swizzle)
+    that holds point p, column col (tdw32_box in the source)."""
+    assert 0 <= p < TDW32_BK and 0 <= col < 32
+    return swizzle128(p * 128 + 4 * col)
+
+
+def tdw32_b_offset(n: int, k: int) -> int:
+    """Byte of the transposed split (either half) that holds B element (n,
+    k): column n's row of 128 bytes, k's quad at (k / 4) ^ (n % 8)."""
+    assert 0 <= n < TDW32_NB and 0 <= k < TDW32_BK
+    return n * 128 + (((k // 4) ^ (n % 8)) << 4) + 4 * (k % 4)
+
+
+def tdw32_split_cells(tau: int, nb: int) -> List[tuple]:
+    """The (point, column) cells of a K step's Y that consumer thread tau
+    (0-255) splits, in its order: column tau % nb, quads of 4 points from
+    (tau / nb) quads."""
+    quads = TDW32_BK * nb // 256 // 4
+    n, q0 = tau % nb, (tau // nb) * quads
+    return [(4 * q + i, n) for q in range(q0, q0 + quads) for i in range(4)]
+
+
+def tdw32_a_cells(thread: int) -> List[tuple]:
+    """The (point, dW row within the consumer's 64) cells of a K step's X
+    that a consumer thread loads, x[kk][q] in order: point 8 kk + t + 4 (q
+    >> 1), row r + 8 (q & 1)."""
+    w, lane = (thread % 128) // 32, thread % 32
+    r, t = 16 * w + lane // 4, lane % 4
+    return [(8 * kk + t + 4 * (q >> 1), r + 8 * (q & 1)) for kk in range(4) for q in range(4)]
+
+
+def tdw32_smem_bytes() -> Dict[str, int]:
+    """trunk_dw_f32_kernel's shared memory by part (bytes)."""
+    return dict(align=1024, ring=TDW32_RING_BYTES, split=TDW32_BUF_BYTES, acc=TDW32_ACC_BYTES,
+                red=TDW32_RED_BYTES, barriers=2 * TDW32_STAGES * 8, last=16)
+
+
+def _tdw32_x(segs, row: int, K: int) -> int:
+    """The packed X source of a consumer whose 64 rows start at dW row `row`."""
+    if row >= K:
+        return -1
+    for s in segs:
+        if s.row0 <= row < s.row0 + s.rows:
+            if row + 64 > s.row0 + s.rows and row + 64 <= K:
+                raise ValueError("a consumer's 64 rows straddle two sources")
+            return s.map + 16 * s.layer + 2048 * s.scale + 4096 * (s.col0 + row - s.row0)
+    raise ValueError(f"no source holds dW row {row}")
+
+
+def tdw32_tiles(outs: Sequence[Tdw32Out]) -> List[Dict]:
+    """The tiles of a pass: each output's rows in 128s, its columns in
+    128s and a last 64; per tile the products' kinds (a SUM only where the
+    tile holds column 0) and each consumer's packed X source."""
+    tiles = []
+    for o, out in enumerate(outs):
+        if out.K % 64 or out.N % 64 or len(out.prods) != 2:
+            raise ValueError("dW rows and columns are multiples of 64; two products an output")
+        for r0 in range(0, out.K, TDW32_ROWS):
+            for c0 in range(0, out.N, TDW32_NB):
+                nb = min(TDW32_NB, out.N - c0)
+                kinds, xs, ys = [], [], []
+                for pr in out.prods:
+                    kind = pr.kind if (pr.kind != TDW32_SUM or c0 == 0) else TDW32_NONE
+                    kinds.append(kind)
+                    xs.append([_tdw32_x(pr.segs, r0 + 64 * c, out.K) if kind else -1
+                               for c in (0, 1)])
+                    ys.append(pr.y[0] + 16 * pr.y[1] if kind == TDW32_MMA else 0)
+                if kinds[1] != TDW32_MMA:
+                    raise ValueError("an output's second product is X^T Y")
+                cost = sum(_TDW32_COST[(k, nb)] for k in kinds if k)
+                tiles.append(dict(out=o, r0=r0, c0=c0, nb=nb, rows=min(TDW32_ROWS, out.K - r0),
+                                  kind=kinds, x=xs, y=ys, db=int(r0 == 0), cost=cost))
+    if len(tiles) > TDW32_MAX_TILES:
+        raise ValueError("too many tiles")
+    return tiles
+
+
+def _tdw32_items(tiles, M: int, L: int) -> List[Dict]:
+    """Items at L points a 128 x 128 product: each tile split into ranges of
+    about L / cost points (multiples of TDW32_BK), ordered by output, then
+    split, then tile (the items that read one point range run together);
+    a tile's partials are consecutive from `first`."""
+    plans, first = [], 0
+    for tl in tiles:
+        want = max(TDW32_BK, int(round(L * 2.0 / max(tl["cost"], 1.0))))
+        span = min(_cdiv(M, TDW32_BK) * TDW32_BK, _cdiv(want, TDW32_BK) * TDW32_BK)
+        splits = _cdiv(M, span)
+        span = _cdiv(_cdiv(M, splits), TDW32_BK) * TDW32_BK
+        splits = _cdiv(M, span)
+        plans.append((span, splits, first))
+        first += splits
+    items = []
+    outs = sorted({tl["out"] for tl in tiles})
+    for o in outs:
+        idx = [i for i, tl in enumerate(tiles) if tl["out"] == o]
+        for s in range(max(plans[i][1] for i in idx)):
+            for i in idx:
+                span, splits, first = plans[i]
+                if s < splits:
+                    p0 = s * span
+                    items.append(dict(tiles[i], tile=i, split=s, splits=splits, first=first,
+                                      p0=p0, np=min(span, M - p0)))
+    return items
+
+
+def tdw32_makespan(items, sms: int) -> float:
+    """The busiest block's work under the kernel's static order (block b
+    runs items b, b + grid, ...), in K steps of a 128 x 128 product."""
+    grid = min(len(items), sms)
+    load = [0.0] * grid
+    for i, it in enumerate(items):
+        steps = _cdiv(it["np"], TDW32_BK)
+        load[i % grid] += steps * it["cost"] + _TDW32_ITEM_COST + 0.25 * it["splits"]
+    return max(load)
+
+
+def tdw32_plan(outs: Sequence[Tdw32Out], M: int, sms: int = 132) -> List[Dict]:
+    """The work list of one launch on M points: the tiles of `outs`, split
+    over the points at the item length (tried from one item a tile to about
+    eight items an SM) whose static order finishes first."""
+    if M <= 0:
+        return []
+    tiles = tdw32_tiles(outs)
+    total = sum(tl["cost"] for tl in tiles) * M
+    best = None
+    for items_per_sm in [x / 4 for x in range(1, 33)]:
+        L = max(TDW32_BK, int(total / (items_per_sm * sms) / 2.0))
+        items = _tdw32_items(tiles, M, L)
+        span = tdw32_makespan(items, sms)
+        if best is None or span < best[0]:
+            best = (span, items)
+    return best[1]
+
+
+def tdw32_item_ints(items) -> List[int]:
+    """The work list as the kernel reads it (TDW32Item: TDW32_ITEM_INTS
+    ints an item)."""
+    out = []
+    for it in items:
+        row = [it["out"], it["tile"], it["split"], it["splits"], it["first"], it["r0"], it["c0"],
+               it["nb"], it["rows"], it["p0"], it["np"], it["db"], *it["kind"], *it["x"][0],
+               *it["x"][1], *it["y"], 0, 0, 0, 0]
+        assert len(row) == TDW32_ITEM_INTS
+        out.extend(row)
+    return out

@@ -1829,17 +1829,21 @@ def test_trunk_bwd_f32_narrow_widths(dev, m):
 
 def test_trunk_bwd_f32_no_worse_than_the_split_launches(dev):
     """At 56,448 points (an f32 step's fine points), de, every dW and db of
-    cuda_trunk_backward (the two chains, then the dW launches on their
+    cuda_trunk_backward (the two chains, then the dW launch on their
     rows) and of cuda_trunk_backward_split against the f64 chains: the
     fused chains' relative L2 within TRUNK32_VS_SPLIT of the split's; the
-    fused call launches no gemm_f32_kernel."""
+    fused call launches no gemm_f32_kernel.  The kept activation and t rows
+    are the planes of one tensor each, as trunk_buffers makes them (the dW
+    launch reads each as one map)."""
     tm, pack = _fused_trunk32(dev)
     m, n, Hp, Ep = 56448, tm.n_layers, tm.Hp, tm.Ep
     x = _bwd32_inputs(dev, tm, pack, m)
     stream = torch.cuda.current_stream().cuda_stream
     lib = FF._lib()
     acts, _, _ = FT.trunk_fwd_plain(x["e"], m, pack.ws, pack.bs, tm, last=False)
-    buf = dict(ss=x["ss"], acts=acts, ts=x["ts"], cs=x["cs"])
+    acts = list(torch.stack(acts[:n - 1]).unbind(0))
+    buf = dict(ss=x["ss"], acts=acts, ts=list(torch.stack(x["ts"][:n - 1]).unbind(0)),
+               cs=x["cs"])
     got = {}
     for name, fn in (("fused", FT.cuda_trunk_backward), ("split", FT.cuda_trunk_backward_split)):
         bw = FT.trunk_bwd_buffers(pack.ws, tm, m, dev, tm.Op)
@@ -1905,3 +1909,167 @@ def test_trunk_bwd_f32_rejects_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         FT.trunk_dz(70, pack.ws, tm._replace(dtype="bf16"), x["top"], x["ss"], o["ds"], o["de"])
     assert (FT.TRUNK_UT_F32.launches, FT.TRUNK_DZ_F32.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# An f32 pass's weight gradients in one launch (trunk_dw_f32_kernel)
+# ---------------------------------------------------------------------------
+
+DW32_M = (1, 63, 64, 65, 3001)
+
+
+def _dw32_case(dev, m, color, sdf_kw=FULL, C=None, seed=5):
+    """Seeded rows of an f32 pass's dW launch at m points (fused_fine.dw_rows'
+    keys; each list the planes of one tensor of C >= m rows, NaN past m), the
+    flagship's (or sdf_kw's) padded f32 gradients and, with color, K3's color
+    rows and gradients."""
+    tm, pack = _fused_trunk32(dev, sdf_kw)
+    meta = pack.meta
+    C = C or m
+    n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        x = torch.randn(shape, device=dev, generator=g)
+        x[..., m:, :] = float("nan")
+        return x
+
+    du = r(C, Ep)
+    rows = dict(du_b=du, du_s=du * FT.INV_SQRT2, e=r(C, Ep), dms=[None] + list(r(n - 1, C, Hp)),
+                dzs=list(r(n - 1, C, Hp)), acts=list(r(n - 1, C, Hp)),
+                ts=list(r(n - 1, C, Hp)), top=r(C, Op), onehot=torch.zeros((C, Op), device=dev))
+    rows["onehot"][:, 0] = 1.0
+    dws = [torch.zeros(w.shape, device=dev) for w in pack.ws]
+    dbs = [torch.zeros(b.shape, device=dev) for b in pack.bs]
+    crows = None
+    if color:
+        cw = pack.cws[0].shape[1]
+        crows = FT.dw_color_rows(r(C, meta.Fp + meta.Gp), list(r(meta.c_layers - 1, C, cw)),
+                                 list(r(meta.c_layers, C, cw)),
+                                 [torch.zeros(w.shape, device=dev) for w in pack.cws],
+                                 [torch.zeros(b.shape, device=dev) for b in pack.cbs])
+    return tm, rows, dws, dbs, crows
+
+
+def _dw32_outputs(dws, dbs, crows, fill):
+    """Fresh gradients of the same shapes: NaN (fill None) or seeded values."""
+    g = torch.Generator(device=dws[0].device).manual_seed(8)
+    make = (lambda t: torch.full_like(t, float("nan"))) if fill is None else (  # noqa: E731
+        lambda t: torch.randn(t.shape, device=t.device, generator=g))
+    w, b = [make(t) for t in dws], [make(t) for t in dbs]
+    c = None if crows is None else dict(crows, dcws=[make(t) for t in crows["dcws"]],
+                                        dcbs=[make(t) for t in crows["dcbs"]])
+    return w, b, c
+
+
+def _dw32_all(w, b, c):
+    return list(w) + list(b) + ([] if c is None else list(c["dcws"]) + list(c["dcbs"]))
+
+
+@pytest.mark.parametrize("acc", [0, 1], ids=["first", "acc"])
+@pytest.mark.parametrize("color", [False, True], ids=["trunk", "color"])
+@pytest.mark.parametrize("m", DW32_M)
+def test_trunk_dw_f32_matches_plain(dev, m, color, acc):
+    """Every dW and db of the launch (the flagship trunk, with K3's color
+    net or without; rows NaN past m) into NaN-filled gradients (acc 0) or
+    onto seeded ones (acc 1), against trunk_dw_plain on the card under the
+    f32 rule; one launch, no TN GEMM or column sum; a second run's bits."""
+    tm, rows, dws, dbs, crows = _dw32_case(dev, m, color, C=m + 5)
+    want = _dw32_outputs(dws, dbs, crows, None if not acc else 1)
+    FT.trunk_dw_plain(m, tm, rows, want[0], want[1], acc, want[2])
+
+    def run():
+        w, b, c = _dw32_outputs(dws, dbs, crows, None if not acc else 1)
+        kerns = (FT.TRUNK_DW_F32, FH.GEMM_TN_F32, FT.COLSUM)
+        before = [k.launches for k in kerns]
+        FT.trunk_dw(m, tm, rows, w, b, acc, torch.cuda.current_stream().cuda_stream, c)
+        torch.cuda.synchronize()
+        assert [k.launches - x for k, x in zip(kerns, before)] == [1, 0, 0]
+        return _dw32_all(w, b, c)
+
+    got, again = run(), run()
+    for a, b in zip(got, _dw32_all(*want)):
+        _f32_rule(a, b)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", [1, 65, 4097])
+def test_trunk_dw_f32_narrow_widths(dev, m):
+    """SMALL's trunk and color net (Hp 64: one consumer's rows a layer,
+    64-column tiles) under the f32 rule."""
+    tm, rows, dws, dbs, crows = _dw32_case(dev, m, True, sdf_kw=SMALL)
+    want = _dw32_outputs(dws, dbs, crows, None)
+    FT.trunk_dw_plain(m, tm, rows, want[0], want[1], 0, want[2])
+    w, b, c = _dw32_outputs(dws, dbs, crows, None)
+    FT.trunk_dw(m, tm, rows, w, b, 0, torch.cuda.current_stream().cuda_stream, c)
+    torch.cuda.synchronize()
+    for a, b_ in zip(_dw32_all(w, b, c), _dw32_all(*want)):
+        _f32_rule(a, b_)
+
+
+def _dw64(m, tm, rows, crows):
+    """trunk_dw_plain's gradients in f64 on the same f32 rows."""
+    n, Hp, skip, inv = tm.n_layers, tm.Hp, tm.skip, 1.0 / np.sqrt(2.0)
+    d = lambda x: x[:m].double()  # noqa: E731
+    du_b, du_s, e = d(rows["du_b"]), d(rows["du_s"]), d(rows["e"])
+    dw, db = [], []
+    for l in range(n):
+        dz = d(rows["top"]) if l == n - 1 else d(rows["dzs"][l])
+        x = e if l == 0 else (torch.cat([d(rows["acts"][l - 1]), e], 1) * inv if l == skip
+                              else d(rows["acts"][l - 1]))
+        w = x.T @ dz
+        if l == n - 1:
+            w[:, 0] += d(rows["dms"][l]).sum(0)
+        else:
+            dm = du_b if l == 0 else (torch.cat([d(rows["dms"][l]), du_s], 1) if l == skip
+                                      else d(rows["dms"][l]))
+            w = dm.T @ d(rows["ts"][l]) + w
+        dw.append(w)
+        db.append(dz.sum(0))
+    cw, cb = [], []
+    for l, dcw in enumerate(crows["dcws"]):
+        a = torch.cat([e, d(crows["cx2"])], 1) if l == 0 else d(crows["cacts"][l - 1])
+        dz = d(crows["cdz"][l])[:, :dcw.shape[1]]
+        cw.append(a.T @ dz)
+        cb.append(dz.sum(0))
+    return dw + db + cw + cb
+
+
+def test_trunk_dw_f32_no_worse_than_the_split_launches(dev):
+    """At an f32 pass's 28,288 points with the color net: every dW and db
+    of trunk_dw and of cuda_trunk_dw_split (the TN GEMMs, their reduces and
+    the column sums) against the f64 sums of the same rows, the launch's
+    relative L2 within TRUNK32_VS_SPLIT of the split sequence's."""
+    m = 28288
+    tm, rows, dws, dbs, crows = _dw32_case(dev, m, True)
+    stream = torch.cuda.current_stream().cuda_stream
+    got = {}
+    w, b, c = _dw32_outputs(dws, dbs, crows, None)
+    FT.trunk_dw(m, tm, rows, w, b, 0, stream, c)
+    got["fused"] = _dw32_all(w, b, c)
+    w, b, c = _dw32_outputs(dws, dbs, crows, None)
+    before = FH.GEMM_TN_F32.launches
+    FT.cuda_trunk_dw_split(FF._bwd_lib(), m, tm, rows, w, b, 0,
+                           torch.empty((FT._WS_FLOATS,), device=dev), stream, c)
+    torch.cuda.synchronize()
+    assert FH.GEMM_TN_F32.launches - before == 26
+    got["split"] = _dw32_all(w, b, c)
+    ref = _dw64(m, tm, rows, crows)
+    rel = lambda g, r: float((g.double() - r).norm() / max(float(r.norm()), 1e-300))  # noqa
+    for k, (f, s_, r) in enumerate(zip(got["fused"], got["split"], ref)):
+        assert rel(f, r) <= TRUNK32_VS_SPLIT * rel(s_, r) + 1e-9, k
+
+
+def test_trunk_dw_f32_rejects_what_the_kernel_does_not_take(dev):
+    """A bf16 trunk, bf16 gradients, rows that are not the planes of one
+    tensor: ValueError before a launch."""
+    tm, rows, dws, dbs, _ = _dw32_case(dev, 70, False)
+    before = FT.TRUNK_DW_F32.launches
+    with pytest.raises(ValueError):
+        FT.trunk_dw(70, tm._replace(dtype="bf16"), rows, dws, dbs, 0)
+    with pytest.raises(ValueError):
+        FT.trunk_dw(70, tm, rows, [w.to(torch.bfloat16) for w in dws], dbs, 0)
+    with pytest.raises(ValueError):
+        FT.trunk_dw(70, tm, dict(rows, dzs=[x.clone() for x in rows["dzs"]]), dws, dbs, 0)
+    assert FT.TRUNK_DW_F32.launches == before
