@@ -16,9 +16,10 @@ build there; a child process runs the checks on that copy.  "sound" is an
 unedited copy and reads every check; a fault reads the checks of its
 groups (bf16: the first eight below, f32: the next six, fit: the next
 six, perpoint: the next five, trunk: the next two, trunkbwd32: tbwd32
-with f32k3, f32k6, fitk3 and fitk6, trunkdw32: the last with f32k3 and
-f32k6; --groups reads only the named groups, and skips the faults with
-none of them).  The checks, with the
+with f32k3, f32k6, fitk3 and fitk6, trunkdw32: tdw32 with f32k3 and
+f32k6, color32: the last with f32k3, f32k6, fitk3 and fitk6; --groups
+reads only the named groups, and skips the faults with none of them).
+The checks, with the
 limits they hold:
 
   kernel  chip_smoke.py's K3 phase on one flagship train step's own
@@ -143,7 +144,15 @@ limits they hold:
           pass's 28,288 (chip_smoke.trunk_dw32_readings): the worst of the
           f32 rule's ratio (every dW and db against trunk_dw_plain) and the
           L2 to f64 over TOL_TRUNK32_VS_SPLIT x the split sequence's, each
-          caught above 1 (the trunkdw32 group, with f32k3 and f32k6).
+          caught above 1 (the trunkdw32 group, with f32k3 and f32k6);
+  color32 the f32 color net's two kernels (color_fwd_f32_kernel,
+          color_bwd_f32_kernel) through fused_fine_full.color_fwd_f32 /
+          color_bwd_f32 at chip_smoke.ragged_color32_calls (1 to 65,613
+          points, each output mode) and at an f32 pass's 28,224
+          (chip_smoke.color32_readings): the worst of the f32 rule's ratio
+          (every output against the plain versions) and the L2 to f64 over
+          TOL_TRUNK32_VS_SPLIT x the split launches', each caught above 1
+          (the color32 group, with f32k3, f32k6, fitk3 and fitk6).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -179,6 +188,7 @@ _T32_CU = "honerf_torch/ops/csrc/trunk_fused_f32.cu"
 _TF32_CUH = "honerf_torch/ops/csrc/tf32.cuh"
 _TB32_CU = "honerf_torch/ops/csrc/trunk_bwd_f32.cu"
 _TDW32_CU = "honerf_torch/ops/csrc/trunk_dw_f32.cu"
+_CF32_CU = "honerf_torch/ops/csrc/color_fused_f32.cu"
 
 # name -> (what it breaks, file, text, replacement, groups of checks it is
 # read by); the text must occur exactly once in the file
@@ -403,8 +413,8 @@ FAULTS = {
         "const float2 dv = make_float2(z0, z1);", ("trunkbwd32",)),
     "tb32_skip_du_s_dropped": (
         "the f32 upward chain's skip product skips du_s's boxes (the embedding's part of dm)",
-        _TB32_CU, "(l == 0 || l == skip) ? Ep / TF32_BK : 0,", "l == 0 ? Ep / TF32_BK : 0,",
-        ("trunkbwd32",)),
+        _TB32_CU, "l == skip ? Ep / TF32_BK : 0, l, 0, Hp, TB32_UT};",
+        "0, l, 0, Hp, TB32_UT};", ("trunkbwd32",)),
     "tb32_dz_no_ds": (
         "the f32 downward chain's dz misses its second-order term ds beta s (1 - s)", _TB32_CU,
         "          (acc[4 * j + 2 * h] * hscale) * s.x + d.x * ((kBeta * s.x) * (1.f - s.x)),\n"
@@ -446,12 +456,60 @@ FAULTS = {
         "layer's dW column 0 (its u-chain part)", _TDW32_CU,
         "      run[0] = __fadd_rn(run[0], rs0);\n      run[2] = __fadd_rn(run[2], rs1);\n",
         "", ("trunkdw32",)),
+    "cf32_no_mask": (
+        "the f32 color transpose skips the relu masks (da for dz at every unit)", _CF32_CU,
+        "      const float2 v = make_float2(av[j][h].x > 0.f ? acc[4 * j + 2 * h] : 0.f,\n"
+        "                                   av[j][h].y > 0.f ? acc[4 * j + 2 * h + 1] : 0.f);",
+        "      const float2 v = make_float2(acc[4 * j + 2 * h] + 0.f * av[j][h].x,\n"
+        "                                   acc[4 * j + 2 * h + 1] + 0.f * av[j][h].y);",
+        ("color32",)),
+    "cf32_cx2_dropped": (
+        "the f32 color forward's layer 0 leaves out cx2's K range ([feat | grad-PE])", _CF32_CU,
+        "l == 0 ? X / TF32_BK : 0, l, 0, cols[l],", "0, l, 0, cols[l],", ("color32",)),
+    "cf32_one_tf32": (
+        "the f32 fused kernels' shared K step (tf32.cuh) keeps one TF32 product, big.big (the "
+        "small terms dropped)", _TF32_CUH,
+        "      t32_mma<NW>(fresh, ab[kk], wg::smem_desc(b1 + 32 * kk, wg::K_MAJOR_LBO, wg::SBO),\n"
+        "                  kk ? 1 : open);\n"
+        "    wg::wgmma_commit();\n"
+        "    const int s2 = (it + 1) % stages;\n"
+        "    wg::mbar_wait(full + 8 * s2, ((it + 1) / stages) & 1);\n"
+        "    const uint32_t b2 = ring + s2 * stage_bytes + boff;\n"
+        "#pragma unroll\n"
+        "    for (int kk = 0; kk < 4; ++kk)\n"
+        "      t32_mma<NW>(fresh, as[kk], wg::smem_desc(b2 + 32 * kk, wg::K_MAJOR_LBO, wg::SBO), 1);\n"
+        "#pragma unroll\n"
+        "    for (int kk = 0; kk < 4; ++kk)\n"
+        "      t32_mma<NW>(fresh, ab[kk], wg::smem_desc(b2 + 32 * kk, wg::K_MAJOR_LBO, wg::SBO), 1);\n",
+        "      (void)b1;\n"
+        "    wg::wgmma_commit();\n"
+        "    const int s2 = (it + 1) % stages;\n"
+        "    wg::mbar_wait(full + 8 * s2, ((it + 1) / stages) & 1);\n"
+        "    const uint32_t b2 = ring + s2 * stage_bytes + boff;\n"
+        "#pragma unroll\n"
+        "    for (int kk = 0; kk < 4; ++kk)\n"
+        "      t32_mma<NW>(fresh, ab[kk], wg::smem_desc(b2 + 32 * kk, wg::K_MAJOR_LBO, wg::SBO),\n"
+        "                  kk ? 1 : open);\n", ("color32",)),
+    "cf32_ragged_tail": (
+        "the f32 color transpose stores no dx row of the ragged last tile", _CF32_CU,
+        "      if (grow < p.M)\n        *reinterpret_cast<float2*>(p.dx",
+        "      if (grow < (p.M & ~(TF32_TILE - 1)))\n        *reinterpret_cast<float2*>(p.dx",
+        ("color32",)),
+    "cf32_dz_no_sprime": (
+        "the f32 color transpose seeds dz = dcolor, without the sigmoid's s (1 - s)", _CF32_CU,
+        "v = s * (1.f - s) * p.dcolor[(size_t)grow * p.lddc + col];",
+        "v = 0.f * s + p.dcolor[(size_t)grow * p.lddc + col];", ("color32",)),
+    "cf32_no_cdz": (
+        "the f32 color transpose writes no dz row of layers below the top (the dW launch reads "
+        "whatever the rows held)", _CF32_CU,
+        "      if (dz && grow < p.M) *reinterpret_cast<float2*>(dz + (size_t)grow * p.lddz + col) = v;\n",
+        "", ("color32",)),
     "pose_drop_tail": (
         "the pose sums drop the rows past the last full split (a ragged last block sums "
         "nothing)", _CU, "const int r0 = s * split, r1 = min(M, r0 + split);",
         "const int r0 = s * split, r1 = r0 + split <= M ? r0 + split : r0;", ("perpoint",)),
 }
-GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk", "trunkbwd32", "trunkdw32")
+GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk", "trunkbwd32", "trunkdw32", "color32")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
 STEP_SEEDS = {"sound": (1, 2, 3, 4)}
@@ -547,10 +605,10 @@ def child(name: str, root: str, groups) -> None:
             out["k6step"][str(seed)] = {"loss": r.worst_metric, "leaves": r.rel}
         out["bgemm"] = {"0": [[r.what, r.l2, r.ok]
                               for r in CS.bf16_gemm_readings(torch, dev, timed=False)]}
-    if "f32" in groups or "trunkbwd32" in groups or "trunkdw32" in groups:
+    if set(groups) & {"f32", "trunkbwd32", "trunkdw32", "color32"}:
         # K3 f32 with dW and K5 / K6 f32 on an f32 step's inputs: the f32
-        # group's, and the f32 trunk backward's and weight gradients'
-        # (trunkbwd32, trunkdw32)
+        # group's, and the f32 trunk backward's, weight gradients' and color
+        # net's (trunkbwd32, trunkdw32, color32)
         from honerf_torch.ops import fused_fine as FT
 
         fs = CS.flagship(torch, dev, "f32")
@@ -583,9 +641,9 @@ def child(name: str, root: str, groups) -> None:
         out["f32unit"] = {f"{kind} {case}": TC.f32_bwd_rule_readings(kind, sdf_kw, n, dev)[2]
                           for kind in ("color", "nocolor", "trunk")
                           for case, (sdf_kw, n) in TC.F32_BWD_CASES.items()}
-    if "fit" in groups or "trunkbwd32" in groups:
+    if set(groups) & {"fit", "trunkbwd32", "color32"}:
         # the frozen K3 f32 and K5 / K6 f32 at a fit step: the fit group's,
-        # and the f32 trunk backward's (trunkbwd32)
+        # and the f32 trunk backward's and color net's (trunkbwd32, color32)
         from honerf_torch.ops import fused_fine as FT
 
         fn = CS.fit_nets(torch, dev)
@@ -676,6 +734,14 @@ def child(name: str, root: str, groups) -> None:
             [f"f32 dW {r.m} color {r.color}",
              max(r.rule, r.l2_ratio) if r.same else float("inf"), r.ok]
             for r in CS.trunk_dw32_readings(torch, dev, nets, calls, timed=False)]}
+    if "color32" in groups:
+        nets = CS.trunk32_nets(torch, dev)
+        calls = CS.ragged_color32_calls() + [(k, 28224, f) for k in ("cfwd", "cbwd")
+                                             for f in (False, True)]
+        out["color32"] = {"0": [
+            [f"f32 color {r.kind} {r.m} {r.flag}",
+             max(r.rule, r.l2_ratio) if r.same else float("inf"), r.ok]
+            for r in CS.color32_readings(torch, dev, nets, calls, timed=False)]}
     print(json.dumps(out))
 
 
@@ -740,7 +806,8 @@ def judge(CS, res):
         text = ", ".join(f"{k} {v:.2e} ({w})" for k, (v, w) in worst.items())
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
     for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt",
-                  "k4", "copy", "pack", "pose", "trunk", "trunk32", "tbwd32", "tdw32"):
+                  "k4", "copy", "pack", "pose", "trunk", "trunk32", "tbwd32", "tdw32",
+                  "color32"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []
@@ -802,7 +869,7 @@ def main() -> int:
     ap.add_argument("--only", help="comma-separated names (sound and FAULTS) to run")
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma-separated groups of checks to read (bf16, f32, fit, "
-                         "perpoint, trunk, trunkbwd32, trunkdw32)")
+                         "perpoint, trunk, trunkbwd32, trunkdw32, color32)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     a = ap.parse_args()

@@ -188,10 +188,11 @@ no ladder kernel unless train.fused_ladder is set), after 20:
               train step hands it (56,448 points, two passes, TF32 off):
               every output within TOL_F32 of the plain version's norm in
               L2 (at the kernel's g: the f32 rule's note), with and without
-              dW; by torch.profiler's names f32 GEMMs, the fused backward
-              pair and the fused dW launch (trunk_dw_f32_kernel), no f32 TN
-              GEMM, reduce_partials_kernel or colsum_partial_kernel and no
-              bf16 GEMM; the last color layer's dW read as is (C4);
+              dW; by torch.profiler's names the fused color pair, the fused
+              backward pair and the fused dW launch (trunk_dw_f32_kernel),
+              no GEMM of either type, f32 TN GEMM, reduce_partials_kernel,
+              colsum_partial_kernel or color_dz_kernel; the last color
+              layer's dW read as is (C4);
  24. kernel K2/K3 f32 no-color  K2 f32 without the color net at an f32
               'full_nocolor' step's points (out, g, e within TOL_F32 of the
               range, median and max), K3 f32 without it under the f32 rule;
@@ -199,9 +200,10 @@ no ladder kernel unless train.fused_ladder is set), after 20:
               f32 by name: the fused f32 pair, no GEMM);
  26. train f32  the flagship step under 'full', 'full_nocolor', 'pallas' and
               the autograd field, 3 warm-up and 20 timed steps each: the
-              launch counts, one step's kernels by name (f32 GEMMs, the
-              fused backward pair and dW launch; no f32 TN GEMM, reduce or
-              column sum, no bf16 GEMM), finite losses, se3_refine moved;
+              launch counts, one step's kernels by name (the fused
+              backward pair and dW launch, 'full': the fused color pair; no
+              GEMM of either type, f32 TN GEMM, reduce, column sum or
+              color_dz_kernel), finite losses, se3_refine moved;
               one 'full' and one 'pallas' step under torch.profiler; two
               pose sums a 'full' and a 'full_nocolor' step, four packs a
               'pallas' one; a step of each mode 4 launches of each f32
@@ -209,8 +211,10 @@ no ladder kernel unless train.fused_ladder is set), after 20:
               (hand_trunk_ut_f32_kernel, hand_trunk_dz_f32_kernel) and 2 of
               trunk_dw_f32_kernel (one a pass; 'full': the color net's
               gradients in it), no seed, no gemm_tn_f32_kernel or
-              colsum_partial_kernel, and gemm_f32_kernel 30 ('full': the
-              color net's) or none; the trunk's calls of a 'full' and a
+              colsum_partial_kernel, no gemm_f32_kernel or color_dz_kernel,
+              and ('full') color_fwd_f32_kernel 4 and color_bwd_f32_kernel
+              2 (one a pass of K2, of K3's recompute, of K3's transpose);
+              the trunk's and color net's calls of a 'full' and a
               'pallas' step recorded for phases 36-38, a 'full_nocolor'
               step's for 37 and 38;
  26b. per-point kernels f32  the pack at a 'pallas' step's recorded
@@ -218,8 +222,9 @@ no ladder kernel unless train.fused_ladder is set), after 20:
  27. train check f32  one 64-ray step per kernel mode, card against CPU;
  28. serve f32  one 4096-ray 'full' request (the eval render's K1
               ladder, whatever the trunk's dtype, as in the JAX package; K2
-              f32: 16 passes, the fused f32 pair 16 times, gemm_f32_kernel
-              80, no seed, no backward kernel) against the CPU on the 128
+              f32: 16 passes, the fused f32 pair and color_fwd_f32_kernel 16
+              times each, no gemm_f32_kernel, no seed, no backward kernel)
+              against the CPU on the 128
               rays that meet the most surface; its trunk calls recorded for
               phase 36.
 
@@ -231,7 +236,8 @@ Pose fitting (the fit confs, f32 trunks), after 13:
               logged beside;
  30. kernel K3 f32 frozen  the frozen K3 in f32 on that step's inputs and
               cotangents: dp, drotT, doff within TOL_F32 in L2; by
-              torch.profiler's names its f32 GEMMs and no dW/db kernel;
+              torch.profiler's names the fused color pair and no GEMM,
+              color_dz_kernel or dW/db kernel;
  31. kernel fit modes f32  at what one '12' fit step in 'full_nocolor'
               and in 'pallas' hands its kernels: K2 f32 without the color
               net and K5 f32 under K2's f32 rule, the frozen K3 f32 without
@@ -308,6 +314,24 @@ Pose fitting (the fit confs, f32 trunks), after 13:
               at the same call; ms of the launch and of the split sequence in
               turns, of the plain version, beside the bound; one launch a
               backward pass with dW.
+ 39. fused color f32  the f32 color net as two kernels
+              (color_fwd_f32_kernel, its forward: layer 0 over e's and
+              cx2's K ranges, relu layers in shared memory, the sigmoid into
+              packed; color_bwd_f32_kernel, its transpose: dz = s (1 - s)
+              dcolor, the masked layers, dx in pieces; 3xTF32 on wgmma) at
+              the calls one f32 'full' step (recorded by phase 26), one '12'
+              fit step (phase 36) and one f32 request (phase 28) make, and at
+              ragged sizes (1 to 65,613 points, each output mode): every
+              output (the color and the relu rows; dx and the dz rows) into
+              NaN-filled buffers against the plain versions on the card
+              under the f32 rule, a rerun's bits, the relative L2 to f64
+              (color64) within TOL_TRUNK32_VS_SPLIT of the split launches'
+              (one gemm_f32_kernel a layer and color_dz_kernel:
+              fused_fine_full._color_fwd_split / _color_bwd_split); ms of
+              each kernel and of the split launches in turns, of the plain
+              versions, beside the bounds; each path's calls (a forward a
+              pass of K2 and of K3's recompute, a transpose a pass of K3)
+              and launches: gemm_f32_kernel 0, color_dz_kernel 0.
 
 Weights are random (geometric init plus seeded noise, so every embedding
 column is live).  check_k3_faults.py runs the kernel, train and fit
@@ -322,7 +346,9 @@ and 'pallas' step's and a fit step's, beside the split launches'; the
 f32 backward pair TUT32 and TDZ32 at an f32 'full' step's calls, a
 'full_nocolor', 'pallas' and fit step's, the chain beside the split one;
 the f32 weight gradients' launch TDW32 at an f32 'full' step's calls, a
-'full_nocolor' and 'pallas' step's, beside the split sequence's;
+'full_nocolor' and 'pallas' step's, beside the split sequence's; the f32
+color net's pair CFWD32 and CBWD32 at an f32 'full' step's calls, a
+request's and a fit step's, beside the split launches';
 the bf16 and the f32 GEMMs alone and
 the per-point kernels EMBED, COLSUM, UCHAIN, BWDREV, COPY, PACK and POSE
 in rows of their own; BWDREV counts launches on every path that runs it:
@@ -1165,11 +1191,16 @@ def record_trunk_calls(fn):
     m, keep, None, "f32") and ("dz", m, keep, None, "f32")
     (fused_fine.trunk_ut, trunk_dz; keep: the dm or dz rows stored) and
     its weight gradients' ("dw", m, color, None, "f32") (fused_fine.trunk_dw;
-    color: K3's color rows join the launch)."""
+    color: K3's color rows join the launch), and the f32 color net's
+    ("cfwd", m, keep, None, "f32") and ("cbwd", m, dz, None, "f32")
+    (fused_fine_full.color_fwd_f32, color_bwd_f32; keep: the relu rows
+    stored; dz: the dz rows stored, weight gradients asked)."""
     from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
 
     calls = []
     fwd, uc, ut, dz, dw = FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz, FT.trunk_dw
+    cfwd, cbwd = FF.color_fwd_f32, FF.color_bwd_f32
 
     def rec_fwd(e, m, ws, bs, tm, ss=None, acts=None, z=None, sdf=None, stream=None):
         last = "sdf" if sdf is not None else (None if z is None else z.shape[1])
@@ -1192,12 +1223,22 @@ def record_trunk_calls(fn):
         calls.append(("dw", m, color is not None, None, tm.dtype))
         return dw(m, tm, rows, dws, dbs, acc, stream, color)
 
+    def rec_cfwd(e, cx2, m, cws, cbs, meta, packed, cacts=None, stream=None):
+        calls.append(("cfwd", m, cacts is not None, None, meta.dtype))
+        return cfwd(e, cx2, m, cws, cbs, meta, packed, cacts, stream)
+
+    def rec_cbwd(m, cws, meta, packed, dcolor, cacts, dx, cdz=None, stream=None):
+        calls.append(("cbwd", m, cdz is not None, None, meta.dtype))
+        return cbwd(m, cws, meta, packed, dcolor, cacts, dx, cdz, stream)
+
     FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz, FT.trunk_dw = (
         rec_fwd, rec_uc, rec_ut, rec_dz, rec_dw)
+    FF.color_fwd_f32, FF.color_bwd_f32 = rec_cfwd, rec_cbwd
     try:
         fn()
     finally:
         FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz, FT.trunk_dw = fwd, uc, ut, dz, dw
+        FF.color_fwd_f32, FF.color_bwd_f32 = cfwd, cbwd
     return calls
 
 
@@ -1369,25 +1410,29 @@ TRUNK_BWD32_CALLS = {}
 # their launches a step or request (gemm_f32_kernel, uchain_seed_kernel,
 # hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel, hand_trunk_ut_f32_kernel,
 # hand_trunk_dz_f32_kernel, trunk_dw_f32_kernel, gemm_tn_f32_kernel,
-# colsum_partial_kernel), filled beside them
+# colsum_partial_kernel, color_fwd_f32_kernel, color_bwd_f32_kernel,
+# color_dz_kernel), filled beside them
 TRUNK32_COUNTS = {}
 TRUNK32_KERNELS = ("GEMM_F32", "UCHAIN", "TFWD32", "TUCH32", "TUT32", "TDZ32", "TDW32",
-                   "GEMM_TN_F32", "COLSUM")
+                   "GEMM_TN_F32", "COLSUM", "CFWD32", "CBWD32", "COLOR_DZ")
 # The fused f32 pair against the split launches, both against f64 in L2:
 # no worse than the split's worst output, by this factor (the same split,
 # the same 32-deep fresh sums; wgmma's internal order is not mma.sync's)
 TOL_TRUNK32_VS_SPLIT = 1.25
-# The f32 paths' launches a step or request (TRUNK32_KERNELS): the color
-# net's GEMMs (5 a pass of K2, of K3's recompute and of its backward), no
-# seed, the fused forward pair once a pass of K2, K3, K5 and K6, the fused
-# backward pair once a pass of K3 and K6 (the trunk backward's 17
-# gemm_f32_kernel a pass before it), the weight gradients' one launch a pass
-# of K3 and K6 with dW (the color net's joining K3's) and no TN GEMM or
-# column sum (20-26 and 9-14 a pass before it); a fit step's nets are frozen
-TRUNK32_LAUNCHES = {"f32 'full' step": (30, 0, 4, 4, 2, 2, 2, 0, 0),
-                    "'12' fit step": (30, 0, 4, 4, 2, 2, 0, 0, 0),
-                    "f32 'pallas' step": (0, 0, 4, 4, 2, 2, 2, 0, 0),
-                    "f32 request": (80, 0, 16, 16, 0, 0, 0, 0, 0)}
+# The f32 paths' launches a step or request (TRUNK32_KERNELS): no
+# gemm_f32_kernel (the color net's 5 a pass of K2, of K3's recompute and of
+# its backward before its two fused kernels), no seed, the fused forward
+# pair once a pass of K2, K3, K5 and K6, the fused backward pair once a pass
+# of K3 and K6 (the trunk backward's 17 gemm_f32_kernel a pass before it),
+# the weight gradients' one launch a pass of K3 and K6 with dW (the color
+# net's joining K3's) and no TN GEMM or column sum (20-26 and 9-14 a pass
+# before it), the color net's forward once a pass of K2 and of K3's
+# recompute, its transpose once a pass of K3, no color_dz_kernel; a fit
+# step's nets are frozen
+TRUNK32_LAUNCHES = {"f32 'full' step": (0, 0, 4, 4, 2, 2, 2, 0, 0, 4, 2, 0),
+                    "'12' fit step": (0, 0, 4, 4, 2, 2, 0, 0, 0, 4, 2, 0),
+                    "f32 'pallas' step": (0, 0, 4, 4, 2, 2, 2, 0, 0, 0, 0, 0),
+                    "f32 request": (0, 0, 16, 16, 0, 0, 0, 0, 0, 16, 0, 0)}
 
 
 def trunk32_pairs(calls):
@@ -2076,6 +2121,215 @@ def trunk_dw32_text(r) -> str:
     return text + ("" if r.ok else " FAIL")
 
 
+def color32_calls(calls):
+    """The recorded f32 color launches (record_trunk_calls) as (kind, m,
+    flag): ("cfwd", m, keep) and ("cbwd", m, dz)."""
+    return [c[:3] for c in calls if c[0] in ("cfwd", "cbwd")]
+
+
+def ragged_color32_calls():
+    """The f32 color pair at sizes the main path's leave out, each output
+    mode: the forward with and without the relu rows, the transpose with
+    and without the dz rows."""
+    return [(kind, m, flag) for m in (1, 63, 64, 65, 1001, 65613)
+            for kind in ("cfwd", "cbwd") for flag in (False, True)]
+
+
+def color32_inputs(torch, dev, nets, m):
+    """The f32 color net's inputs at m points: e the f32 embedding of nets'
+    first m points (hand_embed_kernel), seeded cx2 ([feat | grad-PE]) and
+    dcolor, and the plain forward's sigmoid (packed[:, 4:7]) and relu rows
+    (cacts, the planes of one tensor), which the transpose reads."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+
+    pack = nets.fine32
+    meta, f32 = pack.meta, torch.float32
+    e = torch.empty((m, meta.trunk_meta.Ep), device=dev, dtype=f32)
+    FH.embed(FH._lib("fused_hand"), nets.pts, m, *nets.pose, meta.v_multires, meta.r_multires,
+             e, torch.cuda.current_stream(dev).cuda_stream)
+    gen = torch.Generator(device=dev).manual_seed(m + 7)
+    cx2 = torch.randn((m, meta.Fp + meta.Gp), device=dev, generator=gen)
+    dcolor = torch.randn((m, 3), device=dev, generator=gen)
+    color, acts = FF.color_fwd_f32_plain(e, cx2, m, pack.cws, pack.cbs, meta)
+    packed = torch.zeros((m, 8), device=dev)
+    packed[:, 4:7] = color
+    cacts = FT.planes(len(acts), m, pack.cws[0].shape[1], dev, f32)
+    for dst, a in zip(cacts, acts):
+        dst.copy_(a)
+    return SimpleNamespace(e=e, cx2=cx2, dcolor=dcolor, packed=packed, cacts=cacts)
+
+
+def color64(torch, m, pack, x):
+    """The color net in f64 on the same f32 inputs: the forward's [color,
+    relu rows ...] from [e | cx2], and the transpose's [dx, dz rows ...] at
+    x.packed's sigmoid and x.cacts' masks."""
+    meta = pack.meta
+    n = meta.c_layers
+    a = torch.cat([x.e[:m].double(), x.cx2[:m].double()], 1)
+    acts = []
+    for l, (w, b) in enumerate(zip(pack.cws, pack.cbs)):
+        z = a @ w.double() + b.double()
+        if l + 1 < n:
+            a = torch.relu(z)
+            acts.append(a)
+    s = x.packed[:m, 4:7].double()
+    dz = torch.nn.functional.pad(s * (1.0 - s) * x.dcolor[:m].double(),
+                                 (0, pack.cws[-1].shape[1] - 3))
+    dzs = [None] * n
+    for l in range(n - 1, -1, -1):
+        dzs[l] = dz
+        da = dz @ pack.cws[l].double().T
+        if l:
+            dz = torch.where(x.cacts[l - 1][:m] > 0, da, 0.0)
+    return [torch.sigmoid(z[:, :3])] + acts, [da] + dzs
+
+
+def color32_readings(torch, dev, nets, calls, timed: bool = True):
+    """color_fwd_f32_kernel ("cfwd") and color_bwd_f32_kernel ("cbwd") at
+    each distinct call of `calls` (color32_calls), weighted by its count,
+    on the flagship's f32 color net (trunk32_nets) at color32_inputs: every
+    output (the color and with keep the relu rows; dx and with dz the dz
+    rows) into NaN-filled buffers against the plain versions on the card
+    under the f32 rule (TOL_F32 of each output's range at the median and
+    the max), a second run's bits, and the relative L2 of each to f64
+    (color64) beside the split launches' (fused_fine_full._color_fwd_split
+    / _color_bwd_split: one gemm_f32_kernel a layer, color_dz_kernel first
+    in the transpose) at the same call, the kernel's worst within
+    TOL_TRUNK32_VS_SPLIT of the split's worst.  timed: ms of the kernel and
+    of the split launches in turns (kernel, split, split, kernel), of the
+    plain version, and the bound (3xTF32 operations of the unpadded
+    products; each input read once, each output written once)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nan, f32 = float("nan"), torch.float32
+    pack = nets.fine32
+    meta = pack.meta
+    n, H, top = meta.c_layers, pack.cws[0].shape[1], pack.cws[-1].shape[1]
+    lib, blib = FF._lib(), FF._bwd_lib()
+    c_in = ([meta.emb_width + meta.d_out - 1 + 3 + 6 * meta.grad_L]
+            + [meta.c_hidden] * (meta.c_layers - 1))
+    c_out = [meta.c_hidden] * (meta.c_layers - 1) + [3]
+    w_bytes = nbytes([*pack.cws, *pack.cbs])
+    out = []
+    for (kind, m, flag), count in _tally(calls).items():
+        x = color32_inputs(torch, dev, nets, m)
+        fwd = kind == "cfwd"
+
+        def planes(k, m=m):
+            return [p.fill_(nan) for p in FT.planes(k, m, H, dev, f32)]
+
+        def fresh(fwd=fwd, flag=flag, m=m):
+            if fwd:
+                return SimpleNamespace(packed=torch.full((m, 8), nan, device=dev),
+                                       cacts=planes(n - 1) if flag else None)
+            return SimpleNamespace(dx=torch.full((m, meta.color_in), nan, device=dev),
+                                   cdz=planes(n) if flag else None)
+
+        def outs(o, fwd=fwd, flag=flag):
+            if fwd:
+                return [o.packed[:, 4:7]] + (list(o.cacts) if flag else [])
+            return [o.dx] + ([z[:, :w.shape[1]] for z, w in zip(o.cdz, pack.cws)]
+                             if flag else [])
+
+        def fused(o, fwd=fwd, m=m, x=x):
+            if fwd:
+                FF.color_fwd_f32(x.e, x.cx2, m, pack.cws, pack.cbs, meta, o.packed, o.cacts,
+                                 stream)
+            else:
+                FF.color_bwd_f32(m, pack.cws, meta, x.packed, x.dcolor, x.cacts, o.dx, o.cdz,
+                                 stream)
+
+        def split(o, fwd=fwd, m=m, x=x):
+            if fwd:
+                FF._color_fwd_split(lib, x.e, x.cx2, m, pack, o.packed, stream, o.cacts)
+            else:   # the split launches form every dz row
+                if o.cdz is None:
+                    o.cdz = planes(n)
+                FF._color_bwd_split(blib, m, pack, dict(e=x.e, cx2=x.cx2, cacts=x.cacts),
+                                    x.packed, x.dcolor, o.dx, o.cdz, stream)
+
+        def plain(fwd=fwd, flag=flag, m=m, x=x):
+            if fwd:
+                color, acts = FF.color_fwd_f32_plain(x.e, x.cx2, m, pack.cws, pack.cbs, meta)
+                return [color] + (acts if flag else [])
+            dx, dzs = FF.color_bwd_f32_plain(m, pack.cws, meta, x.packed, x.dcolor, x.cacts)
+            return [dx] + (dzs if flag else [])
+
+        o1, o2, sp = fresh(), fresh(), fresh()
+        fused(o1)
+        fused(o2)
+        split(sp)
+        want = plain()
+        ref = color64(torch, m, pack, x)[0 if fwd else 1]
+        torch.cuda.synchronize()
+        names = ((["color"] + [f"relu[{l}]" for l in range(n - 1)]) if fwd
+                 else (["dx"] + [f"dz[{l}]" for l in range(n)]))
+        got, spl = outs(o1), outs(sp, flag=flag or not fwd)
+        checks = [compare(torch, w, g, p, TOL_F32, TOL_F32) for w, g, p in zip(names, got, want)]
+        rule = max(max(rd[0], rd[2]) / (TOL_F32 * rd[3]) if rd[3] > 0 else 0.0
+                   for rd in (err_readings(torch, g, p) for g, p in zip(got, want)))
+
+        def l2(g, r):
+            return float((g.double() - r).norm()) / max(float(r.norm()), 1e-300)
+
+        k_l2 = [l2(g, r) for g, r in zip(got, ref)]
+        s_l2 = [l2(g, r) for g, r in zip(spl, ref)][:len(got)]
+        same = all(torch.equal(a, b) for a, b in zip(got, outs(o2)))
+        worst_k, worst_s = max(k_l2), max(s_l2)
+        r = SimpleNamespace(kind=kind, m=m, flag=flag, count=count, checks=checks, same=same,
+                            rule=rule, worst_k=worst_k, worst_s=worst_s,
+                            l2_ratio=worst_k / (TOL_TRUNK32_VS_SPLIT * max(worst_s, 1e-30)),
+                            worst_what=names[k_l2.index(worst_k)],
+                            max_abs=max(c[1] for c in checks),
+                            ok=all(c[0] for c in checks) and same
+                            and worst_k <= TOL_TRUNK32_VS_SPLIT * worst_s,
+                            ms=None, split_ms=None, turns=None, plain_ms=None, bound_ms=None,
+                            bound_by=None)
+        if timed:
+            flops = 2.0 * m * sum(i * o for i, o in zip(c_in, c_out))
+            if fwd:
+                n_bytes = 4 * m * (x.e.shape[1] + x.cx2.shape[1] + 3
+                                   + ((n - 1) * H if flag else 0)) + w_bytes
+            else:
+                n_bytes = (4 * m * (6 + (n - 1) * H + meta.color_in
+                                    + ((n - 1) * H + top if flag else 0)) + w_bytes)
+            o = fresh()
+            turns = (cuda_ms(torch, lambda: fused(o), 5), cuda_ms(torch, lambda: split(sp), 5),
+                     cuda_ms(torch, lambda: split(sp), 5), cuda_ms(torch, lambda: fused(o), 5))
+            r.turns = turns
+            r.ms, r.split_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            r.plain_ms = cuda_ms(torch, plain, 2)
+            r.bound_ms, r.bound_by = bound(flops, n_bytes, PEAK_F32_3XTF32_FLOPS)
+            del o
+        del o1, o2, sp, want, ref, got, spl, x
+        torch.cuda.empty_cache()
+        out.append(r)
+    return out
+
+
+def color32_text(r) -> str:
+    """One reading of color32_readings as a log line."""
+    what = (f"{'forward' if r.kind == 'cfwd' else 'transpose'} m {r.m} "
+            f"{'keep' if r.kind == 'cfwd' else 'dz'} {r.flag}"
+            + (f" x{r.count}" if r.count > 1 else ""))
+    worst = max(r.checks, key=lambda c: c[1])[2]
+    text = (f"{what}: {len(r.checks)} outputs within the f32 rule: "
+            f"{all(c[0] for c in r.checks)} (the worst: {worst}); a rerun's bits {r.same}; "
+            f"L2 vs f64 worst {r.worst_k:.2e} ({r.worst_what}), the split launches' "
+            f"{r.worst_s:.2e} (tol {TOL_TRUNK32_VS_SPLIT:g}x)")
+    if r.ms is not None:
+        text += (f"; the kernel {r.ms:.4f} ms against the split launches' {r.split_ms:.4f} ms "
+                 f"({r.ms / r.split_ms:.2f} of it; in turns "
+                 + ", ".join(f"{t:.4f}" for t in r.turns)
+                 + f"), plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms ({r.bound_by}): "
+                 f"{r.bound_ms / r.ms:.2f} of it")
+    return text + ("" if r.ok else " FAIL")
+
+
 def seed_calls(torch):
     """The seed (the f32 trunk's) at sizes the main path's (multiples of a
     block step) leave out: one row, a block step less one (7 at width 256)
@@ -2512,8 +2766,8 @@ def weighted(rs, keys=("ms", "plain_ms", "lib_ms", "bound_ms")):
 PROFILES = {}
 PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "hand_trunk_fwd_f32_kernel",
                     "hand_uchain_f32_kernel", "hand_trunk_ut_f32_kernel",
-                    "hand_trunk_dz_f32_kernel", "trunk_dw_f32_kernel", "gemm_f32_kernel",
-                    "gemm_tn_f32_kernel",
+                    "hand_trunk_dz_f32_kernel", "trunk_dw_f32_kernel", "color_fwd_f32_kernel",
+                    "color_bwd_f32_kernel", "gemm_f32_kernel", "gemm_tn_f32_kernel",
                     "gemm_kernel",
                     "uchain_seed_kernel", "fine_bwd_rev_kernel", "fine_rev_kernel",
                     "fine_bwd_emb_kernel", "color_dz_kernel", "pose_sum_kernel",
@@ -2523,8 +2777,11 @@ PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "hand_trunk_f
 # profiled path may show them
 RETIRED_KERNELS = ("pose_partial_kernel", "pose_reduce_kernel")
 # the f32 weight gradients' sequence before its one launch
-# (trunk_dw_f32_kernel): no profiled f32 step may show them
-RETIRED_F32_KERNELS = ("gemm_tn_f32_kernel", "reduce_partials_kernel", "colsum_partial_kernel")
+# (trunk_dw_f32_kernel) and the f32 color net's split launches before its
+# two (color_fwd_f32_kernel, color_bwd_f32_kernel): no profiled f32 step
+# may show them
+RETIRED_F32_KERNELS = ("gemm_tn_f32_kernel", "reduce_partials_kernel", "colsum_partial_kernel",
+                       "gemm_f32_kernel", "color_dz_kernel")
 
 
 def perpoint_bytes(kern: str, f32: bool):
@@ -3320,7 +3577,9 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         dw_launches = count("gemm_tn", "colsum_partial", "reduce_partials", "trunk_dw_f32")
         f32_gemms = count("gemm_f32_kernel")
         bf16_gemms = count("gemm_kernel")   # the bf16 GEMM's name is not a part of the f32 one's
-        seen = launched and f32_gemms > 0 and sum(names.values()) > 0
+        color32, color_dz = count("color_fwd_f32_kernel", "color_bwd_f32_kernel"), count(
+            "color_dz_kernel")
+        seen = launched and color32 > 0 and sum(names.values()) > 0
         ms = cuda_ms(torch, lambda: FF.hand_fine_color_bwd(*args, want_dw=False), 5)
         plain_ms = cuda_ms(torch, lambda: FF.hand_fine_color_plain_bwd(*args, want_dw=False), 2)
         weights = [*pack.ws, *pack.bs, *pack.cws, *pack.cbs]
@@ -3328,9 +3587,10 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         flops = k3_frozen_flops(fn.hand_sdf, fn.hand_color, n)
         b_ms, b_by = bound(flops, n_bytes, PEAK_F32_3XTF32_FLOPS)
         log(f"K3 f32 frozen hand_fine_color_bwd: {n} pts; {'; '.join(lines)}; no weight "
-            f"gradient {no_dw}; kernels by name: {sum(names.values())} launches, f32 GEMMs "
-            f"{f32_gemms}, bf16 GEMMs {bf16_gemms}, dW/db kernels {dw_launches} (the profiler "
-            f"saw them: {seen}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"gradient {no_dw}; kernels by name: {sum(names.values())} launches, the fused color "
+            f"pair {color32}, f32 GEMMs {f32_gemms}, color_dz_kernel {color_dz}, bf16 GEMMs "
+            f"{bf16_gemms}, dW/db kernels {dw_launches} (the profiler saw them: {seen}); kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
             f"({b_by}, {flops / 1e12:.4f} TFLOP, {flops / n / 1e6:.3f} MFLOP/pt, "
             f"{flops / ms / 1e9:.1f} TFLOP/s)")
         for name, cnt in sorted(names.items(), key=lambda kv: -kv[1]):
@@ -3339,8 +3599,9 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                           f32_max_abs_err=max(errs))
         if not all(oks) or not no_dw:
             raise AssertionError("K3 f32 frozen disagrees with its plain version")
-        if not seen or dw_launches or bf16_gemms:
-            raise AssertionError("K3 f32 frozen: f32 GEMMs and no dW/db kernel not shown")
+        if not seen or dw_launches or bf16_gemms or f32_gemms or color_dz:
+            raise AssertionError("K3 f32 frozen: the fused color pair, and no GEMM, "
+                                 "color_dz_kernel or dW/db kernel, not shown")
 
     def kernel_fit_modes_f32():
         """At what one '12' fit step in 'full_nocolor' and in 'pallas' hands
@@ -3380,7 +3641,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                    "COLSUM": FT.COLSUM, "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV,
                    "PACK": FT.PACK, "POSE": FF.POSE, "GEMM_F32": FH.GEMM_F32,
                    "TFWD32": FT.TRUNK_FWD_F32, "TUCH32": FT.TRUNK_UCHAIN_F32,
-                   "TUT32": FT.TRUNK_UT_F32, "TDZ32": FT.TRUNK_DZ_F32}
+                   "TUT32": FT.TRUNK_UT_F32, "TDZ32": FT.TRUNK_DZ_F32,
+                   "CFWD32": FF.COLOR_FWD_F32, "CBWD32": FF.COLOR_BWD_F32, "COLOR_DZ": FF.COLOR_DZ}
     # a fit step's K3, K5 and K6 take its 37,632 fine points in two f32
     # passes: two pose sums a K3 call, two packs a K5 or K6 call (one pass
     # where a call takes at most half a chunk)
@@ -3430,16 +3692,19 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             assert shapes == want and finite, "the pose pickle is not the JAX runner's"
             assert (launches["K1"] and launches["K2"] and launches["K3"] and launches["EMBED"]
                     and launches["TFWD32"] and launches["TUCH32"] and launches["TUT32"]
-                    and launches["TDZ32"] and launches["BWDREV"]), \
+                    and launches["TDZ32"] and launches["BWDREV"] and launches["CFWD32"]
+                    and launches["CBWD32"]), \
                 f"a kernel of the fitting path did not launch: {launches}"
             assert not (launches["K5"] or launches["K6"] or launches["COLSUM"]
-                        or launches["PACK"] or launches["UCHAIN"]), f"stray launches {launches}"
+                        or launches["PACK"] or launches["UCHAIN"] or launches["GEMM_F32"]
+                        or launches["COLOR_DZ"]), f"stray launches {launches}"
             assert passes_ok(launches["POSE"], launches["K3"]), \
                 f"{launches['POSE']} pose sums for {launches['K3']} K3 calls: {launches}"
         f32_inputs["confs"] = confs
         rows["K2"] = dict(rows.get("K2", {}), f32_launches=total["K2"])
         rows["K3"] = dict(rows.get("K3", {}), f32_launches=total["K3"])
-        for name in ("UCHAIN", "BWDREV", "POSE", "TFWD32", "TUCH32", "TUT32", "TDZ32"):
+        for name in ("UCHAIN", "BWDREV", "POSE", "TFWD32", "TUCH32", "TUT32", "TDZ32", "CFWD32",
+                     "CBWD32"):
             rows[name] = dict(rows.get(name, {}), fit_launches=total[name])
         # ms per step of each fit type through the runner's own loop
         for ft in ("1", "12"):
@@ -3695,7 +3960,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
         fn_ = f32_inputs.get("profile")
         assert fn_ is not None, "the fit phase did not run"
         counted = (FH.GEMM_F32, FT.UCHAIN, FT.TRUNK_FWD_F32, FT.TRUNK_UCHAIN_F32,
-                   FT.TRUNK_UT_F32, FT.TRUNK_DZ_F32, FT.TRUNK_DW_F32, FH.GEMM_TN_F32, FT.COLSUM)
+                   FT.TRUNK_UT_F32, FT.TRUNK_DZ_F32, FT.TRUNK_DW_F32, FH.GEMM_TN_F32, FT.COLSUM,
+                   FF.COLOR_FWD_F32, FF.COLOR_BWD_F32, FF.COLOR_DZ)
         for k in counted:
             k.launches = 0
         TRUNK32_CALLS["'12' fit step"] = record_trunk_calls(fn_)
@@ -3709,7 +3975,8 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             log(f"fused trunk f32, {label}: launches of gemm_f32_kernel, uchain_seed_kernel, "
                 f"hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel, hand_trunk_ut_f32_kernel, "
                 f"hand_trunk_dz_f32_kernel, trunk_dw_f32_kernel, gemm_tn_f32_kernel, "
-                f"colsum_partial_kernel: {got} (expected {want})"
+                f"colsum_partial_kernel, color_fwd_f32_kernel, color_bwd_f32_kernel, "
+                f"color_dz_kernel: {got} (expected {want})"
                 f"{'' if good else ' FAIL'}")
             bad += [] if good else [label]
         nets = trunk32_nets(torch, dev)
@@ -3897,6 +4164,89 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
                                  "version, f64, the split sequence, its bits or its calls: "
                                  f"{bad}")
 
+    def fused_color_f32():
+        """The f32 color net's two kernels (color_fwd_f32_kernel,
+        color_bwd_f32_kernel) alone at the calls one f32 'full' step, one
+        '12' fit step and one f32 request make (recorded by the f32 phases
+        and the fused trunk f32 phase) and at ragged sizes: every output
+        against the plain versions, f64 and the split launches
+        (color32_readings), timed beside the split launches, the plain
+        versions and the bounds; each path's recorded calls (the forward
+        once a pass of K2 and of K3's recompute, the transpose once a pass
+        of K3) and its launches (TRUNK32_COUNTS): gemm_f32_kernel and
+        color_dz_kernel none."""
+        bad = []
+        # (forward calls, transpose calls, the transpose's dz rows) a path makes
+        want_calls = {"f32 'full' step": (4, 2, True), "'12' fit step": (4, 2, False),
+                      "f32 request": (16, 0, False)}
+        for label, (nf, nb, dz) in want_calls.items():
+            cs = color32_calls(TRUNK32_CALLS.get(label, []))
+            fwd = [c for c in cs if c[0] == "cfwd"]
+            bwd = [c for c in cs if c[0] == "cbwd"]
+            k = dict(zip(TRUNK32_KERNELS, TRUNK32_COUNTS.get(label, ())))
+            good = (len(fwd) == nf and len(bwd) == nb and all(c[2] == dz for c in bwd)
+                    and sum(c[2] for c in fwd) == nb and k.get("GEMM_F32") == 0
+                    and k.get("COLOR_DZ") == 0 and k.get("CFWD32") == nf
+                    and k.get("CBWD32") == nb)
+            log(f"fused color f32, {label}: {len(fwd)} forward calls ({sum(c[2] for c in fwd)} "
+                f"keeping the relu rows), {len(bwd)} transpose calls (dz rows {dz}); launches "
+                f"a {'request' if 'request' in label else 'step'}: color_fwd_f32_kernel "
+                f"{k.get('CFWD32')}, color_bwd_f32_kernel {k.get('CBWD32')}, gemm_f32_kernel "
+                f"{k.get('GEMM_F32')}, color_dz_kernel {k.get('COLOR_DZ')}"
+                f"{'' if good else ' FAIL'}")
+            bad += [] if good else [f"{label}'s calls or launches"]
+        nets = trunk32_nets(torch, dev)
+        groups = {}
+        for label in want_calls:
+            calls = color32_calls(TRUNK32_CALLS.get(label, []))
+            if not calls:
+                bad.append(f"{label} not recorded")
+                continue
+            rs = groups[label] = color32_readings(torch, dev, nets, calls)
+            for r in rs:
+                log(f"fused color f32, {label}: {color32_text(r)}")
+            t = {kind: weighted([r for r in rs if r.kind == kind],
+                                ("ms", "split_ms", "plain_ms", "bound_ms"))
+                 for kind in ("cfwd", "cbwd")}
+            pair = {k: sum(t[kind].get(k, 0.0) for kind in t)
+                    for k in ("ms", "split_ms", "plain_ms", "bound_ms")}
+            log(f"fused color f32, {label}'s {sum(r.count for r in rs)} calls: "
+                + ", ".join(f"{name} {t[kind]['ms']:.4f} ms against the split launches' "
+                            f"{t[kind]['split_ms']:.4f} ms (bound {t[kind]['bound_ms']:.4f})"
+                            for kind, name in (("cfwd", "color_fwd_f32_kernel"),
+                                               ("cbwd", "color_bwd_f32_kernel")) if t[kind])
+                + f"; the pair {pair['ms']:.4f} ms against the split launches' "
+                f"{pair['split_ms']:.4f} ms ({pair['ms'] / pair['split_ms']:.2f} of it), bound "
+                f"{pair['bound_ms']:.4f} ms: {pair['bound_ms'] / pair['ms']:.2f} of it (the "
+                f"split's {pair['bound_ms'] / pair['split_ms']:.2f})")
+            bad += [color32_text(r) for r in rs if not r.ok]
+        for r in color32_readings(torch, dev, nets, ragged_color32_calls(), timed=False):
+            log(f"fused color f32, ragged: {color32_text(r)}")
+            bad += [] if r.ok else [color32_text(r)]
+        every = [r for rs in groups.values() for r in rs]
+        keys = ("ms", "split_ms", "plain_ms", "bound_ms")
+        for key, kern, kind in (("CFWD32", FF.COLOR_FWD_F32, "cfwd"),
+                                ("CBWD32", FF.COLOR_BWD_F32, "cbwd")):
+            mine = [r for r in every if r.kind == kind]
+            tot = {label: weighted([r for r in rs if r.kind == kind], keys)
+                   for label, rs in groups.items()}
+            step = tot.get("f32 'full' step") or {}
+            rows[key] = dict(rows.get(key, {}), name=kern.name, route="cuda", source=kern.source,
+                             replaces=kern.replaces,
+                             max_abs_err=max((r.max_abs for r in mine), default=None),
+                             ms=step.get("ms"), plain_ms=step.get("plain_ms"),
+                             bound_ms=step.get("bound_ms"), bound_by="operations",
+                             library_ms=None, step_split_ms=step.get("split_ms"),
+                             worst_l2_f64=max((r.worst_k for r in mine), default=None),
+                             split_worst_l2_f64=max((r.worst_s for r in mine), default=None))
+            for label, prefix in (("f32 request", "request_"), ("'12' fit step", "fit_")):
+                if tot.get(label):
+                    rows[key].update({f"{prefix}{k}": tot[label][k]
+                                      for k in ("ms", "split_ms", "bound_ms")})
+        if bad:
+            raise AssertionError("the f32 color net's pair disagrees with its plain versions, "
+                                 f"f64, the split launches, its bits or its calls: {bad}")
+
     phase("kernel K2 f32", kernel_k2_f32)
     phase("kernel K3 f32 frozen", kernel_k3_f32)
     phase("kernel fit modes f32", kernel_fit_modes_f32)
@@ -3910,9 +4260,10 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             phase("fused trunk f32", fused_trunk_f32)
             phase("fused trunk backward f32", fused_trunk_bwd_f32)
             phase("fused dW f32", fused_dw_f32)
+            phase("fused color f32", fused_color_f32)
         else:
             failures += ["fit profile", "fused trunk f32", "fused trunk backward f32",
-                         "fused dW f32"]
+                         "fused dW f32", "fused color f32"]
     finally:
         import shutil
 
@@ -3949,7 +4300,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                "GEMM": FH.GEMM, "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
                "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "PACK": FT.PACK, "POSE": FF.POSE,
                "TFWD32": FT.TRUNK_FWD_F32, "TUCH32": FT.TRUNK_UCHAIN_F32,
-               "TUT32": FT.TRUNK_UT_F32, "TDZ32": FT.TRUNK_DZ_F32, "TDW32": FT.TRUNK_DW_F32}
+               "TUT32": FT.TRUNK_UT_F32, "TDZ32": FT.TRUNK_DZ_F32, "TDW32": FT.TRUNK_DW_F32,
+               "CFWD32": FF.COLOR_FWD_F32, "CBWD32": FF.COLOR_BWD_F32, "COLOR_DZ": FF.COLOR_DZ}
     log(f"f32 phases: {os.path.relpath(CONF, ROOT)} as written, trunks {sdf_cfg.trunk_dtype}; "
         "select_fine_pass on the card: " + ", ".join(
             f"{m} -> {select_fine_pass(ttcfg._replace(fused_fine=m), sdf_cfg, dev)}"
@@ -3968,7 +4320,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         """fn's device kernels by name: (f32 GEMMs, the fused f32 backward
         pair, the weight gradients' launch, the sequence it replaced (f32 TN
         GEMMs, reduce_partials_kernel, colsum_partial_kernel), bf16 GEMMs,
-        bf16 TN GEMMs, all launches)."""
+        bf16 TN GEMMs, all launches, the fused color pair, color_dz_kernel)."""
         names = device_kernel_names(torch, fn)
 
         def count(*keys):
@@ -3978,7 +4330,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 count("hand_trunk_ut_f32_kernel", "hand_trunk_dz_f32_kernel"),
                 count("trunk_dw_f32_kernel"),
                 count("gemm_tn_f32_kernel", "reduce_partials_kernel", "colsum_partial_kernel"),
-                count("gemm_kernel"), count("gemm_tn_kernel"), sum(names.values()))
+                count("gemm_kernel"), count("gemm_tn_kernel"), sum(names.values()),
+                count("color_fwd_f32_kernel", "color_bwd_f32_kernel"), count("color_dz_kernel"))
 
     def bwd_report(label, mode, args, flops, n_bytes, key, names_fn):
         """The f32 rule with and without dW, a second run's bits, the
@@ -3995,7 +4348,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         first = getattr(mod, name)(*args)
         same = all(torch.equal(x, y) for (_, x), (_, y) in zip(bwd_entry(mode)[3](again),
                                                                bwd_entry(mode)[3](first)))
-        f32_g, bwd32, dw32, tn_f32, bf16_g, bf16_tn, total = names_fn(
+        f32_g, bwd32, dw32, tn_f32, bf16_g, bf16_tn, total, color32, cdz_g = names_fn(
             lambda: getattr(mod, name)(*args))
         ms = cuda_ms(torch, lambda: getattr(mod, name)(*args), 5)
         frozen_ms = cuda_ms(torch, lambda: getattr(mod, name)(*args, want_dw=False), 5)
@@ -4006,8 +4359,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                if mode == "full" else "") + f"); a second run gives the same bits: {same}; "
             f"kernels by name: {total} launches, f32 GEMMs {f32_g}, the fused f32 backward pair "
             f"{bwd32}, the fused dW launch {dw32}, f32 TN GEMMs, reduces and column sums "
-            f"{tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}; "
-            f"kernel {ms:.3f} ms, frozen "
+            f"{tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}, the fused color pair "
+            f"{color32}, color_dz_kernel {cdz_g}; kernel {ms:.3f} ms, frozen "
             f"{frozen_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
             f"{flops / 1e12:.4f} TFLOP, {flops / n / 1e6:.3f} MFLOP/pt, "
             f"{flops / ms / 1e9:.1f} TFLOP/s)")
@@ -4016,9 +4369,11 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                                                      f"{key[1]}bound_ms": b_ms})
         if not all(c.ok for c in checks + frozen_checks) or not same:
             raise AssertionError(f"{label} disagrees with its plain version")
-        if not (bwd32 and dw32) or tn_f32 or bf16_g or bf16_tn:
-            raise AssertionError(f"{label}: the fused f32 backward pair and dW launch, and no f32 "
-                                 "TN GEMM, reduce, column sum or bf16 GEMM, not shown")
+        if (not (bwd32 and dw32) or tn_f32 or bf16_g or bf16_tn or f32_g or cdz_g
+                or bool(color32) != (mode == "full")):
+            raise AssertionError(f"{label}: the fused f32 backward pair and dW launch (and with "
+                                 "the color net its fused pair), and no f32 or bf16 GEMM, f32 "
+                                 "TN GEMM, reduce, column sum or color_dz_kernel, not shown")
         return got
 
     def f32_gemms():
@@ -4172,21 +4527,23 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
     # the embedding kernel with K2 / K3 (K5 / K6 take e from torch); the f32
     # trunk's forward and u-chain as the fused pair, its backward as the
     # fused backward pair, every dW and db (the color net's too) in one
-    # launch a pass, no TN GEMM or column sum, no u-chain seed;
-    # gemm_f32_kernel only in the color net
-    expect = {"full": ("K2", "K3", "EMBED", "BWDREV", "POSE", "GEMM_F32") + gemms,
+    # launch a pass, no TN GEMM or column sum, no u-chain seed; the color
+    # net as its fused pair: no gemm_f32_kernel on any path
+    expect = {"full": ("K2", "K3", "EMBED", "BWDREV", "POSE", "CFWD32", "CBWD32") + gemms,
               "full_nocolor": ("K2", "K3", "EMBED", "BWDREV", "POSE") + gemms,
               "pallas": ("K5", "K6", "PACK") + gemms, None: ()}
     # an f32 step's K3 / K5 / K6 take its 56,448 fine points in two passes:
     # two pose sums a K3, two packs a K5 and a K6, the fused pair once a
     # pass of K2 / K3 / K5 / K6, the backward pair once a pass of K3 / K6;
-    # gemm_f32_kernel in the color net (5 a pass of K2, of K3's recompute
-    # and of its backward) (TRUNK32_LAUNCHES)
+    # the color net's forward once a pass of K2 and of K3's recompute, its
+    # transpose once a pass of K3; no gemm_f32_kernel or color_dz_kernel
+    # (TRUNK32_LAUNCHES)
     pair = {"TFWD32": 4, "TUCH32": 4, "TUT32": 2, "TDZ32": 2, "UCHAIN": 0, "TDW32": 2,
-            "GEMM_TN_F32": 0, "COLSUM": 0}
-    per_step = {"full": {"POSE": 2, "GEMM_F32": 30, **pair},
-                "full_nocolor": {"POSE": 2, "GEMM_F32": 0, **pair},
-                "pallas": {"PACK": 4, "GEMM_F32": 0, **pair}, None: {}}
+            "GEMM_TN_F32": 0, "COLSUM": 0, "GEMM_F32": 0, "COLOR_DZ": 0}
+    no_color = {"CFWD32": 0, "CBWD32": 0}
+    per_step = {"full": {"POSE": 2, "CFWD32": 4, "CBWD32": 2, **pair},
+                "full_nocolor": {"POSE": 2, **no_color, **pair},
+                "pallas": {"PACK": 4, **no_color, **pair}, None: {}}
 
     f32_calls = {}   # the per-point calls of an f32 'full' and 'pallas' step
 
@@ -4224,7 +4581,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
             gnorm = torch.stack([m["grad_norm"] for m in metrics])
             finite = bool(torch.isfinite(loss).all()) and bool(torch.isfinite(gnorm).all())
             moved = float((tparams["se3_refine"].detach() - se3_before).abs().max())
-            f32_g, bwd32, dw32, tn_f32, bf16_g, bf16_tn, total = f32_names(
+            f32_g, bwd32, dw32, tn_f32, bf16_g, bf16_tn, total, color32, cdz_g = f32_names(
                 lambda: step(state, batch, gen))
             log(f"{label}: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays: "
                 f"{dt * 1e3 / TRAIN_STEPS:.2f} ms/step, {TRAIN_RAYS * TRAIN_STEPS / dt:.1f} "
@@ -4232,7 +4589,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; "
                 f"one step's kernels by name: {total} launches, f32 GEMMs {f32_g}, the fused f32 "
                 f"backward pair {bwd32}, the fused dW launch {dw32}, f32 TN GEMMs, reduces and "
-                f"column sums {tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}")
+                f"column sums {tn_f32}, bf16 GEMMs {bf16_g}, bf16 TN GEMMs {bf16_tn}, the fused "
+                f"color pair {color32}, color_dz_kernel {cdz_g}")
             log(f"{label}: loss first {float(loss[0]):.4f} last {float(loss[-1]):.4f}; grad_norm "
                 f"first {float(gnorm[0]):.4f} last {float(gnorm[-1]):.4f}; se3_refine moved by "
                 f"up to {moved:.3e}")
@@ -4252,7 +4610,8 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                     lambda: step(state, batch, gen))
             idle = [k for k in want if not launches[k]]
             stray = [k for k in kernels if k not in want and launches[k]]
-            shown = (bwd32 > 0 and dw32 > 0 and not tn_f32) if want else total >= 0
+            shown = (bwd32 > 0 and dw32 > 0 and not tn_f32 and not f32_g and not cdz_g
+                     and bool(color32) == (mode == "full")) if want else total >= 0
             steps = TRAIN_WARMUP + TRAIN_STEPS
             off = {k: launches[k] for k, n in per_step[mode].items() if launches[k] != n * steps}
             if (not finite or moved <= 0 or idle or stray or not shown or bf16_g or bf16_tn
@@ -4267,8 +4626,9 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                 # the seed's launches on the f32 trunk's main path, which the
                 # fused u-chain took over: 0
                 rows["UCHAIN"]["launches"] = launches["UCHAIN"]
-                # gemm_tn_f32_kernel: kept for comparison, 0 on the step
-                for name in gemms + ("GEMM_F32", "GEMM_TN_F32"):
+                # gemm_tn_f32_kernel and gemm_f32_kernel: kept for comparison,
+                # 0 on the step
+                for name in gemms + ("GEMM_F32", "GEMM_TN_F32", "CFWD32", "CBWD32"):
                     rows[name] = dict(rows.get(name, {}), launches=launches[name])
                 rows["COLSUM"] = dict(rows.get("COLSUM", {}), f32_launches=launches["COLSUM"])
             elif mode == "full_nocolor":
@@ -4336,14 +4696,15 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         log(f"serve f32: one request of {len(rays)} rays in {req_ms:.1f} ms "
             f"({len(rays) / req_ms * 1e3:.1f} rays/s); launches {launches}")
         rows["K2"] = dict(rows.get("K2", {}), f32_request_launches=launches["K2"])
-        for name in ("TFWD32", "TUCH32", "GEMM_F32"):
+        for name in ("TFWD32", "TUCH32", "GEMM_F32", "CFWD32"):
             rows[name] = dict(rows.get(name, {}), request_launches=launches[name])
         TRUNK32_COUNTS["f32 request"] = tuple(launches[k] for k in TRUNK32_KERNELS)
         TRUNK32_CALLS["f32 request"] = record_trunk_calls(lambda: render(fs.params, request))
         assert bool(torch.isfinite(color).all()) and bool(torch.isfinite(wsum).all())
-        assert launches["K1"] and launches["K2"] and launches["GEMM_F32"] and launches[
+        assert launches["K1"] and launches["K2"] and launches["CFWD32"] and launches[
             "EMBED"] and launches["TFWD32"] and launches["TUCH32"] and not (
             launches["K3"] or launches["K5"] or launches["K6"] or launches["GEMM_TN_F32"]
+            or launches["GEMM_F32"] or launches["CBWD32"] or launches["COLOR_DZ"]
             or launches["GEMM_TN"] or launches["COLSUM"] or launches["BWDREV"]
             or launches["UCHAIN"] or launches["TUT32"] or launches["TDZ32"]
             or launches["TDW32"]), \
@@ -5651,7 +6012,7 @@ def main() -> int:
         failures.append("per-point profiles")
     log(gpu_line())
     order = ("K1", "K2", "K3", "K4", "K5", "K6", "TFWD", "TUCH", "TFWD32", "TUCH32", "TUT32",
-             "TDZ32", "TDW32", "GEMM",
+             "TDZ32", "TDW32", "CFWD32", "CBWD32", "GEMM",
              "GEMM_TN", "GEMM_F32", "GEMM_TN_F32", "EMBED", "COLSUM", "UCHAIN", "BWDREV",
              "COPY", "PACK", "POSE")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -5691,6 +6052,12 @@ def main() -> int:
              "TDW32": (("f32_launches", "step_split_ms", "worst_l2_f64", "split_worst_l2_f64")
                        + tuple(f"{p}{k}" for p in ("nocolor_", "pallas_")
                                for k in ("ms", "split_ms", "bound_ms"))),
+             "CFWD32": (("request_launches", "fit_launches", "step_split_ms", "worst_l2_f64",
+                         "split_worst_l2_f64")
+                        + tuple(f"{p}{k}" for p in ("request_", "fit_")
+                                for k in ("ms", "split_ms", "bound_ms"))),
+             "CBWD32": (("fit_launches", "step_split_ms", "worst_l2_f64", "split_worst_l2_f64")
+                        + tuple(f"fit_{k}" for k in ("ms", "split_ms", "bound_ms"))),
              "COLSUM": ("f32_launches",),
              "GEMM_F32": ("pallas_launches", "request_launches"),
              "GEMM": ("image_launches", "request_launches", "train_launches"),

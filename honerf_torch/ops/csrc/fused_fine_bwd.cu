@@ -45,11 +45,11 @@
 //   like the embedding (its note below); fusing the launches is later work.
 //
 // f32 mode (FineMeta.dtype 'f32': the confs' trunks as written; JAX's
-//   FineMeta(dtype='f32')): the same launches on f32 operands
-//   (gemm_f32_kernel, the per-point kernels' f32 variants; the cotangent
-//   rows dzb, du_b, du_s in f32) and every dW by gemm_tn_f32_kernel
-//   (trunk.cuh: the same split partials and fixed-order sum), both 3xTF32
-//   on the tensor cores (common.cuh), db by the same colsum.
+//   FineMeta(dtype='f32')): the per-point kernels' f32 variants (the
+//   cotangent rows du_b, du_s in f32); the color net's transpose in one
+//   launch (color_fused_f32.cu: color_bwd_f32_kernel, no color_dz_kernel),
+//   the trunk's two chains in two (trunk_bwd_f32.cu), every dW and db in
+//   one (trunk_dw_f32.cu), all 3xTF32 on wgmma; no gemm_f32_kernel.
 //   fine_bwd_emb_kernel reads only f32 rows (u, de, dx) in either mode, so
 //   one version serves both.  Bound: operations at 165 TFLOP/s of f32 work
 //   (3xTF32), ~18.2 MFLOP a point with the color net (~14.3 without), 110

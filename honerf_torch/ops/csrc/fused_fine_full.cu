@@ -31,10 +31,11 @@
 //   TMA/wgmma and fusing the launches are later work.
 //
 // f32 mode (FineMeta.dtype 'f32': the fitting stage's f32 trunks, JAX's
-//   e_dtype f32 at honerf_tpu/ops/fused_fine_full.py:1532): the same
-//   launches on f32 operands, e and every activation, t row and color
-//   input row in f32, each product by gemm_f32_kernel (common.cuh): 3xTF32
-//   on the tensor cores, the f32 product within ~1e-6.  Bound: operations,
+//   e_dtype f32 at honerf_tpu/ops/fused_fine_full.py:1532): e and every
+//   activation, t row and color input row in f32; the trunk and u-chain in
+//   two fused launches (trunk_fused_f32.cu), the color net in one
+//   (color_fused_f32.cu: color_fwd_f32_kernel), all 3xTF32 on wgmma, the
+//   f32 product within ~1e-6; no gemm_f32_kernel.  Bound: operations,
 //   ~6.05 MFLOP a point at 165 TFLOP/s of f32 work (three TF32 products at
 //   495 TFLOP/s), ~37 ms per million points; the scratch (~46 KB/pt) is
 //   twice bf16's, so the wrapper passes at most half as many points

@@ -1,6 +1,8 @@
-// Device code shared by the f32 hand trunk's four fused kernels, 3xTF32 on
-// wgmma: csrc/trunk_fused_f32.cu (its forward and u-chain) and
-// csrc/trunk_bwd_f32.cu (its backward's two chains).
+// Device code shared by the f32 fused kernels, 3xTF32 on wgmma:
+// csrc/trunk_fused_f32.cu (the trunk's forward and u-chain),
+// csrc/trunk_bwd_f32.cu (its backward's two chains) and
+// csrc/color_fused_f32.cu (the color net's forward and transpose); the
+// last two share the ring kernels' shell below.
 //
 //  * The tile: 64 points of up to 256 f32 columns in chunks of 32 columns,
 //    each 64 rows of 128 bytes with the 128-byte swizzle (t32_offset): the
@@ -228,6 +230,137 @@ __device__ __forceinline__ void t32_steps(float (&run)[NW / 2], int steps, const
     t32_fence(as);
     if (lane == 0) wg::mbar_arrive(empty + 8 * s2);
     open = t32_accumulate(run, fresh);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The ring kernels' shell (csrc/trunk_bwd_f32.cu, csrc/color_fused_f32.cu):
+// the 64 KB tile, then a TF32_STAGES-slot ring of [A's box | B's rows]
+// slots; warpgroup 0's first thread streams each phase's K steps, two
+// slots a step (B's small rows with the box, then B's big rows).
+// ---------------------------------------------------------------------------
+
+// A phase of a tile: K steps of 32 over the tile, then over box map 0's
+// boxes, then map 1's (each from its column 0; B's k runs on across the
+// three ranges), B: `width` rows of layer `layer`'s [big; small] map from
+// row0 (its small rows from small_rows[layer] + row0); kind: the kernel's
+// epilogue.
+struct T32RingPhase {
+  int act_steps, box_steps0, box_steps1, layer, row0, width, kind;
+};
+
+// What the producer streams: the phases of a tile, A's box maps ((M, K)
+// f32, boxes of 32 x 64), each layer's [big; small] B map (boxes of 32 x
+// 64).
+template <int PHASES>
+struct T32Ring {
+  CUtensorMap box[2];
+  CUtensorMap w[TF32_MAX_LAYERS];
+  T32RingPhase ph[PHASES];
+  int small_rows[TF32_MAX_LAYERS];
+  int n_phases, n_maps, n_boxes, tiles;
+};
+
+template <class Ring>
+__device__ __forceinline__ void t32_ring_produce(const Ring& q, uint32_t ring, uint32_t full,
+                                                 uint32_t empty) {
+  for (int i = 0; i < q.n_boxes; ++i) wg::prefetch_map(&q.box[i]);
+  for (int l = 0; l < q.n_maps; ++l) wg::prefetch_map(&q.w[l]);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < q.tiles; tile += gridDim.x) {
+    for (int k_ph = 0; k_ph < q.n_phases; ++k_ph) {
+      const T32RingPhase& ph = q.ph[k_ph];
+      const int steps = ph.act_steps + ph.box_steps0 + ph.box_steps1;
+      for (int k = 0; k < steps; ++k) {
+        const int kb = k - ph.act_steps;
+        const int box = kb >= ph.box_steps0 ? 1 : 0;
+        const int col = TF32_BK * (box ? kb - ph.box_steps0 : kb);
+        for (int half = 0; half < 2; ++half, ++it) {  // 0: B's small rows, 1: its big rows
+          const int stage = it % TF32_STAGES;
+          wg::mbar_wait(empty + 8 * stage, ((it / TF32_STAGES) & 1) ^ 1);
+          const uint32_t sb = ring + stage * TF32_STAGE_BYTES, bar = full + 8 * stage;
+          const bool with_a = kb >= 0 && half == 0;
+          wg::mbar_expect_tx(bar, ph.width / TF32_BOX_ROWS * TF32_BOX_BYTES +
+                                      (with_a ? TF32_A_BYTES : 0));
+          if (with_a) wg::tma_load(&q.box[box], sb, bar, col, tile * TF32_TILE);
+          const int row0 = (half == 0 ? q.small_rows[ph.layer] : 0) + ph.row0;
+          for (int j = 0; j < ph.width / TF32_BOX_ROWS; ++j)
+            wg::tma_load(&q.w[ph.layer], sb + TF32_A_BYTES + j * TF32_BOX_BYTES, bar,
+                         TF32_BK * k, row0 + TF32_BOX_ROWS * j);
+        }
+      }
+    }
+  }
+}
+
+// A phase's products: consumer c's NW columns into run, A from the tile's
+// chunks, then the boxes in the slots.
+template <int NW>
+__device__ __forceinline__ void t32_ring_mma(float (&run)[NW / 2], const T32RingPhase& ph,
+                                             const unsigned char* tile,
+                                             const unsigned char* ring_ptr, uint32_t ring,
+                                             uint32_t full, uint32_t empty, int c, int r, int t,
+                                             int& it) {
+  const auto src = [&](int k, int s1) {
+    return k < ph.act_steps ? tile + k * TF32_CHUNK_BYTES : ring_ptr + s1 * TF32_STAGE_BYTES;
+  };
+  t32_steps<NW>(run, ph.act_steps + ph.box_steps0 + ph.box_steps1, src, 1.f, ring, full, empty,
+                TF32_STAGES, TF32_STAGE_BYTES, TF32_A_BYTES + c * NW * 128, r, t, it);
+}
+
+// The cells of f32 rows (ld apart; ld 0: one row for every point) that a
+// consumer thread's epilogue reads, all at once (0 past M): their loads
+// are issued before the consumers' barrier.
+template <int NW>
+__device__ __forceinline__ void t32_load_rows(float2 (&v)[NW / 8][2], const float* rows, int ld,
+                                              int M, int c, int t, int grow0) {
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int grow = grow0 + 8 * h;
+      v[j][h] = grow < M ? __ldg(reinterpret_cast<const float2*>(rows + (size_t)grow * ld +
+                                                                 c * NW + 8 * j + 2 * t))
+                         : make_float2(0.f, 0.f);
+    }
+}
+
+// A ring kernel's body: the shared memory, the ring's barriers, the
+// producer; then each consumer walks the tiles, runs prologue(tile, tile
+// index) and each phase, run(ph, ...).
+template <class Args, class Prologue, class Run>
+__device__ __forceinline__ void t32_ring_kernel(const Args& p, unsigned char* smem,
+                                                const Prologue& prologue, const Run& run) {
+  const uint32_t raw = wg::smem_u32(smem);
+  const uint32_t tile_s = (raw + 1023) & ~1023u;
+  unsigned char* tile = smem + (tile_s - raw);
+  const unsigned char* ring_ptr = tile + TF32_ACT_BYTES;
+  const uint32_t ring = tile_s + TF32_ACT_BYTES;
+  const uint32_t full = ring + TF32_RING_BYTES, empty = full + 8 * TF32_STAGES;
+  const int warpgroup = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TF32_STAGES; ++s) {
+      wg::mbar_init(full + 8 * s, 1);
+      wg::mbar_init(empty + 8 * s, wg::CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warpgroup == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(wg::PRODUCER_REGS));
+    if (threadIdx.x == 0) t32_ring_produce(p.q, ring, full, empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(wg::CONSUMER_REGS));
+  const int c = warpgroup - 1;  // columns c NW .. of each phase
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);  // rows r, r + 8 of the tile
+  int it = 0;
+  for (int tl = blockIdx.x; tl < p.q.tiles; tl += gridDim.x) {
+    const int grow0 = tl * TF32_TILE + r;
+    prologue(tile, tl);
+    for (int k_ph = 0; k_ph < p.q.n_phases; ++k_ph)
+      run(p.q.ph[k_ph], tile, ring_ptr, ring, full, empty, c, r, t, grow0, it);
   }
 }
 

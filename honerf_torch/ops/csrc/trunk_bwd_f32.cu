@@ -27,10 +27,12 @@
 //   small] rows (~10 MB a kernel) stay in L2.
 //
 // Design (csrc/trunk_fused_f32.cu's forward, whose shape both chains
-//   repeat): one persistent block an SM walks tiles of TF32_TILE = 64
-//   points; warpgroup 0's first thread streams each phase's K steps of B
-//   (and A's boxes where A is not the tile) by TMA into a 4-slot ring, two
-//   slots a K step (B's small rows with the box, then B's big rows);
+//   repeat; the ring shell, tf32.cuh's t32_ring_kernel, is shared with
+//   csrc/color_fused_f32.cu): one persistent block an SM walks tiles of
+//   TF32_TILE = 64 points; warpgroup 0's first thread streams each phase's
+//   K steps of B (and A's boxes where A is not the tile) by TMA into a
+//   4-slot ring, two slots a K step (B's small rows with the box, then B's
+//   big rows);
 //   warpgroups 1 and 2 read all 64 rows of A and each computes half of
 //   the phase's columns into a fresh accumulator a 32-deep step, added to
 //   the running sum with round to nearest (t32_steps).
@@ -80,125 +82,10 @@ constexpr int TB32_MAX_PHASES = 40;
 
 enum TB32Kind { TB32_UT = 0, TB32_CHAIN = 1, TB32_SKIP = 2, TB32_ZERO = 3 };
 
-// A phase of a tile: K steps of 32 over the tile, then over boxes of A
-// (map `box`, from column 0) that ride in the small slot, B's k of the
-// first box step box_k0; B: `width` rows of layer `layer`'s [big; small]
-// map from row0 (its small rows from small_rows[layer] + row0).  kind: an
-// upward layer, a downward chain layer, a piece of de's skip part or its
-// layer-0 part.
-struct TB32Phase {
-  int act_steps, box_steps, box, box_k0, layer, row0, width, kind;
-};
-
-// What the producer streams: the phases of a tile, A's two box maps
-// ((M, K) f32, boxes of 32 x 64), each layer's [big; small] B map (boxes of
-// 32 x 64).
-struct TB32Ring {
-  CUtensorMap box[2];
-  CUtensorMap w[TF32_MAX_LAYERS];
-  TB32Phase ph[TB32_MAX_PHASES];
-  int small_rows[TF32_MAX_LAYERS];
-  int n_phases, n_maps, tiles;
-};
-
-__device__ __forceinline__ void tb32_produce(const TB32Ring& q, uint32_t ring, uint32_t full,
-                                             uint32_t empty) {
-  for (int i = 0; i < 2; ++i) wg::prefetch_map(&q.box[i]);
-  for (int l = 0; l < q.n_maps; ++l) wg::prefetch_map(&q.w[l]);
-  int it = 0;
-  for (int tile = blockIdx.x; tile < q.tiles; tile += gridDim.x) {
-    for (int k_ph = 0; k_ph < q.n_phases; ++k_ph) {
-      const TB32Phase& ph = q.ph[k_ph];
-      const int steps = ph.act_steps + ph.box_steps;
-      for (int k = 0; k < steps; ++k) {
-        const bool box_step = k >= ph.act_steps;
-        const int kb = k - ph.act_steps;
-        const int kc = box_step ? ph.box_k0 + TF32_BK * kb : TF32_BK * k;  // B's k
-        for (int half = 0; half < 2; ++half, ++it) {  // 0: B's small rows, 1: its big rows
-          const int stage = it % TF32_STAGES;
-          wg::mbar_wait(empty + 8 * stage, ((it / TF32_STAGES) & 1) ^ 1);
-          const uint32_t sb = ring + stage * TF32_STAGE_BYTES, bar = full + 8 * stage;
-          const bool with_a = box_step && half == 0;
-          wg::mbar_expect_tx(bar, ph.width / TF32_BOX_ROWS * TF32_BOX_BYTES +
-                                      (with_a ? TF32_A_BYTES : 0));
-          if (with_a) wg::tma_load(&q.box[ph.box], sb, bar, TF32_BK * kb, tile * TF32_TILE);
-          const int row0 = (half == 0 ? q.small_rows[ph.layer] : 0) + ph.row0;
-          for (int j = 0; j < ph.width / TF32_BOX_ROWS; ++j)
-            wg::tma_load(&q.w[ph.layer], sb + TF32_A_BYTES + j * TF32_BOX_BYTES, bar, kc,
-                         row0 + TF32_BOX_ROWS * j);
-        }
-      }
-    }
-  }
-}
-
-// A phase's products: consumer c's NW columns into run, A from the tile's
-// chunks, then the boxes in the slots.
-template <int NW>
-__device__ __forceinline__ void tb32_mma(float (&run)[NW / 2], const TB32Phase& ph,
-                                         const unsigned char* tile, const unsigned char* ring_ptr,
-                                         uint32_t ring, uint32_t full, uint32_t empty, int c,
-                                         int r, int t, int& it) {
-  const auto src = [&](int k, int s1) {
-    return k < ph.act_steps ? tile + k * TF32_CHUNK_BYTES : ring_ptr + s1 * TF32_STAGE_BYTES;
-  };
-  t32_steps<NW>(run, ph.act_steps + ph.box_steps, src, 1.f, ring, full, empty, TF32_STAGES,
-                TF32_STAGE_BYTES, TF32_A_BYTES + c * NW * 128, r, t, it);
-}
-
-// The cells of f32 rows (ld apart; ld 0: one row for every point) that a
-// consumer thread's epilogue reads, all at once (0 past M): their loads
-// are issued before the consumers' barrier.
-template <int NW>
-__device__ __forceinline__ void tb32_load_rows(float2 (&v)[NW / 8][2], const float* rows,
-                                               int ld, int M, int c, int t, int grow0) {
-#pragma unroll
-  for (int j = 0; j < NW / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int grow = grow0 + 8 * h;
-      v[j][h] = grow < M ? __ldg(reinterpret_cast<const float2*>(rows + (size_t)grow * ld +
-                                                                 c * NW + 8 * j + 2 * t))
-                         : make_float2(0.f, 0.f);
-    }
-}
-
-// Both kernels: the shared memory (the 64 KB tile, then the ring), the
-// ring's barriers, the producer; then each consumer walks the tiles and
-// their phases, run(ph, NW-dispatched) on the phase's columns.
-template <class Args, class Run>
-__device__ __forceinline__ void tb32_kernel(const Args& p, unsigned char* smem, const Run& run) {
-  const uint32_t raw = wg::smem_u32(smem);
-  const uint32_t tile_s = (raw + 1023) & ~1023u;
-  unsigned char* tile = smem + (tile_s - raw);
-  const unsigned char* ring_ptr = tile + TF32_ACT_BYTES;
-  const uint32_t ring = tile_s + TF32_ACT_BYTES;
-  const uint32_t full = ring + TF32_RING_BYTES, empty = full + 8 * TF32_STAGES;
-  const int warpgroup = threadIdx.x / 128;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < TF32_STAGES; ++s) {
-      wg::mbar_init(full + 8 * s, 1);
-      wg::mbar_init(empty + 8 * s, wg::CONSUMER_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (warpgroup == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(wg::PRODUCER_REGS));
-    if (threadIdx.x == 0) tb32_produce(p.q, ring, full, empty);
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(wg::CONSUMER_REGS));
-  const int c = warpgroup - 1;  // columns c NW .. of each phase
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);  // rows r, r + 8 of the tile
-  int it = 0;
-  for (int tl = blockIdx.x; tl < p.q.tiles; tl += gridDim.x) {
-    const int grow0 = tl * TF32_TILE + r;
-    for (int k_ph = 0; k_ph < p.q.n_phases; ++k_ph)
-      run(p.q.ph[k_ph], tile, ring_ptr, ring, full, empty, c, r, t, grow0, it);
-  }
-}
+// The phases of a tile (tf32.cuh's ring shell): an upward layer, a
+// downward chain layer, a piece of de's skip part or its layer-0 part.
+using TB32Phase = T32RingPhase;
+using TB32Ring = T32Ring<TB32_MAX_PHASES>;
 
 // ---------------------------------------------------------------------------
 // hand_trunk_ut_f32_kernel
@@ -259,11 +146,11 @@ __device__ __forceinline__ void ut32_layer(const UT32Args& p, const TB32Phase& p
                                            int r, int t, int grow0, int& it) {
   const int l = ph.layer;
   float acc[NW / 2];
-  tb32_mma<NW>(acc, ph, tile, ring_ptr, ring, full, empty, c, r, t, it);
+  t32_ring_mma<NW>(acc, ph, tile, ring_ptr, ring, full, empty, c, r, t, it);
   const bool last = l + 2 == p.n_layers;
   float2 sv[NW / 8][2], cv[NW / 8][2];
-  tb32_load_rows<NW>(sv, p.ss + l * p.ss_layer, p.lds, p.M, c, t, grow0);
-  tb32_load_rows<NW>(cv, last ? p.c_last : p.cs[l + 1], last ? 0 : p.ldc, p.M, c, t, grow0);
+  t32_load_rows<NW>(sv, p.ss + l * p.ss_layer, p.lds, p.M, c, t, grow0);
+  t32_load_rows<NW>(cv, last ? p.c_last : p.cs[l + 1], last ? 0 : p.ldc, p.M, c, t, grow0);
   t32_sync();  // both consumers are done reading the tile
   if (p.dm[l + 1])
     ut32_epilogue<true, NW>(acc, sv, cv, p, l, tile, c, r, t, grow0);
@@ -275,7 +162,7 @@ __device__ __forceinline__ void ut32_layer(const UT32Args& p, const TB32Phase& p
 __global__ void __launch_bounds__(wg::THREADS, 1)
     hand_trunk_ut_f32_kernel(const __grid_constant__ UT32Args p) {
   extern __shared__ __align__(128) unsigned char ut32_smem[];
-  tb32_kernel(p, ut32_smem,
+  t32_ring_kernel(p, ut32_smem, [](unsigned char*, int) {},
               [&](const TB32Phase& ph, unsigned char* tile, const unsigned char* ring_ptr,
                   uint32_t ring, uint32_t full, uint32_t empty, int c, int r, int t, int grow0,
                   int& it) {
@@ -344,10 +231,10 @@ __device__ __forceinline__ void dz32_chain(const DZ32Args& p, const TB32Phase& p
                                            int r, int t, int grow0, int& it) {
   const int l = ph.layer;
   float acc[NW / 2];
-  tb32_mma<NW>(acc, ph, tile, ring_ptr, ring, full, empty, c, r, t, it);
+  t32_ring_mma<NW>(acc, ph, tile, ring_ptr, ring, full, empty, c, r, t, it);
   float2 sv[NW / 8][2], dv[NW / 8][2];
-  tb32_load_rows<NW>(sv, p.ss + (l - 1) * p.ss_layer, p.lds, p.M, c, t, grow0);
-  tb32_load_rows<NW>(dv, p.ds + (l - 1) * p.ds_layer, p.ldds, p.M, c, t, grow0);
+  t32_load_rows<NW>(sv, p.ss + (l - 1) * p.ss_layer, p.lds, p.M, c, t, grow0);
+  t32_load_rows<NW>(dv, p.ds + (l - 1) * p.ds_layer, p.ldds, p.M, c, t, grow0);
   t32_sync();  // both consumers are done reading the tile
   if (p.dz[0])
     dz32_epilogue<true, NW>(acc, sv, dv, p, l, tile, c, r, t, grow0);
@@ -367,7 +254,7 @@ __device__ __forceinline__ void dz32_piece(const DZ32Args& p, const TB32Phase& p
                                            uint32_t full, uint32_t empty, int c, int r, int t,
                                            int grow0, int& it) {
   float acc[NW / 2];
-  tb32_mma<NW>(acc, ph, tile, ring_ptr, ring, full, empty, c, r, t, it);
+  t32_ring_mma<NW>(acc, ph, tile, ring_ptr, ring, full, empty, c, r, t, it);
   const bool skip = ph.kind == TB32_SKIP;
   const int n0 = skip ? ph.row0 - p.Hp : ph.row0;
 #pragma unroll
@@ -403,7 +290,7 @@ __device__ __forceinline__ void dz32_phase(const DZ32Args& p, const TB32Phase& p
 __global__ void __launch_bounds__(wg::THREADS, 1)
     hand_trunk_dz_f32_kernel(const __grid_constant__ DZ32Args p) {
   extern __shared__ __align__(128) unsigned char dz32_smem[];
-  tb32_kernel(p, dz32_smem,
+  t32_ring_kernel(p, dz32_smem, [](unsigned char*, int) {},
               [&](const TB32Phase& ph, unsigned char* tile, const unsigned char* ring_ptr,
                   uint32_t ring, uint32_t full, uint32_t empty, int c, int r, int t, int grow0,
                   int& it) {
@@ -466,9 +353,10 @@ extern "C" int honerf_trunk_ut_f32(int M, int Ep, int Hp, int n_layers, int skip
         !wg::tma_map(&p.q.w[l], wsplit[l], in_cols[l], 2 * Hp, in_cols[l], TF32_BK,
                      TF32_BOX_ROWS, 4))
       return (int)cudaErrorInvalidValue;
-    // layer 0 over du_b's boxes; the skip over the tile, then du_s's
-    p.q.ph[l] = TB32Phase{l == 0 ? 0 : Hp / TF32_BK, (l == 0 || l == skip) ? Ep / TF32_BK : 0,
-                          l == 0 ? 0 : 1, l == 0 ? 0 : Hp, l, 0, Hp, TB32_UT};
+    // layer 0 over du_b's boxes (map 0); the skip over the tile, then
+    // du_s's (map 1)
+    p.q.ph[l] = TB32Phase{l == 0 ? 0 : Hp / TF32_BK, l == 0 ? Ep / TF32_BK : 0,
+                          l == skip ? Ep / TF32_BK : 0, l, 0, Hp, TB32_UT};
     p.q.small_rows[l] = Hp;
     p.cs[l] = l > 0 ? static_cast<const float*>(cs[l]) : nullptr;
     p.dm[l + 1] = dm ? static_cast<float*>(dm[l + 1]) : nullptr;
@@ -478,6 +366,7 @@ extern "C" int honerf_trunk_ut_f32(int M, int Ep, int Hp, int n_layers, int skip
       !wg::tma_map(&p.q.box[1], du_s, Ep, M, lddu, TF32_BK, TF32_TILE, 4))
     return (int)cudaErrorInvalidValue;
   p.q.n_phases = p.q.n_maps = n_layers - 1;
+  p.q.n_boxes = 2;
   p.q.tiles = (M + TF32_TILE - 1) / TF32_TILE;
   p.ss = ss;
   p.ss_layer = ss_layer;
@@ -539,24 +428,24 @@ extern "C" int honerf_trunk_dz_f32(int M, int Ep, int Hp, int Op, int n_layers, 
     for (int n0 = 0; n0 < Ep; ++n_pieces) {
       const int rem = Ep - n0;
       const int width = rem >= TF32_PIECE ? TF32_PIECE : (rem >= 128 ? 128 : 64);
-      if (kind >= 0) p.q.ph[n_ph++] = TB32Phase{kt, 0, 0, 0, layer, row0 + n0, width, kind};
+      if (kind >= 0) p.q.ph[n_ph++] = TB32Phase{kt, 0, 0, layer, row0 + n0, width, kind};
       n0 += width;
     }
   };
   pieces(0, 0, -1);  // count them
   if (n_layers - 1 + 2 * n_pieces > TB32_MAX_PHASES) return (int)cudaErrorInvalidValue;
-  p.q.ph[n_ph++] = TB32Phase{0, Op / TF32_BK, 0, 0, n_layers - 1, 0, Hp, TB32_CHAIN};
+  p.q.ph[n_ph++] = TB32Phase{0, Op / TF32_BK, 0, n_layers - 1, 0, Hp, TB32_CHAIN};
   for (int l = n_layers - 2; l > 0; --l) {
     if (l == skip) pieces(skip, Hp, TB32_SKIP);
-    p.q.ph[n_ph++] = TB32Phase{kt, 0, 0, 0, l, 0, Hp, TB32_CHAIN};
+    p.q.ph[n_ph++] = TB32Phase{kt, 0, 0, l, 0, Hp, TB32_CHAIN};
   }
   pieces(0, 0, TB32_ZERO);
   if (M == 0) return (int)cudaGetLastError();
   if (!wg::tma_map(&p.q.box[0], top, Op, M, ldtop, TF32_BK, TF32_TILE, 4))
     return (int)cudaErrorInvalidValue;
-  p.q.box[1] = p.q.box[0];
   p.q.n_phases = n_ph;
   p.q.n_maps = n_layers;
+  p.q.n_boxes = 1;
   p.q.tiles = (M + TF32_TILE - 1) / TF32_TILE;
   p.ss = ss;
   p.ss_layer = ss_layer;

@@ -38,8 +38,10 @@ enter where the color net's input cotangent entered.
 On CUDA tensors the forward launches csrc/fused_fine_full.cu (K2) and the
 backward csrc/fused_fine_bwd.cu (K3): every mode, with or without the
 color net and weight gradients, on a bf16 or an f32 trunk
-(`FineMeta.dtype`; the confs' trunks are f32 as written); on CPU tensors
-both run their plain versions (`hand_fine_color_plain`,
+(`FineMeta.dtype`; the confs' trunks are f32 as written); the f32 color
+net runs as two launches of csrc/color_fused_f32.cu (`color_fwd_f32`,
+`color_bwd_f32`), the bf16 one a GEMM a layer; on CPU tensors both run
+their plain versions (`hand_fine_color_plain`,
 `hand_fine_color_plain_bwd`) in either dtype.
 
 What bounds the kernels on an H100 and how their design answers that:
@@ -85,6 +87,20 @@ BWDREV = _build.Kernel(
 # body, summed over its grid)
 POSE = _build.Kernel(
     "pose_sum_kernel", "honerf_torch/ops/csrc/fused_fine_bwd.cu",
+    "honerf_tpu/ops/fused_fine_full.py:1650")
+# The f32 color net in two launches (csrc/color_fused_f32.cu): the f32 mode
+# of `_color_fwd_block` inside K2's pallas_call (and K3's recompute), and of
+# `_color_bwd_block` inside K3's
+COLOR_FWD_F32 = _build.Kernel(
+    "color_fwd_f32_kernel", "honerf_torch/ops/csrc/color_fused_f32.cu",
+    "honerf_tpu/ops/fused_fine_full.py:1556")
+COLOR_BWD_F32 = _build.Kernel(
+    "color_bwd_f32_kernel", "honerf_torch/ops/csrc/color_fused_f32.cu",
+    "honerf_tpu/ops/fused_fine_full.py:1650")
+# the bf16 color transpose's seed dz = s (1 - s) dcolor (and the f32 split
+# launches'), inside K3's pallas_call's body
+COLOR_DZ = _build.Kernel(
+    "color_dz_kernel", "honerf_torch/ops/csrc/fused_fine_bwd.cu",
     "honerf_tpu/ops/fused_fine_full.py:1650")
 
 
@@ -348,6 +364,20 @@ def _color_fwd_block(meta: FineMeta, x, cws, cbs, residuals: bool = False):
     return (color, zs, acts) if residuals else color
 
 
+def _color_transpose(meta: FineMeta, dz, masks, cws):
+    """The color MLP transposed from the last layer's cotangent dz (B,
+    out_pad) -> (dx, [dz_0 .. dz_{n-1}]): da = dz cW_l^T, masked by
+    masks[l - 1] (the relu of layer l's input) for l > 0."""
+    tm = meta.trunk_meta
+    dzs: List[torch.Tensor] = [None] * meta.c_layers
+    for l in range(meta.c_layers - 1, -1, -1):
+        dzs[l] = dz
+        da = FT._mm_t(tm, dz, cws[l])
+        if l > 0:
+            dz = torch.where(masks[l - 1], da, torch.zeros_like(da))
+    return da, dzs
+
+
 def _color_bwd_block(meta: FineMeta, zs, acts, cws, dcolor, want_dw: bool):
     """Transpose of the color MLP at cotangent dcolor (B, 3) -> (dx,
     dcws, dcbs); want_dw=False skips the weight gradients."""
@@ -355,16 +385,11 @@ def _color_bwd_block(meta: FineMeta, zs, acts, cws, dcolor, want_dw: bool):
     n = meta.c_layers
     sig = torch.sigmoid(zs[-1])
     dz = sig * (1.0 - sig) * torch.nn.functional.pad(dcolor, (0, sig.shape[1] - 3))
-    dcws: List[torch.Tensor] = [None] * n
-    dcbs: List[torch.Tensor] = [None] * n
-    for l in range(n - 1, -1, -1):
-        if want_dw:
-            dcws[l] = FT._mm_tn(tm, acts[l], dz)
-            dcbs[l] = dz.sum(0)
-        da = FT._mm_t(tm, dz, cws[l])
-        if l > 0:
-            dz = torch.where(zs[l - 1] > 0.0, da, torch.zeros_like(da))
-    return da, dcws, dcbs
+    dx, dzs = _color_transpose(meta, dz, [z > 0.0 for z in zs[:-1]], cws)
+    if not want_dw:
+        return dx, [None] * n, [None] * n
+    return (dx, [FT._mm_tn(tm, acts[l], dzs[l]) for l in range(n)],
+            [dzs[l].sum(0) for l in range(n)])
 
 
 def _transpose_head(st, ch, rotT, t3):
@@ -804,6 +829,122 @@ def _bwd_lib():
     return lib
 
 
+def _cf32lib():
+    """The library of csrc/color_fused_f32.cu (the f32 color net's two
+    kernels)."""
+    lib = _build.load("color_fused_f32")
+    if not getattr(lib, "_honerf_cf32_typed", False):
+        lib.honerf_color_fwd_f32.argtypes = [
+            _P, _I, _I, _P, _I, _I, _I, _I,  # e, lde, Ep, cx2, ldx, X, M, n_layers
+            _P, _P, _P, _P,                  # wsplit, rows, cols, bs
+            _P, _I, _P, _I, _P]              # color, ldcolor, acts, ldact, stream
+        lib.honerf_color_bwd_f32.argtypes = [
+            _I, _I, _P, _P, _P,              # M, n_layers, wsplit, in_cols, out_cols
+            _P, _I, _P, _I, _P, _I,          # s, lds, dcolor, lddc, acts, ldact
+            _P, _I, _P, _I, _P]              # dx, lddx, dz, lddz, stream
+        lib.honerf_color_fwd_f32.restype = lib.honerf_color_bwd_f32.restype = _I
+        lib._honerf_cf32_typed = True
+    return lib
+
+
+def _check_color_f32(meta: FineMeta, cws) -> None:
+    if meta.dtype != "f32" or not meta.with_color or any(w.dtype != torch.float32 for w in cws):
+        raise ValueError("the fused color kernels take an f32 pack with the color net")
+
+
+def _check_packed(packed, m: int) -> None:
+    if (packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[1] != 8
+            or packed.stride(1) != 1 or packed.shape[0] < m):
+        raise ValueError("packed: f32 rows of 8 contiguous columns, at least m of them")
+
+
+def color_fwd_f32_plain(e, cx2, m: int, cws, cbs, meta: FineMeta):
+    """color_fwd_f32_kernel's function in plain PyTorch (_color_fwd_block
+    in f32) on the first m rows of [e[:, :Ep] | cx2[:, :Fp + Gp]]: (color
+    (m, 3), the relu rows [relu(z_l) for l < n - 1] (m, H))."""
+    x = torch.cat([e[:m, :meta.trunk_meta.Ep], cx2[:m, :meta.Fp + meta.Gp]], 1)
+    color, _zs, acts = _color_fwd_block(meta, x, cws, cbs, residuals=True)
+    return color, acts[1:]
+
+
+def color_fwd_f32(e, cx2, m: int, cws, cbs, meta: FineMeta, packed, cacts=None,
+                  stream=None) -> None:
+    """The f32 color net's forward on m points (one launch:
+    csrc/color_fused_f32.cu's color_fwd_f32_kernel): packed[:m, 4:7] (f32,
+    rows of 8) = the sigmoid of the last layer on [e[:, :Ep] | cx2] (f32)
+    and, with cacts (K3's recompute: the planes of one f32 tensor),
+    cacts[l][:m] = relu(z_l) for l < n - 1.  On a CPU e it writes
+    color_fwd_f32_plain's rows and launches nothing."""
+    _check_color_f32(meta, cws)
+    _check_packed(packed, m)
+    n, f32 = meta.c_layers, torch.float32
+    if e.device.type == "cpu":
+        color, acts = color_fwd_f32_plain(e, cx2, m, cws, cbs, meta)
+        packed[:m, 4:7] = color
+        for dst, a in zip(cacts or (), acts):
+            dst[:m] = a
+        return
+    Ep, X = meta.trunk_meta.Ep, meta.Fp + meta.Gp
+    lde = FT._check_rows("e", [e], f32, m, Ep)
+    ldx = FT._check_rows("cx2", [cx2], f32, m, X)
+    ldact = (FT._check_rows("cacts", list(cacts[:n - 1]), f32, m, cws[0].shape[1])
+             if cacts is not None else 0)
+    COLOR_FWD_F32.launches += 1
+    _build.check(_cf32lib().honerf_color_fwd_f32(
+        e.data_ptr(), lde, Ep, cx2.data_ptr(), ldx, X, m, n,
+        FT._ptrs([FT.tf32_operands(w, True) for w in cws]), FT._ints([w.shape[0] for w in cws]),
+        FT._ints([w.shape[1] for w in cws]), FT._ptrs(cbs), packed[:, 4:].data_ptr(),
+        packed.stride(0), None if cacts is None else FT._ptrs(cacts[:n - 1]), ldact, stream),
+        "honerf_color_fwd_f32")
+
+
+def color_bwd_f32_plain(m: int, cws, meta: FineMeta, packed, dcolor, cacts):
+    """color_bwd_f32_kernel's function in plain PyTorch on the first m
+    points: dz = s (1 - s) dcolor on the last layer's columns (s =
+    packed[:, 4:7], the forward's sigmoid), then _color_transpose with the
+    masks cacts[l] > 0 (JAX's res_stash form of _color_bwd_block) ->
+    (dx (m, color_in), [dz_0 .. dz_{n-1}])."""
+    pad = cws[-1].shape[1] - 3
+    s = torch.nn.functional.pad(packed[:m, 4:7], (0, pad))
+    dz = s * (1.0 - s) * torch.nn.functional.pad(dcolor[:m], (0, pad))
+    return _color_transpose(meta, dz, [a[:m] > 0.0 for a in cacts[:meta.c_layers - 1]], cws)
+
+
+def color_bwd_f32(m: int, cws, meta: FineMeta, packed, dcolor, cacts, dx, cdz=None,
+                  stream=None) -> None:
+    """The f32 color net's transpose on m points (one launch:
+    csrc/color_fused_f32.cu's color_bwd_f32_kernel): dx[:m, :color_in]
+    (f32) and, with cdz (weight gradients asked: the planes of one f32
+    tensor), cdz[l][:m, :out_l] = dz_l for every layer, from the forward's
+    sigmoid packed[:, 4:7], dcolor (>= m, 3) f32 and the kept relu rows
+    cacts[l] (l < n - 1).  On a CPU dx it writes color_bwd_f32_plain's rows
+    and launches nothing."""
+    _check_color_f32(meta, cws)
+    _check_packed(packed, m)
+    n, f32 = meta.c_layers, torch.float32
+    if dx.device.type == "cpu":
+        d, dzs = color_bwd_f32_plain(m, cws, meta, packed, dcolor, cacts)
+        dx[:m, :meta.color_in] = d
+        for dst, z in zip(cdz or (), dzs):
+            dst[:m, :z.shape[1]] = z
+        return
+    H = cws[0].shape[1]
+    if (dcolor.dtype != f32 or dcolor.dim() != 2 or dcolor.shape[1] != 3
+            or dcolor.stride(1) != 1 or dcolor.shape[0] < m):
+        raise ValueError("dcolor: f32 rows of 3 contiguous columns, at least m of them")
+    ldact = FT._check_rows("cacts", list(cacts[:n - 1]), f32, m, H)
+    lddx = FT._check_rows("dx", [dx], f32, m, meta.color_in)
+    lddz = (FT._check_rows("cdz", list(cdz[:n]), f32, m, max(H, cws[-1].shape[1]))
+            if cdz is not None else 0)
+    COLOR_BWD_F32.launches += 1
+    _build.check(_cf32lib().honerf_color_bwd_f32(
+        m, n, FT._ptrs([FT.tf32_operands(w, False) for w in cws]),
+        FT._ints([w.shape[0] for w in cws]), FT._ints([w.shape[1] for w in cws]),
+        packed[:, 4:].data_ptr(), packed.stride(0), dcolor.data_ptr(), dcolor.stride(0),
+        FT._ptrs(cacts[:n - 1]), ldact, dx.data_ptr(), lddx,
+        None if cdz is None else FT._ptrs(cdz[:n]), lddz, stream), "honerf_color_bwd_f32")
+
+
 def _fwd_chunk(lib, pts, m, rotT, off, cut, pack: FinePack, buf, packed, stream, keep=False,
                z=None):
     """K2's launches on one chunk of m points: e, the trunk activations
@@ -827,14 +968,26 @@ def _fwd_chunk(lib, pts, m, rotT, off, cut, pack: FinePack, buf, packed, stream,
         meta.Fp, meta.grad_L, packed.data_ptr(), stream), "honerf_fine_rev")
     if not meta.with_color:
         return
-    # color net on [e | feat | grad-PE]
+    # color net on [e | feat | grad-PE]: f32 one launch, bf16 one GEMM a layer
+    if meta.dtype == "f32":
+        color_fwd_f32(e, cx2, m, pack.cws, pack.cbs, meta, packed,
+                      buf["cacts"] if keep else None, stream)
+    else:
+        _color_fwd_gemms(lib, e, cx2, m, pack, buf["cacts"], packed, keep, stream)
+
+
+def _color_fwd_gemms(lib, e, cx2, m, pack: FinePack, cacts, packed, keep, stream):
+    """The color net as one GEMM a layer (gemm_kernel, or gemm_f32_kernel
+    on f32 operands): relu layers into cacts (keep: one row a layer, else
+    two alternating ones), the sigmoid into packed[:, 4:7]."""
+    meta, tm = pack.meta, pack.meta.trunk_meta
     cHp = pack.cws[0].shape[1]
     a = None
     for l in range(meta.c_layers):
         w = pack.cws[l]
         A1, K1, A2, K2 = (e, tm.Ep, cx2, cx2.shape[1]) if l == 0 else (a, cHp, None, 0)
         if l < meta.c_layers - 1:
-            nxt = buf["cacts"][l] if keep else buf["cacts"][l % 2]
+            nxt = cacts[l] if keep else cacts[l % 2]
             FH.gemm(lib, A1, K1, A2, K2, w, w.shape[1], pack.cbs[l], m, FH.EPI_RELU,
                     nxt, nxt.stride(0), stream=stream)
             a = nxt
@@ -843,10 +996,25 @@ def _fwd_chunk(lib, pts, m, rotT, off, cut, pack: FinePack, buf, packed, stream,
                     packed[:, 4:], 8, n_store=3, stream=stream)
 
 
+def _color_fwd_split(lib, e, cx2, m, pack: FinePack, packed, stream, cacts=None) -> None:
+    """color_fwd_f32's outputs as the split launches it replaced: one
+    gemm_f32_kernel a layer (cacts None: two alternating rows of their
+    own).  No main path calls it: chip_smoke.py holds the fused forward
+    against it at the same calls."""
+    if pack.meta.dtype != "f32":
+        raise ValueError("the split color launches are the f32 color net's")
+    keep = cacts is not None
+    if not keep:
+        cacts = [torch.empty((e.shape[0], pack.cws[0].shape[1]), device=e.device)
+                 for _ in range(2)]
+    _color_fwd_gemms(lib, e, cx2, m, pack, cacts, packed, keep, stream)
+
+
 def _fwd_buffers(pack: FinePack, C: int, dev, keep: bool):
     """K2's scratch for C points: the GEMM operand rows (e, the color
     input's second part, the color activations) in the trunk dtype, z and
-    u in f32."""
+    u in f32.  The f32 color net keeps its activations on chip: its rows
+    only with keep (K3's masks and dW)."""
     meta, tm = pack.meta, pack.meta.trunk_meta
     op, f32 = FT._cast(tm), torch.float32
     buf = FT.trunk_buffers(tm, C, dev, keep)
@@ -855,8 +1023,9 @@ def _fwd_buffers(pack: FinePack, C: int, dev, keep: bool):
                u=torch.empty((C, tm.Ep), device=dev, dtype=f32))
     if meta.with_color:
         cHp = pack.cws[0].shape[1]
+        n_act = meta.c_layers - 1 if keep else (0 if meta.dtype == "f32" else 2)
         buf.update(cx2=torch.empty((C, meta.Fp + meta.Gp), device=dev, dtype=op),
-                   cacts=FT.planes(meta.c_layers - 1 if keep else 2, C, cHp, dev, op))
+                   cacts=FT.planes(n_act, C, cHp, dev, op))
     return buf
 
 
@@ -914,9 +1083,9 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
         width = max(pack.cws[0].shape[1], Hp, Op) if color else max(Hp, Op)
         bw = FT.trunk_bwd_buffers(pack.ws, tm, C, dev, width, want_dw)
         dzf, dzb = bw["dzf"], bw["dzb"]
-        # f32: one dz row a color layer, which the pass's dW launch reads
+        # f32 with dW: one dz row a color layer, which the pass's dW launch reads
         cdz = (FT.planes(cn, C, pack.cws[0].shape[1], dev, f32)
-               if color and meta.dtype == "f32" else None)
+               if color and meta.dtype == "f32" and want_dw else None)
         dgt = torch.empty((C, 4), device=dev, dtype=f32)
         pose_rows = torch.empty((C, 256), device=dev, dtype=f32)
         ws = torch.empty((FT._WS_FLOATS,), device=dev, dtype=f32)
@@ -950,7 +1119,7 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
         fine_bwd_rev(blib, pts[s:], m, rotT, off, cut, meta, packed, dsdf, dg[s:], dx,
                      bw["du_b"], bw["du_s"], dgt, dzf[0], dzb[0], stream)
         crows = (FT.dw_color_rows(buf["cx2"], buf["cacts"], cdz, dcws, dcbs)
-                 if cdz is not None and want_dw else None)
+                 if cdz is not None else None)
         FT.cuda_trunk_backward(blib, m, e, pack.ws, pack.wts, tm, buf, bw, dws, dbs, want_dw,
                                acc, ws, stream, crows)
         # embedding-forward transpose -> dp and the per-point pose rows
@@ -974,15 +1143,40 @@ def _color_bwd_cuda(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, 
                     want_dw, acc, ws, stream, cdz=None):
     """K3's color launches: dz = s (1 - s) dcolor, then per layer, top
     down, da = dz cW^T masked by the relu; the color input's cotangent
-    into dx.  bf16: dz alternates between dzf / dzb[0] and [1], and with
-    want_dw each layer's dcW = a^T dz and dcb = sum dz follow it.  f32
-    (cdz given): layer l's dz into cdz[l], for the pass's one dW launch
-    (fused_fine.trunk_dw)."""
+    into dx.  f32: one launch (color_bwd_f32), with cdz (dW) layer l's dz
+    into cdz[l] for the pass's one dW launch (fused_fine.trunk_dw).  bf16:
+    _color_bwd_gemms."""
+    if pack.meta.dtype == "f32":
+        color_bwd_f32(m, pack.cws, pack.meta, packed, dcolor, buf["cacts"], dx, cdz, stream)
+        return
+    _color_bwd_gemms(blib, m, pack, buf, packed, dcolor, dzf, dzb, dx, dcws, dcbs, want_dw, acc,
+                     ws, stream)
+
+
+def _color_bwd_split(blib, m, pack: FinePack, buf, packed, dcolor, dx, cdz, stream) -> None:
+    """color_bwd_f32's outputs (dx, every dz row into the planes cdz) as
+    the split launches it replaced: color_dz_kernel, then one
+    gemm_f32_kernel a layer.  No main path calls it: chip_smoke.py holds
+    the fused transpose against it at the same calls."""
+    if pack.meta.dtype != "f32":
+        raise ValueError("the split color launches are the f32 color net's")
+    _color_bwd_gemms(blib, m, pack, buf, packed, dcolor, None, None, dx, None, None, False, 0,
+                     None, stream, cdz)
+
+
+def _color_bwd_gemms(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, dcws, dcbs,
+                     want_dw, acc, ws, stream, cdz=None):
+    """The color transpose as color_dz_kernel and one GEMM a layer
+    (gemm_kernel, or gemm_f32_kernel on f32 operands).  bf16: dz
+    alternates between dzf / dzb[0] and [1], and with want_dw each layer's
+    dcW = a^T dz and dcb = sum dz follow it.  cdz given (the f32 split):
+    layer l's dz into cdz[l]."""
     meta, Ep = pack.meta, pack.meta.trunk_meta.Ep
     e, cx2 = buf["e"], buf["cx2"]
     if cdz is not None:
         dzf = dzb = [cdz[l] for l in range(meta.c_layers - 1, -1, -1)]
     color_dz = blib.honerf_color_dz_f32 if meta.dtype == "f32" else blib.honerf_color_dz
+    COLOR_DZ.launches += 1
     _build.check(color_dz(packed.data_ptr(), dcolor.data_ptr(), m, dzf[0].data_ptr(),
                           dzb[0].data_ptr(), dzf[0].stride(0), pack.cws[-1].shape[1], stream),
                  "honerf_color_dz")

@@ -51,13 +51,18 @@ launches (csrc/trunk_bwd_f32.cu: hand_trunk_ut_f32_kernel,
 hand_trunk_dz_f32_kernel, the forward's layout and ring;
 tests/test_torch_trunk_bwd_f32_layout.py): `tb32_ut_phases` /
 `tb32_dz_phases` their phase tables (`tb32_pieces` de's pieces),
-`tb32_loads` both producers' slots.
+`tb32_loads` both producers' slots.  The f32 color net in two launches
+(csrc/color_fused_f32.cu: color_fwd_f32_kernel, color_bwd_f32_kernel, the
+same layout and ring; tests/test_torch_color_f32_layout.py): the `CF32_*`
+constants, `cf32_fwd_phases` / `cf32_bwd_phases` their phase tables
+(`cf32_pieces` dx's pieces), `cf32_loads` both producers' slots (layer
+0's two K ranges of boxes), `cf32_smem_bytes` the blocks' shared memory.
 
 Nothing on the main path calls the functions but `tn_workspace`; the CUDA
 side computes the same numbers (`honerf_gemm`, `honerf_gemm_tn`,
 `honerf_obj_sdf`, `honerf_trunk_fwd`, `honerf_trunk_uchain`,
 `honerf_trunk_fwd_f32`, `honerf_trunk_uchain_f32`, `honerf_trunk_ut_f32`,
-`honerf_trunk_dz_f32`).
+`honerf_trunk_dz_f32`, `honerf_color_fwd_f32`, `honerf_color_bwd_f32`).
 """
 
 from __future__ import annotations
@@ -174,6 +179,16 @@ T32_HIDDEN, T32_Z = 0, 1
 TB32_MAX_PHASES = 40
 TB32_CONSTANTS = ("TB32_MAX_PHASES",)
 TB32_UT, TB32_CHAIN, TB32_SKIP, TB32_ZERO = 0, 1, 2, 3
+
+# csrc/color_fused_f32.cu: color_fwd_f32_kernel, color_bwd_f32_kernel (both
+# with the f32 trunk forward's shared memory: the tile and a 4-slot ring of
+# A's box and B's rows)
+CF32_MAX_PHASES = 24
+CF32_PIECE = 256       # dx columns a piece
+CF32_SMEM_BYTES = TF32_SMEM_BYTES
+CF32_COLORS = 3        # the real columns of the last layer
+CF32_CONSTANTS = ("CF32_MAX_PHASES", "CF32_PIECE", "CF32_SMEM_BYTES", "CF32_COLORS")
+CF32_RELU, CF32_SIGMOID, CF32_MASK, CF32_DX = 0, 1, 2, 3
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -769,6 +784,103 @@ def tb32_loads(phases, tile: int, small_rows: Sequence[int]) -> List[List[tuple]
                      if kb >= 0 and half == 0 else None)
                 row0 = (small_rows[ph["layer"]] if half == 0 else 0) + ph["row0"]
                 slots.append((a, [(ph["layer"], kc, row0 + TF32_BOX_ROWS * j)
+                                  for j in range(ph["width"] // TF32_BOX_ROWS)]))
+        out.append(slots)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The f32 color net in two launches (csrc/color_fused_f32.cu)
+# ---------------------------------------------------------------------------
+
+def _cf32_phase(act_steps, box_steps0, box_steps1, layer, row0, width, kind) -> Dict[str, int]:
+    return dict(act_steps=act_steps, box_steps0=box_steps0, box_steps1=box_steps1, layer=layer,
+                row0=row0, width=width, kind=kind)
+
+
+def cf32_smem_bytes() -> Dict[str, int]:
+    """Both color kernels' shared memory by part (bytes): the f32 tile (the
+    activations, or the transpose's dz), the ring of slots (A's box + up to
+    256 B rows)."""
+    return dict(align=1024, tile=TF32_ACT_BYTES, ring=TF32_RING_BYTES,
+                barriers=2 * TF32_STAGES * 8)
+
+
+def _cf32_check(n: int, widths: Sequence[int]) -> None:
+    if not 2 <= n <= TF32_MAX_LAYERS or any(w not in (64, 128, 256) for w in widths):
+        raise ValueError("not an f32 fused color net")
+
+
+def cf32_fwd_phases(Ep: int, X: int, rows: Sequence[int],
+                    cols: Sequence[int]) -> List[Dict[str, int]]:
+    """honerf_color_fwd_f32's phase table: one phase a layer, layer 0 over
+    e's Ep / 32 boxes (box map 0) then cx2's X / 32 (map 1), the others
+    over the tile; relu epilogues, the last layer's a sigmoid.  Raises
+    ValueError where the entry point refuses the shapes."""
+    n = len(rows)
+    _cf32_check(n, cols)
+    if Ep <= 0 or Ep % 64 or X <= 0 or X % 64:
+        raise ValueError("not an f32 fused color net")
+    H, out = cols[0], []
+    for l in range(n):
+        last = l + 1 == n
+        if rows[l] != (Ep + X if l == 0 else H) or (not last and cols[l] != H):
+            raise ValueError(f"layer {l}: {rows[l]} x {cols[l]} is not a color layer")
+        out.append(_cf32_phase(0 if l == 0 else H // TF32_BK, Ep // TF32_BK if l == 0 else 0,
+                               X // TF32_BK if l == 0 else 0, l, 0, cols[l],
+                               CF32_SIGMOID if last else CF32_RELU))
+    return out
+
+
+def cf32_pieces(width: int) -> List[tuple]:
+    """dx's pieces: (n0, width), the widest of 256, 128, 64 that fits."""
+    out, n0 = [], 0
+    while n0 < width:
+        rem = width - n0
+        w = CF32_PIECE if rem >= CF32_PIECE else (128 if rem >= 128 else 64)
+        out.append((n0, w))
+        n0 += w
+    return out
+
+
+def cf32_bwd_phases(in_cols: Sequence[int], out_cols: Sequence[int]) -> List[Dict[str, int]]:
+    """honerf_color_bwd_f32's phase table: layers n-1 .. 1 over the tile
+    (the top over the seed's out_cols[n-1] / 32 K steps, the others over H
+    / 32), each masked into the tile in place; then dx's pieces (W_0's rows
+    from n0) over dz_0."""
+    n = len(in_cols)
+    _cf32_check(n, out_cols)
+    H = out_cols[0]
+    if in_cols[0] <= 0 or in_cols[0] % 64 or any(
+            (l > 0 and in_cols[l] != H) or (l + 1 < n and out_cols[l] != H) for l in range(n)):
+        raise ValueError("not an f32 fused color net")
+    out = [_cf32_phase(out_cols[l] // TF32_BK, 0, 0, l, 0, H, CF32_MASK)
+           for l in range(n - 1, 0, -1)]
+    out += [_cf32_phase(H // TF32_BK, 0, 0, 0, n0, w, CF32_DX) for n0, w in cf32_pieces(in_cols[0])]
+    if len(out) > CF32_MAX_PHASES:
+        raise ValueError("too many phases")
+    return out
+
+
+def cf32_loads(phases, tile: int, small_rows: Sequence[int]) -> List[List[tuple]]:
+    """Both color producers' TMA loads, per phase and slot (two a K step:
+    B's small rows, then its big rows): (A, [B ...]) with A (box, column,
+    row) of box map 0's boxes, then map 1's, or None (the box rides in the
+    small slot of a box step), each B (layer, k, row) of the layer's [big;
+    small] map, B's k running on across the phase's ranges, small_rows[l]
+    its first small row."""
+    out = []
+    for ph in phases:
+        slots = []
+        steps = ph["act_steps"] + ph["box_steps0"] + ph["box_steps1"]
+        for k in range(steps):
+            kb = k - ph["act_steps"]
+            box = int(kb >= ph["box_steps0"])
+            col = TF32_BK * (kb - ph["box_steps0"] if box else kb)
+            for half in (0, 1):
+                a = (box, col, TF32_TILE * tile) if kb >= 0 and half == 0 else None
+                row0 = (small_rows[ph["layer"]] if half == 0 else 0) + ph["row0"]
+                slots.append((a, [(ph["layer"], TF32_BK * k, row0 + TF32_BOX_ROWS * j)
                                   for j in range(ph["width"] // TF32_BOX_ROWS)]))
         out.append(slots)
     return out

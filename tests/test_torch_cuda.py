@@ -2073,3 +2073,206 @@ def test_trunk_dw_f32_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         FT.trunk_dw(70, tm, dict(rows, dzs=[x.clone() for x in rows["dzs"]]), dws, dbs, 0)
     assert FT.TRUNK_DW_F32.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The f32 color net in two launches (color_fwd_f32_kernel, color_bwd_f32_kernel)
+# ---------------------------------------------------------------------------
+
+COLOR32_M = (1, 63, 64, 65, 1001, 28224)
+
+
+def _color32_case(dev, m, sdf_kw=FULL, C=None, seed=6):
+    """The f32 color net's inputs at m points (C >= m rows, NaN past m):
+    seeded e and cx2 rows and dcolor, the plain forward's sigmoid in packed
+    and its relu rows (the planes of one tensor), the f32 pack."""
+    tm, pack = _fused_trunk32(dev, sdf_kw)
+    meta = pack.meta
+    C = C or m
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        x = torch.randn(shape, device=dev, generator=g)
+        x[m:] = float("nan")
+        return x
+
+    e, cx2, dcolor = r(C, tm.Ep), r(C, meta.Fp + meta.Gp), r(C, 3)
+    color, acts = FF.color_fwd_f32_plain(e, cx2, m, pack.cws, pack.cbs, meta)
+    packed = torch.full((C, 8), float("nan"), device=dev)
+    packed[:m, 4:7] = color
+    cacts = FT.planes(meta.c_layers - 1, C, pack.cws[0].shape[1], dev, torch.float32)
+    for a, want in zip(cacts, acts):
+        a.fill_(float("nan"))
+        a[:m] = want
+    return pack, e, cx2, dcolor, packed, cacts
+
+
+def _color32_outputs(dev, pack, C, fwd: bool, with_dz: bool = True):
+    """NaN-filled outputs: the forward's packed rows and relu planes, or the
+    transpose's dx and (with_dz) dz planes."""
+    meta, nan = pack.meta, float("nan")
+    H = pack.cws[0].shape[1]
+    if fwd:
+        return (torch.full((C, 8), nan, device=dev),
+                [a.fill_(nan) for a in FT.planes(meta.c_layers - 1, C, H, dev, torch.float32)])
+    dz = FT.planes(meta.c_layers, C, H, dev, torch.float32) if with_dz else None
+    return (torch.full((C, meta.color_in), nan, device=dev),
+            None if dz is None else [z.fill_(nan) for z in dz])
+
+
+@pytest.mark.parametrize("keep", [False, True], ids=["render", "keep"])
+@pytest.mark.parametrize("m", COLOR32_M)
+def test_color_fwd_f32_matches_plain(dev, m, keep):
+    """The color (packed[:, 4:7]) and with keep the four relu rows into
+    NaN-filled buffers against color_fwd_f32_plain under the f32 rule, the
+    rest of packed untouched; one launch, no GEMM; a second run's bits."""
+    pack, e, cx2, _, want_p, want_a = _color32_case(dev, m, C=m + 3)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        packed, cacts = _color32_outputs(dev, pack, m + 3, True)
+        kerns = (FF.COLOR_FWD_F32, FH.GEMM_F32)
+        before = [k.launches for k in kerns]
+        FF.color_fwd_f32(e, cx2, m, pack.cws, pack.cbs, pack.meta, packed,
+                         cacts if keep else None, stream)
+        torch.cuda.synchronize()
+        assert [k.launches - x for k, x in zip(kerns, before)] == [1, 0]
+        return packed, cacts
+
+    (packed, cacts), (again, again_a) = run(), run()
+    _f32_rule(packed[:m, 4:7], want_p[:m, 4:7])
+    assert torch.isnan(packed[:, :4]).all() and torch.isnan(packed[:, 7]).all()
+    assert torch.isnan(packed[m:]).all() and torch.equal(packed[:m, 4:7], again[:m, 4:7])
+    for a, w, b in zip(cacts, want_a, again_a):
+        if keep:
+            _f32_rule(a[:m], w[:m])
+            assert torch.equal(a[:m], b[:m]) and torch.isnan(a[m:]).all()
+        else:
+            assert torch.isnan(a).all()
+
+
+@pytest.mark.parametrize("with_dz", [False, True], ids=["frozen", "dw"])
+@pytest.mark.parametrize("m", COLOR32_M)
+def test_color_bwd_f32_matches_plain(dev, m, with_dz):
+    """dx and with dW every layer's dz row into NaN-filled buffers against
+    color_bwd_f32_plain (at the same sigmoid and relu rows) under the f32
+    rule; one launch, no GEMM or color_dz_kernel; a second run's bits."""
+    pack, _, _, dcolor, packed, cacts = _color32_case(dev, m, C=m + 3)
+    want_dx, want_dz = FF.color_bwd_f32_plain(m, pack.cws, pack.meta, packed, dcolor, cacts)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        dx, cdz = _color32_outputs(dev, pack, m + 3, False, with_dz)
+        kerns = (FF.COLOR_BWD_F32, FH.GEMM_F32, FF.COLOR_DZ)
+        before = [k.launches for k in kerns]
+        FF.color_bwd_f32(m, pack.cws, pack.meta, packed, dcolor, cacts, dx, cdz, stream)
+        torch.cuda.synchronize()
+        assert [k.launches - x for k, x in zip(kerns, before)] == [1, 0, 0]
+        return dx, cdz
+
+    (dx, cdz), (again, again_z) = run(), run()
+    _f32_rule(dx[:m], want_dx)
+    assert torch.isnan(dx[m:]).all() and torch.equal(dx[:m], again[:m])
+    for z, w, b in zip(cdz or (), want_dz, again_z or ()):
+        _f32_rule(z[:m, :w.shape[1]], w)
+        assert torch.equal(z[:m, :w.shape[1]], b[:m, :w.shape[1]]) and torch.isnan(z[m:]).all()
+
+
+@pytest.mark.parametrize("m", [1, 65, 4097])
+def test_color_f32_narrow_widths(dev, m):
+    """SMALL's color net (64-wide hidden layers, three layers) under the
+    f32 rule, both kernels."""
+    pack, e, cx2, dcolor, want_p, cacts = _color32_case(dev, m, sdf_kw=SMALL)
+    stream = torch.cuda.current_stream().cuda_stream
+    packed, acts = _color32_outputs(dev, pack, m, True)
+    FF.color_fwd_f32(e, cx2, m, pack.cws, pack.cbs, pack.meta, packed, acts, stream)
+    dx, cdz = _color32_outputs(dev, pack, m, False)
+    FF.color_bwd_f32(m, pack.cws, pack.meta, want_p, dcolor, cacts, dx, cdz, stream)
+    torch.cuda.synchronize()
+    _f32_rule(packed[:, 4:7], want_p[:, 4:7])
+    for a, w in zip(acts, cacts):
+        _f32_rule(a, w)
+    want_dx, want_dz = FF.color_bwd_f32_plain(m, pack.cws, pack.meta, want_p, dcolor, cacts)
+    _f32_rule(dx, want_dx)
+    for z, w in zip(cdz, want_dz):
+        _f32_rule(z[:, :w.shape[1]], w)
+
+
+def _color64(m, pack, e, cx2, packed, dcolor, cacts):
+    """The color net's forward (color, relu rows) and its transpose (dx, dz
+    rows, at packed's sigmoid and cacts' masks) in f64 on the same f32
+    inputs."""
+    meta = pack.meta
+    n, d = meta.c_layers, lambda x: x[:m].double()  # noqa: E731
+    a = torch.cat([d(e[:, :meta.trunk_meta.Ep]), d(cx2)], 1)
+    acts = []
+    for l, (w, b) in enumerate(zip(pack.cws, pack.cbs)):
+        z = a @ w.double() + b.double()
+        if l + 1 < n:
+            a = torch.relu(z)
+            acts.append(a)
+    color = torch.sigmoid(z[:, :3])
+    s = d(packed[:, 4:7])
+    dz = torch.nn.functional.pad(s * (1.0 - s) * d(dcolor), (0, pack.cws[-1].shape[1] - 3))
+    dzs = [None] * n
+    for l in range(n - 1, -1, -1):
+        dzs[l] = dz
+        da = dz @ pack.cws[l].double().T
+        if l:
+            dz = torch.where(d(cacts[l - 1]) > 0, da, 0.0)
+    return [color] + acts, [da] + dzs
+
+
+def test_color_f32_no_worse_than_the_split_launches(dev):
+    """At an f32 pass's 28,224 points: the color, the relu rows, dx and every
+    dz row of the fused pair and of the split launches (_color_fwd_split,
+    _color_bwd_split: one gemm_f32_kernel a layer, color_dz_kernel) against
+    f64 on the same inputs, the pair's relative L2 within TRUNK32_VS_SPLIT
+    of the split launches'."""
+    m = 28224
+    pack, e, cx2, dcolor, packed, cacts = _color32_case(dev, m)
+    stream = torch.cuda.current_stream().cuda_stream
+    got = {}
+    p, a = _color32_outputs(dev, pack, m, True)
+    FF.color_fwd_f32(e, cx2, m, pack.cws, pack.cbs, pack.meta, p, a, stream)
+    dx, cdz = _color32_outputs(dev, pack, m, False)
+    FF.color_bwd_f32(m, pack.cws, pack.meta, packed, dcolor, cacts, dx, cdz, stream)
+    got["fused"] = ([p[:, 4:7]] + a, [dx] + cdz)
+    p, a = _color32_outputs(dev, pack, m, True)
+    before = FH.GEMM_F32.launches, FF.COLOR_DZ.launches
+    FF._color_fwd_split(FF._lib(), e, cx2, m, pack, p, stream, a)
+    dx, cdz = _color32_outputs(dev, pack, m, False)
+    FF._color_bwd_split(FF._bwd_lib(), m, pack, dict(e=e, cx2=cx2, cacts=cacts), packed, dcolor,
+                        dx, cdz, stream)
+    torch.cuda.synchronize()
+    n = pack.meta.c_layers
+    assert (FH.GEMM_F32.launches - before[0], FF.COLOR_DZ.launches - before[1]) == (2 * n, 1)
+    got["split"] = ([p[:, 4:7]] + a, [dx] + cdz)
+    ref = _color64(m, pack, e, cx2, packed, dcolor, cacts)
+    rel = lambda g, r: float((g[:, :r.shape[1]].double() - r).norm()  # noqa: E731
+                             / max(float(r.norm()), 1e-300))
+    for part in (0, 1):
+        for k, (f, s_, r) in enumerate(zip(got["fused"][part], got["split"][part], ref[part])):
+            assert rel(f, r) <= TRUNK32_VS_SPLIT * rel(s_, r) + 1e-9, (part, k)
+
+
+def test_color_f32_rejects_what_the_kernels_do_not_take(dev):
+    """A bf16 pack, a bf16 meta, dcolor of another shape, relu rows that are
+    not f32: ValueError before a launch."""
+    pack, e, cx2, dcolor, packed, cacts = _color32_case(dev, 70)
+    meta, stream = pack.meta, torch.cuda.current_stream().cuda_stream
+    dx, cdz = _color32_outputs(dev, pack, 70, False)
+    before = FF.COLOR_FWD_F32.launches, FF.COLOR_BWD_F32.launches
+    bf16 = [w.to(torch.bfloat16) for w in pack.cws]
+    for kw in (dict(cws=bf16), dict(meta=meta._replace(dtype="bf16"))):
+        a = dict(cws=pack.cws, meta=meta) | kw
+        with pytest.raises(ValueError):
+            FF.color_fwd_f32(e, cx2, 70, a["cws"], pack.cbs, a["meta"], packed, None, stream)
+        with pytest.raises(ValueError):
+            FF.color_bwd_f32(70, a["cws"], a["meta"], packed, dcolor, cacts, dx, cdz, stream)
+    with pytest.raises(ValueError):
+        FF.color_bwd_f32(70, pack.cws, meta, packed, dcolor[:, :2], cacts, dx, cdz, stream)
+    with pytest.raises(ValueError):
+        FF.color_bwd_f32(70, pack.cws, meta, packed, dcolor, [c.double() for c in cacts], dx,
+                         cdz, stream)
+    assert (FF.COLOR_FWD_F32.launches, FF.COLOR_BWD_F32.launches) == before
