@@ -17,8 +17,9 @@ unedited copy and reads every check; a fault reads the checks of its
 groups (bf16: the first eight below, f32: the next six, fit: the next
 six, perpoint: the next five, trunk: the next two, trunkbwd32: tbwd32
 with f32k3, f32k6, fitk3 and fitk6, trunkdw32: tdw32 with f32k3 and
-f32k6, color32: the last with f32k3, f32k6, fitk3 and fitk6; --groups
-reads only the named groups, and skips the faults with none of them).
+f32k6, color32: color32 with f32k3, f32k6, fitk3 and fitk6, color16: the
+last with kernel at seed 0; --groups reads only the named groups, and
+skips the faults with none of them).
 The checks, with the
 limits they hold:
 
@@ -152,7 +153,16 @@ limits they hold:
           (chip_smoke.color32_readings): the worst of the f32 rule's ratio
           (every output against the plain versions) and the L2 to f64 over
           TOL_TRUNK32_VS_SPLIT x the split launches', each caught above 1
-          (the color32 group, with f32k3, f32k6, fitk3 and fitk6).
+          (the color32 group, with f32k3, f32k6, fitk3 and fitk6);
+  color16 the bf16 color net's two kernels (color_fwd_kernel,
+          color_bwd_kernel) through fused_fine_full.color_fwd / color_bwd
+          at chip_smoke.ragged_color16_calls (1 to 65,613 points, each
+          output mode) and at a bf16 pass's 56,448
+          (chip_smoke.color16_readings): the kernel rule's ratio (every
+          output against the plain versions: median over TOL_MEDIAN, max
+          over TOL_MAX of the range), caught above 1 or where a rerun's
+          bits or the split launches' bits move beyond f64's 1.25x (the
+          color16 group, with kernel at seed 0).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -189,6 +199,7 @@ _TF32_CUH = "honerf_torch/ops/csrc/tf32.cuh"
 _TB32_CU = "honerf_torch/ops/csrc/trunk_bwd_f32.cu"
 _TDW32_CU = "honerf_torch/ops/csrc/trunk_dw_f32.cu"
 _CF32_CU = "honerf_torch/ops/csrc/color_fused_f32.cu"
+_CF16_CU = "honerf_torch/ops/csrc/color_fused.cu"
 
 # name -> (what it breaks, file, text, replacement, groups of checks it is
 # read by); the text must occur exactly once in the file
@@ -504,12 +515,45 @@ FAULTS = {
         "whatever the rows held)", _CF32_CU,
         "      if (dz && grow < p.M) *reinterpret_cast<float2*>(dz + (size_t)grow * p.lddz + col) = v;\n",
         "", ("color32",)),
+    "cf16_no_mask": (
+        "the bf16 color transpose skips the relu masks (da for dz at every unit)", _CF16_CU,
+        "        const float v0 = __bfloat162float(m2.x) > 0.f ? acc[4 * j + 2 * h] : 0.f;\n"
+        "        const float v1 = __bfloat162float(m2.y) > 0.f ? acc[4 * j + 2 * h + 1] : 0.f;\n",
+        "        const float v0 = acc[4 * j + 2 * h] + 0.f * __bfloat162float(m2.x);\n"
+        "        const float v1 = acc[4 * j + 2 * h + 1] + 0.f * __bfloat162float(m2.y);\n",
+        ("color16",)),
+    "cf16_cx2_dropped": (
+        "the bf16 color forward's layer 0 leaves out cx2's K range ([feat | grad-PE])", _CF16_CU,
+        "l == 0 ? X / 64 : 0, l, 0,", "0, l, 0,", ("color16",)),
+    "cf16_ragged_tail": (
+        "the bf16 color transpose stores no dx row of the ragged last tile", _CF16_CU,
+        "      if (grow < p.M)\n        *reinterpret_cast<float2*>(p.dx",
+        "      if (grow < (p.M & ~(CF16_TILE - 1)))\n        *reinterpret_cast<float2*>(p.dx",
+        ("color16",)),
+    "cf16_dz_no_sprime": (
+        "the bf16 color transpose seeds dz = dcolor, without the sigmoid's s (1 - s)", _CF16_CU,
+        "v[k] = s * (1.f - s) * p.dcolor[(size_t)grow * p.lddc + c8 + k];",
+        "v[k] = 0.f * s + p.dcolor[(size_t)grow * p.lddc + c8 + k];", ("color16",)),
+    "cf16_no_dz_rows": (
+        "the bf16 color transpose writes no bf16 dz row of the layers below the top (the dW "
+        "GEMMs read whatever the rows held)", _CF16_CU,
+        "          if (dz) cf16_store_rows(&p.dzb_map[ph.layer - 1], act, p.H, c, tile);\n",
+        "", ("color16",)),
+    "cf16_skip_last_k": (
+        "the bf16 color pair's 256-wide products skip the last K step of every phase", _CF16_CU,
+        "      if constexpr (R == 128)\n"
+        "        wg::wgmma_m64n256k16<0, 1>(acc, da, db, 1);\n"
+        "      else if constexpr (R == 64)",
+        "      if constexpr (R == 128) {\n"
+        "        if (k + 1 < steps) wg::wgmma_m64n256k16<0, 1>(acc, da, db, 1);\n"
+        "      } else if constexpr (R == 64)", ("color16",)),
     "pose_drop_tail": (
         "the pose sums drop the rows past the last full split (a ragged last block sums "
         "nothing)", _CU, "const int r0 = s * split, r1 = min(M, r0 + split);",
         "const int r0 = s * split, r1 = r0 + split <= M ? r0 + split : r0;", ("perpoint",)),
 }
-GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk", "trunkbwd32", "trunkdw32", "color32")
+GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk", "trunkbwd32", "trunkdw32", "color32",
+          "color16")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
 STEP_SEEDS = {"sound": (1, 2, 3, 4)}
@@ -742,6 +786,17 @@ def child(name: str, root: str, groups) -> None:
             [f"f32 color {r.kind} {r.m} {r.flag}",
              max(r.rule, r.l2_ratio) if r.same else float("inf"), r.ok]
             for r in CS.color32_readings(torch, dev, nets, calls, timed=False)]}
+    if "color16" in groups:
+        nets = CS.trunk_nets(torch, dev)
+        calls = CS.ragged_color16_calls() + [(k, 56448, f) for k in ("cfwd16", "cbwd16")
+                                             for f in (False, True)]
+        out["color16"] = {"0": [
+            [f"bf16 color {r.kind} {r.m} {r.flag}", r.rule if r.same else float("inf"), r.ok]
+            for r in CS.color16_readings(torch, dev, nets, calls, timed=False)]}
+        if "kernel" not in out:   # K3 on a bf16 step, whose color net the pair runs
+            args = CS.step_bwd_inputs(torch, CS.flagship(torch, dev), dev, 0)
+            _, rows = CS.k3_check(torch, args)
+            out["kernel"] = {"0": [[r.what, r.l2, r.med, r.mx, r.ok] for r in rows]}
     print(json.dumps(out))
 
 
@@ -807,7 +862,7 @@ def judge(CS, res):
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
     for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt",
                   "k4", "copy", "pack", "pose", "trunk", "trunk32", "tbwd32", "tdw32",
-                  "color32"):
+                  "color32", "color16"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []
@@ -869,7 +924,7 @@ def main() -> int:
     ap.add_argument("--only", help="comma-separated names (sound and FAULTS) to run")
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma-separated groups of checks to read (bf16, f32, fit, "
-                         "perpoint, trunk, trunkbwd32, trunkdw32, color32)")
+                         "perpoint, trunk, trunkbwd32, trunkdw32, color32, color16)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     a = ap.parse_args()

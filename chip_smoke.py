@@ -30,9 +30,10 @@ Phases, each of which fails the run when it fails:
               launch counts are zeroed just before and read just after;
               each kernel must have launched, hand_embed_kernel and the
               fused trunk's two (hand_trunk_fwd_kernel,
-              hand_uchain_kernel) among them, gemm_tn_kernel and
-              uchain_seed_kernel not, and gemm_kernel exactly 5 times a
-              K2 pass (the color net; 40 a request, 600 an image);
+              hand_uchain_kernel) among them, gemm_tn_kernel,
+              uchain_seed_kernel and gemm_kernel not, and the bf16 color
+              net's forward (color_fwd_kernel) exactly once a K2 pass (8
+              a request, 120 an image);
   4. check    the served pixels are finite, weight_sum lies in
               [0, 1 + 1e-3], and a patch of rays rendered again on the CPU
               (the kernels' plain versions) agrees with the card's;
@@ -52,9 +53,12 @@ Phases, each of which fails the run when it fails:
               vgg_weight 0; 3 warm-up steps, then 20 timed ones.  The
               launch counts are zeroed just before and read just after;
               K1, K2 and K3 must each have launched (and through them
-              gemm_kernel, gemm_tn_kernel, hand_embed_kernel and
-              colsum_partial_kernel), every loss and grad norm be finite,
-              and se3_refine have moved;
+              gemm_kernel, gemm_tn_kernel, hand_embed_kernel,
+              colsum_partial_kernel and the color pair: a step's
+              gemm_kernel exactly 17, the backward chain's,
+              color_fwd_kernel 2, color_bwd_kernel 1, color_dz_kernel 0),
+              every loss and grad norm be finite, and se3_refine have
+              moved;
   8. train check  one step's metrics and gradient tree on the card
               against the same step on the CPU (plain versions), 64 rays,
               perturb 0;
@@ -106,8 +110,27 @@ Phases, each of which fails the run when it fails:
               at 1 to 262,144 points against fused_hand_sdf_plain, each
               call's CUDA graph one hand_embed_kernel and one
               hand_trunk_fwd_kernel a chunk, no GEMM; a request's K2 call's
-              graph 5 gemm_kernel a pass, the fused pair once a pass, no
-              seed;
+              graph color_fwd_kernel once a pass, the fused pair once a
+              pass, no gemm_kernel and no seed;
+  9d. fused color bf16  the bf16 color net as two kernels
+              (color_fwd_kernel, its forward: layer 0 over e's and cx2's
+              boxes, relu layers in a shared-memory tile, the sigmoid into
+              packed; color_bwd_kernel, its transpose: dz = s (1 - s)
+              dcolor, the masked layers in place, dx in pieces; bf16 wgmma
+              on a TMA ring) at the calls one request and one bf16 'full'
+              step make (recorded by phase 9c) and at ragged sizes (1 to
+              65,613 points, each output mode): every output (the color
+              and the relu rows; dx and the dz rows in f32 and bf16) into
+              NaN-filled buffers against the plain versions on the card
+              under the kernel rule, a rerun's bits, and the SHA-256 of
+              each against the split launches' (one gemm_kernel a layer
+              and color_dz_kernel: fused_fine_full._color_fwd_split /
+              _color_bwd_split) at the same call, with the relative L2 to
+              f64 (color64) within TOL_TRUNK32_VS_SPLIT of the split's
+              where bits move; ms of each kernel and of the split
+              launches in turns, of the plain versions, beside the bounds;
+              each path's calls (a forward a pass of K2 and of K3's
+              recompute, a transpose a pass of K3);
  10. kernel K4  the object SDF (obj_sdf_fused_kernel, one launch a call)
               against its plain version on the card, full-width object
               net of confs/wmask_realobj_bean.conf, at a 65,536-point grid
@@ -348,7 +371,9 @@ f32 backward pair TUT32 and TDZ32 at an f32 'full' step's calls, a
 the f32 weight gradients' launch TDW32 at an f32 'full' step's calls, a
 'full_nocolor' and 'pallas' step's, beside the split sequence's; the f32
 color net's pair CFWD32 and CBWD32 at an f32 'full' step's calls, a
-request's and a fit step's, beside the split launches';
+request's and a fit step's, beside the split launches'; the bf16 color
+net's pair CFWD16 and CBWD16 at a bf16 'full' step's calls and a
+request's, beside the split launches';
 the bf16 and the f32 GEMMs alone and
 the per-point kernels EMBED, COLSUM, UCHAIN, BWDREV, COPY, PACK and POSE
 in rows of their own; BWDREV counts launches on every path that runs it:
@@ -1194,13 +1219,16 @@ def record_trunk_calls(fn):
     color: K3's color rows join the launch), and the f32 color net's
     ("cfwd", m, keep, None, "f32") and ("cbwd", m, dz, None, "f32")
     (fused_fine_full.color_fwd_f32, color_bwd_f32; keep: the relu rows
-    stored; dz: the dz rows stored, weight gradients asked)."""
+    stored; dz: the dz rows stored, weight gradients asked), and the bf16
+    color net's ("cfwd16", m, keep, None, "bf16") and ("cbwd16", m, dz,
+    None, "bf16") (fused_fine_full.color_fwd, color_bwd)."""
     from honerf_torch.ops import fused_fine as FT
     from honerf_torch.ops import fused_fine_full as FF
 
     calls = []
     fwd, uc, ut, dz, dw = FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz, FT.trunk_dw
     cfwd, cbwd = FF.color_fwd_f32, FF.color_bwd_f32
+    cfwd16, cbwd16 = FF.color_fwd, FF.color_bwd
 
     def rec_fwd(e, m, ws, bs, tm, ss=None, acts=None, z=None, sdf=None, stream=None):
         last = "sdf" if sdf is not None else (None if z is None else z.shape[1])
@@ -1231,14 +1259,25 @@ def record_trunk_calls(fn):
         calls.append(("cbwd", m, cdz is not None, None, meta.dtype))
         return cbwd(m, cws, meta, packed, dcolor, cacts, dx, cdz, stream)
 
+    def rec_cfwd16(e, cx2, m, cws, cbs, meta, packed, cacts=None, stream=None):
+        calls.append(("cfwd16", m, cacts is not None, None, meta.dtype))
+        return cfwd16(e, cx2, m, cws, cbs, meta, packed, cacts, stream)
+
+    def rec_cbwd16(m, cws, cwts, meta, packed, dcolor, cacts, dx, cdz=None, cdzb=None,
+                   stream=None):
+        calls.append(("cbwd16", m, cdz is not None, None, meta.dtype))
+        return cbwd16(m, cws, cwts, meta, packed, dcolor, cacts, dx, cdz, cdzb, stream)
+
     FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz, FT.trunk_dw = (
         rec_fwd, rec_uc, rec_ut, rec_dz, rec_dw)
     FF.color_fwd_f32, FF.color_bwd_f32 = rec_cfwd, rec_cbwd
+    FF.color_fwd, FF.color_bwd = rec_cfwd16, rec_cbwd16
     try:
         fn()
     finally:
         FT.trunk_fwd, FT.trunk_uchain, FT.trunk_ut, FT.trunk_dz, FT.trunk_dw = fwd, uc, ut, dz, dw
         FF.color_fwd_f32, FF.color_bwd_f32 = cfwd, cbwd
+        FF.color_fwd, FF.color_bwd = cfwd16, cbwd16
     return calls
 
 
@@ -1403,6 +1442,9 @@ def trunk_text(r) -> str:
 # '12' fit step, one f32 'full' and 'pallas' step and one f32 request
 # (record_trunk_calls, filled by the f32 and fit phases)
 TRUNK32_CALLS = {}
+# the bf16 color net's calls of a request and each bf16 step mode
+# (record_trunk_calls, filled by the fused trunk phase)
+COLOR16_CALLS = {}
 # The f32 backward's calls (trunk_ut, trunk_dz) of one f32 'full',
 # 'full_nocolor' and 'pallas' step and one '12' fit step (the same
 # recordings; the 'full_nocolor' step's only here)
@@ -2152,7 +2194,7 @@ def color32_inputs(torch, dev, nets, m):
     gen = torch.Generator(device=dev).manual_seed(m + 7)
     cx2 = torch.randn((m, meta.Fp + meta.Gp), device=dev, generator=gen)
     dcolor = torch.randn((m, 3), device=dev, generator=gen)
-    color, acts = FF.color_fwd_f32_plain(e, cx2, m, pack.cws, pack.cbs, meta)
+    color, acts = FF.color_fwd_plain(e, cx2, m, pack.cws, pack.cbs, meta)
     packed = torch.zeros((m, 8), device=dev)
     packed[:, 4:7] = color
     cacts = FT.planes(len(acts), m, pack.cws[0].shape[1], dev, f32)
@@ -2254,9 +2296,9 @@ def color32_readings(torch, dev, nets, calls, timed: bool = True):
 
         def plain(fwd=fwd, flag=flag, m=m, x=x):
             if fwd:
-                color, acts = FF.color_fwd_f32_plain(x.e, x.cx2, m, pack.cws, pack.cbs, meta)
+                color, acts = FF.color_fwd_plain(x.e, x.cx2, m, pack.cws, pack.cbs, meta)
                 return [color] + (acts if flag else [])
-            dx, dzs = FF.color_bwd_f32_plain(m, pack.cws, meta, x.packed, x.dcolor, x.cacts)
+            dx, dzs = FF.color_bwd_plain(m, pack.cws, meta, x.packed, x.dcolor, x.cacts)
             return [dx] + (dzs if flag else [])
 
         o1, o2, sp = fresh(), fresh(), fresh()
@@ -2321,6 +2363,206 @@ def color32_text(r) -> str:
             f"{all(c[0] for c in r.checks)} (the worst: {worst}); a rerun's bits {r.same}; "
             f"L2 vs f64 worst {r.worst_k:.2e} ({r.worst_what}), the split launches' "
             f"{r.worst_s:.2e} (tol {TOL_TRUNK32_VS_SPLIT:g}x)")
+    if r.ms is not None:
+        text += (f"; the kernel {r.ms:.4f} ms against the split launches' {r.split_ms:.4f} ms "
+                 f"({r.ms / r.split_ms:.2f} of it; in turns "
+                 + ", ".join(f"{t:.4f}" for t in r.turns)
+                 + f"), plain {r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms ({r.bound_by}): "
+                 f"{r.bound_ms / r.ms:.2f} of it")
+    return text + ("" if r.ok else " FAIL")
+
+
+def color16_calls(calls):
+    """The recorded bf16 color launches (record_trunk_calls) as (kind, m,
+    flag): ("cfwd16", m, keep) and ("cbwd16", m, dz)."""
+    return [c[:3] for c in calls if c[0] in ("cfwd16", "cbwd16")]
+
+
+def ragged_color16_calls():
+    """The bf16 color pair at sizes the main path's leave out, each output
+    mode: the forward with and without the relu rows, the transpose with
+    and without the dz rows."""
+    return [(kind, m, flag) for m in (1, 63, 64, 65, 1001, 65613)
+            for kind in ("cfwd16", "cbwd16") for flag in (False, True)]
+
+
+def color16_inputs(torch, dev, nets, m):
+    """The bf16 color net's inputs at m points: e the bf16 embedding of
+    nets' first m points (hand_embed_kernel), seeded bf16 cx2 ([feat |
+    grad-PE]) and f32 dcolor, and the plain forward's sigmoid (packed[:,
+    4:7]) and bf16 relu rows (cacts, the planes of one tensor), which the
+    transpose reads."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+
+    pack = nets.fine
+    meta, bf16 = pack.meta, torch.bfloat16
+    e = torch.empty((m, meta.trunk_meta.Ep), device=dev, dtype=bf16)
+    FH.embed(FH._lib("fused_hand"), nets.pts, m, *nets.pose, meta.v_multires, meta.r_multires,
+             e, torch.cuda.current_stream(dev).cuda_stream)
+    gen = torch.Generator(device=dev).manual_seed(m + 7)
+    cx2 = torch.randn((m, meta.Fp + meta.Gp), device=dev, generator=gen).to(bf16)
+    dcolor = torch.randn((m, 3), device=dev, generator=gen)
+    color, acts = FF.color_fwd_plain(e, cx2, m, pack.cws, pack.cbs, meta)
+    packed = torch.zeros((m, 8), device=dev)
+    packed[:, 4:7] = color
+    cacts = FT.planes(len(acts), m, pack.cws[0].shape[1], dev, bf16)
+    for dst, a in zip(cacts, acts):
+        dst.copy_(a)
+    return SimpleNamespace(e=e, cx2=cx2, dcolor=dcolor, packed=packed, cacts=cacts)
+
+
+def sha256(torch, t) -> str:
+    """SHA-256 of a tensor's bytes (a contiguous copy on the host)."""
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def color16_readings(torch, dev, nets, calls, timed: bool = True):
+    """color_fwd_kernel ("cfwd16") and color_bwd_kernel ("cbwd16") at each
+    distinct call of `calls` (color16_calls), weighted by its count, on the
+    flagship's bf16 color net (trunk_nets) at color16_inputs: every output
+    (the color and with keep the relu rows; dx and with dz the dz rows in
+    f32 and bf16) into NaN-filled buffers against the plain versions on the
+    card under the kernel rule (TOL_MEDIAN, TOL_MAX of each output's
+    range), a second run's bits, and each output's SHA-256 against the
+    split launches' (fused_fine_full._color_fwd_split / _color_bwd_split:
+    one gemm_kernel a layer, color_dz_kernel first in the transpose) at the
+    same call; where bits move, the relative L2 of each to f64 (color64)
+    within TOL_TRUNK32_VS_SPLIT of the split's.  timed: ms of the kernel and
+    of the split launches in turns (kernel, split, split, kernel), of the
+    plain version, and the bound (bf16 operations of the unpadded
+    products; each input read once, each output written once)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nan, f32, bf16 = float("nan"), torch.float32, torch.bfloat16
+    pack = nets.fine
+    meta = pack.meta
+    n, H, top = meta.c_layers, pack.cws[0].shape[1], pack.cws[-1].shape[1]
+    widths = [w.shape[1] for w in pack.cws]
+    lib, blib = FF._lib(), FF._bwd_lib()
+    c_in = ([meta.emb_width + meta.d_out - 1 + 3 + 6 * meta.grad_L]
+            + [meta.c_hidden] * (meta.c_layers - 1))
+    c_out = [meta.c_hidden] * (meta.c_layers - 1) + [3]
+    w_bytes = nbytes([*pack.cws, *pack.cbs])
+    out = []
+    for (kind, m, flag), count in _tally(calls).items():
+        x = color16_inputs(torch, dev, nets, m)
+        fwd = kind == "cfwd16"
+
+        def planes(k, dtype, m=m):
+            return [p.fill_(nan) for p in FT.planes(k, m, H, dev, dtype)]
+
+        def fresh(fwd=fwd, flag=flag, m=m):
+            if fwd:
+                return SimpleNamespace(packed=torch.full((m, 8), nan, device=dev),
+                                       cacts=planes(n - 1, bf16) if flag else None)
+            return SimpleNamespace(dx=torch.full((m, meta.color_in), nan, device=dev),
+                                   cdz=planes(n, f32) if flag else None,
+                                   cdzb=planes(n, bf16) if flag else None)
+
+        def outs(o, fwd=fwd, flag=flag):
+            if fwd:
+                return [o.packed[:, 4:7]] + (list(o.cacts) if flag else [])
+            return [o.dx] + ([z[:, :w] for z, w in zip(o.cdz + o.cdzb, widths + widths)]
+                             if flag else [])
+
+        def fused(o, fwd=fwd, m=m, x=x):
+            if fwd:
+                FF.color_fwd(x.e, x.cx2, m, pack.cws, pack.cbs, meta, o.packed, o.cacts, stream)
+            else:
+                FF.color_bwd(m, pack.cws, pack.cwts, meta, x.packed, x.dcolor, x.cacts, o.dx,
+                             o.cdz, o.cdzb, stream)
+
+        def split(o, fwd=fwd, m=m, x=x):
+            if fwd:
+                FF._color_fwd_split(lib, x.e, x.cx2, m, pack, o.packed, stream, o.cacts)
+            else:   # the split launches form every dz row
+                if o.cdz is None:
+                    o.cdz, o.cdzb = planes(n, f32), planes(n, bf16)
+                FF._color_bwd_split(blib, m, pack, dict(e=x.e, cx2=x.cx2, cacts=x.cacts),
+                                    x.packed, x.dcolor, o.dx, o.cdz, stream, o.cdzb)
+
+        def plain(fwd=fwd, flag=flag, m=m, x=x):
+            if fwd:
+                color, acts = FF.color_fwd_plain(x.e, x.cx2, m, pack.cws, pack.cbs, meta)
+                return [color] + (acts if flag else [])
+            dx, dzs = FF.color_bwd_plain(m, pack.cws, meta, x.packed, x.dcolor, x.cacts)
+            return [dx] + (dzs + [z.to(bf16) for z in dzs] if flag else [])
+
+        o1, o2, sp = fresh(), fresh(), fresh()
+        fused(o1)
+        fused(o2)
+        split(sp)
+        want = plain()
+        ref = color64(torch, m, pack, x)
+        ref = ref[0] if fwd else ref[1] + ref[1][1:]
+        torch.cuda.synchronize()
+        names = ((["color"] + [f"relu[{l}]" for l in range(n - 1)]) if fwd
+                 else (["dx"] + [f"dz[{l}]" for l in range(n)]
+                       + [f"dzb[{l}]" for l in range(n)]))
+        got = outs(o1)
+        spl = outs(sp, flag=flag or not fwd)[:len(got)]
+        checks = [compare(torch, w, g, p) for w, g, p in zip(names, got, want)]
+        rule = max(max(rd[0] / TOL_MEDIAN, rd[2] / TOL_MAX) / rd[3]
+                   for rd in (err_readings(torch, g, p) for g, p in zip(got, want)))
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            rule = float("inf")
+        same = all(torch.equal(a, b) for a, b in zip(got, outs(o2)))
+        moved = [w for w, g, q in zip(names, got, spl) if sha256(torch, g) != sha256(torch, q)]
+
+        def l2(g, r):
+            return float((g.double() - r).norm()) / max(float(r.norm()), 1e-300)
+
+        k_l2 = [l2(g, r) for g, r in zip(got, ref)]
+        s_l2 = [l2(g, r) for g, r in zip(spl, ref)]
+        worst_k, worst_s = max(k_l2), max(s_l2)
+        r = SimpleNamespace(kind=kind, m=m, flag=flag, count=count, checks=checks, same=same,
+                            rule=rule, moved=moved, worst_k=worst_k, worst_s=worst_s,
+                            worst_what=names[k_l2.index(worst_k)],
+                            max_abs=max(c[1] for c in checks),
+                            ok=(all(c[0] for c in checks) and same
+                                and (not moved or worst_k <= TOL_TRUNK32_VS_SPLIT * worst_s)),
+                            ms=None, split_ms=None, turns=None, plain_ms=None, bound_ms=None,
+                            bound_by=None)
+        if timed:
+            flops = 2.0 * m * sum(i * o for i, o in zip(c_in, c_out))
+            if fwd:
+                n_bytes = (2 * m * (x.e.shape[1] + x.cx2.shape[1]) + 4 * m * 3
+                           + (2 * m * (n - 1) * H if flag else 0) + w_bytes)
+            else:
+                n_bytes = (4 * m * 6 + 2 * m * (n - 1) * H + 4 * m * meta.color_in
+                           + (6 * m * ((n - 1) * H + top) if flag else 0) + w_bytes)
+            o = fresh()
+            turns = (cuda_ms(torch, lambda: fused(o), 5), cuda_ms(torch, lambda: split(sp), 5),
+                     cuda_ms(torch, lambda: split(sp), 5), cuda_ms(torch, lambda: fused(o), 5))
+            r.turns = turns
+            r.ms, r.split_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            r.plain_ms = cuda_ms(torch, plain, 2)
+            r.bound_ms, r.bound_by = bound(flops, n_bytes)
+            del o
+        del o1, o2, sp, want, ref, got, spl, x
+        torch.cuda.empty_cache()
+        out.append(r)
+    return out
+
+
+def color16_text(r) -> str:
+    """One reading of color16_readings as a log line."""
+    what = (f"{'forward' if r.kind == 'cfwd16' else 'transpose'} m {r.m} "
+            f"{'keep' if r.kind == 'cfwd16' else 'dz'} {r.flag}"
+            + (f" x{r.count}" if r.count > 1 else ""))
+    worst = max(r.checks, key=lambda c: c[1])[2]
+    text = (f"{what}: {len(r.checks)} outputs within the kernel rule: "
+            f"{all(c[0] for c in r.checks)} (the worst: {worst}); a rerun's bits {r.same}; "
+            f"SHA-256 against the split launches': "
+            + (f"moved for {', '.join(r.moved)}" if r.moved else "every output equal")
+            + f"; L2 vs f64 worst {r.worst_k:.2e} ({r.worst_what}), the split launches' "
+            f"{r.worst_s:.2e}")
     if r.ms is not None:
         text += (f"; the kernel {r.ms:.4f} ms against the split launches' {r.split_ms:.4f} ms "
                  f"({r.ms / r.split_ms:.2f} of it; in turns "
@@ -2767,8 +3009,8 @@ PROFILES = {}
 PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "hand_trunk_fwd_f32_kernel",
                     "hand_uchain_f32_kernel", "hand_trunk_ut_f32_kernel",
                     "hand_trunk_dz_f32_kernel", "trunk_dw_f32_kernel", "color_fwd_f32_kernel",
-                    "color_bwd_f32_kernel", "gemm_f32_kernel", "gemm_tn_f32_kernel",
-                    "gemm_kernel",
+                    "color_bwd_f32_kernel", "color_fwd_kernel", "color_bwd_kernel",
+                    "gemm_f32_kernel", "gemm_tn_f32_kernel", "gemm_kernel",
                     "uchain_seed_kernel", "fine_bwd_rev_kernel", "fine_rev_kernel",
                     "fine_bwd_emb_kernel", "color_dz_kernel", "pose_sum_kernel",
                     "reduce_partials_kernel", "copy_cols_kernel", "trunk_pack_e_kernel",
@@ -2782,6 +3024,14 @@ RETIRED_KERNELS = ("pose_partial_kernel", "pose_reduce_kernel")
 # may show them
 RETIRED_F32_KERNELS = ("gemm_tn_f32_kernel", "reduce_partials_kernel", "colsum_partial_kernel",
                        "gemm_f32_kernel", "color_dz_kernel")
+# the bf16 color net's split launches before its two (color_fwd_kernel,
+# color_bwd_kernel): no profiled bf16 request may show gemm_kernel or
+# color_dz_kernel, no bf16 'full' step color_dz_kernel; each of the two
+# shows the pair's kernels it runs
+RETIRED_BF16 = {f"one request of {REQUEST_RAYS} rays": (("gemm_kernel", "color_dz_kernel"),
+                                                        ("color_fwd_kernel",)),
+                f"one train step of {TRAIN_RAYS} rays": (("color_dz_kernel",),
+                                                         ("color_fwd_kernel", "color_bwd_kernel"))}
 
 
 def perpoint_bytes(kern: str, f32: bool):
@@ -2815,7 +3065,9 @@ def log_perpoint_profiles() -> list:
     per point, its bound there: launches x the path's points a launch x
     perpoint_bytes at PEAK_BYTES.  Returns what is wrong: a retired kernel
     (RETIRED_KERNELS) in a profile, the f32 dW sequence (RETIRED_F32_KERNELS)
-    in an f32 step's or a fit step's, or pose_sum_kernel in none."""
+    in an f32 step's or a fit step's, pose_sum_kernel in none, or the bf16
+    color net's split launches in a bf16 request's or step's profile
+    (RETIRED_BF16) or its pair missing there."""
     for kern in PERPOINT_KERNELS:
         parts = []
         for label, (groups, points) in PROFILES.items():
@@ -2837,6 +3089,10 @@ def log_perpoint_profiles() -> list:
               for kern in RETIRED_F32_KERNELS if any(kern in name for name in groups)]
     if not any("pose_sum_kernel" in name for groups, _ in PROFILES.values() for name in groups):
         wrong.append("pose_sum_kernel in no profile")
+    for label, (gone, shown) in RETIRED_BF16.items():
+        groups = PROFILES.get(label, ({}, None))[0]
+        wrong += [f"{kern} in {label}" for kern in gone if any(kern in n for n in groups)]
+        wrong += [f"{kern} not in {label}" for kern in shown if not any(kern in n for n in groups)]
     return wrong
 
 
@@ -4918,37 +5174,40 @@ def main() -> int:
 
     def serve():
         for k in (FH.KERNEL, FF.KERNEL, FH.GEMM, FH.GEMM_TN, FH.EMBED, FT.UCHAIN, FF.BWDREV,
-                  FT.TRUNK_FWD, FT.TRUNK_UCHAIN):
+                  FT.TRUNK_FWD, FT.TRUNK_UCHAIN, FF.COLOR_FWD, FF.COLOR_BWD, FF.COLOR_DZ):
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         color, wsum = render_full_image(render, params, view, H, W, chunk=REQUEST_RAYS)
         torch.cuda.synchronize()
         img_s = time.perf_counter() - t0
-        image_gemms = FH.GEMM.launches
+        image_colors, image_gemms = FF.COLOR_FWD.launches, FH.GEMM.launches
         from honerf_torch.camera import full_image_ndc_grid
 
         grid = full_image_ndc_grid(H, W, device=dev)
-        req_ms, req_gemms = [], []
+        req_ms, req_colors, req_gemms = [], [], []
         for i in range(N_REQUESTS):
             rays = grid[i * REQUEST_RAYS:(i + 1) * REQUEST_RAYS]
-            before = FH.GEMM.launches
+            before = FF.COLOR_FWD.launches, FH.GEMM.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             render(params, dict(view, rays_xy=rays))
             torch.cuda.synchronize()
             req_ms.append((time.perf_counter() - t0) * 1e3)
-            req_gemms.append(FH.GEMM.launches - before)
+            req_colors.append(FF.COLOR_FWD.launches - before[0])
+            req_gemms.append(FH.GEMM.launches - before[1])
         launches = {"K1": FH.KERNEL.launches, "K2": FF.KERNEL.launches,
-                    "GEMM": FH.GEMM.launches, "EMBED": FH.EMBED.launches,
-                    "TFWD": FT.TRUNK_FWD.launches, "TUCH": FT.TRUNK_UCHAIN.launches}
-        # the bf16 trunk runs as two fused launches a pass: no u-chain seed,
-        # and gemm_kernel only in the color net, 5 launches a K2 pass
-        stray_tn = FH.GEMM_TN.launches + FF.BWDREV.launches + FT.UCHAIN.launches
+                    "EMBED": FH.EMBED.launches, "TFWD": FT.TRUNK_FWD.launches,
+                    "TUCH": FT.TRUNK_UCHAIN.launches, "CFWD16": FF.COLOR_FWD.launches}
+        # the bf16 trunk runs as two fused launches a pass, the color net as
+        # one: no u-chain seed, no gemm_kernel, color_fwd_kernel once a K2
+        # pass
+        stray_tn = (FH.GEMM_TN.launches + FF.BWDREV.launches + FT.UCHAIN.launches
+                    + FH.GEMM.launches + FF.COLOR_BWD.launches + FF.COLOR_DZ.launches)
         n_rays = H * W
         passes = lambda rays: -(-rays * (rcfg.n_samples + rcfg.n_importance) // FF.CHUNK)  # noqa
-        want_image = 5 * sum(passes(min(REQUEST_RAYS, n_rays - r0))
-                             for r0 in range(0, n_rays, REQUEST_RAYS))
+        want_image = sum(passes(min(REQUEST_RAYS, n_rays - r0))
+                         for r0 in range(0, n_rays, REQUEST_RAYS))
         # what the render pays once per parameter snapshot (and each request
         # paid before the packs were kept)
         pack_ms = []
@@ -4960,16 +5219,18 @@ def main() -> int:
             pack_ms.append((time.perf_counter() - t0) * 1e3)
         for name, count in launches.items():
             rows.setdefault(name, {})["launches"] = count
-        rows["GEMM"]["image_launches"] = image_gemms
-        rows["GEMM"]["request_launches"] = req_gemms[0]
+        rows.setdefault("GEMM", {}).update(image_launches=image_gemms,
+                                           request_launches=req_gemms[0])
+        rows["CFWD16"].update(image_launches=image_colors, request_launches=req_colors[0])
         log(f"serve: image {H}x{W} = {n_rays} rays in {img_s * 1e3:.1f} ms "
             f"({n_rays / img_s:.1f} rays/s, {-(-n_rays // REQUEST_RAYS)} requests of "
             f"<= {REQUEST_RAYS} rays); requests of {REQUEST_RAYS} rays: "
             f"{', '.join(f'{m:.1f}' for m in req_ms)} ms "
             f"({REQUEST_RAYS / (sum(req_ms) / len(req_ms) / 1e3):.1f} rays/s); "
-            f"launches {launches} ({image_gemms} bf16 GEMMs in the image, {want_image} expected: "
-            f"the color net's 5 a K2 pass; a request's {req_gemms}, the uchain_seed_kernel's "
-            f"{FT.UCHAIN.launches}); packing the weights of one snapshot "
+            f"launches {launches} ({image_colors} color_fwd_kernel in the image, {want_image} "
+            f"expected: one a K2 pass; a request's {req_colors}; gemm_kernel "
+            f"{FH.GEMM.launches}, color_dz_kernel {FF.COLOR_DZ.launches}, the "
+            f"uchain_seed_kernel's {FT.UCHAIN.launches}); packing the weights of one snapshot "
             f"{', '.join(f'{m:.2f}' for m in pack_ms)} ms")
         ladder_pts = n_rays * (rcfg.n_samples + rcfg.n_importance
                                - rcfg.n_importance // rcfg.up_sample_steps)
@@ -4984,10 +5245,11 @@ def main() -> int:
         served.update(color=color, wsum=wsum, grid=grid)
         if not all(launches.values()) or stray_tn:
             raise AssertionError(f"a kernel of the render path did not launch: {launches} "
-                                 f"(dW GEMMs, reverse-chain transposes and seeds {stray_tn})")
-        if image_gemms != want_image or req_gemms != [5 * passes(REQUEST_RAYS)] * N_REQUESTS:
-            raise AssertionError(f"gemm_kernel launched {image_gemms} times in the image "
-                                 f"({want_image} expected) and {req_gemms} in the requests")
+                                 f"(GEMMs, reverse-chain transposes, seeds, color transposes "
+                                 f"{stray_tn})")
+        if image_colors != want_image or req_colors != [passes(REQUEST_RAYS)] * N_REQUESTS:
+            raise AssertionError(f"color_fwd_kernel launched {image_colors} times in the image "
+                                 f"({want_image} expected) and {req_colors} in the requests")
 
     phase("serve", serve)
 
@@ -5036,7 +5298,8 @@ def main() -> int:
                    "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "GEMM": FH.GEMM,
                    "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
                    "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "COPY": FT.COPY, "PACK": FT.PACK,
-                   "POSE": FF.POSE, "TFWD": FT.TRUNK_FWD, "TUCH": FT.TRUNK_UCHAIN}
+                   "POSE": FF.POSE, "TFWD": FT.TRUNK_FWD, "TUCH": FT.TRUNK_UCHAIN,
+                   "CFWD16": FF.COLOR_FWD, "CBWD16": FF.COLOR_BWD, "COLOR_DZ": FF.COLOR_DZ}
 
     def bwd_rules(label, mode, args):
         """K3's two rules on the mode's backward kernel: on the step's own
@@ -5124,15 +5387,22 @@ def main() -> int:
         assert finite, "a loss or gradient norm is not finite"
         assert moved > 0, "se3_refine did not move"
         idle = [k for k in expect if not launches[k]]
-        stray = [k for k in ("K2", "K3", "K5", "K6", "BWDREV", "PACK", "POSE", "UCHAIN")
+        stray = [k for k in ("K2", "K3", "K5", "K6", "BWDREV", "PACK", "POSE", "UCHAIN",
+                             "CFWD16", "CBWD16", "COLOR_DZ")
                  if k not in expect and launches[k]]
         assert not idle and not stray, (
             f"the {mode} train path launched {launches}: expected {expect} and no other fine "
             "pass kernel")
         # the pack: two a 'pallas' step (K5, K6); the pose sum: one a step
-        # of K3 (one pass of the step's 56,448 points)
+        # of K3 (one pass of the step's 56,448 points); gemm_kernel 17 a
+        # step in every mode (K3's or K6's backward chain); the bf16 color
+        # pair ('full' only) a forward for K2's pass and K3's recompute, a
+        # transpose for K3's, and no color_dz_kernel
         steps = TRAIN_WARMUP + n_steps
-        per_step = {"PACK": 2 if mode == "pallas" else 0, "POSE": 1 if mode != "pallas" else 0}
+        full = mode == "full"
+        per_step = {"PACK": 2 if mode == "pallas" else 0, "POSE": 1 if mode != "pallas" else 0,
+                    "GEMM": 17, "CFWD16": 2 if full else 0, "CBWD16": 1 if full else 0,
+                    "COLOR_DZ": 0}
         off = {k: launches[k] for k, n in per_step.items() if launches[k] != n * steps}
         assert not off, f"the {mode} train path's {steps} steps launched {off}: per step {per_step}"
         return launches
@@ -5140,9 +5410,14 @@ def main() -> int:
     def train():
         launches = train_run("train", "full", TRAIN_STEPS,
                              ("K1", "K2", "K3", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "TFWD",
-                              "TUCH", "BWDREV", "POSE"))
+                              "TUCH", "BWDREV", "POSE", "CFWD16", "CBWD16"))
+        rows.setdefault("CFWD16", {})["train_launches"] = launches["CFWD16"]
+        rows.setdefault("CBWD16", {})["launches"] = launches["CBWD16"]
         rows.setdefault("K3", {})["launches"] = launches["K3"]
-        rows.setdefault("GEMM", {})["train_launches"] = launches["GEMM"]
+        # the serve path launches no gemm_kernel: its count is the train
+        # step's (K3's backward chain)
+        rows.setdefault("GEMM", {}).update(launches=launches["GEMM"],
+                                           train_launches=launches["GEMM"])
         rows.setdefault("GEMM_TN", {})["launches"] = launches["GEMM_TN"]
         rows.setdefault("EMBED", {})["train_launches"] = launches["EMBED"]
         rows.setdefault("COLSUM", {})["launches"] = launches["COLSUM"]
@@ -5426,8 +5701,10 @@ def main() -> int:
         hand_trunk_fwd_kernel a chunk) at 1 to 262,144 points against
         fused_hand_sdf_plain, each call's CUDA graph nodes one embedding
         and one fused launch a chunk and no GEMM; a request's K2 call's
-        graph nodes: gemm_kernel 5 a pass (the color net), the fused pair
-        once a pass, no u-chain seed."""
+        graph nodes: color_fwd_kernel once a pass (the color net), the
+        fused pair once a pass, no gemm_kernel and no u-chain seed; the
+        bf16 color calls of each path, kept for phase "fused color bf16"
+        (COLOR16_CALLS)."""
         from honerf_torch.camera import full_image_ndc_grid
 
         nets = trunk_nets(torch, dev, fs)
@@ -5450,6 +5727,8 @@ def main() -> int:
             f"mismatches")
         groups, bad = {}, []
         for label, calls in recs.items():
+            COLOR16_CALLS[label] = color16_calls(calls)
+            calls = [c for c in calls if c[0] in ("fwd", "uc")]
             rs = groups[label] = trunk_readings(torch, dev, nets, calls)
             for r in rs:
                 log(f"fused trunk, {label}: {trunk_text(r)}")
@@ -5482,10 +5761,10 @@ def main() -> int:
         k2_passes = -(-pts_all.shape[0] // FF.CHUNK)
         count = {k: sum(k in x for x in nodes) for k in (
             "gemm_kernel", "hand_trunk_fwd_kernel", "hand_uchain_kernel", "uchain_seed_kernel",
-            "hand_embed_kernel")}
-        k2_good = count == {"gemm_kernel": 5 * k2_passes, "hand_trunk_fwd_kernel": k2_passes,
+            "hand_embed_kernel", "color_fwd_kernel")}
+        k2_good = count == {"gemm_kernel": 0, "hand_trunk_fwd_kernel": k2_passes,
                             "hand_uchain_kernel": k2_passes, "uchain_seed_kernel": 0,
-                            "hand_embed_kernel": k2_passes}
+                            "hand_embed_kernel": k2_passes, "color_fwd_kernel": k2_passes}
         log(f"fused trunk, K2 at a request's {pts_all.shape[0]} points: its CUDA graph: "
             f"{len(nodes)} nodes, {count} ({k2_passes} passes){'' if k2_good else ' FAIL'}")
         # the kernels line: a request's calls (K1's five and K2's eight) and
@@ -5526,6 +5805,89 @@ def main() -> int:
                                  f"or its launch counts: {[trunk_text(r) for r in bad]}")
 
     phase("fused trunk", fused_trunk)
+
+    def fused_color_bf16():
+        """The bf16 color net's two kernels (color_fwd_kernel,
+        color_bwd_kernel) alone at the calls one request and one bf16
+        'full' step make (recorded by phase "fused trunk") and at ragged
+        sizes: every output against the plain versions, the split
+        launches' bits (and f64 where they move) (color16_readings), timed
+        beside the split launches, the plain versions and the bounds; each
+        path's recorded calls (the forward once a pass of K2 and of K3's
+        recompute, the transpose once a pass of K3, with the dz rows)."""
+        bad = []
+        # (forward calls, transpose calls, the transpose's dz rows) a path makes
+        want_calls = {"'full' step": (2, 1, True), "request": (8, 0, False),
+                      "'full_nocolor' step": (0, 0, False), "'pallas' step": (0, 0, False)}
+        for label, (nf, nb, dz) in want_calls.items():
+            cs = COLOR16_CALLS.get(label)
+            fwd = [c for c in cs or () if c[0] == "cfwd16"]
+            bwd = [c for c in cs or () if c[0] == "cbwd16"]
+            good = (cs is not None and len(fwd) == nf and len(bwd) == nb
+                    and all(c[2] == dz for c in bwd) and sum(c[2] for c in fwd) == nb)
+            log(f"fused color bf16, {label}: {len(fwd)} forward calls "
+                f"({sum(c[2] for c in fwd)} keeping the relu rows), {len(bwd)} transpose calls "
+                f"(dz rows {dz}){'' if good else ' FAIL'}")
+            bad += [] if good else [f"{label}'s calls"]
+        nets = trunk_nets(torch, dev, fs)
+        groups = {}
+        for label in ("request", "'full' step"):
+            calls = COLOR16_CALLS.get(label)
+            if not calls:
+                bad.append(f"{label} not recorded")
+                continue
+            rs = groups[label] = color16_readings(torch, dev, nets, calls)
+            for r in rs:
+                log(f"fused color bf16, {label}: {color16_text(r)}")
+            t = {kind: weighted([r for r in rs if r.kind == kind],
+                                ("ms", "split_ms", "plain_ms", "bound_ms"))
+                 for kind in ("cfwd16", "cbwd16")}
+            pair = {k: sum(t[kind].get(k, 0.0) for kind in t)
+                    for k in ("ms", "split_ms", "plain_ms", "bound_ms")}
+            log(f"fused color bf16, {label}'s {sum(r.count for r in rs)} calls: "
+                + ", ".join(f"{name} {t[kind]['ms']:.4f} ms against the split launches' "
+                            f"{t[kind]['split_ms']:.4f} ms (bound {t[kind]['bound_ms']:.4f})"
+                            for kind, name in (("cfwd16", "color_fwd_kernel"),
+                                               ("cbwd16", "color_bwd_kernel")) if t[kind])
+                + f"; the pair {pair['ms']:.4f} ms against the split launches' "
+                f"{pair['split_ms']:.4f} ms ({pair['ms'] / pair['split_ms']:.2f} of it), bound "
+                f"{pair['bound_ms']:.4f} ms: {pair['bound_ms'] / pair['ms']:.2f} of it (the "
+                f"split's {pair['bound_ms'] / pair['split_ms']:.2f})")
+            bad += [color16_text(r) for r in rs if not r.ok]
+        for r in color16_readings(torch, dev, nets, ragged_color16_calls(), timed=False):
+            log(f"fused color bf16, ragged: {color16_text(r)}")
+            bad += [] if r.ok else [color16_text(r)]
+        every = [r for rs in groups.values() for r in rs]
+        moved = sorted({w for r in every for w in r.moved})
+        log(f"fused color bf16: outputs whose bits moved against the split launches at the "
+            f"recorded calls: {moved or 'none'}")
+        keys = ("ms", "split_ms", "plain_ms", "bound_ms")
+        for key, kern, kind in (("CFWD16", FF.COLOR_FWD, "cfwd16"),
+                                ("CBWD16", FF.COLOR_BWD, "cbwd16")):
+            mine = [r for r in every if r.kind == kind]
+            tot = {label: weighted([r for r in rs if r.kind == kind], keys)
+                   for label, rs in groups.items()}
+            step = tot.get("'full' step") or {}
+            rows[key] = dict(rows.get(key, {}), name=kern.name, route="cuda", source=kern.source,
+                             replaces=kern.replaces,
+                             max_abs_err=max((r.max_abs for r in mine), default=None),
+                             ms=step.get("ms"), plain_ms=step.get("plain_ms"),
+                             bound_ms=step.get("bound_ms"),
+                             bound_by=max(mine, key=lambda r: r.bound_ms or 0).bound_by
+                             if mine else None,
+                             library_ms=None, step_split_ms=step.get("split_ms"),
+                             bits_moved=sorted({w for r in mine for w in r.moved}))
+            if tot.get("request"):
+                rows[key].update({f"request_{k}": tot["request"][k]
+                                  for k in ("ms", "split_ms", "bound_ms")})
+        if bad:
+            raise AssertionError("the bf16 color net's pair disagrees with its plain versions, "
+                                 f"the split launches, its bits or its calls: {bad}")
+
+    if "fused trunk" not in failures:
+        phase("fused color bf16", fused_color_bf16)
+    else:
+        failures.append("fused color bf16")
 
     # -- 14-20. the fine pass's other kernel modes: 'pallas' (K5 / K6 on the
     # embedding) and 'full_nocolor' (K2 / K3 without the color net) --------
@@ -6012,7 +6374,7 @@ def main() -> int:
         failures.append("per-point profiles")
     log(gpu_line())
     order = ("K1", "K2", "K3", "K4", "K5", "K6", "TFWD", "TUCH", "TFWD32", "TUCH32", "TUT32",
-             "TDZ32", "TDW32", "CFWD32", "CBWD32", "GEMM",
+             "TDZ32", "TDW32", "CFWD32", "CBWD32", "CFWD16", "CBWD16", "GEMM",
              "GEMM_TN", "GEMM_F32", "GEMM_TN_F32", "EMBED", "COLSUM", "UCHAIN", "BWDREV",
              "COPY", "PACK", "POSE")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -6058,6 +6420,10 @@ def main() -> int:
                                 for k in ("ms", "split_ms", "bound_ms"))),
              "CBWD32": (("fit_launches", "step_split_ms", "worst_l2_f64", "split_worst_l2_f64")
                         + tuple(f"fit_{k}" for k in ("ms", "split_ms", "bound_ms"))),
+             "CFWD16": (("image_launches", "request_launches", "train_launches", "step_split_ms",
+                         "bits_moved")
+                        + tuple(f"request_{k}" for k in ("ms", "split_ms", "bound_ms"))),
+             "CBWD16": ("step_split_ms", "bits_moved"),
              "COLSUM": ("f32_launches",),
              "GEMM_F32": ("pallas_launches", "request_launches"),
              "GEMM": ("image_launches", "request_launches", "train_launches"),

@@ -19,6 +19,8 @@ import torch
 
 from honerf_torch.utils.transforms import (
     angle_between,
+    clip,
+    maximum,
     rodrigues,
     rotate_axis_angle,
     signed_angle,
@@ -78,7 +80,7 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _norm_clip(v: torch.Tensor, eps: float = _EPS_MAT) -> torch.Tensor:
-    return torch.clamp(torch.sqrt(torch.sum(v * v, dim=-1) + 1e-24), min=eps)
+    return maximum(torch.sqrt(torch.sum(v * v, dim=-1) + 1e-24), eps)
 
 
 def _normalize(v: torch.Tensor, eps: float = _EPS_MAT) -> torch.Tensor:
@@ -141,9 +143,8 @@ def kp3d_to_bones(kp3d: torch.Tensor):
     child = torch.as_tensor(_IDX_CHILD, device=kp3d.device)
     parent = torch.as_tensor(_IDX_PARENT, device=kp3d.device)
     bones = kp3d[:, child] - kp3d[:, parent]
-    lengths = torch.clamp(
-        torch.sqrt(torch.sum(bones * bones, dim=2, keepdim=True) + 1e-24), min=_EPS_MAT
-    )
+    lengths = maximum(torch.sqrt(torch.sum(bones * bones, dim=2, keepdim=True) + 1e-24),
+                      _EPS_MAT)
     bones = bones / lengths
     translate = _eye(4, kp3d).repeat(B, 20, 1, 1)
     translate[:, :, :3, 3] = -kp3d[:, parent]
@@ -266,12 +267,12 @@ def compute_local_coordinate_system(bones: torch.Tensor) -> torch.Tensor:
         dot_xz = lbv2_xz[..., 2]
         dot_xz = torch.where(torch.abs(dot_xz) < 1e-6, torch.zeros_like(dot_xz), dot_xz)
         norm_xz = _norm_clip(lbv2_xz, _EPS_MAT)
-        dot_xz = torch.clamp(dot_xz / norm_xz, -1.0 + _EPS, 1.0 - _EPS)
+        dot_xz = clip(dot_xz / norm_xz, -1.0 + _EPS, 1.0 - _EPS)
         angle_xz = torch.arccos(dot_xz)
         angle_xz = torch.where(lbv2_xz[..., 0] + 1e-6 < 0, -angle_xz, angle_xz)
 
         dot_yz = torch.sum(lbv2_xz * lbv2, dim=-1) / norm_xz
-        dot_yz = torch.clamp(dot_yz, -1.0 + _EPS, 1.0 - _EPS)
+        dot_yz = clip(dot_yz, -1.0 + _EPS, 1.0 - _EPS)
         angle_yz = torch.arccos(dot_yz)
         angle_yz = torch.where(lbv2[..., 1] + 1e-6 < 0, -angle_yz, angle_yz)
 
@@ -308,12 +309,12 @@ def compute_rot_angles(local_coords: torch.Tensor) -> torch.Tensor:
     norm_xz = _norm_clip(proj_xz, _EPS_MAT)
     dot_xz = proj_xz[..., 2]
     dot_xz = torch.where(torch.abs(dot_xz) < 1e-6, torch.zeros_like(dot_xz), dot_xz)
-    dot_xz = torch.clamp(dot_xz / norm_xz, -1 + _EPS, 1 - _EPS)
+    dot_xz = clip(dot_xz / norm_xz, -1 + _EPS, 1 - _EPS)
     angle_xz = torch.arccos(dot_xz)
     angle_xz = torch.where(proj_xz[..., 0] + 1e-6 < 0, -angle_xz, angle_xz)
 
     dot_yz = torch.sum(proj_xz * local_coords, dim=-1) / norm_xz
-    dot_yz = torch.clamp(dot_yz, -1 + _EPS, 1 - _EPS)
+    dot_yz = clip(dot_yz, -1 + _EPS, 1 - _EPS)
     angle_yz = torch.arccos(dot_yz)
     angle_yz = torch.where(local_coords[..., 1] + 1e-6 > 0, -angle_yz, angle_yz)
     return torch.stack([angle_xz, angle_yz], dim=-1)

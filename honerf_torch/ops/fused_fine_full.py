@@ -38,11 +38,12 @@ enter where the color net's input cotangent entered.
 On CUDA tensors the forward launches csrc/fused_fine_full.cu (K2) and the
 backward csrc/fused_fine_bwd.cu (K3): every mode, with or without the
 color net and weight gradients, on a bf16 or an f32 trunk
-(`FineMeta.dtype`; the confs' trunks are f32 as written); the f32 color
-net runs as two launches of csrc/color_fused_f32.cu (`color_fwd_f32`,
-`color_bwd_f32`), the bf16 one a GEMM a layer; on CPU tensors both run
-their plain versions (`hand_fine_color_plain`,
-`hand_fine_color_plain_bwd`) in either dtype.
+(`FineMeta.dtype`; the confs' trunks are f32 as written); the color net
+runs as two launches, its forward and its transpose: csrc/color_fused.cu
+in bf16 (`color_fwd`, `color_bwd`), csrc/color_fused_f32.cu in f32
+(`color_fwd_f32`, `color_bwd_f32`); on CPU tensors both run their plain
+versions (`hand_fine_color_plain`, `hand_fine_color_plain_bwd`) in either
+dtype.
 
 What bounds the kernels on an H100 and how their design answers that:
 the notes at the top of the two .cu files; their times: PERF.md.
@@ -88,17 +89,25 @@ BWDREV = _build.Kernel(
 POSE = _build.Kernel(
     "pose_sum_kernel", "honerf_torch/ops/csrc/fused_fine_bwd.cu",
     "honerf_tpu/ops/fused_fine_full.py:1650")
-# The f32 color net in two launches (csrc/color_fused_f32.cu): the f32 mode
-# of `_color_fwd_block` inside K2's pallas_call (and K3's recompute), and of
-# `_color_bwd_block` inside K3's
+# The color net in two launches (csrc/color_fused.cu in bf16,
+# csrc/color_fused_f32.cu in f32): the mode of `_color_fwd_block` inside
+# K2's pallas_call (and K3's recompute), and of `_color_bwd_block` inside
+# K3's
+COLOR_FWD = _build.Kernel(
+    "color_fwd_kernel", "honerf_torch/ops/csrc/color_fused.cu",
+    "honerf_tpu/ops/fused_fine_full.py:1556")
+COLOR_BWD = _build.Kernel(
+    "color_bwd_kernel", "honerf_torch/ops/csrc/color_fused.cu",
+    "honerf_tpu/ops/fused_fine_full.py:1650")
 COLOR_FWD_F32 = _build.Kernel(
     "color_fwd_f32_kernel", "honerf_torch/ops/csrc/color_fused_f32.cu",
     "honerf_tpu/ops/fused_fine_full.py:1556")
 COLOR_BWD_F32 = _build.Kernel(
     "color_bwd_f32_kernel", "honerf_torch/ops/csrc/color_fused_f32.cu",
     "honerf_tpu/ops/fused_fine_full.py:1650")
-# the bf16 color transpose's seed dz = s (1 - s) dcolor (and the f32 split
-# launches'), inside K3's pallas_call's body
+# the color transpose's seed dz = s (1 - s) dcolor, inside K3's
+# pallas_call's body: the split launches' only (_color_bwd_split), which no
+# main path runs
 COLOR_DZ = _build.Kernel(
     "color_dz_kernel", "honerf_torch/ops/csrc/fused_fine_bwd.cu",
     "honerf_tpu/ops/fused_fine_full.py:1650")
@@ -378,18 +387,22 @@ def _color_transpose(meta: FineMeta, dz, masks, cws):
     return da, dzs
 
 
-def _color_bwd_block(meta: FineMeta, zs, acts, cws, dcolor, want_dw: bool):
-    """Transpose of the color MLP at cotangent dcolor (B, 3) -> (dx,
-    dcws, dcbs); want_dw=False skips the weight gradients."""
+def _color_bwd_block(meta: FineMeta, color, acts, cws, dcolor, want_dw: bool):
+    """Transpose of the color MLP at cotangent dcolor (B, 3) in JAX's
+    res_stash form: the forward's sigmoid `color` (B, 3) read back, the
+    relu masks from its kept activations acts = [x, a_1 .. a_{n-1}] (a_l >
+    0; x, the rounded input, is read only for dW) -> (dx, dcws, dcbs, [dz_0
+    .. dz_{n-1}]); want_dw=False skips the weight gradients."""
     tm = meta.trunk_meta
     n = meta.c_layers
-    sig = torch.sigmoid(zs[-1])
-    dz = sig * (1.0 - sig) * torch.nn.functional.pad(dcolor, (0, sig.shape[1] - 3))
-    dx, dzs = _color_transpose(meta, dz, [z > 0.0 for z in zs[:-1]], cws)
+    pad = cws[-1].shape[1] - 3
+    s = torch.nn.functional.pad(color, (0, pad))
+    dz = s * (1.0 - s) * torch.nn.functional.pad(dcolor, (0, pad))
+    dx, dzs = _color_transpose(meta, dz, [a > 0.0 for a in acts[1:n]], cws)
     if not want_dw:
-        return dx, [None] * n, [None] * n
+        return dx, [None] * n, [None] * n, dzs
     return (dx, [FT._mm_tn(tm, acts[l], dzs[l]) for l in range(n)],
-            [dzs[l].sum(0) for l in range(n)])
+            [dzs[l].sum(0) for l in range(n)], dzs)
 
 
 def _transpose_head(st, ch, rotT, t3):
@@ -534,12 +547,12 @@ def _fine_bwd_block(meta: FineMeta, p, rotT, off, cut, pack: FinePack, cts, want
     (63,), dws, dbs, dcws, dcbs); g_color as _fine_fwd_block's."""
     tm = meta.trunk_meta
     E, Ep, F = meta.emb_width, tm.Ep, meta.d_out - 1
-    _o, g, _c, (st, u, chain, trunk_fwd, zs, acts) = _fine_fwd_block(
+    _o, g, color, (st, u, chain, trunk_fwd, _zs, acts) = _fine_fwd_block(
         meta, p, rotT, off, cut, pack, residuals=True, g_color=g_color)
     if meta.with_color:
         dsdf, dg, dcolor = cts
         # 0. color transpose -> cotangents on e, the features and the grad-PE
-        dx, dcws, dcbs = _color_bwd_block(meta, zs, acts, pack.cws, dcolor, want_dw)
+        dx, dcws, dcbs, _ = _color_bwd_block(meta, color, acts, pack.cws, dcolor, want_dw)
         de_ext = dx[:, :E]
         dg = dg + _gpe_transpose(meta, g if g_color is None else g_color, dx[:, Ep + meta.Fp:])
         dout = dx.new_zeros((p.shape[0], tm.Op))
@@ -847,9 +860,28 @@ def _cf32lib():
     return lib
 
 
-def _check_color_f32(meta: FineMeta, cws) -> None:
-    if meta.dtype != "f32" or not meta.with_color or any(w.dtype != torch.float32 for w in cws):
-        raise ValueError("the fused color kernels take an f32 pack with the color net")
+def _cf16lib():
+    """The library of csrc/color_fused.cu (the bf16 color net's two
+    kernels)."""
+    lib = _build.load("color_fused")
+    if not getattr(lib, "_honerf_cf16_typed", False):
+        lib.honerf_color_fwd.argtypes = [
+            _P, _I, _I, _P, _I, _I, _I, _I,  # e, lde, Ep, cx2, ldx, X, M, n_layers
+            _P, _P, _P, _P,                  # ws, rows, cols, bs
+            _P, _I, _P, _I, _P]              # color, ldcolor, acts, ldact, stream
+        lib.honerf_color_bwd.argtypes = [
+            _I, _I, _P, _P, _P,              # M, n_layers, wts, in_cols, out_cols
+            _P, _I, _P, _I, _P, _I,          # s, lds, dcolor, lddc, acts, ldact
+            _P, _I, _P, _P, _I, _I, _P]      # dx, lddx, dzf, dzb, lddz, lddzb, stream
+        lib.honerf_color_fwd.restype = lib.honerf_color_bwd.restype = _I
+        lib._honerf_cf16_typed = True
+    return lib
+
+
+def _check_color(meta: FineMeta, cws, dtype: str) -> None:
+    want = torch.float32 if dtype == "f32" else torch.bfloat16
+    if meta.dtype != dtype or not meta.with_color or any(w.dtype != want for w in cws):
+        raise ValueError(f"the fused color kernels take a {dtype} pack with the color net")
 
 
 def _check_packed(packed, m: int) -> None:
@@ -858,13 +890,44 @@ def _check_packed(packed, m: int) -> None:
         raise ValueError("packed: f32 rows of 8 contiguous columns, at least m of them")
 
 
-def color_fwd_f32_plain(e, cx2, m: int, cws, cbs, meta: FineMeta):
-    """color_fwd_f32_kernel's function in plain PyTorch (_color_fwd_block
-    in f32) on the first m rows of [e[:, :Ep] | cx2[:, :Fp + Gp]]: (color
-    (m, 3), the relu rows [relu(z_l) for l < n - 1] (m, H))."""
+def color_fwd_plain(e, cx2, m: int, cws, cbs, meta: FineMeta):
+    """color_fwd_kernel's (bf16) or color_fwd_f32_kernel's (f32) function in
+    plain PyTorch (_color_fwd_block in the meta's dtype: the operands
+    rounded to it, f32 sums) on the first m rows of [e[:, :Ep] | cx2[:, :Fp
+    + Gp]]: (color (m, 3) f32, the relu rows [relu(z_l) for l < n - 1] (m,
+    H) in the meta's dtype)."""
     x = torch.cat([e[:m, :meta.trunk_meta.Ep], cx2[:m, :meta.Fp + meta.Gp]], 1)
     color, _zs, acts = _color_fwd_block(meta, x, cws, cbs, residuals=True)
-    return color, acts[1:]
+    return color, [a.to(FT._cast(meta.trunk_meta)) for a in acts[1:]]
+
+
+def color_fwd(e, cx2, m: int, cws, cbs, meta: FineMeta, packed, cacts=None, stream=None) -> None:
+    """The bf16 color net's forward on m points (one launch:
+    csrc/color_fused.cu's color_fwd_kernel): packed[:m, 4:7] (f32, rows of
+    8) = the sigmoid of the last layer on [e[:, :Ep] | cx2] (bf16) and,
+    with cacts (K3's recompute: the planes of one bf16 tensor),
+    cacts[l][:m] = bf16(relu(z_l)) for l < n - 1.  On a CPU e it writes
+    color_fwd_plain's rows and launches nothing."""
+    _check_color(meta, cws, "bf16")
+    _check_packed(packed, m)
+    n, bf16 = meta.c_layers, torch.bfloat16
+    if e.device.type == "cpu":
+        color, acts = color_fwd_plain(e, cx2, m, cws, cbs, meta)
+        packed[:m, 4:7] = color
+        for dst, a in zip(cacts or (), acts):
+            dst[:m] = a
+        return
+    Ep, X = meta.trunk_meta.Ep, meta.Fp + meta.Gp
+    lde = FT._check_rows("e", [e], bf16, m, Ep)
+    ldx = FT._check_rows("cx2", [cx2], bf16, m, X)
+    ldact = (FT._check_rows("cacts", list(cacts[:n - 1]), bf16, m, cws[0].shape[1])
+             if cacts is not None else 0)
+    COLOR_FWD.launches += 1
+    _build.check(_cf16lib().honerf_color_fwd(
+        e.data_ptr(), lde, Ep, cx2.data_ptr(), ldx, X, m, n, FT._ptrs(cws),
+        FT._ints([w.shape[0] for w in cws]), FT._ints([w.shape[1] for w in cws]), FT._ptrs(cbs),
+        packed[:, 4:].data_ptr(), packed.stride(0),
+        None if cacts is None else FT._ptrs(cacts[:n - 1]), ldact, stream), "honerf_color_fwd")
 
 
 def color_fwd_f32(e, cx2, m: int, cws, cbs, meta: FineMeta, packed, cacts=None,
@@ -874,12 +937,12 @@ def color_fwd_f32(e, cx2, m: int, cws, cbs, meta: FineMeta, packed, cacts=None,
     rows of 8) = the sigmoid of the last layer on [e[:, :Ep] | cx2] (f32)
     and, with cacts (K3's recompute: the planes of one f32 tensor),
     cacts[l][:m] = relu(z_l) for l < n - 1.  On a CPU e it writes
-    color_fwd_f32_plain's rows and launches nothing."""
-    _check_color_f32(meta, cws)
+    color_fwd_plain's rows and launches nothing."""
+    _check_color(meta, cws, "f32")
     _check_packed(packed, m)
     n, f32 = meta.c_layers, torch.float32
     if e.device.type == "cpu":
-        color, acts = color_fwd_f32_plain(e, cx2, m, cws, cbs, meta)
+        color, acts = color_fwd_plain(e, cx2, m, cws, cbs, meta)
         packed[:m, 4:7] = color
         for dst, a in zip(cacts or (), acts):
             dst[:m] = a
@@ -898,16 +961,59 @@ def color_fwd_f32(e, cx2, m: int, cws, cbs, meta: FineMeta, packed, cacts=None,
         "honerf_color_fwd_f32")
 
 
-def color_bwd_f32_plain(m: int, cws, meta: FineMeta, packed, dcolor, cacts):
-    """color_bwd_f32_kernel's function in plain PyTorch on the first m
-    points: dz = s (1 - s) dcolor on the last layer's columns (s =
-    packed[:, 4:7], the forward's sigmoid), then _color_transpose with the
-    masks cacts[l] > 0 (JAX's res_stash form of _color_bwd_block) ->
-    (dx (m, color_in), [dz_0 .. dz_{n-1}])."""
-    pad = cws[-1].shape[1] - 3
-    s = torch.nn.functional.pad(packed[:m, 4:7], (0, pad))
-    dz = s * (1.0 - s) * torch.nn.functional.pad(dcolor[:m], (0, pad))
-    return _color_transpose(meta, dz, [a[:m] > 0.0 for a in cacts[:meta.c_layers - 1]], cws)
+def color_bwd_plain(m: int, cws, meta: FineMeta, packed, dcolor, cacts):
+    """color_bwd_kernel's (bf16) or color_bwd_f32_kernel's (f32) function
+    in plain PyTorch on the first m points: dz = s (1 - s) dcolor on the
+    last layer's columns (s = packed[:, 4:7], the forward's sigmoid), then
+    _color_transpose with the masks cacts[l] > 0 (JAX's res_stash form of
+    _color_bwd_block; each dz rounded to the meta's dtype before its
+    product) -> (dx (m, color_in), [dz_0 .. dz_{n-1}], f32)."""
+    acts = [None] + [a[:m] for a in cacts[:meta.c_layers - 1]]
+    dx, _, _, dzs = _color_bwd_block(meta, packed[:m, 4:7], acts, cws, dcolor[:m], False)
+    return dx, dzs
+
+
+def color_bwd(m: int, cws, cwts, meta: FineMeta, packed, dcolor, cacts, dx, cdz=None, cdzb=None,
+              stream=None) -> None:
+    """The bf16 color net's transpose on m points (one launch:
+    csrc/color_fused.cu's color_bwd_kernel): dx[:m, :color_in] (f32) and,
+    with cdz and cdzb (weight gradients asked: the planes of one f32 and of
+    one bf16 tensor), layer l's dz into cdz[l][:m, :out_l] and bf16(dz)
+    into cdzb[l], from the forward's sigmoid packed[:, 4:7], dcolor (>= m,
+    3) f32 and the kept relu rows cacts[l] (bf16, l < n - 1); cwts = the
+    pack's transposed weights (W_l^T).  On a CPU dx it writes
+    color_bwd_plain's rows and launches nothing."""
+    _check_color(meta, cws, "bf16")
+    _check_packed(packed, m)
+    n, f32, bf16 = meta.c_layers, torch.float32, torch.bfloat16
+    if (cdz is None) != (cdzb is None):
+        raise ValueError("the dz rows come in both types or not at all")
+    if dx.device.type == "cpu":
+        d, dzs = color_bwd_plain(m, cws, meta, packed, dcolor, cacts)
+        dx[:m, :meta.color_in] = d
+        for dst, dstb, z in zip(cdz or (), cdzb or (), dzs):
+            dst[:m, :z.shape[1]] = z
+            dstb[:m, :z.shape[1]] = z
+        return
+    H = cws[0].shape[1]
+    if (dcolor.dtype != f32 or dcolor.dim() != 2 or dcolor.shape[1] != 3
+            or dcolor.stride(1) != 1 or dcolor.shape[0] < m):
+        raise ValueError("dcolor: f32 rows of 3 contiguous columns, at least m of them")
+    if cwts is None or [tuple(w.shape) for w in cwts] != [tuple(w.shape[::-1]) for w in cws]:
+        raise ValueError("cwts: the transposed color weights of a pack made on the card")
+    ldact = FT._check_rows("cacts", list(cacts[:n - 1]), bf16, m, H)
+    lddx = FT._check_rows("dx", [dx], f32, m, meta.color_in)
+    lddz = lddzb = 0
+    if cdz is not None:
+        lddz = FT._check_rows("cdz", list(cdz[:n]), f32, m, H)
+        lddzb = FT._check_rows("cdzb", list(cdzb[:n]), bf16, m, H)
+    COLOR_BWD.launches += 1
+    _build.check(_cf16lib().honerf_color_bwd(
+        m, n, FT._ptrs(cwts), FT._ints([w.shape[0] for w in cws]),
+        FT._ints([w.shape[1] for w in cws]), packed[:, 4:].data_ptr(), packed.stride(0),
+        dcolor.data_ptr(), dcolor.stride(0), FT._ptrs(cacts[:n - 1]), ldact, dx.data_ptr(), lddx,
+        None if cdz is None else FT._ptrs(cdz[:n]), None if cdzb is None else FT._ptrs(cdzb[:n]),
+        lddz, lddzb, stream), "honerf_color_bwd")
 
 
 def color_bwd_f32(m: int, cws, meta: FineMeta, packed, dcolor, cacts, dx, cdz=None,
@@ -917,13 +1023,13 @@ def color_bwd_f32(m: int, cws, meta: FineMeta, packed, dcolor, cacts, dx, cdz=No
     (f32) and, with cdz (weight gradients asked: the planes of one f32
     tensor), cdz[l][:m, :out_l] = dz_l for every layer, from the forward's
     sigmoid packed[:, 4:7], dcolor (>= m, 3) f32 and the kept relu rows
-    cacts[l] (l < n - 1).  On a CPU dx it writes color_bwd_f32_plain's rows
+    cacts[l] (l < n - 1).  On a CPU dx it writes color_bwd_plain's rows
     and launches nothing."""
-    _check_color_f32(meta, cws)
+    _check_color(meta, cws, "f32")
     _check_packed(packed, m)
     n, f32 = meta.c_layers, torch.float32
     if dx.device.type == "cpu":
-        d, dzs = color_bwd_f32_plain(m, cws, meta, packed, dcolor, cacts)
+        d, dzs = color_bwd_plain(m, cws, meta, packed, dcolor, cacts)
         dx[:m, :meta.color_in] = d
         for dst, z in zip(cdz or (), dzs):
             dst[:m, :z.shape[1]] = z
@@ -968,12 +1074,9 @@ def _fwd_chunk(lib, pts, m, rotT, off, cut, pack: FinePack, buf, packed, stream,
         meta.Fp, meta.grad_L, packed.data_ptr(), stream), "honerf_fine_rev")
     if not meta.with_color:
         return
-    # color net on [e | feat | grad-PE]: f32 one launch, bf16 one GEMM a layer
-    if meta.dtype == "f32":
-        color_fwd_f32(e, cx2, m, pack.cws, pack.cbs, meta, packed,
-                      buf["cacts"] if keep else None, stream)
-    else:
-        _color_fwd_gemms(lib, e, cx2, m, pack, buf["cacts"], packed, keep, stream)
+    # color net on [e | feat | grad-PE]: one launch in either dtype
+    fwd = color_fwd_f32 if meta.dtype == "f32" else color_fwd
+    fwd(e, cx2, m, pack.cws, pack.cbs, meta, packed, buf["cacts"] if keep else None, stream)
 
 
 def _color_fwd_gemms(lib, e, cx2, m, pack: FinePack, cacts, packed, keep, stream):
@@ -997,24 +1100,23 @@ def _color_fwd_gemms(lib, e, cx2, m, pack: FinePack, cacts, packed, keep, stream
 
 
 def _color_fwd_split(lib, e, cx2, m, pack: FinePack, packed, stream, cacts=None) -> None:
-    """color_fwd_f32's outputs as the split launches it replaced: one
-    gemm_f32_kernel a layer (cacts None: two alternating rows of their
-    own).  No main path calls it: chip_smoke.py holds the fused forward
-    against it at the same calls."""
-    if pack.meta.dtype != "f32":
-        raise ValueError("the split color launches are the f32 color net's")
+    """color_fwd's / color_fwd_f32's outputs as the split launches they
+    replaced: one gemm_kernel (bf16) or gemm_f32_kernel (f32) a layer
+    (cacts None: two alternating rows of their own).  No main path calls
+    it: chip_smoke.py holds the fused forward against it at the same
+    calls."""
     keep = cacts is not None
     if not keep:
-        cacts = [torch.empty((e.shape[0], pack.cws[0].shape[1]), device=e.device)
-                 for _ in range(2)]
+        cacts = [torch.empty((e.shape[0], pack.cws[0].shape[1]), device=e.device,
+                             dtype=pack.cws[0].dtype) for _ in range(2)]
     _color_fwd_gemms(lib, e, cx2, m, pack, cacts, packed, keep, stream)
 
 
 def _fwd_buffers(pack: FinePack, C: int, dev, keep: bool):
-    """K2's scratch for C points: the GEMM operand rows (e, the color
-    input's second part, the color activations) in the trunk dtype, z and
-    u in f32.  The f32 color net keeps its activations on chip: its rows
-    only with keep (K3's masks and dW)."""
+    """K2's scratch for C points: the operand rows (e, the color input's
+    second part, the color activations) in the trunk dtype, z and u in
+    f32.  The color net keeps its activations on chip: its rows only with
+    keep (K3's masks and dW)."""
     meta, tm = pack.meta, pack.meta.trunk_meta
     op, f32 = FT._cast(tm), torch.float32
     buf = FT.trunk_buffers(tm, C, dev, keep)
@@ -1023,9 +1125,8 @@ def _fwd_buffers(pack: FinePack, C: int, dev, keep: bool):
                u=torch.empty((C, tm.Ep), device=dev, dtype=f32))
     if meta.with_color:
         cHp = pack.cws[0].shape[1]
-        n_act = meta.c_layers - 1 if keep else (0 if meta.dtype == "f32" else 2)
         buf.update(cx2=torch.empty((C, meta.Fp + meta.Gp), device=dev, dtype=op),
-                   cacts=FT.planes(n_act, C, cHp, dev, op))
+                   cacts=FT.planes(meta.c_layers - 1 if keep else 0, C, cHp, dev, op))
     return buf
 
 
@@ -1083,9 +1184,13 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
         width = max(pack.cws[0].shape[1], Hp, Op) if color else max(Hp, Op)
         bw = FT.trunk_bwd_buffers(pack.ws, tm, C, dev, width, want_dw)
         dzf, dzb = bw["dzf"], bw["dzb"]
-        # f32 with dW: one dz row a color layer, which the pass's dW launch reads
-        cdz = (FT.planes(cn, C, pack.cws[0].shape[1], dev, f32)
-               if color and meta.dtype == "f32" and want_dw else None)
+        # with dW: one f32 dz row a color layer, which the pass's dW launch
+        # reads (bf16: the column sums; the bf16 rows cdzb, the TN GEMMs)
+        cdz = cdzb = None
+        if color and want_dw:
+            cdz = FT.planes(cn, C, pack.cws[0].shape[1], dev, f32)
+            if meta.dtype == "bf16":
+                cdzb = FT.planes(cn, C, pack.cws[0].shape[1], dev, torch.bfloat16)
         dgt = torch.empty((C, 4), device=dev, dtype=f32)
         pose_rows = torch.empty((C, 256), device=dev, dtype=f32)
         ws = torch.empty((FT._WS_FLOATS,), device=dev, dtype=f32)
@@ -1104,8 +1209,8 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
         e = buf["e"]
         if color:
             dsdf = cts[0][s:]
-            _color_bwd_cuda(blib, m, pack, buf, packed, cts[2][s:], dzf, dzb, dx, dcws, dcbs,
-                            want_dw, acc, ws, stream, cdz)
+            _color_bwd_cuda(blib, m, pack, buf, packed, cts[2][s:], dx, dcws, dcbs, acc, ws,
+                            stream, cdz, cdzb)
         else:
             # the cotangents on e and on the features where the color net's
             # input cotangent goes, dsdf beside them
@@ -1119,7 +1224,7 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
         fine_bwd_rev(blib, pts[s:], m, rotT, off, cut, meta, packed, dsdf, dg[s:], dx,
                      bw["du_b"], bw["du_s"], dgt, dzf[0], dzb[0], stream)
         crows = (FT.dw_color_rows(buf["cx2"], buf["cacts"], cdz, dcws, dcbs)
-                 if cdz is not None else None)
+                 if cdz is not None and meta.dtype == "f32" else None)
         FT.cuda_trunk_backward(blib, m, e, pack.ws, pack.wts, tm, buf, bw, dws, dbs, want_dw,
                                acc, ws, stream, crows)
         # embedding-forward transpose -> dp and the per-point pose rows
@@ -1139,67 +1244,67 @@ def _hand_fine_bwd_cuda(pts, rotT, off, cut, pack: FinePack, cts, want_dw: bool)
     return FineGrads(dp, drotT, doff, dws, dbs, dcws, dcbs)
 
 
-def _color_bwd_cuda(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, dcws, dcbs,
-                    want_dw, acc, ws, stream, cdz=None):
+def _color_bwd_cuda(blib, m, pack: FinePack, buf, packed, dcolor, dx, dcws, dcbs, acc, ws,
+                    stream, cdz=None, cdzb=None):
     """K3's color launches: dz = s (1 - s) dcolor, then per layer, top
     down, da = dz cW^T masked by the relu; the color input's cotangent
-    into dx.  f32: one launch (color_bwd_f32), with cdz (dW) layer l's dz
-    into cdz[l] for the pass's one dW launch (fused_fine.trunk_dw).  bf16:
-    _color_bwd_gemms."""
-    if pack.meta.dtype == "f32":
-        color_bwd_f32(m, pack.cws, pack.meta, packed, dcolor, buf["cacts"], dx, cdz, stream)
+    into dx: one launch in either dtype.  With dW (cdz given) layer l's dz
+    into cdz[l]: f32, for the pass's one dW launch (fused_fine.trunk_dw);
+    bf16, also bf16(dz) into cdzb[l], then each layer's dcW = a^T dz
+    (gemm_tn_kernel) and dcb = sum dz (colsum_partial_kernel), top down."""
+    meta = pack.meta
+    if meta.dtype == "f32":
+        color_bwd_f32(m, pack.cws, meta, packed, dcolor, buf["cacts"], dx, cdz, stream)
         return
-    _color_bwd_gemms(blib, m, pack, buf, packed, dcolor, dzf, dzb, dx, dcws, dcbs, want_dw, acc,
-                     ws, stream)
+    color_bwd(m, pack.cws, pack.cwts, meta, packed, dcolor, buf["cacts"], dx, cdz, cdzb, stream)
+    if cdz is None:
+        return
+    Ep, e, cx2 = meta.trunk_meta.Ep, buf["e"], buf["cx2"]
+    for l in range(meta.c_layers - 1, -1, -1):
+        width = pack.cws[l].shape[1]
+        if l == 0:
+            _tn(blib, e, Ep, Ep, cdzb[0], width, m, dcws[0], acc, ws, stream)
+            _tn(blib, cx2, cx2.stride(0), cx2.shape[1], cdzb[0], width, m, dcws[0][Ep:], acc,
+                ws, stream)
+        else:
+            a = buf["cacts"][l - 1]
+            _tn(blib, a, a.stride(0), a.shape[1], cdzb[l], width, m, dcws[l], acc, ws, stream)
+        _colsum(blib, cdz[l], width, m, dcbs[l], acc, ws, stream)
 
 
-def _color_bwd_split(blib, m, pack: FinePack, buf, packed, dcolor, dx, cdz, stream) -> None:
-    """color_bwd_f32's outputs (dx, every dz row into the planes cdz) as
-    the split launches it replaced: color_dz_kernel, then one
-    gemm_f32_kernel a layer.  No main path calls it: chip_smoke.py holds
-    the fused transpose against it at the same calls."""
-    if pack.meta.dtype != "f32":
-        raise ValueError("the split color launches are the f32 color net's")
-    _color_bwd_gemms(blib, m, pack, buf, packed, dcolor, None, None, dx, None, None, False, 0,
-                     None, stream, cdz)
+def _color_bwd_split(blib, m, pack: FinePack, buf, packed, dcolor, dx, cdz, stream,
+                     cdzb=None) -> None:
+    """color_bwd's / color_bwd_f32's outputs (dx, every dz row into the
+    planes cdz, and in bf16 bf16(dz) into cdzb) as the split launches they
+    replaced: color_dz_kernel, then one gemm_kernel (bf16) or
+    gemm_f32_kernel (f32) a layer.  No main path calls it: chip_smoke.py
+    holds the fused transpose against it at the same calls."""
+    if (cdzb is None) != (pack.meta.dtype == "f32"):
+        raise ValueError("the bf16 split launches write the dz rows in both types, f32's in one")
+    _color_bwd_gemms(blib, m, pack, buf, packed, dcolor, dx, cdz, cdzb, stream)
 
 
-def _color_bwd_gemms(blib, m, pack: FinePack, buf, packed, dcolor, dzf, dzb, dx, dcws, dcbs,
-                     want_dw, acc, ws, stream, cdz=None):
+def _color_bwd_gemms(blib, m, pack: FinePack, buf, packed, dcolor, dx, cdz, cdzb, stream):
     """The color transpose as color_dz_kernel and one GEMM a layer
-    (gemm_kernel, or gemm_f32_kernel on f32 operands).  bf16: dz
-    alternates between dzf / dzb[0] and [1], and with want_dw each layer's
-    dcW = a^T dz and dcb = sum dz follow it.  cdz given (the f32 split):
-    layer l's dz into cdz[l]."""
-    meta, Ep = pack.meta, pack.meta.trunk_meta.Ep
-    e, cx2 = buf["e"], buf["cx2"]
-    if cdz is not None:
-        dzf = dzb = [cdz[l] for l in range(meta.c_layers - 1, -1, -1)]
+    (gemm_kernel, or gemm_f32_kernel on f32 operands): layer l's dz into
+    cdz[l] (f32) and cdzb[l] (the operand type; f32: cdz itself)."""
+    meta = pack.meta
+    dzf = [cdz[l] for l in range(meta.c_layers - 1, -1, -1)]
+    dzb = dzf if cdzb is None else [cdzb[l] for l in range(meta.c_layers - 1, -1, -1)]
     color_dz = blib.honerf_color_dz_f32 if meta.dtype == "f32" else blib.honerf_color_dz
+    if dzf[0].stride(0) != dzb[0].stride(0):
+        raise ValueError("color_dz_kernel writes both dz rows with one row stride")
     COLOR_DZ.launches += 1
     _build.check(color_dz(packed.data_ptr(), dcolor.data_ptr(), m, dzf[0].data_ptr(),
                           dzb[0].data_ptr(), dzf[0].stride(0), pack.cws[-1].shape[1], stream),
                  "honerf_color_dz")
-    cur = 0
-    for l in range(meta.c_layers - 1, -1, -1):
+    for cur, l in enumerate(range(meta.c_layers - 1, -1, -1)):
         width = pack.cws[l].shape[1]
-        if want_dw and cdz is None:
-            if l == 0:
-                _tn(blib, e, Ep, Ep, dzb[cur], width, m, dcws[0], acc, ws, stream)
-                _tn(blib, cx2, cx2.stride(0), cx2.shape[1], dzb[cur], width, m,
-                    dcws[0][Ep:], acc, ws, stream)
-            else:
-                a = buf["cacts"][l - 1]
-                _tn(blib, a, a.stride(0), a.shape[1], dzb[cur], width, m, dcws[l], acc,
-                    ws, stream)
-            _colsum(blib, dzf[cur], width, m, dcbs[l], acc, ws, stream)
         wt = pack.cwts[l]                   # (out_pad, in_pad)
         if l > 0:
-            nxt = cur + 1 if cdz is not None else 1 - cur
             FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_MASK,
-                    dzb[nxt], dzb[nxt].stride(0), Cf=dzf[nxt],
+                    dzb[cur + 1], dzb[cur + 1].stride(0), Cf=dzf[cur + 1],
                     Act=buf["cacts"][l - 1], stream=stream)
-            cur = nxt
         else:
             FH.gemm(blib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, FH.EPI_F32,
                     dx, dx.stride(0), n_store=dx.shape[1], stream=stream)

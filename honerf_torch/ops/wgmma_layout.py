@@ -57,12 +57,19 @@ same layout and ring; tests/test_torch_color_f32_layout.py): the `CF32_*`
 constants, `cf32_fwd_phases` / `cf32_bwd_phases` their phase tables
 (`cf32_pieces` dx's pieces), `cf32_loads` both producers' slots (layer
 0's two K ranges of boxes), `cf32_smem_bytes` the blocks' shared memory.
+The bf16 color net in two launches (csrc/color_fused.cu: color_fwd_kernel,
+color_bwd_kernel, the bf16 trunk's tile and 3-stage ring;
+tests/test_torch_color_bf16_layout.py): the `CF16_*` constants, `cf16_fwd_phases`
+/ `cf16_bwd_phases` their phase tables (`cf16_pieces` dx's pieces),
+`cf16_loads` the producers' boxes a K step, `cf16_smem_bytes` the blocks'
+shared memory.
 
 Nothing on the main path calls the functions but `tn_workspace`; the CUDA
 side computes the same numbers (`honerf_gemm`, `honerf_gemm_tn`,
 `honerf_obj_sdf`, `honerf_trunk_fwd`, `honerf_trunk_uchain`,
 `honerf_trunk_fwd_f32`, `honerf_trunk_uchain_f32`, `honerf_trunk_ut_f32`,
-`honerf_trunk_dz_f32`, `honerf_color_fwd_f32`, `honerf_color_bwd_f32`).
+`honerf_trunk_dz_f32`, `honerf_color_fwd_f32`, `honerf_color_bwd_f32`,
+`honerf_color_fwd`, `honerf_color_bwd`).
 """
 
 from __future__ import annotations
@@ -189,6 +196,29 @@ CF32_SMEM_BYTES = TF32_SMEM_BYTES
 CF32_COLORS = 3        # the real columns of the last layer
 CF32_CONSTANTS = ("CF32_MAX_PHASES", "CF32_PIECE", "CF32_SMEM_BYTES", "CF32_COLORS")
 CF32_RELU, CF32_SIGMOID, CF32_MASK, CF32_DX = 0, 1, 2, 3
+
+# csrc/color_fused.cu: color_fwd_kernel, color_bwd_kernel (the bf16 color
+# net: the bf16 trunk's tile of 128 points and a 3-stage ring of an A box
+# and 64 k-rows of B)
+CF16_TILE = 128
+CF16_WIDTH = 256
+CF16_CHUNK_BYTES = CF16_TILE * 128
+CF16_ACT_BYTES = CF16_WIDTH // 64 * CF16_CHUNK_BYTES
+CF16_A_BYTES = CF16_CHUNK_BYTES
+CF16_B_BYTES = 64 * CF16_WIDTH * 2
+CF16_STAGE_BYTES = CF16_A_BYTES + CF16_B_BYTES
+CF16_STAGES = 3
+CF16_RING_BYTES = CF16_STAGES * CF16_STAGE_BYTES
+CF16_SMEM_BYTES = 1024 + CF16_ACT_BYTES + CF16_RING_BYTES + 2 * CF16_STAGES * 8
+CF16_MAX_LAYERS = 10
+CF16_MAX_PHASES = 24
+CF16_PIECE = 256       # dx columns a piece
+CF16_COLORS = 3        # the real columns of the last layer
+CF16_CONSTANTS = ("CF16_TILE", "CF16_WIDTH", "CF16_CHUNK_BYTES", "CF16_ACT_BYTES",
+                  "CF16_A_BYTES", "CF16_B_BYTES", "CF16_STAGE_BYTES", "CF16_STAGES",
+                  "CF16_RING_BYTES", "CF16_SMEM_BYTES", "CF16_MAX_LAYERS", "CF16_MAX_PHASES",
+                  "CF16_PIECE", "CF16_COLORS")
+CF16_RELU, CF16_SIGMOID, CF16_MASK, CF16_DX = 0, 1, 2, 3
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -883,6 +913,103 @@ def cf32_loads(phases, tile: int, small_rows: Sequence[int]) -> List[List[tuple]
                 slots.append((a, [(ph["layer"], TF32_BK * k, row0 + TF32_BOX_ROWS * j)
                                   for j in range(ph["width"] // TF32_BOX_ROWS)]))
         out.append(slots)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The bf16 color net in two launches (csrc/color_fused.cu)
+# ---------------------------------------------------------------------------
+
+def _cf16_phase(act_steps, box_steps0, box_steps1, layer, n0, boxes, kind) -> Dict[str, int]:
+    return dict(act_steps=act_steps, box_steps0=box_steps0, box_steps1=box_steps1, layer=layer,
+                n0=n0, boxes=boxes, kind=kind)
+
+
+def cf16_smem_bytes() -> Dict[str, int]:
+    """Both bf16 color kernels' shared memory by part (bytes): the bf16
+    tile (the activations, or the transpose's dz), the ring of stages (an
+    A box + 64 k-rows of up to 256 B columns)."""
+    return dict(align=1024, tile=CF16_ACT_BYTES, ring=CF16_RING_BYTES,
+                barriers=2 * CF16_STAGES * 8)
+
+
+def _cf16_check(n: int, hidden: int) -> None:
+    if not 2 <= n <= CF16_MAX_LAYERS or hidden <= 0 or hidden % 64 or hidden > CF16_WIDTH:
+        raise ValueError("not a bf16 fused color net")
+
+
+def cf16_fwd_phases(Ep: int, X: int, rows: Sequence[int],
+                    cols: Sequence[int]) -> List[Dict[str, int]]:
+    """honerf_color_fwd's phase table: one phase a layer, layer 0 over e's
+    Ep / 64 boxes (box map 0) then cx2's X / 64 (map 1), the others over
+    the tile; relu epilogues (m64n256k16), the last layer's 64 columns a
+    sigmoid (m64n64k16).  Raises ValueError where the entry point refuses
+    the shapes."""
+    n = len(rows)
+    H = cols[0]
+    _cf16_check(n, H)
+    if Ep <= 0 or Ep % 64 or X <= 0 or X % 64:
+        raise ValueError("not a bf16 fused color net")
+    out = []
+    for l in range(n):
+        last = l + 1 == n
+        if rows[l] != (Ep + X if l == 0 else H) or cols[l] != (64 if last else H):
+            raise ValueError(f"layer {l}: {rows[l]} x {cols[l]} is not a color layer")
+        out.append(_cf16_phase(0 if l == 0 else H // 64, Ep // 64 if l == 0 else 0,
+                               X // 64 if l == 0 else 0, l, 0, cols[l] // 64,
+                               CF16_SIGMOID if last else CF16_RELU))
+    return out
+
+
+def cf16_pieces(width: int) -> List[tuple]:
+    """dx's pieces: (n0, width), the widest of 256, 128, 64 that fits."""
+    out, n0 = [], 0
+    while n0 < width:
+        rem = width - n0
+        w = CF16_PIECE if rem >= CF16_PIECE else (128 if rem >= 128 else 64)
+        out.append((n0, w))
+        n0 += w
+    return out
+
+
+def cf16_bwd_phases(in_cols: Sequence[int], out_cols: Sequence[int]) -> List[Dict[str, int]]:
+    """honerf_color_bwd's phase table: layers n-1 .. 1 over the tile (the
+    top over the seed's 64 columns, one K step; the others over H / 64),
+    each masked into the tile in place; then dx's pieces (W_0^T's columns
+    from n0) over dz_0."""
+    n = len(in_cols)
+    H = out_cols[0]
+    _cf16_check(n, H)
+    if in_cols[0] <= 0 or in_cols[0] % 64 or any(
+            (l > 0 and in_cols[l] != H) or out_cols[l] != (64 if l + 1 == n else H)
+            for l in range(n)):
+        raise ValueError("not a bf16 fused color net")
+    out = [_cf16_phase(out_cols[l] // 64, 0, 0, l, 0, H // 64, CF16_MASK)
+           for l in range(n - 1, 0, -1)]
+    out += [_cf16_phase(H // 64, 0, 0, 0, n0, w // 64, CF16_DX)
+            for n0, w in cf16_pieces(in_cols[0])]
+    if len(out) > CF16_MAX_PHASES:
+        raise ValueError("too many phases")
+    return out
+
+
+def cf16_loads(phases, tile: int) -> List[List[tuple]]:
+    """Both bf16 color producers' TMA loads, per phase and K step: (A, [B
+    ...]) with A (box map, column, row) of map 0's boxes, then map 1's, or
+    None (A is the tile), each B (layer, column, k-row): the phase's boxes
+    of 64 columns from n0, B's k-row 64 k running on across the phase's
+    ranges."""
+    out = []
+    for ph in phases:
+        steps = []
+        for k in range(ph["act_steps"] + ph["box_steps0"] + ph["box_steps1"]):
+            kb = k - ph["act_steps"]
+            box = int(kb >= ph["box_steps0"])
+            a = ((box, 64 * (kb - ph["box_steps0"] if box else kb), CF16_TILE * tile)
+                 if kb >= 0 else None)
+            steps.append((a, [(ph["layer"], ph["n0"] + 64 * j, 64 * k)
+                              for j in range(ph["boxes"])]))
+        out.append(steps)
     return out
 
 

@@ -13,10 +13,21 @@ def _safe_len(v: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Te
     return torch.sqrt(torch.sum(v * v, dim=dim, keepdim=keepdim) + 1e-24)
 
 
+def maximum(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """max(x, lo) with jnp.maximum's gradient: half to each side where x
+    equals lo (torch.clamp passes all of it)."""
+    return torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype, device=x.device))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip: min(max(x, lo), hi), half the gradient at either bound."""
+    return torch.minimum(maximum(x, lo), torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+
+
 def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """v / max(|v|, eps) (torch.nn.functional.normalize semantics)."""
     n = _safe_len(v, dim=dim, keepdim=True)
-    return v / torch.clamp(n, min=eps)
+    return v / maximum(n, eps)
 
 
 def rot6d_to_matrix(rot_6d: torch.Tensor) -> torch.Tensor:
@@ -68,8 +79,8 @@ def rotate_axis_angle(v: torch.Tensor, k: torch.Tensor, theta: torch.Tensor) -> 
 
 def angle_between(v1: torch.Tensor, v2: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     """Numerically stable unsigned angle 2 atan2(|n1-n2|, |n1+n2|)."""
-    n1 = v1 / torch.clamp(_safe_len(v1, keepdim=True), min=eps)
-    n2 = v2 / torch.clamp(_safe_len(v2, keepdim=True), min=eps)
+    n1 = v1 / maximum(_safe_len(v1, keepdim=True), eps)
+    n2 = v2 / maximum(_safe_len(v2, keepdim=True), eps)
     return 2.0 * torch.atan2(_safe_len(n1 - n2), _safe_len(n1 + n2))
 
 

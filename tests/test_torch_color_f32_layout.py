@@ -18,8 +18,8 @@ against their plain versions there).  Here:
   * `ring_schedule` with pairs ends on both tables and finds a planted
     deadlock;
   * `cf32_model`, the tables in f64 on the tf32 split (a fresh sum a K
-    step, the running sum in f32), equals color_fwd_f32_plain /
-    color_bwd_f32_plain within 1e-5 of each output's range at M = 1, 63,
+    step, the running sum in f32), equals color_fwd_plain /
+    color_bwd_plain within 1e-5 of each output's range at M = 1, 63,
     64, 65 and 130;
   * the plain versions (color, dx and every dz row) against JAX's
     `_color_fwd_block` / `_color_bwd_block` (res_stash: the sigmoid read
@@ -275,10 +275,10 @@ def _close(got, want, tol=1e-5):
 @pytest.mark.parametrize("m", [1, 63, 64, 65, 130])
 def test_model_equals_plain(m):
     cws, cbs, e, cx2, dcolor = _color_case(FLAG, m, seed=m)
-    color, acts = FF.color_fwd_f32_plain(e, cx2, m, cws, cbs, FLAG)
+    color, acts = FF.color_fwd_plain(e, cx2, m, cws, cbs, FLAG)
     packed = torch.zeros((m, 8))
     packed[:, 4:7] = color
-    dx, dzs = FF.color_bwd_f32_plain(m, cws, FLAG, packed, dcolor, acts)
+    dx, dzs = FF.color_bwd_plain(m, cws, FLAG, packed, dcolor, acts)
     g_color, g_acts, g_dx, g_dzs = cf32_model(e, cx2, m, cws, cbs, FLAG, color, dcolor, acts)
     _close(g_color, color)
     for a, b in zip(g_acts, acts):
@@ -306,7 +306,7 @@ def _assert_jax_close(got, want, tol=1e-5):
 
 
 def test_plain_color_matches_jax_blocks():
-    """color_fwd_f32_plain's color and relu rows, then color_bwd_f32_plain's
+    """color_fwd_plain's color and relu rows, then color_bwd_plain's
     dx at the sigmoid it read back and the kept rows, against JAX's
     _color_fwd_block and _color_bwd_block (res_stash) on the same
     kernel-layout x, weights and dcolor at SMALL (color input 448, 16-wide
@@ -319,13 +319,13 @@ def test_plain_color_matches_jax_blocks():
     jw = [jnp.asarray(w.numpy()) for w in cws]
     jb = [jnp.asarray(b.numpy())[None] for b in cbs]
     j_color, _zs, j_acts = JFF._color_fwd_block(jm, jnp.asarray(x), jw, jb, with_residuals=True)
-    color, acts = FF.color_fwd_f32_plain(e, cx2, B, cws, cbs, SMALL)
+    color, acts = FF.color_fwd_plain(e, cx2, B, cws, cbs, SMALL)
     _assert_jax_close(color, np.asarray(j_color)[:, :3])
     for a, ja in zip(acts, j_acts[1:]):
         _assert_jax_close(a, ja)
     packed = torch.zeros((B, 8))
     packed[:, 4:7] = color
-    dx, dzs = FF.color_bwd_f32_plain(B, cws, SMALL, packed, dcolor, acts)
+    dx, dzs = FF.color_bwd_plain(B, cws, SMALL, packed, dcolor, acts)
     dcol = np.pad(dcolor.numpy(), ((0, 0), (0, 61)))
     sig8 = np.asarray(j_color)[:, :8]
     j_dx, _, _ = JFF._color_bwd_block(jm, jnp.asarray(x), jw, jb, jnp.asarray(dcol),
@@ -352,7 +352,7 @@ def test_cpu_wrappers_write_plain_rows_and_count_nothing():
     counters = (FF.COLOR_FWD_F32, FF.COLOR_BWD_F32, FF.COLOR_DZ, FH.GEMM_F32)
     before = [k.launches for k in counters]
     FF.color_fwd_f32(e, cx2, m, cws, cbs, SMALL, packed, cacts)
-    color, acts = FF.color_fwd_f32_plain(e, cx2, m, cws, cbs, SMALL)
+    color, acts = FF.color_fwd_plain(e, cx2, m, cws, cbs, SMALL)
     assert torch.equal(packed[:m, 4:7], color) and torch.isnan(packed[m:]).all()
     assert torch.isnan(packed[:, :4]).all() and torch.isnan(packed[:, 7]).all()
     for a, want in zip(cacts, acts):
@@ -362,7 +362,7 @@ def test_cpu_wrappers_write_plain_rows_and_count_nothing():
     for z in cdz:
         z.fill_(nan)
     FF.color_bwd_f32(m, cws, SMALL, packed, dcolor, cacts, dx, cdz)
-    p_dx, p_dzs = FF.color_bwd_f32_plain(m, cws, SMALL, packed, dcolor, cacts)
+    p_dx, p_dzs = FF.color_bwd_plain(m, cws, SMALL, packed, dcolor, cacts)
     assert torch.equal(dx[:m], p_dx) and torch.isnan(dx[m:]).all()
     for z, want in zip(cdz, p_dzs):
         assert torch.equal(z[:m, :want.shape[1]], want) and torch.isnan(z[m:]).all()

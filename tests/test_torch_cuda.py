@@ -2097,7 +2097,7 @@ def _color32_case(dev, m, sdf_kw=FULL, C=None, seed=6):
         return x
 
     e, cx2, dcolor = r(C, tm.Ep), r(C, meta.Fp + meta.Gp), r(C, 3)
-    color, acts = FF.color_fwd_f32_plain(e, cx2, m, pack.cws, pack.cbs, meta)
+    color, acts = FF.color_fwd_plain(e, cx2, m, pack.cws, pack.cbs, meta)
     packed = torch.full((C, 8), float("nan"), device=dev)
     packed[:m, 4:7] = color
     cacts = FT.planes(meta.c_layers - 1, C, pack.cws[0].shape[1], dev, torch.float32)
@@ -2124,7 +2124,7 @@ def _color32_outputs(dev, pack, C, fwd: bool, with_dz: bool = True):
 @pytest.mark.parametrize("m", COLOR32_M)
 def test_color_fwd_f32_matches_plain(dev, m, keep):
     """The color (packed[:, 4:7]) and with keep the four relu rows into
-    NaN-filled buffers against color_fwd_f32_plain under the f32 rule, the
+    NaN-filled buffers against color_fwd_plain under the f32 rule, the
     rest of packed untouched; one launch, no GEMM; a second run's bits."""
     pack, e, cx2, _, want_p, want_a = _color32_case(dev, m, C=m + 3)
     stream = torch.cuda.current_stream().cuda_stream
@@ -2155,10 +2155,10 @@ def test_color_fwd_f32_matches_plain(dev, m, keep):
 @pytest.mark.parametrize("m", COLOR32_M)
 def test_color_bwd_f32_matches_plain(dev, m, with_dz):
     """dx and with dW every layer's dz row into NaN-filled buffers against
-    color_bwd_f32_plain (at the same sigmoid and relu rows) under the f32
+    color_bwd_plain (at the same sigmoid and relu rows) under the f32
     rule; one launch, no GEMM or color_dz_kernel; a second run's bits."""
     pack, _, _, dcolor, packed, cacts = _color32_case(dev, m, C=m + 3)
-    want_dx, want_dz = FF.color_bwd_f32_plain(m, pack.cws, pack.meta, packed, dcolor, cacts)
+    want_dx, want_dz = FF.color_bwd_plain(m, pack.cws, pack.meta, packed, dcolor, cacts)
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
@@ -2192,7 +2192,7 @@ def test_color_f32_narrow_widths(dev, m):
     _f32_rule(packed[:, 4:7], want_p[:, 4:7])
     for a, w in zip(acts, cacts):
         _f32_rule(a, w)
-    want_dx, want_dz = FF.color_bwd_f32_plain(m, pack.cws, pack.meta, want_p, dcolor, cacts)
+    want_dx, want_dz = FF.color_bwd_plain(m, pack.cws, pack.meta, want_p, dcolor, cacts)
     _f32_rule(dx, want_dx)
     for z, w in zip(cdz, want_dz):
         _f32_rule(z[:, :w.shape[1]], w)
@@ -2276,3 +2276,205 @@ def test_color_f32_rejects_what_the_kernels_do_not_take(dev):
         FF.color_bwd_f32(70, pack.cws, meta, packed, dcolor, [c.double() for c in cacts], dx,
                          cdz, stream)
     assert (FF.COLOR_FWD_F32.launches, FF.COLOR_BWD_F32.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The bf16 color net in two launches (color_fwd_kernel, color_bwd_kernel)
+# ---------------------------------------------------------------------------
+
+COLOR16_M = (1, 63, 64, 65, 127, 128, 129, 1001, 65613)
+BF16 = torch.bfloat16
+
+
+def _color16_case(dev, m, sdf_kw=FULL, C=None, seed=6):
+    """The bf16 color net's inputs at m points (C >= m rows, NaN past m):
+    seeded bf16 e and cx2 rows and f32 dcolor, the plain forward's sigmoid
+    in packed and its bf16 relu rows (the planes of one tensor), the bf16
+    pack (made on the card: cwts)."""
+    cfg, ccfg, params = _nets(sdf_kw, dev)
+    pack = pack_fine_color(params, cfg, ccfg)
+    meta = pack.meta
+    C = C or m
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, dtype=torch.float32):
+        x = torch.randn(shape, device=dev, generator=g)
+        x[m:] = float("nan")
+        return x.to(dtype)
+
+    e = r(C, meta.trunk_meta.Ep, dtype=BF16)
+    cx2, dcolor = r(C, meta.Fp + meta.Gp, dtype=BF16), r(C, 3)
+    color, acts = FF.color_fwd_plain(e, cx2, m, pack.cws, pack.cbs, meta)
+    packed = torch.full((C, 8), float("nan"), device=dev)
+    packed[:m, 4:7] = color
+    cacts = FT.planes(meta.c_layers - 1, C, pack.cws[0].shape[1], dev, BF16)
+    for a, want in zip(cacts, acts):
+        a.fill_(float("nan"))
+        a[:m] = want
+    return pack, e, cx2, dcolor, packed, cacts
+
+
+def _color16_outputs(dev, pack, C, fwd: bool, with_dz: bool = True):
+    """NaN-filled outputs: the forward's packed rows and bf16 relu planes,
+    or the transpose's dx and (with_dz) f32 and bf16 dz planes."""
+    meta, nan = pack.meta, float("nan")
+    H = pack.cws[0].shape[1]
+    if fwd:
+        return (torch.full((C, 8), nan, device=dev),
+                [a.fill_(nan) for a in FT.planes(meta.c_layers - 1, C, H, dev, BF16)])
+    dz = dzb = None
+    if with_dz:
+        dz = [z.fill_(nan) for z in FT.planes(meta.c_layers, C, H, dev, torch.float32)]
+        dzb = [z.fill_(nan) for z in FT.planes(meta.c_layers, C, H, dev, BF16)]
+    return torch.full((C, meta.color_in), nan, device=dev), dz, dzb
+
+
+@pytest.mark.parametrize("keep", [False, True], ids=["render", "keep"])
+@pytest.mark.parametrize("m", COLOR16_M)
+def test_color_fwd_matches_plain(dev, m, keep):
+    """The color (packed[:, 4:7]) and with keep the four bf16 relu rows into
+    NaN-filled buffers against color_fwd_plain under the bf16 rule, the
+    rest of packed untouched; one launch, no GEMM; a second run's bits."""
+    pack, e, cx2, _, want_p, want_a = _color16_case(dev, m, C=m + 3)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        packed, cacts = _color16_outputs(dev, pack, m + 3, True)
+        kerns = (FF.COLOR_FWD, FH.GEMM)
+        before = [k.launches for k in kerns]
+        FF.color_fwd(e, cx2, m, pack.cws, pack.cbs, pack.meta, packed, cacts if keep else None,
+                     stream)
+        torch.cuda.synchronize()
+        assert [k.launches - x for k, x in zip(kerns, before)] == [1, 0]
+        return packed, cacts
+
+    (packed, cacts), (again, again_a) = run(), run()
+    _assert_close(packed[:m, 4:7], want_p[:m, 4:7])
+    assert torch.isnan(packed[:, :4]).all() and torch.isnan(packed[:, 7]).all()
+    assert torch.isnan(packed[m:]).all() and torch.equal(packed[:m, 4:7], again[:m, 4:7])
+    for a, w, b in zip(cacts, want_a, again_a):
+        if keep:
+            _assert_close(a[:m].float(), w[:m].float())
+            assert torch.equal(a[:m], b[:m]) and torch.isnan(a[m:].float()).all()
+        else:
+            assert torch.isnan(a.float()).all()
+
+
+@pytest.mark.parametrize("with_dz", [False, True], ids=["frozen", "dw"])
+@pytest.mark.parametrize("m", COLOR16_M)
+def test_color_bwd_matches_plain(dev, m, with_dz):
+    """dx and with dW every layer's dz row (f32, and its bf16 rounding) into
+    NaN-filled buffers against color_bwd_plain (at the same sigmoid and
+    relu rows) under the bf16 rule; one launch, no GEMM or
+    color_dz_kernel; a second run's bits."""
+    pack, _, _, dcolor, packed, cacts = _color16_case(dev, m, C=m + 3)
+    want_dx, want_dz = FF.color_bwd_plain(m, pack.cws, pack.meta, packed, dcolor, cacts)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        dx, cdz, cdzb = _color16_outputs(dev, pack, m + 3, False, with_dz)
+        kerns = (FF.COLOR_BWD, FH.GEMM, FF.COLOR_DZ)
+        before = [k.launches for k in kerns]
+        FF.color_bwd(m, pack.cws, pack.cwts, pack.meta, packed, dcolor, cacts, dx, cdz, cdzb,
+                     stream)
+        torch.cuda.synchronize()
+        assert [k.launches - x for k, x in zip(kerns, before)] == [1, 0, 0]
+        return dx, cdz, cdzb
+
+    (dx, cdz, cdzb), (again, again_z, _) = run(), run()
+    _assert_close(dx[:m], want_dx)
+    assert torch.isnan(dx[m:]).all() and torch.equal(dx[:m], again[:m])
+    for z, zb, w, b in zip(cdz or (), cdzb or (), want_dz, again_z or ()):
+        k = w.shape[1]
+        _assert_close(z[:m, :k], w)
+        assert torch.equal(zb[:m, :k], z[:m, :k].to(BF16))
+        assert torch.equal(z[:m, :k], b[:m, :k]) and torch.isnan(z[m:]).all()
+
+
+@pytest.mark.parametrize("m", [1, 65, 4097])
+def test_color_bf16_narrow_widths(dev, m):
+    """SMALL's color net (64-wide hidden layers) under the bf16 rule, both
+    kernels, dx in pieces of 64 and 128 columns."""
+    pack, e, cx2, dcolor, want_p, cacts = _color16_case(dev, m, sdf_kw=SMALL)
+    stream = torch.cuda.current_stream().cuda_stream
+    packed, acts = _color16_outputs(dev, pack, m, True)
+    FF.color_fwd(e, cx2, m, pack.cws, pack.cbs, pack.meta, packed, acts, stream)
+    dx, cdz, cdzb = _color16_outputs(dev, pack, m, False)
+    FF.color_bwd(m, pack.cws, pack.cwts, pack.meta, want_p, dcolor, cacts, dx, cdz, cdzb, stream)
+    torch.cuda.synchronize()
+    _assert_close(packed[:, 4:7], want_p[:, 4:7])
+    for a, w in zip(acts, cacts):
+        _assert_close(a.float(), w.float())
+    want_dx, want_dz = FF.color_bwd_plain(m, pack.cws, pack.meta, want_p, dcolor, cacts)
+    _assert_close(dx, want_dx)
+    for z, w in zip(cdz, want_dz):
+        _assert_close(z[:, :w.shape[1]], w)
+
+
+def _color16_both(dev, pack, m, e, cx2, dcolor, packed, cacts, fused: bool):
+    """Every output of the forward (color, relu rows) and of the transpose
+    (dx, f32 dz rows, bf16 dz rows) through the pair or the split launches
+    (_color_fwd_split / _color_bwd_split: one gemm_kernel a layer,
+    color_dz_kernel first)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    p, a = _color16_outputs(dev, pack, m, True)
+    dx, cdz, cdzb = _color16_outputs(dev, pack, m, False)
+    if fused:
+        FF.color_fwd(e, cx2, m, pack.cws, pack.cbs, pack.meta, p, a, stream)
+        FF.color_bwd(m, pack.cws, pack.cwts, pack.meta, packed, dcolor, cacts, dx, cdz, cdzb,
+                     stream)
+    else:
+        FF._color_fwd_split(FF._lib(), e, cx2, m, pack, p, stream, a)
+        FF._color_bwd_split(FF._bwd_lib(), m, pack, dict(e=e, cx2=cx2, cacts=cacts), packed,
+                            dcolor, dx, cdz, stream, cdzb)
+    torch.cuda.synchronize()
+    widths = [w.shape[1] for w in pack.cws]
+    return ([p[:m, 4:7]] + [x[:m] for x in a] + [dx[:m]] + [z[:m, :k] for z, k in zip(cdz, widths)]
+            + [z[:m, :k] for z, k in zip(cdzb, widths)])
+
+
+@pytest.mark.parametrize("m", [1, 129, 56448, 65613])
+def test_color_bf16_keeps_the_split_launches_bits(dev, m):
+    """The pair sums each output in gemm_kernel's order (64-deep K steps of
+    wgmma, layer 0's e range then cx2's, epilogue8's arithmetic): the
+    color, the relu rows, dx and every dz row (f32 and bf16) equal the
+    split launches' bit for bit (SHA-256 of the bytes)."""
+    import hashlib
+
+    pack, e, cx2, dcolor, packed, cacts = _color16_case(dev, m)
+    fused = _color16_both(dev, pack, m, e, cx2, dcolor, packed, cacts, True)
+    split = _color16_both(dev, pack, m, e, cx2, dcolor, packed, cacts, False)
+
+    def digest(x):
+        return hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+    n = pack.meta.c_layers
+    names = (["color"] + [f"relu[{l}]" for l in range(n - 1)] + ["dx"]
+             + [f"dz[{l}]" for l in range(n)] + [f"dzb[{l}]" for l in range(n)])
+    moved = [w for w, f, s in zip(names, fused, split) if digest(f) != digest(s)]
+    assert not moved, f"bits moved: {moved}"
+
+
+def test_color_bf16_rejects_what_the_kernels_do_not_take(dev):
+    """An f32 pack, an f32 meta, dcolor of another shape, relu rows that are
+    not bf16, no transposed weights, one dz type only: ValueError before a
+    launch."""
+    pack, e, cx2, dcolor, packed, cacts = _color16_case(dev, 70)
+    meta, stream = pack.meta, torch.cuda.current_stream().cuda_stream
+    dx, cdz, cdzb = _color16_outputs(dev, pack, 70, False)
+    before = FF.COLOR_FWD.launches, FF.COLOR_BWD.launches
+    f32 = [w.float() for w in pack.cws]
+    for kw in (dict(cws=f32), dict(meta=meta._replace(dtype="f32"))):
+        a = dict(cws=pack.cws, meta=meta) | kw
+        with pytest.raises(ValueError):
+            FF.color_fwd(e, cx2, 70, a["cws"], pack.cbs, a["meta"], packed, None, stream)
+        with pytest.raises(ValueError):
+            FF.color_bwd(70, a["cws"], pack.cwts, a["meta"], packed, dcolor, cacts, dx, cdz,
+                         cdzb, stream)
+    bad = ((dcolor[:, :2], cacts, pack.cwts, cdz, cdzb), (dcolor, [c.float() for c in cacts],
+                                                          pack.cwts, cdz, cdzb),
+           (dcolor, cacts, None, cdz, cdzb), (dcolor, cacts, pack.cwts, cdz, None))
+    for dc, ca, wt, z, zb in bad:
+        with pytest.raises(ValueError):
+            FF.color_bwd(70, pack.cws, wt, meta, packed, dc, ca, dx, z, zb, stream)
+    assert (FF.COLOR_FWD.launches, FF.COLOR_BWD.launches) == before

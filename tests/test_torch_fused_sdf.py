@@ -5,10 +5,17 @@ the JAX pack, on the same seeded weights and points (CPU).
 
 Tolerances (measured on these seeds):
   * against the Pallas kernel (`_make_kernel`, interpret mode): both round
-    the same operands to bf16 with f32 sums, in another order, so a rare
-    activation rounds to the neighbouring bf16 value: max |err| within
-    1e-3 of max(1, max |want|) (measured 5.8e-4 at full width), median
-    within 1e-6 (f32 noise, measured <= 6e-8);
+    the same operands to bf16 at the same points with f32 sums, in another
+    order, so a rare activation rounds to the neighbouring bf16 value: max
+    |err| within the JAX suite's own K4 tolerance, 5e-3 of max(1, max
+    |want|) (test_pallas_ops.py), median within 1e-6 (f32 noise, measured
+    <= 1.7e-7).  One such flip reads 1.01e-3 at full width, 700 points:
+    point 594's layer-5 activation, column 66, lies 1.5e-4 bf16 ulp from a
+    rounding boundary before it is rounded (5.1077267e-9); rounded the
+    other way the plain version gives the interpret kernel's value to the
+    bit.  The kernel's own body run outside pallas_call (XLA on the CPU)
+    rounds that activation as the interpret kernel does, and differs from
+    it by up to 7.8e-4 at other points: the same flips inside JAX;
   * against `sdf_obj_apply` (f32 XLA): the JAX suite's own 5e-3 abs /
     1e-2 rel for its bf16 kernel (measured 2.5e-3 abs);
   * the pack: bit for bit on the unpadded block where both frameworks
@@ -56,7 +63,7 @@ def test_plain_matches_pallas_interpret(net, n):
     got = fused(torch.as_tensor(pts)).numpy()
     assert FS.KERNEL.launches == before  # the CPU runs the plain version
     err = np.abs(got - want) / max(1.0, float(np.abs(want).max()))
-    assert err.max() <= 1e-3 and np.median(err) <= 1e-6, (err.max(), np.median(err))
+    assert err.max() <= 5e-3 and np.median(err) <= 1e-6, (err.max(), np.median(err))
 
 
 @pytest.mark.parametrize("net", list(NETS))

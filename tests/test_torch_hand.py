@@ -25,7 +25,31 @@ def _joints(kind):
         rng = np.random.default_rng(3)
         return (canonical_hand_joints(0.3)
                 + rng.normal(0, 0.004, (21, 3))).astype(np.float32)
+    if kind == "regular":
+        return _ring_turned(posed_hand_example()[0], RING_TURN)
     return posed_hand_example()[0]
+
+
+# The posed example's root bones b1, b2, b3 (and b4) lie in one plane, so
+# normalize_root_planes compares plane normals that are parallel to
+# rounding: n2 vs n1 and n3 vs n2 have |v1 x v2| ~ 6e-8 |v1||v2|, and the
+# gradient of the angle between them points along rounding noise (JAX's
+# own gradient moves by 0.023 (stage 2) and 0.046 (stage 4) of its largest
+# component under a one-ulp change of the input, 46-93x ATOL).  The
+# "regular" example turns the ring finger (MANO joints 13-16) by RING_TURN
+# radians about the middle root bone (wrist -> joint 9) through the wrist,
+# which leaves |v1 x v2| >= 0.0998 |v1||v2| at every angle of those stages.
+RING_TURN = 0.1
+REGULAR_RATIO = 1e-3
+
+
+def _ring_turned(j, theta):
+    j = j.astype(np.float64)
+    a = (j[9] - j[0]) / np.linalg.norm(j[9] - j[0])
+    K = np.asarray([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    R = np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * (K @ K)
+    j[13:17] = (j[13:17] - j[0]) @ R.T + j[0]
+    return j.astype(np.float32)
 
 
 @pytest.mark.parametrize("kind", ["canonical", "perturbed", "posed"])
@@ -139,7 +163,7 @@ def _vjp_pair(jf, tf, x, seed):
     return xt.grad.numpy(), want
 
 
-def _halo_stages():
+def _halo_stages(kind="posed"):
     """(name, JAX fn, port fn, input) for each differentiable HALO stage
     between the refinement angles and the bone transforms, at the JAX
     package's own intermediate values of the posed example."""
@@ -147,7 +171,7 @@ def _halo_stages():
     import honerf_torch.hand.kinematics as TK
     from honerf_tpu.hand import convert_joints as jconv
     j1, t1 = jnp.ones(1), torch.ones(1)
-    kps = np.asarray(jconv(jnp.asarray(_joints("posed"))[None], "mano", "biomech"))
+    kps = np.asarray(jconv(jnp.asarray(_joints(kind))[None], "mano", "biomech"))
     canon = np.array(JK.transform_to_canonical(jnp.asarray(kps), j1)[0])
     bl, ref = _refine_args(1)
     z7 = np.zeros((1, 7), np.float32)
@@ -176,18 +200,61 @@ def _halo_stages():
     ]
 
 
-@pytest.mark.parametrize("stage", range(7))
-def test_halo_stage_gradients_match_jax(stage):
+# the stages whose gradient the posed example leaves undefined (RING_TURN)
+SINGULAR = (2, 4)
+_STAGE_CASES = ([pytest.param(s, "regular" if s in SINGULAR else "posed", id=str(s))
+                 for s in range(7)]
+                + [pytest.param(s, "posed", id=f"{s}-posed") for s in SINGULAR])
+
+
+def _cross_ratios(monkeypatch):
+    """Record min |v1 x v2| / (|v1| |v2|) of every angle_between the port
+    computes (signed_angle calls it too)."""
+    from honerf_torch.hand import kinematics as TKm
+
+    ratios, orig = [], TT.angle_between
+
+    def rec(v1, v2, eps=1e-10):
+        c = torch.linalg.cross(v1, v2, dim=-1).norm(dim=-1) / (v1.norm(dim=-1) * v2.norm(dim=-1))
+        ratios.append(float(c.detach().min()))
+        return orig(v1, v2, eps)
+
+    monkeypatch.setattr(TT, "angle_between", rec)
+    monkeypatch.setattr(TKm, "angle_between", rec)
+    return ratios
+
+
+@pytest.mark.parametrize("stage,kind", _STAGE_CASES)
+def test_halo_stage_gradients_match_jax(stage, kind, monkeypatch):
     """The pose-refinement gradient, stage by stage, at the same input
     values.  Composed end to end the two gradients can differ: at the
     canonical alignment some bone components are rounding noise (~1e-8),
     and which side of the angle-sign and clamp branches that noise falls
     on (compute_rot_angles) changes the gradient, not the value.  Each
-    stage, fed the same values, agrees."""
-    name, jf, tf, x = _halo_stages()[stage]
+    stage, fed the same values, agrees where its gradient is defined:
+    stages 2 and 4 at the regular example (every angle's |v1 x v2| at least
+    REGULAR_RATIO of |v1||v2|).  At the posed example itself they hold
+    what is defined there: the values, finite gradients, and the
+    singularity (JAX's own gradient moves by more than ATOL under one ulp;
+    if a change makes the point regular, this case says so)."""
+    name, jf, tf, x = _halo_stages(kind)[stage]
+    ratios = _cross_ratios(monkeypatch)
     got, want = _vjp_pair(jf, tf, x, seed=stage)
     scale = max(1.0, float(np.abs(want).max()))
-    np.testing.assert_allclose(got / scale, want / scale, atol=ATOL, err_msg=name)
+    if kind == "regular" or stage not in SINGULAR:
+        if stage in SINGULAR:
+            assert min(ratios) >= REGULAR_RATIO, (name, min(ratios))
+        np.testing.assert_allclose(got / scale, want / scale, atol=ATOL, err_msg=name)
+        return
+    out_j = jf(jnp.asarray(x))
+    out_t = tf(torch.as_tensor(np.array(x)))
+    for a, b in zip(out_j if isinstance(out_j, tuple) else (out_j,),
+                    out_t if isinstance(out_t, tuple) else (out_t,)):
+        np.testing.assert_allclose(b.detach().numpy(), np.asarray(a), atol=ATOL, err_msg=name)
+    assert np.isfinite(got).all() and np.isfinite(want).all(), name
+    x_ulp = np.nextafter(np.asarray(x, np.float32), np.float32(np.inf))
+    _, want_ulp = _vjp_pair(jf, tf, x_ulp, seed=stage)
+    assert np.abs(want_ulp - want).max() / scale > ATOL, (name, "the point is regular now")
 
 
 def test_refine_joints_preserves_bone_lengths():
