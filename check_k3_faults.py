@@ -17,9 +17,10 @@ unedited copy and reads every check; a fault reads the checks of its
 groups (bf16: the first eight below, f32: the next six, fit: the next
 six, perpoint: the next five, trunk: the next two, trunkbwd32: tbwd32
 with f32k3, f32k6, fitk3 and fitk6, trunkdw32: tdw32 with f32k3 and
-f32k6, color32: color32 with f32k3, f32k6, fitk3 and fitk6, color16: the
-last with kernel at seed 0; --groups reads only the named groups, and
-skips the faults with none of them).
+f32k6, color32: color32 with f32k3, f32k6, fitk3 and fitk6, color16: color16
+with kernel at seed 0, tbwd16: the last with kernel and k6 at seed 0;
+--groups reads only the named groups, and skips the faults with none of
+them).
 The checks, with the
 limits they hold:
 
@@ -162,7 +163,16 @@ limits they hold:
           output against the plain versions: median over TOL_MEDIAN, max
           over TOL_MAX of the range), caught above 1 or where a rerun's
           bits or the split launches' bits move beyond f64's 1.25x (the
-          color16 group, with kernel at seed 0).
+          color16 group, with kernel at seed 0);
+  tbwd16  the bf16 trunk's backward pair (hand_trunk_ut_kernel,
+          hand_trunk_dz_kernel) at chip_smoke.ragged_trunk_bwd32_calls (1
+          to 65,613 points, with and without dW) and at a bf16 pass's
+          56,448 (chip_smoke.trunk_bwd16_readings): the kernel rule's
+          ratio (each chain's outputs against the plain versions: median
+          over TOL_MEDIAN, max over TOL_MAX of the range), caught above 1
+          or where an output of cuda_trunk_backward is not finite, a
+          rerun's bits move or its SHA-256 is not the split launches' (the
+          tbwd16 group, with kernel and k6 at seed 0).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -200,6 +210,7 @@ _TB32_CU = "honerf_torch/ops/csrc/trunk_bwd_f32.cu"
 _TDW32_CU = "honerf_torch/ops/csrc/trunk_dw_f32.cu"
 _CF32_CU = "honerf_torch/ops/csrc/color_fused_f32.cu"
 _CF16_CU = "honerf_torch/ops/csrc/color_fused.cu"
+_TB16_CU = "honerf_torch/ops/csrc/trunk_bwd.cu"
 
 # name -> (what it breaks, file, text, replacement, groups of checks it is
 # read by); the text must occur exactly once in the file
@@ -547,13 +558,43 @@ FAULTS = {
         "      if constexpr (R == 128) {\n"
         "        if (k + 1 < steps) wg::wgmma_m64n256k16<0, 1>(acc, da, db, 1);\n"
         "      } else if constexpr (R == 64)", ("color16",)),
+    "tb16_ds_no_c": (
+        "the bf16 upward chain's ds misses its c term (ds = dt, not dt c)", _TB16_CU,
+        "const float2 d = make_float2(z0 * cv[jj][h].x, z1 * cv[jj][h].y);",
+        "const float2 d = make_float2(z0 + 0.f * cv[jj][h].x, z1 + 0.f * cv[jj][h].y);",
+        ("tbwd16",)),
+    "tb16_dz_no_ds": (
+        "the bf16 downward chain's dz misses its second-order term ds beta s (1 - s)", _TB16_CU,
+        "__fmul_rn(ds, __fmul_rn(__fmul_rn(kBeta, s), __fsub_rn(1.f, s))));",
+        "0.f * ds);", ("tbwd16",)),
+    "tb16_skip_de_dropped": (
+        "the bf16 downward chain drops the skip's part of de (layer 0's alone)", _TB16_CU,
+        "            __fadd_rn(__fmul_rn(acc[4 * j + 2 * h], p.escale), acc2[4 * j + 2 * h]),\n"
+        "            __fadd_rn(__fmul_rn(acc[4 * j + 2 * h + 1], p.escale), acc2[4 * j + 2 * h + 1]));",
+        "            __fadd_rn(0.f * acc[4 * j + 2 * h], acc2[4 * j + 2 * h]),\n"
+        "            __fadd_rn(0.f * acc[4 * j + 2 * h + 1], acc2[4 * j + 2 * h + 1]));",
+        ("tbwd16",)),
+    "tb16_skip_du_s_dropped": (
+        "the bf16 upward chain's skip product skips du_s's boxes (the embedding's part of dm)",
+        _TB16_CU, "l == skip ? Ep / 64 : 0, l,", "0, l,", ("tbwd16",)),
+    "tb16_ragged_tail": (
+        "the bf16 upward chain stores no ds row of the ragged last tile", _TB16_CU,
+        "if (grow < p.M) *reinterpret_cast<float2*>(ds + (size_t)grow * p.ldds + col) = d;",
+        "if (grow < (p.M & ~(TB16_TILE - 1)))\n"
+        "          *reinterpret_cast<float2*>(ds + (size_t)grow * p.ldds + col) = d;",
+        ("tbwd16",)),
+    "tb16_no_dm_rows": (
+        "the bf16 upward chain keeps no dm row (the dW launches read whatever the rows held: "
+        "the chains' own outputs stay right)", _TB16_CU,
+        "  if (p.keep) tb16_store_rows(&p.dm_map, act, p.Hp, c, tile, l);\n", "",
+        ("tbwd16",)),
     "pose_drop_tail": (
         "the pose sums drop the rows past the last full split (a ragged last block sums "
         "nothing)", _CU, "const int r0 = s * split, r1 = min(M, r0 + split);",
         "const int r0 = s * split, r1 = r0 + split <= M ? r0 + split : r0;", ("perpoint",)),
 }
 GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk", "trunkbwd32", "trunkdw32", "color32",
-          "color16")
+          "color16", "tbwd16")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
 STEP_SEEDS = {"sound": (1, 2, 3, 4)}
@@ -797,6 +838,21 @@ def child(name: str, root: str, groups) -> None:
             args = CS.step_bwd_inputs(torch, CS.flagship(torch, dev), dev, 0)
             _, rows = CS.k3_check(torch, args)
             out["kernel"] = {"0": [[r.what, r.l2, r.med, r.mx, r.ok] for r in rows]}
+    if "tbwd16" in groups:
+        nets = CS.trunk_nets(torch, dev)
+        calls = CS.ragged_trunk_bwd32_calls() + [(56448, True), (56448, False)]
+        out["tbwd16"] = {"0": [
+            [f"bf16 backward pair {r.m} keep {r.keep}",
+             r.rule if r.same and not r.moved else float("inf"), r.ok]
+            for r in CS.trunk_bwd16_readings(torch, dev, nets, calls, timed=False)]}
+        fs = CS.flagship(torch, dev)
+        if "kernel" not in out:   # K3 and K6 on a bf16 step, whose trunk backward the pair runs
+            _, rows = CS.k3_check(torch, CS.step_bwd_inputs(torch, fs, dev, 0))
+            out["kernel"] = {"0": [[r.what, r.l2, r.med, r.mx, r.ok] for r in rows]}
+        if "k6" not in out:
+            _, rows = CS.k3_check(torch, CS.step_bwd_inputs(torch, fs, dev, 0, mode="pallas"),
+                                  "pallas")
+            out["k6"] = {"0": [[r.what, r.l2, r.med, r.mx, r.ok] for r in rows]}
     print(json.dumps(out))
 
 
@@ -862,7 +918,7 @@ def judge(CS, res):
         verdict[check] = (bool(over), text + (f"; over: {' '.join(over[:8])}" if over else ""))
     for check in ("bgemm", "gemm", "f32k3", "f32nc", "f32k6", "fitk3", "fitnc", "fitk6", "ppt",
                   "k4", "copy", "pack", "pose", "trunk", "trunk32", "tbwd32", "tdw32",
-                  "color32", "color16"):
+                  "color32", "color16", "tbwd16"):
         if check not in res:
             continue
         worst, over = (-1.0, ""), []
@@ -924,7 +980,8 @@ def main() -> int:
     ap.add_argument("--only", help="comma-separated names (sound and FAULTS) to run")
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma-separated groups of checks to read (bf16, f32, fit, "
-                         "perpoint, trunk, trunkbwd32, trunkdw32, color32, color16)")
+                         "perpoint, trunk, trunkbwd32, trunkdw32, color32, color16, "
+                         "tbwd16)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     a = ap.parse_args()

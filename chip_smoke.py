@@ -53,10 +53,11 @@ Phases, each of which fails the run when it fails:
               vgg_weight 0; 3 warm-up steps, then 20 timed ones.  The
               launch counts are zeroed just before and read just after;
               K1, K2 and K3 must each have launched (and through them
-              gemm_kernel, gemm_tn_kernel, hand_embed_kernel,
-              colsum_partial_kernel and the color pair: a step's
-              gemm_kernel exactly 17, the backward chain's,
-              color_fwd_kernel 2, color_bwd_kernel 1, color_dz_kernel 0),
+              gemm_tn_kernel, hand_embed_kernel, colsum_partial_kernel,
+              the color pair and the trunk's backward pair: a step's
+              color_fwd_kernel 2, color_bwd_kernel 1, hand_trunk_ut_kernel
+              and hand_trunk_dz_kernel 1 each, gemm_kernel and
+              color_dz_kernel 0),
               every loss and grad norm be finite, and se3_refine have
               moved;
   8. train check  one step's metrics and gradient tree on the card
@@ -131,6 +132,23 @@ Phases, each of which fails the run when it fails:
               launches in turns, of the plain versions, beside the bounds;
               each path's calls (a forward a pass of K2 and of K3's
               recompute, a transpose a pass of K3);
+  9e. fused trunk backward bf16  the bf16 trunk's backward chains as two
+              kernels (hand_trunk_ut_kernel, the u-chain transposed
+              upward; hand_trunk_dz_kernel, the forward transposed
+              downward; bf16 wgmma on the bf16 trunk's TMA ring) at the
+              calls one bf16 'full', 'full_nocolor' and 'pallas' step make
+              (recorded by phase 9c: K3's or K6's pass, with the kept rows)
+              and at ragged sizes (1 to 65,613 points, with and without
+              the kept rows): each chain alone against its plain version
+              on the card under the kernel rule (the downward one on the
+              plain ds), and through fused_fine.cuda_trunk_backward every
+              output (ds, de; with dW the kept dm and dz rows in f32 and
+              bf16, each dW and db) against a rerun's bits and the SHA-256
+              of the split launches' (one gemm_kernel a layer:
+              cuda_trunk_backward_split) at the same call; ms of each
+              kernel, of the pair and of the split chain in turns (pair,
+              split, split, pair), of the plain versions, beside the
+              bounds;
  10. kernel K4  the object SDF (obj_sdf_fused_kernel, one launch a call)
               against its plain version on the card, full-width object
               net of confs/wmask_realobj_bean.conf, at a 65,536-point grid
@@ -814,26 +832,43 @@ def device_profile(torch, label: str, fn, points=None):
     return wall_us / 1e3, busy / 1e3
 
 
-def device_kernel_names(torch, fn):
+def device_kernel_names(torch, fn, tries: int = 3):
     """Counter of the device kernels fn() launches, by name (torch.profiler);
     empty when the profiler records no device time.  The device's tracing
     starts after the profiler does: kernels that run in its first
     milliseconds can go unrecorded (on an H100 one capture lost K6's first 45 of 113),
-    so a ~5 ms spin kernel (not counted) runs first."""
+    so the profiler runs a warm-up step first (its schedule's, whose records
+    it drops: a ~5 ms spin kernel) and records the step that follows, in
+    which another spin kernel (not counted) runs before fn().  A capture
+    that records no device kernel at all (late in the script's process one
+    lost K5 f32's whole call) is taken again, up to `tries` captures.  Where
+    the call can be captured in a CUDA graph, graph_kernel_nodes counts its
+    launches with nothing to lose."""
     from collections import Counter
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
+    from torch.profiler import ProfilerActivity, schedule
     from torch.profiler import profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        torch.cuda._sleep(10_000_000)   # ~5 ms of device time
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    return Counter(evt.name.split("(")[0] for evt in prof.events()
-                   if evt.device_type == DeviceType.CUDA and "spin_kernel" not in evt.name)
+    names = Counter()
+    for _ in range(tries):
+        traces = []
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1, active=1),
+                           on_trace_ready=lambda p: traces.append(p.events())) as prof:
+            for step in range(2):
+                torch.cuda.synchronize()
+                torch.cuda._sleep(10_000_000)   # ~5 ms of device time
+                torch.cuda.synchronize()
+                if step:
+                    fn()
+                    torch.cuda.synchronize()
+                prof.step()
+        names = Counter(evt.name.split("(")[0] for evt in (traces[-1] if traces else ())
+                        if evt.device_type == DeviceType.CUDA and "spin_kernel" not in evt.name)
+        if names:
+            break
+    return names
 
 
 def graph_kernel_nodes(torch, fn):
@@ -1212,9 +1247,9 @@ def record_trunk_calls(fn):
     in launch order: ("fwd", m, last, keep, dtype) (fused_fine.trunk_fwd:
     last "sdf" for K1's column, z's n_store, or None; keep: the activation
     rows stored; dtype the trunk's, "bf16" or "f32"), ("uc", m, with_u,
-    keep, dtype) (fused_fine.trunk_uchain), the f32 backward's ("ut",
-    m, keep, None, "f32") and ("dz", m, keep, None, "f32")
-    (fused_fine.trunk_ut, trunk_dz; keep: the dm or dz rows stored) and
+    keep, dtype) (fused_fine.trunk_uchain), the backward's ("ut", m, keep,
+    None, dtype) and ("dz", m, keep, None, dtype) (fused_fine.trunk_ut,
+    trunk_dz; keep: the dm or dz rows stored), an f32 pass's
     its weight gradients' ("dw", m, color, None, "f32") (fused_fine.trunk_dw;
     color: K3's color rows join the launch), and the f32 color net's
     ("cfwd", m, keep, None, "f32") and ("cbwd", m, dz, None, "f32")
@@ -1243,9 +1278,9 @@ def record_trunk_calls(fn):
         calls.append(("ut", m, dms is not None, None, tm.dtype))
         return ut(m, ws, tm, du_b, du_s, ss, cs, c_last, ds, dms, stream)
 
-    def rec_dz(m, ws, tm, top, ss, ds, de, dzs=None, stream=None):
+    def rec_dz(m, ws, tm, top, ss, ds, de, dzs=None, stream=None, wts=None, dzbs=None):
         calls.append(("dz", m, dzs is not None, None, tm.dtype))
-        return dz(m, ws, tm, top, ss, ds, de, dzs, stream)
+        return dz(m, ws, tm, top, ss, ds, de, dzs, stream, wts=wts, dzbs=dzbs)
 
     def rec_dw(m, tm, rows, dws, dbs, acc, stream=None, color=None):
         calls.append(("dw", m, color is not None, None, tm.dtype))
@@ -1449,6 +1484,10 @@ COLOR16_CALLS = {}
 # 'full_nocolor' and 'pallas' step and one '12' fit step (the same
 # recordings; the 'full_nocolor' step's only here)
 TRUNK_BWD32_CALLS = {}
+# The bf16 backward pair's calls (trunk_ut, trunk_dz) of a request and of
+# one bf16 'full', 'full_nocolor' and 'pallas' step (record_trunk_calls,
+# filled by the fused trunk phase)
+TRUNK_BWD16_CALLS = {}
 # their launches a step or request (gemm_f32_kernel, uchain_seed_kernel,
 # hand_trunk_fwd_f32_kernel, hand_uchain_f32_kernel, hand_trunk_ut_f32_kernel,
 # hand_trunk_dz_f32_kernel, trunk_dw_f32_kernel, gemm_tn_f32_kernel,
@@ -1717,6 +1756,209 @@ def trunk_bwd32_calls(calls):
             f"an upward chain not followed by its downward one: {ut}, {dz}"
         out.append((ut[1], ut[2]))
     return out
+
+
+def trunk_bwd16_inputs(torch, dev, nets, m):
+    """The bf16 backward's inputs at m points on the flagship's bf16 trunk
+    (trunk_nets' fine pack): the bf16 embedding of the first m points, the
+    forward's rows (the plain versions on the card: f32 sigmoid and c rows;
+    the activation and t rows in bf16; the kept rows and the c rows the
+    planes of one tensor each, as trunk_buffers keeps them),
+    seeded cotangents du (du_b = bf16(du), du_s = bf16(du / sqrt2)) and the
+    top one (d_out live columns of Op, the rest 0; bf16, and its f32
+    values), as the seed kernel writes them."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_hand as FH
+
+    pack, cfg = nets.fine, nets.cfg
+    tm, ws = pack.meta.trunk_meta, pack.ws
+    n, bf16 = tm.n_layers, torch.bfloat16
+    e = torch.empty((m, tm.Ep), device=dev, dtype=bf16)
+    FH.embed(FH._lib("fused_hand"), nets.pts, m, *nets.pose, cfg.v_multires, cfg.r_multires, e,
+             torch.cuda.current_stream(dev).cuda_stream)
+    acts, ss, _ = FT.trunk_fwd_plain(e, m, ws, pack.bs, tm, last=False)
+    _, ts, cs = FT.trunk_uchain_plain(ss, ws, tm)
+    gen = torch.Generator(device=dev).manual_seed(m)
+    du = torch.zeros((m, tm.Ep), device=dev)
+    du[:, :tm.emb_width] = torch.randn((m, tm.emb_width), device=dev, generator=gen)
+    top = torch.zeros((m, tm.Op), device=dev)
+    top[:, :tm.d_out] = torch.randn((m, tm.d_out), device=dev, generator=gen)
+
+    def planes(xs):
+        return list(torch.stack([x.to(bf16) for x in xs]).unbind(0))
+
+    return SimpleNamespace(e=e, acts=planes(acts[:n - 1]), ss=torch.stack(ss),
+                           ts=planes(ts[:n - 1]),
+                           cs=[None] + list(torch.stack(cs[1:n - 1]).unbind(0)),
+                           c_last=ws[n - 1][:, 0].float().contiguous(), du_b=du.to(bf16),
+                           du_s=(du * FT.INV_SQRT2).to(bf16), top=top.to(bf16))
+
+
+def trunk_bwd16_readings(torch, dev, nets, calls, timed: bool = True, reruns: int = 8):
+    """hand_trunk_ut_kernel then hand_trunk_dz_kernel at each distinct (m,
+    keep) of `calls` (trunk_bwd32_calls of a bf16 path), weighted by its
+    count, on the flagship's bf16 trunk at trunk_bwd16_inputs: each chain
+    alone (trunk_ut; trunk_dz on the plain ds) into NaN-filled buffers
+    against trunk_ut_plain / trunk_dz_plain on the card under the kernel
+    rule (TOL_MEDIAN, TOL_MAX of each output's range; the median only past
+    one point): ds, de, with keep the kept dm rows (the plain rows rounded
+    to bf16) and dz rows (f32; the bf16 rows the f32 ones rounded); then
+    through cuda_trunk_backward (the pair, then with keep the dW sequence
+    on its kept rows) every output (ds, de; with keep the kept dm, dz and
+    bf16 dz rows, each dW and db) against the bits of `reruns` more runs
+    (a race between the kernels' warps shows as a rerun's moved bits) and
+    the SHA-256 of cuda_trunk_backward_split's (one gemm_kernel a layer,
+    the dW launches beside them) at the same call.  timed: ms of each kernel
+    (the call's keep), of the pair and of the split chain (want_dw off:
+    its 17 gemm_kernel) in turns (pair, split, split, pair), of the plain
+    chains, and the bounds (bf16 operations of the unpadded layers; each
+    input read once, each output written once)."""
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nan, bf16 = float("nan"), torch.bfloat16
+    pack, cfg = nets.fine, nets.cfg
+    tm, ws, wts = pack.meta.trunk_meta, pack.ws, pack.wts
+    n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
+    lib = FF._bwd_lib()
+    scratch = torch.empty((FT._WS_FLOATS,), device=dev)
+    out = []
+    for (m, keep), count in _tally(calls).items():
+        x = trunk_bwd16_inputs(torch, dev, nets, m)
+        buf = dict(ss=x.ss, acts=x.acts, ts=x.ts, cs=x.cs)
+
+        def fresh(m=m, keep=keep, x=x):
+            bw = FT.trunk_bwd_buffers(ws, tm, m, dev, Op, keep)
+            for t in [bw["ds"], bw["de"]] + (bw["dms"][1:] + bw["dzs"] + bw["dzbs"]
+                                             if keep else []):
+                t.fill_(nan)
+            bw["du_b"].copy_(x.du_b)
+            bw["du_s"].copy_(x.du_s)
+            bw["dzb"][0].copy_(x.top)
+            bw["dzf"][0].copy_(x.top.float())
+            dws = [torch.zeros(w.shape, device=dev) for w in ws] if keep else None
+            dbs = [torch.zeros(b.shape, device=dev) for b in pack.bs] if keep else None
+            return bw, dws, dbs
+
+        def backward(o, fn, m=m, keep=keep, x=x, buf=buf):
+            fn(lib, m, x.e, ws, wts, tm, buf, o[0], o[1], o[2], keep, 0, scratch, stream)
+
+        def outs(o, m=m, keep=keep):
+            bw, dws, dbs = o
+            items = [("de", bw["de"][:m])] + [(f"ds[{l}]", bw["ds"][l][:m]) for l in range(n - 1)]
+            if keep:
+                items += ([(f"dm[{l}]", bw["dms"][l][:m]) for l in range(1, n)]
+                          + [(f"dz[{l}]", bw["dzs"][l][:m]) for l in range(n - 1)]
+                          + [(f"dzb[{l}]", bw["dzbs"][l][:m]) for l in range(n - 1)]
+                          + [(f"dW[{l}]", w) for l, w in enumerate(dws)]
+                          + [(f"db[{l}]", b) for l, b in enumerate(dbs)])
+            return items
+
+        def chains(o, ds, m=m, keep=keep, x=x):
+            bw = o[0]
+            FT.trunk_ut(m, ws, tm, x.du_b, x.du_s, x.ss, x.cs, x.c_last, bw["ds"],
+                        bw["dms"] if keep else None, stream)
+            FT.trunk_dz(m, ws, tm, x.top, x.ss, bw["ds"] if ds is None else ds, bw["de"],
+                        bw["dzs"] if keep else None, stream, wts=wts,
+                        dzbs=bw["dzbs"] if keep else None)
+
+        ds_p, dms_p = FT.trunk_ut_plain(x.du_b, x.du_s, m, ws, x.ss, x.cs + [x.c_last], tm,
+                                        keep=True)
+        ds_plain = torch.stack(ds_p)
+        de_p, dzs_p = FT.trunk_dz_plain(x.top, m, ws, x.ss, ds_plain, tm, keep=True)
+        alone = fresh()
+        chains(alone, ds_plain)
+        o1, o2, sp = fresh(), fresh(), fresh()
+        backward(o1, FT.cuda_trunk_backward)
+        backward(sp, FT.cuda_trunk_backward_split)
+        torch.cuda.synchronize()
+        want = {"de": de_p, **{f"ds[{l}]": ds_p[l] for l in range(n - 1)}}
+        if keep:
+            want |= {f"dm[{l}]": dms_p[l].to(bf16).float() for l in range(1, n)}
+            want |= {f"dz[{l}]": dzs_p[l] for l in range(n - 1)}
+            want |= {f"dzb[{l}]": dzs_p[l].to(bf16).float() for l in range(n - 1)}
+        med = TOL_MEDIAN if m > 1 else 1.0
+        pairs = [(k, g.float(), want[k]) for k, g in outs(alone) if k in want]
+        checks = [compare(torch, k, g, w, med) for k, g, w in pairs]
+        rule = max(max(rd[0] / med, rd[2] / TOL_MAX) / rd[3]
+                   for rd in (err_readings(torch, g, w) for _, g, w in pairs))
+        got = outs(o1)
+        finite = all(bool(torch.isfinite(g.float()).all()) for _, g in got)
+        n_same = 0
+        for _ in range(reruns):
+            backward(o2, FT.cuda_trunk_backward)
+            n_same += all(torch.equal(a, b) for (_, a), (_, b) in zip(got, outs(o2)))
+        same = n_same == reruns
+        moved = [k for (k, a), (_, b) in zip(got, outs(sp)) if sha256(torch, a) != sha256(torch, b)]
+        r = SimpleNamespace(m=m, keep=keep, count=count, checks=checks, same=same, rule=rule,
+                            n_same=n_same, reruns=reruns, moved=moved, n_outputs=len(got),
+                            max_abs=max(c[1] for c in checks),
+                            ok=all(c[0] for c in checks) and finite and same and not moved,
+                            ut_ms=None, dz_ms=None, ms=None, split_ms=None, plain_ms=None,
+                            ut_plain_ms=None, dz_plain_ms=None, bound_ms=None, bound_by=None,
+                            ut_bound_ms=None, dz_bound_ms=None, ut_bound_by=None,
+                            dz_bound_by=None)
+        if timed:
+            dims = trunk_dims(cfg, cfg.d_out)
+            ut_flops = 2.0 * m * sum(i * o for i, o in dims[:-1])
+            dz_flops = 2.0 * m * sum(i * o for i, o in dims)
+            row = 4 * m * Hp
+            kept_dm = keep and (n - 1) * 2 * m * Hp
+            kept_dz = keep and (n - 1) * 6 * m * Hp
+            ut_bytes = (2 * 2 * m * Ep + nbytes(ws[:n - 1]) + 4 * Hp + (n - 1) * row
+                        + (n - 2) * row + (n - 1) * row + kept_dm)
+            dz_bytes = 2 * m * Op + nbytes(ws) + 2 * (n - 1) * row + 4 * m * Ep + kept_dz
+            o = o1
+            bw = o[0]
+            dms, dzs, dzbs = (bw["dms"], bw["dzs"], bw["dzbs"]) if keep else (None,) * 3
+            r.ut_ms = cuda_ms(torch, lambda: FT.trunk_ut(
+                m, ws, tm, bw["du_b"], bw["du_s"], x.ss, x.cs, bw["c_last"], bw["ds"], dms,
+                stream), 10)
+            r.dz_ms = cuda_ms(torch, lambda: FT.trunk_dz(
+                m, ws, tm, bw["dzb"][0], x.ss, bw["ds"], bw["de"], dzs, stream, wts=wts,
+                dzbs=dzbs), 10)
+            chain = fresh(keep=False)
+            pair_ms, split_ms = [], []
+            for fn, into in ((lambda: chains(o, None), pair_ms),
+                             (lambda: backward(chain, FT.cuda_trunk_backward_split, keep=False),
+                              split_ms),
+                             (lambda: backward(chain, FT.cuda_trunk_backward_split, keep=False),
+                              split_ms),
+                             (lambda: chains(o, None), pair_ms)):
+                into.append(cuda_ms(torch, fn, 5))
+            r.ms, r.split_ms = sum(pair_ms) / 2, sum(split_ms) / 2
+            r.ut_plain_ms = cuda_ms(torch, lambda: FT.trunk_ut_plain(
+                x.du_b, x.du_s, m, ws, x.ss, x.cs + [x.c_last], tm, keep=keep), 2)
+            r.dz_plain_ms = cuda_ms(torch, lambda: FT.trunk_dz_plain(
+                x.top, m, ws, x.ss, ds_plain, tm, keep=keep), 2)
+            r.plain_ms = r.ut_plain_ms + r.dz_plain_ms
+            r.ut_bound_ms, r.ut_bound_by = bound(ut_flops, ut_bytes)
+            r.dz_bound_ms, r.dz_bound_by = bound(dz_flops, dz_bytes)
+            r.bound_ms, r.bound_by = bound(ut_flops + dz_flops, ut_bytes + dz_bytes)
+            del chain
+        del o1, o2, sp, alone, x, buf, pairs, got
+        torch.cuda.empty_cache()
+        out.append(r)
+    return out
+
+
+def trunk_bwd16_text(r) -> str:
+    """One reading of trunk_bwd16_readings as a log line."""
+    what = f"m {r.m} keep {r.keep}" + (f" x{r.count}" if r.count > 1 else "")
+    worst = max(r.checks, key=lambda c: c[1])[2]
+    text = (f"{what}: {len(r.checks)} chain outputs within the kernel rule: "
+            f"{all(c[0] for c in r.checks)} (the worst: {worst}); {r.n_outputs} outputs through "
+            f"cuda_trunk_backward: the same bits on {r.n_same} of {r.reruns} reruns, the split "
+            f"launches' SHA-256 "
+            f"{'kept' if not r.moved else 'moved: ' + ', '.join(r.moved)}")
+    if r.ms is not None:
+        text += (f"; ut {r.ut_ms:.4f} ms (bound {r.ut_bound_ms:.4f}), dz {r.dz_ms:.4f} ms "
+                 f"(bound {r.dz_bound_ms:.4f}), the pair {r.ms:.4f} ms against the split "
+                 f"chain's {r.split_ms:.4f} ms ({r.ms / r.split_ms:.2f} of it), plain "
+                 f"{r.plain_ms:.3f} ms, bound {r.bound_ms:.4f} ms ({r.bound_by}): "
+                 f"{r.bound_ms / r.ms:.2f} of it")
+    return text + ("" if r.ok else " FAIL")
 
 
 def ragged_trunk_bwd32_calls():
@@ -3006,7 +3248,8 @@ def weighted(rs, keys=("ms", "plain_ms", "lib_ms", "bound_ms")):
 # Device time by kernel name of every profiled path (device_profile's
 # label -> {name: [us, launches]}), for the per-point kernels' table
 PROFILES = {}
-PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "hand_trunk_fwd_f32_kernel",
+PERPOINT_KERNELS = ("hand_trunk_fwd_kernel", "hand_uchain_kernel", "hand_trunk_ut_kernel",
+                    "hand_trunk_dz_kernel", "hand_trunk_fwd_f32_kernel",
                     "hand_uchain_f32_kernel", "hand_trunk_ut_f32_kernel",
                     "hand_trunk_dz_f32_kernel", "trunk_dw_f32_kernel", "color_fwd_f32_kernel",
                     "color_bwd_f32_kernel", "color_fwd_kernel", "color_bwd_kernel",
@@ -3025,13 +3268,18 @@ RETIRED_KERNELS = ("pose_partial_kernel", "pose_reduce_kernel")
 RETIRED_F32_KERNELS = ("gemm_tn_f32_kernel", "reduce_partials_kernel", "colsum_partial_kernel",
                        "gemm_f32_kernel", "color_dz_kernel")
 # the bf16 color net's split launches before its two (color_fwd_kernel,
-# color_bwd_kernel): no profiled bf16 request may show gemm_kernel or
-# color_dz_kernel, no bf16 'full' step color_dz_kernel; each of the two
-# shows the pair's kernels it runs
+# color_bwd_kernel) and the bf16 trunk backward's before its two
+# (hand_trunk_ut_kernel, hand_trunk_dz_kernel): no profiled bf16 request
+# or step may show gemm_kernel or color_dz_kernel; each shows the pairs'
+# kernels it runs
+_BWD16 = ("hand_trunk_ut_kernel", "hand_trunk_dz_kernel")
 RETIRED_BF16 = {f"one request of {REQUEST_RAYS} rays": (("gemm_kernel", "color_dz_kernel"),
                                                         ("color_fwd_kernel",)),
-                f"one train step of {TRAIN_RAYS} rays": (("color_dz_kernel",),
-                                                         ("color_fwd_kernel", "color_bwd_kernel"))}
+                f"one train step of {TRAIN_RAYS} rays": (("gemm_kernel", "color_dz_kernel"),
+                                                         ("color_fwd_kernel", "color_bwd_kernel")
+                                                         + _BWD16),
+                f"one train pallas step of {TRAIN_RAYS} rays": (("gemm_kernel",), _BWD16),
+                f"one train full_nocolor step of {TRAIN_RAYS} rays": (("gemm_kernel",), _BWD16)}
 
 
 def perpoint_bytes(kern: str, f32: bool):
@@ -4761,14 +5009,18 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
         flops = k5_flops(sdf_cfg, n)
         b_ms, b_by = bound(flops, 4 * (2 * E + d_out) * n + nbytes(weights),
                            PEAK_F32_3XTF32_FLOPS)
-        # K5 f32's trunk is the fused f32 pair: no GEMM of either type
-        names = device_kernel_names(torch, lambda: FT.hand_trunk_sdf_u_fwd(e, tpack))
-        pair, gemms_k5 = (sum(c for k, c in names.items() if any(x in k for x in keys))
+        # K5 f32's trunk is the fused f32 pair, two launches a pass: no GEMM
+        # of either type.  Read from the call's CUDA graph: a profiler
+        # capture of this call lost some or all of the pair's launches on
+        # an H100 in three of four runs of this script.
+        passes = -(-n // FT.chunk_size(n, 'f32', FT.CHUNK))
+        nodes = graph_kernel_nodes(torch, lambda: FT.hand_trunk_sdf_u_fwd(e, tpack))
+        pair, gemms_k5 = (sum(any(x in k for x in keys) for k in nodes)
                           for keys in (("hand_trunk_fwd_f32_kernel", "hand_uchain_f32_kernel"),
                                        ("gemm_f32_kernel", "gemm_kernel")))
-        log(f"K5 f32 hand_trunk_sdf_u_fwd: {n} pts "
-            f"({-(-n // FT.chunk_size(n, 'f32', FT.CHUNK))} passes); "
-            f"{'; '.join(c[2] for c in checks)}; the fused f32 pair {pair}, GEMMs {gemms_k5}; "
+        log(f"K5 f32 hand_trunk_sdf_u_fwd: {n} pts ({passes} passes); "
+            f"{'; '.join(c[2] for c in checks)}; its CUDA graph: {len(nodes)} nodes, the fused "
+            f"f32 pair {pair}, GEMMs {gemms_k5}; "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
             f"{flops / n / 1e6:.3f} MFLOP/pt, {flops / ms / 1e9:.1f} TFLOP/s)")
         rows["K5"] = dict(rows.get("K5", {}), f32_ms=ms, f32_plain_ms=plain_ms, f32_bound_ms=b_ms)
@@ -4776,7 +5028,7 @@ def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_
                    + 4 * sum(w.numel() for w in weights))
         bwd_report("K6 f32", "pallas", args, k6_flops(sdf_cfg, n), n_bytes, ("K6", "f32_"),
                    f32_names)
-        if not all(c[0] for c in checks) or not pair or gemms_k5:
+        if not all(c[0] for c in checks) or pair != 2 * passes or gemms_k5:
             raise AssertionError("K5 f32 disagrees with its plain version or ran a GEMM")
 
     gemms = ("TDW32", "TFWD32", "TUCH32", "TUT32", "TDZ32")
@@ -5299,7 +5551,8 @@ def main() -> int:
                    "GEMM_TN": FH.GEMM_TN, "EMBED": FH.EMBED, "COLSUM": FT.COLSUM,
                    "UCHAIN": FT.UCHAIN, "BWDREV": FF.BWDREV, "COPY": FT.COPY, "PACK": FT.PACK,
                    "POSE": FF.POSE, "TFWD": FT.TRUNK_FWD, "TUCH": FT.TRUNK_UCHAIN,
-                   "CFWD16": FF.COLOR_FWD, "CBWD16": FF.COLOR_BWD, "COLOR_DZ": FF.COLOR_DZ}
+                   "CFWD16": FF.COLOR_FWD, "CBWD16": FF.COLOR_BWD, "COLOR_DZ": FF.COLOR_DZ,
+                   "TUT16": FT.TRUNK_UT, "TDZ16": FT.TRUNK_DZ}
 
     def bwd_rules(label, mode, args):
         """K3's two rules on the mode's backward kernel: on the step's own
@@ -5388,36 +5641,38 @@ def main() -> int:
         assert moved > 0, "se3_refine did not move"
         idle = [k for k in expect if not launches[k]]
         stray = [k for k in ("K2", "K3", "K5", "K6", "BWDREV", "PACK", "POSE", "UCHAIN",
-                             "CFWD16", "CBWD16", "COLOR_DZ")
+                             "CFWD16", "CBWD16", "COLOR_DZ", "GEMM")
                  if k not in expect and launches[k]]
         assert not idle and not stray, (
             f"the {mode} train path launched {launches}: expected {expect} and no other fine "
             "pass kernel")
         # the pack: two a 'pallas' step (K5, K6); the pose sum: one a step
-        # of K3 (one pass of the step's 56,448 points); gemm_kernel 17 a
-        # step in every mode (K3's or K6's backward chain); the bf16 color
-        # pair ('full' only) a forward for K2's pass and K3's recompute, a
+        # of K3 (one pass of the step's 56,448 points); the trunk's backward
+        # pair once each a step in every mode (K3's or K6's one pass) and no
+        # gemm_kernel (its 17 a step before the pair); the bf16 color pair
+        # ('full' only) a forward for K2's pass and K3's recompute, a
         # transpose for K3's, and no color_dz_kernel
         steps = TRAIN_WARMUP + n_steps
         full = mode == "full"
         per_step = {"PACK": 2 if mode == "pallas" else 0, "POSE": 1 if mode != "pallas" else 0,
-                    "GEMM": 17, "CFWD16": 2 if full else 0, "CBWD16": 1 if full else 0,
-                    "COLOR_DZ": 0}
+                    "GEMM": 0, "TUT16": 1, "TDZ16": 1, "CFWD16": 2 if full else 0,
+                    "CBWD16": 1 if full else 0, "COLOR_DZ": 0}
         off = {k: launches[k] for k, n in per_step.items() if launches[k] != n * steps}
         assert not off, f"the {mode} train path's {steps} steps launched {off}: per step {per_step}"
         return launches
 
     def train():
         launches = train_run("train", "full", TRAIN_STEPS,
-                             ("K1", "K2", "K3", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "TFWD",
-                              "TUCH", "BWDREV", "POSE", "CFWD16", "CBWD16"))
+                             ("K1", "K2", "K3", "GEMM_TN", "EMBED", "COLSUM", "TFWD", "TUCH",
+                              "BWDREV", "POSE", "CFWD16", "CBWD16", "TUT16", "TDZ16"))
         rows.setdefault("CFWD16", {})["train_launches"] = launches["CFWD16"]
         rows.setdefault("CBWD16", {})["launches"] = launches["CBWD16"]
         rows.setdefault("K3", {})["launches"] = launches["K3"]
-        # the serve path launches no gemm_kernel: its count is the train
-        # step's (K3's backward chain)
+        # no main path launches gemm_kernel: the train step's count is 0
         rows.setdefault("GEMM", {}).update(launches=launches["GEMM"],
                                            train_launches=launches["GEMM"])
+        for name in ("TUT16", "TDZ16"):
+            rows.setdefault(name, {})["launches"] = launches[name]
         rows.setdefault("GEMM_TN", {})["launches"] = launches["GEMM_TN"]
         rows.setdefault("EMBED", {})["train_launches"] = launches["EMBED"]
         rows.setdefault("COLSUM", {})["launches"] = launches["COLSUM"]
@@ -5728,6 +5983,7 @@ def main() -> int:
         groups, bad = {}, []
         for label, calls in recs.items():
             COLOR16_CALLS[label] = color16_calls(calls)
+            TRUNK_BWD16_CALLS[label] = trunk_bwd32_calls(calls)
             calls = [c for c in calls if c[0] in ("fwd", "uc")]
             rs = groups[label] = trunk_readings(torch, dev, nets, calls)
             for r in rs:
@@ -5889,6 +6145,81 @@ def main() -> int:
     else:
         failures.append("fused color bf16")
 
+    def fused_trunk_bwd_bf16():
+        """The bf16 trunk backward's two kernels (hand_trunk_ut_kernel,
+        hand_trunk_dz_kernel) at the calls one bf16 'full', 'full_nocolor'
+        and 'pallas' step make (recorded by phase "fused trunk": K3's or
+        K6's one pass, with the kept rows) and at ragged sizes
+        (trunk_bwd16_readings: each chain against its plain version, every
+        output through cuda_trunk_backward against eight reruns' bits and
+        the split launches' SHA-256), timed in turns against the split chain;
+        each path's recorded calls (one upward and one downward chain a
+        step, none a request)."""
+        bad = []
+        want_calls = {"'full' step": 1, "'full_nocolor' step": 1, "'pallas' step": 1,
+                      "request": 0}
+        for label, k in want_calls.items():
+            cs = TRUNK_BWD16_CALLS.get(label)
+            good = cs is not None and len(cs) == k and all(keep for _, keep in cs)
+            log(f"fused trunk backward bf16, {label}: {len(cs or ())} chains "
+                f"{sorted(set(cs or ()))}{'' if good else ' FAIL'}")
+            bad += [] if good else [f"{label}'s calls"]
+        nets = trunk_nets(torch, dev, fs)
+        groups = {}
+        for label in ("'full' step", "'full_nocolor' step", "'pallas' step"):
+            calls = TRUNK_BWD16_CALLS.get(label)
+            if not calls:
+                bad.append(f"{label} not recorded")
+                continue
+            rs = groups[label] = trunk_bwd16_readings(torch, dev, nets, calls)
+            for r in rs:
+                log(f"fused trunk backward bf16, {label}: {trunk_bwd16_text(r)}")
+            bad += [trunk_bwd16_text(r) for r in rs if not r.ok]
+        for r in trunk_bwd16_readings(torch, dev, nets, ragged_trunk_bwd32_calls(),
+                                      timed=False):
+            log(f"fused trunk backward bf16, ragged: {trunk_bwd16_text(r)}")
+            bad += [] if r.ok else [trunk_bwd16_text(r)]
+        every = [r for rs in groups.values() for r in rs]
+        moved = sorted({k for r in every for k in r.moved})
+        log(f"fused trunk backward bf16: outputs whose bits moved against the split launches at "
+            f"the recorded calls: {moved or 'none'}")
+        keys = ("ms", "split_ms", "plain_ms", "bound_ms", "ut_ms", "dz_ms", "ut_plain_ms",
+                "dz_plain_ms", "ut_bound_ms", "dz_bound_ms")
+        tot = {label: weighted(rs, keys) for label, rs in groups.items()}
+        prefix = {"'full' step": "step_", "'full_nocolor' step": "nocolor_",
+                  "'pallas' step": "pallas_"}
+        for key, kern, part in (("TUT16", FT.TRUNK_UT, "ut"), ("TDZ16", FT.TRUNK_DZ, "dz")):
+            step = tot.get("'full' step") or {}
+            rows[key] = dict(rows.get(key, {}), name=kern.name, route="cuda", source=kern.source,
+                             replaces=kern.replaces,
+                             max_abs_err=max((r.max_abs for r in every), default=None),
+                             ms=step.get(f"{part}_ms"), plain_ms=step.get(f"{part}_plain_ms"),
+                             bound_ms=step.get(f"{part}_bound_ms"),
+                             bound_by=getattr((groups.get("'full' step") or [None])[0],
+                                              f"{part}_bound_by", None),
+                             library_ms=None, bits_moved=moved)
+            for label, t in tot.items():
+                if label != "'full' step":
+                    rows[key].update({f"{prefix[label]}ms": t.get(f"{part}_ms"),
+                                      f"{prefix[label]}bound_ms": t.get(f"{part}_bound_ms")})
+        for label, t in tot.items():
+            rows["TUT16"].update({f"{prefix[label]}pair_ms": t.get("ms"),
+                                  f"{prefix[label]}pair_split_ms": t.get("split_ms"),
+                                  f"{prefix[label]}pair_bound_ms": t.get("bound_ms")})
+            if t:
+                log(f"fused trunk backward bf16, {label}: the pair {t['ms']:.4f} ms against the "
+                    f"split chain's {t['split_ms']:.4f} ms ({t['ms'] / t['split_ms']:.2f} of "
+                    f"it), bound {t['bound_ms']:.4f} ms: {t['bound_ms'] / t['ms']:.2f} of it "
+                    f"(the split's {t['bound_ms'] / t['split_ms']:.2f})")
+        if bad:
+            raise AssertionError("the bf16 trunk backward's pair disagrees with its plain "
+                                 f"versions, the split launches, its bits or its calls: {bad}")
+
+    if "fused trunk" not in failures:
+        phase("fused trunk backward bf16", fused_trunk_bwd_bf16)
+    else:
+        failures.append("fused trunk backward bf16")
+
     # -- 14-20. the fine pass's other kernel modes: 'pallas' (K5 / K6 on the
     # embedding) and 'full_nocolor' (K2 / K3 without the color net) --------
     E, d_out = sdf_cfg.input_width, sdf_cfg.d_out
@@ -5945,21 +6276,24 @@ def main() -> int:
             torch.equal(x, y) for x, y in zip(again[1], got[1]))
         frozen = FT.hand_trunk_sdf_u_bwd(*args, want_dw=False)
         frozen_ok = frozen[1] is None and torch.equal(frozen[0], got[0])
-        # the profiler's kernel names, with dW as the control: the frozen
-        # call must launch K6's GEMMs and none of the dW / db kernels
+        # each call's CUDA graph (every launch, no trace to lose), with dW
+        # as the control: the frozen call must launch K6's backward pair
+        # and none of the dW / db kernels, and neither call a gemm_kernel
         before = FT.KERNEL_BWD.launches
-        names = {want_dw: device_kernel_names(
+        nodes = {want_dw: graph_kernel_nodes(
             torch, lambda: FT.hand_trunk_sdf_u_bwd(*args, want_dw=want_dw))
             for want_dw in (True, False)}
         launched = FT.KERNEL_BWD.launches - before == 2
 
         def count(want_dw, *keys):
-            return sum(c for k, c in names[want_dw].items() if any(x in k for x in keys))
+            return sum(any(x in k for x in keys) for k in nodes[want_dw])
 
         dw_keys = ("gemm_tn", "colsum", "reduce_partials")
         dw_launches = count(False, *dw_keys)
+        pair = ("hand_trunk_ut_kernel", "hand_trunk_dz_kernel")
         dw_seen = (launched and count(True, *dw_keys) > 0
-                   and count(False, "gemm_kernel") == count(True, "gemm_kernel") > 0)
+                   and all(count(False, k) == count(True, k) > 0 for k in pair)
+                   and count(False, "gemm_kernel") == count(True, "gemm_kernel") == 0)
         ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_bwd(*args), 5)
         frozen_ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_bwd(*args, want_dw=False), 5)
         plain_ms = cuda_ms(torch, lambda: FT.hand_trunk_sdf_u_plain_bwd(*args), 2)
@@ -5970,9 +6304,10 @@ def main() -> int:
         log(f"K6 hand_trunk_sdf_u_bwd: {n} pts ({-(-n // FT.BWD_CHUNK)} passes); "
             f"{sum(oks)}/{len(oks)} comparisons within tolerance; a second run gives the same "
             f"bits: {same}; frozen call: the same de {frozen_ok}, dW/db launches "
-            f"{dw_launches} of {sum(names[False].values())} (with dW "
-            f"{count(True, *dw_keys)} of {sum(names[True].values())}; GEMMs "
-            f"{count(False, 'gemm_kernel')} and {count(True, 'gemm_kernel')}; the profiler saw "
+            f"{dw_launches} of {len(nodes[False])} graph nodes (with dW "
+            f"{count(True, *dw_keys)} of {len(nodes[True])}; the backward pair "
+            f"{count(False, *pair)} and {count(True, *pair)}, gemm_kernel "
+            f"{count(False, 'gemm_kernel')} and {count(True, 'gemm_kernel')}; the graphs show "
             f"them: {dw_seen}), {frozen_ms:.3f} ms; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
             f"ms, bound {b_ms:.4f} ms ({b_by}, {k6_flops(sdf_cfg, n) / 1e12:.3f} TFLOP)")
         rows["K6"] = dict(rows.get("K6", {}), name=FT.KERNEL_BWD.name, route="cuda",
@@ -6034,16 +6369,20 @@ def main() -> int:
 
     def train_pallas():
         launches = train_run("train pallas", "pallas", TRAIN_STEPS,
-                             ("K1", "K5", "K6", "GEMM", "GEMM_TN", "EMBED", "COLSUM", "TFWD",
-                              "TUCH", "COPY", "PACK"), profile=True)
+                             ("K1", "K5", "K6", "GEMM_TN", "EMBED", "COLSUM", "TFWD", "TUCH",
+                              "COPY", "PACK", "TUT16", "TDZ16"), profile=True)
         for name in ("K5", "K6", "PACK"):
             rows.setdefault(name, {})["launches"] = launches[name]
+        for name in ("TUT16", "TDZ16"):
+            rows.setdefault(name, {})["pallas_launches"] = launches[name]
         rows.setdefault("COPY", {})["pallas_launches"] = launches["COPY"]
 
     def train_nocolor():
         launches = train_run("train full_nocolor", "full_nocolor", NOCOLOR_STEPS,
                              ("K1", "K2", "K3", "EMBED", "COLSUM", "TFWD", "TUCH", "BWDREV",
-                              "COPY", "POSE"), profile=True)
+                              "COPY", "POSE", "TUT16", "TDZ16"), profile=True)
+        for name in ("TUT16", "TDZ16"):
+            rows.setdefault(name, {})["nocolor_launches"] = launches[name]
         rows.setdefault("COPY", {})["launches"] = launches["COPY"]
         rows.setdefault("K2", {})["nocolor_launches"] = launches["K2"]
         rows.setdefault("K3", {})["nocolor_launches"] = launches["K3"]
@@ -6374,7 +6713,7 @@ def main() -> int:
         failures.append("per-point profiles")
     log(gpu_line())
     order = ("K1", "K2", "K3", "K4", "K5", "K6", "TFWD", "TUCH", "TFWD32", "TUCH32", "TUT32",
-             "TDZ32", "TDW32", "CFWD32", "CBWD32", "CFWD16", "CBWD16", "GEMM",
+             "TDZ32", "TDW32", "CFWD32", "CBWD32", "CFWD16", "CBWD16", "TUT16", "TDZ16", "GEMM",
              "GEMM_TN", "GEMM_F32", "GEMM_TN_F32", "EMBED", "COLSUM", "UCHAIN", "BWDREV",
              "COPY", "PACK", "POSE")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -6424,6 +6763,14 @@ def main() -> int:
                          "bits_moved")
                         + tuple(f"request_{k}" for k in ("ms", "split_ms", "bound_ms"))),
              "CBWD16": ("step_split_ms", "bits_moved"),
+             "TUT16": (("pallas_launches", "nocolor_launches", "bits_moved")
+                       + tuple(f"{p}{k}" for p in ("nocolor_", "pallas_")
+                               for k in ("ms", "bound_ms"))
+                       + tuple(f"{p}pair_{k}" for p in ("step_", "nocolor_", "pallas_")
+                               for k in ("ms", "split_ms", "bound_ms"))),
+             "TDZ16": (("pallas_launches", "nocolor_launches", "bits_moved")
+                       + tuple(f"{p}{k}" for p in ("nocolor_", "pallas_")
+                               for k in ("ms", "bound_ms"))),
              "COLSUM": ("f32_launches",),
              "GEMM_F32": ("pallas_launches", "request_launches"),
              "GEMM": ("image_launches", "request_launches", "train_launches"),

@@ -23,7 +23,8 @@ from typing import Dict, Optional, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "honerf_kernels"
 SOURCES = ("fused_hand", "fused_fine_full", "fused_fine_bwd", "fused_sdf", "fused_trunk",
-           "trunk_fused", "trunk_fused_f32", "trunk_bwd_f32", "trunk_dw_f32", "color_fused_f32")
+           "trunk_fused", "trunk_fused_f32", "trunk_bwd", "trunk_bwd_f32", "trunk_dw_f32",
+           "color_fused", "color_fused_f32")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 

@@ -42,8 +42,9 @@ backward K6 from the same source, with a bf16 or an f32 trunk
 (`TrunkMeta.dtype`); the trunk's forward and u-chain are two launches
 (`trunk_fwd`, `trunk_uchain`: every layer of a tile of points on chip) of
 csrc/trunk_fused.cu for a bf16 trunk and of csrc/trunk_fused_f32.cu (3xTF32
-on wgmma) for an f32 one; for an f32 trunk the backward's two chains are
-two launches too (`trunk_ut`, `trunk_dz`: csrc/trunk_bwd_f32.cu).  On CPU
+on wgmma) for an f32 one; the backward's two chains are two launches too
+(`trunk_ut`, `trunk_dz`: csrc/trunk_bwd.cu for a bf16 trunk,
+csrc/trunk_bwd_f32.cu for an f32 one).  On CPU
 tensors both run their plain versions (`hand_trunk_sdf_u_plain`,
 `hand_trunk_sdf_u_plain_bwd`, on the block bodies `_kernel_fwd_body`, that
 is `trunk_fwd_plain` then `trunk_uchain_plain`, and `_trunk_bwd_block`, on
@@ -574,6 +575,13 @@ TRUNK_UT_F32 = _build.Kernel("hand_trunk_ut_f32_kernel",
 TRUNK_DZ_F32 = _build.Kernel("hand_trunk_dz_f32_kernel",
                              "honerf_torch/ops/csrc/trunk_bwd_f32.cu",
                              "honerf_tpu/ops/fused_fine_full.py:1650")
+# The bf16 trunk's backward in two launches (csrc/trunk_bwd.cu): the bf16
+# mode of the same two chains, inside K6's pallas_call and K3's with
+# FineMeta(dtype='bf16'); each kernel runs in both.
+TRUNK_UT = _build.Kernel("hand_trunk_ut_kernel", "honerf_torch/ops/csrc/trunk_bwd.cu",
+                         "honerf_tpu/ops/fused_fine.py:488")
+TRUNK_DZ = _build.Kernel("hand_trunk_dz_kernel", "honerf_torch/ops/csrc/trunk_bwd.cu",
+                         "honerf_tpu/ops/fused_fine_full.py:1650")
 # An f32 pass's weight gradients in one launch (csrc/trunk_dw_f32.cu): the
 # f32 mode of `_trunk_bwd_block`'s dW / db (honerf_tpu/ops/fused_fine.py:
 # 379-381, 397-399) inside K6's pallas_call (:488) and K3's, with K3's
@@ -852,6 +860,30 @@ def _tb32lib():
     return lib
 
 
+def _tb16lib():
+    """The library of csrc/trunk_bwd.cu (the bf16 trunk backward's two
+    kernels)."""
+    lib = _build.load("trunk_bwd")
+    if not getattr(lib, "_honerf_tb16_typed", False):
+        L = ctypes.c_longlong
+        lib.honerf_trunk_ut.argtypes = [
+            _I, _I, _I, _I, _I, _P, _P,      # M, Ep, Hp, n_layers, skip, ws, in_cols
+            _P, _P, _I, _P, L, _I,           # du_b, du_s, lddu, ss, ss_layer, lds
+            _P, L, _I, _P,                   # cs, cs_layer, ldc, c_last
+            _P, L, _I, _P, L, _I, _F, _P]    # ds, ds_layer, ldds, dm, dm_layer, lddm, hscale,
+                                             # stream
+        lib.honerf_trunk_dz.argtypes = [
+            _I, _I, _I, _I, _I, _I,          # M, Ep, Hp, Op, n_layers, skip
+            _P, _P, _P, _P, _I,              # wts, in_cols, out_cols, top, ldtop
+            _P, L, _I, _P, L, _I,            # ss, ss_layer, lds, ds, ds_layer, ldds
+            _P, _I, _P, L, _I, _P, L, _I,    # de, ldde, dzf, dzf_layer, lddz, dzb, dzb_layer,
+                                             # lddzb
+            _F, _F, _P]                      # hscale, escale, stream
+        lib.honerf_trunk_ut.restype = lib.honerf_trunk_dz.restype = _I
+        lib._honerf_tb16_typed = True
+    return lib
+
+
 def _tdw32lib():
     """The library of csrc/trunk_dw_f32.cu (an f32 pass's weight gradients)."""
     lib = _build.load("trunk_dw_f32")
@@ -1040,25 +1072,39 @@ def trunk_uchain(m: int, ws, wts, tm: TrunkMeta, ss, u=None, ts=None, cs=None,
         None if cs is None else _ptrs(cs[:n - 1]), ldc, stream), "honerf_trunk_uchain")
 
 
-def _check_f32_backward(tm: TrunkMeta, ws) -> None:
-    if tm.dtype != "f32" or tm.Hp not in (64, 128, 256) or any(
-            w.dtype != torch.float32 for w in ws):
-        raise ValueError("the fused backward chains take an f32 trunk, f32 weights, Hp 64, "
-                         "128 or 256")
+def _check_backward(tm: TrunkMeta, ws) -> None:
+    if tm.dtype not in ("bf16", "f32") or tm.Hp not in (64, 128, 256) or any(
+            w.dtype != _cast(tm) for w in ws):
+        raise ValueError("the fused backward chains take a bf16 or f32 trunk, weights of its "
+                         "dtype, Hp 64, 128 or 256")
+
+
+def _planes_of(what: str, ts) -> Tuple[int, int]:
+    """(base pointer, plane stride in elements) of row blocks that are the
+    planes of one tensor, in order (the bf16 backward's 3D maps read them
+    so); a single block's stride is 0."""
+    ptrs = [t.data_ptr() for t in ts]
+    steps = {b - a for a, b in zip(ptrs, ptrs[1:])}
+    size = ts[0].element_size()
+    if len(steps) > 1 or any(st <= 0 or st % size for st in steps):
+        raise ValueError(f"{what}: the planes of one tensor, in order")
+    return ptrs[0], (steps.pop() // size if steps else 0)
 
 
 def trunk_ut(m: int, ws, tm: TrunkMeta, du_b, du_s, ss, cs, c_last, ds, dms=None,
              stream=None) -> None:
-    """The u-chain transposed, upward, on m points of an f32 trunk (one
-    launch: csrc/trunk_bwd_f32.cu's hand_trunk_ut_f32_kernel): ds[l][:m] =
-    dt_l c_{l+1} (ds (n - 1, >= m, Hp) f32) and, with dms, dms[l][:m] = dm_l
-    (1 <= l <= n - 1; dms[0] None) from du_b = du and du_s = du / sqrt2
-    ((>= m, Ep) f32, one stride), the forward's sigmoid rows ss (n - 1,
-    >= m, Hp), the u-chain's c rows cs[l] (1 <= l < n - 1) and c_last =
-    c_{n-1} (Hp,).  On a CPU du_b it writes trunk_ut_plain's rows and
-    launches nothing."""
+    """The u-chain transposed, upward, on m points (one launch: for a bf16
+    trunk csrc/trunk_bwd.cu's hand_trunk_ut_kernel, for an f32 one
+    csrc/trunk_bwd_f32.cu's hand_trunk_ut_f32_kernel): ds[l][:m] = dt_l
+    c_{l+1} (ds (n - 1, >= m, Hp) f32) and, with dms, dms[l][:m] = dm_l
+    (1 <= l <= n - 1, trunk dtype; dms[0] None) from du_b = du and du_s =
+    du / sqrt2 ((>= m, Ep) in the trunk dtype, one stride), the forward's
+    sigmoid rows ss (n - 1, >= m, Hp), the u-chain's c rows cs[l] (1 <= l <
+    n - 1) and c_last = c_{n-1} (Hp,); ws the pack's (in, out) weights.  A
+    bf16 trunk's cs and dms rows are each the planes of one tensor.  On a
+    CPU du_b it writes trunk_ut_plain's rows and launches nothing."""
     n = tm.n_layers
-    _check_f32_backward(tm, ws)
+    _check_backward(tm, ws)
     if du_b.device.type == "cpu":
         rows = [None] + [c[:m] for c in cs[1:n - 1]] + [c_last]
         d, kept = trunk_ut_plain(du_b, du_s, m, ws, ss, rows, tm, keep=dms is not None)
@@ -1067,53 +1113,86 @@ def trunk_ut(m: int, ws, tm: TrunkMeta, du_b, du_s, ss, cs, c_last, ds, dms=None
             if dms is not None:
                 dms[l + 1][:m] = kept[l + 1]
         return
-    lddu = _check_rows("du", [du_b, du_s], torch.float32, m, tm.Ep)
+    op = _cast(tm)
+    lddu = _check_rows("du", [du_b, du_s], op, m, tm.Ep)
     _check_rows("ss", list(ss), torch.float32, m, tm.Hp)
     _check_rows("ds", list(ds), torch.float32, m, tm.Hp)
     ldc = _check_rows("cs", list(cs[1:n - 1]), torch.float32, m, tm.Hp)
-    lddm = _check_rows("dms", list(dms[1:]), torch.float32, m, tm.Hp) if dms is not None else 0
+    lddm = _check_rows("dms", list(dms[1:]), op, m, tm.Hp) if dms is not None else 0
     if (c_last.dtype != torch.float32 or c_last.dim() != 1 or c_last.shape[0] < tm.Hp
             or c_last.stride(0) != 1 or c_last.data_ptr() % 16):
         raise ValueError("c_last: Hp contiguous f32 values, 16-byte aligned")
+    rows = (_ints([w.shape[0] for w in ws[:n - 1]]), du_b.data_ptr(), du_s.data_ptr(), lddu,
+            ss.data_ptr(), ss.stride(0), ss.stride(1))
+    ds_args = (ds.data_ptr(), ds.stride(0), ds.stride(1))
+    if tm.dtype == "bf16":
+        dm = (0, 0) if dms is None else _planes_of("dms", dms[1:])
+        TRUNK_UT.launches += 1
+        _build.check(_tb16lib().honerf_trunk_ut(
+            m, tm.Ep, tm.Hp, n, tm.skip, _ptrs(ws[:n - 1]), *rows,
+            *_planes_of("cs", cs[1:n - 1]), ldc, c_last.data_ptr(), *ds_args, *dm, lddm,
+            INV_SQRT2, stream), "honerf_trunk_ut")
+        return
     TRUNK_UT_F32.launches += 1
     _build.check(_tb32lib().honerf_trunk_ut_f32(
         m, tm.Ep, tm.Hp, n, tm.skip, _ptrs([tf32_operands(w, True) for w in ws[:n - 1]]),
-        _ints([w.shape[0] for w in ws[:n - 1]]), du_b.data_ptr(), du_s.data_ptr(), lddu,
-        ss.data_ptr(), ss.stride(0), ss.stride(1), _ptrs([None] + list(cs[1:n - 1])), ldc,
-        c_last.data_ptr(), ds.data_ptr(), ds.stride(0), ds.stride(1),
+        *rows, _ptrs([None] + list(cs[1:n - 1])), ldc, c_last.data_ptr(), *ds_args,
         None if dms is None else _ptrs([None] + list(dms[1:])), lddm, INV_SQRT2, stream),
         "honerf_trunk_ut_f32")
 
 
-def trunk_dz(m: int, ws, tm: TrunkMeta, top, ss, ds, de, dzs=None, stream=None) -> None:
-    """The forward transposed, downward, on m points of an f32 trunk (one
-    launch: csrc/trunk_bwd_f32.cu's hand_trunk_dz_f32_kernel): de[:m, :Ep]
-    (f32) and, with dzs, dzs[l][:m] = dz_l (l < n - 1, f32) from the top
-    cotangent top[:m, :Op] = dz_{n-1} (f32), the sigmoid rows ss and the
-    upward chain's ds (n - 1, >= m, Hp).  On a CPU top it writes
-    trunk_dz_plain's rows and launches nothing."""
+def trunk_dz(m: int, ws, tm: TrunkMeta, top, ss, ds, de, dzs=None, stream=None, wts=None,
+             dzbs=None) -> None:
+    """The forward transposed, downward, on m points (one launch: for a
+    bf16 trunk csrc/trunk_bwd.cu's hand_trunk_dz_kernel, for an f32 one
+    csrc/trunk_bwd_f32.cu's hand_trunk_dz_f32_kernel): de[:m, :Ep] (f32)
+    and, with dzs, dzs[l][:m] = dz_l (l < n - 1, f32; a bf16 trunk also its
+    bf16 rounding into dzbs[l]) from the top cotangent top[:m, :Op] = dz_{n-1}
+    (in the trunk dtype), the sigmoid rows ss and the upward chain's ds (n -
+    1, >= m, Hp); ws the pack's weights, wts (a bf16 trunk's) their
+    transposes.  A bf16 trunk's dzs and dzbs rows are each the planes of
+    one tensor.  On a CPU top it writes trunk_dz_plain's rows and launches
+    nothing."""
     n = tm.n_layers
-    _check_f32_backward(tm, ws)
+    _check_backward(tm, ws)
+    bf16 = tm.dtype == "bf16"
+    if bf16 and (dzs is None) != (dzbs is None):
+        raise ValueError("a bf16 trunk's downward chain keeps dzbs beside dzs")
     if top.device.type == "cpu":
         d, kept = trunk_dz_plain(top, m, ws, ss, ds, tm, keep=dzs is not None)
         de[:m, :tm.Ep] = d
-        if dzs is not None:
-            for l in range(n - 1):
-                dzs[l][:m] = kept[l]
+        for l in range(n - 1 if dzs is not None else 0):
+            dzs[l][:m] = kept[l]
+            if bf16:
+                dzbs[l][:m] = kept[l]
         return
-    ldtop = _check_rows("top", [top], torch.float32, m, tm.Op)
+    ldtop = _check_rows("top", [top], _cast(tm), m, tm.Op)
     _check_rows("ss", list(ss), torch.float32, m, tm.Hp)
     _check_rows("ds", list(ds), torch.float32, m, tm.Hp)
     ldde = _check_rows("de", [de], torch.float32, m, tm.Ep)
     lddz = _check_rows("dzs", list(dzs[:n - 1]), torch.float32, m, tm.Hp) if dzs is not None else 0
+    rows = (ss.data_ptr(), ss.stride(0), ss.stride(1), ds.data_ptr(), ds.stride(0), ds.stride(1),
+            de.data_ptr(), ldde)
+    if bf16:
+        if wts is None or any(w.dtype != torch.bfloat16 for w in wts):
+            raise ValueError("a bf16 trunk's downward chain takes its bf16 wts")
+        kept = (0, 0, 0, 0, 0, 0)
+        if dzs is not None:
+            lddzb = _check_rows("dzbs", list(dzbs[:n - 1]), torch.bfloat16, m, tm.Hp)
+            kept = (*_planes_of("dzs", dzs[:n - 1]), lddz, *_planes_of("dzbs", dzbs[:n - 1]),
+                    lddzb)
+        TRUNK_DZ.launches += 1
+        _build.check(_tb16lib().honerf_trunk_dz(
+            m, tm.Ep, tm.Hp, tm.Op, n, tm.skip, _ptrs(wts), _ints([w.shape[1] for w in wts]),
+            _ints([w.shape[0] for w in wts]), top.data_ptr(), ldtop, *rows, *kept, INV_SQRT2,
+            INV_SQRT2, stream), "honerf_trunk_dz")
+        return
     TRUNK_DZ_F32.launches += 1
     _build.check(_tb32lib().honerf_trunk_dz_f32(
         m, tm.Ep, tm.Hp, tm.Op, n, tm.skip, _ptrs([tf32_operands(w, False) for w in ws]),
         _ints([w.shape[0] for w in ws]), _ints([w.shape[1] for w in ws]), top.data_ptr(),
-        ldtop, ss.data_ptr(), ss.stride(0), ss.stride(1), ds.data_ptr(), ds.stride(0),
-        ds.stride(1), de.data_ptr(), ldde,
-        None if dzs is None else _ptrs(list(dzs[:n - 1])), lddz, INV_SQRT2, INV_SQRT2, stream),
-        "honerf_trunk_dz_f32")
+        ldtop, *rows, None if dzs is None else _ptrs(list(dzs[:n - 1])), lddz, INV_SQRT2,
+        INV_SQRT2, stream), "honerf_trunk_dz_f32")
 
 
 def planes(n: int, C: int, width: int, dev, dtype) -> List[torch.Tensor]:
@@ -1136,10 +1215,10 @@ def trunk_buffers(tm: TrunkMeta, C: int, dev, keep: bool):
         ss=torch.empty((n - 1, C, Hp), device=dev, dtype=f32),
     )
     if keep:
-        # cs[l] = c_l of the u-chain for l = 1..n-2; c_{n-1} = W_{n-1}[:, 0]
-        # is the same row for every point (a stride-0 operand)
-        buf["cs"] = [None] + [torch.empty((C, Hp), device=dev, dtype=f32)
-                              for _ in range(n - 2)]
+        # cs[l] = c_l of the u-chain for l = 1..n-2 (planes: the bf16
+        # backward reads them as one map); c_{n-1} = W_{n-1}[:, 0] is the
+        # same row for every point (a stride-0 operand)
+        buf["cs"] = [None] + planes(n - 2, C, Hp, dev, f32)
     return buf
 
 
@@ -1219,10 +1298,12 @@ def cuda_trunk_forward_split(lib, e, m: int, ws, bs, wts, tm: TrunkMeta, buf, st
 
 def trunk_bwd_buffers(ws, tm: TrunkMeta, C: int, dev, width: int, want_dw: bool = True):
     """Scratch of cuda_trunk_backward for C points; dzf / dzb (the f32
-    and the trunk-dtype cotangent rows) `width` columns wide; for an f32
-    trunk with want_dw the fused chains' kept rows dms (dm_l, 1 <= l < n)
-    and dzs (dz_l, l < n - 1), each the planes of one tensor, which the
-    weight gradients' launch (trunk_dw) reads after them."""
+    and the trunk-dtype cotangent rows) `width` columns wide; with want_dw
+    the fused chains' kept rows dms (dm_l, 1 <= l < n, trunk dtype) and dzs
+    (dz_l, l < n - 1, f32; a bf16 trunk also dzbs, their bf16 rounding),
+    each the planes of one tensor, which the weight gradients (an f32
+    trunk's trunk_dw launch, a bf16 trunk's _bf16_dw sequence) read after
+    them."""
     n, Hp, Ep, Op = tm.n_layers, tm.Hp, tm.Ep, tm.Op
     op, f32 = _cast(tm), torch.float32
     onehot = torch.zeros((C, Op), device=dev, dtype=op)
@@ -1238,9 +1319,11 @@ def trunk_bwd_buffers(ws, tm: TrunkMeta, C: int, dev, width: int, want_dw: bool 
         onehot=onehot,
         c_last=ws[n - 1][:, 0].float().contiguous(),    # c_{n-1}, every point
     )
-    if tm.dtype == "f32" and want_dw:
-        bw["dms"] = [None] + planes(n - 1, C, Hp, dev, f32)
+    if want_dw:
+        bw["dms"] = [None] + planes(n - 1, C, Hp, dev, op)
         bw["dzs"] = planes(n - 1, C, Hp, dev, f32)
+        if tm.dtype == "bf16":
+            bw["dzbs"] = planes(n - 1, C, Hp, dev, op)
     return bw
 
 
@@ -1252,22 +1335,47 @@ def cuda_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, db
     downward from the top cotangent in bw's dzf[0] / dzb[0]; dW and db
     into dws / dbs (f32; acc: add to them, the passes after the first),
     the cotangent of e into bw's de (f32, Ep columns).  buf: the forward's
-    rows (cuda_trunk_forward, keep=True).  An f32 trunk runs the two chains
-    as two launches (trunk_ut, trunk_dz), then with want_dw every dW and db
-    in one launch on the rows they keep (trunk_dw; `color`: K3's color
-    rows and gradients, dw_color_rows, join it); a bf16 trunk one GEMM a
-    layer (_split_trunk_backward)."""
-    if tm.dtype != "f32":
-        _split_trunk_backward(lib, m, e, ws, wts, tm, buf, bw, dws, dbs, want_dw, acc, scratch,
-                              stream)
-        return
+    rows (cuda_trunk_forward, keep=True).  The two chains are two launches
+    (trunk_ut, trunk_dz) in either dtype; then with want_dw an f32 trunk
+    runs every dW and db in one launch on the rows they keep (trunk_dw;
+    `color`: K3's color rows and gradients, dw_color_rows, join it), a
+    bf16 trunk the split launches' dW sequence on them (_bf16_dw)."""
     cs, ss = buf["cs"], buf["ss"]
-    top, du_b, du_s = bw["dzf"][0], bw["du_b"], bw["du_s"]
+    du_b, du_s = bw["du_b"], bw["du_s"]
     dms, dzs = (bw["dms"], bw["dzs"]) if want_dw else (None, None)
     trunk_ut(m, ws, tm, du_b, du_s, ss, cs, bw["c_last"], bw["ds"], dms, stream)
-    trunk_dz(m, ws, tm, top, ss, bw["ds"], bw["de"], dzs, stream)
+    if tm.dtype == "bf16":
+        trunk_dz(m, ws, tm, bw["dzb"][0], ss, bw["ds"], bw["de"], dzs, stream, wts=wts,
+                 dzbs=bw["dzbs"] if want_dw else None)
+        if want_dw:
+            _bf16_dw(lib, m, e, ws, tm, buf, bw, dws, dbs, acc, scratch, stream)
+        return
+    trunk_dz(m, ws, tm, bw["dzf"][0], ss, bw["ds"], bw["de"], dzs, stream)
     if want_dw:
         trunk_dw(m, tm, dw_rows(e, buf, bw), dws, dbs, acc, stream, color)
+
+
+def _bf16_dw(lib, m: int, e, ws, tm: TrunkMeta, buf, bw, dws, dbs, acc: int, scratch,
+             stream) -> None:
+    """A bf16 pass's dW and db on the rows the fused chains keep, as the
+    split launches run them, in their order: the upward products dW_l (+)=
+    dm_l^T t_l (dm_0 = du_b; the skip's du_s rows too; t_{n-1} the one-hot
+    sdf column), a gemm_tn_kernel (and its reduce_partials_kernel) each,
+    then top down each layer's dW_l += in_l^T dz_l and its column sum
+    (_layer_dw)."""
+    n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
+    du_b, du_s, dms, ts = bw["du_b"], bw["du_s"], bw["dms"], buf["ts"]
+    for l in range(n):
+        Y = bw["onehot"] if l == n - 1 else ts[l]
+        A, K = (du_b, Ep) if l == 0 else (dms[l], Hp)
+        _tn(lib, A, A.stride(0), K, Y, Y.shape[1], m, dws[l], acc, scratch, stream)
+        if l == tm.skip:
+            _tn(lib, du_s, du_s.stride(0), Ep, Y, Y.shape[1], m, dws[l][Hp:], acc, scratch,
+                stream)
+    for l in range(n - 1, -1, -1):
+        Zb, Zf = ((bw["dzb"][0], bw["dzf"][0]) if l == n - 1
+                  else (bw["dzbs"][l], bw["dzs"][l]))
+        _layer_dw(lib, m, e, ws, tm, buf["acts"], l, Zb, Zf, dws, dbs, acc, scratch, stream)
 
 
 def dw_rows(e, buf, bw) -> dict:
@@ -1494,38 +1602,46 @@ def _layer_dw(lib, m: int, e, ws, tm: TrunkMeta, acts, l: int, Zb, Zf, dws, dbs,
 
 def cuda_trunk_backward_split(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, dbs,
                               want_dw: bool, acc: int, scratch, stream) -> None:
-    """cuda_trunk_backward's outputs for an f32 trunk as the split launches
-    the fused chains replaced: one gemm_f32_kernel a layer (EPI_UT, then
-    EPI_DZ), each layer's weight gradients beside it.  No main path calls
-    it: chip_smoke.py and bench_gemm.py time and hold the chains against
-    it at the same calls."""
-    if tm.dtype != "f32":
-        raise ValueError("the split launches are the f32 trunk's")
+    """cuda_trunk_backward's outputs as the split launches the fused
+    chains replaced: one GEMM a layer (gemm_kernel in bf16, gemm_f32_kernel
+    in f32; EPI_UT, then EPI_DZ), each layer's weight gradients beside it.
+    No main path calls it: chip_smoke.py and bench_gemm.py time and hold
+    the chains against it at the same calls."""
     _split_trunk_backward(lib, m, e, ws, wts, tm, buf, bw, dws, dbs, want_dw, acc, scratch,
                           stream)
 
 
 def _split_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, dbs,
                           want_dw: bool, acc: int, scratch, stream) -> None:
-    """The trunk backward as one GEMM a layer (the bf16 trunk's launches;
-    an f32 trunk's only in cuda_trunk_backward_split)."""
+    """The trunk backward as one GEMM a layer (cuda_trunk_backward_split's
+    launches).  A bf16 pass with dW writes each dm_l and dz_l into the
+    kept planes the fused chains fill (bw's dms, dzs, dzbs), so that the
+    two are compared row by row; else two rows of each alternate."""
     from honerf_torch.ops import fused_hand as FH
 
     n, Hp, Ep = tm.n_layers, tm.Hp, tm.Ep
     acts, ts, cs, ss = buf["acts"], buf["ts"], buf["cs"], buf["ss"]
-    dzf, dzb, dm, ds, de = bw["dzf"], bw["dzb"], bw["dm"], bw["ds"], bw["de"]
+    ds, de = bw["ds"], bw["de"]
     du_b, du_s, onehot, c_last = bw["du_b"], bw["du_s"], bw["onehot"], bw["c_last"]
+    if want_dw and "dzbs" in bw:
+        dm = bw["dms"]
+        dzf = bw["dzs"] + [bw["dzf"][0]]
+        dzb = bw["dzbs"] + [bw["dzb"][0]]
+    else:   # dm_l in dm[l % 2], dz_l in dzf / dzb[(n - 1 - l) % 2]
+        dm = [bw["dm"][l % 2] for l in range(n)]
+        dzf = [bw["dzf"][(n - 1 - l) % 2] for l in range(n)]
+        dzb = [bw["dzb"][(n - 1 - l) % 2] for l in range(n)]
     # u-chain transposed, upward: dt = dm_l W_l, dc = dt s_l,
     # ds_l = dt c_{l+1}, dW_l += dm_l^T t_l
     for l in range(n):
         if l == 0:
             A1, K1, A2, K2 = du_b, Ep, None, 0
         elif l == tm.skip:
-            A1, K1, A2, K2 = dm[l % 2], Hp, du_s, Ep
+            A1, K1, A2, K2 = dm[l], Hp, du_s, Ep
         else:
-            A1, K1, A2, K2 = dm[l % 2], Hp, None, 0
+            A1, K1, A2, K2 = dm[l], Hp, None, 0
         if l < n - 1:
-            out = dm[(l + 1) % 2]
+            out = dm[l + 1]
             cs_next = c_last if l + 1 == n - 1 else cs[l + 1]
             FH.gemm(lib, A1, K1, A2, K2, ws[l], Hp, None, m, EPI_UT, out,
                     out.stride(0), S=ss[l], DS=ds[l], CS=cs_next,
@@ -1540,24 +1656,21 @@ def _split_trunk_backward(lib, m: int, e, ws, wts, tm: TrunkMeta, buf, bw, dws, 
     # forward transposed, downward: dW_l += in_l^T dz_l, db_l = sum dz_l,
     # din = dz_l W_l^T, dz_{l-1} = da s + ds beta s (1 - s), de at the
     # skip and layer 0
-    cur = 0
     for l in range(n - 1, -1, -1):
         if want_dw:
-            _layer_dw(lib, m, e, ws, tm, acts, l, dzb[cur], dzf[cur], dws, dbs, acc, scratch,
+            _layer_dw(lib, m, e, ws, tm, acts, l, dzb[l], dzf[l], dws, dbs, acc, scratch,
                       stream)
         wt = wts[l]                            # (out_pad, in_pad)
         width = ws[l].shape[1]
         if l > 0:
-            nxt = 1 - cur
             skip = l == tm.skip
-            FH.gemm(lib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_DZ,
-                    dzb[nxt], dzb[nxt].stride(0), Cf=dzf[nxt], S=ss[l - 1], DS=ds[l - 1],
-                    U=de if skip else None, split=Hp,
+            FH.gemm(lib, dzb[l], width, None, 0, wt, wt.shape[1], None, m, EPI_DZ,
+                    dzb[l - 1], dzb[l - 1].stride(0), Cf=dzf[l - 1], S=ss[l - 1],
+                    DS=ds[l - 1], U=de if skip else None, split=Hp,
                     hscale=INV_SQRT2 if skip else 1.0, escale=INV_SQRT2, u_acc=0,
                     stream=stream)
-            cur = nxt
         else:
-            FH.gemm(lib, dzb[cur], width, None, 0, wt, wt.shape[1], None, m, EPI_DZ,
+            FH.gemm(lib, dzb[l], width, None, 0, wt, wt.shape[1], None, m, EPI_DZ,
                     None, 0, U=de, split=0, u_acc=1, stream=stream)
 
 

@@ -62,14 +62,20 @@ color_bwd_kernel, the bf16 trunk's tile and 3-stage ring;
 tests/test_torch_color_bf16_layout.py): the `CF16_*` constants, `cf16_fwd_phases`
 / `cf16_bwd_phases` their phase tables (`cf16_pieces` dx's pieces),
 `cf16_loads` the producers' boxes a K step, `cf16_smem_bytes` the blocks'
-shared memory.
+shared memory.  The bf16 trunk's backward in two launches
+(csrc/trunk_bwd.cu: hand_trunk_ut_kernel, hand_trunk_dz_kernel, the same
+tile and ring; tests/test_torch_trunk_bwd_bf16_layout.py): the `TB16_*`
+constants, `tb16_ut_phases` / `tb16_dz_phases` their phase tables
+(`tb16_pieces` de's pieces), `tb16_loads` the producers' boxes a K step,
+`tb16_epi_loads` the chain epilogues' f32 row boxes streamed through the
+ring, `tb16_smem_bytes` the blocks' shared memory.
 
 Nothing on the main path calls the functions but `tn_workspace`; the CUDA
 side computes the same numbers (`honerf_gemm`, `honerf_gemm_tn`,
 `honerf_obj_sdf`, `honerf_trunk_fwd`, `honerf_trunk_uchain`,
 `honerf_trunk_fwd_f32`, `honerf_trunk_uchain_f32`, `honerf_trunk_ut_f32`,
 `honerf_trunk_dz_f32`, `honerf_color_fwd_f32`, `honerf_color_bwd_f32`,
-`honerf_color_fwd`, `honerf_color_bwd`).
+`honerf_color_fwd`, `honerf_color_bwd`, `honerf_trunk_ut`, `honerf_trunk_dz`).
 """
 
 from __future__ import annotations
@@ -219,6 +225,34 @@ CF16_CONSTANTS = ("CF16_TILE", "CF16_WIDTH", "CF16_CHUNK_BYTES", "CF16_ACT_BYTES
                   "CF16_RING_BYTES", "CF16_SMEM_BYTES", "CF16_MAX_LAYERS", "CF16_MAX_PHASES",
                   "CF16_PIECE", "CF16_COLORS")
 CF16_RELU, CF16_SIGMOID, CF16_MASK, CF16_DX = 0, 1, 2, 3
+
+# csrc/trunk_bwd.cu: hand_trunk_ut_kernel, hand_trunk_dz_kernel (the bf16
+# trunk's backward: the bf16 trunk's tile of 128 points and a 3-stage ring
+# of an A box and 64 k-rows of B)
+TB16_TILE = 128
+TB16_WIDTH = 256
+TB16_CHUNK_BYTES = TB16_TILE * 128
+TB16_ACT_BYTES = TB16_WIDTH // 64 * TB16_CHUNK_BYTES
+TB16_A_BYTES = TB16_CHUNK_BYTES
+TB16_B_BYTES = 64 * TB16_WIDTH * 2
+TB16_STAGE_BYTES = TB16_A_BYTES + TB16_B_BYTES
+TB16_STAGES = 3
+TB16_RING_BYTES = TB16_STAGES * TB16_STAGE_BYTES
+TB16_SMEM_BYTES = 1024 + TB16_ACT_BYTES + TB16_RING_BYTES + 2 * TB16_STAGES * 8
+DZ16_STAGE_BYTES = TB16_B_BYTES   # the downward kernel's stages: B alone
+DZ16_RING_BYTES = TB16_STAGES * DZ16_STAGE_BYTES
+DZ16_SMEM_BYTES = 1024 + 2 * TB16_ACT_BYTES + DZ16_RING_BYTES + 2 * TB16_STAGES * 8
+TB16_MAX_LAYERS = 10
+TB16_MAX_PHASES = 24
+DZ16_PIECE = 128       # de columns a piece: the skip's and layer 0's m64n128k16 sums
+TB16_EPI_COLS = 32     # f32 columns of a chain epilogue's rows a ring step
+TB16_ROWS_BYTES = TB16_TILE * TB16_EPI_COLS * 4   # one f32 row box of a step
+TB16_CONSTANTS = ("TB16_TILE", "TB16_WIDTH", "TB16_CHUNK_BYTES", "TB16_ACT_BYTES",
+                  "TB16_A_BYTES", "TB16_B_BYTES", "TB16_STAGE_BYTES", "TB16_STAGES",
+                  "TB16_RING_BYTES", "TB16_SMEM_BYTES", "DZ16_STAGE_BYTES", "DZ16_RING_BYTES",
+                  "DZ16_SMEM_BYTES", "TB16_MAX_LAYERS", "TB16_MAX_PHASES", "DZ16_PIECE",
+                  "TB16_EPI_COLS", "TB16_ROWS_BYTES")
+TB16_UT, TB16_CHAIN, TB16_DE = 0, 1, 2
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -1011,6 +1045,120 @@ def cf16_loads(phases, tile: int) -> List[List[tuple]]:
                               for j in range(ph["boxes"])]))
         out.append(steps)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The bf16 trunk's backward in two launches (csrc/trunk_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _tb16_phase(act_steps, box_steps0, box_steps1, layer, n0, boxes, kind, s_plane=-1,
+                x_plane=-1, n1=0, src=0, dst=0) -> Dict[str, int]:
+    return dict(_cf16_phase(act_steps, box_steps0, box_steps1, layer, n0, boxes, kind),
+                s_plane=s_plane, x_plane=x_plane, n1=n1, src=src, dst=dst)
+
+
+def tb16_smem_bytes(down: bool = False) -> Dict[str, int]:
+    """The bf16 backward kernels' shared memory by part (bytes): upward, the
+    bf16 dm tile and the ring of stages (an A box + 64 k-rows of up to 256
+    B columns); downward, two dz tiles (dz_skip kept in the second) and a
+    ring of B-only stages."""
+    if down:
+        return dict(align=1024, tiles=2 * TB16_ACT_BYTES, ring=DZ16_RING_BYTES,
+                    barriers=2 * TB16_STAGES * 8)
+    return dict(align=1024, tile=TB16_ACT_BYTES, ring=TB16_RING_BYTES,
+                barriers=2 * TB16_STAGES * 8)
+
+
+def _tb16_check(n_layers: int, skip: int, Hp: int, Ep: int) -> None:
+    if (not 3 <= n_layers <= TB16_MAX_LAYERS or not 0 < skip < n_layers - 1
+            or Hp not in (64, 128, 256) or Ep <= 0 or Ep % 64):
+        raise ValueError("not a bf16 fused trunk backward")
+
+
+def tb16_ut_phases(Ep: int, Hp: int, in_cols: Sequence[int], skip: int) -> List[Dict[str, int]]:
+    """honerf_trunk_ut's phase table: one phase a layer below the last,
+    layer 0 over du_b's Ep / 64 boxes (box map 0), the middle layers over
+    the dm tile, the skip over the tile then du_s's Ep / 64 boxes (map 1),
+    B's k-row running on; Hp / 64 B boxes a K step; the epilogue's rows:
+    the sigmoid plane l, the c plane l (c_{l+1}; none for the last layer,
+    whose c_last is read directly).  Raises ValueError where the entry
+    point refuses the shapes."""
+    n = len(in_cols) + 1
+    _tb16_check(n, skip, Hp, Ep)
+    out = []
+    for l, rows in enumerate(in_cols):
+        if rows != (Ep if l == 0 else (Hp + Ep if l == skip else Hp)):
+            raise ValueError(f"layer {l}: {rows} rows do not chain")
+        out.append(_tb16_phase(0 if l == 0 else Hp // 64, Ep // 64 if l == 0 else 0,
+                               Ep // 64 if l == skip else 0, l, 0, Hp // 64, TB16_UT, l,
+                               l if l + 1 < len(in_cols) else -1))
+    return out
+
+
+def tb16_pieces(Ep: int) -> List[tuple]:
+    """de's pieces: (n0, width), DZ16_PIECE columns, the last 64 where Ep
+    leaves that."""
+    out, n0 = [], 0
+    while n0 < Ep:
+        w = DZ16_PIECE if Ep - n0 >= DZ16_PIECE else 64
+        out.append((n0, w))
+        n0 += w
+    return out
+
+
+def tb16_dz_phases(n_layers: int, skip: int, Hp: int, Ep: int, Op: int) -> List[Dict[str, int]]:
+    """honerf_trunk_dz's phase table: the top layer over the seed's Op / 64
+    chunks (the top cotangent copied into the two tiles), each chain layer l
+    over the tile holding dz_l (tile 1: dz_skip, kept to layer 0; tile 0 the
+    rest), its epilogue reading the sigmoid and ds planes l - 1 and writing
+    dz_{l-1} into tile 1 at the skip, else tile 0; then de's pieces, two
+    sums each: the skip's part over tile 1 (B = wts[skip]'s columns from Hp
+    + n0), layer 0's over tile 0 (wts[0]'s from n1 = n0)."""
+    _tb16_check(n_layers, skip, Hp, Ep)
+    if Op <= 0 or Op % 64 or Op > 2 * TB16_WIDTH:
+        raise ValueError("not a bf16 fused trunk backward")
+    kt = Hp // 64
+    out = [_tb16_phase(Op // 64 if l + 1 == n_layers else kt, 0, 0, l, 0, kt, TB16_CHAIN, l - 1,
+                       l - 1, src=int(l == skip), dst=int(l - 1 == skip))
+           for l in range(n_layers - 1, 0, -1)]
+    out += [_tb16_phase(kt, 0, 0, skip, Hp + n0, w // 64, TB16_DE, n1=n0, src=1)
+            for n0, w in tb16_pieces(Ep)]
+    if len(out) > TB16_MAX_PHASES:
+        raise ValueError("too many phases")
+    return out
+
+
+def tb16_loads(phases, tile: int) -> List[List[tuple]]:
+    """Both bf16 backward producers' TMA loads of the products, per phase
+    and K step: (A, [B ...]) as cf16_loads (map 0 du_b, map 1 du_s; A None:
+    a tile), a piece of de's second B (layer 0, column, k-row) after its
+    first's."""
+    out = []
+    for ph, steps in zip(phases, cf16_loads(phases, tile)):
+        if ph["kind"] == TB16_DE:
+            steps = [(a, bs + [(0, ph["n1"] + 64 * j, kr) for j in range(ph["boxes"])])
+                     for a, bs in steps for kr in [bs[0][2]]]
+        out.append(steps)
+    return out
+
+
+def tb16_epi_loads(phases, tile: int, Hp: int) -> List[List[tuple]]:
+    """The producers' epilogue steps after each chain phase's K steps:
+    ((sigmoid plane, column, row), (c / ds plane, column, row) or None), a
+    box of TB16_EPI_COLS columns x a tile's rows each, Hp / TB16_EPI_COLS
+    steps a chain phase, none a piece."""
+    return [[((ph["s_plane"], TB16_EPI_COLS * e, TB16_TILE * tile),
+              (ph["x_plane"], TB16_EPI_COLS * e, TB16_TILE * tile)
+              if ph["x_plane"] >= 0 else None)
+             for e in range(Hp // TB16_EPI_COLS)] if ph["s_plane"] >= 0 else []
+            for ph in phases]
+
+
+def tb16_ring_steps(phases, Hp: int) -> List[int]:
+    """Ring steps of each phase (ring_schedule's phase_steps): its K steps,
+    then its epilogue steps."""
+    return [ph["act_steps"] + ph["box_steps0"] + ph["box_steps1"] + len(epi)
+            for ph, epi in zip(phases, tb16_epi_loads(phases, 0, Hp))]
 
 
 def ring_schedule(phase_steps: Sequence[int], tiles: int, stages: int, turns: bool = False,

@@ -2478,3 +2478,190 @@ def test_color_bf16_rejects_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):
             FF.color_bwd(70, pack.cws, wt, meta, packed, dc, ca, dx, z, zb, stream)
     assert (FF.COLOR_FWD.launches, FF.COLOR_BWD.launches) == before
+
+
+# hand_trunk_ut_kernel and hand_trunk_dz_kernel: the bf16 trunk's backward
+# chains in two launches (csrc/trunk_bwd.cu), which K3 and K6 run on a
+# bf16 trunk.
+BWD16_M = (1, 63, 64, 65, 129, 1001, 65613)
+
+
+def _bwd16_case(dev, m, sdf_kw=FULL, seed=12):
+    """The bf16 pack of sdf_kw's nets, and the chains' inputs at m points
+    near the joints: the forward's rows (the plain versions on the bf16
+    embedding: kept activations and t rows as bf16 planes, f32 sigmoid and
+    c rows), seeded cotangents du (du_b = bf16(du), du_s = bf16(du /
+    sqrt2)) and the top one (Op columns, bf16); the c rows, like the kept
+    ones, the planes of one tensor, as trunk_buffers keeps them."""
+    cfg, ccfg, params = _nets(sdf_kw, dev)
+    pack = pack_fine_color(params, cfg, ccfg)
+    tm, n = pack.meta.trunk_meta, pack.meta.trunk_meta.n_layers
+    joints, bt_inv, t_pose = _pose(dev)
+    rotT, off, cut = FH.pack_hand_pose(bt_inv, t_pose)
+    e = torch.empty((m, tm.Ep), device=dev, dtype=torch.bfloat16)
+    FH.embed(FH._lib("fused_hand"), _points(joints, m), m, rotT, off, cut, cfg.v_multires,
+             cfg.r_multires, e, torch.cuda.current_stream().cuda_stream)
+    acts, ss, _ = FT.trunk_fwd_plain(e, m, pack.ws, pack.bs, tm, last=False)
+    _, ts, cs = FT.trunk_uchain_plain(ss, pack.ws, tm)
+    planes = lambda xs: list(torch.stack([x.to(torch.bfloat16) for x in xs]).unbind(0))  # noqa
+    g = torch.Generator(device=dev).manual_seed(seed)
+    du = torch.randn((m, tm.Ep), device=dev, generator=g)
+    x = dict(e=e, ss=torch.stack(ss), acts=planes(acts), ts=planes(ts[:n - 1]),
+             cs=[None] + list(torch.stack(cs[1:n - 1]).unbind(0)),
+             c_last=pack.ws[n - 1][:, 0].float().contiguous(),
+             du_b=du.to(torch.bfloat16), du_s=(du * FT.INV_SQRT2).to(torch.bfloat16),
+             top=torch.randn((m, tm.Op), device=dev, generator=g).to(torch.bfloat16))
+    return tm, pack, x
+
+
+def _bwd16_outputs(dev, tm, m, keep):
+    nan, n, Hp = float("nan"), tm.n_layers, tm.Hp
+    rows = lambda k, dt: list(torch.full((k, m, Hp), nan, device=dev, dtype=dt)  # noqa: E731
+                              .unbind(0))
+    return dict(ds=torch.full((n - 1, m, Hp), nan, device=dev),
+                de=torch.full((m, tm.Ep), nan, device=dev),
+                dms=[None] + rows(n - 1, torch.bfloat16) if keep else None,
+                dzs=rows(n - 1, torch.float32) if keep else None,
+                dzbs=rows(n - 1, torch.bfloat16) if keep else None)
+
+
+@pytest.mark.parametrize("keep", [False, True], ids=["frozen", "dw"])
+@pytest.mark.parametrize("m", BWD16_M)
+def test_trunk_bwd_bf16_matches_plain(dev, m, keep):
+    """Each chain alone against its plain version on the same inputs, into
+    NaN-filled buffers (the rule above; the median only past one point):
+    the upward chain's ds and kept dm rows (bf16) against trunk_ut_plain
+    (its dm rounded to bf16 as stored), the downward chain on the plain
+    ds, its de and kept dz rows against trunk_dz_plain, the bf16 dz rows
+    the f32 rows rounded; one launch of each kernel a call, no gemm_kernel;
+    a second run's bits."""
+    tm, pack, x = _bwd16_case(dev, m)
+    n = tm.n_layers
+    ds, dms = FT.trunk_ut_plain(x["du_b"], x["du_s"], m, pack.ws, x["ss"],
+                                x["cs"] + [x["c_last"]], tm, keep=True)
+    de, dzs = FT.trunk_dz_plain(x["top"], m, pack.ws, x["ss"], torch.stack(ds), tm, keep=True)
+    ds_plain = torch.stack(ds)
+
+    def run():
+        o = _bwd16_outputs(dev, tm, m, keep)
+        kerns = (FT.TRUNK_UT, FT.TRUNK_DZ, FH.GEMM)
+        before = [k.launches for k in kerns]
+        FT.trunk_ut(m, pack.ws, tm, x["du_b"], x["du_s"], x["ss"], x["cs"], x["c_last"],
+                    o["ds"], o["dms"])
+        FT.trunk_dz(m, pack.ws, tm, x["top"], x["ss"], ds_plain, o["de"], o["dzs"],
+                    wts=pack.wts, dzbs=o["dzbs"])
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kerns, before)] == [1, 1, 0]
+        return o
+
+    o, again = run(), run()
+    _assert_close(o["de"], de, median=m > 1)
+    for l in range(n - 1):
+        _assert_close(o["ds"][l], ds[l], median=m > 1)
+        if keep:
+            _assert_close(o["dms"][l + 1].float(), dms[l + 1].to(torch.bfloat16).float(),
+                          median=m > 1)
+            _assert_close(o["dzs"][l], dzs[l], median=m > 1)
+            assert torch.equal(o["dzbs"][l], o["dzs"][l].to(torch.bfloat16))
+    for k, v in o.items():
+        for a, b in zip(v if isinstance(v, list) else [v], again[k] if isinstance(v, list)
+                        else [again[k]]):
+            assert a is None or torch.equal(a, b), k
+
+
+def _bwd16_both(dev, tm, pack, x, m, keep, fused: bool):
+    """Every output of the trunk's backward (ds, de; with dW the kept dm,
+    dz (f32, bf16) rows, every dW and db) through cuda_trunk_backward (the
+    pair, then the dW sequence) or cuda_trunk_backward_split (one
+    gemm_kernel a layer), from the same rows."""
+    stream = torch.cuda.current_stream().cuda_stream
+    bw = FT.trunk_bwd_buffers(pack.ws, tm, m, dev, tm.Op, keep)
+    bw["du_b"].copy_(x["du_b"])
+    bw["du_s"].copy_(x["du_s"])
+    bw["dzb"][0].copy_(x["top"])
+    bw["dzf"][0].copy_(x["top"].float())
+    buf = dict(ss=x["ss"], acts=x["acts"], ts=x["ts"], cs=x["cs"])
+    dws = [torch.zeros(w.shape, device=dev) for w in pack.ws] if keep else None
+    dbs = [torch.zeros(b.shape, device=dev) for b in pack.bs] if keep else None
+    fn = FT.cuda_trunk_backward if fused else FT.cuda_trunk_backward_split
+    before = FH.GEMM.launches
+    fn(FF._lib(), m, x["e"], pack.ws, pack.wts, tm, buf, bw, dws, dbs, keep, 0,
+       torch.empty((FT._WS_FLOATS,), device=dev), stream)
+    torch.cuda.synchronize()
+    assert (FH.GEMM.launches == before) == fused
+    n = tm.n_layers
+    out = {f"ds[{l}]": bw["ds"][l][:m] for l in range(n - 1)}
+    out["de"] = bw["de"][:m]
+    if keep:
+        out |= {f"dm[{l}]": bw["dms"][l][:m] for l in range(1, n)}
+        out |= {f"dz[{l}]": bw["dzs"][l][:m] for l in range(n - 1)}
+        out |= {f"dzb[{l}]": bw["dzbs"][l][:m] for l in range(n - 1)}
+        out |= {f"dW[{l}]": w for l, w in enumerate(dws)} | {f"db[{l}]": b
+                                                              for l, b in enumerate(dbs)}
+    return out
+
+
+@pytest.mark.parametrize("keep", [False, True], ids=["frozen", "dw"])
+@pytest.mark.parametrize("m", BWD16_M)
+def test_trunk_bwd_bf16_keeps_the_split_launches_bits(dev, m, keep):
+    """The pair sums each output in gemm_kernel's order (64-deep K steps of
+    wgmma, the skip's tile range then du_s's, epilogue8's arithmetic) and
+    the dW sequence runs on its kept rows in the split launches' order: ds,
+    de and with dW every kept dm and dz row (f32 and bf16), every dW and db
+    equal the split launches' bit for bit (SHA-256 of the bytes)."""
+    import hashlib
+
+    tm, pack, x = _bwd16_case(dev, m)
+    fused = _bwd16_both(dev, tm, pack, x, m, keep, True)
+    split = _bwd16_both(dev, tm, pack, x, m, keep, False)
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+    assert all(torch.isfinite(v.float()).all() for v in fused.values())
+    moved = [k for k in fused if digest(fused[k]) != digest(split[k])]
+    assert not moved, f"bits moved: {moved}"
+
+
+@pytest.mark.parametrize("m", [1, 65, 4097])
+def test_trunk_bwd_bf16_narrow_widths(dev, m):
+    """SMALL's trunk (Hp 64, Op 128: 64 columns a consumer, de in pieces of
+    64 and 128), both chains chained as the main path runs them, under the
+    rule above."""
+    tm, pack, x = _bwd16_case(dev, m, SMALL)
+    ds, dms = FT.trunk_ut_plain(x["du_b"], x["du_s"], m, pack.ws, x["ss"],
+                                x["cs"] + [x["c_last"]], tm, keep=True)
+    de, dzs = FT.trunk_dz_plain(x["top"], m, pack.ws, x["ss"], torch.stack(ds), tm, keep=True)
+    o = _bwd16_outputs(dev, tm, m, keep=True)
+    FT.trunk_ut(m, pack.ws, tm, x["du_b"], x["du_s"], x["ss"], x["cs"], x["c_last"], o["ds"],
+                o["dms"])
+    FT.trunk_dz(m, pack.ws, tm, x["top"], x["ss"], o["ds"], o["de"], o["dzs"], wts=pack.wts,
+                dzbs=o["dzbs"])
+    torch.cuda.synchronize()
+    _assert_close(o["de"], de, median=m > 1)
+    for l in range(tm.n_layers - 1):
+        _assert_close(o["ds"][l], ds[l], median=m > 1)
+        _assert_close(o["dms"][l + 1].float(), dms[l + 1].to(torch.bfloat16).float(),
+                      median=m > 1)
+        _assert_close(o["dzs"][l], dzs[l], median=m > 1)
+
+
+def test_trunk_bwd_bf16_rejects_what_the_kernels_do_not_take(dev):
+    """f32 weights under a bf16 trunk, a width the tiles do not split (Hp
+    192), an f32 du, no transposed weights, f32 dz rows without their bf16
+    ones: ValueError before a launch."""
+    tm, pack, x = _bwd16_case(dev, 70)
+    o = _bwd16_outputs(dev, tm, 70, keep=True)
+    before = FT.TRUNK_UT.launches, FT.TRUNK_DZ.launches
+    f32 = [w.float() for w in pack.ws]
+    for kw in (dict(ws=f32), dict(tm=tm._replace(d_hidden=192)), dict(du_b=x["du_b"].float())):
+        a = dict(x, tm=tm, ws=pack.ws) | kw
+        with pytest.raises(ValueError):
+            FT.trunk_ut(70, a["ws"], a["tm"], a["du_b"], a["du_s"], a["ss"], a["cs"],
+                        a["c_last"], o["ds"])
+    for kw in (dict(ws=f32), dict(wts=None), dict(dzbs=None)):
+        a = dict(ws=pack.ws, wts=pack.wts, dzbs=o["dzbs"]) | kw
+        with pytest.raises(ValueError):
+            FT.trunk_dz(70, a["ws"], tm, x["top"], x["ss"], o["ds"], o["de"], o["dzs"],
+                        wts=a["wts"], dzbs=a["dzbs"])
+    assert (FT.TRUNK_UT.launches, FT.TRUNK_DZ.launches) == before
