@@ -18,7 +18,8 @@ groups (bf16: the first eight below, f32: the next six, fit: the next
 six, perpoint: the next five, trunk: the next two, trunkbwd32: tbwd32
 with f32k3, f32k6, fitk3 and fitk6, trunkdw32: tdw32 with f32k3 and
 f32k6, color32: color32 with f32k3, f32k6, fitk3 and fitk6, color16: color16
-with kernel at seed 0, tbwd16: the last with kernel and k6 at seed 0;
+with kernel at seed 0, tbwd16: tbwd16 with kernel and k6 at seed 0, video:
+the last;
 --groups reads only the named groups, and skips the faults with none of
 them).
 The checks, with the
@@ -172,7 +173,17 @@ limits they hold:
           over TOL_MEDIAN, max over TOL_MAX of the range), caught above 1
           or where an output of cuda_trunk_backward is not finite, a
           rerun's bits move or its SHA-256 is not the split launches' (the
-          tbwd16 group, with kernel and k6 at seed 0).
+          tbwd16 group, with kernel and k6 at seed 0);
+  video   chip_smoke.py's video check (chip_smoke.video_check_readings):
+          two video steps ('1234', windows [0, 3] then [1, 4]) on the card
+          against the CPU at the card's ladder samples, every metric and
+          table gradient under the fit check's f64 rule, the six gradients
+          as one within TOL_FIT_HEAD_ON and every table's update within
+          TOL_VIDEO_TABLES; the first step's color and mask losses
+          against the single fit loss of each frame on its own
+          (TOL_FIT_HEAD_ON); the tables after both steps against f64 Adam
+          on whole tables from the recorded gradients (TOL_VIDEO_TABLES);
+          caught above 1 of its limit (the video group).
 
 Prints one summary line per fault and writes every reading to --out
 (JSON).  Exits nonzero when the sound kernel fails a check or a fault
@@ -211,6 +222,7 @@ _TDW32_CU = "honerf_torch/ops/csrc/trunk_dw_f32.cu"
 _CF32_CU = "honerf_torch/ops/csrc/color_fused_f32.cu"
 _CF16_CU = "honerf_torch/ops/csrc/color_fused.cu"
 _TB16_CU = "honerf_torch/ops/csrc/trunk_bwd.cu"
+_VIDEO_PY = "honerf_torch/fit/video.py"
 
 # name -> (what it breaks, file, text, replacement, groups of checks it is
 # read by); the text must occur exactly once in the file
@@ -592,9 +604,26 @@ FAULTS = {
         "the pose sums drop the rows past the last full split (a ragged last block sums "
         "nothing)", _CU, "const int r0 = s * split, r1 = min(M, r0 + split);",
         "const int r0 = s * split, r1 = r0 + split <= M ? r0 + split : r0;", ("perpoint",)),
+    "video_frame0_bt": (
+        "the video step renders every frame of the window with frame 0's bone transforms (the "
+        "reference's batched renderer's fault)", _VIDEO_PY,
+        "hand_field = make_hand_field(hand, hand_sdf_cfg, hand_color_cfg, bt_inv[f], t_pose,",
+        "hand_field = make_hand_field(hand, hand_sdf_cfg, hand_color_cfg, bt_inv[0], t_pose,",
+        ("video",)),
+    "video_window_rows_only": (
+        "the video step's Adam moves the window's rows alone (the other rows keep their "
+        "values: an earlier window's rows stop moving on their moments)", _VIDEO_PY,
+        "        state[\"opt\"].step()\n",
+        "        rows = torch.ones(n_frames, dtype=torch.bool, device=batch[\"index\"].device)\n"
+        "        rows[batch[\"index\"]] = False\n"
+        "        before = {k: tables[k].detach().clone() for k in POSE_KEYS}\n"
+        "        state[\"opt\"].step()\n"
+        "        with torch.no_grad():\n"
+        "            for k in POSE_KEYS:\n"
+        "                tables[k][rows] = before[k][rows]\n", ("video",)),
 }
 GROUPS = ("bf16", "f32", "fit", "perpoint", "trunk", "trunkbwd32", "trunkdw32", "color32",
-          "color16", "tbwd16")
+          "color16", "tbwd16", "video")
 KERNEL_SEEDS = {"sound": (0, 1, 2, 3, 4, 5)}
 KUNIT_SEEDS = {"sound": (0, 1, 2, 3)}
 STEP_SEEDS = {"sound": (1, 2, 3, 4)}
@@ -770,6 +799,11 @@ def child(name: str, root: str, groups) -> None:
             for label, seed in (("own", None), ("unit", 3)):
                 out[check][label] = [[r.what, r.l2, r.ok] for r in CS.f32_bwd_check(
                     torch, args, mode, want_dw=False, seed=seed)[1]]
+    if "video" in groups:
+        r = CS.video_check_readings(torch, CS.fit_nets(torch, dev), dev)
+        out["video"] = {"worst": CS.video_check_worst(r), "frames": r.frames, "adam": r.adam,
+                        "steps": [{"f64": max(x.f64.values()), "whole": x.whole,
+                                   "updates": max(x.updates.values())} for x in r.steps]}
     if "perpoint" in groups:
         pose, pts = CS.perpoint_pose(torch, dev)
         emb, cols = CS.perpoint_readings(torch, dev, pose, pts, *CS.perpoint_calls(torch),
@@ -971,6 +1005,14 @@ def judge(CS, res):
         verdict["fitk1"] = (ratio > 1.0 or med > CS.TOL_MEDIAN or mx > CS.TOL_MAX,
                             f"worst {ratio:.3g} of the limit; K1 at the ladder points median "
                             f"{med:.2e}, max {mx:.2e} of the range")
+    if "video" in res:
+        v = res["video"]
+        worst = float("inf") if v["worst"] != v["worst"] else v["worst"]
+        verdict["video"] = (worst > 1.0, f"worst {worst:.3g} of its limit; frames "
+                            + ", ".join(f"{k} {x:.2e}" for k, x in v["frames"].items())
+                            + "; adam " + f"{max(v['adam'].values()):.2e}; card vs CPU "
+                            + "; ".join(f"f64 rule {s['f64']:.3f} whole {s['whole']:.1e} "
+                                        f"updates {s['updates']:.1e}" for s in v["steps"]))
     return verdict
 
 
@@ -981,7 +1023,7 @@ def main() -> int:
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma-separated groups of checks to read (bf16, f32, fit, "
                          "perpoint, trunk, trunkbwd32, trunkdw32, color32, color16, "
-                         "tbwd16)")
+                         "tbwd16, video)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     a = ap.parse_args()

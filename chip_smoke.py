@@ -374,6 +374,43 @@ Pose fitting (the fit confs, f32 trunks), after 13:
               pass of K2 and of K3's recompute, a transpose a pass of K3)
               and launches: gemm_f32_kernel 0, color_dz_kernel 0.
 
+Video fitting, frame-batched fitting and result extraction (the fit
+confs' full-width nets, f32; a synthetic 5-frame, 8-view 230x266 catch
+sequence, written by a child process started after the build), after 39:
+
+ 40. fit batched  the fitting CLI '12' with train.frames_per_batch = 4
+              (frames 0-3, then 4; '1''s poses the initial estimates;
+              train.iter_num 1): its launch counts (K1, K2, K3 and the f32
+              fused kernels launched; no K4, K5, K6, dW, f32 GEMM,
+              color_dz_kernel), five pickles; ms per batched step of 4
+              frames through the runner, one step's launches, its kernels
+              by name (K1's, TFWD32 / TUCH32, CFWD32 / CBWD32, TUT32 / TDZ32;
+              no dW or split-launch kernel) and device busy;
+ 41. video    the CLI honerf_torch.cli.fitting_video '123' and '1234'
+              (fit_confs/fit_{123,1234}_8views_0.conf, window 4, 40 rays a
+              frame; train.epochs 2, train.sub_iters 1): the same launch
+              rules, pose_0 and pose_1 with five pickles each; ms per window
+              step through the runner, one step's launches (K2 and K3 once a
+              frame), its kernels by name and device busy;
+ 42. get_res  get_res '12' (64^3 meshes of hand and object, inner ids;
+              K1 and K4 launched, no backward kernel), '123' through the CLI
+              (inner ids from pose_1), one --render frame of one test view
+              (fit_confs/get_render_type12.conf at 8 views: K1 and K2); ms of
+              the grid, marching cubes and PLY write of each mesh, the inner
+              ids and the render; frame 0's 64^3 grids through K1 and K4
+              against their plain versions (mesh_rule: the median, then the
+              K4 mesh check's rule at a level inside the box; K1's bf16 mesh:
+              99% of its vertices within one voxel, all within two); device
+              busy of
+              a frame's meshes and of its render;
+ 43. video check  two '1234' window steps on the card against the CPU
+              (video_check_readings: every metric and table gradient under
+              the fit check's f64 rule, the six gradients as one within
+              TOL_FIT_HEAD_ON of the CPU's, every table update within
+              TOL_VIDEO_TABLES), the first step against each frame's single
+              fit loss on its own, and the tables against f64 Adam on whole
+              tables.
+
 Weights are random (geometric init plus seeded noise, so every embedding
 column is live).  check_k3_faults.py runs the kernel, train and fit
 checks below on the sound kernels and on planted faults (what each limit
@@ -780,6 +817,30 @@ def tree_leaves(tree):
     return [tree]
 
 
+def trace_groups(evts):
+    """A trace's device events by kernel name (ours bare, torch's prefixed
+    "torch: "), each [us, launches], and their busy us: the union of
+    their intervals."""
+    groups, spans = {}, []
+    for evt in evts:
+        tr = evt.time_range
+        spans.append((tr.start, tr.end))
+        name = evt.name.split("(")[0].replace("void ", "").replace("honerf::", "")
+        name = name.replace("__nv_bfloat16", "bf16")
+        if "honerf" not in evt.name:
+            name = "torch: " + name[:60]
+        g = groups.setdefault(name, [0.0, 0])
+        g[0] += tr.elapsed_us()
+        g[1] += 1
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return groups, busy
+
+
 def device_profile(torch, label: str, fn, points=None):
     """fn() once under torch.profiler: host-clock time, device busy (the
     union of the device's kernel intervals) and device time by kernel;
@@ -797,60 +858,39 @@ def device_profile(torch, label: str, fn, points=None):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, groups = [], {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        tr = evt.time_range
-        spans.append((tr.start, tr.end))
-        name = evt.name.split("(")[0].replace("void ", "").replace("honerf::", "")
-        name = name.replace("__nv_bfloat16", "bf16")
-        if "honerf" not in evt.name:
-            name = "torch: " + name[:60]
-        g = groups.setdefault(name, [0.0, 0])
-        g[0] += tr.elapsed_us()
-        g[1] += 1
-    if not spans:
+    evts = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
+    if not evts:
         log(f"profile: {label}: the profiler recorded no device time (not measured)")
         return None
+    groups, busy = trace_groups(evts)
     PROFILES[label] = (groups, points)
-    spans.sort()
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
     kern = sum(g[0] for g in groups.values())
     log(f"profile: {label}, {wall_us / 1e3:.1f} ms on the host clock; device busy "
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), kernel time {kern / 1e3:.1f} ms in "
-        f"{len(spans)} launches")
+        f"{len(evts)} launches")
     for name, (us, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {us / 1e3:8.2f} ms {100 * us / kern:5.1f}%  x{cnt:<5d} {name}")
     return wall_us / 1e3, busy / 1e3
 
 
-def device_kernel_names(torch, fn, tries: int = 3):
-    """Counter of the device kernels fn() launches, by name (torch.profiler);
-    empty when the profiler records no device time.  The device's tracing
-    starts after the profiler does: kernels that run in its first
-    milliseconds can go unrecorded (on an H100 one capture lost K6's first 45 of 113),
-    so the profiler runs a warm-up step first (its schedule's, whose records
-    it drops: a ~5 ms spin kernel) and records the step that follows, in
-    which another spin kernel (not counted) runs before fn().  A capture
-    that records no device kernel at all (late in the script's process one
-    lost K5 f32's whole call) is taken again, up to `tries` captures.  Where
-    the call can be captured in a CUDA graph, graph_kernel_nodes counts its
-    launches with nothing to lose."""
-    from collections import Counter
-
+def device_capture(torch, fn, tries: int = 3):
+    """fn()'s device events (torch.profiler) and its host-clock ms; no
+    events (and None) when the profiler records no device time.  The
+    device's tracing starts after the profiler does: kernels that run in
+    its first milliseconds can go unrecorded (on an H100 one capture lost
+    K6's first 45 of 113), so the profiler runs a warm-up step first (its
+    schedule's, whose records it drops: a ~5 ms spin kernel) and records
+    the step that follows, in which another spin kernel (not counted) runs
+    before fn().  A capture that records no device kernel at all (late in
+    the script's process one lost K5 f32's whole call) is taken again, up
+    to `tries` captures.  The step's own span (ProfilerStep#n, which the
+    trace lists on the device's timeline too) is not one of fn()'s
+    events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, schedule
     from torch.profiler import profile as torch_profile
 
-    names = Counter()
+    host_ms = None
     for _ in range(tries):
         traces = []
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -861,14 +901,27 @@ def device_kernel_names(torch, fn, tries: int = 3):
                 torch.cuda._sleep(10_000_000)   # ~5 ms of device time
                 torch.cuda.synchronize()
                 if step:
+                    t0 = time.perf_counter()
                     fn()
                     torch.cuda.synchronize()
+                    host_ms = (time.perf_counter() - t0) * 1e3
                 prof.step()
-        names = Counter(evt.name.split("(")[0] for evt in (traces[-1] if traces else ())
-                        if evt.device_type == DeviceType.CUDA and "spin_kernel" not in evt.name)
-        if names:
-            break
-    return names
+        evts = [e for e in (traces[-1] if traces else ())
+                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name
+                and not e.name.startswith("ProfilerStep")]
+        if evts:
+            return evts, host_ms
+    return [], None
+
+
+def device_kernel_names(torch, fn, tries: int = 3):
+    """Counter of the device kernels fn() launches, by name (device_capture);
+    empty when the profiler records no device time.  Where the call can be
+    captured in a CUDA graph, graph_kernel_nodes counts its launches with
+    nothing to lose."""
+    from collections import Counter
+
+    return Counter(e.name.split("(")[0] for e in device_capture(torch, fn, tries)[0])
 
 
 def graph_kernel_nodes(torch, fn):
@@ -4775,6 +4828,741 @@ def run_fit_phases(torch, dev, phase, rows, failures) -> None:
             shutil.rmtree(f32_inputs["ws"], ignore_errors=True)
 
 
+# -- video fitting, frame-batched fitting and result extraction (phases 40-43) --
+
+VIDEO_CONFS = {ft: os.path.join(ROOT, "fit_confs", f"fit_{ft}_8views_0.conf")
+               for ft in ("123", "1234")}
+GET_RES_CONFS = {"12": os.path.join(ROOT, "fit_confs", "get_res_12.conf"),
+                 "123": os.path.join(ROOT, "fit_confs", "get_res_123.conf"),
+                 "render": os.path.join(ROOT, "fit_confs", "get_render_type12.conf")}
+VIDEO_FRAMES = 5            # two 4-frame windows
+VIDEO_EPOCHS, VIDEO_SUB_ITERS = 2, 1   # cut from the reference's 5 and 4
+VIDEO_WARMUP, VIDEO_STEPS = 2, 6       # the timed loops of the video and batched phases
+BATCH_G = 4                 # train.frames_per_batch of the batched phase
+BATCH_ITERS = 1             # train.iter_num of its CLI run (cut from 25)
+GET_RES_MESH = 64           # train.mesh_resolution of the get_res phase
+VIDEO_SHIFT = 0.01          # each frame of the video check 1 cm further along x
+# the video step's kernels on the card, by the profiler's names
+VIDEO_NAMES = {"K1": ("hand_embed_kernel", "hand_trunk_fwd_kernel"),
+               "TFWD32/TUCH32": ("hand_trunk_fwd_f32_kernel", "hand_uchain_f32_kernel"),
+               "CFWD32/CBWD32": ("color_fwd_f32_kernel", "color_bwd_f32_kernel"),
+               "TUT32/TDZ32": ("hand_trunk_ut_f32_kernel", "hand_trunk_dz_f32_kernel")}
+VIDEO_STRAY = ("trunk_dw_f32_kernel", "gemm_tn", "colsum_partial", "reduce_partials",
+               "gemm_f32_kernel", "color_dz_kernel")
+# the fitting paths' launch counts: each of these launched, none of those
+VIDEO_LAUNCHED = ("K1", "K2", "K3", "EMBED", "TFWD32", "TUCH32", "TUT32", "TDZ32", "CFWD32",
+                  "CBWD32", "BWDREV", "POSE")
+VIDEO_IDLE = ("K4", "K5", "K6", "TDW32", "GEMM_F32", "COLOR_DZ", "COLSUM", "PACK")
+# get_res: the meshes' and inner ids' kernels, the render's, and what no
+# forward-only path launches
+GET_RES_LAUNCHED = {"meshes": ("K1", "K4"), "render": ("K1", "K2")}
+GET_RES_IDLE = ("K3", "TUT32", "TDZ32", "CBWD32")
+# the video check's tables after Adam (card vs CPU, and against f64 Adam):
+# a table near 1 in f32 holds a ~1e-4 update to ~3e-4 of itself (its ulp),
+# so these are held to 1e-3 of the update, the rest to TOL_FIT_HEAD_ON
+TOL_VIDEO_TABLES = 1e-3
+# K1's get_res mesh (mesh_rule with bf16): the share of its vertices within
+# one voxel of the plain mesh, and the farthest one
+MESH_BF16_SHARE, MESH_BF16_VOXELS = 0.99, 2.0
+
+
+def start_video_sequence(root: str):
+    """Write the synthetic catch sequence of the video phases (VIDEO_FRAMES
+    frames, 8 views, the fit confs' 230x266) under root in a child process
+    of its own (its numpy hand renderer takes ~12 s a frame), so that it
+    runs beside the first phases.  Returns the process and the data
+    root."""
+    from honerf_torch.config import load_config
+
+    H, W = load_config(FIT_CONFS["1"]).get_list("dataset.image_size")
+    data = os.path.join(root, "data", "catch_sequence", "test")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from honerf_torch.data.synthetic import generate_catch_sequence as g; "
+            "g(sys.argv[2], n_frames=int(sys.argv[3]), n_views=8, H=int(sys.argv[4]), "
+            "W=int(sys.argv[5]))")
+    proc = subprocess.Popen([sys.executable, "-c", code, ROOT, data, str(VIDEO_FRAMES), str(H),
+                             str(W)])
+    return proc, data
+
+
+def _fit_conf(src: str, dst: str, ws: str, data: str, train: str = "",
+              fit_res_root: str = "") -> str:
+    """A copy of a fit conf pointed at the workspace ws (its data, its
+    checkpoints, fit_res_root or ws/fit_res), with `train` lines added."""
+    with open(src) as f:
+        text = f.read()
+    for old, new in (('save_dir = "./fit_res/CASE_NAME/wmask"',
+                      f'save_dir = "{ws}/fit_res/CASE_NAME/wmask"\n'
+                      f'  fit_res_root = "{fit_res_root or ws + "/fit_res"}"\n'
+                      f'  exp_root = "{ws}/exp"'),
+                     ('fitdata_dir = "./data/catch_sequence/test"', f'fitdata_dir = "{data}"'),
+                     ("batch_size = 196", "batch_size = 196\n" + train)):
+        assert text.count(old) == 1, f"{src}: {old!r}"
+        text = text.replace(old, new)
+    with open(dst, "w") as f:
+        f.write(text)
+    return dst
+
+
+def video_workspace(torch, fn, dev, ws: str, data: str):
+    """The video phases' workspace in ws (the sequence under data written
+    by start_video_sequence): fit_nets's nets as offline checkpoints, '1''s
+    pose pickles at the sequence's initial estimates (the '1' stage itself
+    runs in the fit phase), and the confs: '12' batched (frames_per_batch
+    BATCH_G, iter_num BATCH_ITERS), '123' and '1234' (epochs VIDEO_EPOCHS,
+    sub_iters VIDEO_SUB_ITERS), get_res '12' and '123' (mesh_resolution
+    GET_RES_MESH) and the render conf at 8 views (its own 3 would read
+    3-view fits) on frame 0's '12' pose under fit_res_render."""
+    from honerf_torch.data.fit_datasets import load_fit_sequence
+    from honerf_torch.fit.runner import SingleFitRunner
+    from honerf_torch.fit.single import final_pose_numpy, init_pose_params
+    from honerf_torch.train.checkpoints import save_checkpoint
+
+    for kind, path in (("hand", "person1/wmask_realhand"), ("obj", "bean/wmask_realobj")):
+        save_checkpoint(os.path.join(ws, "exp", path, "checkpoints", "ckpt_000000.npz"),
+                        {"params": clone_tree(fn.nets[kind], torch.device("cpu"))})
+    confs = {"12": _fit_conf(FIT_CONFS["12"], os.path.join(ws, "fit_12_batched.conf"), ws, data,
+                             f"  iter_num = {BATCH_ITERS}\n  frames_per_batch = {BATCH_G}")}
+    for ft, src in VIDEO_CONFS.items():
+        confs[ft] = _fit_conf(src, os.path.join(ws, f"fit_{ft}.conf"), ws, data,
+                              f"  epochs = {VIDEO_EPOCHS}\n  sub_iters = {VIDEO_SUB_ITERS}")
+    for key in ("12", "123"):
+        confs[f"get_res_{key}"] = _fit_conf(GET_RES_CONFS[key],
+                                            os.path.join(ws, f"get_res_{key}.conf"), ws, data,
+                                            f"  mesh_resolution = {GET_RES_MESH}")
+    render = _fit_conf(GET_RES_CONFS["render"], os.path.join(ws, "get_render_12.conf"), ws, data,
+                       fit_res_root=f"{ws}/fit_res_render")
+    with open(render) as f:
+        text = f.read()
+    with open(render, "w") as f:
+        f.write(text.replace("view_num = 3", "view_num = 8"))
+    confs["render"] = render
+    r = SingleFitRunner(confs["12"], "1_8view", device=dev)
+    seq = load_fit_sequence(data, "person1_bean", "seq0", "8", "1", r.fit_res_root, r.exp_root,
+                            image_hw=(r.H, r.W))
+    pose_dir = os.path.join(ws, "fit_res", "view_8", "1", "person1_bean", "seq0", "pose_1")
+    os.makedirs(pose_dir)
+    for frame in seq.frames:
+        r.save_pose(os.path.join(pose_dir, f"{frame.frame_id}.pickle"),
+                    final_pose_numpy(init_pose_params(dev), r.frame_consts(seq, frame)), frame)
+    return confs
+
+
+def mesh_rule(torch, dev, g_kernel, g_plain, bf16: bool = False):
+    """(ok, text): a kernel's sdf grid against its plain version's, the
+    median point within TOL_MEDIAN of the range, and both meshed under the
+    K4 mesh check's rule (vertex and triangle counts within 1%, every
+    kernel vertex within one voxel of the plain mesh) at the level halfway
+    between the plain grid's minimum and its median: random weights put no
+    zero level in a get_res box, and the hand's field there is flat at its
+    0.2 background over most of the box, where any level meshes noise.
+    With `bf16` (K1, bf16 weights) at least MESH_BF16_SHARE of the kernel's
+    vertices within one voxel and every one within MESH_BF16_VOXELS: K1's
+    bf16 flips move a grid point by up to ~3.5e-3 (1.2% of a get_res box's
+    ~0.3 range, over TOL_MAX), and the random hand field's shallowest 1% of
+    its iso-band (< 1 /m) turns that into more than a voxel (4.6 mm): at
+    posed_hand_example's pose 0.55% of 2,011 vertices, up to 1.22 voxels
+    (an H100's reading)."""
+    import numpy as np
+
+    from honerf_torch.extract import marching_cubes
+
+    med, _, mx, scale = err_readings(torch, torch.as_tensor(g_kernel, device=dev),
+                                     torch.as_tensor(g_plain, device=dev))
+    level = 0.5 * (float(g_plain.min()) + float(np.median(g_plain)))
+    (vk, tk), (vp, tp) = marching_cubes(g_kernel, level), marching_cubes(g_plain, level)
+    a = torch.as_tensor(vk, device=dev).double()
+    b = torch.as_tensor(vp, device=dev).double()
+    dist = torch.cat([torch.cdist(a[s:s + 4096], b).min(dim=1).values
+                      for s in range(0, a.shape[0], 4096)]) if len(vk) and len(vp) else None
+    far = float(dist.max()) if dist is not None else float("inf")
+    within = float((dist <= 1.0).double().mean()) if dist is not None else 0.0
+    rel_v = abs(len(vk) - len(vp)) / max(len(vp), 1)
+    rel_t = abs(len(tk) - len(tp)) / max(len(tp), 1)
+    max_vox, share = (MESH_BF16_VOXELS, MESH_BF16_SHARE) if bf16 else (1.0, 1.0)
+    ok = (bool(np.isfinite(g_kernel).all()) and med <= TOL_MEDIAN * scale and len(vp) > 0
+          and rel_v <= 1e-2 and rel_t <= 1e-2 and far <= max_vox and within >= share)
+    return ok, (f"|err| median {med:.2e}, max {mx:.2e} of the range {scale:.3e} (median tol "
+                f"{TOL_MEDIAN:g}); at the level {level:.4f}: {len(vk)} / {len(vp)} vertices, "
+                f"{len(tk)} / {len(tp)} triangles (tol 1e-2), {within:.5f} of the kernel's "
+                f"vertices within one voxel of the plain mesh (tol {share:g}), the farthest "
+                f"{far:.2f} voxels (tol {max_vox:g}){'' if ok else ' FAIL'}")
+
+
+def video_rays(conf_path: str = VIDEO_CONFS["1234"]) -> int:
+    """A video conf's rays a frame: train.rays_per_frame, VideoFitRunner's
+    40 where the conf leaves it unset (the fit confs do)."""
+    from honerf_torch.config import load_config
+    from honerf_torch.fit.runner import VideoFitRunner
+
+    return load_config(conf_path).get_int("train.rays_per_frame",
+                                          VideoFitRunner.RAYS_PER_FRAME)
+
+
+def video_check_batch(torch, idx, device, n_rays: int = 0):
+    """The video check's window batch: frame i of the sequence is
+    fit_grid_batch(seed=i)'s head-on rays (n_rays of a square grid over
+    +-0.1 of the image plane, the video path's video_rays() by default)
+    with its hand and object moved by i x VIDEO_SHIFT (a pose of its own;
+    one camera, one object)."""
+    import numpy as np
+
+    from honerf_torch.data.synthetic import look_at_camera, posed_hand_example
+
+    n_rays = n_rays or video_rays()
+    joints = posed_hand_example()[0]
+    center = joints.mean(0)
+    R, T = look_at_camera(np.asarray(center + [0.0, 0.2, -0.9]), center)
+    side = int(np.ceil(n_rays ** 0.5))
+    g = np.linspace(-0.1, 0.1, side, dtype=np.float32)
+    xy = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2)[:n_rays]
+    frames = []
+    for i in idx:
+        b = {k: v.cpu().numpy() for k, v in fit_batch(torch, n_rays, "cpu", seed=i).items()}
+        move = np.asarray([i * VIDEO_SHIFT, 0.0, 0.0], np.float32)
+        for k in ("joints_pred", "gt_joint3d", "To_pred", "To_gt"):
+            b[k] = b[k] + move
+        b["rays_xy"] = xy
+        frames.append(b)
+    shared = ("cam_R", "cam_T", "focal", "principal", "obj_verts")
+    out = {k: np.stack([f[k] for f in frames]) for k in frames[0] if k not in shared}
+    out.update({k: frames[0][k] for k in shared})
+    out.update(cam_R=R, cam_T=T)
+    batch = {k: torch.as_tensor(np.asarray(v, np.float32), device=device) for k, v in out.items()}
+    batch["index"] = torch.as_tensor(list(idx), dtype=torch.int64, device=device)
+    batch["anchor_enabled"] = torch.ones((), device=device)
+    return batch
+
+
+def video_check_readings(torch, fn, dev, fit_type: str = "1234"):
+    """Two video steps (windows [0, 3] then [1, 4] of a VIDEO_FRAMES-frame
+    sequence, video_check_batch's head-on rays, perturb 0) from the same
+    tables near their start on three sides: the card (K1's ladder, K2 f32
+    and the frozen K3 f32), the CPU (their plain versions) and the CPU in
+    f64 (the autograd field), each of the CPU's ladders replaced by the
+    card's samples in call order, as fit_check_readings does.  Per step:
+
+      f64:     each metric's and each table gradient's distance from the
+               f64 step, the card's over FIT_FACTOR x the CPU f32's +
+               TOL_FIT_F32 (fit_check_readings' f64 rule; on an H100 the
+               small palm_angle gradient sits 2-3e-4 from the CPU f32's, 3x
+               the CPU's own distance from f64, beyond the head-on 1e-4);
+      whole:   the six gradients as one vector, card vs CPU f32 (relative
+               L2; TOL_FIT_HEAD_ON, the head-on fit check's limit);
+      updates: each table's change, card vs CPU f32 (TOL_VIDEO_TABLES).
+
+    And two readings of the card alone: frames, the first step's color and
+    mask losses against the mean of the single fit loss
+    (fit.single.make_single_fit_loss) of each frame on its own row and
+    rays at the video step's samples of that frame (TOL_FIT_HEAD_ON: a
+    step that renders a frame with another frame's bone transforms moves
+    them); adam, the tables after both steps against Adam (optax's
+    update, f64) on whole tables from the start and the card's recorded
+    gradients (TOL_VIDEO_TABLES: a step that moves only its window's rows
+    leaves row 0 behind in the second step)."""
+    import numpy as np
+
+    from honerf_torch.fit.single import FitHyper, make_single_fit_loss, select_fit_kernels
+    from honerf_torch.fit.video import VIDEO_FIT_LRS, init_video_state, make_video_fit_step
+    from honerf_torch.render import dual as RD
+
+    cpu = torch.device("cpu")
+    fcfg = FitHyper.from_conf(fn.conf)._replace(fit_type=fit_type)
+    rcfg = fn.rcfg._replace(perturb=0.0)
+    windows = ([0, 1, 2, 3], [1, 2, 3, 4])
+    ladder = RD.dual_hierarchical_z_vals
+    fused, fine = select_fit_kernels(None, "full", fn.hand_sdf, dev)
+    card_z = []
+    rng = np.random.default_rng(5)
+    start = {k: (v.detach().cpu().numpy() + 0.02 * rng.normal(size=tuple(v.shape))).astype(
+        np.float32) for k, v in init_video_state(VIDEO_FRAMES, cpu)["tables"].items()}
+
+    def cast(tree, d, dtype):
+        if isinstance(tree, dict):
+            return {k: cast(v, d, dtype) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v, d, dtype) for v in tree]
+        return tree.detach().to(d, dtype).clone()
+
+    def run(side, d, dtype):
+        step = make_video_fit_step(cast(fn.nets, d, dtype), fn.hand_sdf, fn.hand_color,
+                                   fn.obj_sdf, fn.obj_color, rcfg, fcfg, VIDEO_FRAMES,
+                                   fused_ladder=fused and side == "card",
+                                   fused_fine=None if side == "f64" else fine)
+        tables = {k: torch.tensor(v, dtype=dtype, device=d).requires_grad_(True)
+                  for k, v in start.items()}   # a copy: Adam steps them in place
+        state = {"tables": tables, "opt": torch.optim.Adam(
+            [{"params": [tables[k]], "lr": VIDEO_FIT_LRS[k]} for k in tables],
+            betas=(0.9, 0.999), eps=1e-8)}
+        replay = iter(card_z)
+
+        def z_vals(*args):
+            if side == "card":
+                card_z.append(ladder(*args))
+                return card_z[-1]
+            return next(replay).to(cpu, dtype)
+
+        RD.dual_hierarchical_z_vals = z_vals
+        try:
+            out = []
+            for w in windows:
+                batch = {k: (v.to(dtype) if v.is_floating_point() else v)
+                         for k, v in video_check_batch(torch, w, d).items()}
+                state, m = step(state, batch)
+                tab = state["tables"]
+                out.append(({k: float(v) for k, v in m.items()},
+                            {k: tab[k].grad.detach().double().cpu() for k in tab},
+                            {k: tab[k].detach().double().cpu().clone() for k in tab}))
+        finally:
+            RD.dual_hierarchical_z_vals = ladder
+        return out
+
+    card = run("card", dev, torch.float32)
+    host = run("cpu", cpu, torch.float32)
+    ref = run("f64", cpu, torch.float64)
+
+    def rel(a, b):
+        return float((a - b).norm() / max(float(b.norm()), 1e-12))
+
+    steps = []
+    for i, ((cm, cg, ct), (hm, hg, ht), (fm, fg, _)) in enumerate(zip(card, host, ref)):
+        c0 = card[i - 1][2] if i else {k: torch.as_tensor(v, dtype=torch.float64)
+                                       for k, v in start.items()}
+        h0 = host[i - 1][2] if i else c0
+
+        def ratio(c, h):
+            return c / (FIT_FACTOR * h + TOL_FIT_F32)
+
+        def dist(a, k):
+            return abs(a[k] - fm[k]) / max(abs(fm[k]), 1e-6)
+
+        steps.append(SimpleNamespace(
+            f64={**{k: ratio(dist(cm, k), dist(hm, k)) for k in fm},
+                 **{f"d{k}": ratio(rel(cg[k], fg[k]), rel(hg[k], fg[k])) for k in fg}},
+            card_f64={k: rel(cg[k], fg[k]) for k in fg},
+            cpu_f64={k: rel(hg[k], fg[k]) for k in fg},
+            card_cpu={k: rel(cg[k], hg[k]) for k in hg},
+            whole=rel(torch.cat([cg[k].flatten() for k in hg]),
+                      torch.cat([hg[k].flatten() for k in hg])),
+            updates={k: rel(ct[k] - c0[k], ht[k] - h0[k]) for k in ht}))
+
+    # frames: the first window's frames one by one through the single fit
+    # loss, at the card's ladder samples of the video step's first step
+    single = make_single_fit_loss(fn.nets, fn.hand_sdf, fn.hand_color, fn.obj_sdf, fn.obj_color,
+                                  rcfg, fcfg._replace(fit_type="12"), fused_ladder=fused,
+                                  fused_fine=fine)
+    batch = video_check_batch(torch, windows[0], dev)
+    tables0 = {k: torch.tensor(v, device=dev) for k, v in start.items()}
+    color, mask = [], []
+    shared = ("cam_R", "cam_T", "focal", "principal", "obj_verts")
+    for f, i in enumerate(windows[0]):
+        pose = {"obj_rot6": tables0["obj_rot6"][i], "obj_trans": tables0["obj_trans"][i],
+                "palm_rot6": tables0["palm_rot6"][i:i + 1],
+                "palm_trans": tables0["palm_trans"][i:i + 1],
+                "joint_angle": tables0["joint_angle"][i:i + 1],
+                "palm_angle": tables0["palm_angle"][i:i + 1]}
+        one = {k: (v if k in shared else v[f]) for k, v in batch.items()
+               if k not in ("index", "anchor_enabled")}
+        RD.dual_hierarchical_z_vals = lambda *a, z=card_z[f]: z
+        try:
+            with torch.no_grad():
+                m = single(pose, one)[1]
+        finally:
+            RD.dual_hierarchical_z_vals = ladder
+        color.append(float(m["color_loss"]))
+        mask.append(float(m["mask_loss"]))
+    frames = {"color": abs(card[0][0]["color_loss"] - np.mean(color)) / abs(np.mean(color)),
+              "mask": abs(card[0][0]["mask_loss"] - np.mean(mask)) / abs(np.mean(mask))}
+
+    # adam: optax's Adam in f64 on whole tables from the recorded gradients
+    adam = {}
+    for k, p0 in start.items():
+        p, m, v = p0.astype(np.float64), 0.0, 0.0
+        for t, (_, g, _) in enumerate(card, 1):
+            g = g[k].numpy()
+            m = 0.9 * m + 0.1 * g
+            v = 0.999 * v + 0.001 * g * g
+            p = p - VIDEO_FIT_LRS[k] * (m / (1 - 0.9 ** t)) / (np.sqrt(v / (1 - 0.999 ** t))
+                                                                 + 1e-8)
+        got = card[-1][2][k].numpy() - p0
+        adam[k] = float(np.linalg.norm(got - (p - p0)) / max(np.linalg.norm(p - p0), 1e-12))
+    return SimpleNamespace(steps=steps, frames=frames, adam=adam, card=card, host=host, ref=ref)
+
+
+def video_check_worst(r) -> float:
+    """The largest ratio of a video_check_readings reading to its limit:
+    the f64 rule's ratios against 1, whole and frames against
+    TOL_FIT_HEAD_ON, the updates and adam against TOL_VIDEO_TABLES."""
+    vals = [x for s in r.steps for x in s.f64.values()]
+    vals += [s.whole / TOL_FIT_HEAD_ON for s in r.steps]
+    vals += [x / TOL_FIT_HEAD_ON for x in r.frames.values()]
+    vals += [x / TOL_VIDEO_TABLES for s in r.steps for x in s.updates.values()]
+    vals += [x / TOL_VIDEO_TABLES for x in r.adam.values()]
+    return max(float("inf") if x != x else x for x in vals)
+
+
+def run_video_phases(torch, dev, phase, rows, failures, gen) -> None:
+    """Phases 40-43: frame-batched fitting, video fitting and result
+    extraction at the fit confs' full width on the synthetic VIDEO_FRAMES
+    sequence (gen: start_video_sequence's process and data root), and one
+    video step on the card against the CPU."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+    from honerf_torch.ops import fused_sdf as FS
+
+    kernels = {"K1": FH.KERNEL, "K2": FF.KERNEL, "K3": FF.KERNEL_BWD, "K4": FS.KERNEL,
+               "K5": FT.KERNEL_FWD, "K6": FT.KERNEL_BWD, "EMBED": FH.EMBED,
+               "TFWD32": FT.TRUNK_FWD_F32, "TUCH32": FT.TRUNK_UCHAIN_F32,
+               "TUT32": FT.TRUNK_UT_F32, "TDZ32": FT.TRUNK_DZ_F32, "TDW32": FT.TRUNK_DW_F32,
+               "CFWD32": FF.COLOR_FWD_F32, "CBWD32": FF.COLOR_BWD_F32, "BWDREV": FF.BWDREV,
+               "POSE": FF.POSE, "GEMM_F32": FH.GEMM_F32, "COLOR_DZ": FF.COLOR_DZ,
+               "COLSUM": FT.COLSUM, "PACK": FT.PACK}
+    fn = fit_nets(torch, dev)
+    state = {}
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {name: k.launches for name, k in kernels.items()}
+
+    def path_ok(label, launches):
+        idle = [k for k in VIDEO_LAUNCHED if not launches[k]]
+        extra = [k for k in VIDEO_IDLE if launches[k]]
+        assert not idle and not extra, f"{label}: idle {idle}, stray {extra}: {launches}"
+
+    def by_name(label, one):
+        """One step's kernels by the profiler's names (counts > 0: a trace
+        can lose launches), its host-clock ms and device busy
+        (device_capture, trace_groups; the kernels by name into
+        PROFILES[label])."""
+        from collections import Counter
+
+        evts, host_ms = device_capture(torch, one)
+        names = Counter(e.name.split("(")[0] for e in evts)
+        groups, busy = trace_groups(evts)
+        busy = busy / 1e3 if evts else None
+        if evts:
+            PROFILES[label] = (groups, None)
+        got = {g: sum(c for n, c in names.items() if any(x in n for x in ks))
+               for g, ks in VIDEO_NAMES.items()}
+        bad = sorted(n for n in names if any(x in n for x in VIDEO_STRAY))
+        log(f"{label}: one step's kernels by name: {sum(names.values())} launches; "
+            + ", ".join(f"{g} {c}" for g, c in got.items()) + f"; dW / split kernels "
+            f"{bad or 'none'}; under the profiler {host_ms or 0:.1f} ms on the host clock, "
+            f"device busy " + (f"{busy:.2f} ms" if busy else "not measured"))
+        if busy:
+            for name, (us, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:10]:
+                log(f"  {us / 1e3:8.2f} ms {100 * us / 1e3 / busy:5.1f}%  x{cnt:<5d} {name}")
+        assert all(got.values()) and not bad, f"{label}: a kernel of the path is missing " \
+                                               f"or a stray one ran: {got}, {bad}"
+        return (host_ms, busy) if busy else None
+
+    def timed(label, one, per_step):
+        """ms per step over VIDEO_STEPS after VIDEO_WARMUP, on the host
+        clock ending in synchronize()."""
+        for i in range(VIDEO_WARMUP):
+            one(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(VIDEO_STEPS):
+            m = one(i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / VIDEO_STEPS
+        assert bool(torch.isfinite(m["loss"]).all()), f"{label}: a loss is not finite"
+        zero()
+        one(0)
+        per = counts()
+        log(f"{label}: {ms:.2f} ms a step ({VIDEO_STEPS} steps after {VIDEO_WARMUP} warm-up, "
+            f"host clock, ray sampling and upload included; {per_step}); one step's launches "
+            f"{ {k: v for k, v in per.items() if v} }")
+        return ms, per
+
+    def setup():
+        proc, data = gen
+        t0 = time.perf_counter()
+        rc = proc.wait(timeout=600)
+        assert rc == 0, f"the sequence's generator exited {rc}"
+        ws = tempfile.mkdtemp(prefix="chip_smoke_video_")
+        state["ws"] = ws
+        state["confs"] = video_workspace(torch, fn, dev, ws, data)
+        log(f"video workspace: the synthetic catch sequence ({VIDEO_FRAMES} frames, 8 views, "
+            f"230x266; waited {time.perf_counter() - t0:.1f} s for its generator), checkpoints of "
+            f"the fit confs' nets, '1''s poses at the initial estimates; cuts: train.epochs "
+            f"{VIDEO_EPOCHS}, train.sub_iters {VIDEO_SUB_ITERS}, the batched '12' "
+            f"train.iter_num {BATCH_ITERS}, the render conf at 8 views")
+
+    def fit_batched():
+        """fitting_single '12' with train.frames_per_batch = BATCH_G (frames
+        0-3, then 4), then ms per batched step through the runner."""
+        from honerf_torch.cli import fitting_single
+        from honerf_torch.data.fit_datasets import load_fit_sequence
+        from honerf_torch.fit.runner import SingleFitRunner
+        from honerf_torch.fit.single import init_batched_fit_state
+
+        ws, confs = state["ws"], state["confs"]
+        zero()
+        t0 = time.perf_counter()
+        fitting_single.main(["--conf", confs["12"], "--case", "12_8view"])
+        cli_s = time.perf_counter() - t0
+        launches = counts()
+        pose_dir = os.path.join(ws, "fit_res", "view_8", "12", "person1_bean", "seq0", "pose_12")
+        names = sorted(os.listdir(pose_dir))
+        poses = []
+        for n in names:
+            with open(os.path.join(pose_dir, n), "rb") as f:
+                poses.append(pickle.load(f))
+        finite = all(np.isfinite(v).all() and v.dtype == np.float32 for p in poses
+                     for v in p.values())
+        log(f"fit batched: the CLI '12' with frames_per_batch {BATCH_G} on {VIDEO_FRAMES} frames "
+            f"in {cli_s:.1f} s ({BATCH_ITERS} iteration x 8 views a group); launches "
+            f"{ {k: v for k, v in launches.items() if v} }; pickles {names}, f32 and finite "
+            f"{finite}")
+        assert names == [f"{i}.pickle" for i in range(VIDEO_FRAMES)] and finite
+        path_ok("fit batched", launches)
+        r = SingleFitRunner(confs["12"], "12_8view", device=dev)
+        seq = load_fit_sequence(r.data_root, "person1_bean", "seq0", r.view_num, r.fit_type,
+                                r.fit_res_root, r.exp_root, image_hw=(r.H, r.W))
+        group = seq.frames[:BATCH_G]
+        step = r.make_step(r.nets_for(seq), batched=True)
+        consts = [r.frame_consts(seq, f) for f in group]
+        stacked = {k: torch.stack([c[k] for c in consts]) for k in consts[0]}
+        st = init_batched_fit_state(BATCH_G, dev)
+        gen_ = torch.Generator(device=dev).manual_seed(0)
+
+        def one(i=0):
+            rows_ = [r.view_batch(f, i % 8, r.fcfg.batch_size) for f in group]
+            batch = dict(stacked, **{k: r._tensor(np.stack([x[k] for x in rows_]))
+                                     for k in rows_[0]})
+            return step(st, batch, gen_)[1]
+
+        ms, per = timed(f"fit batched (G = {BATCH_G}, {r.fcfg.batch_size} rays a frame)", one,
+                        f"{BATCH_G} frames a step")
+        prof = by_name("one batched '12' fit step (G = 4)", one)
+        state["batched"] = (ms, prof, per)
+        for k in ("K2", "K3"):
+            rows[k] = dict(rows.get(k, {}), batched_launches=per[k])
+
+    def video():
+        """fitting_video '123' and '1234' through the CLI's main, then ms
+        per window step through the runner."""
+        from honerf_torch.cli import fitting_video
+        from honerf_torch.data.fit_datasets import load_fit_sequence
+        from honerf_torch.fit.runner import VideoFitRunner
+        from honerf_torch.fit.video import init_video_state
+
+        ws, confs = state["ws"], state["confs"]
+        for ft in ("123", "1234"):
+            zero()
+            t0 = time.perf_counter()
+            fitting_video.main(["--conf", confs[ft], "--case", f"{ft}_8view_id0"])
+            cli_s = time.perf_counter() - t0
+            launches = counts()
+            base = os.path.join(ws, "fit_res", "view_8", ft, "person1_bean", "seq0")
+            dirs = sorted(os.listdir(base))
+            pickles = [sorted(os.listdir(os.path.join(base, d))) for d in dirs]
+            log(f"video {ft}: the CLI in {cli_s:.1f} s ({VIDEO_EPOCHS} epochs x 2 windows x "
+                f"{VIDEO_SUB_ITERS} x 8 views steps); launches "
+                f"{ {k: v for k, v in launches.items() if v} }; {dirs}: {pickles[0]}")
+            assert dirs == [f"pose_{e}" for e in range(VIDEO_EPOCHS)] and all(
+                p == [f"{i}.pickle" for i in range(VIDEO_FRAMES)] for p in pickles)
+            path_ok(f"video {ft}", launches)
+            r = VideoFitRunner(confs[ft], f"{ft}_8view_id0", device=dev)
+            seq = load_fit_sequence(r.data_root, "person1_bean", "seq0", r.view_num, r.fit_type,
+                                    r.fit_res_root, r.exp_root, image_hw=(r.H, r.W))
+            step = r.make_step(r.nets_for(seq), len(seq))
+            st = init_video_state(len(seq), dev)
+            frames = seq.frames[:4]
+            consts = r.window_consts(seq, frames, range(4))
+            gen_ = torch.Generator(device=dev).manual_seed(0)
+            rays = video_rays(confs[ft])
+
+            def one(i=0):
+                batch = dict(consts, **r.window_view_batch(frames, i % 8, rays))
+                batch["anchor_enabled"] = r._tensor(1.0)
+                return step(st, batch, gen_)[1]
+
+            ms, per = timed(f"video {ft} (4 frames x {rays} rays a window step)", one,
+                            "a window step")
+            prof = by_name(f"one video '{ft}' window step", one) if ft == "123" else None
+            state[f"video_{ft}"] = (ms, prof, per)
+            if ft == "123":
+                for k in ("K1", "K2", "K3"):
+                    rows[k] = dict(rows.get(k, {}), video_launches=per[k])
+
+    def get_res():
+        """get_res '12' (meshes, inner ids), '123' (inner ids, the CLI) and
+        one --render frame: K1 and K4 launched, ms of each part; the
+        first frame's grids through K1 and K4 against their plain
+        versions."""
+        from honerf_torch.cli import get_res as get_res_cli
+        from honerf_torch.data import fit_datasets as FD
+        from honerf_torch.data.fit_datasets import load_fit_sequence
+        from honerf_torch.extract import bounds_from_points, evaluate_sdf_grid
+        from honerf_torch.fit.runner import GetResRunner
+        from honerf_torch.hand import bone_transforms_from_mano_joints
+
+        ws, confs = state["ws"], state["confs"]
+        zero()
+        r = GetResRunner(confs["get_res_12"], "get_res_12", device=dev)
+        r.fitting()
+        launches = counts()
+        base = os.path.join(ws, "fit_res", "analys_res", "view_8", "12", "person1_bean", "seq0")
+        meshes = sorted(os.listdir(os.path.join(base, "mesh_12")))
+        inner = sorted(os.listdir(os.path.join(base, "inner_12")))
+        assert len(meshes) == 2 * VIDEO_FRAMES and len(inner) == VIDEO_FRAMES, (meshes, inner)
+        assert all(launches[k] for k in GET_RES_LAUNCHED["meshes"]) and not any(
+            launches[k] for k in GET_RES_IDLE), f"the meshes' kernels: {launches}"
+        t = r.timings
+        parts = ("hand_grid_s", "hand_mc_s", "hand_ply_s", "obj_grid_s", "obj_mc_s", "obj_ply_s",
+                 "inner_s")
+        mean = {p: 1e3 * float(np.mean([x[p] for x in t])) for p in parts}
+        log(f"get_res 12: {VIDEO_FRAMES} frames at {GET_RES_MESH}^3 in "
+            f"{sum(sum(x[p] for p in parts) for x in t):.2f} s; a frame's ms: "
+            + ", ".join(f"{p[:-2]} {v:.2f}" for p, v in mean.items())
+            + f"; vertices hand {[x['hand_verts'] for x in t]}, obj {[x['obj_verts'] for x in t]}"
+            f"; launches K1 {launches['K1']}, K4 {launches['K4']}")
+        zero()
+        get_res_cli.main(["--conf", confs["get_res_123"], "--case", "get_res_123"])
+        n123 = counts()
+        inner123 = sorted(os.listdir(os.path.join(
+            ws, "fit_res", "analys_res", "view_8", "123", "person1_bean", "seq0", "inner_123")))
+        log(f"get_res 123 (the CLI, from pose_{VIDEO_EPOCHS - 1}): inner ids {inner123}; K1 "
+            f"{n123['K1']} launches")
+        assert len(inner123) == VIDEO_FRAMES and all(
+            n123[k] for k in GET_RES_LAUNCHED["meshes"][:1])
+        # one --render frame: frame 0's '12' pose alone under fit_res_render
+        src = os.path.join(ws, "fit_res", "view_8", "12", "person1_bean", "seq0", "pose_12")
+        dst = os.path.join(ws, "fit_res_render", "view_8", "12", "person1_bean", "seq0",
+                           "pose_12")
+        os.makedirs(dst)
+        shutil.copy(os.path.join(src, "0.pickle"), dst)
+        zero()
+        rr = GetResRunner(confs["render"], "render_res", render=True, device=dev)
+        # one test view: the synthetic sequence's cameras include all five
+        # of RENDER_TEST_VIEWS
+        views = FD.RENDER_TEST_VIEWS
+        FD.RENDER_TEST_VIEWS = views[:1]
+        try:
+            rr.fitting()
+            seq = load_fit_sequence(r.data_root, "person1_bean", "seq0", "8", "1",
+                                    r.fit_res_root, r.exp_root, image_hw=(r.H, r.W),
+                                    load_test_views=True)
+        finally:
+            FD.RENDER_TEST_VIEWS = views
+        nr = counts()
+        rdir = os.path.join(ws, "fit_res_render", "analys_res", "view_8", "12", "person1_bean",
+                            "seq0", "render_12")
+        imgs = sorted(os.listdir(rdir))
+        img = read_png(os.path.join(rdir, imgs[0]))
+        render_ms = 1e3 * rr.timings[0]["render_s"]
+        log(f"get_res render: {imgs} ({img.shape}, {int((img.sum(-1) > 0).sum())} non-black "
+            f"pixels) in {render_ms:.1f} ms; launches "
+            f"{ {k: v for k, v in nr.items() if v} }")
+        assert len(imgs) == 1 and img.shape == (rr.H, rr.W, 3) and img.any()
+        assert all(nr[k] for k in GET_RES_LAUNCHED["render"]) and not any(
+            nr[k] for k in GET_RES_IDLE), f"the render's kernels: {nr}"
+        frame_ms = sum(mean.values()) + render_ms
+        # the first frame's grids: K1 and K4 against their plain versions
+        with open(os.path.join(src, "0.pickle"), "rb") as f:
+            pose = pickle.load(f)
+        hand, obj = r.sdf_fns(r.nets_for(seq))
+        t_pose = torch.as_tensor(seq.t_pose_21, device=dev)
+        with torch.no_grad():
+            bt = bone_transforms_from_mano_joints(
+                torch.as_tensor(pose["pred_joint3d"], device=dev)[None])[0]
+        rt = torch.as_tensor(pose["pred_Ro"], device=dev)
+        tt = torch.as_tensor(pose["pred_To"], device=dev)
+        rot_t, off, cut = FH.pack_hand_pose(bt, t_pose)
+        checks = []
+        for part, k_fn, p_fn, pts in (
+                ("hand", lambda p: hand(p, bt, t_pose),
+                 lambda p: FH.fused_hand_sdf_plain(p, rot_t, off, cut, hand.ws, hand.bs,
+                                                   hand.meta), pose["pred_joint3d"]),
+                ("obj", lambda p: obj((p - tt) @ rt),
+                 lambda p: FS.fused_obj_sdf_plain(((p - tt) @ rt).contiguous(), obj.ws, obj.bs,
+                                                  obj.meta), pose["pred_To"][None])):
+            lo, hi = bounds_from_points(pts, 0.08)
+            gk, gp = (evaluate_sdf_grid(f, lo, hi, GET_RES_MESH, device=dev)
+                      for f in (k_fn, p_fn))
+            ok, text = mesh_rule(torch, dev, gk, gp, bf16=part == "hand")
+            checks.append(ok)
+            log(f"get_res: frame 0's {GET_RES_MESH}^3 {part} grid through "
+                f"{'K1' if part == 'hand' else 'K4'} against its plain version: {text}")
+        # a frame's device busy: its meshes and inner ids, then its render
+        nets = r.nets_for(seq)
+        prof_m = device_profile(torch, "one get_res frame's meshes and inner ids", lambda: (
+            r.process_frame(seq, seq.frames[0], pose, os.path.join(ws, "prof"), nets)))
+        prof_r = device_profile(torch, "one get_res frame's 230x266 dual render", lambda: (
+            rr.process_frame(seq, seq.frames[0], pose, os.path.join(ws, "prof_r"), nets)))
+        state["get_res"] = (frame_ms, prof_m, prof_r, mean, render_ms)
+        rows["K1"] = dict(rows.get("K1", {}), get_res_launches=launches["K1"] // VIDEO_FRAMES)
+        rows["K4"] = dict(rows.get("K4", {}), get_res_launches=launches["K4"] // VIDEO_FRAMES)
+        log(f"get_res: ms a frame {frame_ms:.1f} (meshes, inner ids, one render)")
+        assert all(checks), "a get_res grid disagrees with its plain version"
+
+    def video_check():
+        r = video_check_readings(torch, fn, dev)
+        for i, s in enumerate(r.steps):
+            log(f"video check, step {i + 1} (window {[0, 1, 2, 3] if i == 0 else [1, 2, 3, 4]}, "
+                f"{video_rays()} rays a frame): "
+                "gradients' distance from the CPU's f64 step, card / CPU f32: " + ", ".join(
+                    f"{k} {s.card_f64[k]:.2e}/{s.cpu_f64[k]:.2e}" for k in s.card_f64)
+                + f"; the f64 rule's worst {max(s.f64.values()):.3f} (card <= {FIT_FACTOR:g} x "
+                f"CPU + {TOL_FIT_F32:g}); card vs CPU f32: gradients " + ", ".join(
+                    f"{k} {v:.2e}" for k, v in s.card_cpu.items())
+                + f", all six as one {s.whole:.2e} (tol {TOL_FIT_HEAD_ON:g}); updates "
+                + ", ".join(f"{k} {v:.2e}" for k, v in s.updates.items())
+                + f" (tol {TOL_VIDEO_TABLES:g})")
+        log("video check: the card's step against its frames one by one (single fit loss): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in r.frames.items())
+            + "; the tables after two steps against f64 Adam on whole tables: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in r.adam.items()))
+        log("video check: card metrics " + ", ".join(
+            f"{k} {v:.6g}" for k, v in r.card[0][0].items()))
+        worst = video_check_worst(r)
+        log(f"video check: worst {worst:.3f} of its limit")
+        assert worst <= 1.0, "the card's video step disagrees"
+
+    try:
+        phase("video setup", setup)
+        if "video setup" in failures:
+            failures += ["fit batched", "video", "get_res"]
+        else:
+            phase("fit batched", fit_batched)
+            phase("video", video)
+            if "fit batched" in failures or "video" in failures:
+                failures.append("get_res")
+            else:
+                phase("get_res", get_res)
+        phase("video check", video_check)
+        gpu = gpu_line()
+        for key, label in (("batched", f"a batched '12' step (G = {BATCH_G})"),
+                           ("video_123", "a '123' window step"),
+                           ("video_1234", "a '1234' window step")):
+            if key in state:
+                ms, prof, _ = state[key]
+                busy = f"{prof[1]:.2f} ms" if prof else "not measured"
+                log(f"video summary: {label}: {ms:.2f} ms, device busy {busy}; {gpu}")
+        if "get_res" in state:
+            frame_ms, pm, pr, _, _ = state["get_res"]
+            busy = (f"{pm[1]:.2f} + {pr[1]:.2f} ms" if pm and pr else "not measured")
+            log(f"video summary: a get_res frame: {frame_ms:.1f} ms, device busy {busy}; {gpu}")
+    finally:
+        if state.get("ws"):
+            shutil.rmtree(state["ws"], ignore_errors=True)
+
+
 def run_f32_train_phases(torch, dev, phase, rows, failures, view, rays, request_pts) -> None:
     """Phases 21-28, the hand's offline stage with the flagship conf's own
     f32 trunks (as written): the f32 GEMMs alone, K2 f32 at a request's
@@ -5250,24 +6038,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        import numpy as np
-
-        from honerf_torch.data.synthetic import canonical_hand_joints, posed_hand_example
-        from honerf_torch.hand import bone_transforms_from_mano_joints
-        from honerf_torch.models.embedding import hand_embedding_flat
-        from honerf_torch.models.fields import pack_fine_color
-        from honerf_torch.ops import _build
-        from honerf_torch.ops import fused_fine as FT
-        from honerf_torch.ops import fused_fine_full as FF
-        from honerf_torch.ops import fused_hand as FH
-        from honerf_torch.ops import fused_sdf as FS
-        from honerf_torch.render.neus import pack_hand_field
-        from honerf_torch.train.offline import (
-            init_train_state,
-            make_hand_eval_render,
-            make_hand_train_step,
-        )
-        from honerf_torch.train.runner import render_full_image
+        import honerf_torch  # noqa: F401
     except ImportError as exc:
         print(f"chip_smoke: the honerf_torch package is not beside this script: {exc}",
               file=sys.stderr)
@@ -5292,6 +6063,45 @@ def main() -> int:
             traceback.print_exc(file=sys.stdout)
             sys.stdout.flush()
 
+    import shutil
+    import tempfile
+
+    video_root = tempfile.mkdtemp(prefix="chip_smoke_seq_")
+    video_gen = []
+    try:
+        return run_phases(torch, dev, phase, failures, rows, video_root, video_gen)
+    finally:
+        for proc, _ in video_gen:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(video_root, ignore_errors=True)
+
+
+def run_phases(torch, dev, phase, failures, rows, video_root, video_gen) -> int:
+    """Every phase after the configuration's; returns the exit code.  The
+    video phases' synthetic sequence is written under video_root by a child
+    process started after the build (start_video_sequence, appended to
+    video_gen), beside the first phases."""
+    import numpy as np
+
+    from honerf_torch.data.synthetic import canonical_hand_joints, posed_hand_example
+    from honerf_torch.hand import bone_transforms_from_mano_joints
+    from honerf_torch.models.embedding import hand_embedding_flat
+    from honerf_torch.models.fields import pack_fine_color
+    from honerf_torch.ops import _build
+    from honerf_torch.ops import fused_fine as FT
+    from honerf_torch.ops import fused_fine_full as FF
+    from honerf_torch.ops import fused_hand as FH
+    from honerf_torch.ops import fused_sdf as FS
+    from honerf_torch.render.neus import pack_hand_field
+    from honerf_torch.train.offline import (
+        init_train_state,
+        make_hand_eval_render,
+        make_hand_train_step,
+    )
+    from honerf_torch.train.runner import render_full_image
+
     # -- 1. build ----------------------------------------------------------
     def build():
         t0 = time.time()
@@ -5305,6 +6115,7 @@ def main() -> int:
     phase("build", build)
     if failures:
         return 1
+    video_gen.append(start_video_sequence(video_root))
 
     # -- configuration and weights ---------------------------------------
     fs = flagship(torch, dev)
@@ -6706,6 +7517,7 @@ def main() -> int:
         failures.append("mesh check")
 
     run_fit_phases(torch, dev, phase, rows, failures)
+    run_video_phases(torch, dev, phase, rows, failures, video_gen[0])
 
     wrong = log_perpoint_profiles()
     if wrong:
@@ -6724,11 +7536,15 @@ def main() -> int:
     # each kernel's other modes: bf16 no-color, f32 with the color
     # net (K2 at a fit step and at a request; K3 frozen), f32 no-color, K3
     # f32 with dW, K5 / K6 in f32; the f32 GEMMs alone (rows of their own)
-    extra = {"K2": (mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_")
-                    + mode_keys("f32_request_")),
+    # the fitting stage's launches: a video window step, a batched step, a
+    # get_res frame
+    extra = {"K1": ("video_launches", "get_res_launches"),
+             "K2": (mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_")
+                    + mode_keys("f32_request_") + ("video_launches", "batched_launches")),
              "K3": (mode_keys("nocolor_") + mode_keys("f32_") + mode_keys("f32_nocolor_")
-                    + mode_keys("f32_dw_")),
-             "K4": ("tc_bound_ms", "mufu_bound_ms", "grid_ms", "grid_bound_ms"),
+                    + mode_keys("f32_dw_") + ("video_launches", "batched_launches")),
+             "K4": ("tc_bound_ms", "mufu_bound_ms", "grid_ms", "grid_bound_ms",
+                    "get_res_launches"),
              "K5": mode_keys("f32_"), "K6": mode_keys("f32_"),
              "TFWD": ("train_launches", "step_ms", "step_plain_ms", "step_bound_ms", "k1_ms",
                       "k1_bound_ms", "k2_ms", "k2_bound_ms"),

@@ -178,6 +178,23 @@ def load_offline_dataset(
     return SceneData(views, "hand", t_pose, bone_length, np.zeros((1, 3), np.float32))
 
 
+class FrameWindowSampler:
+    """Sliding overlapping frame windows [i, i + window), the video fitter's
+    iteration order: max(n_frames - window + 1, 1) windows by default."""
+
+    def __init__(self, n_frames: int, window: int = 4, n_iter: Optional[int] = None):
+        self.n_frames = n_frames
+        self.window = window
+        self.n_iter = n_iter if n_iter is not None else max(n_frames - window + 1, 1)
+
+    def __iter__(self):
+        for i in range(self.n_iter):
+            yield list(range(i, min(i + self.window, self.n_frames)))
+
+    def __len__(self) -> int:
+        return self.n_iter
+
+
 @dataclass
 class RayBatchLoader:
     """Iterates shuffled views, producing fixed-shape ray batches for the

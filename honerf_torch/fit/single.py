@@ -14,12 +14,18 @@ Kernels (select_fit_kernels): on the card the hand ladder runs K1
 embedding).  The nets need no gradient, so K3 and K6 run frozen, without
 weight work; f32 for the fit confs' f32 trunks.  The object side is plain
 torch with autograd, as in the JAX package.
+
+Frame-batched fitting (make_batched_single_fit_step): G independent
+frames a step, the pose tensors with a leading (G, ...) axis; each frame's
+loss is the single step's on its own row, with its own kernel launches,
+and one backward of their sum feeds one Adam, which is elementwise, so G
+independent fits.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -246,13 +252,80 @@ def init_fit_state(device=None, lrs: Dict[str, float] = SINGLE_FIT_LRS) -> Dict[
     return {"pose": pose, "opt": make_pose_optimizer(pose, lrs)}
 
 
+def init_pose_params_batched(n_frames: int, device=None) -> Params:
+    """The six pose tensors of `n_frames` independent frames: a leading
+    frame axis on init_pose_params's, leaves that require grad."""
+    return {k: v.detach()[None].repeat((n_frames,) + (1,) * v.ndim).requires_grad_(True)
+            for k, v in init_pose_params(device).items()}
+
+
+def init_batched_fit_state(n_frames: int, device=None,
+                           lrs: Dict[str, float] = SINGLE_FIT_LRS) -> Dict[str, Any]:
+    """{'pose': init_pose_params_batched(), 'opt': its Adam}."""
+    pose = init_pose_params_batched(n_frames, device)
+    return {"pose": pose, "opt": make_pose_optimizer(pose, lrs)}
+
+
+def make_batched_single_fit_step(net_params: Params, hand_sdf_cfg: SDFConfig,
+                                 hand_color_cfg: ColorConfig, obj_sdf_cfg: SDFConfig,
+                                 obj_color_cfg: ColorConfig, rcfg: RenderConfig,
+                                 fcfg: FitHyper, fused_ladder: bool = False,
+                                 fused_fine: Optional[str] = None):
+    """step(state, batch, generator) -> (state, metrics): G frames' single
+    fit steps in one.  state = init_batched_fit_state(G); the batch's every
+    tensor has a leading G axis (frame g's single-step batch in row g).
+    Each frame's loss is make_single_fit_loss's on its own row, in frame
+    order; the sum of the G losses has one backward, the six (G, ...)
+    gradients stay on .grad, and one Adam step moves every row.  Metrics:
+    detached (G,) tensors, no host sync."""
+    loss_fn = make_single_fit_loss(net_params, hand_sdf_cfg, hand_color_cfg, obj_sdf_cfg,
+                                   obj_color_cfg, rcfg, fcfg, fused_ladder, fused_fine)
+
+    def step_fn(state: Dict[str, Any], batch: Dict[str, torch.Tensor], generator=None):
+        pose = state["pose"]
+        G = pose[POSE_KEYS[0]].shape[0]
+        per = [loss_fn({k: v[g] for k, v in pose.items()}, {k: v[g] for k, v in batch.items()},
+                       generator)[1] for g in range(G)]
+        leaves = [pose[k] for k in POSE_KEYS]
+        total = sum(m["loss"] for m in per)
+        for leaf, g in zip(leaves, torch.autograd.grad(total, leaves)):
+            leaf.grad = g
+        state["opt"].step()
+        return state, {k: torch.stack([m[k].detach() for m in per]) for k in per[0]}
+
+    return step_fn
+
+
+def final_poses_numpy(poses: Params, frames: Dict[str, torch.Tensor],
+                      n_real: int) -> List[Dict[str, np.ndarray]]:
+    """final_pose_numpy of the first `n_real` rows of G frames' poses
+    (`frames`: the frames' constants with a leading G axis), in one
+    device -> host copy."""
+    with torch.no_grad():
+        rows = [current_pose({k: v[g] for k, v in poses.items()},
+                             {k: v[g] for k, v in frames.items()}) for g in range(n_real)]
+    if not rows:
+        return []
+    return poses_numpy(torch.cat([r[0] for r in rows]), torch.stack([r[1] for r in rows]),
+                       torch.stack([r[2] for r in rows]))
+
+
+def poses_numpy(joint_3d: torch.Tensor, obj_r: torch.Tensor,
+                obj_t: torch.Tensor) -> List[Dict[str, np.ndarray]]:
+    """G fitted poses as the output pickles hold them (pred_joint3d (21, 3),
+    pred_Ro (3, 3), pred_To (3,), f32) from (G, 21, 3), (G, 3, 3) and (G, 3)
+    tensors, in one device -> host copy."""
+    G = obj_t.shape[0]
+    with torch.no_grad():
+        flat = torch.cat([joint_3d.reshape(G, 63), obj_r.reshape(G, 9), obj_t.reshape(G, 3)], 1)
+    h = flat.float().cpu().numpy()
+    return [{"pred_joint3d": r[:63].reshape(21, 3).copy(), "pred_Ro": r[63:72].reshape(3, 3).copy(),
+             "pred_To": r[72:75].copy()} for r in h]
+
+
 def final_pose_numpy(pose: Params, frame: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The fitted pose for the output pickle: pred_joint3d (21, 3), pred_Ro
     (3, 3), pred_To (3,), f32, in one device -> host copy."""
     with torch.no_grad():
         joint_3d, obj_r, obj_t = current_pose(pose, frame)
-        flat = torch.cat([joint_3d[0].reshape(-1), obj_r.reshape(-1), obj_t.reshape(-1)])
-    h = flat.float().cpu().numpy()
-    return {"pred_joint3d": h[:63].reshape(21, 3).astype(np.float32),
-            "pred_Ro": h[63:72].reshape(3, 3).astype(np.float32),
-            "pred_To": h[72:75].reshape(3).astype(np.float32)}
+    return poses_numpy(joint_3d, obj_r[None], obj_t[None])[0]

@@ -11,8 +11,9 @@ false`; the fine pass, in training and in the eval render alike, runs the
 mode `select_fine_pass` picks from `train.fused_fine` and the SDF trunk's
 dtype (render.neus: 'full' = K2/K3 with the color net, 'full_nocolor' =
 K2/K3 without it, 'pallas' = K5/K6, None = the autograd field), JAX's
-choice on one chip; on the card a bf16 trunk never leaves its kernels and
-the kernels' f32 modes are not ported.  The eval render packs the
+choice on one chip; on the card a bf16 trunk never leaves its kernels,
+and an f32 trunk runs the kernels' f32 modes when `train.fused_fine`
+names a mode.  The eval render packs the
 kernels' weights once per parameter snapshot; the train step packs them
 inside the differentiable op on every call.
 

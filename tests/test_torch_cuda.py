@@ -2665,3 +2665,58 @@ def test_trunk_bwd_bf16_rejects_what_the_kernels_do_not_take(dev):
             FT.trunk_dz(70, a["ws"], tm, x["top"], x["ss"], o["ds"], o["de"], o["dzs"],
                         wts=a["wts"], dzbs=a["dzbs"])
     assert (FT.TRUNK_UT.launches, FT.TRUNK_DZ.launches) == before
+
+
+# The fitting stage's video step and result extraction (the video
+# slice): chip_smoke's full-width fit nets and its video check; the
+# get_res meshes through K1 and K4 against their plain versions' meshes.
+
+def test_video_step_matches_cpu(dev):
+    """Two video steps ('1234') on the card (K1, K2 f32, the frozen K3 f32)
+    against the CPU's (their plain versions) at the card's ladder samples:
+    chip_smoke.video_check_readings, every reading within its limit."""
+    import chip_smoke as CS
+
+    r = CS.video_check_readings(torch, CS.fit_nets(torch, dev), dev)
+    assert CS.video_check_worst(r) <= 1.0
+
+
+@pytest.mark.parametrize("part", ("hand", "obj"))
+def test_get_res_mesh_matches_plain(dev, part):
+    """get_res's 64^3 mesh of the hand (FusedHandSDF: K1) and the object
+    (FusedObjSDF: K4) at a fitted pose against the plain versions' mesh
+    (chip_smoke.mesh_rule: the grid's median point within 1e-4 of the
+    range, then the K4 mesh check's rule at a level inside the box: vertex
+    and triangle counts within 1%, every kernel vertex within one voxel of
+    the plain mesh; for K1's bf16 mesh 99% of them, every one within two:
+    mesh_rule's docstring)."""
+    import chip_smoke as CS
+    from honerf_torch.data.synthetic import posed_hand_example
+    from honerf_torch.extract import bounds_from_points, evaluate_sdf_grid
+
+    fn = CS.fit_nets(torch, dev)
+    # GetResRunner.sdf_fns's packs of the nets
+    hand = FH.FusedHandSDF(fn.nets["hand"]["sdf"], fn.hand_sdf)
+    obj = FS.FusedObjSDF(fn.nets["obj"]["sdf"], fn.obj_sdf)
+    joints = posed_hand_example()[0]
+    bt = bone_transforms_from_mano_joints(torch.as_tensor(joints, device=dev)[None])[0]
+    t_pose = torch.as_tensor(canonical_hand_joints(0.0), device=dev)
+    to = torch.as_tensor(joints.mean(0) + np.asarray([0.0, -0.02, 0.06], np.float32), device=dev)
+    if part == "hand":
+        rotT, off, cut = FH.pack_hand_pose(bt, t_pose)
+        kern = lambda p: hand(p, bt, t_pose)  # noqa: E731
+        plain = lambda p: FH.fused_hand_sdf_plain(p, rotT, off, cut, hand.ws, hand.bs,  # noqa: E731
+                                                  hand.meta)
+        pts, counter = joints, FH.KERNEL
+    else:
+        kern = lambda p: obj(p - to)  # noqa: E731
+        plain = lambda p: FS.fused_obj_sdf_plain((p - to).contiguous(), obj.ws, obj.bs,  # noqa: E731
+                                                 obj.meta)
+        pts, counter = to.cpu().numpy()[None], FS.KERNEL
+    lo, hi = bounds_from_points(pts, 0.08)
+    before = counter.launches
+    gk = evaluate_sdf_grid(kern, lo, hi, 64, device=dev)
+    assert counter.launches > before
+    gp = evaluate_sdf_grid(plain, lo, hi, 64, device=dev)
+    ok, text = CS.mesh_rule(torch, dev, gk, gp, bf16=part == "hand")
+    assert ok, text

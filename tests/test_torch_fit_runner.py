@@ -8,8 +8,9 @@ from '1''s pickles) with train.iter_num = 2:
     JAX runner's own save_pose and final_pose_numpy on the same frame),
     finite values, and '12' starts where '1' ended;
   * a second run finds the pickles and fits nothing (resume by artifact);
-  * train.frames_per_batch > 1 (the JAX runner's vmapped frames) raises
-    NotImplementedError: it comes with the video fitter.
+  * train.frames_per_batch = 2 fits a two-frame sequence's frames in
+    one group (tests/test_torch_fit_pipeline.py holds the batched runner
+    further).
 """
 
 import os
@@ -122,11 +123,24 @@ def test_single_fit_runner(workspace, tmp_path, monkeypatch):
     assert os.path.getmtime(p1) == mtime
 
 
-def test_frames_per_batch_raises(workspace):
-    ws, confs = workspace
-    with open(confs["1"]) as f:
-        text = f.read()
-    with open(confs["1"], "w") as f:
-        f.write(text.replace("iter_num = 2", "iter_num = 2\n  frames_per_batch = 2"))
-    with pytest.raises(NotImplementedError, match="video"):
-        TR.SingleFitRunner(confs["1"], "c", device="cpu").fitting()
+def test_frames_per_batch_raises(workspace, tmp_path):
+    """train.frames_per_batch = 2 (frame-batched fitting) no longer raises:
+    on a two-frame sequence it fits both frames in one group and writes
+    both pickles with the JAX runner's keys."""
+    ws = str(tmp_path / "two")
+    generate_catch_sequence(os.path.join(ws, "data/catch_sequence/test"), n_frames=2,
+                            n_views=4, H=48, W=56)
+    write_port_checkpoints(os.path.join(ws, "exp"))
+    conf = os.path.join(ws, "fit_1.conf")
+    with open(conf, "w") as f:
+        f.write(FIT_CONF.format(ws=ws, fit_type="1", net=TINY_NET.format()).replace(
+            "iter_num = 2", "iter_num = 2\n  frames_per_batch = 2"))
+    TR.SingleFitRunner(conf, "c", device="cpu").fitting()
+    pose_dir = os.path.join(ws, "fit_res", "view_4", "1", "person1_bean", "seq0", "pose_1")
+    assert sorted(os.listdir(pose_dir)) == ["0.pickle", "1.pickle"]
+    for n in ("0.pickle", "1.pickle"):
+        with open(os.path.join(pose_dir, n), "rb") as f:
+            pose = pickle.load(f)
+        assert sorted(pose) == ["gt_Ro", "gt_To", "gt_joint3d", "pred_Ro", "pred_To",
+                                "pred_joint3d"]
+        assert np.isfinite(pose["pred_joint3d"]).all()

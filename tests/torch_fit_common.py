@@ -152,3 +152,114 @@ def port_step(s, fit_type, b, fine):
     return ({k: float(v) for k, v in m.items()},
             {k: pose[k].grad.numpy() for k in TS.POSE_KEYS},
             {k: pose[k].detach().numpy() for k in TS.POSE_KEYS})
+
+
+# -- the video step (test_torch_fit_video.py) and the frame-batched step
+# (test_torch_fit_batched.py) --
+
+N_FRAMES = 6
+SHIFT = 0.01   # each frame's hand and object 1 cm further along x
+
+
+def seq_frame(i):
+    """Frame i of a sequence: frame(seed=i) with its hand and object moved
+    by i x SHIFT (a different pose a frame, one camera), and an object
+    whose every tenth vertex (the stable term's) is a stable_verts point."""
+    b = frame(seed=i)
+    move = np.asarray([i * SHIFT, 0.0, 0.0], np.float32)
+    for k in ("joints_pred", "gt_joint3d", "To_pred", "To_gt"):
+        b[k] = (b[k] + move).astype(np.float32)
+    verts = b["obj_verts"].copy()
+    verts[0::10][:5] = stable_verts()
+    b["obj_verts"] = verts
+    return b
+
+
+def stable_verts():
+    """Five object-local points near the hand's wrist and thumb, each
+    inside the hand (sdf < -0.005) in some frames of the first windows at
+    tables0 and outside (> 0.005) in others: points of a 5 cm grid around
+    joints 0, 1, 2, 5 and 9 picked by their sdf in every frame."""
+    _, _, joints = hand_pose_np()
+    g = np.linspace(-0.04, 0.04, 5)
+    grid = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    cands = (joints[[0, 1, 2, 5, 9]][:, None, :] + grid[None]).reshape(-1, 3)
+    return (cands[[13, 18, 19, 28, 54]] - frame(seed=0)["To_pred"]).astype(np.float32)
+
+
+WINDOW_SHARED = ("cam_R", "cam_T", "focal", "principal", "obj_verts")
+
+
+def window_batch(idx, anchor=1.0):
+    """The video step's batch (numpy) of the window `idx` of an
+    N_FRAMES-frame sequence: per-frame arrays stacked in frame order, one
+    camera and object."""
+    frames = [seq_frame(i) for i in idx]
+    b = {k: np.stack([f[k] for f in frames]) for k in frames[0] if k not in WINDOW_SHARED}
+    b.update({k: frames[0][k] for k in WINDOW_SHARED})
+    b["index"] = np.asarray(idx, np.int32)
+    b["anchor_enabled"] = np.float32(anchor)
+    return b
+
+
+def tables0(seed=4):
+    """The six tables a little away from their start (as pose0)."""
+    from honerf_tpu.fit import video as JV
+
+    rng = np.random.default_rng(seed)
+    return {k: (np.asarray(v) + 0.02 * rng.normal(size=np.shape(v))).astype(np.float32)
+            for k, v in JV.init_video_tables(N_FRAMES).items()}
+
+
+def jax_video_steps(s, fit_type, batches):
+    """JAX video steps from tables0 on the batches in turn: per step
+    (metrics, {table: gradient}, tables after Adam); the gradient read as
+    the change of Adam's mu (mu' = 0.9 mu + 0.1 g)."""
+    from honerf_tpu.fit import video as JV
+
+    jcfg, jccfg, jocfg, joccfg = s["jcfgs"]
+    fcfg = JS.FitHyper(batch_size=N_RAYS, fit_type=fit_type)
+    step, opt = JV.make_video_fit_step(s["jnets"], jcfg, jccfg, jocfg, joccfg,
+                                       JRenderConfig(**RC), fcfg, N_FRAMES)
+    step = jax.jit(step)
+    tables = {k: jnp.asarray(v) for k, v in tables0().items()}
+    state = (tables, opt.init(tables))
+    mu = {k: np.zeros(np.shape(v), np.float32) for k, v in tables.items()}
+    out = []
+    for b in batches:
+        state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()},
+                        jax.random.PRNGKey(0))
+        new_mu = {k: np.asarray(state[1].inner_states[k].inner_state[0].mu[k]) for k in mu}
+        grads = {k: (new_mu[k] - 0.9 * mu[k]) / 0.1 for k in mu}
+        mu = new_mu
+        out.append(({k: float(v) for k, v in m.items()}, grads,
+                    {k: np.asarray(v) for k, v in state[0].items()}))
+    return out
+
+
+def port_batch(b, device="cpu"):
+    return {k: (torch.as_tensor(v, dtype=torch.int64, device=device) if k == "index"
+                else torch.as_tensor(np.asarray(v, np.float32), device=device))
+            for k, v in b.items()}
+
+
+def port_video_steps(s, fit_type, batches, fine=None):
+    """The port's video steps, as jax_video_steps."""
+    from honerf_torch.fit import video as TV
+
+    tcfg, tccfg, tocfg, toccfg = s["tcfgs"]
+    fcfg = TS.FitHyper(batch_size=N_RAYS, fit_type=fit_type)
+    step = TV.make_video_fit_step(s["tnets"], tcfg, tccfg, tocfg, toccfg, TN.RenderConfig(**RC),
+                                  fcfg, N_FRAMES, fused_fine=fine)
+    state = TV.init_video_state(N_FRAMES, "cpu")
+    with torch.no_grad():
+        for k, v in tables0().items():
+            state["tables"][k].copy_(t(v))
+    out = []
+    for b in batches:
+        state, m = step(state, port_batch(b))
+        tab = state["tables"]
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: tab[k].grad.numpy().copy() for k in TS.POSE_KEYS},
+                    {k: tab[k].detach().numpy().copy() for k in TS.POSE_KEYS}))
+    return out
